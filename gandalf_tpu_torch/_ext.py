@@ -1,0 +1,221 @@
+"""Build, load and launch the CUDA kernels K1-K3 of ``csrc/``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build goes
+into ``_build/`` beside this file at first use and is redone when the
+sources change (the library's name carries a hash of them), so a fresh
+checkout builds everything on its first kernel call.  Nothing is built or
+loaded at import time.
+
+The wrappers below check device, dtype, shape and contiguity, allocate
+every output and scratch tensor with ``torch.empty``, launch on PyTorch's
+current stream and raise if the launch reports an error.  Each adds one
+to its kernel's count in ``LAUNCHES`` when it launches, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+_CSRC = _HERE / "csrc"
+_BUILD = _HERE / "_build"
+_UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu")
+# no --use_fast_math: the float64 parity checks need IEEE sqrt and division
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# launches per kernel since the last reset_launches()
+LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0}
+
+_lib = None
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ARGTYPES = {
+    "grid27_bin": [_P, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _I,
+                   _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "grid27_density": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _P],
+    "grid27_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _D, _D, _D, _D, _I, _I, _D, _D, _P, _P, _P, _I, _P],
+}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(_CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return _BUILD / f"libgrid27_{_source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile csrc/ into the shared library unless it is current; the
+    compiler's output (register and spill counts) goes to a .log beside
+    it.  Returns the library's path."""
+    so = library_path()
+    if so.exists():
+        return so
+    _BUILD.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(_CSRC / u) for u in _UNITS]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           + proc.stderr[-6000:])
+    os.replace(tmp, so)
+    return so
+
+
+def build_log() -> str:
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        dll = ctypes.CDLL(str(build()))
+        for name, types in _ARGTYPES.items():
+            for sfx in _SUFFIX.values():
+                fn = getattr(dll, f"{name}_{sfx}")
+                fn.argtypes = types
+                fn.restype = ctypes.c_int
+        dll.grid27_error_string.argtypes = [ctypes.c_int]
+        dll.grid27_error_string.restype = ctypes.c_char_p
+        _lib = dll
+    return _lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _float_suffix(dtype) -> str:
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the CUDA kernels take float32 or float64, not "
+                        f"{dtype}")
+    return _SUFFIX[dtype]
+
+
+def _grid_args(spec):
+    if spec.ndim != 3 or spec.qz != 1 or spec.mirror:
+        raise NotImplementedError("the CUDA kernels take 3D grids without "
+                                  "mirror layers and with qz = 1")
+    return (*spec.ncells, spec.k_cell, *[int(p) for p in spec.periodic],
+            *[float(x) for x in spec.extents])
+
+
+def _launch(name: str, dtype, device: torch.device, *args) -> None:
+    fn = getattr(lib(), f"{name}_{_float_suffix(dtype)}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*args, device.index, stream)
+    if rc != 0:
+        msg = lib().grid27_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (code {rc})")
+    LAUNCHES[name] += 1
+
+
+def _p(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def grid27_bin(spec, r: torch.Tensor):
+    """K1 on r (N, 3): (cell_of, slot_of) int32 (N,) and overflow ()."""
+    N = r.shape[0]
+    _check(r, "r", r.dtype, (N, 3))
+    dev = r.device
+    C = spec.total_cells
+    i32 = dict(dtype=torch.int32, device=dev)
+    count = torch.empty((C,), **i32)
+    offset = torch.empty((C + 1,), **i32)
+    rank_tmp = torch.empty((N,), **i32)
+    members = torch.empty((N,), **i32)
+    cell_of = torch.empty((N,), **i32)
+    slot_of = torch.empty((N,), **i32)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    _launch("grid27_bin", r.dtype, dev, _p(r), N, *spec.ncells,
+            *[float(x) for x in spec.lo], *[float(x) for x in spec.extents],
+            spec.k_cell, _p(count), _p(offset), _p(rank_tmp), _p(members),
+            _p(cell_of), _p(slot_of), _p(overflow))
+    return cell_of, slot_of, overflow
+
+
+def grid27_density(spec, kern, h_fac, h_converge, hmax, r_d, m_d, h_d,
+                   fill):
+    """K2 on dense (*ncells, K[, 3]) tensors: (rho, invom, zeta) sums at
+    each slot's final h and its converged flag."""
+    shape = tuple(spec.ncells) + (spec.k_cell,)
+    dt = r_d.dtype
+    _check(r_d, "r_d", dt, shape + (3,))
+    _check(m_d, "m_d", dt, shape)
+    _check(h_d, "h_d", dt, shape)
+    _check(fill, "fill", torch.bool, shape)
+    rho, invom, zeta = (torch.empty(shape, dtype=dt, device=r_d.device)
+                        for _ in range(3))
+    done = torch.empty(shape, dtype=torch.bool, device=r_d.device)
+    _launch("grid27_density", dt, r_d.device, _p(r_d), _p(m_d), _p(h_d),
+            _p(fill), *_grid_args(spec), float(kern.kernnorm), float(h_fac),
+            float(h_converge), float(hmax), _p(rho), _p(invom), _p(zeta),
+            _p(done))
+    return rho, invom, zeta, done
+
+
+def grid27_forces(spec, kern, visc, r_d, v_d, packed, fill):
+    """K3 on dense tensors: pair sums a (*ncells, K, 3), dudt and the
+    unnormalised div_v (*ncells, K).  `packed` (*ncells, K, 9) holds
+    ops.sph_grid27.FORCE_SCALARS."""
+    shape = tuple(spec.ncells) + (spec.k_cell,)
+    dt = r_d.dtype
+    _check(r_d, "r_d", dt, shape + (3,))
+    _check(v_d, "v_d", dt, shape + (3,))
+    _check(packed, "packed", dt, shape + (9,))
+    _check(fill, "fill", torch.bool, shape)
+    a = torch.empty(shape + (3,), dtype=dt, device=r_d.device)
+    dudt = torch.empty(shape, dtype=dt, device=r_d.device)
+    div_v = torch.empty(shape, dtype=dt, device=r_d.device)
+    _launch("grid27_forces", dt, r_d.device, _p(r_d), _p(v_d), _p(packed),
+            _p(fill), *_grid_args(spec), float(kern.kernnorm),
+            int(visc.avisc), int(visc.acond), float(visc.alpha_visc),
+            float(visc.beta_visc), _p(a), _p(dudt), _p(div_v))
+    return a, dudt, div_v

@@ -1,0 +1,67 @@
+"""Carry state and grid plans across from the JAX package.
+
+``state_from_numpy`` turns a dict of numpy arrays (the JAX ``SphState``'s
+fields, read out with ``np.asarray``) into the port's ``SphState`` on a
+given device and float dtype; ``state_to_numpy`` goes back.
+``grid_spec_from_jax`` copies a frozen JAX ``Grid27Spec`` field for
+field.  Nothing here imports JAX: the JAX objects are read through their
+attributes only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .ops.sph_grid27 import Grid27Spec
+from .state import SphState
+
+_OPTIONAL = ("bucket_map", "walk_mp", "walk_near", "walk_plan_r",
+             "walk_anchors", "walk_margin")
+
+
+def state_from_numpy(fields: Dict[str, np.ndarray], device="cpu",
+                     dtype=torch.float64) -> SphState:
+    """SphState from per-field numpy arrays: floating fields take `dtype`,
+    integer and bool fields keep their kind."""
+    kw = {}
+    for f in dataclasses.fields(SphState):
+        x = fields.get(f.name)
+        if x is None:
+            if f.name not in _OPTIONAL:
+                raise KeyError(f"missing SphState field {f.name!r}")
+            kw[f.name] = None
+            continue
+        # copies: arrays read out of JAX are read-only views
+        x = np.array(x)
+        if x.dtype.kind == "f":
+            kw[f.name] = torch.tensor(x, dtype=dtype, device=device)
+        else:
+            kw[f.name] = torch.tensor(x, device=device)
+    kw["nstep"] = kw["nstep"].to(torch.int64)
+    return SphState(**kw)
+
+
+def state_to_numpy(state: SphState) -> Dict[str, np.ndarray]:
+    """Every non-None field as a host numpy array."""
+    out = {}
+    for f in dataclasses.fields(SphState):
+        x = getattr(state, f.name)
+        if x is not None:
+            out[f.name] = x.detach().cpu().numpy()
+    return out
+
+
+def grid_spec_from_jax(spec) -> Grid27Spec:
+    """Field-for-field copy of gandalf_tpu's frozen Grid27Spec."""
+    return Grid27Spec(ndim=int(spec.ndim),
+                      ncells=tuple(int(n) for n in spec.ncells),
+                      lo=tuple(float(x) for x in spec.lo),
+                      extents=tuple(float(x) for x in spec.extents),
+                      k_cell=int(spec.k_cell),
+                      periodic=tuple(bool(p) for p in spec.periodic),
+                      qz=int(spec.qz),
+                      mirror=tuple(tuple(w) for w in spec.mirror))

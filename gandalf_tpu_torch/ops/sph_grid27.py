@@ -1,0 +1,535 @@
+"""Structured 27-shift grid hydro pass: binning (K1), grad-h density (K2)
+and SPH pair forces (K3).
+
+Counterpart of ``gandalf_tpu/ops/sph_grid27.py`` without mirror walls
+and without the z-slab (``qz > 1``) plan.  Particles are binned to a
+uniform grid whose cells are at least one kernel support wide, and
+scattered into dense per-cell storage shaped (*ncells, K[, 3]); every
+particle's neighbours then lie in the 27 cells around its own.  Public
+functions keep the JAX package's dense layout.
+
+Each kernel has a plain PyTorch version here and a CUDA C++ kernel in
+``csrc/``, launched through ``_ext``.  A CPU tensor takes the plain
+version; a CUDA tensor takes the kernel, or the wrapper raises.  Neither
+uses ghost-layer copies: both wrap neighbour cell indices and shift
+positions by the box length along periodic dims.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .. import _ext
+from ..kernels.smoothing import SmoothingKernel
+from ..state import DomainBox, SphState
+from .forces import (ACOND_PRICE2008, ACOND_WADSLEY2008, AVISC_MON97,
+                     AVISC_MON97MM97, AVISC_NONE, ArtificialViscosity)
+
+Tensor = torch.Tensor
+
+ITER_FP = 30
+ITER_MAX = 150
+
+
+# order of the packed per-slot scalars handed to the force kernel
+FORCE_SCALARS = ("m", "h", "rho", "u", "pressure", "sound", "invomega",
+                 "hfactor", "alpha")
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid27Spec:
+    """Static grid geometry (same fields as gandalf_tpu's Grid27Spec).
+
+    The port plans only ``qz == 1`` and no mirror layers; the fields stay
+    so a JAX plan copies across unchanged."""
+
+    ndim: int
+    ncells: Tuple[int, ...]        # dim 0 slowest in the flat cell id
+    lo: Tuple[float, ...]
+    extents: Tuple[float, ...]
+    k_cell: int
+    periodic: Tuple[bool, ...]
+    qz: int = 1
+    mirror: Tuple[Tuple[int, int], ...] = ()
+
+    @property
+    def total_cells(self) -> int:
+        return int(np.prod(self.ncells))
+
+
+def hmax_of(spec: Grid27Spec, kernrange: float) -> float:
+    """Largest h whose kernel support the 27-cell stencil still covers."""
+    reach = [spec.qz * spec.extents[0] / spec.ncells[0]]
+    reach += [spec.extents[k] / spec.ncells[k]
+              for k in range(1, spec.ndim)]
+    return min(reach) / kernrange
+
+
+def plan_grid27(box: DomainBox, r: np.ndarray, h_max: float,
+                kernrange: float, k_slack: float = 1.35) -> Grid27Spec:
+    """Host-side grid plan: cells at least one support (kernrange*h_max)
+    wide, K = ceil(max occupancy * k_slack) + 1 slots per cell."""
+    r = np.asarray(r)
+    ndim = r.shape[1]
+    if ndim != 3:
+        raise NotImplementedError(
+            "the grid path is ported for 3D only (ROADMAP queue 1, item 3)")
+    if box.mirror_walls():
+        raise NotImplementedError(
+            "mirror/wall boundaries are not ported yet (ROADMAP queue 1, "
+            "item 8)")
+    support = float(kernrange * h_max)
+    pdims = box.periodic_dims()
+    lo, hi, periodic = [], [], []
+    for k in range(ndim):
+        if k in pdims:
+            lo.append(box.boxmin[k])
+            hi.append(box.boxmax[k])
+            periodic.append(True)
+        else:
+            lo.append(float(r[:, k].min()) - 1e-6)
+            hi.append(float(r[:, k].max()) + 1e-6)
+            periodic.append(False)
+    ncells = tuple(max(int(np.floor((hi[k] - lo[k]) / support)), 1)
+                   for k in range(ndim))
+    extents = tuple(hi[k] - lo[k] for k in range(ndim))
+    cid = np.zeros(r.shape[0], dtype=np.int64)
+    for k in range(ndim):
+        ck = np.clip(np.floor((r[:, k] - lo[k]) / extents[k]
+                              * ncells[k]).astype(np.int64),
+                     0, ncells[k] - 1)
+        cid = cid * ncells[k] + ck
+    counts = np.bincount(cid, minlength=int(np.prod(ncells)))
+    k_cell = int(np.ceil(counts.max() * k_slack)) + 1
+    return Grid27Spec(ndim=ndim, ncells=ncells, lo=tuple(lo),
+                      extents=extents, k_cell=k_cell,
+                      periodic=tuple(periodic))
+
+
+# ---------------------------------------------------------------------------
+# K1: binning
+# ---------------------------------------------------------------------------
+
+class GridBinning(NamedTuple):
+    cell_of: Tensor     # (N,) int32 flat cell id per particle
+    slot_of: Tensor     # (N,) int32 slot in its cell, clamped to K-1
+    overflow: Tensor    # () bool: some cell holds more than K particles
+
+
+def bin_particles(spec: Grid27Spec, r: Tensor) -> GridBinning:
+    """Cell id and stable slot rank (original particle order within a
+    cell) per particle.  K1 on a CUDA tensor."""
+    if r.is_cuda:
+        return GridBinning(*_ext.grid27_bin(spec, r))
+    return bin_particles_plain(spec, r)
+
+
+def bin_particles_plain(spec: Grid27Spec, r: Tensor) -> GridBinning:
+    """Plain version of K1: stable sort by cell id, rank within runs."""
+    N = r.shape[0]
+    cid = torch.zeros((N,), dtype=torch.int32, device=r.device)
+    for k in range(spec.ndim):
+        ck = torch.floor((r[:, k] - spec.lo[k]) / spec.extents[k]
+                         * spec.ncells[k]).to(torch.int32)
+        cid = cid * spec.ncells[k] + torch.clamp(ck, 0, spec.ncells[k] - 1)
+    order = torch.sort(cid, stable=True).indices
+    cid_sorted = cid[order]
+    idx = torch.arange(N, dtype=torch.int64, device=r.device)
+    first = torch.ones((N,), dtype=torch.bool, device=r.device)
+    first[1:] = cid_sorted[1:] != cid_sorted[:-1]
+    run_start = torch.cummax(torch.where(first, idx, 0), dim=0).values
+    slot = torch.empty((N,), dtype=torch.int32, device=r.device)
+    slot[order] = (idx - run_start).to(torch.int32)
+    overflow = torch.any(slot >= spec.k_cell)
+    return GridBinning(cell_of=cid,
+                       slot_of=torch.clamp(slot, max=spec.k_cell - 1),
+                       overflow=overflow)
+
+
+def _flat_slot(spec: Grid27Spec, b: GridBinning) -> Tensor:
+    return b.cell_of.long() * spec.k_cell + b.slot_of.long()
+
+
+def to_dense(spec: Grid27Spec, b: GridBinning, x: Tensor) -> Tensor:
+    """(N, ...) -> (*ncells, K, ...) dense cell tensor (zeros in empty
+    slots)."""
+    K, C = spec.k_cell, spec.total_cells
+    out = torch.zeros((C * K,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    out[_flat_slot(spec, b)] = x
+    return out.reshape(tuple(spec.ncells) + (K,) + tuple(x.shape[1:]))
+
+
+def dense_fill_mask(spec: Grid27Spec, b: GridBinning) -> Tensor:
+    K, C = spec.k_cell, spec.total_cells
+    fill = torch.zeros((C * K,), dtype=torch.bool, device=b.cell_of.device)
+    fill[_flat_slot(spec, b)] = True
+    return fill.reshape(tuple(spec.ncells) + (K,))
+
+
+def from_dense(spec: Grid27Spec, b: GridBinning, x_d: Tensor) -> Tensor:
+    """(*ncells, K, ...) -> (N, ...)."""
+    K, C = spec.k_cell, spec.total_cells
+    flat = x_d.reshape((C * K,) + tuple(x_d.shape[spec.ndim + 1:]))
+    return flat[_flat_slot(spec, b)]
+
+
+# ---------------------------------------------------------------------------
+# Neighbour tables for the plain versions
+# ---------------------------------------------------------------------------
+
+# the 27 cell offsets in the kernels' order; index 13 is the cell itself
+_SHIFTS = tuple(itertools.product((-1, 0, 1), repeat=3))
+_CENTRE = _SHIFTS.index((0, 0, 0))
+
+
+def _neighbour_table(spec: Grid27Spec, device):
+    """(C, 27) neighbour cell ids, (C, 27, 3) coordinate shifts (±L where
+    a periodic dim wraps) and (C, 27) in-range mask (open dims)."""
+    n = spec.ncells
+    coords = np.stack(np.meshgrid(*[np.arange(nk) for nk in n],
+                                  indexing="ij"), -1).reshape(-1, 3)
+    C = coords.shape[0]
+    nb = np.zeros((C, 27), dtype=np.int64)
+    off = np.zeros((C, 27, 3))
+    ok = np.ones((C, 27), dtype=bool)
+    for s, d in enumerate(_SHIFTS):
+        c = coords + np.asarray(d)
+        for k in range(3):
+            below, above = c[:, k] < 0, c[:, k] >= n[k]
+            if spec.periodic[k]:
+                off[:, s, k] = np.where(below, -spec.extents[k],
+                                        np.where(above, spec.extents[k], 0.0))
+                c[:, k] %= n[k]
+            else:
+                ok[:, s] &= ~(below | above)
+                c[:, k] = np.clip(c[:, k], 0, n[k] - 1)
+        nb[:, s] = (c[:, 0] * n[1] + c[:, 1]) * n[2] + c[:, 2]
+    return (torch.as_tensor(nb, device=device),
+            torch.as_tensor(off, device=device),
+            torch.as_tensor(ok, device=device))
+
+
+def _pair_list(spec: Grid27Spec, r_d: Tensor, fill: Tensor, cut2: float,
+               exclude_self: bool):
+    """Candidate pairs (i, j) over the 27-cell stencil with both slots
+    filled and |r_j - r_i|^2 <= cut2, as flat slot indices row (i) and
+    col (j), separations r_j - r_i (P, 3) and d^2 (P,).  With
+    `exclude_self`, a slot's pair with itself (same slot, centre shift)
+    and coincident pairs are dropped.  Built over chunks of cells that
+    bound the (cells, K, 27K) candidate block: 2^25 candidates on a GPU
+    (a few hundred MB), 2^21 on a CPU."""
+    K, C = spec.k_cell, spec.total_cells
+    dev = r_d.device
+    r_f = r_d.reshape(C, K, 3)
+    fill_f = fill.reshape(C, K)
+    nb, off, ok = _neighbour_table(spec, dev)
+    self_pair = (torch.arange(27 * K, device=dev)[None, :]
+                 == _CENTRE * K + torch.arange(K, device=dev)[:, None])
+    budget = 1 << 25 if dev.type == "cuda" else 1 << 21
+    step = max(1, budget // (K * 27 * K))
+    parts = []
+    for c0 in range(0, C, step):
+        c1 = min(c0 + step, C)
+        B = c1 - c0
+        nbc = nb[c0:c1]
+        # neighbour positions shifted by +-L where a periodic dim wraps
+        r_tab = (r_f[nbc] + off[c0:c1].to(r_d.dtype)[:, :, None, :]
+                 ).reshape(B, 27 * K, 3)
+        f_tab = (fill_f[nbc] & ok[c0:c1][..., None]).reshape(B, 27 * K)
+        dx = [r_tab[:, None, :, k] - r_f[c0:c1][:, :, None, k]
+              for k in range(3)]
+        d2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
+        keep = fill_f[c0:c1][:, :, None] & f_tab[:, None, :] & (d2 <= cut2)
+        if exclude_self:
+            keep &= ~self_pair & (d2 > 0.0)
+        b, i, jj = keep.nonzero(as_tuple=True)
+        row = (c0 + b) * K + i
+        col = nb[c0 + b, jj // K] * K + jj % K
+        parts.append((row, col, torch.stack([x[keep] for x in dx], dim=-1),
+                      d2[keep]))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+# ---------------------------------------------------------------------------
+# K2: grad-h density iteration
+# ---------------------------------------------------------------------------
+
+class Grid27Density(NamedTuple):
+    h: Tensor
+    rho: Tensor
+    invomega: Tensor
+    zeta: Tensor
+    hfactor: Tensor
+    overflow: Tensor
+
+
+def density_sums(kern: SmoothingKernel, spec: Grid27Spec, h_fac: float,
+                 h_converge: float, hmax: float, r_d: Tensor, m_d: Tensor,
+                 h_d: Tensor, fill: Tensor):
+    """The h-rho iteration of every filled slot: (rho, invom, zeta) sums
+    at its final h and its converged flag, each (*ncells, K).  K2 on
+    CUDA tensors."""
+    if r_d.is_cuda:
+        return _ext.grid27_density(spec, kern, h_fac, h_converge, hmax,
+                                   r_d, m_d, h_d, fill)
+    return density_sums_plain(kern, spec, h_fac, h_converge, hmax,
+                              r_d, m_d, h_d, fill)
+
+
+def density_sums_plain(kern: SmoothingKernel, spec: Grid27Spec,
+                       h_fac: float, h_converge: float, hmax: float,
+                       r_d: Tensor, m_d: Tensor, h_d: Tensor, fill: Tensor):
+    """Plain version of K2: the lockstep iteration of gandalf_tpu's
+    density_grid27 (30 fixed-point steps, bisection up to step 150; a
+    converged slot keeps its h) over a list of the pairs within
+    kernrange*hmax, the farthest any h <= hmax reaches."""
+    K, C, nd = spec.k_cell, spec.total_cells, spec.ndim
+    # pairs beyond the cut have s > kernrange at every h <= hmax: their
+    # terms are exactly zero (the margin covers rounding of s)
+    cut2 = (kern.kernrange * hmax) ** 2 * (1.0 + 1e-6)
+    row, col, _, d2 = _pair_list(spec, r_d, fill, cut2, False)
+    fill_f = fill.reshape(-1)
+    m_j = m_d.reshape(-1)[col]
+    m_t = torch.clamp_min(m_d.reshape(-1), 1e-30)
+
+    def pair_sum(x):
+        return torch.zeros((C * K,), dtype=x.dtype,
+                           device=x.device).index_add_(0, row, m_j * x)
+
+    def sums_at(h):
+        invh = 1.0 / h
+        invhsqd = invh * invh
+        ssqd = d2 * invhsqd[row]
+        rho = pair_sum(kern.w0_s2(ssqd))
+        invom = pair_sum(kern.womega_s2(ssqd))
+        zeta = pair_sum(kern.wzeta_s2(ssqd))
+        hfac = invh ** nd
+        return rho * hfac, invom * hfac * invh, zeta * invhsqd
+
+    h = torch.clamp(torch.where(fill_f, h_d.reshape(-1), 0.5 * hmax),
+                    1e-6 * hmax, hmax)
+    lo = torch.zeros_like(h)
+    hi = torch.full_like(h, hmax)
+    done = ~fill_f
+    rho = invom = zeta = torch.zeros_like(h)
+    it = 0
+    while it < ITER_MAX and not bool(done.all()):
+        rho, invom, zeta = sums_at(h)
+        h_target = h_fac * (m_t / torch.clamp_min(rho, 1e-300)) ** (1.0 / nd)
+        conv = (rho > 0.0) & (torch.abs(h - h_target) / h < h_converge)
+        too_big = (rho < 1e-30) | (h > h_target)
+        if it >= ITER_FP:
+            hi = torch.where(too_big & ~conv, h, hi)
+            lo = torch.where(~too_big & ~conv, h, lo)
+        h_new = h_target if it < ITER_FP else 0.5 * (lo + hi)
+        h = torch.where(conv | done, h, torch.clamp(h_new, 1e-6 * hmax, hmax))
+        done = done | conv
+        it += 1
+    shape = tuple(spec.ncells) + (K,)
+    return tuple(x.reshape(shape) for x in (rho, invom, zeta, done))
+
+
+def density_grid27(kern: SmoothingKernel, spec: Grid27Spec,
+                   h_fac: float, h_converge: float, r_d: Tensor,
+                   m_d: Tensor, h_d: Tensor, fill: Tensor,
+                   hmax: float) -> Grid27Density:
+    """Grad-h h-rho iteration over the 27-cell stencil, then the per-slot
+    finish.  Dense (*ncells, K) in and out."""
+    sums = density_sums(kern, spec, h_fac, h_converge, hmax, r_d, m_d, h_d,
+                        fill)
+    return density_finish(spec, h_fac, hmax, m_d, fill, *sums)
+
+
+def density_finish(spec: Grid27Spec, h_fac: float, hmax: float,
+                   m_d: Tensor, fill: Tensor, rho: Tensor, invom: Tensor,
+                   zeta: Tensor, done: Tensor) -> Grid27Density:
+    """Per-slot finish of the iteration's sums: h from rho, invomega,
+    zeta, hfactor, the overflow flag (a slot did not converge or its h
+    passed 0.99 hmax), and benign values in empty slots."""
+    nd = spec.ndim
+    invndim = 1.0 / nd
+    rho_safe = torch.clamp_min(rho, 1e-300)
+    h_final = h_fac * (torch.clamp_min(m_d, 1e-30) / rho_safe) ** invndim
+    invh = 1.0 / h_final
+    hfactor = invh ** (nd + 1)
+    dh_drho = -invndim * h_final / rho_safe
+    invomega = 1.0 / (1.0 - dh_drho * invom)
+    zeta_final = dh_drho * zeta * invomega
+    overflow = torch.any(fill & ~done) | torch.any(
+        torch.where(fill, h_final, 0.0) > 0.99 * hmax)
+
+    # empty slots take benign values: they are masked neighbours in the
+    # force pass, where NaN would poison valid pairs through 0*NaN
+    def sane(x, v):
+        return torch.where(fill, x, v)
+
+    return Grid27Density(h=sane(h_final, 1.0), rho=sane(rho, 1.0),
+                         invomega=sane(invomega, 1.0),
+                         zeta=sane(zeta_final, 0.0),
+                         hfactor=sane(hfactor, 0.0), overflow=overflow)
+
+
+# ---------------------------------------------------------------------------
+# K3: SPH pair forces
+# ---------------------------------------------------------------------------
+
+def force_sums(kern: SmoothingKernel, visc: ArtificialViscosity,
+               spec: Grid27Spec, r_d: Tensor, v_d: Tensor, packed: Tensor,
+               fill: Tensor):
+    """Pair sums of every slot: acceleration (*ncells, K, 3), and du/dt
+    and the unnormalised -sum m_j dvdr W'_i (*ncells, K), before the
+    epilogue.  `packed` holds FORCE_SCALARS on its last axis.  K3 on
+    CUDA tensors."""
+    if r_d.is_cuda:
+        return _ext.grid27_forces(spec, kern, visc, r_d, v_d, packed, fill)
+    return force_sums_plain(kern, visc, spec, r_d, v_d, packed, fill)
+
+
+def force_sums_plain(kern: SmoothingKernel, visc: ArtificialViscosity,
+                     spec: Grid27Spec, r_d: Tensor, v_d: Tensor,
+                     packed: Tensor, fill: Tensor):
+    """Plain version of K3: gandalf_tpu's _force_shifts over a list of the
+    pairs within kernrange times the largest h, with the separations and
+    (v_j - v_i).(r_j - r_i) computed directly.  A pair counts when j is a
+    filled slot, is not i itself (same slot, centre shift) and does not
+    coincide with i."""
+    K, C = spec.k_cell, spec.total_cells
+    fill_f = fill.reshape(-1)
+    pk = packed.reshape(C * K, len(FORCE_SCALARS))
+    col_of = {k: i for i, k in enumerate(FORCE_SCALARS)}
+    # beyond kernrange*max(h) both kernel gradients of a pair vanish and
+    # every term of the pair is exactly zero
+    h_big = float(torch.max(torch.where(fill_f, pk[:, col_of["h"]], 0.0)))
+    cut2 = (kern.kernrange * h_big) ** 2 * (1.0 + 1e-6)
+    row, col, dx, d2 = _pair_list(spec, r_d, fill, cut2, True)
+    v_f = v_d.reshape(C * K, 3)
+
+    def own(key):
+        return pk[row, col_of[key]]
+
+    def nbr(key):
+        return pk[col, col_of[key]]
+
+    invh_i = 1.0 / torch.clamp_min(own("h"), 1e-30)
+    invrho_i = 1.0 / torch.clamp_min(own("rho"), 1e-300)
+    press_i, sound_i, u_i = own("pressure"), own("sound"), own("u")
+    m_j = nbr("m")
+    invrho_j = 1.0 / nbr("rho")
+    drmag = torch.sqrt(d2)
+    inv_drmag = 1.0 / drmag
+    wkerni = own("hfactor") * kern.w1(drmag * invh_i)
+    wkernj = nbr("hfactor") * kern.w1(drmag / nbr("h"))
+    dvdr = torch.sum((v_f[col] - v_f[row]) * dx, dim=-1) * inv_drmag
+    paux = (press_i * own("invomega") * invrho_i * invrho_i * wkerni
+            + nbr("pressure") * nbr("invomega") * invrho_j * invrho_j
+            * wkernj)
+    du = torch.zeros_like(d2)
+    if visc.avisc != AVISC_NONE:
+        approach = dvdr < 0.0
+        winvrho = 0.25 * (wkerni + wkernj) * (invrho_i + invrho_j)
+        if visc.avisc == AVISC_MON97:
+            alpha_eff = visc.alpha_visc
+        else:
+            alpha_eff = 0.5 * (own("alpha") + nbr("alpha"))
+        vsignal = sound_i + nbr("sound") - visc.beta_visc * alpha_eff * dvdr
+        paux = paux - torch.where(approach,
+                                  alpha_eff * vsignal * dvdr * winvrho, 0.0)
+        du = du - torch.where(approach, 0.5 * m_j * alpha_eff * vsignal
+                              * dvdr * dvdr * winvrho, 0.0)
+        if visc.acond == ACOND_WADSLEY2008:
+            du = du + torch.where(
+                approach, m_j * dvdr * (nbr("u") - u_i)
+                * (invrho_i * wkerni + invrho_j * wkernj), 0.0)
+        elif visc.acond == ACOND_PRICE2008:
+            du = du + torch.where(
+                approach, 0.5 * m_j * (u_i - nbr("u")) * winvrho
+                * (invrho_i + invrho_j)
+                * torch.sqrt(torch.abs(press_i - nbr("pressure"))), 0.0)
+    w_pair = m_j * paux * inv_drmag
+
+    def pair_sum(x):
+        out = torch.zeros((C * K,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        return out.index_add_(0, row, x)
+
+    shape = tuple(spec.ncells) + (K,)
+    return (pair_sum(w_pair[:, None] * dx).reshape(shape + (3,)),
+            pair_sum(du).reshape(shape),
+            pair_sum(-m_j * dvdr * wkerni).reshape(shape))
+
+
+def forces_grid27(kern: SmoothingKernel, visc: ArtificialViscosity,
+                  spec: Grid27Spec, dense: Dict[str, Tensor], fill: Tensor):
+    """Hydro forces over the 27-cell stencil.  dense: (*ncells, K[, 3])
+    tensors r, v and FORCE_SCALARS.  Returns dense (a, dudt, div_v,
+    dalphadt)."""
+    packed = torch.stack([dense[k] for k in FORCE_SCALARS], dim=-1)
+    a, dudt, div_v = force_sums(kern, visc, spec, dense["r"], dense["v"],
+                                packed, fill)
+    invh_i = 1.0 / torch.clamp_min(dense["h"], 1e-30)
+    invrho_i = 1.0 / torch.clamp_min(dense["rho"], 1e-300)
+    div_v = div_v * invrho_i
+    dudt = dudt - dense["pressure"] * div_v * invrho_i * dense["invomega"]
+    dalphadt = torch.zeros_like(invh_i)
+    if visc.avisc == AVISC_MON97MM97:
+        alpha_i = dense["alpha"]
+        dalphadt = (0.1 * dense["sound"] * (visc.alpha_visc_min - alpha_i)
+                    * invh_i + torch.clamp_min(-div_v, 0.0)
+                    * (visc.alpha_visc - alpha_i))
+    return a, dudt, div_v, dalphadt
+
+
+# ---------------------------------------------------------------------------
+# The hydro pass
+# ---------------------------------------------------------------------------
+
+def hydro_pass_grid27(kern, visc, box: DomainBox, spec: Grid27Spec, eos,
+                      h_fac, h_converge, hydro_forces: bool,
+                      s: SphState) -> SphState:
+    """Full grid hydro pass: bin -> dense -> density -> EOS -> forces ->
+    back to particle order.  The overflow flag is this pass's own."""
+    if spec.mirror or spec.qz != 1:
+        raise NotImplementedError(
+            "mirror layers and z-slab plans are not ported yet (ROADMAP "
+            "queue 1, items 8 and 13)")
+    b = bin_particles(spec, s.r)
+    hmax = hmax_of(spec, kern.kernrange)
+
+    def d(x):
+        return to_dense(spec, b, x)
+
+    fill = dense_fill_mask(spec, b)
+    r_d, v_d, m_d, h_d = d(s.r), d(s.v), d(s.m), d(s.h)
+    dens = density_grid27(kern, spec, h_fac, h_converge, r_d, m_d, h_d,
+                          fill, hmax)
+    u_d, pressure_d, sound_d = eos.thermal_update(
+        torch.clamp_min(dens.rho, 1e-30), d(s.u))
+    if hydro_forces:
+        dense_fields = {
+            "r": r_d, "v": v_d, "m": m_d, "h": dens.h, "rho": dens.rho,
+            "u": u_d, "pressure": pressure_d, "sound": sound_d,
+            "invomega": dens.invomega, "hfactor": dens.hfactor,
+            "alpha": d(s.alpha),
+        }
+        a_d, dudt_d, div_v_d, _ = forces_grid27(kern, visc, spec,
+                                                dense_fields, fill)
+    else:
+        a_d = torch.zeros_like(r_d)
+        dudt_d = torch.zeros_like(m_d)
+        div_v_d = torch.zeros_like(m_d)
+
+    def back(x_d):
+        return from_dense(spec, b, x_d)
+
+    return s.replace(
+        h=back(dens.h), rho=back(dens.rho), invomega=back(dens.invomega),
+        zeta=back(dens.zeta), hfactor=back(dens.hfactor), u=back(u_d),
+        pressure=back(pressure_d), sound=back(sound_d), a=back(a_d),
+        dudt=back(dudt_d), div_v=back(div_v_d),
+        neib_overflow=dens.overflow | b.overflow)

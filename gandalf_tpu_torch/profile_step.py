@@ -1,0 +1,81 @@
+"""Where a step's device time goes: torch.profiler over one burst of the
+hydro-only slice on one GPU.
+
+    python -m gandalf_tpu_torch.profile_step
+
+Sets up the slice at 64^3 = 262,144 particles in float32, runs two
+warm-up steps, then profiles one burst of 8 steps (main_loop_steps).
+Prints one JSON line: the window's host time, the device time summed
+over kernels and copies, the device's idle share of the window, and the
+device time per kernel name (largest first).  Refuses to run without
+CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+os.environ.pop("GANDALF_PRECISION", None)
+
+import torch  # noqa: E402
+
+N_SIDE = 64
+STEPS = 8
+
+
+def _device_us(evt) -> float:
+    # FunctionEventAvg renamed cuda_* to device_* in recent releases
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        sys.exit("profile_step: no CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from .check import jittered_box_ic, slice_params
+    from .sim.simulation import GradhSphSimulation
+
+    params = slice_params(N_SIDE)
+    sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
+    sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
+    sim.main_loop_steps(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        done = sim.main_loop_steps(STEPS)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    per_name = {}
+    for evt in prof.key_averages():
+        # device-side events only (kernels, copies, memsets): the host
+        # ops that launched them would count the same time again
+        us = _device_us(evt)
+        if str(evt.device_type).endswith("CUDA") and us > 0.0:
+            per_name[evt.key] = per_name.get(evt.key, 0.0) + us
+    busy_us = sum(per_name.values())
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps({
+        "card": card, "N": sim.state.N, "steps": done,
+        "ncells": list(sim.gridspec.ncells), "k_cell": sim.gridspec.k_cell,
+        "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "idle_share": 1.0 - busy_us / window_us,
+        "device_ms_per_step": busy_us / 1e3 / done,
+        "device_ms_by_name": {k: v / 1e3 for k, v in sorted(
+            per_name.items(), key=lambda kv: -kv[1])}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

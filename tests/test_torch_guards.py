@@ -1,0 +1,89 @@
+"""Guards of the PyTorch port: it never imports JAX, chip_smoke.py refuses
+to run without a GPU, and on a GPU each CUDA kernel agrees with its
+plain PyTorch version.
+
+This file imports no JAX, so its CUDA test also runs on a machine
+without JAX: ``python -m pytest --noconftest -m cuda
+tests/test_torch_guards.py``.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _env_without_precision():
+    env = dict(os.environ)
+    env.pop("GANDALF_PRECISION", None)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import gandalf_tpu_torch\n"
+        "from gandalf_tpu_torch.check import jittered_box_ic, slice_params\n"
+        "from gandalf_tpu_torch.sim.simulation import GradhSphSimulation\n"
+        "p = slice_params(8)\n"
+        "sim = GradhSphSimulation(p, device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation(jittered_box_ic(p, 8))\n"
+        "sim.main_loop_step()\n"
+        "sim.main_loop_step()\n"
+        "assert sim.Nsteps == 2 and sim.t > 0.0\n"
+        "print('jax' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_env_without_precision(), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "False"
+
+
+def test_chip_smoke_refuses_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: chip_smoke.py would run")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         cwd=REPO, env=_env_without_precision(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernels_match_plain_versions_on_gpu(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (compare_kernels, jittered_box_ic,
+                                         slice_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    p = slice_params(16)
+    sim = GradhSphSimulation(p, device="cuda", dtype=dtype)
+    sim.SetupSimulation(jittered_box_ic(p, 16))
+    report = compare_kernels(sim, sim.state)
+    torch.cuda.synchronize()
+    assert all(r["ok"] for r in report.values()), report
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A CUDA wrapper given CPU tensors raises; it never runs the plain
+    version in the kernel's place."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
+
+    spec = Grid27Spec(ndim=3, ncells=(2, 2, 2), lo=(0.0,) * 3,
+                      extents=(1.0,) * 3, k_cell=4, periodic=(True,) * 3)
+    r = torch.rand((16, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.grid27_bin(spec, r)
+    assert _ext.LAUNCHES["grid27_bin"] == 0

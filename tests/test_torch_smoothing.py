@@ -1,0 +1,86 @@
+"""Port parity: the M4 smoothing kernel in torch against gandalf_tpu's,
+and the M4 identities (float64, CPU)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gandalf_tpu.kernels.smoothing import kernel_factory as jax_kernel
+from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+
+torch.set_num_threads(1)
+
+S = np.linspace(0.0, 2.5, 2501)
+TOL = 1e-14
+
+
+@pytest.mark.parametrize("fn", ["w0", "w1", "womega", "wzeta"])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_m4_matches_jax(fn, ndim):
+    tk, jk = kernel_factory("m4", ndim), jax_kernel("m4", ndim)
+    got = getattr(tk, fn)(torch.as_tensor(S)).numpy()
+    want = np.asarray(getattr(jk, fn)(jnp.asarray(S)))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert (tk.kernrange, tk.kernnorm, tk.kernnormdrag) == (
+        jk.kernrange, jk.kernnorm, jk.kernnormdrag)
+
+
+@pytest.mark.parametrize("fn", ["w0_s2", "womega_s2", "wzeta_s2"])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_m4_squared_argument_matches_jax(fn, ndim):
+    tk, jk = kernel_factory("m4", ndim), jax_kernel("m4", ndim)
+    s2 = S * S
+    got = getattr(tk, fn)(torch.as_tensor(s2)).numpy()
+    want = np.asarray(getattr(jk, fn)(jnp.asarray(s2)))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def _volume_element(ndim, s):
+    return {1: 2.0 * np.ones_like(s), 2: 2.0 * np.pi * s,
+            3: 4.0 * np.pi * s * s}[ndim]
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_m4_normalisation(ndim):
+    kern = kernel_factory("m4", ndim)
+    s = np.linspace(0.0, kern.kernrange, 50001)
+    w = kern.w0(torch.as_tensor(s)).numpy()
+    assert abs(np.trapezoid(w * _volume_element(ndim, s), s) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_m4_w1_is_derivative_of_w0(ndim):
+    kern = kernel_factory("m4", ndim)
+    s = np.linspace(1e-3, kern.kernrange - 1e-3, 50001)
+    eps = 1e-6
+    dw0 = (kern.w0(torch.as_tensor(s + eps)).numpy()
+           - kern.w0(torch.as_tensor(s - eps)).numpy()) / (2 * eps)
+    np.testing.assert_allclose(kern.w1(torch.as_tensor(s)).numpy(), dw0,
+                               atol=5e-5)
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_m4_womega_identity(ndim):
+    kern = kernel_factory("m4", ndim)
+    s = torch.as_tensor(np.linspace(0.0, kern.kernrange - 1e-6, 50001))
+    expect = -(ndim * kern.w0(s) + s * kern.w1(s))
+    np.testing.assert_allclose(kern.womega(s).numpy(), expect.numpy(),
+                               atol=1e-10)
+
+
+def test_m4_reference_values():
+    kern = kernel_factory("m4", 3)
+    norm = 1.0 / np.pi
+    w0 = lambda x: float(kern.w0(torch.tensor(x, dtype=torch.float64)))
+    assert np.isclose(w0(0.0), norm)
+    assert np.isclose(w0(1.0), 0.25 * norm)
+    assert w0(2.0) == 0.0
+    assert w0(2.5) == 0.0
+
+
+@pytest.mark.parametrize("name,tab", [("quintic", 0), ("gaussian", 0),
+                                      ("m4", 1)])
+def test_unported_kernels_raise(name, tab):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernel_factory(name, 3, tab)

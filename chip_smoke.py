@@ -1,23 +1,34 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives gandalf_tpu_torch's hydro-only grad-h SPH main path on the card
-and checks it, in phases, each printing one line:
+Drives gandalf_tpu_torch's grad-h SPH main paths on the card, hydro only
+and self-gravitating, and checks them, in phases, each printing one
+line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K3 from csrc/ and prints the time;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   at 16^3 and 32^3 particles, in float64 and float32;
-4. parity: 5 steps of the slice at 16^3 in float64, kernels on the card
-   against the plain path on the CPU;
-5. main path: 64^3 = 262,144 particles in float32, setup, bootstrap and
-   18 steps through main_loop_steps (16 timed), with launch counts,
-   finiteness, overflow and energy checks, and each kernel's time beside
-   its plain version's at the main path's shapes.
+2. build: compiles the CUDA kernels K1-K7 from csrc/ (one nvcc per
+   source, in parallel) and the C++ tree planner, and prints the times;
+3. kernels: K1-K3 against their plain PyTorch versions on the card, at
+   16^3 and 32^3 particles, in float64 and float32;
+4. tree_kernels: K4-K7 the same way on the self-gravitating slice, with
+   a forced-overflow case;
+5. parity: 5 steps of the hydro slice at 16^3 in float64, kernels on the
+   card against the plain path on the CPU;
+6. tree_parity: 5 steps of the self-gravitating slice at 16^3 in
+   float64 with a tree rebuild every 2 steps, the same way;
+7. main_path: the hydro slice at 64^3 = 262,144 particles in float32,
+   setup, bootstrap and 18 steps through main_loop_steps (16 timed),
+   with launch counts, finiteness, overflow and energy checks;
+8. gravity_main_path: the self-gravitating slice (bench.build_sim(64))
+   at 64^3 in float32: setup, 2 warm-up steps, the post-warm-up replan,
+   2 more, then 32 timed steps (one rebuild cadence), with launch
+   counts, finiteness, overflow, energy and direct-sum accuracy checks,
+   and each of K1-K7's times beside its plain version's at its shapes.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero
-without printing the last line.  Run from the repository root:
+The line before the last is {"kernels": [...]} (launch counts from the
+self-gravitating main path); the last line is {"ok": true, "device":
+{...}}.  Any failure raises and exits non-zero without printing the
+last line.  Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -42,6 +53,16 @@ STEPS_TIMED = 16
 PARITY_STEPS = 5
 PARITY_TOL = 1e-9
 ENERGY_DRIFT_TOL = 1e-3
+# the self-gravitating main path: one rebuild cadence of bench.py
+GRAVITY_STEPS_TIMED = 32
+GRAVITY_NTB_PARITY = 2
+# gates of the self-gravitating path: rms|da|/rms|a| of the tree against
+# the direct sum, and the drift of E = sum m(v^2/2 + u) - sum m gpot / 2
+# over the timed window.  The JAX package's own values at 16^3 in
+# float64 (tests/test_torch_tree_sim.py) are 5.2e-5 and 1.0e-4 over 10
+# steps, far below, so the stated 1e-2 applies to both.
+ACCURACY_TOL = 1e-2
+GRAVITY_ENERGY_DRIFT_TOL = 1e-2
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -50,7 +71,16 @@ SOURCES = {
                        "gandalf_tpu/ops/sph_grid27.py:359"),
     "grid27_forces": ("gandalf_tpu_torch/csrc/grid27_forces.cu",
                       "gandalf_tpu/ops/sph_grid27.py:528"),
+    "tree_gather": ("gandalf_tpu_torch/csrc/tree_gather.cu",
+                    "gandalf_tpu/ops/tree.py:1357"),
+    "tree_build": ("gandalf_tpu_torch/csrc/tree_build.cu",
+                   "gandalf_tpu/ops/tree.py:153"),
+    "tree_walk": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+                  "gandalf_tpu/ops/tree.py:287"),
+    "tree_near": ("gandalf_tpu_torch/csrc/tree_near.cu",
+                  "gandalf_tpu/ops/tree.py:635"),
 }
+HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 
 
 def phase(tag: str, **fields) -> None:
@@ -65,18 +95,52 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def energy(s) -> float:
+def energy(s, gravity: bool = False) -> float:
     e = s.m * (0.5 * torch.sum(s.v * s.v, dim=-1) + s.u)
+    if gravity:
+        e = e - 0.5 * s.m * s.gpot
     return float(torch.sum(e.double()))
 
 
-def make_sim(n_side, device, dtype):
+def make_sim(n_side, device, dtype, self_gravity=0, ntreebuildstep=None):
     from gandalf_tpu_torch.check import jittered_box_ic, slice_params
     from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
-    params = slice_params(n_side)
+    params = slice_params(n_side, self_gravity=self_gravity)
+    if ntreebuildstep is not None:
+        params.set("ntreebuildstep", ntreebuildstep)
     sim = GradhSphSimulation(params, device=device, dtype=dtype)
     return sim, jittered_box_ic(params, n_side)
+
+
+def parity_errors(sims, fields):
+    """Largest error of each field, relative to its largest value, of the
+    first simulation against the second."""
+    errs = {}
+    for f in fields:
+        x = getattr(sims[0].state, f).cpu()
+        ref = getattr(sims[1].state, f)
+        errs[f] = float(torch.abs(x - ref).max() / torch.abs(ref).max())
+    errs["t"] = abs(sims[0].t - sims[1].t) / sims[1].t
+    return errs
+
+
+def run_timed(sim, steps: int) -> float:
+    """Seconds of `steps` steps through main_loop_steps, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = 0
+    while done < steps:
+        done += sim.main_loop_steps(steps - done)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def require_ok(tag, report):
+    bad = [k for k, r in report.items() if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"{tag}: kernel disagrees with its plain "
+                           f"version: {bad}")
 
 
 def main() -> int:
@@ -84,7 +148,10 @@ def main() -> int:
         sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
     # the package first: without it nothing is printed
     from gandalf_tpu_torch import _ext
-    from gandalf_tpu_torch.check import compare_kernels
+    from gandalf_tpu_torch.check import (compare_kernels,
+                                         compare_tree_kernels,
+                                         gravity_accuracy)
+    from gandalf_tpu_torch.ops.tree import native_planner
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -96,12 +163,15 @@ def main() -> int:
     t0 = time.perf_counter()
     so = _ext.build()
     _ext.lib()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_planner()  # the C++ tree planner (g++); raises on failure
     regs = [ln.strip() for ln in _ext.build_log().splitlines()
-            if "registers" in ln]
-    phase("build", seconds=time.perf_counter() - t0, library=so.name,
-          ptxas=regs)
+            if "registers" in ln or "spill" in ln]
+    phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
+          library=so.name, ptxas=regs)
 
-    # 3. kernels against their plain versions at small sizes
+    # 3-4. kernels against their plain versions at small sizes
     for n_side in (16, 32):
         for dtype in (torch.float64, torch.float32):
             sim, ic = make_sim(n_side, dev, dtype)
@@ -109,33 +179,43 @@ def main() -> int:
             rep = compare_kernels(sim, sim.state)
             torch.cuda.synchronize()
             phase("kernels", n_side=n_side, dtype=str(dtype), report=rep)
-            bad = [k for k, r in rep.items() if not r["ok"]]
-            if bad:
-                raise RuntimeError(f"kernel disagrees with its plain "
-                                   f"version: {bad}")
+            require_ok("kernels", rep)
+    for n_side in (16, 32):
+        for dtype in (torch.float64, torch.float32):
+            sim, ic = make_sim(n_side, dev, dtype, self_gravity=1)
+            sim.SetupSimulation(ic)
+            rep = compare_tree_kernels(sim, sim.state)
+            phase("tree_kernels", n_side=n_side, dtype=str(dtype),
+                  G=sim.treespec.n_leaves, near_cap=sim.treespec.near_cap,
+                  report=rep)
+            require_ok("tree_kernels", rep)
 
-    # 4. end-to-end parity, kernels on the card against the plain CPU path
-    sims = []
-    for device in (dev, torch.device("cpu")):
-        sim, ic = make_sim(16, device, torch.float64)
-        sim.SetupSimulation(ic)
-        for _ in range(PARITY_STEPS):
-            sim.main_loop_step()
-        sims.append(sim)
-    torch.cuda.synchronize()
-    errs = {}
-    for f in ("r", "v", "u", "h", "rho"):
-        x = getattr(sims[0].state, f).cpu()
-        ref = getattr(sims[1].state, f)
-        errs[f] = float(torch.abs(x - ref).max() / torch.abs(ref).max())
-    errs["t"] = abs(sims[0].t - sims[1].t) / sims[1].t
-    phase("parity", n_side=16, steps=PARITY_STEPS, rel_err=errs)
-    if max(errs.values()) > PARITY_TOL:
-        raise RuntimeError(f"kernel path disagrees with the plain path: "
-                           f"{errs}")
+    # 5-6. end-to-end parity, kernels on the card against the plain CPU
+    # path, without and with self-gravity
+    for tag, grav, fields in (
+            ("parity", 0, ("r", "v", "u", "h", "rho")),
+            ("tree_parity", 1, ("r", "v", "u", "h", "rho", "gpot"))):
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim, ic = make_sim(
+                16, device, torch.float64, self_gravity=grav,
+                ntreebuildstep=GRAVITY_NTB_PARITY if grav else None)
+            sim.SetupSimulation(ic)
+            for _ in range(PARITY_STEPS):
+                sim.main_loop_step()
+            sims.append(sim)
+        torch.cuda.synchronize()
+        errs = parity_errors(sims, fields)
+        counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
+        phase(tag, n_side=16, steps=PARITY_STEPS, rel_err=errs,
+              tree_plans_and_replans=counts)
+        if max(errs.values()) > PARITY_TOL or counts[0] != counts[1]:
+            raise RuntimeError(f"{tag}: kernel path disagrees with the "
+                               f"plain path: {errs} {counts}")
 
-    # 5. the main path at full size
+    # 7. the hydro main path at full size
     sim, ic = make_sim(N_MAIN, dev, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
     t0 = time.perf_counter()
     sim.SetupSimulation(ic)
@@ -152,7 +232,8 @@ def main() -> int:
         done += sim.main_loop_steps(STEPS_TIMED - done)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(_ext.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: _ext.LAUNCHES[k] for k in HYDRO}
     s = sim.state
     N = s.N
     finite = all(bool(torch.isfinite(getattr(s, f)).all())
@@ -172,11 +253,66 @@ def main() -> int:
           particle_steps_per_s=N * STEPS_TIMED / elapsed,
           grid_replans=sim._n_grid_overflows, launches=launches,
           energy_drift=drift, checks=checks, kernels=rep, card=card,
-          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+          peak_mem_gb=peak_gb)
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
         raise RuntimeError(f"main path checks failed: {failed}")
+    del sim, s
+
+    # 8. the self-gravitating main path at full size
+    sim, ic = make_sim(N_MAIN, dev, torch.float32, self_gravity=1)
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    sim.SetupSimulation(ic)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, STEPS_WARM)
+    # bench.py's post-warm-up replan at the live timestep, then re-warm
+    sim._plan_tree_buckets(sim.state.r.cpu().numpy())
+    run_timed(sim, STEPS_WARM)
+    e0 = energy(sim.state, gravity=True)
+    plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
+    rebuild0 = sim.timing.totals.get("TREE_REBUILD", 0.0)
+    elapsed = run_timed(sim, GRAVITY_STEPS_TIMED)
+    rebuild_s = sim.timing.totals.get("TREE_REBUILD", 0.0) - rebuild0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(_ext.LAUNCHES)
+    replans = sim._n_grid_overflows - replans0
+    s = sim.state
+    N = s.N
+    drift = abs(energy(s, gravity=True) - e0) / abs(e0)
+    acc = gravity_accuracy(sim, n_sample=2048)
+    spec = sim.treespec
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt",
+                                "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(n >= sim.Nsteps + 1 for n in launches.values()),
+        "accuracy": acc["rms_rel_err"] <= ACCURACY_TOL,
+        "energy_drift": drift <= GRAVITY_ENERGY_DRIFT_TOL,
+    }
+    rep = compare_kernels(sim, s, repeats=5)
+    rep.update(compare_tree_kernels(sim, s, repeats=5))
+    phase("gravity_main_path", N=N, steps=sim.Nsteps,
+          timed_steps=GRAVITY_STEPS_TIMED, setup_s=t_setup,
+          timed_s=elapsed,
+          particle_steps_per_s=N * GRAVITY_STEPS_TIMED / elapsed,
+          rebuilds_in_window=sim._n_tree_plans - plans0 - replans,
+          rebuild_host_s=rebuild_s,
+          replans_in_window=replans, G_pad=spec.n_leaves, depth=spec.depth,
+          near_cap=spec.near_cap, support_cap=spec.support_cap,
+          frontier=spec.frontier, frontier_levels=list(spec.frontier_levels),
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          launches=launches, energy_drift=drift, accuracy=acc,
+          checks=checks, kernels=rep, card=card, peak_mem_gb=peak_gb)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"gravity main path checks failed: {failed}")
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],

@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K3 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K7 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -10,7 +10,8 @@ loaded at import time.
 The wrappers below check device, dtype, shape and contiguity, allocate
 every output and scratch tensor with ``torch.empty``, launch on PyTorch's
 current stream and raise if the launch reports an error.  Each adds one
-to its kernel's count in ``LAUNCHES`` when it launches, and nowhere else.
+to its kernel's count in ``LAUNCHES`` when it launches, and nowhere else
+(K5's wrapper launches one kernel per tree level and counts one).
 """
 
 from __future__ import annotations
@@ -27,13 +28,16 @@ import torch
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
-_UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu")
+_UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
+          "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0}
+LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
+            "tree_gather": 0, "tree_build": 0, "tree_walk": 0,
+            "tree_near": 0}
 
 _lib = None
 
@@ -45,6 +49,11 @@ _ARGTYPES = {
                        _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _P],
     "grid27_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _D, _D, _D, _D, _I, _I, _D, _D, _P, _P, _P, _I, _P],
+    "tree_gather": [_P, _I, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _I, _P],
+    "tree_build": [_P, _P, _I, _I, _P, _P, _I, _P],
+    "tree_walk": [_P, _P, _P, _I, _I, _P, _D, _I, _P, _P, _P, _P, _I, _P],
+    "tree_near": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D,
+                  _P, _P, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -74,26 +83,38 @@ def _source_hash() -> str:
 
 
 def library_path() -> Path:
-    return _BUILD / f"libgrid27_{_source_hash()}.so"
+    return _BUILD / f"libgandalf_kernels_{_source_hash()}.so"
 
 
 def build() -> Path:
-    """Compile csrc/ into the shared library unless it is current; the
+    """Compile csrc/ into the shared library unless it is current: one
+    nvcc per source, all started together, then one link.  The
     compiler's output (register and spill counts) goes to a .log beside
-    it.  Returns the library's path."""
+    the library.  Returns the library's path."""
     so = library_path()
     if so.exists():
         return so
     _BUILD.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_CSRC / u) for u in _UNITS]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{so.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [_BUILD / f"{tag}.{Path(u).stem}.o" for u in _UNITS]
+    procs = [subprocess.Popen(
+        [_nvcc(), *compile_flags, "-c", "-o", str(o), str(_CSRC / u)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for u, o in zip(_UNITS, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = so.with_name(f"{tag}.tmp")
+    link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    log = "".join(logs) + link.stdout + link.stderr
+    so.with_suffix(".log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [u for u, p in zip(_UNITS, procs) if p.returncode != 0]
+    if failed or link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           + proc.stderr[-6000:])
+        raise RuntimeError(f"nvcc failed ({failed or 'link'}):\n"
+                           + log[-6000:])
     os.replace(tmp, so)
     return so
 
@@ -219,3 +240,102 @@ def grid27_forces(spec, kern, visc, r_d, v_d, packed, fill):
             int(visc.avisc), int(visc.acond), float(visc.alpha_visc),
             float(visc.beta_visc), _p(a), _p(dudt), _p(div_v))
     return a, dudt, div_v
+
+
+# ---------------------------------------------------------------------------
+# Tree gravity, K4-K7 (layouts of ops/tree.py)
+# ---------------------------------------------------------------------------
+
+_LEAF = 32
+_PCOLS, _CCOLS = 6, 16
+
+
+def _tree_shapes(spec):
+    if spec.leaf_size != _LEAF:
+        raise NotImplementedError(f"the tree kernels take buckets of "
+                                  f"{_LEAF} slots, not {spec.leaf_size}")
+    G = spec.n_leaves
+    return G, G * _LEAF, (2 << spec.depth) - 1
+
+
+def tree_gather(spec, gmap, r, m, h, zh, periodic_extent):
+    """K4: slot table (G*32, 6) and alive (G*32,) bool from particle
+    fields (h, zh may be None) through gmap (G, 32) int32."""
+    G, S, _ = _tree_shapes(spec)
+    N, dt, dev = r.shape[0], r.dtype, r.device
+    _check(gmap, "gmap", torch.int32, (G, _LEAF))
+    _check(r, "r", dt, (N, 3))
+    _check(m, "m", dt, (N,))
+    for name, x in (("h", h), ("zh", zh)):
+        if x is not None:
+            _check(x, name, dt, (N,))
+    ext = [0.0, 0.0, 0.0] if periodic_extent is None \
+        else [float(e) for e in periodic_extent]
+    ptab = torch.empty((S, _PCOLS), dtype=dt, device=dev)
+    alive = torch.empty((S,), dtype=torch.bool, device=dev)
+    _launch("tree_gather", dt, dev, _p(gmap), G, _p(r), _p(m),
+            None if h is None else _p(h), None if zh is None else _p(zh),
+            int(periodic_extent is not None), *ext, _p(ptab), _p(alive))
+    return ptab, alive
+
+
+def tree_build(spec, ptab, alive):
+    """K5: the level-concatenated cell table (2^(D+1) - 1, 16)."""
+    _, S, rows = _tree_shapes(spec)
+    dt, dev = ptab.dtype, ptab.device
+    _check(ptab, "ptab", dt, (S, _PCOLS))
+    _check(alive, "alive", torch.bool, (S,))
+    ctab = torch.empty((rows, _CCOLS), dtype=dt, device=dev)
+    box = torch.empty((rows, 6), dtype=dt, device=dev)
+    _launch("tree_build", dt, dev, _p(ptab), _p(alive), spec.depth,
+            int(spec.quadrupole), _p(ctab), _p(box))
+    return ctab
+
+
+def tree_walk(spec, ctab, ptab, alive):
+    """K6: far a (G*32, 3), far pot (G*32,), near list (G, Wn) int32 and
+    overflow () bool."""
+    G, S, rows = _tree_shapes(spec)
+    dt, dev = ptab.dtype, ptab.device
+    _check(ctab, "ctab", dt, (rows, _CCOLS))
+    _check(ptab, "ptab", dt, (S, _PCOLS))
+    _check(alive, "alive", torch.bool, (S,))
+    caps = [1] + [spec.level_cap(ell) for ell in range(1, spec.depth + 1)]
+    caps_c = (ctypes.c_int * len(caps))(*caps)
+    a_far = torch.empty((S, 3), dtype=dt, device=dev)
+    pot_far = torch.empty((S,), dtype=dt, device=dev)
+    near = torch.empty((G, spec.near_cap), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    _launch("tree_walk", dt, dev, _p(ctab), _p(ptab), _p(alive),
+            spec.depth, spec.near_cap, ctypes.addressof(caps_c),
+            float(spec.theta_sqd), int(spec.quadrupole), _p(a_far),
+            _p(pot_far), _p(near), _p(overflow))
+    return a_far, pot_far, near, overflow
+
+
+def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
+              out_index, n_out):
+    """K7: a (n_out, 3), gpot (n_out,) at rows out_index[slot] of the live
+    slots (zero elsewhere), and the support overflow () bool.  `kern`
+    None sums Newtonian pairs only."""
+    G, S, rows = _tree_shapes(spec)
+    dt, dev = ptab.dtype, ptab.device
+    _check(ctab, "ctab", dt, (rows, _CCOLS))
+    _check(ptab, "ptab", dt, (S, _PCOLS))
+    _check(alive, "alive", torch.bool, (S,))
+    _check(near, "near", torch.int32, (G, spec.near_cap))
+    _check(a_far, "a_far", dt, (S, 3))
+    _check(pot_far, "pot_far", dt, (S,))
+    out_index = out_index.reshape(-1)
+    _check(out_index, "out_index", torch.int32, (S,))
+    a = torch.zeros((n_out, 3), dtype=dt, device=dev)
+    gpot = torch.zeros((n_out,), dtype=dt, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    smoothed = kern is not None
+    _launch("tree_near", dt, dev, _p(ctab), _p(ptab), _p(alive), _p(near),
+            _p(a_far), _p(pot_far), _p(out_index), spec.depth,
+            spec.near_cap, spec.support_cap, int(smoothed),
+            float(kern.kernrange) if smoothed else 0.0,
+            float(kern.kernnorm) if smoothed else 0.0, _p(a), _p(gpot),
+            _p(overflow))
+    return a, gpot, overflow

@@ -6,8 +6,10 @@ benchmark (``bench.build_sim(n_side, self_gravity=0)``) and
 ``jittered_box_ic`` its jittered lattice (``bench.measure``).
 ``compare_kernels`` runs K1, K2 and K3 and their plain versions on one
 state, on whatever device the state lives, and reports errors against
-the tolerances below, and optionally times both.  ``chip_smoke.py`` and
-the CUDA tests use it.
+the tolerances below, and optionally times both; ``compare_tree_kernels``
+does the same for the tree kernels K4-K7.  ``gravity_accuracy`` holds the
+tree's accelerations against the direct sum.  ``chip_smoke.py`` and the
+CUDA tests use them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from gandalf_tpu.sim.ic import generate_ic
 
 from . import _ext
 from .ops import sph_grid27 as g27
+from .ops import tree as tr
+from .ops.sph_gravity import direct_sph_gravity
 
 # Tolerances, kernel against plain version on the same inputs.
 # float64: both evaluate the same formulas; only the order of the sums
@@ -39,18 +43,41 @@ TOL_F32_DENSITY_FRACTION = 1e-3
 # the support, each rounded at 6e-8 relative, partly cancelling in a
 # near-uniform medium; errors stay well below 1e-4 of the largest value.
 TOL_F32_FORCES = 1e-4
+# K5 in float64: each level's fields within 1e-12 of the level's largest
+# value of the field; the quadrupole's scale is max m*|half|^2, since a
+# near-uniform cell's traceless quadrupole is itself a cancellation.
+TOL_F64_TREE_BUILD = 1e-12
+# float32, K5: sums over 32 slots and over child pairs in another order,
+# each rounded at 6e-8; errors stay far below 1e-5 of the scale.
+TOL_F32_TREE_BUILD = 1e-5
+# K6: the MAC takes the same rounded steps in both versions (see
+# ops/tree.py), so near lists and overflow agree exactly in both
+# precisions; the bound still admits MAC flips (cells whose test lies
+# within rounding of 0) in at most 1e-4 of the groups.  float32 far
+# field: a few hundred multipole terms per slot, rounded at 6e-8 and
+# summed in another order; within 1e-4 of the largest |a| and pot.
+TOL_TREE_FLIP_FRACTION = 1e-4
+TOL_F32_TREE_FAR = 1e-4
+# float32, K7: ~3,000 partners per slot, most of them Newtonian terms of
+# one sign; summation order moves a and gpot by ~1e-6 of their maxima.
+TOL_F32_TREE_NEAR = 1e-4
 
 
-def slice_params(n_side: int, tend: float = 1.0e30) -> Parameters:
+def slice_params(n_side: int, tend: float = 1.0e30,
+                 self_gravity: int = 0) -> Parameters:
     """3D periodic unit box, n_side^3 lattice, M4, energy_eqn (gamma 1.4),
-    mon97 viscosity, no self-gravity: bench.build_sim(n_side, 0)."""
+    mon97 viscosity: bench.build_sim(n_side, self_gravity).  With
+    self-gravity, the tree has no Ewald sum and its buckets are replanned
+    every 32 steps, as in the benchmark."""
     p = Parameters()
     updates = {
         "run_id": "", "sim": "gradhsph", "ic": "box", "ndim": 3,
         "dimensionless": 1, "gas_eos": "energy_eqn", "gamma_eos": 1.4,
         "rhofluid1": 1.0, "press1": 1.0, "tend": tend,
-        "tsnapfirst": 1.0e30, "self_gravity": 0,
+        "tsnapfirst": 1.0e30, "self_gravity": self_gravity,
     }
+    if self_gravity:
+        updates.update({"ewald": 0, "ntreebuildstep": 32})
     for k in range(3):
         updates[f"boxmin[{k}]"] = 0.0
         updates[f"boxmax[{k}]"] = 1.0
@@ -203,3 +230,190 @@ def compare_kernels(sim, state, repeats: int = 0):
     _ext.LAUNCHES.update(saved)
     return out
 
+
+
+def gravity_inputs(sim, state):
+    """The arguments of tree_gravity_grouped after gmap, as the
+    simulation's gravity pass builds them: r, m, h, kern, zh and the
+    periodic extent."""
+    pdims = sim.box.periodic_dims()
+    pext = ([sim.box.size[k] if k in pdims else 0.0 for k in range(3)]
+            if pdims else None)
+    return (state.r, sim._gravity_mass(state), state.h, sim.kern,
+            state.zeta * state.hfactor, pext)
+
+
+def _tree_build_errors(spec, ctab, ref):
+    """Per level and field, error relative to the level's scale of the
+    field (K5 tolerance above); returns the largest."""
+    worst = 0.0
+    fields = {"m": slice(tr.C_M, tr.C_M + 1),
+              "com": slice(tr.C_COM, tr.C_COM + 3),
+              "half": slice(tr.C_HALF, tr.C_HALF + 3),
+              "q": slice(tr.C_Q, tr.C_Q + 6),
+              "centre": slice(tr.C_CEN, tr.C_CEN + 3)}
+    for ell in range(spec.depth + 1):
+        x = tr.level_rows(spec, ctab, ell)
+        y = tr.level_rows(spec, ref, ell)
+        live = y[:, tr.C_M] > 0.0
+        if not bool(live.any()):
+            continue
+        for name, cols in fields.items():
+            err = torch.abs(x[:, cols] - y[:, cols])[live].max()
+            if name == "q":
+                half = y[:, tr.C_HALF:tr.C_HALF + 3]
+                scale = (y[:, tr.C_M] * (half * half).sum(-1))[live].max()
+            else:
+                scale = torch.abs(y[:, cols])[live].max()
+            worst = max(worst, float(err) / max(float(scale), 1e-300))
+    # empty cells: equal m and sentinels
+    same_empty = bool(torch.equal(ctab[:, tr.C_M] > 0, ref[:, tr.C_M] > 0))
+    return worst, same_empty
+
+
+def _scaled_all(x, ref, rows):
+    """Largest error over `rows` relative to the largest |ref| there (0
+    where both are 0)."""
+    err = float(torch.abs(x - ref)[rows].max())
+    return err / max(float(torch.abs(ref)[rows].max()), 1e-300)
+
+
+def compare_tree_kernels(sim, state, repeats: int = 0):
+    """Run K4-K7 and their plain versions on the same inputs from a
+    gravity-slice state on a CUDA device; returns {kernel: report} as
+    compare_kernels does, plus a forced-overflow case (near cap, one
+    level cap and the support cap shrunk) where both versions must
+    overflow.  Launch counts are restored afterwards."""
+    saved = dict(_ext.LAUNCHES)
+    spec, gmap = sim.treespec, state.bucket_map
+    r, m, h, kern, zh, pext = gravity_inputs(sim, state)
+    f64 = r.dtype == torch.float64
+    G, L = spec.n_leaves, spec.leaf_size
+    out = {}
+
+    # K4: exact (the unwrap's arithmetic is written to match)
+    pk, ak = _ext.tree_gather(spec, gmap, r, m, h, zh, pext)
+    pp, ap = tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh, pext)
+    same = bool(torch.equal(ak, ap)) and bool(torch.equal(pk, pp))
+    out["tree_gather"] = {"equal": same,
+                          "max_abs_err": float(torch.abs(pk - pp).max()),
+                          "ok": same}
+
+    # K5 on the plain slot table
+    ck = _ext.tree_build(spec, pp, ap)
+    cp = tr.build_tree_plain(spec, pp, ap)
+    worst, same_empty = _tree_build_errors(spec, ck, cp)
+    out["tree_build"] = {
+        "scaled_err": worst, "same_empty_cells": same_empty,
+        "max_abs_err": float(torch.abs(ck - cp)[cp[:, tr.C_M] > 0].max()),
+        "ok": same_empty and worst <= (TOL_F64_TREE_BUILD if f64
+                                       else TOL_F32_TREE_BUILD)}
+
+    # K6 on the plain tree
+    wk = _ext.tree_walk(spec, cp, pp, ap)
+    wp = tr.tree_walk_plain(spec, cp, pp, ap)
+    differ = (wk[2] != wp[2]).any(1)
+    n_differ = int(differ.sum())
+    same_rows = ~differ.repeat_interleave(L) & ap
+    errs = {"a": _scaled_all(wk[0], wp[0], same_rows),
+            "pot": _scaled_all(wk[1], wp[1], same_rows)}
+    same_ovf = bool(wk[3]) == bool(wp[3])
+    tol = TOL_F64 if f64 else TOL_F32_TREE_FAR
+    out["tree_walk"] = {
+        "groups_with_other_near_list": n_differ, "overflow": bool(wk[3]),
+        "same_overflow": same_ovf, "scaled_err": errs,
+        "max_abs_err": float(torch.abs(wk[0] - wp[0])[same_rows].max()),
+        "ok": (same_ovf and not bool(wp[3]) and max(errs.values()) <= tol
+               and n_differ <= (0 if f64 else
+                                int(TOL_TREE_FLIP_FRACTION * G)))}
+
+    # K7 on the plain walk, results in particle order
+    N = r.shape[0]
+    nk = _ext.tree_near(spec, kern, cp, pp, ap, wp[2], wp[0], wp[1], gmap,
+                        N)
+    np_ = tr.tree_near_plain(spec, kern, cp, pp, ap, wp[2], wp[0], wp[1],
+                             gmap, N)
+    every = torch.ones((N,), dtype=torch.bool, device=r.device)
+    errs = {"a": _scaled_all(nk[0], np_[0], every),
+            "gpot": _scaled_all(nk[1], np_[1], every)}
+    same_ovf = bool(nk[2]) == bool(np_[2])
+    tol = TOL_F64 if f64 else TOL_F32_TREE_NEAR
+    out["tree_near"] = {
+        "scaled_err": errs, "overflow": bool(nk[2]),
+        "same_overflow": same_ovf,
+        "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
+        "ok": same_ovf and not bool(np_[2]) and max(errs.values()) <= tol}
+
+    # forced overflow: both versions must raise the flag
+    lv = spec.depth // 2 + 1
+    fl = list(spec.frontier_levels or [spec.level_cap(ell) if ell else 1
+                                       for ell in range(spec.depth + 1)])
+    fl[lv] = max(1, spec.level_cap(lv) // 4)
+    tight = dataclasses.replace(spec, frontier_levels=tuple(fl))
+    small = dataclasses.replace(spec, near_cap=max(1, spec.near_cap // 4))
+    no_sup = dataclasses.replace(spec, support_cap=1)
+    flags = {
+        "level_cap": [bool(_ext.tree_walk(tight, cp, pp, ap)[3]),
+                      bool(tr.tree_walk_plain(tight, cp, pp, ap)[3])],
+        "near_cap": [bool(_ext.tree_walk(small, cp, pp, ap)[3]),
+                     bool(tr.tree_walk_plain(small, cp, pp, ap)[3])],
+        "support_cap": [
+            bool(_ext.tree_near(no_sup, kern, cp, pp, ap, wp[2], wp[0],
+                                wp[1], gmap, N)[2]),
+            bool(tr.tree_near_plain(no_sup, kern, cp, pp, ap, wp[2], wp[0],
+                                    wp[1], gmap, N)[2])]}
+    out["forced_overflow"] = {"flags": flags, "ok": all(
+        f == [True, True] for f in flags.values())}
+
+    if repeats > 0:
+        timed = {
+            "tree_gather": (
+                lambda: _ext.tree_gather(spec, gmap, r, m, h, zh, pext),
+                lambda: tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh,
+                                                   pext)),
+            "tree_build": (lambda: _ext.tree_build(spec, pp, ap),
+                           lambda: tr.build_tree_plain(spec, pp, ap)),
+            "tree_walk": (lambda: _ext.tree_walk(spec, cp, pp, ap),
+                          lambda: tr.tree_walk_plain(spec, cp, pp, ap)),
+            "tree_near": (
+                lambda: _ext.tree_near(spec, kern, cp, pp, ap, wp[2], wp[0],
+                                       wp[1], gmap, N),
+                lambda: tr.tree_near_plain(spec, kern, cp, pp, ap, wp[2],
+                                           wp[0], wp[1], gmap, N)),
+        }
+        for name, (kfn, pfn) in timed.items():
+            p1 = _time_ms(pfn, 1)
+            k1 = _time_ms(kfn, repeats)
+            k2 = _time_ms(kfn, repeats)
+            p2 = _time_ms(pfn, 1)
+            out[name]["ms"] = 0.5 * (k1 + k2)
+            out[name]["plain_ms"] = 0.5 * (p1 + p2)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0):
+    """The tree's gravitational acceleration at `n_sample` particles
+    (numpy generator `seed`) against the float64 direct sum over all
+    particles at the bucket-unwrapped positions, the sum the tree
+    approximates without an Ewald sum.  Returns rms|da| / rms|a|."""
+    s = sim.state
+    r, m, h, kern, zh, pext = gravity_inputs(sim, s)
+    spec, gmap = sim.treespec, s.bucket_map
+    a_tree, _, overflow = tr.tree_gravity_grouped(spec, gmap, r, m, h, kern,
+                                                  zh, pext)
+    ptab, alive = tr.gather_to_buckets(spec, gmap, r, m, h, zh, pext)
+    r_unw = r.double().clone()
+    r_unw[gmap.reshape(-1).long()[alive]] = ptab[alive, :3].double()
+    N = r.shape[0]
+    idx = np.random.default_rng(seed).choice(N, size=min(n_sample, N),
+                                             replace=False)
+    t = torch.as_tensor(np.sort(idx), device=r.device)
+    a_ref, _ = direct_sph_gravity(kern, r_unw, m.double(), h.double(),
+                                  s.zeta.double(), s.hfactor.double(),
+                                  targets=t)
+    da = a_tree[t].double() - a_ref
+    err = torch.sqrt(torch.sum(da * da) / torch.sum(a_ref * a_ref))
+    return {"n_sample": int(t.numel()), "rms_rel_err": float(err),
+            "overflow": bool(overflow)}

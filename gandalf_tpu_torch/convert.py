@@ -3,9 +3,9 @@
 ``state_from_numpy`` turns a dict of numpy arrays (the JAX ``SphState``'s
 fields, read out with ``np.asarray``) into the port's ``SphState`` on a
 given device and float dtype; ``state_to_numpy`` goes back.
-``grid_spec_from_jax`` copies a frozen JAX ``Grid27Spec`` field for
-field.  Nothing here imports JAX: the JAX objects are read through their
-attributes only.
+``grid_spec_from_jax`` and ``tree_spec_from_jax`` copy a frozen JAX
+``Grid27Spec`` or ``TreeSpec`` field for field.  Nothing here imports
+JAX: the JAX objects are read through their attributes only.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .ops.sph_grid27 import Grid27Spec
+from .ops.tree import TreeSpec
 from .state import SphState
 
 _OPTIONAL = ("bucket_map", "walk_mp", "walk_near", "walk_plan_r",
@@ -65,3 +66,9 @@ def grid_spec_from_jax(spec) -> Grid27Spec:
                       periodic=tuple(bool(p) for p in spec.periodic),
                       qz=int(spec.qz),
                       mirror=tuple(tuple(w) for w in spec.mirror))
+
+
+def tree_spec_from_jax(spec) -> TreeSpec:
+    """Field-for-field copy of gandalf_tpu's frozen TreeSpec."""
+    return TreeSpec(**{f.name: getattr(spec, f.name)
+                       for f in dataclasses.fields(TreeSpec)})

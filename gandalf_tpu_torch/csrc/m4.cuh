@@ -1,4 +1,4 @@
-// M4 cubic-spline kernel for the grid kernels: the polynomials of
+// M4 cubic-spline kernel for the grid and tree kernels: the polynomials of
 // gandalf_tpu_torch/kernels/smoothing.py (and gandalf_tpu's _m4), written
 // in the same form so that float64 results agree to rounding.
 //   s     = r/h, support ends at s = 2
@@ -6,6 +6,8 @@
 //   w1    = dW/ds without 1/h^(ndim+1)
 //   womega= -(ndim*w0 + s*w1)
 //   wzeta = d(phi)/dh kernel (no normalisation)
+//   wgrav = softened gravity force kernel, 1/s^2 from s = 2 on
+//   wpot  = softened gravity potential kernel, 1/s from s = 2 on
 // `norm` is the ndim-dependent normalisation (1/pi in 3D), passed from
 // the host so both sides use the same constant.
 #pragma once
@@ -50,4 +52,28 @@ __device__ __forceinline__ T m4_wzeta(T s) {
   if (s < T(2))
     return T(1.6) - T(4) * s2 + T(4) * s3 - T(1.5) * s4 + T(0.2) * s5;
   return T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ T m4_wgrav(T s) {
+  if (s < T(1)) return (T(4) / T(3)) * s - T(1.2) * s * s * s
+                       + T(0.5) * (s * s) * (s * s);
+  const T s_safe = s > T(1e-30) ? s : T(1e-30);
+  if (s < T(2))
+    return (T(8) / T(3)) * s - T(3) * s * s + T(1.2) * s * s * s
+           - (T(1) / T(6)) * (s * s) * (s * s)
+           - (T(1) / T(15)) / (s_safe * s_safe);
+  return T(1) / (s_safe * s_safe);
+}
+
+template <typename T>
+__device__ __forceinline__ T m4_wpot(T s) {
+  const T s2 = s * s, s4 = s2 * s2;
+  if (s < T(1)) return T(1.4) - (T(2) / T(3)) * s2 + T(0.3) * s4
+                       - T(0.1) * s4 * s;
+  const T s_safe = s > T(1e-30) ? s : T(1e-30);
+  if (s < T(2))
+    return T(-1) / (T(15) * s_safe) + T(1.6) - (T(4) / T(3)) * s2
+           + s2 * s - T(0.3) * s4 + (T(1) / T(30)) * s4 * s;
+  return T(1) / s_safe;
 }

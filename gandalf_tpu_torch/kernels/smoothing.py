@@ -4,8 +4,9 @@ Counterpart of ``gandalf_tpu/kernels/smoothing.py`` for the M4 kernel
 (``_m4`` and the squared-argument variants).  Conventions are the same:
 ``s = r/h``; ``w0`` is W without 1/h^ndim, ``w1`` is dW/ds without
 1/h^(ndim+1), ``womega`` is -(ndim*w0 + s*w1), ``wzeta`` is the
-d(phi)/dh kernel.  The same polynomials are in ``csrc/m4.cuh`` for the
-CUDA kernels.
+d(phi)/dh kernel, ``wgrav`` and ``wpot`` are the softened gravity force
+and potential kernels (1/s^2 and 1/s beyond the support).  The same
+polynomials are in ``csrc/m4.cuh`` for the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ import torch
 Tensor = torch.Tensor
 
 
-def _piecewise(s: Tensor, inner: Callable, outer: Callable) -> Tensor:
-    """`inner` on [0, 1), `outer` on [1, 2), zero beyond."""
-    zero = torch.zeros_like(s)
+def _piecewise(s: Tensor, inner: Callable, outer: Callable,
+               beyond: Callable = torch.zeros_like) -> Tensor:
+    """`inner` on [0, 1), `outer` on [1, 2), `beyond` (zero) from 2."""
     return torch.where(s < 1.0, inner(s),
-                       torch.where(s < 2.0, outer(s), zero))
+                       torch.where(s < 2.0, outer(s), beyond(s)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +40,8 @@ class SmoothingKernel:
     w1: Callable[[Tensor], Tensor]
     womega: Callable[[Tensor], Tensor]
     wzeta: Callable[[Tensor], Tensor]
+    wgrav: Callable[[Tensor], Tensor]
+    wpot: Callable[[Tensor], Tensor]
 
     def w0_s2(self, ssqd: Tensor) -> Tensor:
         return self.w0(torch.sqrt(ssqd))
@@ -83,8 +86,27 @@ def _m4(ndim: int) -> SmoothingKernel:
             lambda s: (1.6 - 4.0 * s * s + 4.0 * s ** 3 - 1.5 * s ** 4
                        + 0.2 * s ** 5))
 
+    def wgrav(s):
+        s_safe = torch.clamp_min(s, 1e-30)
+        return _piecewise(
+            s,
+            lambda s: (4.0 / 3.0) * s - 1.2 * s ** 3 + 0.5 * s ** 4,
+            lambda s: ((8.0 / 3.0) * s - 3.0 * s * s + 1.2 * s ** 3
+                       - (1.0 / 6.0) * s ** 4
+                       - (1.0 / 15.0) / (s_safe * s_safe)),
+            lambda s: 1.0 / (s_safe * s_safe))
+
+    def wpot(s):
+        s_safe = torch.clamp_min(s, 1e-30)
+        return _piecewise(
+            s,
+            lambda s: 1.4 - (2.0 / 3.0) * s * s + 0.3 * s ** 4 - 0.1 * s ** 5,
+            lambda s: (-1.0 / (15.0 * s_safe) + 1.6 - (4.0 / 3.0) * s * s
+                       + s ** 3 - 0.3 * s ** 4 + (1.0 / 30.0) * s ** 5),
+            lambda s: 1.0 / s_safe)
+
     return SmoothingKernel("m4", ndim, 2.0, norm, normdrag,
-                           w0, w1, womega, wzeta)
+                           w0, w1, womega, wzeta, wgrav, wpot)
 
 
 def kernel_factory(name: str, ndim: int,

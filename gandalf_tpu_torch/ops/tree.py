@@ -1,0 +1,603 @@
+"""Barnes-Hut gravity over host-planned KD buckets: bucket gather (K4),
+tree moments (K5), frontier walk with far field (K6) and near field
+(K7).
+
+Counterpart of ``gandalf_tpu/ops/tree.py`` for the frontier walk with
+the geometric MAC, monopole or quadrupole moments and no Ewald sum.  The
+host part (``TreeSpec``, the cap laws and the planners) is numpy; the
+planners call the C++ library of ``gandalf_tpu/native`` through its
+ctypes signatures and raise when it cannot be built, since the numpy
+KD planner and the worst-case cap law are not ported.
+
+The device part works on two tables:
+
+- the slot table ``ptab`` (G*L, 6): x, y, z, m, h, zh of every bucket
+  slot, in bucket order, with positions unwrapped per bucket about its
+  first real slot (periodic dims), and ``alive`` (G*L,) bool.  An empty
+  slot has m = 0, h = 1, zh = 0, position 0 and alive False;
+- the cell table ``ctab`` (2^(D+1) - 1, 16): row (1 << l) - 1 + c is
+  cell c of level l, leaves at level D, columns ``CELL_COLS``.  An empty
+  cell has m = 0 and COM and box at the far sentinel.
+
+Each kernel has a plain PyTorch version in this module and a CUDA C++
+kernel in ``csrc/``, launched through ``_ext``.  A CPU tensor takes the
+plain version; a CUDA tensor takes the kernel, or the wrapper raises.
+
+Two places differ from the JAX package on purpose (ROADMAP queue 3):
+pair separations are computed directly, not from a dot-product
+expansion, and each near pair is evaluated once (F6): with the symmetric
+softened formula where d < kernrange * max(h_i, h_j), with the Newtonian
+one elsewhere, where the two are equal.  Self pairs are excluded by
+identity and coincident pairs by d^2 = 0 (F2).  The two agree in
+float64; in float32 the port keeps the close pairs' digits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _ext
+
+Tensor = torch.Tensor
+
+# far sentinel of empty cells, and the bound of min/max over live slots
+# (gandalf_tpu build_tree's `far` and `big`)
+FAR = 1e15
+BIG = 1e30
+# columns of the cell table
+CELL_COLS = ("m", "comx", "comy", "comz", "halfx", "halfy", "halfz",
+             "q00", "q01", "q02", "q11", "q12", "q22",
+             "centrex", "centrey", "centrez")
+C_M, C_COM, C_HALF, C_Q, C_CEN = 0, 1, 4, 7, 13
+# upper-triangle order of the quadrupole columns
+_TRI = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+# columns of the slot table
+P_R, P_M, P_H, P_ZH = 0, 3, 4, 5
+
+
+# ---------------------------------------------------------------------------
+# Host part: geometry, caps and planners
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TreeSpec:
+    """Static tree geometry (same fields as gandalf_tpu's TreeSpec)."""
+
+    n_pad: int          # padded particle count (power-of-two multiple of L)
+    leaf_size: int      # L
+    depth: int          # number of levels below the root (leaves at `depth`)
+    frontier: int       # max opened cells per level (W)
+    theta_sqd: float    # geometric MAC opening angle^2
+    quadrupole: bool = True
+    fast: bool = False
+    near_cap: int = 0   # max near-field leaves per group (Wn)
+    group_chunk: int = 32
+    support_cap: int = 64   # max kernel-support leaves per group (Ws)
+    mac: str = "geometric"
+    macerror: float = 1e-4
+    mp_cap: int = 0
+    # per-level frontier caps (depth+1 ints; entry l = padded width
+    # entering level l), or None for min(frontier, 2^l)
+    frontier_levels: tuple = None
+
+    @property
+    def n_leaves(self) -> int:
+        return self.n_pad // self.leaf_size
+
+    def level_cap(self, ell: int) -> int:
+        """Width of the frontier entering level `ell` (ell >= 1)."""
+        w = min(self.frontier, 1 << ell)
+        if self.frontier_levels is not None:
+            w = min(w, self.frontier_levels[ell])
+        return w
+
+
+def plan_tree(N: int, leaf_size: int = 32, frontier: int = None,
+              theta_sqd: float = 0.1, quadrupole: bool = True,
+              near_cap: int = None) -> TreeSpec:
+    """gandalf_tpu's plan_tree: the worst-case cap law where no cap is
+    given.  `group_chunk` is set as the JAX package sets it, so that the
+    two specs compare equal; the port's plain versions chunk by
+    `_chunk_groups` instead."""
+    n_leaves = max(1, -(-N // leaf_size))
+    n_leaves = 1 << int(np.ceil(np.log2(n_leaves)))
+    if near_cap is None:
+        near_cap = int(13.0 * leaf_size
+                       * (0.1 / max(theta_sqd, 1e-3)) ** 1.5) + 48
+        near_cap = min(near_cap, n_leaves)
+    if frontier is None:
+        frontier = min(max(2 * near_cap, 64), 2 * n_leaves)
+    group_chunk = int(np.clip(2 ** 24 // max(leaf_size * leaf_size
+                                             * near_cap, 1), 8, 128))
+    return TreeSpec(n_pad=n_leaves * leaf_size, leaf_size=leaf_size,
+                    depth=int(np.log2(n_leaves)), frontier=frontier,
+                    theta_sqd=theta_sqd, quadrupole=quadrupole,
+                    near_cap=near_cap, group_chunk=group_chunk)
+
+
+def grow_tree_caps(spec: TreeSpec, factor: float = 1.6) -> TreeSpec:
+    """Cap growth after an overflow; never shrinks a cap."""
+    fl = spec.frontier_levels
+    if fl is not None:
+        fl = tuple(max(w, min(int(w * factor) + 16,
+                              min(1 << ell, 2 * spec.n_leaves)))
+                   for ell, w in enumerate(fl))
+    return dataclasses.replace(
+        spec,
+        near_cap=max(spec.near_cap,
+                     min(int(spec.near_cap * factor) + 8, spec.n_leaves)),
+        frontier=max(spec.frontier,
+                     min(int(spec.frontier * factor) + 16,
+                         2 * spec.n_leaves)),
+        support_cap=max(spec.support_cap,
+                        min(int(spec.support_cap * factor) + 8,
+                            spec.n_leaves)),
+        frontier_levels=fl)
+
+
+def plan_tree_for_buckets(gmap: np.ndarray, theta_sqd: float = 0.1,
+                          quadrupole: bool = True, near_cap: int = None,
+                          frontier: int = None,
+                          macerror: float = 1e-4) -> TreeSpec:
+    """TreeSpec matching a bucket gather map (geometric MAC)."""
+    G_pad, L = gmap.shape
+    spec = plan_tree(G_pad * L, leaf_size=L, theta_sqd=theta_sqd,
+                     quadrupole=quadrupole, near_cap=near_cap,
+                     frontier=frontier)
+    assert spec.n_pad == G_pad * L, (spec.n_pad, gmap.shape)
+    return dataclasses.replace(spec, macerror=macerror)
+
+
+def native_planner():
+    """The C++ planner library; raises when it cannot be built."""
+    from gandalf_tpu.native import load
+
+    lib = load()
+    if lib is None:
+        raise RuntimeError(
+            "the C++ tree planner is unavailable: g++ could not build "
+            "gandalf_tpu/native/kdplan.cpp (or GANDALF_NO_NATIVE=1 is "
+            "set).  The port has no numpy fallback (ROADMAP queue 1, "
+            "item 8)")
+    return lib
+
+
+def plan_buckets_kd(r: np.ndarray, leaf_size: int) -> np.ndarray:
+    """Balanced KD buckets by the C++ planner: gather map (G_pad, L)
+    int32, -1 = empty slot, G_pad a power of two."""
+    lib = native_planner()
+    N, ndim = r.shape
+    r_c = np.ascontiguousarray(r, dtype=np.float64)
+    g_max = 1
+    while g_max * leaf_size < 2 * N + leaf_size:
+        g_max *= 2
+    gmap = np.full((g_max, leaf_size), -1, np.int32)
+    n_used = lib.kd_plan_buckets(r_c.ctypes.data, N, ndim, leaf_size,
+                                 gmap.ctypes.data, g_max)
+    if n_used <= 0:
+        raise RuntimeError(f"kd_plan_buckets failed ({n_used}) for "
+                           f"N = {N}, ndim = {ndim}")
+    G_pad = 1 << int(np.ceil(np.log2(max(n_used, 1))))
+    return np.ascontiguousarray(gmap[:G_pad])
+
+
+def walk_stats_levels_native(r: np.ndarray, gmap: np.ndarray,
+                             theta_sqd: float, m: np.ndarray = None,
+                             h: np.ndarray = None, kernrange: float = 2.0,
+                             sample: int = 2048):
+    """Measured walk demand by the C++ planner: (near_max, front_max,
+    sup_max, per-level frontier maxima (depth+1,))."""
+    lib = native_planner()
+    G_pad, L = gmap.shape
+    depth = int(np.log2(G_pad))
+    r_c = np.ascontiguousarray(r, dtype=np.float64)
+    g_c = np.ascontiguousarray(gmap, dtype=np.int32)
+    m_c = None if m is None else np.ascontiguousarray(m, dtype=np.float64)
+    h_c = None if h is None else np.ascontiguousarray(h, dtype=np.float64)
+    out = np.zeros(3, dtype=np.int32)
+    out_levels = np.zeros(depth + 1, dtype=np.int32)
+    rc = lib.tree_walk_stats_levels(
+        r_c.ctypes.data, None if m_c is None else m_c.ctypes.data,
+        None if h_c is None else h_c.ctypes.data,
+        r_c.shape[0], r_c.shape[1], g_c.ctypes.data, G_pad, L,
+        float(theta_sqd), float(kernrange), int(sample), out.ctypes.data,
+        out_levels.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"tree_walk_stats_levels failed ({rc})")
+    return int(out[0]), int(out[1]), int(out[2]), out_levels
+
+
+# ---------------------------------------------------------------------------
+# K4: gather into bucket order, per-bucket periodic unwrap
+# ---------------------------------------------------------------------------
+
+def gather_to_buckets(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
+                      h: Optional[Tensor] = None, zh: Optional[Tensor] = None,
+                      periodic_extent=None):
+    """Slot table (G*L, 6) and alive (G*L,) from particle-order fields
+    through `gmap` (G, L) int32.  `periodic_extent` (per dim, 0 = open)
+    or None.  K4 on CUDA tensors."""
+    if r.is_cuda:
+        return _ext.tree_gather(spec, gmap, r, m, h, zh, periodic_extent)
+    return gather_to_buckets_plain(spec, gmap, r, m, h, zh, periodic_extent)
+
+
+def gather_to_buckets_plain(spec, gmap, r, m, h=None, zh=None,
+                            periodic_extent=None):
+    """Plain version of K4: gandalf_tpu's gather plus unwrap_to_buckets,
+    anchored on each bucket's first real slot."""
+    G, L = spec.n_leaves, spec.leaf_size
+    flat = gmap.reshape(-1).long()
+    alive = flat >= 0
+    safe = torch.clamp_min(flat, 0)
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    r_s = torch.where(alive[:, None], r[safe], zero)
+    if periodic_extent is not None:
+        r_g = r_s.reshape(G, L, 3)
+        first = torch.argmax(alive.reshape(G, L).to(torch.uint8), dim=1)
+        anchor = r_g[torch.arange(G, device=r.device), first]
+        delta = r_g - anchor[:, None, :]
+        cols = []
+        for k in range(3):
+            ext = float(periodic_extent[k])
+            d = delta[..., k]
+            cols.append(d - ext * torch.round(d / ext) if ext > 0 else d)
+        r_u = (anchor[:, None, :] + torch.stack(cols, -1)).reshape(-1, 3)
+        r_s = torch.where(alive[:, None], r_u, zero)
+    one = torch.ones((), dtype=r.dtype, device=r.device)
+    m_s = torch.where(alive, m[safe], zero)
+    h_s = torch.where(alive, h[safe], one) if h is not None \
+        else one.expand(G * L)
+    zh_s = torch.where(alive, zh[safe], zero) if zh is not None \
+        else zero.expand(G * L)
+    ptab = torch.cat([r_s, m_s[:, None], h_s[:, None], zh_s[:, None]], -1)
+    return ptab.contiguous(), alive
+
+
+# ---------------------------------------------------------------------------
+# K5: cell moments, leaves to root
+# ---------------------------------------------------------------------------
+
+def build_tree(spec: TreeSpec, ptab: Tensor, alive: Tensor) -> Tensor:
+    """Level-concatenated cell table (2^(D+1) - 1, 16).  K5 on CUDA
+    tensors."""
+    if ptab.is_cuda:
+        return _ext.tree_build(spec, ptab, alive)
+    return build_tree_plain(spec, ptab, alive)
+
+
+def _div_com(num: Tensor, den: Tensor) -> Tensor:
+    safe = torch.clamp_min(den, 1e-30)
+    return torch.where((den > 0.0)[..., None], num / safe[..., None], FAR)
+
+
+def _traceless(q: Tensor) -> Tensor:
+    tr = q[..., 0, 0] + q[..., 1, 1] + q[..., 2, 2]
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    return 3.0 * q - tr[..., None, None] * eye
+
+
+def build_tree_plain(spec: TreeSpec, ptab: Tensor,
+                     alive: Tensor) -> Tensor:
+    """Plain version of K5: gandalf_tpu's build_tree (mass, COM, box over
+    live slots and occupied children, far sentinel for empty cells,
+    traceless quadrupole with dead slots and empty children masked)."""
+    G, L = spec.n_leaves, spec.leaf_size
+    al = alive.reshape(G, L)
+    r = ptab[:, P_R:P_R + 3].reshape(G, L, 3)
+    m = torch.where(al, ptab[:, P_M].reshape(G, L), 0.0)
+    m_tot = m.sum(1)
+    com = _div_com((m[..., None] * r).sum(1), m_tot)
+    lo = torch.where(al[..., None], r, BIG).amin(1)
+    hi = torch.where(al[..., None], r, -BIG).amax(1)
+    empty = (m_tot <= 0.0)[:, None]
+    lo = torch.where(empty, FAR, lo)
+    hi = torch.where(empty, FAR, hi)
+    if spec.quadrupole:
+        dr = torch.where(al[..., None], r - com[:, None, :], 0.0)
+        q = _traceless(torch.einsum("lp,lpi,lpj->lij", m, dr, dr))
+    else:
+        q = torch.zeros((G, 3, 3), dtype=r.dtype, device=r.device)
+    levels = [(m_tot, com, lo, hi, q)]
+    for _ in range(spec.depth):
+        m0, c0, lo0, hi0, q0 = levels[0]
+        m2 = m0.reshape(-1, 2)
+        c2 = c0.reshape(-1, 2, 3)
+        mm = m2.sum(1)
+        cc = _div_com((m2[..., None] * c2).sum(1), mm)
+        occ = (m2 > 0.0)[..., None]
+        lo2 = torch.where(occ, lo0.reshape(-1, 2, 3), BIG).amin(1)
+        hi2 = torch.where(occ, hi0.reshape(-1, 2, 3), -BIG).amax(1)
+        par_empty = (mm <= 0.0)[:, None]
+        lo2 = torch.where(par_empty, FAR, lo2)
+        hi2 = torch.where(par_empty, FAR, hi2)
+        if spec.quadrupole:
+            d = torch.where(occ, c2 - cc[:, None, :], 0.0)
+            dq = torch.einsum("lp,lpi,lpj->lij", m2, d, d)
+            tr = dq[:, 0, 0] + dq[:, 1, 1] + dq[:, 2, 2]
+            qq = (q0.reshape(-1, 2, 3, 3).sum(1) + 3.0 * dq
+                  - tr[:, None, None] * torch.eye(3, dtype=dq.dtype,
+                                                  device=dq.device))
+        else:
+            qq = torch.zeros((mm.shape[0], 3, 3), dtype=r.dtype,
+                             device=r.device)
+        levels.insert(0, (mm, cc, lo2, hi2, qq))
+    rows = []
+    for mm, cc, lo_, hi_, qq in levels:
+        q6 = torch.stack([qq[:, i, j] for i, j in _TRI], -1)
+        rows.append(torch.cat([mm[:, None], cc, 0.5 * (hi_ - lo_), q6,
+                               0.5 * (lo_ + hi_)], -1))
+    return torch.cat(rows, 0).contiguous()
+
+
+def level_rows(spec: TreeSpec, ctab: Tensor, ell: int) -> Tensor:
+    """The 2^ell rows of level `ell` of a cell table."""
+    return ctab[(1 << ell) - 1:(1 << (ell + 1)) - 1]
+
+
+# ---------------------------------------------------------------------------
+# K6: frontier walk and far field
+# ---------------------------------------------------------------------------
+
+def tree_walk(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor):
+    """Per group of L slots, level by level: the geometric MAC against
+    the group box, the far field of accepted cells at every live slot,
+    the children of opened cells as the next frontier, the opened leaves
+    as the near list.  Returns far a (G*L, 3), far pot (G*L,), near list
+    (G, Wn) int32 (-1 padded) and overflow ().  K6 on CUDA tensors."""
+    if ptab.is_cuda:
+        return _ext.tree_walk(spec, ctab, ptab, alive)
+    return tree_walk_plain(spec, ctab, ptab, alive)
+
+
+def _safe_invr(d2: Tensor) -> Tensor:
+    eps = 1e-24 if d2.dtype == torch.float32 else 1e-60
+    return torch.where(d2 > eps, torch.rsqrt(torch.clamp_min(d2, eps)), 0.0)
+
+
+def _stable_compact(valid: Tensor, values: Tensor, cap: int):
+    """Per row, `values[valid]` in order into a (B, cap) tensor padded
+    with -1, and the per-row counts (entries beyond cap are dropped)."""
+    B = valid.shape[0]
+    pos = torch.cumsum(valid.to(torch.int64), dim=1) - 1
+    keep = valid & (pos < cap)
+    out = torch.full((B, cap + 1), -1, dtype=values.dtype,
+                     device=values.device)
+    dest = torch.where(keep, pos, cap)
+    out.scatter_(1, dest, torch.where(keep, values, -1))
+    return out[:, :cap], valid.sum(1)
+
+
+def _chunk_groups(G: int, pairs_per_group: int, device) -> int:
+    """Groups per chunk of a plain version: at most 2^25 (target, source)
+    pairs per chunk on a GPU, 2^21 on a CPU."""
+    budget = 1 << 25 if device.type == "cuda" else 1 << 21
+    return max(1, min(G, budget // max(pairs_per_group, 1)))
+
+
+def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
+                    alive: Tensor):
+    """Plain version of K6: gandalf_tpu's walk_group over chunks of
+    groups, with the far field evaluated at dr = com - r directly."""
+    G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
+    dt, dev = ptab.dtype, ptab.device
+    Wn, th2 = spec.near_cap, spec.theta_sqd
+    leaves = level_rows(spec, ctab, D)
+    wmax = max([1] + [spec.level_cap(ell) for ell in range(1, D + 1)])
+    B = _chunk_groups(G, L * wmax, dev)
+    a_far = torch.zeros((G * L, 3), dtype=dt, device=dev)
+    pot_far = torch.zeros((G * L,), dtype=dt, device=dev)
+    near = torch.full((G, Wn), -1, dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for g0 in range(0, G, B):
+        g1 = min(g0 + B, G)
+        nb = g1 - g0
+        rt = ptab[g0 * L:g1 * L, P_R:P_R + 3].reshape(nb, L, 3)
+        gc = leaves[g0:g1, C_CEN:C_CEN + 3]
+        gh = leaves[g0:g1, C_HALF:C_HALF + 3]
+        a_acc = torch.zeros((nb, L, 3), dtype=dt, device=dev)
+        p_acc = torch.zeros((nb, L), dtype=dt, device=dev)
+        front = torch.zeros((nb, 1), dtype=torch.int64, device=dev)
+        ovf = torch.zeros((nb,), dtype=torch.bool, device=dev)
+        for ell in range(D + 1):
+            valid = front >= 0
+            idx = torch.clamp_min(front, 0)
+            tab = level_rows(spec, ctab, ell)[idx]          # (nb, W, 16)
+            m_c = torch.where(valid, tab[..., C_M], 0.0)
+            com = tab[..., C_COM:C_COM + 3]
+            half = tab[..., C_HALF:C_HALF + 3]
+            gap = torch.clamp_min(torch.abs(com - gc[:, None, :])
+                                  - gh[:, None, :], 0.0)
+            # sums written out in K6's order: both take the same MAC
+            # decisions, bit for bit, in either precision
+            dsqd = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
+                    + gap[..., 2] * gap[..., 2])
+            rmax_sqd = (half[..., 0] * half[..., 0]
+                        + half[..., 1] * half[..., 1]
+                        + half[..., 2] * half[..., 2])
+            live = valid & (m_c > 0.0)
+            accept = live & (dsqd * th2 > rmax_sqd)
+            open_ = live & ~accept
+            # far field of the accepted cells at every slot of their group
+            b, w = accept.nonzero(as_tuple=True)
+            if b.numel():
+                dr = com[b, w][:, None, :] - rt[b]           # (n, L, 3)
+                m_a = m_c[b, w][:, None]
+                inv_r = _safe_invr((dr * dr).sum(-1))
+                inv_r3 = inv_r * inv_r * inv_r
+                a_c = (m_a * inv_r3)[..., None] * dr
+                p_c = m_a * inv_r
+                if spec.quadrupole:
+                    qdr, drqdr = _quad_terms(tab[b, w, C_Q:C_Q + 6][:, None],
+                                             dr)
+                    inv_r5 = inv_r3 * inv_r * inv_r
+                    a_c = a_c - inv_r5[..., None] * qdr + (
+                        2.5 * drqdr * inv_r5 * inv_r * inv_r)[..., None] * dr
+                    p_c = p_c + 0.5 * drqdr * inv_r5
+                a_acc.index_add_(0, b, a_c)
+                p_acc.index_add_(0, b, p_c)
+            if ell < D:
+                kids = torch.stack([torch.where(open_, 2 * idx, -1),
+                                    torch.where(open_, 2 * idx + 1, -1)],
+                                   -1).reshape(nb, -1)
+                cap = spec.level_cap(ell + 1)
+                front, count = _stable_compact(kids >= 0, kids,
+                                               min(cap, kids.shape[1]))
+                ovf |= count > cap
+            else:
+                ids, count = _stable_compact(open_, idx, Wn)
+                near[g0:g1] = ids.to(torch.int32)
+                ovf |= count > Wn
+        al = alive[g0 * L:g1 * L].reshape(nb, L)
+        a_far[g0 * L:g1 * L] = torch.where(al[..., None], a_acc,
+                                           0.0).reshape(-1, 3)
+        pot_far[g0 * L:g1 * L] = torch.where(al, p_acc, 0.0).reshape(-1)
+        overflow |= ovf.any()
+    return a_far, pot_far, near, overflow
+
+
+def _quad_terms(q6: Tensor, dr: Tensor):
+    """Q.dr and dr.Q.dr from upper-triangle components."""
+    q = {p: q6[..., i] for i, p in enumerate(_TRI)}
+    qdr = torch.stack([sum(q[(min(i, j), max(i, j))] * dr[..., j]
+                           for j in range(3)) for i in range(3)], -1)
+    return qdr, (qdr * dr).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# K7: near field, support check and scatter to particle order
+# ---------------------------------------------------------------------------
+
+def tree_near(spec: TreeSpec, kern, ctab: Tensor, ptab: Tensor,
+              alive: Tensor, near: Tensor, a_far: Tensor, pot_far: Tensor,
+              out_index: Tensor, n_out: int):
+    """Near-field pair sums over each group's near leaves, plus the far
+    field, written to row out_index[slot] of (n_out, 3) and (n_out,)
+    outputs for every live slot; overflow () when some group's
+    kernel-support leaves exceed min(support_cap, near_cap).  `kern`
+    None evaluates Newtonian pairs only.  K7 on CUDA tensors."""
+    if ptab.is_cuda:
+        return _ext.tree_near(spec, kern, ctab, ptab, alive, near, a_far,
+                              pot_far, out_index, n_out)
+    return tree_near_plain(spec, kern, ctab, ptab, alive, near, a_far,
+                           pot_far, out_index, n_out)
+
+
+def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
+                    pot_far, out_index, n_out):
+    """Plain version of K7 over chunks of groups: each pair of a group's
+    live slot i and a live partner j in its near leaves (not i itself, d
+    > 0) adds the symmetric softened force and potential (zeta_scaling
+    'sph') where d < kernrange * max(h_i, h_j), and m/d^3, m/d beyond."""
+    G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
+    dt, dev = ptab.dtype, ptab.device
+    Wn = near.shape[1]
+    leaves = level_rows(spec, ctab, D)
+    B = _chunk_groups(G, L * Wn * L, dev)
+    a_s = torch.zeros((G * L, 3), dtype=dt, device=dev)
+    p_s = torch.zeros((G * L,), dtype=dt, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    Ws = min(spec.support_cap, Wn)
+    slot_l = torch.arange(L, device=dev)
+    for g0 in range(0, G, B):
+        g1 = min(g0 + B, G)
+        nb = g1 - g0
+        own = ptab[g0 * L:g1 * L].reshape(nb, L, 6)
+        al = alive[g0 * L:g1 * L].reshape(nb, L)
+        nid = near[g0:g1].long()                             # (nb, Wn)
+        nvalid = nid >= 0
+        col = (torch.clamp_min(nid, 0)[..., None] * L + slot_l).reshape(
+            nb, Wn * L)
+        part = ptab[col]                                     # (nb, P, 6)
+        pal = alive[col] & nvalid.repeat_interleave(L, dim=1)
+        rows = (torch.arange(g0, g1, device=dev)[:, None] * L + slot_l)
+        # separations per component, (nb, L, P) each
+        dr = [part[:, None, :, k] - own[:, :, None, k] for k in range(3)]
+        d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
+        use = (pal[:, None, :] & al[..., None]
+               & (col[:, None, :] != rows[..., None]) & (d2 > 0.0))
+        m_j = torch.where(use, part[:, None, :, P_M], 0.0)
+        inv_d = torch.rsqrt(torch.where(use, d2, 1.0))
+        coef = m_j * inv_d * inv_d * inv_d
+        pot = m_j * inv_d
+        if kern is not None:
+            # softened pairs, few of the block, evaluated as a list
+            h_i, h_j = own[..., P_H][..., None], part[:, None, :, P_H]
+            rad = kern.kernrange * torch.maximum(h_i, h_j)
+            # a slack on d^2; the test on d below decides
+            soft = use & (d2 < rad * rad * 1.0001)
+            b, i, p = soft.nonzero(as_tuple=True)
+            d = torch.sqrt(d2[b, i, p])
+            soft_d = d < rad[b, i, p]
+            b, i, p, d = b[soft_d], i[soft_d], p[soft_d], d[soft_d]
+            invh_i, invh_j = 1.0 / own[b, i, P_H], 1.0 / part[b, p, P_H]
+            s_i, s_j = d * invh_i, d * invh_j
+            paux = (0.5 * (invh_i * invh_i * kern.wgrav(s_i)
+                           + invh_j * invh_j * kern.wgrav(s_j))
+                    + 0.5 * (own[b, i, P_ZH] * kern.w1(s_i)
+                             + part[b, p, P_ZH] * kern.w1(s_j)))
+            gaux = 0.5 * (invh_i * kern.wpot(s_i) + invh_j * kern.wpot(s_j))
+            coef[b, i, p] = m_j[b, i, p] * paux / d
+            pot[b, i, p] = m_j[b, i, p] * gaux
+            # the support selection of gandalf_tpu, kept for its overflow
+            hg = torch.where(al, own[..., P_H], 0.0).amax(1)
+            hp = torch.where(pal & (part[..., P_M] > 0.0), part[..., P_H],
+                             0.0).reshape(nb, Wn, L).amax(2)
+            cell = leaves[torch.clamp_min(nid, 0)]
+            gcell = leaves[g0:g1]
+            gap = torch.clamp_min(
+                torch.abs(cell[..., C_CEN:C_CEN + 3]
+                          - gcell[:, None, C_CEN:C_CEN + 3])
+                - cell[..., C_HALF:C_HALF + 3]
+                - gcell[:, None, C_HALF:C_HALF + 3], 0.0)
+            sup = kern.kernrange * torch.maximum(hg[:, None], hp)
+            n_sup = (nvalid & ((gap * gap).sum(-1) < sup * sup)).sum(1)
+            overflow |= (n_sup > Ws).any()
+        a_s[g0 * L:g1 * L] = torch.stack(
+            [(coef * x).sum(2) for x in dr], -1).reshape(-1, 3)
+        p_s[g0 * L:g1 * L] = pot.sum(2).reshape(-1)
+    a_s = a_s + a_far
+    p_s = p_s + pot_far
+    a = torch.zeros((n_out, 3), dtype=dt, device=dev)
+    gpot = torch.zeros((n_out,), dtype=dt, device=dev)
+    idx = out_index.reshape(-1).long()[alive]
+    a[idx] = a_s[alive]
+    gpot[idx] = p_s[alive]
+    return a, gpot, overflow
+
+
+# ---------------------------------------------------------------------------
+# The gravity pass
+# ---------------------------------------------------------------------------
+
+def tree_gravity(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor,
+                 kern=None):
+    """K6 then K7 on a built tree: (a (G*L, 3), gpot (G*L,), overflow) in
+    bucket order (zero in empty slots).  `kern` None is Newtonian."""
+    a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive)
+    n = ptab.shape[0]
+    order = torch.arange(n, dtype=torch.int32, device=ptab.device)
+    a, gpot, ovf_near = tree_near(spec, kern, ctab, ptab, alive, near,
+                                  a_far, pot_far, order, n)
+    return a, gpot, ovf_walk | ovf_near
+
+
+def tree_gravity_grouped(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
+                         h: Optional[Tensor] = None, kern=None,
+                         zh: Optional[Tensor] = None, periodic_extent=None):
+    """Gravity with host-planned buckets: gather and unwrap (K4), build
+    (K5), walk (K6), near field and scatter (K7).  Returns (a, gpot,
+    overflow) in particle order.  Without `h` (or `kern`) the pairs are
+    Newtonian."""
+    ptab, alive = gather_to_buckets(spec, gmap, r, m, h, zh,
+                                    periodic_extent)
+    ctab = build_tree(spec, ptab, alive)
+    a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive)
+    a, gpot, ovf_near = tree_near(
+        spec, kern if h is not None else None, ctab, ptab, alive, near,
+        a_far, pot_far, gmap.reshape(-1), r.shape[0])
+    return a, gpot, ovf_walk | ovf_near

@@ -1,18 +1,21 @@
-"""Where a step's device time goes: torch.profiler over one burst of the
-hydro-only slice on one GPU.
+"""Where a step's device time goes: torch.profiler over one burst of a
+slice on one GPU.
 
-    python -m gandalf_tpu_torch.profile_step
+    python -m gandalf_tpu_torch.profile_step [--self-gravity {0,1}]
 
-Sets up the slice at 64^3 = 262,144 particles in float32, runs two
-warm-up steps, then profiles one burst of 8 steps (main_loop_steps).
-Prints one JSON line: the window's host time, the device time summed
-over kernels and copies, the device's idle share of the window, and the
-device time per kernel name (largest first).  Refuses to run without
-CUDA.
+Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
+or self-gravitating as in bench.build_sim(64), the default), runs two
+warm-up steps, then profiles one burst of 8 steps (main_loop_steps)
+that holds no tree rebuild.  Prints one JSON line: the window's host
+time, the device time summed over kernels and copies, the device's idle
+share of the window, the device time of each of K1-K7 and of the torch
+glue between them, and the device time per kernel name (largest
+first).  Refuses to run without CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -25,6 +28,17 @@ import torch  # noqa: E402
 
 N_SIDE = 64
 STEPS = 8
+# device kernel names of K1-K7 (csrc/); every other device event is glue
+FAMILIES = {
+    "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
+                      "bin_scatter_kernel", "bin_rank_kernel"),
+    "K2 grid27_density": ("grid27_density_kernel",),
+    "K3 grid27_forces": ("grid27_forces_kernel",),
+    "K4 tree_gather": ("tree_gather_kernel",),
+    "K5 tree_build": ("tree_leaf_kernel", "tree_merge_kernel"),
+    "K6 tree_walk": ("tree_walk_kernel",),
+    "K7 tree_near": ("tree_near_kernel",),
+}
 
 
 def _device_us(evt) -> float:
@@ -35,7 +49,17 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main() -> int:
+def _family(name: str) -> str:
+    for fam, kernels in FAMILIES.items():
+        if any(k in name for k in kernels):
+            return fam
+    return "torch glue"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--self-gravity", type=int, default=1, choices=(0, 1))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -43,11 +67,12 @@ def main() -> int:
     from .check import jittered_box_ic, slice_params
     from .sim.simulation import GradhSphSimulation
 
-    params = slice_params(N_SIDE)
+    params = slice_params(N_SIDE, self_gravity=args.self_gravity)
     sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
     sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
     sim.main_loop_steps(2)
     torch.cuda.synchronize()
+    plans0 = sim._n_tree_plans
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -61,17 +86,25 @@ def main() -> int:
         us = _device_us(evt)
         if str(evt.device_type).endswith("CUDA") and us > 0.0:
             per_name[evt.key] = per_name.get(evt.key, 0.0) + us
+    per_family = {}
+    for name, us in per_name.items():
+        fam = _family(name)
+        per_family[fam] = per_family.get(fam, 0.0) + us
     busy_us = sum(per_name.values())
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({
-        "card": card, "N": sim.state.N, "steps": done,
+        "card": card, "N": sim.state.N, "self_gravity": args.self_gravity,
+        "steps": done, "tree_plans_in_window": sim._n_tree_plans - plans0,
         "ncells": list(sim.gridspec.ncells), "k_cell": sim.gridspec.k_cell,
         "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / window_us,
         "device_ms_per_step": busy_us / 1e3 / done,
+        "device_ms_per_step_by_kernel": {
+            k: v / 1e3 / done for k, v in sorted(
+                per_family.items(), key=lambda kv: -kv[1])},
         "device_ms_by_name": {k: v / 1e3 for k, v in sorted(
             per_name.items(), key=lambda kv: -kv[1])}}))
     return 0

@@ -1,10 +1,13 @@
-"""Grad-h SPH simulation controller, hydro-only global-timestep slice.
+"""Grad-h SPH simulation controller, global-timestep slice.
 
 Counterpart of ``gandalf_tpu/sim/simulation.py:GradhSphSimulation`` for
 one configuration: grad-h SPH with the M4 kernel, the adiabatic EOS,
 mon97 viscosity (or none) and optional conductivity, the structured
-27-shift grid, KDK leapfrog with a global timestep.  Options outside
-that slice raise NotImplementedError naming their ROADMAP item.
+27-shift grid, KDK leapfrog with a global timestep, and optionally
+self-gravity from the KD-bucket Barnes-Hut tree (frontier walk,
+geometric MAC, monopole or quadrupole, no Ewald sum), with its buckets
+replanned every ``ntreebuildstep`` steps.  Options outside that slice
+raise NotImplementedError naming their ROADMAP item.
 
 The step runs eagerly as a sequence of torch operations and kernel
 launches on the simulation's device; on a CUDA device nothing in it
@@ -31,10 +34,16 @@ from ..kernels.smoothing import kernel_factory
 from ..ops.eos import eos_factory
 from ..ops.forces import ArtificialViscosity
 from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
-from ..state import DomainBox, SphState, make_sph_state
+from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
+                        plan_tree_for_buckets, tree_gravity_grouped,
+                        walk_stats_levels_native)
+from ..state import (BOUNDARY_TYPE, DUST_TYPE, ICM_TYPE, DomainBox,
+                     SphState, make_sph_state)
 
 # queued steps per burst: each queued step keeps its input state alive
 BURST_CAP = 8
+# bucket size of the gravity tree (gandalf_tpu's _plan_tree_buckets)
+LEAF_SIZE = 32
 
 
 def _host(x) -> np.ndarray:
@@ -61,11 +70,13 @@ class GradhSphSimulation:
         self.ndim = params.intparams["ndim"]
         self.state: Optional[SphState] = None
         self.gridspec = None
+        self.treespec = None
         self.Nsteps = 0
         self.t = 0.0
         self.setup_complete = False
         self.timing = CodeTiming()
         self._n_grid_overflows = 0
+        self._n_tree_plans = 0
         self._step_fn = None
         self._bootstrap_fn = None
 
@@ -77,8 +88,6 @@ class GradhSphSimulation:
             raise _unsupported(f"sim {sp['sim']!r}", "items 9-11")
         if self.ndim != 3:
             raise _unsupported("ndim != 3", "item 3")
-        if ip["self_gravity"]:
-            raise _unsupported("self_gravity", "item 4")
         if max(ip["Nlevels"], 1) > 1:
             raise _unsupported("Nlevels > 1 (block timesteps)", "item 7")
         if ip["sink_particles"] or ip["create_sinks"]:
@@ -109,10 +118,30 @@ class GradhSphSimulation:
         self.box = DomainBox.from_params(p)
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries", "item 8")
+        self.self_gravity = bool(ip["self_gravity"])
+        if self.self_gravity:
+            self._check_gravity_options()
         self.integ = IntegratorConfig.from_params(p, energy_integration=True)
         self.hydro_forces = bool(ip["hydro_forces"])
         self.h_fac = p.floatparams["h_fac"]
         self.h_converge = p.floatparams["h_converge"]
+
+    def _check_gravity_options(self):
+        """The tree-gravity options the port runs: the frontier walk with
+        the geometric MAC, monopole or quadrupole, KD buckets, no Ewald
+        sum."""
+        p = self.params
+        if p.intparams["ewald"] and self.box.periodic_dims():
+            raise _unsupported("ewald = 1 with periodic dims", "item 8")
+        if p.stringparams["gravity_mac"] != "geometric":
+            raise _unsupported(
+                f"gravity_mac {p.stringparams['gravity_mac']!r}", "item 8")
+        if p.stringparams["multipole"] not in ("monopole", "quadrupole"):
+            raise _unsupported(
+                f"multipole {p.stringparams['multipole']!r}", "item 8")
+        if p.stringparams["neib_search"] == "octtree":
+            raise _unsupported("neib_search = octtree (Morton buckets)",
+                               "item 8")
 
     # -- grid plan -------------------------------------------------------------
     def _plan_grid(self, r, h, growth: float = 1.3):
@@ -127,6 +156,80 @@ class GradhSphSimulation:
             spec = dataclasses.replace(
                 spec, k_cell=max(spec.k_cell, int(1.25 * old.k_cell)))
         self.gridspec = spec
+
+    # -- tree plan -------------------------------------------------------------
+    def _plan_tree_buckets(self, r_np: np.ndarray,
+                           grow_caps: bool = False) -> bool:
+        """(Re)plan the gravity-tree buckets from positions on the host:
+        KD buckets, then caps from the walk demand the C++ planner
+        measures on 4096 sampled groups, quantised to multiples of 32 and
+        kept within hysteresis of the old caps; `grow_caps` grows them
+        after an overflow.  Returns whether the TreeSpec changed."""
+        p = self.params
+        theta_sqd = p.floatparams["thetamaxsqd"]
+        old = self.treespec
+        gmap = plan_buckets_kd(r_np, leaf_size=LEAF_SIZE)
+        h_np = None
+        if self.state is not None and self.state.N == len(r_np):
+            h_np = _host(self.state.h)
+
+        def q32(x):
+            return -(-x // 32) * 32
+
+        def settle(new, old_v):
+            # keep the old cap unless demand grew past it or fell below a
+            # quarter of it; a growing cap overshoots by 25% of the old one
+            if new is None or old_v is None:
+                return new
+            if new <= old_v <= 4 * new:
+                return old_v
+            if new > old_v:
+                return q32(max(new, int(1.25 * old_v)))
+            return new
+
+        near_max, front_max, sup_max, level_max = walk_stats_levels_native(
+            r_np, gmap, theta_sqd, h=h_np, kernrange=self.kern.kernrange,
+            sample=4096)
+        near_cap = q32(int(1.25 * near_max) + 16)
+        frontier = q32(int(1.25 * front_max) + 32)
+        support_cap = None
+        if h_np is not None:
+            support_cap = q32(min(int(1.5 * sup_max) + 8, near_cap))
+        level_caps = [max(min(q32(int(1.25 * int(w)) + 16), 1 << ell,
+                              frontier), 1)
+                      for ell, w in enumerate(level_max)]
+        near_cap = min(near_cap, gmap.shape[0])
+        if old is not None:
+            near_cap = settle(near_cap, old.near_cap)
+            frontier = settle(frontier, old.frontier)
+            support_cap = settle(support_cap, old.support_cap)
+            if old.frontier_levels is not None \
+                    and len(old.frontier_levels) == len(level_caps):
+                level_caps = [settle(w, ow) for w, ow in
+                              zip(level_caps, old.frontier_levels)]
+        spec = plan_tree_for_buckets(
+            gmap, theta_sqd=theta_sqd,
+            quadrupole=p.stringparams["multipole"] == "quadrupole",
+            near_cap=near_cap, frontier=frontier,
+            macerror=p.floatparams["macerror"])
+        if support_cap is not None:
+            spec = dataclasses.replace(spec, support_cap=support_cap)
+        spec = dataclasses.replace(spec, frontier_levels=tuple(level_caps))
+        if grow_caps:
+            spec = grow_tree_caps(spec)
+        self.treespec = spec
+        self.state = self.state.replace(bucket_map=torch.as_tensor(
+            gmap, device=self.device))
+        self._n_tree_plans += 1
+        return old != spec
+
+    def _tree_cadence(self):
+        """Replan the buckets every ntreebuildstep steps."""
+        ntb = max(self.params.intparams["ntreebuildstep"], 1)
+        if self.treespec is not None and self.Nsteps > 0 \
+                and self.Nsteps % ntb == 0:
+            with self.timing.block("TREE_REBUILD"):
+                self._plan_tree_buckets(_host(self.state.r))
 
     # -- setup -----------------------------------------------------------------
     def SetupSimulation(self, ic: Optional[Dict[str, np.ndarray]] = None):
@@ -155,6 +258,8 @@ class GradhSphSimulation:
             self._step_fn = self._build_step()
             self._bootstrap_fn = self._build_bootstrap()
             self._plan_grid(ic["r"], ic["h"])
+            if self.self_gravity:
+                self._plan_tree_buckets(_host(self.state.r))
             self.state = self._bootstrap_fn(self.state)
             tries = 0
             while bool(self.state.neib_overflow):
@@ -166,6 +271,9 @@ class GradhSphSimulation:
                         "particles in the ICs?)")
                 self._n_grid_overflows += 1
                 self._plan_grid(self.state.r, self.state.h)
+                if self.treespec is not None:
+                    self._plan_tree_buckets(_host(self.state.r),
+                                            grow_caps=True)
                 self.state = self._bootstrap_fn(self.state.replace(
                     neib_overflow=torch.zeros_like(self.state.neib_overflow)))
         self.t = float(self.state.t)
@@ -173,10 +281,30 @@ class GradhSphSimulation:
 
     # -- the physics -----------------------------------------------------------
     def _hydro_pass(self, s: SphState) -> SphState:
-        """density -> EOS -> hydro forces at the current positions."""
-        return hydro_pass_grid27(self.kern, self.visc, self.box,
-                                 self.gridspec, self.eos, self.h_fac,
-                                 self.h_converge, self.hydro_forces, s)
+        """density -> EOS -> hydro forces -> self-gravity at the current
+        positions.  The overflow flag is the OR of both passes'."""
+        s = hydro_pass_grid27(self.kern, self.visc, self.box,
+                              self.gridspec, self.eos, self.h_fac,
+                              self.h_converge, self.hydro_forces, s)
+        if self.self_gravity:
+            pdims = self.box.periodic_dims()
+            pext = ([self.box.size[k] if k in pdims else 0.0
+                     for k in range(self.ndim)] if pdims else None)
+            a_g, gpot, overflow = tree_gravity_grouped(
+                self.treespec, s.bucket_map, s.r, self._gravity_mass(s),
+                s.h, self.kern, zh=s.zeta * s.hfactor,
+                periodic_extent=pext)
+            s = s.replace(a=s.a + a_g, gpot=gpot,
+                          neib_overflow=s.neib_overflow | overflow)
+        return s
+
+    def _gravity_mass(self, s: SphState):
+        """Gravitating mass: gas (and cdm); icm, boundary and dust
+        particles do not gravitate (dust only in two-fluid runs, which
+        the port does not run)."""
+        no_grav = ((s.ptype == ICM_TYPE) | (s.ptype == BOUNDARY_TYPE)
+                   | (s.ptype == DUST_TYPE))
+        return torch.where(no_grav, 0.0, s.m)
 
     def _build_bootstrap(self):
         """Initial force and timestep pass."""
@@ -223,7 +351,10 @@ class GradhSphSimulation:
 
     def main_loop_step(self):
         """One step; on neighbour overflow, replan the grid from the
-        pre-step state and redo the step (at most 4 times)."""
+        pre-step state (and the tree buckets, with grown caps) and redo
+        the step (at most 4 times).  Every ntreebuildstep steps the tree
+        buckets are replanned first."""
+        self._tree_cadence()
         self._clamp_dt_to_tend()
         with self.timing.block("MAIN_LOOP"):
             prev = self.state
@@ -233,10 +364,15 @@ class GradhSphSimulation:
                 # came from truncated sums
                 with self.timing.block("GRID_REPLAN"):
                     for attempt in range(4):
+                        self.state = prev
                         self._n_grid_overflows += 1
                         self._plan_grid(prev.r, prev.h,
                                         growth=1.3 * (1.2 ** attempt))
-                        self.state = self._step_fn(prev)
+                        if self.treespec is not None:
+                            # replaces self.state's bucket map
+                            self._plan_tree_buckets(_host(prev.r),
+                                                    grow_caps=True)
+                        self.state = self._step_fn(self.state)
                         if not bool(self.state.neib_overflow):
                             break
                     else:
@@ -249,8 +385,14 @@ class GradhSphSimulation:
         """Advance up to `n` steps as one burst: queue the steps without
         reading anything back, then read (overflow, t) once.  If some
         step overflowed, rewind to the burst's start and replay it step
-        by step, so main_loop_step replans at the offending step.  Near
-        tend the per-step path takes over.  Returns the steps done."""
+        by step, so main_loop_step replans at the offending step.  A
+        burst starts with the tree cadence's replan and ends at the next
+        one; near tend the per-step path takes over.  Returns the steps
+        done."""
+        if self.treespec is not None:
+            self._tree_cadence()
+            ntb = max(self.params.intparams["ntreebuildstep"], 1)
+            n = min(n, ntb - self.Nsteps % ntb)
         n = min(n, BURST_CAP)
         tend = self.params.floatparams["tend"]
         if tend < 1e20:

@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it never imports JAX, chip_smoke.py refuses
-to run without a GPU, and on a GPU each CUDA kernel agrees with its
+"""Guards of the PyTorch port: it never imports JAX (the self-gravitating
+slice included), chip_smoke.py refuses to run without a GPU, a missing
+C++ tree planner raises, and on a GPU each CUDA kernel agrees with its
 plain PyTorch version.
 
 This file imports no JAX, so its CUDA test also runs on a machine
@@ -40,6 +41,12 @@ def test_port_never_imports_jax():
         "sim.main_loop_step()\n"
         "sim.main_loop_step()\n"
         "assert sim.Nsteps == 2 and sim.t > 0.0\n"
+        "p = slice_params(8, self_gravity=1)\n"
+        "sim = GradhSphSimulation(p, device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation(jittered_box_ic(p, 8))\n"
+        "sim.main_loop_step()\n"
+        "sim.main_loop_step()\n"
+        "assert sim.Nsteps == 2 and bool((sim.state.gpot > 0).all())\n"
         "print('jax' in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=_env_without_precision(), capture_output=True,
@@ -63,16 +70,42 @@ def test_chip_smoke_refuses_without_gpu():
 def test_kernels_match_plain_versions_on_gpu(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    from gandalf_tpu_torch.check import (compare_kernels, jittered_box_ic,
-                                         slice_params)
+    from gandalf_tpu_torch.check import (compare_kernels,
+                                         compare_tree_kernels,
+                                         jittered_box_ic, slice_params)
     from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
-    p = slice_params(16)
+    p = slice_params(16, self_gravity=1)
     sim = GradhSphSimulation(p, device="cuda", dtype=dtype)
     sim.SetupSimulation(jittered_box_ic(p, 16))
     report = compare_kernels(sim, sim.state)
+    report.update(compare_tree_kernels(sim, sim.state))
     torch.cuda.synchronize()
     assert all(r["ok"] for r in report.values()), report
+
+
+def test_missing_tree_planner_raises(monkeypatch):
+    """Without the C++ planner (g++ could not build kdplan.cpp) the port
+    raises; it has no numpy planner or worst-case cap law to fall back
+    to."""
+    import numpy as np
+
+    import gandalf_tpu.native
+    from gandalf_tpu_torch.check import jittered_box_ic, slice_params
+    from gandalf_tpu_torch.ops import tree
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    monkeypatch.setattr(gandalf_tpu.native, "load", lambda: None)
+    r = np.random.default_rng(0).random((64, 3))
+    with pytest.raises(RuntimeError, match="kdplan.cpp"):
+        tree.plan_buckets_kd(r, 32)
+    with pytest.raises(RuntimeError, match="kdplan.cpp"):
+        tree.walk_stats_levels_native(r, np.arange(64, dtype=np.int32)
+                                      .reshape(2, 32), 0.1)
+    p = slice_params(8, self_gravity=1)
+    sim = GradhSphSimulation(p, device="cpu", dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="kdplan.cpp"):
+        sim.SetupSimulation(jittered_box_ic(p, 8))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -87,3 +120,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         _ext.grid27_bin(spec, r)
     assert _ext.LAUNCHES["grid27_bin"] == 0
+    from gandalf_tpu_torch.ops.tree import plan_tree
+
+    tspec = plan_tree(64)
+    gmap = torch.arange(64, dtype=torch.int32).reshape(2, 32)
+    m = torch.ones((64,), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.tree_gather(tspec, gmap, torch.rand((64, 3),
+                                                 dtype=torch.float64),
+                         m, None, None, None)
+    assert _ext.LAUNCHES["tree_gather"] == 0

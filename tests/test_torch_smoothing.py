@@ -26,6 +26,22 @@ def test_m4_matches_jax(fn, ndim):
         jk.kernrange, jk.kernnorm, jk.kernnormdrag)
 
 
+@pytest.mark.parametrize("fn", ["wgrav", "wpot"])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_m4_gravity_kernels_match_jax(fn, ndim):
+    """The softened gravity kernels on s in [0, 3], through the support's
+    end, where they become 1/s^2 and 1/s."""
+    s = np.linspace(0.0, 3.0, 3001)
+    tk, jk = kernel_factory("m4", ndim), jax_kernel("m4", ndim)
+    got = getattr(tk, fn)(torch.as_tensor(s)).numpy()
+    want = np.asarray(getattr(jk, fn)(jnp.asarray(s)))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    beyond = s >= 2.0
+    np.testing.assert_allclose(
+        got[beyond], s[beyond] ** (-2.0 if fn == "wgrav" else -1.0),
+        rtol=TOL)
+
+
 @pytest.mark.parametrize("fn", ["w0_s2", "womega_s2", "wzeta_s2"])
 @pytest.mark.parametrize("ndim", [1, 2, 3])
 def test_m4_squared_argument_matches_jax(fn, ndim):

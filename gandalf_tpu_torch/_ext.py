@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K7 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K9 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -11,7 +11,9 @@ The wrappers below check device, dtype, shape and contiguity, allocate
 every output and scratch tensor with ``torch.empty``, launch on PyTorch's
 current stream and raise if the launch reports an error.  Each adds one
 to its kernel's count in ``LAUNCHES`` when it launches, and nowhere else
-(K5's wrapper launches one kernel per tree level and counts one).
+(K5's wrapper launches one kernel per tree level and counts one).  K6
+and K7 launched over a group list count under ``tree_walk_list`` and
+``tree_near_list``, apart from their launches over all groups.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
-          "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu")
+          "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu",
+          "active_density.cu", "active_forces.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches per kernel since the last reset_launches()
 LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "tree_gather": 0, "tree_build": 0, "tree_walk": 0,
-            "tree_near": 0}
+            "tree_near": 0, "tree_walk_list": 0, "tree_near_list": 0,
+            "active_density": 0, "active_forces": 0}
 
 _lib = None
 
@@ -51,9 +55,16 @@ _ARGTYPES = {
                       _D, _D, _D, _D, _I, _I, _D, _D, _P, _P, _P, _I, _P],
     "tree_gather": [_P, _I, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _I, _P],
     "tree_build": [_P, _P, _I, _I, _P, _P, _I, _P],
-    "tree_walk": [_P, _P, _P, _I, _I, _P, _D, _I, _P, _P, _P, _P, _I, _P],
-    "tree_near": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D,
-                  _P, _P, _P, _I, _P],
+    "tree_walk": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _P, _P, _P, _P,
+                  _I, _P],
+    "tree_near": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D,
+                  _D, _P, _P, _P, _I, _P],
+    "active_density": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I,
+                       _P],
+    "active_forces": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _D, _D, _D, _D, _D, _I, _I, _I, _D, _D, _P,
+                      _P, _P, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -167,14 +178,15 @@ def _grid_args(spec):
             *[float(x) for x in spec.extents])
 
 
-def _launch(name: str, dtype, device: torch.device, *args) -> None:
+def _launch(name: str, dtype, device: torch.device, *args,
+            count: str = None) -> None:
     fn = getattr(lib(), f"{name}_{_float_suffix(dtype)}")
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*args, device.index, stream)
     if rc != 0:
         msg = lib().grid27_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (code {rc})")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 def _p(t: torch.Tensor) -> int:
@@ -292,32 +304,53 @@ def tree_build(spec, ptab, alive):
     return ctab
 
 
-def tree_walk(spec, ctab, ptab, alive):
+def _group_list(spec, group_ids, dev):
+    """(pointer, count) of a group list, checked; (None, 2^depth) for
+    all groups."""
+    if group_ids is None:
+        return None, spec.n_leaves
+    _check(group_ids, "group_ids", torch.int32, (group_ids.numel(),))
+    if group_ids.device != dev:
+        raise ValueError("group_ids: expected the tables' device")
+    return _p(group_ids), group_ids.numel()
+
+
+def tree_walk(spec, ctab, ptab, alive, group_ids=None):
     """K6: far a (G*32, 3), far pot (G*32,), near list (G, Wn) int32 and
-    overflow () bool."""
+    overflow () bool.  With `group_ids` (G_act,) int32 only the listed
+    groups walk: their rows are written, the others hold zeros (a, pot)
+    and -1 (near)."""
     G, S, rows = _tree_shapes(spec)
     dt, dev = ptab.dtype, ptab.device
     _check(ctab, "ctab", dt, (rows, _CCOLS))
     _check(ptab, "ptab", dt, (S, _PCOLS))
     _check(alive, "alive", torch.bool, (S,))
+    gptr, n_groups = _group_list(spec, group_ids, dev)
     caps = [1] + [spec.level_cap(ell) for ell in range(1, spec.depth + 1)]
     caps_c = (ctypes.c_int * len(caps))(*caps)
-    a_far = torch.empty((S, 3), dtype=dt, device=dev)
-    pot_far = torch.empty((S,), dtype=dt, device=dev)
-    near = torch.empty((G, spec.near_cap), dtype=torch.int32, device=dev)
+    listed = group_ids is not None
+    alloc = torch.zeros if listed else torch.empty
+    a_far = alloc((S, 3), dtype=dt, device=dev)
+    pot_far = alloc((S,), dtype=dt, device=dev)
+    near = (torch.full((G, spec.near_cap), -1, dtype=torch.int32,
+                       device=dev) if listed else
+            torch.empty((G, spec.near_cap), dtype=torch.int32, device=dev))
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    _launch("tree_walk", dt, dev, _p(ctab), _p(ptab), _p(alive),
-            spec.depth, spec.near_cap, ctypes.addressof(caps_c),
-            float(spec.theta_sqd), int(spec.quadrupole), _p(a_far),
-            _p(pot_far), _p(near), _p(overflow))
+    if n_groups:
+        _launch("tree_walk", dt, dev, _p(ctab), _p(ptab), _p(alive), gptr,
+                n_groups, spec.depth, spec.near_cap, ctypes.addressof(caps_c),
+                float(spec.theta_sqd), int(spec.quadrupole), _p(a_far),
+                _p(pot_far), _p(near), _p(overflow),
+                count="tree_walk_list" if listed else "tree_walk")
     return a_far, pot_far, near, overflow
 
 
 def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
-              out_index, n_out):
+              out_index, n_out, group_ids=None):
     """K7: a (n_out, 3), gpot (n_out,) at rows out_index[slot] of the live
     slots (zero elsewhere), and the support overflow () bool.  `kern`
-    None sums Newtonian pairs only."""
+    None sums Newtonian pairs only.  With `group_ids` only the listed
+    groups' slots are written."""
     G, S, rows = _tree_shapes(spec)
     dt, dev = ptab.dtype, ptab.device
     _check(ctab, "ctab", dt, (rows, _CCOLS))
@@ -328,14 +361,81 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
     _check(pot_far, "pot_far", dt, (S,))
     out_index = out_index.reshape(-1)
     _check(out_index, "out_index", torch.int32, (S,))
+    gptr, n_groups = _group_list(spec, group_ids, dev)
     a = torch.zeros((n_out, 3), dtype=dt, device=dev)
     gpot = torch.zeros((n_out,), dtype=dt, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     smoothed = kern is not None
-    _launch("tree_near", dt, dev, _p(ctab), _p(ptab), _p(alive), _p(near),
-            _p(a_far), _p(pot_far), _p(out_index), spec.depth,
-            spec.near_cap, spec.support_cap, int(smoothed),
-            float(kern.kernrange) if smoothed else 0.0,
-            float(kern.kernnorm) if smoothed else 0.0, _p(a), _p(gpot),
-            _p(overflow))
+    if n_groups:
+        _launch("tree_near", dt, dev, _p(ctab), _p(ptab), _p(alive),
+                _p(near), _p(a_far), _p(pot_far), _p(out_index), gptr,
+                n_groups, spec.depth, spec.near_cap, spec.support_cap,
+                int(smoothed), float(kern.kernrange) if smoothed else 0.0,
+                float(kern.kernnorm) if smoothed else 0.0, _p(a), _p(gpot),
+                _p(overflow),
+                count="tree_near_list" if group_ids is not None
+                else "tree_near")
     return a, gpot, overflow
+
+
+# ---------------------------------------------------------------------------
+# Active-subset hydro, K8 and K9 (layouts of ops/active_grid.py)
+# ---------------------------------------------------------------------------
+
+def _active_args(spec, idx, cell_of, ids_d, N):
+    n = idx.numel()
+    _check(idx, "idx", torch.int32, (n,))
+    _check(cell_of, "cell_of", torch.int32, (N,))
+    _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
+    return n
+
+
+def active_density(spec, kern, h_fac, h_converge, hmax, idx, cell_of,
+                   ids_d, r, m, h):
+    """K8: the h-rho iteration of the particles idx (n,) int32 from their
+    own h over the 27 cells of K1's slot map ids_d (*ncells, K) int32
+    (-1 empty): (rho, invom, zeta) sums at the final h and the converged
+    flag, each (n,)."""
+    N, dt, dev = r.shape[0], r.dtype, r.device
+    n = _active_args(spec, idx, cell_of, ids_d, N)
+    _check(r, "r", dt, (N, 3))
+    _check(m, "m", dt, (N,))
+    _check(h, "h", dt, (N,))
+    rho, invom, zeta = (torch.empty((n,), dtype=dt, device=dev)
+                        for _ in range(3))
+    done = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n:
+        _launch("active_density", dt, dev, _p(idx), n, _p(cell_of),
+                _p(ids_d), _p(r), _p(m), _p(h), *_grid_args(spec),
+                float(kern.kernnorm), float(h_fac), float(h_converge),
+                float(hmax), _p(rho), _p(invom), _p(zeta), _p(done))
+    return rho, invom, zeta, done
+
+
+def active_forces(spec, kern, visc, idx, cell_of, ids_d, r, v, packed,
+                  level, levelneib, hydro_forces):
+    """K9: pair forces of the particles idx (n,) int32 over the 27 cells
+    of ids_d: a (n, 3), dudt and div_v (n,) after the epilogue (zero
+    without hydro forces), and a copy of levelneib (N,) int32 raised by
+    the neighbour-level scatter in both directions.  `packed` (N, 9)
+    holds ops.sph_grid27.FORCE_SCALARS per particle."""
+    N, dt, dev = r.shape[0], r.dtype, r.device
+    n = _active_args(spec, idx, cell_of, ids_d, N)
+    _check(r, "r", dt, (N, 3))
+    _check(v, "v", dt, (N, 3))
+    _check(packed, "packed", dt, (N, 9))
+    _check(level, "level", torch.int32, (N,))
+    _check(levelneib, "levelneib", torch.int32, (N,))
+    a = torch.empty((n, 3), dtype=dt, device=dev)
+    dudt = torch.empty((n,), dtype=dt, device=dev)
+    div_v = torch.empty((n,), dtype=dt, device=dev)
+    lneib = levelneib.clone()
+    if n:
+        _launch("active_forces", dt, dev, _p(idx), n, _p(cell_of),
+                _p(ids_d), _p(r), _p(v), _p(packed), _p(level),
+                *_grid_args(spec), float(kern.kernnorm),
+                float(kern.kernrange), int(hydro_forces), int(visc.avisc),
+                int(visc.acond), float(visc.alpha_visc),
+                float(visc.beta_visc), _p(a), _p(dudt), _p(div_v),
+                _p(lneib))
+    return a, dudt, div_v, lneib

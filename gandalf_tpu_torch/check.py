@@ -1,15 +1,17 @@
-"""The slice's configuration and IC, and the comparison of each kernel
+"""The slices' configurations and IC, and the comparison of each kernel
 with its plain version on the same inputs.
 
-``slice_params`` is the hydro-only configuration of the JAX package's
-benchmark (``bench.build_sim(n_side, self_gravity=0)``) and
-``jittered_box_ic`` its jittered lattice (``bench.measure``).
+``slice_params`` is the configuration of the JAX package's benchmark
+(``bench.build_sim(n_side, self_gravity)``) and ``jittered_box_ic`` its
+jittered lattice (``bench.measure``); ``sphere_block_params`` is the
+block-timestep cold collapse (``cold_sphere_block``).
 ``compare_kernels`` runs K1, K2 and K3 and their plain versions on one
 state, on whatever device the state lives, and reports errors against
 the tolerances below, and optionally times both; ``compare_tree_kernels``
-does the same for the tree kernels K4-K7.  ``gravity_accuracy`` holds the
-tree's accelerations against the direct sum.  ``chip_smoke.py`` and the
-CUDA tests use them.
+does the same for the tree kernels K4-K7, and ``compare_active_kernels``
+for the block tick's K8, K9 and the group-list launches of K6 and K7.
+``gravity_accuracy`` holds the tree's accelerations against the direct
+sum.  ``chip_smoke.py`` and the CUDA tests use them.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from gandalf_tpu.params import Parameters
 from gandalf_tpu.sim.ic import generate_ic
 
 from . import _ext
+from .ops import active_grid as ag
 from .ops import sph_grid27 as g27
 from .ops import tree as tr
+from .ops.density import finish_h
 from .ops.sph_gravity import direct_sph_gravity
 
 # Tolerances, kernel against plain version on the same inputs.
@@ -89,6 +93,36 @@ def slice_params(n_side: int, tend: float = 1.0e30,
     return p
 
 
+def sphere_block_params(n_target: int, tend: float = 1.0e30,
+                        ntreebuildstep: int = 32,
+                        self_gravity: int = 1) -> Parameters:
+    """The cold_sphere_block configuration: the JAX package's block and
+    self-gravity test (tests/test_block.py:test_block_gravity_compact_
+    freefall) as a cold collapse with hydro forces on.  A uniform sphere
+    (mcloud 1, radius 1, cubic lattice of about `n_target` particles) in
+    an open box, dimensionless, M4, energy_eqn with gamma 5/3 and press1
+    1e-4, mon97 viscosity, courant 0.1 and accel 0.2, Nlevels 4 with
+    level_diff_max 1, and (with `self_gravity`) quadrupole tree gravity
+    with the geometric MAC theta^2 0.1 and KD buckets, rebuilt every
+    `ntreebuildstep` ticks."""
+    p = Parameters()
+    updates = {
+        "run_id": "", "sim": "gradhsph", "ic": "sphere", "ndim": 3,
+        "Nhydro": n_target, "particle_distribution": "cubic_lattice",
+        "mcloud": 1.0, "radius": 1.0, "dimensionless": 1,
+        "hydro_forces": 1, "gas_eos": "energy_eqn",
+        "press1": 1.0e-4, "self_gravity": self_gravity, "kernel": "m4",
+        "courant_mult": 0.1, "accel_mult": 0.2, "Nlevels": 4,
+        "level_diff_max": 1, "neib_search": "kdtree",
+        "multipole": "quadrupole", "gravity_mac": "geometric",
+        "thetamaxsqd": 0.1, "ntreebuildstep": ntreebuildstep,
+        "tend": tend, "tsnapfirst": 1.0e30,
+    }
+    for k, v in updates.items():
+        p.set(k, v)
+    return p
+
+
 def jittered_box_ic(params: Parameters, n_side: int, seed: int = 42):
     """The lattice IC with positions jittered by 0.2 spacing N(0,1) and
     velocities 0.05 N(0,1) (numpy generator `seed`)."""
@@ -114,6 +148,18 @@ def _time_ms(fn, repeats: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / repeats
+
+
+def _time_pairs(out, timed, repeats):
+    """Kernel and plain times of each entry of `timed`, in the order
+    plain, kernel, kernel, plain: each side's mean of two turns."""
+    for name, (kfn, pfn) in timed.items():
+        p1 = _time_ms(pfn, 1)
+        k1 = _time_ms(kfn, repeats)
+        k2 = _time_ms(kfn, repeats)
+        p2 = _time_ms(pfn, 1)
+        out[name]["ms"] = 0.5 * (k1 + k2)
+        out[name]["plain_ms"] = 0.5 * (p1 + p2)
 
 
 def _rel(x, ref, fill):
@@ -218,18 +264,10 @@ def compare_kernels(sim, state, repeats: int = 0):
                 lambda: g27.force_sums_plain(kern, visc, spec, r_d, v_d,
                                              packed, fill)),
         }
-        for name, (kfn, pfn) in timed.items():
-            # plain, kernel, kernel, plain: each side's mean of two turns
-            p1 = _time_ms(pfn, 1)
-            k1 = _time_ms(kfn, repeats)
-            k2 = _time_ms(kfn, repeats)
-            p2 = _time_ms(pfn, 1)
-            out[name]["ms"] = 0.5 * (k1 + k2)
-            out[name]["plain_ms"] = 0.5 * (p1 + p2)
+        _time_pairs(out, timed, repeats)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
-
 
 
 def gravity_inputs(sim, state):
@@ -245,13 +283,17 @@ def gravity_inputs(sim, state):
 
 def _tree_build_errors(spec, ctab, ref):
     """Per level and field, error relative to the level's scale of the
-    field (K5 tolerance above); returns the largest."""
+    field (K5 tolerance above); returns the largest.  Positions (com,
+    centre) are compared on the scale of the particle set's extent, at
+    least the root's half-width: the root of a sphere centred on the
+    origin has a COM near 0, far below the rounding of its sum."""
     worst = 0.0
     fields = {"m": slice(tr.C_M, tr.C_M + 1),
               "com": slice(tr.C_COM, tr.C_COM + 3),
               "half": slice(tr.C_HALF, tr.C_HALF + 3),
               "q": slice(tr.C_Q, tr.C_Q + 6),
               "centre": slice(tr.C_CEN, tr.C_CEN + 3)}
+    extent = float(ref[0, tr.C_HALF:tr.C_HALF + 3].abs().max())
     for ell in range(spec.depth + 1):
         x = tr.level_rows(spec, ctab, ell)
         y = tr.level_rows(spec, ref, ell)
@@ -265,6 +307,8 @@ def _tree_build_errors(spec, ctab, ref):
                 scale = (y[:, tr.C_M] * (half * half).sum(-1))[live].max()
             else:
                 scale = torch.abs(y[:, cols])[live].max()
+                if name in ("com", "centre"):
+                    scale = max(float(scale), extent)
             worst = max(worst, float(err) / max(float(scale), 1e-300))
     # empty cells: equal m and sentinels
     same_empty = bool(torch.equal(ctab[:, tr.C_M] > 0, ref[:, tr.C_M] > 0))
@@ -381,34 +425,38 @@ def compare_tree_kernels(sim, state, repeats: int = 0):
                 lambda: tr.tree_near_plain(spec, kern, cp, pp, ap, wp[2],
                                            wp[0], wp[1], gmap, N)),
         }
-        for name, (kfn, pfn) in timed.items():
-            p1 = _time_ms(pfn, 1)
-            k1 = _time_ms(kfn, repeats)
-            k2 = _time_ms(kfn, repeats)
-            p2 = _time_ms(pfn, 1)
-            out[name]["ms"] = 0.5 * (k1 + k2)
-            out[name]["plain_ms"] = 0.5 * (p1 + p2)
+        _time_pairs(out, timed, repeats)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
 
 
-def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0):
+def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
+                     among=None, spec=None):
     """The tree's gravitational acceleration at `n_sample` particles
     (numpy generator `seed`) against the float64 direct sum over all
     particles at the bucket-unwrapped positions, the sum the tree
-    approximates without an Ewald sum.  Returns rms|da| / rms|a|."""
+    approximates without an Ewald sum.  `among` (int32 indices) samples
+    from those particles only and walks only their buckets (the block
+    tick's walk); `spec` replaces the simulation's TreeSpec (a monopole
+    one, say).  Returns rms|da| / rms|a| and the walk's overflow."""
     s = sim.state
     r, m, h, kern, zh, pext = gravity_inputs(sim, s)
-    spec, gmap = sim.treespec, s.bucket_map
-    a_tree, _, overflow = tr.tree_gravity_grouped(spec, gmap, r, m, h, kern,
-                                                  zh, pext)
+    spec = spec or sim.treespec
+    gmap = s.bucket_map
+    if among is None:
+        a_tree, _, overflow = tr.tree_gravity_grouped(spec, gmap, r, m, h,
+                                                      kern, zh, pext)
+        pool = np.arange(r.shape[0])
+    else:
+        a_tree, _, overflow = tr.tree_gravity_active(
+            spec, gmap, r, m, h, kern, zh, sim._active_groups(among), pext)
+        pool = among.cpu().numpy()
     ptab, alive = tr.gather_to_buckets(spec, gmap, r, m, h, zh, pext)
     r_unw = r.double().clone()
     r_unw[gmap.reshape(-1).long()[alive]] = ptab[alive, :3].double()
-    N = r.shape[0]
-    idx = np.random.default_rng(seed).choice(N, size=min(n_sample, N),
-                                             replace=False)
+    idx = np.random.default_rng(seed).choice(
+        pool, size=min(n_sample, len(pool)), replace=False)
     t = torch.as_tensor(np.sort(idx), device=r.device)
     a_ref, _ = direct_sph_gravity(kern, r_unw, m.double(), h.double(),
                                   s.zeta.double(), s.hfactor.double(),
@@ -417,3 +465,157 @@ def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0):
     err = torch.sqrt(torch.sum(da * da) / torch.sum(a_ref * a_ref))
     return {"n_sample": int(t.numel()), "rms_rel_err": float(err),
             "overflow": bool(overflow)}
+
+
+def compare_active_kernels(sim, state, idx, repeats: int = 0):
+    """Run K8, K9 and the group-list launches of K6 and K7 and their plain
+    versions on the same inputs, from a block-slice state on a CUDA
+    device: K8 and K9 for the particles idx (n,) int32, K6 and K7 for the
+    buckets of idx (skipped without self-gravity).  K9 and K7 take the
+    plain K8's and K6's outputs.  Returns {kernel: report} as
+    compare_kernels does, with the tolerances of K2, K3, K6 and K7 and
+    levelneib exactly equal.  Launch counts are restored afterwards.
+    `idx` must not be empty."""
+    saved = dict(_ext.LAUNCHES)
+    spec, kern, visc = sim.gridspec, sim.kern, sim.visc
+    f64 = state.r.dtype == torch.float64
+    il = idx.long()
+    out = {}
+
+    # K8 on the plain binning's slot map; the finish is shared torch code
+    b = g27.bin_particles_plain(spec, state.r)
+    ids_d = ag.dense_ids(spec, b)
+    hmax = g27.hmax_of(spec, kern.kernrange)
+    kargs = (spec, kern, sim.h_fac, sim.h_converge, hmax, idx, b.cell_of,
+             ids_d, state.r, state.m, state.h)
+    pargs = (kern, spec) + kargs[2:]
+    s_k = _ext.active_density(*kargs)
+    s_p = ag.active_density_plain(*pargs)
+    m_a = state.m[il]
+    dens = {tag: finish_h(3, sim.h_fac, m_a, *sums)
+            for tag, sums in (("kernel", s_k), ("plain", s_p))}
+    every = torch.ones_like(m_a, dtype=torch.bool)
+    errs = {f: (_scaled if f == "zeta" else _rel)(
+        getattr(dens["kernel"], f), getattr(dens["plain"], f), every)
+        for f in ("h", "rho", "invomega", "zeta")}
+    same_done = bool(torch.equal(s_k[3], s_p[3]))
+    rep = {"n": int(il.numel()), "rel_err": errs,
+           "same_converged": same_done,
+           "max_abs_err": float(torch.abs(dens["kernel"].rho
+                                          - dens["plain"].rho).max())}
+    if f64:
+        rep["ok"] = same_done and max(errs.values()) <= TOL_F64
+    else:
+        rel = torch.abs(dens["kernel"].rho / dens["plain"].rho - 1.0)
+        frac = float((rel > TOL_F32_DENSITY_TYPICAL).float().mean())
+        rep["fraction_beyond_typical"] = frac
+        rep["ok"] = (max(errs.values()) <= TOL_F32_DENSITY_MAX
+                     and frac <= TOL_F32_DENSITY_FRACTION)
+    out["active_density"] = rep
+
+    # K9 on the state with the plain K8's rows written back
+    dp = dens["plain"]
+    u_a, p_a, c_a = sim.eos.thermal_update(torch.clamp_min(dp.rho, 1e-30),
+                                           state.u[il])
+    s2 = state.replace(**{f: getattr(state, f).index_copy(0, il, x)
+                          for f, x in (("h", dp.h), ("rho", dp.rho),
+                                       ("invomega", dp.invomega),
+                                       ("hfactor", dp.hfactor),
+                                       ("u", u_a), ("pressure", p_a),
+                                       ("sound", c_a))})
+    packed = torch.stack([getattr(s2, k) for k in g27.FORCE_SCALARS], -1)
+    fargs = (spec, idx, b.cell_of, ids_d, s2.r, s2.v, packed, s2.level,
+             s2.levelneib, sim.hydro_forces)
+    f_k = _ext.active_forces(fargs[0], kern, visc, *fargs[1:])
+    f_p = ag.active_forces_plain(kern, visc, *fargs)
+    every3 = every[:, None].expand(f_k[0].shape)
+    # without hydro forces both sides are zero and the errors 0
+    errs = {name: _scaled_all(xk, xp, fl) for name, xk, xp, fl in
+            zip(("a", "dudt", "div_v"), f_k[:3], f_p[:3],
+                (every3, every, every))}
+    same_lneib = bool(torch.equal(f_k[3], f_p[3]))
+    out["active_forces"] = {
+        "n": int(il.numel()), "scaled_err": errs,
+        "same_levelneib": same_lneib,
+        "levelneib_raised": int((f_p[3] != s2.levelneib).sum()),
+        "max_abs_err": float(torch.abs(f_k[0] - f_p[0]).max()),
+        "ok": same_lneib and max(errs.values())
+        <= (TOL_F64 if f64 else TOL_F32_FORCES)}
+
+    timed = {
+        "active_density": (lambda: _ext.active_density(*kargs),
+                           lambda: ag.active_density_plain(*pargs)),
+        "active_forces": (
+            lambda: _ext.active_forces(fargs[0], kern, visc, *fargs[1:]),
+            lambda: ag.active_forces_plain(kern, visc, *fargs)),
+    }
+
+    if sim.self_gravity:
+        tspec, gmap = sim.treespec, state.bucket_map
+        group_ids = sim._active_groups(idx)
+        r, m, h, _, zh, pext = gravity_inputs(sim, state)
+        G, L = tspec.n_leaves, tspec.leaf_size
+        pp, ap = tr.gather_to_buckets_plain(tspec, gmap, r, m, h, zh, pext)
+        cp = tr.build_tree_plain(tspec, pp, ap)
+        gl = group_ids.long()
+        listed = torch.zeros((G,), dtype=torch.bool, device=r.device)
+        listed[gl] = True
+        rows = listed.repeat_interleave(L) & ap
+
+        # K6 over the list: listed rows and near lists, zeros elsewhere
+        wk = _ext.tree_walk(tspec, cp, pp, ap, group_ids)
+        wp = tr.tree_walk_plain(tspec, cp, pp, ap, group_ids)
+        differ = (wk[2] != wp[2]).any(1)
+        n_differ = int(differ.sum())
+        same_rows = ~differ.repeat_interleave(L) & rows
+        errs = ({"a": _scaled_all(wk[0], wp[0], same_rows),
+                 "pot": _scaled_all(wk[1], wp[1], same_rows)}
+                if bool(same_rows.any()) else {})
+        zero_elsewhere = (not bool(wk[0][~rows].any())
+                          and not bool(wk[1][~rows].any()))
+        same_ovf = bool(wk[3]) == bool(wp[3])
+        tol = TOL_F64 if f64 else TOL_F32_TREE_FAR
+        out["tree_walk_list"] = {
+            "groups": int(gl.numel()), "of": G,
+            "groups_with_other_near_list": n_differ,
+            "same_overflow": same_ovf, "scaled_err": errs,
+            "zero_elsewhere": zero_elsewhere,
+            "max_abs_err": float(torch.abs(wk[0] - wp[0])[same_rows].max())
+            if bool(same_rows.any()) else 0.0,
+            "ok": (same_ovf and not bool(wp[3]) and zero_elsewhere
+                   and max(errs.values(), default=0.0) <= tol
+                   and n_differ <= (0 if f64 else
+                                    int(TOL_TREE_FLIP_FRACTION * G)))}
+
+        # K7 over the list on the plain walk, in particle order
+        N = r.shape[0]
+        nargs = (tspec, sim.kern, cp, pp, ap, wp[2], wp[0], wp[1], gmap, N,
+                 group_ids)
+        nk = _ext.tree_near(*nargs)
+        np_ = tr.tree_near_plain(*nargs)
+        mine = torch.zeros((N,), dtype=torch.bool, device=r.device)
+        mine[gmap.reshape(-1).long()[rows]] = True
+        errs = ({"a": _scaled_all(nk[0], np_[0], mine),
+                 "gpot": _scaled_all(nk[1], np_[1], mine)}
+                if bool(mine.any()) else {})
+        zero_elsewhere = (not bool(nk[0][~mine].any())
+                          and not bool(nk[1][~mine].any()))
+        same_ovf = bool(nk[2]) == bool(np_[2])
+        tol = TOL_F64 if f64 else TOL_F32_TREE_NEAR
+        out["tree_near_list"] = {
+            "scaled_err": errs, "same_overflow": same_ovf,
+            "zero_elsewhere": zero_elsewhere,
+            "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
+            "ok": (same_ovf and not bool(np_[2]) and zero_elsewhere
+                   and max(errs.values(), default=0.0) <= tol)}
+        timed["tree_walk_list"] = (
+            lambda: _ext.tree_walk(tspec, cp, pp, ap, group_ids),
+            lambda: tr.tree_walk_plain(tspec, cp, pp, ap, group_ids))
+        timed["tree_near_list"] = (lambda: _ext.tree_near(*nargs),
+                                   lambda: tr.tree_near_plain(*nargs))
+
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out

@@ -4,7 +4,10 @@
 fields, read out with ``np.asarray``) into the port's ``SphState`` on a
 given device and float dtype; ``state_to_numpy`` goes back.
 ``grid_spec_from_jax`` and ``tree_spec_from_jax`` copy a frozen JAX
-``Grid27Spec`` or ``TreeSpec`` field for field.  Nothing here imports
+``Grid27Spec`` or ``TreeSpec`` field for field; ``schedule_from_jax``
+copies a JAX ``BlockSchedule`` and ``schedule_to_jax`` gives a port
+schedule's fields as numpy arrays in the JAX package's types (for
+``BlockSchedule(**{k: jnp.asarray(v) ...})``).  Nothing here imports
 JAX: the JAX objects are read through their attributes only.
 """
 
@@ -16,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .integrate.block import BlockSchedule
 from .ops.sph_grid27 import Grid27Spec
 from .ops.tree import TreeSpec
 from .state import SphState
@@ -72,3 +76,22 @@ def tree_spec_from_jax(spec) -> TreeSpec:
     """Field-for-field copy of gandalf_tpu's frozen TreeSpec."""
     return TreeSpec(**{f.name: getattr(spec, f.name)
                        for f in dataclasses.fields(TreeSpec)})
+
+
+_SCHED_INT = ("n", "level_max", "nresync", "nstep_part")
+
+
+def schedule_from_jax(sched, device="cpu",
+                      dtype=torch.float64) -> BlockSchedule:
+    """The port's BlockSchedule from a JAX one: integer fields int32,
+    float fields `dtype`."""
+    return BlockSchedule(**{
+        f: torch.tensor(np.array(getattr(sched, f)), device=device,
+                        dtype=torch.int32 if f in _SCHED_INT else dtype)
+        for f in BlockSchedule._fields})
+
+
+def schedule_to_jax(sched: BlockSchedule) -> Dict[str, np.ndarray]:
+    """A schedule's fields as host numpy arrays (int32 and float)."""
+    return {f: getattr(sched, f).detach().cpu().numpy()
+            for f in BlockSchedule._fields}

@@ -16,35 +16,26 @@
 // directly (no expansion, so no cancellation floor is needed): a pair
 // counts when the neighbour slot is filled, is not the particle itself
 // (same slot of the cell's own shift, d = 13) and does not coincide with
-// it (d^2 > 0).  Viscosity (mon97, or mm97 with per-particle alpha) acts
-// on approaching pairs with the signal velocity; the Wadsley (2008) and
-// Price (2008) conductivities are selected by integer arguments.  The
-// epilogue (div_v normalisation, -P div_v term, MM97 dalpha/dt) stays
+// it (d^2 > 0).  The pair arithmetic (sph_pair.cuh, shared with K9):
+// viscosity (mon97, or mm97 with per-particle alpha) acts on approaching
+// pairs with the signal velocity; the Wadsley (2008) and Price (2008)
+// conductivities are selected by integer arguments.  The epilogue (div_v normalisation, -P div_v term, MM97 dalpha/dt) stays
 // elementwise torch.  No shared-memory staging yet: that is later work.
 #include <cuda_runtime.h>
 
 #include "grid27.cuh"
-#include "m4.cuh"
+#include "sph_pair.cuh"
 
 namespace {
 
-// dissipation codes of gandalf_tpu_torch/ops/forces.py
-constexpr int kAviscNone = 0;
-constexpr int kAviscMon97 = 1;
-constexpr int kAcondWadsley2008 = 1;
-constexpr int kAcondPrice2008 = 2;
-
-// packed per-slot scalars, ops/sph_grid27.py:FORCE_SCALARS
-enum Scalar { kM, kH, kRho, kU, kPress, kSound, kInvom, kHfac, kAlpha,
-              kNScalars };
+using sph::kNScalars;
 
 template <typename T>
 __global__ void __launch_bounds__(256) grid27_forces_kernel(
     const T* __restrict__ r, const T* __restrict__ v,
     const T* __restrict__ pk, const unsigned char* __restrict__ fill,
-    Grid3 g, T norm, int avisc, int acond, T alpha_visc, T beta_visc,
-    T* __restrict__ a_out, T* __restrict__ dudt_out,
-    T* __restrict__ divv_out) {
+    Grid3 g, T norm, sph::Dissipation dis, T* __restrict__ a_out,
+    T* __restrict__ dudt_out, T* __restrict__ divv_out) {
   const int c = blockIdx.x;
   const int K = g.K;
   int cc[3];
@@ -59,13 +50,8 @@ __global__ void __launch_bounds__(256) grid27_forces_kernel(
     }
     const T xi = r[3 * p], yi = r[3 * p + 1], zi = r[3 * p + 2];
     const T vxi = v[3 * p], vyi = v[3 * p + 1], vzi = v[3 * p + 2];
-    const T* si = pk + kNScalars * p;
-    const T invh_i = T(1) / max(si[kH], T(1e-30));
-    const T invrho_i = T(1) / max(si[kRho], T(1e-300));
-    const T press_i = si[kPress], sound_i = si[kSound], u_i = si[kU];
-    const T hfac_i = si[kHfac], alpha_i = si[kAlpha];
-    const T pterm_i = press_i * si[kInvom] * invrho_i * invrho_i;
-    T ax = T(0), ay = T(0), az = T(0), dudt = T(0), divv = T(0);
+    const sph::Own<T> own(pk + kNScalars * p);
+    T acc[5] = {T(0), T(0), T(0), T(0), T(0)};
     for (int d = 0; d < 27; ++d) {
       int nc;
       T sh[3];
@@ -79,48 +65,16 @@ __global__ void __launch_bounds__(256) grid27_forces_kernel(
         const T dz = (r[3 * q + 2] + sh[2]) - zi;
         const T drsqd = dx * dx + dy * dy + dz * dz;
         if (!(drsqd > T(0))) continue;
-        const T drmag = sqrt(drsqd);
-        const T inv_drmag = T(1) / drmag;
-        const T* sj = pk + kNScalars * q;
-        const T m_j = sj[kM];
-        const T invrho_j = T(1) / sj[kRho];
-        const T wkerni = hfac_i * m4_w1<T>(drmag * invh_i, norm);
-        const T wkernj = sj[kHfac] * m4_w1<T>(drmag / sj[kH], norm);
-        const T dvdr = ((v[3 * q] - vxi) * dx + (v[3 * q + 1] - vyi) * dy
-                        + (v[3 * q + 2] - vzi) * dz) * inv_drmag;
-        divv -= m_j * dvdr * wkerni;
-        T paux = pterm_i * wkerni
-                 + sj[kPress] * sj[kInvom] * invrho_j * invrho_j * wkernj;
-        if (avisc != kAviscNone && dvdr < T(0)) {
-          const T winvrho = T(0.25) * (wkerni + wkernj)
-                            * (invrho_i + invrho_j);
-          const T alpha_eff = avisc == kAviscMon97
-                                  ? alpha_visc
-                                  : T(0.5) * (alpha_i + sj[kAlpha]);
-          const T vsignal = sound_i + sj[kSound]
-                            - beta_visc * alpha_eff * dvdr;
-          paux -= alpha_eff * vsignal * dvdr * winvrho;
-          dudt -= T(0.5) * m_j * alpha_eff * vsignal * dvdr * dvdr * winvrho;
-          if (acond == kAcondWadsley2008) {
-            dudt += m_j * dvdr * (sj[kU] - u_i)
-                    * (invrho_i * wkerni + invrho_j * wkernj);
-          } else if (acond == kAcondPrice2008) {
-            dudt += T(0.5) * m_j * (u_i - sj[kU]) * winvrho
-                    * (invrho_i + invrho_j)
-                    * sqrt(fabs(press_i - sj[kPress]));
-          }
-        }
-        const T w_pair = m_j * paux * inv_drmag;
-        ax += w_pair * dx;
-        ay += w_pair * dy;
-        az += w_pair * dz;
+        sph::pair_add<T>(own, pk + kNScalars * q, dx, dy, dz,
+                         v[3 * q] - vxi, v[3 * q + 1] - vyi,
+                         v[3 * q + 2] - vzi, sqrt(drsqd), norm, dis, acc);
       }
     }
-    a_out[3 * p] = ax;
-    a_out[3 * p + 1] = ay;
-    a_out[3 * p + 2] = az;
-    dudt_out[p] = dudt;
-    divv_out[p] = divv;
+    a_out[3 * p] = acc[0];
+    a_out[3 * p + 1] = acc[1];
+    a_out[3 * p + 2] = acc[2];
+    dudt_out[p] = acc[3];
+    divv_out[p] = acc[4];
   }
 }
 
@@ -138,8 +92,9 @@ int run_forces(const T* r, const T* v, const T* pk,
   const int n_cells = n0 * n1 * n2;
   if (n_cells > 0 && k_cell > 0)
     grid27_forces_kernel<T><<<n_cells, slot_threads(k_cell), 0, stream>>>(
-        r, v, pk, fill, g, T(norm), avisc, acond, T(alpha_visc),
-        T(beta_visc), a, dudt, div_v);
+        r, v, pk, fill, g, T(norm),
+        sph::Dissipation{avisc, acond, alpha_visc, beta_visc}, a, dudt,
+        div_v);
   return static_cast<int>(cudaGetLastError());
 }
 

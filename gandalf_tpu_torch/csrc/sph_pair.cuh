@@ -1,0 +1,82 @@
+// One SPH pair's share of the grad-h hydro force sums, shared by the
+// grid force kernel (K3) and the active-subset force kernel (K9).
+//
+// The packed per-particle scalars are ops/sph_grid27.py:FORCE_SCALARS.
+// A pair adds m_j paux / d * dr to the acceleration, its viscous and
+// conductive heating to du/dt and -m_j dvdr W'_i to the unnormalised
+// velocity divergence: the conservative grad-h pressure term, mon97
+// viscosity (or the mean of the two alphas) on approaching pairs with
+// the signal velocity, and the Wadsley (2008) or Price (2008)
+// conductivity.  Separations and dvdr are computed directly.
+#pragma once
+
+#include "m4.cuh"
+
+namespace sph {
+
+// dissipation codes of gandalf_tpu_torch/ops/forces.py
+constexpr int kAviscNone = 0;
+constexpr int kAviscMon97 = 1;
+constexpr int kAcondWadsley2008 = 1;
+constexpr int kAcondPrice2008 = 2;
+
+enum Scalar { kM, kH, kRho, kU, kPress, kSound, kInvom, kHfac, kAlpha,
+              kNScalars };
+
+struct Dissipation {
+  int avisc, acond;
+  double alpha_visc, beta_visc;
+};
+
+// the target particle's values that every pair reads
+template <typename T>
+struct Own {
+  T invh, invrho, press, sound, u, hfac, alpha, pterm;
+
+  __device__ __forceinline__ explicit Own(const T* si)
+      : invh(T(1) / max(si[kH], T(1e-30))),
+        invrho(T(1) / max(si[kRho], T(1e-300))),
+        press(si[kPress]), sound(si[kSound]), u(si[kU]), hfac(si[kHfac]),
+        alpha(si[kAlpha]),
+        pterm(si[kPress] * si[kInvom] * invrho * invrho) {}
+};
+
+// sums: ax, ay, az, dudt, divv.  dv = v_j - v_i; drmag = |dr| > 0.
+template <typename T>
+__device__ __forceinline__ void pair_add(const Own<T>& o, const T* sj,
+                                         T dx, T dy, T dz, T dvx, T dvy,
+                                         T dvz, T drmag, T norm,
+                                         const Dissipation& dis, T acc[5]) {
+  const T inv_drmag = T(1) / drmag;
+  const T m_j = sj[kM];
+  const T invrho_j = T(1) / sj[kRho];
+  const T wkerni = o.hfac * m4_w1<T>(drmag * o.invh, norm);
+  const T wkernj = sj[kHfac] * m4_w1<T>(drmag / sj[kH], norm);
+  const T dvdr = (dvx * dx + dvy * dy + dvz * dz) * inv_drmag;
+  acc[4] -= m_j * dvdr * wkerni;
+  T paux = o.pterm * wkerni
+           + sj[kPress] * sj[kInvom] * invrho_j * invrho_j * wkernj;
+  if (dis.avisc != kAviscNone && dvdr < T(0)) {
+    const T winvrho = T(0.25) * (wkerni + wkernj) * (o.invrho + invrho_j);
+    const T alpha_eff = dis.avisc == kAviscMon97
+                            ? T(dis.alpha_visc)
+                            : T(0.5) * (o.alpha + sj[kAlpha]);
+    const T vsignal = o.sound + sj[kSound]
+                      - T(dis.beta_visc) * alpha_eff * dvdr;
+    paux -= alpha_eff * vsignal * dvdr * winvrho;
+    acc[3] -= T(0.5) * m_j * alpha_eff * vsignal * dvdr * dvdr * winvrho;
+    if (dis.acond == kAcondWadsley2008) {
+      acc[3] += m_j * dvdr * (sj[kU] - o.u)
+                * (o.invrho * wkerni + invrho_j * wkernj);
+    } else if (dis.acond == kAcondPrice2008) {
+      acc[3] += T(0.5) * m_j * (o.u - sj[kU]) * winvrho
+                * (o.invrho + invrho_j) * sqrt(fabs(o.press - sj[kPress]));
+    }
+  }
+  const T w_pair = m_j * paux * inv_drmag;
+  acc[0] += w_pair * dx;
+  acc[1] += w_pair * dy;
+  acc[2] += w_pair * dz;
+}
+
+}  // namespace sph

@@ -29,7 +29,9 @@
 // live slots)) is kept only to raise the same overflow when more than
 // min(support_cap, near_cap) leaves are in support.  The epilogue adds
 // K6's far field and writes a and gpot to row out_index[slot]; the map
-// is injective, so no atomics are needed.
+// is injective, so no atomics are needed.  With a group list (K6's), warp
+// k takes group group_ids[k], and only the listed groups' rows are
+// written (the wrapper zeroes the outputs).
 #include <cuda_runtime.h>
 
 #include "m4.cuh"
@@ -46,7 +48,8 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
     const T* __restrict__ ctab, const T* __restrict__ ptab,
     const unsigned char* __restrict__ alive, const int* __restrict__ near,
     const T* __restrict__ a_far, const T* __restrict__ pot_far,
-    const int* __restrict__ out_index, int depth, int near_cap,
+    const int* __restrict__ out_index, const int* __restrict__ group_ids,
+    int n_groups, int depth, int near_cap,
     int support_cap, int smoothed, T kernrange, T norm,
     T* __restrict__ a_out, T* __restrict__ gpot_out,
     unsigned char* __restrict__ overflow) {
@@ -54,8 +57,9 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
   __shared__ unsigned char part_live[kWarps][kLeaf];
   const int wib = threadIdx.x / kLeaf;
   const int lane = threadIdx.x % kLeaf;
-  const int g = blockIdx.x * kWarps + wib;
-  if (g >= (1 << depth)) return;  // whole warps leave together
+  const int gk = blockIdx.x * kWarps + wib;
+  if (gk >= n_groups) return;  // whole warps leave together
+  const int g = group_ids != nullptr ? group_ids[gk] : gk;
   const long long slot = static_cast<long long>(g) * kLeaf + lane;
   const bool live = alive[slot] != 0;
   if (!__ballot_sync(kFull, live)) return;
@@ -144,19 +148,21 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
 template <typename T>
 int run_near(const T* ctab, const T* ptab, const unsigned char* alive,
              const int* near, const T* a_far, const T* pot_far,
-             const int* out_index, int depth, int near_cap, int support_cap,
-             int smoothed, double kernrange, double norm, T* a_out,
-             T* gpot_out, unsigned char* overflow, int device,
-             void* stream_ptr) {
+             const int* out_index, const int* group_ids, int n_groups,
+             int depth, int near_cap, int support_cap, int smoothed,
+             double kernrange, double norm, T* a_out, T* gpot_out,
+             unsigned char* overflow, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int groups = 1 << depth;
-  tree_near_kernel<T><<<(groups + kWarps - 1) / kWarps, kWarps * kLeaf, 0,
-                        stream>>>(ctab, ptab, alive, near, a_far, pot_far,
-                                  out_index, depth, near_cap, support_cap,
-                                  smoothed, T(kernrange), T(norm), a_out,
-                                  gpot_out, overflow);
+  const int groups = group_ids != nullptr ? n_groups : 1 << depth;
+  if (groups > 0)
+    tree_near_kernel<T><<<(groups + kWarps - 1) / kWarps, kWarps * kLeaf, 0,
+                          stream>>>(ctab, ptab, alive, near, a_far, pot_far,
+                                    out_index, group_ids, groups, depth,
+                                    near_cap, support_cap, smoothed,
+                                    T(kernrange), T(norm), a_out, gpot_out,
+                                    overflow);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,13 +173,14 @@ extern "C" {
 #define TREE_NEAR_ENTRY(NAME, T)                                            \
   int NAME(const T* ctab, const T* ptab, const unsigned char* alive,        \
            const int* near, const T* a_far, const T* pot_far,               \
-           const int* out_index, int depth, int near_cap, int support_cap,  \
-           int smoothed, double kernrange, double norm, T* a_out,           \
-           T* gpot_out, unsigned char* overflow, int device,                \
-           void* stream) {                                                  \
+           const int* out_index, const int* group_ids, int n_groups,        \
+           int depth, int near_cap, int support_cap, int smoothed,          \
+           double kernrange, double norm, T* a_out, T* gpot_out,            \
+           unsigned char* overflow, int device, void* stream) {             \
     return run_near<T>(ctab, ptab, alive, near, a_far, pot_far, out_index,  \
-                       depth, near_cap, support_cap, smoothed, kernrange,   \
-                       norm, a_out, gpot_out, overflow, device, stream);    \
+                       group_ids, n_groups, depth, near_cap, support_cap,   \
+                       smoothed, kernrange, norm, a_out, gpot_out,          \
+                       overflow, device, stream);                           \
   }
 
 TREE_NEAR_ENTRY(tree_near_f32, float)

@@ -27,6 +27,12 @@
 // near list (-1 padded).  Overflow iff the opened children exceed the
 // next level's cap min(frontier, 2^(l+1), frontier_levels[l+1]), or the
 // opened leaves exceed the near cap.  An empty group walks nothing.
+//
+// With a group list (the active groups of a block-timestep tick,
+// gandalf_tpu/ops/tree.py:tree_gravity_active :1429 with group_ids),
+// warp k walks group group_ids[k], and only the listed groups' rows are
+// written; the wrapper zeroes the rest.  Without one, warp k walks group
+// k of all 2^depth.
 #include <cuda_runtime.h>
 
 #include "tree.cuh"
@@ -56,8 +62,10 @@ template <typename T>
 __global__ void tree_walk_kernel(const T* __restrict__ ctab,
                                  const T* __restrict__ ptab,
                                  const unsigned char* __restrict__ alive,
-                                 int depth, int near_cap, int wmax,
-                                 T theta_sqd, int quadrupole, LevelCaps caps,
+                                 const int* __restrict__ group_ids,
+                                 int n_groups, int depth, int near_cap,
+                                 int wmax, T theta_sqd, int quadrupole,
+                                 LevelCaps caps,
                                  T* __restrict__ a_far,
                                  T* __restrict__ pot_far,
                                  int* __restrict__ near,
@@ -65,8 +73,9 @@ __global__ void tree_walk_kernel(const T* __restrict__ ctab,
   extern __shared__ int frontier[];
   const int wib = threadIdx.x / kLeaf;
   const int lane = threadIdx.x % kLeaf;
-  const int g = blockIdx.x * (blockDim.x / kLeaf) + wib;
-  if (g >= (1 << depth)) return;  // whole warps leave together
+  const int gk = blockIdx.x * (blockDim.x / kLeaf) + wib;
+  if (gk >= n_groups) return;  // whole warps leave together
+  const int g = group_ids != nullptr ? group_ids[gk] : gk;
   const long long slot = static_cast<long long>(g) * kLeaf + lane;
   const bool live = alive[slot] != 0;
   int* near_g = near + static_cast<long long>(g) * near_cap;
@@ -182,9 +191,10 @@ __global__ void tree_walk_kernel(const T* __restrict__ ctab,
 
 template <typename T>
 int run_walk(const T* ctab, const T* ptab, const unsigned char* alive,
-             int depth, int near_cap, const int* level_caps, double theta_sqd,
-             int quadrupole, T* a_far, T* pot_far, int* near,
-             unsigned char* overflow, int device, void* stream_ptr) {
+             const int* group_ids, int n_groups, int depth, int near_cap,
+             const int* level_caps, double theta_sqd, int quadrupole,
+             T* a_far, T* pot_far, int* near, unsigned char* overflow,
+             int device, void* stream_ptr) {
   if (depth < 0 || depth > kMaxLevels || near_cap < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -208,11 +218,13 @@ int run_walk(const T* ctab, const T* ptab, const unsigned char* alive,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int groups = 1 << depth;
-  tree_walk_kernel<T><<<(groups + warps - 1) / warps, warps * kLeaf, smem,
-                        stream>>>(ctab, ptab, alive, depth, near_cap, wmax,
-                                  T(theta_sqd), quadrupole, caps, a_far,
-                                  pot_far, near, overflow);
+  const int groups = group_ids != nullptr ? n_groups : 1 << depth;
+  if (groups > 0)
+    tree_walk_kernel<T><<<(groups + warps - 1) / warps, warps * kLeaf, smem,
+                          stream>>>(ctab, ptab, alive, group_ids, groups,
+                                    depth, near_cap, wmax, T(theta_sqd),
+                                    quadrupole, caps, a_far, pot_far, near,
+                                    overflow);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -222,12 +234,13 @@ extern "C" {
 
 #define TREE_WALK_ENTRY(NAME, T)                                            \
   int NAME(const T* ctab, const T* ptab, const unsigned char* alive,        \
-           int depth, int near_cap, const int* level_caps,                  \
-           double theta_sqd, int quadrupole, T* a_far, T* pot_far,          \
-           int* near, unsigned char* overflow, int device, void* stream) {  \
-    return run_walk<T>(ctab, ptab, alive, depth, near_cap, level_caps,      \
-                       theta_sqd, quadrupole, a_far, pot_far, near,         \
-                       overflow, device, stream);                           \
+           const int* group_ids, int n_groups, int depth, int near_cap,     \
+           const int* level_caps, double theta_sqd, int quadrupole,         \
+           T* a_far, T* pot_far, int* near, unsigned char* overflow,        \
+           int device, void* stream) {                                      \
+    return run_walk<T>(ctab, ptab, alive, group_ids, n_groups, depth,       \
+                       near_cap, level_caps, theta_sqd, quadrupole, a_far,  \
+                       pot_far, near, overflow, device, stream);            \
   }
 
 TREE_WALK_ENTRY(tree_walk_f32, float)

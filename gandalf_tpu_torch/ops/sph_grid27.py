@@ -134,7 +134,11 @@ def bin_particles_plain(spec: Grid27Spec, r: Tensor) -> GridBinning:
     N = r.shape[0]
     cid = torch.zeros((N,), dtype=torch.int32, device=r.device)
     for k in range(spec.ndim):
-        ck = torch.floor((r[:, k] - spec.lo[k]) / spec.extents[k]
+        # a tensor divisor: CUDA turns division by a Python scalar into a
+        # product with its reciprocal, which moves particles on a cell
+        # face into the next cell when the extent is not a power of two
+        ext = torch.tensor(spec.extents[k], dtype=r.dtype, device=r.device)
+        ck = torch.floor((r[:, k] - spec.lo[k]) / ext
                          * spec.ncells[k]).to(torch.int32)
         cid = cid * spec.ncells[k] + torch.clamp(ck, 0, spec.ncells[k] - 1)
     order = torch.sort(cid, stable=True).indices

@@ -343,15 +343,18 @@ def level_rows(spec: TreeSpec, ctab: Tensor, ell: int) -> Tensor:
 # K6: frontier walk and far field
 # ---------------------------------------------------------------------------
 
-def tree_walk(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor):
+def tree_walk(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor,
+              group_ids: Optional[Tensor] = None):
     """Per group of L slots, level by level: the geometric MAC against
     the group box, the far field of accepted cells at every live slot,
     the children of opened cells as the next frontier, the opened leaves
     as the near list.  Returns far a (G*L, 3), far pot (G*L,), near list
-    (G, Wn) int32 (-1 padded) and overflow ().  K6 on CUDA tensors."""
+    (G, Wn) int32 (-1 padded) and overflow ().  With `group_ids`
+    (G_act,) int32 only the listed groups walk; the other groups' rows
+    are zero (near: -1).  K6 on CUDA tensors."""
     if ptab.is_cuda:
-        return _ext.tree_walk(spec, ctab, ptab, alive)
-    return tree_walk_plain(spec, ctab, ptab, alive)
+        return _ext.tree_walk(spec, ctab, ptab, alive, group_ids)
+    return tree_walk_plain(spec, ctab, ptab, alive, group_ids)
 
 
 def _safe_invr(d2: Tensor) -> Tensor:
@@ -379,26 +382,36 @@ def _chunk_groups(G: int, pairs_per_group: int, device) -> int:
     return max(1, min(G, budget // max(pairs_per_group, 1)))
 
 
+def _groups_of(spec: TreeSpec, group_ids: Optional[Tensor], device):
+    """The walked group ids (int64): the list, or every group."""
+    if group_ids is None:
+        return torch.arange(spec.n_leaves, device=device)
+    return group_ids.long()
+
+
 def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
-                    alive: Tensor):
-    """Plain version of K6: gandalf_tpu's walk_group over chunks of
-    groups, with the far field evaluated at dr = com - r directly."""
+                    alive: Tensor, group_ids: Optional[Tensor] = None):
+    """Plain version of K6: gandalf_tpu's walk_group over chunks of the
+    walked groups, with the far field evaluated at dr = com - r
+    directly."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
     Wn, th2 = spec.near_cap, spec.theta_sqd
     leaves = level_rows(spec, ctab, D)
     wmax = max([1] + [spec.level_cap(ell) for ell in range(1, D + 1)])
+    groups = _groups_of(spec, group_ids, dev)
     B = _chunk_groups(G, L * wmax, dev)
-    a_far = torch.zeros((G * L, 3), dtype=dt, device=dev)
-    pot_far = torch.zeros((G * L,), dtype=dt, device=dev)
+    a_far = torch.zeros((G, L, 3), dtype=dt, device=dev)
+    pot_far = torch.zeros((G, L), dtype=dt, device=dev)
     near = torch.full((G, Wn), -1, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for g0 in range(0, G, B):
-        g1 = min(g0 + B, G)
-        nb = g1 - g0
-        rt = ptab[g0 * L:g1 * L, P_R:P_R + 3].reshape(nb, L, 3)
-        gc = leaves[g0:g1, C_CEN:C_CEN + 3]
-        gh = leaves[g0:g1, C_HALF:C_HALF + 3]
+    ptab_g = ptab.reshape(G, L, 6)
+    for c0 in range(0, groups.numel(), B):
+        gsel = groups[c0:c0 + B]
+        nb = gsel.numel()
+        rt = ptab_g[gsel, :, P_R:P_R + 3]
+        gc = leaves[gsel, C_CEN:C_CEN + 3]
+        gh = leaves[gsel, C_HALF:C_HALF + 3]
         a_acc = torch.zeros((nb, L, 3), dtype=dt, device=dev)
         p_acc = torch.zeros((nb, L), dtype=dt, device=dev)
         front = torch.zeros((nb, 1), dtype=torch.int64, device=dev)
@@ -450,14 +463,13 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
                 ovf |= count > cap
             else:
                 ids, count = _stable_compact(open_, idx, Wn)
-                near[g0:g1] = ids.to(torch.int32)
+                near[gsel] = ids.to(torch.int32)
                 ovf |= count > Wn
-        al = alive[g0 * L:g1 * L].reshape(nb, L)
-        a_far[g0 * L:g1 * L] = torch.where(al[..., None], a_acc,
-                                           0.0).reshape(-1, 3)
-        pot_far[g0 * L:g1 * L] = torch.where(al, p_acc, 0.0).reshape(-1)
+        al = alive.reshape(G, L)[gsel]
+        a_far[gsel] = torch.where(al[..., None], a_acc, 0.0)
+        pot_far[gsel] = torch.where(al, p_acc, 0.0)
         overflow |= ovf.any()
-    return a_far, pot_far, near, overflow
+    return a_far.reshape(-1, 3), pot_far.reshape(-1), near, overflow
 
 
 def _quad_terms(q6: Tensor, dr: Tensor):
@@ -474,47 +486,53 @@ def _quad_terms(q6: Tensor, dr: Tensor):
 
 def tree_near(spec: TreeSpec, kern, ctab: Tensor, ptab: Tensor,
               alive: Tensor, near: Tensor, a_far: Tensor, pot_far: Tensor,
-              out_index: Tensor, n_out: int):
+              out_index: Tensor, n_out: int,
+              group_ids: Optional[Tensor] = None):
     """Near-field pair sums over each group's near leaves, plus the far
     field, written to row out_index[slot] of (n_out, 3) and (n_out,)
     outputs for every live slot; overflow () when some group's
     kernel-support leaves exceed min(support_cap, near_cap).  `kern`
-    None evaluates Newtonian pairs only.  K7 on CUDA tensors."""
+    None evaluates Newtonian pairs only.  With `group_ids` only the
+    listed groups' slots are written (zero elsewhere).  K7 on CUDA
+    tensors."""
     if ptab.is_cuda:
         return _ext.tree_near(spec, kern, ctab, ptab, alive, near, a_far,
-                              pot_far, out_index, n_out)
+                              pot_far, out_index, n_out, group_ids)
     return tree_near_plain(spec, kern, ctab, ptab, alive, near, a_far,
-                           pot_far, out_index, n_out)
+                           pot_far, out_index, n_out, group_ids)
 
 
 def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
-                    pot_far, out_index, n_out):
-    """Plain version of K7 over chunks of groups: each pair of a group's
-    live slot i and a live partner j in its near leaves (not i itself, d
-    > 0) adds the symmetric softened force and potential (zeta_scaling
-    'sph') where d < kernrange * max(h_i, h_j), and m/d^3, m/d beyond."""
+                    pot_far, out_index, n_out, group_ids=None):
+    """Plain version of K7 over chunks of the walked groups: each pair of
+    a group's live slot i and a live partner j in its near leaves (not i
+    itself, d > 0) adds the symmetric softened force and potential
+    (zeta_scaling 'sph') where d < kernrange * max(h_i, h_j), and m/d^3,
+    m/d beyond."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
     Wn = near.shape[1]
     leaves = level_rows(spec, ctab, D)
+    groups = _groups_of(spec, group_ids, dev)
     B = _chunk_groups(G, L * Wn * L, dev)
-    a_s = torch.zeros((G * L, 3), dtype=dt, device=dev)
-    p_s = torch.zeros((G * L,), dtype=dt, device=dev)
+    a_s = torch.zeros((G, L, 3), dtype=dt, device=dev)
+    p_s = torch.zeros((G, L), dtype=dt, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     Ws = min(spec.support_cap, Wn)
     slot_l = torch.arange(L, device=dev)
-    for g0 in range(0, G, B):
-        g1 = min(g0 + B, G)
-        nb = g1 - g0
-        own = ptab[g0 * L:g1 * L].reshape(nb, L, 6)
-        al = alive[g0 * L:g1 * L].reshape(nb, L)
-        nid = near[g0:g1].long()                             # (nb, Wn)
+    ptab_g = ptab.reshape(G, L, 6)
+    for c0 in range(0, groups.numel(), B):
+        gsel = groups[c0:c0 + B]
+        nb = gsel.numel()
+        own = ptab_g[gsel]
+        al = alive.reshape(G, L)[gsel]
+        nid = near[gsel].long()                              # (nb, Wn)
         nvalid = nid >= 0
         col = (torch.clamp_min(nid, 0)[..., None] * L + slot_l).reshape(
             nb, Wn * L)
         part = ptab[col]                                     # (nb, P, 6)
         pal = alive[col] & nvalid.repeat_interleave(L, dim=1)
-        rows = (torch.arange(g0, g1, device=dev)[:, None] * L + slot_l)
+        rows = gsel[:, None] * L + slot_l
         # separations per component, (nb, L, P) each
         dr = [part[:, None, :, k] - own[:, :, None, k] for k in range(3)]
         d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
@@ -548,7 +566,7 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
             hp = torch.where(pal & (part[..., P_M] > 0.0), part[..., P_H],
                              0.0).reshape(nb, Wn, L).amax(2)
             cell = leaves[torch.clamp_min(nid, 0)]
-            gcell = leaves[g0:g1]
+            gcell = leaves[gsel]
             gap = torch.clamp_min(
                 torch.abs(cell[..., C_CEN:C_CEN + 3]
                           - gcell[:, None, C_CEN:C_CEN + 3])
@@ -557,16 +575,20 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
             sup = kern.kernrange * torch.maximum(hg[:, None], hp)
             n_sup = (nvalid & ((gap * gap).sum(-1) < sup * sup)).sum(1)
             overflow |= (n_sup > Ws).any()
-        a_s[g0 * L:g1 * L] = torch.stack(
-            [(coef * x).sum(2) for x in dr], -1).reshape(-1, 3)
-        p_s[g0 * L:g1 * L] = pot.sum(2).reshape(-1)
-    a_s = a_s + a_far
-    p_s = p_s + pot_far
+        a_s[gsel] = torch.stack([(coef * x).sum(2) for x in dr], -1)
+        p_s[gsel] = pot.sum(2)
+    a_s = a_s.reshape(-1, 3) + a_far
+    p_s = p_s.reshape(-1) + pot_far
     a = torch.zeros((n_out, 3), dtype=dt, device=dev)
     gpot = torch.zeros((n_out,), dtype=dt, device=dev)
-    idx = out_index.reshape(-1).long()[alive]
-    a[idx] = a_s[alive]
-    gpot[idx] = p_s[alive]
+    written = alive
+    if group_ids is not None:
+        listed = torch.zeros((G,), dtype=torch.bool, device=dev)
+        listed[groups] = True
+        written = alive & listed.repeat_interleave(L)
+    idx = out_index.reshape(-1).long()[written]
+    a[idx] = a_s[written]
+    gpot[idx] = p_s[written]
     return a, gpot, overflow
 
 
@@ -600,4 +622,23 @@ def tree_gravity_grouped(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
     a, gpot, ovf_near = tree_near(
         spec, kern if h is not None else None, ctab, ptab, alive, near,
         a_far, pot_far, gmap.reshape(-1), r.shape[0])
+    return a, gpot, ovf_walk | ovf_near
+
+
+def tree_gravity_active(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
+                        h: Optional[Tensor], kern, zh: Optional[Tensor],
+                        group_ids: Tensor, periodic_extent=None):
+    """Gravity of the listed groups only (the block-timestep walk, where
+    only buckets holding active particles pay): gather (K4) and build
+    (K5) over all buckets, walk (K6) and near field (K7) over
+    `group_ids` (G_act,) int32.  Returns (a, gpot, overflow) in particle
+    order, zero in the rows of unlisted groups."""
+    ptab, alive = gather_to_buckets(spec, gmap, r, m, h, zh,
+                                    periodic_extent)
+    ctab = build_tree(spec, ptab, alive)
+    a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive,
+                                               group_ids)
+    a, gpot, ovf_near = tree_near(
+        spec, kern if h is not None else None, ctab, ptab, alive, near,
+        a_far, pot_far, gmap.reshape(-1), r.shape[0], group_ids)
     return a, gpot, ovf_walk | ovf_near

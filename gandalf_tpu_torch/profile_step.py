@@ -1,16 +1,20 @@
-"""Where a step's device time goes: torch.profiler over one burst of a
-slice on one GPU.
+"""Where a step's device time goes: torch.profiler over a window of
+steps of a slice on one GPU.
 
     python -m gandalf_tpu_torch.profile_step [--self-gravity {0,1}]
+    python -m gandalf_tpu_torch.profile_step --block
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
 warm-up steps, then profiles one burst of 8 steps (main_loop_steps)
-that holds no tree rebuild.  Prints one JSON line: the window's host
-time, the device time summed over kernels and copies, the device's idle
-share of the window, the device time of each of K1-K7 and of the torch
-glue between them, and the device time per kernel name (largest
-first).  Refuses to run without CUDA.
+that holds no tree rebuild.  With --block: the block slice
+(cold_sphere_block) at about 262,144 particles in float32, 4 warm-up
+ticks, then a window of 8 ticks without a tree rebuild.  Prints one
+JSON line: the window's host time, the device time summed over kernels
+and copies, the device's idle share of the window, the device time of
+each of K1-K9 and of the torch glue between them, and the device time
+per kernel name (largest first); with --block also the active rows per
+tick.  Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ import torch  # noqa: E402
 
 N_SIDE = 64
 STEPS = 8
-# device kernel names of K1-K7 (csrc/); every other device event is glue
+BLOCK_N = 262144
+BLOCK_WARM = 4
+# device kernel names of K1-K9 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -38,6 +44,8 @@ FAMILIES = {
     "K5 tree_build": ("tree_leaf_kernel", "tree_merge_kernel"),
     "K6 tree_walk": ("tree_walk_kernel",),
     "K7 tree_near": ("tree_near_kernel",),
+    "K8 active_density": ("active_density_kernel",),
+    "K9 active_forces": ("active_forces_kernel",),
 }
 
 
@@ -59,24 +67,42 @@ def _family(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--self-gravity", type=int, default=1, choices=(0, 1))
+    ap.add_argument("--block", action="store_true",
+                    help="the block-timestep slice (cold_sphere_block)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .check import jittered_box_ic, slice_params
+    from .check import jittered_box_ic, slice_params, sphere_block_params
     from .sim.simulation import GradhSphSimulation
 
-    params = slice_params(N_SIDE, self_gravity=args.self_gravity)
-    sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
-    sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
-    sim.main_loop_steps(2)
+    if args.block:
+        sim = GradhSphSimulation(sphere_block_params(BLOCK_N),
+                                 device="cuda", dtype=torch.float32)
+        sim.SetupSimulation()
+        warm = BLOCK_WARM
+    else:
+        params = slice_params(N_SIDE, self_gravity=args.self_gravity)
+        sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
+        sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
+        warm = 2
+    done = 0
+    while done < warm:
+        done += sim.main_loop_steps(warm - done)
     torch.cuda.synchronize()
     plans0 = sim._n_tree_plans
+    rows = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        done = sim.main_loop_steps(STEPS)
+        if args.block:
+            for _ in range(STEPS):
+                sim.main_loop_step()
+                rows.append(list(sim.last_tick_rows))
+            done = STEPS
+        else:
+            done = sim.main_loop_steps(STEPS)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     per_name = {}
@@ -96,8 +122,10 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({
-        "card": card, "N": sim.state.N, "self_gravity": args.self_gravity,
+        "card": card, "N": sim.state.N, "block": args.block,
+        "self_gravity": int(sim.self_gravity),
         "steps": done, "tree_plans_in_window": sim._n_tree_plans - plans0,
+        "active_rows_per_tick": rows,
         "ncells": list(sim.gridspec.ncells), "k_cell": sim.gridspec.k_cell,
         "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / window_us,

@@ -1,18 +1,24 @@
-"""Grad-h SPH simulation controller, global-timestep slice.
+"""Grad-h SPH simulation controller.
 
 Counterpart of ``gandalf_tpu/sim/simulation.py:GradhSphSimulation`` for
 one configuration: grad-h SPH with the M4 kernel, the adiabatic EOS,
 mon97 viscosity (or none) and optional conductivity, the structured
-27-shift grid, KDK leapfrog with a global timestep, and optionally
-self-gravity from the KD-bucket Barnes-Hut tree (frontier walk,
-geometric MAC, monopole or quadrupole, no Ewald sum), with its buckets
-replanned every ``ntreebuildstep`` steps.  Options outside that slice
-raise NotImplementedError naming their ROADMAP item.
+27-shift grid, KDK leapfrog with a global timestep or with hierarchical
+block timesteps (``Nlevels > 1``), and optionally self-gravity from the
+KD-bucket Barnes-Hut tree (frontier walk, geometric MAC, monopole or
+quadrupole, no Ewald sum), with its buckets replanned every
+``ntreebuildstep`` steps.  Options outside that slice raise
+NotImplementedError naming their ROADMAP item.
 
-The step runs eagerly as a sequence of torch operations and kernel
+A global step runs eagerly as a sequence of torch operations and kernel
 launches on the simulation's device; on a CUDA device nothing in it
 waits for the device, so ``main_loop_steps`` queues a burst of steps and
-reads the overflow flag and the time once at its end.
+reads the overflow flag and the time once at its end.  A block tick
+(the JAX package's active-compacted tick) drifts every particle, then
+does the pair work of the active particles only (``ops/active_grid.py``,
+and with self-gravity the tree walk of their buckets); it reads the
+active set, the Saitoh-Makino set and the overflow flag on the host, so
+it runs tick by tick.
 """
 
 from __future__ import annotations
@@ -28,15 +34,18 @@ from gandalf_tpu.sim.ic import generate_ic
 from gandalf_tpu.units import SimUnits, inscale_parameters
 from gandalf_tpu.utils.timing import CodeTiming
 
+from ..integrate.block import (BlockConfig, advance, check_timesteps,
+                               end_timestep, init_schedule)
 from ..integrate.leapfrog import (IntegratorConfig, correct, predict,
                                   sph_timestep)
 from ..kernels.smoothing import kernel_factory
+from ..ops.active_grid import active_hydro_pass
 from ..ops.eos import eos_factory
 from ..ops.forces import ArtificialViscosity
 from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
 from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
-                        plan_tree_for_buckets, tree_gravity_grouped,
-                        walk_stats_levels_native)
+                        plan_tree_for_buckets, tree_gravity_active,
+                        tree_gravity_grouped, walk_stats_levels_native)
 from ..state import (BOUNDARY_TYPE, DUST_TYPE, ICM_TYPE, DomainBox,
                      SphState, make_sph_state)
 
@@ -58,7 +67,8 @@ def _unsupported(what: str, item: str):
 
 
 class GradhSphSimulation:
-    """Conservative grad-h SPH with a global timestep on one device.
+    """Conservative grad-h SPH on one device, with a global timestep or
+    block timesteps.
 
     `device` and `dtype` place every state tensor; float32 is the working
     type on a GPU, float64 the reference-grade type."""
@@ -79,6 +89,12 @@ class GradhSphSimulation:
         self._n_tree_plans = 0
         self._step_fn = None
         self._bootstrap_fn = None
+        self._blocksched = None
+        self._leaf_of = None
+        # rows of the active passes: in all, and per pass of the last tick
+        # (the Saitoh-Makino pass and overflow retries included)
+        self.active_rows = 0
+        self.last_tick_rows = []
 
     # -- parameters ------------------------------------------------------------
     def process_parameters(self):
@@ -88,8 +104,6 @@ class GradhSphSimulation:
             raise _unsupported(f"sim {sp['sim']!r}", "items 9-11")
         if self.ndim != 3:
             raise _unsupported("ndim != 3", "item 3")
-        if max(ip["Nlevels"], 1) > 1:
-            raise _unsupported("Nlevels > 1 (block timesteps)", "item 7")
         if ip["sink_particles"] or ip["create_sinks"]:
             raise _unsupported("sink particles", "item 9")
         if sp["dust_forces"] not in ("none", "null", ""):
@@ -125,6 +139,12 @@ class GradhSphSimulation:
         self.hydro_forces = bool(ip["hydro_forces"])
         self.h_fac = p.floatparams["h_fac"]
         self.h_converge = p.floatparams["h_converge"]
+        # hierarchical block timesteps on the grid path
+        self.nlevels = max(ip["Nlevels"], 1)
+        self.use_block = self.nlevels > 1
+        self.block_cfg = BlockConfig(nlevels=self.nlevels,
+                                     level_diff_max=ip["level_diff_max"])
+        self.u_mode = "energy" if self.integ.energy_integration else "none"
 
     def _check_gravity_options(self):
         """The tree-gravity options the port runs: the frontier walk with
@@ -220,8 +240,19 @@ class GradhSphSimulation:
         self.treespec = spec
         self.state = self.state.replace(bucket_map=torch.as_tensor(
             gmap, device=self.device))
+        self._set_leaf_of(gmap)
         self._n_tree_plans += 1
         return old != spec
+
+    def _set_leaf_of(self, gmap: np.ndarray) -> None:
+        """Particle -> bucket map of the block tick's active-group walk;
+        rebuilt on every bucket plan, overflow replans included."""
+        leaf_of = np.full(self.state.N, -1, np.int32)
+        rows = np.repeat(np.arange(gmap.shape[0], dtype=np.int32),
+                         gmap.shape[1])
+        flat = gmap.reshape(-1)
+        leaf_of[flat[flat >= 0]] = rows[flat >= 0]
+        self._leaf_of = torch.as_tensor(leaf_of, device=self.device)
 
     def _tree_cadence(self):
         """Replan the buckets every ntreebuildstep steps."""
@@ -240,7 +271,8 @@ class GradhSphSimulation:
         with self.timing.block("SETUP"):
             self.process_parameters()
             if ic is None:
-                ic = generate_ic(self.params, self.eos)
+                with self.timing.block("GENERATE_IC"):
+                    ic = generate_ic(self.params, self.eos)
             if "star" in ic or "ptype" in ic:
                 raise _unsupported("stars and non-gas particle types",
                                    "item 9")
@@ -260,7 +292,7 @@ class GradhSphSimulation:
             self._plan_grid(ic["r"], ic["h"])
             if self.self_gravity:
                 self._plan_tree_buckets(_host(self.state.r))
-            self.state = self._bootstrap_fn(self.state)
+            self._run_bootstrap()
             tries = 0
             while bool(self.state.neib_overflow):
                 tries += 1
@@ -274,10 +306,17 @@ class GradhSphSimulation:
                 if self.treespec is not None:
                     self._plan_tree_buckets(_host(self.state.r),
                                             grow_caps=True)
-                self.state = self._bootstrap_fn(self.state.replace(
-                    neib_overflow=torch.zeros_like(self.state.neib_overflow)))
+                self.state = self.state.replace(
+                    neib_overflow=torch.zeros_like(self.state.neib_overflow))
+                self._run_bootstrap()
         self.t = float(self.state.t)
         self.setup_complete = True
+
+    def _run_bootstrap(self):
+        if self.use_block:
+            self.state, self._blocksched = self._bootstrap_fn(self.state)
+        else:
+            self.state = self._bootstrap_fn(self.state)
 
     # -- the physics -----------------------------------------------------------
     def _hydro_pass(self, s: SphState) -> SphState:
@@ -313,20 +352,31 @@ class GradhSphSimulation:
         def bootstrap(s: SphState) -> SphState:
             s = self._hydro_pass(s)
             s = s.replace(a0=s.a, dudt0=s.dudt, u0=s.u, r0=s.r, v0=s.v)
-            return s.replace(dt=torch.min(sph_timestep(integ, s,
-                                                       self.hydro_forces)))
+            dt_part = sph_timestep(integ, s, self.hydro_forces)
+            if self.use_block:
+                # the initial ladder; a tick is dt_base
+                s, sched = init_schedule(self.block_cfg, s, dt_part)
+                return s.replace(dt=sched.dt_base), sched
+            return s.replace(dt=torch.min(dt_part))
 
         return bootstrap
 
     def _build_step(self):
         """One global-timestep KDK step: predict, wrap, hydro pass,
         correct, next dt.  The overflow flag is sticky across the steps
-        of a burst (a mid-burst overflow must survive to its end)."""
+        of a burst (a mid-burst overflow must survive to its end).  With
+        a finite tend the step's dt is clamped on the device to tend - t,
+        so no step of a burst passes tend (ROADMAP fault F3)."""
         integ, box = self.integ, self.box
+        tend = self.params.floatparams["tend"]
+        bounded = math.isfinite(tend)
 
         def step(s: SphState) -> SphState:
             dt = s.dt
-            t = s.t + dt
+            if bounded:
+                dt = torch.minimum(dt, tend - s.t)
+            # never past tend, whatever the rounding of t + (tend - t)
+            t = torch.clamp_max(s.t + dt, tend) if bounded else s.t + dt
             overflow_in = s.neib_overflow
             s = predict(integ, s, dt)
             s = s.replace(r=box.wrap(s.r), r0=box.wrap(s.r0))
@@ -337,6 +387,93 @@ class GradhSphSimulation:
             return s.replace(t=t, dt=dt_next, nstep=s.nstep + 1)
 
         return step
+
+    # -- block timesteps -------------------------------------------------------
+    def _block_advance(self, s: SphState, B):
+        """Drift every particle one tick, wrap, and refresh every
+        particle's EOS from its predicted u (so inactive neighbours'
+        pressure and sound match it).  Returns (state, active mask)."""
+        s, active, t = advance(s, B, self.u_mode)
+        s = s.replace(r=self.box.wrap(s.r), r0=self.box.wrap(s.r0), t=t)
+        if self.u_mode != "none":
+            u_n, p_n, c_n = self.eos.thermal_update(
+                torch.clamp_min(s.rho, 1e-30), s.u)
+            alive = s.alive
+            s = s.replace(u=torch.where(alive, u_n, s.u),
+                          pressure=torch.where(alive, p_n, s.pressure),
+                          sound=torch.where(alive, c_n, s.sound))
+        return s, active
+
+    def _active_groups(self, ids: torch.Tensor) -> torch.Tensor:
+        """The buckets holding the particles ids, ascending, int32."""
+        mark = torch.zeros((self.treespec.n_leaves,), dtype=torch.bool,
+                           device=self.device)
+        mark[self._leaf_of[ids.long()].long()] = True
+        return torch.nonzero(mark).flatten().to(torch.int32)
+
+    def _active_pass(self, s: SphState, ids: torch.Tensor) -> SphState:
+        """Density, EOS, hydro forces and levelneib of the particles ids
+        (K1, K8, K9) and, with self-gravity, the tree walk of their
+        buckets (K4, K5 over all buckets, K6 and K7 over the list), whose
+        acceleration is added and potential set at ids only.  The
+        overflow flag ORs into the state's."""
+        self.active_rows += ids.numel()
+        self.last_tick_rows.append(ids.numel())
+        s, ovf = active_hydro_pass(self.kern, self.visc, self.gridspec,
+                                   self.eos, self.h_fac, self.h_converge, s,
+                                   ids, self.hydro_forces)
+        if self.self_gravity:
+            pdims = self.box.periodic_dims()
+            pext = ([self.box.size[k] if k in pdims else 0.0
+                     for k in range(self.ndim)] if pdims else None)
+            a_g, gpot, ovg = tree_gravity_active(
+                self.treespec, s.bucket_map, s.r, self._gravity_mass(s),
+                s.h, self.kern, s.zeta * s.hfactor, self._active_groups(ids),
+                periodic_extent=pext)
+            il = ids.long()
+            s = s.replace(a=s.a.index_add(0, il, a_g[il]),
+                          gpot=s.gpot.index_copy(0, il, gpot[il]))
+            ovf = ovf | ovg
+        return s.replace(neib_overflow=s.neib_overflow | ovf)
+
+    def _block_tick(self):
+        """One block tick: drift all, the active pass of the particles
+        ending their step, a second pass for those the Saitoh-Makino
+        limiter ends early, then the closing kick and the ladder update.
+        The active sets are read to the host (one sync each).  On
+        overflow, replan the grid (and the tree buckets with grown caps)
+        from the pre-tick state and redo the tick from the pre-tick state
+        and schedule, at most 5 attempts."""
+        cfg, integ = self.block_cfg, self.integ
+        prev, prev_sched = self.state, self._blocksched
+        self.last_tick_rows = []
+        for attempt in range(5):
+            B = prev_sched
+            s, active = self._block_advance(prev, B)
+            s = self._active_pass(
+                s, torch.nonzero(active).flatten().to(torch.int32))
+            active2, nstep_p, level = check_timesteps(cfg, s, B, active)
+            newly = torch.nonzero(active2 & ~active).flatten()
+            if newly.numel():
+                # the limiter's re-activations need fresh forces before
+                # their closing kick
+                s = self._active_pass(s, newly.to(torch.int32))
+            dt_crit = sph_timestep(integ, s, self.hydro_forces)
+            s, B = end_timestep(cfg, s, B, active2, level, nstep_p, dt_crit,
+                                s.t, self.u_mode)
+            s = s.replace(nstep=s.nstep + 1)
+            if not bool(s.neib_overflow):
+                self.state, self._blocksched = s, B
+                return
+            with self.timing.block("GRID_REPLAN"):
+                self._n_grid_overflows += 1
+                self._plan_grid(prev.r, prev.h,
+                                growth=1.3 * (1.2 ** attempt))
+                if self.treespec is not None:
+                    # replaces self.state's (the pre-tick state's) map
+                    self._plan_tree_buckets(_host(prev.r), grow_caps=True)
+                    prev = self.state
+        raise RuntimeError("neighbour overflow persists after 5 replans")
 
     # -- host loop -------------------------------------------------------------
     def _clamp_dt_to_tend(self):
@@ -350,11 +487,18 @@ class GradhSphSimulation:
                 cap, dtype=self.dtype, device=self.device))
 
     def main_loop_step(self):
-        """One step; on neighbour overflow, replan the grid from the
-        pre-step state (and the tree buckets, with grown caps) and redo
-        the step (at most 4 times).  Every ntreebuildstep steps the tree
-        buckets are replanned first."""
+        """One step (a tick with block timesteps); on neighbour overflow,
+        replan the grid from the pre-step state (and the tree buckets,
+        with grown caps) and redo the step (at most 4 times).  Every
+        ntreebuildstep steps the tree buckets are replanned first.  The
+        ladder's tick is not clamped to tend, as in the JAX package."""
         self._tree_cadence()
+        if self.use_block:
+            with self.timing.block("MAIN_LOOP"):
+                self._block_tick()
+            self.Nsteps += 1
+            self.t = float(self.state.t)
+            return
         self._clamp_dt_to_tend()
         with self.timing.block("MAIN_LOOP"):
             prev = self.state
@@ -387,8 +531,12 @@ class GradhSphSimulation:
         step overflowed, rewind to the burst's start and replay it step
         by step, so main_loop_step replans at the offending step.  A
         burst starts with the tree cadence's replan and ends at the next
-        one; near tend the per-step path takes over.  Returns the steps
-        done."""
+        one.  Every step stops at tend (the device clamp); the host bound
+        near tend only limits the steps wasted there.  Block ticks run one
+        at a time.  Returns the steps done."""
+        if self.use_block:
+            self.main_loop_step()
+            return 1
         if self.treespec is not None:
             self._tree_cadence()
             ntb = max(self.params.intparams["ntreebuildstep"], 1)

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it never imports JAX (the self-gravitating
-slice included), chip_smoke.py refuses to run without a GPU, a missing
-C++ tree planner raises, and on a GPU each CUDA kernel agrees with its
-plain PyTorch version.
+and block-timestep slices included), chip_smoke.py refuses to run
+without a GPU, a missing C++ tree planner raises, and on a GPU each CUDA
+kernel agrees with its plain PyTorch version.
 
 This file imports no JAX, so its CUDA test also runs on a machine
 without JAX: ``python -m pytest --noconftest -m cuda
@@ -47,6 +47,12 @@ def test_port_never_imports_jax():
         "sim.main_loop_step()\n"
         "sim.main_loop_step()\n"
         "assert sim.Nsteps == 2 and bool((sim.state.gpot > 0).all())\n"
+        "from gandalf_tpu_torch.check import sphere_block_params\n"
+        "sim = GradhSphSimulation(sphere_block_params(300), device='cpu',\n"
+        "                         dtype=torch.float64)\n"
+        "sim.SetupSimulation()\n"
+        "sim.main_loop_step()\n"
+        "assert sim.use_block and sim.Nsteps == 1 and sim.active_rows > 0\n"
         "print('jax' in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=_env_without_precision(), capture_output=True,
@@ -70,9 +76,11 @@ def test_chip_smoke_refuses_without_gpu():
 def test_kernels_match_plain_versions_on_gpu(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    from gandalf_tpu_torch.check import (compare_kernels,
+    from gandalf_tpu_torch.check import (compare_active_kernels,
+                                         compare_kernels,
                                          compare_tree_kernels,
-                                         jittered_box_ic, slice_params)
+                                         jittered_box_ic, slice_params,
+                                         sphere_block_params)
     from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
     p = slice_params(16, self_gravity=1)
@@ -80,6 +88,13 @@ def test_kernels_match_plain_versions_on_gpu(dtype):
     sim.SetupSimulation(jittered_box_ic(p, 16))
     report = compare_kernels(sim, sim.state)
     report.update(compare_tree_kernels(sim, sim.state))
+    # K8, K9 and the group-list K6/K7 on the block slice's sphere, for
+    # every third particle
+    sim = GradhSphSimulation(sphere_block_params(2000), device="cuda",
+                             dtype=dtype)
+    sim.SetupSimulation()
+    idx = torch.arange(0, sim.state.N, 3, dtype=torch.int32, device="cuda")
+    report.update(compare_active_kernels(sim, sim.state, idx))
     torch.cuda.synchronize()
     assert all(r["ok"] for r in report.values()), report
 

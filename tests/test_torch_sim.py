@@ -102,15 +102,56 @@ def test_run_lands_on_tend():
     assert tsim.t == pytest.approx(2e-3, rel=1e-12)
 
 
-@pytest.mark.parametrize("key,value", [("self_gravity", 1), ("Nlevels", 3),
+@pytest.mark.parametrize("key,value", [("self_gravity", 1),
+                                       ("sink_particles", 1),
+                                       ("dust_forces", "full_twofluid"),
                                        ("ndim", 2), ("gas_eos", "isothermal"),
                                        ("time_dependent_avisc", "mm97"),
                                        ("neib_search", "bruteforce")])
 def test_options_outside_the_slice_raise(key, value):
+    """Options the port does not run raise; sinks and dust stay refused
+    with block timesteps (Nlevels = 3) too."""
     p = slice_params(8)
+    if key in ("sink_particles", "dust_forces"):
+        p.set("Nlevels", 3)
     p.set(key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GradhSphSimulation(p).process_parameters()
+
+
+def test_burst_stops_at_tend():
+    """A burst across tend ends at tend, never past it (ROADMAP fault F3).
+    The state's dt starts 1000 times below its natural value, so dt
+    grows 1000-fold after the first step of the burst; the burst length
+    bound from that first dt (8 steps) spans several natural steps past
+    tend.  The JAX package overshoots tend here: it clamps no step of a
+    burst, and its host bound assumes dt grows at most 2-fold.  The port
+    clamps each step's dt to tend - t on the device."""
+    ic = jittered_box_ic(slice_params(8), 8)
+    probe = GradhSphSimulation(slice_params(8), device="cpu",
+                               dtype=torch.float64)
+    probe.SetupSimulation(ic)
+    dt_nat = float(probe.state.dt)
+    tend = 2.5 * dt_nat
+    sim = GradhSphSimulation(slice_params(8, tend=tend), device="cpu",
+                             dtype=torch.float64)
+    sim.SetupSimulation(ic)
+    sim.state = sim.state.replace(dt=sim.state.dt * 1e-3)
+    times = []
+    step = sim._step_fn
+
+    def recorded(s):
+        out = step(s)
+        times.append(float(out.t))
+        return out
+
+    sim._step_fn = recorded
+    assert sim.main_loop_steps(8) == 8
+    assert len(times) == 8
+    assert max(times) <= tend
+    assert sim.t == pytest.approx(tend, abs=1e-12 * tend)
+    # dt grew: without the clamp the eighth step would be far past tend
+    assert times[2] > times[1] * 1.5
 
 
 def test_burst_overflow_replays_step_by_step():

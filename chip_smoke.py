@@ -1,13 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives gandalf_tpu_torch's grad-h SPH main paths on the card, hydro only,
-self-gravitating and with block timesteps, and checks them, in phases,
-each printing one line:
+Drives gandalf_tpu_torch's main paths on the card, grad-h SPH hydro
+only, self-gravitating and with block timesteps, and the self-gravitating
+meshless finite-volume box, and checks them, in phases, each printing one
+line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K9 from csrc/ (one nvcc per
-   source, in parallel) and the C++ tree planner, and prints the times;
+2. build: compiles the CUDA kernels K1-K12 from csrc/ (one nvcc per
+   source, in parallel) and the C++ tree planner, prints the times and
+   writes ptxas's report of each kernel's registers and spills to
+   chiprun_out/ptxas.txt under the working directory;
 3. kernels: K1-K3 against their plain PyTorch versions on the card, at
    16^3 and 32^3 particles, in float64 and float32;
 4. tree_kernels: K4-K7 the same way on the self-gravitating slice, with
@@ -36,13 +39,30 @@ each printing one line:
    (one rebuild cadence), with rates, the level histogram, launch
    counts, finiteness, overflow, energy and accuracy checks (the gate
    again shown to reject a monopole tree), and each kernel's time beside
-   its plain version's at the path's shapes.
+   its plain version's at the path's shapes;
+12. mfv_kernels: K10-K12 and K7's MFV zeta mode against their plain
+   versions on the card on the mfv_box configuration at 16^3 and 32^3,
+   in float64 and float32;
+13. mfv_parity: 5 steps of mfv_box at 16^3 in float64 with a tree
+   rebuild every 2 steps, kernels on the card against the plain path
+   on the CPU;
+14. mfv_main_path: mfv_box at 64^3 in float32: setup, 2 warm-up steps,
+   the post-warm-up replan, 2 more, then 32 timed steps (one rebuild
+   cadence) through main_loop_steps, with launch counts, finiteness,
+   overflow, exact mass, energy and accuracy (against the all-pairs
+   mfv_smoothed_gravity) checks, and each kernel's time beside its
+   plain version's at the path's shapes.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path, K8, K9 and the list
-launches of K6 and K7 with counts from the block main path; the last
-line is {"ok": true, "device": {...}}.  Any failure raises and exits
-non-zero without printing the last line.  Run from the repository root:
+launches of K6 and K7 with counts from the block main path, K10-K12
+and K7's MFV launches from the MFV main path, each counted over its
+path's timed window (the counts are set to 0 just before it); each
+with its bound (the least time the card could take for the work,
+check.bound) and library_ms null (no single PyTorch call computes any
+of these functions).  The last line is {"ok": true, "device": {...}}.  Any
+failure raises and exits non-zero without printing the last line.  Run
+from the repository root:
 
     python3 chip_smoke.py
 """
@@ -51,17 +71,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
-# the JAX package's __init__ imports JAX when this is set; the port
-# reuses its host-only modules and must not
-os.environ.pop("GANDALF_PRECISION", None)
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 N_MAIN = 64
 STEPS_WARM = 2
@@ -102,6 +118,13 @@ ACTIVE_SIZES = (4000, 32000)
 # is that with room for float32.
 BLOCK_ACCURACY_TOL = 6e-4
 BLOCK_ENERGY_DRIFT_TOL = 2e-3
+# the MFV box (check.mfv_params): the same tree and accuracy gate as the
+# SPH box.  E = sum Q_E - sum m gpot / 2 is not conserved exactly by the
+# scheme: the JAX package's own drift over steps 1-5 at 8^3 in float64 is
+# 9.1e-4 (tests/test_torch_mfv_sim.py, which holds it below this gate).
+# The gate is 2e-3 over the 32 timed steps at 64^3, room for float32.
+MFV_STEPS_TIMED = 32
+MFV_ENERGY_DRIFT_TOL = 2e-3
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -126,12 +149,23 @@ SOURCES = {
                        "gandalf_tpu/ops/tree.py:1429"),
     "tree_near_list": ("gandalf_tpu_torch/csrc/tree_near.cu",
                        "gandalf_tpu/ops/tree.py:1429"),
+    "mfv_density": ("gandalf_tpu_torch/csrc/mfv_density.cu",
+                    "gandalf_tpu/ops/mfv_grid27.py:70"),
+    "mfv_gradients": ("gandalf_tpu_torch/csrc/mfv_gradients.cu",
+                      "gandalf_tpu/ops/mfv_grid27.py:198"),
+    "mfv_fluxes": ("gandalf_tpu_torch/csrc/mfv_fluxes.cu",
+                   "gandalf_tpu/ops/mfv_grid27.py:342"),
+    "tree_near_mfv": ("gandalf_tpu_torch/csrc/tree_near.cu",
+                      "gandalf_tpu/ops/tree.py:770"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
 # the kernels of a block tick with self-gravity
 BLOCK = ("grid27_bin", "active_density", "active_forces", "tree_gather",
          "tree_build", "tree_walk_list", "tree_near_list")
+# the kernels of an MFV step with self-gravity (K1 twice a step)
+MFV = ("grid27_bin", "tree_gather", "tree_build", "tree_walk",
+       "tree_near_mfv", "mfv_density", "mfv_gradients", "mfv_fluxes")
 
 
 def phase(tag: str, **fields) -> None:
@@ -262,7 +296,6 @@ def block_main_path(dev, card):
 
     sim = make_block_sim(BLOCK_N, dev, torch.float32)
     torch.cuda.reset_peak_memory_stats()
-    _ext.reset_launches()
     t0 = time.perf_counter()
     sim.SetupSimulation()
     torch.cuda.synchronize()
@@ -277,6 +310,7 @@ def block_main_path(dev, card):
     replan0 = sim.timing.totals.get("GRID_REPLAN", 0.0)
     first_rows = []
     torch.cuda.synchronize()
+    _ext.reset_launches()
     t0 = time.perf_counter()
     for _ in range(BLOCK_TICKS_TIMED):
         sim.main_loop_step()
@@ -308,7 +342,7 @@ def block_main_path(dev, card):
         "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
         "two_levels": sum(1 for n in levels if n) >= 2,
         "compacts": mean_active < 1.0,
-        "launches": all(launches[k] >= ticks for k in
+        "launches": all(launches[k] >= BLOCK_TICKS_TIMED for k in
                         ("active_density", "active_forces")),
         "accuracy": acc["rms_rel_err"] <= BLOCK_ACCURACY_TOL,
         "gate_rejects_monopole": mono["rms_rel_err"] > BLOCK_ACCURACY_TOL,
@@ -345,6 +379,149 @@ def block_main_path(dev, card):
     return ({k: launches[k] for k in names}, {k: rep[k] for k in names})
 
 
+def make_mfv_sim(n_side, device, dtype, ntreebuildstep=None):
+    from gandalf_tpu_torch.check import jittered_box_ic, mfv_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    params = mfv_params(n_side, self_gravity=1)
+    if ntreebuildstep is not None:
+        params.set("ntreebuildstep", ntreebuildstep)
+    sim = SimulationBase.factory(params, device, dtype)
+    return sim, jittered_box_ic(params, n_side)
+
+
+def mfv_energy(s) -> float:
+    """Total energy of an MFV state: sum Q_E - sum m gpot / 2."""
+    return float(torch.sum(s.Qcons0[:, 4].double())
+                 - 0.5 * torch.sum((s.m * s.gpot).double()))
+
+
+def mfv_kernels(dev) -> None:
+    """K10-K12 and K7's MFV mode against their plain versions on the
+    card, after setup and 2 steps of mfv_box."""
+    from gandalf_tpu_torch.check import compare_mfv_kernels
+
+    for n_side in (16, 32):
+        for dtype in (torch.float64, torch.float32):
+            sim, ic = make_mfv_sim(n_side, dev, dtype)
+            sim.SetupSimulation(ic)
+            sim.main_loop_steps(2)
+            rep = compare_mfv_kernels(sim, sim.state)
+            phase("mfv_kernels", n_side=n_side, dtype=str(dtype),
+                  k_cell=sim.gridspec.k_cell, G=sim.treespec.n_leaves,
+                  report=rep)
+            require_ok("mfv_kernels", rep)
+
+
+def mfv_parity(dev) -> None:
+    """5 float64 steps of mfv_box at 16^3, kernels on the card against
+    the plain path on the CPU, with a tree rebuild every 2 steps."""
+    sims = []
+    for device in (dev, torch.device("cpu")):
+        sim, ic = make_mfv_sim(16, device, torch.float64,
+                               ntreebuildstep=GRAVITY_NTB_PARITY)
+        sim.SetupSimulation(ic)
+        for _ in range(PARITY_STEPS):
+            sim.main_loop_step()
+        sims.append(sim)
+    errs = parity_errors(sims, ("r", "v", "u", "m", "h", "rho", "Qcons0",
+                                "a", "gpot"))
+    counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
+    phase("mfv_parity", n_side=16, steps=PARITY_STEPS, rel_err=errs,
+          tree_plans_and_replans=counts)
+    if max(errs.values()) > PARITY_TOL or counts[0] != counts[1]:
+        raise RuntimeError(f"mfv_parity: kernel path disagrees with the "
+                           f"plain path: {errs} {counts}")
+
+
+def mfv_main_path(dev, card):
+    """mfv_box at full size: setup, warm-up, the post-warm-up replan, the
+    timed window of one rebuild cadence, then the checks and the kernels
+    against their plain versions at the path's shapes.  Returns the
+    path's launch counts and the kernel reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_mfv_kernels,
+                                         mfv_gravity_accuracy)
+
+    sim, ic = make_mfv_sim(N_MAIN, dev, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    sim.SetupSimulation(ic)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    m0 = sim.state.m.clone()
+    run_timed(sim, STEPS_WARM)
+    # the post-warm-up replan at the live timestep, then re-warm
+    sim._plan_tree_buckets(sim.state.r.cpu().numpy())
+    run_timed(sim, STEPS_WARM)
+    e0 = mfv_energy(sim.state)
+    plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
+    rebuild0 = sim.timing.totals.get("TREE_REBUILD", 0.0)
+    steps0 = sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, MFV_STEPS_TIMED)
+    launches = {k: _ext.LAUNCHES[k] for k in MFV}
+    done = sim.Nsteps - steps0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    replans = sim._n_grid_overflows - replans0
+    s = sim.state
+    N = s.N
+    drift = abs(mfv_energy(s) - e0) / abs(e0)
+    acc = mfv_gravity_accuracy(sim, n_sample=2048)
+    every_step = {k: launches[k] >= (2 * done if k == "grid27_bin"
+                                     else done) for k in MFV}
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "Qcons0",
+                                "grad", "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(every_step.values()),
+        "mass_exact": bool(torch.equal(s.m, m0)),
+        "accuracy": acc["rms_rel_err"] <= ACCURACY_TOL,
+        "energy_drift": drift <= MFV_ENERGY_DRIFT_TOL,
+    }
+    rep = compare_mfv_kernels(sim, s, repeats=5)
+    spec = sim.treespec
+    phase("mfv_main_path", N=N, steps=sim.Nsteps, timed_steps=done,
+          setup_s=t_setup, timed_s=elapsed,
+          particle_steps_per_s=N * done / elapsed,
+          rebuilds_in_window=sim._n_tree_plans - plans0 - replans,
+          rebuild_host_s=sim.timing.totals.get("TREE_REBUILD", 0.0)
+          - rebuild0, replans_in_window=replans, G_pad=spec.n_leaves,
+          near_cap=spec.near_cap, ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, launches=launches,
+          energy_drift=drift, energy_gate=MFV_ENERGY_DRIFT_TOL,
+          accuracy=acc, accuracy_gate=ACCURACY_TOL,
+          bad_gradients=int(s.bad_grad.sum()), checks=checks, kernels=rep,
+          card=card, peak_mem_gb=peak_gb)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"mfv main path checks failed: {failed}")
+    names = ("mfv_density", "mfv_gradients", "mfv_fluxes", "tree_near_mfv")
+    return ({k: launches[k] for k in names}, {k: rep[k] for k in names})
+
+
+def kernel_line(launches, rep) -> dict:
+    """The {"kernels": [...]} object: every kernel's source, launches on
+    its main path, error, times and bound (main paths run float32)."""
+    from gandalf_tpu_torch.check import bound
+
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        r = rep[name]
+        bound_ms, bound_by = bound(r["work"], torch.float32)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+    return {"kernels": kernels}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -369,10 +546,13 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     native_planner()  # the C++ tree planner (g++); raises on failure
-    regs = [ln.strip() for ln in _ext.build_log().splitlines()
-            if "registers" in ln or "spill" in ln]
+    # ptxas's report (registers, stack, spills per kernel) is too long
+    # for a phase line
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "ptxas.txt").write_text(_ext.ptxas_report())
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
-          library=so.name, ptxas=regs)
+          library=so.name, ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
     for n_side in (16, 32):
@@ -435,7 +615,6 @@ def main() -> int:
     # 7. the hydro main path at full size
     sim, ic = make_sim(N_MAIN, dev, torch.float32)
     torch.cuda.reset_peak_memory_stats()
-    _ext.reset_launches()
     t0 = time.perf_counter()
     sim.SetupSimulation(ic)
     torch.cuda.synchronize()
@@ -445,6 +624,7 @@ def main() -> int:
     while done < STEPS_WARM:
         done += sim.main_loop_steps(STEPS_WARM - done)
     torch.cuda.synchronize()
+    _ext.reset_launches()
     t0 = time.perf_counter()
     done = 0
     while done < STEPS_TIMED:
@@ -462,7 +642,7 @@ def main() -> int:
         "finite": finite,
         "rho_positive": bool((s.rho > 0).all()),
         "no_overflow": not bool(s.neib_overflow),
-        "launches": all(n >= sim.Nsteps + 1 for n in launches.values()),
+        "launches": all(n >= STEPS_TIMED for n in launches.values()),
         "energy_drift": drift < ENERGY_DRIFT_TOL,
     }
     rep = compare_kernels(sim, s, repeats=5)
@@ -482,7 +662,6 @@ def main() -> int:
     # 8. the self-gravitating main path at full size
     sim, ic = make_sim(N_MAIN, dev, torch.float32, self_gravity=1)
     torch.cuda.reset_peak_memory_stats()
-    _ext.reset_launches()
     t0 = time.perf_counter()
     sim.SetupSimulation(ic)
     torch.cuda.synchronize()
@@ -494,6 +673,7 @@ def main() -> int:
     e0 = energy(sim.state, gravity=True)
     plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
     rebuild0 = sim.timing.totals.get("TREE_REBUILD", 0.0)
+    _ext.reset_launches()
     elapsed = run_timed(sim, GRAVITY_STEPS_TIMED)
     rebuild_s = sim.timing.totals.get("TREE_REBUILD", 0.0) - rebuild0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -514,7 +694,8 @@ def main() -> int:
                                 "gpot")),
         "rho_positive": bool((s.rho > 0).all()),
         "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
-        "launches": all(n >= sim.Nsteps + 1 for n in launches.values()),
+        "launches": all(n >= GRAVITY_STEPS_TIMED
+                        for n in launches.values()),
         "accuracy": acc["rms_rel_err"] <= ACCURACY_TOL,
         "gate_rejects_monopole": mono["rms_rel_err"] > ACCURACY_TOL,
         "energy_drift": drift <= GRAVITY_ENERGY_DRIFT_TOL,
@@ -545,12 +726,14 @@ def main() -> int:
     launches.update(b_launches)
     rep.update(b_rep)
 
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": rep[name]["max_abs_err"],
-                "ms": rep[name]["ms"], "plain_ms": rep[name]["plain_ms"]}
-               for name, (src, replaces) in SOURCES.items()]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # 12-14. the meshless finite-volume box
+    mfv_kernels(dev)
+    mfv_parity(dev)
+    m_launches, m_rep = mfv_main_path(dev, card)
+    launches.update(m_launches)
+    rep.update(m_rep)
+
+    print(json.dumps(kernel_line(launches, rep)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,22 +1,19 @@
-"""PyTorch and CUDA port of gandalf_tpu's hydro-only grad-h SPH main path.
+"""PyTorch and CUDA port of gandalf_tpu's grad-h SPH and meshless
+finite-volume main paths.
 
 The JAX package ``gandalf_tpu`` stays the reference.  This package runs
-the same global-timestep grad-h SPH step (predict, wrap, structured
-27-shift grid hydro pass, correct, timestep) with plain torch tensors,
-and with three kernels written in CUDA C++ for Hopper (``csrc/``):
-
-- K1 ``grid27_bin``: cell id and stable slot rank per particle,
-- K2 ``grid27_density``: the grad-h h-rho iteration over 27 cells,
-- K3 ``grid27_forces``: the SPH pair forces over 27 cells.
+the same steps with plain torch tensors and with kernels written in CUDA
+C++ for Hopper (``csrc/``): the structured 27-cell grid (K1-K3), the
+KD-bucket Barnes-Hut tree (K4-K7), the active-subset passes of block
+timesteps (K8, K9) and the meshless finite-volume passes (K10-K12).
 
 A tensor on the CPU takes each kernel's plain PyTorch version; a tensor
 on a CUDA device takes the kernel, or the call raises.
 
-The package imports torch and numpy, never JAX.  It reuses the JAX
-package's host-only modules (``params``, ``units``, ``sim.ic``,
-``utils``), which import no JAX unless ``GANDALF_PRECISION`` asks
-``gandalf_tpu`` for float64 JAX; leave that variable unset when using
-this package.
+The package imports torch and numpy, never JAX nor anything of
+``gandalf_tpu``: it keeps its own copies of the host-only modules it
+needs (``params``, ``units``, ``sim.ic``, ``utils``) and of the C++ tree
+planner (``native``).
 """
 
 __version__ = "0.1.0"

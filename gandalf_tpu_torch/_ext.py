@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K9 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K12 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -13,7 +13,8 @@ current stream and raise if the launch reports an error.  Each adds one
 to its kernel's count in ``LAUNCHES`` when it launches, and nowhere else
 (K5's wrapper launches one kernel per tree level and counts one).  K6
 and K7 launched over a group list count under ``tree_walk_list`` and
-``tree_near_list``, apart from their launches over all groups.
+``tree_near_list``, and K7 in its meshless finite-volume zeta mode under
+``tree_near_mfv``, apart from their launches over all groups.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu",
-          "active_density.cu", "active_forces.cu")
+          "active_density.cu", "active_forces.cu", "mfv_density.cu",
+          "mfv_gradients.cu", "mfv_fluxes.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "tree_gather": 0, "tree_build": 0, "tree_walk": 0,
             "tree_near": 0, "tree_walk_list": 0, "tree_near_list": 0,
-            "active_density": 0, "active_forces": 0}
+            "tree_near_mfv": 0, "active_density": 0, "active_forces": 0,
+            "mfv_density": 0, "mfv_gradients": 0, "mfv_fluxes": 0}
 
 _lib = None
 
@@ -57,14 +60,20 @@ _ARGTYPES = {
     "tree_build": [_P, _P, _I, _I, _P, _P, _I, _P],
     "tree_walk": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _P, _P, _P, _P,
                   _I, _P],
-    "tree_near": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D,
-                  _D, _P, _P, _P, _I, _P],
+    "tree_near": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _D, _D, _P, _P, _P, _I, _P],
     "active_density": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I,
                        _P],
     "active_forces": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _D, _D, _D, _D, _D, _I, _I, _I, _D, _D, _P,
                       _P, _P, _P, _I, _P],
+    "mfv_density": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
+                    _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _P],
+    "mfv_gradients": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
+                      _D, _D, _P, _P, _P, _P, _P, _I, _P],
+    "mfv_fluxes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
+                   _D, _D, _I, _P, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -133,6 +142,16 @@ def build() -> Path:
 def build_log() -> str:
     log = library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_report() -> str:
+    """ptxas's lines of the build log as it wrote them: each kernel's
+    entry function (its mangled name), then its stack frame, spill bytes
+    and registers."""
+    keep = ("entry function", "Function properties", "stack frame",
+            "registers")
+    return "\n".join(ln for ln in build_log().splitlines()
+                     if any(k in ln for k in keep))
 
 
 def lib() -> ctypes.CDLL:
@@ -346,11 +365,15 @@ def tree_walk(spec, ctab, ptab, alive, group_ids=None):
 
 
 def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
-              out_index, n_out, group_ids=None):
+              out_index, n_out, group_ids=None, zeta_scaling="sph"):
     """K7: a (n_out, 3), gpot (n_out,) at rows out_index[slot] of the live
     slots (zero elsewhere), and the support overflow () bool.  `kern`
     None sums Newtonian pairs only.  With `group_ids` only the listed
-    groups' slots are written."""
+    groups' slots are written.  `zeta_scaling` "mfv" takes the meshless
+    finite-volume zeta term and counts under tree_near_mfv."""
+    mfv = zeta_scaling == "mfv"
+    if mfv and group_ids is not None:
+        raise NotImplementedError("the MFV zeta mode walks all groups")
     G, S, rows = _tree_shapes(spec)
     dt, dev = ptab.dtype, ptab.device
     _check(ctab, "ctab", dt, (rows, _CCOLS))
@@ -370,11 +393,12 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
         _launch("tree_near", dt, dev, _p(ctab), _p(ptab), _p(alive),
                 _p(near), _p(a_far), _p(pot_far), _p(out_index), gptr,
                 n_groups, spec.depth, spec.near_cap, spec.support_cap,
-                int(smoothed), float(kern.kernrange) if smoothed else 0.0,
+                int(smoothed), int(mfv),
+                float(kern.kernrange) if smoothed else 0.0,
                 float(kern.kernnorm) if smoothed else 0.0, _p(a), _p(gpot),
                 _p(overflow),
                 count="tree_near_list" if group_ids is not None
-                else "tree_near")
+                else "tree_near_mfv" if mfv else "tree_near")
     return a, gpot, overflow
 
 
@@ -439,3 +463,67 @@ def active_forces(spec, kern, visc, idx, cell_of, ids_d, r, v, packed,
                 float(visc.beta_visc), _p(a), _p(dudt), _p(div_v),
                 _p(lneib))
     return a, dudt, div_v, lneib
+
+
+# ---------------------------------------------------------------------------
+# Meshless finite volume, K10-K12 (layouts of ops/mfv_grid27.py)
+# ---------------------------------------------------------------------------
+
+def _slot_map_args(spec, ids_d, r):
+    N = r.shape[0]
+    _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
+    _check(r, "r", r.dtype, (N, 3))
+    return N
+
+
+def mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, h):
+    """K10 over K1's slot map ids_d (*ncells, K) int32: (ndens, invom,
+    zeta) sums at each particle's final h and its converged flag, each
+    (N,) in particle order.  A particle without a slot keeps zeros and
+    counts as not converged."""
+    N = _slot_map_args(spec, ids_d, r)
+    dt, dev = r.dtype, r.device
+    _check(m, "m", dt, (N,))
+    _check(h, "h", dt, (N,))
+    ndens, invom, zeta = (torch.zeros((N,), dtype=dt, device=dev)
+                          for _ in range(3))
+    done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    _launch("mfv_density", dt, dev, _p(ids_d), _p(r), _p(m), _p(h),
+            *_grid_args(spec), float(kern.kernnorm), float(h_fac),
+            float(h_fac ** 3), float(h_converge), float(hmax), _p(ndens),
+            _p(invom), _p(zeta), _p(done))
+    return ndens, invom, zeta, done
+
+
+def mfv_gradients(spec, kern, ids_d, r, packed):
+    """K11 over the slot map: B (N, 3, 3), grad (N, 5, 3), alpha_slope
+    (N, 5), vsig_max (N,) and bad (N,) bool.  `packed` (N, 8) holds
+    ops.mfv_grid27.GRAD_COLS."""
+    N = _slot_map_args(spec, ids_d, r)
+    dt, dev = r.dtype, r.device
+    _check(packed, "packed", dt, (N, 8))
+    B = torch.zeros((N, 3, 3), dtype=dt, device=dev)
+    grad = torch.zeros((N, 5, 3), dtype=dt, device=dev)
+    alpha = torch.ones((N, 5), dtype=dt, device=dev)
+    vsig = torch.zeros((N,), dtype=dt, device=dev)
+    bad = torch.zeros((N,), dtype=torch.bool, device=dev)
+    _launch("mfv_gradients", dt, dev, _p(ids_d), _p(r), _p(packed),
+            *_grid_args(spec), float(kern.kernnorm), float(kern.kernrange),
+            _p(B), _p(grad), _p(alpha), _p(vsig), _p(bad))
+    return B, grad, alpha, vsig, bad
+
+
+def mfv_fluxes(spec, kern, cfg, dt_t, ids_d, r, packed):
+    """K12 over the slot map: dQdt (N, 5) and rdmdt_dot (N, 3) with the
+    MUSCL half step over dt_t (a 0-d tensor on the device, read there).
+    `packed` (N, 41) holds ops.mfv_grid27.FLUX_COLS."""
+    N = _slot_map_args(spec, ids_d, r)
+    dt, dev = r.dtype, r.device
+    _check(packed, "packed", dt, (N, 41))
+    _check(dt_t, "dt", dt, ())
+    dQdt = torch.zeros((N, 5), dtype=dt, device=dev)
+    rdmdt = torch.zeros((N, 3), dtype=dt, device=dev)
+    _launch("mfv_fluxes", dt, dev, _p(ids_d), _p(r), _p(packed), _p(dt_t),
+            *_grid_args(spec), float(kern.kernnorm), float(cfg.gamma),
+            int(cfg.zero_mass_flux), _p(dQdt), _p(rdmdt))
+    return dQdt, rdmdt

@@ -11,7 +11,11 @@ the tolerances below, and optionally times both; ``compare_tree_kernels``
 does the same for the tree kernels K4-K7, and ``compare_active_kernels``
 for the block tick's K8, K9 and the group-list launches of K6 and K7.
 ``gravity_accuracy`` holds the tree's accelerations against the direct
-sum.  ``chip_smoke.py`` and the CUDA tests use them.
+sum.  ``mfv_params`` is the meshless finite-volume configuration
+``mfv_box``; ``compare_mfv_kernels`` compares K10-K12 and K7's MFV mode
+with their plain versions, and ``mfv_gravity_accuracy`` holds the MFV
+tree against the all-pairs ``mfv_smoothed_gravity``.  ``chip_smoke.py``
+and the CUDA tests use them.
 """
 
 from __future__ import annotations
@@ -21,15 +25,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from gandalf_tpu.params import Parameters
-from gandalf_tpu.sim.ic import generate_ic
-
 from . import _ext
 from .ops import active_grid as ag
+from .ops import mfv as mfv_ops
+from .ops import mfv_grid27 as mg
 from .ops import sph_grid27 as g27
 from .ops import tree as tr
 from .ops.density import finish_h
 from .ops.sph_gravity import direct_sph_gravity
+from .params import Parameters
+from .sim.ic import generate_ic
+from .state import OPEN, DomainBox
 
 # Tolerances, kernel against plain version on the same inputs.
 # float64: both evaluate the same formulas; only the order of the sums
@@ -65,6 +71,79 @@ TOL_F32_TREE_FAR = 1e-4
 # float32, K7: ~3,000 partners per slot, most of them Newtonian terms of
 # one sign; summation order moves a and gpot by ~1e-6 of their maxima.
 TOL_F32_TREE_NEAR = 1e-4
+# float32, K11: E and the two gradient sums over ~60 pairs each, rounded
+# at 6e-8 and summed in another order (and with fused multiply-adds on
+# the card); B = E^-1 and the gradients move by ~1e-6 of their largest
+# values, the cell alphas (a clipped ratio) by as much relative to 1.
+# A bad-gradient flag may flip where |E|^2|B|^2/9 lies within rounding of
+# 1e4: at most 1e-3 of the particles.
+TOL_F32_MFV_GRADIENTS = 1e-4
+TOL_F32_MFV_BAD_FRACTION = 1e-3
+# float32, K12: each particle's dQdt is the sum of ~60 face fluxes of
+# order p |A| that cancel to a net one to two orders smaller in a
+# near-uniform medium, so the rounding of the terms (6e-8 each) shows
+# at ~1e-5 of the largest net value; the Gizmo clamp and the HLLC wave
+# choice take the same branch except within rounding of a tie.
+TOL_F32_MFV_FLUXES = 1e-3
+
+# The least time the card could take for a kernel's work (its bound):
+# the larger of the bytes it must move (each input read once, each output
+# written once) over the memory rate and its operations over the peak
+# rate of their type.  Published rates of one H100 SXM at its full 700 W
+# (NVIDIA's data sheet; float arithmetic outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# Operations per unit of work, counted by hand from each kernel's source
+# (a multiply, add, compare, square root or division counts one): per
+# particle (K1), per slot (K4), per slot and per cell (K5), per pair
+# within a support (kernrange h_i for K2, K8, K10, K11; kernrange
+# max(h_i, h_j) for K3, K9, K12), per live cell tested and per accepted
+# cell and slot (K6), per near pair (K7).  The pair work counts one
+# sweep of the h iterations, the least the data needs.
+FLOPS_PER = {
+    "grid27_bin": 15, "grid27_density": 40, "grid27_forces": 80,
+    "tree_gather": 10, "tree_build_slot": 30, "tree_build_cell": 60,
+    "tree_walk_mac": 15, "tree_walk_far": 60, "tree_near": 20,
+    "active_density": 40, "active_forces": 80,
+    "mfv_density": 40, "mfv_gradients": 120, "mfv_fluxes": 450,
+}
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _work(inputs, outputs, flops):
+    return {"bytes": _nbytes(*inputs) + _nbytes(*outputs),
+            "flops": int(flops)}
+
+
+def bound(work, dtype):
+    """(ms, "bytes" or "operations") of a report's work in `dtype`."""
+    t_mem = work["bytes"] / HBM_BYTES_PER_S
+    t_ops = work["flops"] / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def _support_counts(row, col, d2, h, kernrange):
+    """Pairs of a pair list within kernrange h_row, and within
+    kernrange max(h_row, h_col)."""
+    rad_i = kernrange * h[row]
+    rad_ij = kernrange * torch.maximum(h[row], h[col])
+    return (int((d2 < rad_i * rad_i).sum()),
+            int((d2 < rad_ij * rad_ij).sum()))
+
+
+def _slot_support_counts(spec, kern, ids_d, r, h, rows=None):
+    """Support pair counts (see _support_counts) over the slot map, of
+    all particles or of the rows `rows` (bool (N,))."""
+    cut2 = (kern.kernrange * float(h.max())) ** 2 * (1.0 + 1e-6)
+    row, col, _, d2 = mg.slot_pairs(spec, ids_d, r, cut2, True)
+    if rows is not None:
+        keep = rows[row]
+        row, col, d2 = row[keep], col[keep], d2[keep]
+    return _support_counts(row, col, d2, h, kern.kernrange)
 
 
 def slice_params(n_side: int, tend: float = 1.0e30,
@@ -90,6 +169,17 @@ def slice_params(n_side: int, tend: float = 1.0e30,
         updates[f"Nlattice1[{k}]"] = n_side
     for k, v in updates.items():
         p.set(k, v)
+    return p
+
+
+def mfv_params(n_side: int, self_gravity: int = 1,
+               tend: float = 1.0e30) -> Parameters:
+    """The mfv_box configuration: slice_params(n_side, self_gravity) run
+    through the meshless finite-volume MUSCL scheme (sim = meshlessfv)
+    with the JAX package's defaults riemann_solver = hllc, slope_limiter
+    = gizmo and zero_mass_flux = 1, and a global timestep."""
+    p = slice_params(n_side, tend, self_gravity)
+    p.set("sim", "meshlessfv")
     return p
 
 
@@ -249,6 +339,16 @@ def compare_kernels(sim, state, repeats: int = 0):
         "max_abs_err": float(torch.abs(f_k[0] - f_p[0])[fill3].max()),
         "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_FORCES)}
 
+    ids_d = ag.dense_ids(spec, b_p)
+    n_i, n_ij = _slot_support_counts(spec, kern, ids_d, state.r, state.h)
+    N = state.N
+    out["grid27_bin"]["work"] = _work(
+        (state.r,), (b_k.cell_of, b_k.slot_of), FLOPS_PER["grid27_bin"] * N)
+    out["grid27_density"]["work"] = _work(
+        (r_d, m_d, h_d, fill), s_k, FLOPS_PER["grid27_density"] * (n_i + N))
+    out["grid27_forces"]["work"] = _work(
+        (r_d, v_d, packed, fill), f_k, FLOPS_PER["grid27_forces"] * n_ij)
+
     if repeats > 0:
         timed = {
             "grid27_bin": (lambda: g27.bin_particles(spec, state.r),
@@ -355,7 +455,8 @@ def compare_tree_kernels(sim, state, repeats: int = 0):
 
     # K6 on the plain tree
     wk = _ext.tree_walk(spec, cp, pp, ap)
-    wp = tr.tree_walk_plain(spec, cp, pp, ap)
+    wstats = {}
+    wp = tr.tree_walk_plain(spec, cp, pp, ap, stats=wstats)
     differ = (wk[2] != wp[2]).any(1)
     n_differ = int(differ.sum())
     same_rows = ~differ.repeat_interleave(L) & ap
@@ -387,6 +488,18 @@ def compare_tree_kernels(sim, state, repeats: int = 0):
         "same_overflow": same_ovf,
         "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
         "ok": same_ovf and not bool(np_[2]) and max(errs.values()) <= tol}
+
+    out["tree_gather"]["work"] = _work(
+        (gmap, r, m, h, zh), (pk, ak), FLOPS_PER["tree_gather"] * G * L)
+    out["tree_build"]["work"] = _work(
+        (pp, ap), (ck,), FLOPS_PER["tree_build_slot"] * G * L
+        + FLOPS_PER["tree_build_cell"] * ck.shape[0])
+    out["tree_walk"]["work"] = _work(
+        (cp, pp, ap), wk, FLOPS_PER["tree_walk_mac"] * wstats["mac_tests"]
+        + FLOPS_PER["tree_walk_far"] * wstats["far_terms"])
+    out["tree_near"]["work"] = _work(
+        (cp, pp, ap, wp[2], wp[0], wp[1], gmap), nk[:2],
+        FLOPS_PER["tree_near"] * _near_pairs(spec, ap, wp[2]))
 
     # forced overflow: both versions must raise the flag
     lv = spec.depth // 2 + 1
@@ -429,6 +542,19 @@ def compare_tree_kernels(sim, state, repeats: int = 0):
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
+
+
+def _near_pairs(spec, alive, near, group_ids=None) -> int:
+    """Pairs K7 evaluates: live slots of each walked group times the live
+    slots of its near leaves."""
+    G, L = spec.n_leaves, spec.leaf_size
+    live = alive.reshape(G, L).sum(1)
+    per_leaf = torch.where(near >= 0, live[torch.clamp_min(near, 0).long()],
+                           0).sum(1)
+    pairs = live * per_leaf
+    if group_ids is not None:
+        pairs = pairs[group_ids.long()]
+    return int(pairs.sum())
 
 
 def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
@@ -542,6 +668,13 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
         "ok": same_lneib and max(errs.values())
         <= (TOL_F64 if f64 else TOL_F32_FORCES)}
 
+    rows = torch.zeros((state.N,), dtype=torch.bool, device=state.r.device)
+    rows[il] = True
+    n_i, n_ij = _slot_support_counts(spec, kern, ids_d, s2.r, s2.h, rows)
+    out["active_density"]["work"] = _work(
+        kargs[5:], s_k, FLOPS_PER["active_density"] * (n_i + il.numel()))
+    out["active_forces"]["work"] = _work(
+        fargs[1:9], f_k, FLOPS_PER["active_forces"] * n_ij)
     timed = {
         "active_density": (lambda: _ext.active_density(*kargs),
                            lambda: ag.active_density_plain(*pargs)),
@@ -564,7 +697,8 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
 
         # K6 over the list: listed rows and near lists, zeros elsewhere
         wk = _ext.tree_walk(tspec, cp, pp, ap, group_ids)
-        wp = tr.tree_walk_plain(tspec, cp, pp, ap, group_ids)
+        wstats = {}
+        wp = tr.tree_walk_plain(tspec, cp, pp, ap, group_ids, stats=wstats)
         differ = (wk[2] != wp[2]).any(1)
         n_differ = int(differ.sum())
         same_rows = ~differ.repeat_interleave(L) & rows
@@ -608,6 +742,14 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
             "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
             "ok": (same_ovf and not bool(np_[2]) and zero_elsewhere
                    and max(errs.values(), default=0.0) <= tol)}
+        out["tree_walk_list"]["work"] = _work(
+            (cp, pp, ap, group_ids), wk,
+            FLOPS_PER["tree_walk_mac"] * wstats["mac_tests"]
+            + FLOPS_PER["tree_walk_far"] * wstats["far_terms"])
+        out["tree_near_list"]["work"] = _work(
+            (cp, pp, ap, wp[2], wp[0], wp[1], gmap, group_ids), nk[:2],
+            FLOPS_PER["tree_near"] * _near_pairs(tspec, ap, wp[2],
+                                                 group_ids))
         timed["tree_walk_list"] = (
             lambda: _ext.tree_walk(tspec, cp, pp, ap, group_ids),
             lambda: tr.tree_walk_plain(tspec, cp, pp, ap, group_ids))
@@ -619,3 +761,184 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
+
+
+def mfv_gravity_inputs(sim, state):
+    """The arguments of the MFV gravity pass after gmap: r, m, h, kern,
+    zh and the periodic extent."""
+    return (state.r, state.m, state.h, sim.kern, state.zeta * state.hfactor,
+            sim._periodic_extent())
+
+
+def compare_mfv_kernels(sim, state, repeats: int = 0):
+    """Run K10, K11, K12 and (with self-gravity) K7 in its MFV zeta mode
+    and their plain versions on the same inputs, from an MfvState on a
+    CUDA device; returns {kernel: report} as compare_kernels does, under
+    the names mfv_density, mfv_gradients, mfv_fluxes and tree_near_mfv.
+    K12 takes the plain K11's outputs.  Launch counts are restored
+    afterwards."""
+    saved = dict(_ext.LAUNCHES)
+    spec, kern = sim.gridspec, sim.kern
+    f64 = state.r.dtype == torch.float64
+    N = state.N
+    every = torch.ones((N,), dtype=torch.bool, device=state.r.device)
+    out = {}
+
+    # K10 on the plain binning's slot map; the finish is shared torch code
+    b = g27.bin_particles_plain(spec, state.r)
+    ids_d = ag.dense_ids(spec, b)
+    hmax = g27.hmax_of(spec, kern.kernrange)
+    dargs = (sim.h_fac, sim.h_converge, hmax, ids_d, state.r, state.m,
+             state.h)
+    s_k = _ext.mfv_density(spec, kern, *dargs)
+    s_p = mg.density_sums_plain(kern, spec, *dargs)
+    dens = {tag: mg.density_finish(sim.h_fac, hmax, state.m, *sums)
+            for tag, sums in (("kernel", s_k), ("plain", s_p))}
+    errs = {f: (_scaled if f == "zeta" else _rel)(
+        getattr(dens["kernel"], f), getattr(dens["plain"], f), every)
+        for f in ("h", "ndens", "rho", "invomega", "zeta")}
+    same_done = bool(torch.equal(s_k[3], s_p[3]))
+    rep = {"rel_err": errs, "same_converged": same_done,
+           "max_abs_err": float(torch.abs(dens["kernel"].h
+                                          - dens["plain"].h).max())}
+    if f64:
+        rep["ok"] = same_done and max(errs.values()) <= TOL_F64
+    else:
+        rel = torch.abs(dens["kernel"].h / dens["plain"].h - 1.0)
+        frac = float((rel > TOL_F32_DENSITY_TYPICAL).float().mean())
+        rep["fraction_beyond_typical"] = frac
+        rep["ok"] = (max(errs.values()) <= TOL_F32_DENSITY_MAX
+                     and frac <= TOL_F32_DENSITY_FRACTION)
+    out["mfv_density"] = rep
+
+    # K11 on the state's fields
+    gpk = torch.cat([state.h[:, None], state.ndens[:, None], state.Wprim,
+                     state.sound[:, None]], -1).contiguous()
+    g_k = mfv_ops.GradientResult(*_ext.mfv_gradients(spec, kern, ids_d,
+                                                     state.r, gpk))
+    g_p = mg.gradients_plain(kern, spec, ids_d, state.r, gpk)
+    # a flag within rounding of the guard may flip in float32: compare the
+    # other outputs where both took the same branch
+    same = g_k.bad == g_p.bad
+    rows3 = same[:, None, None]
+    errs = {"B": _scaled_all(g_k.B, g_p.B, rows3.expand_as(g_p.B)),
+            "grad": _scaled_all(g_k.grad, g_p.grad,
+                                rows3.expand_as(g_p.grad)),
+            "alpha_slope": float(torch.abs(g_k.alpha_slope
+                                           - g_p.alpha_slope)[same].max()),
+            "vsig_max": _scaled_all(g_k.vsig_max, g_p.vsig_max, every)}
+    n_bad_differ = int((~same).sum())
+    if f64:
+        ok = n_bad_differ == 0 and max(errs.values()) <= TOL_F64
+    else:
+        ok = (n_bad_differ <= TOL_F32_MFV_BAD_FRACTION * N
+              and max(errs.values()) <= TOL_F32_MFV_GRADIENTS)
+    out["mfv_gradients"] = {
+        "scaled_err": errs, "bad_flags_differ": n_bad_differ,
+        "bad": int(g_p.bad.sum()),
+        "max_abs_err": float(torch.abs(g_k.grad - g_p.grad).max()),
+        "ok": ok}
+
+    # K12 on the plain K11's outputs and the state's a0 and dt
+    fpk = mg.pack_flux_fields(state.h, state.ndens, state.Wprim,
+                              state.sound, state.a0, g_p.B, g_p.grad,
+                              g_p.alpha_slope, g_p.bad)
+    dt_t = state.dt
+    f_k = _ext.mfv_fluxes(spec, kern, sim.mfv_cfg, dt_t, ids_d, state.r,
+                          fpk)
+    f_p = mg.fluxes_plain(kern, sim.mfv_cfg, spec, dt_t, ids_d, state.r, fpk)
+    errs = {"dQdt": _scaled_all(f_k[0], f_p.dQdt, every[:, None]
+                                .expand_as(f_p.dQdt)),
+            "rdmdt_dot": _scaled_all(f_k[1], f_p.rdmdt_dot, every[:, None]
+                                     .expand_as(f_p.rdmdt_dot))}
+    out["mfv_fluxes"] = {
+        "scaled_err": errs,
+        "max_abs_err": float(torch.abs(f_k[0] - f_p.dQdt).max()),
+        "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_MFV_FLUXES)}
+
+    n_i, n_ij = _slot_support_counts(spec, kern, ids_d, state.r,
+                                     dens["plain"].h)
+    out["mfv_density"]["work"] = _work(
+        (ids_d, state.r, state.m, state.h), s_k,
+        FLOPS_PER["mfv_density"] * (n_i + N))
+    out["mfv_gradients"]["work"] = _work(
+        (ids_d, state.r, gpk), g_k, FLOPS_PER["mfv_gradients"] * n_i)
+    out["mfv_fluxes"]["work"] = _work(
+        (ids_d, state.r, fpk, dt_t), f_k, FLOPS_PER["mfv_fluxes"] * n_ij)
+    timed = {
+        "mfv_density": (lambda: _ext.mfv_density(spec, kern, *dargs),
+                        lambda: mg.density_sums_plain(kern, spec, *dargs)),
+        "mfv_gradients": (
+            lambda: _ext.mfv_gradients(spec, kern, ids_d, state.r, gpk),
+            lambda: mg.gradients_plain(kern, spec, ids_d, state.r, gpk)),
+        "mfv_fluxes": (
+            lambda: _ext.mfv_fluxes(spec, kern, sim.mfv_cfg, dt_t, ids_d,
+                                    state.r, fpk),
+            lambda: mg.fluxes_plain(kern, sim.mfv_cfg, spec, dt_t, ids_d,
+                                    state.r, fpk)),
+    }
+
+    if sim.self_gravity:
+        # K7 in its MFV zeta mode on the plain walk, in particle order
+        tspec, gmap = sim.treespec, state.bucket_map
+        r, m, h, _, zh, pext = mfv_gravity_inputs(sim, state)
+        pp, ap = tr.gather_to_buckets_plain(tspec, gmap, r, m, h, zh, pext)
+        cp = tr.build_tree_plain(tspec, pp, ap)
+        wp = tr.tree_walk_plain(tspec, cp, pp, ap)
+        nargs = (tspec, kern, cp, pp, ap, wp[2], wp[0], wp[1], gmap, N)
+        nk = _ext.tree_near(*nargs, zeta_scaling="mfv")
+        np_ = tr.tree_near_plain(*nargs, zeta_scaling="mfv")
+        errs = {"a": _scaled_all(nk[0], np_[0], every),
+                "gpot": _scaled_all(nk[1], np_[1], every)}
+        same_ovf = bool(nk[2]) == bool(np_[2])
+        out["tree_near_mfv"] = {
+            "scaled_err": errs, "same_overflow": same_ovf,
+            "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
+            "ok": same_ovf and not bool(np_[2]) and max(errs.values())
+            <= (TOL_F64 if f64 else TOL_F32_TREE_NEAR)}
+        out["tree_near_mfv"]["work"] = _work(
+            nargs[2:9], nk[:2],
+            FLOPS_PER["tree_near"] * _near_pairs(tspec, ap, wp[2]))
+        timed["tree_near_mfv"] = (
+            lambda: _ext.tree_near(*nargs, zeta_scaling="mfv"),
+            lambda: tr.tree_near_plain(*nargs, zeta_scaling="mfv"))
+
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def mfv_gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
+                         spec=None):
+    """The MFV tree's acceleration (K4-K7 with the MFV zeta term) at
+    `n_sample` particles (numpy generator `seed`) against
+    ops.mfv.mfv_smoothed_gravity in float64 over all particles at the
+    bucket-unwrapped positions in an open box: the sum the tree
+    approximates without an Ewald sum.  `spec` replaces the simulation's
+    TreeSpec.  Returns rms|da| / rms|a| and the walk's overflow."""
+    s = sim.state
+    r, m, h, kern, zh, pext = mfv_gravity_inputs(sim, s)
+    spec = spec or sim.treespec
+    gmap = s.bucket_map
+    a_tree, _, overflow = tr.tree_gravity_grouped(
+        spec, gmap, r, m, h, kern, zh, pext, zeta_scaling="mfv")
+    ptab, alive = tr.gather_to_buckets(spec, gmap, r, m, h, zh, pext)
+    r_unw = r.double().clone()
+    r_unw[gmap.reshape(-1).long()[alive]] = ptab[alive, :3].double()
+    idx = np.random.default_rng(seed).choice(
+        r.shape[0], size=min(n_sample, r.shape[0]), replace=False)
+    t = torch.as_tensor(np.sort(idx), device=r.device)
+    open_box = DomainBox(3, sim.box.boxmin, sim.box.boxmax, (OPEN,) * 3,
+                         (OPEN,) * 3)
+    # the oracle is O(N) per target: chunks of targets bound its memory
+    step = max(1, (1 << 23) // r.shape[0])
+    a_ref = torch.cat([mfv_ops.mfv_smoothed_gravity(
+        kern, open_box, r_unw, m.double(), h.double(), s.zeta.double(),
+        s.hfactor.double(), targets=t[c0:c0 + step])[0]
+        for c0 in range(0, t.numel(), step)])
+    da = a_tree[t].double() - a_ref
+    err = torch.sqrt(torch.sum(da * da) / torch.sum(a_ref * a_ref))
+    return {"n_sample": int(t.numel()), "rms_rel_err": float(err),
+            "overflow": bool(overflow)}

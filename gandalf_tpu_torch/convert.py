@@ -3,6 +3,7 @@
 ``state_from_numpy`` turns a dict of numpy arrays (the JAX ``SphState``'s
 fields, read out with ``np.asarray``) into the port's ``SphState`` on a
 given device and float dtype; ``state_to_numpy`` goes back.
+``mfv_state_from_jax`` does the same for a JAX ``MfvState``.
 ``grid_spec_from_jax`` and ``tree_spec_from_jax`` copy a frozen JAX
 ``Grid27Spec`` or ``TreeSpec`` field for field; ``schedule_from_jax``
 copies a JAX ``BlockSchedule`` and ``schedule_to_jax`` gives a port
@@ -22,7 +23,7 @@ import torch
 from .integrate.block import BlockSchedule
 from .ops.sph_grid27 import Grid27Spec
 from .ops.tree import TreeSpec
-from .state import SphState
+from .state import MfvState, SphState
 
 _OPTIONAL = ("bucket_map", "walk_mp", "walk_near", "walk_plan_r",
              "walk_anchors", "walk_margin")
@@ -58,6 +59,32 @@ def state_to_numpy(state: SphState) -> Dict[str, np.ndarray]:
         if x is not None:
             out[f.name] = x.detach().cpu().numpy()
     return out
+
+
+def mfv_state_from_jax(state, device="cpu",
+                       dtype=torch.float64) -> MfvState:
+    """The port's MfvState from a JAX MfvState (read through its
+    attributes): floating fields take `dtype`, integer and bool fields
+    keep their kind, ``bad_grad`` becomes a 0/1 float; the block-timestep
+    fields are dropped."""
+    kw = {}
+    for f in dataclasses.fields(MfvState):
+        x = getattr(state, f.name, None)
+        if x is None or f.name in _MFV_BLOCK:
+            kw[f.name] = None
+            continue
+        x = np.array(x)
+        if x.dtype.kind == "f" or f.name == "bad_grad":
+            kw[f.name] = torch.tensor(x.astype(np.float64), dtype=dtype,
+                                      device=device)
+        else:
+            kw[f.name] = torch.tensor(x, device=device)
+    kw["nstep"] = kw["nstep"].to(torch.int64)
+    return MfvState(**kw)
+
+
+_MFV_BLOCK = ("dQ", "rdmdt", "dQdt", "rdmdt0", "level", "levelneib",
+              "nlast", "tlast")
 
 
 def grid_spec_from_jax(spec) -> Grid27Spec:

@@ -3,8 +3,9 @@
 // total acceleration and potential to particle order.
 //
 // Replaces gandalf_tpu/ops/tree.py:_near_field (:635-855, non-Ewald
-// parts :663-686 and :708-795) and the scatter of tree_gravity_grouped
-// (:1389-1392).  There the whole (L, Wn*L) block gets the Newtonian sum,
+// parts :663-686 and :708-795, both zeta scalings :770-780) and the
+// scatter of tree_gravity_grouped (:1389-1392).  There the whole
+// (L, Wn*L) block gets the Newtonian sum,
 // and the leaves within kernel support get a second pass that subtracts
 // m/d^3 again and adds the softened term; both from a dot-product
 // expansion, with a cancellation floor for the self pair.
@@ -20,18 +21,21 @@
 // a time, and every lane reads each partner as a broadcast.  Each pair
 // is evaluated once (ROADMAP fault F6): where d < kernrange *
 // max(h_i, h_j) the symmetric softened force and potential with the
-// zeta*hfactor terms (zeta_scaling "sph"), elsewhere m/d^3 and m/d,
-// which is what the softened formula equals there.  So no two terms of
-// size 1/d^3 cancel, and close pairs keep their digits in float32.  The
-// self pair is excluded by identity (same leaf, same slot) and coincident
-// pairs by d^2 = 0 (F2), with no cancellation floor.  The support
-// selection of gandalf_tpu (leaf-box gap against kernrange * max(h over
-// live slots)) is kept only to raise the same overflow when more than
+// zeta*hfactor terms, elsewhere m/d^3 and m/d, which is what the
+// softened formula equals there.  So no two terms of size 1/d^3 cancel,
+// and close pairs keep their digits in float32.  The self pair is
+// excluded by identity (same leaf, same slot) and coincident pairs by
+// d^2 = 0 (F2), with no cancellation floor.  The support selection of
+// gandalf_tpu (leaf-box gap against kernrange * max(h over live slots))
+// is kept only to raise the same overflow when more than
 // min(support_cap, near_cap) leaves are in support.  The epilogue adds
 // K6's far field and writes a and gpot to row out_index[slot]; the map
-// is injective, so no atomics are needed.  With a group list (K6's), warp
-// k takes group group_ids[k], and only the listed groups' rows are
-// written (the wrapper zeroes the outputs).
+// is injective, so no atomics are needed.  The zeta term takes the
+// grad-h SPH scaling m_j (zh_i w1_i + zh_j w1_j) / 2, or with `mfv` the
+// meshless finite-volume one, (1/m_i) (zh_i w1_i + zh_j w1_j) / 2, not
+// scaled by m_j and zero for a massless partner (MfvCommon.cpp:413-416).
+// With a group list (K6's), warp k takes group group_ids[k], and only
+// the listed groups' rows are written (the wrapper zeroes the outputs).
 #include <cuda_runtime.h>
 
 #include "m4.cuh"
@@ -50,7 +54,7 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
     const T* __restrict__ a_far, const T* __restrict__ pot_far,
     const int* __restrict__ out_index, const int* __restrict__ group_ids,
     int n_groups, int depth, int near_cap,
-    int support_cap, int smoothed, T kernrange, T norm,
+    int support_cap, int smoothed, int mfv, T kernrange, T norm,
     T* __restrict__ a_out, T* __restrict__ gpot_out,
     unsigned char* __restrict__ overflow) {
   __shared__ T part[kWarps][kLeaf][kPCols];
@@ -67,6 +71,7 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
   const T xi = p[0], yi = p[1], zi = p[2];
   const T h_i = p[kPH], zh_i = p[kPZH];
   const T invh_i = T(1) / h_i;
+  const T invm_i = T(1) / max(p[kPM], T(1e-30));
   const T* leaves = ctab + kCCols * ((1LL << depth) - 1);
   const T* gcell = leaves + kCCols * static_cast<long long>(g);
   const T hg = warp_max(live ? h_i : T(0));
@@ -115,12 +120,17 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
           const T invh_j = T(1) / pj[kPH];
           const T s_i = d * invh_i, s_j = d * invh_j;
           const T paux = T(0.5) * (invh_i * invh_i * m4_wgrav(s_i)
-                                   + invh_j * invh_j * m4_wgrav(s_j))
-                         + T(0.5) * (zh_i * m4_w1(s_i, norm)
-                                     + pj[kPZH] * m4_w1(s_j, norm));
+                                   + invh_j * invh_j * m4_wgrav(s_j));
+          const T zterm = T(0.5) * (zh_i * m4_w1(s_i, norm)
+                                    + pj[kPZH] * m4_w1(s_j, norm));
           const T gaux = T(0.5) * (invh_i * m4_wpot(s_i)
                                    + invh_j * m4_wpot(s_j));
-          coef = m_j * paux / d;
+          if (!mfv) {
+            coef = m_j * (paux + zterm) / d;
+          } else {
+            // (1/m_i) zterm, not scaled by m_j, none from a massless j
+            coef = m_j * paux / d + (m_j > T(0) ? invm_i * zterm : T(0)) / d;
+          }
           pot += m_j * gaux;
         } else {
           const T inv_d = T(1) / d;
@@ -150,7 +160,7 @@ int run_near(const T* ctab, const T* ptab, const unsigned char* alive,
              const int* near, const T* a_far, const T* pot_far,
              const int* out_index, const int* group_ids, int n_groups,
              int depth, int near_cap, int support_cap, int smoothed,
-             double kernrange, double norm, T* a_out, T* gpot_out,
+             int mfv, double kernrange, double norm, T* a_out, T* gpot_out,
              unsigned char* overflow, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -160,7 +170,7 @@ int run_near(const T* ctab, const T* ptab, const unsigned char* alive,
     tree_near_kernel<T><<<(groups + kWarps - 1) / kWarps, kWarps * kLeaf, 0,
                           stream>>>(ctab, ptab, alive, near, a_far, pot_far,
                                     out_index, group_ids, groups, depth,
-                                    near_cap, support_cap, smoothed,
+                                    near_cap, support_cap, smoothed, mfv,
                                     T(kernrange), T(norm), a_out, gpot_out,
                                     overflow);
   return static_cast<int>(cudaGetLastError());
@@ -175,11 +185,11 @@ extern "C" {
            const int* near, const T* a_far, const T* pot_far,               \
            const int* out_index, const int* group_ids, int n_groups,        \
            int depth, int near_cap, int support_cap, int smoothed,          \
-           double kernrange, double norm, T* a_out, T* gpot_out,            \
+           int mfv, double kernrange, double norm, T* a_out, T* gpot_out,   \
            unsigned char* overflow, int device, void* stream) {             \
     return run_near<T>(ctab, ptab, alive, near, a_far, pot_far, out_index,  \
                        group_ids, n_groups, depth, near_cap, support_cap,   \
-                       smoothed, kernrange, norm, a_out, gpot_out,          \
+                       smoothed, mfv, kernrange, norm, a_out, gpot_out,     \
                        overflow, device, stream);                           \
   }
 

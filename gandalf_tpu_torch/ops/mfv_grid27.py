@@ -1,0 +1,294 @@
+"""Meshless finite-volume passes over the structured 27-cell grid: the
+number-density h iteration (K10), the least-squares gradients with the
+cell limiter (K11) and the MUSCL face fluxes (K12).
+
+Counterpart of ``gandalf_tpu/ops/mfv_grid27.py``'s
+``density_mfv_grid27``, ``gradients_mfv_grid27`` (the cell-limiter
+branch) and ``fluxes_mfv_grid27`` (global timestep).  The JAX package
+scatters every field into dense (*ncells, K) cell tensors and slices a
+ghosted copy over 27 shifts; here particles stay in particle order and
+every pass reads K1's slot map ``ids_d`` (*ncells, K) int32 (particle id
+per slot, -1 empty, ``ops.active_grid.dense_ids``).  Each target visits
+the 27 cells around its own with wrapped indices, and a neighbour's
+position is shifted by the box length where the index wrapped, the
+images the ghost layers hold; no copies are made.  Outputs are in
+particle order.
+
+Each kernel has a plain PyTorch version here, built on the functions of
+``ops/mfv.py`` over a list of the pairs within kernel support, and a CUDA
+C++ kernel in ``csrc/`` launched through ``_ext``.  A CPU tensor takes the
+plain version; a CUDA tensor takes the kernel, or the wrapper raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import _ext
+from ..kernels.smoothing import SmoothingKernel
+from . import mfv as mfv_ops
+from . import sph_grid27 as g27
+
+Tensor = torch.Tensor
+
+ITER_FP = 30
+ITER_MAX = 150
+
+# per-particle columns read by K11 and K12 (besides r)
+GRAD_COLS = ("h", "ndens", "W0", "W1", "W2", "W3", "W4", "sound")
+FLUX_COLS = (("h", 1), ("ndens", 1), ("W", 5), ("sound", 1), ("a0", 3),
+             ("B", 9), ("grad", 15), ("alpha", 5), ("bad", 1))
+
+
+def _offsets():
+    out, o = {}, 0
+    for name, w in FLUX_COLS:
+        out[name] = slice(o, o + w)
+        o += w
+    return out
+
+
+FLUX_SLICES = _offsets()
+
+
+def _pair_chunk(device) -> int:
+    """Pairs per chunk of the plain K11 and K12: their per-pair
+    temporaries hold some 150 values each."""
+    return 1 << 21 if device.type == "cuda" else 1 << 16
+
+
+def slot_pairs(spec: g27.Grid27Spec, ids_d: Tensor, r: Tensor, cut2: float,
+               exclude_self: bool):
+    """Pairs (i, j) over the 27-cell stencil of the slot map with
+    |r_j + shift - r_i|^2 <= cut2, as particle ids i, j (int64), the
+    separation r_j + shift - r_i (P, 3) and d^2 (P,).  `exclude_self`
+    drops a particle's pair with itself and coincident pairs (d^2 = 0).
+    The order is that of ops.sph_grid27._pair_list."""
+    ids = ids_d.reshape(-1).long()
+    fill = ids >= 0
+    r_d = torch.where(fill[:, None], r[torch.clamp_min(ids, 0)], 0.0)
+    shape = tuple(spec.ncells) + (spec.k_cell,)
+    row, col, dx, d2 = g27._pair_list(spec, r_d.reshape(shape + (3,)),
+                                      fill.reshape(shape), cut2,
+                                      exclude_self)
+    return ids[row], ids[col], dx, d2
+
+
+# ---------------------------------------------------------------------------
+# K10: number-density h iteration
+# ---------------------------------------------------------------------------
+
+class MfvDensity(NamedTuple):
+    h: Tensor
+    ndens: Tensor
+    rho: Tensor
+    invomega: Tensor
+    zeta: Tensor
+    hfactor: Tensor
+    overflow: Tensor
+
+
+def density_sums(kern: SmoothingKernel, spec: g27.Grid27Spec, h_fac: float,
+                 h_converge: float, hmax: float, ids_d: Tensor, r: Tensor,
+                 m: Tensor, h: Tensor):
+    """The number-density iteration of every particle: (ndens, invom,
+    zeta) sums at its final h and its converged flag, each (N,).  K10 on
+    CUDA tensors."""
+    if r.is_cuda:
+        return _ext.mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d,
+                                r, m, h)
+    return density_sums_plain(kern, spec, h_fac, h_converge, hmax, ids_d,
+                              r, m, h)
+
+
+def density_sums_plain(kern: SmoothingKernel, spec: g27.Grid27Spec,
+                       h_fac: float, h_converge: float, hmax: float,
+                       ids_d: Tensor, r: Tensor, m: Tensor, h: Tensor):
+    """Plain version of K10: the lockstep iteration of gandalf_tpu's
+    density_mfv_grid27 (h clamped to [1e-6 hmax, hmax]; 30 fixed-point
+    steps h = h_fac ndens^(-1/3), then bisection up to step 150; a
+    converged particle, |h - h(ndens)| < h_converge, keeps its h) over a
+    list of the pairs within kernrange*hmax, the farthest any h <= hmax
+    reaches.  The particle itself is among its pairs."""
+    nd = spec.ndim
+    N = r.shape[0]
+    cut2 = (kern.kernrange * hmax) ** 2 * (1.0 + 1e-6)
+    row, col, _, d2 = slot_pairs(spec, ids_d, r, cut2, False)
+    m_j = m[col]
+
+    def pair_sum(x):
+        return torch.zeros((N,), dtype=x.dtype,
+                           device=x.device).index_add_(0, row, x)
+
+    def sums_at(hh):
+        invh = 1.0 / hh
+        invhsqd = invh * invh
+        ssqd = d2 * invhsqd[row]
+        ndens = pair_sum(kern.w0_s2(ssqd))
+        invom = pair_sum(kern.womega_s2(ssqd))
+        zeta = pair_sum(m_j * kern.wzeta_s2(ssqd))
+        hfac = invh ** nd
+        return ndens * hfac, invom * hfac * invh, zeta * invhsqd
+
+    hh = torch.clamp(h, 1e-6 * hmax, hmax)
+    lo = torch.zeros_like(hh)
+    hi = torch.full_like(hh, hmax)
+    done = torch.zeros((N,), dtype=torch.bool, device=r.device)
+    ndens = invom = zeta = torch.zeros_like(hh)
+    it = 0
+    while it < ITER_MAX and not bool(done.all()):
+        ndens, invom, zeta = sums_at(hh)
+        tgt = h_fac * (1.0 / torch.clamp_min(ndens, 1e-300)) ** (1.0 / nd)
+        conv = (ndens > 0.0) & (torch.abs(hh - tgt) < h_converge)
+        too_big = (ndens < 1e-30) | (ndens * hh ** nd > h_fac ** nd)
+        if it >= ITER_FP:
+            hi = torch.where(too_big & ~conv, hh, hi)
+            lo = torch.where(~too_big & ~conv, hh, lo)
+        h_new = tgt if it < ITER_FP else 0.5 * (lo + hi)
+        hh = torch.where(conv | done, hh,
+                         torch.clamp(h_new, 1e-6 * hmax, hmax))
+        done = done | conv
+        it += 1
+    return ndens, invom, zeta, done
+
+
+def density_finish(h_fac: float, hmax: float, m: Tensor, ndens: Tensor,
+                   invom: Tensor, zeta: Tensor, done: Tensor,
+                   ndim: int = 3) -> MfvDensity:
+    """Per-particle finish of the iteration's sums: h from the last
+    number density, rho = m ndens, the Omega and zeta corrections on the
+    number density, hfactor, and the overflow flag (a particle did not
+    converge or its h passed 0.99 hmax)."""
+    invndim = 1.0 / ndim
+    ndens_safe = torch.clamp_min(ndens, 1e-300)
+    h_final = h_fac * (1.0 / ndens_safe) ** invndim
+    invh = 1.0 / h_final
+    hfactor = invh ** (ndim + 1)
+    rho = m * ndens
+    invomega = 1.0 / (1.0 + invndim * h_final * invom / ndens_safe)
+    zeta_final = -invndim * m * h_final * zeta * invomega / ndens_safe
+    overflow = torch.any(~done) | torch.any(h_final > 0.99 * hmax)
+    return MfvDensity(h=h_final, ndens=ndens, rho=rho, invomega=invomega,
+                      zeta=zeta_final, hfactor=hfactor, overflow=overflow)
+
+
+# ---------------------------------------------------------------------------
+# K11: least-squares gradients and the cell limiter
+# ---------------------------------------------------------------------------
+
+def gradients(kern: SmoothingKernel, spec: g27.Grid27Spec, ids_d: Tensor,
+              r: Tensor, packed: Tensor) -> mfv_ops.GradientResult:
+    """B (N, 3, 3), grad (N, 5, 3), alpha_slope (N, 5), vsig_max (N,) and
+    bad (N,) bool of every particle.  `packed` (N, 8) holds GRAD_COLS.
+    K11 on CUDA tensors."""
+    if r.is_cuda:
+        return mfv_ops.GradientResult(*_ext.mfv_gradients(spec, kern, ids_d,
+                                                          r, packed))
+    return gradients_plain(kern, spec, ids_d, r, packed)
+
+
+def gradients_plain(kern: SmoothingKernel, spec: g27.Grid27Spec,
+                    ids_d: Tensor, r: Tensor,
+                    packed: Tensor) -> mfv_ops.GradientResult:
+    """Plain version of K11: ops.mfv's gradient terms over a list of the
+    pairs within kernrange * max(h) (every term beyond is zero), reduced
+    per target (sums, and maxima and minima for the kernel-range
+    statistics), then gradient_finalize."""
+    nd = spec.ndim
+    N, dt, dev = r.shape[0], r.dtype, r.device
+    h = torch.clamp_min(packed[:, 0], 1e-30)
+    ndens, W, sound = packed[:, 1], packed[:, 2:7], packed[:, 7]
+    cut2 = (kern.kernrange * float(h.max())) ** 2 * (1.0 + 1e-6)
+    row, col, dx, _ = slot_pairs(spec, ids_d, r, cut2, True)
+    acc = mfv_ops.gradient_init(N, nd, dt, dev)
+    E, gt, gs = acc.E.clone(), acc.grad_tmp.clone(), acc.grad_sph.clone()
+    vs, wmax, wmin, drm = (acc.vsig_max.clone(), acc.Wmax.clone(),
+                           acc.Wmin.clone(), acc.drmax_sqd.clone())
+    step = _pair_chunk(dev)
+    for c0 in range(0, row.numel(), step):
+        i, j = row[c0:c0 + step], col[c0:c0 + step]
+        t = mfv_ops.gradient_terms(
+            kern, nd, h[i], ndens[i], W[i], sound[i],
+            dx[c0:c0 + step][:, None, :], W[j][:, None, :],
+            sound[j][:, None], W[j][:, None, :nd], None)
+        E.index_add_(0, i, t.E[:, 0])
+        gt.index_add_(0, i, t.grad_tmp[:, 0])
+        gs.index_add_(0, i, t.grad_sph[:, 0])
+        vs.scatter_reduce_(0, i, t.vsig_max[:, 0], "amax")
+        i5 = i[:, None].expand(-1, nd + 2)
+        wmax.scatter_reduce_(0, i5, t.Wmax[:, 0], "amax")
+        wmin.scatter_reduce_(0, i5, t.Wmin[:, 0], "amin")
+        drm.scatter_reduce_(0, i, t.drmax_sqd[:, 0], "amax")
+    acc = mfv_ops.GradAccum(E=E, grad_tmp=gt, grad_sph=gs, vsig_max=vs,
+                            Wmax=wmax, Wmin=wmin, drmax_sqd=drm)
+    return mfv_ops.gradient_finalize(nd, acc, h, W, sound)
+
+
+# ---------------------------------------------------------------------------
+# K12: MUSCL face fluxes
+# ---------------------------------------------------------------------------
+
+def pack_flux_fields(h, ndens, W, sound, a0, B, grad, alpha, bad) -> Tensor:
+    """The (N, 41) table K12 reads, columns FLUX_COLS."""
+    N = h.shape[0]
+    return torch.cat([h[:, None], ndens[:, None], W, sound[:, None], a0,
+                      B.reshape(N, 9), grad.reshape(N, 15), alpha,
+                      bad.to(h.dtype)[:, None]], -1).contiguous()
+
+
+def fluxes(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
+           spec: g27.Grid27Spec, dt: Tensor, ids_d: Tensor, r: Tensor,
+           packed: Tensor) -> mfv_ops.FluxResult:
+    """dQdt (N, 5) and rdmdt_dot (N, 3) of every particle from the face
+    fluxes with all its neighbours, the MUSCL half-step prediction over
+    `dt` (0-d tensor, read on the device).  `packed` (N, 41)
+    from pack_flux_fields.  K12 on CUDA tensors."""
+    mfv_ops.check_config(cfg)
+    if r.is_cuda:
+        return mfv_ops.FluxResult(*_ext.mfv_fluxes(spec, kern, cfg, dt,
+                                                   ids_d, r, packed))
+    return fluxes_plain(kern, cfg, spec, dt, ids_d, r, packed)
+
+
+def fluxes_plain(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
+                 spec: g27.Grid27Spec, dt: Tensor, ids_d: Tensor, r: Tensor,
+                 packed: Tensor) -> mfv_ops.FluxResult:
+    """Plain version of K12: ops.mfv.compute_godunov_fluxes over a list
+    of the pairs within kernrange * max(h) (beyond both supports the face
+    area is 0 and the pair adds nothing), one pair per row, summed per
+    target."""
+    nd = spec.ndim
+    N, dev = r.shape[0], r.device
+    sl = FLUX_SLICES
+
+    def col(x, name):
+        return x[..., sl[name]]
+
+    h = col(packed, "h")[:, 0]
+    cut2 = (kern.kernrange * float(h.max())) ** 2 * (1.0 + 1e-6)
+    row, cl, dx, _ = slot_pairs(spec, ids_d, r, cut2, True)
+    dQdt = torch.zeros((N, nd + 2), dtype=r.dtype, device=dev)
+    rdmdt = torch.zeros((N, nd), dtype=r.dtype, device=dev)
+    step = _pair_chunk(dev)
+    for c0 in range(0, row.numel(), step):
+        i, j = row[c0:c0 + step], cl[c0:c0 + step]
+        pi, pj = packed[i], packed[j][:, None, :]
+        nb = {"h": col(pj, "h")[..., 0], "ndens": col(pj, "ndens")[..., 0],
+              "Wprim": col(pj, "W"), "sound": col(pj, "sound")[..., 0],
+              "a0": col(pj, "a0"),
+              "B": col(pj, "B").reshape(-1, 1, nd, nd),
+              "grad": col(pj, "grad").reshape(-1, 1, nd + 2, nd),
+              "alpha_slope": col(pj, "alpha"),
+              "bad": col(pj, "bad")[..., 0] > 0.5}
+        res = mfv_ops.compute_godunov_fluxes(
+            kern, cfg, nd, dt, torch.clamp_min(col(pi, "h")[:, 0], 1e-30),
+            col(pi, "ndens")[:, 0], col(pi, "W"), col(pi, "sound")[:, 0],
+            col(pi, "a0"), col(pi, "B").reshape(-1, nd, nd),
+            col(pi, "grad").reshape(-1, nd + 2, nd), col(pi, "alpha"),
+            col(pi, "bad")[:, 0] > 0.5, dx[c0:c0 + step][:, None, :], nb,
+            None)
+        dQdt.index_add_(0, i, res.dQdt)
+        rdmdt.index_add_(0, i, res.rdmdt_dot)
+    return mfv_ops.FluxResult(dQdt=dQdt, rdmdt_dot=rdmdt)

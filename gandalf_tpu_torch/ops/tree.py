@@ -5,8 +5,8 @@ tree moments (K5), frontier walk with far field (K6) and near field
 Counterpart of ``gandalf_tpu/ops/tree.py`` for the frontier walk with
 the geometric MAC, monopole or quadrupole moments and no Ewald sum.  The
 host part (``TreeSpec``, the cap laws and the planners) is numpy; the
-planners call the C++ library of ``gandalf_tpu/native`` through its
-ctypes signatures and raise when it cannot be built, since the numpy
+planners call the port's copy of the C++ library (``native``) through
+its ctypes signatures and raise when it cannot be built, since the numpy
 KD planner and the worst-case cap law are not ported.
 
 The device part works on two tables:
@@ -40,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import _ext
+from .. import _ext, native
 
 Tensor = torch.Tensor
 
@@ -153,17 +153,9 @@ def plan_tree_for_buckets(gmap: np.ndarray, theta_sqd: float = 0.1,
 
 
 def native_planner():
-    """The C++ planner library; raises when it cannot be built."""
-    from gandalf_tpu.native import load
-
-    lib = load()
-    if lib is None:
-        raise RuntimeError(
-            "the C++ tree planner is unavailable: g++ could not build "
-            "gandalf_tpu/native/kdplan.cpp (or GANDALF_NO_NATIVE=1 is "
-            "set).  The port has no numpy fallback (ROADMAP queue 1, "
-            "item 8)")
-    return lib
+    """The C++ planner library (``native``); raises when g++ cannot
+    build it."""
+    return native.load()
 
 
 def plan_buckets_kd(r: np.ndarray, leaf_size: int) -> np.ndarray:
@@ -390,10 +382,13 @@ def _groups_of(spec: TreeSpec, group_ids: Optional[Tensor], device):
 
 
 def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
-                    alive: Tensor, group_ids: Optional[Tensor] = None):
+                    alive: Tensor, group_ids: Optional[Tensor] = None,
+                    stats: Optional[dict] = None):
     """Plain version of K6: gandalf_tpu's walk_group over chunks of the
     walked groups, with the far field evaluated at dr = com - r
-    directly."""
+    directly.  A `stats` dict receives the walk's work: "mac_tests"
+    (live cells tested) and "far_terms" (accepted cell times live slot
+    of its group)."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
     Wn, th2 = spec.near_cap, spec.theta_sqd
@@ -435,6 +430,12 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
             live = valid & (m_c > 0.0)
             accept = live & (dsqd * th2 > rmax_sqd)
             open_ = live & ~accept
+            if stats is not None:
+                n_live = alive.reshape(G, L)[gsel].sum(1)
+                stats["mac_tests"] = stats.get("mac_tests", 0) \
+                    + int(live.sum())
+                stats["far_terms"] = stats.get("far_terms", 0) \
+                    + int((accept.sum(1) * n_live).sum())
             # far field of the accepted cells at every slot of their group
             b, w = accept.nonzero(as_tuple=True)
             if b.numel():
@@ -487,28 +488,37 @@ def _quad_terms(q6: Tensor, dr: Tensor):
 def tree_near(spec: TreeSpec, kern, ctab: Tensor, ptab: Tensor,
               alive: Tensor, near: Tensor, a_far: Tensor, pot_far: Tensor,
               out_index: Tensor, n_out: int,
-              group_ids: Optional[Tensor] = None):
+              group_ids: Optional[Tensor] = None, zeta_scaling: str = "sph"):
     """Near-field pair sums over each group's near leaves, plus the far
     field, written to row out_index[slot] of (n_out, 3) and (n_out,)
     outputs for every live slot; overflow () when some group's
     kernel-support leaves exceed min(support_cap, near_cap).  `kern`
     None evaluates Newtonian pairs only.  With `group_ids` only the
-    listed groups' slots are written (zero elsewhere).  K7 on CUDA
-    tensors."""
+    listed groups' slots are written (zero elsewhere).  `zeta_scaling`
+    "sph" adds the grad-h zeta term to the softened force as m_j *
+    (zh_i w1_i + zh_j w1_j) / 2, "mfv" as (1/m_i) (zh_i w1_i + zh_j
+    w1_j) / 2, not scaled by m_j and zero where m_j <= 0
+    (MfvCommon.cpp:413-416).  K7 on CUDA tensors."""
+    if zeta_scaling not in ("sph", "mfv"):
+        raise ValueError(f"zeta_scaling must be 'sph' or 'mfv', not "
+                         f"{zeta_scaling!r}")
     if ptab.is_cuda:
         return _ext.tree_near(spec, kern, ctab, ptab, alive, near, a_far,
-                              pot_far, out_index, n_out, group_ids)
+                              pot_far, out_index, n_out, group_ids,
+                              zeta_scaling)
     return tree_near_plain(spec, kern, ctab, ptab, alive, near, a_far,
-                           pot_far, out_index, n_out, group_ids)
+                           pot_far, out_index, n_out, group_ids,
+                           zeta_scaling)
 
 
 def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
-                    pot_far, out_index, n_out, group_ids=None):
+                    pot_far, out_index, n_out, group_ids=None,
+                    zeta_scaling="sph"):
     """Plain version of K7 over chunks of the walked groups: each pair of
     a group's live slot i and a live partner j in its near leaves (not i
-    itself, d > 0) adds the symmetric softened force and potential
-    (zeta_scaling 'sph') where d < kernrange * max(h_i, h_j), and m/d^3,
-    m/d beyond."""
+    itself, d > 0) adds the symmetric softened force and potential, with
+    the zeta term of `zeta_scaling`, where d < kernrange * max(h_i,
+    h_j), and m/d^3, m/d beyond."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
     Wn = near.shape[1]
@@ -554,12 +564,18 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
             b, i, p, d = b[soft_d], i[soft_d], p[soft_d], d[soft_d]
             invh_i, invh_j = 1.0 / own[b, i, P_H], 1.0 / part[b, p, P_H]
             s_i, s_j = d * invh_i, d * invh_j
-            paux = (0.5 * (invh_i * invh_i * kern.wgrav(s_i)
-                           + invh_j * invh_j * kern.wgrav(s_j))
-                    + 0.5 * (own[b, i, P_ZH] * kern.w1(s_i)
-                             + part[b, p, P_ZH] * kern.w1(s_j)))
+            paux = 0.5 * (invh_i * invh_i * kern.wgrav(s_i)
+                          + invh_j * invh_j * kern.wgrav(s_j))
+            zterm = 0.5 * (own[b, i, P_ZH] * kern.w1(s_i)
+                           + part[b, p, P_ZH] * kern.w1(s_j))
             gaux = 0.5 * (invh_i * kern.wpot(s_i) + invh_j * kern.wpot(s_j))
-            coef[b, i, p] = m_j[b, i, p] * paux / d
+            mj = m_j[b, i, p]
+            if zeta_scaling == "sph":
+                coef[b, i, p] = mj * (paux + zterm) / d
+            else:
+                invm_i = 1.0 / torch.clamp_min(own[b, i, P_M], 1e-30)
+                coef[b, i, p] = (mj * paux / d + torch.where(
+                    mj > 0.0, invm_i * zterm, 0.0) / d)
             pot[b, i, p] = m_j[b, i, p] * gaux
             # the support selection of gandalf_tpu, kept for its overflow
             hg = torch.where(al, own[..., P_H], 0.0).amax(1)
@@ -610,18 +626,20 @@ def tree_gravity(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor,
 
 def tree_gravity_grouped(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
                          h: Optional[Tensor] = None, kern=None,
-                         zh: Optional[Tensor] = None, periodic_extent=None):
+                         zh: Optional[Tensor] = None, periodic_extent=None,
+                         zeta_scaling: str = "sph"):
     """Gravity with host-planned buckets: gather and unwrap (K4), build
-    (K5), walk (K6), near field and scatter (K7).  Returns (a, gpot,
-    overflow) in particle order.  Without `h` (or `kern`) the pairs are
-    Newtonian."""
+    (K5), walk (K6), near field and scatter (K7, with the zeta term of
+    `zeta_scaling`).  Returns (a, gpot, overflow) in particle order.
+    Without `h` (or `kern`) the pairs are Newtonian."""
     ptab, alive = gather_to_buckets(spec, gmap, r, m, h, zh,
                                     periodic_extent)
     ctab = build_tree(spec, ptab, alive)
     a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive)
     a, gpot, ovf_near = tree_near(
         spec, kern if h is not None else None, ctab, ptab, alive, near,
-        a_far, pot_far, gmap.reshape(-1), r.shape[0])
+        a_far, pot_far, gmap.reshape(-1), r.shape[0],
+        zeta_scaling=zeta_scaling)
     return a, gpot, ovf_walk | ovf_near
 
 

@@ -3,38 +3,38 @@ steps of a slice on one GPU.
 
     python -m gandalf_tpu_torch.profile_step [--self-gravity {0,1}]
     python -m gandalf_tpu_torch.profile_step --block
+    python -m gandalf_tpu_torch.profile_step --mfv [--self-gravity {0,1}]
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
 warm-up steps, then profiles one burst of 8 steps (main_loop_steps)
 that holds no tree rebuild.  With --block: the block slice
 (cold_sphere_block) at about 262,144 particles in float32, 4 warm-up
-ticks, then a window of 8 ticks without a tree rebuild.  Prints one
-JSON line: the window's host time, the device time summed over kernels
-and copies, the device's idle share of the window, the device time of
-each of K1-K9 and of the torch glue between them, and the device time
-per kernel name (largest first); with --block also the active rows per
-tick.  Refuses to run without CUDA.
+ticks, then a window of 8 ticks without a tree rebuild.  With --mfv:
+the meshless finite-volume box (check.mfv_params, self-gravitating by
+default) at 64^3 in float32, as the SPH box.  Prints one JSON line: the
+window's host time, the device time summed over kernels and copies, the
+device's idle share of the window, the device time of each of K1-K12
+and of the torch glue between them, and the device time per kernel name
+(largest first); with --block also the active rows per tick.  Refuses
+to run without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 import time
 
-os.environ.pop("GANDALF_PRECISION", None)
-
-import torch  # noqa: E402
+import torch
 
 N_SIDE = 64
 STEPS = 8
 BLOCK_N = 262144
 BLOCK_WARM = 4
-# device kernel names of K1-K9 (csrc/); every other device event is glue
+# device kernel names of K1-K12 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -46,6 +46,9 @@ FAMILIES = {
     "K7 tree_near": ("tree_near_kernel",),
     "K8 active_density": ("active_density_kernel",),
     "K9 active_forces": ("active_forces_kernel",),
+    "K10 mfv_density": ("mfv_density_kernel",),
+    "K11 mfv_gradients": ("mfv_gradients_kernel",),
+    "K12 mfv_fluxes": ("mfv_fluxes_kernel",),
 }
 
 
@@ -69,15 +72,23 @@ def main(argv=None) -> int:
     ap.add_argument("--self-gravity", type=int, default=1, choices=(0, 1))
     ap.add_argument("--block", action="store_true",
                     help="the block-timestep slice (cold_sphere_block)")
+    ap.add_argument("--mfv", action="store_true",
+                    help="the meshless finite-volume box (mfv_box)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .check import jittered_box_ic, slice_params, sphere_block_params
-    from .sim.simulation import GradhSphSimulation
+    from .check import (jittered_box_ic, mfv_params, slice_params,
+                        sphere_block_params)
+    from .sim.simulation import GradhSphSimulation, SimulationBase
 
-    if args.block:
+    if args.mfv:
+        params = mfv_params(N_SIDE, self_gravity=args.self_gravity)
+        sim = SimulationBase.factory(params, "cuda", torch.float32)
+        sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
+        warm = 2
+    elif args.block:
         sim = GradhSphSimulation(sphere_block_params(BLOCK_N),
                                  device="cuda", dtype=torch.float32)
         sim.SetupSimulation()
@@ -123,6 +134,7 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip()
     print(json.dumps({
         "card": card, "N": sim.state.N, "block": args.block,
+        "mfv": args.mfv,
         "self_gravity": int(sim.self_gravity),
         "steps": done, "tree_plans_in_window": sim._n_tree_plans - plans0,
         "active_rows_per_tick": rows,

@@ -1,14 +1,23 @@
-"""Grad-h SPH simulation controller.
+"""Simulation controllers: the shared host side, and the grad-h SPH
+controller.
 
-Counterpart of ``gandalf_tpu/sim/simulation.py:GradhSphSimulation`` for
-one configuration: grad-h SPH with the M4 kernel, the adiabatic EOS,
-mon97 viscosity (or none) and optional conductivity, the structured
-27-shift grid, KDK leapfrog with a global timestep or with hierarchical
-block timesteps (``Nlevels > 1``), and optionally self-gravity from the
-KD-bucket Barnes-Hut tree (frontier walk, geometric MAC, monopole or
-quadrupole, no Ewald sum), with its buckets replanned every
-``ntreebuildstep`` steps.  Options outside that slice raise
-NotImplementedError naming their ROADMAP item.
+``SimulationBase`` is the counterpart of the host part of
+``gandalf_tpu/sim/simulation.py:SimulationBase``: parameters, device and
+dtype, the structured-grid plan, the KD-bucket tree plan and its
+``ntreebuildstep`` cadence, and the global-timestep host loop (bursts of
+steps, overflow replans, the clamp to tend).  ``factory`` builds a
+controller by the ``sim`` parameter.  The meshless finite-volume
+controller is in ``sim/mfv_sim.py``.
+
+``GradhSphSimulation`` is the counterpart of gandalf_tpu's
+``GradhSphSimulation`` for one configuration: grad-h SPH with the M4
+kernel, the adiabatic EOS, mon97 viscosity (or none) and optional
+conductivity, the structured 27-shift grid, KDK leapfrog with a global
+timestep or with hierarchical block timesteps (``Nlevels > 1``), and
+optionally self-gravity from the KD-bucket Barnes-Hut tree (frontier
+walk, geometric MAC, monopole or quadrupole, no Ewald sum), with its
+buckets replanned every ``ntreebuildstep`` steps.  Options outside that
+slice raise NotImplementedError naming their ROADMAP item.
 
 A global step runs eagerly as a sequence of torch operations and kernel
 launches on the simulation's device; on a CUDA device nothing in it
@@ -30,10 +39,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from gandalf_tpu.sim.ic import generate_ic
-from gandalf_tpu.units import SimUnits, inscale_parameters
-from gandalf_tpu.utils.timing import CodeTiming
-
 from ..integrate.block import (BlockConfig, advance, check_timesteps,
                                end_timestep, init_schedule)
 from ..integrate.leapfrog import (IntegratorConfig, correct, predict,
@@ -48,6 +53,9 @@ from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
                         tree_gravity_grouped, walk_stats_levels_native)
 from ..state import (BOUNDARY_TYPE, DUST_TYPE, ICM_TYPE, DomainBox,
                      SphState, make_sph_state)
+from ..units import SimUnits, inscale_parameters
+from ..utils.timing import CodeTiming
+from .ic import generate_ic
 
 # queued steps per burst: each queued step keeps its input state alive
 BURST_CAP = 8
@@ -66,19 +74,22 @@ def _unsupported(what: str, item: str):
         f"{what} is not ported yet (ROADMAP queue 1, {item})")
 
 
-class GradhSphSimulation:
-    """Conservative grad-h SPH on one device, with a global timestep or
-    block timesteps.
+class SimulationBase:
+    """Host side shared by the controllers.  `device` and `dtype` place
+    every state tensor: the card unless the caller asks for the CPU,
+    where the plain versions of the kernels run.  float32 is the working
+    type on a GPU, float64 the reference-grade type.  A subclass provides process_parameters,
+    SetupSimulation, ``_step_fn`` (one global step, state to state) and
+    ``_run_bootstrap``."""
 
-    `device` and `dtype` place every state tensor; float32 is the working
-    type on a GPU, float64 the reference-grade type."""
+    use_block = False
 
-    def __init__(self, params, device="cpu", dtype=torch.float32):
+    def __init__(self, params, device="cuda", dtype=torch.float32):
         self.params = params
         self.device = torch.device(device)
         self.dtype = dtype
         self.ndim = params.intparams["ndim"]
-        self.state: Optional[SphState] = None
+        self.state = None
         self.gridspec = None
         self.treespec = None
         self.Nsteps = 0
@@ -88,36 +99,46 @@ class GradhSphSimulation:
         self._n_grid_overflows = 0
         self._n_tree_plans = 0
         self._step_fn = None
-        self._bootstrap_fn = None
-        self._blocksched = None
         self._leaf_of = None
-        # rows of the active passes: in all, and per pass of the last tick
-        # (the Saitoh-Makino pass and overflow retries included)
-        self.active_rows = 0
-        self.last_tick_rows = []
 
-    # -- parameters ------------------------------------------------------------
-    def process_parameters(self):
+    @staticmethod
+    def factory(params, device="cuda", dtype=torch.float32):
+        """The controller for the `sim` parameter
+        (SimulationBase::SimulationFactory)."""
+        sim = params.stringparams["sim"]
+        if params.intparams["Nmpi"] > 1:
+            raise _unsupported("Nmpi > 1", "item 13")
+        if sim in ("sph", "gradhsph", "gradsph"):
+            return GradhSphSimulation(params, device, dtype)
+        if sim in ("meshlessfv", "mfvmuscl"):
+            from .mfv_sim import MfvMusclSimulation
+
+            return MfvMusclSimulation(params, device, dtype)
+        raise _unsupported(f"sim {sim!r}", "items 9-11")
+
+    def _require_device(self):
+        """Refuse a CUDA device when there is none, rather than leave the
+        caller on some other path."""
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain "
+                "versions of the kernels on the CPU")
+
+    # -- parameters shared by the controllers ---------------------------------
+    def _common_parameters(self):
+        """Units, kernel, EOS, box and the gravity options."""
         p = self.params
         ip, sp = p.intparams, p.stringparams
-        if sp["sim"] not in ("sph", "gradhsph", "gradsph"):
-            raise _unsupported(f"sim {sp['sim']!r}", "items 9-11")
         if self.ndim != 3:
             raise _unsupported("ndim != 3", "item 3")
         if ip["sink_particles"] or ip["create_sinks"]:
             raise _unsupported("sink particles", "item 9")
-        if sp["dust_forces"] not in ("none", "null", ""):
-            raise _unsupported("dust", "item 9")
         if sp["gas_eos"] == "radws":
             raise _unsupported("radws", "item 9")
         if sp["radiation"] not in ("none", "null", ""):
             raise _unsupported("radiation", "item 12")
-        if sp["time_dependent_avisc"] != "none":
-            raise _unsupported("time_dependent_avisc", "item 9")
         if sp["external_potential"] != "none":
             raise _unsupported("external potentials", "item 9")
-        if sp["supernova_feedback"] not in ("none", "null", ""):
-            raise _unsupported("supernova feedback", "item 9")
         if sp["neib_search"] == "bruteforce":
             raise _unsupported("neib_search = bruteforce",
                                "'Not to port': brute-force paths")
@@ -128,23 +149,14 @@ class GradhSphSimulation:
         self.kern = kernel_factory(sp["kernel"], self.ndim,
                                    ip["tabulated_kernel"])
         self.eos = eos_factory(p)
-        self.visc = ArtificialViscosity.from_params(p)
         self.box = DomainBox.from_params(p)
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries", "item 8")
         self.self_gravity = bool(ip["self_gravity"])
         if self.self_gravity:
             self._check_gravity_options()
-        self.integ = IntegratorConfig.from_params(p, energy_integration=True)
-        self.hydro_forces = bool(ip["hydro_forces"])
         self.h_fac = p.floatparams["h_fac"]
         self.h_converge = p.floatparams["h_converge"]
-        # hierarchical block timesteps on the grid path
-        self.nlevels = max(ip["Nlevels"], 1)
-        self.use_block = self.nlevels > 1
-        self.block_cfg = BlockConfig(nlevels=self.nlevels,
-                                     level_diff_max=ip["level_diff_max"])
-        self.u_mode = "energy" if self.integ.energy_integration else "none"
 
     def _check_gravity_options(self):
         """The tree-gravity options the port runs: the frontier walk with
@@ -162,6 +174,15 @@ class GradhSphSimulation:
         if p.stringparams["neib_search"] == "octtree":
             raise _unsupported("neib_search = octtree (Morton buckets)",
                                "item 8")
+
+    def _periodic_extent(self):
+        """Per-dim box length along periodic dims (0 elsewhere), or None
+        without periodic dims: the tree's unwrap extent."""
+        pdims = self.box.periodic_dims()
+        if not pdims:
+            return None
+        return [self.box.size[k] if k in pdims else 0.0
+                for k in range(self.ndim)]
 
     # -- grid plan -------------------------------------------------------------
     def _plan_grid(self, r, h, growth: float = 1.3):
@@ -263,11 +284,168 @@ class GradhSphSimulation:
                 self._plan_tree_buckets(_host(self.state.r))
 
     # -- setup -----------------------------------------------------------------
+    def _bootstrap_with_replans(self):
+        """Run the bootstrap pass; on neighbour overflow replan the grid
+        (and the tree buckets, with grown caps) from the overflowed
+        state and run it again, at most 5 times."""
+        self._run_bootstrap()
+        tries = 0
+        while bool(self.state.neib_overflow):
+            tries += 1
+            if tries > 5:
+                raise RuntimeError(
+                    "bootstrap neighbour overflow persists after 5 "
+                    "replans: h is pinned at a clamp (coincident "
+                    "particles in the ICs?)")
+            self._n_grid_overflows += 1
+            self._plan_grid(self.state.r, self.state.h)
+            if self.treespec is not None:
+                self._plan_tree_buckets(_host(self.state.r),
+                                        grow_caps=True)
+            self.state = self.state.replace(
+                neib_overflow=torch.zeros_like(self.state.neib_overflow))
+            self._run_bootstrap()
+
+    # -- host loop -------------------------------------------------------------
+    def _clamp_dt_to_tend(self):
+        """Bound the global timestep by the remaining run time so the
+        last step lands on tend."""
+        t_now = float(self.state.t)
+        cap = self.params.floatparams["tend"] - t_now
+        dt = float(self.state.dt)
+        if cap > 0.0 and (not math.isfinite(dt) or dt > cap):
+            self.state = self.state.replace(dt=torch.tensor(
+                cap, dtype=self.dtype, device=self.device))
+
+    def main_loop_step(self):
+        """One global step; on neighbour overflow, replan the grid from
+        the pre-step state (and the tree buckets, with grown caps) and
+        redo the step (at most 4 times).  Every ntreebuildstep steps the
+        tree buckets are replanned first."""
+        self._tree_cadence()
+        self._clamp_dt_to_tend()
+        with self.timing.block("MAIN_LOOP"):
+            prev = self.state
+            self.state = self._step_fn(prev)
+            if bool(self.state.neib_overflow):
+                # plan from the pre-step state: the overflowed state's h
+                # came from truncated sums
+                with self.timing.block("GRID_REPLAN"):
+                    for attempt in range(4):
+                        self.state = prev
+                        self._n_grid_overflows += 1
+                        self._plan_grid(prev.r, prev.h,
+                                        growth=1.3 * (1.2 ** attempt))
+                        if self.treespec is not None:
+                            # replaces self.state's bucket map
+                            self._plan_tree_buckets(_host(prev.r),
+                                                    grow_caps=True)
+                        self.state = self._step_fn(self.state)
+                        if not bool(self.state.neib_overflow):
+                            break
+                    else:
+                        raise RuntimeError(
+                            "neighbour overflow persists after 4 replans")
+        self.Nsteps += 1
+        self.t = float(self.state.t)
+
+    def main_loop_steps(self, n: int) -> int:
+        """Advance up to `n` steps as one burst: queue the steps without
+        reading anything back, then read (overflow, t) once.  If some
+        step overflowed, rewind to the burst's start and replay it step
+        by step, so main_loop_step replans at the offending step.  A
+        burst starts with the tree cadence's replan and ends at the next
+        one.  Every step stops at tend (the device clamp); the host bound
+        near tend only limits the steps wasted there.  Block ticks run one
+        at a time.  Returns the steps done."""
+        if self.use_block:
+            self.main_loop_step()
+            return 1
+        if self.treespec is not None:
+            self._tree_cadence()
+            ntb = max(self.params.intparams["ntreebuildstep"], 1)
+            n = min(n, ntb - self.Nsteps % ntb)
+        n = min(n, BURST_CAP)
+        tend = self.params.floatparams["tend"]
+        if tend < 1e20:
+            # stay clear of tend by a 2x dt margin (dt may grow)
+            dt0 = float(self.state.dt)
+            if dt0 > 0.0 and math.isfinite(dt0):
+                n = min(n, int(max((tend - self.t) / dt0 * 0.5, 0.0)))
+        if n <= 1:
+            self.main_loop_step()
+            return 1
+        with self.timing.block("MAIN_LOOP"):
+            start = cur = self.state
+            for _ in range(n):
+                cur = self._step_fn(cur)
+            ovf, t_now = torch.stack(
+                (cur.neib_overflow.to(cur.t.dtype), cur.t)).tolist()
+            if ovf:
+                self.state = start
+                for _ in range(n):
+                    self.main_loop_step()
+                return n
+            self.state = cur
+        self.Nsteps += n
+        self.t = float(t_now)
+        return n
+
+    def Run(self, Nadvance: int = -1):
+        """Advance until tend or Nstepsmax (or Nadvance more steps); no
+        snapshot output."""
+        if not self.setup_complete:
+            self.SetupSimulation()
+        tend = self.params.floatparams["tend"]
+        nmax = (self.params.intparams["Nstepsmax"] if Nadvance < 0
+                else self.Nsteps + Nadvance)
+        while self.t < tend and self.Nsteps < nmax:
+            self.main_loop_steps(nmax - self.Nsteps)
+
+
+class GradhSphSimulation(SimulationBase):
+    """Conservative grad-h SPH on one device, with a global timestep or
+    block timesteps."""
+
+    def __init__(self, params, device="cuda", dtype=torch.float32):
+        super().__init__(params, device, dtype)
+        self._bootstrap_fn = None
+        self._blocksched = None
+        # rows of the active passes: in all, and per pass of the last tick
+        # (the Saitoh-Makino pass and overflow retries included)
+        self.active_rows = 0
+        self.last_tick_rows = []
+
+    # -- parameters ------------------------------------------------------------
+    def process_parameters(self):
+        p = self.params
+        ip, sp = p.intparams, p.stringparams
+        if sp["sim"] not in ("sph", "gradhsph", "gradsph"):
+            raise _unsupported(f"sim {sp['sim']!r}", "items 9-11")
+        if sp["dust_forces"] not in ("none", "null", ""):
+            raise _unsupported("dust", "item 9")
+        if sp["time_dependent_avisc"] != "none":
+            raise _unsupported("time_dependent_avisc", "item 9")
+        if sp["supernova_feedback"] not in ("none", "null", ""):
+            raise _unsupported("supernova feedback", "item 9")
+        self._common_parameters()
+        self.visc = ArtificialViscosity.from_params(p)
+        self.integ = IntegratorConfig.from_params(p, energy_integration=True)
+        self.hydro_forces = bool(ip["hydro_forces"])
+        # hierarchical block timesteps on the grid path
+        self.nlevels = max(ip["Nlevels"], 1)
+        self.use_block = self.nlevels > 1
+        self.block_cfg = BlockConfig(nlevels=self.nlevels,
+                                     level_diff_max=ip["level_diff_max"])
+        self.u_mode = "energy" if self.integ.energy_integration else "none"
+
+    # -- setup -----------------------------------------------------------------
     def SetupSimulation(self, ic: Optional[Dict[str, np.ndarray]] = None):
         """Initial conditions, grid plan and bootstrap force pass.
 
         `ic` (keys r, v, m, h, u; optional t) replaces the generated IC,
         as arrays staged with ImportArray do in the JAX package."""
+        self._require_device()
         with self.timing.block("SETUP"):
             self.process_parameters()
             if ic is None:
@@ -292,23 +470,7 @@ class GradhSphSimulation:
             self._plan_grid(ic["r"], ic["h"])
             if self.self_gravity:
                 self._plan_tree_buckets(_host(self.state.r))
-            self._run_bootstrap()
-            tries = 0
-            while bool(self.state.neib_overflow):
-                tries += 1
-                if tries > 5:
-                    raise RuntimeError(
-                        "bootstrap neighbour overflow persists after 5 "
-                        "replans: h is pinned at a clamp (coincident "
-                        "particles in the ICs?)")
-                self._n_grid_overflows += 1
-                self._plan_grid(self.state.r, self.state.h)
-                if self.treespec is not None:
-                    self._plan_tree_buckets(_host(self.state.r),
-                                            grow_caps=True)
-                self.state = self.state.replace(
-                    neib_overflow=torch.zeros_like(self.state.neib_overflow))
-                self._run_bootstrap()
+            self._bootstrap_with_replans()
         self.t = float(self.state.t)
         self.setup_complete = True
 
@@ -326,13 +488,10 @@ class GradhSphSimulation:
                               self.gridspec, self.eos, self.h_fac,
                               self.h_converge, self.hydro_forces, s)
         if self.self_gravity:
-            pdims = self.box.periodic_dims()
-            pext = ([self.box.size[k] if k in pdims else 0.0
-                     for k in range(self.ndim)] if pdims else None)
             a_g, gpot, overflow = tree_gravity_grouped(
                 self.treespec, s.bucket_map, s.r, self._gravity_mass(s),
                 s.h, self.kern, zh=s.zeta * s.hfactor,
-                periodic_extent=pext)
+                periodic_extent=self._periodic_extent())
             s = s.replace(a=s.a + a_g, gpot=gpot,
                           neib_overflow=s.neib_overflow | overflow)
         return s
@@ -423,13 +582,10 @@ class GradhSphSimulation:
                                    self.eos, self.h_fac, self.h_converge, s,
                                    ids, self.hydro_forces)
         if self.self_gravity:
-            pdims = self.box.periodic_dims()
-            pext = ([self.box.size[k] if k in pdims else 0.0
-                     for k in range(self.ndim)] if pdims else None)
             a_g, gpot, ovg = tree_gravity_active(
                 self.treespec, s.bucket_map, s.r, self._gravity_mass(s),
                 s.h, self.kern, s.zeta * s.hfactor, self._active_groups(ids),
-                periodic_extent=pext)
+                periodic_extent=self._periodic_extent())
             il = ids.long()
             s = s.replace(a=s.a.index_add(0, il, a_g[il]),
                           gpot=s.gpot.index_copy(0, il, gpot[il]))
@@ -476,104 +632,14 @@ class GradhSphSimulation:
         raise RuntimeError("neighbour overflow persists after 5 replans")
 
     # -- host loop -------------------------------------------------------------
-    def _clamp_dt_to_tend(self):
-        """Bound the global timestep by the remaining run time so the
-        last step lands on tend."""
-        t_now = float(self.state.t)
-        cap = self.params.floatparams["tend"] - t_now
-        dt = float(self.state.dt)
-        if cap > 0.0 and (not math.isfinite(dt) or dt > cap):
-            self.state = self.state.replace(dt=torch.tensor(
-                cap, dtype=self.dtype, device=self.device))
-
     def main_loop_step(self):
-        """One step (a tick with block timesteps); on neighbour overflow,
-        replan the grid from the pre-step state (and the tree buckets,
-        with grown caps) and redo the step (at most 4 times).  Every
-        ntreebuildstep steps the tree buckets are replanned first.  The
-        ladder's tick is not clamped to tend, as in the JAX package."""
-        self._tree_cadence()
-        if self.use_block:
-            with self.timing.block("MAIN_LOOP"):
-                self._block_tick()
-            self.Nsteps += 1
-            self.t = float(self.state.t)
+        """One step, or one block tick with block timesteps (the ladder's
+        tick is not clamped to tend, as in the JAX package)."""
+        if not self.use_block:
+            super().main_loop_step()
             return
-        self._clamp_dt_to_tend()
+        self._tree_cadence()
         with self.timing.block("MAIN_LOOP"):
-            prev = self.state
-            self.state = self._step_fn(prev)
-            if bool(self.state.neib_overflow):
-                # plan from the pre-step state: the overflowed state's h
-                # came from truncated sums
-                with self.timing.block("GRID_REPLAN"):
-                    for attempt in range(4):
-                        self.state = prev
-                        self._n_grid_overflows += 1
-                        self._plan_grid(prev.r, prev.h,
-                                        growth=1.3 * (1.2 ** attempt))
-                        if self.treespec is not None:
-                            # replaces self.state's bucket map
-                            self._plan_tree_buckets(_host(prev.r),
-                                                    grow_caps=True)
-                        self.state = self._step_fn(self.state)
-                        if not bool(self.state.neib_overflow):
-                            break
-                    else:
-                        raise RuntimeError(
-                            "neighbour overflow persists after 4 replans")
+            self._block_tick()
         self.Nsteps += 1
         self.t = float(self.state.t)
-
-    def main_loop_steps(self, n: int) -> int:
-        """Advance up to `n` steps as one burst: queue the steps without
-        reading anything back, then read (overflow, t) once.  If some
-        step overflowed, rewind to the burst's start and replay it step
-        by step, so main_loop_step replans at the offending step.  A
-        burst starts with the tree cadence's replan and ends at the next
-        one.  Every step stops at tend (the device clamp); the host bound
-        near tend only limits the steps wasted there.  Block ticks run one
-        at a time.  Returns the steps done."""
-        if self.use_block:
-            self.main_loop_step()
-            return 1
-        if self.treespec is not None:
-            self._tree_cadence()
-            ntb = max(self.params.intparams["ntreebuildstep"], 1)
-            n = min(n, ntb - self.Nsteps % ntb)
-        n = min(n, BURST_CAP)
-        tend = self.params.floatparams["tend"]
-        if tend < 1e20:
-            # stay clear of tend by a 2x dt margin (dt may grow)
-            dt0 = float(self.state.dt)
-            if dt0 > 0.0 and math.isfinite(dt0):
-                n = min(n, int(max((tend - self.t) / dt0 * 0.5, 0.0)))
-        if n <= 1:
-            self.main_loop_step()
-            return 1
-        with self.timing.block("MAIN_LOOP"):
-            start = cur = self.state
-            for _ in range(n):
-                cur = self._step_fn(cur)
-            ovf, t_now = torch.stack(
-                (cur.neib_overflow.to(cur.t.dtype), cur.t)).tolist()
-            if ovf:
-                self.state = start
-                for _ in range(n):
-                    self.main_loop_step()
-                return n
-            self.state = cur
-        self.Nsteps += n
-        self.t = float(t_now)
-        return n
-
-    def Run(self, Nadvance: int = -1):
-        """Advance until tend or Nstepsmax (or Nadvance more steps); no
-        snapshot output."""
-        if not self.setup_complete:
-            self.SetupSimulation()
-        tend = self.params.floatparams["tend"]
-        nmax = (self.params.intparams["Nstepsmax"] if Nadvance < 0
-                else self.Nsteps + Nadvance)
-        while self.t < tend and self.Nsteps < nmax:
-            self.main_loop_steps(nmax - self.Nsteps)

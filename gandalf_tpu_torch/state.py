@@ -2,7 +2,8 @@
 
 Counterpart of ``gandalf_tpu/state.py``: ``SphState`` carries the same
 fields (one tensor per field, structure of arrays), ``make_sph_state``
-builds the initial state, and ``DomainBox`` holds the boundary
+builds the initial state, ``MfvState`` and ``make_mfv_state`` do the same
+for the meshless finite-volume path, and ``DomainBox`` holds the boundary
 description with the same ``periodic_dims``, ``mirror_walls``,
 ``min_image``, ``wrap`` and ``reflect``.  Every tensor lives on the
 ``device`` and in the float ``dtype`` the caller names.
@@ -118,6 +119,110 @@ def make_sph_state(r, v, m, h, u, device="cpu",
         ueq=f(u), dt_therm=torch.full((N,), 1e30, **kw), ionfrac=fz(),
         ptype=iz() + GAS_TYPE, flags=iz(), level=iz(), levelneib=iz(),
         nlast=iz(), tlast=fz(),
+        iorig=torch.arange(N, dtype=torch.int32, device=device),
+        t=torch.zeros((), **kw), dt=torch.zeros((), **kw),
+        nstep=torch.zeros((), dtype=torch.int64, device=device),
+        neib_overflow=torch.zeros((), dtype=torch.bool, device=device),
+    )
+
+
+@dataclasses.dataclass
+class MfvState:
+    """Structure-of-arrays meshless finite-volume particle state: the
+    fields of gandalf_tpu's MfvState that the global-timestep MUSCL path
+    uses.  The block-timestep fields stay None.  ``bad_grad`` is a float
+    0/1 flag in the state's dtype, as the JAX package stores it after the
+    first gradient pass."""
+
+    r: Tensor            # (N, ndim)
+    v: Tensor
+    a: Tensor            # gravitational acceleration
+    r0: Tensor
+    v0: Tensor
+    a0: Tensor
+    m: Tensor            # (N,)
+    h: Tensor
+    ndens: Tensor
+    rho: Tensor
+    u: Tensor
+    pressure: Tensor
+    sound: Tensor
+    invomega: Tensor
+    zeta: Tensor
+    hfactor: Tensor
+    vsig_max: Tensor
+    gpot: Tensor
+    Qcons0: Tensor       # (N, nvar)
+    B: Tensor            # (N, ndim, ndim)
+    grad: Tensor         # (N, nvar, ndim)
+    alpha_slope: Tensor  # (N, nvar)
+    bad_grad: Tensor     # (N,)
+    ptype: Tensor
+    flags: Tensor
+    iorig: Tensor
+    t: Tensor
+    dt: Tensor
+    nstep: Tensor
+    neib_overflow: Tensor
+    bucket_map: Optional[Tensor] = None
+    # block-timestep fields of the JAX package: not ported
+    dQ: Optional[Tensor] = None
+    rdmdt: Optional[Tensor] = None
+    dQdt: Optional[Tensor] = None
+    rdmdt0: Optional[Tensor] = None
+    level: Optional[Tensor] = None
+    levelneib: Optional[Tensor] = None
+    nlast: Optional[Tensor] = None
+    tlast: Optional[Tensor] = None
+
+    @property
+    def N(self) -> int:
+        return self.r.shape[0]
+
+    @property
+    def ndim(self) -> int:
+        return self.r.shape[1]
+
+    @property
+    def nvar(self) -> int:
+        return self.ndim + 2
+
+    @property
+    def alive(self) -> Tensor:
+        return (self.flags & FLAG_DEAD) == 0
+
+    @property
+    def Wprim(self) -> Tensor:
+        """(N, nvar) primitive vector (v..., rho, pressure)."""
+        return torch.cat([self.v, self.rho[:, None],
+                          self.pressure[:, None]], dim=-1)
+
+    def replace(self, **kw) -> "MfvState":
+        return dataclasses.replace(self, **kw)
+
+
+def make_mfv_state(r, v, m, h, u, device="cpu",
+                   dtype=torch.float64) -> MfvState:
+    """Initial MfvState from IC arrays; derived fields are zero (alpha
+    one) until the first density and gradient pass."""
+    r = np.asarray(r)
+    N, ndim = r.shape
+    nvar = ndim + 2
+    kw = dict(device=device, dtype=dtype)
+    f = lambda x: torch.as_tensor(np.asarray(x), **kw).clone()
+    fz = lambda: torch.zeros((N,), **kw)
+    iz = lambda: torch.zeros((N,), dtype=torch.int32, device=device)
+    return MfvState(
+        r=f(r), v=f(v), a=torch.zeros((N, ndim), **kw),
+        r0=f(r), v0=f(v), a0=torch.zeros((N, ndim), **kw),
+        m=f(m), h=f(h), ndens=fz(), rho=fz(), u=f(u), pressure=fz(),
+        sound=fz(), invomega=torch.ones((N,), **kw), zeta=fz(),
+        hfactor=fz(), vsig_max=fz(), gpot=fz(),
+        Qcons0=torch.zeros((N, nvar), **kw),
+        B=torch.zeros((N, ndim, ndim), **kw),
+        grad=torch.zeros((N, nvar, ndim), **kw),
+        alpha_slope=torch.ones((N, nvar), **kw), bad_grad=fz(),
+        ptype=iz() + GAS_TYPE, flags=iz(),
         iorig=torch.arange(N, dtype=torch.int32, device=device),
         t=torch.zeros((), **kw), dt=torch.zeros((), **kw),
         nstep=torch.zeros((), dtype=torch.int64, device=device),

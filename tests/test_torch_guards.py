@@ -1,13 +1,16 @@
-"""Guards of the PyTorch port: it never imports JAX (the self-gravitating
-and block-timestep slices included), chip_smoke.py refuses to run
-without a GPU, a missing C++ tree planner raises, and on a GPU each CUDA
-kernel agrees with its plain PyTorch version.
+"""Guards of the PyTorch port: no module of it imports JAX or the JAX
+package (an AST scan) and running it never loads JAX, whatever
+GANDALF_PRECISION says (the self-gravitating, block-timestep and MFV
+slices included); chip_smoke.py refuses to run without a GPU, a missing
+C++ tree planner raises, a kernel wrapper refuses CPU tensors, and on a
+GPU each CUDA kernel agrees with its plain PyTorch version.
 
 This file imports no JAX, so its CUDA test also runs on a machine
 without JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_guards.py``.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -21,11 +24,35 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _env_without_precision():
+def _env(precision=None):
     env = dict(os.environ)
     env.pop("GANDALF_PRECISION", None)
+    if precision is not None:
+        env["GANDALF_PRECISION"] = precision
     env["PYTHONPATH"] = str(REPO)
     return env
+
+
+def _imported_roots(path: Path):
+    """(line, top-level name) of every import in a source file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    """Every .py of gandalf_tpu_torch/ and chip_smoke.py: no import of
+    jax or gandalf_tpu, at any depth of the file."""
+    files = sorted((REPO / "gandalf_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(REPO)}:{line} imports {name}"
+           for f in files for line, name in _imported_roots(f)
+           if name in ("jax", "jaxlib", "gandalf_tpu")]
+    assert not bad, bad
 
 
 def test_port_never_imports_jax():
@@ -53,19 +80,30 @@ def test_port_never_imports_jax():
         "sim.SetupSimulation()\n"
         "sim.main_loop_step()\n"
         "assert sim.use_block and sim.Nsteps == 1 and sim.active_rows > 0\n"
-        "print('jax' in sys.modules)\n")
+        "from gandalf_tpu_torch.check import mfv_params\n"
+        "from gandalf_tpu_torch.sim.simulation import SimulationBase\n"
+        "p = mfv_params(8, self_gravity=1)\n"
+        "sim = SimulationBase.factory(p, 'cpu', torch.float64)\n"
+        "sim.SetupSimulation(jittered_box_ic(p, 8))\n"
+        "sim.main_loop_step()\n"
+        "sim.main_loop_step()\n"
+        "assert sim.Nsteps == 2 and bool((sim.state.gpot > 0).all())\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
+    # GANDALF_PRECISION makes the JAX package import JAX: set, it must
+    # make no difference to the port
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         env=_env_without_precision(), capture_output=True,
-                         text=True, timeout=300)
+                         env=_env("double"), capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.strip().splitlines()[-1] == "False"
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_chip_smoke_refuses_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: chip_smoke.py would run")
     out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
-                         cwd=REPO, env=_env_without_precision(),
+                         cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
@@ -78,10 +116,12 @@ def test_kernels_match_plain_versions_on_gpu(dtype):
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from gandalf_tpu_torch.check import (compare_active_kernels,
                                          compare_kernels,
+                                         compare_mfv_kernels,
                                          compare_tree_kernels,
-                                         jittered_box_ic, slice_params,
-                                         sphere_block_params)
-    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+                                         jittered_box_ic, mfv_params,
+                                         slice_params, sphere_block_params)
+    from gandalf_tpu_torch.sim.simulation import (GradhSphSimulation,
+                                                  SimulationBase)
 
     p = slice_params(16, self_gravity=1)
     sim = GradhSphSimulation(p, device="cuda", dtype=dtype)
@@ -95,22 +135,32 @@ def test_kernels_match_plain_versions_on_gpu(dtype):
     sim.SetupSimulation()
     idx = torch.arange(0, sim.state.N, 3, dtype=torch.int32, device="cuda")
     report.update(compare_active_kernels(sim, sim.state, idx))
+    # K10-K12 and K7's MFV mode on the MFV box after two steps
+    p = mfv_params(16, self_gravity=1)
+    sim = SimulationBase.factory(p, "cuda", dtype)
+    sim.SetupSimulation(jittered_box_ic(p, 16))
+    sim.main_loop_steps(2)
+    report.update(compare_mfv_kernels(sim, sim.state))
     torch.cuda.synchronize()
     assert all(r["ok"] for r in report.values()), report
 
 
-def test_missing_tree_planner_raises(monkeypatch):
-    """Without the C++ planner (g++ could not build kdplan.cpp) the port
-    raises; it has no numpy planner or worst-case cap law to fall back
-    to."""
+def test_missing_tree_planner_raises(monkeypatch, tmp_path):
+    """Without the C++ planner (g++ could not build the port's copy of
+    kdplan.cpp) the port raises; it has no numpy planner or worst-case
+    cap law to fall back to."""
     import numpy as np
 
-    import gandalf_tpu.native
+    from gandalf_tpu_torch import native
     from gandalf_tpu_torch.check import jittered_box_ic, slice_params
     from gandalf_tpu_torch.ops import tree
     from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
-    monkeypatch.setattr(gandalf_tpu.native, "load", lambda: None)
+    # no library built yet, and a compiler that fails
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "library_path",
+                        lambda: tmp_path / "libkdplan_missing.so")
+    monkeypatch.setattr(native, "_build", lambda so: "g++: not found")
     r = np.random.default_rng(0).random((64, 3))
     with pytest.raises(RuntimeError, match="kdplan.cpp"):
         tree.plan_buckets_kd(r, 32)
@@ -145,3 +195,74 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                                  dtype=torch.float64),
                          m, None, None, None)
     assert _ext.LAUNCHES["tree_gather"] == 0
+
+
+def test_mfv_wrappers_refuse_cpu_tensors():
+    """K10-K12 and K7's MFV mode: CPU tensors raise and count no launch;
+    the MFV mode of K7 takes no group list."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.ops.mfv import MfvConfig
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
+    from gandalf_tpu_torch.ops.tree import plan_tree
+
+    spec = Grid27Spec(ndim=3, ncells=(2, 2, 2), lo=(0.0,) * 3,
+                      extents=(1.0,) * 3, k_cell=4, periodic=(True,) * 3)
+    kern = kernel_factory("m4", 3)
+    f64 = dict(dtype=torch.float64)
+    ids = torch.arange(32, dtype=torch.int32).reshape(2, 2, 2, 4)
+    r, x = torch.rand((32, 3), **f64), torch.rand((32,), **f64)
+    before = dict(_ext.LAUNCHES)
+    calls = (
+        lambda: _ext.mfv_density(spec, kern, 1.2, 0.01, 0.2, ids, r, x, x),
+        lambda: _ext.mfv_gradients(spec, kern, ids, r,
+                                   torch.rand((32, 8), **f64)),
+        lambda: _ext.mfv_fluxes(spec, kern, MfvConfig(gamma=1.4),
+                                torch.tensor(1e-3, **f64), ids, r,
+                                torch.rand((32, 41), **f64)))
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    tspec = plan_tree(64)
+    with pytest.raises(NotImplementedError, match="all groups"):
+        _ext.tree_near(tspec, kern, None, None, None, None, None, None,
+                       None, 64, torch.zeros((1,), dtype=torch.int32),
+                       zeta_scaling="mfv")
+    assert _ext.LAUNCHES == before
+
+
+def test_ptxas_report_keeps_each_kernels_lines(monkeypatch):
+    """The build log's ptxas lines of each kernel, as ptxas wrote them;
+    nothing else of the log."""
+    from gandalf_tpu_torch import _ext
+
+    kernel = [
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_117mfv_fluxes_kernelIfEEvPKiPKT_' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_117mfv_fluxes_kernelIfEEvPKiPKT_",
+        "    48 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 0 barriers"]
+    log = "\n".join(["nvcc warning : something else", *kernel,
+                     "ptxas info    : 0 bytes gmem"]) + "\n"
+    monkeypatch.setattr(_ext, "build_log", lambda: log)
+    assert _ext.ptxas_report().splitlines() == kernel
+
+
+def test_controllers_default_to_the_card():
+    """A controller built without a device runs on the card; with no
+    CUDA device its setup raises instead of running the plain versions."""
+    from gandalf_tpu_torch.check import mfv_params, slice_params
+    from gandalf_tpu_torch.sim.simulation import (GradhSphSimulation,
+                                                  SimulationBase)
+
+    sims = (SimulationBase.factory(mfv_params(8)),
+            SimulationBase.factory(slice_params(8)),
+            GradhSphSimulation(slice_params(8)))
+    assert [s.device.type for s in sims] == ["cuda"] * 3
+    if torch.cuda.is_available():
+        return
+    for s in sims:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            s.SetupSimulation()
+        assert s.state is None

@@ -1,13 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives gandalf_tpu_torch's main paths on the card, grad-h SPH hydro
-only, self-gravitating and with block timesteps, and the self-gravitating
-meshless finite-volume box, and checks them, in phases, each printing one
-line:
+only, self-gravitating and with block timesteps, the self-gravitating
+meshless finite-volume box and the direct-summation N-body cluster, and
+checks them, in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K12 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K15 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -51,16 +51,33 @@ line:
    cadence) through main_loop_steps, with launch counts, finiteness,
    overflow, exact mass, energy and accuracy (against the all-pairs
    mfv_smoothed_gravity) checks, and each kernel's time beside its
-   plain version's at the path's shapes.
+   plain version's at the path's shapes;
+15. nbody_kernels: K13-K15 against their plain versions on the card for
+   the 2D binary and Plummer clusters of 1,000 and 8,192 stars with one
+   coincident pair, in float64 and float32;
+16. nbody_parity: 10 float64 steps of a 1,024-star plummer_cluster under
+   hermite4 (softened, K14) and hermite6ts (unsoftened, K13 and K15),
+   kernels on the card against the plain path on the CPU;
+17. nbody_main_path: plummer_cluster (check.nbody_params) at 65,536 stars
+   in float64: setup (the IC's seconds reported), bootstrap, 2 warm-up
+   steps, then 32 timed steps, with star-steps/s, pair interactions/s,
+   simulated time per wall second, launch counts, finiteness and the
+   energy drift over the window, and K14's time beside its plain
+   version's at the path's shapes;
+18. nbody_ts6_path: hermite6ts, unsoftened, at 16,384 stars: 2 warm-up
+   and 8 timed steps (K13 and K15 twice a step), with rates, launch
+   counts and finiteness, and K13's and K15's times at those shapes.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path, K8, K9 and the list
 launches of K6 and K7 with counts from the block main path, K10-K12
-and K7's MFV launches from the MFV main path, each counted over its
+and K7's MFV launches from the MFV main path, K14 from the N-body main
+path and K13 and K15 from the hermite6ts path, each counted over its
 path's timed window (the counts are set to 0 just before it); each
-with its bound (the least time the card could take for the work,
-check.bound) and library_ms null (no single PyTorch call computes any
-of these functions).  The last line is {"ok": true, "device": {...}}.  Any
+with its bound in its path's dtype (the least time the card could take
+for the work, check.bound) and library_ms null (no single PyTorch call
+computes any of these functions).  The last line is {"ok": true,
+"device": {...}}.  Any
 failure raises and exits non-zero without printing the last line.  Run
 from the repository root:
 
@@ -125,6 +142,19 @@ BLOCK_ENERGY_DRIFT_TOL = 2e-3
 # The gate is 2e-3 over the 32 timed steps at 64^3, room for float32.
 MFV_STEPS_TIMED = 32
 MFV_ENERGY_DRIFT_TOL = 2e-3
+# the N-body cluster (check.nbody_params, plummer_cluster) in float64.
+# The JAX package's drift of E = sum m v^2/2 - sum m gpot/2 over 32 steps
+# at 1,024 stars is 1.9e-9 (tests/test_torch_nbody_sim.py, which holds it
+# below a twentieth of this gate); the gate is 1e-7.
+NBODY_N = 65536
+NBODY_STEPS_WARM = 2
+NBODY_STEPS_TIMED = 32
+NBODY_ENERGY_DRIFT_TOL = 1e-7
+NBODY_KERNEL_SIZES = (2, 1000, 8192)
+NBODY_PARITY_N = 1024
+NBODY_PARITY_STEPS = 10
+NBODY_TS6_N = 16384
+NBODY_TS6_STEPS_TIMED = 8
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -157,6 +187,12 @@ SOURCES = {
                    "gandalf_tpu/ops/mfv_grid27.py:342"),
     "tree_near_mfv": ("gandalf_tpu_torch/csrc/tree_near.cu",
                       "gandalf_tpu/ops/tree.py:770"),
+    "direct_nbody": ("gandalf_tpu_torch/csrc/nbody_direct.cu",
+                     "gandalf_tpu/ops/gravity.py:30"),
+    "direct_softened": ("gandalf_tpu_torch/csrc/nbody_direct.cu",
+                        "gandalf_tpu/ops/gravity.py:86"),
+    "direct_snap": ("gandalf_tpu_torch/csrc/nbody_direct.cu",
+                    "gandalf_tpu/ops/gravity.py:60"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
@@ -166,6 +202,7 @@ BLOCK = ("grid27_bin", "active_density", "active_forces", "tree_gather",
 # the kernels of an MFV step with self-gravity (K1 twice a step)
 MFV = ("grid27_bin", "tree_gather", "tree_build", "tree_walk",
        "tree_near_mfv", "mfv_density", "mfv_gradients", "mfv_fluxes")
+NBODY = ("direct_nbody", "direct_softened", "direct_snap")
 
 
 def phase(tag: str, **fields) -> None:
@@ -504,15 +541,162 @@ def mfv_main_path(dev, card):
     return ({k: launches[k] for k in names}, {k: rep[k] for k in names})
 
 
+def make_nbody_sim(n_star, device, dtype=torch.float64, **overrides):
+    from gandalf_tpu_torch.check import nbody_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    return SimulationBase.factory(nbody_params(n_star, **overrides), device,
+                                  dtype)
+
+
+def nbody_kernels(dev) -> None:
+    """K13-K15 against their plain versions on the card."""
+    from gandalf_tpu_torch.check import (compare_nbody_kernels,
+                                         nbody_kernel_inputs)
+
+    for n in NBODY_KERNEL_SIZES:
+        for dtype in (torch.float64, torch.float32):
+            (r, v, m, h), kern = nbody_kernel_inputs(n, dev, dtype)
+            rep = compare_nbody_kernels(r, v, m, h, kern)
+            phase("nbody_kernels", N=n, ndim=r.shape[1], dtype=str(dtype),
+                  report=rep)
+            require_ok("nbody_kernels", rep)
+
+
+def nbody_parity(dev) -> None:
+    """10 float64 steps of a 1,024-star plummer_cluster, softened under
+    hermite4 and unsoftened under hermite6ts, kernels on the card against
+    the plain path on the CPU."""
+    for scheme, soft in (("hermite4", 1), ("hermite6ts", 0)):
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = make_nbody_sim(NBODY_PARITY_N, device, nbody=scheme,
+                                 nbody_softening=soft)
+            sim.SetupSimulation()
+            for _ in range(NBODY_PARITY_STEPS):
+                sim.main_loop_step()
+            sims.append(sim)
+        torch.cuda.synchronize()
+        errs = parity_errors(sims, ("r", "v", "a", "adot", "a2dot", "gpot"))
+        errs["dt"] = abs(sims[0]._dt_host - sims[1]._dt_host) \
+            / sims[1]._dt_host
+        phase("nbody_parity", N=NBODY_PARITY_N, scheme=scheme,
+              softening=soft, steps=NBODY_PARITY_STEPS, rel_err=errs)
+        if max(errs.values()) > PARITY_TOL:
+            raise RuntimeError(f"nbody_parity: kernel path disagrees with "
+                               f"the plain path: {scheme} {errs}")
+
+
+def run_nbody_path(sim, warm, timed, names):
+    """Setup, `warm` steps, then `timed` steps with the launch counts set
+    to 0 just before them.  Returns the phase's common fields."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import nbody_energy
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    for _ in range(warm):
+        sim.main_loop_step()
+    e0, t_sim0 = nbody_energy(sim.state), sim.t
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        sim.main_loop_step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s, N = sim.state, sim.state.N
+    return {
+        "N": N, "scheme": sim.scheme, "softening": int(sim.softening),
+        "dtype": str(s.r.dtype), "steps": sim.Nsteps, "timed_steps": timed,
+        "setup_s": t_setup, "ic_s": sim.timing.totals.get("GENERATE_IC",
+                                                          0.0),
+        "timed_s": elapsed, "steps_per_s": timed / elapsed,
+        "star_steps_per_s": N * timed / elapsed,
+        "pair_interactions_per_s": N * N * timed / elapsed,
+        "sim_time_per_wall_s": (sim.t - t_sim0) / elapsed,
+        "dt": sim._dt_host, "t": sim.t, "launches": launches,
+        "energy_drift": abs(nbody_energy(s) - e0) / abs(e0),
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "adot", "a2dot", "gpot")),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def nbody_main_path(dev, card):
+    """plummer_cluster at 65,536 stars in float64, then K14 against its
+    plain version at the path's shapes.  Returns the path's launch
+    counts and the kernel reports."""
+    from gandalf_tpu_torch.check import compare_nbody_kernels
+
+    sim = make_nbody_sim(NBODY_N, dev)
+    out = run_nbody_path(sim, NBODY_STEPS_WARM, NBODY_STEPS_TIMED, NBODY)
+    launches = out["launches"]
+    checks = {
+        "finite": out["finite"],
+        "launches": launches == {"direct_nbody": 0,
+                                 "direct_softened": NBODY_STEPS_TIMED,
+                                 "direct_snap": 0},
+        "energy_drift": out["energy_drift"] <= NBODY_ENERGY_DRIFT_TOL,
+    }
+    s = sim.state
+    rep = compare_nbody_kernels(s.r, s.v, s.m, s.h, sim.kern, repeats=3,
+                                which=("direct_softened",))
+    phase("nbody_main_path", **out, energy_gate=NBODY_ENERGY_DRIFT_TOL,
+          checks=checks, kernels=rep, card=card)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"nbody main path checks failed: {failed}")
+    return ({"direct_softened": launches["direct_softened"]},
+            {"direct_softened": rep["direct_softened"]})
+
+
+def nbody_ts6_path(dev, card):
+    """hermite6ts, unsoftened, at 16,384 stars: K13 and K15 twice a step
+    (P(EC)^2), then both against their plain versions at the path's
+    shapes.  Returns the path's launch counts and the kernel reports."""
+    from gandalf_tpu_torch.check import compare_nbody_kernels
+
+    sim = make_nbody_sim(NBODY_TS6_N, dev, nbody="hermite6ts",
+                         nbody_softening=0)
+    out = run_nbody_path(sim, NBODY_STEPS_WARM, NBODY_TS6_STEPS_TIMED,
+                         NBODY)
+    launches = out["launches"]
+    twice = 2 * NBODY_TS6_STEPS_TIMED
+    checks = {
+        "finite": out["finite"],
+        "launches": launches == {"direct_nbody": twice,
+                                 "direct_softened": 0,
+                                 "direct_snap": twice},
+    }
+    s = sim.state
+    rep = compare_nbody_kernels(s.r, s.v, s.m, s.h, None, repeats=3,
+                                which=("direct_nbody", "direct_snap"))
+    phase("nbody_ts6_path", **out, checks=checks, kernels=rep, card=card)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"nbody hermite6ts path checks failed: {failed}")
+    names = ("direct_nbody", "direct_snap")
+    return ({k: launches[k] for k in names}, {k: rep[k] for k in names})
+
+
 def kernel_line(launches, rep) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
-    its main path, error, times and bound (main paths run float32)."""
+    its main path, error, times and bound in the dtype of the report (a
+    report without one comes from a float32 path)."""
     from gandalf_tpu_torch.check import bound
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rep[name]
-        bound_ms, bound_by = bound(r["work"], torch.float32)
+        dtype = {"torch.float64": torch.float64}.get(r.get("dtype"),
+                                                     torch.float32)
+        bound_ms, bound_by = bound(r["work"], dtype)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
@@ -732,6 +916,14 @@ def main() -> int:
     m_launches, m_rep = mfv_main_path(dev, card)
     launches.update(m_launches)
     rep.update(m_rep)
+
+    # 15-18. the direct-summation N-body cluster
+    nbody_kernels(dev)
+    nbody_parity(dev)
+    for path in (nbody_main_path, nbody_ts6_path):
+        n_launches, n_rep = path(dev, card)
+        launches.update(n_launches)
+        rep.update(n_rep)
 
     print(json.dumps(kernel_line(launches, rep)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K12 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K15 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -14,7 +14,9 @@ to its kernel's count in ``LAUNCHES`` when it launches, and nowhere else
 (K5's wrapper launches one kernel per tree level and counts one).  K6
 and K7 launched over a group list count under ``tree_walk_list`` and
 ``tree_near_list``, and K7 in its meshless finite-volume zeta mode under
-``tree_near_mfv``, apart from their launches over all groups.
+``tree_near_mfv``, apart from their launches over all groups.  The
+N-body kernels K13-K15 count under ``direct_nbody``, ``direct_softened``
+and ``direct_snap``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ _BUILD = _HERE / "_build"
 _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
-          "mfv_gradients.cu", "mfv_fluxes.cu")
+          "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,7 +46,8 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "tree_gather": 0, "tree_build": 0, "tree_walk": 0,
             "tree_near": 0, "tree_walk_list": 0, "tree_near_list": 0,
             "tree_near_mfv": 0, "active_density": 0, "active_forces": 0,
-            "mfv_density": 0, "mfv_gradients": 0, "mfv_fluxes": 0}
+            "mfv_density": 0, "mfv_gradients": 0, "mfv_fluxes": 0,
+            "direct_nbody": 0, "direct_softened": 0, "direct_snap": 0}
 
 _lib = None
 
@@ -74,6 +77,9 @@ _ARGTYPES = {
                       _D, _D, _P, _P, _P, _P, _P, _I, _P],
     "mfv_fluxes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
                    _D, _D, _I, _P, _P, _I, _P],
+    "direct_nbody": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    "direct_softened": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    "direct_snap": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -527,3 +533,57 @@ def mfv_fluxes(spec, kern, cfg, dt_t, ids_d, r, packed):
             *_grid_args(spec), float(kern.kernnorm), float(cfg.gamma),
             int(cfg.zero_mass_flux), _p(dQdt), _p(rdmdt))
     return dQdt, rdmdt
+
+
+# ---------------------------------------------------------------------------
+# Direct-summation N-body gravity, K13-K15 (ops/gravity.py)
+# ---------------------------------------------------------------------------
+
+def _stars(r, m, *vectors):
+    """(N, ndim) of a star set, checked: r and the (N, ndim) `vectors` in
+    r's dtype, m (N,); ndim 2 or 3."""
+    N, ndim = r.shape if r.dim() == 2 else (None, None)
+    if ndim not in (2, 3):
+        raise ValueError(f"r: expected shape (N, 2) or (N, 3), got "
+                         f"{tuple(r.shape)}")
+    _check(r, "r", r.dtype, (N, ndim))
+    _check(m, "m", r.dtype, (N,))
+    for name, x in vectors:
+        _check(x, name, r.dtype, (N, ndim))
+    return N, ndim
+
+
+def direct_nbody(r, v, m, compute_jerk: bool = True):
+    """K13: unsoftened (a, adot, gpot) of every star; adot is zero
+    without `compute_jerk`."""
+    N, ndim = _stars(r, m, ("v", v))
+    a = torch.empty_like(r)
+    adot = torch.empty_like(r) if compute_jerk else torch.zeros_like(r)
+    gpot = torch.empty_like(m)
+    _launch("direct_nbody", r.dtype, r.device, _p(r), _p(v), _p(m), N, ndim,
+            int(compute_jerk), _p(a), _p(adot) if compute_jerk else None,
+            _p(gpot))
+    return a, adot, gpot
+
+
+def direct_softened(r, v, m, h, compute_jerk: bool = False):
+    """K14: mean-h M4-softened (a, adot, gpot); adot is the Newtonian
+    jerk, zero without `compute_jerk`."""
+    N, ndim = _stars(r, m, ("v", v))
+    _check(h, "h", r.dtype, (N,))
+    a = torch.empty_like(r)
+    adot = torch.empty_like(r) if compute_jerk else torch.zeros_like(r)
+    gpot = torch.empty_like(m)
+    _launch("direct_softened", r.dtype, r.device, _p(r), _p(v), _p(m), _p(h),
+            N, ndim, int(compute_jerk), _p(a),
+            _p(adot) if compute_jerk else None, _p(gpot))
+    return a, adot, gpot
+
+
+def direct_snap(r, v, a, m):
+    """K15: the snap (N, ndim) of every star from r, v and a."""
+    N, ndim = _stars(r, m, ("v", v), ("a", a))
+    snap = torch.empty_like(r)
+    _launch("direct_snap", r.dtype, r.device, _p(r), _p(v), _p(a), _p(m), N,
+            ndim, _p(snap))
+    return snap

@@ -14,8 +14,10 @@ for the block tick's K8, K9 and the group-list launches of K6 and K7.
 sum.  ``mfv_params`` is the meshless finite-volume configuration
 ``mfv_box``; ``compare_mfv_kernels`` compares K10-K12 and K7's MFV mode
 with their plain versions, and ``mfv_gravity_accuracy`` holds the MFV
-tree against the all-pairs ``mfv_smoothed_gravity``.  ``chip_smoke.py``
-and the CUDA tests use them.
+tree against the all-pairs ``mfv_smoothed_gravity``.  ``nbody_params``
+is the N-body configuration ``plummer_cluster``; ``compare_nbody_kernels``
+compares K13-K15 with their plain versions.  ``chip_smoke.py`` and the
+CUDA tests use them.
 """
 
 from __future__ import annotations
@@ -85,6 +87,16 @@ TOL_F32_MFV_BAD_FRACTION = 1e-3
 # at ~1e-5 of the largest net value; the Gizmo clamp and the HLLC wave
 # choice take the same branch except within rounding of a tie.
 TOL_F32_MFV_FLUXES = 1e-3
+# K13-K15 (all-pairs sums over the stars), each output's largest error
+# relative to its largest |value|.  float64: the same formulas, the sums
+# in another order (the kernel's tiles against torch's reductions) and
+# with fused multiply-adds on the card; 1e-12 leaves room for N up to
+# 65,536 terms.  float32: each term is rounded at 6e-8 and the N terms
+# are summed in another order; the error grows like sqrt(N) 6e-8 of the
+# sum of |terms|, which for the jerk and snap of a star in the crowded
+# core is some 10-100 times its own largest value: 1e-4 at N = 8,192.
+TOL_F64_NBODY = 1e-12
+TOL_F32_NBODY = 1e-4
 
 # The least time the card could take for a kernel's work (its bound):
 # the larger of the bytes it must move (each input read once, each output
@@ -98,14 +110,18 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # particle (K1), per slot (K4), per slot and per cell (K5), per pair
 # within a support (kernrange h_i for K2, K8, K10, K11; kernrange
 # max(h_i, h_j) for K3, K9, K12), per live cell tested and per accepted
-# cell and slot (K6), per near pair (K7).  The pair work counts one
-# sweep of the h iterations, the least the data needs.
+# cell and slot (K6), per near pair (K7), per ordered pair of distinct
+# stars in 3D (K13 with the jerk, K14 with the jerk and beyond the
+# kernel's support, where nearly every pair of the Plummer cluster lies,
+# K15).  The pair work counts one sweep of the h iterations, the least
+# the data needs.
 FLOPS_PER = {
     "grid27_bin": 15, "grid27_density": 40, "grid27_forces": 80,
     "tree_gather": 10, "tree_build_slot": 30, "tree_build_cell": 60,
     "tree_walk_mac": 15, "tree_walk_far": 60, "tree_near": 20,
     "active_density": 40, "active_forces": 80,
     "mfv_density": 40, "mfv_gradients": 120, "mfv_fluxes": 450,
+    "direct_nbody": 46, "direct_softened": 66, "direct_snap": 74,
 }
 
 
@@ -211,6 +227,37 @@ def sphere_block_params(n_target: int, tend: float = 1.0e30,
     for k, v in updates.items():
         p.set(k, v)
     return p
+
+
+def nbody_params(n_star: int = 65536, tend: float = 1.0e30,
+                 **overrides) -> Parameters:
+    """The plummer_cluster configuration: a Plummer cluster of `n_star`
+    equal-mass stars (mplummer 1, rplummer 1, cut at radius 10,
+    dimensionless, 3D) drawn by the reference's xorshift generator at the
+    default randseed, integrated by the pure N-body controller (sim =
+    nbody) with the defaults hermite4, Npec 1 and nbody_mult 0.1, and
+    mean-h M4-softened gravity (nbody_softening 1) with rstar 0.01.
+    `overrides` are further parameters (nbody, nbody_softening, ...)."""
+    p = Parameters()
+    updates = {
+        "run_id": "", "sim": "nbody", "ndim": 3, "dimensionless": 1,
+        "ic": "plummer", "Nstar": n_star, "mplummer": 1.0, "rplummer": 1.0,
+        "radius": 10.0, "rstar": 0.01, "nbody": "hermite4", "Npec": 1,
+        "nbody_mult": 0.1, "nbody_softening": 1, "rand_algorithm": "xorshift",
+        "tend": tend, "tsnapfirst": 1.0e30,
+    }
+    updates.update(overrides)
+    for k, v in updates.items():
+        p.set(k, v)
+    return p
+
+
+def nbody_energy(s) -> float:
+    """E = sum m v^2/2 - sum m gpot/2 of an NbodyState, in float64 (gpot
+    is the softened potential under softening)."""
+    m, v = s.m.double(), s.v.double()
+    return float(torch.sum(0.5 * m * torch.sum(v * v, dim=-1))
+                 - 0.5 * torch.sum(m * s.gpot.double()))
 
 
 def jittered_box_ic(params: Parameters, n_side: int, seed: int = 42):
@@ -942,3 +989,93 @@ def mfv_gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
     err = torch.sqrt(torch.sum(da * da) / torch.sum(a_ref * a_ref))
     return {"n_sample": int(t.numel()), "rms_rel_err": float(err),
             "overflow": bool(overflow)}
+
+
+def nbody_kernel_inputs(n_star: int, device, dtype, coincident: bool = True):
+    """r, v, m, h (and the softening kernel) of a Plummer cluster of
+    n_star stars from nbody_params, or of the 2D circular binary for
+    n_star = 2, on `device` in `dtype`.  With `coincident`, star 1 is
+    moved onto star 0 (n_star > 2), the case of a collapsed sub-system."""
+    from .kernels.smoothing import kernel_factory
+    from .sim.ic import generate_nbody_ic
+
+    if n_star == 2:
+        p = nbody_params(2, ic="binary", ndim=2, abin=1.0, ebin=0.0)
+    else:
+        p = nbody_params(n_star)
+    ic = generate_nbody_ic(p)
+    if coincident and n_star > 2:
+        ic["r"][1] = ic["r"][0]
+    kw = dict(device=device, dtype=dtype)
+    return ([torch.as_tensor(ic[k], **kw).contiguous()
+             for k in ("r", "v", "m", "h")],
+            kernel_factory("m4", p.intparams["ndim"]))
+
+
+def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
+                          which=("direct_nbody", "direct_softened",
+                                 "direct_snap")):
+    """Run K13 (with the jerk), K14 (with and without the jerk) and K15
+    (from the plain K13's a) and their plain versions on the same CUDA
+    tensors; returns {kernel: report} as compare_kernels does, each
+    output's error relative to its largest |value|, against TOL_*_NBODY.
+    A report also holds `work` and the `dtype`; with `repeats` > 0, `ms`
+    and `plain_ms` of the calls the path makes (with the jerk).  `which`
+    picks the kernels.  Launch counts are restored afterwards."""
+    from .ops import gravity as gr
+
+    saved = dict(_ext.LAUNCHES)
+    f64 = r.dtype == torch.float64
+    tol = TOL_F64_NBODY if f64 else TOL_F32_NBODY
+    N = r.shape[0]
+    every = torch.ones((N,), dtype=torch.bool, device=r.device)
+    pairs = N * (N - 1)
+
+    def report(name, got, want, inputs, outputs):
+        errs = {k: _scaled_all(x, y, every) for k, x, y in zip(
+            ("a", "adot", "gpot"), got, want) if y is not None}
+        return {"N": N, "ndim": r.shape[1], "scaled_err": errs,
+                "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
+                "dtype": str(r.dtype), "ok": max(errs.values()) <= tol,
+                "work": _work(inputs, outputs, FLOPS_PER[name] * pairs)}
+
+    out, timed = {}, {}
+    if "direct_nbody" in which or "direct_snap" in which:
+        plain = gr.direct_nbody_plain(r, v, m, True)
+    if "direct_nbody" in which:
+        got = gr.direct_nbody(r, v, m, True)
+        out["direct_nbody"] = report("direct_nbody", got, plain, (r, v, m),
+                                     got)
+        timed["direct_nbody"] = (lambda: gr.direct_nbody(r, v, m, True),
+                                 lambda: gr.direct_nbody_plain(r, v, m,
+                                                               True))
+    if "direct_softened" in which:
+        got = gr.direct_softened(r, v, m, h, kern, True)
+        want = gr.direct_softened_plain(r, v, m, h, kern, True)
+        rep = report("direct_softened", got, want, (r, v, m, h), got)
+        # without the jerk: a and gpot as with it, adot exactly zero
+        nj = gr.direct_softened(r, v, m, h, kern, False)
+        wnj = gr.direct_softened_plain(r, v, m, h, kern, False)
+        rep["no_jerk_scaled_err"] = {
+            "a": _scaled_all(nj.a, wnj.a, every),
+            "gpot": _scaled_all(nj.gpot, wnj.gpot, every)}
+        rep["no_jerk_adot_zero"] = not bool(nj.adot.any())
+        rep["ok"] = (rep["ok"] and rep["no_jerk_adot_zero"]
+                     and max(rep["no_jerk_scaled_err"].values()) <= tol)
+        out["direct_softened"] = rep
+        timed["direct_softened"] = (
+            lambda: gr.direct_softened(r, v, m, h, kern, True),
+            lambda: gr.direct_softened_plain(r, v, m, h, kern, True))
+    if "direct_snap" in which:
+        a = plain.a
+        got = gr.direct_snap(r, v, a, m)
+        want = gr.direct_snap_plain(r, v, a, m)
+        out["direct_snap"] = report("direct_snap", (got,), (want,),
+                                    (r, v, a, m), (got,))
+        timed["direct_snap"] = (lambda: gr.direct_snap(r, v, a, m),
+                                lambda: gr.direct_snap_plain(r, v, a, m))
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out

@@ -3,7 +3,9 @@
 ``state_from_numpy`` turns a dict of numpy arrays (the JAX ``SphState``'s
 fields, read out with ``np.asarray``) into the port's ``SphState`` on a
 given device and float dtype; ``state_to_numpy`` goes back.
-``mfv_state_from_jax`` does the same for a JAX ``MfvState``.
+``mfv_state_from_jax`` does the same for a JAX ``MfvState``, and
+``nbody_state_from_jax`` for a JAX ``NbodyState`` (``nbody_state_to_numpy``
+goes back).
 ``grid_spec_from_jax`` and ``tree_spec_from_jax`` copy a frozen JAX
 ``Grid27Spec`` or ``TreeSpec`` field for field; ``schedule_from_jax``
 copies a JAX ``BlockSchedule`` and ``schedule_to_jax`` gives a port
@@ -23,7 +25,7 @@ import torch
 from .integrate.block import BlockSchedule
 from .ops.sph_grid27 import Grid27Spec
 from .ops.tree import TreeSpec
-from .state import MfvState, SphState
+from .state import MfvState, NbodyState, SphState
 
 _OPTIONAL = ("bucket_map", "walk_mp", "walk_near", "walk_plan_r",
              "walk_anchors", "walk_margin")
@@ -85,6 +87,28 @@ def mfv_state_from_jax(state, device="cpu",
 
 _MFV_BLOCK = ("dQ", "rdmdt", "dQdt", "rdmdt0", "level", "levelneib",
               "nlast", "tlast")
+
+
+def nbody_state_from_jax(state, device="cpu",
+                         dtype=torch.float64) -> NbodyState:
+    """The port's NbodyState from a JAX NbodyState (read through its
+    attributes, field by field): floating fields take `dtype`, integer
+    and bool fields keep their kind, nstep becomes int64."""
+    kw = {}
+    for f in dataclasses.fields(NbodyState):
+        x = np.array(getattr(state, f.name))
+        if x.dtype.kind == "f":
+            kw[f.name] = torch.tensor(x, dtype=dtype, device=device)
+        else:
+            kw[f.name] = torch.tensor(x, device=device)
+    kw["nstep"] = kw["nstep"].to(torch.int64)
+    return NbodyState(**kw)
+
+
+def nbody_state_to_numpy(state: NbodyState) -> Dict[str, np.ndarray]:
+    """Every field of an NbodyState as a host numpy array."""
+    return {f.name: getattr(state, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(NbodyState)}
 
 
 def grid_spec_from_jax(spec) -> Grid27Spec:

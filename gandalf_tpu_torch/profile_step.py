@@ -4,6 +4,7 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step [--self-gravity {0,1}]
     python -m gandalf_tpu_torch.profile_step --block
     python -m gandalf_tpu_torch.profile_step --mfv [--self-gravity {0,1}]
+    python -m gandalf_tpu_torch.profile_step --nbody [--nbody-scheme S]
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -12,12 +13,16 @@ that holds no tree rebuild.  With --block: the block slice
 (cold_sphere_block) at about 262,144 particles in float32, 4 warm-up
 ticks, then a window of 8 ticks without a tree rebuild.  With --mfv:
 the meshless finite-volume box (check.mfv_params, self-gravitating by
-default) at 64^3 in float32, as the SPH box.  Prints one JSON line: the
-window's host time, the device time summed over kernels and copies, the
-device's idle share of the window, the device time of each of K1-K12
-and of the torch glue between them, and the device time per kernel name
-(largest first); with --block also the active rows per tick.  Refuses
-to run without CUDA.
+default) at 64^3 in float32, as the SPH box.  With --nbody: the N-body
+cluster (check.nbody_params, plummer_cluster) at 65,536 stars in
+float64 under hermite4 (or --nbody-scheme, hermite6ts unsoftened at
+16,384 stars), 2 warm-up steps, then a window of 8 steps
+(main_loop_step, each with its host read of t and dt).  Prints one JSON
+line: the window's host time, the device time summed over kernels and
+copies, the device's idle share of the window, the device time of each
+of K1-K15 and of the torch glue between them, and the device time per
+kernel name (largest first); with --block also the active rows per
+tick.  Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -49,7 +54,12 @@ FAMILIES = {
     "K10 mfv_density": ("mfv_density_kernel",),
     "K11 mfv_gradients": ("mfv_gradients_kernel",),
     "K12 mfv_fluxes": ("mfv_fluxes_kernel",),
+    "K13 direct_nbody": ("direct_nbody_kernel",),
+    "K14 direct_softened": ("direct_softened_kernel",),
+    "K15 direct_snap": ("direct_snap_kernel",),
 }
+NBODY_N = 65536
+NBODY_TS6_N = 16384
 
 
 def _device_us(evt) -> float:
@@ -74,16 +84,28 @@ def main(argv=None) -> int:
                     help="the block-timestep slice (cold_sphere_block)")
     ap.add_argument("--mfv", action="store_true",
                     help="the meshless finite-volume box (mfv_box)")
+    ap.add_argument("--nbody", action="store_true",
+                    help="the N-body cluster (plummer_cluster)")
+    ap.add_argument("--nbody-scheme", default="hermite4",
+                    choices=("hermite4", "hermite6ts"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .check import (jittered_box_ic, mfv_params, slice_params,
-                        sphere_block_params)
+    from .check import (jittered_box_ic, mfv_params, nbody_params,
+                        slice_params, sphere_block_params)
     from .sim.simulation import GradhSphSimulation, SimulationBase
 
-    if args.mfv:
+    if args.nbody:
+        ts6 = args.nbody_scheme == "hermite6ts"
+        params = nbody_params(NBODY_TS6_N if ts6 else NBODY_N,
+                              nbody=args.nbody_scheme,
+                              nbody_softening=0 if ts6 else 1)
+        sim = SimulationBase.factory(params, "cuda")
+        sim.SetupSimulation()
+        warm = 2
+    elif args.mfv:
         params = mfv_params(N_SIDE, self_gravity=args.self_gravity)
         sim = SimulationBase.factory(params, "cuda", torch.float32)
         sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
@@ -107,10 +129,11 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        if args.block:
+        if args.block or args.nbody:
             for _ in range(STEPS):
                 sim.main_loop_step()
-                rows.append(list(sim.last_tick_rows))
+                if args.block:
+                    rows.append(list(sim.last_tick_rows))
             done = STEPS
         else:
             done = sim.main_loop_steps(STEPS)
@@ -132,13 +155,20 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    if args.nbody:
+        slice_fields = {"nbody": True, "scheme": sim.scheme,
+                        "softening": int(sim.softening),
+                        "dtype": str(sim.dtype), "dt": sim._dt_host}
+    else:
+        slice_fields = {
+            "block": args.block, "mfv": args.mfv,
+            "self_gravity": int(sim.self_gravity),
+            "tree_plans_in_window": sim._n_tree_plans - plans0,
+            "active_rows_per_tick": rows,
+            "ncells": list(sim.gridspec.ncells),
+            "k_cell": sim.gridspec.k_cell}
     print(json.dumps({
-        "card": card, "N": sim.state.N, "block": args.block,
-        "mfv": args.mfv,
-        "self_gravity": int(sim.self_gravity),
-        "steps": done, "tree_plans_in_window": sim._n_tree_plans - plans0,
-        "active_rows_per_tick": rows,
-        "ncells": list(sim.gridspec.ncells), "k_cell": sim.gridspec.k_cell,
+        "card": card, "N": sim.state.N, **slice_fields, "steps": done,
         "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / window_us,
         "device_ms_per_step": busy_us / 1e3 / done,

@@ -3,10 +3,13 @@
 A copy of the generators of ``gandalf_tpu/sim/ic.py`` that the port's
 slices use: the uniform box (``ic = box``) on a cubic lattice and the
 uniform sphere (``ic = sphere``), lattice or random (numpy's generator,
-``rand_algorithm = default``; the xorshift generator raises), with
-``generate_ic``'s dispatch.  Host-side numpy in float64, as there; each
-generator returns a dict with keys r, v, m, h, u.  Any other ``ic``, and
-the Lloyd regularisation, raise NotImplementedError.
+``rand_algorithm = default``; the xorshift generator's sphere sampler is
+not ported and raises), with ``generate_ic``'s dispatch; and the N-body
+star sets (``plummer``, ``binary``, ``triple``, ``quadruple``) with
+``generate_nbody_ic``'s.  Host-side numpy in float64, as there; each
+hydro generator returns a dict with keys r, v, m, h, u, each N-body one
+r, v, m, h.  Any other ``ic``, and the Lloyd regularisation, raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,12 +18,17 @@ from typing import Dict
 
 import numpy as np
 
+from ..utils.rng import XorshiftRand
 from ..utils.rng import rng_from_params as _rng_from_params
 
 
 def _sample_sphere(rng, n: int, ndim: int, radius: float) -> np.ndarray:
     """Uniform points in a sphere: batched rejection sampling from a
     numpy Generator."""
+    if isinstance(rng, XorshiftRand):
+        raise NotImplementedError(
+            "the xorshift generator's sphere sampler (random_sphere) is "
+            "not ported yet (ROADMAP queue 1, item 9)")
     pts = []
     got = 0
     while got < n:
@@ -116,10 +124,167 @@ def sphere_ic(params, eos) -> Dict[str, np.ndarray]:
     return {"r": r, "v": np.zeros((N, ndim)), "m": m, "h": h, "u": u}
 
 
+def plummer_stars_ic(params) -> Dict[str, np.ndarray]:
+    """Plummer sphere of stars via the Aarseth rejection method
+    (src/Ic/PlummerSphereIc.cpp:57-170, star branch)."""
+    ip, fp = params.intparams, params.floatparams
+    Nstar = ip["Nstar"]
+    mplummer = fp["mplummer"]
+    rplummer = fp["rplummer"]
+    radius = fp["radius"]
+    rstar = fp["rstar"]
+    rng = _rng_from_params(params)
+
+    r = np.zeros((Nstar, 3))
+    v = np.zeros((Nstar, 3))
+    n = 0
+    while n < Nstar:
+        x1, x2, x3 = rng.random(3)
+        if x1 <= 0.0:
+            continue
+        rad = 1.0 / np.sqrt(x1 ** (-2.0 / 3.0) - 1.0)
+        if rad > radius / rplummer:
+            continue
+        z = (1.0 - 2.0 * x2) * rad
+        rxy = np.sqrt(max(rad * rad - z * z, 0.0))
+        r[n] = [rxy * np.cos(2 * np.pi * x3), rxy * np.sin(2 * np.pi * x3), z]
+        # velocity: rejection-sample q = v/v_esc from q^2 (1-q^2)^3.5
+        ve = np.sqrt(2.0 / np.sqrt(1.0 + rad * rad))
+        while True:
+            x4, x5 = rng.random(2)
+            if 0.1 * x5 <= x4 * x4 * (1.0 - x4 * x4) ** 3.5:
+                break
+        vm = ve * x4
+        x6, x7 = rng.random(2)
+        w = (1.0 - 2.0 * x6) * vm
+        vxy = np.sqrt(max(vm * vm - w * w, 0.0))
+        v[n] = [vxy * np.cos(2 * np.pi * x7), vxy * np.sin(2 * np.pi * x7), w]
+        n += 1
+
+    # scale to physical units (G = 1; Plummer natural units -> mplummer,
+    # rplummer; velocity scale sqrt(M/R))
+    vscale = np.sqrt(mplummer / rplummer)
+    r *= rplummer
+    v *= vscale
+    m = np.full(Nstar, mplummer / Nstar)
+    h = np.full(Nstar, rstar)
+    ndim = params.intparams["ndim"]
+    return {"r": r[:, :ndim], "v": v[:, :ndim], "m": m, "h": h}
+
+
+def _binary_offsets(sma, ecc, m1, m2, M, ndim):
+    """Positions/velocities of a two-body pair about its barycentre from
+    orbital elements at mean anomaly M (Ic::AddBinaryStar, src/Ic/Ic.cpp).
+
+    Returns (r1, v1, r2, v2) each of shape (ndim,)."""
+    Ee = M
+    for _ in range(100):
+        Ee = Ee - (Ee - ecc * np.sin(Ee) - M) / (1.0 - ecc * np.cos(Ee))
+    theta = 2.0 * np.arctan(np.sqrt((1.0 + ecc) / (1.0 - ecc))
+                            * np.tan(0.5 * Ee))
+    sep = sma * (1.0 - ecc * ecc) / (1.0 + ecc * np.cos(theta))
+    vel = np.sqrt((m1 + m2) * (2.0 / sep - 1.0 / sma))
+    hc = np.sqrt((1.0 + ecc * np.cos(theta)) / (2.0 - sep / sma))
+    phi = np.arccos(np.clip(hc, -1.0, 1.0))
+    mbin = m1 + m2
+    rx = sep * np.cos(theta)
+    ry = sep * np.sin(theta)
+    vx = -vel * np.cos(0.5 * np.pi - theta + phi)
+    vy = vel * np.sin(0.5 * np.pi - theta + phi)
+    r1 = np.zeros(ndim)
+    v1 = np.zeros(ndim)
+    r2 = np.zeros(ndim)
+    v2 = np.zeros(ndim)
+    r1[0], r1[1] = rx * m2 / mbin, ry * m2 / mbin
+    v1[0], v1[1] = vx * m2 / mbin, vy * m2 / mbin
+    r2[0], r2[1] = -rx * m1 / mbin, -ry * m1 / mbin
+    v2[0], v2[1] = -vx * m1 / mbin, -vy * m1 / mbin
+    return r1, v1, r2, v2
+
+
+def binary_ic(params) -> Dict[str, np.ndarray]:
+    """Binary star from orbital elements (Ic::AddBinaryStar,
+    src/Ic/Ic.cpp)."""
+    fp = params.floatparams
+    ndim = params.intparams["ndim"]
+    if ndim < 2:
+        raise ValueError("binary IC needs ndim >= 2")
+    rng = _rng_from_params(params)
+    M = 2.0 * np.pi * rng.random()
+    m1, m2 = fp["m1"], fp["m2"]
+    r1, v1, r2, v2 = _binary_offsets(fp["abin"], fp["ebin"], m1, m2, M,
+                                     ndim)
+    return {"r": np.stack([r1, r2]), "v": np.stack([v1, v2]),
+            "m": np.array([m1, m2]), "h": np.full(2, fp["rstar"])}
+
+
+def triple_ic(params) -> Dict[str, np.ndarray]:
+    """Hierarchical triple: outer binary of (m1+m2) and m3 at abin, the
+    first component replaced by an inner (m1, m2) binary at abin2
+    (HierarchicalSystemIc.cpp:88-117)."""
+    fp = params.floatparams
+    ndim = params.intparams["ndim"]
+    if ndim < 2:
+        raise ValueError("triple IC needs ndim >= 2")
+    rng = _rng_from_params(params)
+    m1, m2, m3 = fp["m1"], fp["m2"], fp["m3"]
+    R1, V1, R3, V3 = _binary_offsets(fp["abin"], fp["ebin"], m1 + m2, m3,
+                                     2.0 * np.pi * rng.random(), ndim)
+    r1, v1, r2, v2 = _binary_offsets(fp["abin2"], fp["ebin2"], m1, m2,
+                                     2.0 * np.pi * rng.random(), ndim)
+    return {
+        "r": np.stack([R1 + r1, R1 + r2, R3]),
+        "v": np.stack([V1 + v1, V1 + v2, V3]),
+        "m": np.array([m1, m2, m3]),
+        "h": np.full(3, fp["rstar"]),
+    }
+
+
+def quadruple_ic(params) -> Dict[str, np.ndarray]:
+    """Hierarchical quadruple: outer binary of (m1+m2) and (m3+m4), each
+    component an inner binary at abin2 (HierarchicalSystemIc.cpp:119-150)."""
+    fp = params.floatparams
+    ndim = params.intparams["ndim"]
+    if ndim < 2:
+        raise ValueError("quadruple IC needs ndim >= 2")
+    rng = _rng_from_params(params)
+    m1, m2, m3, m4 = fp["m1"], fp["m2"], fp["m3"], fp["m4"]
+    RA, VA, RB, VB = _binary_offsets(fp["abin"], fp["ebin"],
+                                     m1 + m2, m3 + m4,
+                                     2.0 * np.pi * rng.random(), ndim)
+    r1, v1, r2, v2 = _binary_offsets(fp["abin2"], fp["ebin2"], m1, m2,
+                                     2.0 * np.pi * rng.random(), ndim)
+    r3, v3, r4, v4 = _binary_offsets(fp["abin2"], fp["ebin2"], m3, m4,
+                                     2.0 * np.pi * rng.random(), ndim)
+    return {
+        "r": np.stack([RA + r1, RA + r2, RB + r3, RB + r4]),
+        "v": np.stack([VA + v1, VA + v2, VB + v3, VB + v4]),
+        "m": np.array([m1, m2, m3, m4]),
+        "h": np.full(4, fp["rstar"]),
+    }
+
+
 _IC_REGISTRY = {
     "box": uniform_box_ic,
     "sphere": sphere_ic,
 }
+
+_NBODY_IC_REGISTRY = {
+    "plummer": plummer_stars_ic,
+    "binary": binary_ic,
+    "triple": triple_ic,
+    "quadruple": quadruple_ic,
+}
+
+
+def generate_nbody_ic(params) -> Dict[str, np.ndarray]:
+    """The star set of a pure N-body run, keyed by the `ic` parameter."""
+    name = params.stringparams["ic"]
+    if name not in _NBODY_IC_REGISTRY:
+        raise NotImplementedError(
+            f"nbody ic {name!r} is not ported yet (ROADMAP queue 1, item "
+            f"9); the port generates {sorted(_NBODY_IC_REGISTRY)}")
+    return _NBODY_IC_REGISTRY[name](params)
 
 
 def generate_ic(params, eos) -> Dict[str, np.ndarray]:

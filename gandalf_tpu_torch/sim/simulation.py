@@ -7,7 +7,7 @@ dtype, the structured-grid plan, the KD-bucket tree plan and its
 ``ntreebuildstep`` cadence, and the global-timestep host loop (bursts of
 steps, overflow replans, the clamp to tend).  ``factory`` builds a
 controller by the ``sim`` parameter.  The meshless finite-volume
-controller is in ``sim/mfv_sim.py``.
+controller is in ``sim/mfv_sim.py``, the N-body one in ``sim/nbody_sim.py``.
 
 ``GradhSphSimulation`` is the counterpart of gandalf_tpu's
 ``GradhSphSimulation`` for one configuration: grad-h SPH with the M4
@@ -102,19 +102,28 @@ class SimulationBase:
         self._leaf_of = None
 
     @staticmethod
-    def factory(params, device="cuda", dtype=torch.float32):
+    def factory(params, device="cuda", dtype=None):
         """The controller for the `sim` parameter
-        (SimulationBase::SimulationFactory)."""
+        (SimulationBase::SimulationFactory).  `dtype` defaults to float32
+        for the hydro controllers and float64 for N-body."""
         sim = params.stringparams["sim"]
+        if sim == "nbody":
+            # Nmpi > 1: the reference replicates the star set on every
+            # rank and integrates it identically (no decomposition in
+            # NbodySimulation.cpp), so the controller is the same
+            from .nbody_sim import NbodySimulation
+
+            return NbodySimulation(params, device, dtype or torch.float64)
         if params.intparams["Nmpi"] > 1:
             raise _unsupported("Nmpi > 1", "item 13")
+        dtype = dtype or torch.float32
         if sim in ("sph", "gradhsph", "gradsph"):
             return GradhSphSimulation(params, device, dtype)
         if sim in ("meshlessfv", "mfvmuscl"):
             from .mfv_sim import MfvMusclSimulation
 
             return MfvMusclSimulation(params, device, dtype)
-        raise _unsupported(f"sim {sim!r}", "items 9-11")
+        raise _unsupported(f"sim {sim!r}", "items 9-10")
 
     def _require_device(self):
         """Refuse a CUDA device when there is none, rather than leave the
@@ -421,7 +430,7 @@ class GradhSphSimulation(SimulationBase):
         p = self.params
         ip, sp = p.intparams, p.stringparams
         if sp["sim"] not in ("sph", "gradhsph", "gradsph"):
-            raise _unsupported(f"sim {sp['sim']!r}", "items 9-11")
+            raise _unsupported(f"sim {sp['sim']!r}", "items 9-10")
         if sp["dust_forces"] not in ("none", "null", ""):
             raise _unsupported("dust", "item 9")
         if sp["time_dependent_avisc"] != "none":

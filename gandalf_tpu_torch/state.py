@@ -3,7 +3,8 @@
 Counterpart of ``gandalf_tpu/state.py``: ``SphState`` carries the same
 fields (one tensor per field, structure of arrays), ``make_sph_state``
 builds the initial state, ``MfvState`` and ``make_mfv_state`` do the same
-for the meshless finite-volume path, and ``DomainBox`` holds the boundary
+for the meshless finite-volume path, ``NbodyState`` and
+``make_nbody_state`` for the N-body stars, and ``DomainBox`` holds the boundary
 description with the same ``periodic_dims``, ``mirror_walls``,
 ``min_image``, ``wrap`` and ``reflect``.  Every tensor lives on the
 ``device`` and in the float ``dtype`` the caller names.
@@ -227,6 +228,71 @@ def make_mfv_state(r, v, m, h, u, device="cpu",
         t=torch.zeros((), **kw), dt=torch.zeros((), **kw),
         nstep=torch.zeros((), dtype=torch.int64, device=device),
         neib_overflow=torch.zeros((), dtype=torch.bool, device=device),
+    )
+
+
+@dataclasses.dataclass
+class NbodyState:
+    """Structure-of-arrays star state of the direct-summation N-body path
+    (gandalf_tpu's NbodyState, the reference NbodyParticle,
+    NbodyParticle.h:42): the Hermite derivatives a, adot, a2dot, a3dot
+    and the step-start copies."""
+
+    r: Tensor            # (N, ndim)
+    v: Tensor
+    a: Tensor
+    adot: Tensor
+    a2dot: Tensor
+    a3dot: Tensor
+    r0: Tensor
+    v0: Tensor
+    a0: Tensor
+    adot0: Tensor
+    a2dot0: Tensor       # step-start snap (Hermite6TS)
+    m: Tensor            # (N,)
+    h: Tensor            # softening length
+    gpot: Tensor
+    dt_part: Tensor
+    level: Tensor
+    nlast: Tensor
+    tlast: Tensor
+    active: Tensor
+    t: Tensor            # 0-d
+    dt: Tensor
+    nstep: Tensor
+
+    @property
+    def N(self) -> int:
+        return self.r.shape[0]
+
+    @property
+    def ndim(self) -> int:
+        return self.r.shape[1]
+
+    def replace(self, **kw) -> "NbodyState":
+        return dataclasses.replace(self, **kw)
+
+
+def make_nbody_state(r, v, m, h, device="cpu",
+                     dtype=torch.float64) -> NbodyState:
+    """Initial NbodyState from IC arrays; the derivatives are zero until
+    the bootstrap force pass.  float64 by default, as the reference and
+    the JAX package keep stars."""
+    r = np.asarray(r)
+    N, ndim = r.shape
+    kw = dict(device=device, dtype=dtype)
+    f = lambda x: torch.as_tensor(np.asarray(x), **kw).clone()
+    vz = lambda: torch.zeros((N, ndim), **kw)
+    fz = lambda: torch.zeros((N,), **kw)
+    iz = lambda: torch.zeros((N,), dtype=torch.int32, device=device)
+    return NbodyState(
+        r=f(r), v=f(v), a=vz(), adot=vz(), a2dot=vz(), a3dot=vz(),
+        r0=f(r), v0=f(v), a0=vz(), adot0=vz(), a2dot0=vz(),
+        m=f(m), h=f(h), gpot=fz(), dt_part=fz(),
+        level=iz(), nlast=iz(), tlast=fz(),
+        active=torch.ones((N,), dtype=torch.bool, device=device),
+        t=torch.zeros((), **kw), dt=torch.zeros((), **kw),
+        nstep=torch.zeros((), dtype=torch.int64, device=device),
     )
 
 

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: no module of it imports JAX or the JAX
 package (an AST scan) and running it never loads JAX, whatever
-GANDALF_PRECISION says (the self-gravitating, block-timestep and MFV
-slices included); chip_smoke.py refuses to run without a GPU, a missing
+GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV and
+N-body slices included); chip_smoke.py refuses to run without a GPU, a missing
 C++ tree planner raises, a kernel wrapper refuses CPU tensors, and on a
 GPU each CUDA kernel agrees with its plain PyTorch version.
 
@@ -88,6 +88,11 @@ def test_port_never_imports_jax():
         "sim.main_loop_step()\n"
         "sim.main_loop_step()\n"
         "assert sim.Nsteps == 2 and bool((sim.state.gpot > 0).all())\n"
+        "from gandalf_tpu_torch.check import nbody_params\n"
+        "sim = SimulationBase.factory(nbody_params(64), 'cpu')\n"
+        "sim.SetupSimulation()\n"
+        "sim.main_loop_step()\n"
+        "assert sim.Nsteps == 1 and sim.t > 0.0\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -141,6 +146,26 @@ def test_kernels_match_plain_versions_on_gpu(dtype):
     sim.SetupSimulation(jittered_box_ic(p, 16))
     sim.main_loop_steps(2)
     report.update(compare_mfv_kernels(sim, sim.state))
+    torch.cuda.synchronize()
+    assert all(r["ok"] for r in report.values()), report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_nbody_kernels_match_plain_versions_on_gpu(dtype):
+    """K13-K15 against their plain versions on the card: the 2D binary,
+    and Plummer clusters of 300 and 1,000 stars (not multiples of the
+    kernels' tile of 128) with one coincident pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (compare_nbody_kernels,
+                                         nbody_kernel_inputs)
+
+    report = {}
+    for n in (2, 300, 1000):
+        (r, v, m, h), kern = nbody_kernel_inputs(n, "cuda", dtype)
+        for name, rep in compare_nbody_kernels(r, v, m, h, kern).items():
+            report[f"{name}_{n}"] = rep
     torch.cuda.synchronize()
     assert all(r["ok"] for r in report.values()), report
 
@@ -231,6 +256,25 @@ def test_mfv_wrappers_refuse_cpu_tensors():
     assert _ext.LAUNCHES == before
 
 
+def test_nbody_wrappers_refuse_cpu_tensors():
+    """K13-K15: CPU tensors raise and count no launch; the plain versions
+    run only through ops.gravity's dispatch on CPU tensors."""
+    from gandalf_tpu_torch import _ext
+
+    f64 = dict(dtype=torch.float64)
+    r, v, a = (torch.rand((16, 3), **f64) for _ in range(3))
+    m, h = torch.rand((16,), **f64), torch.rand((16,), **f64)
+    before = dict(_ext.LAUNCHES)
+    for call in (lambda: _ext.direct_nbody(r, v, m),
+                 lambda: _ext.direct_softened(r, v, m, h, True),
+                 lambda: _ext.direct_snap(r, v, a, m)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="shape"):
+        _ext.direct_nbody(torch.rand((16, 4), **f64), v, m)
+    assert _ext.LAUNCHES == before
+
+
 def test_ptxas_report_keeps_each_kernels_lines(monkeypatch):
     """The build log's ptxas lines of each kernel, as ptxas wrote them;
     nothing else of the log."""
@@ -256,10 +300,13 @@ def test_controllers_default_to_the_card():
     from gandalf_tpu_torch.sim.simulation import (GradhSphSimulation,
                                                   SimulationBase)
 
+    from gandalf_tpu_torch.check import nbody_params
+
     sims = (SimulationBase.factory(mfv_params(8)),
             SimulationBase.factory(slice_params(8)),
-            GradhSphSimulation(slice_params(8)))
-    assert [s.device.type for s in sims] == ["cuda"] * 3
+            GradhSphSimulation(slice_params(8)),
+            SimulationBase.factory(nbody_params(8)))
+    assert [s.device.type for s in sims] == ["cuda"] * 4
     if torch.cuda.is_available():
         return
     for s in sims:

@@ -66,14 +66,42 @@ checks them, in phases, each printing one line:
    version's at the path's shapes;
 18. nbody_ts6_path: hermite6ts, unsoftened, at 16,384 stars: 2 warm-up
    and 8 timed steps (K13 and K15 twice a step), with rates, launch
-   counts and finiteness, and K13's and K15's times at those shapes.
+   counts and finiteness, and K13's and K15's times at those shapes;
+19. ewald_kernels: K6 and K7 in their Ewald mode against their plain
+   versions on the card at 16^3 and 32^3, in float64 and float32: the
+   Jeans box (fully periodic), the slab and the cylinder (the sheet and
+   line far fields), and the MFV box with the Ewald sum (its zeta mode);
+20. tree_option_kernels: K6 with the gadget2 and eigenmac MACs and K6 and
+   K7 with the fast monopole and quadrupole the same way on the
+   self-gravitating box, each also over a group list;
+21. ewald_parity: 5 float64 steps at 16^3 of the Jeans box, the slab,
+   the cylinder and the MFV box with the Ewald sum, kernels on the card
+   against the plain path on the CPU, with equal tree plans;
+22. ewald_main_path: ewald_jeans_box (check.jeans_params) at 64^3 in
+   float32: the host table's build time, setup, 2 warm-up steps, the
+   post-warm-up replan, 2 more, then 32 timed steps (one rebuild
+   cadence), with launch counts, finiteness, overflow replans, the
+   energy drift and the accuracy against the periodic direct sum
+   (check.periodic_gravity_accuracy; the gate shown to reject the same
+   walk without the correction), and each kernel's time beside its
+   plain version's at the path's shapes;
+23. tree_options_path: the self-gravitating box of gravity_main_path at
+   64^3 in float32 with gadget2, eigenmac and fast_quadrupole in turn:
+   setup (its bootstrap replans counted), 2 warm-up steps, the
+   post-warm-up replan, then 8 timed steps, with rates, launch counts,
+   replans, and the accuracy against the direct sum beside the
+   geometric MAC's on the same state (an accuracy MAC within 1.001
+   times it; the fast quadrupole within 5e-3), and K6's and K7's times
+   at the path's shapes.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path, K8, K9 and the list
 launches of K6 and K7 with counts from the block main path, K10-K12
 and K7's MFV launches from the MFV main path, K14 from the N-body main
-path and K13 and K15 from the hermite6ts path, each counted over its
-path's timed window (the counts are set to 0 just before it); each
+path and K13 and K15 from the hermite6ts path, the Ewald modes of K6
+and K7 from the Ewald main path, and the gadget2, eigenmac and fast
+modes from the options path, each counted over its path's timed window
+(the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
 for the work, check.bound) and library_ms null (no single PyTorch call
 computes any of these functions).  The last line is {"ok": true,
@@ -155,6 +183,29 @@ NBODY_PARITY_N = 1024
 NBODY_PARITY_STEPS = 10
 NBODY_TS6_N = 16384
 NBODY_TS6_STEPS_TIMED = 8
+# the periodic self-gravity slice: ewald_jeans_box (check.jeans_params)
+EWALD_SIZES = (16, 32)
+EWALD_PARITY_N = 16
+EWALD_STEPS_TIMED = 32
+# the gate of the periodic tree's rms|da|/rms|a| against the periodic
+# direct sum (min-imaged, kernel-softened, each pair's Ewald correction
+# added; check.periodic_gravity_accuracy).  The walk corrects an accepted
+# cell at its centre of mass only, and the sine mode's net force (rms
+# 0.032) is a residual of far larger terms: the JAX package reads 0.194
+# at 32^3 in float64 (tests/test_torch_ewald_sim.py, slow-marked) and
+# the card 0.245 at 64^3 in float32; the gate is about twice the larger.
+# The same walk without the correction reads 60 (an isolated cube's
+# field), which the phase shows the gate rejects.
+EWALD_ACCURACY_TOL = 0.5
+# the options path: the gravity box with each option, 8 timed steps
+OPTIONS = (("gravity_mac", "gadget2"), ("gravity_mac", "eigenmac"),
+           ("multipole", "fast_quadrupole"))
+OPTIONS_STEPS_TIMED = 8
+# tests/test_treeerror.py:145-150 and :62-69: an accuracy MAC opens at
+# least the geometric MAC's cells, so its error is at most 1.001 times
+# the geometric MAC's; the fast quadrupole's error is at most 5e-3
+MAC_ERROR_RATIO = 1.001
+FAST_ACCURACY_TOL = 5e-3
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -193,6 +244,18 @@ SOURCES = {
                         "gandalf_tpu/ops/gravity.py:86"),
     "direct_snap": ("gandalf_tpu_torch/csrc/nbody_direct.cu",
                     "gandalf_tpu/ops/gravity.py:60"),
+    "tree_walk_ewald": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+                        "gandalf_tpu/ops/tree.py:556"),
+    "tree_near_ewald": ("gandalf_tpu_torch/csrc/tree_near.cu",
+                        "gandalf_tpu/ops/tree.py:687"),
+    "tree_walk_gadget2": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+                          "gandalf_tpu/ops/tree.py:457"),
+    "tree_walk_eigenmac": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+                           "gandalf_tpu/ops/tree.py:463"),
+    "tree_walk_fast": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+                       "gandalf_tpu/ops/tree.py:481"),
+    "tree_near_fast": ("gandalf_tpu_torch/csrc/tree_near.cu",
+                       "gandalf_tpu/ops/tree.py:848"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
@@ -203,6 +266,9 @@ BLOCK = ("grid27_bin", "active_density", "active_forces", "tree_gather",
 MFV = ("grid27_bin", "tree_gather", "tree_build", "tree_walk",
        "tree_near_mfv", "mfv_density", "mfv_gradients", "mfv_fluxes")
 NBODY = ("direct_nbody", "direct_softened", "direct_snap")
+# the kernels of a step of the Ewald path
+EWALD = HYDRO + ("tree_gather", "tree_build", "tree_walk_ewald",
+                 "tree_near_ewald")
 
 
 def phase(tag: str, **fields) -> None:
@@ -685,6 +751,256 @@ def nbody_ts6_path(dev, card):
     return ({k: launches[k] for k in names}, {k: rep[k] for k in names})
 
 
+def make_ewald_sim(kind, n_side, device, dtype, ntreebuildstep=None):
+    """A simulation with the Ewald sum: the Jeans box ("jeans"), the slab
+    ("slab", open along z), the cylinder ("cylinder", periodic along z
+    only), each through GradhSphSimulation, or the MFV box with ewald = 1
+    ("mfv").  Returns (sim, ic or None)."""
+    from gandalf_tpu_torch.check import (jeans_params, jittered_box_ic,
+                                         mfv_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    ic = None
+    if kind == "mfv":
+        p = mfv_params(n_side, self_gravity=1)
+        p.set("ewald", 1)
+        ic = jittered_box_ic(p, n_side)
+    else:
+        p = jeans_params(n_side)
+        if kind != "jeans":
+            per = "xy" if kind == "slab" else "z"
+            p.set("ic", "ewaldslab" if kind == "slab" else "ewaldcylinder")
+            for k, axis in enumerate("xyz"):
+                p.set(f"boxmin[{k}]", -0.5)
+                p.set(f"boxmax[{k}]", 0.5)
+                side = "periodic" if axis in per else "open"
+                p.set(f"boundary_lhs[{k}]", side)
+                p.set(f"boundary_rhs[{k}]", side)
+    if ntreebuildstep is not None:
+        p.set("ntreebuildstep", ntreebuildstep)
+    return SimulationBase.factory(p, device, dtype), ic
+
+
+def ewald_kernels(dev) -> None:
+    """K6 and K7 in their Ewald mode against their plain versions on the
+    card, after setup, for each periodicity and the MFV zeta mode."""
+    from gandalf_tpu_torch.check import compare_tree_kernels
+
+    for n_side in EWALD_SIZES:
+        for dtype in (torch.float64, torch.float32):
+            for kind in ("jeans", "slab", "cylinder", "mfv"):
+                sim, ic = make_ewald_sim(kind, n_side, dev, dtype)
+                sim.SetupSimulation(ic)
+                rep = compare_tree_kernels(sim, sim.state)
+                phase("ewald_kernels", kind=kind, n_side=n_side,
+                      dtype=str(dtype), far_kind=sim.ewald_table.far_kind,
+                      G=sim.treespec.n_leaves,
+                      near_cap=sim.treespec.near_cap, report=rep)
+                require_ok("ewald_kernels", rep)
+
+
+def tree_option_kernels(dev) -> None:
+    """K6 with each accuracy MAC and K6/K7 with the fast multipoles
+    against their plain versions on the card, over all groups and over
+    a list of every other group, after setup and 2 steps of the
+    self-gravitating box (so that a0 and gpot are set)."""
+    from gandalf_tpu_torch.check import compare_tree_kernels
+
+    for n_side in EWALD_SIZES:
+        for dtype in (torch.float64, torch.float32):
+            for key, value in OPTIONS + (("multipole", "fast_monopole"),):
+                sim, ic = make_sim(n_side, dev, dtype, self_gravity=1)
+                sim.params.set(key, value)
+                sim.SetupSimulation(ic)
+                sim.main_loop_steps(2)
+                rep = compare_tree_kernels(sim, sim.state, listed=True)
+                phase("tree_option_kernels", option=value, n_side=n_side,
+                      dtype=str(dtype), G=sim.treespec.n_leaves,
+                      near_cap=sim.treespec.near_cap, report=rep)
+                require_ok("tree_option_kernels", rep)
+
+
+def ewald_parity(dev) -> None:
+    """5 float64 steps at 16^3 with the Ewald sum, kernels on the card
+    against the plain path on the CPU, with a tree rebuild every 2
+    steps: the same fields within PARITY_TOL and the same plans."""
+    for kind in ("jeans", "slab", "cylinder", "mfv"):
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim, ic = make_ewald_sim(kind, EWALD_PARITY_N, device,
+                                     torch.float64,
+                                     ntreebuildstep=GRAVITY_NTB_PARITY)
+            sim.SetupSimulation(ic)
+            for _ in range(PARITY_STEPS):
+                sim.main_loop_step()
+            sims.append(sim)
+        torch.cuda.synchronize()
+        fields = ("r", "v", "u", "h", "rho", "gpot") + (
+            ("m", "Qcons0") if kind == "mfv" else ())
+        errs = parity_errors(sims, fields)
+        counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
+        phase("ewald_parity", kind=kind, n_side=EWALD_PARITY_N,
+              steps=PARITY_STEPS,
+              rel_err=errs, tree_plans_and_replans=counts)
+        if max(errs.values()) > PARITY_TOL or counts[0] != counts[1]:
+            raise RuntimeError(f"ewald_parity: kernel path disagrees with "
+                               f"the plain path: {kind} {errs} {counts}")
+
+
+def ewald_main_path(dev, card):
+    """ewald_jeans_box at full size: the host table's build time, setup,
+    warm-up, the post-warm-up replan, the timed window of one rebuild
+    cadence, then the checks and the kernels against their plain
+    versions at the path's shapes.  Returns the path's launch counts and
+    the kernel reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_kernels,
+                                         compare_tree_kernels,
+                                         periodic_gravity_accuracy)
+    from gandalf_tpu_torch.ops.ewald import build_ewald_table
+
+    sim, _ = make_ewald_sim("jeans", N_MAIN, dev, torch.float32)
+    p = sim.params
+    t0 = time.perf_counter()
+    build_ewald_table([1.0] * 3, ngrid=max(p.intparams["nEwaldGrid"], 9),
+                      ewald_mult=p.floatparams["ewald_mult"])
+    table_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    boot_replans = sim._n_grid_overflows
+    run_timed(sim, STEPS_WARM)
+    sim._plan_tree_buckets(sim.state.r.cpu().numpy())
+    run_timed(sim, STEPS_WARM)
+    e0 = energy(sim.state, gravity=True)
+    plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
+    rebuild0 = sim.timing.totals.get("TREE_REBUILD", 0.0)
+    steps0 = sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, EWALD_STEPS_TIMED)
+    done = sim.Nsteps - steps0
+    launches = {k: _ext.LAUNCHES[k] for k in EWALD}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    replans = sim._n_grid_overflows - replans0
+    s = sim.state
+    N = s.N
+    drift = abs(energy(s, gravity=True) - e0) / abs(e0)
+    acc = periodic_gravity_accuracy(sim, n_sample=2048)
+    # the same walk without the correction: the gate must reject it
+    plain_acc = periodic_gravity_accuracy(sim, n_sample=2048, ewald=False)
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt",
+                                "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(n >= done for n in launches.values()),
+        "accuracy": acc["rms_rel_err"] <= EWALD_ACCURACY_TOL,
+        "gate_rejects_no_ewald": plain_acc["rms_rel_err"]
+        > EWALD_ACCURACY_TOL,
+        "energy_drift": drift <= GRAVITY_ENERGY_DRIFT_TOL,
+    }
+    rep = compare_kernels(sim, s, repeats=5, quiet=True)
+    rep.update(compare_tree_kernels(sim, s, repeats=5))
+    spec = sim.treespec
+    phase("ewald_main_path", N=N, steps=sim.Nsteps, timed_steps=done,
+          table_build_s=table_s, table_nodes=list(
+              sim.ewald_table.pot.shape), setup_s=t_setup,
+          bootstrap_replans=boot_replans, timed_s=elapsed,
+          particle_steps_per_s=N * done / elapsed,
+          rebuilds_in_window=sim._n_tree_plans - plans0 - replans,
+          rebuild_host_s=sim.timing.totals.get("TREE_REBUILD", 0.0)
+          - rebuild0, replans_in_window=replans, G_pad=spec.n_leaves,
+          near_cap=spec.near_cap, support_cap=spec.support_cap,
+          frontier_levels=list(spec.frontier_levels),
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          launches=launches, energy_drift=drift,
+          energy_gate=GRAVITY_ENERGY_DRIFT_TOL, accuracy=acc,
+          accuracy_without_ewald=plain_acc, accuracy_gate=EWALD_ACCURACY_TOL,
+          checks=checks, kernels=rep, card=card, peak_mem_gb=peak_gb)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"ewald main path checks failed: {failed}")
+    names = ("tree_walk_ewald", "tree_near_ewald")
+    return ({k: launches[k] for k in names}, {k: rep[k] for k in names})
+
+
+def tree_options_path(dev, card):
+    """The self-gravitating box at full size with each option in turn:
+    setup, warm-up, the post-warm-up replan, the timed steps, then the
+    accuracy against the direct sum beside the geometric MAC's, and K6
+    and K7 against their plain versions at the path's shapes.  Returns
+    the paths' launch counts and the kernel reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_tree_kernels,
+                                         gravity_accuracy)
+
+    out_launches, out_rep = {}, {}
+    for key, value in OPTIONS:
+        sim, ic = make_sim(N_MAIN, dev, torch.float32, self_gravity=1)
+        sim.params.set(key, value)
+        t0 = time.perf_counter()
+        sim.SetupSimulation(ic)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        boot_replans = sim._n_grid_overflows
+        boot_near_cap = sim.treespec.near_cap
+        run_timed(sim, STEPS_WARM)
+        sim._plan_tree_buckets(sim.state.r.cpu().numpy())
+        replans0 = sim._n_grid_overflows
+        steps0 = sim.Nsteps
+        wname, nname = _ext.launch_names(sim.treespec)
+        _ext.reset_launches()
+        elapsed = run_timed(sim, OPTIONS_STEPS_TIMED)
+        done = sim.Nsteps - steps0
+        names = HYDRO + ("tree_gather", "tree_build", wname, nname)
+        launches = {k: _ext.LAUNCHES[k] for k in names}
+        replans = sim._n_grid_overflows - replans0
+        s = sim.state
+        spec = sim.treespec
+        acc = gravity_accuracy(sim, n_sample=2048)
+        geo = gravity_accuracy(sim, n_sample=2048, spec=dataclasses.replace(
+            spec, mac="geometric", fast=False))
+        checks = {
+            "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                          for f in ("r", "v", "a", "u", "h", "rho",
+                                    "gpot")),
+            "rho_positive": bool((s.rho > 0).all()),
+            "no_overflow": not bool(s.neib_overflow)
+            and not acc["overflow"],
+            "launches": all(n >= done for n in launches.values()),
+            "accuracy": (acc["rms_rel_err"] <= FAST_ACCURACY_TOL
+                         if spec.fast else acc["rms_rel_err"]
+                         <= MAC_ERROR_RATIO * geo["rms_rel_err"]),
+        }
+        # K7 runs in its own mode under an accuracy MAC, the mode the
+        # gravity path holds; its plain version at whole-tree near lists
+        # would take minutes
+        rep = compare_tree_kernels(sim, s, repeats=5, near=spec.fast)
+        phase("tree_options_path", option=value, N=s.N, steps=sim.Nsteps,
+              timed_steps=done, setup_s=t_setup,
+              bootstrap_replans=boot_replans,
+              bootstrap_near_cap=boot_near_cap, timed_s=elapsed,
+              particle_steps_per_s=s.N * done / elapsed,
+              replans_in_window=replans, G_pad=spec.n_leaves,
+              near_cap=spec.near_cap, frontier_levels=list(
+                  spec.frontier_levels), launches=launches, accuracy=acc,
+              geometric_accuracy=geo, checks=checks, kernels=rep, card=card)
+        failed = [k for k, ok in checks.items() if not ok]
+        failed += [k for k, r in rep.items() if not r["ok"]]
+        if failed:
+            raise RuntimeError(f"tree options path ({value}) checks "
+                               f"failed: {failed}")
+        keep = (wname, nname) if spec.fast else (wname,)
+        out_launches.update({k: launches[k] for k in keep})
+        out_rep.update({k: rep[k] for k in keep})
+        del sim, s
+    return out_launches, out_rep
+
+
 def kernel_line(launches, rep) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -924,6 +1240,16 @@ def main() -> int:
         n_launches, n_rep = path(dev, card)
         launches.update(n_launches)
         rep.update(n_rep)
+
+    # 19-23. the walk's options: the Ewald sum, accuracy MACs and fast
+    # multipoles
+    ewald_kernels(dev)
+    tree_option_kernels(dev)
+    ewald_parity(dev)
+    for path in (ewald_main_path, tree_options_path):
+        o_launches, o_rep = path(dev, card)
+        launches.update(o_launches)
+        rep.update(o_rep)
 
     print(json.dumps(kernel_line(launches, rep)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,12 @@ current stream and raise if the launch reports an error.  Each adds one
 to its kernel's count in ``LAUNCHES`` when it launches, and nowhere else
 (K5's wrapper launches one kernel per tree level and counts one).  K6
 and K7 launched over a group list count under ``tree_walk_list`` and
-``tree_near_list``, and K7 in its meshless finite-volume zeta mode under
-``tree_near_mfv``, apart from their launches over all groups.  The
+``tree_near_list``; over all groups, with the Ewald sum under
+``tree_walk_ewald`` and ``tree_near_ewald``, else with the fast
+multipoles under ``tree_walk_fast`` and ``tree_near_fast``, else K6 with
+the gadget2 or eigenmac MAC under ``tree_walk_gadget2`` or
+``tree_walk_eigenmac`` and K7 in its meshless finite-volume zeta mode
+under ``tree_near_mfv``, and otherwise under their own names.  The
 N-body kernels K13-K15 count under ``direct_nbody``, ``direct_softened``
 and ``direct_snap``.
 """
@@ -45,7 +49,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "tree_gather": 0, "tree_build": 0, "tree_walk": 0,
             "tree_near": 0, "tree_walk_list": 0, "tree_near_list": 0,
-            "tree_near_mfv": 0, "active_density": 0, "active_forces": 0,
+            "tree_near_mfv": 0, "tree_walk_ewald": 0, "tree_near_ewald": 0,
+            "tree_walk_gadget2": 0, "tree_walk_eigenmac": 0,
+            "tree_walk_fast": 0, "tree_near_fast": 0, "active_density": 0,
+            "active_forces": 0,
             "mfv_density": 0, "mfv_gradients": 0, "mfv_fluxes": 0,
             "direct_nbody": 0, "direct_softened": 0, "direct_snap": 0}
 
@@ -61,10 +68,10 @@ _ARGTYPES = {
                       _D, _D, _D, _D, _I, _I, _D, _D, _P, _P, _P, _I, _P],
     "tree_gather": [_P, _I, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _I, _P],
     "tree_build": [_P, _P, _I, _I, _P, _P, _I, _P],
-    "tree_walk": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _P, _P, _P, _P,
-                  _I, _P],
-    "tree_near": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _D, _D, _P, _P, _P, _I, _P],
+    "tree_walk": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _I, _I, _D, _P,
+                  _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "tree_near": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _I, _D, _D, _P, _P, _P, _P, _P, _I, _P],
     "active_density": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I,
                        _P],
@@ -340,43 +347,93 @@ def _group_list(spec, group_ids, dev):
     return _p(group_ids), group_ids.numel()
 
 
-def tree_walk(spec, ctab, ptab, alive, group_ids=None):
+_MACS = {"geometric": 0, "gadget2": 1, "eigenmac": 2}
+_FAST_COLS = 13
+
+
+def _ewald_args(ewald, dt, dev):
+    """(table pointer, metadata array) of an (EwaldTable, extent) pair,
+    or (None, None); the caller keeps the array alive over the call."""
+    if ewald is None:
+        return None, None
+    table, extent = ewald
+    tab = table.tensor(dev, dt)
+    return tab, table.meta(extent)
+
+
+def launch_names(spec, ewald=False, listed=False, mfv=False):
+    """The LAUNCHES names (K6, K7) of a walk with TreeSpec `spec`, with
+    or without the Ewald sum, over a group list or all groups, and (K7)
+    in the SPH or the MFV zeta mode."""
+    if listed:
+        return "tree_walk_list", "tree_near_list"
+    if ewald:
+        return "tree_walk_ewald", "tree_near_ewald"
+    if spec.fast:
+        return "tree_walk_fast", "tree_near_fast"
+    walk = "tree_walk" if spec.mac == "geometric" else f"tree_walk_{spec.mac}"
+    return walk, "tree_near_mfv" if mfv else "tree_near"
+
+
+def tree_walk(spec, ctab, ptab, alive, group_ids=None, gfac=None,
+              ewald=None):
     """K6: far a (G*32, 3), far pot (G*32,), near list (G, Wn) int32 and
-    overflow () bool.  With `group_ids` (G_act,) int32 only the listed
-    groups walk: their rows are written, the others hold zeros (a, pot)
-    and -1 (near)."""
+    overflow () bool; with spec.fast the first two are the groups'
+    expansions (G, 13) (a0, pot0, Jacobian) and None.  `gfac` (G,) is
+    the per-group factor of the gadget2 or eigenmac MAC (required with
+    either); `ewald` an (EwaldTable, extent) pair for the periodic walk.
+    With `group_ids` (G_act,) int32 only the listed groups walk: their
+    rows are written, the others hold zeros (a, pot) and -1 (near)."""
     G, S, rows = _tree_shapes(spec)
     dt, dev = ptab.dtype, ptab.device
     _check(ctab, "ctab", dt, (rows, _CCOLS))
     _check(ptab, "ptab", dt, (S, _PCOLS))
     _check(alive, "alive", torch.bool, (S,))
+    mac = _MACS[spec.mac]
+    if mac:
+        if gfac is None:
+            raise ValueError(f"the {spec.mac} MAC needs its per-group factor")
+        _check(gfac, "gfac", dt, (G,))
     gptr, n_groups = _group_list(spec, group_ids, dev)
     caps = [1] + [spec.level_cap(ell) for ell in range(1, spec.depth + 1)]
     caps_c = (ctypes.c_int * len(caps))(*caps)
     listed = group_ids is not None
     alloc = torch.zeros if listed else torch.empty
-    a_far = alloc((S, 3), dtype=dt, device=dev)
-    pot_far = alloc((S,), dtype=dt, device=dev)
+    if spec.fast:
+        a_far, pot_far = alloc((G, _FAST_COLS), dtype=dt, device=dev), None
+    else:
+        a_far = alloc((S, 3), dtype=dt, device=dev)
+        pot_far = alloc((S,), dtype=dt, device=dev)
     near = (torch.full((G, spec.near_cap), -1, dtype=torch.int32,
                        device=dev) if listed else
             torch.empty((G, spec.near_cap), dtype=torch.int32, device=dev))
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    tab, meta = _ewald_args(ewald, dt, dev)
+    count = launch_names(spec, tab is not None, listed)[0]
     if n_groups:
         _launch("tree_walk", dt, dev, _p(ctab), _p(ptab), _p(alive), gptr,
                 n_groups, spec.depth, spec.near_cap, ctypes.addressof(caps_c),
-                float(spec.theta_sqd), int(spec.quadrupole), _p(a_far),
-                _p(pot_far), _p(near), _p(overflow),
-                count="tree_walk_list" if listed else "tree_walk")
+                float(spec.theta_sqd), int(spec.quadrupole), int(spec.fast),
+                mac, float(spec.macerror), _p(gfac) if mac else None,
+                None if tab is None else _p(tab),
+                None if meta is None else meta.ctypes.data,
+                None if spec.fast else _p(a_far),
+                None if spec.fast else _p(pot_far),
+                _p(a_far) if spec.fast else None, _p(near), _p(overflow),
+                count=count)
     return a_far, pot_far, near, overflow
 
 
 def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
-              out_index, n_out, group_ids=None, zeta_scaling="sph"):
+              out_index, n_out, group_ids=None, zeta_scaling="sph",
+              ewald=None):
     """K7: a (n_out, 3), gpot (n_out,) at rows out_index[slot] of the live
     slots (zero elsewhere), and the support overflow () bool.  `kern`
-    None sums Newtonian pairs only.  With `group_ids` only the listed
-    groups' slots are written.  `zeta_scaling` "mfv" takes the meshless
-    finite-volume zeta term and counts under tree_near_mfv."""
+    None sums Newtonian pairs only.  With spec.fast, `a_far` is K6's
+    (G, 13) expansions and `pot_far` None.  `ewald` an (EwaldTable,
+    extent) pair min-images each pair and adds the table's correction.
+    With `group_ids` only the listed groups' slots are written.
+    `zeta_scaling` "mfv" takes the meshless finite-volume zeta term."""
     mfv = zeta_scaling == "mfv"
     if mfv and group_ids is not None:
         raise NotImplementedError("the MFV zeta mode walks all groups")
@@ -386,8 +443,13 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
     _check(ptab, "ptab", dt, (S, _PCOLS))
     _check(alive, "alive", torch.bool, (S,))
     _check(near, "near", torch.int32, (G, spec.near_cap))
-    _check(a_far, "a_far", dt, (S, 3))
-    _check(pot_far, "pot_far", dt, (S,))
+    if spec.fast:
+        _check(a_far, "a_far", dt, (G, _FAST_COLS))
+        if pot_far is not None:
+            raise ValueError("pot_far: the fast multipoles take None")
+    else:
+        _check(a_far, "a_far", dt, (S, 3))
+        _check(pot_far, "pot_far", dt, (S,))
     out_index = out_index.reshape(-1)
     _check(out_index, "out_index", torch.int32, (S,))
     gptr, n_groups = _group_list(spec, group_ids, dev)
@@ -395,16 +457,21 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
     gpot = torch.zeros((n_out,), dtype=dt, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     smoothed = kern is not None
+    tab, meta = _ewald_args(ewald, dt, dev)
+    count = launch_names(spec, tab is not None, group_ids is not None,
+                         mfv)[1]
     if n_groups:
         _launch("tree_near", dt, dev, _p(ctab), _p(ptab), _p(alive),
-                _p(near), _p(a_far), _p(pot_far), _p(out_index), gptr,
+                _p(near), None if spec.fast else _p(a_far),
+                None if spec.fast else _p(pot_far),
+                _p(a_far) if spec.fast else None, _p(out_index), gptr,
                 n_groups, spec.depth, spec.near_cap, spec.support_cap,
                 int(smoothed), int(mfv),
                 float(kern.kernrange) if smoothed else 0.0,
-                float(kern.kernnorm) if smoothed else 0.0, _p(a), _p(gpot),
-                _p(overflow),
-                count="tree_near_list" if group_ids is not None
-                else "tree_near_mfv" if mfv else "tree_near")
+                float(kern.kernnorm) if smoothed else 0.0,
+                None if tab is None else _p(tab),
+                None if meta is None else meta.ctypes.data, _p(a), _p(gpot),
+                _p(overflow), count=count)
     return a, gpot, overflow
 
 

@@ -16,8 +16,13 @@ sum.  ``mfv_params`` is the meshless finite-volume configuration
 with their plain versions, and ``mfv_gravity_accuracy`` holds the MFV
 tree against the all-pairs ``mfv_smoothed_gravity``.  ``nbody_params``
 is the N-body configuration ``plummer_cluster``; ``compare_nbody_kernels``
-compares K13-K15 with their plain versions.  ``chip_smoke.py`` and the
-CUDA tests use them.
+compares K13-K15 with their plain versions.  ``jeans_params`` is the
+periodic self-gravitating configuration ``ewald_jeans_box`` (the Ewald
+sum), and ``periodic_gravity_accuracy`` holds a periodic tree against
+the min-imaged direct sum plus each pair's Ewald correction;
+``compare_tree_kernels`` takes each walk option (the Ewald sum, the
+gadget2 and eigenmac MACs, the fast multipoles) of the simulation it is
+given.  ``chip_smoke.py`` and the CUDA tests use them.
 """
 
 from __future__ import annotations
@@ -55,6 +60,11 @@ TOL_F32_DENSITY_FRACTION = 1e-3
 # the support, each rounded at 6e-8 relative, partly cancelling in a
 # near-uniform medium; errors stay well below 1e-4 of the largest value.
 TOL_F32_FORCES = 1e-4
+# float32, K3 on a quiet lattice (the Jeans box: a regular lattice with
+# a 2.5% density mode and no jitter): the pressure force is a residual of
+# pair terms that cancel almost exactly, so the same rounding shows at a
+# larger fraction of its largest value: 2.8e-4 on the card at 64^3.
+TOL_F32_FORCES_QUIET = 1e-3
 # K5 in float64: each level's fields within 1e-12 of the level's largest
 # value of the field; the quadrupole's scale is max m*|half|^2, since a
 # near-uniform cell's traceless quadrupole is itself a cancellation.
@@ -73,6 +83,13 @@ TOL_F32_TREE_FAR = 1e-4
 # float32, K7: ~3,000 partners per slot, most of them Newtonian terms of
 # one sign; summation order moves a and gpot by ~1e-6 of their maxima.
 TOL_F32_TREE_NEAR = 1e-4
+# float32, K7 with the Ewald sum: in a near-uniform periodic box the net
+# field and the potential (whose background term makes it hover about 0)
+# are small residuals of the pair terms and their corrections, so the
+# same rounding, summed in another order, shows at a larger fraction of
+# their maxima: on the card (Jeans and MFV boxes at 16^3) 9.8e-5 of the
+# largest |a| and up to 3.7e-4 of the largest |gpot|.
+TOL_F32_EWALD_NEAR = 1e-3
 # float32, K11: E and the two gradient sums over ~60 pairs each, rounded
 # at 6e-8 and summed in another order (and with fused multiply-adds on
 # the card); B = E^-1 and the gradients move by ~1e-6 of their largest
@@ -110,15 +127,23 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # particle (K1), per slot (K4), per slot and per cell (K5), per pair
 # within a support (kernrange h_i for K2, K8, K10, K11; kernrange
 # max(h_i, h_j) for K3, K9, K12), per live cell tested and per accepted
-# cell and slot (K6), per near pair (K7), per ordered pair of distinct
-# stars in 3D (K13 with the jerk, K14 with the jerk and beyond the
-# kernel's support, where nearly every pair of the Plummer cluster lies,
-# K15).  The pair work counts one sweep of the h iterations, the least
+# cell and slot (K6; with the fast multipoles per accepted cell, the
+# field and its Jacobian, and per live slot the expansion in K7), per
+# near pair (K7), per ordered pair of distinct stars in 3D (K13 with the
+# jerk, K14 with the jerk and beyond the kernel's support, where nearly
+# every pair of the Plummer cluster lies, K15).  The accuracy MACs add
+# their test to each cell tested (eigenmac's power counted as 20), the
+# Ewald sum its min-image to each MAC test (3 x 4) and to each far term
+# and near pair the min-image and the correction: 35 operations of the
+# trilinear lookup and the sign, plus its 8 corner loads counted as one
+# each.  The pair work counts one sweep of the h iterations, the least
 # the data needs.
 FLOPS_PER = {
     "grid27_bin": 15, "grid27_density": 40, "grid27_forces": 80,
     "tree_gather": 10, "tree_build_slot": 30, "tree_build_cell": 60,
     "tree_walk_mac": 15, "tree_walk_far": 60, "tree_near": 20,
+    "mac_gadget2": 5, "mac_eigenmac": 35, "mac_ewald": 12,
+    "tree_walk_fast": 100, "tree_near_fast": 25, "ewald_pair": 55,
     "active_density": 40, "active_forces": 80,
     "mfv_density": 40, "mfv_gradients": 120, "mfv_fluxes": 450,
     "direct_nbody": 46, "direct_softened": 66, "direct_snap": 74,
@@ -196,6 +221,25 @@ def mfv_params(n_side: int, self_gravity: int = 1,
     = gizmo and zero_mass_flux = 1, and a global timestep."""
     p = slice_params(n_side, tend, self_gravity)
     p.set("sim", "meshlessfv")
+    return p
+
+
+def jeans_params(n_side: int, tend: float = 1.0e30,
+                 ntreebuildstep: int = 32) -> Parameters:
+    """The ewald_jeans_box configuration: GANDALF's Jeans test with the
+    Ewald sum (tests/test_ewald.py:335-346): ic = jeans, a sinusoidal
+    density perturbation of amplitude 0.025 along x on an n_side^3
+    lattice (temp0 = mu_bar = 1), ewald = 1 with nEwaldGrid = 16 (a 16^3
+    table) and ewald_mult = 1, in a 3D periodic unit box; every other
+    option slice_params(n_side, self_gravity=1)'s (M4, energy_eqn gamma
+    1.4, mon97, KDK global dt, quadrupole tree with the geometric MAC at
+    theta^2 = 0.1, KD buckets of 32), the tree replanned every
+    `ntreebuildstep` steps."""
+    p = slice_params(n_side, tend, self_gravity=1)
+    for k, v in {"ic": "jeans", "ewald": 1, "nEwaldGrid": 16,
+                 "ewald_mult": 1.0, "amp": 0.025, "temp0": 1.0,
+                 "mu_bar": 1.0, "ntreebuildstep": ntreebuildstep}.items():
+        p.set(k, v)
     return p
 
 
@@ -310,13 +354,14 @@ def _scaled(x, ref, fill):
     return float(err / torch.abs(ref)[fill].max())
 
 
-def compare_kernels(sim, state, repeats: int = 0):
+def compare_kernels(sim, state, repeats: int = 0, quiet: bool = False):
     """Run K1, K2, K3 and their plain versions on the same inputs, from a
     state on a CUDA device; returns {kernel: report}.  A report holds the errors,
     `ok` against this module's tolerances, `max_abs_err` of the primary
-    output and, with `repeats` > 0, `ms` and `plain_ms`.  Launch counts
-    are restored afterwards, so comparisons never count as main-path
-    launches."""
+    output and, with `repeats` > 0, `ms` and `plain_ms`.  `quiet` takes
+    K3's float32 tolerance for a quiet lattice (TOL_F32_FORCES_QUIET).
+    Launch counts are restored afterwards, so comparisons never count as
+    main-path launches."""
     saved = dict(_ext.LAUNCHES)
     spec, kern, visc = sim.gridspec, sim.kern, sim.visc
     f64 = state.r.dtype == torch.float64
@@ -384,7 +429,8 @@ def compare_kernels(sim, state, repeats: int = 0):
     out["grid27_forces"] = {
         "scaled_err": errs,
         "max_abs_err": float(torch.abs(f_k[0] - f_p[0])[fill3].max()),
-        "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_FORCES)}
+        "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_FORCES_QUIET
+                                     if quiet else TOL_F32_FORCES)}
 
     ids_d = ag.dense_ids(spec, b_p)
     n_i, n_ij = _slot_support_counts(spec, kern, ids_d, state.r, state.h)
@@ -428,6 +474,31 @@ def gravity_inputs(sim, state):
             state.zeta * state.hfactor, pext)
 
 
+def walk_options(sim, state, spec=None):
+    """The walk's options as the simulation's gravity pass passes them:
+    (gfac, ewald), the accuracy MAC's per-group factor (None with the
+    geometric MAC) and the (EwaldTable, periodic extent) pair (None
+    without the Ewald sum)."""
+    spec = spec or sim.treespec
+    ptab, alive = tr.gather_to_buckets_plain(
+        spec, state.bucket_map, state.r, state.m)
+    mac_kw = _mac_kwargs(sim, state, spec)
+    gfac = tr.mac_factors(spec, state.bucket_map, alive,
+                          mac_kw.get("amag"), mac_kw.get("gpot_prev"),
+                          dtype=state.r.dtype)
+    ewald = (None if sim.ewald_table is None
+             else (sim.ewald_table, sim._periodic_extent()))
+    return gfac, ewald
+
+
+def _mac_kwargs(sim, state, spec) -> dict:
+    """The accuracy MAC's inputs as the simulation's gravity pass gives
+    them for `spec` (the MFV controller gives none)."""
+    if not hasattr(sim, "_mac_inputs"):
+        return {}
+    return sim._mac_inputs(state, spec)
+
+
 def _tree_build_errors(spec, ctab, ref):
     """Per level and field, error relative to the level's scale of the
     field (K5 tolerance above); returns the largest.  Positions (com,
@@ -469,15 +540,36 @@ def _scaled_all(x, ref, rows):
     return err / max(float(torch.abs(ref)[rows].max()), 1e-300)
 
 
-def compare_tree_kernels(sim, state, repeats: int = 0):
+def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
+                         listed: bool = False, near: bool = True):
     """Run K4-K7 and their plain versions on the same inputs from a
-    gravity-slice state on a CUDA device; returns {kernel: report} as
-    compare_kernels does, plus a forced-overflow case (near cap, one
-    level cap and the support cap shrunk) where both versions must
-    overflow.  Launch counts are restored afterwards."""
+    self-gravitating state on a CUDA device (an SPH or, in its zeta
+    mode, an MFV simulation), with the walk options of the simulation's
+    gravity pass (check.walk_options) and `spec` (default the
+    simulation's TreeSpec); returns {kernel: report} as compare_kernels
+    does, K6 and K7 under the names of their launch counts
+    (_ext.launch_names),
+    plus a forced-overflow case (near cap, one level cap and the support
+    cap shrunk) where both versions must overflow.  `listed` also
+    compares the group-list launches of K6 and K7 over every other group
+    (no Ewald sum and the MACs' default factors, as the block tick's walk
+    takes them, ROADMAP fault F11) under tree_walk_list and
+    tree_near_list.  `near` False leaves K7 out: an accuracy MAC whose
+    near lists reach the whole tree (gadget2 about a group of |a| near
+    0) makes K7's plain version a chunked all-pairs sum, minutes at
+    64^3, and K7 runs there in the mode the other paths hold.  Launch
+    counts are restored afterwards."""
     saved = dict(_ext.LAUNCHES)
-    spec, gmap = sim.treespec, state.bucket_map
-    r, m, h, kern, zh, pext = gravity_inputs(sim, state)
+    spec = spec or sim.treespec
+    gmap = state.bucket_map
+    mfv = hasattr(state, "Qcons0")
+    if mfv and listed:
+        raise ValueError("the MFV zeta mode has no group-list launch")
+    zeta = "mfv" if mfv else "sph"
+    r, m, h, kern, zh, pext = (mfv_gravity_inputs if mfv
+                               else gravity_inputs)(sim, state)
+    gfac, ewald = walk_options(sim, state, spec)
+    wname, nname = _ext.launch_names(spec, ewald is not None, mfv=mfv)
     f64 = r.dtype == torch.float64
     G, L = spec.n_leaves, spec.leaf_size
     out = {}
@@ -501,52 +593,51 @@ def compare_tree_kernels(sim, state, repeats: int = 0):
                                        else TOL_F32_TREE_BUILD)}
 
     # K6 on the plain tree
-    wk = _ext.tree_walk(spec, cp, pp, ap)
+    wkw = dict(gfac=gfac, ewald=ewald)
+    wk = _ext.tree_walk(spec, cp, pp, ap, **wkw)
     wstats = {}
-    wp = tr.tree_walk_plain(spec, cp, pp, ap, stats=wstats)
-    differ = (wk[2] != wp[2]).any(1)
-    n_differ = int(differ.sum())
-    same_rows = ~differ.repeat_interleave(L) & ap
-    errs = {"a": _scaled_all(wk[0], wp[0], same_rows),
-            "pot": _scaled_all(wk[1], wp[1], same_rows)}
-    same_ovf = bool(wk[3]) == bool(wp[3])
-    tol = TOL_F64 if f64 else TOL_F32_TREE_FAR
-    out["tree_walk"] = {
-        "groups_with_other_near_list": n_differ, "overflow": bool(wk[3]),
-        "same_overflow": same_ovf, "scaled_err": errs,
-        "max_abs_err": float(torch.abs(wk[0] - wp[0])[same_rows].max()),
-        "ok": (same_ovf and not bool(wp[3]) and max(errs.values()) <= tol
-               and n_differ <= (0 if f64 else
-                                int(TOL_TREE_FLIP_FRACTION * G)))}
+    wp = tr.tree_walk_plain(spec, cp, pp, ap, stats=wstats, **wkw)
+    out[wname] = _walk_report(spec, wk, wp, ap, f64)
+    out[wname]["mac"] = spec.mac
+    out[wname]["fast"] = spec.fast
+    out[wname]["ewald"] = ewald is not None
 
-    # K7 on the plain walk, results in particle order
     N = r.shape[0]
-    nk = _ext.tree_near(spec, kern, cp, pp, ap, wp[2], wp[0], wp[1], gmap,
-                        N)
-    np_ = tr.tree_near_plain(spec, kern, cp, pp, ap, wp[2], wp[0], wp[1],
-                             gmap, N)
+    nargs = (spec, kern, cp, pp, ap, wp[2], wp[0], wp[1], gmap, N)
+    nkw = dict(zeta_scaling=zeta, ewald=ewald)
     every = torch.ones((N,), dtype=torch.bool, device=r.device)
-    errs = {"a": _scaled_all(nk[0], np_[0], every),
-            "gpot": _scaled_all(nk[1], np_[1], every)}
-    same_ovf = bool(nk[2]) == bool(np_[2])
-    tol = TOL_F64 if f64 else TOL_F32_TREE_NEAR
-    out["tree_near"] = {
-        "scaled_err": errs, "overflow": bool(nk[2]),
-        "same_overflow": same_ovf,
-        "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
-        "ok": same_ovf and not bool(np_[2]) and max(errs.values()) <= tol}
+    if near:
+        # K7 on the plain walk, results in particle order
+        nk = _ext.tree_near(*nargs, **nkw)
+        np_ = tr.tree_near_plain(*nargs, **nkw)
+        errs = {"a": _scaled_all(nk[0], np_[0], every),
+                "gpot": _scaled_all(nk[1], np_[1], every)}
+        same_ovf = bool(nk[2]) == bool(np_[2])
+        tol = (TOL_F64 if f64 else TOL_F32_EWALD_NEAR if ewald is not None
+               else TOL_F32_TREE_NEAR)
+        out[nname] = {
+            "scaled_err": errs, "overflow": bool(nk[2]),
+            "same_overflow": same_ovf, "zeta_scaling": zeta,
+            "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
+            "ok": same_ovf and not bool(np_[2]) and max(errs.values()) <= tol}
 
     out["tree_gather"]["work"] = _work(
         (gmap, r, m, h, zh), (pk, ak), FLOPS_PER["tree_gather"] * G * L)
     out["tree_build"]["work"] = _work(
         (pp, ap), (ck,), FLOPS_PER["tree_build_slot"] * G * L
         + FLOPS_PER["tree_build_cell"] * ck.shape[0])
-    out["tree_walk"]["work"] = _work(
-        (cp, pp, ap), wk, FLOPS_PER["tree_walk_mac"] * wstats["mac_tests"]
-        + FLOPS_PER["tree_walk_far"] * wstats["far_terms"])
-    out["tree_near"]["work"] = _work(
-        (cp, pp, ap, wp[2], wp[0], wp[1], gmap), nk[:2],
-        FLOPS_PER["tree_near"] * _near_pairs(spec, ap, wp[2]))
+    out[wname]["work"] = _work(
+        (cp, pp, ap, gfac), [x for x in wk if x is not None],
+        _walk_flops(spec, ewald, wstats))
+    if near:
+        n_pairs = _near_pairs(spec, ap, wp[2])
+        near_flops = (FLOPS_PER["tree_near"]
+                      + (FLOPS_PER["ewald_pair"] if ewald else 0)) * n_pairs
+        if spec.fast:
+            near_flops += FLOPS_PER["tree_near_fast"] * int(ap.sum())
+        out[nname]["work"] = _work(
+            [x for x in (cp, pp, ap, wp[2], wp[0], wp[1], gmap)
+             if x is not None], nk[:2], near_flops)
 
     # forced overflow: both versions must raise the flag
     lv = spec.depth // 2 + 1
@@ -554,41 +645,137 @@ def compare_tree_kernels(sim, state, repeats: int = 0):
                                        for ell in range(spec.depth + 1)])
     fl[lv] = max(1, spec.level_cap(lv) // 4)
     tight = dataclasses.replace(spec, frontier_levels=tuple(fl))
-    small = dataclasses.replace(spec, near_cap=max(1, spec.near_cap // 4))
+    # below the longest near list: an accuracy MAC's caps never shrink,
+    # so its near cap can be 4 times what this state needs
+    need = int((wp[2] >= 0).sum(1).max())
+    small = dataclasses.replace(
+        spec, near_cap=max(1, min(spec.near_cap // 4, need - 1)))
     no_sup = dataclasses.replace(spec, support_cap=1)
     flags = {
-        "level_cap": [bool(_ext.tree_walk(tight, cp, pp, ap)[3]),
-                      bool(tr.tree_walk_plain(tight, cp, pp, ap)[3])],
-        "near_cap": [bool(_ext.tree_walk(small, cp, pp, ap)[3]),
-                     bool(tr.tree_walk_plain(small, cp, pp, ap)[3])],
-        "support_cap": [
-            bool(_ext.tree_near(no_sup, kern, cp, pp, ap, wp[2], wp[0],
-                                wp[1], gmap, N)[2]),
-            bool(tr.tree_near_plain(no_sup, kern, cp, pp, ap, wp[2], wp[0],
-                                    wp[1], gmap, N)[2])]}
+        "level_cap": [bool(_ext.tree_walk(tight, cp, pp, ap, **wkw)[3]),
+                      bool(tr.tree_walk_plain(tight, cp, pp, ap, **wkw)[3])],
+        "near_cap": [bool(_ext.tree_walk(small, cp, pp, ap, **wkw)[3]),
+                     bool(tr.tree_walk_plain(small, cp, pp, ap, **wkw)[3])]}
+    if near:
+        flags["support_cap"] = [
+            bool(_ext.tree_near(no_sup, *nargs[1:], **nkw)[2]),
+            bool(tr.tree_near_plain(no_sup, *nargs[1:], **nkw)[2])]
     out["forced_overflow"] = {"flags": flags, "ok": all(
         f == [True, True] for f in flags.values())}
 
+    timed = {
+        "tree_gather": (
+            lambda: _ext.tree_gather(spec, gmap, r, m, h, zh, pext),
+            lambda: tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh,
+                                               pext)),
+        "tree_build": (lambda: _ext.tree_build(spec, pp, ap),
+                       lambda: tr.build_tree_plain(spec, pp, ap)),
+        wname: (lambda: _ext.tree_walk(spec, cp, pp, ap, **wkw),
+                lambda: tr.tree_walk_plain(spec, cp, pp, ap, **wkw)),
+    }
+    if near:
+        timed[nname] = (lambda: _ext.tree_near(*nargs, **nkw),
+                        lambda: tr.tree_near_plain(*nargs, **nkw))
+
+    if listed:
+        # every other group, the block tick's walk (F11)
+        group_ids = torch.arange(0, G, 2, dtype=torch.int32,
+                                 device=r.device)
+        lfac = tr.mac_factors(spec, gmap, ap, dtype=r.dtype)
+        lk = _ext.tree_walk(spec, cp, pp, ap, group_ids, lfac)
+        lstats = {}
+        lp = tr.tree_walk_plain(spec, cp, pp, ap, group_ids, stats=lstats,
+                                gfac=lfac)
+        rows = torch.zeros((G,), dtype=torch.bool, device=r.device)
+        rows[group_ids.long()] = True
+        out["tree_walk_list"] = _walk_report(spec, lk, lp, ap, f64, rows)
+        largs = (spec, kern, cp, pp, ap, lp[2], lp[0], lp[1], gmap, N,
+                 group_ids)
+        lnk = _ext.tree_near(*largs)
+        lnp = tr.tree_near_plain(*largs)
+        errs = {"a": _scaled_all(lnk[0], lnp[0], every),
+                "gpot": _scaled_all(lnk[1], lnp[1], every)}
+        same_ovf = bool(lnk[2]) == bool(lnp[2])
+        out["tree_near_list"] = {
+            "scaled_err": errs, "same_overflow": same_ovf,
+            "max_abs_err": float(torch.abs(lnk[0] - lnp[0]).max()),
+            "ok": (same_ovf and not bool(lnp[2]) and max(errs.values())
+                   <= (TOL_F64 if f64 else TOL_F32_TREE_NEAR))}
+        out["tree_walk_list"]["work"] = _work(
+            (cp, pp, ap, group_ids), [x for x in lk if x is not None],
+            _walk_flops(spec, None, lstats))
+        out["tree_near_list"]["work"] = _work(
+            [x for x in (cp, pp, ap, lp[2], lp[0], lp[1], gmap, group_ids)
+             if x is not None], lnk[:2],
+            FLOPS_PER["tree_near"] * _near_pairs(spec, ap, lp[2], group_ids))
+        timed["tree_walk_list"] = (
+            lambda: _ext.tree_walk(spec, cp, pp, ap, group_ids, lfac),
+            lambda: tr.tree_walk_plain(spec, cp, pp, ap, group_ids,
+                                       gfac=lfac))
+        timed["tree_near_list"] = (lambda: _ext.tree_near(*largs),
+                                   lambda: tr.tree_near_plain(*largs))
+
     if repeats > 0:
-        timed = {
-            "tree_gather": (
-                lambda: _ext.tree_gather(spec, gmap, r, m, h, zh, pext),
-                lambda: tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh,
-                                                   pext)),
-            "tree_build": (lambda: _ext.tree_build(spec, pp, ap),
-                           lambda: tr.build_tree_plain(spec, pp, ap)),
-            "tree_walk": (lambda: _ext.tree_walk(spec, cp, pp, ap),
-                          lambda: tr.tree_walk_plain(spec, cp, pp, ap)),
-            "tree_near": (
-                lambda: _ext.tree_near(spec, kern, cp, pp, ap, wp[2], wp[0],
-                                       wp[1], gmap, N),
-                lambda: tr.tree_near_plain(spec, kern, cp, pp, ap, wp[2],
-                                           wp[0], wp[1], gmap, N)),
-        }
         _time_pairs(out, timed, repeats)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
+
+
+def _walk_report(spec, wk, wp, alive, f64, rows=None):
+    """K6 against its plain version: near lists equal per group (MAC
+    flips allowed in float32 only, in at most TOL_TREE_FLIP_FRACTION of
+    the groups), overflow equal and false, and the far field (or the
+    fast expansions) of the groups with equal near lists within
+    tolerance.  `rows` (G,) bool restricts to the walked groups (list
+    launches), whose other rows must be zero."""
+    G, L = spec.n_leaves, spec.leaf_size
+    if rows is None:
+        rows = torch.ones((G,), dtype=torch.bool, device=alive.device)
+    differ = (wk[2] != wp[2]).any(1)
+    n_differ = int(differ.sum())
+    live_g = alive.reshape(G, L).any(1)
+    if spec.fast:
+        same_rows = ~differ & rows & live_g
+        far_k, far_p = {"fast": wk[0]}, {"fast": wp[0]}
+        other = ~rows
+    else:
+        same_rows = (~differ & rows).repeat_interleave(L) & alive
+        far_k, far_p = {"a": wk[0], "pot": wk[1]}, {"a": wp[0], "pot": wp[1]}
+        other = ~rows.repeat_interleave(L)
+    errs = ({k: _scaled_all(far_k[k], far_p[k], same_rows) for k in far_k}
+            if bool(same_rows.any()) else {})
+    zero_elsewhere = not any(bool(x[other].any()) for x in far_k.values())
+    same_ovf = bool(wk[3]) == bool(wp[3])
+    tol = TOL_F64 if f64 else TOL_F32_TREE_FAR
+    first = next(iter(far_k))
+    return {
+        "groups": int(rows.sum()), "of": G,
+        "groups_with_other_near_list": n_differ, "overflow": bool(wk[3]),
+        "same_overflow": same_ovf, "scaled_err": errs,
+        "zero_elsewhere": zero_elsewhere,
+        "max_abs_err": float(torch.abs(far_k[first] - far_p[first])
+                             [same_rows].max()) if bool(same_rows.any())
+        else 0.0,
+        "ok": (same_ovf and not bool(wp[3]) and zero_elsewhere
+               and max(errs.values(), default=0.0) <= tol
+               and n_differ <= (0 if f64 else
+                                int(TOL_TREE_FLIP_FRACTION * G)))}
+
+
+def _walk_flops(spec, ewald, wstats) -> int:
+    """K6's operations from the plain walk's counts (FLOPS_PER)."""
+    per_test = FLOPS_PER["tree_walk_mac"]
+    if spec.mac != "geometric":
+        per_test += FLOPS_PER[f"mac_{spec.mac}"]
+    if ewald is not None:
+        per_test += FLOPS_PER["mac_ewald"]
+    extra = FLOPS_PER["ewald_pair"] if ewald is not None else 0
+    if spec.fast:
+        far = (FLOPS_PER["tree_walk_fast"] + extra) * wstats["fast_terms"]
+    else:
+        far = (FLOPS_PER["tree_walk_far"] + extra) * wstats["far_terms"]
+    return per_test * wstats["mac_tests"] + far
 
 
 def _near_pairs(spec, alive, near, group_ids=None) -> int:
@@ -612,14 +799,17 @@ def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
     approximates without an Ewald sum.  `among` (int32 indices) samples
     from those particles only and walks only their buckets (the block
     tick's walk); `spec` replaces the simulation's TreeSpec (a monopole
-    one, say).  Returns rms|da| / rms|a| and the walk's overflow."""
+    one, say), its accuracy MAC taking the inputs the simulation's
+    gravity pass would give it.  Returns rms|da| / rms|a| and the walk's
+    overflow."""
     s = sim.state
     r, m, h, kern, zh, pext = gravity_inputs(sim, s)
     spec = spec or sim.treespec
     gmap = s.bucket_map
     if among is None:
-        a_tree, _, overflow = tr.tree_gravity_grouped(spec, gmap, r, m, h,
-                                                      kern, zh, pext)
+        a_tree, _, overflow = tr.tree_gravity_grouped(
+            spec, gmap, r, m, h, kern, zh, pext,
+            **_mac_kwargs(sim, s, spec))
         pool = np.arange(r.shape[0])
     else:
         a_tree, _, overflow = tr.tree_gravity_active(
@@ -637,6 +827,42 @@ def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
     da = a_tree[t].double() - a_ref
     err = torch.sqrt(torch.sum(da * da) / torch.sum(a_ref * a_ref))
     return {"n_sample": int(t.numel()), "rms_rel_err": float(err),
+            "overflow": bool(overflow)}
+
+
+def periodic_gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
+                              spec=None, ewald: bool = True):
+    """The periodic tree's acceleration (K4-K7 with the simulation's
+    Ewald table and walk options) at `n_sample` particles (numpy
+    generator `seed`) against the float64 direct sum over all particles
+    at min-image separations, kernel-softened, plus each pair's m_j
+    times the Ewald correction: rms|da| / rms|a| and the walk's
+    overflow.  `spec` replaces the simulation's TreeSpec; `ewald` False
+    walks without the correction (what the gate must reject)."""
+    s = sim.state
+    mfv = hasattr(s, "Qcons0")
+    r, m, h, kern, zh, pext = (mfv_gravity_inputs if mfv
+                               else gravity_inputs)(sim, s)
+    spec = spec or sim.treespec
+    mac_kw = _mac_kwargs(sim, s, spec)
+    a_tree, _, overflow = tr.tree_gravity_grouped(
+        spec, s.bucket_map, r, m, h, kern, zh, pext,
+        zeta_scaling="mfv" if mfv else "sph",
+        ewald_table=sim.ewald_table if ewald else None, **mac_kw)
+    idx = np.random.default_rng(seed).choice(
+        r.shape[0], size=min(n_sample, r.shape[0]), replace=False)
+    t = torch.as_tensor(np.sort(idx), device=r.device)
+    if mfv:
+        raise NotImplementedError("the periodic oracle takes SPH states")
+    a_ref, _ = direct_sph_gravity(kern, r.double(), m.double(), h.double(),
+                                  s.zeta.double(), s.hfactor.double(),
+                                  targets=t, box=sim.box,
+                                  ewald_table=sim.ewald_table)
+    da = a_tree[t].double() - a_ref
+    err = torch.sqrt(torch.sum(da * da) / torch.sum(a_ref * a_ref))
+    return {"n_sample": int(t.numel()), "rms_rel_err": float(err),
+            "rms_a": float(torch.sqrt(torch.mean(torch.sum(
+                a_ref * a_ref, -1)))),
             "overflow": bool(overflow)}
 
 

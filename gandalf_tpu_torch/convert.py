@@ -7,7 +7,10 @@ given device and float dtype; ``state_to_numpy`` goes back.
 ``nbody_state_from_jax`` for a JAX ``NbodyState`` (``nbody_state_to_numpy``
 goes back).
 ``grid_spec_from_jax`` and ``tree_spec_from_jax`` copy a frozen JAX
-``Grid27Spec`` or ``TreeSpec`` field for field; ``schedule_from_jax``
+``Grid27Spec`` or ``TreeSpec`` field for field (the TreeSpec's MAC and
+fast-multipole fields included); ``ewald_table_from_jax`` copies a JAX
+``EwaldTable`` into the port's (float64 numpy arrays and the same
+metadata); ``schedule_from_jax``
 copies a JAX ``BlockSchedule`` and ``schedule_to_jax`` gives a port
 schedule's fields as numpy arrays in the JAX package's types (for
 ``BlockSchedule(**{k: jnp.asarray(v) ...})``).  Nothing here imports
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from .integrate.block import BlockSchedule
+from .ops.ewald import EwaldTable
 from .ops.sph_grid27 import Grid27Spec
 from .ops.tree import TreeSpec
 from .state import MfvState, NbodyState, SphState
@@ -127,6 +131,21 @@ def tree_spec_from_jax(spec) -> TreeSpec:
     """Field-for-field copy of gandalf_tpu's frozen TreeSpec."""
     return TreeSpec(**{f.name: getattr(spec, f.name)
                        for f in dataclasses.fields(TreeSpec)})
+
+
+def ewald_table_from_jax(table) -> EwaldTable:
+    """The port's EwaldTable from a JAX one (read through its
+    attributes): the arrays as float64 (nmax int32) numpy, the static
+    metadata as it is."""
+    return EwaldTable(
+        pot=np.array(table.pot, dtype=np.float64),
+        acc=np.array(table.acc, dtype=np.float64),
+        inv_dgrid=np.array(table.inv_dgrid, dtype=np.float64),
+        nmax=np.array(table.nmax, dtype=np.int32),
+        far_kind=int(table.far_kind), open_axes=tuple(table.open_axes),
+        per_axes=tuple(table.per_axes), L_per=float(table.L_per),
+        area=float(table.area), pot_const=float(table.pot_const),
+        far_thresh=table.far_thresh)
 
 
 _SCHED_INT = ("n", "level_max", "nresync", "nstep_part")

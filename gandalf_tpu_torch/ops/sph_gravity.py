@@ -3,8 +3,10 @@
 Torch twin of ``gandalf_tpu/ops/sph_gravity.py:direct_sph_gravity``:
 the symmetric kernel-softened pair force and potential with the
 zeta*hfactor terms over all pairs, which beyond kernel support is the
-Newtonian sum.  Chunked over targets, so that it takes any N; used by
-the tests and by ``check.gravity_accuracy``, never by the simulation.
+Newtonian sum; in a periodic box, over min-image pairs, each plus its
+Ewald correction.  Chunked over targets, so that it takes any N; used
+by the tests and by ``check.gravity_accuracy`` and
+``check.periodic_gravity_accuracy``, never by the simulation.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from .ewald import ewald_correction
+
 Tensor = torch.Tensor
 
 
@@ -20,10 +24,14 @@ def direct_sph_gravity(kern, r: Tensor, m: Tensor,
                        h: Optional[Tensor] = None,
                        zeta: Optional[Tensor] = None,
                        hfactor: Optional[Tensor] = None,
-                       targets: Optional[Tensor] = None):
+                       targets: Optional[Tensor] = None,
+                       box=None, ewald_table=None):
     """(a (T, 3), gpot (T,)) at `targets` (particle indices, default all)
     from every particle.  Without `h` the pairs are Newtonian.  A pair
-    counts when it is not the target itself and d > 0."""
+    counts when it is not the target itself and d > 0.  With a `box`
+    (a state.DomainBox) each separation is min-imaged along its periodic
+    dims, and with an `ewald_table` (ops.ewald.EwaldTable) each pair
+    adds m_j times the table's correction at it."""
     N, dev = r.shape[0], r.device
     if targets is None:
         targets = torch.arange(N, device=dev)
@@ -38,6 +46,8 @@ def direct_sph_gravity(kern, r: Tensor, m: Tensor,
     for t0 in range(0, targets.numel(), B):
         t = targets[t0:t0 + B]
         dr = [r[None, :, k] - r[t, k][:, None] for k in range(3)]
+        if box is not None:
+            dr = list(box.min_image(torch.stack(dr, -1)).unbind(-1))
         d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
         use = (src[None, :] != t[:, None]) & (d2 > 0.0)
         m_j = torch.where(use, m[None, :], 0.0)
@@ -55,6 +65,12 @@ def direct_sph_gravity(kern, r: Tensor, m: Tensor,
             gaux = 0.5 * (invh_i * kern.wpot(s_i) + invh_j * kern.wpot(s_j))
             coef = m_j * paux / d
             pot = m_j * gaux
-        a_out.append(torch.stack([(coef * x).sum(1) for x in dr], -1))
-        p_out.append(pot.sum(1))
+        a_t = torch.stack([(coef * x).sum(1) for x in dr], -1)
+        p_t = pot.sum(1)
+        if ewald_table is not None:
+            e_a, e_p = ewald_correction(ewald_table, torch.stack(dr, -1))
+            a_t = a_t + (m_j[..., None] * e_a).sum(1)
+            p_t = p_t + (m_j * e_p).sum(1)
+        a_out.append(a_t)
+        p_out.append(p_t)
     return torch.cat(a_out), torch.cat(p_out)

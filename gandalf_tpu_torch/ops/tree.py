@@ -3,11 +3,14 @@ tree moments (K5), frontier walk with far field (K6) and near field
 (K7).
 
 Counterpart of ``gandalf_tpu/ops/tree.py`` for the frontier walk with
-the geometric MAC, monopole or quadrupole moments and no Ewald sum.  The
-host part (``TreeSpec``, the cap laws and the planners) is numpy; the
-planners call the port's copy of the C++ library (``native``) through
-its ctypes signatures and raise when it cannot be built, since the numpy
-KD planner and the worst-case cap law are not ported.
+the geometric, gadget2 or eigenmac MAC, monopole or quadrupole moments
+evaluated at every particle or expanded about each group's box centre
+(the fast multipoles), with or without the Ewald sum of a periodic box
+(``ops/ewald.py``).  The host part (``TreeSpec``, the cap laws and the
+planners) is numpy; the planners call the port's copy of the C++ library
+(``native``) through its ctypes signatures and raise when it cannot be
+built, since the numpy KD planner and the worst-case cap law are not
+ported.
 
 The device part works on two tables:
 
@@ -23,11 +26,14 @@ Each kernel has a plain PyTorch version in this module and a CUDA C++
 kernel in ``csrc/``, launched through ``_ext``.  A CPU tensor takes the
 plain version; a CUDA tensor takes the kernel, or the wrapper raises.
 
-Two places differ from the JAX package on purpose (ROADMAP queue 3):
+Three places differ from the JAX package on purpose (ROADMAP queue 3):
 pair separations are computed directly, not from a dot-product
-expansion, and each near pair is evaluated once (F6): with the symmetric
+expansion; each near pair is evaluated once (F6): with the symmetric
 softened formula where d < kernrange * max(h_i, h_j), with the Newtonian
-one elsewhere, where the two are equal.  Self pairs are excluded by
+one elsewhere, where the two are equal; and a group without live slots
+walks nothing (the JAX package walks it from its far-sentinel centre,
+which under the Ewald min-image can open cells and raise overflow, with
+no effect on any live particle's result).  Self pairs are excluded by
 identity and coincident pairs by d^2 = 0 (F2).  The two agree in
 float64; in float32 the port keeps the close pairs' digits.
 """
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import _ext, native
+from . import ewald as ew
 
 Tensor = torch.Tensor
 
@@ -98,7 +105,7 @@ class TreeSpec:
 
 def plan_tree(N: int, leaf_size: int = 32, frontier: int = None,
               theta_sqd: float = 0.1, quadrupole: bool = True,
-              near_cap: int = None) -> TreeSpec:
+              fast: bool = False, near_cap: int = None) -> TreeSpec:
     """gandalf_tpu's plan_tree: the worst-case cap law where no cap is
     given.  `group_chunk` is set as the JAX package sets it, so that the
     two specs compare equal; the port's plain versions chunk by
@@ -115,7 +122,7 @@ def plan_tree(N: int, leaf_size: int = 32, frontier: int = None,
                                              * near_cap, 1), 8, 128))
     return TreeSpec(n_pad=n_leaves * leaf_size, leaf_size=leaf_size,
                     depth=int(np.log2(n_leaves)), frontier=frontier,
-                    theta_sqd=theta_sqd, quadrupole=quadrupole,
+                    theta_sqd=theta_sqd, quadrupole=quadrupole, fast=fast,
                     near_cap=near_cap, group_chunk=group_chunk)
 
 
@@ -140,16 +147,18 @@ def grow_tree_caps(spec: TreeSpec, factor: float = 1.6) -> TreeSpec:
 
 
 def plan_tree_for_buckets(gmap: np.ndarray, theta_sqd: float = 0.1,
-                          quadrupole: bool = True, near_cap: int = None,
-                          frontier: int = None,
+                          quadrupole: bool = True, fast: bool = False,
+                          near_cap: int = None, frontier: int = None,
+                          mac: str = "geometric",
                           macerror: float = 1e-4) -> TreeSpec:
-    """TreeSpec matching a bucket gather map (geometric MAC)."""
+    """TreeSpec matching a bucket gather map; eigenmac needs the
+    quadrupole moments, so it switches them on."""
     G_pad, L = gmap.shape
     spec = plan_tree(G_pad * L, leaf_size=L, theta_sqd=theta_sqd,
-                     quadrupole=quadrupole, near_cap=near_cap,
-                     frontier=frontier)
+                     quadrupole=quadrupole or mac == "eigenmac",
+                     fast=fast, near_cap=near_cap, frontier=frontier)
     assert spec.n_pad == G_pad * L, (spec.n_pad, gmap.shape)
-    return dataclasses.replace(spec, macerror=macerror)
+    return dataclasses.replace(spec, mac=mac, macerror=macerror)
 
 
 def native_planner():
@@ -335,18 +344,56 @@ def level_rows(spec: TreeSpec, ctab: Tensor, ell: int) -> Tensor:
 # K6: frontier walk and far field
 # ---------------------------------------------------------------------------
 
+def mac_factors(spec: TreeSpec, gmap: Tensor, alive: Tensor,
+                amag: Optional[Tensor] = None,
+                gpot: Optional[Tensor] = None,
+                dtype=torch.float64) -> Optional[Tensor]:
+    """The per-group factor (G,) of an accuracy MAC (gandalf_tpu/ops/
+    tree.py:318-333), from particle-order fields through `gmap`: gadget2
+    takes each group's least |a_prev| over live slots (1e30 without
+    `amag`), eigenmac its largest gpot^(-2/3) over live slots with gpot
+    > 0 (0 without `gpot`).  None for the geometric MAC."""
+    G, L = spec.n_leaves, spec.leaf_size
+    dev = alive.device
+    if spec.mac == "gadget2":
+        if amag is None:
+            return torch.full((G,), BIG, dtype=dtype, device=dev)
+        safe = torch.clamp_min(gmap.reshape(-1).long(), 0)
+        big = torch.tensor(BIG, dtype=amag.dtype, device=dev)
+        return torch.where(alive, amag[safe], big).reshape(G, L).amin(1)
+    if spec.mac == "eigenmac":
+        if gpot is None:
+            return torch.zeros((G,), dtype=dtype, device=dev)
+        safe = torch.clamp_min(gmap.reshape(-1).long(), 0)
+        g = torch.where(alive, gpot[safe], 0.0)
+        mf = torch.where(alive & (g > 0.0),
+                         torch.clamp_min(g, 1e-30) ** (-2.0 / 3.0), 0.0)
+        return mf.reshape(G, L).amax(1)
+    return None
+
+
 def tree_walk(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor,
-              group_ids: Optional[Tensor] = None):
-    """Per group of L slots, level by level: the geometric MAC against
-    the group box, the far field of accepted cells at every live slot,
-    the children of opened cells as the next frontier, the opened leaves
-    as the near list.  Returns far a (G*L, 3), far pot (G*L,), near list
-    (G, Wn) int32 (-1 padded) and overflow ().  With `group_ids`
+              group_ids: Optional[Tensor] = None,
+              gfac: Optional[Tensor] = None, ewald=None):
+    """Per group of L slots, level by level: the MAC against the group
+    box, the far field of accepted cells at every live slot (or, with
+    spec.fast, its expansion about the group's box centre), the children
+    of opened cells as the next frontier, the opened leaves as the near
+    list.  Returns far a (G*L, 3), far pot (G*L,), near list (G, Wn)
+    int32 (-1 padded) and overflow (); with spec.fast the first two are
+    the groups' expansions (G, 13) (a0, pot0, the Jacobian row by row)
+    and None.  `gfac` (G,) is the accuracy MAC's per-group factor
+    (mac_factors; its default where None); `ewald` an (EwaldTable,
+    periodic extent) pair for the periodic walk.  With `group_ids`
     (G_act,) int32 only the listed groups walk; the other groups' rows
     are zero (near: -1).  K6 on CUDA tensors."""
+    if spec.mac != "geometric" and gfac is None:
+        gfac = mac_factors(spec, None, alive, dtype=ptab.dtype)
     if ptab.is_cuda:
-        return _ext.tree_walk(spec, ctab, ptab, alive, group_ids)
-    return tree_walk_plain(spec, ctab, ptab, alive, group_ids)
+        return _ext.tree_walk(spec, ctab, ptab, alive, group_ids, gfac,
+                              ewald)
+    return tree_walk_plain(spec, ctab, ptab, alive, group_ids, gfac=gfac,
+                           ewald=ewald)
 
 
 def _safe_invr(d2: Tensor) -> Tensor:
@@ -381,45 +428,77 @@ def _groups_of(spec: TreeSpec, group_ids: Optional[Tensor], device):
     return group_ids.long()
 
 
+def _multipole(dr: Tensor, m: Tensor, q6: Optional[Tensor]):
+    """Field and potential of cells of mass m (and traceless quadrupole
+    q6) at dr = com - r (..., 3): gandalf_tpu's _mp_accel."""
+    inv_r = _safe_invr((dr * dr).sum(-1))
+    inv_r3 = inv_r * inv_r * inv_r
+    a = (m * inv_r3)[..., None] * dr
+    p = m * inv_r
+    if q6 is not None:
+        qdr, drqdr = _quad_terms(q6, dr)
+        inv_r5 = inv_r3 * inv_r * inv_r
+        a = a - inv_r5[..., None] * qdr + (
+            2.5 * drqdr * inv_r5 * inv_r * inv_r)[..., None] * dr
+        p = p + 0.5 * drqdr * inv_r5
+    return a, p
+
+
 def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
                     alive: Tensor, group_ids: Optional[Tensor] = None,
-                    stats: Optional[dict] = None):
+                    stats: Optional[dict] = None,
+                    gfac: Optional[Tensor] = None, ewald=None):
     """Plain version of K6: gandalf_tpu's walk_group over chunks of the
-    walked groups, with the far field evaluated at dr = com - r
-    directly.  A `stats` dict receives the walk's work: "mac_tests"
-    (live cells tested) and "far_terms" (accepted cell times live slot
-    of its group)."""
+    walked groups, with the far field evaluated at dr = com - r (fast:
+    com - gc) directly, min-imaged and corrected with the Ewald sum.  A
+    `stats` dict receives the walk's work: "mac_tests" (live cells
+    tested), "far_terms" (accepted cell times live slot of its group)
+    and "fast_terms" (accepted cells, with spec.fast)."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
     Wn, th2 = spec.near_cap, spec.theta_sqd
+    table, period = _ewald_parts(ewald)
     leaves = level_rows(spec, ctab, D)
     wmax = max([1] + [spec.level_cap(ell) for ell in range(1, D + 1)])
     groups = _groups_of(spec, group_ids, dev)
     B = _chunk_groups(G, L * wmax, dev)
-    a_far = torch.zeros((G, L, 3), dtype=dt, device=dev)
-    pot_far = torch.zeros((G, L), dtype=dt, device=dev)
+    if spec.fast:
+        far = torch.zeros((G, 13), dtype=dt, device=dev)
+    else:
+        a_far = torch.zeros((G, L, 3), dtype=dt, device=dev)
+        pot_far = torch.zeros((G, L), dtype=dt, device=dev)
     near = torch.full((G, Wn), -1, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     ptab_g = ptab.reshape(G, L, 6)
+    eye = torch.eye(3, dtype=dt, device=dev)
     for c0 in range(0, groups.numel(), B):
         gsel = groups[c0:c0 + B]
         nb = gsel.numel()
+        al = alive.reshape(G, L)[gsel]
+        # a group without live slots walks nothing (as K6)
+        glive = al.any(1)
         rt = ptab_g[gsel, :, P_R:P_R + 3]
         gc = leaves[gsel, C_CEN:C_CEN + 3]
         gh = leaves[gsel, C_HALF:C_HALF + 3]
+        gf = None if gfac is None else gfac[gsel]
         a_acc = torch.zeros((nb, L, 3), dtype=dt, device=dev)
         p_acc = torch.zeros((nb, L), dtype=dt, device=dev)
+        jac = torch.zeros((nb, 3, 3), dtype=dt, device=dev)
+        a0 = torch.zeros((nb, 3), dtype=dt, device=dev)
+        pot0 = torch.zeros((nb,), dtype=dt, device=dev)
         front = torch.zeros((nb, 1), dtype=torch.int64, device=dev)
         ovf = torch.zeros((nb,), dtype=torch.bool, device=dev)
         for ell in range(D + 1):
-            valid = front >= 0
+            valid = (front >= 0) & glive[:, None]
             idx = torch.clamp_min(front, 0)
             tab = level_rows(spec, ctab, ell)[idx]          # (nb, W, 16)
             m_c = torch.where(valid, tab[..., C_M], 0.0)
             com = tab[..., C_COM:C_COM + 3]
             half = tab[..., C_HALF:C_HALF + 3]
-            gap = torch.clamp_min(torch.abs(com - gc[:, None, :])
-                                  - gh[:, None, :], 0.0)
+            d = com - gc[:, None, :]
+            if table is not None:
+                d = ew.min_image(d, period)
+            gap = torch.clamp_min(torch.abs(d) - gh[:, None, :], 0.0)
             # sums written out in K6's order: both take the same MAC
             # decisions, bit for bit, in either precision
             dsqd = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
@@ -429,29 +508,64 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
                         + half[..., 2] * half[..., 2])
             live = valid & (m_c > 0.0)
             accept = live & (dsqd * th2 > rmax_sqd)
+            if spec.mac == "gadget2":
+                extra = (dsqd * dsqd * gf[:, None] * spec.macerror
+                         < rmax_sqd * m_c)
+                accept = accept & ~extra
+            elif spec.mac == "eigenmac" and spec.quadrupole:
+                q = tab[..., C_Q:C_Q + 6]
+                diag = (q[..., 0] * q[..., 0] + q[..., 3] * q[..., 3]
+                        + q[..., 5] * q[..., 5])
+                offd = (q[..., 1] * q[..., 1] + q[..., 2] * q[..., 2]
+                        + q[..., 4] * q[..., 4])
+                trq2 = diag + 2.0 * offd
+                lam = 2.0 * torch.sqrt(torch.clamp_min(trq2, 0.0) / 6.0)
+                cellmac = (0.5 * lam / spec.macerror) ** (2.0 / 3.0)
+                accept = accept & ~(dsqd < cellmac * gf[:, None])
             open_ = live & ~accept
             if stats is not None:
-                n_live = alive.reshape(G, L)[gsel].sum(1)
+                n_live = al.sum(1)
                 stats["mac_tests"] = stats.get("mac_tests", 0) \
                     + int(live.sum())
                 stats["far_terms"] = stats.get("far_terms", 0) \
                     + int((accept.sum(1) * n_live).sum())
-            # far field of the accepted cells at every slot of their group
+                stats["fast_terms"] = stats.get("fast_terms", 0) \
+                    + int(accept.sum())
             b, w = accept.nonzero(as_tuple=True)
-            if b.numel():
-                dr = com[b, w][:, None, :] - rt[b]           # (n, L, 3)
-                m_a = m_c[b, w][:, None]
+            if b.numel() and spec.fast:
+                # the accepted cells about the group's box centre
+                dr = d[b, w]                                  # (n, 3)
+                m_a = m_c[b, w]
+                q6 = tab[b, w, C_Q:C_Q + 6] if spec.quadrupole else None
+                a_c, p_c = _multipole(dr, m_a, q6)
+                if table is not None:
+                    e_a, e_p = ew.ewald_correction(table, dr)
+                    a_c = a_c + m_a[:, None] * e_a
+                    p_c = p_c + m_a * e_p
                 inv_r = _safe_invr((dr * dr).sum(-1))
                 inv_r3 = inv_r * inv_r * inv_r
-                a_c = (m_a * inv_r3)[..., None] * dr
-                p_c = m_a * inv_r
-                if spec.quadrupole:
-                    qdr, drqdr = _quad_terms(tab[b, w, C_Q:C_Q + 6][:, None],
-                                             dr)
-                    inv_r5 = inv_r3 * inv_r * inv_r
-                    a_c = a_c - inv_r5[..., None] * qdr + (
-                        2.5 * drqdr * inv_r5 * inv_r * inv_r)[..., None] * dr
-                    p_c = p_c + 0.5 * drqdr * inv_r5
+                inv_r5 = inv_r3 * inv_r * inv_r
+                outer = dr[:, :, None] * dr[:, None, :]
+                j_c = m_a[:, None, None] * (
+                    3.0 * outer * inv_r5[:, None, None]
+                    - eye * inv_r3[:, None, None])
+                a0.index_add_(0, b, a_c)
+                pot0.index_add_(0, b, p_c)
+                jac.index_add_(0, b, j_c)
+            elif b.numel():
+                # far field of the accepted cells at every slot of their
+                # group
+                dr = com[b, w][:, None, :] - rt[b]           # (n, L, 3)
+                if table is not None:
+                    dr = ew.min_image(dr, period)
+                m_a = m_c[b, w][:, None]
+                q6 = (tab[b, w, C_Q:C_Q + 6][:, None] if spec.quadrupole
+                      else None)
+                a_c, p_c = _multipole(dr, m_a, q6)
+                if table is not None:
+                    e_a, e_p = ew.ewald_correction(table, dr)
+                    a_c = a_c + m_a[..., None] * e_a
+                    p_c = p_c + m_a * e_p
                 a_acc.index_add_(0, b, a_c)
                 p_acc.index_add_(0, b, p_c)
             if ell < D:
@@ -466,11 +580,25 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
                 ids, count = _stable_compact(open_, idx, Wn)
                 near[gsel] = ids.to(torch.int32)
                 ovf |= count > Wn
-        al = alive.reshape(G, L)[gsel]
-        a_far[gsel] = torch.where(al[..., None], a_acc, 0.0)
-        pot_far[gsel] = torch.where(al, p_acc, 0.0)
+        if spec.fast:
+            far[gsel] = torch.cat([a0, pot0[:, None], jac.reshape(nb, 9)],
+                                  -1)
+        else:
+            a_far[gsel] = torch.where(al[..., None], a_acc, 0.0)
+            pot_far[gsel] = torch.where(al, p_acc, 0.0)
         overflow |= ovf.any()
+    if spec.fast:
+        return far, None, near, overflow
     return a_far.reshape(-1, 3), pot_far.reshape(-1), near, overflow
+
+
+def _ewald_parts(ewald):
+    """(table, min-image period) of an (EwaldTable, extent) pair, or
+    (None, None)."""
+    if ewald is None:
+        return None, None
+    table, extent = ewald
+    return table, ew.period_of(extent)
 
 
 def _quad_terms(q6: Tensor, dr: Tensor):
@@ -486,9 +614,10 @@ def _quad_terms(q6: Tensor, dr: Tensor):
 # ---------------------------------------------------------------------------
 
 def tree_near(spec: TreeSpec, kern, ctab: Tensor, ptab: Tensor,
-              alive: Tensor, near: Tensor, a_far: Tensor, pot_far: Tensor,
-              out_index: Tensor, n_out: int,
-              group_ids: Optional[Tensor] = None, zeta_scaling: str = "sph"):
+              alive: Tensor, near: Tensor, a_far: Tensor,
+              pot_far: Optional[Tensor], out_index: Tensor, n_out: int,
+              group_ids: Optional[Tensor] = None, zeta_scaling: str = "sph",
+              ewald=None):
     """Near-field pair sums over each group's near leaves, plus the far
     field, written to row out_index[slot] of (n_out, 3) and (n_out,)
     outputs for every live slot; overflow () when some group's
@@ -498,29 +627,35 @@ def tree_near(spec: TreeSpec, kern, ctab: Tensor, ptab: Tensor,
     "sph" adds the grad-h zeta term to the softened force as m_j *
     (zh_i w1_i + zh_j w1_j) / 2, "mfv" as (1/m_i) (zh_i w1_i + zh_j
     w1_j) / 2, not scaled by m_j and zero where m_j <= 0
-    (MfvCommon.cpp:413-416).  K7 on CUDA tensors."""
+    (MfvCommon.cpp:413-416).  With spec.fast `a_far` is K6's (G, 13)
+    expansions and `pot_far` None: the far field of a slot is a0 + J (r
+    - gc) and pot0 + a0 . (r - gc) about its group's box centre.  With
+    `ewald`, an (EwaldTable, periodic extent) pair, each pair is
+    min-imaged and adds the table's correction.  K7 on CUDA tensors."""
     if zeta_scaling not in ("sph", "mfv"):
         raise ValueError(f"zeta_scaling must be 'sph' or 'mfv', not "
                          f"{zeta_scaling!r}")
     if ptab.is_cuda:
         return _ext.tree_near(spec, kern, ctab, ptab, alive, near, a_far,
                               pot_far, out_index, n_out, group_ids,
-                              zeta_scaling)
+                              zeta_scaling, ewald)
     return tree_near_plain(spec, kern, ctab, ptab, alive, near, a_far,
                            pot_far, out_index, n_out, group_ids,
-                           zeta_scaling)
+                           zeta_scaling, ewald)
 
 
 def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
                     pot_far, out_index, n_out, group_ids=None,
-                    zeta_scaling="sph"):
+                    zeta_scaling="sph", ewald=None):
     """Plain version of K7 over chunks of the walked groups: each pair of
     a group's live slot i and a live partner j in its near leaves (not i
-    itself, d > 0) adds the symmetric softened force and potential, with
-    the zeta term of `zeta_scaling`, where d < kernrange * max(h_i,
-    h_j), and m/d^3, m/d beyond."""
+    itself, d > 0; min-imaged with the Ewald sum) adds the symmetric
+    softened force and potential, with the zeta term of `zeta_scaling`,
+    where d < kernrange * max(h_i, h_j), and m/d^3, m/d beyond; with the
+    Ewald sum also m_j times the table's correction."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
+    table, period = _ewald_parts(ewald)
     Wn = near.shape[1]
     leaves = level_rows(spec, ctab, D)
     groups = _groups_of(spec, group_ids, dev)
@@ -545,6 +680,9 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
         rows = gsel[:, None] * L + slot_l
         # separations per component, (nb, L, P) each
         dr = [part[:, None, :, k] - own[:, :, None, k] for k in range(3)]
+        if table is not None:
+            dr = [x - period[k] * torch.round(x / period[k])
+                  for k, x in enumerate(dr)]
         d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
         use = (pal[:, None, :] & al[..., None]
                & (col[:, None, :] != rows[..., None]) & (d2 > 0.0))
@@ -583,16 +721,38 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
                              0.0).reshape(nb, Wn, L).amax(2)
             cell = leaves[torch.clamp_min(nid, 0)]
             gcell = leaves[gsel]
+            dgc = cell[..., C_CEN:C_CEN + 3] - gcell[:, None, C_CEN:C_CEN + 3]
+            if table is not None:
+                dgc = ew.min_image(dgc, period)
             gap = torch.clamp_min(
-                torch.abs(cell[..., C_CEN:C_CEN + 3]
-                          - gcell[:, None, C_CEN:C_CEN + 3])
-                - cell[..., C_HALF:C_HALF + 3]
+                torch.abs(dgc) - cell[..., C_HALF:C_HALF + 3]
                 - gcell[:, None, C_HALF:C_HALF + 3], 0.0)
             sup = kern.kernrange * torch.maximum(hg[:, None], hp)
             n_sup = (nvalid & ((gap * gap).sum(-1) < sup * sup)).sum(1)
             overflow |= (n_sup > Ws).any()
         a_s[gsel] = torch.stack([(coef * x).sum(2) for x in dr], -1)
         p_s[gsel] = pot.sum(2)
+        if table is not None:
+            # the correction of the pairs in use, summed per target slot
+            b, i, q = use.nonzero(as_tuple=True)
+            e_a, e_p = ew.ewald_correction(
+                table, torch.stack([x[b, i, q] for x in dr], -1))
+            mj = m_j[b, i, q]
+            row = b * L + i
+            a_s[gsel] += torch.zeros((nb * L, 3), dtype=dt, device=dev) \
+                .index_add_(0, row, mj[:, None] * e_a).reshape(nb, L, 3)
+            p_s[gsel] += torch.zeros((nb * L,), dtype=dt, device=dev) \
+                .index_add_(0, row, mj * e_p).reshape(nb, L)
+    if spec.fast:
+        # the groups' expansions about their box centres, at each slot
+        f = a_far.reshape(G, 13)
+        delta = ptab.reshape(G, L, 6)[..., P_R:P_R + 3] \
+            - leaves[:, None, C_CEN:C_CEN + 3]
+        jac = f[:, 4:].reshape(G, 3, 3)
+        a_far = (f[:, None, 0:3]
+                 + torch.einsum("gij,glj->gli", jac, delta)).reshape(-1, 3)
+        pot_far = (f[:, None, 3]
+                   + torch.einsum("gj,glj->gl", f[:, 0:3], delta)).reshape(-1)
     a_s = a_s.reshape(-1, 3) + a_far
     p_s = p_s.reshape(-1) + pot_far
     a = torch.zeros((n_out, 3), dtype=dt, device=dev)
@@ -613,33 +773,44 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
 # ---------------------------------------------------------------------------
 
 def tree_gravity(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor,
-                 kern=None):
+                 kern=None, gfac: Optional[Tensor] = None, ewald=None):
     """K6 then K7 on a built tree: (a (G*L, 3), gpot (G*L,), overflow) in
-    bucket order (zero in empty slots).  `kern` None is Newtonian."""
-    a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive)
+    bucket order (zero in empty slots).  `kern` None is Newtonian;
+    `gfac` and `ewald` as for tree_walk."""
+    a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive,
+                                               gfac=gfac, ewald=ewald)
     n = ptab.shape[0]
     order = torch.arange(n, dtype=torch.int32, device=ptab.device)
     a, gpot, ovf_near = tree_near(spec, kern, ctab, ptab, alive, near,
-                                  a_far, pot_far, order, n)
+                                  a_far, pot_far, order, n, ewald=ewald)
     return a, gpot, ovf_walk | ovf_near
 
 
 def tree_gravity_grouped(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
                          h: Optional[Tensor] = None, kern=None,
                          zh: Optional[Tensor] = None, periodic_extent=None,
-                         zeta_scaling: str = "sph"):
+                         zeta_scaling: str = "sph", ewald_table=None,
+                         amag: Optional[Tensor] = None,
+                         gpot_prev: Optional[Tensor] = None):
     """Gravity with host-planned buckets: gather and unwrap (K4), build
     (K5), walk (K6), near field and scatter (K7, with the zeta term of
     `zeta_scaling`).  Returns (a, gpot, overflow) in particle order.
-    Without `h` (or `kern`) the pairs are Newtonian."""
+    Without `h` (or `kern`) the pairs are Newtonian.  `ewald_table`
+    (an ops.ewald.EwaldTable) adds the periodic correction, min-imaged
+    over `periodic_extent`; `amag` (gadget2) and `gpot_prev` (eigenmac)
+    give the accuracy MAC its per-group factors (mac_factors)."""
     ptab, alive = gather_to_buckets(spec, gmap, r, m, h, zh,
                                     periodic_extent)
     ctab = build_tree(spec, ptab, alive)
-    a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive)
+    gfac = mac_factors(spec, gmap, alive, amag, gpot_prev, dtype=r.dtype)
+    ewald = (None if ewald_table is None
+             else (ewald_table, periodic_extent))
+    a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive,
+                                               gfac=gfac, ewald=ewald)
     a, gpot, ovf_near = tree_near(
         spec, kern if h is not None else None, ctab, ptab, alive, near,
         a_far, pot_far, gmap.reshape(-1), r.shape[0],
-        zeta_scaling=zeta_scaling)
+        zeta_scaling=zeta_scaling, ewald=ewald)
     return a, gpot, ovf_walk | ovf_near
 
 
@@ -650,7 +821,10 @@ def tree_gravity_active(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
     only buckets holding active particles pay): gather (K4) and build
     (K5) over all buckets, walk (K6) and near field (K7) over
     `group_ids` (G_act,) int32.  Returns (a, gpot, overflow) in particle
-    order, zero in the rows of unlisted groups."""
+    order, zero in the rows of unlisted groups.  As in the JAX package
+    (ROADMAP fault F11) the walk takes no Ewald sum and the accuracy
+    MACs their factors' defaults (gadget2 |a| = 1e30, eigenmac 0); the
+    fast multipoles apply."""
     ptab, alive = gather_to_buckets(spec, gmap, r, m, h, zh,
                                     periodic_extent)
     ctab = build_tree(spec, ptab, alive)

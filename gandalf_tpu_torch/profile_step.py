@@ -5,6 +5,7 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --block
     python -m gandalf_tpu_torch.profile_step --mfv [--self-gravity {0,1}]
     python -m gandalf_tpu_torch.profile_step --nbody [--nbody-scheme S]
+    python -m gandalf_tpu_torch.profile_step --ewald
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -17,7 +18,9 @@ default) at 64^3 in float32, as the SPH box.  With --nbody: the N-body
 cluster (check.nbody_params, plummer_cluster) at 65,536 stars in
 float64 under hermite4 (or --nbody-scheme, hermite6ts unsoftened at
 16,384 stars), 2 warm-up steps, then a window of 8 steps
-(main_loop_step, each with its host read of t and dt).  Prints one JSON
+(main_loop_step, each with its host read of t and dt).  With --ewald:
+the periodic Jeans box with the Ewald sum (check.jeans_params,
+ewald_jeans_box) at 64^3 in float32, as the SPH box.  Prints one JSON
 line: the window's host time, the device time summed over kernels and
 copies, the device's idle share of the window, the device time of each
 of K1-K15 and of the torch glue between them, and the device time per
@@ -88,13 +91,15 @@ def main(argv=None) -> int:
                     help="the N-body cluster (plummer_cluster)")
     ap.add_argument("--nbody-scheme", default="hermite4",
                     choices=("hermite4", "hermite6ts"))
+    ap.add_argument("--ewald", action="store_true",
+                    help="the Jeans box with the Ewald sum (ewald_jeans_box)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .check import (jittered_box_ic, mfv_params, nbody_params,
-                        slice_params, sphere_block_params)
+    from .check import (jeans_params, jittered_box_ic, mfv_params,
+                        nbody_params, slice_params, sphere_block_params)
     from .sim.simulation import GradhSphSimulation, SimulationBase
 
     if args.nbody:
@@ -103,6 +108,11 @@ def main(argv=None) -> int:
                               nbody=args.nbody_scheme,
                               nbody_softening=0 if ts6 else 1)
         sim = SimulationBase.factory(params, "cuda")
+        sim.SetupSimulation()
+        warm = 2
+    elif args.ewald:
+        sim = GradhSphSimulation(jeans_params(N_SIDE), device="cuda",
+                                 dtype=torch.float32)
         sim.SetupSimulation()
         warm = 2
     elif args.mfv:
@@ -161,7 +171,7 @@ def main(argv=None) -> int:
                         "dtype": str(sim.dtype), "dt": sim._dt_host}
     else:
         slice_fields = {
-            "block": args.block, "mfv": args.mfv,
+            "block": args.block, "mfv": args.mfv, "ewald": args.ewald,
             "self_gravity": int(sim.self_gravity),
             "tree_plans_in_window": sim._n_tree_plans - plans0,
             "active_rows_per_tick": rows,

@@ -1,10 +1,12 @@
 """Initial-condition generators of the port's configurations.
 
 A copy of the generators of ``gandalf_tpu/sim/ic.py`` that the port's
-slices use: the uniform box (``ic = box``) on a cubic lattice and the
+slices use: the uniform box (``ic = box``) on a cubic lattice, the
 uniform sphere (``ic = sphere``), lattice or random (numpy's generator,
 ``rand_algorithm = default``; the xorshift generator's sphere sampler is
-not ported and raises), with ``generate_ic``'s dispatch; and the N-body
+not ported and raises), and the periodic self-gravity tests of
+EwaldIc.cpp (``jeans`` = ``ewaldsine``, ``ewaldsine2``, ``ewaldslab``,
+``ewaldcylinder``), with ``generate_ic``'s dispatch; and the N-body
 star sets (``plummer``, ``binary``, ``triple``, ``quadruple``) with
 ``generate_nbody_ic``'s.  Host-side numpy in float64, as there; each
 hydro generator returns a dict with keys r, v, m, h, u, each N-body one
@@ -122,6 +124,128 @@ def sphere_ic(params, eos) -> Dict[str, np.ndarray]:
     h = h_fac * (m / rho0) ** (1.0 / ndim)
     u = np.full(N, press / (gammam1 * rho0))
     return {"r": r, "v": np.zeros((N, ndim)), "m": m, "h": h, "u": u}
+
+
+def _thermal_u(params) -> float:
+    """u from either the isothermal (temp0/mu_bar) or adiabatic
+    (press1/rho1) parameters, as the reference IC generators do."""
+    fp = params.floatparams
+    gammam1 = fp["gamma_eos"] - 1.0
+    if params.stringparams["gas_eos"] == "isothermal":
+        return fp["temp0"] / gammam1 / fp["mu_bar"]
+    return fp["press1"] / fp["rhofluid1"] / gammam1
+
+
+def _sinusoidal_displace(x: np.ndarray, amp: float, lam: float) -> np.ndarray:
+    """Displace lattice x so the density becomes rho0(1 + amp sin(k x))
+    (Ic::AddSinusoidalDensityPerturbation fixed-point iteration)."""
+    kwave = 2.0 * np.pi / lam
+    xnew = x.copy()
+    for _ in range(200):
+        xnew = x - amp * (1.0 - np.cos(kwave * xnew)) / kwave
+    return xnew
+
+
+def jeans_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Sinusoidal density perturbation on a 3D periodic lattice for the
+    Jeans-instability / Ewald sine-perturbation tests
+    (src/Ic/EwaldIc.cpp:139-186, 'ewaldsine' == 'jeans')."""
+    fp, ip = params.floatparams, params.intparams
+    ndim = ip["ndim"]
+    n_lat = [ip[f"Nlattice1[{k}]"] for k in range(ndim)]
+    lo = [fp[f"boxmin[{k}]"] for k in range(ndim)]
+    hi = [fp[f"boxmax[{k}]"] for k in range(ndim)]
+    rho0 = fp["rhofluid1"]
+    amp = fp["amp"]
+    lam = hi[0] - lo[0]
+    r = add_cubic_lattice(n_lat, lo, hi)
+    r[:, 0] = _sinusoidal_displace(r[:, 0], amp, lam)
+    # wrap displaced particles back into the periodic box
+    r[:, 0] = lo[0] + np.mod(r[:, 0] - lo[0], lam)
+    N = len(r)
+    volume = np.prod(np.asarray(hi) - np.asarray(lo))
+    m = np.full(N, rho0 * volume / N)
+    h = fp["h_fac"] * (m / rho0) ** (1.0 / ndim)
+    u = np.full(N, _thermal_u(params))
+    return {"r": r, "v": np.zeros_like(r), "m": m, "h": h, "u": u}
+
+
+def _mass_weighted_box(params, rho_fn) -> Dict[str, np.ndarray]:
+    """Lattice positions with per-particle masses following rho_fn(r)
+    (the EwaldIc variable-mass pattern, src/Ic/EwaldIc.cpp:187-320)."""
+    fp, ip = params.floatparams, params.intparams
+    ndim = ip["ndim"]
+    n_lat = [ip[f"Nlattice1[{k}]"] for k in range(ndim)]
+    lo = [fp[f"boxmin[{k}]"] for k in range(ndim)]
+    hi = [fp[f"boxmax[{k}]"] for k in range(ndim)]
+    r = add_cubic_lattice(n_lat, lo, hi)
+    N = len(r)
+    volume = np.prod(np.asarray(hi) - np.asarray(lo))
+    rho = rho_fn(r)
+    m = rho * volume / N
+    h = fp["h_fac"] * (m / np.maximum(rho, 1e-30)) ** (1.0 / ndim)
+    u = np.full(N, _thermal_u(params))
+    return {"r": r, "v": np.zeros_like(r), "m": m, "h": h, "u": u}
+
+
+def _periodicity_code(params) -> int:
+    """Bitmask of fully-periodic dimensions (EwaldIc.cpp:122-134)."""
+    ndim = params.intparams["ndim"]
+    code = 0
+    for k in range(ndim):
+        if (params.stringparams[f"boundary_lhs[{k}]"] == "periodic"
+                and params.stringparams[f"boundary_rhs[{k}]"] == "periodic"):
+            code |= 1 << k
+    return code
+
+
+def _ic_sound_speed(params) -> float:
+    fp = params.floatparams
+    if params.stringparams["gas_eos"] == "isothermal":
+        return float(np.sqrt(fp["temp0"] / fp["mu_bar"]))
+    return float(np.sqrt(fp["gamma_eos"] * fp["press1"] / fp["rhofluid1"]))
+
+
+def ewaldsine2_ic(params, eos) -> Dict[str, np.ndarray]:
+    fp = params.floatparams
+    lam = fp["boxmax[0]"] - fp["boxmin[0]"]
+    kwave = 2.0 * np.pi / lam
+    return _mass_weighted_box(
+        params, lambda r: fp["rhofluid1"]
+        * (1.0 + fp["amp"] * np.sin(kwave * r[:, 0])))
+
+
+def ewaldslab_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Self-gravitating isothermal slab: rho = rho0 sech^2(z/h0) with
+    h0 = cs/sqrt(2 pi rho0) normal to the non-periodic dimension."""
+    fp = params.floatparams
+    rho0 = fp["rhofluid1"]
+    cs = _ic_sound_speed(params)
+    h0 = cs / np.sqrt(2.0 * np.pi * rho0)
+    per = _periodicity_code(params)
+    axis = {3: 2, 5: 1, 6: 0}.get(per)
+    if axis is None:
+        raise ValueError("ewaldslab needs periodic boundaries in exactly "
+                         "two dimensions")
+    return _mass_weighted_box(
+        params, lambda r: rho0 / np.cosh(r[:, axis] / h0) ** 2)
+
+
+def ewaldcylinder_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Self-gravitating isothermal cylinder (Ostriker profile):
+    rho = rho0 / (1 + pi rho0 r_perp^2 / (2 cs^2))^2."""
+    fp = params.floatparams
+    rho0 = fp["rhofluid1"]
+    cs = _ic_sound_speed(params)
+    a2inv = np.pi * rho0 * 0.5 / cs ** 2
+    per = _periodicity_code(params)
+    perp = {1: (1, 2), 2: (0, 2), 4: (0, 1)}.get(per)
+    if perp is None:
+        raise ValueError("ewaldcylinder needs periodic boundaries in "
+                         "exactly one dimension")
+    return _mass_weighted_box(
+        params, lambda r: rho0 / (1.0 + a2inv * (r[:, perp[0]] ** 2
+                                                 + r[:, perp[1]] ** 2)) ** 2)
 
 
 def plummer_stars_ic(params) -> Dict[str, np.ndarray]:
@@ -267,6 +391,11 @@ def quadruple_ic(params) -> Dict[str, np.ndarray]:
 _IC_REGISTRY = {
     "box": uniform_box_ic,
     "sphere": sphere_ic,
+    "jeans": jeans_ic,
+    "ewaldsine": jeans_ic,
+    "ewaldsine2": ewaldsine2_ic,
+    "ewaldslab": ewaldslab_ic,
+    "ewaldcylinder": ewaldcylinder_ic,
 }
 
 _NBODY_IC_REGISTRY = {

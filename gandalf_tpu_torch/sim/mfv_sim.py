@@ -4,7 +4,8 @@ Counterpart of ``gandalf_tpu/sim/mfv_sim.py:MfvMusclSimulation`` for
 the global-timestep path on the structured grid: the M4 kernel, the
 adiabatic EOS, HLLC with or without zero mass flux, the Gizmo slope
 limiter, and optionally self-gravity from the KD-bucket Barnes-Hut tree
-with the MFV zeta scaling.  One step is
+with the MFV zeta scaling (and, in a periodic box, the Ewald sum).  One
+step is
 
   1. Godunov fluxes from the previous step's gradients and positions
      (K1 at the old r, K12),
@@ -136,12 +137,14 @@ class MfvMusclSimulation(SimulationBase):
                          s.r, packed)
 
     def _gravity_pass(self, s: MfvState):
-        """K4-K7 with the MFV zeta scaling (MfvCommon.cpp:413-416):
-        (a, gpot, overflow)."""
+        """K4-K7 with the MFV zeta scaling (MfvCommon.cpp:413-416) and
+        the Ewald table where the box has one: (a, gpot, overflow).  As
+        in the JAX package the accuracy MACs get no per-group factors
+        here (gadget2 |a| = 1e30, eigenmac 0)."""
         return tree_gravity_grouped(
             self.treespec, s.bucket_map, s.r, s.m, s.h, self.kern,
             zh=s.zeta * s.hfactor, periodic_extent=self._periodic_extent(),
-            zeta_scaling="mfv")
+            zeta_scaling="mfv", ewald_table=self.ewald_table)
 
     def _dt_criterion(self, s: MfvState):
         """Courant and acceleration timestep, the minimum over particles

@@ -21,9 +21,10 @@ kernels mask coincident pairs) and their internal motion integrated on
 the host, as in the JAX package.
 
 A step runs eagerly on the state's device.  The host clamps each step's
-dt to tend from one read of (t, dt) per step, taken right after the
-previous step; snapshot times do not clamp it (``tsnapnext`` waits for
-snapshot output, ROADMAP queue 1, item 14).  Unlike the hydro
+dt to tend and to the next snapshot time from one read of (t, dt) per
+step, taken right after the previous step.  The snapshot times advance
+as the JAX package's ``output`` advances them (through ``Run``), though
+no snapshot is taken (output is ROADMAP queue 1, item 14).  Unlike the hydro
 controllers, this one does not burst: the clamp needs the previous
 step's dt, as in the JAX package.
 """
@@ -169,6 +170,7 @@ class NbodySimulation(SimulationBase):
             self._step_fn = self._step
             self.state = self._bootstrap(self.state)
         self._read_clock()
+        self._init_output_cadence()
         self.setup_complete = True
 
     def _read_clock(self):
@@ -179,14 +181,18 @@ class NbodySimulation(SimulationBase):
     def main_loop_step(self):
         """One global step.  Every nsystembuildstep steps the sub-systems
         are rebuilt first (with sub_systems = 1).  dt is clamped to tend -
-        t, and a non-finite or non-positive dt (every star collapsed into
-        one system has no global acceleration) becomes that cap."""
+        t and, while the next snapshot time lies ahead, to tsnapnext - t
+        (gandalf_tpu/sim/nbody_sim.py:159-169); a non-finite or
+        non-positive dt (every star collapsed into one system has no
+        global acceleration) becomes that cap."""
         p = self.params
         if self.use_sys and self.Nsteps % max(
                 p.intparams["nsystembuildstep"], 1) == 0:
             with self.timing.block("SUBSYSTEMS"):
                 self._rebuild_subsystems()
         cap = max(p.floatparams["tend"] - self.t, 1e-30)
+        if self.tsnapnext > self.t:
+            cap = min(cap, self.tsnapnext - self.t)
         dt_glob = self._dt_host
         if not math.isfinite(dt_glob) or dt_glob <= 0.0 or dt_glob > cap:
             dt_glob = cap

@@ -15,9 +15,11 @@ kernel, the adiabatic EOS, mon97 viscosity (or none) and optional
 conductivity, the structured 27-shift grid, KDK leapfrog with a global
 timestep or with hierarchical block timesteps (``Nlevels > 1``), and
 optionally self-gravity from the KD-bucket Barnes-Hut tree (frontier
-walk, geometric MAC, monopole or quadrupole, no Ewald sum), with its
-buckets replanned every ``ntreebuildstep`` steps.  Options outside that
-slice raise NotImplementedError naming their ROADMAP item.
+walk; geometric, gadget2 or eigenmac MAC; monopole or quadrupole moments,
+at every particle or expanded about each bucket's centre; the Ewald sum
+of a periodic box, fully periodic, slab or cylinder), with its buckets
+replanned every ``ntreebuildstep`` steps.  Options outside that slice
+raise NotImplementedError naming their ROADMAP item.
 
 A global step runs eagerly as a sequence of torch operations and kernel
 launches on the simulation's device; on a CUDA device nothing in it
@@ -46,6 +48,7 @@ from ..integrate.leapfrog import (IntegratorConfig, correct, predict,
 from ..kernels.smoothing import kernel_factory
 from ..ops.active_grid import active_hydro_pass
 from ..ops.eos import eos_factory
+from ..ops.ewald import table_from_params
 from ..ops.forces import ArtificialViscosity
 from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
 from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
@@ -100,6 +103,8 @@ class SimulationBase:
         self._n_tree_plans = 0
         self._step_fn = None
         self._leaf_of = None
+        # the next snapshot time; no snapshot is written
+        self.tsnapnext = math.inf
 
     @staticmethod
     def factory(params, device="cuda", dtype=None):
@@ -164,22 +169,23 @@ class SimulationBase:
         self.self_gravity = bool(ip["self_gravity"])
         if self.self_gravity:
             self._check_gravity_options()
+        # the Ewald sum of a periodic self-gravitating box (ewald = 0
+        # treats the box's mass as isolated), its table built once on the
+        # host (gandalf_tpu/sim/simulation.py:897-921)
+        self.use_ewald = (self.self_gravity and bool(self.box.periodic_dims())
+                          and bool(ip["ewald"]))
+        self.ewald_table = None
+        if self.use_ewald:
+            with self.timing.block("EWALD_TABLE"):
+                self.ewald_table = table_from_params(p, self.box)
         self.h_fac = p.floatparams["h_fac"]
         self.h_converge = p.floatparams["h_converge"]
 
     def _check_gravity_options(self):
-        """The tree-gravity options the port runs: the frontier walk with
-        the geometric MAC, monopole or quadrupole, KD buckets, no Ewald
-        sum."""
+        """The tree-gravity options the port runs: the frontier walk over
+        KD buckets (every MAC, multipole and Ewald option of the JAX
+        package)."""
         p = self.params
-        if p.intparams["ewald"] and self.box.periodic_dims():
-            raise _unsupported("ewald = 1 with periodic dims", "item 8")
-        if p.stringparams["gravity_mac"] != "geometric":
-            raise _unsupported(
-                f"gravity_mac {p.stringparams['gravity_mac']!r}", "item 8")
-        if p.stringparams["multipole"] not in ("monopole", "quadrupole"):
-            raise _unsupported(
-                f"multipole {p.stringparams['multipole']!r}", "item 8")
         if p.stringparams["neib_search"] == "octtree":
             raise _unsupported("neib_search = octtree (Morton buckets)",
                                "item 8")
@@ -208,13 +214,14 @@ class SimulationBase:
         self.gridspec = spec
 
     # -- tree plan -------------------------------------------------------------
-    def _plan_tree_buckets(self, r_np: np.ndarray,
-                           grow_caps: bool = False) -> bool:
+    def _plan_tree_buckets(self, r_np: np.ndarray, grow_caps: bool = False,
+                           full_width: bool = False) -> bool:
         """(Re)plan the gravity-tree buckets from positions on the host:
         KD buckets, then caps from the walk demand the C++ planner
         measures on 4096 sampled groups, quantised to multiples of 32 and
         kept within hysteresis of the old caps; `grow_caps` grows them
-        after an overflow.  Returns whether the TreeSpec changed."""
+        after an overflow, `full_width` sets them to the whole tree's
+        width.  Returns whether the TreeSpec changed."""
         p = self.params
         theta_sqd = p.floatparams["thetamaxsqd"]
         old = self.treespec
@@ -257,10 +264,29 @@ class SimulationBase:
                     and len(old.frontier_levels) == len(level_caps):
                 level_caps = [settle(w, ow) for w, ow in
                               zip(level_caps, old.frontier_levels)]
+            if self._mac_outgrows_stats():
+                # the walk statistics cannot see an accuracy MAC's demand,
+                # so its caps never shrink (ROADMAP fault F4)
+                near_cap = max(near_cap, old.near_cap)
+                frontier = max(frontier, old.frontier)
+                if old.frontier_levels is not None \
+                        and len(old.frontier_levels) == len(level_caps):
+                    level_caps = [max(w, ow) for w, ow in
+                                  zip(level_caps, old.frontier_levels)]
+        if full_width:
+            # the whole tree's width: every leaf in each near list (and
+            # kernel support) and 2^l cells at level l (ROADMAP fault F4)
+            near_cap = gmap.shape[0]
+            support_cap = None if support_cap is None else near_cap
+            frontier = 2 * gmap.shape[0]
+            level_caps = [min(1 << ell, frontier)
+                          for ell in range(len(level_caps))]
+        mp = p.stringparams["multipole"]
         spec = plan_tree_for_buckets(
             gmap, theta_sqd=theta_sqd,
-            quadrupole=p.stringparams["multipole"] == "quadrupole",
-            near_cap=near_cap, frontier=frontier,
+            quadrupole=mp in ("quadrupole", "fast_quadrupole"),
+            fast=mp.startswith("fast"), near_cap=near_cap,
+            frontier=frontier, mac=p.stringparams["gravity_mac"],
             macerror=p.floatparams["macerror"])
         if support_cap is not None:
             spec = dataclasses.replace(spec, support_cap=support_cap)
@@ -273,6 +299,14 @@ class SimulationBase:
         self._set_leaf_of(gmap)
         self._n_tree_plans += 1
         return old != spec
+
+    def _mac_outgrows_stats(self) -> bool:
+        """Whether the walk's demand can outgrow what the walk statistics
+        measure: the planner replays the geometric MAC, and gadget2 and
+        eigenmac open more cells (gadget2 every cell of a group whose
+        least |a_prev| is near 0, as at the bootstrap, where a0 = 0)."""
+        return (self.self_gravity and self.params.stringparams[
+            "gravity_mac"] in ("gadget2", "eigenmac"))
 
     def _set_leaf_of(self, gmap: np.ndarray) -> None:
         """Particle -> bucket map of the block tick's active-group walk;
@@ -296,12 +330,17 @@ class SimulationBase:
     def _bootstrap_with_replans(self):
         """Run the bootstrap pass; on neighbour overflow replan the grid
         (and the tree buckets, with grown caps) from the overflowed
-        state and run it again, at most 5 times."""
+        state and run it again, at most 5 times.  An accuracy MAC's walk
+        can outgrow 5 growths of its caps (gadget2 opens every cell while
+        every a0 is zero); it gets a sixth try with caps of the whole
+        tree's width where the JAX package raises (ROADMAP fault F4), so
+        that the two agree wherever the JAX package runs."""
         self._run_bootstrap()
         tries = 0
         while bool(self.state.neib_overflow):
             tries += 1
-            if tries > 5:
+            full = tries == 6 and self._mac_outgrows_stats()
+            if tries > 5 and not full:
                 raise RuntimeError(
                     "bootstrap neighbour overflow persists after 5 "
                     "replans: h is pinned at a clamp (coincident "
@@ -310,7 +349,7 @@ class SimulationBase:
             self._plan_grid(self.state.r, self.state.h)
             if self.treespec is not None:
                 self._plan_tree_buckets(_host(self.state.r),
-                                        grow_caps=True)
+                                        grow_caps=not full, full_width=full)
             self.state = self.state.replace(
                 neib_overflow=torch.zeros_like(self.state.neib_overflow))
             self._run_bootstrap()
@@ -329,8 +368,10 @@ class SimulationBase:
     def main_loop_step(self):
         """One global step; on neighbour overflow, replan the grid from
         the pre-step state (and the tree buckets, with grown caps) and
-        redo the step (at most 4 times).  Every ntreebuildstep steps the
-        tree buckets are replanned first."""
+        redo the step (at most 4 times; an accuracy MAC's walk gets a
+        fifth try with caps of the whole tree's width, ROADMAP fault F4).
+        Every ntreebuildstep steps the tree buckets are replanned
+        first."""
         self._tree_cadence()
         self._clamp_dt_to_tend()
         with self.timing.block("MAIN_LOOP"):
@@ -340,15 +381,18 @@ class SimulationBase:
                 # plan from the pre-step state: the overflowed state's h
                 # came from truncated sums
                 with self.timing.block("GRID_REPLAN"):
-                    for attempt in range(4):
+                    tries = 5 if self._mac_outgrows_stats() else 4
+                    for attempt in range(tries):
+                        full = attempt == 4
                         self.state = prev
                         self._n_grid_overflows += 1
                         self._plan_grid(prev.r, prev.h,
                                         growth=1.3 * (1.2 ** attempt))
                         if self.treespec is not None:
                             # replaces self.state's bucket map
-                            self._plan_tree_buckets(_host(prev.r),
-                                                    grow_caps=True)
+                            self._plan_tree_buckets(
+                                _host(prev.r), grow_caps=not full,
+                                full_width=full)
                         self.state = self._step_fn(self.state)
                         if not bool(self.state.neib_overflow):
                             break
@@ -400,9 +444,23 @@ class SimulationBase:
         self.t = float(t_now)
         return n
 
+    def _init_output_cadence(self):
+        """The first snapshot time, advanced past t (gandalf_tpu's
+        _init_output_cadence without the snapshot)."""
+        self.tsnapnext = self.params.floatparams["tsnapfirst"]
+        while self.tsnapnext <= self.t:
+            self.tsnapnext += self.params.floatparams["dt_snap"]
+
+    def output(self, final: bool = False):
+        """Advance the snapshot time once t has reached it, as
+        gandalf_tpu's output does; no snapshot is written."""
+        if self.t >= self.tsnapnext or final:
+            self.tsnapnext += self.params.floatparams["dt_snap"]
+
     def Run(self, Nadvance: int = -1):
-        """Advance until tend or Nstepsmax (or Nadvance more steps); no
-        snapshot output."""
+        """Advance until tend or Nstepsmax (or Nadvance more steps),
+        advancing the snapshot time after each burst; no snapshot
+        output."""
         if not self.setup_complete:
             self.SetupSimulation()
         tend = self.params.floatparams["tend"]
@@ -410,6 +468,8 @@ class SimulationBase:
                 else self.Nsteps + Nadvance)
         while self.t < tend and self.Nsteps < nmax:
             self.main_loop_steps(nmax - self.Nsteps)
+            self.output()
+        self.output(final=True)
 
 
 class GradhSphSimulation(SimulationBase):
@@ -500,10 +560,23 @@ class GradhSphSimulation(SimulationBase):
             a_g, gpot, overflow = tree_gravity_grouped(
                 self.treespec, s.bucket_map, s.r, self._gravity_mass(s),
                 s.h, self.kern, zh=s.zeta * s.hfactor,
-                periodic_extent=self._periodic_extent())
+                periodic_extent=self._periodic_extent(),
+                ewald_table=self.ewald_table, **self._mac_inputs(s))
             s = s.replace(a=s.a + a_g, gpot=gpot,
                           neib_overflow=s.neib_overflow | overflow)
         return s
+
+    def _mac_inputs(self, s, spec=None) -> dict:
+        """The accuracy MAC's target-side input for `spec` (default the
+        simulation's TreeSpec), from the previous step
+        (gandalf_tpu/sim/simulation.py:1451-1455): |a0| for gadget2,
+        gpot for eigenmac."""
+        mac = (spec or self.treespec).mac
+        if mac == "gadget2":
+            return {"amag": torch.sqrt(torch.sum(s.a0 * s.a0, -1))}
+        if mac == "eigenmac":
+            return {"gpot_prev": s.gpot}
+        return {}
 
     def _gravity_mass(self, s: SphState):
         """Gravitating mass: gas (and cdm); icm, boundary and dust

@@ -74,6 +74,46 @@ def test_generate_ic_is_identical(case):
         assert np.array_equal(mine[k], theirs[k]), k
 
 
+def _ewald_ic_params(case):
+    """The periodic self-gravity tests' ICs (EwaldIc.cpp): the Jeans box,
+    the mass-weighted sine, the slab (open along z) and the cylinder
+    (periodic along z only), on a 6^3 lattice in a box centred on the
+    origin, adiabatic or isothermal."""
+    from gandalf_tpu_torch.check import jeans_params
+
+    p = jeans_params(6)
+    ic, per = {"jeans": ("jeans", "xyz"), "ewaldsine": ("ewaldsine", "xyz"),
+               "ewaldsine2": ("ewaldsine2", "xyz"),
+               "ewaldslab": ("ewaldslab", "xy"),
+               "ewaldcylinder_isothermal": ("ewaldcylinder", "z")}[case]
+    p.set("ic", ic)
+    if case.endswith("isothermal"):
+        p.set("gas_eos", "isothermal")
+    for k, axis in enumerate("xyz"):
+        p.set(f"boxmin[{k}]", -0.5)
+        p.set(f"boxmax[{k}]", 0.5)
+        side = "periodic" if axis in per else "open"
+        p.set(f"boundary_lhs[{k}]", side)
+        p.set(f"boundary_rhs[{k}]", side)
+    return p
+
+
+@pytest.mark.parametrize("case", ["jeans", "ewaldsine", "ewaldsine2",
+                                  "ewaldslab", "ewaldcylinder_isothermal"])
+def test_ewald_ics_are_identical(case):
+    def make(P):
+        q = P()
+        p = _ewald_ic_params(case)
+        for table in ("intparams", "floatparams", "stringparams"):
+            getattr(q, table).update(getattr(p, table))
+        return q
+
+    mine, theirs = _ics(make(params.Parameters), make(jparams.Parameters))
+    assert sorted(mine) == sorted(theirs)
+    for k in mine:
+        assert np.array_equal(mine[k], theirs[k]), k
+
+
 def test_other_ics_raise():
     p = params.Parameters()
     p.set("ic", "sedov")

@@ -150,6 +150,97 @@ def test_kernels_match_plain_versions_on_gpu(dtype):
     assert all(r["ok"] for r in report.values()), report
 
 
+def _option_sims(dtype):
+    """(tag, simulation) of each K6/K7 option after setup on the card:
+    the Jeans box with the Ewald sum, the slab and the cylinder, the MFV
+    box with it, and the 16^3 box with gadget2 (after two steps, so that
+    a0 is set), eigenmac and the fast quadrupoles."""
+    from gandalf_tpu_torch.check import (jeans_params, jittered_box_ic,
+                                         mfv_params, slice_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    sims = []
+    sim = SimulationBase.factory(jeans_params(16), "cuda", dtype)
+    sim.SetupSimulation()
+    sims.append(("jeans", sim))
+    for ic, per in (("ewaldslab", "xy"), ("ewaldcylinder", "z")):
+        p = jeans_params(16)
+        p.set("ic", ic)
+        for k, axis in enumerate("xyz"):
+            p.set(f"boxmin[{k}]", -0.5)
+            p.set(f"boxmax[{k}]", 0.5)
+            side = "periodic" if axis in per else "open"
+            p.set(f"boundary_lhs[{k}]", side)
+            p.set(f"boundary_rhs[{k}]", side)
+        sim = SimulationBase.factory(p, "cuda", dtype)
+        sim.SetupSimulation()
+        sims.append((ic, sim))
+    p = mfv_params(16, self_gravity=1)
+    p.set("ewald", 1)
+    sim = SimulationBase.factory(p, "cuda", dtype)
+    sim.SetupSimulation(jittered_box_ic(p, 16))
+    sims.append(("mfv_ewald", sim))
+    for key, value in (("gravity_mac", "gadget2"),
+                       ("gravity_mac", "eigenmac"),
+                       ("multipole", "fast_quadrupole")):
+        p = slice_params(16, self_gravity=1)
+        p.set(key, value)
+        sim = SimulationBase.factory(p, "cuda", dtype)
+        sim.SetupSimulation(jittered_box_ic(p, 16))
+        sim.main_loop_steps(2)
+        sims.append((value, sim))
+    return sims
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tree_options_match_plain_versions_on_gpu(dtype):
+    """K6 and K7 in their Ewald (fully periodic, slab, cylinder; SPH and
+    MFV zeta), gadget2, eigenmac and fast-multipole modes against their
+    plain versions on the card, with the group-list launches of each SPH
+    option."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import compare_tree_kernels
+
+    report = {}
+    for tag, sim in _option_sims(dtype):
+        rep = compare_tree_kernels(sim, sim.state,
+                                   listed=not tag.startswith("mfv"))
+        report.update({f"{tag}_{k}": r for k, r in rep.items()})
+    torch.cuda.synchronize()
+    bad = {k: r.get("scaled_err", r) for k, r in report.items()
+           if not r["ok"]}
+    assert not bad, bad
+
+
+def test_tree_option_wrappers_check_their_inputs():
+    """K6 with an accuracy MAC needs its per-group factor, and K7 with
+    the fast multipoles takes K6's expansions and no far potential; the
+    wrappers raise before any launch."""
+    import dataclasses
+
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.tree import plan_tree
+
+    before = dict(_ext.LAUNCHES)
+    g2 = dataclasses.replace(plan_tree(64), mac="gadget2")
+    f64 = dict(dtype=torch.float64)
+    rows = (2 << g2.depth) - 1
+    ctab, ptab = torch.zeros((rows, 16), **f64), torch.zeros((64, 6), **f64)
+    alive = torch.ones((64,), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.tree_walk(g2, ctab, ptab, alive)
+    assert _ext._MACS["eigenmac"] == 2
+    fast = dataclasses.replace(plan_tree(64), fast=True)
+    near = torch.full((2, fast.near_cap), -1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        _ext.tree_near(fast, None, ctab, ptab, alive, near,
+                       torch.zeros((2, 13), **f64), torch.zeros((64,), **f64),
+                       torch.arange(64, dtype=torch.int32), 64)
+    assert _ext.LAUNCHES == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_nbody_kernels_match_plain_versions_on_gpu(dtype):

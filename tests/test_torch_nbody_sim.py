@@ -209,6 +209,45 @@ def test_run_stops_at_tend():
     assert sim.Nsteps == jsim.Nsteps
 
 
+@pytest.mark.parametrize("route", ["main_loop_step", "Run"])
+def test_snapshot_times_clamp_dt_like_jax(route):
+    """ROADMAP fault F10: with the default snapshot times (tsnapfirst =
+    dt_snap = 0.2) the step that crosses a snapshot time is shortened to
+    land on it, as in the JAX package.  Through main_loop_step only the
+    first snapshot time clamps (nothing advances it); through Run each
+    multiple of 0.2 does.  The binary's steps of about 0.1 cross t = 0.2
+    within a few steps."""
+    p = nbody_params(2, tend=0.75, **dict(BINARY, tsnapfirst=0.2,
+                                          dt_snap=0.2))
+    jsim = JaxBase.factory(_jax_params(p))
+    jsim.SetupSimulation()
+    tsim = SimulationBase.factory(p, "cpu")
+    tsim.SetupSimulation()
+    if route == "Run":
+        jsim.Run()
+        tsim.Run()
+        landed = [0.2, 0.4, 0.6, 0.75]
+    else:
+        for _ in range(10):
+            jsim.main_loop_step()
+            tsim.main_loop_step()
+        landed = [0.2]
+    assert tsim.Nsteps == jsim.Nsteps
+    assert max(_errors(jsim, tsim).values()) <= TOL
+    assert tsim.tsnapnext == pytest.approx(jsim.tsnapnext, rel=1e-12)
+    # the clamp did shorten a step: re-run the port and record each t
+    ts = []
+    tsim = SimulationBase.factory(p, "cpu")
+    tsim.SetupSimulation()
+    while len(ts) < jsim.Nsteps:
+        tsim.main_loop_step()
+        if route == "Run":
+            tsim.output()
+        ts.append(tsim.t)
+    for t in landed:
+        assert min(abs(x - t) for x in ts) <= 1e-12, (t, ts)
+
+
 def test_jax_energy_drift_is_inside_the_chip_gate():
     """The JAX package's own drift of E = sum m v^2/2 - sum m gpot/2 over
     32 steps of plummer_cluster cut to 1,024 stars (float64, on the

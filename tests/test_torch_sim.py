@@ -110,10 +110,14 @@ def test_run_lands_on_tend():
                                        ("neib_search", "bruteforce")])
 def test_options_outside_the_slice_raise(key, value):
     """Options the port does not run raise; sinks and dust stay refused
-    with block timesteps (Nlevels = 3) too."""
+    with block timesteps (Nlevels = 3) too, and self-gravity (which runs
+    every walk option, the Ewald sum of this periodic box included) with
+    octtree buckets."""
     p = slice_params(8)
     if key in ("sink_particles", "dust_forces"):
         p.set("Nlevels", 3)
+    if key == "self_gravity":
+        p.set("neib_search", "octtree")
     p.set(key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GradhSphSimulation(p).process_parameters()

@@ -2,12 +2,13 @@
 
 Drives gandalf_tpu_torch's main paths on the card, grad-h SPH hydro
 only, self-gravitating and with block timesteps, the self-gravitating
-meshless finite-volume box and the direct-summation N-body cluster, and
-checks them, in phases, each printing one line:
+meshless finite-volume box, the direct-summation N-body cluster, the
+walk's options and the Boss-Bodenheimer collapse with sinks, and checks
+them, in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K15 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K18 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -92,22 +93,44 @@ checks them, in phases, each printing one line:
    replans, and the accuracy against the direct sum beside the
    geometric MAC's on the same state (an accuracy MAC within 1.001
    times it; the fast quadrupole within 5e-3), and K6's and K7's times
-   at the path's shapes.
+   at the path's shapes;
+24. sink_kernels: K16-K18 against their plain versions on the card in
+   float64 and float32 on synthetic inputs with the edge cases
+   (check.sink_kernel_inputs): 4,096 gas particles with 16 and with 64
+   slots, and an embedded cluster's 262,144 gas particles with 4,096
+   stars, timed there in float32 beside each kernel's bound;
+25. sink_parity: float64 on the card against the plain path on the CPU:
+   6 steps of a random Boss-Bodenheimer cloud of 1,000 particles that
+   forms a sink each step, and 5 steps of a hybrid Plummer sphere of 512
+   gas particles and 16 stars that accretes; equal sinks created at equal
+   steps, equal eaten gas and equal tree plans;
+26. bb_sink_collapse: GANDALF's bossbodenheimer.dat (check.bb_params)
+   at about 262,144 particles in float32 with rho_sink lowered to 2e-17 g
+   cm^-3: setup, then 32 timed steps (4 tree rebuilds), with rates,
+   sinks formed, launch counts, finiteness over the alive gas, dead gas
+   at rest and massless, gas plus sink mass in float64, each step's sink
+   gain against the gas that died (check.sink_ledger), overflow and the
+   tree plus star-gas accuracy against the float64 all-pairs sum; then
+   K4 (with its alive input), K6, K7 and K16-K18 against their plain
+   versions at the path's state;
+27. bb_published: the same file with only Nhydro, the snapshot times and
+   run_id changed, 8 steps: no sink forms, every field finite.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
-counts from the self-gravitating main path, K8, K9 and the list
+counts from the self-gravitating main path (K4 also with its alive mode
+on the sink path), K8, K9 and the list
 launches of K6 and K7 with counts from the block main path, K10-K12
 and K7's MFV launches from the MFV main path, K14 from the N-body main
 path and K13 and K15 from the hermite6ts path, the Ewald modes of K6
-and K7 from the Ewald main path, and the gadget2, eigenmac and fast
-modes from the options path, each counted over its path's timed window
-(the counts are set to 0 just before it); each
+and K7 from the Ewald main path, the gadget2, eigenmac and fast modes
+from the options path, and K16-K18 from the sink path, each counted over
+its path's timed window (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
-for the work, check.bound) and library_ms null (no single PyTorch call
-computes any of these functions).  The last line is {"ok": true,
-"device": {...}}.  Any
-failure raises and exits non-zero without printing the last line.  Run
-from the repository root:
+for the work, check.bound) and library_ms null where no single PyTorch
+call computes the function (K17's is torch.argmax over the masked
+score).  The last line is {"ok": true, "device": {...}}.  Any failure
+raises and exits non-zero without printing the last line.  Run from the
+repository root:
 
     python3 chip_smoke.py
 """
@@ -206,6 +229,30 @@ OPTIONS_STEPS_TIMED = 8
 # the geometric MAC's; the fast quadrupole's error is at most 5e-3
 MAC_ERROR_RATIO = 1.001
 FAST_ACCURACY_TOL = 5e-3
+# the sink slice: bb_sink_collapse (check.bb_params), rho_sink in g cm^-3
+BB_N = 262144
+BB_RHO_SINK = 2.0e-17
+BB_STEPS_TIMED = 32
+BB_PUBLISHED_STEPS = 8
+BB_MIN_SINKS = 8
+# gas plus sink mass over the window, summed in float64 on the host; and
+# each step's sink gain in mass and momentum against what the gas that
+# died carried (float32 roundoff of a sink's mass and velocity update)
+BB_MASS_TOL = 1e-6
+BB_LEDGER_TOL = 1e-5
+# the tree (monopole, theta^2 = 0.15) plus star-gas pull against the
+# float64 all-pairs sum over the alive gas plus the float64 star-gas sum.
+# The JAX package reads 2.09e-3 on this cloud at 2,176 particles after a
+# step, in float64 on the CPU (tests/test_torch_sinks.py), and the card
+# 2.93e-3 at about 262,144 after the window; the gate is about twice the
+# larger.
+BB_ACCURACY_TOL = 6e-3
+SINK_KERNEL_SIZES = ((4096, 16), (4096, 64))
+SINK_CLUSTER = (262144, 4096)
+SINK_PARITY_BB_N = 1000
+SINK_PARITY_BB_STEPS = 6
+SINK_PARITY_PLUMMER = (512, 16)
+SINK_PARITY_PLUMMER_STEPS = 5
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -256,6 +303,12 @@ SOURCES = {
                        "gandalf_tpu/ops/tree.py:481"),
     "tree_near_fast": ("gandalf_tpu_torch/csrc/tree_near.cu",
                        "gandalf_tpu/ops/tree.py:848"),
+    "star_gas_forces": ("gandalf_tpu_torch/csrc/star_gas.cu",
+                        "gandalf_tpu/ops/sph_gravity.py:30"),
+    "sink_candidate": ("gandalf_tpu_torch/csrc/sinks.cu",
+                       "gandalf_tpu/ops/sinks.py:94"),
+    "accretion_sums": ("gandalf_tpu_torch/csrc/sinks.cu",
+                       "gandalf_tpu/ops/sinks.py:134"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
@@ -269,6 +322,10 @@ NBODY = ("direct_nbody", "direct_softened", "direct_snap")
 # the kernels of a step of the Ewald path
 EWALD = HYDRO + ("tree_gather", "tree_build", "tree_walk_ewald",
                  "tree_near_ewald")
+# the kernels of a step of the sink path
+SINK = ("star_gas_forces", "sink_candidate", "accretion_sums",
+        "direct_softened")
+BB = GRAVITY + SINK
 
 
 def phase(tag: str, **fields) -> None:
@@ -1001,7 +1058,231 @@ def tree_options_path(dev, card):
     return out_launches, out_rep
 
 
-def kernel_line(launches, rep) -> dict:
+def sink_kernels(dev) -> None:
+    """K16-K18 against their plain versions on synthetic inputs with the
+    edge cases, in float64 and float32; at the embedded cluster's size
+    also timed in float32."""
+    from gandalf_tpu_torch.check import (bound, compare_sink_kernels,
+                                         sink_kernel_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+
+    kern = kernel_factory("m4", 3)
+    for n, ns in SINK_KERNEL_SIZES + (SINK_CLUSTER,):
+        for dtype in (torch.float64, torch.float32):
+            cluster = (n, ns) == SINK_CLUSTER and dtype == torch.float32
+            rep = compare_sink_kernels(
+                kern, sink_kernel_inputs(n, ns, dev, dtype),
+                repeats=3 if cluster else 0)
+            if cluster:
+                for r in rep.values():
+                    r["bound_ms"], r["bound_by"] = bound(r["work"], dtype)
+            phase("sink_kernels", N=n, Ns=ns, dtype=str(dtype), report=rep)
+            require_ok("sink_kernels", rep)
+
+
+def _sink_run(make, device, steps):
+    """A float64 sink simulation from make(device) after setup and
+    `steps` single steps, with its active slots and alive mask after
+    each step."""
+    sim = make(device)
+    sim.SetupSimulation()
+    trail = []
+    for _ in range(steps):
+        sim.main_loop_step()
+        trail.append((sim.state.sinks.active.cpu().clone(),
+                      sim.state.alive.cpu().clone()))
+    return sim, trail
+
+
+def sink_parity(dev) -> None:
+    """Sink runs in float64, kernels on the card against the plain path
+    on the CPU: equal sinks created at equal steps, equal eaten gas,
+    equal tree plans, and every field within PARITY_TOL."""
+    from gandalf_tpu_torch.check import bb_params
+    from gandalf_tpu_torch.params import Parameters
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    def bb(device):
+        p = bb_params(SINK_PARITY_BB_N, rho_sink=BB_RHO_SINK)
+        p.set("particle_distribution", "random")
+        p.set("rand_algorithm", "default")
+        return GradhSphSimulation(p, device=device, dtype=torch.float64)
+
+    def plummer(device):
+        p = Parameters()
+        n_gas, n_star = SINK_PARITY_PLUMMER
+        for k, v in dict(run_id="", sim="sph", ndim=3, ic="plummer",
+                         Nhydro=n_gas, Nstar=n_star, gasfrac=0.5,
+                         starfrac=0.5, self_gravity=1, dimensionless=1,
+                         gas_eos="energy_eqn", neib_search="kdtree",
+                         sink_particles=1, create_sinks=0,
+                         tsnapfirst=1e30).items():
+            p.set(k, v)
+        return GradhSphSimulation(p, device=device, dtype=torch.float64)
+
+    for tag, make, steps in (("bb_random", bb, SINK_PARITY_BB_STEPS),
+                             ("hybrid_plummer", plummer,
+                              SINK_PARITY_PLUMMER_STEPS)):
+        runs = [_sink_run(make, d, steps) for d in (dev, torch.device("cpu"))]
+        sims = [r[0] for r in runs]
+        torch.cuda.synchronize()
+        errs = parity_errors(sims, ("r", "v", "u", "h", "rho", "gpot"))
+        for f in ("r", "v", "m", "mdot"):
+            x = getattr(sims[0].state.sinks, f).cpu()
+            ref = getattr(sims[1].state.sinks, f)
+            errs[f"sink_{f}"] = float(torch.abs(x - ref).max()
+                                      / torch.abs(ref).max().clamp_min(1e-300))
+        same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for a, b in zip(runs[0][1], runs[1][1]))
+        counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
+        created = [int(t[0].sum()) for t in runs[1][1]]
+        phase("sink_parity", run=tag, N=sims[1].state.N, steps=steps,
+              rel_err=errs, same_sinks_and_eaten_each_step=same,
+              active_slots_per_step=created,
+              dead=int((~sims[1].state.alive).sum()),
+              tree_plans_and_replans=counts)
+        if max(errs.values()) > PARITY_TOL or not same \
+                or counts[0] != counts[1]:
+            raise RuntimeError(f"sink_parity: kernel path disagrees with "
+                               f"the plain path: {tag} {errs} {counts}")
+
+
+def bb_sink_collapse(dev, card):
+    """bb_sink_collapse at full size: setup, the timed window straight
+    after the bootstrap, then the checks and the kernels against their
+    plain versions at the path's state.  Returns the path's launch
+    counts, the kernel reports and K4's alive mode."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (bb_params, compare_sink_kernels,
+                                         compare_tree_kernels,
+                                         gravity_accuracy, ledger_errors,
+                                         sim_sink_inputs, sink_ledger,
+                                         total_mass)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    sim = GradhSphSimulation(bb_params(BB_N, rho_sink=BB_RHO_SINK),
+                             device=dev, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    s = sim.state
+    boot = {"replans": sim._n_grid_overflows, "N": s.N,
+            "ncells": list(sim.gridspec.ncells),
+            "k_cell": sim.gridspec.k_cell,
+            "rho_mean": float(s.rho.double().mean()),
+            "rho_max": float(s.rho.max()),
+            "rho_sink_code": sim.sink_cfg.rho_sink,
+            "sound_code": float(s.sound.double().mean()),
+            "rho_code_in_g_cm3": sim.units.rho.outscale}
+    mass0 = total_mass(sim)
+    sinks0 = int(s.sinks.active.sum())
+    margin = compare_sink_kernels(sim.kern, sim_sink_inputs(sim))[
+        "sink_candidate"]["top_two_margin"]
+    rows = sink_ledger(sim)
+    plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
+    rebuild0 = sim.timing.totals.get("TREE_REBUILD", 0.0)
+    replan0 = sim.timing.totals.get("GRID_REPLAN", 0.0)
+    steps0 = sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, BB_STEPS_TIMED)
+    done = sim.Nsteps - steps0
+    launches = {k: _ext.LAUNCHES[k] for k in BB}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    replans = sim._n_grid_overflows - replans0
+    s = sim.state
+    st = s.sinks
+    alive = s.alive
+    mass1 = total_mass(sim)
+    em, ep, m_dead = ledger_errors(rows)
+    # steps run, a burst redone after an overflow replan included
+    steps_run = len(rows)
+    acc = gravity_accuracy(sim, n_sample=2048)
+    dead = ~alive
+    act = st.active
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)[alive]).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "gpot"))
+        and all(bool(torch.isfinite(getattr(st, f)[act]).all())
+                for f in ("r", "v", "a", "m")),
+        "rho_positive": bool((s.rho[alive] > 0).all()),
+        "sinks_formed": int(act.sum()) - sinks0 >= BB_MIN_SINKS,
+        "dead_at_rest": bool((s.m[dead] == 0).all())
+        and bool((s.v[dead] == 0).all()) and bool((s.a[dead] == 0).all()),
+        "mass_conserved": abs(mass1 - mass0) / mass0 <= BB_MASS_TOL,
+        "ledger": len(em) >= done and max(em + ep) <= BB_LEDGER_TOL,
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(n >= done for n in launches.values()),
+        "sink_kernels_once_a_step": all(launches[k] == steps_run
+                                        for k in SINK),
+        "accuracy": acc["rms_rel_err"] <= BB_ACCURACY_TOL,
+    }
+    rep = compare_sink_kernels(sim.kern, sim_sink_inputs(sim), repeats=5)
+    rep.update(compare_tree_kernels(sim, s, repeats=5))
+    spec = sim.treespec
+    phase("bb_sink_collapse", steps=sim.Nsteps, timed_steps=done,
+          steps_run=steps_run, setup_s=t_setup, bootstrap=boot,
+          timed_s=elapsed,
+          particle_steps_per_s=s.N * done / elapsed,
+          t_code=sim.t, dt_code=float(s.dt),
+          sinks_active=int(act.sum()), sinks_formed=int(act.sum()) - sinks0,
+          dead=int(dead.sum()), sink_masses=st.m[act].tolist(),
+          top_two_rho_margin_at_bootstrap=margin,
+          rebuilds_in_window=sim._n_tree_plans - plans0 - replans,
+          rebuild_host_s=sim.timing.totals.get("TREE_REBUILD", 0.0)
+          - rebuild0, replans_in_window=replans,
+          replan_host_s=sim.timing.totals.get("GRID_REPLAN", 0.0) - replan0,
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          G_pad=spec.n_leaves, near_cap=spec.near_cap,
+          support_cap=spec.support_cap, launches=launches,
+          mass_rel_change=abs(mass1 - mass0) / mass0,
+          ledger_mass_err=max(em), ledger_momentum_err=max(ep),
+          dead_mass_per_step=m_dead, accuracy=acc,
+          accuracy_gate=BB_ACCURACY_TOL, checks=checks, kernels=rep,
+          card=card, peak_mem_gb=peak_gb)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"bb_sink_collapse checks failed: {failed}")
+    k4 = rep["tree_gather"]
+    alive_mode = {"path": "bb_sink_collapse",
+                  "launches": launches["tree_gather"],
+                  "dead": k4["dead"], "max_abs_err": k4["max_abs_err"],
+                  "ms": k4["ms"], "plain_ms": k4["plain_ms"]}
+    names = SINK[:3]
+    return ({k: launches[k] for k in names}, {k: rep[k] for k in names},
+            alive_mode)
+
+
+def bb_published(dev, card) -> None:
+    """The published bossbodenheimer.dat (only Nhydro, the snapshot
+    times and run_id changed) for a few steps: no sink forms."""
+    from gandalf_tpu_torch.check import bb_params
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    sim = GradhSphSimulation(bb_params(BB_N), device=dev,
+                             dtype=torch.float32)
+    sim.SetupSimulation()
+    elapsed = run_timed(sim, BB_PUBLISHED_STEPS)
+    s = sim.state
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "gpot")),
+        "no_sink": not bool(s.sinks.active.any()),
+        "all_alive": bool(s.alive.all()),
+        "no_overflow": not bool(s.neib_overflow),
+    }
+    phase("bb_published", N=s.N, steps=sim.Nsteps, timed_s=elapsed,
+          particle_steps_per_s=s.N * sim.Nsteps / elapsed,
+          rho_max_over_rho_sink=float(s.rho.max()) / sim.sink_cfg.rho_sink,
+          checks=checks, card=card)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"bb_published checks failed: {failed}")
+
+
+def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
     report without one comes from a float32 path)."""
@@ -1018,7 +1299,9 @@ def kernel_line(launches, rep) -> dict:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "bound_by": bound_by, "library_ms": r.get("library_ms")})
+        if name == "tree_gather" and alive_mode is not None:
+            kernels[-1]["alive_mode"] = alive_mode
     return {"kernels": kernels}
 
 
@@ -1251,7 +1534,15 @@ def main() -> int:
         launches.update(o_launches)
         rep.update(o_rep)
 
-    print(json.dumps(kernel_line(launches, rep)), flush=True)
+    # 24-27. sinks: the Boss-Bodenheimer collapse
+    sink_kernels(dev)
+    sink_parity(dev)
+    s_launches, s_rep, alive_mode = bb_sink_collapse(dev, card)
+    bb_published(dev, card)
+    launches.update(s_launches)
+    rep.update(s_rep)
+
+    print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

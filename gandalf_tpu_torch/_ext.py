@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K15 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K18 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -20,7 +20,9 @@ the gadget2 or eigenmac MAC under ``tree_walk_gadget2`` or
 ``tree_walk_eigenmac`` and K7 in its meshless finite-volume zeta mode
 under ``tree_near_mfv``, and otherwise under their own names.  The
 N-body kernels K13-K15 count under ``direct_nbody``, ``direct_softened``
-and ``direct_snap``.
+and ``direct_snap``, the sink kernels K16-K18 under ``star_gas_forces``,
+``sink_candidate`` and ``accretion_sums`` (each wrapper launches two or
+three kernels, its stages, and counts one).
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ _BUILD = _HERE / "_build"
 _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
-          "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu")
+          "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu",
+          "star_gas.cu", "sinks.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,7 +57,8 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "tree_walk_fast": 0, "tree_near_fast": 0, "active_density": 0,
             "active_forces": 0,
             "mfv_density": 0, "mfv_gradients": 0, "mfv_fluxes": 0,
-            "direct_nbody": 0, "direct_softened": 0, "direct_snap": 0}
+            "direct_nbody": 0, "direct_softened": 0, "direct_snap": 0,
+            "star_gas_forces": 0, "sink_candidate": 0, "accretion_sums": 0}
 
 _lib = None
 
@@ -66,7 +70,8 @@ _ARGTYPES = {
                        _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _P],
     "grid27_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _D, _D, _D, _D, _I, _I, _D, _D, _P, _P, _P, _I, _P],
-    "tree_gather": [_P, _I, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _I, _P],
+    "tree_gather": [_P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _I,
+                    _P],
     "tree_build": [_P, _P, _I, _I, _P, _P, _I, _P],
     "tree_walk": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _I, _I, _D, _P,
                   _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -87,6 +92,12 @@ _ARGTYPES = {
     "direct_nbody": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_softened": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_snap": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
+    "star_gas_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                        _P, _I, _P],
+    "sink_candidate": [_P, _P, _I, _D, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _P],
+    "accretion_sums": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _D, _P, _P, _P,
+                       _P, _P, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -179,6 +190,8 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
         dll.grid27_error_string.argtypes = [ctypes.c_int]
         dll.grid27_error_string.restype = ctypes.c_char_p
+        dll.sink_candidate_blocks.argtypes = [ctypes.c_int]
+        dll.sink_candidate_blocks.restype = ctypes.c_int
         _lib = dll
     return _lib
 
@@ -302,9 +315,10 @@ def _tree_shapes(spec):
     return G, G * _LEAF, (2 << spec.depth) - 1
 
 
-def tree_gather(spec, gmap, r, m, h, zh, periodic_extent):
+def tree_gather(spec, gmap, r, m, h, zh, periodic_extent, alive=None):
     """K4: slot table (G*32, 6) and alive (G*32,) bool from particle
-    fields (h, zh may be None) through gmap (G, 32) int32."""
+    fields (h, zh may be None) through gmap (G, 32) int32; with `alive`
+    (N,) bool a slot's flag is also its particle's."""
     G, S, _ = _tree_shapes(spec)
     N, dt, dev = r.shape[0], r.dtype, r.device
     _check(gmap, "gmap", torch.int32, (G, _LEAF))
@@ -313,14 +327,17 @@ def tree_gather(spec, gmap, r, m, h, zh, periodic_extent):
     for name, x in (("h", h), ("zh", zh)):
         if x is not None:
             _check(x, name, dt, (N,))
+    if alive is not None:
+        _check(alive, "alive", torch.bool, (N,))
     ext = [0.0, 0.0, 0.0] if periodic_extent is None \
         else [float(e) for e in periodic_extent]
     ptab = torch.empty((S, _PCOLS), dtype=dt, device=dev)
-    alive = torch.empty((S,), dtype=torch.bool, device=dev)
+    slot_alive = torch.empty((S,), dtype=torch.bool, device=dev)
     _launch("tree_gather", dt, dev, _p(gmap), G, _p(r), _p(m),
             None if h is None else _p(h), None if zh is None else _p(zh),
-            int(periodic_extent is not None), *ext, _p(ptab), _p(alive))
-    return ptab, alive
+            None if alive is None else _p(alive),
+            int(periodic_extent is not None), *ext, _p(ptab), _p(slot_alive))
+    return ptab, slot_alive
 
 
 def tree_build(spec, ptab, alive):
@@ -654,3 +671,94 @@ def direct_snap(r, v, a, m):
     _launch("direct_snap", r.dtype, r.device, _p(r), _p(v), _p(a), _p(m), N,
             ndim, _p(snap))
     return snap
+
+
+# ---------------------------------------------------------------------------
+# Sinks and star-gas gravity, K16-K18 (ops/sph_gravity.py, ops/sinks.py)
+# ---------------------------------------------------------------------------
+
+_CHUNK = 256    # gas particles per partial sum of K16's and K18's slots
+
+
+def _gas_and_slots(r, rs, act):
+    """(N, Ns) of gas r (N, 3) and slot rs (Ns, 3) with act (Ns,) bool,
+    checked (3D, r's dtype and device)."""
+    N, Ns = r.shape[0], rs.shape[0]
+    _check(r, "r_gas", r.dtype, (N, 3))
+    _check(rs, "r_star", r.dtype, (Ns, 3))
+    _check(act, "star_active", torch.bool, (Ns,))
+    if rs.device != r.device:
+        raise ValueError("r_star: expected r_gas's device")
+    return N, Ns
+
+
+def _partials(N, Ns, cols, dt, dev):
+    chunks = -(-N // _CHUNK)
+    if chunks > 65535:
+        raise ValueError(f"{N} gas particles: the star-side grid takes at "
+                         f"most {65535 * _CHUNK}")
+    return torch.empty((chunks, Ns, cols), dtype=dt, device=dev)
+
+
+def star_gas_forces(r_gas, m_gas, h_gas, r_star, m_star, h_star, act):
+    """K16: (a_gas (N, 3), gpot_gas (N,), a_star (Ns, 3), gpot_star
+    (Ns,)) of the mean-h M4-softened star-gas pairs."""
+    N, Ns = _gas_and_slots(r_gas, r_star, act)
+    dt, dev = r_gas.dtype, r_gas.device
+    for name, x, n in (("m_gas", m_gas, N), ("h_gas", h_gas, N),
+                       ("m_star", m_star, Ns), ("h_star", h_star, Ns)):
+        _check(x, name, dt, (n,))
+    part = _partials(N, Ns, 4, dt, dev)
+    a_gas, a_star = (torch.empty((n, 3), dtype=dt, device=dev)
+                     for n in (N, Ns))
+    gpot_gas, gpot_star = (torch.empty((n,), dtype=dt, device=dev)
+                           for n in (N, Ns))
+    _launch("star_gas_forces", dt, dev, _p(r_gas), _p(m_gas), _p(h_gas), N,
+            _p(r_star), _p(m_star), _p(h_star), _p(act), Ns, _p(part),
+            _p(a_gas), _p(gpot_gas), _p(a_star), _p(gpot_star))
+    return a_gas, gpot_gas, a_star, gpot_star
+
+
+def sink_candidate(rho, alive, rho_sink, r, v, m, h):
+    """K17: the packed row [r, v, m, h, score] (9,) of the densest alive
+    particle with rho > rho_sink (score -inf and index 0 when none) and
+    its index, a 0-d int64 tensor."""
+    N, dt, dev = r.shape[0], r.dtype, r.device
+    if N == 0:
+        raise ValueError("sink_candidate: no gas particles")
+    _check(r, "r", dt, (N, 3))
+    _check(v, "v", dt, (N, 3))
+    _check(alive, "alive", torch.bool, (N,))
+    for name, x in (("rho", rho), ("m", m), ("h", h)):
+        _check(x, name, dt, (N,))
+    nb = lib().sink_candidate_blocks(N)
+    part_s = torch.empty((nb,), dtype=dt, device=dev)
+    part_i = torch.empty((nb,), dtype=torch.int32, device=dev)
+    cand = torch.empty((9,), dtype=dt, device=dev)
+    gi = torch.empty((), dtype=torch.int64, device=dev)
+    _launch("sink_candidate", dt, dev, _p(rho), _p(alive), N,
+            float(rho_sink), _p(r), _p(v), _p(m), _p(h), _p(part_s),
+            _p(part_i), _p(cand), _p(gi))
+    return cand, gi
+
+
+def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius):
+    """K18: per slot dm (Ns,), dmom and dmr (Ns, 3) of the gas each
+    active slot eats (the nearest one within sink_radius h_star), and the
+    eaten mask (N,) bool."""
+    N, Ns = _gas_and_slots(r, r_star, act)
+    dt, dev = r.dtype, r.device
+    _check(v, "v", dt, (N, 3))
+    _check(m, "m", dt, (N,))
+    _check(alive, "alive", torch.bool, (N,))
+    _check(h_star, "h_star", dt, (Ns,))
+    slot_of = torch.empty((N,), dtype=torch.int32, device=dev)
+    part = _partials(N, Ns, 7, dt, dev)
+    dm = torch.empty((Ns,), dtype=dt, device=dev)
+    dmom, dmr = (torch.empty((Ns, 3), dtype=dt, device=dev)
+                 for _ in range(2))
+    eaten = torch.empty((N,), dtype=torch.bool, device=dev)
+    _launch("accretion_sums", dt, dev, _p(r), _p(v), _p(m), _p(alive), N,
+            _p(r_star), _p(h_star), _p(act), Ns, float(sink_radius),
+            _p(slot_of), _p(part), _p(dm), _p(dmom), _p(dmr), _p(eaten))
+    return dm, dmom, dmr, eaten

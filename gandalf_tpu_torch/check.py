@@ -22,12 +22,21 @@ sum), and ``periodic_gravity_accuracy`` holds a periodic tree against
 the min-imaged direct sum plus each pair's Ewald correction;
 ``compare_tree_kernels`` takes each walk option (the Ewald sum, the
 gadget2 and eigenmac MACs, the fast multipoles) of the simulation it is
-given.  ``chip_smoke.py`` and the CUDA tests use them.
+given, and its dead particles (K4's alive input).  ``bb_params`` is the
+Boss-Bodenheimer sink collapse ``bb_sink_collapse`` (GANDALF's own
+example); ``compare_sink_kernels`` compares K16-K18 with their plain
+versions on ``sink_kernel_inputs`` (synthetic, with the edge cases) or
+``sim_sink_inputs`` (a simulation's state), ``sink_ledger`` records each
+step's sink gain against the gas that died, and ``gravity_accuracy``
+adds the star-gas term on both sides when there are sinks.
+``chip_smoke.py`` and the CUDA tests use them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -36,6 +45,8 @@ from . import _ext
 from .ops import active_grid as ag
 from .ops import mfv as mfv_ops
 from .ops import mfv_grid27 as mg
+from .ops import sinks as sk_ops
+from .ops import sph_gravity as sg
 from .ops import sph_grid27 as g27
 from .ops import tree as tr
 from .ops.density import finish_h
@@ -114,6 +125,15 @@ TOL_F32_MFV_FLUXES = 1e-3
 # core is some 10-100 times its own largest value: 1e-4 at N = 8,192.
 TOL_F64_NBODY = 1e-12
 TOL_F32_NBODY = 1e-4
+# K16 in float32: the gas side sums Ns slot terms, the star side N gas
+# terms of both signs (a star's net pull is a residual of pulls from all
+# sides), each rounded at 6e-8 and summed in another order with fused
+# multiply-adds: 1e-4 of each output's largest value, as K13-K15.  K18
+# in float32: the masks are exact (the distance is computed in the same
+# rounded steps on both sides) and the sums of up to a few hundred eaten
+# particles' m, m v and m r within 1e-5 of their largest value.
+TOL_F32_STAR_GAS = 1e-4
+TOL_F32_ACCRETION = 1e-5
 
 # The least time the card could take for a kernel's work (its bound):
 # the larger of the bytes it must move (each input read once, each output
@@ -124,7 +144,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # Operations per unit of work, counted by hand from each kernel's source
 # (a multiply, add, compare, square root or division counts one): per
-# particle (K1), per slot (K4), per slot and per cell (K5), per pair
+# particle (K1, K17), per star-gas pair (K16, both sides, the M4 kernel
+# and its divisions; K18, the distance test and the slot match), per
+# slot (K4), per slot and per cell (K5), per pair
 # within a support (kernrange h_i for K2, K8, K10, K11; kernrange
 # max(h_i, h_j) for K3, K9, K12), per live cell tested and per accepted
 # cell and slot (K6; with the fast multipoles per accepted cell, the
@@ -147,6 +169,7 @@ FLOPS_PER = {
     "active_density": 40, "active_forces": 80,
     "mfv_density": 40, "mfv_gradients": 120, "mfv_fluxes": 450,
     "direct_nbody": 46, "direct_softened": 66, "direct_snap": 74,
+    "star_gas_forces": 100, "sink_candidate": 3, "accretion_sums": 15,
 }
 
 
@@ -268,6 +291,28 @@ def sphere_block_params(n_target: int, tend: float = 1.0e30,
         "thetamaxsqd": 0.1, "ntreebuildstep": ntreebuildstep,
         "tend": tend, "tsnapfirst": 1.0e30,
     }
+    for k, v in updates.items():
+        p.set(k, v)
+    return p
+
+
+def bb_params(n_target: int, rho_sink=None) -> Parameters:
+    """The Boss-Bodenheimer collapse: GANDALF's own sink example
+    (examples/bossbodenheimer.dat, read with Parameters.read_file) with
+    Nhydro = n_target, no snapshots and no run id, and, when given,
+    rho_sink (g cm^-3) in place of the file's 5e-13.  Everything else is
+    the file's: physical units (pc, M_sun, Myr), a rotating 1 M_sun cloud
+    with an m = 2 perturbation on a cubic lattice, the barotropic EOS,
+    M4, mon97, a monopole tree with theta^2 = 0.15 over KD buckets, a
+    global timestep (lfkdk), sink creation and plain accretion with
+    sink_radius = 2 h."""
+    p = Parameters()
+    p.read_file(str(Path(__file__).resolve().parents[1] / "examples"
+                    / "bossbodenheimer.dat"))
+    updates = {"Nhydro": n_target, "tsnapfirst": 1.0e30, "dt_snap": 1.0e30,
+               "run_id": ""}
+    if rho_sink is not None:
+        updates["rho_sink"] = rho_sink
     for k, v in updates.items():
         p.set(k, v)
     return p
@@ -481,7 +526,8 @@ def walk_options(sim, state, spec=None):
     without the Ewald sum)."""
     spec = spec or sim.treespec
     ptab, alive = tr.gather_to_buckets_plain(
-        spec, state.bucket_map, state.r, state.m)
+        spec, state.bucket_map, state.r, state.m,
+        alive=state.alive if getattr(sim, "_mask_dead", False) else None)
     mac_kw = _mac_kwargs(sim, state, spec)
     gfac = tr.mac_factors(spec, state.bucket_map, alive,
                           mac_kw.get("amag"), mac_kw.get("gpot_prev"),
@@ -572,15 +618,18 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
     wname, nname = _ext.launch_names(spec, ewald is not None, mfv=mfv)
     f64 = r.dtype == torch.float64
     G, L = spec.n_leaves, spec.leaf_size
+    alive = state.alive if getattr(sim, "_mask_dead", False) else None
     out = {}
 
     # K4: exact (the unwrap's arithmetic is written to match)
-    pk, ak = _ext.tree_gather(spec, gmap, r, m, h, zh, pext)
-    pp, ap = tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh, pext)
+    pk, ak = _ext.tree_gather(spec, gmap, r, m, h, zh, pext, alive)
+    pp, ap = tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh, pext,
+                                        alive)
     same = bool(torch.equal(ak, ap)) and bool(torch.equal(pk, pp))
-    out["tree_gather"] = {"equal": same,
-                          "max_abs_err": float(torch.abs(pk - pp).max()),
-                          "ok": same}
+    out["tree_gather"] = {
+        "equal": same, "max_abs_err": float(torch.abs(pk - pp).max()),
+        "alive_input": alive is not None,
+        "dead": 0 if alive is None else int((~alive).sum()), "ok": same}
 
     # K5 on the plain slot table
     ck = _ext.tree_build(spec, pp, ap)
@@ -622,7 +671,8 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
             "ok": same_ovf and not bool(np_[2]) and max(errs.values()) <= tol}
 
     out["tree_gather"]["work"] = _work(
-        (gmap, r, m, h, zh), (pk, ak), FLOPS_PER["tree_gather"] * G * L)
+        (gmap, r, m, h, zh, alive), (pk, ak),
+        FLOPS_PER["tree_gather"] * G * L)
     out["tree_build"]["work"] = _work(
         (pp, ap), (ck,), FLOPS_PER["tree_build_slot"] * G * L
         + FLOPS_PER["tree_build_cell"] * ck.shape[0])
@@ -665,9 +715,9 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
 
     timed = {
         "tree_gather": (
-            lambda: _ext.tree_gather(spec, gmap, r, m, h, zh, pext),
+            lambda: _ext.tree_gather(spec, gmap, r, m, h, zh, pext, alive),
             lambda: tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh,
-                                               pext)),
+                                               pext, alive)),
         "tree_build": (lambda: _ext.tree_build(spec, pp, ap),
                        lambda: tr.build_tree_plain(spec, pp, ap)),
         wname: (lambda: _ext.tree_walk(spec, cp, pp, ap, **wkw),
@@ -800,32 +850,49 @@ def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
     from those particles only and walks only their buckets (the block
     tick's walk); `spec` replaces the simulation's TreeSpec (a monopole
     one, say), its accuracy MAC taking the inputs the simulation's
-    gravity pass would give it.  Returns rms|da| / rms|a| and the walk's
-    overflow."""
+    gravity pass would give it.  With dead particles the walk masks them
+    and the sample is drawn from the alive ones; with sinks both sides
+    add the star-gas pull (K16 on the walk's side, its plain version in
+    float64 on the oracle's).  Returns rms|da| / rms|a| and the walk's
+    overflow.  Launch counts are restored afterwards."""
+    saved = dict(_ext.LAUNCHES)
     s = sim.state
     r, m, h, kern, zh, pext = gravity_inputs(sim, s)
     spec = spec or sim.treespec
     gmap = s.bucket_map
+    alive = s.alive if getattr(sim, "_mask_dead", False) else None
     if among is None:
         a_tree, _, overflow = tr.tree_gravity_grouped(
-            spec, gmap, r, m, h, kern, zh, pext,
+            spec, gmap, r, m, h, kern, zh, pext, alive=alive,
             **_mac_kwargs(sim, s, spec))
-        pool = np.arange(r.shape[0])
+        pool = (np.arange(r.shape[0]) if alive is None
+                else torch.nonzero(alive).flatten().cpu().numpy())
     else:
         a_tree, _, overflow = tr.tree_gravity_active(
             spec, gmap, r, m, h, kern, zh, sim._active_groups(among), pext)
         pool = among.cpu().numpy()
-    ptab, alive = tr.gather_to_buckets(spec, gmap, r, m, h, zh, pext)
+    ptab, slot_alive = tr.gather_to_buckets(spec, gmap, r, m, h, zh, pext,
+                                            alive)
     r_unw = r.double().clone()
-    r_unw[gmap.reshape(-1).long()[alive]] = ptab[alive, :3].double()
+    r_unw[gmap.reshape(-1).long()[slot_alive]] = ptab[slot_alive, :3].double()
     idx = np.random.default_rng(seed).choice(
         pool, size=min(n_sample, len(pool)), replace=False)
     t = torch.as_tensor(np.sort(idx), device=r.device)
     a_ref, _ = direct_sph_gravity(kern, r_unw, m.double(), h.double(),
                                   s.zeta.double(), s.hfactor.double(),
                                   targets=t)
-    da = a_tree[t].double() - a_ref
+    a_t = a_tree[t].double()
+    if getattr(sim, "has_sinks", False):
+        st = s.sinks
+        m_star = torch.where(st.active, st.m, 0.0)
+        args = (r[t], m[t], h[t], st.r, m_star, st.h, st.active)
+        a_t = a_t + sg.star_gas_forces(kern, *args)[0].double()
+        a_ref = a_ref + sg.star_gas_forces_plain(
+            kern, *[x.double() if x.is_floating_point() else x
+                    for x in args])[0]
+    da = a_t - a_ref
     err = torch.sqrt(torch.sum(da * da) / torch.sum(a_ref * a_ref))
+    _ext.LAUNCHES.update(saved)
     return {"n_sample": int(t.numel()), "rms_rel_err": float(err),
             "overflow": bool(overflow)}
 
@@ -1305,3 +1372,213 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sinks: K16-K18, the per-step ledger
+# ---------------------------------------------------------------------------
+
+def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
+                       seed: int = 0):
+    """Synthetic inputs of K16-K18 (a dict: cfg, r, v, m, h, rho, alive,
+    sinks) with their edge cases: gas in the unit cube with 5% dead; the
+    last eighth of the slots empty (r = 0, h = 1, m = 0), the others
+    stars of h 2^-8 scattered in the cube; gas 0 on star 0 and gas 5 on
+    the empty slots' position; gas 2 exactly at star 1's accretion radius
+    and gas 4 at equal distance from stars 2 and 3 (dyadic positions, so
+    both are exact in float32 too); the two densest alive particles (3
+    and 7) tied, with a denser dead one (1).  rho_sink is the median
+    density and sink_radius 2."""
+    rng = np.random.default_rng(seed)
+    r = rng.random((n_gas, 3))
+    v = rng.standard_normal((n_gas, 3))
+    m = np.full(n_gas, 1.0 / n_gas)
+    h = 0.02 * (1.0 + rng.random(n_gas)) * (4096.0 / n_gas) ** (1.0 / 3.0)
+    rho = rng.lognormal(0.0, 0.5, n_gas)
+    alive = rng.random(n_gas) > 0.05
+    n_act = n_slots - n_slots // 8
+    sr = rng.random((n_act, 3))
+    sh = np.full(n_act, 2.0 ** -8)
+    sr[1], sh[1] = (0.5, 0.5, 0.5), 2.0 ** -7
+    sr[2], sr[3] = (0.25, 0.25, 0.25), (0.28125, 0.25, 0.25)
+    sh[2] = sh[3] = 2.0 ** -6
+    r[0] = sr[0]
+    r[2] = (0.515625, 0.5, 0.5)
+    r[4] = (0.265625, 0.25, 0.25)
+    r[5] = 0.0
+    alive[[0, 2, 3, 4, 7]] = True
+    alive[1] = False
+    rho[[3, 7]] = rho.max() * 1.5
+    rho[1] = rho[3] * 2.0
+    m = np.where(alive, m, 0.0)
+    sinks = sk_ops.make_sinks(sr, rng.standard_normal((n_act, 3)),
+                              np.full(n_act, 1.0 / n_slots), sh,
+                              n_extra=n_slots - n_act, device=device,
+                              dtype=dtype)
+    kw = dict(device=device, dtype=dtype)
+    out = {k: torch.as_tensor(x, **kw) for k, x in
+           (("r", r), ("v", v), ("m", m), ("h", h), ("rho", rho))}
+    out["alive"] = torch.as_tensor(alive, device=device)
+    out["sinks"] = sinks
+    out["cfg"] = sk_ops.SinkConfig(rho_sink=float(np.median(rho)),
+                                   sink_radius=2.0, create=True,
+                                   accrete=True)
+    return out
+
+
+def sim_sink_inputs(sim):
+    """The inputs of K16-K18 as a sink simulation's step gives them, from
+    its current state (a dict as sink_kernel_inputs returns)."""
+    s = sim.state
+    return {"cfg": sim.sink_cfg, "r": s.r, "v": s.v, "m": s.m, "h": s.h,
+            "rho": s.rho, "alive": s.alive, "sinks": s.sinks}
+
+
+def compare_sink_kernels(kern, inputs, repeats: int = 0):
+    """Run K16, K17 and K18 and their plain versions on the same CUDA
+    tensors (a dict from sink_kernel_inputs or sim_sink_inputs); returns
+    {kernel: report} as compare_kernels does.  K16's four outputs within
+    1e-10 of each one's largest value in float64 (TOL_F32_STAR_GAS in
+    float32); K17's index and row exactly, also with no particle eligible
+    (index 0, score -inf); K18's eaten mask exactly and its sums within
+    1e-10 (TOL_F32_ACCRETION).  A report holds `work`, the `dtype` and,
+    with `repeats` > 0, `ms` and `plain_ms`; K17's also `library_ms`, one
+    torch.argmax over the masked score (the mask built outside the
+    timer).  Launch counts are restored afterwards."""
+    saved = dict(_ext.LAUNCHES)
+    cfg, st = inputs["cfg"], inputs["sinks"]
+    r, v, m, h = (inputs[k] for k in ("r", "v", "m", "h"))
+    rho, alive = inputs["rho"], inputs["alive"]
+    f64 = r.dtype == torch.float64
+    N, Ns = r.shape[0], st.N
+    out = {}
+
+    def scaled(x, ref):
+        return _scaled_all(x, ref, torch.ones(x.shape[0], dtype=torch.bool,
+                                              device=x.device))
+
+    m_live = torch.where(alive, m, 0.0)
+    m_star = torch.where(st.active, st.m, 0.0)
+    sg_args = (r, m_live, h, st.r, m_star, st.h, st.active)
+    got = sg.star_gas_forces(kern, *sg_args)
+    want = sg.star_gas_forces_plain(kern, *sg_args)
+    errs = {k: scaled(x, y) for k, x, y in zip(
+        ("a_gas", "gpot_gas", "a_star", "gpot_star"), got, want)}
+    out["star_gas_forces"] = {
+        "N": N, "Ns": Ns, "scaled_err": errs, "dtype": str(r.dtype),
+        "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
+        "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_STAR_GAS),
+        "work": _work(sg_args, got, FLOPS_PER["star_gas_forces"] * N * Ns)}
+
+    c_args = (cfg, r, v, m, h, rho, alive)
+    cand, gi = sk_ops.sink_candidate(*c_args)
+    cand_p, gi_p = sk_ops.sink_candidate_plain(*c_args)
+    none = dataclasses.replace(cfg, rho_sink=float("inf"))
+    cand_n, gi_n = sk_ops.sink_candidate(none, *c_args[1:])
+    same = int(gi) == int(gi_p) and bool(torch.equal(cand, cand_p))
+    empty = int(gi_n) == 0 and float(cand_n[-1]) == float("-inf")
+    eligible = alive & (rho > cfg.rho_sink)
+    top = torch.topk(torch.where(eligible, rho, -math.inf).double(),
+                     min(2, N)).values
+    out["sink_candidate"] = {
+        "N": N, "gi": int(gi), "score": float(cand[-1]),
+        "top_two_margin": float((top[0] - top[-1]) / top[0])
+        if bool(torch.isfinite(top).all()) else None,
+        "same_index_and_row": same, "none_eligible_gives_0_and_-inf": empty,
+        "dtype": str(r.dtype),
+        "max_abs_err": float(torch.abs(cand - cand_p).max())
+        if bool(torch.isfinite(cand[-1])) else 0.0,
+        "ok": same and empty,
+        "work": _work((rho, alive, cand[:-1]), (cand, gi),
+                      FLOPS_PER["sink_candidate"] * N)}
+
+    a_args = (cfg, st, r, v, m, alive)
+    got = sk_ops.accretion_sums(*a_args)
+    want = sk_ops.accretion_sums_plain(*a_args)
+    errs = {k: scaled(x, y) for k, x, y in zip(("dm", "dmom", "dmr"),
+                                               got[:3], want[:3])}
+    same = bool(torch.equal(got[3], want[3]))
+    out["accretion_sums"] = {
+        "N": N, "Ns": Ns, "eaten": int(got[3].sum()), "scaled_err": errs,
+        "same_eaten": same, "dtype": str(r.dtype),
+        "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
+        "ok": same and max(errs.values()) <= (TOL_F64 if f64
+                                              else TOL_F32_ACCRETION),
+        "work": _work((r, v, m, alive, st.r, st.h, st.active), got,
+                      FLOPS_PER["accretion_sums"] * N * Ns)}
+
+    if repeats > 0:
+        score = torch.where(eligible, rho, -math.inf)
+        timed = {
+            "star_gas_forces": (
+                lambda: sg.star_gas_forces(kern, *sg_args),
+                lambda: sg.star_gas_forces_plain(kern, *sg_args)),
+            "sink_candidate": (
+                lambda: sk_ops.sink_candidate(*c_args),
+                lambda: sk_ops.sink_candidate_plain(*c_args)),
+            "accretion_sums": (
+                lambda: sk_ops.accretion_sums(*a_args),
+                lambda: sk_ops.accretion_sums_plain(*a_args)),
+        }
+        _time_pairs(out, timed, repeats)
+        out["sink_candidate"]["library_ms"] = _time_ms(
+            lambda: torch.argmax(score), repeats)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def sink_ledger(sim):
+    """Record, at each call of sim._sink_create_accrete from now on, the
+    sinks' gain in mass and momentum across it and the mass and momentum
+    (and sum of m |v|) of the gas that died in it, in float64 on the
+    device and without a host read.  Returns the list the records go to,
+    each a (9,) tensor: dM_sink, dP_sink (3), M_dead, P_dead (3),
+    sum m |v| of the dead."""
+    rows = []
+    inner = sim._sink_create_accrete
+
+    def totals(st):
+        w = torch.where(st.active, st.m, 0.0).double()
+        return torch.cat([w.sum()[None],
+                          (w[:, None] * st.v.double()).sum(0)])
+
+    def recorded(s, dt):
+        out = inner(s, dt)
+        died = s.alive & ~out.alive
+        w = torch.where(died, s.m, 0.0).double()
+        v = s.v.double()
+        rows.append(torch.cat([
+            totals(out.sinks) - totals(s.sinks), w.sum()[None],
+            (w[:, None] * v).sum(0),
+            (w * torch.sqrt((v * v).sum(-1))).sum()[None]]))
+        return out
+
+    sim._sink_create_accrete = recorded
+    return rows
+
+
+def ledger_errors(rows):
+    """Per step: |dM_sink - M_dead| / M_dead and |dP_sink - P_dead| /
+    sum m |v| of the dead (0 where nothing died), and the steps' dead
+    mass, from sink_ledger's records."""
+    if not rows:
+        return [], [], []
+    x = torch.stack(rows).cpu().numpy()
+    md, mv = x[:, 4], x[:, 8]
+    em = np.where(md > 0, np.abs(x[:, 0] - md) / np.maximum(md, 1e-300),
+                  np.abs(x[:, 0]))
+    ep = np.where(mv > 0, np.linalg.norm(x[:, 1:4] - x[:, 5:8], axis=1)
+                  / np.maximum(mv, 1e-300),
+                  np.linalg.norm(x[:, 1:4], axis=1))
+    return em.tolist(), ep.tolist(), md.tolist()
+
+
+def total_mass(sim) -> float:
+    """Gas plus sink mass, summed in float64 on the host."""
+    s = sim.state
+    mass = s.m.cpu().double().sum().item()
+    if getattr(sim, "has_sinks", False):
+        st = s.sinks
+        mass += torch.where(st.active, st.m, 0.0).cpu().double().sum().item()
+    return mass

@@ -6,6 +6,7 @@ given device and float dtype; ``state_to_numpy`` goes back.
 ``mfv_state_from_jax`` does the same for a JAX ``MfvState``, and
 ``nbody_state_from_jax`` for a JAX ``NbodyState`` (``nbody_state_to_numpy``
 goes back).
+``sinks_from_jax`` copies a JAX ``SinkState`` into the port's.
 ``grid_spec_from_jax`` and ``tree_spec_from_jax`` copy a frozen JAX
 ``Grid27Spec`` or ``TreeSpec`` field for field (the TreeSpec's MAC and
 fast-multipole fields included); ``ewald_table_from_jax`` copies a JAX
@@ -27,12 +28,13 @@ import torch
 
 from .integrate.block import BlockSchedule
 from .ops.ewald import EwaldTable
+from .ops.sinks import SinkState
 from .ops.sph_grid27 import Grid27Spec
 from .ops.tree import TreeSpec
 from .state import MfvState, NbodyState, SphState
 
 _OPTIONAL = ("bucket_map", "walk_mp", "walk_near", "walk_plan_r",
-             "walk_anchors", "walk_margin")
+             "walk_anchors", "walk_margin", "sinks")
 
 
 def state_from_numpy(fields: Dict[str, np.ndarray], device="cpu",
@@ -58,13 +60,26 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device="cpu",
 
 
 def state_to_numpy(state: SphState) -> Dict[str, np.ndarray]:
-    """Every non-None field as a host numpy array."""
+    """Every non-None tensor field as a host numpy array (the sinks stay
+    out)."""
     out = {}
     for f in dataclasses.fields(SphState):
         x = getattr(state, f.name)
-        if x is not None:
+        if isinstance(x, torch.Tensor):
             out[f.name] = x.detach().cpu().numpy()
     return out
+
+
+def sinks_from_jax(sinks, device="cpu", dtype=torch.float64) -> SinkState:
+    """The port's SinkState from a JAX one (read through its
+    attributes): floating fields take `dtype`, `active` stays bool."""
+    kw = {}
+    for f in dataclasses.fields(SinkState):
+        x = np.array(getattr(sinks, f.name))
+        kw[f.name] = torch.tensor(x, device=device,
+                                  dtype=dtype if x.dtype.kind == "f"
+                                  else None)
+    return SinkState(**kw)
 
 
 def mfv_state_from_jax(state, device="cpu",

@@ -15,7 +15,12 @@
 // written with round-to-nearest intrinsics, so that nvcc cannot contract
 // it into an FMA and the result equals the plain version's exactly.
 // Empty slots get position 0, m = 0, h = 1, zh = 0 and alive = 0; the
-// later kernels skip them by the flag, with no sentinel arithmetic.
+// later kernels skip them by the flag, with no sentinel arithmetic.  With
+// a per-particle alive byte (the sink slices' dead, accreted gas) a slot's
+// flag is also its particle's: a dead particle keeps its row (position,
+// m = 0, h) and anchors the unwrap as before, but no later kernel counts
+// it, as alive_s = in_map & alive[gmap] does at gandalf_tpu/ops/tree.py
+// :1373.
 #include <cuda_runtime.h>
 
 #include "tree.cuh"
@@ -29,7 +34,9 @@ __global__ void tree_gather_kernel(const int* __restrict__ gmap, int n_buckets,
                                    const T* __restrict__ r,
                                    const T* __restrict__ m,
                                    const T* __restrict__ h,
-                                   const T* __restrict__ zh, int unwrap,
+                                   const T* __restrict__ zh,
+                                   const unsigned char* __restrict__ alive_in,
+                                   int unwrap,
                                    T ext0, T ext1, T ext2,
                                    T* __restrict__ ptab,
                                    unsigned char* __restrict__ alive) {
@@ -63,14 +70,14 @@ __global__ void tree_gather_kernel(const int* __restrict__ gmap, int n_buckets,
   row[kPM] = live ? m[pid] : T(0);
   row[kPH] = live ? (h ? h[pid] : T(1)) : T(1);
   row[kPZH] = live && zh ? zh[pid] : T(0);
-  alive[slot] = live ? 1 : 0;
+  alive[slot] = live && (alive_in == nullptr || alive_in[pid]) ? 1 : 0;
 }
 
 template <typename T>
 int run_gather(const int* gmap, int n_buckets, const T* r, const T* m,
-               const T* h, const T* zh, int unwrap, double ext0, double ext1,
-               double ext2, T* ptab, unsigned char* alive, int device,
-               void* stream_ptr) {
+               const T* h, const T* zh, const unsigned char* alive_in,
+               int unwrap, double ext0, double ext1, double ext2, T* ptab,
+               unsigned char* alive, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -79,8 +86,8 @@ int run_gather(const int* gmap, int n_buckets, const T* r, const T* m,
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
   if (blocks > 0)
     tree_gather_kernel<T><<<blocks, kThreads, 0, stream>>>(
-        gmap, n_buckets, r, m, h, zh, unwrap, T(ext0), T(ext1), T(ext2),
-        ptab, alive);
+        gmap, n_buckets, r, m, h, zh, alive_in, unwrap, T(ext0), T(ext1),
+        T(ext2), ptab, alive);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -90,11 +97,11 @@ extern "C" {
 
 #define TREE_GATHER_ENTRY(NAME, T)                                          \
   int NAME(const int* gmap, int n_buckets, const T* r, const T* m,          \
-           const T* h, const T* zh, int unwrap, double ext0, double ext1,   \
-           double ext2, T* ptab, unsigned char* alive, int device,          \
-           void* stream) {                                                  \
-    return run_gather<T>(gmap, n_buckets, r, m, h, zh, unwrap, ext0, ext1,  \
-                         ext2, ptab, alive, device, stream);                \
+           const T* h, const T* zh, const unsigned char* alive_in,          \
+           int unwrap, double ext0, double ext1, double ext2, T* ptab,      \
+           unsigned char* alive, int device, void* stream) {                \
+    return run_gather<T>(gmap, n_buckets, r, m, h, zh, alive_in, unwrap,    \
+                         ext0, ext1, ext2, ptab, alive, device, stream);    \
   }
 
 TREE_GATHER_ENTRY(tree_gather_f32, float)

@@ -1,8 +1,13 @@
-"""Equation of state: the adiabatic (`energy_eqn`) EOS.
+"""Equation of state: the adiabatic (`energy_eqn`), isothermal, barotropic
+and polytropic EOS.
 
 Counterpart of ``gandalf_tpu/ops/eos.py`` (``EOS``, ``Adiabatic``,
-``eos_factory``) for the one EOS of the ported slice.  Pressure is
-(gamma-1)*rho*u and the sound speed sqrt(gamma*(gamma-1)*u).
+``Isothermal``, ``Barotropic``, ``Polytropic``, ``eos_factory``) for the
+EOS of the ported slices, elementwise torch.  Pressure is (gamma-1)*rho*u
+(K*rho^eta for the polytrope); the adiabatic sound speed is
+sqrt(gamma*(gamma-1)*u), the others' sqrt((gamma-1)*u).  The locally
+isothermal family (it reads the star positions), radws and the radiation
+wrappers raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,16 +56,72 @@ class Adiabatic(EOS):
         return torch.sqrt(self.gamma * self.gammam1 * u)
 
 
+@dataclasses.dataclass(frozen=True)
+class Isothermal(EOS):
+    """Fixed temperature: u = temp0/(gamma-1)/mu_bar, c = sqrt((gamma-1) u)."""
+
+    temp0: float = 1.0
+
+    def specific_internal_energy(self, rho, u):
+        return torch.full_like(rho, self.temp0 / self.gammam1 / self.mu_bar)
+
+    def sound_speed(self, rho, u):
+        return torch.sqrt(self.gammam1 * u)
+
+
+@dataclasses.dataclass(frozen=True)
+class Barotropic(EOS):
+    """Barotropic EOS (src/Thermal/BarotropicEOS.cpp): isothermal at low
+    density, adiabatic above rho_bary."""
+
+    temp0: float = 1.0
+    rho_bary: float = 1.0e-14
+
+    def specific_internal_energy(self, rho, u):
+        return (self.temp0 * (1.0 + (rho / self.rho_bary) ** self.gammam1)
+                / self.gammam1 / self.mu_bar)
+
+    def sound_speed(self, rho, u):
+        return torch.sqrt(self.gammam1 * u)
+
+
+@dataclasses.dataclass(frozen=True)
+class Polytropic(EOS):
+    """P = K rho^eta (src/Thermal/PolytropicEOS.cpp)."""
+
+    Kpoly: float = 1.0
+    eta: float = 1.4
+
+    def specific_internal_energy(self, rho, u):
+        return self.Kpoly * rho ** (self.eta - 1.0) / self.gammam1
+
+    def pressure(self, rho, u):
+        return self.Kpoly * rho ** self.eta
+
+    def sound_speed(self, rho, u):
+        return torch.sqrt(self.gammam1 * u)
+
+
 def eos_factory(params) -> EOS:
-    """Build the EOS named by `gas_eos`; only `energy_eqn` (and its alias
-    `constant_temp`) without a radiation wrapper is ported."""
+    """Build the EOS named by `gas_eos` without a radiation wrapper:
+    `energy_eqn` (and its alias `constant_temp`), `isothermal`,
+    `barotropic` and `polytropic`."""
     name = params.stringparams["gas_eos"]
     if params.stringparams["radiation"] not in ("none", "null", ""):
         raise NotImplementedError(
             "radiation EOS wrappers are not ported yet (ROADMAP queue 1, "
             "item 12)")
+    fp = params.floatparams
+    gamma, mu_bar = fp["gamma_eos"], fp["mu_bar"]
     if name in ("energy_eqn", "constant_temp"):
-        return Adiabatic(gamma=params.floatparams["gamma_eos"],
-                         mu_bar=params.floatparams["mu_bar"])
+        return Adiabatic(gamma=gamma, mu_bar=mu_bar)
+    if name == "isothermal":
+        return Isothermal(gamma=gamma, mu_bar=mu_bar, temp0=fp["temp0"])
+    if name == "barotropic":
+        return Barotropic(gamma=gamma, mu_bar=mu_bar, temp0=fp["temp0"],
+                          rho_bary=fp["rho_bary"])
+    if name == "polytropic":
+        return Polytropic(gamma=gamma, mu_bar=mu_bar, Kpoly=fp["Kpoly"],
+                          eta=fp["eta_eos"])
     raise NotImplementedError(
         f"gas_eos {name!r} is not ported yet (ROADMAP queue 1, item 9)")

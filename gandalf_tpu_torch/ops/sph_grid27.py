@@ -495,9 +495,15 @@ def forces_grid27(kern: SmoothingKernel, visc: ArtificialViscosity,
 
 def hydro_pass_grid27(kern, visc, box: DomainBox, spec: Grid27Spec, eos,
                       h_fac, h_converge, hydro_forces: bool,
-                      s: SphState) -> SphState:
+                      s: SphState, alive: Tensor = None) -> SphState:
     """Full grid hydro pass: bin -> dense -> density -> EOS -> forces ->
-    back to particle order.  The overflow flag is this pass's own."""
+    back to particle order.  The overflow flag is this pass's own.
+
+    `alive` (N,) bool masks dead particles (accreted gas) out of the
+    dense fill mask, as gandalf_tpu's hydro_pass_grid27 (:809-864) does:
+    they still take their slots (K1 bins every particle), count in no
+    sum, and their own fields come back as h = rho = invomega = 1,
+    u = 1e-30 and zeros."""
     if spec.mirror or spec.qz != 1:
         raise NotImplementedError(
             "mirror layers and z-slab plans are not ported yet (ROADMAP "
@@ -509,6 +515,8 @@ def hydro_pass_grid27(kern, visc, box: DomainBox, spec: Grid27Spec, eos,
         return to_dense(spec, b, x)
 
     fill = dense_fill_mask(spec, b)
+    if alive is not None:
+        fill = fill & d(alive)
     r_d, v_d, m_d, h_d = d(s.r), d(s.v), d(s.m), d(s.h)
     dens = density_grid27(kern, spec, h_fac, h_converge, r_d, m_d, h_d,
                           fill, hmax)
@@ -528,12 +536,17 @@ def hydro_pass_grid27(kern, visc, box: DomainBox, spec: Grid27Spec, eos,
         dudt_d = torch.zeros_like(m_d)
         div_v_d = torch.zeros_like(m_d)
 
-    def back(x_d):
-        return from_dense(spec, b, x_d)
+    def back(x_d, dead=None):
+        x = from_dense(spec, b, x_d)
+        if alive is None:
+            return x
+        keep = alive if x.dim() == 1 else alive[:, None]
+        return torch.where(keep, x, dead)
 
     return s.replace(
-        h=back(dens.h), rho=back(dens.rho), invomega=back(dens.invomega),
-        zeta=back(dens.zeta), hfactor=back(dens.hfactor), u=back(u_d),
-        pressure=back(pressure_d), sound=back(sound_d), a=back(a_d),
-        dudt=back(dudt_d), div_v=back(div_v_d),
+        h=back(dens.h, 1.0), rho=back(dens.rho, 1.0),
+        invomega=back(dens.invomega, 1.0), zeta=back(dens.zeta, 0.0),
+        hfactor=back(dens.hfactor, 0.0), u=back(u_d, 1e-30),
+        pressure=back(pressure_d, 0.0), sound=back(sound_d, 0.0),
+        a=back(a_d, 0.0), dudt=back(dudt_d, 0.0), div_v=back(div_v_d, 0.0),
         neib_overflow=dens.overflow | b.overflow)

@@ -218,28 +218,32 @@ def walk_stats_levels_native(r: np.ndarray, gmap: np.ndarray,
 
 def gather_to_buckets(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
                       h: Optional[Tensor] = None, zh: Optional[Tensor] = None,
-                      periodic_extent=None):
+                      periodic_extent=None, alive: Optional[Tensor] = None):
     """Slot table (G*L, 6) and alive (G*L,) from particle-order fields
     through `gmap` (G, L) int32.  `periodic_extent` (per dim, 0 = open)
-    or None.  K4 on CUDA tensors."""
+    or None.  `alive` (N,) bool, or None for all alive: a dead particle
+    keeps its slot's row but its slot is not alive (alive_s = in_map &
+    alive[gmap], gandalf_tpu/ops/tree.py:1373).  K4 on CUDA tensors."""
     if r.is_cuda:
-        return _ext.tree_gather(spec, gmap, r, m, h, zh, periodic_extent)
-    return gather_to_buckets_plain(spec, gmap, r, m, h, zh, periodic_extent)
+        return _ext.tree_gather(spec, gmap, r, m, h, zh, periodic_extent,
+                                alive)
+    return gather_to_buckets_plain(spec, gmap, r, m, h, zh, periodic_extent,
+                                   alive)
 
 
 def gather_to_buckets_plain(spec, gmap, r, m, h=None, zh=None,
-                            periodic_extent=None):
+                            periodic_extent=None, alive=None):
     """Plain version of K4: gandalf_tpu's gather plus unwrap_to_buckets,
     anchored on each bucket's first real slot."""
     G, L = spec.n_leaves, spec.leaf_size
     flat = gmap.reshape(-1).long()
-    alive = flat >= 0
+    in_map = flat >= 0
     safe = torch.clamp_min(flat, 0)
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
-    r_s = torch.where(alive[:, None], r[safe], zero)
+    r_s = torch.where(in_map[:, None], r[safe], zero)
     if periodic_extent is not None:
         r_g = r_s.reshape(G, L, 3)
-        first = torch.argmax(alive.reshape(G, L).to(torch.uint8), dim=1)
+        first = torch.argmax(in_map.reshape(G, L).to(torch.uint8), dim=1)
         anchor = r_g[torch.arange(G, device=r.device), first]
         delta = r_g - anchor[:, None, :]
         cols = []
@@ -248,15 +252,16 @@ def gather_to_buckets_plain(spec, gmap, r, m, h=None, zh=None,
             d = delta[..., k]
             cols.append(d - ext * torch.round(d / ext) if ext > 0 else d)
         r_u = (anchor[:, None, :] + torch.stack(cols, -1)).reshape(-1, 3)
-        r_s = torch.where(alive[:, None], r_u, zero)
+        r_s = torch.where(in_map[:, None], r_u, zero)
     one = torch.ones((), dtype=r.dtype, device=r.device)
-    m_s = torch.where(alive, m[safe], zero)
-    h_s = torch.where(alive, h[safe], one) if h is not None \
+    m_s = torch.where(in_map, m[safe], zero)
+    h_s = torch.where(in_map, h[safe], one) if h is not None \
         else one.expand(G * L)
-    zh_s = torch.where(alive, zh[safe], zero) if zh is not None \
+    zh_s = torch.where(in_map, zh[safe], zero) if zh is not None \
         else zero.expand(G * L)
     ptab = torch.cat([r_s, m_s[:, None], h_s[:, None], zh_s[:, None]], -1)
-    return ptab.contiguous(), alive
+    slot_alive = in_map if alive is None else in_map & alive[safe]
+    return ptab.contiguous(), slot_alive
 
 
 # ---------------------------------------------------------------------------
@@ -791,16 +796,19 @@ def tree_gravity_grouped(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
                          zh: Optional[Tensor] = None, periodic_extent=None,
                          zeta_scaling: str = "sph", ewald_table=None,
                          amag: Optional[Tensor] = None,
-                         gpot_prev: Optional[Tensor] = None):
+                         gpot_prev: Optional[Tensor] = None,
+                         alive: Optional[Tensor] = None):
     """Gravity with host-planned buckets: gather and unwrap (K4), build
     (K5), walk (K6), near field and scatter (K7, with the zeta term of
     `zeta_scaling`).  Returns (a, gpot, overflow) in particle order.
     Without `h` (or `kern`) the pairs are Newtonian.  `ewald_table`
     (an ops.ewald.EwaldTable) adds the periodic correction, min-imaged
     over `periodic_extent`; `amag` (gadget2) and `gpot_prev` (eigenmac)
-    give the accuracy MAC its per-group factors (mac_factors)."""
+    give the accuracy MAC its per-group factors (mac_factors).  `alive`
+    (N,) bool masks dead particles out as sources and targets: they get
+    zero acceleration and potential."""
     ptab, alive = gather_to_buckets(spec, gmap, r, m, h, zh,
-                                    periodic_extent)
+                                    periodic_extent, alive)
     ctab = build_tree(spec, ptab, alive)
     gfac = mac_factors(spec, gmap, alive, amag, gpot_prev, dtype=r.dtype)
     ewald = (None if ewald_table is None

@@ -6,6 +6,7 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --mfv [--self-gravity {0,1}]
     python -m gandalf_tpu_torch.profile_step --nbody [--nbody-scheme S]
     python -m gandalf_tpu_torch.profile_step --ewald
+    python -m gandalf_tpu_torch.profile_step --sinks
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -20,12 +21,18 @@ float64 under hermite4 (or --nbody-scheme, hermite6ts unsoftened at
 16,384 stars), 2 warm-up steps, then a window of 8 steps
 (main_loop_step, each with its host read of t and dt).  With --ewald:
 the periodic Jeans box with the Ewald sum (check.jeans_params,
-ewald_jeans_box) at 64^3 in float32, as the SPH box.  Prints one JSON
-line: the window's host time, the device time summed over kernels and
-copies, the device's idle share of the window, the device time of each
-of K1-K15 and of the torch glue between them, and the device time per
-kernel name (largest first); with --block also the active rows per
-tick.  Refuses to run without CUDA.
+ewald_jeans_box) at 64^3 in float32, as the SPH box.  With --sinks:
+the Boss-Bodenheimer collapse with sinks (check.bb_params at about
+262,144 particles, rho_sink 2e-17 g cm^-3) in float32, 9 warm-up steps
+(one tree rebuild, 9 sinks formed), then the burst of 7 steps up to the
+next rebuild, and again the burst of steps 26-32 (16 sinks, their dead
+gas piled up at them), as a second line.  Prints one JSON line a
+window: the steps before it, each kernel's launches in it (a burst
+redone after an overflow replan counts again), the window's host time,
+the device time summed over kernels and copies, the device's idle share
+of the window, the device time of each of K1-K18 and of the torch glue
+between them, and the device time per kernel name (largest first); with
+--block also the active rows per tick.  Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -60,9 +67,19 @@ FAMILIES = {
     "K13 direct_nbody": ("direct_nbody_kernel",),
     "K14 direct_softened": ("direct_softened_kernel",),
     "K15 direct_snap": ("direct_snap_kernel",),
+    "K16 star_gas_forces": ("star_gas_gas_side", "star_gas_star_side",
+                            "star_gas_star_finish"),
+    "K17 sink_candidate": ("candidate_partial", "candidate_finish"),
+    "K18 accretion_sums": ("accretion_nearest", "accretion_partial",
+                           "accretion_finish"),
 }
 NBODY_N = 65536
 NBODY_TS6_N = 16384
+SINK_N = 262144
+# the sink path's two windows: after 9 steps (one tree rebuild, 9 sinks)
+# and after 25, the burst up to step 32 that ends bb_sink_collapse's
+SINK_WARM = 9
+SINK_LATE = 25
 
 
 def _device_us(evt) -> float:
@@ -80,61 +97,16 @@ def _family(name: str) -> str:
     return "torch glue"
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--self-gravity", type=int, default=1, choices=(0, 1))
-    ap.add_argument("--block", action="store_true",
-                    help="the block-timestep slice (cold_sphere_block)")
-    ap.add_argument("--mfv", action="store_true",
-                    help="the meshless finite-volume box (mfv_box)")
-    ap.add_argument("--nbody", action="store_true",
-                    help="the N-body cluster (plummer_cluster)")
-    ap.add_argument("--nbody-scheme", default="hermite4",
-                    choices=("hermite4", "hermite6ts"))
-    ap.add_argument("--ewald", action="store_true",
-                    help="the Jeans box with the Ewald sum (ewald_jeans_box)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        sys.exit("profile_step: no CUDA device")
+def _profile_window(sim, args, before: int) -> int:
+    """Profile one window of steps (ticks) after `before` of them and
+    print its JSON line; returns the steps it ran."""
     from torch.profiler import ProfilerActivity, profile
 
-    from .check import (jeans_params, jittered_box_ic, mfv_params,
-                        nbody_params, slice_params, sphere_block_params)
-    from .sim.simulation import GradhSphSimulation, SimulationBase
+    from . import _ext
 
-    if args.nbody:
-        ts6 = args.nbody_scheme == "hermite6ts"
-        params = nbody_params(NBODY_TS6_N if ts6 else NBODY_N,
-                              nbody=args.nbody_scheme,
-                              nbody_softening=0 if ts6 else 1)
-        sim = SimulationBase.factory(params, "cuda")
-        sim.SetupSimulation()
-        warm = 2
-    elif args.ewald:
-        sim = GradhSphSimulation(jeans_params(N_SIDE), device="cuda",
-                                 dtype=torch.float32)
-        sim.SetupSimulation()
-        warm = 2
-    elif args.mfv:
-        params = mfv_params(N_SIDE, self_gravity=args.self_gravity)
-        sim = SimulationBase.factory(params, "cuda", torch.float32)
-        sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
-        warm = 2
-    elif args.block:
-        sim = GradhSphSimulation(sphere_block_params(BLOCK_N),
-                                 device="cuda", dtype=torch.float32)
-        sim.SetupSimulation()
-        warm = BLOCK_WARM
-    else:
-        params = slice_params(N_SIDE, self_gravity=args.self_gravity)
-        sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
-        sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
-        warm = 2
-    done = 0
-    while done < warm:
-        done += sim.main_loop_steps(warm - done)
     torch.cuda.synchronize()
-    plans0 = sim._n_tree_plans
+    plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
+    launches0 = dict(_ext.LAUNCHES)
     rows = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -172,13 +144,22 @@ def main(argv=None) -> int:
     else:
         slice_fields = {
             "block": args.block, "mfv": args.mfv, "ewald": args.ewald,
+            "sinks": args.sinks,
+            "sinks_active": (int(sim.state.sinks.active.sum())
+                             if getattr(sim, "has_sinks", False) else 0),
             "self_gravity": int(sim.self_gravity),
             "tree_plans_in_window": sim._n_tree_plans - plans0,
+            "grid_replans_in_window": sim._n_grid_overflows - replans0,
             "active_rows_per_tick": rows,
             "ncells": list(sim.gridspec.ncells),
             "k_cell": sim.gridspec.k_cell}
     print(json.dumps({
-        "card": card, "N": sim.state.N, **slice_fields, "steps": done,
+        "card": card, "N": sim.state.N, **slice_fields,
+        "after_steps": before, "steps": done,
+        # a burst redone after an overflow replan launches its kernels again
+        "launches_in_window": {k: n - launches0[k]
+                               for k, n in _ext.LAUNCHES.items()
+                               if n > launches0[k]},
         "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / window_us,
         "device_ms_per_step": busy_us / 1e3 / done,
@@ -187,6 +168,75 @@ def main(argv=None) -> int:
                 per_family.items(), key=lambda kv: -kv[1])},
         "device_ms_by_name": {k: v / 1e3 for k, v in sorted(
             per_name.items(), key=lambda kv: -kv[1])}}))
+    return done
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--self-gravity", type=int, default=1, choices=(0, 1))
+    ap.add_argument("--block", action="store_true",
+                    help="the block-timestep slice (cold_sphere_block)")
+    ap.add_argument("--mfv", action="store_true",
+                    help="the meshless finite-volume box (mfv_box)")
+    ap.add_argument("--nbody", action="store_true",
+                    help="the N-body cluster (plummer_cluster)")
+    ap.add_argument("--nbody-scheme", default="hermite4",
+                    choices=("hermite4", "hermite6ts"))
+    ap.add_argument("--ewald", action="store_true",
+                    help="the Jeans box with the Ewald sum (ewald_jeans_box)")
+    ap.add_argument("--sinks", action="store_true",
+                    help="the Boss-Bodenheimer collapse (bb_sink_collapse)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("profile_step: no CUDA device")
+    from .check import (bb_params, jeans_params, jittered_box_ic,
+                        mfv_params, nbody_params, slice_params,
+                        sphere_block_params)
+    from .sim.simulation import GradhSphSimulation, SimulationBase
+
+    if args.nbody:
+        ts6 = args.nbody_scheme == "hermite6ts"
+        params = nbody_params(NBODY_TS6_N if ts6 else NBODY_N,
+                              nbody=args.nbody_scheme,
+                              nbody_softening=0 if ts6 else 1)
+        sim = SimulationBase.factory(params, "cuda")
+        sim.SetupSimulation()
+        warm = 2
+    elif args.sinks:
+        sim = GradhSphSimulation(bb_params(SINK_N, rho_sink=2.0e-17),
+                                 device="cuda", dtype=torch.float32)
+        sim.SetupSimulation()
+        warm = SINK_WARM
+    elif args.ewald:
+        sim = GradhSphSimulation(jeans_params(N_SIDE), device="cuda",
+                                 dtype=torch.float32)
+        sim.SetupSimulation()
+        warm = 2
+    elif args.mfv:
+        params = mfv_params(N_SIDE, self_gravity=args.self_gravity)
+        sim = SimulationBase.factory(params, "cuda", torch.float32)
+        sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
+        warm = 2
+    elif args.block:
+        sim = GradhSphSimulation(sphere_block_params(BLOCK_N),
+                                 device="cuda", dtype=torch.float32)
+        sim.SetupSimulation()
+        warm = BLOCK_WARM
+    else:
+        params = slice_params(N_SIDE, self_gravity=args.self_gravity)
+        sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
+        sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
+        warm = 2
+    done = 0
+    while done < warm:
+        done += sim.main_loop_steps(warm - done)
+    done += _profile_window(sim, args, done)
+    if args.sinks:
+        # the burst that ends bb_sink_collapse's window, sinks and dead
+        # gas piled up
+        while done < SINK_LATE:
+            done += sim.main_loop_steps(SINK_LATE - done)
+        _profile_window(sim, args, done)
     return 0
 
 

@@ -6,12 +6,14 @@ uniform sphere (``ic = sphere``), lattice or random (numpy's generator,
 ``rand_algorithm = default``; the xorshift generator's sphere sampler is
 not ported and raises), and the periodic self-gravity tests of
 EwaldIc.cpp (``jeans`` = ``ewaldsine``, ``ewaldsine2``, ``ewaldslab``,
-``ewaldcylinder``), with ``generate_ic``'s dispatch; and the N-body
-star sets (``plummer``, ``binary``, ``triple``, ``quadruple``) with
-``generate_nbody_ic``'s.  Host-side numpy in float64, as there; each
-hydro generator returns a dict with keys r, v, m, h, u, each N-body one
-r, v, m, h.  Any other ``ic``, and the Lloyd regularisation, raise
-NotImplementedError.
+``ewaldcylinder``), the Boss-Bodenheimer cloud (``bossbodenheimer`` =
+``bb``) and the hybrid gas-and-star Plummer sphere (``plummer``), with
+``generate_ic``'s dispatch; and the N-body star sets (``plummer``,
+``binary``, ``triple``, ``quadruple``) with ``generate_nbody_ic``'s.
+Host-side numpy in float64, as there; each hydro generator returns a
+dict with keys r, v, m, h, u (the hybrid Plummer also ``star``: r, v, m,
+h of its stars), each N-body one r, v, m, h.  Any other ``ic``, and the
+Lloyd regularisation, raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -124,6 +126,91 @@ def sphere_ic(params, eos) -> Dict[str, np.ndarray]:
     h = h_fac * (m / rho0) ** (1.0 / ndim)
     u = np.full(N, press / (gammam1 * rho0))
     return {"r": r, "v": np.zeros((N, ndim)), "m": m, "h": h, "u": u}
+
+
+def bossbodenheimer_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Boss-Bodenheimer rotating cloud collapse with an m=2 azimuthal
+    density perturbation (src/Ic/BossBodenheimerIc.cpp)."""
+    ip, fp = params.intparams, params.floatparams
+    if ip["ndim"] != 3:
+        raise ValueError("bossbodenheimer IC is 3D only")
+    Npart = ip["Nhydro"]
+    mcloud = fp["mcloud"]
+    radius = fp["radius"]
+    angvel = fp["angvel"]
+    amp = fp["amp"]
+    temp0 = fp["temp0"]
+    mu_bar = fp["mu_bar"]
+    gammam1 = fp["gamma_eos"] - 1.0
+    h_fac = fp["h_fac"]
+    mpert = 2
+
+    dist = params.stringparams["particle_distribution"]
+    if dist == "random":
+        r = _sample_sphere(_rng_from_params(params), Npart, 3, radius)
+    else:
+        r = add_lattice_sphere(Npart, radius, 3)
+    N = r.shape[0]
+
+    # azimuthal remap: find phi' with phi = phi' + (amp/m) cos(m phi')
+    # (Ic::AddAzimuthalDensityPerturbation) — Newton iteration
+    phi = np.arctan2(r[:, 1], r[:, 0]) % (2 * np.pi)
+    Rmag = np.sqrt(r[:, 0] ** 2 + r[:, 1] ** 2)
+    phip = phi.copy()
+    for _ in range(60):
+        f = phip + (amp / mpert) * np.cos(mpert * phip) - phi
+        fp_ = 1.0 - amp * np.sin(mpert * phip)
+        phip = phip - f / fp_
+    r[:, 0] = Rmag * np.cos(phip)
+    r[:, 1] = Rmag * np.sin(phip)
+
+    # solid-body rotation about z (Ic::AddRotationalVelocityField)
+    v = np.zeros((N, 3))
+    v[:, 0] = -angvel * r[:, 1]
+    v[:, 1] = angvel * r[:, 0]
+
+    rho0 = 3.0 * mcloud / (4.0 * np.pi * radius ** 3)
+    u0 = temp0 / gammam1 / mu_bar
+    m = np.full(N, mcloud / N)
+    h = h_fac * (m / rho0) ** (1.0 / 3.0)
+    u = np.full(N, u0)
+    return {"r": r, "v": v, "m": m, "h": h, "u": u}
+
+
+def plummer_hybrid_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Plummer sphere with both gas and stars (gasfrac/starfrac;
+    src/Ic/PlummerSphereIc.cpp hybrid branch — the 'hybridplummer' test)."""
+    ip, fp = params.intparams, params.floatparams
+    gasfrac = fp["gasfrac"]
+    starfrac = fp["starfrac"]
+    tot = gasfrac + starfrac
+    gasfrac, starfrac = gasfrac / tot, starfrac / tot
+    gamma = fp["gamma_eos"]
+    mplummer, rplummer = fp["mplummer"], fp["rplummer"]
+
+    star = plummer_stars_ic(params)     # star positions/velocities
+    Nhydro = ip["Nhydro"]
+    out: Dict[str, np.ndarray] = {}
+    if Nhydro > 0:
+        p2 = params.copy()
+        p2.set("Nstar", Nhydro)
+        # independent draw from the same distribution (a shared seed would
+        # place the first Nstar gas particles exactly on top of the stars)
+        p2.set("randseed", params.intparams["randseed"] + 1)
+        gas = plummer_stars_ic(p2)
+        N = len(gas["m"])
+        rad = np.sqrt((gas["r"] ** 2).sum(-1)) / rplummer
+        sound = np.sqrt(1.0 / 6.0 / np.sqrt(1.0 + rad * rad)) \
+            * np.sqrt(mplummer / rplummer)
+        out["r"] = gas["r"]
+        out["v"] = np.zeros_like(gas["v"])   # gas pressure-supported
+        out["m"] = np.full(N, gasfrac * mplummer / N)
+        out["u"] = sound ** 2 / (gamma - 1.0)
+        rho0 = 3.0 * mplummer / (4.0 * np.pi * rplummer ** 3)
+        out["h"] = fp["h_fac"] * (out["m"] / rho0) ** (1.0 / 3.0)
+    star["m"] = star["m"] * starfrac
+    out["star"] = star
+    return out
 
 
 def _thermal_u(params) -> float:
@@ -396,6 +483,9 @@ _IC_REGISTRY = {
     "ewaldsine2": ewaldsine2_ic,
     "ewaldslab": ewaldslab_ic,
     "ewaldcylinder": ewaldcylinder_ic,
+    "bossbodenheimer": bossbodenheimer_ic,
+    "bb": bossbodenheimer_ic,
+    "plummer": plummer_hybrid_ic,
 }
 
 _NBODY_IC_REGISTRY = {

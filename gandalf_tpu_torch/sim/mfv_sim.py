@@ -21,7 +21,8 @@ and the grid plan only, so the port bins once at the old r and once at
 the new r.  The host loop (bursts, overflow replans, tree cadence, the
 clamp to tend) is ``SimulationBase``'s.  Block timesteps, RK2, the exact
 Riemann solver, the other limiters, static particles, radws and mirror
-walls raise NotImplementedError naming their ROADMAP item.
+walls, sinks and the non-adiabatic EOS raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,6 +61,11 @@ class MfvMusclSimulation(SimulationBase):
         if ip["Nlevels"] > 1:
             raise _unsupported("block timesteps for MFV (Nlevels > 1)",
                                "item 10")
+        # the JAX MFV controller has no sink code
+        if ip["sink_particles"] or ip["create_sinks"]:
+            raise _unsupported("sink particles in MFV", "item 9")
+        if sp["gas_eos"] not in ("energy_eqn", "constant_temp", "radws"):
+            raise _unsupported(f"gas_eos {sp['gas_eos']!r} in MFV", "item 10")
         self._common_parameters()
         self.mfv_cfg = mfv_ops.MfvConfig(
             gamma=p.floatparams["gamma_eos"],

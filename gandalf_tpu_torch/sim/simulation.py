@@ -11,15 +11,21 @@ controller is in ``sim/mfv_sim.py``, the N-body one in ``sim/nbody_sim.py``.
 
 ``GradhSphSimulation`` is the counterpart of gandalf_tpu's
 ``GradhSphSimulation`` for one configuration: grad-h SPH with the M4
-kernel, the adiabatic EOS, mon97 viscosity (or none) and optional
-conductivity, the structured 27-shift grid, KDK leapfrog with a global
-timestep or with hierarchical block timesteps (``Nlevels > 1``), and
-optionally self-gravity from the KD-bucket Barnes-Hut tree (frontier
-walk; geometric, gadget2 or eigenmac MAC; monopole or quadrupole moments,
-at every particle or expanded about each bucket's centre; the Ewald sum
-of a periodic box, fully periodic, slab or cylinder), with its buckets
-replanned every ``ntreebuildstep`` steps.  Options outside that slice
-raise NotImplementedError naming their ROADMAP item.
+kernel, the adiabatic, isothermal, barotropic or polytropic EOS, mon97
+viscosity (or none) and optional conductivity, the structured 27-shift
+grid, KDK leapfrog with a global timestep or with hierarchical block
+timesteps (``Nlevels > 1``), and optionally self-gravity from the
+KD-bucket Barnes-Hut tree (frontier walk; geometric, gadget2 or eigenmac
+MAC; monopole or quadrupole moments, at every particle or expanded about
+each bucket's centre; the Ewald sum of a periodic box, fully periodic,
+slab or cylinder), with its buckets replanned every ``ntreebuildstep``
+steps.  With a global timestep it also runs star and sink particles
+(``ops/sinks.py``): stars from the IC, sink creation and plain accretion,
+star-gas gravity (K16) and star-star gravity (K14), with the accreted
+gas dead (masked out of the grid and tree passes and frozen).  The sinks
+ride in the state (``SphState.sinks``), so bursts and overflow rewinds
+carry them.  Options outside that slice raise NotImplementedError naming
+their ROADMAP item.
 
 A global step runs eagerly as a sequence of torch operations and kernel
 launches on the simulation's device; on a CUDA device nothing in it
@@ -50,12 +56,16 @@ from ..ops.active_grid import active_hydro_pass
 from ..ops.eos import eos_factory
 from ..ops.ewald import table_from_params
 from ..ops.forces import ArtificialViscosity
+from ..ops.gravity import direct_softened
+from ..ops.sinks import (SinkConfig, accrete_to_sinks, create_sinks,
+                         empty_sinks, make_sinks)
+from ..ops.sph_gravity import star_gas_forces
 from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
 from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
                         plan_tree_for_buckets, tree_gravity_active,
                         tree_gravity_grouped, walk_stats_levels_native)
-from ..state import (BOUNDARY_TYPE, DUST_TYPE, ICM_TYPE, DomainBox,
-                     SphState, make_sph_state)
+from ..state import (BOUNDARY_TYPE, DUST_TYPE, FLAG_DEAD, ICM_TYPE,
+                     DomainBox, SphState, make_sph_state)
 from ..units import SimUnits, inscale_parameters
 from ..utils.timing import CodeTiming
 from .ic import generate_ic
@@ -64,6 +74,8 @@ from .ic import generate_ic
 BURST_CAP = 8
 # bucket size of the gravity tree (gandalf_tpu's _plan_tree_buckets)
 LEAF_SIZE = 32
+# creation slots when Nsinkfixed <= 0 (gandalf_tpu/sim/simulation.py:1365)
+SINK_SLOTS = 16
 
 
 def _host(x) -> np.ndarray:
@@ -145,8 +157,6 @@ class SimulationBase:
         ip, sp = p.intparams, p.stringparams
         if self.ndim != 3:
             raise _unsupported("ndim != 3", "item 3")
-        if ip["sink_particles"] or ip["create_sinks"]:
-            raise _unsupported("sink particles", "item 9")
         if sp["gas_eos"] == "radws":
             raise _unsupported("radws", "item 9")
         if sp["radiation"] not in ("none", "null", ""):
@@ -200,11 +210,16 @@ class SimulationBase:
                 for k in range(self.ndim)]
 
     # -- grid plan -------------------------------------------------------------
-    def _plan_grid(self, r, h, growth: float = 1.3):
-        """(Re)plan the structured grid from positions and h on the host.
-        With unchanged cells, a grown slot count overshoots by 25% so a
-        slowly clustering core does not re-overflow within a few steps."""
-        h_max = float(_host(h).max()) * growth
+    def _plan_grid(self, r, h, growth: float = 1.3, alive=None):
+        """(Re)plan the structured grid from positions and h on the host,
+        h_max over the `alive` particles (all without it): a dead
+        particle's h = 1 would make the grid one cell.  With unchanged
+        cells, a grown slot count overshoots by 25% so a slowly
+        clustering core does not re-overflow within a few steps."""
+        h_np = _host(h)
+        if alive is not None:
+            h_np = h_np[_host(alive)]
+        h_max = float(h_np.max()) * growth
         old = self.gridspec
         spec = plan_grid27(self.box, _host(r), h_max, self.kern.kernrange)
         if old is not None and old.ncells == spec.ncells \
@@ -346,7 +361,8 @@ class SimulationBase:
                     "replans: h is pinned at a clamp (coincident "
                     "particles in the ICs?)")
             self._n_grid_overflows += 1
-            self._plan_grid(self.state.r, self.state.h)
+            self._plan_grid(self.state.r, self.state.h,
+                            alive=self.state.alive)
             if self.treespec is not None:
                 self._plan_tree_buckets(_host(self.state.r),
                                         grow_caps=not full, full_width=full)
@@ -387,7 +403,8 @@ class SimulationBase:
                         self.state = prev
                         self._n_grid_overflows += 1
                         self._plan_grid(prev.r, prev.h,
-                                        growth=1.3 * (1.2 ** attempt))
+                                        growth=1.3 * (1.2 ** attempt),
+                                        alive=prev.alive)
                         if self.treespec is not None:
                             # replaces self.state's bucket map
                             self._plan_tree_buckets(
@@ -480,6 +497,9 @@ class GradhSphSimulation(SimulationBase):
         super().__init__(params, device, dtype)
         self._bootstrap_fn = None
         self._blocksched = None
+        # star and sink slots in the state, and dead (massless) particles
+        self.has_sinks = False
+        self._mask_dead = False
         # rows of the active passes: in all, and per pass of the last tick
         # (the Saitoh-Makino pass and overflow retries included)
         self.active_rows = 0
@@ -497,9 +517,13 @@ class GradhSphSimulation(SimulationBase):
             raise _unsupported("time_dependent_avisc", "item 9")
         if sp["supernova_feedback"] not in ("none", "null", ""):
             raise _unsupported("supernova feedback", "item 9")
+        if ip["rad_fb"]:
+            raise _unsupported("radiative feedback (rad_fb)", "item 9")
         self._common_parameters()
         self.visc = ArtificialViscosity.from_params(p)
-        self.integ = IntegratorConfig.from_params(p, energy_integration=True)
+        # u is integrated for energy_eqn only; the other EOS set it from rho
+        self.integ = IntegratorConfig.from_params(
+            p, energy_integration=sp["gas_eos"] == "energy_eqn")
         self.hydro_forces = bool(ip["hydro_forces"])
         # hierarchical block timesteps on the grid path
         self.nlevels = max(ip["Nlevels"], 1)
@@ -507,6 +531,24 @@ class GradhSphSimulation(SimulationBase):
         self.block_cfg = BlockConfig(nlevels=self.nlevels,
                                      level_diff_max=ip["level_diff_max"])
         self.u_mode = "energy" if self.integ.energy_integration else "none"
+        # sinks (gandalf_tpu/sim/simulation.py:984-993); rho_sink is in
+        # code units after _common_parameters
+        self.sink_cfg = SinkConfig(
+            rho_sink=p.floatparams["rho_sink"],
+            sink_radius=p.floatparams["sink_radius"],
+            create=bool(ip["create_sinks"]),
+            accrete=bool(ip["sink_particles"]))
+        if self.sink_cfg.create or self.sink_cfg.accrete:
+            self._check_sink_options()
+
+    def _check_sink_options(self):
+        """The sink options the port runs: a global timestep and plain
+        accretion."""
+        if self.use_block:
+            raise _unsupported("sinks with block timesteps (Nlevels > 1 "
+                               "needs the ladder's dt_extra)", "item 9")
+        if self.params.intparams["smooth_accretion"]:
+            raise _unsupported("smooth_accretion = 1", "item 9")
 
     # -- setup -----------------------------------------------------------------
     def SetupSimulation(self, ic: Optional[Dict[str, np.ndarray]] = None):
@@ -520,28 +562,52 @@ class GradhSphSimulation(SimulationBase):
             if ic is None:
                 with self.timing.block("GENERATE_IC"):
                     ic = generate_ic(self.params, self.eos)
-            if "star" in ic or "ptype" in ic:
-                raise _unsupported("stars and non-gas particle types",
-                                   "item 9")
-            if np.any(np.asarray(ic["m"]) <= 0.0):
-                raise _unsupported("massless (dead) particles", "item 9")
+            if "ptype" in ic:
+                raise _unsupported("non-gas particle types", "item 9")
             self.state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"],
                                         ic["u"], device=self.device,
                                         dtype=self.dtype)
             s = self.state
+            # massless particles (accreted gas in old files) are dead
+            dead = torch.as_tensor(np.asarray(ic["m"]) <= 0.0,
+                                   device=self.device)
             self.state = s.replace(
-                alpha=torch.full_like(s.alpha, self.visc.alpha_visc))
+                alpha=torch.full_like(s.alpha, self.visc.alpha_visc),
+                flags=torch.where(dead, s.flags | FLAG_DEAD, s.flags),
+                sinks=self._initial_sinks(ic))
+            self.has_sinks = self.state.sinks is not None
+            self._mask_dead = self.has_sinks or bool(dead.any())
             if "t" in ic:
                 self.state = self.state.replace(t=torch.tensor(
                     float(ic["t"]), dtype=self.dtype, device=self.device))
             self._step_fn = self._build_step()
             self._bootstrap_fn = self._build_bootstrap()
-            self._plan_grid(ic["r"], ic["h"])
+            self._plan_grid(ic["r"], ic["h"], alive=self.state.alive)
             if self.self_gravity:
                 self._plan_tree_buckets(_host(self.state.r))
             self._bootstrap_with_replans()
         self.t = float(self.state.t)
         self.setup_complete = True
+
+    def _initial_sinks(self, ic):
+        """The star slots of the IC plus the creation slots (Nsinkfixed,
+        else 16, with create_sinks), or None without either
+        (gandalf_tpu/sim/simulation.py:1360-1373)."""
+        nfix = self.params.intparams["Nsinkfixed"]
+        n_extra = (nfix if nfix > 0 else SINK_SLOTS) \
+            if self.sink_cfg.create else 0
+        kw = dict(device=self.device, dtype=self.dtype)
+        if "star" in ic:
+            if self.use_block:
+                raise _unsupported("stars with block timesteps (Nlevels > "
+                                   "1 needs the ladder's dt_extra)",
+                                   "item 9")
+            st = ic["star"]
+            return make_sinks(st["r"], st["v"], st["m"], st["h"],
+                              n_extra=n_extra, **kw)
+        if self.sink_cfg.create:
+            return empty_sinks(n_extra, self.ndim, **kw)
+        return None
 
     def _run_bootstrap(self):
         if self.use_block:
@@ -552,16 +618,20 @@ class GradhSphSimulation(SimulationBase):
     # -- the physics -----------------------------------------------------------
     def _hydro_pass(self, s: SphState) -> SphState:
         """density -> EOS -> hydro forces -> self-gravity at the current
-        positions.  The overflow flag is the OR of both passes'."""
+        positions, dead particles masked out where there may be any.  The
+        overflow flag is the OR of both passes'."""
+        alive = s.alive if self._mask_dead else None
         s = hydro_pass_grid27(self.kern, self.visc, self.box,
                               self.gridspec, self.eos, self.h_fac,
-                              self.h_converge, self.hydro_forces, s)
+                              self.h_converge, self.hydro_forces, s,
+                              alive=alive)
         if self.self_gravity:
             a_g, gpot, overflow = tree_gravity_grouped(
                 self.treespec, s.bucket_map, s.r, self._gravity_mass(s),
                 s.h, self.kern, zh=s.zeta * s.hfactor,
                 periodic_extent=self._periodic_extent(),
-                ewald_table=self.ewald_table, **self._mac_inputs(s))
+                ewald_table=self.ewald_table, alive=alive,
+                **self._mac_inputs(s))
             s = s.replace(a=s.a + a_g, gpot=gpot,
                           neib_overflow=s.neib_overflow | overflow)
         return s
@@ -586,28 +656,99 @@ class GradhSphSimulation(SimulationBase):
                    | (s.ptype == DUST_TYPE))
         return torch.where(no_grav, 0.0, s.m)
 
+    # -- sinks ----------------------------------------------------------------
+    def _sink_coupled_pass(self, s: SphState) -> SphState:
+        """The gas pass, then star-gas (K16) and star-star (K14) gravity,
+        with dead gas frozen (gandalf_tpu/sim/simulation.py:1610-1640)."""
+        s = self._hydro_pass(s)
+        sk, alive = s.sinks, s.alive
+        m_live = torch.where(alive, s.m, 0.0)
+        m_star = torch.where(sk.active, sk.m, 0.0)
+        a_gs, gp_gs, a_st, _ = star_gas_forces(
+            self.kern, s.r, m_live, s.h, sk.r, m_star, sk.h, sk.active)
+        ss = direct_softened(sk.r, sk.v, m_star, sk.h, self.kern)
+        sk = sk.replace(a=torch.where(sk.active[:, None], a_st + ss.a, 0.0))
+        return s.replace(
+            a=torch.where(alive[:, None], s.a + a_gs, 0.0),
+            dudt=torch.where(alive, s.dudt, 0.0),
+            gpot=s.gpot + torch.where(alive, gp_gs, 0.0), sinks=sk)
+
+    def _sink_create_accrete(self, s: SphState, dt) -> SphState:
+        """Sink creation (K17) and accretion (K18) over a step of size dt,
+        with the accretion rate; the eaten gas dies
+        (gandalf_tpu/sim/simulation.py:1642-1680)."""
+        cfg, sk, alive = self.sink_cfg, s.sinks, s.alive
+        m_before = sk.m
+        if cfg.create:
+            sk, alive = create_sinks(cfg, sk, s.r, s.v, s.m, s.h, s.rho,
+                                     alive)
+            m_before = sk.m      # creation mass is not accretion
+        if cfg.accrete:
+            sk, alive = accrete_to_sinks(cfg, sk, s.r, s.v, s.m, alive)
+            sk = sk.replace(mdot=(sk.m - m_before)
+                            / torch.clamp_min(dt, 1e-30))
+        return self._kill_eaten(s.replace(sinks=sk), alive)
+
+    @staticmethod
+    def _kill_eaten(s: SphState, alive_new) -> SphState:
+        """Mark the newly dead gas: FLAG_DEAD, zero mass and motion
+        (gandalf_tpu/sim/simulation.py:1722-1738)."""
+        died = s.alive & ~alive_new
+        col = died[:, None]
+        return s.replace(
+            flags=torch.where(died, s.flags | FLAG_DEAD, s.flags),
+            m=torch.where(died, 0.0, s.m),
+            v=torch.where(col, 0.0, s.v), v0=torch.where(col, 0.0, s.v0),
+            a=torch.where(col, 0.0, s.a), a0=torch.where(col, 0.0, s.a0),
+            dudt=torch.where(died, 0.0, s.dudt),
+            dudt0=torch.where(died, 0.0, s.dudt0))
+
+    def _sink_timestep(self, sk):
+        """The stars' acceleration timestep bound (Sinks::Timestep
+        analogue; gandalf_tpu/sim/simulation.py:1704-1711)."""
+        amag = torch.sqrt(torch.sum(sk.a * sk.a, dim=-1))
+        dt = self.integ.accel_mult * torch.sqrt(sk.h / (amag + 1e-30))
+        return torch.min(torch.where(sk.active, dt, 1e30))
+
+    def _global_timestep(self, s: SphState):
+        """The next global dt: the SPH criteria, with sinks over the
+        alive gas and with the stars' bound (_hybrid_timestep)."""
+        dt_part = sph_timestep(self.integ, s, self.hydro_forces)
+        if not self.has_sinks:
+            return torch.min(dt_part)
+        dt_gas = torch.min(torch.where(s.alive, dt_part, 1e30))
+        return torch.minimum(dt_gas, self._sink_timestep(s.sinks))
+
     def _build_bootstrap(self):
         """Initial force and timestep pass."""
         integ = self.integ
 
         def bootstrap(s: SphState) -> SphState:
-            s = self._hydro_pass(s)
+            if self.has_sinks:
+                s = self._sink_coupled_pass(s)
+                sk = s.sinks
+                s = s.replace(sinks=sk.replace(a0=sk.a, r0=sk.r, v0=sk.v))
+            else:
+                s = self._hydro_pass(s)
             s = s.replace(a0=s.a, dudt0=s.dudt, u0=s.u, r0=s.r, v0=s.v)
-            dt_part = sph_timestep(integ, s, self.hydro_forces)
             if self.use_block:
                 # the initial ladder; a tick is dt_base
+                dt_part = sph_timestep(integ, s, self.hydro_forces)
                 s, sched = init_schedule(self.block_cfg, s, dt_part)
                 return s.replace(dt=sched.dt_base), sched
-            return s.replace(dt=torch.min(dt_part))
+            return s.replace(dt=self._global_timestep(s))
 
         return bootstrap
 
     def _build_step(self):
         """One global-timestep KDK step: predict, wrap, hydro pass,
-        correct, next dt.  The overflow flag is sticky across the steps
-        of a burst (a mid-burst overflow must survive to its end).  With
-        a finite tend the step's dt is clamped on the device to tend - t,
-        so no step of a burst passes tend (ROADMAP fault F3)."""
+        correct, next dt; with sinks the stars drift and kick at the same
+        dt around the coupled pass, then sinks form and accrete
+        (gandalf_tpu/sim/simulation.py:1891-1923).  The overflow flag is
+        sticky across the steps of a burst (a mid-burst overflow must
+        survive to its end).  With a finite tend the step's dt is clamped
+        on the device to tend - t, so no step of a burst passes tend
+        (ROADMAP fault F3)."""
         integ, box = self.integ, self.box
         tend = self.params.floatparams["tend"]
         bounded = math.isfinite(tend)
@@ -621,11 +762,24 @@ class GradhSphSimulation(SimulationBase):
             overflow_in = s.neib_overflow
             s = predict(integ, s, dt)
             s = s.replace(r=box.wrap(s.r), r0=box.wrap(s.r0))
-            s = self._hydro_pass(s)
+            if self.has_sinks:
+                sk = s.sinks
+                s = s.replace(sinks=sk.replace(
+                    r=sk.r0 + sk.v0 * dt + 0.5 * sk.a0 * dt * dt,
+                    v=sk.v0 + sk.a0 * dt))
+                s = self._sink_coupled_pass(s)
+            else:
+                s = self._hydro_pass(s)
             s = s.replace(neib_overflow=s.neib_overflow | overflow_in)
             s = correct(integ, s, dt, torch.zeros_like(s.alpha))
-            dt_next = torch.min(sph_timestep(integ, s, self.hydro_forces))
-            return s.replace(t=t, dt=dt_next, nstep=s.nstep + 1)
+            if self.has_sinks:
+                sk = s.sinks
+                v_c = sk.v + 0.5 * dt * (sk.a - sk.a0)
+                s = s.replace(sinks=sk.replace(v=v_c, r0=sk.r, v0=v_c,
+                                               a0=sk.a))
+                s = self._sink_create_accrete(s, dt)
+            return s.replace(t=t, dt=self._global_timestep(s),
+                             nstep=s.nstep + 1)
 
         return step
 
@@ -706,7 +860,8 @@ class GradhSphSimulation(SimulationBase):
             with self.timing.block("GRID_REPLAN"):
                 self._n_grid_overflows += 1
                 self._plan_grid(prev.r, prev.h,
-                                growth=1.3 * (1.2 ** attempt))
+                                growth=1.3 * (1.2 ** attempt),
+                                alive=prev.alive)
                 if self.treespec is not None:
                     # replaces self.state's (the pre-tick state's) map
                     self._plan_tree_buckets(_host(prev.r), grow_caps=True)

@@ -82,6 +82,9 @@ class SphState:
     walk_plan_r: Optional[Tensor] = None
     walk_anchors: Optional[Tensor] = None
     walk_margin: Optional[Tensor] = None
+    # star and sink slots (an ops.sinks.SinkState), None without stars:
+    # they ride in the state so that bursts and rewinds carry them
+    sinks: Optional[object] = None
 
     @property
     def N(self) -> int:

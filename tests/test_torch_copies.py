@@ -2,9 +2,12 @@
 originals: the Parameters default table, the unit system, the IC
 generators the port's configurations use (box, lattice and random
 sphere; the xorshift generator's sphere sampler is not ported and
-raises), the bit-exact xorshift generator and the N-body ICs drawn
-through it, the N-body sub-system tree, and the C++ tree planner built
-from the port's own kdplan.cpp."""
+raises; the Boss-Bodenheimer cloud and the hybrid Plummer sphere), the
+isothermal, barotropic and polytropic EOS, the bit-exact xorshift
+generator and the N-body ICs drawn through it, the N-body sub-system
+tree, and the C++ tree planner built from the port's own kdplan.cpp."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -112,6 +115,89 @@ def test_ewald_ics_are_identical(case):
     assert sorted(mine) == sorted(theirs)
     for k in mine:
         assert np.array_equal(mine[k], theirs[k]), k
+
+
+def _sink_ic_params(case):
+    """The sink slice's ICs at a small size: the Boss-Bodenheimer cloud
+    (examples/bossbodenheimer.dat, physical units) on its lattice and
+    drawn at random, and the hybrid gas-and-star Plummer sphere with the
+    default (numpy) and the xorshift generator."""
+    from gandalf_tpu_torch.check import bb_params
+
+    if case.startswith("bb"):
+        p = bb_params(600)
+        if case == "bb_random":
+            p.set("particle_distribution", "random")
+            p.set("rand_algorithm", "default")
+        return p
+    p = params.Parameters()
+    for k, v in dict(ic="plummer", ndim=3, Nhydro=300, Nstar=12,
+                     gasfrac=0.7, starfrac=0.3, dimensionless=1).items():
+        p.set(k, v)
+    if case == "plummer_xorshift":
+        p.set("rand_algorithm", "xorshift")
+    return p
+
+
+@pytest.mark.parametrize("case", ["bb_lattice", "bb_random",
+                                  "plummer_default", "plummer_xorshift"])
+def test_sink_ics_are_identical(case):
+    """bossbodenheimer_ic and plummer_hybrid_ic (with its stars) equal the
+    JAX package's bit for bit."""
+    p = _sink_ic_params(case)
+    q = jparams.Parameters()
+    for table in ("intparams", "floatparams", "stringparams"):
+        getattr(q, table).update(getattr(p, table))
+    mine, theirs = _ics(p, q)
+    assert sorted(mine) == sorted(theirs)
+    for k in mine:
+        if k == "star":
+            assert sorted(mine[k]) == sorted(theirs[k])
+            for f in mine[k]:
+                assert np.array_equal(mine[k][f], theirs[k][f]), f
+        else:
+            assert np.array_equal(mine[k], theirs[k]), k
+
+
+@pytest.mark.parametrize("name", ["isothermal", "barotropic", "polytropic"])
+def test_eos_classes_are_identical(name):
+    """The isothermal, barotropic and polytropic EOS from each package's
+    eos_factory: the same class and fields bit for bit, and u, pressure
+    and sound speed of thermal_update over densities either side of
+    rho_bary the same formula term by term: equal where no power is
+    taken, within 2e-15 relative where one is (torch's and XLA's
+    x ** y differ in the last bits for about 1.6% of arguments; the
+    barotropic u reads up to 4 ulp apart after its sum and divisions)."""
+    import jax.numpy as jnp
+    import torch
+
+    from gandalf_tpu.ops import eos as jeos
+    from gandalf_tpu_torch.ops import eos as teos
+
+    p = params.Parameters()
+    for k, v in dict(gas_eos=name, gamma_eos=5.0 / 3.0, mu_bar=2.35,
+                     temp0=10.0, rho_bary=1.0e-2, Kpoly=0.7,
+                     eta_eos=1.4).items():
+        p.set(k, v)
+    q = jparams.Parameters()
+    for table in ("intparams", "floatparams", "stringparams"):
+        getattr(q, table).update(getattr(p, table))
+    mine, theirs = teos.eos_factory(p), jeos.eos_factory(q)
+    assert type(mine).__name__ == type(theirs).__name__
+    fields = dataclasses.asdict(theirs)
+    fields.pop("needs_ionfrac")
+    assert dataclasses.asdict(mine) == fields
+    rng = np.random.default_rng(7)
+    rho = 10.0 ** rng.uniform(-5.0, 1.0, 500)
+    u = rng.random(500) + 0.1
+    got = mine.thermal_update(torch.tensor(rho), torch.tensor(u))
+    want = theirs.thermal_update(jnp.asarray(rho), jnp.asarray(u))
+    for tag, x, y in zip(("u", "pressure", "sound"), got, want):
+        x, y = x.numpy(), np.asarray(y)
+        if name == "isothermal":
+            assert np.array_equal(x, y), tag
+        else:
+            assert np.all(np.abs(x - y) <= 2e-15 * np.abs(y)), tag
 
 
 def test_other_ics_raise():

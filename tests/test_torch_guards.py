@@ -1,9 +1,10 @@
 """Guards of the PyTorch port: no module of it imports JAX or the JAX
 package (an AST scan) and running it never loads JAX, whatever
-GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV and
-N-body slices included); chip_smoke.py refuses to run without a GPU, a missing
-C++ tree planner raises, a kernel wrapper refuses CPU tensors, and on a
-GPU each CUDA kernel agrees with its plain PyTorch version.
+GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
+N-body and sink slices included); chip_smoke.py refuses to run without
+a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
+tensors, and on a GPU each CUDA kernel agrees with its plain PyTorch
+version.
 
 This file imports no JAX, so its CUDA test also runs on a machine
 without JAX: ``python -m pytest --noconftest -m cuda
@@ -93,6 +94,12 @@ def test_port_never_imports_jax():
         "sim.SetupSimulation()\n"
         "sim.main_loop_step()\n"
         "assert sim.Nsteps == 1 and sim.t > 0.0\n"
+        "from gandalf_tpu_torch.check import bb_params\n"
+        "sim = GradhSphSimulation(bb_params(300, rho_sink=2.0e-17),\n"
+        "                         device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation()\n"
+        "sim.main_loop_step()\n"
+        "assert bool(sim.state.sinks.active.any())\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -259,6 +266,74 @@ def test_nbody_kernels_match_plain_versions_on_gpu(dtype):
             report[f"{name}_{n}"] = rep
     torch.cuda.synchronize()
     assert all(r["ok"] for r in report.values()), report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sink_kernels_match_plain_versions_on_gpu(dtype):
+    """K16-K18 against their plain versions on the card: synthetic inputs
+    with the edge cases (check.sink_kernel_inputs) at 1,000 gas particles
+    with 16 and 64 slots, then a Boss-Bodenheimer cloud of about 3,000
+    particles after two steps (two sinks, their eaten gas dead), with K4
+    in its alive mode and K5-K7 over the dead particles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (bb_params, compare_sink_kernels,
+                                         compare_tree_kernels,
+                                         sim_sink_inputs, sink_kernel_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    report = {}
+    for ns in (16, 64):
+        rep = compare_sink_kernels(kernel_factory("m4", 3),
+                                   sink_kernel_inputs(1000, ns, "cuda",
+                                                      dtype))
+        report.update({f"{k}_{ns}": r for k, r in rep.items()})
+    sim = GradhSphSimulation(bb_params(3000, rho_sink=2.0e-17),
+                             device="cuda", dtype=dtype)
+    sim.SetupSimulation()
+    sim.main_loop_steps(2)
+    assert int((~sim.state.alive).sum()) > 2
+    rep = compare_sink_kernels(sim.kern, sim_sink_inputs(sim))
+    rep.update(compare_tree_kernels(sim, sim.state))
+    assert rep["tree_gather"]["alive_input"]
+    report.update({f"bb_{k}": r for k, r in rep.items()})
+    torch.cuda.synchronize()
+    bad = {k: r.get("scaled_err", r) for k, r in report.items()
+           if not r["ok"]}
+    assert not bad, bad
+
+
+def test_sink_wrappers_refuse_cpu_tensors():
+    """K16-K18 and K4 with its alive input: CPU tensors raise and count
+    no launch; the plain versions run only through ops.sph_gravity's,
+    ops.sinks' and ops.tree's dispatch on CPU tensors."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.tree import plan_tree
+
+    f64 = dict(dtype=torch.float64)
+    r, v = torch.rand((32, 3), **f64), torch.rand((32, 3), **f64)
+    m, h = torch.rand((32,), **f64), torch.rand((32,), **f64)
+    rs, ms, hs = torch.rand((4, 3), **f64), torch.rand((4,), **f64), \
+        torch.rand((4,), **f64)
+    alive = torch.ones((32,), dtype=torch.bool)
+    act = torch.ones((4,), dtype=torch.bool)
+    tspec = plan_tree(64)
+    gmap = torch.arange(64, dtype=torch.int32).reshape(2, 32)
+    r64 = torch.rand((64, 3), **f64)
+    before = dict(_ext.LAUNCHES)
+    for call in (lambda: _ext.star_gas_forces(r, m, h, rs, ms, hs, act),
+                 lambda: _ext.sink_candidate(m, alive, 0.5, r, v, m, h),
+                 lambda: _ext.accretion_sums(r, v, m, alive, rs, hs, act,
+                                             2.0),
+                 lambda: _ext.tree_gather(tspec, gmap, r64, r64[:, 0], None,
+                                          None, None,
+                                          torch.ones((64,),
+                                                     dtype=torch.bool))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before
 
 
 def test_missing_tree_planner_raises(monkeypatch, tmp_path):

@@ -11,7 +11,8 @@ import torch
 from gandalf_tpu.sim.simulation import GradhSphSimulation as JaxSim
 from gandalf_tpu_torch.check import jittered_box_ic, slice_params
 from gandalf_tpu_torch.convert import grid_spec_from_jax
-from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+from gandalf_tpu_torch.sim.simulation import (GradhSphSimulation,
+                                              SimulationBase)
 
 torch.set_num_threads(1)
 
@@ -105,22 +106,28 @@ def test_run_lands_on_tend():
 @pytest.mark.parametrize("key,value", [("self_gravity", 1),
                                        ("sink_particles", 1),
                                        ("dust_forces", "full_twofluid"),
-                                       ("ndim", 2), ("gas_eos", "isothermal"),
+                                       ("ndim", 2),
+                                       ("gas_eos", "locally_isothermal"),
                                        ("time_dependent_avisc", "mm97"),
-                                       ("neib_search", "bruteforce")])
+                                       ("neib_search", "bruteforce"),
+                                       ("smooth_accretion", 1),
+                                       ("sim", "mfvmuscl")])
 def test_options_outside_the_slice_raise(key, value):
     """Options the port does not run raise; sinks and dust stay refused
-    with block timesteps (Nlevels = 3) too, and self-gravity (which runs
-    every walk option, the Ewald sum of this periodic box included) with
-    octtree buckets."""
+    with block timesteps (Nlevels = 3), sinks with smooth accretion and
+    in the MFV controller (which has no sink code), and self-gravity
+    (which runs every walk option, the Ewald sum of this periodic box
+    included) with octtree buckets."""
     p = slice_params(8)
     if key in ("sink_particles", "dust_forces"):
         p.set("Nlevels", 3)
+    if key in ("smooth_accretion", "sim"):
+        p.set("sink_particles", 1)
     if key == "self_gravity":
         p.set("neib_search", "octtree")
     p.set(key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GradhSphSimulation(p).process_parameters()
+        SimulationBase.factory(p).process_parameters()
 
 
 def test_burst_stops_at_tend():

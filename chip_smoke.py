@@ -109,7 +109,8 @@ them, in phases, each printing one line:
    cm^-3: setup, then 32 timed steps (4 tree rebuilds), with rates,
    sinks formed, launch counts, finiteness over the alive gas, dead gas
    at rest and massless, gas plus sink mass in float64, each step's sink
-   gain against the gas that died (check.sink_ledger), overflow and the
+   gain against the gas that died (check.sink_ledger keeps references
+   in the window and sums them after it), overflow and the
    tree plus star-gas accuracy against the float64 all-pairs sum; then
    K4 (with its alive input), K6, K7 and K16-K18 against their plain
    versions at the path's state;
@@ -1195,9 +1196,10 @@ def bb_sink_collapse(dev, card):
     st = s.sinks
     alive = s.alive
     mass1 = total_mass(sim)
-    em, ep, m_dead = ledger_errors(rows)
     # steps run, a burst redone after an overflow replan included
     steps_run = len(rows)
+    em, ep, m_dead = ledger_errors(rows)
+    del rows
     acc = gravity_accuracy(sim, n_sample=2048)
     dead = ~alive
     act = st.active

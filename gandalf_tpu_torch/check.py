@@ -144,8 +144,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # Operations per unit of work, counted by hand from each kernel's source
 # (a multiply, add, compare, square root or division counts one): per
-# particle (K1, K17), per star-gas pair (K16, both sides, the M4 kernel
-# and its divisions; K18, the distance test and the slot match), per
+# particle (K1, K17), per star-gas pair (K16: one evaluation feeding
+# both sides' sums, with the M4 kernel's branch beyond its support and
+# the extra work of the branches inside it, counted from the pairs'
+# separations; K18: the distance test and the slot match), per
 # slot (K4), per slot and per cell (K5), per pair
 # within a support (kernrange h_i for K2, K8, K10, K11; kernrange
 # max(h_i, h_j) for K3, K9, K12), per live cell tested and per accepted
@@ -169,7 +171,8 @@ FLOPS_PER = {
     "active_density": 40, "active_forces": 80,
     "mfv_density": 40, "mfv_gradients": 120, "mfv_fluxes": 450,
     "direct_nbody": 46, "direct_softened": 66, "direct_snap": 74,
-    "star_gas_forces": 100, "sink_candidate": 3, "accretion_sums": 15,
+    "star_gas_forces": 46, "star_gas_mid": 20, "star_gas_near": 11,
+    "sink_candidate": 3, "accretion_sums": 15,
 }
 
 
@@ -188,6 +191,23 @@ def bound(work, dtype):
     t_ops = work["flops"] / PEAK_FLOPS[dtype]
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops
                                      else "operations")
+
+
+def _star_gas_work(r, h, rs, hs):
+    """K16's operations: FLOPS_PER["star_gas_forces"] for every pair
+    (the M4 branch s >= 2), plus "star_gas_mid" for each pair at
+    1 <= s < 2 and "star_gas_near" for each at s < 1, s = |dr| / hbar."""
+    n_mid = n_near = 0
+    step = max(1, (1 << 24) // max(rs.shape[0], 1))
+    for c0 in range(0, r.shape[0], step):
+        d = torch.cdist(r[c0:c0 + step], rs,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        s = d / (0.5 * (h[c0:c0 + step, None] + hs[None, :]))
+        n_near += int((s < 1.0).sum())
+        n_mid += int(((s >= 1.0) & (s < 2.0)).sum())
+    return (FLOPS_PER["star_gas_forces"] * r.shape[0] * rs.shape[0]
+            + FLOPS_PER["star_gas_mid"] * n_mid
+            + FLOPS_PER["star_gas_near"] * n_near)
 
 
 def _support_counts(row, col, d2, h, kernrange):
@@ -527,7 +547,7 @@ def walk_options(sim, state, spec=None):
     spec = spec or sim.treespec
     ptab, alive = tr.gather_to_buckets_plain(
         spec, state.bucket_map, state.r, state.m,
-        alive=state.alive if getattr(sim, "_mask_dead", False) else None)
+        alive=sim.alive_mask(state))
     mac_kw = _mac_kwargs(sim, state, spec)
     gfac = tr.mac_factors(spec, state.bucket_map, alive,
                           mac_kw.get("amag"), mac_kw.get("gpot_prev"),
@@ -618,7 +638,7 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
     wname, nname = _ext.launch_names(spec, ewald is not None, mfv=mfv)
     f64 = r.dtype == torch.float64
     G, L = spec.n_leaves, spec.leaf_size
-    alive = state.alive if getattr(sim, "_mask_dead", False) else None
+    alive = sim.alive_mask(state)
     out = {}
 
     # K4: exact (the unwrap's arithmetic is written to match)
@@ -860,7 +880,7 @@ def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
     r, m, h, kern, zh, pext = gravity_inputs(sim, s)
     spec = spec or sim.treespec
     gmap = s.bucket_map
-    alive = s.alive if getattr(sim, "_mask_dead", False) else None
+    alive = sim.alive_mask(s)
     if among is None:
         a_tree, _, overflow = tr.tree_gravity_grouped(
             spec, gmap, r, m, h, kern, zh, pext, alive=alive,
@@ -1468,7 +1488,7 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
         "N": N, "Ns": Ns, "scaled_err": errs, "dtype": str(r.dtype),
         "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
         "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_STAR_GAS),
-        "work": _work(sg_args, got, FLOPS_PER["star_gas_forces"] * N * Ns)}
+        "work": _work(sg_args, got, _star_gas_work(r, h, st.r, st.h))}
 
     c_args = (cfg, r, v, m, h, rho, alive)
     cand, gi = sk_ops.sink_candidate(*c_args)
@@ -1498,14 +1518,18 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
     errs = {k: scaled(x, y) for k, x, y in zip(("dm", "dmom", "dmr"),
                                                got[:3], want[:3])}
     same = bool(torch.equal(got[3], want[3]))
+    # v and m are read for the eaten gas only
+    n_eat = int(got[3].sum())
+    eaten_bytes = n_eat * (v.shape[1] + 1) * v.element_size()
     out["accretion_sums"] = {
-        "N": N, "Ns": Ns, "eaten": int(got[3].sum()), "scaled_err": errs,
+        "N": N, "Ns": Ns, "eaten": n_eat, "scaled_err": errs,
         "same_eaten": same, "dtype": str(r.dtype),
         "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
         "ok": same and max(errs.values()) <= (TOL_F64 if f64
                                               else TOL_F32_ACCRETION),
-        "work": _work((r, v, m, alive, st.r, st.h, st.active), got,
-                      FLOPS_PER["accretion_sums"] * N * Ns)}
+        "work": {"bytes": _nbytes(r, alive, st.r, st.h, st.active, *got)
+                 + eaten_bytes,
+                 "flops": FLOPS_PER["accretion_sums"] * N * Ns}}
 
     if repeats > 0:
         score = torch.where(eligible, rho, -math.inf)
@@ -1529,42 +1553,47 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
 
 
 def sink_ledger(sim):
-    """Record, at each call of sim._sink_create_accrete from now on, the
-    sinks' gain in mass and momentum across it and the mass and momentum
-    (and sum of m |v|) of the gas that died in it, in float64 on the
-    device and without a host read.  Returns the list the records go to,
-    each a (9,) tensor: dM_sink, dP_sink (3), M_dead, P_dead (3),
-    sum m |v| of the dead."""
+    """Keep, at each call of sim._sink_create_accrete from now on, what
+    ledger_errors needs: the sink slots and the alive mask before and
+    after the call, and the gas's mass and velocity before it.  The step
+    builds new tensors and never writes its inputs, so these references
+    hold each call's values; the wrapper launches nothing and reads
+    nothing back, so a window timed with it installed times the program.
+    Returns the list the records go to."""
     rows = []
     inner = sim._sink_create_accrete
 
-    def totals(st):
-        w = torch.where(st.active, st.m, 0.0).double()
-        return torch.cat([w.sum()[None],
-                          (w[:, None] * st.v.double()).sum(0)])
-
     def recorded(s, dt):
         out = inner(s, dt)
-        died = s.alive & ~out.alive
-        w = torch.where(died, s.m, 0.0).double()
-        v = s.v.double()
-        rows.append(torch.cat([
-            totals(out.sinks) - totals(s.sinks), w.sum()[None],
-            (w[:, None] * v).sum(0),
-            (w * torch.sqrt((v * v).sum(-1))).sum()[None]]))
+        rows.append((s.sinks, out.sinks, s.alive, out.alive, s.m, s.v))
         return out
 
     sim._sink_create_accrete = recorded
     return rows
 
 
+def _ledger_row(sk0, sk1, alive0, alive1, m, v):
+    """(9,) float64: the sinks' gain in mass and momentum (4), the mass
+    and momentum of the gas that died (4) and its sum of m |v|."""
+    def totals(st):
+        w = torch.where(st.active, st.m, 0.0).double()
+        return torch.cat([w.sum()[None],
+                          (w[:, None] * st.v.double()).sum(0)])
+
+    w = torch.where(alive0 & ~alive1, m, 0.0).double()
+    v = v.double()
+    return torch.cat([totals(sk1) - totals(sk0), w.sum()[None],
+                      (w[:, None] * v).sum(0),
+                      (w * torch.sqrt((v * v).sum(-1))).sum()[None]])
+
+
 def ledger_errors(rows):
-    """Per step: |dM_sink - M_dead| / M_dead and |dP_sink - P_dead| /
-    sum m |v| of the dead (0 where nothing died), and the steps' dead
+    """Per call: |dM_sink - M_dead| / M_dead and |dP_sink - P_dead| /
+    sum m |v| of the dead (0 where nothing died), and the call's dead
     mass, from sink_ledger's records."""
     if not rows:
         return [], [], []
-    x = torch.stack(rows).cpu().numpy()
+    x = torch.stack([_ledger_row(*r) for r in rows]).cpu().numpy()
     md, mv = x[:, 4], x[:, 8]
     em = np.where(md > 0, np.abs(x[:, 0] - md) / np.maximum(md, 1e-300),
                   np.abs(x[:, 0]))

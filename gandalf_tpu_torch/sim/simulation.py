@@ -209,6 +209,11 @@ class SimulationBase:
         return [self.box.size[k] if k in pdims else 0.0
                 for k in range(self.ndim)]
 
+    def alive_mask(self, s):
+        """The alive mask the passes take for state `s`, or None where
+        every particle is alive (no sinks, no dead particles)."""
+        return None
+
     # -- grid plan -------------------------------------------------------------
     def _plan_grid(self, r, h, growth: float = 1.3, alive=None):
         """(Re)plan the structured grid from positions and h on the host,
@@ -615,12 +620,17 @@ class GradhSphSimulation(SimulationBase):
         else:
             self.state = self._bootstrap_fn(self.state)
 
+    def alive_mask(self, s: SphState):
+        """s.alive where there may be dead particles (sinks, or dead gas
+        in the ICs), else None."""
+        return s.alive if self._mask_dead else None
+
     # -- the physics -----------------------------------------------------------
     def _hydro_pass(self, s: SphState) -> SphState:
         """density -> EOS -> hydro forces -> self-gravity at the current
         positions, dead particles masked out where there may be any.  The
         overflow flag is the OR of both passes'."""
-        alive = s.alive if self._mask_dead else None
+        alive = self.alive_mask(s)
         s = hydro_pass_grid27(self.kern, self.visc, self.box,
                               self.gridspec, self.eos, self.h_fac,
                               self.h_converge, self.hydro_forces, s,

@@ -9,8 +9,9 @@ the CPU against gandalf_tpu's, float64.
   accretion;
 - 5 steps of a uniform sphere under each ported EOS (isothermal,
   barotropic, polytropic);
-- the overflow rewind of a step with sinks, and a burst with sinks
-  against single steps (port only).
+- the overflow rewind of a step with sinks, a burst with sinks against
+  single steps, and check.sink_ledger's balance over a burst (port
+  only).
 
 Each run holds the alive fields, the gas alive masks and the sink slots
 to 1e-9 of each field's largest value, with equal sinks created at equal
@@ -28,7 +29,7 @@ import torch
 
 from gandalf_tpu.params import Parameters as JaxParameters
 from gandalf_tpu.sim.simulation import GradhSphSimulation as JaxSim
-from gandalf_tpu_torch.check import bb_params
+from gandalf_tpu_torch.check import bb_params, ledger_errors, sink_ledger
 from gandalf_tpu_torch.params import Parameters
 from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
@@ -219,4 +220,19 @@ def test_bb_burst_matches_single_steps():
     for f in ("r", "v", "m", "active", "mdot"):
         assert torch.equal(getattr(burst.state.sinks, f),
                            getattr(single.state.sinks, f)), f
+
+
+def test_sink_ledger_balances_over_a_burst():
+    """check.sink_ledger over a burst of 4 steps with creation: the
+    references it keeps hold each call's values (the step never writes
+    its inputs), so each call's sink gain in mass and momentum equals
+    what the gas that died carried, to float64 roundoff.  A call of a
+    try that overflowed and was redone is recorded too."""
+    sim = GradhSphSimulation(_bb(300), device="cpu", dtype=torch.float64)
+    sim.SetupSimulation()
+    rows = sink_ledger(sim)
+    assert sim.main_loop_steps(4) == 4
+    em, ep, m_dead = ledger_errors(rows)
+    assert len(em) >= 4 and min(m_dead) > 0.0
+    assert max(em + ep) <= 1e-12
 

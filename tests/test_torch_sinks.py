@@ -25,7 +25,7 @@ from gandalf_tpu.ops import sph_gravity as jg
 from gandalf_tpu.ops import tree as jt
 from gandalf_tpu.sim.simulation import GradhSphSimulation as JaxSim
 from gandalf_tpu.state import make_sph_state as jax_state
-from gandalf_tpu_torch.check import bb_params
+from gandalf_tpu_torch.check import FLOPS_PER, _star_gas_work, bb_params
 from gandalf_tpu_torch.convert import sinks_from_jax, tree_spec_from_jax
 from gandalf_tpu_torch.kernels.smoothing import kernel_factory
 from gandalf_tpu_torch.ops import sinks as ts
@@ -85,6 +85,26 @@ def test_star_gas_forces_matches_jax():
                           got, want):
         assert _scaled(g, w) <= TOL, name
     assert np.all(np.isfinite(got[0].numpy()))
+
+
+def test_star_gas_work_counts_each_pair_once_by_branch():
+    """check._star_gas_work, the operations K16's bound divides: one
+    evaluation a pair beyond the M4 support, plus each inner branch's
+    extra for the pairs at 1 <= s < 2 and s < 1 (s = |dr| / hbar)."""
+    rng = np.random.default_rng(5)
+    sinks = _slots(rng)
+    r, _, _, h = _gas(rng)
+    rs, hs = np.asarray(sinks.r), np.asarray(sinks.h)
+    r[0] = rs[2]                                # s = 0
+    r[1] = rs[3] + (0.06, 0.0, 0.0)             # 1 <= s < 2
+    s = (np.linalg.norm(r[:, None, :] - rs[None], axis=-1)
+         / (0.5 * (h[:, None] + hs[None])))
+    near, mid = int((s < 1).sum()), int(((s >= 1) & (s < 2)).sum())
+    assert near > 0 and mid > 0
+    want = (FLOPS_PER["star_gas_forces"] * s.size
+            + FLOPS_PER["star_gas_mid"] * mid
+            + FLOPS_PER["star_gas_near"] * near)
+    assert _star_gas_work(_t(r), _t(h), _t(rs), _t(hs)) == want
 
 
 @pytest.mark.parametrize("case", ["plain", "ties", "none", "dead_max"])

@@ -3,12 +3,14 @@
 Drives gandalf_tpu_torch's main paths on the card, grad-h SPH hydro
 only, self-gravitating and with block timesteps, the self-gravitating
 meshless finite-volume box, the direct-summation N-body cluster, the
-walk's options and the Boss-Bodenheimer collapse with sinks, and checks
-them, in phases, each printing one line:
+walk's options, the Boss-Bodenheimer collapse with sinks, and the 1D and
+2D grid path and mirror walls (the Sod tube, the Kelvin-Helmholtz
+instability, the mirror-wall box), and checks them, in phases, each
+printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K18 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K19 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -28,7 +30,8 @@ them, in phases, each printing one line:
    levels on every tick;
 9. main_path: the hydro slice at 64^3 = 262,144 particles in float32,
    setup, bootstrap and 18 steps through main_loop_steps (16 timed),
-   with launch counts, finiteness, overflow and energy checks;
+   with launch counts, finiteness, overflow and energy checks, and K2's
+   and K3's times under both thread mappings (check.mapping_times);
 10. gravity_main_path: the self-gravitating slice (bench.build_sim(64))
    at 64^3 in float32: setup, 2 warm-up steps, the post-warm-up replan,
    2 more, then 32 timed steps (one rebuild cadence), with launch
@@ -115,7 +118,30 @@ them, in phases, each printing one line:
    K4 (with its alive input), K6, K7 and K16-K18 against their plain
    versions at the path's state;
 27. bb_published: the same file with only Nhydro, the snapshot times and
-   run_id changed, 8 steps: no sink forms, every field finite.
+   run_id changed, 8 steps: no sink forms, every field finite;
+28. dims_kernels: K1-K3 at ndim 1 and 2 against their plain versions on
+   the card, on the Sod tube (512 + 128) and the small KHI (32x16 +
+   48x24), in float64 and float32;
+29. mirror_kernels: K19, K1 with its discard mask and K2/K3 on the
+   extended set against their plain versions, for both wall layouts of
+   tests/test_grid_mirror.py at 16^3 and its 1D mirror column, in float64
+   and float32;
+30. dims_parity: 5 float64 steps each of the Sod tube, the small KHI,
+   both mirror layouts at 8^3 and the 1D mirror column, kernels on the
+   card against the plain path on the CPU, with equal grid plans;
+31. khi_main_path: the KHI (check.khi_params) at 425,984 particles in
+   float32: setup, 2 warm-up steps, 32 timed steps, with the rate, the
+   launch counts, finiteness, overflow, energy drift, the momentum change
+   and the density contrast, and K1-K3 (2D) against their plain versions
+   at the path's state;
+32. khi_published: GANDALF's examples/khi.dat as written, 8 steps;
+33. sod_path: the Sod tube (512 + 128) in float64 to t = 0.5, periodic
+   and between mirror walls, each with L1(vx) < 9e-3 against the exact
+   solution, then examples/adsod.dat as written to its tend;
+34. mirror_box: both wall layouts at 64^3 in float32, 2 warm-up and 16
+   timed steps, with no particle beyond a wall after each burst, K19
+   launched every step, energy drift, finiteness and overflow, and the
+   mirror path's kernels against their plain versions.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -124,8 +150,10 @@ launches of K6 and K7 with counts from the block main path, K10-K12
 and K7's MFV launches from the MFV main path, K14 from the N-body main
 path and K13 and K15 from the hermite6ts path, the Ewald modes of K6
 and K7 from the Ewald main path, the gadget2, eigenmac and fast modes
-from the options path, and K16-K18 from the sink path, each counted over
-its path's timed window (the counts are set to 0 just before it); each
+from the options path, K16-K18 from the sink path, the 2D K1-K3 from
+khi_main_path, the 1D ones from sod_path's periodic run and K19 from
+mirror_box's dim-0 layout, each counted over its path's timed window
+(the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
 for the work, check.bound) and library_ms null where no single PyTorch
 call computes the function (K17's is torch.argmax over the masked
@@ -254,6 +282,18 @@ SINK_PARITY_BB_N = 1000
 SINK_PARITY_BB_STEPS = 6
 SINK_PARITY_PLUMMER = (512, 16)
 SINK_PARITY_PLUMMER_STEPS = 5
+# the 1D and 2D grid path and mirror walls
+KHI_SCALE = 16
+KHI_STEPS_WARM = 2
+KHI_STEPS_TIMED = 32
+KHI_PUBLISHED_STEPS = 8
+# tests/test_adsod.py's gate, and tests/test_grid_path.py's on the grid
+SOD_L1_GATE = 9e-3
+MIRROR_N = 64
+MIRROR_KERNEL_N = 16
+MIRROR_PARITY_N = 8
+MIRROR_STEPS_WARM = 2
+MIRROR_STEPS_TIMED = 16
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -310,6 +350,20 @@ SOURCES = {
                        "gandalf_tpu/ops/sinks.py:94"),
     "accretion_sums": ("gandalf_tpu_torch/csrc/sinks.cu",
                        "gandalf_tpu/ops/sinks.py:134"),
+    "grid27_bin_2d": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
+                      "gandalf_tpu/ops/sph_grid27.py:193"),
+    "grid27_density_2d": ("gandalf_tpu_torch/csrc/grid27_density.cu",
+                          "gandalf_tpu/ops/sph_grid27.py:359"),
+    "grid27_forces_2d": ("gandalf_tpu_torch/csrc/grid27_forces.cu",
+                         "gandalf_tpu/ops/sph_grid27.py:528"),
+    "grid27_bin_1d": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
+                      "gandalf_tpu/ops/sph_grid27.py:193"),
+    "grid27_density_1d": ("gandalf_tpu_torch/csrc/grid27_density.cu",
+                          "gandalf_tpu/ops/sph_grid27.py:359"),
+    "grid27_forces_1d": ("gandalf_tpu_torch/csrc/grid27_forces.cu",
+                         "gandalf_tpu/ops/sph_grid27.py:528"),
+    "grid27_mirror": ("gandalf_tpu_torch/csrc/grid27_mirror.cu",
+                      "gandalf_tpu/ops/sph_grid27.py:234"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
@@ -1284,6 +1338,331 @@ def bb_published(dev, card) -> None:
         raise RuntimeError(f"bb_published checks failed: {failed}")
 
 
+def make_dims_sim(case, device, dtype):
+    """A controller and its IC for the 1D and 2D phases: "sod" (the Sod
+    tube at 512 + 128), "sod_mirror" (the same between mirror walls),
+    "khi_small" (the KHI at 32x16 + 48x24), "khi" (at full width) or a
+    mirror layout ("dim0", "mixed" at `MIRROR_KERNEL_N`^3, "column" the
+    1D mirror column of 64), with its IC (None: the generated one)."""
+    from gandalf_tpu_torch.check import (MIRROR_DIM0, MIRROR_MIXED,
+                                         khi_params, mirror_ic,
+                                         mirror_params, sod_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    ic = None
+    if case == "sod":
+        params = sod_params()
+    elif case == "sod_mirror":
+        params = sod_params(mirror=True)
+    elif case == "khi_small":
+        params = khi_params(1)
+    elif case == "khi":
+        params = khi_params(KHI_SCALE)
+    else:
+        ndim, n, walls = {
+            "dim0": (3, MIRROR_KERNEL_N, MIRROR_DIM0),
+            "mixed": (3, MIRROR_KERNEL_N, MIRROR_MIXED),
+            "dim0_parity": (3, MIRROR_PARITY_N, MIRROR_DIM0),
+            "mixed_parity": (3, MIRROR_PARITY_N, MIRROR_MIXED),
+            "dim0_main": (3, MIRROR_N, MIRROR_DIM0),
+            "mixed_main": (3, MIRROR_N, MIRROR_MIXED),
+            "column": (1, 64, MIRROR_DIM0)}[case]
+        params = mirror_params(n, ndim, walls)
+        ic = mirror_ic(params, walls)
+    return GradhSphSimulation(params, device=device, dtype=dtype), ic
+
+
+def dims_kernels(dev) -> None:
+    """K1-K3 at ndim 1 and 2 against their plain versions on the card:
+    the Sod tube (512 + 128) and the small KHI, float64 and float32."""
+    from gandalf_tpu_torch.check import compare_kernels
+
+    t0 = time.perf_counter()
+    for case in ("sod", "khi_small"):
+        for dtype in (torch.float64, torch.float32):
+            sim, ic = make_dims_sim(case, dev, dtype)
+            sim.SetupSimulation(ic)
+            rep = compare_kernels(sim, sim.state)
+            phase("dims_kernels", case=case, ndim=sim.ndim, N=sim.state.N,
+                  dtype=str(dtype), ncells=list(sim.gridspec.ncells),
+                  k_cell=sim.gridspec.k_cell, report=rep)
+            require_ok("dims_kernels", rep)
+    phase("dims_kernels_done", seconds=time.perf_counter() - t0)
+
+
+def mirror_kernels(dev) -> None:
+    """K19, K1 with its discard mask, and K2/K3 on the extended set
+    against their plain versions on the card: both wall layouts at 16^3
+    and the 1D mirror column, float64 and float32."""
+    from gandalf_tpu_torch.check import compare_mirror_kernels
+
+    t0 = time.perf_counter()
+    for case in ("dim0", "mixed", "column"):
+        for dtype in (torch.float64, torch.float32):
+            sim, ic = make_dims_sim(case, dev, dtype)
+            sim.SetupSimulation(ic)
+            rep = compare_mirror_kernels(sim, sim.state)
+            phase("mirror_kernels", layout=case, ndim=sim.ndim,
+                  N=sim.state.N, dtype=str(dtype),
+                  ncells=list(sim.gridspec.ncells),
+                  k_cell=sim.gridspec.k_cell, report=rep)
+            require_ok("mirror_kernels", rep)
+    phase("mirror_kernels_done", seconds=time.perf_counter() - t0)
+
+
+def dims_parity(dev) -> None:
+    """5 float64 steps of the Sod tube, the small KHI, both mirror layouts
+    at 8^3 and the 1D mirror column, kernels on the card against the
+    plain path on the CPU: fields within PARITY_TOL, equal grid plans."""
+    t0 = time.perf_counter()
+    for case in ("sod", "khi_small", "dim0_parity", "mixed_parity",
+                 "column"):
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim, ic = make_dims_sim(case, device, torch.float64)
+            sim.SetupSimulation(ic)
+            for _ in range(PARITY_STEPS):
+                sim.main_loop_step()
+            sims.append(sim)
+        torch.cuda.synchronize()
+        errs = parity_errors(sims, ("r", "v", "u", "h", "rho"))
+        same_plan = sims[0].gridspec == sims[1].gridspec
+        phase("dims_parity", case=case, ndim=sims[0].ndim,
+              N=sims[0].state.N, steps=PARITY_STEPS, rel_err=errs,
+              same_grid_plan=same_plan,
+              replans=[s._n_grid_overflows for s in sims])
+        if max(errs.values()) > PARITY_TOL or not same_plan:
+            raise RuntimeError(f"dims_parity: kernel path disagrees with "
+                               f"the plain path: {case} {errs}")
+    phase("dims_parity_done", seconds=time.perf_counter() - t0)
+
+
+def momentum(s):
+    """Sum m v in float64 (a host vector) and sum m |v|."""
+    mv = s.m.double()[:, None] * s.v.double()
+    return (torch.sum(mv, dim=0).cpu().numpy(),
+            float(torch.sum(torch.linalg.vector_norm(mv, dim=-1))))
+
+
+def khi_main_path(dev, card):
+    """khi_main_path at full width (check.khi_params, 425,984 particles,
+    float32): setup, 2 warm-up steps, then 32 timed steps with the counts
+    set to 0 just before them; the gates, and K1-K3 (2D) against their
+    plain versions at the path's state.  Returns the launches and the
+    kernel reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import compare_kernels, mapping_times
+
+    t_phase = time.perf_counter()
+    sim, _ = make_dims_sim("khi", dev, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, KHI_STEPS_WARM)
+    e0 = energy(sim.state)
+    p0, _ = momentum(sim.state)
+    replans0 = sim._n_grid_overflows
+    _ext.reset_launches()
+    elapsed = run_timed(sim, KHI_STEPS_TIMED)
+    names = [f"{k}_2d" for k in HYDRO]
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = sim.state
+    N = s.N
+    drift = abs(energy(s) - e0) / abs(e0)
+    p1, mv = momentum(s)
+    dp = float(np.abs(p1 - p0).max()) / mv
+    rho = s.rho.double()
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow),
+        "launches": all(n >= KHI_STEPS_TIMED for n in launches.values()),
+        "energy_drift": drift < ENERGY_DRIFT_TOL,
+        "contrast": float(rho.min()) < 1.3 and float(rho.max()) > 1.6,
+    }
+    rep = compare_kernels(sim, s, repeats=5)
+    mapping = mapping_times(sim, s)
+    phase("khi_main_path", N=N, ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, steps=sim.Nsteps,
+          timed_steps=KHI_STEPS_TIMED, setup_s=t_setup, timed_s=elapsed,
+          particle_steps_per_s=N * KHI_STEPS_TIMED / elapsed,
+          t_code=sim.t, dt_code=float(s.dt),
+          replans_in_window=sim._n_grid_overflows - replans0,
+          grid_replans=sim._n_grid_overflows, launches=launches,
+          energy_drift=drift, momentum_change_over_sum_m_abs_v=dp,
+          rho_min=float(rho.min()), rho_max=float(rho.max()),
+          checks=checks, kernels=rep, slot_mappings=mapping, card=card,
+          peak_mem_gb=peak_gb,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"khi_main_path checks failed: {failed}")
+    return launches, rep
+
+
+def khi_published(dev, card) -> None:
+    """GANDALF's examples/khi.dat as written (no snapshots, no run id),
+    8 steps on the card: every field finite."""
+    from gandalf_tpu_torch.check import mapping_times, published_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+    sim = SimulationBase.factory(published_params("khi"), dev)
+    sim.SetupSimulation()
+    elapsed = run_timed(sim, KHI_PUBLISHED_STEPS)
+    s = sim.state
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho")),
+        "no_overflow": not bool(s.neib_overflow),
+    }
+    phase("khi_published", N=s.N, steps=sim.Nsteps, timed_s=elapsed,
+          dtype=str(s.r.dtype), ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, checks=checks,
+          slot_mappings=mapping_times(sim, s, repeats=20), card=card,
+          seconds=time.perf_counter() - t0)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"khi_published checks failed: {failed}")
+
+
+def sod_path(dev, card):
+    """The Sod tube (512 + 128, float64 on the card) to t = 0.5: L1(vx)
+    against the exact solution below 9e-3, periodic (the counts set to 0
+    just before its run) and between mirror walls at +-2; then
+    examples/adsod.dat as written to its tend, every field finite.
+    Returns the periodic run's launches and its kernel reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_kernels, mapping_times,
+                                         published_params, sod_l1)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    out = {}
+    launches = rep = None
+    for case in ("sod", "sod_mirror"):
+        sim, _ = make_dims_sim(case, dev, torch.float64)
+        sim.SetupSimulation()
+        if case == "sod":
+            _ext.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.Run()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        if case == "sod":
+            names = [f"{k}_1d" for k in HYDRO]
+            launches = {k: _ext.LAUNCHES[k] for k in names}
+            rep = compare_kernels(sim, sim.state, repeats=20)
+            for r in rep.values():
+                r["dtype"] = str(torch.float64)
+            mapping = mapping_times(sim, sim.state, repeats=20)
+        l1 = sod_l1(sim)
+        out[case] = {"N": sim.state.N, "steps": sim.Nsteps, "t": sim.t,
+                     "run_s": elapsed, "L1_vx": l1,
+                     "walls": list(sim.gridspec.mirror),
+                     "ncells": list(sim.gridspec.ncells),
+                     "k_cell": sim.gridspec.k_cell,
+                     "replans": sim._n_grid_overflows,
+                     "ok": l1 < SOD_L1_GATE and abs(sim.t - 0.5) < 1e-12}
+    sim = SimulationBase.factory(published_params("adsod"), dev)
+    sim.SetupSimulation()
+    sim.Run()
+    s = sim.state
+    out["adsod_dat"] = {
+        "N": s.N, "steps": sim.Nsteps, "t": sim.t, "dtype": str(s.r.dtype),
+        "ok": all(bool(torch.isfinite(getattr(s, f)).all())
+                  for f in ("r", "v", "a", "u", "h", "rho"))
+        and abs(sim.t - sim.params.floatparams["tend"]) < 1e-6}
+    checks = {k: v["ok"] for k, v in out.items()}
+    checks["launches"] = all(n >= out["sod"]["steps"]
+                             for n in launches.values())
+    phase("sod_path", runs=out, launches=launches, l1_gate=SOD_L1_GATE,
+          checks=checks, kernels=rep, slot_mappings=mapping, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"sod_path checks failed: {failed}")
+    return launches, rep
+
+
+def mirror_box(dev, card):
+    """mirror_box: both wall layouts of tests/test_grid_mirror.py at 64^3
+    (jittered_state's IC, float32): setup, 2 warm-up steps, then 16 timed
+    steps (the counts set to 0 just before them), bursts checked for
+    particles beyond a wall; energy drift, finiteness, overflow; K19 and
+    the mirror path's K1-K3 against their plain versions at the path's
+    state.  Returns the dim-0 layout's K19 launches and report."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import compare_mirror_kernels, mapping_times
+
+    t_phase = time.perf_counter()
+    k19_launches = k19_rep = None
+    for case in ("dim0_main", "mixed_main"):
+        sim, ic = make_dims_sim(case, dev, torch.float32)
+        t0 = time.perf_counter()
+        sim.SetupSimulation(ic)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        run_timed(sim, MIRROR_STEPS_WARM)
+        e0 = energy(sim.state)
+        walls = sim.box.mirror_walls()
+        _ext.reset_launches()
+        beyond = 0
+        elapsed = 0.0
+        done = 0
+        while done < MIRROR_STEPS_TIMED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done += sim.main_loop_steps(MIRROR_STEPS_TIMED - done)
+            torch.cuda.synchronize()
+            elapsed += time.perf_counter() - t0
+            r = sim.state.r
+            for (k, side) in walls:
+                bound = (sim.box.boxmin[k] if side == 0
+                         else sim.box.boxmax[k])
+                out_ = r[:, k] < bound if side == 0 else r[:, k] > bound
+                beyond += int(out_.sum())
+        launches = {k: _ext.LAUNCHES[k] for k in HYDRO + ("grid27_mirror",)}
+        s = sim.state
+        drift = abs(energy(s) - e0) / abs(e0)
+        checks = {
+            "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                          for f in ("r", "v", "a", "u", "h", "rho", "dudt")),
+            "rho_positive": bool((s.rho > 0).all()),
+            "no_overflow": not bool(s.neib_overflow),
+            "none_beyond_a_wall": beyond == 0,
+            "launches": all(n >= MIRROR_STEPS_TIMED
+                            for n in launches.values()),
+            "energy_drift": drift < ENERGY_DRIFT_TOL,
+        }
+        rep = compare_mirror_kernels(sim, s, repeats=5)
+        phase("mirror_box", layout=case, N=s.N, walls=list(walls),
+              ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+              steps=sim.Nsteps, timed_steps=MIRROR_STEPS_TIMED,
+              setup_s=t_setup, timed_s=elapsed,
+              particle_steps_per_s=s.N * MIRROR_STEPS_TIMED / elapsed,
+              grid_replans=sim._n_grid_overflows, launches=launches,
+              energy_drift=drift, checks=checks, kernels=rep,
+              slot_mappings=mapping_times(sim, s), card=card)
+        failed = [k for k, ok in checks.items() if not ok]
+        failed += [k for k, r in rep.items() if not r["ok"]]
+        if failed:
+            raise RuntimeError(f"mirror_box {case} checks failed: {failed}")
+        if case == "dim0_main":
+            k19_launches = {"grid27_mirror": launches["grid27_mirror"]}
+            k19_rep = {"grid27_mirror": rep["grid27_mirror"]}
+        del sim, s
+    phase("mirror_box_done", seconds=time.perf_counter() - t_phase)
+    return k19_launches, k19_rep
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -1315,7 +1694,7 @@ def main() -> int:
     from gandalf_tpu_torch.check import (compare_active_kernels,
                                          compare_kernels,
                                          compare_tree_kernels,
-                                         gravity_accuracy)
+                                         gravity_accuracy, mapping_times)
     from gandalf_tpu_torch.ops.tree import native_planner
 
     dev = torch.device("cuda", 0)
@@ -1431,13 +1810,14 @@ def main() -> int:
         "energy_drift": drift < ENERGY_DRIFT_TOL,
     }
     rep = compare_kernels(sim, s, repeats=5)
+    mapping = mapping_times(sim, s)
     phase("main_path", N=N, ncells=list(sim.gridspec.ncells),
           k_cell=sim.gridspec.k_cell, steps=sim.Nsteps,
           timed_steps=STEPS_TIMED, setup_s=t_setup, timed_s=elapsed,
           particle_steps_per_s=N * STEPS_TIMED / elapsed,
           grid_replans=sim._n_grid_overflows, launches=launches,
-          energy_drift=drift, checks=checks, kernels=rep, card=card,
-          peak_mem_gb=peak_gb)
+          energy_drift=drift, checks=checks, kernels=rep,
+          slot_mappings=mapping, card=card, peak_mem_gb=peak_gb)
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
@@ -1543,6 +1923,17 @@ def main() -> int:
     bb_published(dev, card)
     launches.update(s_launches)
     rep.update(s_rep)
+
+    # 28-34. the 1D and 2D grid path and mirror walls
+    dims_kernels(dev)
+    mirror_kernels(dev)
+    dims_parity(dev)
+    for path in (khi_main_path, sod_path, mirror_box):
+        d_launches, d_rep = path(dev, card)
+        launches.update(d_launches)
+        rep.update(d_rep)
+        if path is khi_main_path:
+            khi_published(dev, card)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

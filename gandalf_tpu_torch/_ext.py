@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K18 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K19 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -22,7 +22,9 @@ under ``tree_near_mfv``, and otherwise under their own names.  The
 N-body kernels K13-K15 count under ``direct_nbody``, ``direct_softened``
 and ``direct_snap``, the sink kernels K16-K18 under ``star_gas_forces``,
 ``sink_candidate`` and ``accretion_sums`` (each wrapper launches two or
-three kernels, its stages, and counts one).
+three kernels, its stages, and counts one).  K1-K3 on a grid of
+``ndim`` < 3 count under their names with ``_1d`` or ``_2d`` appended,
+and K19, the mirror images, under ``grid27_mirror``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
+          "grid27_mirror.cu",
           "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
           "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu",
@@ -50,6 +53,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel since the last reset_launches()
 LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
+            "grid27_bin_2d": 0, "grid27_density_2d": 0,
+            "grid27_forces_2d": 0, "grid27_bin_1d": 0,
+            "grid27_density_1d": 0, "grid27_forces_1d": 0,
+            "grid27_mirror": 0,
             "tree_gather": 0, "tree_build": 0, "tree_walk": 0,
             "tree_near": 0, "tree_walk_list": 0, "tree_near_list": 0,
             "tree_near_mfv": 0, "tree_walk_ewald": 0, "tree_near_ewald": 0,
@@ -64,12 +71,15 @@ _lib = None
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _ARGTYPES = {
-    "grid27_bin": [_P, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _I,
+    "grid27_bin": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _I,
                    _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "grid27_density": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _P],
-    "grid27_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _D, _D, _D, _D, _I, _I, _D, _D, _P, _P, _P, _I, _P],
+    "grid27_density": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _I,
+                       _P],
+    "grid27_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _D, _D, _D, _D, _I, _I, _D, _D, _P, _P, _P, _I, _I,
+                      _P],
+    "grid27_mirror": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "tree_gather": [_P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _I,
                     _P],
     "tree_build": [_P, _P, _I, _I, _P, _P, _I, _P],
@@ -216,11 +226,36 @@ def _float_suffix(dtype) -> str:
 
 
 def _grid_args(spec):
-    if spec.ndim != 3 or spec.qz != 1 or spec.mirror:
-        raise NotImplementedError("the CUDA kernels take 3D grids without "
-                                  "mirror layers and with qz = 1")
-    return (*spec.ncells, spec.k_cell, *[int(p) for p in spec.periodic],
-            *[float(x) for x in spec.extents])
+    """The 3D grid arguments of K8-K12 (active-subset and MFV kernels)."""
+    if spec.ndim != 3:
+        raise NotImplementedError(
+            "the active-subset (K8, K9) and MFV (K10-K12) kernels take 3D "
+            "grids only (ROADMAP queue 1, items 3 and 10)")
+    if spec.mirror:
+        raise NotImplementedError(
+            "the active-subset and MFV kernels take no mirror layers "
+            "(ROADMAP queue 1, items 8 and 10)")
+    return _grid_args_nd(spec)[1:]
+
+
+def _grid_args_nd(spec):
+    """ndim, then the grid's cells, K, periodic flags and extents padded
+    to three dims (n = 1, open, extent 0 in the dims beyond ndim): the
+    arguments of K1-K3.  z-slab plans (qz > 1) are refused: only the
+    distributed planner makes them (ROADMAP queue 1, item 13)."""
+    if spec.qz != 1:
+        raise NotImplementedError(
+            "the grid kernels take qz = 1; z-slab plans come with the "
+            "distributed planner (ROADMAP queue 1, item 13)")
+    pad = 3 - spec.ndim
+    return (spec.ndim, *spec.ncells, *(1,) * pad, spec.k_cell,
+            *[int(p) for p in spec.periodic], *(0,) * pad,
+            *[float(x) for x in spec.extents], *(0.0,) * pad)
+
+
+def _grid_count(name: str, spec) -> str:
+    """The LAUNCHES key of grid kernel `name` on `spec`'s dims."""
+    return name if spec.ndim == 3 else f"{name}_{spec.ndim}d"
 
 
 def _launch(name: str, dtype, device: torch.device, *args,
@@ -238,10 +273,15 @@ def _p(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def grid27_bin(spec, r: torch.Tensor):
-    """K1 on r (N, 3): (cell_of, slot_of) int32 (N,) and overflow ()."""
-    N = r.shape[0]
-    _check(r, "r", r.dtype, (N, 3))
+def grid27_bin(spec, r: torch.Tensor, discard: torch.Tensor = None):
+    """K1 on r (N, ndim): (cell_of, slot_of) int32 (N,) and overflow ().
+    With `discard` (N,) bool a discarded particle goes to the virtual
+    cell C = spec.total_cells with slot 0, takes no slot and raises no
+    overflow."""
+    N, nd = r.shape[0], spec.ndim
+    _check(r, "r", r.dtype, (N, nd))
+    if discard is not None:
+        _check(discard, "discard", torch.bool, (N,))
     dev = r.device
     C = spec.total_cells
     i32 = dict(dtype=torch.int32, device=dev)
@@ -252,51 +292,107 @@ def grid27_bin(spec, r: torch.Tensor):
     cell_of = torch.empty((N,), **i32)
     slot_of = torch.empty((N,), **i32)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
-    _launch("grid27_bin", r.dtype, dev, _p(r), N, *spec.ncells,
-            *[float(x) for x in spec.lo], *[float(x) for x in spec.extents],
-            spec.k_cell, _p(count), _p(offset), _p(rank_tmp), _p(members),
-            _p(cell_of), _p(slot_of), _p(overflow))
+    pad = 3 - nd
+    _launch("grid27_bin", r.dtype, dev, _p(r),
+            None if discard is None else _p(discard), N, nd, *spec.ncells,
+            *(1,) * pad, *[float(x) for x in spec.lo], *(0.0,) * pad,
+            *[float(x) for x in spec.extents], *(1.0,) * pad, spec.k_cell,
+            _p(count), _p(offset), _p(rank_tmp), _p(members), _p(cell_of),
+            _p(slot_of), _p(overflow), count=_grid_count("grid27_bin", spec))
     return cell_of, slot_of, overflow
 
 
+# K2's and K3's thread mappings: chosen by the grid (one block per cell
+# in 3D with K >= 32, else flat over (cell, slot): csrc/grid27.cuh), or
+# forced, for timing the two
+SLOT_MAPPINGS = {"auto": 0, "cell": 1, "flat": 2}
+
+
 def grid27_density(spec, kern, h_fac, h_converge, hmax, r_d, m_d, h_d,
-                   fill):
-    """K2 on dense (*ncells, K[, 3]) tensors: (rho, invom, zeta) sums at
-    each slot's final h and its converged flag."""
+                   fill, target=None, mapping="auto"):
+    """K2 on dense (*ncells, K[, ndim]) tensors: (rho, invom, zeta) sums
+    at each slot's final h and its converged flag.  With `target`
+    (*ncells, K) bool only the filled target slots iterate; the others
+    are neighbours only and come back zero and converged.  `mapping`
+    is a key of SLOT_MAPPINGS."""
     shape = tuple(spec.ncells) + (spec.k_cell,)
     dt = r_d.dtype
-    _check(r_d, "r_d", dt, shape + (3,))
+    _check(r_d, "r_d", dt, shape + (spec.ndim,))
     _check(m_d, "m_d", dt, shape)
     _check(h_d, "h_d", dt, shape)
     _check(fill, "fill", torch.bool, shape)
+    if target is not None:
+        _check(target, "target", torch.bool, shape)
     rho, invom, zeta = (torch.empty(shape, dtype=dt, device=r_d.device)
                         for _ in range(3))
     done = torch.empty(shape, dtype=torch.bool, device=r_d.device)
     _launch("grid27_density", dt, r_d.device, _p(r_d), _p(m_d), _p(h_d),
-            _p(fill), *_grid_args(spec), float(kern.kernnorm), float(h_fac),
+            _p(fill), None if target is None else _p(target),
+            *_grid_args_nd(spec), float(kern.kernnorm), float(h_fac),
             float(h_converge), float(hmax), _p(rho), _p(invom), _p(zeta),
-            _p(done))
+            _p(done), SLOT_MAPPINGS[mapping],
+            count=_grid_count("grid27_density", spec))
     return rho, invom, zeta, done
 
 
-def grid27_forces(spec, kern, visc, r_d, v_d, packed, fill):
-    """K3 on dense tensors: pair sums a (*ncells, K, 3), dudt and the
+def grid27_forces(spec, kern, visc, r_d, v_d, packed, fill,
+                  mapping="auto"):
+    """K3 on dense tensors: pair sums a (*ncells, K, ndim), dudt and the
     unnormalised div_v (*ncells, K).  `packed` (*ncells, K, 9) holds
-    ops.sph_grid27.FORCE_SCALARS."""
+    ops.sph_grid27.FORCE_SCALARS; `mapping` is a key of SLOT_MAPPINGS."""
     shape = tuple(spec.ncells) + (spec.k_cell,)
-    dt = r_d.dtype
-    _check(r_d, "r_d", dt, shape + (3,))
-    _check(v_d, "v_d", dt, shape + (3,))
+    dt, nd = r_d.dtype, spec.ndim
+    _check(r_d, "r_d", dt, shape + (nd,))
+    _check(v_d, "v_d", dt, shape + (nd,))
     _check(packed, "packed", dt, shape + (9,))
     _check(fill, "fill", torch.bool, shape)
-    a = torch.empty(shape + (3,), dtype=dt, device=r_d.device)
+    a = torch.empty(shape + (nd,), dtype=dt, device=r_d.device)
     dudt = torch.empty(shape, dtype=dt, device=r_d.device)
     div_v = torch.empty(shape, dtype=dt, device=r_d.device)
     _launch("grid27_forces", dt, r_d.device, _p(r_d), _p(v_d), _p(packed),
-            _p(fill), *_grid_args(spec), float(kern.kernnorm),
+            _p(fill), *_grid_args_nd(spec), float(kern.kernnorm),
             int(visc.avisc), int(visc.acond), float(visc.alpha_visc),
-            float(visc.beta_visc), _p(a), _p(dudt), _p(div_v))
+            float(visc.beta_visc), _p(a), _p(dudt), _p(div_v),
+            SLOT_MAPPINGS[mapping], count=_grid_count("grid27_forces", spec))
     return a, dudt, div_v
+
+
+MAX_WALLS = 6
+
+
+class _MirrorWalls(ctypes.Structure):
+    """csrc/grid27_mirror.cu's MirrorWalls."""
+    _fields_ = [("n", ctypes.c_int), ("dim", ctypes.c_int * MAX_WALLS),
+                ("bound", ctypes.c_double * MAX_WALLS),
+                ("rad", ctypes.c_double * MAX_WALLS)]
+
+
+def grid27_mirror(walls, r, v, alive=None):
+    """K19: the (1+W) N extended set of r, v (N, ndim) for the W walls
+    ((dim, plane, radius) triples): copy 0 the particles, copy w their
+    reflections in wall w (r_k -> 2 plane - r_k, v_k -> -v_k), and keep
+    ((1+W) N,) bool, alive (all without `alive`) for copy 0 and alive &
+    |r_k - plane| < radius for copy w."""
+    N, nd = r.shape
+    dt, dev = r.dtype, r.device
+    _check(r, "r", dt, (N, nd))
+    _check(v, "v", dt, (N, nd))
+    if alive is not None:
+        _check(alive, "alive", torch.bool, (N,))
+    if len(walls) > MAX_WALLS:
+        raise ValueError(f"at most {MAX_WALLS} walls, not {len(walls)}")
+    w = _MirrorWalls()
+    w.n = len(walls)
+    for i, (k, plane, rad) in enumerate(walls):
+        w.dim[i], w.bound[i], w.rad[i] = int(k), float(plane), float(rad)
+    M = (1 + len(walls)) * N
+    r_out = torch.empty((M, nd), dtype=dt, device=dev)
+    v_out = torch.empty((M, nd), dtype=dt, device=dev)
+    keep = torch.empty((M,), dtype=torch.bool, device=dev)
+    _launch("grid27_mirror", dt, dev, _p(r), _p(v),
+            None if alive is None else _p(alive), N, nd, ctypes.byref(w),
+            _p(r_out), _p(v_out), _p(keep))
+    return r_out, v_out, keep
 
 
 # ---------------------------------------------------------------------------

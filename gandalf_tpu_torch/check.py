@@ -29,6 +29,13 @@ versions on ``sink_kernel_inputs`` (synthetic, with the edge cases) or
 ``sim_sink_inputs`` (a simulation's state), ``sink_ledger`` records each
 step's sink gain against the gas that died, and ``gravity_accuracy``
 adds the star-gas term on both sides when there are sinks.
+``sod_params``, ``khi_params`` and ``mirror_params`` are the 1D Sod
+tube, the 2D Kelvin-Helmholtz instability and the mirror-wall box of the
+JAX package's tests (``published_params`` reads GANDALF's examples as
+written), ``mirror_ic`` the mirror tests' jittered lattice and
+``sod_l1`` the Sod gate; ``compare_kernels`` takes grids of any ndim,
+and ``compare_mirror_kernels`` compares K19, K1 with its discard mask
+and K2/K3 on the mirror path's extended set with their plain versions.
 ``chip_smoke.py`` and the CUDA tests use them.
 """
 
@@ -51,6 +58,7 @@ from .ops import sph_grid27 as g27
 from .ops import tree as tr
 from .ops.density import finish_h
 from .ops.sph_gravity import direct_sph_gravity
+from .analysis.riemann import shocktube_solution
 from .params import Parameters
 from .sim.ic import generate_ic
 from .state import OPEN, DomainBox
@@ -161,9 +169,15 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # and near pair the min-image and the correction: 35 operations of the
 # trilinear lookup and the sign, plus its 8 corner loads counted as one
 # each.  The pair work counts one sweep of the h iterations, the least
-# the data needs.
+# the data needs.  K2 and K3 in 2D and 1D drop the missing dims' share
+# of a pair: 4 operations a dim of the separation for K2, 9 of the
+# separation, dv, dvdr and the acceleration for K3; K1 5 a dim; K19
+# one per reflected component and three for the keep test of an image.
 FLOPS_PER = {
     "grid27_bin": 15, "grid27_density": 40, "grid27_forces": 80,
+    "grid27_bin_2d": 10, "grid27_density_2d": 36, "grid27_forces_2d": 71,
+    "grid27_bin_1d": 5, "grid27_density_1d": 32, "grid27_forces_1d": 62,
+    "grid27_mirror": 4,
     "tree_gather": 10, "tree_build_slot": 30, "tree_build_cell": 60,
     "tree_walk_mac": 15, "tree_walk_far": 60, "tree_near": 20,
     "mac_gadget2": 5, "mac_eigenmac": 35, "mac_ewald": 12,
@@ -338,6 +352,141 @@ def bb_params(n_target: int, rho_sink=None) -> Parameters:
     return p
 
 
+def sod_params(n1: int = 512, n2: int = 128, tend: float = 0.5,
+               mirror: bool = False) -> Parameters:
+    """The Sod tube of the JAX package's gate (tests/test_adsod.py:19-55)
+    on the grid path (tests/test_grid_path.py:20-26): 1D, box [-2, 2]
+    periodic (with `mirror`, mirror walls at both ends), n1 + n2
+    lattice particles with rho 1 | 0.25 and p 1 | 0.1975 about x = 0,
+    energy_eqn gamma 1.4, M4, mon97 (alpha 1, beta 2), h_converge 0.01,
+    courant 0.2, accel 0.4, KDK with a global dt, to `tend`."""
+    side = "mirror" if mirror else "periodic"
+    p = Parameters()
+    for k, v in {
+            "run_id": "", "sim": "gradhsph", "ic": "shocktube", "ndim": 1,
+            "vfluid1[0]": 0.0, "vfluid2[0]": 0.0, "press1": 1.0,
+            "press2": 0.1975, "rhofluid1": 1.0, "rhofluid2": 0.25,
+            "Nlattice1[0]": n1, "Nlattice2[0]": n2, "dimensionless": 1,
+            "boxmin[0]": -2.0, "boxmax[0]": 2.0, "boundary_lhs[0]": side,
+            "boundary_rhs[0]": side, "tend": tend, "tsnapfirst": 1.0e30,
+            "dt_snap": 1.0e30, "hydro_forces": 1, "gas_eos": "energy_eqn",
+            "gamma_eos": 1.4, "kernel": "m4", "h_converge": 0.01,
+            "avisc": "mon97", "acond": "none", "alpha_visc": 1.0,
+            "beta_visc": 2.0, "sph_integration": "lfkdk",
+            "courant_mult": 0.2, "accel_mult": 0.4, "energy_mult": 0.5,
+            "Nlevels": 1, "neib_search": "kdtree"}.items():
+        p.set(k, v)
+    return p
+
+
+def khi_params(scale: int = 16, tend: float = 1.0e30) -> Parameters:
+    """The Kelvin-Helmholtz instability of the JAX package's 2D gate
+    (tests/test_ic_2d.py:36-53, the reference's hydro_tests/khi.dat):
+    box [-0.5, 0.5]^2 periodic, rho 1 and 2 at p 2.5 shearing at v_x =
+    +-0.5, a seeded mode of amplitude 0.1 and wavelength 0.5, energy_eqn
+    gamma 1.4, M4, mon97, courant 0.2, accel 0.3, KDK with a global dt.
+    The lattices 32x16 and 48x24 are scaled by `scale` per axis (16:
+    512x256 and 768x384, 425,984 particles)."""
+    p = Parameters()
+    for k, v in {
+            "run_id": "", "sim": "gradhsph", "ic": "khi", "ndim": 2,
+            "dimensionless": 1, "gas_eos": "energy_eqn", "gamma_eos": 1.4,
+            "kernel": "m4", "courant_mult": 0.2, "accel_mult": 0.3,
+            "Nlevels": 1, "neib_search": "kdtree", "rhofluid1": 1.0,
+            "rhofluid2": 2.0, "press1": 2.5, "press2": 2.5, "amp": 0.1,
+            "lambda": 0.5, "Nlattice1[0]": 32 * scale,
+            "Nlattice1[1]": 16 * scale, "Nlattice2[0]": 48 * scale,
+            "Nlattice2[1]": 24 * scale, "vfluid1[0]": 0.5,
+            "vfluid2[0]": -0.5, "boxmin[0]": -0.5, "boxmax[0]": 0.5,
+            "boxmin[1]": -0.5, "boxmax[1]": 0.5,
+            "boundary_lhs[0]": "periodic", "boundary_rhs[0]": "periodic",
+            "boundary_lhs[1]": "periodic", "boundary_rhs[1]": "periodic",
+            "tend": tend, "tsnapfirst": 1.0e30, "dt_snap": 1.0e30}.items():
+        p.set(k, v)
+    return p
+
+
+# the two wall layouts of tests/test_grid_mirror.py: (dim, lhs, rhs)
+MIRROR_DIM0 = ((0, "mirror", "mirror"),)
+MIRROR_MIXED = ((1, "mirror", "wall"), (2, "open", "mirror"))
+
+
+def mirror_params(n_side: int, ndim: int = 3,
+                  walls=MIRROR_DIM0) -> Parameters:
+    """The mirror-wall box of tests/test_grid_mirror.py:22-41: a unit box
+    of n_side^ndim lattice particles, rho 1, p 1, energy_eqn gamma 1.4
+    (M4, mon97, KDK with a global dt), with the (dim, lhs, rhs)
+    boundaries of `walls` and periodic dims elsewhere."""
+    p = Parameters()
+    updates = {
+        "run_id": "", "sim": "gradhsph", "ic": "box", "ndim": ndim,
+        "dimensionless": 1, "gas_eos": "energy_eqn", "gamma_eos": 1.4,
+        "rhofluid1": 1.0, "press1": 1.0, "tend": 1.0e30,
+        "tsnapfirst": 1.0e30, "neib_search": "kdtree",
+    }
+    wall_of = {k: (lhs, rhs) for (k, lhs, rhs) in walls}
+    for k in range(ndim):
+        updates[f"boxmin[{k}]"] = 0.0
+        updates[f"boxmax[{k}]"] = 1.0
+        lhs, rhs = wall_of.get(k, ("periodic", "periodic"))
+        updates[f"boundary_lhs[{k}]"] = lhs
+        updates[f"boundary_rhs[{k}]"] = rhs
+        updates[f"Nlattice1[{k}]"] = n_side
+    for k, v in updates.items():
+        p.set(k, v)
+    return p
+
+
+def mirror_ic(params: Parameters, walls, seed: int = 7,
+              jitter: float = 0.2):
+    """tests/test_grid_mirror.py's jittered_state as an IC: the lattice
+    jittered by `jitter` spacings N(0,1), clipped to [1e-4, 1 - 1e-4]
+    along the wall dims and wrapped elsewhere, and v = 0.1 N(0,1)
+    (numpy generator `seed`)."""
+    ic = generate_ic(params, None)
+    ndim = params.intparams["ndim"]
+    rng = np.random.default_rng(seed)
+    spacing = 1.0 / round(len(ic["m"]) ** (1.0 / ndim))
+    r = ic["r"] + jitter * spacing * rng.standard_normal(ic["r"].shape)
+    wall_dims = {k for (k, _, _) in walls}
+    for k in range(ndim):
+        if k in wall_dims:
+            r[:, k] = np.clip(r[:, k], 1e-4, 1.0 - 1e-4)
+        else:
+            r[:, k] = np.mod(r[:, k], 1.0)
+    ic["r"] = r
+    ic["v"] = 0.1 * rng.standard_normal(ic["v"].shape)
+    return {k: ic[k] for k in ("r", "v", "m", "h", "u")}
+
+
+def published_params(name: str) -> Parameters:
+    """GANDALF's examples/<name>.dat as written, but for no snapshots and
+    no run id: adsod (the 1D Sod tube, 256 + 64 particles to t = 0.25)
+    or khi (the 2D KHI, 64x64 + 64x64 to t = 1)."""
+    p = Parameters()
+    p.read_file(str(Path(__file__).resolve().parents[1] / "examples"
+                    / f"{name}.dat"))
+    for k, v in {"tsnapfirst": 1.0e30, "dt_snap": 1.0e30,
+                 "run_id": ""}.items():
+        p.set(k, v)
+    return p
+
+
+def sod_l1(sim) -> float:
+    """L1(vx) over -1 < x < 1 against the exact Riemann solution at the
+    simulation's time (tests/test_grid_path.py:29-43; the reference's
+    gate is 9e-3 at 512 + 128 particles and t = 0.5)."""
+    fp = sim.params.floatparams
+    x = sim.state.r[:, 0].double().cpu().numpy()
+    vx = sim.state.v[:, 0].double().cpu().numpy()
+    sel = (x > -1.0) & (x < 1.0)
+    sol = shocktube_solution(fp["rhofluid1"], fp["vfluid1[0]"], fp["press1"],
+                             fp["rhofluid2"], fp["vfluid2[0]"], fp["press2"],
+                             fp["gamma_eos"], -1.0, 0.0, 1.0, sim.t)
+    v_ref = np.interp(x[sel], sol["x"], sol["vx"])
+    return float(np.abs(vx[sel] - v_ref).mean())
+
+
 def nbody_params(n_star: int = 65536, tend: float = 1.0e30,
                  **overrides) -> Parameters:
     """The plummer_cluster configuration: a Plummer cluster of `n_star`
@@ -419,17 +568,26 @@ def _scaled(x, ref, fill):
     return float(err / torch.abs(ref)[fill].max())
 
 
+def kernel_name(name: str, spec) -> str:
+    """The report and LAUNCHES key of grid kernel `name` (K1-K3) on
+    `spec`'s dims: the name, with _1d or _2d appended below 3D."""
+    return name if spec.ndim == 3 else f"{name}_{spec.ndim}d"
+
+
 def compare_kernels(sim, state, repeats: int = 0, quiet: bool = False):
     """Run K1, K2, K3 and their plain versions on the same inputs, from a
-    state on a CUDA device; returns {kernel: report}.  A report holds the errors,
-    `ok` against this module's tolerances, `max_abs_err` of the primary
-    output and, with `repeats` > 0, `ms` and `plain_ms`.  `quiet` takes
-    K3's float32 tolerance for a quiet lattice (TOL_F32_FORCES_QUIET).
-    Launch counts are restored afterwards, so comparisons never count as
-    main-path launches."""
+    state on a CUDA device, at the grid's ndim; returns {kernel: report}
+    keyed by kernel_name.  A report holds the errors, `ok` against this
+    module's tolerances, `max_abs_err` of the primary output and, with
+    `repeats` > 0, `ms` and `plain_ms`.  `quiet` takes K3's float32
+    tolerance for a quiet lattice (TOL_F32_FORCES_QUIET).  Launch counts
+    are restored afterwards, so comparisons never count as main-path
+    launches."""
     saved = dict(_ext.LAUNCHES)
     spec, kern, visc = sim.gridspec, sim.kern, sim.visc
     f64 = state.r.dtype == torch.float64
+    k1, k2, k3 = (kernel_name(n, spec) for n in
+                  ("grid27_bin", "grid27_density", "grid27_forces"))
     out = {}
 
     # K1 at the plan's K and at a K too small for the densest cell
@@ -443,7 +601,7 @@ def compare_kernels(sim, state, repeats: int = 0, quiet: bool = False):
                     (t_k.cell_of, t_p.cell_of), (t_k.slot_of, t_p.slot_of)))
     flags = [bool(b_k.overflow), bool(b_p.overflow), bool(t_k.overflow),
              bool(t_p.overflow)]
-    out["grid27_bin"] = {
+    out[k1] = {
         "mismatches": mismatch, "overflow": flags,
         "max_abs_err": float(max(
             (b_k.cell_of - b_p.cell_of).abs().max(),
@@ -461,22 +619,7 @@ def compare_kernels(sim, state, repeats: int = 0, quiet: bool = False):
     s_p = g27.density_sums_plain(*args)
     dens = {tag: g27.density_finish(spec, sim.h_fac, hmax, m_d, fill, *sums)
             for tag, sums in (("kernel", s_k), ("plain", s_p))}
-    errs = {f: (_scaled if f == "zeta" else _rel)(
-        getattr(dens["kernel"], f), getattr(dens["plain"], f), fill)
-        for f in ("h", "rho", "invomega", "zeta")}
-    same_done = bool(torch.equal(s_k[3], s_p[3]))
-    rep = {"rel_err": errs, "same_converged": same_done,
-           "max_abs_err": float(torch.abs(dens["kernel"].rho
-                                          - dens["plain"].rho)[fill].max())}
-    if f64:
-        rep["ok"] = same_done and max(errs.values()) <= TOL_F64
-    else:
-        rel = torch.abs(dens["kernel"].rho / dens["plain"].rho - 1.0)[fill]
-        frac = float((rel > TOL_F32_DENSITY_TYPICAL).float().mean())
-        rep["fraction_beyond_typical"] = frac
-        rep["ok"] = (max(errs.values()) <= TOL_F32_DENSITY_MAX
-                     and frac <= TOL_F32_DENSITY_FRACTION)
-    out["grid27_density"] = rep
+    out[k2] = _density_report(dens, s_k, s_p, fill, f64)
 
     # K3 on the plain density's outputs
     dp = dens["plain"]
@@ -488,40 +631,198 @@ def compare_kernels(sim, state, repeats: int = 0, quiet: bool = False):
     packed = torch.stack([fields[k] for k in g27.FORCE_SCALARS], dim=-1)
     f_k = _ext.grid27_forces(spec, kern, visc, r_d, v_d, packed, fill)
     f_p = g27.force_sums_plain(kern, visc, spec, r_d, v_d, packed, fill)
-    fill3 = fill[..., None].expand(f_k[0].shape)
-    errs = {name: _scaled(xk, xp, fl) for name, xk, xp, fl in
-            zip(("a", "dudt", "div_v"), f_k, f_p, (fill3, fill, fill))}
-    out["grid27_forces"] = {
-        "scaled_err": errs,
-        "max_abs_err": float(torch.abs(f_k[0] - f_p[0])[fill3].max()),
-        "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_FORCES_QUIET
-                                     if quiet else TOL_F32_FORCES)}
+    out[k3] = _forces_report(f_k, f_p, fill, f64, quiet)
 
     ids_d = ag.dense_ids(spec, b_p)
     n_i, n_ij = _slot_support_counts(spec, kern, ids_d, state.r, state.h)
     N = state.N
-    out["grid27_bin"]["work"] = _work(
-        (state.r,), (b_k.cell_of, b_k.slot_of), FLOPS_PER["grid27_bin"] * N)
-    out["grid27_density"]["work"] = _work(
-        (r_d, m_d, h_d, fill), s_k, FLOPS_PER["grid27_density"] * (n_i + N))
-    out["grid27_forces"]["work"] = _work(
-        (r_d, v_d, packed, fill), f_k, FLOPS_PER["grid27_forces"] * n_ij)
+    out[k1]["work"] = _work(
+        (state.r,), (b_k.cell_of, b_k.slot_of), FLOPS_PER[k1] * N)
+    out[k2]["work"] = _work(
+        (r_d, m_d, h_d, fill), s_k, FLOPS_PER[k2] * (n_i + N))
+    out[k3]["work"] = _work(
+        (r_d, v_d, packed, fill), f_k, FLOPS_PER[k3] * n_ij)
 
     if repeats > 0:
         timed = {
-            "grid27_bin": (lambda: g27.bin_particles(spec, state.r),
-                           lambda: g27.bin_particles_plain(spec, state.r)),
-            "grid27_density": (
-                lambda: _ext.grid27_density(spec, kern, sim.h_fac,
-                                            sim.h_converge, hmax, r_d, m_d,
-                                            h_d, fill),
-                lambda: g27.density_sums_plain(*args)),
-            "grid27_forces": (
-                lambda: _ext.grid27_forces(spec, kern, visc, r_d, v_d,
-                                           packed, fill),
-                lambda: g27.force_sums_plain(kern, visc, spec, r_d, v_d,
-                                             packed, fill)),
+            k1: (lambda: g27.bin_particles(spec, state.r),
+                 lambda: g27.bin_particles_plain(spec, state.r)),
+            k2: (lambda: _ext.grid27_density(spec, kern, sim.h_fac,
+                                             sim.h_converge, hmax, r_d, m_d,
+                                             h_d, fill),
+                 lambda: g27.density_sums_plain(*args)),
+            k3: (lambda: _ext.grid27_forces(spec, kern, visc, r_d, v_d,
+                                            packed, fill),
+                 lambda: g27.force_sums_plain(kern, visc, spec, r_d, v_d,
+                                              packed, fill)),
         }
+        _time_pairs(out, timed, repeats)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def mapping_times(sim, state, repeats: int = 5):
+    """K2's and K3's times under each thread mapping (one block per cell,
+    or flat over (cell, slot): csrc/grid27.cuh) on the same dense inputs
+    of a state on a CUDA device, turns cell, flat, flat, cell, and
+    whether the two give the same bits (each thread's arithmetic is the
+    same).  Launch counts are restored afterwards."""
+    saved = dict(_ext.LAUNCHES)
+    spec, kern, visc = sim.gridspec, sim.kern, sim.visc
+    b = g27.bin_particles(spec, state.r)
+    d = lambda x: g27.to_dense(spec, b, x)  # noqa: E731
+    fill = g27.dense_fill_mask(spec, b)
+    r_d, v_d, m_d, h_d = d(state.r), d(state.v), d(state.m), d(state.h)
+    hmax = g27.hmax_of(spec, kern.kernrange)
+    packed = d(torch.stack([getattr(state, k) for k in g27.FORCE_SCALARS],
+                           dim=-1))
+
+    def dens(mapping):
+        return _ext.grid27_density(spec, kern, sim.h_fac, sim.h_converge,
+                                   hmax, r_d, m_d, h_d, fill,
+                                   mapping=mapping)
+
+    def forces(mapping):
+        return _ext.grid27_forces(spec, kern, visc, r_d, v_d, packed, fill,
+                                  mapping=mapping)
+
+    flat = spec.ndim < 3 or spec.k_cell < 32
+    out = {"k_cell": spec.k_cell, "auto": "flat" if flat else "cell"}
+    for name, fn in (("grid27_density", dens), ("grid27_forces", forces)):
+        same = all(torch.equal(x, y) for x, y in zip(fn("cell"), fn("flat")))
+        c1 = _time_ms(lambda: fn("cell"), repeats)
+        f1 = _time_ms(lambda: fn("flat"), repeats)
+        f2 = _time_ms(lambda: fn("flat"), repeats)
+        c2 = _time_ms(lambda: fn("cell"), repeats)
+        out[kernel_name(name, spec)] = {
+            "cell_ms": 0.5 * (c1 + c2), "flat_ms": 0.5 * (f1 + f2),
+            "same_bits": same}
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def _density_report(dens, s_k, s_p, rows, f64):
+    """K2's report over the slots `rows`: the finished fields' errors
+    and the converged flags."""
+    errs = {f: (_scaled if f == "zeta" else _rel)(
+        getattr(dens["kernel"], f), getattr(dens["plain"], f), rows)
+        for f in ("h", "rho", "invomega", "zeta")}
+    same_done = bool(torch.equal(s_k[3][rows], s_p[3][rows]))
+    rep = {"rel_err": errs, "same_converged": same_done,
+           "max_abs_err": float(torch.abs(dens["kernel"].rho
+                                          - dens["plain"].rho)[rows].max())}
+    if f64:
+        rep["ok"] = same_done and max(errs.values()) <= TOL_F64
+    else:
+        rel = torch.abs(dens["kernel"].rho / dens["plain"].rho - 1.0)[rows]
+        frac = float((rel > TOL_F32_DENSITY_TYPICAL).float().mean())
+        rep["fraction_beyond_typical"] = frac
+        rep["ok"] = (max(errs.values()) <= TOL_F32_DENSITY_MAX
+                     and frac <= TOL_F32_DENSITY_FRACTION)
+    return rep
+
+
+def _forces_report(f_k, f_p, rows, f64, quiet=False):
+    """K3's report over the slots `rows`."""
+    rows_v = rows[..., None].expand(f_k[0].shape)
+    errs = {name: _scaled(xk, xp, fl) for name, xk, xp, fl in
+            zip(("a", "dudt", "div_v"), f_k, f_p, (rows_v, rows, rows))}
+    return {"scaled_err": errs,
+            "max_abs_err": float(torch.abs(f_k[0] - f_p[0])[rows_v].max()),
+            "ok": max(errs.values()) <= (
+                TOL_F64 if f64 else TOL_F32_FORCES_QUIET if quiet
+                else TOL_F32_FORCES)}
+
+
+def compare_mirror_kernels(sim, state, repeats: int = 0):
+    """The mirror path's kernels against their plain versions on the
+    same inputs, from a state on a CUDA device: K19 (exactly), K1 with
+    its discard mask (cell ids exactly, slots over the kept: JAX ranks
+    the discarded among themselves, K1 gives them slot 0), K2 over the
+    extended set with the parents iterating (compared over the parents),
+    and K3 with every image slot holding its parent's fields (compared
+    over the parents).  Returns {kernel: report} keyed grid27_mirror and
+    kernel_name's grid27_bin, grid27_density and grid27_forces with
+    _discard, _mirror and _mirror appended; K19's report has its work
+    and, with `repeats` > 0, its times.  Launch counts are restored
+    afterwards."""
+    saved = dict(_ext.LAUNCHES)
+    spec, kern, visc, box = sim.gridspec, sim.kern, sim.visc, sim.box
+    f64 = state.r.dtype == torch.float64
+    N = state.N
+    walls = g27.mirror_planes(box, spec)
+    out = {}
+    m_k = _ext.grid27_mirror(walls, state.r, state.v)
+    m_p = g27.grid_mirror_extend_plain(walls, state.r, state.v)
+    same = all(torch.equal(x, y) for x, y in zip(m_k, m_p))
+    out["grid27_mirror"] = {
+        "walls": len(walls), "exact": same,
+        "kept_images": int(m_p[2][N:].sum()),
+        "max_abs_err": float(max(torch.abs(x.double() - y.double()).max()
+                                 for x, y in zip(m_k, m_p))),
+        "ok": same,
+        "work": _work((state.r, state.v), m_k,
+                      FLOPS_PER["grid27_mirror"] * N * len(walls))}
+    r_ext, v_ext, keep = m_p
+    b_k = g27.bin_particles(spec, r_ext, ~keep)
+    b_p = g27.bin_particles_plain(spec, r_ext, ~keep)
+    mism = (int((b_k.cell_of != b_p.cell_of).sum())
+            + int((b_k.slot_of != b_p.slot_of)[keep].sum()))
+    k1 = kernel_name("grid27_bin", spec) + "_discard"
+    out[k1] = {"mismatches": mism, "discarded": int((~keep).sum()),
+               "overflow": [bool(b_k.overflow), bool(b_p.overflow)],
+               "max_abs_err": float(
+                   (b_k.slot_of - b_p.slot_of)[keep].abs().max()),
+               "ok": mism == 0 and not bool(b_k.overflow)
+               and not bool(b_p.overflow)}
+
+    n_img = r_ext.shape[0] // N
+
+    def tile(x):
+        return x.repeat((n_img,) + (1,) * (x.dim() - 1))
+
+    d = lambda x: g27.to_dense(spec, b_p, x)  # noqa: E731
+    fill = g27.dense_fill_mask(spec, b_p)
+    parent = d(keep & (torch.arange(r_ext.shape[0], device=keep.device)
+                       < N))
+    r_d, m_d, h_d = d(r_ext), d(tile(state.m)), d(tile(state.h))
+    hmax = g27.hmax_of(spec, kern.kernrange)
+    s_k = _ext.grid27_density(spec, kern, sim.h_fac, sim.h_converge, hmax,
+                              r_d, m_d, h_d, fill, parent)
+    s_p = g27.density_sums_plain(kern, spec, sim.h_fac, sim.h_converge,
+                                 hmax, r_d, m_d, h_d, fill, parent)
+    dens = {tag: g27.density_finish(spec, sim.h_fac, hmax, m_d, fill, *x,
+                                    count_fill=parent)
+            for tag, x in (("kernel", s_k), ("plain", s_p))}
+    k2 = kernel_name("grid27_density", spec) + "_mirror"
+    out[k2] = _density_report(dens, s_k, s_p, parent, f64)
+    # every image slot takes its parent's fields, as the pass does
+    pb = g27.GridBinning(b_p.cell_of[:N], b_p.slot_of[:N], b_p.overflow)
+    dp = dens["plain"]
+
+    def back(x_d):
+        return g27.from_dense(spec, pb, x_d)
+
+    rho = back(dp.rho)
+    u, press, sound = sim.eos.thermal_update(torch.clamp_min(rho, 1e-30),
+                                             state.u)
+    fields = {"m": state.m, "h": back(dp.h), "rho": rho, "u": u,
+              "pressure": press, "sound": sound,
+              "invomega": back(dp.invomega), "hfactor": back(dp.hfactor),
+              "alpha": state.alpha}
+    packed = d(tile(torch.stack([fields[k] for k in g27.FORCE_SCALARS],
+                                dim=-1)))
+    v_d = d(v_ext)
+    f_k = _ext.grid27_forces(spec, kern, visc, r_d, v_d, packed, fill)
+    f_p = g27.force_sums_plain(kern, visc, spec, r_d, v_d, packed, fill)
+    k3 = kernel_name("grid27_forces", spec) + "_mirror"
+    out[k3] = _forces_report(f_k, f_p, parent, f64)
+    if repeats > 0:
+        timed = {"grid27_mirror": (
+            lambda: _ext.grid27_mirror(walls, state.r, state.v),
+            lambda: g27.grid_mirror_extend_plain(walls, state.r, state.v))}
         _time_pairs(out, timed, repeats)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
@@ -1055,7 +1356,9 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
         listed[gl] = True
         rows = listed.repeat_interleave(L) & ap
 
-        # K6 over the list: listed rows and near lists, zeros elsewhere
+        # K6 over the list: listed rows and near lists, zeros in the
+        # unlisted groups (a walked group's every slot takes the far
+        # field, a dead or empty one too: K7 writes the mapped ones)
         wk = _ext.tree_walk(tspec, cp, pp, ap, group_ids)
         wstats = {}
         wp = tr.tree_walk_plain(tspec, cp, pp, ap, group_ids, stats=wstats)
@@ -1065,8 +1368,9 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
         errs = ({"a": _scaled_all(wk[0], wp[0], same_rows),
                  "pot": _scaled_all(wk[1], wp[1], same_rows)}
                 if bool(same_rows.any()) else {})
-        zero_elsewhere = (not bool(wk[0][~rows].any())
-                          and not bool(wk[1][~rows].any()))
+        unlisted = ~listed.repeat_interleave(L)
+        zero_elsewhere = (not bool(wk[0][unlisted].any())
+                          and not bool(wk[1][unlisted].any()))
         same_ovf = bool(wk[3]) == bool(wp[3])
         tol = TOL_F64 if f64 else TOL_F32_TREE_FAR
         out["tree_walk_list"] = {

@@ -1,12 +1,14 @@
-// Grid geometry shared by the density (K2) and force (K3) kernels.
+// Grid geometry shared by the grid kernels (K1-K3, K8-K12).
 //
 // Cells are stored dense as (n0, n1, n2, K) with dim 0 slowest, the
-// layout of gandalf_tpu's Grid27Spec.  Instead of copying ghost layers,
-// a kernel asks for neighbour d (0..26) of its cell: the index wraps
-// along a periodic dim, and the neighbour's positions are shifted by -L
-// or +L there; along an open dim an out-of-range neighbour is skipped.
-// A dim with fewer than 3 cells visits the same cell under several
-// images, exactly as the ghosted slices of the JAX package do.
+// layout of gandalf_tpu's Grid27Spec.  A grid of NDIM < 3 dims keeps
+// n = 1 in its trailing dims, so its flat cell id is the JAX package's.
+// Instead of copying ghost layers, a kernel asks for neighbour d
+// (0..3^NDIM-1) of its cell: the index wraps along a periodic dim, and
+// the neighbour's positions are shifted by -L or +L there; along an open
+// dim an out-of-range neighbour is skipped.  A dim with fewer than 3
+// cells visits the same cell under several images, exactly as the
+// ghosted slices of the JAX package do.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,7 +20,13 @@ struct Grid3 {
   int K;
 };
 
-// d = 13 is the cell itself
+// 3^NDIM neighbour cells; the cell itself is the centre one
+template <int NDIM>
+struct Stencil {
+  static constexpr int kSize = NDIM == 1 ? 3 : NDIM == 2 ? 9 : 27;
+  static constexpr int kCentre = (kSize - 1) / 2;
+};
+
 __host__ __device__ __forceinline__ void cell_coords(const Grid3& g, int c,
                                                      int cc[3]) {
   cc[2] = c % g.n[2];
@@ -26,16 +34,31 @@ __host__ __device__ __forceinline__ void cell_coords(const Grid3& g, int c,
   cc[0] = c / (g.n[1] * g.n[2]);
 }
 
-template <typename T>
+// neighbour d of cell cc: its flat id and the shift of its positions;
+// false where an open dim runs out of range.  The offset of dim k is
+// digit k of d in base 3 (dim 0 most significant), over the first NDIM
+// dims, as gandalf_tpu/ops/sph_grid27.py:_shifts orders them.
+template <typename T, int NDIM = 3>
 __device__ __forceinline__ bool neighbour_cell(const Grid3& g,
                                                const int cc[3], int d,
                                                int* nc, T sh[3]) {
-  const int dd[3] = {d / 9 - 1, (d / 3) % 3 - 1, d % 3 - 1};
+  int dd[3] = {0, 0, 0};
+  if (NDIM == 3) {
+    dd[0] = d / 9 - 1;
+    dd[1] = (d / 3) % 3 - 1;
+    dd[2] = d % 3 - 1;
+  } else if (NDIM == 2) {
+    dd[0] = d / 3 - 1;
+    dd[1] = d % 3 - 1;
+  } else {
+    dd[0] = d - 1;
+  }
   int x[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     x[k] = cc[k] + dd[k];
     sh[k] = T(0);
+    if (k >= NDIM) continue;
     if (x[k] < 0) {
       if (!g.periodic[k]) return false;
       x[k] += g.n[k];
@@ -53,4 +76,18 @@ __device__ __forceinline__ bool neighbour_cell(const Grid3& g,
 inline int slot_threads(int K) {
   const int t = ((K + 31) / 32) * 32;
   return t < 256 ? t : 256;
+}
+
+// K2 and K3 run one thread per slot.  In 3D with K >= 32 a block takes
+// one cell and its threads loop over the slots (a warp reads the same
+// neighbour at the same time); otherwise threads map over the flattened
+// (cell, slot) index and a warp spans several cells.  Measured on the
+// H100 (PERF.md §6): per cell is 17-25% faster on the 3D boxes (K =
+// 65, 66, 276), flat 36-42% faster on the 2D KHI (K = 35, where a block
+// per cell idles 29 of its 64 lanes).  `mapping` 0 chooses so, 1 takes
+// the per-cell mapping, 2 the flat one (for timing the two).
+constexpr int kFlatThreads = 128;
+
+inline bool slot_mapping_flat(int mapping, int ndim, int K) {
+  return mapping == 2 || (mapping == 0 && (ndim < 3 || K < 32));
 }

@@ -1,8 +1,12 @@
-// K1 grid27_bin: cell id and stable slot rank of every particle.
+// K1 grid27_bin: cell id and stable slot rank of every particle, in 1, 2
+// or 3 dims, with an optional discard mask.
 //
 // Replaces gandalf_tpu/ops/sph_grid27.py:bin_particles (:193-231), which
 // ranks particles within their cell by a stable argsort plus a segmented
-// max-scan.
+// max-scan.  A discarded particle (a mirror image beyond its layer) goes
+// to the virtual cell C = n_cells, takes no slot and raises no overflow;
+// its slot_of is 0 (JAX ranks the discarded among themselves, which no
+// caller reads).
 //
 // Bound on the card: it moves about 40 bytes per particle and does almost
 // no arithmetic, so it is bound by memory latency and by four launches;
@@ -28,20 +32,28 @@ namespace {
 
 template <typename T>
 __global__ void bin_count_kernel(const T* __restrict__ r, int n_part,
-                                 Grid3 g, T lo0, T lo1, T lo2, T e0, T e1,
-                                 T e2, int* __restrict__ count,
+                                 int ndim, Grid3 g, T lo0, T lo1, T lo2,
+                                 T e0, T e1, T e2,
+                                 const unsigned char* __restrict__ discard,
+                                 int* __restrict__ count,
                                  int* __restrict__ rank_tmp,
-                                 int* __restrict__ cell_of) {
+                                 int* __restrict__ cell_of,
+                                 int* __restrict__ slot_of) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_part) return;
+  if (discard != nullptr && discard[i]) {
+    cell_of[i] = g.n[0] * g.n[1] * g.n[2];
+    slot_of[i] = 0;
+    return;
+  }
   const T lo[3] = {lo0, lo1, lo2};
   const T ext[3] = {e0, e1, e2};
   int cid = 0;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
+  for (int k = 0; k < ndim; ++k) {
     // floor((x - lo) / extent * n), clipped to [0, n-1] (clipping the
     // float first keeps the int conversion defined for far particles)
-    T f = floor((r[3 * i + k] - lo[k]) / ext[k] * T(g.n[k]));
+    T f = floor((r[static_cast<long long>(ndim) * i + k] - lo[k]) / ext[k]
+                * T(g.n[k]));
     f = f < T(0) ? T(0) : f;
     f = f > T(g.n[k] - 1) ? T(g.n[k] - 1) : f;
     cid = cid * g.n[k] + static_cast<int>(f);
@@ -87,13 +99,13 @@ __global__ void bin_scan_kernel(const int* __restrict__ count, int n_cells,
   if (t == 0) *overflow = static_cast<unsigned char>(any_over);
 }
 
-__global__ void bin_scatter_kernel(int n_part,
+__global__ void bin_scatter_kernel(int n_part, int n_cells,
                                    const int* __restrict__ cell_of,
                                    const int* __restrict__ rank_tmp,
                                    const int* __restrict__ offset,
                                    int* __restrict__ members) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_part) return;
+  if (i >= n_part || cell_of[i] >= n_cells) return;
   members[offset[cell_of[i]] + rank_tmp[i]] = i;
 }
 
@@ -112,13 +124,15 @@ __global__ void bin_rank_kernel(const int* __restrict__ offset,
 }
 
 template <typename T>
-int run_bin(const T* r, int n_part, int n0, int n1, int n2, double lo0,
-            double lo1, double lo2, double e0, double e1, double e2,
-            int k_cell, int* count, int* offset, int* rank_tmp,
-            int* members, int* cell_of, int* slot_of,
-            unsigned char* overflow, int device, void* stream_ptr) {
+int run_bin(const T* r, const unsigned char* discard, int n_part, int ndim,
+            int n0, int n1, int n2, double lo0, double lo1, double lo2,
+            double e0, double e1, double e2, int k_cell, int* count,
+            int* offset, int* rank_tmp, int* members, int* cell_of,
+            int* slot_of, unsigned char* overflow, int device,
+            void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (ndim < 1 || ndim > 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Grid3 g = {{n0, n1, n2}, {0, 0, 0}, {0.0, 0.0, 0.0}, k_cell};
   const int n_cells = n0 * n1 * n2;
@@ -128,14 +142,13 @@ int run_bin(const T* r, int n_part, int n0, int n1, int n2, double lo0,
   const int blocks = (n_part + threads - 1) / threads;
   if (n_part > 0)
     bin_count_kernel<T><<<blocks, threads, 0, stream>>>(
-        r, n_part, g, T(lo0), T(lo1), T(lo2), T(e0), T(e1), T(e2), count,
-        rank_tmp, cell_of);
+        r, n_part, ndim, g, T(lo0), T(lo1), T(lo2), T(e0), T(e1), T(e2),
+        discard, count, rank_tmp, cell_of, slot_of);
   bin_scan_kernel<<<1, kScanThreads, 0, stream>>>(count, n_cells, k_cell,
                                                   offset, overflow);
   if (n_part > 0)
-    bin_scatter_kernel<<<blocks, threads, 0, stream>>>(n_part, cell_of,
-                                                       rank_tmp, offset,
-                                                       members);
+    bin_scatter_kernel<<<blocks, threads, 0, stream>>>(
+        n_part, n_cells, cell_of, rank_tmp, offset, members);
   bin_rank_kernel<<<n_cells, 64, 0, stream>>>(offset, members, k_cell,
                                               slot_of);
   return static_cast<int>(cudaGetLastError());
@@ -150,14 +163,15 @@ const char* grid27_error_string(int code) {
 }
 
 #define GRID27_BIN_ENTRY(NAME, T)                                           \
-  int NAME(const T* r, int n_part, int n0, int n1, int n2, double lo0,      \
-           double lo1, double lo2, double e0, double e1, double e2,          \
-           int k_cell, int* count, int* offset, int* rank_tmp,              \
-           int* members, int* cell_of, int* slot_of,                        \
-           unsigned char* overflow, int device, void* stream) {             \
-    return run_bin<T>(r, n_part, n0, n1, n2, lo0, lo1, lo2, e0, e1, e2,     \
-                      k_cell, count, offset, rank_tmp, members, cell_of,    \
-                      slot_of, overflow, device, stream);                   \
+  int NAME(const T* r, const unsigned char* discard, int n_part, int ndim,  \
+           int n0, int n1, int n2, double lo0, double lo1, double lo2,      \
+           double e0, double e1, double e2, int k_cell, int* count,         \
+           int* offset, int* rank_tmp, int* members, int* cell_of,          \
+           int* slot_of, unsigned char* overflow, int device,               \
+           void* stream) {                                                  \
+    return run_bin<T>(r, discard, n_part, ndim, n0, n1, n2, lo0, lo1, lo2,  \
+                      e0, e1, e2, k_cell, count, offset, rank_tmp, members, \
+                      cell_of, slot_of, overflow, device, stream);          \
   }
 
 GRID27_BIN_ENTRY(grid27_bin_f32, float)

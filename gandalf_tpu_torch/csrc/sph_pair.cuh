@@ -1,5 +1,6 @@
 // One SPH pair's share of the grad-h hydro force sums, shared by the
-// grid force kernel (K3) and the active-subset force kernel (K9).
+// grid force kernel (K3, in 1, 2 or 3 dims) and the active-subset force
+// kernel (K9, 3D).
 //
 // The packed per-particle scalars are ops/sph_grid27.py:FORCE_SCALARS.
 // A pair adds m_j paux / d * dr to the acceleration, its viscous and
@@ -41,19 +42,24 @@ struct Own {
         pterm(si[kPress] * si[kInvom] * invrho * invrho) {}
 };
 
-// sums: ax, ay, az, dudt, divv.  dv = v_j - v_i; drmag = |dr| > 0.
-template <typename T>
-__device__ __forceinline__ void pair_add(const Own<T>& o, const T* sj,
-                                         T dx, T dy, T dz, T dvx, T dvy,
-                                         T dvz, T drmag, T norm,
-                                         const Dissipation& dis, T acc[5]) {
+// sums over NDIM dims: acc[0..NDIM-1] the acceleration, acc[NDIM] dudt,
+// acc[NDIM+1] divv.  dv = v_j - v_i; dr = r_j - r_i; drmag = |dr| > 0.
+template <typename T, int NDIM>
+__device__ __forceinline__ void pair_add_n(const Own<T>& o, const T* sj,
+                                           const T* dr, const T* dv,
+                                           T drmag, T norm,
+                                           const Dissipation& dis,
+                                           T* acc) {
   const T inv_drmag = T(1) / drmag;
   const T m_j = sj[kM];
   const T invrho_j = T(1) / sj[kRho];
   const T wkerni = o.hfac * m4_w1<T>(drmag * o.invh, norm);
   const T wkernj = sj[kHfac] * m4_w1<T>(drmag / sj[kH], norm);
-  const T dvdr = (dvx * dx + dvy * dy + dvz * dz) * inv_drmag;
-  acc[4] -= m_j * dvdr * wkerni;
+  T dvdr_sum = dv[0] * dr[0];
+#pragma unroll
+  for (int k = 1; k < NDIM; ++k) dvdr_sum += dv[k] * dr[k];
+  const T dvdr = dvdr_sum * inv_drmag;
+  acc[NDIM + 1] -= m_j * dvdr * wkerni;
   T paux = o.pterm * wkerni
            + sj[kPress] * sj[kInvom] * invrho_j * invrho_j * wkernj;
   if (dis.avisc != kAviscNone && dvdr < T(0)) {
@@ -64,19 +70,29 @@ __device__ __forceinline__ void pair_add(const Own<T>& o, const T* sj,
     const T vsignal = o.sound + sj[kSound]
                       - T(dis.beta_visc) * alpha_eff * dvdr;
     paux -= alpha_eff * vsignal * dvdr * winvrho;
-    acc[3] -= T(0.5) * m_j * alpha_eff * vsignal * dvdr * dvdr * winvrho;
+    acc[NDIM] -= T(0.5) * m_j * alpha_eff * vsignal * dvdr * dvdr * winvrho;
     if (dis.acond == kAcondWadsley2008) {
-      acc[3] += m_j * dvdr * (sj[kU] - o.u)
-                * (o.invrho * wkerni + invrho_j * wkernj);
+      acc[NDIM] += m_j * dvdr * (sj[kU] - o.u)
+                   * (o.invrho * wkerni + invrho_j * wkernj);
     } else if (dis.acond == kAcondPrice2008) {
-      acc[3] += T(0.5) * m_j * (o.u - sj[kU]) * winvrho
-                * (o.invrho + invrho_j) * sqrt(fabs(o.press - sj[kPress]));
+      acc[NDIM] += T(0.5) * m_j * (o.u - sj[kU]) * winvrho
+                   * (o.invrho + invrho_j) * sqrt(fabs(o.press - sj[kPress]));
     }
   }
   const T w_pair = m_j * paux * inv_drmag;
-  acc[0] += w_pair * dx;
-  acc[1] += w_pair * dy;
-  acc[2] += w_pair * dz;
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k) acc[k] += w_pair * dr[k];
+}
+
+// the 3D form (K9): sums ax, ay, az, dudt, divv
+template <typename T>
+__device__ __forceinline__ void pair_add(const Own<T>& o, const T* sj,
+                                         T dx, T dy, T dz, T dvx, T dvy,
+                                         T dvz, T drmag, T norm,
+                                         const Dissipation& dis, T acc[5]) {
+  const T dr[3] = {dx, dy, dz};
+  const T dv[3] = {dvx, dvy, dvz};
+  pair_add_n<T, 3>(o, sj, dr, dv, drmag, norm, dis, acc);
 }
 
 }  // namespace sph

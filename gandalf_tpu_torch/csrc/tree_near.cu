@@ -33,12 +33,17 @@
 // pair's separation is min-imaged first and the pair adds m_j times the
 // table's correction as well.  The support selection of gandalf_tpu
 // (leaf-box gap, min-imaged with the Ewald sum, against kernrange *
-// max(h over live slots)) is kept only to raise the same overflow when
-// more than min(support_cap, near_cap) leaves are in support.  The
+// max(h over live slots)) raises the same overflow when more than
+// min(support_cap, near_cap) leaves are in support, and a pair is
+// softened only in a selected leaf: for a live target that is implied by
+// d < kernrange * max(h_i, h_j), for a dead one (h = 1) it is what the
+// JAX package's correction tier does.  The
 // epilogue adds K6's far field, or with the fast multipoles K6's
 // expansion a0 + J (r_i - gc), pot0 + a0 . (r_i - gc) about the group's
-// box centre, and writes a and gpot to row out_index[slot]; the map is
-// injective, so no atomics are needed.  The zeta term takes the
+// box centre, and writes a and gpot to row out_index[slot] of every slot
+// with a row (out_index >= 0) in a group with a live slot, dead slots
+// included, as the JAX package's scatter does; the map is injective, so
+// no atomics are needed.  The zeta term takes the
 // grad-h SPH scaling m_j (zh_i w1_i + zh_j w1_j) / 2, or with `mfv` the
 // meshless finite-volume one, (1/m_i) (zh_i w1_i + zh_j w1_j) / 2, not
 // scaled by m_j and zero for a massless partner (MfvCommon.cpp:413-416).
@@ -79,6 +84,10 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
   const long long slot = static_cast<long long>(g) * kLeaf + lane;
   const bool live = alive[slot] != 0;
   if (!__ballot_sync(kFull, live)) return;
+  // targets: every mapped slot of a live group, dead ones included (a
+  // dead particle is no source: its alive byte is 0 and its mass 0)
+  const long long o = out_index[slot];
+  const bool target = o >= 0;
   constexpr bool ewald = kEwald;
   const T* p = ptab + kPCols * slot;
   const T xi = p[0], yi = p[1], zi = p[2];
@@ -104,6 +113,7 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
     }
     const bool q_live = alive[ps] != 0;
     part_live[wib][lane] = q_live ? 1 : 0;
+    bool leaf_sup = false;
     if (smoothed) {
       const T hc = warp_max(q_live && mine[kPM] > T(0) ? mine[kPH] : T(0));
       const T* cell = leaves + kCCols * static_cast<long long>(nl);
@@ -117,10 +127,11 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
         gap2 += gap * gap;
       }
       const T rad = kernrange * max(hg, hc);
-      n_sup += gap2 < rad * rad ? 1 : 0;
+      leaf_sup = gap2 < rad * rad;
+      n_sup += leaf_sup ? 1 : 0;
     }
     __syncwarp();
-    if (live) {
+    if (target) {
       for (int j = 0; j < kLeaf; ++j) {
         if (!part_live[wib][j] || (nl == g && j == lane)) continue;
         const T* pj = part[wib][j];
@@ -135,7 +146,9 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
         const T m_j = pj[kPM];
         const T d = sqrt(d2);
         T coef;
-        if (smoothed && d < kernrange * max(h_i, pj[kPH])) {
+        // softened only in a leaf of the support selection, which
+        // decides only for a dead target (its h = 1 is not in hg)
+        if (smoothed && leaf_sup && d < kernrange * max(h_i, pj[kPH])) {
           const T invh_j = T(1) / pj[kPH];
           const T s_i = d * invh_i, s_j = d * invh_j;
           const T paux = T(0.5) * (invh_i * invh_i * m4_wgrav(s_i)
@@ -173,7 +186,7 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
   }
   const int ws = support_cap < near_cap ? support_cap : near_cap;
   if (smoothed && n_sup > ws && lane == 0) *overflow = 1;
-  if (live) {
+  if (target) {
     T fx, fy, fz, fp;
     if (fast_tab != nullptr) {
       // the group's expansion about its box centre
@@ -190,7 +203,6 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
       fz = a_far[3 * slot + 2];
       fp = pot_far[slot];
     }
-    const long long o = out_index[slot];
     a_out[3 * o] = ax + fx;
     a_out[3 * o + 1] = ay + fy;
     a_out[3 * o + 2] = az + fz;

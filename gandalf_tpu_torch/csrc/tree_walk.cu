@@ -313,10 +313,13 @@ __global__ void tree_walk_kernel(const T* __restrict__ ctab,
       for (int c = 0; c < kFastCols; ++c) fast_out[kFastCols * g + c] = vals[c];
     }
   } else {
-    a_far[3 * slot] = live ? acc3[0] : T(0);
-    a_far[3 * slot + 1] = live ? acc3[1] : T(0);
-    a_far[3 * slot + 2] = live ? acc3[2] : T(0);
-    pot_far[slot] = live ? pot : T(0);
+    // every slot of a live group, a dead one too (K7 writes the mapped
+    // slots: a dead particle gets the field at its frozen position, as
+    // in the JAX package)
+    a_far[3 * slot] = acc3[0];
+    a_far[3 * slot + 1] = acc3[1];
+    a_far[3 * slot + 2] = acc3[2];
+    pot_far[slot] = pot;
   }
   if (ovf && lane == 0) *overflow = 1;
 }

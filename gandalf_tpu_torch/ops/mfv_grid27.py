@@ -61,16 +61,17 @@ def _pair_chunk(device) -> int:
 
 def slot_pairs(spec: g27.Grid27Spec, ids_d: Tensor, r: Tensor, cut2: float,
                exclude_self: bool):
-    """Pairs (i, j) over the 27-cell stencil of the slot map with
+    """Pairs (i, j) over the 3^ndim-cell stencil of the slot map with
     |r_j + shift - r_i|^2 <= cut2, as particle ids i, j (int64), the
-    separation r_j + shift - r_i (P, 3) and d^2 (P,).  `exclude_self`
+    separation r_j + shift - r_i (P, ndim) and d^2 (P,).  `exclude_self`
     drops a particle's pair with itself and coincident pairs (d^2 = 0).
     The order is that of ops.sph_grid27._pair_list."""
     ids = ids_d.reshape(-1).long()
     fill = ids >= 0
     r_d = torch.where(fill[:, None], r[torch.clamp_min(ids, 0)], 0.0)
     shape = tuple(spec.ncells) + (spec.k_cell,)
-    row, col, dx, d2 = g27._pair_list(spec, r_d.reshape(shape + (3,)),
+    row, col, dx, d2 = g27._pair_list(spec,
+                                      r_d.reshape(shape + (r.shape[1],)),
                                       fill.reshape(shape), cut2,
                                       exclude_self)
     return ids[row], ids[col], dx, d2

@@ -589,8 +589,9 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
             far[gsel] = torch.cat([a0, pot0[:, None], jac.reshape(nb, 9)],
                                   -1)
         else:
-            a_far[gsel] = torch.where(al[..., None], a_acc, 0.0)
-            pot_far[gsel] = torch.where(al, p_acc, 0.0)
+            # every slot of a live group, dead ones too (K6)
+            a_far[gsel] = a_acc
+            pot_far[gsel] = p_acc
         overflow |= ovf.any()
     if spec.fast:
         return far, None, near, overflow
@@ -625,7 +626,8 @@ def tree_near(spec: TreeSpec, kern, ctab: Tensor, ptab: Tensor,
               ewald=None):
     """Near-field pair sums over each group's near leaves, plus the far
     field, written to row out_index[slot] of (n_out, 3) and (n_out,)
-    outputs for every live slot; overflow () when some group's
+    outputs for every slot with a row (out_index >= 0) in a group with
+    a live slot, dead slots included; overflow () when some group's
     kernel-support leaves exceed min(support_cap, near_cap).  `kern`
     None evaluates Newtonian pairs only.  With `group_ids` only the
     listed groups' slots are written (zero elsewhere).  `zeta_scaling`
@@ -653,15 +655,21 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
                     pot_far, out_index, n_out, group_ids=None,
                     zeta_scaling="sph", ewald=None):
     """Plain version of K7 over chunks of the walked groups: each pair of
-    a group's live slot i and a live partner j in its near leaves (not i
+    a group's target slot i and a live partner j in its near leaves (not i
     itself, d > 0; min-imaged with the Ewald sum) adds the symmetric
     softened force and potential, with the zeta term of `zeta_scaling`,
-    where d < kernrange * max(h_i, h_j), and m/d^3, m/d beyond; with the
+    where d < kernrange * max(h_i, h_j) in a leaf of the support
+    selection, and m/d^3, m/d beyond; with the
     Ewald sum also m_j times the table's correction."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
     table, period = _ewald_parts(ewald)
     Wn = near.shape[1]
+    # targets: the slots with a row in groups with a live slot, dead ones
+    # included (gandalf_tpu/ops/tree.py:1389-1392 scatters every mapped
+    # slot); a group without live slots walks nothing (as K6, K7)
+    target = ((out_index.reshape(G, L) >= 0)
+              & alive.reshape(G, L).any(1, keepdim=True)).reshape(-1)
     leaves = level_rows(spec, ctab, D)
     groups = _groups_of(spec, group_ids, dev)
     B = _chunk_groups(G, L * Wn * L, dev)
@@ -676,6 +684,7 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
         nb = gsel.numel()
         own = ptab_g[gsel]
         al = alive.reshape(G, L)[gsel]
+        tg = target.reshape(G, L)[gsel]
         nid = near[gsel].long()                              # (nb, Wn)
         nvalid = nid >= 0
         col = (torch.clamp_min(nid, 0)[..., None] * L + slot_l).reshape(
@@ -689,18 +698,39 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
             dr = [x - period[k] * torch.round(x / period[k])
                   for k, x in enumerate(dr)]
         d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
-        use = (pal[:, None, :] & al[..., None]
+        use = (pal[:, None, :] & tg[..., None]
                & (col[:, None, :] != rows[..., None]) & (d2 > 0.0))
         m_j = torch.where(use, part[:, None, :, P_M], 0.0)
         inv_d = torch.rsqrt(torch.where(use, d2, 1.0))
         coef = m_j * inv_d * inv_d * inv_d
         pot = m_j * inv_d
         if kern is not None:
+            # the support selection of gandalf_tpu: the near leaves whose
+            # box gap to the group's is below kernrange times the larger
+            # of the group's and the leaf's h (over live slots); kept for
+            # its overflow, and a pair is softened only in such a leaf
+            # (which decides only for a dead target, whose h = 1 is not
+            # in the group's)
+            hg = torch.where(al, own[..., P_H], 0.0).amax(1)
+            hp = torch.where(pal & (part[..., P_M] > 0.0), part[..., P_H],
+                             0.0).reshape(nb, Wn, L).amax(2)
+            cell = leaves[torch.clamp_min(nid, 0)]
+            gcell = leaves[gsel]
+            dgc = cell[..., C_CEN:C_CEN + 3] - gcell[:, None, C_CEN:C_CEN + 3]
+            if table is not None:
+                dgc = ew.min_image(dgc, period)
+            gap = torch.clamp_min(
+                torch.abs(dgc) - cell[..., C_HALF:C_HALF + 3]
+                - gcell[:, None, C_HALF:C_HALF + 3], 0.0)
+            sup = kern.kernrange * torch.maximum(hg[:, None], hp)
+            in_sup = nvalid & ((gap * gap).sum(-1) < sup * sup)
+            overflow |= (in_sup.sum(1) > Ws).any()
             # softened pairs, few of the block, evaluated as a list
             h_i, h_j = own[..., P_H][..., None], part[:, None, :, P_H]
             rad = kern.kernrange * torch.maximum(h_i, h_j)
             # a slack on d^2; the test on d below decides
-            soft = use & (d2 < rad * rad * 1.0001)
+            soft = (use & in_sup.repeat_interleave(L, dim=1)[:, None, :]
+                    & (d2 < rad * rad * 1.0001))
             b, i, p = soft.nonzero(as_tuple=True)
             d = torch.sqrt(d2[b, i, p])
             soft_d = d < rad[b, i, p]
@@ -720,21 +750,6 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
                 coef[b, i, p] = (mj * paux / d + torch.where(
                     mj > 0.0, invm_i * zterm, 0.0) / d)
             pot[b, i, p] = m_j[b, i, p] * gaux
-            # the support selection of gandalf_tpu, kept for its overflow
-            hg = torch.where(al, own[..., P_H], 0.0).amax(1)
-            hp = torch.where(pal & (part[..., P_M] > 0.0), part[..., P_H],
-                             0.0).reshape(nb, Wn, L).amax(2)
-            cell = leaves[torch.clamp_min(nid, 0)]
-            gcell = leaves[gsel]
-            dgc = cell[..., C_CEN:C_CEN + 3] - gcell[:, None, C_CEN:C_CEN + 3]
-            if table is not None:
-                dgc = ew.min_image(dgc, period)
-            gap = torch.clamp_min(
-                torch.abs(dgc) - cell[..., C_HALF:C_HALF + 3]
-                - gcell[:, None, C_HALF:C_HALF + 3], 0.0)
-            sup = kern.kernrange * torch.maximum(hg[:, None], hp)
-            n_sup = (nvalid & ((gap * gap).sum(-1) < sup * sup)).sum(1)
-            overflow |= (n_sup > Ws).any()
         a_s[gsel] = torch.stack([(coef * x).sum(2) for x in dr], -1)
         p_s[gsel] = pot.sum(2)
         if table is not None:
@@ -762,11 +777,11 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
     p_s = p_s.reshape(-1) + pot_far
     a = torch.zeros((n_out, 3), dtype=dt, device=dev)
     gpot = torch.zeros((n_out,), dtype=dt, device=dev)
-    written = alive
+    written = target
     if group_ids is not None:
         listed = torch.zeros((G,), dtype=torch.bool, device=dev)
         listed[groups] = True
-        written = alive & listed.repeat_interleave(L)
+        written = target & listed.repeat_interleave(L)
     idx = out_index.reshape(-1).long()[written]
     a[idx] = a_s[written]
     gpot[idx] = p_s[written]
@@ -785,7 +800,8 @@ def tree_gravity(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor,
     a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive,
                                                gfac=gfac, ewald=ewald)
     n = ptab.shape[0]
-    order = torch.arange(n, dtype=torch.int32, device=ptab.device)
+    order = torch.where(alive, torch.arange(n, dtype=torch.int32,
+                                            device=ptab.device), -1)
     a, gpot, ovf_near = tree_near(spec, kern, ctab, ptab, alive, near,
                                   a_far, pot_far, order, n, ewald=ewald)
     return a, gpot, ovf_walk | ovf_near
@@ -805,8 +821,10 @@ def tree_gravity_grouped(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
     (an ops.ewald.EwaldTable) adds the periodic correction, min-imaged
     over `periodic_extent`; `amag` (gadget2) and `gpot_prev` (eigenmac)
     give the accuracy MAC its per-group factors (mac_factors).  `alive`
-    (N,) bool masks dead particles out as sources and targets: they get
-    zero acceleration and potential."""
+    (N,) bool masks dead particles out as sources; as targets they get
+    the field at their frozen positions, as in the JAX package, except
+    in a bucket with no alive particle, which walks nothing and gives
+    them zero (ROADMAP queue 3, F12)."""
     ptab, alive = gather_to_buckets(spec, gmap, r, m, h, zh,
                                     periodic_extent, alive)
     ctab = build_tree(spec, ptab, alive)

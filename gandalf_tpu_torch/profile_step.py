@@ -7,6 +7,8 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --nbody [--nbody-scheme S]
     python -m gandalf_tpu_torch.profile_step --ewald
     python -m gandalf_tpu_torch.profile_step --sinks
+    python -m gandalf_tpu_torch.profile_step --khi
+    python -m gandalf_tpu_torch.profile_step --mirror [--layout L]
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -26,11 +28,16 @@ the Boss-Bodenheimer collapse with sinks (check.bb_params at about
 262,144 particles, rho_sink 2e-17 g cm^-3) in float32, 9 warm-up steps
 (one tree rebuild, 9 sinks formed), then the burst of 7 steps up to the
 next rebuild, and again the burst of steps 26-32 (16 sinks, their dead
-gas piled up at them), as a second line.  Prints one JSON line a
+gas piled up at them), as a second line.  With --khi: the 2D
+Kelvin-Helmholtz instability (check.khi_params, 425,984 particles) in
+float32, as the SPH box.  With --mirror: the mirror-wall box
+(check.mirror_params at 64^3 with jittered_state's IC; --layout dim0,
+walls on dim 0, or mixed, the mirror/wall and open/mirror pairs on dims
+1 and 2) in float32, as the SPH box.  Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
 the device time summed over kernels and copies, the device's idle share
-of the window, the device time of each of K1-K18 and of the torch glue
+of the window, the device time of each of K1-K19 and of the torch glue
 between them, and the device time per kernel name (largest first); with
 --block also the active rows per tick.  Refuses to run without CUDA.
 """
@@ -49,7 +56,7 @@ N_SIDE = 64
 STEPS = 8
 BLOCK_N = 262144
 BLOCK_WARM = 4
-# device kernel names of K1-K12 (csrc/); every other device event is glue
+# device kernel names of K1-K19 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -72,6 +79,7 @@ FAMILIES = {
     "K17 sink_candidate": ("candidate_partial", "candidate_finish"),
     "K18 accretion_sums": ("accretion_nearest", "accretion_partial",
                            "accretion_finish"),
+    "K19 grid27_mirror": ("grid27_mirror_kernel",),
 }
 NBODY_N = 65536
 NBODY_TS6_N = 16384
@@ -144,7 +152,9 @@ def _profile_window(sim, args, before: int) -> int:
     else:
         slice_fields = {
             "block": args.block, "mfv": args.mfv, "ewald": args.ewald,
-            "sinks": args.sinks,
+            "sinks": args.sinks, "khi": args.khi,
+            "mirror": args.layout if args.mirror else None,
+            "ndim": sim.ndim,
             "sinks_active": (int(sim.state.sinks.active.sum())
                              if getattr(sim, "has_sinks", False) else 0),
             "self_gravity": int(sim.self_gravity),
@@ -186,11 +196,18 @@ def main(argv=None) -> int:
                     help="the Jeans box with the Ewald sum (ewald_jeans_box)")
     ap.add_argument("--sinks", action="store_true",
                     help="the Boss-Bodenheimer collapse (bb_sink_collapse)")
+    ap.add_argument("--khi", action="store_true",
+                    help="the 2D Kelvin-Helmholtz instability "
+                         "(khi_main_path)")
+    ap.add_argument("--mirror", action="store_true",
+                    help="the mirror-wall box (mirror_box)")
+    ap.add_argument("--layout", default="dim0", choices=("dim0", "mixed"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
-    from .check import (bb_params, jeans_params, jittered_box_ic,
-                        mfv_params, nbody_params, slice_params,
+    from .check import (MIRROR_DIM0, MIRROR_MIXED, bb_params, jeans_params,
+                        jittered_box_ic, khi_params, mfv_params, mirror_ic,
+                        mirror_params, nbody_params, slice_params,
                         sphere_block_params)
     from .sim.simulation import GradhSphSimulation, SimulationBase
 
@@ -207,6 +224,17 @@ def main(argv=None) -> int:
                                  device="cuda", dtype=torch.float32)
         sim.SetupSimulation()
         warm = SINK_WARM
+    elif args.khi:
+        sim = GradhSphSimulation(khi_params(), device="cuda",
+                                 dtype=torch.float32)
+        sim.SetupSimulation()
+        warm = 2
+    elif args.mirror:
+        walls = MIRROR_DIM0 if args.layout == "dim0" else MIRROR_MIXED
+        params = mirror_params(N_SIDE, 3, walls)
+        sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
+        sim.SetupSimulation(mirror_ic(params, walls))
+        warm = 2
     elif args.ewald:
         sim = GradhSphSimulation(jeans_params(N_SIDE), device="cuda",
                                  dtype=torch.float32)

@@ -1,8 +1,11 @@
 """Initial-condition generators of the port's configurations.
 
 A copy of the generators of ``gandalf_tpu/sim/ic.py`` that the port's
-slices use: the uniform box (``ic = box``) on a cubic lattice, the
-uniform sphere (``ic = sphere``), lattice or random (numpy's generator,
+slices use: the hydro tests of GANDALF's examples and regression suite
+(``shocktube`` and ``soundwave`` in 1D, ``khi`` in 2D, ``sedov`` and
+``noh`` in any dimension), the uniform box (``ic = box``) on a cubic
+lattice, the uniform sphere (``ic = sphere``), lattice or random
+(numpy's generator,
 ``rand_algorithm = default``; the xorshift generator's sphere sampler is
 not ported and raises), and the periodic self-gravity tests of
 EwaldIc.cpp (``jeans`` = ``ewaldsine``, ``ewaldsine2``, ``ewaldslab``,
@@ -76,6 +79,199 @@ def uniform_box_ic(params, eos) -> Dict[str, np.ndarray]:
     else:
         u = np.full(N, press0 / (gammam1 * rho0))
     return {"r": r, "v": np.zeros((N, ndim)), "m": m, "h": h, "u": u}
+
+
+def shocktube_ic(params, eos) -> Dict[str, np.ndarray]:
+    """1D Riemann-problem shocktube (src/Ic/ShocktubeIc.cpp:57-206)."""
+    ndim = params.intparams["ndim"]
+    if ndim != 1:
+        raise ValueError("shocktube IC is 1D only")
+    fp = params.floatparams
+    ip = params.intparams
+    rho1, rho2 = fp["rhofluid1"], fp["rhofluid2"]
+    press1, press2 = fp["press1"], fp["press2"]
+    v1, v2 = fp["vfluid1[0]"], fp["vfluid2[0]"]
+    N1, N2 = ip["Nlattice1[0]"], ip["Nlattice2[0]"]
+    xmin, xmax = fp["boxmin[0]"], fp["boxmax[0]"]
+    h_fac = fp["h_fac"]
+    gammam1 = fp["gamma_eos"] - 1.0
+
+    if params.stringparams["gas_eos"] == "isothermal":
+        u1 = u2 = fp["temp0"] / gammam1 / fp["mu_bar"]
+    else:
+        u1 = press1 / (gammam1 * rho1)
+        u2 = press2 / (gammam1 * rho2)
+
+    r1 = add_cubic_lattice([N1], [xmin], [0.0])
+    r2 = add_cubic_lattice([N2], [0.0], [xmax])
+    vol1, vol2 = -xmin, xmax
+    m1 = np.full(N1, rho1 * vol1 / N1)
+    m2 = np.full(N2, rho2 * vol2 / N2)
+    u = np.concatenate([np.full(N1, u1), np.full(N2, u2)])
+    v = np.zeros((N1 + N2, 1))
+    v[:N1, 0] = v1
+    v[N1:, 0] = v2
+    r = np.concatenate([r1, r2], axis=0)
+    m = np.concatenate([m1, m2])
+    rho = np.concatenate([np.full(N1, rho1), np.full(N2, rho2)])
+    h = h_fac * (m / rho) ** (1.0 / ndim)
+    return {"r": r, "v": v, "m": m, "h": h, "u": u}
+
+
+def soundwave_ic(params, eos) -> Dict[str, np.ndarray]:
+    """1D linear soundwave perturbation (src/Ic/SoundwaveIc.cpp:
+    lattice + Ic::AddSinusoidalDensityPerturbation)."""
+    ndim = params.intparams["ndim"]
+    if ndim != 1:
+        raise ValueError("soundwave IC is 1D only")
+    fp = params.floatparams
+    ip = params.intparams
+    rho0 = fp["rhofluid1"]
+    press0 = fp["press1"]
+    amp = fp["amp"]
+    temp0 = fp["temp0"]
+    mu_bar = fp["mu_bar"]
+    gamma = fp["gamma_eos"]
+    gammam1 = gamma - 1.0
+    N = ip["Nhydro"] if ip["Nhydro"] > 0 else ip["Nlattice1[0]"]
+    xmin, xmax = fp["boxmin[0]"], fp["boxmax[0]"]
+    h_fac = fp["h_fac"]
+
+    if params.stringparams["gas_eos"] == "isothermal":
+        u0 = temp0 / gammam1 / mu_bar
+        press0 = gammam1 * rho0 * u0
+        csound = np.sqrt(press0 / rho0)
+    else:
+        u0 = press0 / (gammam1 * rho0)
+        csound = np.sqrt(gamma * press0 / rho0)
+
+    lam = xmax - xmin
+    kwave = 2.0 * np.pi / lam
+    x = add_cubic_lattice([N], [xmin], [xmax])[:, 0]
+    # iterate x_new = x - amp*(1 - cos(k x_new))/k  (reference fixed point)
+    xnew = x.copy()
+    for _ in range(200):
+        xnew = x - amp * (1.0 - np.cos(kwave * xnew)) / kwave
+    xnew = np.where(xnew > xmax, xnew - lam, xnew)
+    xnew = np.where(xnew < xmin, xnew + lam, xnew)
+    x = xnew
+    v = np.zeros((N, 1))
+    v[:, 0] = csound * amp * np.sin(kwave * x)
+    m = np.full(N, rho0 * lam / N)
+    h = h_fac * (m / rho0)
+    u = u0 * np.ones(N)
+    return {"r": x[:, None], "v": v, "m": m, "h": h, "u": u}
+
+
+def sedov_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Sedov-Taylor blast wave: cold lattice + energy injected in a central
+    kernel-sized hot region (src/Ic/SedovBlastwaveIc.cpp).  The smoothed
+    injection weighs by the port's own M4 kernel."""
+    ip, fp = params.intparams, params.floatparams
+    ndim = ip["ndim"]
+    n_lattice = [ip[f"Nlattice1[{k}]"] for k in range(ndim)]
+    boxmin = [fp[f"boxmin[{k}]"] for k in range(ndim)]
+    boxmax = [fp[f"boxmax[{k}]"] for k in range(ndim)]
+    rho0 = fp["rhofluid1"]
+    kefrac = fp["kefrac"]
+    h_fac = fp["h_fac"]
+    smooth = bool(ip["smooth_ic"])
+    import torch
+
+    from ..kernels.smoothing import kernel_factory
+    kern = kernel_factory(params.stringparams["kernel"], ndim,
+                          params.intparams["tabulated_kernel"])
+
+    r = add_cubic_lattice(n_lattice, boxmin, boxmax)
+    N = r.shape[0]
+    volume = np.prod([boxmax[k] - boxmin[k] for k in range(ndim)])
+    m = np.full(N, rho0 * volume / N)
+    h = h_fac * (m / rho0) ** (1.0 / ndim)
+    r_hot = h_fac * kern.kernrange * (boxmax[0] - boxmin[0]) / n_lattice[0]
+
+    drsqd = (r ** 2).sum(-1)
+    hot = drsqd < r_hot * r_hot
+    if smooth:
+        w = kern.w0(torch.as_tensor(
+            kern.kernrange * np.sqrt(drsqd) / r_hot)).numpy()
+        u = np.where(hot, m * w, 0.0)
+    else:
+        u = np.where(hot, m, 0.0)
+    utot = u.sum()
+    ufrac = max(0.0, 1.0 - kefrac)
+    u_hot = u / utot / m
+    v = np.zeros((N, ndim))
+    drmag = np.sqrt(drsqd) + 1e-30
+    vmag = np.sqrt(2.0 * kefrac * u_hot)
+    v = np.where(hot[:, None], vmag[:, None] * r / drmag[:, None], v)
+    u = np.where(hot, ufrac * u_hot, 1.0e-6 / m)
+    return {"r": r, "v": v, "m": m, "h": h, "u": u}
+
+
+def khi_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Kelvin-Helmholtz instability: two shearing layers + seeded mode
+    (src/Ic/KhiIc.cpp)."""
+    ip, fp = params.intparams, params.floatparams
+    if ip["ndim"] != 2:
+        raise ValueError("khi IC is 2D only")
+    boxmin = [fp["boxmin[0]"], fp["boxmin[1]"]]
+    boxmax = [fp["boxmax[0]"], fp["boxmax[1]"]]
+    Ly = boxmax[1] - boxmin[1]
+    rho1, rho2 = fp["rhofluid1"], fp["rhofluid2"]
+    press1, press2 = fp["press1"], fp["press2"]
+    v1, v2 = fp["vfluid1[0]"], fp["vfluid2[0]"]
+    amp, lam = fp["amp"], fp["lambda"]
+    gammam1 = fp["gamma_eos"] - 1.0
+    h_fac = fp["h_fac"]
+    N1 = [ip["Nlattice1[0]"], ip["Nlattice1[1]"]]
+    N2 = [ip["Nlattice2[0]"], ip["Nlattice2[1]"]]
+    # bottom half = fluid 1, top half = fluid 2, both then shifted down by
+    # Ly/4 so the interfaces sit at y = +-0.25 (reference :31-76)
+    half = boxmin[1] + 0.5 * Ly
+    r1 = add_cubic_lattice(N1, boxmin, [boxmax[0], half])
+    r2 = add_cubic_lattice(N2, [boxmin[0], half], boxmax)
+    volume = (boxmax[0] - boxmin[0]) * 0.5 * Ly
+    r = np.concatenate([r1, r2], axis=0)
+    r[:, 1] -= 0.25 * Ly
+    r[:, 1] = np.where(r[:, 1] < boxmin[1], r[:, 1] + Ly, r[:, 1])
+    n1, n2 = len(r1), len(r2)
+    m = np.concatenate([np.full(n1, rho1 * volume / n1),
+                        np.full(n2, rho2 * volume / n2)])
+    rho = np.concatenate([np.full(n1, rho1), np.full(n2, rho2)])
+    u = np.concatenate([np.full(n1, press1 / rho1 / gammam1),
+                        np.full(n2, press2 / rho2 / gammam1)])
+    h = h_fac * (m / rho) ** 0.5
+    v = np.zeros((n1 + n2, 2))
+    v[:n1, 0] = v1
+    v[n1:, 0] = v2
+    sigma = 0.05 / np.sqrt(2.0)
+    v[:, 1] = amp * np.sin(2.0 * np.pi * r[:, 0] / lam) * (
+        np.exp(-((r[:, 1] + 0.25) ** 2) / (2.0 * sigma ** 2))
+        + np.exp(-((r[:, 1] - 0.25) ** 2) / (2.0 * sigma ** 2)))
+    return {"r": r, "v": v, "m": m, "h": h, "u": u}
+
+
+def noh_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Noh problem: uniform gas with radial inflow v_r = -1
+    (src/Ic/NohIc.cpp)."""
+    ip, fp = params.intparams, params.floatparams
+    ndim = ip["ndim"]
+    n_lattice = [ip[f"Nlattice1[{k}]"] for k in range(ndim)]
+    boxmin = [fp[f"boxmin[{k}]"] for k in range(ndim)]
+    boxmax = [fp[f"boxmax[{k}]"] for k in range(ndim)]
+    rho0 = fp["rhofluid1"]
+    press0 = fp["press1"]
+    gammam1 = fp["gamma_eos"] - 1.0
+    h_fac = fp["h_fac"]
+    r = add_cubic_lattice(n_lattice, boxmin, boxmax)
+    N = r.shape[0]
+    rad = np.sqrt((r ** 2).sum(-1)) + 1e-30
+    v = -r / rad[:, None]
+    volume = np.prod([boxmax[k] - boxmin[k] for k in range(ndim)])
+    m = np.full(N, rho0 * volume / N)
+    h = h_fac * (m / rho0) ** (1.0 / ndim)
+    u = np.full(N, press0 / (rho0 * gammam1))
+    return {"r": r, "v": v, "m": m, "h": h, "u": u}
 
 
 def add_lattice_sphere(n_target: int, radius: float, ndim: int = 3
@@ -476,6 +672,11 @@ def quadruple_ic(params) -> Dict[str, np.ndarray]:
 
 
 _IC_REGISTRY = {
+    "shocktube": shocktube_ic,
+    "soundwave": soundwave_ic,
+    "sedov": sedov_ic,
+    "khi": khi_ic,
+    "noh": noh_ic,
     "box": uniform_box_ic,
     "sphere": sphere_ic,
     "jeans": jeans_ic,

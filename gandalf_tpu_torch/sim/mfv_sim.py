@@ -67,6 +67,12 @@ class MfvMusclSimulation(SimulationBase):
         if sp["gas_eos"] not in ("energy_eqn", "constant_temp", "radws"):
             raise _unsupported(f"gas_eos {sp['gas_eos']!r} in MFV", "item 10")
         self._common_parameters()
+        if self.ndim != 3:
+            raise _unsupported("MFV at ndim < 3 (K10-K12 are 3D)",
+                               "item 10")
+        if self.box.mirror_walls():
+            raise _unsupported("mirror/wall boundaries in MFV",
+                               "items 8 and 10")
         self.mfv_cfg = mfv_ops.MfvConfig(
             gamma=p.floatparams["gamma_eos"],
             zero_mass_flux=bool(ip["zero_mass_flux"]),

@@ -12,11 +12,13 @@ controller is in ``sim/mfv_sim.py``, the N-body one in ``sim/nbody_sim.py``.
 ``GradhSphSimulation`` is the counterpart of gandalf_tpu's
 ``GradhSphSimulation`` for one configuration: grad-h SPH with the M4
 kernel, the adiabatic, isothermal, barotropic or polytropic EOS, mon97
-viscosity (or none) and optional conductivity, the structured 27-shift
-grid, KDK leapfrog with a global timestep or with hierarchical block
-timesteps (``Nlevels > 1``), and optionally self-gravity from the
-KD-bucket Barnes-Hut tree (frontier walk; geometric, gadget2 or eigenmac
-MAC; monopole or quadrupole moments, at every particle or expanded about
+viscosity (or none) and optional conductivity, the structured 3^ndim
+shift grid (in 1D and 2D too, and with mirror or wall boundaries, whose
+reflected images the grid holds in an image-cell layer beyond each
+wall; hydro only there), KDK leapfrog with a global timestep or with
+hierarchical block timesteps (``Nlevels > 1``), and optionally
+self-gravity from the KD-bucket Barnes-Hut tree (frontier walk;
+geometric, gadget2 or eigenmac MAC; monopole or quadrupole moments, at every particle or expanded about
 each bucket's centre; the Ewald sum of a periodic box, fully periodic,
 slab or cylinder), with its buckets replanned every ``ntreebuildstep``
 steps.  With a global timestep it also runs star and sink particles
@@ -155,8 +157,8 @@ class SimulationBase:
         """Units, kernel, EOS, box and the gravity options."""
         p = self.params
         ip, sp = p.intparams, p.stringparams
-        if self.ndim != 3:
-            raise _unsupported("ndim != 3", "item 3")
+        if self.ndim not in (1, 2, 3):
+            raise ValueError(f"ndim must be 1, 2 or 3, not {self.ndim}")
         if sp["gas_eos"] == "radws":
             raise _unsupported("radws", "item 9")
         if sp["radiation"] not in ("none", "null", ""):
@@ -174,8 +176,6 @@ class SimulationBase:
                                    ip["tabulated_kernel"])
         self.eos = eos_factory(p)
         self.box = DomainBox.from_params(p)
-        if self.box.mirror_walls():
-            raise _unsupported("mirror/wall boundaries", "item 8")
         self.self_gravity = bool(ip["self_gravity"])
         if self.self_gravity:
             self._check_gravity_options()
@@ -196,6 +196,13 @@ class SimulationBase:
         KD buckets (every MAC, multipole and Ewald option of the JAX
         package)."""
         p = self.params
+        if self.ndim != 3:
+            raise _unsupported("self-gravity at ndim < 3 (the tree kernels "
+                               "K4-K7 are 3D)", "item 3")
+        if self.box.mirror_walls():
+            raise _unsupported("mirror/wall boundaries with self-gravity "
+                               "(the JAX package's all-pairs path)",
+                               "item 8")
         if p.stringparams["neib_search"] == "octtree":
             raise _unsupported("neib_search = octtree (Morton buckets)",
                                "item 8")
@@ -533,6 +540,13 @@ class GradhSphSimulation(SimulationBase):
         # hierarchical block timesteps on the grid path
         self.nlevels = max(ip["Nlevels"], 1)
         self.use_block = self.nlevels > 1
+        if self.use_block and self.ndim != 3:
+            raise _unsupported("block timesteps (Nlevels > 1) at ndim < 3 "
+                               "(K8 and K9 are 3D)", "item 3")
+        if self.use_block and self.box.mirror_walls():
+            raise _unsupported("mirror/wall boundaries with block timesteps "
+                               "(the JAX package's all-pairs path)",
+                               "item 8")
         self.block_cfg = BlockConfig(nlevels=self.nlevels,
                                      level_diff_max=ip["level_diff_max"])
         self.u_mode = "energy" if self.integ.energy_integration else "none"
@@ -547,8 +561,13 @@ class GradhSphSimulation(SimulationBase):
             self._check_sink_options()
 
     def _check_sink_options(self):
-        """The sink options the port runs: a global timestep and plain
-        accretion."""
+        """The sink options the port runs: a global timestep, plain
+        accretion, 3D and no mirror walls."""
+        if self.ndim != 3:
+            raise _unsupported("sinks at ndim < 3", "item 9")
+        if self.box.mirror_walls():
+            raise _unsupported("mirror/wall boundaries with sinks (the JAX "
+                               "package's all-pairs path)", "item 8")
         if self.use_block:
             raise _unsupported("sinks with block timesteps (Nlevels > 1 "
                                "needs the ladder's dt_extra)", "item 9")
@@ -771,7 +790,9 @@ class GradhSphSimulation(SimulationBase):
             t = torch.clamp_max(s.t + dt, tend) if bounded else s.t + dt
             overflow_in = s.neib_overflow
             s = predict(integ, s, dt)
-            s = s.replace(r=box.wrap(s.r), r0=box.wrap(s.r0))
+            # boundary enforcement: wrap, then reflect across mirror walls
+            r, v = box.reflect(box.wrap(s.r), s.v)
+            s = s.replace(r=r, v=v, r0=box.wrap(s.r0))
             if self.has_sinks:
                 sk = s.sinks
                 s = s.replace(sinks=sk.replace(
@@ -799,7 +820,8 @@ class GradhSphSimulation(SimulationBase):
         particle's EOS from its predicted u (so inactive neighbours'
         pressure and sound match it).  Returns (state, active mask)."""
         s, active, t = advance(s, B, self.u_mode)
-        s = s.replace(r=self.box.wrap(s.r), r0=self.box.wrap(s.r0), t=t)
+        r, v = self.box.reflect(self.box.wrap(s.r), s.v)
+        s = s.replace(r=r, v=v, r0=self.box.wrap(s.r0), t=t)
         if self.u_mode != "none":
             u_n, p_n, c_n = self.eos.thermal_update(
                 torch.clamp_min(s.rho, 1e-30), s.u)

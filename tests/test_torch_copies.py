@@ -200,9 +200,67 @@ def test_eos_classes_are_identical(name):
             assert np.all(np.abs(x - y) <= 2e-15 * np.abs(y)), tag
 
 
+def _hydro_test_ic_params(case):
+    """The hydro tests' ICs at a small size: the Sod tube and the sound
+    wave (1D), the KHI (2D), the Sedov blast (2D lattice, smoothed and
+    not, with some kinetic energy) and the Noh implosion (3D)."""
+    from gandalf_tpu_torch.check import khi_params, sod_params
+
+    if case == "shocktube":
+        return sod_params(64, 16)
+    if case == "khi":
+        return khi_params(1)
+    p = params.Parameters()
+    ndim = {"soundwave": 1, "sedov_smooth": 2, "sedov": 2, "noh": 3}[case]
+    base = dict(ic=case.split("_")[0], ndim=ndim, dimensionless=1,
+                gamma_eos=1.4, rhofluid1=1.0, press1=1.0, amp=0.05,
+                kefrac=0.3, smooth_ic=int(case == "sedov_smooth"))
+    for k, v in base.items():
+        p.set(k, v)
+    for k in range(ndim):
+        p.set(f"Nlattice1[{k}]", 24 if ndim < 3 else 8)
+        p.set(f"boxmin[{k}]", -1.0)
+        p.set(f"boxmax[{k}]", 1.0)
+    return p
+
+
+@pytest.mark.parametrize("case", ["shocktube", "soundwave", "khi", "sedov",
+                                  "sedov_smooth", "noh"])
+def test_hydro_test_ics_are_identical(case):
+    """shocktube_ic, soundwave_ic, khi_ic, sedov_ic (with the port's own
+    M4 kernel for the smoothed injection) and noh_ic equal the JAX
+    package's bit for bit."""
+    p = _hydro_test_ic_params(case)
+    q = jparams.Parameters()
+    for table in ("intparams", "floatparams", "stringparams"):
+        getattr(q, table).update(getattr(p, table))
+    mine, theirs = _ics(p, q)
+    assert sorted(mine) == sorted(theirs)
+    for k in mine:
+        assert np.array_equal(mine[k], theirs[k]), k
+
+
+@pytest.mark.parametrize("t", [0.0, 0.25, 0.5])
+def test_riemann_copy_is_identical(t):
+    """analysis/riemann.py's shocktube solution equals the JAX package's
+    (both numpy) bit for bit, for the Sod tube and a two-shock case."""
+    from gandalf_tpu.analysis import riemann as jr
+    from gandalf_tpu_torch.analysis import riemann as tr
+
+    for case in ((1.0, 0.0, 1.0, 0.25, 0.0, 0.1975, 1.4),
+                 (1.0, 2.0, 0.4, 1.0, -2.0, 0.4, 5.0 / 3.0)):
+        mine = tr.shocktube_solution(*case, -1.0, 0.0, 1.0, t, n=4096)
+        theirs = jr.shocktube_solution(*case, -1.0, 0.0, 1.0, t, n=4096)
+        assert sorted(mine) == sorted(theirs)
+        for k in mine:
+            assert np.array_equal(mine[k], theirs[k]), k
+    assert tr.star_region(1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4) \
+        == jr.star_region(1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4)
+
+
 def test_other_ics_raise():
     p = params.Parameters()
-    p.set("ic", "sedov")
+    p.set("ic", "gresho")
     with pytest.raises(NotImplementedError, match="item 9"):
         ic.generate_ic(p, None)
 

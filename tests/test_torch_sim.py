@@ -115,11 +115,12 @@ def test_run_lands_on_tend():
 def test_options_outside_the_slice_raise(key, value):
     """Options the port does not run raise; sinks and dust stay refused
     with block timesteps (Nlevels = 3), sinks with smooth accretion and
-    in the MFV controller (which has no sink code), and self-gravity
+    in the MFV controller (which has no sink code), self-gravity
     (which runs every walk option, the Ewald sum of this periodic box
-    included) with octtree buckets."""
+    included) with octtree buckets, and a 2D run (which the grid path
+    now takes) with block timesteps."""
     p = slice_params(8)
-    if key in ("sink_particles", "dust_forces"):
+    if key in ("sink_particles", "dust_forces", "ndim"):
         p.set("Nlevels", 3)
     if key in ("smooth_accretion", "sim"):
         p.set("sink_particles", 1)

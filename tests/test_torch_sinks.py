@@ -250,8 +250,9 @@ def test_kill_eaten_matches_jax():
 
 def test_tree_with_dead_particles_matches_jax():
     """tree_gravity_grouped with an alive mask (K4's alive input through
-    K5-K7 plain): dead particles are no sources and get a = gpot = 0; the
-    alive particles' field matches the JAX package's within 1e-10."""
+    K5-K7 plain): dead particles are no sources, and every particle's
+    field, the dead's at their frozen positions included, matches the
+    JAX package's within 1e-10 (ROADMAP fault F12)."""
     rng = np.random.default_rng(5)
     N = 1500
     r = rng.standard_normal((N, 3)) / 3.0
@@ -270,14 +271,44 @@ def test_tree_with_dead_particles_matches_jax():
     a, gpot, ovf = tt.tree_gravity_grouped(spec, _t(gmap), _t(r), _t(m),
                                            _t(h), kern_t, alive=_t(alive))
     assert bool(ovf) == bool(o_w)
-    assert _scaled(a.numpy()[alive], np.asarray(a_w)[alive]) <= 1e-10
-    assert _scaled(gpot.numpy()[alive], np.asarray(p_w)[alive]) <= 1e-10
-    assert not a.numpy()[~alive].any() and not gpot.numpy()[~alive].any()
+    assert _scaled(a.numpy(), np.asarray(a_w)) <= 1e-10
+    assert _scaled(gpot.numpy(), np.asarray(p_w)) <= 1e-10
+    assert gpot.numpy()[~alive].all()
     _, slot_alive = tt.gather_to_buckets(spec, _t(gmap), _t(r), _t(m),
                                          alive=_t(alive))
     flat = gmap.reshape(-1)
     assert np.array_equal(slot_alive.numpy(),
                           (flat >= 0) & alive[np.maximum(flat, 0)])
+
+
+def test_tree_with_an_all_dead_bucket_matches_jax():
+    """A bucket whose particles are all dead walks nothing in the port
+    (K6/K7 skip a group without a live slot) and gets zero a and gpot;
+    the JAX package gives them zero too, and every other particle's
+    field matches within 1e-10 (ROADMAP fault F12)."""
+    rng = np.random.default_rng(5)
+    N = 1500
+    r = rng.standard_normal((N, 3)) / 3.0
+    m = rng.random(N) * (2.0 / N)
+    h = 0.05 * (1.0 + rng.random(N))
+    gmap = jt.plan_buckets_kd(r, 32)
+    alive = rng.random(N) > 0.2
+    bucket = gmap[3][gmap[3] >= 0]
+    alive[bucket] = False
+    m = np.where(alive, m, 0.0)
+    h = np.where(alive, h, 1.0)
+    jspec = jt.plan_tree_for_buckets(gmap, 0.1)
+    a_w, p_w, o_w = jt.tree_gravity_grouped(
+        jspec, jnp.asarray(gmap), jnp.asarray(r), jnp.asarray(m),
+        jnp.asarray(h), jax_kernel("m4", 3), alive=jnp.asarray(alive))
+    a, gpot, ovf = tt.tree_gravity_grouped(
+        tree_spec_from_jax(jspec), _t(gmap), _t(r), _t(m), _t(h),
+        kernel_factory("m4", 3), alive=_t(alive))
+    assert bool(ovf) == bool(o_w)
+    assert not np.asarray(p_w)[bucket].any()
+    assert not gpot.numpy()[bucket].any() and not a.numpy()[bucket].any()
+    assert _scaled(a.numpy(), np.asarray(a_w)) <= 1e-10
+    assert _scaled(gpot.numpy(), np.asarray(p_w)) <= 1e-10
 
 
 def test_jax_tree_and_star_gas_accuracy_on_bb():

@@ -141,7 +141,38 @@ printing one line:
 34. mirror_box: both wall layouts at 64^3 in float32, 2 warm-up and 16
    timed steps, with no particle beyond a wall after each burst, K19
    launched every step, energy drift, finiteness and overflow, and the
-   mirror path's kernels against their plain versions.
+   mirror path's kernels against their plain versions;
+35. td_sink_kernels: K20 (smooth accretion, both its launches), K21 (the
+   Cullen & Dehnen switch) and K22 (the neighbour-level pass) against
+   their plain versions on the card in float64 and float32: K20 on
+   check.smooth_accretion_inputs at 16 and 64 slots (a particle at equal
+   distance from two sinks, dead gas, empty slots, gas going whole and in
+   part), timed at the embedded cluster (262,144 gas, 4,096 stars); K21
+   on the Sod tube, the small KHI and the box at 16^3 and 32^3 (one
+   particle's h shrunk so that its rr is singular and `bad` fires),
+   timed at the 64^3 box; K22 on the boxes at 16^3 and 32^3 (random
+   levels, 5% dead) and on cold_sphere_block;
+36. block_sink_parity: float64 on the card against the plain path on the
+   CPU: 12 ticks of the hybrid Plummer sphere of sink_parity (512 gas,
+   16 stars) with Nlevels 3, level_diff_max 1, smooth accretion and mm97
+   (equal levels, nlast, alive gas, sink masses and tree plans on every
+   tick), and 6 global steps of sink_parity's Boss-Bodenheimer cloud
+   with cd2010 and smooth accretion;
+37. bb_block_collapse: check.bb_block_params at about 262,144 particles
+   in float32 (Nlevels 5, level_diff_max 2, smooth accretion, mm97,
+   rho_sink 2e-17 g cm^-3): setup, 4 warm-up ticks, 32 timed ticks, with
+   ticks/s, alive particle-updates/s, the level histogram, sinks formed,
+   the gas left with part of its mass (none here: dt_base stays below
+   smooth_accrete_dt times every sink's orbital time, so each claimed
+   particle goes whole; `orbit_rule` prints both), gas plus sink mass in
+   float64 (within 1e-6), the sink ledger per call, alpha's range,
+   launches per tick, finiteness and replans; then K20 and K22 against
+   their plain versions at the path's state;
+38. khi_cd2010: khi_main_path's KHI with cd2010 in float32, 2 warm-up and
+   32 timed steps: the rate beside khi_main_path's, K21 (2D) once a
+   step, median alpha below 0.15, finiteness, energy drift, momentum;
+39. sod_td_avisc: the Sod tube (256 + 64) in float64 to t = 0.25 with
+   mm97, then cd2010, each held to tests/test_adsod.py:111-179's gates.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -152,7 +183,10 @@ path and K13 and K15 from the hermite6ts path, the Ewald modes of K6
 and K7 from the Ewald main path, the gadget2, eigenmac and fast modes
 from the options path, K16-K18 from the sink path, the 2D K1-K3 from
 khi_main_path, the 1D ones from sod_path's periodic run and K19 from
-mirror_box's dim-0 layout, each counted over its path's timed window
+mirror_box's dim-0 layout, K20 and K22 from bb_block_collapse, K21 in
+2D from khi_cd2010, in 1D from sod_td_avisc's cd2010 run and in 3D from
+block_sink_parity's Boss-Bodenheimer run on the card (timed at the 64^3
+box in phase 35), each counted over its path's timed window
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
 for the work, check.bound) and library_ms null where no single PyTorch
@@ -168,6 +202,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -294,6 +329,23 @@ MIRROR_KERNEL_N = 16
 MIRROR_PARITY_N = 8
 MIRROR_STEPS_WARM = 2
 MIRROR_STEPS_TIMED = 16
+# block-stepped star formation and time-dependent viscosity
+TD_SMOOTH_SIZES = ((4096, 16), (4096, 64))
+TD_CLUSTER = (262144, 4096)
+TD_BOX_SIDES = (16, 32)
+BLOCK_SINK_PARITY_TICKS = 12
+BB_CD_PARITY_STEPS = 6
+BB_BLOCK_TICKS_WARM = 4
+BB_BLOCK_TICKS_TIMED = 32
+KHI_CD_STEPS_WARM = 2
+KHI_CD_STEPS_TIMED = 32
+# tests/test_adsod.py:111-179: alpha starts at alpha_visc_min, its
+# largest value passes 0.2 (mm97) or 0.25 (cd2010) at the shock, its
+# median stays below 0.15, and L1(vx) < 0.02 at t = 0.25
+TD_SOD = (256, 64, 0.25)
+TD_ALPHA_MAX = {"mm97": 0.2, "cd2010": 0.25}
+TD_ALPHA_MEDIAN = 0.15
+TD_SOD_L1 = 0.02
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -364,6 +416,16 @@ SOURCES = {
                          "gandalf_tpu/ops/sph_grid27.py:528"),
     "grid27_mirror": ("gandalf_tpu_torch/csrc/grid27_mirror.cu",
                       "gandalf_tpu/ops/sph_grid27.py:234"),
+    "smooth_accretion": ("gandalf_tpu_torch/csrc/sinks.cu",
+                         "gandalf_tpu/ops/sinks.py:182"),
+    "cullen_dehnen": ("gandalf_tpu_torch/csrc/cullen_dehnen.cu",
+                      "gandalf_tpu/ops/forces.py:267"),
+    "cullen_dehnen_2d": ("gandalf_tpu_torch/csrc/cullen_dehnen.cu",
+                         "gandalf_tpu/ops/forces.py:267"),
+    "cullen_dehnen_1d": ("gandalf_tpu_torch/csrc/cullen_dehnen.cu",
+                         "gandalf_tpu/ops/forces.py:267"),
+    "levelneib": ("gandalf_tpu_torch/csrc/grid27_levelneib.cu",
+                  "gandalf_tpu/sim/simulation.py:1682"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
@@ -381,6 +443,11 @@ EWALD = HYDRO + ("tree_gather", "tree_build", "tree_walk_ewald",
 SINK = ("star_gas_forces", "sink_candidate", "accretion_sums",
         "direct_softened")
 BB = GRAVITY + SINK
+# the kernels of a dense block tick of bb_block_collapse
+BB_BLOCK = GRAVITY + ("star_gas_forces", "sink_candidate",
+                      "direct_softened", "smooth_accretion", "levelneib")
+# rates of earlier phases that later ones print beside their own
+RATES = {}
 
 
 def phase(tag: str, **fields) -> None:
@@ -1498,6 +1565,7 @@ def khi_main_path(dev, card):
           checks=checks, kernels=rep, slot_mappings=mapping, card=card,
           peak_mem_gb=peak_gb,
           seconds=time.perf_counter() - t_phase)
+    RATES["khi_main_path"] = N * KHI_STEPS_TIMED / elapsed
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
@@ -1661,6 +1729,444 @@ def mirror_box(dev, card):
         del sim, s
     phase("mirror_box_done", seconds=time.perf_counter() - t_phase)
     return k19_launches, k19_rep
+
+
+def _td_sim(case, device, dtype, scheme="cd2010"):
+    """A simulation with time_dependent_avisc = `scheme` after setup and
+    one step: "sod" (512 + 128), "khi_small" (32x16 + 48x24) or the box
+    at `case`^3 (jittered, hydro only)."""
+    from gandalf_tpu_torch.check import (jittered_box_ic, khi_params,
+                                         slice_params, sod_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    ic = None
+    if case == "sod":
+        params = sod_params()
+    elif case == "khi_small":
+        params = khi_params(1)
+    else:
+        params = slice_params(case)
+        ic = jittered_box_ic(params, case)
+    params.set("time_dependent_avisc", scheme)
+    sim = GradhSphSimulation(params, device=device, dtype=dtype)
+    sim.SetupSimulation(ic)
+    sim.main_loop_step()
+    return sim
+
+
+def td_sink_kernels(dev):
+    """K20-K22 against their plain versions on the card in float64 and
+    float32 (phase 35); K20 timed at the embedded cluster and K21 at the
+    64^3 box in float32.  Returns K21's 3D report at the box."""
+    from gandalf_tpu_torch.check import (bound, compare_td_sink_kernels,
+                                         smooth_accretion_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.ops.sinks import smooth_claims
+    from gandalf_tpu_torch.state import FLAG_DEAD
+
+    t0 = time.perf_counter()
+    kern = kernel_factory("m4", 3)
+    for n, ns in TD_SMOOTH_SIZES + (TD_CLUSTER,):
+        for dtype in (torch.float64, torch.float32):
+            cluster = (n, ns) == TD_CLUSTER
+            if cluster and dtype == torch.float64:
+                continue
+            inputs = smooth_accretion_inputs(n, ns, dev, dtype)
+            rep = compare_td_sink_kernels(kern, smooth_inputs=inputs,
+                                          repeats=3 if cluster else 0)
+            r = rep["smooth_accretion"]
+            r["bound_ms"], r["bound_by"] = bound(r["work"], dtype)
+            if not cluster:
+                claim, _ = smooth_claims(inputs["cfg"], inputs["sinks"],
+                                         inputs["r"], inputs["alive"])
+                r["tie_to_lower_slot"] = int(claim[4]) == 2
+                r["ok"] = r["ok"] and r["tie_to_lower_slot"] \
+                    and r["whole"] > 0 and r["partial"] > 0
+            phase("td_sink_kernels", kernel="K20", N=n, Ns=ns,
+                  dtype=str(dtype), report=rep)
+            require_ok("td_sink_kernels", rep)
+    for case in ("sod", "khi_small") + TD_BOX_SIDES:
+        for dtype in (torch.float64, torch.float32):
+            sim = _td_sim(case, dev, dtype)
+            s = sim.state
+            if case == TD_BOX_SIDES[0]:
+                # one particle whose support holds no neighbour: its rr is
+                # singular and the switch takes alpha_visc (bad)
+                s = s.replace(h=torch.where(
+                    torch.arange(s.N, device=dev) == 0, 1e-3 * s.h, s.h))
+            if case in TD_BOX_SIDES:
+                rng = np.random.default_rng(case)
+                lv = torch.as_tensor(rng.integers(0, 5, s.N),
+                                     dtype=torch.int32, device=dev)
+                dead = torch.as_tensor(rng.random(s.N) < 0.05, device=dev)
+                s = s.replace(level=lv, flags=torch.where(
+                    dead, s.flags | FLAG_DEAD, s.flags))
+            rep = compare_td_sink_kernels(sim=sim, state=s)
+            phase("td_sink_kernels", kernel="K21" + (
+                "/K22" if "levelneib" in rep else ""), case=str(case),
+                  ndim=sim.ndim, N=s.N, dtype=str(dtype), report=rep)
+            require_ok("td_sink_kernels", rep)
+            if case == TD_BOX_SIDES[0]:
+                name = "cullen_dehnen"
+                if rep[name]["bad"] < 1:
+                    raise RuntimeError("td_sink_kernels: the singular "
+                                       "neighbourhood did not set bad")
+    for dtype in (torch.float64, torch.float32):
+        sim = make_block_sim(BLOCK_PARITY_N, dev, dtype)
+        sim.SetupSimulation()
+        for _ in range(2):
+            sim.main_loop_step()
+        rep = compare_td_sink_kernels(sim=sim, state=sim.state)
+        phase("td_sink_kernels", kernel="K22", case="cold_sphere_block",
+              N=sim.state.N, dtype=str(dtype), report=rep)
+        require_ok("td_sink_kernels", rep)
+    sim = _td_sim(N_MAIN, dev, torch.float32)
+    rep = compare_td_sink_kernels(sim=sim, state=sim.state, repeats=5)
+    box = {"cullen_dehnen": rep["cullen_dehnen"]}
+    for r in box.values():
+        r["bound_ms"], r["bound_by"] = bound(r["work"], torch.float32)
+    phase("td_sink_kernels", kernel="K21", case=f"box_{N_MAIN}",
+          N=sim.state.N, dtype=str(torch.float32), report=box,
+          seconds=time.perf_counter() - t0)
+    require_ok("td_sink_kernels", box)
+    return box
+
+
+def block_sink_parity(dev):
+    """Phase 36: float64, kernels on the card against the plain path on
+    the CPU: the block-stepped hybrid Plummer sphere with smooth
+    accretion and mm97 (equal levels, nlast, alive gas and tree plans
+    on every tick, sink masses within PARITY_TOL), and the
+    Boss-Bodenheimer cloud with cd2010 and smooth accretion.  Returns
+    the card's K21 (3D) launches over the cloud's steps."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import bb_params, plummer_block_params
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    n_gas, n_star = SINK_PARITY_PLUMMER
+    sims = []
+    for device in (dev, torch.device("cpu")):
+        sim = GradhSphSimulation(plummer_block_params(n_gas, n_star),
+                                 device=device, dtype=torch.float64)
+        sim.SetupSimulation()
+        sims.append(sim)
+    same, sink_err = True, 0.0
+    for _ in range(BLOCK_SINK_PARITY_TICKS):
+        for sim in sims:
+            sim.main_loop_step()
+        a, b = (x.state for x in sims)
+        for f in ("level", "nlast", "alive"):
+            same &= bool(torch.equal(getattr(a, f).cpu(), getattr(b, f)))
+        same &= bool(torch.equal(a.sinks.active.cpu(), b.sinks.active))
+        sink_err = max(sink_err, float(
+            torch.abs(a.sinks.m.cpu() - b.sinks.m).max()
+            / b.sinks.m.abs().max()))
+    torch.cuda.synchronize()
+    errs = parity_errors(sims, ("r", "v", "u", "h", "rho", "gpot", "alpha",
+                                "m"))
+    errs["sink_m"] = sink_err
+    for f in ("r", "v", "angmom", "mdot"):
+        x = getattr(sims[0].state.sinks, f).cpu()
+        ref = getattr(sims[1].state.sinks, f)
+        errs[f"sink_{f}"] = float(torch.abs(x - ref).max()
+                                  / ref.abs().max().clamp_min(1e-300))
+    counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
+    s = sims[1].state
+    m0 = float(s.m[s.alive].max())
+    phase("block_sink_parity", run="plummer_block", N=s.N,
+          ticks=BLOCK_SINK_PARITY_TICKS, rel_err=errs,
+          same_levels_nlast_alive_each_tick=same,
+          levels=torch.bincount(s.level).tolist(),
+          partial=int((s.alive & (s.m < 0.999 * m0)).sum()),
+          dead=int((~s.alive).sum()),
+          alpha_max=float(s.alpha.max()), tree_plans_and_replans=counts)
+    if max(errs.values()) > PARITY_TOL or not same or counts[0] != counts[1]:
+        raise RuntimeError(f"block_sink_parity: kernel path disagrees with "
+                           f"the plain path: {errs} {counts} {same}")
+    sims = []
+    k21 = 0
+    for device in (dev, torch.device("cpu")):
+        p = bb_params(SINK_PARITY_BB_N, rho_sink=BB_RHO_SINK)
+        for k, v in {"particle_distribution": "random",
+                     "rand_algorithm": "default",
+                     "time_dependent_avisc": "cd2010",
+                     "smooth_accretion": 1}.items():
+            p.set(k, v)
+        sim = GradhSphSimulation(p, device=device, dtype=torch.float64)
+        sim.SetupSimulation()
+        if device == dev:
+            _ext.reset_launches()
+        for _ in range(BB_CD_PARITY_STEPS):
+            sim.main_loop_step()
+        if device == dev:
+            torch.cuda.synchronize()
+            k21 = _ext.LAUNCHES["cullen_dehnen"]
+        sims.append(sim)
+    errs = parity_errors(sims, ("r", "v", "u", "h", "rho", "gpot", "alpha",
+                                "m"))
+    for f in ("r", "v", "m", "angmom"):
+        x = getattr(sims[0].state.sinks, f).cpu()
+        ref = getattr(sims[1].state.sinks, f)
+        errs[f"sink_{f}"] = float(torch.abs(x - ref).max()
+                                  / ref.abs().max().clamp_min(1e-300))
+    same = bool(torch.equal(sims[0].state.alive.cpu(), sims[1].state.alive))
+    counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
+    s = sims[1].state
+    phase("block_sink_parity", run="bb_cd2010_smooth", N=s.N,
+          steps=BB_CD_PARITY_STEPS, rel_err=errs, same_alive=same,
+          sinks=int(s.sinks.active.sum()), dead=int((~s.alive).sum()),
+          alpha_range=[float(s.alpha[s.alive].min()),
+                       float(s.alpha[s.alive].max())],
+          k21_launches=k21, tree_plans_and_replans=counts,
+          seconds=time.perf_counter() - t0)
+    if max(errs.values()) > PARITY_TOL or not same \
+            or counts[0] != counts[1] or k21 < BB_CD_PARITY_STEPS:
+        raise RuntimeError(f"block_sink_parity: kernel path disagrees with "
+                           f"the plain path: {errs} {counts} {same} {k21}")
+    return {"cullen_dehnen": k21}
+
+
+def bb_block_collapse(dev, card):
+    """Phase 37, the slice at full width: bb_block_params at about
+    262,144 particles in float32, setup, warm-up ticks, the timed ticks
+    (the counts set to 0 just before them), the checks, then K20 and
+    K22 against their plain versions at the path's state.  Returns their
+    launches and reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (bb_block_params, bound,
+                                         compare_td_sink_kernels,
+                                         ledger_errors, sim_smooth_inputs,
+                                         sink_ledger, smooth_args,
+                                         total_mass)
+    from gandalf_tpu_torch.ops.sinks import smooth_accretion_sums
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    sim = GradhSphSimulation(bb_block_params(BB_N, rho_sink=BB_RHO_SINK),
+                             device=dev, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    m_start = sim.state.m.clone()
+    mass0 = total_mass(sim)
+    sinks0 = int(sim.state.sinks.active.sum())
+    for _ in range(BB_BLOCK_TICKS_WARM):
+        sim.main_loop_step()
+    rows = sink_ledger(sim)
+    replans0 = sim._n_grid_overflows
+    t_sim0 = sim.t
+    # every alive particle takes the dense tick's pass: summed on the
+    # device, read after the window
+    alive_updates = torch.zeros((), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(BB_BLOCK_TICKS_TIMED):
+        sim.main_loop_step()
+        alive_updates += sim.state.alive.sum()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    alive_updates = int(alive_updates)
+    launches = {k: _ext.LAUNCHES[k] for k in BB_BLOCK + ("accretion_sums",)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = sim.state
+    st, alive = s.sinks, s.alive
+    act = st.active
+    n_alive = int(alive.sum())
+    mass1 = total_mass(sim)
+    em, ep, m_given = ledger_errors(rows)
+    ticks_run = len(rows)
+    del rows
+    partial = int((alive & (s.m < m_start)).sum())
+    alpha = s.alpha[alive].double()
+    levels = torch.bincount(s.level[alive].cpu()).tolist()
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)[alive]).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "gpot",
+                                "alpha", "m"))
+        and all(bool(torch.isfinite(getattr(st, f)[act]).all())
+                for f in ("r", "v", "a", "m", "angmom")),
+        "rho_positive": bool((s.rho[alive] > 0).all()),
+        "sinks_formed": int(act.sum()) > sinks0,
+        "mass_conserved": abs(mass1 - mass0) / mass0 <= BB_MASS_TOL,
+        "ledger": len(em) >= BB_BLOCK_TICKS_TIMED
+        and max(em + ep) <= BB_LEDGER_TOL,
+        "no_overflow": not bool(s.neib_overflow),
+        "launches": all(launches[k] >= BB_BLOCK_TICKS_TIMED
+                        for k in BB_BLOCK),
+        "alpha_in_range": float(alpha.min()) >= 0.0
+        and float(alpha.max()) <= sim.visc.alpha_visc,
+    }
+    # the orbit rule of smooth accretion: a claimed particle goes whole
+    # where dt (dt_base here) < smooth_accrete_dt t_orbit of its sink
+    inputs = sim_smooth_inputs(sim)
+    _, sums = smooth_accretion_sums(*smooth_args(sim.kern, inputs))
+    trot = 2.0 * math.pi * torch.sqrt(
+        (sim.sink_cfg.sink_radius * st.h) ** 3
+        / torch.clamp_min(sums["menc"] + st.m, 1e-30))
+    orbit = {"dt_base": float(inputs["dt"]),
+             "smooth_accrete_dt_times_least_t_orbit": float(
+                 sim.params.floatparams["smooth_accrete_dt"]
+                 * trot[act].min()) if bool(act.any()) else None}
+    rep = compare_td_sink_kernels(sim.kern, smooth_inputs=inputs,
+                                  sim=sim, state=s, repeats=5)
+    names = ("smooth_accretion", "levelneib")
+    for k in names:
+        rep[k]["bound_ms"], rep[k]["bound_by"] = bound(rep[k]["work"],
+                                                       torch.float32)
+    phase("bb_block_collapse", N=s.N, ticks=sim.Nsteps,
+          timed_ticks=BB_BLOCK_TICKS_TIMED, ticks_run=ticks_run,
+          setup_s=t_setup, timed_s=elapsed,
+          ticks_per_s=BB_BLOCK_TICKS_TIMED / elapsed,
+          alive_particle_updates_per_s=alive_updates / elapsed,
+          sim_time_per_wall_s=(sim.t - t_sim0) / elapsed,
+          t_code=sim.t, dt_base_code=float(sim._blocksched.dt_base),
+          level_max=int(sim._blocksched.level_max), levels=levels,
+          sinks_active=int(act.sum()), sinks_formed=int(act.sum()) - sinks0,
+          sink_masses=st.m[act].tolist(), alive=n_alive,
+          dead=int((~alive).sum()), partial=partial, orbit_rule=orbit,
+          mass_rel_change=abs(mass1 - mass0) / mass0,
+          ledger_mass_err=max(em), ledger_momentum_err=max(ep),
+          ledger_mass_err_per_call=em, ledger_momentum_err_per_call=ep,
+          mass_given_per_call=m_given,
+          alpha_range=[float(alpha.min()), float(alpha.max())],
+          alpha_median=float(alpha.median()),
+          launches=launches,
+          launches_per_tick={k: v / BB_BLOCK_TICKS_TIMED
+                             for k, v in launches.items()},
+          replans_in_window=sim._n_grid_overflows - replans0,
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          checks=checks, kernels=rep, card=card, peak_mem_gb=peak_gb,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"bb_block_collapse checks failed: {failed}")
+    return {k: launches[k] for k in names}, {k: rep[k] for k in names}
+
+
+def khi_cd2010(dev, card):
+    """Phase 38: khi_main_path's KHI with cd2010 in float32, 2 warm-up
+    and 32 timed steps (the counts set to 0 just before them): the rate
+    beside khi_main_path's, K21 (2D) once a step, median alpha below
+    0.15, finiteness, energy drift and momentum; then K21 against its
+    plain version at the path's state.  Returns its launches and
+    report."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import compare_td_sink_kernels, khi_params
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    params = khi_params(KHI_SCALE)
+    params.set("time_dependent_avisc", "cd2010")
+    sim = GradhSphSimulation(params, device=dev, dtype=torch.float32)
+    sim.SetupSimulation()
+    run_timed(sim, KHI_CD_STEPS_WARM)
+    e0 = energy(sim.state)
+    p0, _ = momentum(sim.state)
+    replans0 = sim._n_grid_overflows
+    _ext.reset_launches()
+    elapsed = run_timed(sim, KHI_CD_STEPS_TIMED)
+    names = [f"{k}_2d" for k in HYDRO] + ["cullen_dehnen_2d"]
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    N = s.N
+    drift = abs(energy(s) - e0) / abs(e0)
+    p1, mv = momentum(s)
+    alpha = s.alpha.double()
+    replans = sim._n_grid_overflows - replans0
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt",
+                                "alpha")),
+        "no_overflow": not bool(s.neib_overflow),
+        # a burst redone after an overflow replan launches again
+        "k21_once_a_step": launches["cullen_dehnen_2d"]
+        == KHI_CD_STEPS_TIMED if replans == 0
+        else launches["cullen_dehnen_2d"] > KHI_CD_STEPS_TIMED,
+        "alpha_median": float(alpha.median()) < TD_ALPHA_MEDIAN,
+        "energy_drift": drift < ENERGY_DRIFT_TOL,
+    }
+    rep = compare_td_sink_kernels(sim=sim, state=s, repeats=5)
+    rate = N * KHI_CD_STEPS_TIMED / elapsed
+    phase("khi_cd2010", N=N, steps=sim.Nsteps,
+          timed_steps=KHI_CD_STEPS_TIMED, timed_s=elapsed,
+          particle_steps_per_s=rate,
+          khi_main_path_particle_steps_per_s=RATES.get("khi_main_path"),
+          replans_in_window=replans, launches=launches,
+          alpha_median=float(alpha.median()),
+          alpha_range=[float(alpha.min()), float(alpha.max())],
+          energy_drift=drift,
+          momentum_change_over_sum_m_abs_v=float(
+              np.abs(p1 - p0).max()) / mv,
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"khi_cd2010 checks failed: {failed}")
+    return ({"cullen_dehnen_2d": launches["cullen_dehnen_2d"]},
+            {"cullen_dehnen_2d": rep["cullen_dehnen_2d"]})
+
+
+def sod_td_avisc(dev, card):
+    """Phase 39: the Sod tube (256 + 64, float64 on the card) to t = 0.25
+    with mm97, then cd2010 (the counts set to 0 just before its run),
+    each held to tests/test_adsod.py:111-179's gates; K21 (1D) against
+    its plain version at the cd2010 run's end.  Returns its launches and
+    report."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_td_sink_kernels, sod_l1,
+                                         sod_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    n1, n2, tend = TD_SOD
+    out, launches, rep = {}, None, None
+    for scheme in ("mm97", "cd2010"):
+        params = sod_params(n1, n2, tend=tend)
+        params.set("time_dependent_avisc", scheme)
+        sim = GradhSphSimulation(params, device=dev, dtype=torch.float64)
+        sim.SetupSimulation()
+        alpha0 = sim.state.alpha.clone()
+        if scheme == "cd2010":
+            _ext.reset_launches()
+        t0 = time.perf_counter()
+        sim.Run()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        alpha = sim.state.alpha.double()
+        l1 = sod_l1(sim)
+        res = {"N": sim.state.N, "steps": sim.Nsteps, "t": sim.t,
+               "run_s": elapsed, "L1_vx": l1,
+               "alpha_start": [float(alpha0.min()), float(alpha0.max())],
+               "alpha_max": float(alpha.max()),
+               "alpha_median": float(alpha.median())}
+        res["ok"] = (bool(torch.all(alpha0 == 0.1))
+                     and res["alpha_max"] > TD_ALPHA_MAX[scheme]
+                     and res["alpha_median"] < TD_ALPHA_MEDIAN
+                     and l1 < TD_SOD_L1 and abs(sim.t - tend) < 1e-12)
+        if scheme == "cd2010":
+            launches = {"cullen_dehnen_1d": _ext.LAUNCHES["cullen_dehnen_1d"]}
+            res["ok"] = res["ok"] and launches["cullen_dehnen_1d"] >= \
+                sim.Nsteps
+            rep = compare_td_sink_kernels(sim=sim, state=sim.state,
+                                          repeats=20)
+        out[scheme] = res
+    checks = {k: v["ok"] for k, v in out.items()}
+    phase("sod_td_avisc", runs=out, launches=launches,
+          gates={"alpha_max": TD_ALPHA_MAX, "alpha_median": TD_ALPHA_MEDIAN,
+                 "L1_vx": TD_SOD_L1},
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"sod_td_avisc checks failed: {failed}")
+    return launches, rep
 
 
 def kernel_line(launches, rep, alive_mode=None) -> dict:
@@ -1934,6 +2440,14 @@ def main() -> int:
         rep.update(d_rep)
         if path is khi_main_path:
             khi_published(dev, card)
+
+    # 35-39. block-stepped star formation and time-dependent viscosity
+    rep.update(td_sink_kernels(dev))
+    launches.update(block_sink_parity(dev))
+    for path in (bb_block_collapse, khi_cd2010, sod_td_avisc):
+        t_launches, t_rep = path(dev, card)
+        launches.update(t_launches)
+        rep.update(t_rep)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K19 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K22 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -24,7 +24,11 @@ and ``direct_snap``, the sink kernels K16-K18 under ``star_gas_forces``,
 ``sink_candidate`` and ``accretion_sums`` (each wrapper launches two or
 three kernels, its stages, and counts one).  K1-K3 on a grid of
 ``ndim`` < 3 count under their names with ``_1d`` or ``_2d`` appended,
-and K19, the mirror images, under ``grid27_mirror``.
+K19, the mirror images, under ``grid27_mirror``.  K20's two wrappers
+(the smooth-accretion sums and the sink update) each count one under
+``smooth_accretion``; K21, the Cullen & Dehnen switch, counts under
+``cullen_dehnen`` (``_1d`` or ``_2d`` appended below 3D) and K22, the
+neighbour-level pass, under ``levelneib``.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
           "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu",
-          "star_gas.cu", "sinks.cu")
+          "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
+          "grid27_levelneib.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -65,7 +70,9 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "active_forces": 0,
             "mfv_density": 0, "mfv_gradients": 0, "mfv_fluxes": 0,
             "direct_nbody": 0, "direct_softened": 0, "direct_snap": 0,
-            "star_gas_forces": 0, "sink_candidate": 0, "accretion_sums": 0}
+            "star_gas_forces": 0, "sink_candidate": 0, "accretion_sums": 0,
+            "smooth_accretion": 0, "cullen_dehnen": 0,
+            "cullen_dehnen_2d": 0, "cullen_dehnen_1d": 0, "levelneib": 0}
 
 _lib = None
 
@@ -108,6 +115,16 @@ _ARGTYPES = {
                        _P],
     "accretion_sums": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _D, _P, _P, _P,
                        _P, _P, _P, _I, _P],
+    "smooth_accretion_sums": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                              _P, _I, _D, _P, _D, _D, _D, _D, _D, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "smooth_accretion_apply": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                               _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P, _I, _P],
+    "cullen_dehnen": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D,
+                      _D, _D, _D, _D, _P, _P, _P, _I, _P],
+    "levelneib": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D,
+                  _D, _D, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -773,7 +790,7 @@ def direct_snap(r, v, a, m):
 # Sinks and star-gas gravity, K16-K18 (ops/sph_gravity.py, ops/sinks.py)
 # ---------------------------------------------------------------------------
 
-_CHUNK = 256    # gas particles per partial sum of K16's and K18's slots
+_CHUNK = 256    # gas particles per partial slot sum (K16, K18, K20)
 
 
 def _gas_and_slots(r, rs, act):
@@ -858,3 +875,121 @@ def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius):
             _p(r_star), _p(h_star), _p(act), Ns, float(sink_radius),
             _p(slot_of), _p(part), _p(dm), _p(dmom), _p(dmr), _p(eaten))
     return dm, dmom, dmr, eaten
+
+
+# ---------------------------------------------------------------------------
+# Smooth accretion, K20 (ops/sinks.py)
+# ---------------------------------------------------------------------------
+
+_MOVE_COLS = 7   # K20's widest per-particle table: dm, dm r, dm v
+
+
+def smooth_accretion_sums(r, v, m, rho, sound, alive, r_star, v_star,
+                          m_star, h_star, act, sink_radius, dt, kernnorm,
+                          mmean, alpha_ss, frac, sdt):
+    """K20, first launch: dm (N,), the claimed slot of each gas particle
+    (N,) int32 (-1 for none), and menc, macc and taccrete (Ns,).  `dt`
+    is a 0-d tensor on the device, read there."""
+    N, Ns = _gas_and_slots(r, r_star, act)
+    dt_, dev = r.dtype, r.device
+    _check(v, "v", dt_, (N, 3))
+    _check(v_star, "v_star", dt_, (Ns, 3))
+    _check(alive, "alive", torch.bool, (N,))
+    for name, x, n in (("m", m, N), ("rho", rho, N), ("sound", sound, N),
+                       ("m_star", m_star, Ns), ("h_star", h_star, Ns)):
+        _check(x, name, dt_, (n,))
+    _check(dt, "dt", dt_, ())
+    slot_of = torch.empty((N,), dtype=torch.int32, device=dev)
+    vals = torch.empty((N, _MOVE_COLS), dtype=dt_, device=dev)
+    part = _partials(N, Ns, _MOVE_COLS, dt_, dev)
+    sums = torch.empty((Ns, _MOVE_COLS), dtype=dt_, device=dev)
+    slot_scr = torch.empty((Ns, 2), dtype=dt_, device=dev)
+    dm = torch.empty((N,), dtype=dt_, device=dev)
+    menc, macc, tacc = (torch.empty((Ns,), dtype=dt_, device=dev)
+                        for _ in range(3))
+    _launch("smooth_accretion_sums", dt_, dev, _p(r), _p(v), _p(m), _p(rho),
+            _p(sound), _p(alive), N, _p(r_star), _p(v_star), _p(m_star),
+            _p(h_star), _p(act), Ns, float(sink_radius), _p(dt),
+            float(kernnorm), float(mmean), float(alpha_ss), float(frac),
+            float(sdt), _p(slot_of), _p(vals), _p(part), _p(sums),
+            _p(slot_scr), _p(dm), _p(menc), _p(macc), _p(tacc),
+            count="smooth_accretion")
+    return dm, slot_of, menc, macc, tacc
+
+
+def smooth_accretion_apply(r, v, m, dm, slot_of, alive, r_star, v_star,
+                           r0_star, v0_star, m_star, angmom, act):
+    """K20, second launch: the slots' new r, v, r0, v0 (Ns, 3), m (Ns,)
+    and angmom (Ns, 3), the gas's m - dm (N,) and its alive mask (N,)
+    with the emptied particles dead."""
+    N, Ns = _gas_and_slots(r, r_star, act)
+    dt_, dev = r.dtype, r.device
+    _check(v, "v", dt_, (N, 3))
+    for name, x in (("m", m), ("dm", dm)):
+        _check(x, name, dt_, (N,))
+    _check(slot_of, "claim", torch.int32, (N,))
+    _check(alive, "alive", torch.bool, (N,))
+    for name, x in (("v_star", v_star), ("r0_star", r0_star),
+                    ("v0_star", v0_star), ("angmom", angmom)):
+        _check(x, name, dt_, (Ns, 3))
+    _check(m_star, "m_star", dt_, (Ns,))
+    vals = torch.empty((N, _MOVE_COLS), dtype=dt_, device=dev)
+    part = _partials(N, Ns, _MOVE_COLS, dt_, dev)
+    move = torch.empty((Ns, _MOVE_COLS), dtype=dt_, device=dev)
+    spin = torch.empty((Ns, 3), dtype=dt_, device=dev)
+    com = torch.empty((Ns, 7), dtype=dt_, device=dev)
+    outs = [torch.empty((Ns, 3), dtype=dt_, device=dev) for _ in range(4)]
+    m_out = torch.empty((Ns,), dtype=dt_, device=dev)
+    angmom_out = torch.empty((Ns, 3), dtype=dt_, device=dev)
+    m_gas = torch.empty((N,), dtype=dt_, device=dev)
+    alive_new = torch.empty((N,), dtype=torch.bool, device=dev)
+    _launch("smooth_accretion_apply", dt_, dev, _p(r), _p(v), _p(m), _p(dm),
+            _p(slot_of), _p(alive), N, _p(r_star), _p(v_star), _p(r0_star),
+            _p(v0_star), _p(m_star), _p(angmom), _p(act), Ns, _p(vals),
+            _p(part), _p(move), _p(spin), _p(com), *map(_p, outs),
+            _p(m_out), _p(angmom_out), _p(m_gas), _p(alive_new),
+            count="smooth_accretion")
+    return (*outs, m_out, angmom_out, m_gas, alive_new)
+
+
+# ---------------------------------------------------------------------------
+# The Cullen & Dehnen switch, K21 (ops/forces.py), and the neighbour-level
+# pass, K22 (ops/active_grid.py)
+# ---------------------------------------------------------------------------
+
+def cullen_dehnen(spec, kern, visc, ids_d, r, packed):
+    """K21 over K1's slot map ids_d (*ncells, K) int32 at the grid's
+    ndim: alpha_new, dalphadt (N,) and bad (N,) bool of every particle
+    with a slot (the others are left zero).  `packed` (N, 2 ndim + 5)
+    holds ops.forces.CD_COLS."""
+    N, nd = r.shape
+    dt, dev = r.dtype, r.device
+    if nd != spec.ndim:
+        raise ValueError(f"r: expected {spec.ndim} dims, got {nd}")
+    _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
+    _check(r, "r", dt, (N, nd))
+    _check(packed, "packed", dt, (N, 2 * nd + 5))
+    alpha = torch.zeros((N,), dtype=dt, device=dev)
+    dal = torch.zeros((N,), dtype=dt, device=dev)
+    bad = torch.zeros((N,), dtype=torch.bool, device=dev)
+    _launch("cullen_dehnen", dt, dev, _p(ids_d), _p(r), _p(packed),
+            *_grid_args_nd(spec), float(kern.kernnorm),
+            float(visc.alpha_visc), float(visc.alpha_visc_min), _p(alpha),
+            _p(dal), _p(bad), count=_grid_count("cullen_dehnen", spec))
+    return alpha, dal, bad
+
+
+def levelneib(spec, kern, ids_d, r, h, level):
+    """K22 over K1's slot map ids_d (*ncells, K) int32 of a 3D grid: each
+    particle's largest level among the particles of the map within
+    kernrange max(h_i, h_j), itself included (N,) int32; 0 for a particle
+    without a slot."""
+    N, dt, dev = r.shape[0], r.dtype, r.device
+    _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
+    _check(r, "r", dt, (N, 3))
+    _check(h, "h", dt, (N,))
+    _check(level, "level", torch.int32, (N,))
+    out = torch.zeros((N,), dtype=torch.int32, device=dev)
+    _launch("levelneib", dt, dev, _p(ids_d), _p(r), _p(h), _p(level),
+            _p(out), *_grid_args(spec), float(kern.kernrange))
+    return out

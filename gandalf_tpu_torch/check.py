@@ -27,8 +27,14 @@ Boss-Bodenheimer sink collapse ``bb_sink_collapse`` (GANDALF's own
 example); ``compare_sink_kernels`` compares K16-K18 with their plain
 versions on ``sink_kernel_inputs`` (synthetic, with the edge cases) or
 ``sim_sink_inputs`` (a simulation's state), ``sink_ledger`` records each
-step's sink gain against the gas that died, and ``gravity_accuracy``
+step's sink gain against the mass the gas gave up, and ``gravity_accuracy``
 adds the star-gas term on both sides when there are sinks.
+``bb_block_params`` and ``plummer_block_params`` are the block-stepped
+star-formation configurations (the Boss-Bodenheimer cloud and the hybrid
+Plummer sphere with Nlevels > 1, smooth accretion and mm97 viscosity);
+``compare_td_sink_kernels`` compares K20 (on ``smooth_accretion_inputs``
+or a simulation's state), K21 at the grid's ndim and K22 with their
+plain versions.
 ``sod_params``, ``khi_params`` and ``mirror_params`` are the 1D Sod
 tube, the 2D Kelvin-Helmholtz instability and the mirror-wall box of the
 JAX package's tests (``published_params`` reads GANDALF's examples as
@@ -50,6 +56,7 @@ import torch
 
 from . import _ext
 from .ops import active_grid as ag
+from .ops import forces as fo
 from .ops import mfv as mfv_ops
 from .ops import mfv_grid27 as mg
 from .ops import sinks as sk_ops
@@ -173,6 +180,14 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # of a pair: 4 operations a dim of the separation for K2, 9 of the
 # separation, dv, dvdr and the acceleration for K3; K1 5 a dim; K19
 # one per reflected component and three for the keep test of an image.
+# K20 counts per claimed (gas, sink) pair: its terms (distance, kernel,
+# potential, log and the radial-drift product, about 70) and its share
+# of the update (dm r, dm v and the spin's cross product, about 40).
+# K21 per pair within kernrange h_i: the separation, the kernel
+# derivative and 3 ndim^2 multiply-adds of the outer products (85, 50
+# and 26 in 3D, 2D and 1D); K22 per pair within kernrange max(h_i, h_j),
+# each particle with itself included: d^2, the radius and the compare
+# (12).
 FLOPS_PER = {
     "grid27_bin": 15, "grid27_density": 40, "grid27_forces": 80,
     "grid27_bin_2d": 10, "grid27_density_2d": 36, "grid27_forces_2d": 71,
@@ -187,6 +202,8 @@ FLOPS_PER = {
     "direct_nbody": 46, "direct_softened": 66, "direct_snap": 74,
     "star_gas_forces": 46, "star_gas_mid": 20, "star_gas_near": 11,
     "sink_candidate": 3, "accretion_sums": 15,
+    "smooth_accretion": 110, "cullen_dehnen": 85, "cullen_dehnen_2d": 50,
+    "cullen_dehnen_1d": 26, "levelneib": 12,
 }
 
 
@@ -348,6 +365,39 @@ def bb_params(n_target: int, rho_sink=None) -> Parameters:
     if rho_sink is not None:
         updates["rho_sink"] = rho_sink
     for k, v in updates.items():
+        p.set(k, v)
+    return p
+
+
+def bb_block_params(n_target: int, rho_sink=2.0e-17) -> Parameters:
+    """The bb_block_collapse configuration: bb_params(n_target,
+    rho_sink) block-stepped (Nlevels = 5 with the file's level_diff_max
+    = 2), with smooth accretion and time_dependent_avisc = mm97: the
+    JAX package's star-formation setup (tests/test_sinks.py:179-215)
+    on GANDALF's own collapse."""
+    p = bb_params(n_target, rho_sink=rho_sink)
+    for k, v in {"Nlevels": 5, "smooth_accretion": 1,
+                 "time_dependent_avisc": "mm97"}.items():
+        p.set(k, v)
+    return p
+
+
+def plummer_block_params(n_gas: int = 512, n_star: int = 16,
+                         nlevels: int = 3) -> Parameters:
+    """The hybrid Plummer sphere of tests/test_sinks.py:27-32 on the grid
+    path (neib_search = kdtree): n_gas gas and n_star stars, half the
+    mass each, dimensionless, energy_eqn, self-gravity, the stars
+    accreting (create_sinks = 0), block-stepped (Nlevels = `nlevels`,
+    level_diff_max = 1) with smooth accretion and mm97 viscosity."""
+    p = Parameters()
+    for k, v in dict(run_id="", sim="sph", ndim=3, ic="plummer",
+                     Nhydro=n_gas, Nstar=n_star, gasfrac=0.5, starfrac=0.5,
+                     self_gravity=1, hydro_forces=1, dimensionless=1,
+                     gas_eos="energy_eqn", neib_search="kdtree",
+                     sink_particles=1, create_sinks=0, Nlevels=nlevels,
+                     level_diff_max=1, smooth_accretion=1,
+                     time_dependent_avisc="mm97", tsnapfirst=1e30,
+                     tend=1e30).items():
         p.set(k, v)
     return p
 
@@ -1750,12 +1800,248 @@ def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
     return out
 
 
+def smooth_accretion_inputs(n_gas: int, n_slots: int, device, dtype,
+                            seed: int = 0):
+    """Synthetic inputs of K20: sink_kernel_inputs's gas and slots (its
+    edge cases: dead gas, empty slots, gas 0 on star 0, gas 2 on star 1's
+    accretion radius, gas 4 at equal distance from stars 2 and 3) with
+    the other stars' h raised to 0.04 so that each claims some gas, star
+    0 made light (1e-6) and wide (h 0.1) so that its orbit is slow and
+    its gas goes whole (dt < smooth_accrete_dt t_orbit), and sound
+    speeds in [0.5, 1.5); dt = 0.01 (a 0-d tensor), mmean = 1 / n_gas,
+    alpha_ss = 0.1, smooth_accrete_frac and smooth_accrete_dt 0.01."""
+    out = sink_kernel_inputs(n_gas, n_slots, device, dtype, seed)
+    st = out["sinks"]
+    idx = torch.arange(st.N, device=st.h.device)
+    h = torch.where(st.active & (idx >= 4), 0.04, st.h)
+    h = torch.where(idx == 0, 0.1, h)
+    out["sinks"] = st.replace(h=h, m=torch.where(idx == 0, 1e-6, st.m))
+    rng = np.random.default_rng(seed + 1)
+    out["sound"] = torch.as_tensor(0.5 + rng.random(n_gas), device=device,
+                                   dtype=dtype)
+    out["dt"] = torch.tensor(0.01, device=device, dtype=dtype)
+    out["mmean"] = 1.0 / n_gas
+    out["alpha_ss"] = 0.1
+    return out
+
+
+def smooth_args(kern, inputs):
+    """smooth_accretion_sums's positional arguments from a dict of
+    smooth_accretion_inputs or sim_sink_inputs."""
+    return (inputs["cfg"], inputs["sinks"], inputs["r"], inputs["v"],
+            inputs["m"], inputs["rho"], inputs["sound"], inputs["alive"],
+            inputs["dt"], kern, inputs["mmean"], inputs["alpha_ss"])
+
+
 def sim_sink_inputs(sim):
     """The inputs of K16-K18 as a sink simulation's step gives them, from
     its current state (a dict as sink_kernel_inputs returns)."""
     s = sim.state
     return {"cfg": sim.sink_cfg, "r": s.r, "v": s.v, "m": s.m, "h": s.h,
             "rho": s.rho, "alive": s.alive, "sinks": s.sinks}
+
+
+# float32, K20: each sink's sums over its claimed gas (tens of terms)
+# rounded at 6e-8 and summed in another order, then exp, log and pow of
+# them; the claims are exact (the distance in the same rounded steps).
+# 1e-4 of each output's largest value.
+TOL_F32_SMOOTH = 1e-4
+# float32, K21: rr, dvw and daw over ~60 pairs each, rounded at 6e-8 and
+# summed in another order (with fused multiply-adds on the card), then
+# an inverse and ddivdt = tr(da/dx) - dv/dx : dv/dx^T, a difference of
+# terms that cancel where the flow is smooth; alpha (in [alpha_min,
+# alpha_visc]) and dalpha/dt within 1e-3 of their largest values.  The
+# bad flag and the min/max clips may flip where their test lies within
+# rounding of its threshold: at most 1e-3 of the particles beyond that.
+TOL_F32_CD = 1e-3
+TOL_F32_CD_FRACTION = 1e-3
+
+
+def _smooth_both(kern, inputs, plain: bool):
+    """K20's two launches (or their plain versions) on `inputs`."""
+    sums_fn = (sk_ops.smooth_accretion_sums_plain if plain
+               else sk_ops.smooth_accretion_sums)
+    apply_fn = (sk_ops.apply_smooth_accretion_plain if plain
+                else sk_ops.apply_smooth_accretion)
+    dm, sums = sums_fn(*smooth_args(kern, inputs))
+    new, m_gas, alive = apply_fn(inputs["sinks"], inputs["r"], inputs["v"],
+                                 inputs["m"], dm, sums["claim"],
+                                 inputs["alive"])
+    return dm, sums, new, m_gas, alive
+
+
+def _compare_smooth(kern, inputs):
+    f64 = inputs["r"].dtype == torch.float64
+    dm, sums, new, m_gas, alive = _smooth_both(kern, inputs, False)
+    dm_p, sums_p, new_p, m_gas_p, alive_p = _smooth_both(kern, inputs,
+                                                         True)
+    every = slice(None)
+    same_claim = bool(torch.equal(sums["claim"], sums_p["claim"]))
+    errs = {"dm": _scaled_all(dm, dm_p, every),
+            "m_gas": _scaled_all(m_gas, m_gas_p, every)}
+    for k in ("menc", "macc", "taccrete"):
+        errs[k] = _scaled_all(sums[k], sums_p[k], every)
+    for f in ("r", "v", "m", "angmom"):
+        errs[f"sink_{f}"] = _scaled_all(getattr(new, f), getattr(new_p, f),
+                                        every)
+    same_alive = bool(torch.equal(alive, alive_p))
+    hit = sums_p["claim"] >= 0
+    n_claim = int(hit.sum())
+    st, m = inputs["sinks"], inputs["m"]
+    rep = {
+        "N": m.shape[0], "Ns": st.N, "claimed": n_claim,
+        "whole": int((hit & (dm_p == m) & (m > 0)).sum()),
+        "partial": int((hit & (dm_p > 0) & (dm_p < m)).sum()),
+        "same_claims": same_claim, "same_alive": same_alive,
+        "scaled_err": errs, "dtype": str(m.dtype),
+        "max_abs_err": float(torch.abs(dm - dm_p).max()),
+        "ok": same_claim and same_alive and max(errs.values()) <= (
+            TOL_F64 if f64 else TOL_F32_SMOOTH),
+        "work": _work(
+            (inputs["r"], inputs["v"], m, inputs["rho"], inputs["sound"],
+             inputs["alive"], st.r, st.v, st.m, st.h, st.active),
+            (dm, sums["claim"], sums["menc"], sums["macc"],
+             sums["taccrete"], new.r, new.v, new.r0, new.v0, new.m,
+             new.angmom, m_gas, alive),
+            FLOPS_PER["smooth_accretion"] * n_claim)}
+    timed = {"smooth_accretion": (
+        lambda: _smooth_both(kern, inputs, False),
+        lambda: _smooth_both(kern, inputs, True))}
+    return rep, timed
+
+
+def _alive_slot_map(sim, state):
+    """K1's slot map of the alive particles (the dead binned out) and
+    the binning."""
+    b = g27.bin_particles(sim.gridspec, state.r, discard=~state.alive)
+    return ag.dense_ids(sim.gridspec, b), b
+
+
+def _slot_pairs_within(spec, kern, ids_d, r, h):
+    """Pairs of the slot map's particles within kernrange h_i and within
+    kernrange max(h_i, h_j) (each particle with itself included in the
+    latter), over the slotted particles' h."""
+    ids = ids_d.reshape(-1).long()
+    slotted = torch.zeros((r.shape[0],), dtype=torch.bool, device=r.device)
+    slotted[ids[ids >= 0]] = True
+    h_big = float(torch.max(torch.where(slotted, h, 0.0)))
+    cut2 = (kern.kernrange * h_big) ** 2 * (1.0 + 1e-6)
+    row, col, _, d2 = mg.slot_pairs(spec, ids_d, r, cut2, True)
+    n_i, n_ij = _support_counts(row, col, d2, h, kern.kernrange)
+    return n_i, n_ij + int(slotted.sum())
+
+
+def _compare_cd(sim, state):
+    spec, kern, visc = sim.gridspec, sim.kern, sim.visc
+    f64 = state.r.dtype == torch.float64
+    ids_d, _ = _alive_slot_map(sim, state)
+    packed = fo.cd_packed(state.v, state.a, state.m, state.h, state.rho,
+                          state.hfactor, state.alpha, state.sound)
+    args = (kern, visc, spec, ids_d, state.r, packed)
+    got = _ext.cullen_dehnen(spec, kern, visc, ids_d, state.r, packed)
+    want = fo.cullen_dehnen_sums_plain(*args)
+    rows = state.alive
+    n = max(int(rows.sum()), 1)
+    errs = {k: _scaled_all(x, y, rows) for k, x, y in
+            zip(("alpha_new", "dalphadt"), got[:2], want[:2])}
+    flips = int((got[2] != want[2])[rows].sum())
+    if f64:
+        ok = max(errs.values()) <= TOL_F64 and flips == 0
+    else:
+        off = torch.zeros_like(rows)
+        for x, y in zip(got[:2], want[:2]):
+            scale = max(float(torch.abs(y)[rows].max()), 1e-300)
+            off |= torch.abs(x - y) > TOL_F32_CD * scale
+        beyond = int((off & rows).sum())
+        errs["fraction_beyond_tol"] = beyond / n
+        ok = beyond <= TOL_F32_CD_FRACTION * n \
+            and flips <= TOL_F32_CD_FRACTION * n
+    n_i, _ = _slot_pairs_within(spec, kern, ids_d, state.r,
+                                torch.clamp_min(state.h, 1e-30))
+    name = kernel_name("cullen_dehnen", spec)
+    rep = {"N": state.N, "ndim": spec.ndim, "k_cell": spec.k_cell,
+           "ncells": list(spec.ncells), "bad": int(want[2][rows].sum()),
+           "bad_flips": flips, "scaled_err": errs,
+           "dtype": str(state.r.dtype),
+           "max_abs_err": float(torch.abs(got[0] - want[0])[rows].max()),
+           "ok": ok,
+           "work": _work((ids_d, state.r, packed), got,
+                         FLOPS_PER[name] * n_i)}
+    timed = {name: (
+        lambda: _ext.cullen_dehnen(spec, kern, visc, ids_d, state.r,
+                                   packed),
+        lambda: fo.cullen_dehnen_sums_plain(*args))}
+    return name, rep, timed
+
+
+def _compare_levelneib(sim, state):
+    spec, kern = sim.gridspec, sim.kern
+    ids_d, b = _alive_slot_map(sim, state)
+    args = (spec, kern, ids_d, state.r, state.h, state.level)
+    plain = (kern, spec, b.cell_of, ids_d, state.r, state.h, state.level,
+             state.alive)
+    got = _ext.levelneib(*args)
+    want = ag.levelneib_plain(*plain)
+    mismatch = int((got != want).sum())
+    _, n_ij = _slot_pairs_within(spec, kern, ids_d, state.r, state.h)
+    rep = {"N": state.N, "k_cell": spec.k_cell, "mismatches": mismatch,
+           "levels": torch.bincount(want).tolist(),
+           "max_abs_err": float((got - want).abs().max()),
+           "dtype": str(state.r.dtype), "ok": mismatch == 0,
+           "work": _work((ids_d, state.r, state.h, state.level), (got,),
+                         FLOPS_PER["levelneib"] * n_ij)}
+    timed = {"levelneib": (lambda: _ext.levelneib(*args),
+                           lambda: ag.levelneib_plain(*plain))}
+    return rep, timed
+
+
+def compare_td_sink_kernels(kern=None, smooth_inputs=None, sim=None,
+                            state=None, repeats: int = 0):
+    """Run K20 (on `smooth_inputs`, a dict from smooth_accretion_inputs
+    or sim_smooth_inputs), K21 (on the state of a simulation that runs
+    it, time_dependent_avisc = cd2010, at its grid's ndim) and K22 (on a
+    3D grid without mirror layers) and
+    their plain versions on the same CUDA tensors; returns {kernel:
+    report} as compare_kernels does.  K20: equal claims and alive masks
+    and its outputs within 1e-10 of each one's largest value in float64
+    (TOL_F32_SMOOTH); K21: alpha_new and dalphadt within 1e-10 and equal
+    bad flags in float64 (TOL_F32_CD, TOL_F32_CD_FRACTION beyond it);
+    K22: equal levels.  K20's report and time cover both its launches,
+    the sums and the sink update.  library_ms is null for all three: no
+    one PyTorch call computes any of them.  Launch counts are restored
+    afterwards."""
+    saved = dict(_ext.LAUNCHES)
+    out, timed = {}, {}
+    if smooth_inputs is not None:
+        out["smooth_accretion"], t = _compare_smooth(kern, smooth_inputs)
+        timed.update(t)
+    if sim is not None:
+        if sim.td_avisc_type == "cd2010":
+            name, out_cd, t = _compare_cd(sim, state)
+            out[name] = out_cd
+            timed.update(t)
+        if sim.ndim == 3 and not sim.gridspec.mirror:
+            out["levelneib"], t = _compare_levelneib(sim, state)
+            timed.update(t)
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    for r in out.values():
+        r["library_ms"] = None
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def sim_smooth_inputs(sim):
+    """K20's inputs as a smooth-accretion simulation's step gives them,
+    from its current state (creation not run first): dt is the
+    schedule's dt_base under block timesteps, else the state's dt."""
+    out = sim_sink_inputs(sim)
+    s = sim.state
+    out.update(sound=s.sound, mmean=sim.mmean,
+               alpha_ss=sim.params.floatparams["alpha_ss"],
+               dt=sim._blocksched.dt_base if sim.use_block else s.dt)
+    return out
 
 
 def compare_sink_kernels(kern, inputs, repeats: int = 0):
@@ -1858,8 +2144,8 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
 
 def sink_ledger(sim):
     """Keep, at each call of sim._sink_create_accrete from now on, what
-    ledger_errors needs: the sink slots and the alive mask before and
-    after the call, and the gas's mass and velocity before it.  The step
+    ledger_errors needs: the sink slots before and after the call, and
+    the gas's mass before and after it and its velocity.  The step
     builds new tensors and never writes its inputs, so these references
     hold each call's values; the wrapper launches nothing and reads
     nothing back, so a window timed with it installed times the program.
@@ -1869,22 +2155,24 @@ def sink_ledger(sim):
 
     def recorded(s, dt):
         out = inner(s, dt)
-        rows.append((s.sinks, out.sinks, s.alive, out.alive, s.m, s.v))
+        rows.append((s.sinks, out.sinks, s.m, out.m, s.v))
         return out
 
     sim._sink_create_accrete = recorded
     return rows
 
 
-def _ledger_row(sk0, sk1, alive0, alive1, m, v):
+def _ledger_row(sk0, sk1, m0, m1, v):
     """(9,) float64: the sinks' gain in mass and momentum (4), the mass
-    and momentum of the gas that died (4) and its sum of m |v|."""
+    and momentum the gas gave up (4: m_before - m_after over all gas,
+    whether it died or kept part of its mass, and that times v) and
+    its sum of (m_before - m_after) |v|."""
     def totals(st):
         w = torch.where(st.active, st.m, 0.0).double()
         return torch.cat([w.sum()[None],
                           (w[:, None] * st.v.double()).sum(0)])
 
-    w = torch.where(alive0 & ~alive1, m, 0.0).double()
+    w = m0.double() - m1.double()
     v = v.double()
     return torch.cat([totals(sk1) - totals(sk0), w.sum()[None],
                       (w[:, None] * v).sum(0),
@@ -1892,9 +2180,10 @@ def _ledger_row(sk0, sk1, alive0, alive1, m, v):
 
 
 def ledger_errors(rows):
-    """Per call: |dM_sink - M_dead| / M_dead and |dP_sink - P_dead| /
-    sum m |v| of the dead (0 where nothing died), and the call's dead
-    mass, from sink_ledger's records."""
+    """Per call: |dM_sink - dM_gas| / dM_gas and |dP_sink - dP_gas| /
+    sum dm |v| of the mass the gas gave up (absolute where it gave up
+    nothing), and the call's mass given up, from sink_ledger's
+    records."""
     if not rows:
         return [], [], []
     x = torch.stack([_ledger_row(*r) for r in rows]).cpu().numpy()

@@ -72,10 +72,15 @@ def state_to_numpy(state: SphState) -> Dict[str, np.ndarray]:
 
 def sinks_from_jax(sinks, device="cpu", dtype=torch.float64) -> SinkState:
     """The port's SinkState from a JAX one (read through its
-    attributes): floating fields take `dtype`, `active` stays bool."""
+    attributes), the smooth-accretion spin ledger `angmom` and the
+    accretion rate `mdot` included (zeros where the JAX state leaves
+    them None): floating fields take `dtype`, `active` stays bool."""
     kw = {}
+    n = np.asarray(sinks.m).shape[0]
+    empty = {"angmom": np.zeros((n, 3)), "mdot": np.zeros(n)}
     for f in dataclasses.fields(SinkState):
-        x = np.array(getattr(sinks, f.name))
+        x = getattr(sinks, f.name)
+        x = np.array(empty[f.name] if x is None else x)
         kw[f.name] = torch.tensor(x, device=device,
                                   dtype=dtype if x.dtype.kind == "f"
                                   else None)

@@ -1,5 +1,5 @@
-// K17 sink_candidate and K18 accretion_sums: the sink searches of one
-// step.
+// K17 sink_candidate, K18 accretion_sums and K20 smooth_accretion: the
+// sink searches and accretion of one step.
 //
 // K17 replaces gandalf_tpu/ops/sinks.py:sink_candidate (:94): the argmax
 // of score = (alive & rho > rho_sink) ? rho : -inf over the gas, the
@@ -32,10 +32,41 @@
 // sqrt((dx^2 + dy^2) + dz^2) with dx = r - r_s, in round-to-nearest steps
 // the compiler may not contract, so that the masks equal the plain
 // version's bit for bit, and is compared as dist < racc as there.
+//
+// K20 replaces gandalf_tpu/ops/sinks.py:smooth_accretion_sums (:182) and
+// the per-sink sums of apply_smooth_accretion (:271), the smooth
+// accretion of GANDALF's Sinks.cpp:520-720.  Each alive gas particle
+// belongs to its nearest active sink within sink_radius h_s (dist + 1e-30
+// as the JAX form takes it, the first slot on ties); each sink sums over
+// its gas the mass menc, the kernel norm sum m W / rho, the rotational
+// energy sum, the potential sum, the mean log viscous time and the
+// radial-drift sum, and from them taccrete and macc = menc (1 -
+// exp(-dt / taccrete)); each particle gives up its kernel-weighted share
+// of macc, or all of itself where the rest would fall below
+// smooth_accrete_frac mmean or dt < smooth_accrete_dt t_orbit.  The
+// second launch moves each sink to the centre of mass of itself and what
+// it took and adds to its spin ledger the angular momentum of the old
+// centre of mass and of each taken parcel about the new one, with r -
+// r_new and v - v_new taken directly.
+//
+// Bound on the card: the N x Ns distance tests of the claim (one pass,
+// as K18's), then reads of each particle's 12 values and a few slot
+// values; about 9e7 distance tests a step at 262,144 gas and 16 slots.
+//
+// Design: K18's.  One thread per gas particle finds its slot over the
+// slots staged in shared memory and writes its terms (6 values); a warp
+// per (32-slot tile, gas chunk) sums the terms of the chunk's gas that
+// belongs to each lane's slot, in particle order, and one block a slot
+// adds the chunks in a fixed order; one thread a slot then takes the
+// timescales.  The update does the same twice: the sums of dm, dm r and
+// dm v give the new centre of mass, then the sums of dm (r - r_new) x (v
+// - v_new) the spin.  No atomics: every output is written once and the
+// result does not depend on the order the blocks run in.
 #include <cuda_runtime.h>
 
 #include <cmath>
 
+#include "m4.cuh"
 #include "tree.cuh"
 
 namespace {
@@ -48,8 +79,8 @@ constexpr int kReduce = 256;  // K17 threads a block
 constexpr int kMaxBlocks = 1024;
 constexpr int kTile = 128;    // K18 threads a block, slots a tile
 constexpr int kWarp = 32;
-constexpr int kChunk = 256;   // K18 gas particles a partial sum
-constexpr int kFinish = 128;  // K18 threads a slot's final sum
+constexpr int kChunk = 256;   // gas particles a partial slot sum
+constexpr int kFinish = 128;  // threads a slot's final sum
 
 // (s, i) beats (t, k): the larger score, or the lower index of a tie
 template <typename T>
@@ -238,6 +269,338 @@ __global__ void __launch_bounds__(kFinish) accretion_finish(
   }
 }
 
+// K20's sums: part[(chunk * ns + slot) * C + k] of the C values
+// vals[p * C + k] of the chunk's gas p with key[p] == slot, in order
+template <typename T, int C>
+__global__ void __launch_bounds__(kWarp) slot_partial(
+    const int* __restrict__ key, const T* __restrict__ vals, int n, int ns,
+    T* __restrict__ part) {
+  __shared__ int sk[kWarp];
+  const int j = blockIdx.x * kWarp + threadIdx.x;
+  T acc[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) acc[k] = T(0);
+  const long long c0 = static_cast<long long>(blockIdx.y) * kChunk;
+  const long long c1 = min(static_cast<long long>(n), c0 + kChunk);
+  for (long long g0 = c0; g0 < c1; g0 += kWarp) {
+    const long long g = g0 + threadIdx.x;
+    sk[threadIdx.x] = g < c1 ? key[g] : -1;
+    __syncwarp();
+    const int nt = static_cast<int>(min(static_cast<long long>(kWarp),
+                                        c1 - g0));
+    for (int t = 0; t < nt; ++t) {
+      if (sk[t] != j) continue;
+      const T* x = vals + (g0 + t) * C;
+#pragma unroll
+      for (int k = 0; k < C; ++k) acc[k] += x[k];
+    }
+    __syncwarp();
+  }
+  if (j >= ns) return;
+  T* out = part + (static_cast<long long>(blockIdx.y) * ns + j) * C;
+#pragma unroll
+  for (int k = 0; k < C; ++k) out[k] = acc[k];
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kFinish) slot_finish(
+    const T* __restrict__ part, int ns, int n_chunks, T* __restrict__ sums) {
+  __shared__ T red[C][kFinish];
+  const int j = blockIdx.x;
+  T acc[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) acc[k] = T(0);
+  for (int c = threadIdx.x; c < n_chunks; c += kFinish) {
+    const T* p = part + (static_cast<long long>(c) * ns + j) * C;
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[k] += p[k];
+  }
+#pragma unroll
+  for (int k = 0; k < C; ++k) red[k][threadIdx.x] = acc[k];
+  __syncthreads();
+  for (int o = kFinish / 2; o > 0; o >>= 1) {
+    if (threadIdx.x < o)
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+        red[k][threadIdx.x] += red[k][threadIdx.x + o];
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int k = 0; k < C; ++k) sums[static_cast<long long>(j) * C + k] =
+      red[k][0];
+}
+
+template <typename T, int C>
+void slot_sums(const int* key, const T* vals, int n, int ns, T* part,
+               T* sums, cudaStream_t stream) {
+  const int n_chunks = (n + kChunk - 1) / kChunk;
+  if (n_chunks > 0) {
+    const dim3 grid((ns + kWarp - 1) / kWarp, n_chunks);
+    slot_partial<T, C><<<grid, kWarp, 0, stream>>>(key, vals, n, ns, part);
+  }
+  slot_finish<T, C><<<ns, kFinish, 0, stream>>>(part, ns, n_chunks, sums);
+}
+
+constexpr int kTerms = 6;   // K20's terms a particle
+constexpr int kMove = 7;    // dm, dm r, dm v
+constexpr int kSpin = 3;
+constexpr int kSlotThreads = 128;
+constexpr double kPi = 3.14159265358979323846;
+
+// K20 launch 1, stage 1: each gas particle's slot (-1 for none) and its
+// terms: m, m W/rho, m dv_t^2 W/rho, m wpot(s)/h_s, m log(sqrt(d)/c^2)
+// (floored at 1e-30 inside the log) and |4 pi d^2 m dvdr W|
+template <typename T>
+__global__ void __launch_bounds__(kTile) smooth_terms(
+    const T* __restrict__ r, const T* __restrict__ v,
+    const T* __restrict__ m, const T* __restrict__ rho,
+    const T* __restrict__ sound, const unsigned char* __restrict__ alive,
+    int n, const T* __restrict__ rs, const T* __restrict__ vs,
+    const T* __restrict__ hs, const unsigned char* __restrict__ act, int ns,
+    T sink_radius, T norm, int* __restrict__ slot_of,
+    T* __restrict__ vals) {
+  __shared__ T sx[kTile], sy[kTile], sz[kTile], sr[kTile];
+  __shared__ unsigned char sa[kTile];
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  const bool live = i < n && alive[i];
+  const T xi = i < n ? r[3LL * i] : T(0);
+  const T yi = i < n ? r[3LL * i + 1] : T(0);
+  const T zi = i < n ? r[3LL * i + 2] : T(0);
+  T best = T(INFINITY);
+  int near = -1;
+  for (int j0 = 0; j0 < ns; j0 += kTile) {
+    const int j = j0 + threadIdx.x;
+    if (j < ns) {
+      sx[threadIdx.x] = rs[3 * j];
+      sy[threadIdx.x] = rs[3 * j + 1];
+      sz[threadIdx.x] = rs[3 * j + 2];
+      sr[threadIdx.x] = mul_rn(sink_radius, hs[j]);
+      sa[threadIdx.x] = act[j];
+    }
+    __syncthreads();
+    const int nt = min(kTile, ns - j0);
+    if (live) {
+      for (int t = 0; t < nt; ++t) {
+        const T dx = sub_rn(xi, sx[t]), dy = sub_rn(yi, sy[t]),
+                dz = sub_rn(zi, sz[t]);
+        const T dist = add_rn(
+            sqrt(add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)),
+                        mul_rn(dz, dz))),
+            T(1e-30));
+        if (sa[t] && dist < sr[t] && dist < best) {
+          best = dist;
+          near = j0 + t;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (i >= n) return;
+  slot_of[i] = near;
+  T* out = vals + static_cast<long long>(kTerms) * i;
+  if (near < 0) {
+#pragma unroll
+    for (int k = 0; k < kTerms; ++k) out[k] = T(0);
+    return;
+  }
+  const T mi = m[i];
+  const T dr[3] = {xi - rs[3 * near], yi - rs[3 * near + 1],
+                   zi - rs[3 * near + 2]};
+  const T dv[3] = {v[3LL * i] - vs[3 * near],
+                   v[3LL * i + 1] - vs[3 * near + 1],
+                   v[3LL * i + 2] - vs[3 * near + 2]};
+  const T dist = best;
+  const T ih = T(1) / max(hs[near], T(1e-30));
+  const T s = dist * ih;
+  const T w0 = m4_w0<T>(sqrt(s * s), norm) * (ih * ih * ih);
+  const T w_rho = w0 / max(rho[i], T(1e-30));
+  T dvdr = T(0), dv2 = T(0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    dvdr += dv[k] * (dr[k] / dist);
+    dv2 += dv[k] * dv[k];
+  }
+  const T c = max(sound[i], T(1e-30));
+  out[0] = mi;
+  out[1] = mi * w_rho;
+  out[2] = mi * (dv2 - dvdr * dvdr) * w_rho;
+  out[3] = mi * ih * m4_wpot<T>(s);
+  out[4] = mi * log(max(sqrt(dist) / (c * c), T(1e-30)));
+  out[5] = fabs(T(4 * kPi) * dist * dist * mi * dvdr * w0);
+}
+
+// K20 launch 1, stage 2: each slot's timescales and accreted mass;
+// slot_scr[2 j] = max(wnorm, 1e-30), slot_scr[2 j + 1] = t_orbit
+template <typename T>
+__global__ void __launch_bounds__(kSlotThreads) smooth_slots(
+    const T* __restrict__ sums, const T* __restrict__ ms,
+    const T* __restrict__ hs, int ns, T sink_radius, const T* __restrict__ dt,
+    T alpha_ss, T* __restrict__ menc_out, T* __restrict__ macc_out,
+    T* __restrict__ tacc_out, T* __restrict__ slot_scr) {
+  const int j = blockIdx.x * kSlotThreads + threadIdx.x;
+  if (j >= ns) return;
+  const T* x = sums + static_cast<long long>(kTerms) * j;
+  const T menc = x[0], wnorm = x[1], msink = ms[j];
+  const T norm = T(0.5) * menc / max(wnorm, T(1e-30));
+  const T rotke = norm * x[2];
+  const T gpetot = T(0.5) * (msink + T(0.5) * menc) * x[3];
+  const T tvisc = sqrt(msink + menc) * exp(x[4] / max(menc, T(1e-30)))
+                  / alpha_ss;
+  const T trad = menc / max(x[5], T(1e-30));
+  const T racc = sink_radius * hs[j];
+  const T trot = T(2 * kPi)
+                 * sqrt(racc * racc * racc / max(menc + msink, T(1e-30)));
+  const T efrac = min(max(T(2) * rotke / max(gpetot, T(1e-30)), T(0)),
+                      T(1));
+  const T tacc = pow(max(trad, T(1e-30)), T(1) - efrac)
+                 * pow(max(tvisc, T(1e-30)), efrac);
+  const T macc = menc * max(T(1) - exp(-*dt / max(tacc, T(1e-30))), T(0));
+  menc_out[j] = menc;
+  macc_out[j] = macc;
+  tacc_out[j] = tacc;
+  slot_scr[2 * j] = max(wnorm, T(1e-30));
+  slot_scr[2 * j + 1] = trot;
+}
+
+// K20 launch 1, stage 3: the mass each particle gives up
+template <typename T>
+__global__ void __launch_bounds__(kTile) smooth_dm(
+    const int* __restrict__ slot_of, const T* __restrict__ vals,
+    const T* __restrict__ m, int n, const T* __restrict__ macc,
+    const T* __restrict__ slot_scr, const T* __restrict__ dt, T frac_mmean,
+    T sdt, T* __restrict__ dm_out) {
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  if (i >= n) return;
+  const int j = slot_of[i];
+  if (j < 0) {
+    dm_out[i] = min(T(0), m[i]);
+    return;
+  }
+  const T mi = m[i];
+  T dm = min(vals[static_cast<long long>(kTerms) * i + 1] / slot_scr[2 * j]
+             * macc[j], mi);
+  if (mi - dm < frac_mmean || *dt < sdt * slot_scr[2 * j + 1]) dm = mi;
+  dm_out[i] = dm;
+}
+
+// K20 launch 2, stage 1: dm, dm r and dm v of each claimed particle, and
+// the gas that is left
+template <typename T>
+__global__ void __launch_bounds__(kTile) move_terms(
+    const int* __restrict__ slot_of, const T* __restrict__ r,
+    const T* __restrict__ v, const T* __restrict__ m,
+    const T* __restrict__ dm, const unsigned char* __restrict__ alive,
+    int n, T* __restrict__ vals, T* __restrict__ m_gas,
+    unsigned char* __restrict__ alive_new) {
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  if (i >= n) return;
+  const T w = slot_of[i] >= 0 ? dm[i] : T(0);
+  T* out = vals + static_cast<long long>(kMove) * i;
+  out[0] = w;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    out[1 + k] = w * r[3LL * i + k];
+    out[4 + k] = w * v[3LL * i + k];
+  }
+  const T left = m[i] - dm[i];
+  m_gas[i] = left;
+  alive_new[i] = (alive[i] && left > T(0)) ? 1 : 0;
+}
+
+// K20 launch 2, stage 2: each slot's new mass and centre of mass;
+// com[7 j] = (m_new, r_new, v_new)
+template <typename T>
+__global__ void __launch_bounds__(kSlotThreads) move_slots(
+    const T* __restrict__ sums, const T* __restrict__ rs,
+    const T* __restrict__ vs, const T* __restrict__ ms, int ns,
+    T* __restrict__ com) {
+  const int j = blockIdx.x * kSlotThreads + threadIdx.x;
+  if (j >= ns) return;
+  const T* x = sums + static_cast<long long>(kMove) * j;
+  const T m0 = ms[j];
+  const T m_new = m0 + x[0];
+  const T msafe = max(m_new, T(1e-300));
+  T* out = com + 7LL * j;
+  out[0] = m_new;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    out[1 + k] = (m0 * rs[3 * j + k] + x[1 + k]) / msafe;
+    out[4 + k] = (m0 * vs[3 * j + k] + x[4 + k]) / msafe;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void cross3(const T a[3], const T b[3], T c[3]) {
+  c[0] = a[1] * b[2] - a[2] * b[1];
+  c[1] = a[2] * b[0] - a[0] * b[2];
+  c[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// K20 launch 2, stage 3: dm (r - r_new) x (v - v_new) of each particle
+template <typename T>
+__global__ void __launch_bounds__(kTile) spin_terms(
+    const int* __restrict__ slot_of, const T* __restrict__ r,
+    const T* __restrict__ v, const T* __restrict__ dm, int n,
+    const T* __restrict__ com, T* __restrict__ vals) {
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  if (i >= n) return;
+  const int j = slot_of[i];
+  T* out = vals + static_cast<long long>(kSpin) * i;
+  if (j < 0) {
+    out[0] = out[1] = out[2] = T(0);
+    return;
+  }
+  const T* c = com + 7LL * j;
+  T a[3], b[3], l[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    a[k] = r[3LL * i + k] - c[1 + k];
+    b[k] = v[3LL * i + k] - c[4 + k];
+  }
+  cross3(a, b, l);
+  const T w = dm[i];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = w * l[k];
+}
+
+// K20 launch 2, stage 4: the slots' new fields, where a slot is active
+// and took mass
+template <typename T>
+__global__ void __launch_bounds__(kSlotThreads) spin_slots(
+    const T* __restrict__ move, const T* __restrict__ spin,
+    const T* __restrict__ com, const T* __restrict__ rs,
+    const T* __restrict__ vs, const T* __restrict__ r0s,
+    const T* __restrict__ v0s, const T* __restrict__ ms,
+    const T* __restrict__ angmom, const unsigned char* __restrict__ act,
+    int ns, T* __restrict__ r_out, T* __restrict__ v_out,
+    T* __restrict__ r0_out, T* __restrict__ v0_out, T* __restrict__ m_out,
+    T* __restrict__ angmom_out) {
+  const int j = blockIdx.x * kSlotThreads + threadIdx.x;
+  if (j >= ns) return;
+  const bool upd = act[j] && move[static_cast<long long>(kMove) * j] > T(0);
+  const T* c = com + 7LL * j;
+  T a[3], b[3], l[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    a[k] = rs[3 * j + k] - c[1 + k];
+    b[k] = vs[3 * j + k] - c[4 + k];
+  }
+  cross3(a, b, l);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r_out[3 * j + k] = upd ? c[1 + k] : rs[3 * j + k];
+    v_out[3 * j + k] = upd ? c[4 + k] : vs[3 * j + k];
+    r0_out[3 * j + k] = upd ? c[1 + k] : r0s[3 * j + k];
+    v0_out[3 * j + k] = upd ? c[4 + k] : v0s[3 * j + k];
+    angmom_out[3 * j + k] =
+        angmom[3 * j + k]
+        + (upd ? ms[j] * l[k] + spin[kSpin * static_cast<long long>(j) + k]
+               : T(0));
+  }
+  m_out[j] = upd ? c[0] : ms[j];
+}
+
 int candidate_blocks(int n) {
   return max(1, min(kMaxBlocks, (n + kReduce - 1) / kReduce));
 }
@@ -285,6 +648,66 @@ int run_accretion(const T* r, const T* v, const T* m,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int run_smooth_sums(const T* r, const T* v, const T* m, const T* rho,
+                    const T* sound, const unsigned char* alive, int n,
+                    const T* rs, const T* vs, const T* ms, const T* hs,
+                    const unsigned char* act, int ns, double sink_radius,
+                    const T* dt, double norm, double mmean, double alpha_ss,
+                    double frac, double sdt, int* slot_of, T* vals, T* part,
+                    T* sums, T* slot_scr, T* dm, T* menc, T* macc, T* tacc,
+                    int device, void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int nb = (n + kTile - 1) / kTile;
+  if (n > 0)
+    smooth_terms<T><<<nb, kTile, 0, stream>>>(
+        r, v, m, rho, sound, alive, n, rs, vs, hs, act, ns, T(sink_radius),
+        T(norm), slot_of, vals);
+  if (ns > 0) {
+    slot_sums<T, kTerms>(slot_of, vals, n, ns, part, sums, stream);
+    smooth_slots<T><<<(ns + kSlotThreads - 1) / kSlotThreads, kSlotThreads,
+                      0, stream>>>(sums, ms, hs, ns, T(sink_radius), dt,
+                                   T(alpha_ss), menc, macc, tacc, slot_scr);
+  }
+  if (n > 0)
+    smooth_dm<T><<<nb, kTile, 0, stream>>>(slot_of, vals, m, n, macc,
+                                           slot_scr, dt, T(frac * mmean),
+                                           T(sdt), dm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_smooth_apply(const T* r, const T* v, const T* m, const T* dm,
+                     const int* slot_of, const unsigned char* alive, int n,
+                     const T* rs, const T* vs, const T* r0s, const T* v0s,
+                     const T* ms, const T* angmom, const unsigned char* act,
+                     int ns, T* vals, T* part, T* move, T* spin, T* com,
+                     T* r_out, T* v_out, T* r0_out, T* v0_out, T* m_out,
+                     T* angmom_out, T* m_gas, unsigned char* alive_new,
+                     int device, void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int nb = (n + kTile - 1) / kTile;
+  const int sb = (ns + kSlotThreads - 1) / kSlotThreads;
+  if (n > 0)
+    move_terms<T><<<nb, kTile, 0, stream>>>(slot_of, r, v, m, dm, alive, n,
+                                            vals, m_gas, alive_new);
+  if (ns == 0) return static_cast<int>(cudaGetLastError());
+  slot_sums<T, kMove>(slot_of, vals, n, ns, part, move, stream);
+  move_slots<T><<<sb, kSlotThreads, 0, stream>>>(move, rs, vs, ms, ns, com);
+  if (n > 0)
+    spin_terms<T><<<nb, kTile, 0, stream>>>(slot_of, r, v, dm, n, com,
+                                            vals);
+  slot_sums<T, kSpin>(slot_of, vals, n, ns, part, spin, stream);
+  spin_slots<T><<<sb, kSlotThreads, 0, stream>>>(
+      move, spin, com, rs, vs, r0s, v0s, ms, angmom, act, ns, r_out, v_out,
+      r0_out, v0_out, m_out, angmom_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -313,5 +736,38 @@ int sink_candidate_blocks(int n) { return candidate_blocks(n); }
 
 SINK_ENTRIES(f32, float)
 SINK_ENTRIES(f64, double)
+
+#define SMOOTH_ENTRIES(SFX, T)                                              \
+  int smooth_accretion_sums_##SFX(                                          \
+      const T* r, const T* v, const T* m, const T* rho, const T* sound,     \
+      const unsigned char* alive, int n, const T* rs, const T* vs,          \
+      const T* ms, const T* hs, const unsigned char* act, int ns,           \
+      double sink_radius, const T* dt, double norm, double mmean,           \
+      double alpha_ss, double frac, double sdt, int* slot_of, T* vals,      \
+      T* part, T* sums, T* slot_scr, T* dm, T* menc, T* macc, T* tacc,      \
+      int device, void* stream) {                                           \
+    return run_smooth_sums<T>(r, v, m, rho, sound, alive, n, rs, vs, ms,    \
+                              hs, act, ns, sink_radius, dt, norm, mmean,    \
+                              alpha_ss, frac, sdt, slot_of, vals, part,     \
+                              sums, slot_scr, dm, menc, macc, tacc, device, \
+                              stream);                                      \
+  }                                                                         \
+  int smooth_accretion_apply_##SFX(                                         \
+      const T* r, const T* v, const T* m, const T* dm, const int* slot_of,  \
+      const unsigned char* alive, int n, const T* rs, const T* vs,          \
+      const T* r0s, const T* v0s, const T* ms, const T* angmom,             \
+      const unsigned char* act, int ns, T* vals, T* part, T* move, T* spin, \
+      T* com, T* r_out, T* v_out, T* r0_out, T* v0_out, T* m_out,           \
+      T* angmom_out, T* m_gas, unsigned char* alive_new, int device,        \
+      void* stream) {                                                       \
+    return run_smooth_apply<T>(r, v, m, dm, slot_of, alive, n, rs, vs, r0s, \
+                               v0s, ms, angmom, act, ns, vals, part, move,  \
+                               spin, com, r_out, v_out, r0_out, v0_out,     \
+                               m_out, angmom_out, m_gas, alive_new, device, \
+                               stream);                                     \
+  }
+
+SMOOTH_ENTRIES(f32, float)
+SMOOTH_ENTRIES(f64, double)
 
 }  // extern "C"

@@ -17,9 +17,11 @@ branch is a masked update over all particles, as in the JAX package:
 - the ladder is rebuilt at n == nresync, and level_max grows or shrinks
   between resyncs with n, nlast and nstep rescaled by powers of two.
 
-The JAX functions' ``dt_extra`` (sink and star timesteps) and
-``axis_name`` (sharded ladder reductions) arguments are not ported: no
-caller of this slice sets them (ROADMAP queue 1, items 9 and 13).
+``dt_extra`` is the scalar timestep bound of the sinks and stars, which
+always step at ``dt_base``: it deepens the ladder at a resync and can
+grow ``level_max`` by at most one level a tick between resyncs.  The
+JAX functions' ``axis_name`` (sharded ladder reductions) is not ported
+(ROADMAP queue 1, item 13).
 Integer fields are int32 tensors; the schedule's scalars are 0-d
 tensors on the state's device.
 """
@@ -74,12 +76,16 @@ def _i32(x: int, like: Tensor) -> Tensor:
     return torch.tensor(x, dtype=_I32, device=like.device)
 
 
-def init_schedule(cfg: BlockConfig, s: SphState, dt_part: Tensor
+def init_schedule(cfg: BlockConfig, s: SphState, dt_part: Tensor,
+                  dt_extra: Tensor = None
                   ) -> Tuple[SphState, BlockSchedule]:
-    """The initial ladder (the resync branch at n = 0)."""
+    """The initial ladder (the resync branch at n = 0); `dt_extra` (a
+    0-d tensor: the sinks' and stars' bound) caps its dt_min."""
     alive = s.alive
     dtp = torch.where(alive, dt_part, torch.full_like(dt_part, 1e30))
     dt_min = torch.min(dtp)
+    if dt_extra is not None:
+        dt_min = torch.minimum(dt_min, dt_extra)
     level_max = _i32(cfg.nlevels - 1, dt_part)
     dt_max = dt_min * _pow2(level_max).to(dt_min.dtype)
     level = torch.minimum(compute_timestep_level(dtp, dt_max), level_max)
@@ -135,12 +141,12 @@ def check_timesteps(cfg: BlockConfig, s: SphState, B: BlockSchedule,
 
 def end_timestep(cfg: BlockConfig, s: SphState, B: BlockSchedule,
                  active: Tensor, level: Tensor, nstep_part: Tensor,
-                 dt_crit: Tensor, t: Tensor, u_mode: str
-                 ) -> Tuple[SphState, BlockSchedule]:
+                 dt_crit: Tensor, t: Tensor, u_mode: str,
+                 dt_extra: Tensor = None) -> Tuple[SphState, BlockSchedule]:
     """Closing kick and level and ladder update for the particles ending
     their step.  `level` and `nstep_part` carry the Saitoh-Makino
     reductions; `dt_crit` is the fresh timestep criterion (read where
-    active)."""
+    active); `dt_extra` the sinks' and stars' bound (see ladder_update)."""
     n = B.n + 1
     dt_p = torch.where(active, t - s.tlast, torch.zeros_like(s.tlast))
     act3 = active[:, None]
@@ -157,7 +163,8 @@ def end_timestep(cfg: BlockConfig, s: SphState, B: BlockSchedule,
         upd["dudt0"] = torch.where(active, s.dudt, s.dudt0)
     dt_next = torch.where(active, dt_crit, B.dt_next)
     lad, B = ladder_update(cfg, B, s.alive, active, level, s.levelneib,
-                           nstep_part, s.nlast, s.tlast, dt_next, n, t)
+                           nstep_part, s.nlast, s.tlast, dt_next, n, t,
+                           dt_extra=dt_extra)
     s = s.replace(t=t, dt=B.dt_base, **lad, **upd)
     return s, B
 
@@ -165,15 +172,21 @@ def end_timestep(cfg: BlockConfig, s: SphState, B: BlockSchedule,
 def ladder_update(cfg: BlockConfig, B: BlockSchedule, alive: Tensor,
                   active: Tensor, level: Tensor, levelneib: Tensor,
                   nstep_part: Tensor, nlast: Tensor, tlast: Tensor,
-                  dt_next: Tensor, n: Tensor, t: Tensor):
+                  dt_next: Tensor, n: Tensor, t: Tensor,
+                  dt_extra: Tensor = None):
     """Per-particle level moves, level_max growth or shrink with the
-    integer times rescaled, and the resync rebuild.  Returns
+    integer times rescaled, and the resync rebuild.  `dt_extra` (0-d,
+    the sinks' and stars' bound) caps the resync's dt_min and, between
+    resyncs, raises the occupied level_max to its level under dt_max,
+    at most one level above the current one.  Returns
     (dict(level=, levelneib=, nlast=, tlast=), BlockSchedule)."""
     is_resync = n == B.nresync
 
     # resync branch (n == nresync): rebuild the ladder
     dtp_sync = torch.where(alive, dt_next, torch.full_like(dt_next, 1e30))
     dt_min = torch.min(dtp_sync)
+    if dt_extra is not None:
+        dt_min = torch.minimum(dt_min, dt_extra)
     lmax_sync = _i32(cfg.nlevels - 1, n)
     dtmax_sync = dt_min * _pow2(lmax_sync).to(dt_min.dtype)
     lvl_sync = torch.minimum(compute_timestep_level(dtp_sync, dtmax_sync),
@@ -184,9 +197,13 @@ def ladder_update(cfg: BlockConfig, B: BlockSchedule, alive: Tensor,
     lvl_req = torch.maximum(compute_timestep_level(dt_next, B.dt_max),
                             levelneib - cfg.level_diff_max)
     natural = active & (nstep_part == _pow2(B.level_max - level))
-    # a natural end goes down one level only at a synchronised boundary
+    # a natural end goes down one level only at a synchronised boundary.
+    # A dead particle stays on the deepest level, so a shrink of the
+    # ladder takes its nstep to 0; the JAX package's remainder by 0 is
+    # read there only where no particle is active, and a divisor of 1
+    # stands in for it
     down_ok = (lvl_req < level) & (level > 1) \
-        & (torch.remainder(n, 2 * nstep_part) == 0)
+        & (torch.remainder(n, torch.clamp_min(2 * nstep_part, 1)) == 0)
     lvl_nat = torch.where(down_ok, level - 1,
                           torch.where(lvl_req > level, lvl_req, level))
     # a step shortened by the limiter can only go up
@@ -201,6 +218,10 @@ def ladder_update(cfg: BlockConfig, B: BlockSchedule, alive: Tensor,
     lmax_old = B.level_max
     lmax_occ = torch.max(torch.where(alive, lvl_adj,
                                      torch.zeros_like(lvl_adj)))
+    if dt_extra is not None:
+        lvl_extra = torch.minimum(
+            compute_timestep_level(dt_extra, B.dt_max), lmax_old + 1)
+        lmax_occ = torch.maximum(lmax_occ, lvl_extra)
     grow = lmax_occ > lmax_old
     shrink = (~grow) & (lmax_occ <= lmax_old - 1) & (lmax_old > 1) \
         & (torch.remainder(n, 2) == 0)

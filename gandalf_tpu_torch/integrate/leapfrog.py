@@ -40,7 +40,9 @@ class IntegratorConfig:
 
 def predict(cfg: IntegratorConfig, s: SphState, dt: Tensor) -> SphState:
     """KDK predictor: drift positions, kick velocities with the
-    step-start acceleration."""
+    step-start acceleration.  A time-dependent alpha is left as it is
+    (gandalf_tpu/integrate/leapfrog.py:52-53 sets it to itself); correct
+    advances it."""
     out = {"r": s.r0 + s.v0 * dt + 0.5 * s.a0 * dt * dt,
            "v": s.v0 + s.a0 * dt}
     if cfg.energy_integration:

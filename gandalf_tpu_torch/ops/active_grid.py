@@ -1,6 +1,7 @@
 """Active-subset hydro pass over the structured grid: the density (K8)
 and forces (K9) of a listed subset of particles, the pair work of a
-block-timestep tick.
+block-timestep tick; and the neighbour-level pass (K22) of the dense
+block tick with sinks.
 
 Counterpart of ``gandalf_tpu/ops/active_grid.py``.  Every particle is
 binned (K1) into the grid's dense slot map, which holds each slot's
@@ -23,6 +24,12 @@ the JAX package followed by ``ops/density.py:compute_h`` or
 ``ops/forces.py:compute_hydro_forces``) and a CUDA C++ kernel in
 ``csrc/``, launched through ``_ext``.  A CPU tensor takes the plain
 version; a CUDA tensor takes the kernel, or the wrapper raises.
+
+``levelneib_grid27`` is gandalf_tpu/sim/simulation.py:_levelneib_pass
+(:1682-1702): every alive particle's largest neighbour level within
+kernrange * max(h_i, h_j), itself included, over the alive particles
+binned into the grid (the dead binned out); it overwrites levelneib, and
+the dead get 0.  Unlike K9's scatter, it is one-sided.
 """
 
 from __future__ import annotations
@@ -40,14 +47,14 @@ Tensor = torch.Tensor
 
 def dense_ids(spec: g27.Grid27Spec, b: g27.GridBinning) -> Tensor:
     """K1's slot map: (*ncells, K) int32 particle id per slot, -1
-    empty."""
+    empty; discarded particles (virtual cell C) take no slot."""
     K, C = spec.k_cell, spec.total_cells
     N = b.cell_of.shape[0]
     dev = b.cell_of.device
-    ids = torch.full((C * K,), -1, dtype=torch.int32, device=dev)
+    ids = torch.full(((C + 1) * K,), -1, dtype=torch.int32, device=dev)
     ids[g27._flat_slot(spec, b)] = torch.arange(N, dtype=torch.int32,
                                                 device=dev)
-    return ids.reshape(tuple(spec.ncells) + (K,))
+    return ids[:C * K].reshape(tuple(spec.ncells) + (K,))
 
 
 def _row_chunk(n_cand: int, device) -> int:
@@ -264,3 +271,44 @@ def active_hydro_pass(kern, visc, spec: g27.Grid27Spec, eos, h_fac: float,
     overflow = b.overflow | torch.any(~dens.converged) | torch.any(
         dens.h > 0.99 * hmax)
     return s, overflow
+
+
+# ---------------------------------------------------------------------------
+# K22: the neighbour-level pass of the dense block tick
+# ---------------------------------------------------------------------------
+
+def levelneib_grid27(kern, spec: g27.Grid27Spec, r: Tensor, h: Tensor,
+                     level: Tensor, alive: Tensor) -> Tensor:
+    """The largest level (N,) int32 among each alive particle's alive
+    candidates within kernrange * max(h_i, h_j) (itself included), 0 for
+    the dead.  K1 (with the dead discarded), then K22 on CUDA tensors."""
+    if spec.ndim != 3 or spec.mirror or spec.qz != 1:
+        raise NotImplementedError(
+            "the neighbour-level pass takes 3D grids without mirror layers "
+            "(ROADMAP queue 1, items 3 and 8)")
+    b = g27.bin_particles(spec, r, discard=~alive)
+    ids_d = dense_ids(spec, b)
+    if r.is_cuda:
+        return _ext.levelneib(spec, kern, ids_d, r, h, level)
+    return levelneib_plain(kern, spec, b.cell_of, ids_d, r, h, level, alive)
+
+
+def levelneib_plain(kern, spec, cell_of, ids_d, r, h, level, alive):
+    """Plain version of K22: gandalf_tpu's candidate gather over chunks
+    of the alive particles, d^2 summed and the radius squared as there."""
+    out = torch.zeros_like(level)
+    idx = torch.nonzero(alive).flatten()
+    step = _row_chunk(27 * spec.k_cell, r.device)
+    for c0 in range(0, idx.numel(), step):
+        sel = idx[c0:c0 + step]
+        cand, dr = gather_active_candidates(spec, cell_of, ids_d, r, sel)
+        mask = cand >= 0
+        cid = torch.clamp_min(cand, 0)
+        d2 = (dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1]
+              + dr[..., 2] * dr[..., 2])
+        rad = kern.kernrange * torch.maximum(h[sel][:, None], h[cid])
+        near = mask & (d2 <= rad * rad)
+        out[sel] = torch.where(near, level[cid],
+                               torch.zeros_like(cand, dtype=level.dtype)
+                               ).amax(dim=1)
+    return out

@@ -1,5 +1,6 @@
-"""SPH pair forces over gathered neighbour views, and the artificial
-dissipation configuration.
+"""SPH pair forces over gathered neighbour views, the artificial
+dissipation configuration, and the Cullen & Dehnen (2010) viscosity
+switch (K21).
 
 Counterpart of ``gandalf_tpu/ops/forces.py``'s ``AVISC_*``/``ACOND_*``
 codes, ``ArtificialViscosity``, ``HydroForces``, ``NeighborView`` and
@@ -9,6 +10,16 @@ velocity divergence and the compressive heating, over (n, K) blocks of
 candidate neighbours with a validity mask.  The plain version of K9
 (``ops/active_grid.py``) evaluates it on gathered candidates; the grid
 pass's pair forces are K3 in ``ops/sph_grid27.py``.
+
+``cullen_dehnen_dense`` is the counterpart of gandalf_tpu's (the
+time_dependent_avisc = cd2010 switch of a global step): the weighted
+sums rr, dvw and daw over the 3^ndim-cell stencil of the alive
+particles (K1 with the dead binned out, no mirror images), then the
+shared finale ``_cd2010_finalize``.  It launches K21
+(``csrc/cullen_dehnen.cu``) on CUDA tensors and runs its plain version
+``cullen_dehnen_sums_plain`` on CPU tensors.  ``cullen_dehnen_alpha``,
+the JAX package's all-pairs form, is kept as a torch oracle for the
+tests only (ROADMAP's "Not to port" rule for brute-force paths).
 """
 
 from __future__ import annotations
@@ -17,6 +28,8 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+
+from .. import _ext
 
 Tensor = torch.Tensor
 
@@ -144,3 +157,156 @@ def compute_hydro_forces(kern, visc: ArtificialViscosity, v_i: Tensor,
                     + torch.clamp_min(-div_v, 0.0)
                     * (visc.alpha_visc - alpha_i))
     return HydroForces(a=a, dudt=dudt, div_v=div_v, dalphadt=dalphadt)
+
+
+# ---------------------------------------------------------------------------
+# K21: the Cullen & Dehnen (2010) switch
+# ---------------------------------------------------------------------------
+
+# per-particle columns of K21's packed table, after v (ndim) and a (ndim):
+# m, h, hfactor / max(rho, 1e-30), alpha, sound
+CD_COLS = ("m", "h", "coef", "alpha", "sound")
+
+
+def _cd2010_terms(visc: ArtificialViscosity, rr: Tensor, dvw: Tensor,
+                  daw: Tensor, h: Tensor, sound: Tensor, alpha: Tensor):
+    """The finale of the switch on (n, nd, nd) sums: (alpha_new,
+    dalphadt, bad), gandalf_tpu/ops/forces.py:_cd2010_finalize (:224)
+    with its bad-gradient flag."""
+    ndim = rr.shape[-1]
+    invh = 1.0 / h
+    eye = torch.eye(ndim, dtype=rr.dtype, device=rr.device)
+    det_ok = torch.abs(torch.linalg.det(rr)) > 1e-30
+    rr_safe = torch.where(det_ok[:, None, None], rr, eye)
+    T = torch.linalg.inv(rr_safe)
+    modR = torch.sum(rr * rr, dim=(1, 2))
+    modT = torch.sum(T * T, dim=(1, 2))
+    bad = (~det_ok) | (modR * modT / (ndim * ndim) > 1e4)
+    # dvdx[i][j] = T[j][k] dv[k][i]
+    dvdx = torch.einsum("njk,nki->nij", T, dvw)
+    dadx = torch.einsum("njk,nki->nij", T, daw)
+    ddivdt = torch.einsum("nii->n", dadx) \
+        - torch.einsum("nij,nji->n", dvdx, dvdx)
+    divv = torch.einsum("nii->n", dvdx)
+    divv2 = divv * divv
+    curl = dvdx - dvdx.transpose(1, 2)
+    curlv2 = 0.5 * torch.sum(curl * curl, dim=(1, 2))
+    f_balsara = torch.where(
+        curlv2 > 0.0, divv2 / torch.clamp_min(divv2 + curlv2, 1e-30), 1.0)
+    c2 = torch.clamp_min(sound * sound, 1e-30)
+    alpha_loc = torch.where(
+        ddivdt < 0.0, torch.clamp_max(10.0 * h * h / c2 * f_balsara
+                                      * (-ddivdt), visc.alpha_visc), 0.0)
+    alpha_loc = torch.where(bad, visc.alpha_visc, alpha_loc)
+    alpha_new = torch.maximum(alpha, alpha_loc)
+    dalphadt = (0.1 * sound
+                * (torch.clamp_min(alpha_loc, visc.alpha_visc_min)
+                   - alpha_new) * invh)
+    return alpha_new, dalphadt, bad
+
+
+def _cd2010_finalize(visc: ArtificialViscosity, rr, dvw, daw, h, sound,
+                     alpha):
+    """The guarded inverse of rr (the identity where |det| <= 1e-30; bad
+    there or where |rr|^2 |rr^-1|^2 / ndim^2 > 1e4), the gradients, the
+    shock indicator ddivdt = tr(da/dx) - dv/dx : dv/dx^T, the Balsara
+    factor and alpha_loc (alpha_visc where bad): (alpha_new =
+    max(alpha, alpha_loc), dalphadt = 0.1 c (max(alpha_min, alpha_loc) -
+    alpha_new) / h)."""
+    return _cd2010_terms(visc, rr, dvw, daw, h, sound, alpha)[:2]
+
+
+def cd_packed(v, a, m, h, rho, hfactor, alpha, sound) -> Tensor:
+    """K21's per-particle table (N, 2 ndim + 5): v, a and CD_COLS."""
+    coef = hfactor / torch.clamp_min(rho, 1e-30)
+    return torch.cat([v, a, torch.stack([m, h, coef, alpha, sound], -1)],
+                     dim=-1)
+
+
+def cullen_dehnen_sums(kern, visc: ArtificialViscosity, spec, ids_d: Tensor,
+                       r: Tensor, packed: Tensor):
+    """The switch of every particle of K1's slot map ids_d over its
+    3^ndim-cell stencil: (alpha_new, dalphadt, bad), each (N,) (zero for
+    a particle without a slot).  `packed` is cd_packed's table.  K21 on
+    CUDA tensors."""
+    if r.is_cuda:
+        if kern.name != "m4":
+            raise NotImplementedError("K21 weights with the M4 kernel only")
+        return _ext.cullen_dehnen(spec, kern, visc, ids_d, r.contiguous(),
+                                  packed.contiguous())
+    return cullen_dehnen_sums_plain(kern, visc, spec, ids_d, r, packed)
+
+
+def cullen_dehnen_sums_plain(kern, visc: ArtificialViscosity, spec, ids_d,
+                             r, packed):
+    """Plain version of K21: the JAX sums over a list of the slot map's
+    pairs within kernrange times the largest h (beyond, W' = 0 and a
+    pair adds exactly zero), with the particle itself and coincident
+    partners dropped, then _cd2010_terms."""
+    from . import mfv_grid27 as mg
+
+    N, nd = r.shape
+    h = torch.clamp_min(packed[:, 2 * nd + 1], 1e-30)
+    slotted = torch.zeros((N,), dtype=torch.bool, device=r.device)
+    ids = ids_d.reshape(-1).long()
+    slotted[ids[ids >= 0]] = True
+    h_big = float(torch.max(torch.where(slotted, h, 0.0))) if N else 0.0
+    cut2 = (kern.kernrange * h_big) ** 2 * (1.0 + 1e-6)
+    row, col, dr, d2 = mg.slot_pairs(spec, ids_d, r, cut2, True)
+    invh = 1.0 / h
+    coef = packed[:, 2 * nd + 2]
+    w = packed[col, 2 * nd] * (invh * coef)[row] \
+        * kern.w1(torch.sqrt(d2) * invh[row])
+    dv = packed[col, :nd] - packed[row, :nd]
+    da = packed[col, nd:2 * nd] - packed[row, nd:2 * nd]
+    wdr = w[:, None] * dr
+
+    def outer(x):
+        out = torch.zeros((N, nd, nd), dtype=r.dtype, device=r.device)
+        return out.index_add_(0, row, wdr[:, :, None] * x[:, None, :])
+
+    alpha_new, dal, bad = _cd2010_terms(
+        visc, outer(dr), outer(dv), outer(da), h, packed[:, 2 * nd + 4],
+        packed[:, 2 * nd + 3])
+    zero = torch.zeros_like(alpha_new)
+    return (torch.where(slotted, alpha_new, zero),
+            torch.where(slotted, dal, zero), bad & slotted)
+
+
+def cullen_dehnen_dense(kern, visc: ArtificialViscosity, spec, r, v, a, m,
+                        h, rho, sound, hfactor, alpha, alive):
+    """The cd2010 switch of a global step (gandalf_tpu's
+    cullen_dehnen_dense over bin_particles(discard=~alive)): (alpha_new,
+    dalphadt) in particle order, alpha and 0 for the dead."""
+    from . import sph_grid27 as g27
+    from .active_grid import dense_ids
+
+    b = g27.bin_particles(spec, r, discard=~alive)
+    packed = cd_packed(v, a, m, h, rho, hfactor, alpha, sound)
+    alpha_new, dal, _ = cullen_dehnen_sums(kern, visc, spec,
+                                           dense_ids(spec, b), r, packed)
+    return (torch.where(alive, alpha_new, alpha),
+            torch.where(alive, dal, torch.zeros_like(dal)))
+
+
+def cullen_dehnen_alpha(kern, visc: ArtificialViscosity, box, r, v, a, m, h,
+                        rho, sound, hfactor, alpha, r_ext, v_ext, a_ext,
+                        m_ext):
+    """The switch over all pairs of (r, v, a) against the (r_ext, v_ext,
+    a_ext, m_ext) set, min-imaged in `box`: gandalf_tpu's
+    cullen_dehnen_alpha, a torch oracle for the tests (never run by the
+    simulation)."""
+    dr = box.min_image(r_ext[None, :, :] - r[:, None, :])
+    drsqd = torch.sum(dr * dr, dim=-1)
+    valid = drsqd > 0.0
+    drmag = torch.sqrt(torch.where(valid, drsqd, 1.0))
+    invh = 1.0 / h
+    w = m_ext[None, :] * (invh * hfactor / torch.clamp_min(rho, 1e-30)
+                          )[:, None] * kern.w1(drmag * invh[:, None])
+    w = torch.where(valid, w, 0.0)
+    dv = v_ext[None, :, :] - v[:, None, :]
+    da = a_ext[None, :, :] - a[:, None, :]
+    rr = torch.einsum("nk,nki,nkj->nij", w, dr, dr)
+    dvw = torch.einsum("nk,nki,nkj->nij", w, dr, dv)
+    daw = torch.einsum("nk,nki,nkj->nij", w, dr, da)
+    return _cd2010_finalize(visc, rr, dvw, daw, h, sound, alpha)

@@ -9,6 +9,8 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --sinks
     python -m gandalf_tpu_torch.profile_step --khi
     python -m gandalf_tpu_torch.profile_step --mirror [--layout L]
+    python -m gandalf_tpu_torch.profile_step --block-sinks
+    python -m gandalf_tpu_torch.profile_step --cd2010
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -33,11 +35,16 @@ Kelvin-Helmholtz instability (check.khi_params, 425,984 particles) in
 float32, as the SPH box.  With --mirror: the mirror-wall box
 (check.mirror_params at 64^3 with jittered_state's IC; --layout dim0,
 walls on dim 0, or mixed, the mirror/wall and open/mirror pairs on dims
-1 and 2) in float32, as the SPH box.  Prints one JSON line a
+1 and 2) in float32, as the SPH box.  With --block-sinks: the
+block-stepped Boss-Bodenheimer collapse (check.bb_block_params at about
+262,144 particles: Nlevels 5, smooth accretion, mm97) in float32, 4
+warm-up ticks, then a window of 8 dense ticks.  With --cd2010: the KHI
+with time_dependent_avisc = cd2010 (K21 once a step), as --khi.
+Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
 the device time summed over kernels and copies, the device's idle share
-of the window, the device time of each of K1-K19 and of the torch glue
+of the window, the device time of each of K1-K22 and of the torch glue
 between them, and the device time per kernel name (largest first); with
 --block also the active rows per tick.  Refuses to run without CUDA.
 """
@@ -56,7 +63,7 @@ N_SIDE = 64
 STEPS = 8
 BLOCK_N = 262144
 BLOCK_WARM = 4
-# device kernel names of K1-K19 (csrc/); every other device event is glue
+# device kernel names of K1-K22 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -80,6 +87,11 @@ FAMILIES = {
     "K18 accretion_sums": ("accretion_nearest", "accretion_partial",
                            "accretion_finish"),
     "K19 grid27_mirror": ("grid27_mirror_kernel",),
+    "K20 smooth_accretion": ("smooth_terms", "smooth_slots", "smooth_dm",
+                             "move_terms", "move_slots", "spin_terms",
+                             "spin_slots", "slot_partial", "slot_finish"),
+    "K21 cullen_dehnen": ("cullen_dehnen_kernel",),
+    "K22 levelneib": ("levelneib_kernel",),
 }
 NBODY_N = 65536
 NBODY_TS6_N = 16384
@@ -119,10 +131,10 @@ def _profile_window(sim, args, before: int) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        if args.block or args.nbody:
+        if args.block or args.block_sinks or args.nbody:
             for _ in range(STEPS):
                 sim.main_loop_step()
-                if args.block:
+                if args.block or args.block_sinks:
                     rows.append(list(sim.last_tick_rows))
             done = STEPS
         else:
@@ -153,6 +165,7 @@ def _profile_window(sim, args, before: int) -> int:
         slice_fields = {
             "block": args.block, "mfv": args.mfv, "ewald": args.ewald,
             "sinks": args.sinks, "khi": args.khi,
+            "block_sinks": args.block_sinks, "cd2010": args.cd2010,
             "mirror": args.layout if args.mirror else None,
             "ndim": sim.ndim,
             "sinks_active": (int(sim.state.sinks.active.sum())
@@ -202,10 +215,17 @@ def main(argv=None) -> int:
     ap.add_argument("--mirror", action="store_true",
                     help="the mirror-wall box (mirror_box)")
     ap.add_argument("--layout", default="dim0", choices=("dim0", "mixed"))
+    ap.add_argument("--block-sinks", action="store_true",
+                    help="the block-stepped Boss-Bodenheimer collapse "
+                         "(bb_block_collapse)")
+    ap.add_argument("--cd2010", action="store_true",
+                    help="the KHI with the Cullen & Dehnen switch "
+                         "(khi_cd2010)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
-    from .check import (MIRROR_DIM0, MIRROR_MIXED, bb_params, jeans_params,
+    from .check import (MIRROR_DIM0, MIRROR_MIXED, bb_block_params,
+                        bb_params, jeans_params,
                         jittered_box_ic, khi_params, mfv_params, mirror_ic,
                         mirror_params, nbody_params, slice_params,
                         sphere_block_params)
@@ -224,8 +244,16 @@ def main(argv=None) -> int:
                                  device="cuda", dtype=torch.float32)
         sim.SetupSimulation()
         warm = SINK_WARM
-    elif args.khi:
-        sim = GradhSphSimulation(khi_params(), device="cuda",
+    elif args.block_sinks:
+        sim = GradhSphSimulation(bb_block_params(SINK_N), device="cuda",
+                                 dtype=torch.float32)
+        sim.SetupSimulation()
+        warm = BLOCK_WARM
+    elif args.khi or args.cd2010:
+        params = khi_params()
+        if args.cd2010:
+            params.set("time_dependent_avisc", "cd2010")
+        sim = GradhSphSimulation(params, device="cuda",
                                  dtype=torch.float32)
         sim.SetupSimulation()
         warm = 2

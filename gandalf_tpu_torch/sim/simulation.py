@@ -12,8 +12,9 @@ controller is in ``sim/mfv_sim.py``, the N-body one in ``sim/nbody_sim.py``.
 ``GradhSphSimulation`` is the counterpart of gandalf_tpu's
 ``GradhSphSimulation`` for one configuration: grad-h SPH with the M4
 kernel, the adiabatic, isothermal, barotropic or polytropic EOS, mon97
-viscosity (or none) and optional conductivity, the structured 3^ndim
-shift grid (in 1D and 2D too, and with mirror or wall boundaries, whose
+viscosity (or none; with time_dependent_avisc = mm97 or cd2010 its
+alpha evolves per particle) and optional conductivity, the structured
+3^ndim shift grid (in 1D and 2D too, and with mirror or wall boundaries, whose
 reflected images the grid holds in an image-cell layer beyond each
 wall; hydro only there), KDK leapfrog with a global timestep or with
 hierarchical block timesteps (``Nlevels > 1``), and optionally
@@ -21,13 +22,14 @@ self-gravity from the KD-bucket Barnes-Hut tree (frontier walk;
 geometric, gadget2 or eigenmac MAC; monopole or quadrupole moments, at every particle or expanded about
 each bucket's centre; the Ewald sum of a periodic box, fully periodic,
 slab or cylinder), with its buckets replanned every ``ntreebuildstep``
-steps.  With a global timestep it also runs star and sink particles
-(``ops/sinks.py``): stars from the IC, sink creation and plain accretion,
-star-gas gravity (K16) and star-star gravity (K14), with the accreted
-gas dead (masked out of the grid and tree passes and frozen).  The sinks
-ride in the state (``SphState.sinks``), so bursts and overflow rewinds
-carry them.  Options outside that slice raise NotImplementedError naming
-their ROADMAP item.
+steps.  It also runs star and sink particles (``ops/sinks.py``), with a
+global timestep or block timesteps: stars from the IC, sink creation,
+plain or smooth accretion (K18, K20), star-gas gravity (K16) and
+star-star gravity (K14), with the accreted gas dead (masked out of the
+grid and tree passes and frozen).  The sinks ride in the state
+(``SphState.sinks``), so bursts and overflow rewinds carry them.
+Options outside that slice raise NotImplementedError naming their
+ROADMAP item.
 
 A global step runs eagerly as a sequence of torch operations and kernel
 launches on the simulation's device; on a CUDA device nothing in it
@@ -37,7 +39,10 @@ reads the overflow flag and the time once at its end.  A block tick
 does the pair work of the active particles only (``ops/active_grid.py``,
 and with self-gravity the tree walk of their buckets); it reads the
 active set, the Saitoh-Makino set and the overflow flag on the host, so
-it runs tick by tick.
+it runs tick by tick.  With sinks a block tick is the JAX package's dense
+tick instead: every particle drifts and takes the whole coupled pass,
+then the neighbour-level pass (K22) and the ladder update, with the
+sinks stepping at the tick's dt_base.
 """
 
 from __future__ import annotations
@@ -54,13 +59,14 @@ from ..integrate.block import (BlockConfig, advance, check_timesteps,
 from ..integrate.leapfrog import (IntegratorConfig, correct, predict,
                                   sph_timestep)
 from ..kernels.smoothing import kernel_factory
-from ..ops.active_grid import active_hydro_pass
+from ..ops.active_grid import active_hydro_pass, levelneib_grid27
 from ..ops.eos import eos_factory
 from ..ops.ewald import table_from_params
-from ..ops.forces import ArtificialViscosity
+from ..ops.forces import ArtificialViscosity, cullen_dehnen_dense
 from ..ops.gravity import direct_softened
-from ..ops.sinks import (SinkConfig, accrete_to_sinks, create_sinks,
-                         empty_sinks, make_sinks)
+from ..ops.sinks import (SinkConfig, accrete_to_sinks,
+                         apply_smooth_accretion, create_sinks, empty_sinks,
+                         make_sinks, smooth_accretion_sums)
 from ..ops.sph_gravity import star_gas_forces
 from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
 from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
@@ -525,14 +531,13 @@ class GradhSphSimulation(SimulationBase):
             raise _unsupported(f"sim {sp['sim']!r}", "items 9-10")
         if sp["dust_forces"] not in ("none", "null", ""):
             raise _unsupported("dust", "item 9")
-        if sp["time_dependent_avisc"] != "none":
-            raise _unsupported("time_dependent_avisc", "item 9")
         if sp["supernova_feedback"] not in ("none", "null", ""):
             raise _unsupported("supernova feedback", "item 9")
         if ip["rad_fb"]:
             raise _unsupported("radiative feedback (rad_fb)", "item 9")
         self._common_parameters()
         self.visc = ArtificialViscosity.from_params(p)
+        self.td_avisc_type = sp["time_dependent_avisc"]
         # u is integrated for energy_eqn only; the other EOS set it from rho
         self.integ = IntegratorConfig.from_params(
             p, energy_integration=sp["gas_eos"] == "energy_eqn")
@@ -557,22 +562,17 @@ class GradhSphSimulation(SimulationBase):
             sink_radius=p.floatparams["sink_radius"],
             create=bool(ip["create_sinks"]),
             accrete=bool(ip["sink_particles"]))
+        self.smooth_accretion = bool(ip["smooth_accretion"])
         if self.sink_cfg.create or self.sink_cfg.accrete:
             self._check_sink_options()
 
     def _check_sink_options(self):
-        """The sink options the port runs: a global timestep, plain
-        accretion, 3D and no mirror walls."""
+        """The sink options the port runs: 3D and no mirror walls."""
         if self.ndim != 3:
             raise _unsupported("sinks at ndim < 3", "item 9")
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries with sinks (the JAX "
                                "package's all-pairs path)", "item 8")
-        if self.use_block:
-            raise _unsupported("sinks with block timesteps (Nlevels > 1 "
-                               "needs the ladder's dt_extra)", "item 9")
-        if self.params.intparams["smooth_accretion"]:
-            raise _unsupported("smooth_accretion = 1", "item 9")
 
     # -- setup -----------------------------------------------------------------
     def SetupSimulation(self, ic: Optional[Dict[str, np.ndarray]] = None):
@@ -588,6 +588,8 @@ class GradhSphSimulation(SimulationBase):
                     ic = generate_ic(self.params, self.eos)
             if "ptype" in ic:
                 raise _unsupported("non-gas particle types", "item 9")
+            # smooth accretion's floor (gandalf_tpu/sim/simulation.py:1339)
+            self.mmean = float(np.asarray(ic["m"]).mean())
             self.state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"],
                                         ic["u"], device=self.device,
                                         dtype=self.dtype)
@@ -595,8 +597,12 @@ class GradhSphSimulation(SimulationBase):
             # massless particles (accreted gas in old files) are dead
             dead = torch.as_tensor(np.asarray(ic["m"]) <= 0.0,
                                    device=self.device)
+            # a time-dependent alpha starts at its floor
+            # (gandalf_tpu/sim/simulation.py:1315-1318)
+            alpha0 = (self.visc.alpha_visc_min if self.integ.td_avisc
+                      else self.visc.alpha_visc)
             self.state = s.replace(
-                alpha=torch.full_like(s.alpha, self.visc.alpha_visc),
+                alpha=torch.full_like(s.alpha, alpha0),
                 flags=torch.where(dead, s.flags | FLAG_DEAD, s.flags),
                 sinks=self._initial_sinks(ic))
             self.has_sinks = self.state.sinks is not None
@@ -622,10 +628,6 @@ class GradhSphSimulation(SimulationBase):
             if self.sink_cfg.create else 0
         kw = dict(device=self.device, dtype=self.dtype)
         if "star" in ic:
-            if self.use_block:
-                raise _unsupported("stars with block timesteps (Nlevels > "
-                                   "1 needs the ladder's dt_extra)",
-                                   "item 9")
             st = ic["star"]
             return make_sinks(st["r"], st["v"], st["m"], st["h"],
                               n_extra=n_extra, **kw)
@@ -703,9 +705,11 @@ class GradhSphSimulation(SimulationBase):
             gpot=s.gpot + torch.where(alive, gp_gs, 0.0), sinks=sk)
 
     def _sink_create_accrete(self, s: SphState, dt) -> SphState:
-        """Sink creation (K17) and accretion (K18) over a step of size dt,
-        with the accretion rate; the eaten gas dies
-        (gandalf_tpu/sim/simulation.py:1642-1680)."""
+        """Sink creation (K17) and plain (K18) or smooth (K20) accretion
+        over a step of size dt (a block tick's dt_base), with the
+        accretion rate; the eaten gas dies, smoothly accreted gas keeps
+        what is left of its mass (gandalf_tpu/sim/simulation.py:
+        1642-1680)."""
         cfg, sk, alive = self.sink_cfg, s.sinks, s.alive
         m_before = sk.m
         if cfg.create:
@@ -713,7 +717,18 @@ class GradhSphSimulation(SimulationBase):
                                      alive)
             m_before = sk.m      # creation mass is not accretion
         if cfg.accrete:
-            sk, alive = accrete_to_sinks(cfg, sk, s.r, s.v, s.m, alive)
+            if self.smooth_accretion:
+                fp = self.params.floatparams
+                dm, sums = smooth_accretion_sums(
+                    cfg, sk, s.r, s.v, s.m, s.rho, s.sound, alive, dt,
+                    self.kern, self.mmean, alpha_ss=fp["alpha_ss"],
+                    smooth_accrete_frac=fp["smooth_accrete_frac"],
+                    smooth_accrete_dt=fp["smooth_accrete_dt"])
+                sk, m_new, alive = apply_smooth_accretion(
+                    sk, s.r, s.v, s.m, dm, sums["claim"], alive)
+                s = s.replace(m=m_new)
+            else:
+                sk, alive = accrete_to_sinks(cfg, sk, s.r, s.v, s.m, alive)
             sk = sk.replace(mdot=(sk.m - m_before)
                             / torch.clamp_min(dt, 1e-30))
         return self._kill_eaten(s.replace(sinks=sk), alive)
@@ -761,9 +776,13 @@ class GradhSphSimulation(SimulationBase):
                 s = self._hydro_pass(s)
             s = s.replace(a0=s.a, dudt0=s.dudt, u0=s.u, r0=s.r, v0=s.v)
             if self.use_block:
-                # the initial ladder; a tick is dt_base
+                # the initial ladder; a tick is dt_base, which the sinks'
+                # bound caps (gandalf_tpu/sim/simulation.py:1751-1764)
                 dt_part = sph_timestep(integ, s, self.hydro_forces)
-                s, sched = init_schedule(self.block_cfg, s, dt_part)
+                dt_extra = (self._sink_timestep(s.sinks) if self.has_sinks
+                            else None)
+                s, sched = init_schedule(self.block_cfg, s, dt_part,
+                                         dt_extra=dt_extra)
                 return s.replace(dt=sched.dt_base), sched
             return s.replace(dt=self._global_timestep(s))
 
@@ -773,8 +792,9 @@ class GradhSphSimulation(SimulationBase):
         """One global-timestep KDK step: predict, wrap, hydro pass,
         correct, next dt; with sinks the stars drift and kick at the same
         dt around the coupled pass, then sinks form and accrete
-        (gandalf_tpu/sim/simulation.py:1891-1923).  The overflow flag is
-        sticky across the steps of a burst (a mid-burst overflow must
+        (gandalf_tpu/sim/simulation.py:1891-1923); with a time-dependent
+        alpha, _td_avisc's rate goes into the closing kick.  The overflow
+        flag is sticky across the steps of a burst (a mid-burst overflow must
         survive to its end).  With a finite tend the step's dt is clamped
         on the device to tend - t, so no step of a burst passes tend
         (ROADMAP fault F3)."""
@@ -802,7 +822,8 @@ class GradhSphSimulation(SimulationBase):
             else:
                 s = self._hydro_pass(s)
             s = s.replace(neib_overflow=s.neib_overflow | overflow_in)
-            s = correct(integ, s, dt, torch.zeros_like(s.alpha))
+            s, dal = self._td_avisc(s)
+            s = correct(integ, s, dt, dal)
             if self.has_sinks:
                 sk = s.sinks
                 v_c = sk.v + 0.5 * dt * (sk.a - sk.a0)
@@ -813,6 +834,33 @@ class GradhSphSimulation(SimulationBase):
                              nstep=s.nstep + 1)
 
         return step
+
+    # -- time-dependent viscosity ---------------------------------------------
+    def _dalphadt(self, s: SphState):
+        """The Morris & Monaghan (1997) rate of alpha
+        (gandalf_tpu/sim/simulation.py:2033-2040); zero with a fixed
+        alpha."""
+        if not self.integ.td_avisc:
+            return torch.zeros_like(s.alpha)
+        visc = self.visc
+        return (0.1 * s.sound * (visc.alpha_visc_min - s.alpha) / s.h
+                + torch.clamp_min(-s.div_v, 0.0)
+                * (visc.alpha_visc - s.alpha))
+
+    def _td_avisc(self, s: SphState):
+        """(state, dalphadt) after a global step's pass
+        (gandalf_tpu/sim/simulation.py:2042-2069): cd2010 raises alpha at
+        once to the Cullen & Dehnen target (K21 over the alive particles,
+        without mirror images) and returns its decay rate; mm97 returns
+        _dalphadt."""
+        if not self.integ.td_avisc:
+            return s, torch.zeros_like(s.alpha)
+        if self.td_avisc_type == "cd2010":
+            alpha_new, dal = cullen_dehnen_dense(
+                self.kern, self.visc, self.gridspec, s.r, s.v, s.a, s.m,
+                s.h, s.rho, s.sound, s.hfactor, s.alpha, s.alive)
+            return s.replace(alpha=alpha_new), dal
+        return s, self._dalphadt(s)
 
     # -- block timesteps -------------------------------------------------------
     def _block_advance(self, s: SphState, B):
@@ -860,6 +908,15 @@ class GradhSphSimulation(SimulationBase):
             ovf = ovf | ovg
         return s.replace(neib_overflow=s.neib_overflow | ovf)
 
+    def _advance_alpha(self, s: SphState, B) -> SphState:
+        """A block tick's alpha step, _dalphadt times dt_base, for every
+        particle and whatever the scheme: cd2010 too evolves by MM97's
+        law under block timesteps, as in the JAX package
+        (gandalf_tpu/sim/simulation.py:1168-1171; ROADMAP fault F13)."""
+        if not self.integ.td_avisc:
+            return s
+        return s.replace(alpha=s.alpha + self._dalphadt(s) * B.dt_base)
+
     def _block_tick(self):
         """One block tick: drift all, the active pass of the particles
         ending their step, a second pass for those the Saitoh-Makino
@@ -882,6 +939,7 @@ class GradhSphSimulation(SimulationBase):
                 # the limiter's re-activations need fresh forces before
                 # their closing kick
                 s = self._active_pass(s, newly.to(torch.int32))
+            s = self._advance_alpha(s, B)
             dt_crit = sph_timestep(integ, s, self.hydro_forces)
             s, B = end_timestep(cfg, s, B, active2, level, nstep_p, dt_crit,
                                 s.t, self.u_mode)
@@ -900,15 +958,77 @@ class GradhSphSimulation(SimulationBase):
                     prev = self.state
         raise RuntimeError("neighbour overflow persists after 5 replans")
 
+    def _sink_tick(self, s: SphState, B):
+        """One dense block tick with sinks from state s and schedule B
+        (gandalf_tpu/sim/simulation.py:1814-1853): drift every particle
+        and the sinks (at dt_base), wrap and reflect, the whole coupled
+        pass, the neighbour levels of every alive particle (K22), alpha's
+        step, the Saitoh-Makino limiter, the sinks' closing kick, creation
+        and accretion over dt_base, then the closing kick and the ladder
+        update with the sinks' bound."""
+        cfg, integ = self.block_cfg, self.integ
+        dtb = B.dt_base
+        s, active, t = advance(s, B, self.u_mode)
+        sk = s.sinks
+        r, v = self.box.reflect(self.box.wrap(s.r), s.v)
+        s = s.replace(r=r, v=v, r0=self.box.wrap(s.r0), sinks=sk.replace(
+            r=sk.r0 + sk.v0 * dtb + 0.5 * sk.a0 * dtb * dtb,
+            v=sk.v0 + sk.a0 * dtb))
+        s = self._sink_coupled_pass(s)
+        s = s.replace(levelneib=levelneib_grid27(
+            self.kern, self.gridspec, s.r, s.h, s.level, s.alive))
+        s = self._advance_alpha(s, B)
+        active, nstep_p, level = check_timesteps(cfg, s, B, active)
+        dt_crit = sph_timestep(integ, s, self.hydro_forces)
+        sk = s.sinks
+        v_c = sk.v + 0.5 * dtb * (sk.a - sk.a0)
+        s = s.replace(sinks=sk.replace(v=v_c, r0=sk.r, v0=v_c, a0=sk.a))
+        s = self._sink_create_accrete(s, dtb)
+        s, B = end_timestep(cfg, s, B, active, level, nstep_p, dt_crit, t,
+                            self.u_mode,
+                            dt_extra=self._sink_timestep(s.sinks))
+        self.active_rows += s.N
+        self.last_tick_rows.append(s.N)
+        return s.replace(nstep=s.nstep + 1), B
+
+    def _block_sink_tick(self):
+        """One dense tick with sinks (_sink_tick), every particle's pass
+        each tick as the JAX package chose
+        (gandalf_tpu/sim/simulation.py:1076-1082); on overflow the state,
+        its sinks and the schedule rewind together, the grid (and the
+        tree buckets with grown caps) is replanned from the pre-tick
+        state and the tick redone, at most 5 attempts."""
+        prev, prev_sched = self.state, self._blocksched
+        self.last_tick_rows = []
+        for attempt in range(5):
+            s, B = self._sink_tick(prev, prev_sched)
+            if not bool(s.neib_overflow):
+                self.state, self._blocksched = s, B
+                return
+            with self.timing.block("GRID_REPLAN"):
+                self._n_grid_overflows += 1
+                self._plan_grid(prev.r, prev.h,
+                                growth=1.3 * (1.2 ** attempt),
+                                alive=prev.alive)
+                if self.treespec is not None:
+                    # replaces self.state's (the pre-tick state's) map
+                    self._plan_tree_buckets(_host(prev.r), grow_caps=True)
+                    prev = self.state
+        raise RuntimeError("neighbour overflow persists after 5 replans")
+
     # -- host loop -------------------------------------------------------------
     def main_loop_step(self):
         """One step, or one block tick with block timesteps (the ladder's
-        tick is not clamped to tend, as in the JAX package)."""
+        tick is not clamped to tend, as in the JAX package): the dense
+        tick with sinks, else the active-compacted one."""
         if not self.use_block:
             super().main_loop_step()
             return
         self._tree_cadence()
         with self.timing.block("MAIN_LOOP"):
-            self._block_tick()
+            if self.has_sinks:
+                self._block_sink_tick()
+            else:
+                self._block_tick()
         self.Nsteps += 1
         self.t = float(self.state.t)

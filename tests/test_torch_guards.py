@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: no module of it imports JAX or the JAX
 package (an AST scan) and running it never loads JAX, whatever
 GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
-N-body and sink slices included); chip_smoke.py refuses to run without
+N-body and sink slices, block-stepped smooth accretion and the cd2010
+switch included); chip_smoke.py refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
 tensors, and on a GPU each CUDA kernel agrees with its plain PyTorch
 version.
@@ -100,6 +101,19 @@ def test_port_never_imports_jax():
         "sim.SetupSimulation()\n"
         "sim.main_loop_step()\n"
         "assert bool(sim.state.sinks.active.any())\n"
+        "from gandalf_tpu_torch.check import plummer_block_params\n"
+        "sim = GradhSphSimulation(plummer_block_params(128, 4),\n"
+        "                         device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation()\n"
+        "sim.main_loop_step()\n"
+        "assert sim.use_block and sim.smooth_accretion\n"
+        "from gandalf_tpu_torch.check import sod_params\n"
+        "p = sod_params(64, 16)\n"
+        "p.set('time_dependent_avisc', 'cd2010')\n"
+        "sim = GradhSphSimulation(p, device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation()\n"
+        "sim.main_loop_step()\n"
+        "assert float(sim.state.alpha.max()) > 0.1\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -303,6 +317,87 @@ def test_sink_kernels_match_plain_versions_on_gpu(dtype):
     bad = {k: r.get("scaled_err", r) for k, r in report.items()
            if not r["ok"]}
     assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_td_sink_kernels_match_plain_versions_on_gpu(dtype):
+    """K20-K22 against their plain versions on the card: K20 on
+    check.smooth_accretion_inputs at 2,000 gas particles with 16 and 64
+    slots (the lower slot takes a tie, gas goes whole and in part); K21
+    at ndim 1, 2 and 3 (the Sod tube, the small KHI and the 16^3 box
+    with cd2010 after a step) and K22 on the block Plummer sphere after
+    two ticks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (compare_td_sink_kernels,
+                                         jittered_box_ic, khi_params,
+                                         plummer_block_params, slice_params,
+                                         smooth_accretion_inputs, sod_params)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    report = {}
+    for ns in (16, 64):
+        rep = compare_td_sink_kernels(
+            kernel_factory("m4", 3),
+            smooth_inputs=smooth_accretion_inputs(2000, ns, "cuda", dtype))
+        assert rep["smooth_accretion"]["whole"] > 0
+        report.update({f"{k}_{ns}": r for k, r in rep.items()})
+    for params, ic in ((sod_params(), None), (khi_params(1), None),
+                       (slice_params(16), True)):
+        params.set("time_dependent_avisc", "cd2010")
+        sim = GradhSphSimulation(params, device="cuda", dtype=dtype)
+        sim.SetupSimulation(jittered_box_ic(params, 16) if ic else None)
+        sim.main_loop_step()
+        report.update(compare_td_sink_kernels(sim=sim, state=sim.state))
+    sim = GradhSphSimulation(plummer_block_params(512, 16), device="cuda",
+                             dtype=dtype)
+    sim.SetupSimulation()
+    for _ in range(2):
+        sim.main_loop_step()
+    rep = compare_td_sink_kernels(sim=sim, state=sim.state)
+    report.update({f"plummer_{k}": r for k, r in rep.items()})
+    torch.cuda.synchronize()
+    assert {"cullen_dehnen", "cullen_dehnen_2d", "cullen_dehnen_1d",
+            "plummer_levelneib"} <= set(report)
+    bad = {k: r.get("scaled_err", r) for k, r in report.items()
+           if not r["ok"]}
+    assert not bad, bad
+
+
+def test_td_sink_wrappers_refuse_cpu_tensors():
+    """K20-K22: CPU tensors raise and count no launch; the plain versions
+    run only through ops.sinks', ops.forces' and ops.active_grid's
+    dispatch on CPU tensors."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
+
+    f64 = dict(dtype=torch.float64)
+    r, v = torch.rand((32, 3), **f64), torch.rand((32, 3), **f64)
+    m = torch.rand((32,), **f64)
+    rs, ms = torch.rand((4, 3), **f64), torch.rand((4,), **f64)
+    alive = torch.ones((32,), dtype=torch.bool)
+    act = torch.ones((4,), dtype=torch.bool)
+    claim = torch.zeros((32,), dtype=torch.int32)
+    spec = Grid27Spec(3, (2, 2, 2), (0.0,) * 3, (1.0,) * 3, 8,
+                      (True,) * 3)
+    ids = torch.full((2, 2, 2, 8), -1, dtype=torch.int32)
+    level = torch.zeros((32,), dtype=torch.int32)
+    kern = type("K", (), {"kernnorm": 1.0, "kernrange": 2.0})()
+    visc = type("V", (), {"alpha_visc": 1.0, "alpha_visc_min": 0.1})()
+    before = dict(_ext.LAUNCHES)
+    for call in (lambda: _ext.smooth_accretion_sums(
+                     r, v, m, m, m, alive, rs, rs, ms, ms, act, 2.0,
+                     torch.tensor(0.1, **f64), 1.0, 0.1, 0.01, 0.01, 0.01),
+                 lambda: _ext.smooth_accretion_apply(
+                     r, v, m, m, claim, alive, rs, rs, rs, rs, ms, rs, act),
+                 lambda: _ext.cullen_dehnen(spec, kern, visc, ids, r,
+                                            torch.rand((32, 11), **f64)),
+                 lambda: _ext.levelneib(spec, kern, ids, r, m, level)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before
 
 
 def test_sink_wrappers_refuse_cpu_tensors():

@@ -104,26 +104,35 @@ def test_run_lands_on_tend():
 
 
 @pytest.mark.parametrize("key,value", [("self_gravity", 1),
-                                       ("sink_particles", 1),
+                                       ("kernel", "quintic"),
                                        ("dust_forces", "full_twofluid"),
                                        ("ndim", 2),
                                        ("gas_eos", "locally_isothermal"),
-                                       ("time_dependent_avisc", "mm97"),
+                                       pytest.param(
+                                           "gas_eos", "locally_isothermal",
+                                           id="locally_isothermal-sinks"),
                                        ("neib_search", "bruteforce"),
-                                       ("smooth_accretion", 1),
+                                       pytest.param(
+                                           "boundary_lhs[0]", "mirror",
+                                           id="sinks-mirror_walls"),
                                        ("sim", "mfvmuscl")])
-def test_options_outside_the_slice_raise(key, value):
-    """Options the port does not run raise; sinks and dust stay refused
-    with block timesteps (Nlevels = 3), sinks with smooth accretion and
-    in the MFV controller (which has no sink code), self-gravity
-    (which runs every walk option, the Ewald sum of this periodic box
-    included) with octtree buckets, and a 2D run (which the grid path
-    now takes) with block timesteps."""
+def test_options_outside_the_slice_raise(key, value, request):
+    """Options the port does not run raise: a kernel other than M4, the
+    locally isothermal EOS (also with sinks), dust with block timesteps
+    (Nlevels = 3), sinks with mirror walls, sinks in the MFV controller
+    (which has no sink code), self-gravity (which runs every walk
+    option, the Ewald sum of this periodic box included) with octtree
+    buckets, and a 2D run (which the grid path now takes) with block
+    timesteps."""
     p = slice_params(8)
-    if key in ("sink_particles", "dust_forces", "ndim"):
+    case = request.node.callspec.id
+    if key in ("dust_forces", "ndim"):
         p.set("Nlevels", 3)
-    if key in ("smooth_accretion", "sim"):
+    if key == "sim" or case in ("locally_isothermal-sinks",
+                                "sinks-mirror_walls"):
         p.set("sink_particles", 1)
+    if case == "sinks-mirror_walls":
+        p.set("boundary_rhs[0]", "mirror")
     if key == "self_gravity":
         p.set("neib_search", "octtree")
     p.set(key, value)

@@ -3,14 +3,16 @@
 Drives gandalf_tpu_torch's main paths on the card, grad-h SPH hydro
 only, self-gravitating and with block timesteps, the self-gravitating
 meshless finite-volume box, the direct-summation N-body cluster, the
-walk's options, the Boss-Bodenheimer collapse with sinks, and the 1D and
-2D grid path and mirror walls (the Sod tube, the Kelvin-Helmholtz
-instability, the mirror-wall box), and checks them, in phases, each
-printing one line:
+walk's options, the Boss-Bodenheimer collapse with sinks, the 1D and 2D
+grid path and mirror walls (the Sod tube, the Kelvin-Helmholtz
+instability, the mirror-wall box), block-stepped star formation and
+time-dependent viscosity, and the gas-dust drag (the dusty box and the
+dusty Evrard collapse), and checks them, in phases, each printing one
+line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K19 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K24 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -172,7 +174,34 @@ printing one line:
    32 timed steps: the rate beside khi_main_path's, K21 (2D) once a
    step, median alpha below 0.15, finiteness, energy drift, momentum;
 39. sod_td_avisc: the Sod tube (256 + 64) in float64 to t = 0.25 with
-   mm97, then cd2010, each held to tests/test_adsod.py:111-179's gates.
+   mm97, then cd2010, each held to tests/test_adsod.py:111-179's gates;
+40. dust_kernels: K23 (the gas-dust drag sums) and K24 (the dust-to-gas
+   energy deposit) against their plain versions on the card on
+   check.dust_kernel_inputs (per-row dt with tau on both sides of 1e-3, a
+   coincident gas-dust pair, 5% dead): at 4,096 particles in 1, 2 and 3
+   dims, float64 and float32, every drag law, two-fluid and
+   test-particle, the energy term on and off, and both mirror layouts
+   of tests/test_grid_mirror.py and the 1D mirror column, each at 4,096
+   and at 32,768 particles; timed at 32,768 in 3D in float32;
+41. dust_parity: float64 on the card against the plain path on the CPU,
+   with equal grid and tree plans: 10 steps of the 1D dusty box periodic
+   and between mirror walls, 5 steps of the 1,824-particle dusty Evrard
+   cloud with tree gravity, two-fluid then test-particle, and 12 dense
+   block ticks of it with Nlevels 3 and equal levels on every tick;
+42. dustybox_path: the 1D dusty box of tests/test_dust.py in float64 on
+   the grid path, two-fluid to t = 1 (:58-66's gates) and test-particle
+   to t = 0.8 (:135-143's), the 2D box at 32^2 between mirror walls
+   across y to t = 0.3 (:58-66's gates); then the 3D box at 64^3 gas +
+   64^3 dust in float32, 2 warm-up and 16 timed steps, with the rate,
+   dv(t)/dv0 against e^-t, the momentum change, K23 and K24 once a step,
+   and both kernels against their plain versions at its state;
+43. dusty_evrard: check.dust_params at Nhydro 131,072 (about 262,144 gas
+   and dust particles) in float32, two-fluid Epstein drag with tree
+   gravity: setup, 2 warm-up and 32 timed steps, with the rate, K,
+   launches, finiteness, rho > 0 of both types, exact gas and dust mass,
+   overflow, the energy drift (kinetic + thermal + potential) and the
+   tree's accuracy with the dust's masses, then K23 and K24 against
+   their plain versions at the path's state.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -186,7 +215,8 @@ khi_main_path, the 1D ones from sod_path's periodic run and K19 from
 mirror_box's dim-0 layout, K20 and K22 from bb_block_collapse, K21 in
 2D from khi_cd2010, in 1D from sod_td_avisc's cd2010 run and in 3D from
 block_sink_parity's Boss-Bodenheimer run on the card (timed at the 64^3
-box in phase 35), each counted over its path's timed window
+box in phase 35), K23 and K24 from dusty_evrard, each counted over its
+path's timed window
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
 for the work, check.bound) and library_ms null where no single PyTorch
@@ -346,6 +376,30 @@ TD_SOD = (256, 64, 0.25)
 TD_ALPHA_MAX = {"mm97": 0.2, "cd2010": 0.25}
 TD_ALPHA_MEDIAN = 0.15
 TD_SOD_L1 = 0.02
+# the gas-dust drag (K23, K24)
+DUST_KERNEL_SIZES = (4096, 32768)
+DUST_LAWS = (("fixed", 2.0), ("density", 1.0), ("epstein", 1.5),
+             ("lp12", 3.0))
+DUST_PARITY_BOX_STEPS = 10
+DUST_PARITY_EVRARD = 1000
+DUST_PARITY_STEPS = 5
+DUST_PARITY_TICKS = 12
+# tests/test_dust.py:58-66 (two-fluid, t = 1: each species' mean v_x
+# within 2e-3 of the analytic relaxation, momentum within 1e-12, energy
+# within 1e-5) and :135-143 (test particles, t = 0.8: gas within 1e-3 of
+# rest, dust within 3e-3 of e^-t)
+DUSTYBOX_GATE = 2e-3
+DUSTYBOX_TP_GAS = 1e-3
+DUSTYBOX_TP_DUST = 3e-3
+DUSTYBOX_N3 = 64
+DUSTYBOX_STEPS_WARM = 2
+DUSTYBOX_STEPS_TIMED = 16
+DUST_NHYDRO = 131072
+DUST_STEPS_WARM = 2
+DUST_STEPS_TIMED = 32
+# the SPH gravity gate on E = kinetic + thermal + potential, the drag's
+# heating in the thermal term
+DUST_ENERGY_DRIFT_TOL = 1e-2
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -426,6 +480,10 @@ SOURCES = {
                          "gandalf_tpu/ops/forces.py:267"),
     "levelneib": ("gandalf_tpu_torch/csrc/grid27_levelneib.cu",
                   "gandalf_tpu/sim/simulation.py:1682"),
+    "dust_drag_sums": ("gandalf_tpu_torch/csrc/dust_drag.cu",
+                       "gandalf_tpu/ops/dust.py:177"),
+    "dust_drag_deposit": ("gandalf_tpu_torch/csrc/dust_drag.cu",
+                          "gandalf_tpu/ops/dust.py:255"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
@@ -446,6 +504,9 @@ BB = GRAVITY + SINK
 # the kernels of a dense block tick of bb_block_collapse
 BB_BLOCK = GRAVITY + ("star_gas_forces", "sink_candidate",
                       "direct_softened", "smooth_accretion", "levelneib")
+# the kernels of a step of dusty_evrard (K1 and K2 twice a step, and once
+# more K1 for the drag's binning)
+DUST = GRAVITY + ("dust_drag_sums", "dust_drag_deposit")
 # rates of earlier phases that later ones print beside their own
 RATES = {}
 
@@ -2169,6 +2230,325 @@ def sod_td_avisc(dev, card):
     return launches, rep
 
 
+# ---------------------------------------------------------------------------
+# 40-43. the gas-dust drag (K23, K24)
+# ---------------------------------------------------------------------------
+
+def dust_kernels(dev):
+    """Phase 40: K23 and K24 against their plain versions on the card on
+    check.dust_kernel_inputs (per-row dt with tau on both sides of 1e-3,
+    a coincident gas-dust pair, 5% dead): at 4,096 and at 32,768
+    particles, in float64 and float32, in 1, 2 and 3 dims every law,
+    two-fluid and test-particle, the energy term on and off, and both
+    mirror layouts of tests/test_grid_mirror.py in 3D and the 1D mirror
+    column.  One line per size and dtype with the largest scaled error
+    of each kernel; a case's whole report where it fails.  K23 and K24
+    are timed at 32,768 in 3D in float32 beside their bounds."""
+    from gandalf_tpu_torch.check import (MIRROR_DIM0, MIRROR_MIXED, bound,
+                                         compare_dust_kernels,
+                                         dust_kernel_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.ops.dust import DragLaw
+
+    t0 = time.perf_counter()
+    cases = []
+    for nd in (1, 2, 3):
+        for law, coeff in DUST_LAWS:
+            for tp in (False, True):
+                for energy_term in (True, False):
+                    cases.append((nd, None, law, coeff, tp, energy_term))
+    for nd, walls in ((3, MIRROR_DIM0), (3, MIRROR_MIXED), (1, MIRROR_DIM0)):
+        for tp in (False, True):
+            cases.append((nd, walls, "epstein", 1.5, tp, True))
+    timed = None
+    n_checked = 0
+    for n in DUST_KERNEL_SIZES:
+        for dtype in (torch.float64, torch.float32):
+            inputs = {}
+            worst = {}
+            for nd, walls, law, coeff, tp, energy_term in cases:
+                key = (nd, walls)
+                if key not in inputs:
+                    inputs[key] = dust_kernel_inputs(n, nd, dev, dtype,
+                                                     walls=walls)
+                s, box, spec, dt = inputs[key]
+                timing = (n == DUST_KERNEL_SIZES[-1] and nd == 3
+                          and walls is None and law == "epstein"
+                          and not tp and energy_term
+                          and dtype == torch.float32)
+                rep = compare_dust_kernels(
+                    kernel_factory("m4", nd),
+                    DragLaw(law, coeff, energy_term), tp, s, box, spec, dt,
+                    repeats=5 if timing else 0)
+                n_checked += 1
+                for k, r in rep.items():
+                    worst[k] = max(worst.get(k, 0.0),
+                                   max(r["scaled_err"].values()))
+                if timing:
+                    for r in rep.values():
+                        r["bound_ms"], r["bound_by"] = bound(r["work"],
+                                                             dtype)
+                    timed = rep
+                if timing or not all(r["ok"] for r in rep.values()):
+                    phase("dust_kernels", N=n, ndim=nd,
+                          walls=[list(w) for w in walls] if walls else None,
+                          law=law, test_particle=tp,
+                          energy_term=energy_term, dtype=str(dtype),
+                          report=rep)
+                require_ok("dust_kernels", rep)
+            phase("dust_kernels", N=n, dtype=str(dtype), cases=len(cases),
+                  max_scaled_err=worst)
+            del inputs
+    phase("dust_kernels_done", cases=n_checked,
+          seconds=time.perf_counter() - t0)
+    return timed
+
+
+def _dust_pair(make, steps, tick_check=None):
+    """Two simulations from `make(device)`, on the card and on the CPU in
+    float64, stepped together `steps` times; `tick_check(a, b)` is called
+    after every step.  Returns the pair."""
+    sims = []
+    for device in (torch.device("cuda", 0), torch.device("cpu")):
+        sim = make(device)
+        sim.SetupSimulation()
+        sims.append(sim)
+    for _ in range(steps):
+        for sim in sims:
+            sim.main_loop_step()
+        if tick_check is not None:
+            tick_check(*(x.state for x in sims))
+    torch.cuda.synchronize()
+    return sims
+
+
+def dust_parity(dev) -> None:
+    """Phase 41: float64, kernels on the card against the plain path on
+    the CPU, with equal grid and tree plans: 10 steps of the 1D dusty box
+    periodic and between mirror walls, 5 steps of the 1,824-particle
+    dusty Evrard (Nhydro 1000) with tree gravity, two-fluid and then
+    test-particle, and 12 ticks of the same cloud with Nlevels 3 with
+    equal levels on every tick."""
+    from gandalf_tpu_torch.check import dust_params, dustybox_params
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    runs = (
+        ("dustybox_1d", DUST_PARITY_BOX_STEPS,
+         lambda d: GradhSphSimulation(dustybox_params(32, 1), d, f64)),
+        ("dustybox_1d_mirror", DUST_PARITY_BOX_STEPS,
+         lambda d: GradhSphSimulation(dustybox_params(32, 1, mirror_dim=0),
+                                      d, f64)),
+        ("evrard_twofluid", DUST_PARITY_STEPS,
+         lambda d: GradhSphSimulation(dust_params(DUST_PARITY_EVRARD), d,
+                                      f64)),
+        ("evrard_test_particle", DUST_PARITY_STEPS,
+         lambda d: GradhSphSimulation(
+             dust_params(DUST_PARITY_EVRARD, "test_particle"), d, f64)),
+        ("evrard_block", DUST_PARITY_TICKS,
+         lambda d: GradhSphSimulation(
+             dust_params(DUST_PARITY_EVRARD, nlevels=3), d, f64)),
+    )
+    for name, steps, make in runs:
+        same = [True]
+
+        def levels(a, b):
+            same[0] &= bool(torch.equal(a.level.cpu(), b.level))
+
+        sims = _dust_pair(make, steps,
+                          levels if name == "evrard_block" else None)
+        fields = ("r", "v", "u", "h", "rho")
+        if sims[1].self_gravity:
+            fields += ("gpot",)
+        errs = parity_errors(sims, fields)
+        counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
+        specs_equal = sims[0].gridspec == sims[1].gridspec
+        phase("dust_parity", run=name, N=sims[1].state.N, steps=steps,
+              rel_err=errs, tree_plans_and_replans=counts,
+              same_grid_plan=specs_equal,
+              same_levels_each_tick=same[0] if name == "evrard_block"
+              else None, k_cell=sims[1].gridspec.k_cell)
+        if max(errs.values()) > PARITY_TOL or counts[0] != counts[1] \
+                or not specs_equal or not same[0]:
+            raise RuntimeError(f"dust_parity {name}: kernel path disagrees "
+                               f"with the plain path: {errs} {counts}")
+    phase("dust_parity_done", seconds=time.perf_counter() - t0)
+
+
+def _box_means(sim):
+    """Mean v_x of the gas and of the dust, the momentum and the kinetic
+    plus thermal energy, in float64."""
+    from gandalf_tpu_torch.state import GAS_TYPE
+
+    s = sim.state
+    gas = s.ptype == GAS_TYPE
+    vx = s.v[:, 0].double()
+    m = s.m.double()
+    e = (0.5 * m * (s.v.double() ** 2).sum(-1) + m * s.u.double()).sum()
+    return (float(vx[gas].mean()), float(vx[~gas].mean()),
+            float((m * vx).sum()), float(e))
+
+
+def dustybox_path(dev, card):
+    """Phase 42: the dusty box on the grid path.  The 1D box of
+    tests/test_dust.py:20-40 in float64: two-fluid to t = 1 held to
+    :58-66's gates, test particles to t = 0.8 held to :135-143's; the
+    walled run (mirror walls across y) on the 2D box at 32^2 to t = 0.3
+    with :58-66's gates.  Then the 3D box at 64^3 gas + 64^3 dust in
+    float32: 2 warm-up and 16 timed steps, the rate, dv(t)/dv0 against
+    e^-t, the momentum change and K23 and K24 launched once a step, and
+    both kernels against their plain versions at the box's state."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (bound, compare_dust_kernels,
+                                         dust_kernel_dt, dustybox_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    out, checks = {}, {}
+    for name, params in (
+            ("1d_twofluid", dustybox_params(32, 1, tend=1.0)),
+            ("1d_test_particle", dustybox_params(
+                32, 1, tend=0.8, dust_forces="test_particle")),
+            ("2d_walls_y", dustybox_params(32, 2, mirror_dim=1, tend=0.3))):
+        t0 = time.perf_counter()
+        sim = GradhSphSimulation(params, device=dev, dtype=torch.float64)
+        sim.Run()
+        vg, vd, mom, e = _box_means(sim)
+        dv = math.exp(-sim.t)
+        if name == "1d_test_particle":
+            errs = {"gas": abs(vg), "dust": abs(vd - dv)}
+            ok = errs["gas"] < DUSTYBOX_TP_GAS \
+                and errs["dust"] < DUSTYBOX_TP_DUST
+        else:
+            errs = {"gas": abs(vg - (0.5 - 0.5 * dv)),
+                    "dust": abs(vd - (0.5 + 0.5 * dv)),
+                    "momentum": abs(mom - 1.0), "energy": abs(e - 2.0) / 2.0}
+            ok = (errs["gas"] < DUSTYBOX_GATE and errs["dust"] < DUSTYBOX_GATE
+                  and errs["momentum"] < 1e-12 and errs["energy"] < 1e-5)
+        out[name] = {"N": sim.state.N, "t": sim.t, "steps": sim.Nsteps,
+                     "errors": errs, "seconds": time.perf_counter() - t0}
+        checks[name] = ok
+    sim = GradhSphSimulation(dustybox_params(DUSTYBOX_N3, 3), device=dev,
+                             dtype=torch.float32)
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, DUSTYBOX_STEPS_WARM)
+    vg0, vd0, mom0, _ = _box_means(sim)
+    t_start = sim.t
+    _ext.reset_launches()
+    elapsed = run_timed(sim, DUSTYBOX_STEPS_TIMED)
+    launches = {k: _ext.LAUNCHES[k] for k in HYDRO + ("dust_drag_sums",
+                                                      "dust_drag_deposit")}
+    vg, vd, mom, _ = _box_means(sim)
+    s = sim.state
+    ratio = (vd - vg) / (vd0 - vg0)
+    expect = math.exp(-(sim.t - t_start))
+    checks.update({
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho")),
+        "relaxation": abs(ratio - expect) < DUSTYBOX_GATE,
+        "momentum": abs(mom - mom0) <= 1e-5 * abs(mom0),
+        "launches": launches["dust_drag_sums"] >= DUSTYBOX_STEPS_TIMED
+        and launches["dust_drag_deposit"] >= DUSTYBOX_STEPS_TIMED,
+    })
+    rep = compare_dust_kernels(sim.kern, sim.drag_law, False, s, sim.box,
+                               sim.gridspec, dust_kernel_dt(sim), repeats=5)
+    for r in rep.values():
+        r["bound_ms"], r["bound_by"] = bound(r["work"], torch.float32)
+    N = s.N
+    phase("dustybox_path", runs=out, N=N, k_cell=sim.gridspec.k_cell,
+          setup_s=t_setup, timed_steps=DUSTYBOX_STEPS_TIMED,
+          timed_s=elapsed,
+          particle_steps_per_s=N * DUSTYBOX_STEPS_TIMED / elapsed,
+          dv_ratio=ratio, exp_minus_t=expect, momentum=[mom0, mom],
+          launches=launches, checks=checks, kernels=rep, card=card,
+          gates={"twofluid": DUSTYBOX_GATE, "tp_gas": DUSTYBOX_TP_GAS,
+                 "tp_dust": DUSTYBOX_TP_DUST},
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"dustybox_path checks failed: {failed}")
+    return rep
+
+
+def dusty_evrard(dev, card):
+    """Phase 43, the slice at full width: check.dust_params at Nhydro
+    131,072 (about 262,144 gas and dust particles) in float32, setup, 2
+    warm-up steps, 32 timed steps (the counts set to 0 just before
+    them), the checks and the tree's accuracy with the dust's masses,
+    then K23 and K24 against their plain versions at the path's state.
+    Returns their launches and reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (bound, compare_dust_kernels,
+                                         dust_energy, dust_kernel_dt,
+                                         dust_params, gravity_accuracy)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    sim = GradhSphSimulation(dust_params(DUST_NHYDRO), device=dev,
+                             dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    s = sim.state
+    dust = s.ptype == 3
+    m_gas0 = float(s.m[~dust].double().sum())
+    m_dust0 = float(s.m[dust].double().sum())
+    run_timed(sim, DUST_STEPS_WARM)
+    e0 = dust_energy(sim)
+    replans0 = sim._n_grid_overflows
+    t_sim0 = sim.t
+    _ext.reset_launches()
+    elapsed = run_timed(sim, DUST_STEPS_TIMED)
+    launches = {k: _ext.LAUNCHES[k] for k in DUST}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = sim.state
+    drift = abs(dust_energy(sim) - e0) / abs(e0)
+    acc = gravity_accuracy(sim, n_sample=2048)
+    N = s.N
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "gpot")),
+        "rho_positive_gas": bool((s.rho[~dust] > 0).all()),
+        "rho_positive_dust": bool((s.rho[dust] > 0).all()),
+        "gas_mass_exact": float(s.m[~dust].double().sum()) == m_gas0,
+        "dust_mass_exact": float(s.m[dust].double().sum()) == m_dust0,
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(launches[k] >= DUST_STEPS_TIMED for k in DUST),
+        "energy_drift": drift <= DUST_ENERGY_DRIFT_TOL,
+    }
+    rep = compare_dust_kernels(sim.kern, sim.drag_law, False, s, sim.box,
+                               sim.gridspec, dust_kernel_dt(sim), repeats=1)
+    for r in rep.values():
+        r["bound_ms"], r["bound_by"] = bound(r["work"], torch.float32)
+    spec = sim.treespec
+    phase("dusty_evrard", N=N, n_dust=int(dust.sum()), steps=sim.Nsteps,
+          timed_steps=DUST_STEPS_TIMED, setup_s=t_setup, timed_s=elapsed,
+          particle_steps_per_s=N * DUST_STEPS_TIMED / elapsed,
+          sim_time=[t_sim0, sim.t], k_cell=sim.gridspec.k_cell,
+          ncells=list(sim.gridspec.ncells),
+          grid_replans_in_window=sim._n_grid_overflows - replans0,
+          G_pad=spec.n_leaves, near_cap=spec.near_cap,
+          launches=launches, energy_drift=drift,
+          energy_gate=DUST_ENERGY_DRIFT_TOL, accuracy=acc,
+          accuracy_gate=ACCURACY_TOL, checks=checks, kernels=rep,
+          card=card, peak_mem_gb=peak_gb,
+          seconds=time.perf_counter() - t_phase)
+    checks["accuracy"] = acc["rms_rel_err"] <= ACCURACY_TOL
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"dusty_evrard checks failed: {failed}")
+    names = ("dust_drag_sums", "dust_drag_deposit")
+    return {k: launches[k] for k in names}, {k: rep[k] for k in names}
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -2222,7 +2602,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "ptxas.txt").write_text(_ext.ptxas_report())
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
-          library=so.name, ptxas=str(out / "ptxas.txt"))
+          library=so.name, kernels="K1-K24", sources=list(_ext._UNITS),
+          ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
     for n_side in (16, 32):
@@ -2448,6 +2829,14 @@ def main() -> int:
         t_launches, t_rep = path(dev, card)
         launches.update(t_launches)
         rep.update(t_rep)
+
+    # 40-43. the gas-dust drag
+    dust_kernels(dev)
+    dust_parity(dev)
+    dustybox_path(dev, card)
+    d_launches, d_rep = dusty_evrard(dev, card)
+    launches.update(d_launches)
+    rep.update(d_rep)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K22 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K24 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -27,14 +27,17 @@ three kernels, its stages, and counts one).  K1-K3 on a grid of
 K19, the mirror images, under ``grid27_mirror``.  K20's two wrappers
 (the smooth-accretion sums and the sink update) each count one under
 ``smooth_accretion``; K21, the Cullen & Dehnen switch, counts under
-``cullen_dehnen`` (``_1d`` or ``_2d`` appended below 3D) and K22, the
-neighbour-level pass, under ``levelneib``.
+``cullen_dehnen`` (``_1d`` or ``_2d`` appended below 3D), K22, the
+neighbour-level pass, under ``levelneib``, and K23 and K24, the gas-dust
+drag sums and energy deposit, under ``dust_drag_sums`` and
+``dust_drag_deposit`` in every ndim.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -51,7 +54,7 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
           "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu",
           "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
-          "grid27_levelneib.cu")
+          "grid27_levelneib.cu", "dust_drag.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,7 +75,8 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "direct_nbody": 0, "direct_softened": 0, "direct_snap": 0,
             "star_gas_forces": 0, "sink_candidate": 0, "accretion_sums": 0,
             "smooth_accretion": 0, "cullen_dehnen": 0,
-            "cullen_dehnen_2d": 0, "cullen_dehnen_1d": 0, "levelneib": 0}
+            "cullen_dehnen_2d": 0, "cullen_dehnen_1d": 0, "levelneib": 0,
+            "dust_drag_sums": 0, "dust_drag_deposit": 0}
 
 _lib = None
 
@@ -125,6 +129,11 @@ _ARGTYPES = {
                       _D, _D, _D, _D, _P, _P, _P, _I, _P],
     "levelneib": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D,
                   _D, _D, _I, _P],
+    "dust_drag_sums": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _D, _D, _D, _D, _D, _I, _D, _D, _I, _P, _P,
+                       _P, _P, _I, _P],
+    "dust_drag_deposit": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _D, _D, _D, _D, _D, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -992,4 +1001,64 @@ def levelneib(spec, kern, ids_d, r, h, level):
     out = torch.zeros((N,), dtype=torch.int32, device=dev)
     _launch("levelneib", dt, dev, _p(ids_d), _p(r), _p(h), _p(level),
             _p(out), *_grid_args(spec), float(kern.kernrange))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The gas-dust drag, K23 and K24 (ops/dust.py)
+# ---------------------------------------------------------------------------
+
+def _dust_checks(spec, ids_d, n_targets, r, sc, ptype):
+    M, nd = r.shape
+    if nd != spec.ndim:
+        raise ValueError(f"r: expected {spec.ndim} dims, got {nd}")
+    if not 0 <= n_targets <= M:
+        raise ValueError(f"n_targets {n_targets} outside [0, {M}]")
+    _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
+    _check(r, "r", r.dtype, (M, nd))
+    _check(sc, "sc", r.dtype, (M, 4))
+    _check(ptype, "ptype", torch.int32, (M,))
+    return M, nd
+
+
+def dust_drag_sums(spec, kern, law, test_particle, ids_d, n_targets, r, vec,
+                   sc, ptype, dt):
+    """K23 over K1's slot map ids_d (*ncells, K) int32 of the M particles
+    and images r (M, ndim) (vec (M, 3 ndim): v, a, a0; sc (M, 4):
+    ops.dust.DRAG_SCALARS; ptype (M,) int32): a_drag (n, ndim), norm,
+    sound and div_v (n,) of the targets, ids below n = n_targets, each
+    target's step dt (n,); zero for a target without a slot."""
+    M, nd = _dust_checks(spec, ids_d, n_targets, r, sc, ptype)
+    dt_, dev = r.dtype, r.device
+    _check(vec, "vec", dt_, (M, 3 * nd))
+    _check(dt, "dt", dt_, (n_targets,))
+    # the fixed law's t_s = 1/coeff is the double 1/coeff rounded to the
+    # float type, as DragLaw.t_stop has it
+    coeff = float(law.coeff)
+    inv_coeff = 1.0 / coeff if coeff != 0.0 else math.inf
+    a = torch.zeros((n_targets, nd), dtype=dt_, device=dev)
+    norm, sound, div_v = (torch.zeros((n_targets,), dtype=dt_, device=dev)
+                          for _ in range(3))
+    _launch("dust_drag_sums", dt_, dev, _p(ids_d), n_targets, _p(r),
+            _p(vec), _p(sc), _p(ptype), _p(dt), *_grid_args_nd(spec),
+            float(kern.kernnorm), float(kern.kernnormdrag), law.code, coeff,
+            inv_coeff, int(bool(test_particle)), _p(a), _p(norm), _p(sound),
+            _p(div_v))
+    return a, norm, sound, div_v
+
+
+def dust_drag_deposit(spec, kern, ids_d, n_targets, r, sc, ptype, payload,
+                      dek):
+    """K24 over the slot map of K23: the drag heating du/dt (n,) of the
+    gas targets, -dEk_i - sum_j wraw(|r_ij|, h_i) P_j / rho_i over their
+    dust candidates (payload P (M,), dek (n,)); zero for dust and for a
+    target without a slot."""
+    M, nd = _dust_checks(spec, ids_d, n_targets, r, sc, ptype)
+    dt_, dev = r.dtype, r.device
+    _check(payload, "payload", dt_, (M,))
+    _check(dek, "dek", dt_, (n_targets,))
+    out = torch.zeros((n_targets,), dtype=dt_, device=dev)
+    _launch("dust_drag_deposit", dt_, dev, _p(ids_d), n_targets, _p(r),
+            _p(sc), _p(ptype), _p(payload), _p(dek), *_grid_args_nd(spec),
+            float(kern.kernnorm), float(kern.kernnormdrag), _p(out))
     return out

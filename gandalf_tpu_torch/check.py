@@ -42,6 +42,11 @@ written), ``mirror_ic`` the mirror tests' jittered lattice and
 ``sod_l1`` the Sod gate; ``compare_kernels`` takes grids of any ndim,
 and ``compare_mirror_kernels`` compares K19, K1 with its discard mask
 and K2/K3 on the mirror path's extended set with their plain versions.
+``dustybox_params`` is the dusty box of the JAX package's dust tests and
+``dust_params`` the dusty Evrard collapse (``dusty_evrard``);
+``compare_dust_kernels`` compares K23 and K24 with their plain versions
+on ``dust_kernel_inputs`` (synthetic, with the edge cases) or a
+simulation's state, and ``dust_energy`` is a dust run's total energy.
 ``chip_smoke.py`` and the CUDA tests use them.
 """
 
@@ -149,6 +154,15 @@ TOL_F32_NBODY = 1e-4
 # particles' m, m v and m r within 1e-5 of their largest value.
 TOL_F32_STAR_GAS = 1e-4
 TOL_F32_ACCRETION = 1e-5
+# K23 and K24 in float32, each output's largest error relative to its
+# largest |value|.  A pair's Xi holds 1 - exp(-tau): near the branch at
+# tau = 1e-3 the difference keeps 3 fewer digits than its operands, so
+# an ulp of exp (6e-8) moves Xi by up to 6e-5 relative, and the card's
+# expf and fused multiply-adds differ from torch's by such ulps; a_drag
+# and the deposit then sum pair terms of both signs.  The maxima (the
+# dust's sound speed, |dv|) and norm (a sum of positive terms) stay far
+# inside the same bound.
+TOL_F32_DRAG = 1e-3
 
 # The least time the card could take for a kernel's work (its bound):
 # the larger of the bytes it must move (each input read once, each output
@@ -187,7 +201,14 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # derivative and 3 ndim^2 multiply-adds of the outer products (85, 50
 # and 26 in 3D, 2D and 1D); K22 per pair within kernrange max(h_i, h_j),
 # each particle with itself included: d^2, the radius and the compare
-# (12).
+# (12).  K23 per cross-type candidate what the function needs there
+# (the separation, d^2, dv and |dv|: 10 a dim; the d^2 > 0 and support
+# tests and the two maxima: 8) and per pair inside the drag kernel's
+# support what only such a pair needs (the kernel, the law, Xi and
+# Lambda with one exp, S: 50; the unit vector, da, dv.r and da.r and
+# the acceleration: 9 a dim); K24 per dust candidate of a gas
+# target (d^2 and the support test: 2 plus 3 a dim) and per pair inside
+# the support (the kernel and the payload's product, 14).
 FLOPS_PER = {
     "grid27_bin": 15, "grid27_density": 40, "grid27_forces": 80,
     "grid27_bin_2d": 10, "grid27_density_2d": 36, "grid27_forces_2d": 71,
@@ -204,6 +225,9 @@ FLOPS_PER = {
     "sink_candidate": 3, "accretion_sums": 15,
     "smooth_accretion": 110, "cullen_dehnen": 85, "cullen_dehnen_2d": 50,
     "cullen_dehnen_1d": 26, "levelneib": 12,
+    "dust_drag_cross": 8, "dust_drag_cross_dim": 10,
+    "dust_drag_pair": 50, "dust_drag_pair_dim": 9,
+    "dust_drag_deposit_pair": 14, "dust_drag_deposit_cand": 2,
 }
 
 
@@ -398,6 +422,69 @@ def plummer_block_params(n_gas: int = 512, n_star: int = 16,
                      level_diff_max=1, smooth_accretion=1,
                      time_dependent_avisc="mm97", tsnapfirst=1e30,
                      tend=1e30).items():
+        p.set(k, v)
+    return p
+
+
+def dustybox_params(n: int = 32, ndim: int = 1, mirror_dim: int = None,
+                    tend: float = 1.0e30, **over) -> Parameters:
+    """The dusty box of tests/test_dust.py:20-40 on the grid path
+    (neib_search = kdtree): an n^ndim gas lattice in the unit box,
+    periodic (mirror walls at both ends of dim `mirror_dim` where one is
+    given), rho 1, p 1,
+    energy_eqn with gamma 5/3, the gas at rest and an equal-mass dust
+    lattice (dust_mass_factor 1) moving at vx = 1, two-fluid drag with
+    the fixed law, K = 1; `over` overrides any parameter."""
+    p = Parameters()
+    updates = {
+        "run_id": "", "sim": "sph", "ic": "dustybox", "ndim": ndim,
+        "dimensionless": 1, "rhofluid1": 1.0, "press1": 1.0,
+        "gamma_eos": 1.6666666666666667, "vfluid1[0]": 0.0,
+        "vfluid2[0]": 1.0, "dust_mass_factor": 1.0,
+        "gas_eos": "energy_eqn", "hydro_forces": 1,
+        "neib_search": "kdtree", "dust_forces": "full_twofluid",
+        "drag_law": "fixed", "drag_coeff": 1.0, "tend": tend,
+        "tsnapfirst": 1.0e30,
+    }
+    for k in range(ndim):
+        side = "mirror" if k == mirror_dim else "periodic"
+        updates.update({f"Nlattice1[{k}]": n, f"boxmin[{k}]": 0.0,
+                        f"boxmax[{k}]": 1.0, f"boundary_lhs[{k}]": side,
+                        f"boundary_rhs[{k}]": side})
+    updates.update(over)
+    for k, v in updates.items():
+        p.set(k, v)
+    return p
+
+
+def dust_params(n_hydro: int, dust_forces: str = "full_twofluid",
+                nlevels: int = 1, **over) -> Parameters:
+    """The dusty_evrard configuration: GANDALF's Evrard collapse
+    (EvrardCollapseIc.cpp; ic = evrard) with a dust copy of the gas: a
+    1/r sphere of about n_hydro gas particles (mcloud 1, radius 1,
+    thermal_energy 0.05) and as many dust particles of a hundredth of
+    the mass (dust_mass_factor 0.01) offset by 0.01 h, in an open box,
+    dimensionless, M4, energy_eqn with gamma 5/3, mon97, a global
+    timestep (Nlevels = `nlevels` for block timesteps, level_diff_max
+    1), quadrupole tree gravity with the geometric MAC at theta^2 0.1
+    over KD buckets, and two-fluid (or test-particle) drag with the
+    Epstein law, drag_coeff 1; `over` overrides any parameter."""
+    p = Parameters()
+    updates = {
+        "run_id": "", "sim": "sph", "ic": "evrard", "ndim": 3,
+        "Nhydro": n_hydro, "mcloud": 1.0, "radius": 1.0,
+        "thermal_energy": 0.05, "dimensionless": 1,
+        "gas_eos": "energy_eqn", "gamma_eos": 1.6666666666666667,
+        "hydro_forces": 1, "self_gravity": 1, "kernel": "m4",
+        "avisc": "mon97", "neib_search": "kdtree",
+        "multipole": "quadrupole", "gravity_mac": "geometric",
+        "thetamaxsqd": 0.1, "Nlevels": nlevels, "level_diff_max": 1,
+        "dust_forces": dust_forces, "drag_law": "epstein",
+        "drag_coeff": 1.0, "dust_mass_factor": 0.01, "tend": 1.0e30,
+        "tsnapfirst": 1.0e30,
+    }
+    updates.update(over)
+    for k, v in updates.items():
         p.set(k, v)
     return p
 
@@ -2140,6 +2227,199 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
+
+
+def dust_kernel_fields(n: int, ndim: int, seed: int = 3, walls=None):
+    """Numpy fields of K23's and K24's synthetic inputs, after
+    tests/test_dense_kernels.py:_random_state(dust=True), in `ndim` dims
+    of the unit box: alternately gas and dust, positions uniform (clipped
+    to [1e-4, 1 - 1e-4] along the dims of the mirror sides `walls`,
+    (dim, lhs, rhs) triples), v ~ N(0, 0.1), a and a0 ~ N(0, 0.05), rho
+    in [0.5, 1.5], sound in [0.8, 1.2], h uniform in [0.06, 0.10] scaled
+    to keep about the same neighbour count at any n and ndim, a
+    coincident gas-dust pair (particles 0 and 1), 5% dead particles and
+    per-row steps dt log-uniform over [1e-4, 0.3], so that tau = dt / t_s
+    lies on both sides of 1e-3."""
+    from .state import DUST_TYPE, FLAG_DEAD, GAS_TYPE
+
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0, 1, (n, ndim))
+    for (k, _, _) in walls or ():
+        r[:, k] = np.clip(r[:, k], 1e-4, 1.0 - 1e-4)
+    r[1] = r[0]
+    scale = (400.0 / n) ** (1.0 / ndim) * {1: 0.02, 2: 0.3, 3: 1.0}[ndim]
+    f = {"r": r, "v": rng.normal(0, 0.1, (n, ndim)),
+         "rho": rng.uniform(0.5, 1.5, n), "sound": rng.uniform(0.8, 1.2, n),
+         "a": rng.normal(0, 0.05, (n, ndim)),
+         "a0": rng.normal(0, 0.05, (n, ndim)),
+         "h": scale * rng.uniform(0.06, 0.10, n),
+         "ptype": np.where(np.arange(n) % 2 == 0, GAS_TYPE, DUST_TYPE),
+         "dt": np.exp(rng.uniform(np.log(1e-4), np.log(0.3), n))}
+    dead = rng.random(n) < 0.05
+    dead[:2] = False
+    f["flags"] = np.where(dead, FLAG_DEAD, 0).astype(np.int32)
+    return f
+
+
+def dust_kernel_inputs(n: int, ndim: int, device, dtype, seed: int = 3,
+                       walls=None):
+    """dust_kernel_fields as a state on `device` in `dtype`, in the
+    periodic unit box or, with `walls`, in mirror_params' box.  Returns
+    (state, box, grid plan, dt)."""
+    from .state import PERIODIC, make_sph_state
+
+    f = dust_kernel_fields(n, ndim, seed, walls)
+    if walls:
+        box = DomainBox.from_params(mirror_params(8, ndim, walls))
+    else:
+        box = DomainBox(ndim, (0.0,) * ndim, (1.0,) * ndim,
+                        (PERIODIC,) * ndim, (PERIODIC,) * ndim)
+    s = make_sph_state(f["r"], f["v"], np.full(n, 1.0 / n), f["h"],
+                       np.ones(n), device=device, dtype=dtype)
+    T = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    I = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)
+    s = s.replace(rho=T(f["rho"]), sound=T(f["sound"]), a=T(f["a"]),
+                  a0=T(f["a0"]), ptype=I(f["ptype"]), flags=I(f["flags"]))
+    spec = g27.plan_grid27(box, f["r"], float(f["h"].max()) * 1.1, 2.0)
+    return s, box, spec, T(f["dt"])
+
+
+def _dust_work(spec, kern, di, n_targets):
+    """(K23's, K24's) operations on DragInputs di from this data: K23's
+    cross-type candidates and pairs inside the drag kernel's support,
+    K24's dust candidates of gas targets and their pairs inside the
+    support (the gas side's h), counted over chunks of targets."""
+    from .ops import dust as du
+    from .state import DUST_TYPE, GAS_TYPE
+
+    nd = spec.ndim
+    p_all, cell_all = du._targets(spec, di.ids_d, n_targets)
+    table = g27._neighbour_table(spec, di.r.device)
+    starts, step = du._chunks(spec, p_all.numel(), di.r.device)
+    h, pt = di.sc[:, 1], di.ptype
+    n_cross = n_in = n_dep = n_dep_in = 0
+    for c0 in starts:
+        p, cell = p_all[c0:c0 + step], cell_all[c0:c0 + step]
+        row, q, dr = du._candidate_pairs(spec, table, di.ids_d, di.r, p,
+                                         cell)
+        pi = p[row]
+        gas_i = pt[pi] == GAS_TYPE
+        d2 = torch.sum(dr * dr, -1)
+        cross = ((gas_i & (pt[q] == DUST_TYPE))
+                 | ((pt[pi] == DUST_TYPE) & (pt[q] == GAS_TYPE))) & (d2 > 0)
+        h_gas = torch.where(gas_i, h[pi], h[q])
+        inside = cross & (d2 < (kern.kernrange * h_gas) ** 2)
+        n_cross += int(cross.sum())
+        n_in += int(inside.sum())
+        dep = gas_i & (pt[q] == DUST_TYPE) & (d2 > 0)
+        n_dep += int(dep.sum())
+        n_dep_in += int((dep & inside).sum())
+    ops_sums = (n_cross * (FLOPS_PER["dust_drag_cross"]
+                           + FLOPS_PER["dust_drag_cross_dim"] * nd)
+                + n_in * (FLOPS_PER["dust_drag_pair"]
+                          + FLOPS_PER["dust_drag_pair_dim"] * nd))
+    ops_dep = (n_dep * (FLOPS_PER["dust_drag_deposit_cand"] + 3 * nd)
+               + n_dep_in * FLOPS_PER["dust_drag_deposit_pair"])
+    return ops_sums, ops_dep, {"cross_candidates": n_cross,
+                               "pairs_in_support": n_in,
+                               "deposit_candidates": n_dep,
+                               "deposit_pairs": n_dep_in}
+
+
+def compare_dust_kernels(kern, law, test_particle, state, box, spec, dt,
+                         repeats: int = 0):
+    """Run K23 and K24 and their plain versions on the same CUDA tensors
+    (the inputs drag_pass_grid gives them for `state`, with its mirror
+    images when the plan has mirror layers); returns {kernel: report}
+    as compare_kernels does.  Each output of K23 over the alive
+    particles, and K24's du/dt (fed the payload and dEk of the plain
+    K23, so that both see the same inputs), within 1e-10 of its largest
+    |value| in float64 (TOL_F32_DRAG in float32).  K24 runs when the law
+    has its energy term and the drag is two-fluid.  library_ms is null:
+    no one PyTorch call computes either function.  Launch counts are
+    restored afterwards."""
+    from .ops import dust as du
+
+    saved = dict(_ext.LAUNCHES)
+    N = state.N
+    f64 = state.r.dtype == torch.float64
+    tol = TOL_F64 if f64 else TOL_F32_DRAG
+    rows = state.alive
+    di = du.drag_inputs(spec, box, dt, state, state.alive)
+    args = (spec, kern, law, test_particle, di.ids_d, N, di.r, di.vec,
+            di.sc, di.ptype, di.dt)
+    plain_args = (kern, law, spec, di.ids_d, N, di.r, di.vec, di.sc,
+                  di.ptype, di.dt, test_particle)
+    got = _ext.dust_drag_sums(*args)
+    want = du.drag_sums_plain(*plain_args)
+    names = ("a_drag", "norm", "sound", "div_v")
+    errs = {k: _scaled_all(x, y, rows) for k, x, y in zip(names, got, want)}
+    ops_sums, ops_dep, counts = _dust_work(spec, kern, di, N)
+    dt_live = di.dt[rows]
+    out = {"dust_drag_sums": {
+        "N": N, "ndim": spec.ndim, "k_cell": spec.k_cell,
+        "ncells": list(spec.ncells), "law": law.law,
+        "test_particle": bool(test_particle), "mirror": bool(spec.mirror),
+        "scaled_err": errs, "dtype": str(state.r.dtype),
+        "max_abs_err": float(torch.abs(got[0] - want[0])[rows].max()),
+        "ok": max(errs.values()) <= tol, **counts,
+        "dt_range": [float(dt_live.min()), float(dt_live.max())],
+        "work": _work((di.ids_d, di.r, di.vec, di.sc, di.ptype, di.dt), got,
+                      ops_sums)}}
+    timed = {"dust_drag_sums": (lambda: _ext.dust_drag_sums(*args),
+                                lambda: du.drag_sums_plain(*plain_args))}
+    if law.use_energy_term and not test_particle:
+        dek, payload = du.drag_energy(state, di.dt, want[0], want[1])
+        payload = payload.repeat(di.n_rep)
+        d_args = (spec, kern, di.ids_d, N, di.r, di.sc, di.ptype, payload,
+                  dek)
+        dp_args = (kern, spec, di.ids_d, N, di.r, di.sc, di.ptype, payload,
+                   dek)
+        got_d = _ext.dust_drag_deposit(*d_args)
+        want_d = du.drag_deposit_plain(*dp_args)
+        err = _scaled_all(got_d, want_d, rows)
+        out["dust_drag_deposit"] = {
+            "N": N, "ndim": spec.ndim, "k_cell": spec.k_cell,
+            "law": law.law, "mirror": bool(spec.mirror),
+            "scaled_err": {"dudt": err}, "dtype": str(state.r.dtype),
+            "max_abs_err": float(torch.abs(got_d - want_d)[rows].max()),
+            "ok": err <= tol,
+            "work": _work((di.ids_d, di.r, di.sc[:, 1:3], di.ptype, payload,
+                           dek), (got_d,), ops_dep)}
+        timed["dust_drag_deposit"] = (
+            lambda: _ext.dust_drag_deposit(*d_args),
+            lambda: du.drag_deposit_plain(*dp_args))
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    for r in out.values():
+        r["library_ms"] = None
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def dust_kernel_dt(sim):
+    """Each particle's step (N,) as the simulation's next drag pass takes
+    it from its state: the global dt, or nstep_part dt_base under block
+    timesteps."""
+    s = sim.state
+    if sim.use_block:
+        B = sim._blocksched
+        return B.nstep_part.to(s.m.dtype) * B.dt_base
+    return s.dt.expand(s.N).contiguous()
+
+
+def dust_energy(sim) -> float:
+    """Kinetic plus thermal plus potential energy of a dust run, summed
+    in float64 on the host: sum m (v^2/2 + u) - sum m_grav gpot / 2 with
+    the gravitating masses (the dust's in two-fluid runs); the drag's
+    heating is in u."""
+    s = sim.state
+    m = s.m.double()
+    e = (0.5 * m * (s.v.double() ** 2).sum(-1) + m * s.u.double()).sum()
+    if sim.self_gravity:
+        e = e - 0.5 * (sim._gravity_mass(s).double() * s.gpot.double()).sum()
+    return float(e)
 
 
 def sink_ledger(sim):

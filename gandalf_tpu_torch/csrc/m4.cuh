@@ -8,6 +8,7 @@
 //   wzeta = d(phi)/dh kernel (no normalisation)
 //   wgrav = softened gravity force kernel, 1/s^2 from s = 2 on
 //   wpot  = softened gravity potential kernel, 1/s from s = 2 on
+//   wdrag = gas-dust drag kernel, normdrag s^2 w0 (kernnormdrag)
 // `norm` is the ndim-dependent normalisation (1/pi in 3D), passed from
 // the host so both sides use the same constant.
 #pragma once
@@ -20,6 +21,11 @@ __device__ __forceinline__ T m4_w0(T s, T norm) {
     return T(0.25) * norm * (q * q * q);
   }
   return T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ T m4_wdrag(T s, T norm, T normdrag) {
+  return normdrag * s * s * m4_w0<T>(s, norm);
 }
 
 template <typename T>

@@ -5,7 +5,8 @@ Counterpart of ``gandalf_tpu/kernels/smoothing.py`` for the M4 kernel
 ``s = r/h``; ``w0`` is W without 1/h^ndim, ``w1`` is dW/ds without
 1/h^(ndim+1), ``womega`` is -(ndim*w0 + s*w1), ``wzeta`` is the
 d(phi)/dh kernel, ``wgrav`` and ``wpot`` are the softened gravity force
-and potential kernels (1/s^2 and 1/s beyond the support).  The same
+and potential kernels (1/s^2 and 1/s beyond the support), and ``wdrag``
+is the gas-dust drag kernel kernnormdrag s^2 w0(s).  The same
 polynomials are in ``csrc/m4.cuh`` for the CUDA kernels.
 """
 
@@ -51,6 +52,9 @@ class SmoothingKernel:
 
     def wzeta_s2(self, ssqd: Tensor) -> Tensor:
         return self.wzeta(torch.sqrt(ssqd))
+
+    def wdrag(self, s: Tensor) -> Tensor:
+        return self.kernnormdrag * s * s * self.w0(s)
 
 
 def _m4(ndim: int) -> SmoothingKernel:

@@ -320,43 +320,51 @@ def _pair_list(spec: Grid27Spec, r_d: Tensor, fill: Tensor, cut2: float,
                exclude_self: bool):
     """Candidate pairs (i, j) over the 3^ndim-cell stencil with both
     slots filled and |r_j - r_i|^2 <= cut2, as flat slot indices row (i)
-    and col (j), separations r_j - r_i (P, ndim) and d^2 (P,).  With
-    `exclude_self`, a slot's pair with itself (same slot, centre shift)
-    and coincident pairs are dropped.  Built over chunks of cells that
-    bound the (cells, K, S K) candidate block: 2^25 candidates on a GPU
-    (a few hundred MB), 2^21 on a CPU."""
+    and col (j), separations r_j - r_i (P, ndim) and d^2 (P,), ordered by
+    row, then by stencil position.  With `exclude_self`, a slot's pair
+    with itself (same slot, centre shift) and coincident pairs are
+    dropped.  Built over chunks of the filled slots that bound the
+    (slots, S K) candidate block: 2^25 candidates on a GPU (a few hundred
+    MB), 2^21 on a CPU."""
     K, C, nd = spec.k_cell, spec.total_cells, spec.ndim
     S = 3 ** nd
     dev = r_d.device
+    r_s = r_d.reshape(C * K, nd)
     r_f = r_d.reshape(C, K, nd)
+    fill_s = fill.reshape(C * K)
     fill_f = fill.reshape(C, K)
     nb, off, ok = _neighbour_table(spec, dev)
-    self_pair = (torch.arange(S * K, device=dev)[None, :]
-                 == (S // 2) * K + torch.arange(K, device=dev)[:, None])
+    slots = torch.nonzero(fill_s).flatten()
     budget = 1 << 25 if dev.type == "cuda" else 1 << 21
-    step = max(1, budget // (K * S * K))
+    step = max(1, budget // (S * K))
+    jj_all = torch.arange(S * K, device=dev)
     parts = []
-    for c0 in range(0, C, step):
-        c1 = min(c0 + step, C)
-        B = c1 - c0
-        nbc = nb[c0:c1]
+    for c0 in range(0, slots.numel(), step):
+        rows = slots[c0:c0 + step]
+        cells = rows // K
+        nbc = nb[cells]
         # neighbour positions shifted by +-L where a periodic dim wraps
-        r_tab = (r_f[nbc] + off[c0:c1].to(r_d.dtype)[:, :, None, :]
-                 ).reshape(B, S * K, nd)
-        f_tab = (fill_f[nbc] & ok[c0:c1][..., None]).reshape(B, S * K)
-        dx = [r_tab[:, None, :, k] - r_f[c0:c1][:, :, None, k]
-              for k in range(nd)]
+        r_tab = (r_f[nbc] + off[cells].to(r_d.dtype)[:, :, None, :]
+                 ).reshape(-1, S * K, nd)
+        f_tab = (fill_f[nbc] & ok[cells][..., None]).reshape(-1, S * K)
+        r_i = r_s[rows]
+        dx = [r_tab[:, :, k] - r_i[:, None, k] for k in range(nd)]
         d2 = dx[0] * dx[0]
         for x in dx[1:]:
             d2 = d2 + x * x
-        keep = fill_f[c0:c1][:, :, None] & f_tab[:, None, :] & (d2 <= cut2)
+        keep = f_tab & (d2 <= cut2)
         if exclude_self:
+            self_pair = jj_all[None, :] == (S // 2) * K + (rows % K)[:, None]
             keep &= ~self_pair & (d2 > 0.0)
-        b, i, jj = keep.nonzero(as_tuple=True)
-        row = (c0 + b) * K + i
-        col = nb[c0 + b, jj // K] * K + jj % K
+        b, jj = keep.nonzero(as_tuple=True)
+        row = rows[b]
+        col = nb[cells[b], jj // K] * K + jj % K
         parts.append((row, col, torch.stack([x[keep] for x in dx], dim=-1),
                       d2[keep]))
+    if not parts:
+        z = torch.zeros((0,), dtype=torch.int64, device=dev)
+        return (z, z, torch.zeros((0, nd), dtype=r_d.dtype, device=dev),
+                torch.zeros((0,), dtype=r_d.dtype, device=dev))
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
@@ -704,7 +712,10 @@ def _hydro_pass_grid27_mirror(kern, visc, box: DomainBox, spec: Grid27Spec,
     dens = density_grid27(kern, spec, h_fac, h_converge, r_d, d(tile(s.m)),
                           d(tile(s.h)), fill, hmax,
                           count_fill=d(keep & is_parent))
-    parents = GridBinning(b.cell_of[:N], b.slot_of[:N], b.overflow)
+    # a parent outside `alive` was discarded (K1's virtual cell C): it
+    # reads slot 0 of cell 0, and `sane` replaces what it read
+    parents = GridBinning(torch.where(live, b.cell_of[:N], 0),
+                          torch.where(live, b.slot_of[:N], 0), b.overflow)
 
     def sane(x_d, v0):
         x = from_dense(spec, parents, x_d)

@@ -11,6 +11,7 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --mirror [--layout L]
     python -m gandalf_tpu_torch.profile_step --block-sinks
     python -m gandalf_tpu_torch.profile_step --cd2010
+    python -m gandalf_tpu_torch.profile_step --dust [--dust-case C]
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -39,12 +40,16 @@ walls on dim 0, or mixed, the mirror/wall and open/mirror pairs on dims
 block-stepped Boss-Bodenheimer collapse (check.bb_block_params at about
 262,144 particles: Nlevels 5, smooth accretion, mm97) in float32, 4
 warm-up ticks, then a window of 8 dense ticks.  With --cd2010: the KHI
-with time_dependent_avisc = cd2010 (K21 once a step), as --khi.
+with time_dependent_avisc = cd2010 (K21 once a step), as --khi.  With
+--dust: the dusty Evrard collapse (check.dust_params at Nhydro 131,072,
+about 262,144 gas and dust particles, two-fluid Epstein drag, tree
+gravity) in float32, as the SPH box; --dust-case box takes the 3D dusty
+box at 64^3 gas + 64^3 dust (check.dustybox_params) instead.
 Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
 the device time summed over kernels and copies, the device's idle share
-of the window, the device time of each of K1-K22 and of the torch glue
+of the window, the device time of each of K1-K24 and of the torch glue
 between them, and the device time per kernel name (largest first); with
 --block also the active rows per tick.  Refuses to run without CUDA.
 """
@@ -63,7 +68,7 @@ N_SIDE = 64
 STEPS = 8
 BLOCK_N = 262144
 BLOCK_WARM = 4
-# device kernel names of K1-K22 (csrc/); every other device event is glue
+# device kernel names of K1-K24 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -92,7 +97,10 @@ FAMILIES = {
                              "spin_slots", "slot_partial", "slot_finish"),
     "K21 cullen_dehnen": ("cullen_dehnen_kernel",),
     "K22 levelneib": ("levelneib_kernel",),
+    "K23 dust_drag_sums": ("dust_sums_kernel",),
+    "K24 dust_drag_deposit": ("dust_deposit_kernel",),
 }
+DUST_NHYDRO = 131072
 NBODY_N = 65536
 NBODY_TS6_N = 16384
 SINK_N = 262144
@@ -167,6 +175,7 @@ def _profile_window(sim, args, before: int) -> int:
             "sinks": args.sinks, "khi": args.khi,
             "block_sinks": args.block_sinks, "cd2010": args.cd2010,
             "mirror": args.layout if args.mirror else None,
+            "dust": args.dust_case if args.dust else None,
             "ndim": sim.ndim,
             "sinks_active": (int(sim.state.sinks.active.sum())
                              if getattr(sim, "has_sinks", False) else 0),
@@ -221,11 +230,16 @@ def main(argv=None) -> int:
     ap.add_argument("--cd2010", action="store_true",
                     help="the KHI with the Cullen & Dehnen switch "
                          "(khi_cd2010)")
+    ap.add_argument("--dust", action="store_true",
+                    help="the dusty Evrard collapse (dusty_evrard)")
+    ap.add_argument("--dust-case", default="evrard",
+                    choices=("evrard", "box"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     from .check import (MIRROR_DIM0, MIRROR_MIXED, bb_block_params,
-                        bb_params, jeans_params,
+                        bb_params, dust_params, dustybox_params,
+                        jeans_params,
                         jittered_box_ic, khi_params, mfv_params, mirror_ic,
                         mirror_params, nbody_params, slice_params,
                         sphere_block_params)
@@ -244,6 +258,12 @@ def main(argv=None) -> int:
                                  device="cuda", dtype=torch.float32)
         sim.SetupSimulation()
         warm = SINK_WARM
+    elif args.dust:
+        params = (dust_params(DUST_NHYDRO) if args.dust_case == "evrard"
+                  else dustybox_params(N_SIDE, 3))
+        sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
+        sim.SetupSimulation()
+        warm = 2
     elif args.block_sinks:
         sim = GradhSphSimulation(bb_block_params(SINK_N), device="cuda",
                                  dtype=torch.float32)

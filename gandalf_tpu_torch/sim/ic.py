@@ -10,12 +10,15 @@ lattice, the uniform sphere (``ic = sphere``), lattice or random
 not ported and raises), and the periodic self-gravity tests of
 EwaldIc.cpp (``jeans`` = ``ewaldsine``, ``ewaldsine2``, ``ewaldslab``,
 ``ewaldcylinder``), the Boss-Bodenheimer cloud (``bossbodenheimer`` =
-``bb``) and the hybrid gas-and-star Plummer sphere (``plummer``), with
+``bb``), the hybrid gas-and-star Plummer sphere (``plummer``), and the
+gas-and-dust tests: the dusty box (``dustybox``) and the Evrard collapse
+(``evrard``, with a dust copy of its gas when dust_forces is set), with
 ``generate_ic``'s dispatch; and the N-body star sets (``plummer``,
 ``binary``, ``triple``, ``quadruple``) with ``generate_nbody_ic``'s.
 Host-side numpy in float64, as there; each hydro generator returns a
 dict with keys r, v, m, h, u (the hybrid Plummer also ``star``: r, v, m,
-h of its stars), each N-body one r, v, m, h.  Any other ``ic``, and the
+h of its stars; the dusty ones also ``ptype``), each N-body one r, v,
+m, h.  Any other ``ic``, and the
 Lloyd regularisation, raise NotImplementedError.
 """
 
@@ -25,6 +28,7 @@ from typing import Dict
 
 import numpy as np
 
+from ..state import DUST_TYPE, GAS_TYPE
 from ..utils.rng import XorshiftRand
 from ..utils.rng import rng_from_params as _rng_from_params
 
@@ -322,6 +326,68 @@ def sphere_ic(params, eos) -> Dict[str, np.ndarray]:
     h = h_fac * (m / rho0) ** (1.0 / ndim)
     u = np.full(N, press / (gammam1 * rho0))
     return {"r": r, "v": np.zeros((N, ndim)), "m": m, "h": h, "u": u}
+
+
+def evrard_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Evrard collapse: 1/r density sphere, cold gas
+    (src/Ic/EvrardCollapseIc.cpp:50-135).  A unit lattice sphere is
+    stretched with rnew = R r^{3/2} so rho ~ 1/r.  With dust_forces set,
+    a dust copy of the gas (mass times dust_mass_factor, u = 0) offset
+    by 0.01 h along every axis follows it."""
+    ip, fp = params.intparams, params.floatparams
+    ndim = ip["ndim"]
+    if ndim != 3:
+        raise ValueError("evrard IC is 3D only")
+    mcloud = fp["mcloud"]
+    radius = fp["radius"]
+    u_fac = fp["thermal_energy"]
+    r = add_lattice_sphere(ip["Nhydro"], 1.0, ndim)
+    N = r.shape[0]
+    rad = np.sqrt((r ** 2).sum(-1)) + 1e-30
+    rnew = radius * rad * np.sqrt(rad)
+    r = r * (rnew / rad)[:, None]
+    m = np.full(N, mcloud / N)
+    rho = (mcloud / (2.0 * np.pi * radius ** ndim)) * (radius / rnew)
+    h = fp["h_fac"] * (m / rho) ** (1.0 / ndim)
+    u = np.full(N, u_fac * mcloud / radius)
+    out = {"r": r, "v": np.zeros((N, ndim)), "m": m, "h": h, "u": u}
+    if params.stringparams["dust_forces"] not in ("none", "null", ""):
+        d2g = fp["dust_mass_factor"]
+        rd = r.copy()
+        rd += 0.01 * h[:, None]
+        out = {
+            "r": np.concatenate([r, rd]),
+            "v": np.zeros((2 * N, ndim)),
+            "m": np.concatenate([m, m * d2g]),
+            "h": np.concatenate([h, h]),
+            "u": np.concatenate([u, np.zeros(N)]),
+            "ptype": np.concatenate([np.full(N, GAS_TYPE, np.int32),
+                                     np.full(N, DUST_TYPE, np.int32)]),
+        }
+    return out
+
+
+def dustybox_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Uniform gas box + slightly-offset dust lattice with a velocity
+    offset (DUSTYBOX drag test; src/Ic/DustyBoxIc.cpp:40-150)."""
+    gas = uniform_box_ic(params, eos)
+    fp = params.floatparams
+    N = len(gas["m"])
+    gas["v"][:, 0] = fp["vfluid1[0]"]
+    d2g = fp["dust_mass_factor"]
+    dust_r = gas["r"].copy()
+    dust_r[:, 0] += 0.01 * gas["h"]
+    dust_v = np.zeros_like(gas["v"])
+    dust_v[:, 0] = fp["vfluid2[0]"]
+    return {
+        "r": np.concatenate([gas["r"], dust_r]),
+        "v": np.concatenate([gas["v"], dust_v]),
+        "m": np.concatenate([gas["m"], gas["m"] * d2g]),
+        "h": np.concatenate([gas["h"], gas["h"]]),
+        "u": np.concatenate([gas["u"], np.zeros(N)]),
+        "ptype": np.concatenate([np.full(N, GAS_TYPE, np.int32),
+                                 np.full(N, DUST_TYPE, np.int32)]),
+    }
 
 
 def bossbodenheimer_ic(params, eos) -> Dict[str, np.ndarray]:
@@ -687,6 +753,8 @@ _IC_REGISTRY = {
     "bossbodenheimer": bossbodenheimer_ic,
     "bb": bossbodenheimer_ic,
     "plummer": plummer_hybrid_ic,
+    "dustybox": dustybox_ic,
+    "evrard": evrard_ic,
 }
 
 _NBODY_IC_REGISTRY = {

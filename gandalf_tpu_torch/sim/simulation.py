@@ -27,9 +27,15 @@ global timestep or block timesteps: stars from the IC, sink creation,
 plain or smooth accretion (K18, K20), star-gas gravity (K16) and
 star-star gravity (K14), with the accreted gas dead (masked out of the
 grid and tree passes and frozen).  The sinks ride in the state
-(``SphState.sinks``), so bursts and overflow rewinds carry them.
-Options outside that slice raise NotImplementedError naming their
-ROADMAP item.
+(``SphState.sinks``), so bursts and overflow rewinds carry them.  Dust
+(``dust_forces`` = full_twofluid or test_particle; ``ops/dust.py``) runs
+on the grid path with a global timestep or block timesteps, between
+mirror walls and with self-gravity (the dust gravitates in two-fluid
+runs): two type-masked grid passes give the gas its density and forces
+and the dust its own h, then the semi-implicit drag (K23, K24) adds its
+acceleration and heating.  Options outside that slice raise
+NotImplementedError naming their ROADMAP item; dust with sinks or stars
+is refused (the JAX package's sink paths apply no drag: fault F14).
 
 A global step runs eagerly as a sequence of torch operations and kernel
 launches on the simulation's device; on a CUDA device nothing in it
@@ -42,7 +48,8 @@ active set, the Saitoh-Makino set and the overflow flag on the host, so
 it runs tick by tick.  With sinks a block tick is the JAX package's dense
 tick instead: every particle drifts and takes the whole coupled pass,
 then the neighbour-level pass (K22) and the ladder update, with the
-sinks stepping at the tick's dt_base.
+sinks stepping at the tick's dt_base; with dust likewise, the drag taken
+over each particle's own step.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from ..integrate.leapfrog import (IntegratorConfig, correct, predict,
                                   sph_timestep)
 from ..kernels.smoothing import kernel_factory
 from ..ops.active_grid import active_hydro_pass, levelneib_grid27
+from ..ops.dust import DragLaw, drag_pass_grid
 from ..ops.eos import eos_factory
 from ..ops.ewald import table_from_params
 from ..ops.forces import ArtificialViscosity, cullen_dehnen_dense
@@ -72,8 +80,8 @@ from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
 from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
                         plan_tree_for_buckets, tree_gravity_active,
                         tree_gravity_grouped, walk_stats_levels_native)
-from ..state import (BOUNDARY_TYPE, DUST_TYPE, FLAG_DEAD, ICM_TYPE,
-                     DomainBox, SphState, make_sph_state)
+from ..state import (BOUNDARY_TYPE, DUST_TYPE, FLAG_DEAD, GAS_TYPE,
+                     ICM_TYPE, DomainBox, SphState, make_sph_state)
 from ..units import SimUnits, inscale_parameters
 from ..utils.timing import CodeTiming
 from .ic import generate_ic
@@ -518,6 +526,7 @@ class GradhSphSimulation(SimulationBase):
         # star and sink slots in the state, and dead (massless) particles
         self.has_sinks = False
         self._mask_dead = False
+        self.has_dust = False
         # rows of the active passes: in all, and per pass of the last tick
         # (the Saitoh-Makino pass and overflow retries included)
         self.active_rows = 0
@@ -529,8 +538,6 @@ class GradhSphSimulation(SimulationBase):
         ip, sp = p.intparams, p.stringparams
         if sp["sim"] not in ("sph", "gradhsph", "gradsph"):
             raise _unsupported(f"sim {sp['sim']!r}", "items 9-10")
-        if sp["dust_forces"] not in ("none", "null", ""):
-            raise _unsupported("dust", "item 9")
         if sp["supernova_feedback"] not in ("none", "null", ""):
             raise _unsupported("supernova feedback", "item 9")
         if ip["rad_fb"]:
@@ -565,6 +572,25 @@ class GradhSphSimulation(SimulationBase):
         self.smooth_accretion = bool(ip["smooth_accretion"])
         if self.sink_cfg.create or self.sink_cfg.accrete:
             self._check_sink_options()
+        # gas-dust drag (gandalf_tpu/sim/simulation.py:1042-1050)
+        self.dust_forces = sp["dust_forces"]
+        self.has_dust = self.dust_forces not in ("none", "null", "")
+        self.drag_law = None
+        if self.has_dust:
+            if self.dust_forces not in ("full_twofluid", "test_particle"):
+                raise ValueError(f"unknown dust_forces {self.dust_forces!r}")
+            if self.sink_cfg.create or self.sink_cfg.accrete:
+                raise self._dust_with_sinks()
+            self.drag_law = DragLaw.from_params(p)
+
+    @staticmethod
+    def _dust_with_sinks():
+        """Dust with sinks or stars: the JAX package's sink paths never
+        apply the drag (ROADMAP fault F14), so the port refuses the
+        combination."""
+        return _unsupported("dust with sinks or stars (the JAX package's "
+                            "sink paths apply no drag: fault F14)",
+                            "item 9")
 
     def _check_sink_options(self):
         """The sink options the port runs: 3D and no mirror walls."""
@@ -586,8 +612,14 @@ class GradhSphSimulation(SimulationBase):
             if ic is None:
                 with self.timing.block("GENERATE_IC"):
                     ic = generate_ic(self.params, self.eos)
-            if "ptype" in ic:
-                raise _unsupported("non-gas particle types", "item 9")
+            ptype = ic.get("ptype")
+            if ptype is not None and not (
+                    self.has_dust and np.isin(ptype, (GAS_TYPE,
+                                                      DUST_TYPE)).all()):
+                raise _unsupported("particle types other than gas (and "
+                                   "dust in a dust run)", "item 9")
+            if self.has_dust and "star" in ic:
+                raise self._dust_with_sinks()
             # smooth accretion's floor (gandalf_tpu/sim/simulation.py:1339)
             self.mmean = float(np.asarray(ic["m"]).mean())
             self.state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"],
@@ -601,6 +633,9 @@ class GradhSphSimulation(SimulationBase):
             # (gandalf_tpu/sim/simulation.py:1315-1318)
             alpha0 = (self.visc.alpha_visc_min if self.integ.td_avisc
                       else self.visc.alpha_visc)
+            if ptype is not None:
+                s = s.replace(ptype=torch.as_tensor(
+                    np.asarray(ptype, dtype=np.int32), device=self.device))
             self.state = s.replace(
                 alpha=torch.full_like(s.alpha, alpha0),
                 flags=torch.where(dead, s.flags | FLAG_DEAD, s.flags),
@@ -650,12 +685,16 @@ class GradhSphSimulation(SimulationBase):
     def _hydro_pass(self, s: SphState) -> SphState:
         """density -> EOS -> hydro forces -> self-gravity at the current
         positions, dead particles masked out where there may be any.  The
-        overflow flag is the OR of both passes'."""
+        overflow flag is the OR of both passes'.  In a dust run the grid
+        pass is _dust_hydro_pass's two type-masked passes."""
         alive = self.alive_mask(s)
-        s = hydro_pass_grid27(self.kern, self.visc, self.box,
-                              self.gridspec, self.eos, self.h_fac,
-                              self.h_converge, self.hydro_forces, s,
-                              alive=alive)
+        if self.has_dust:
+            s = self._dust_hydro_pass(s)
+        else:
+            s = hydro_pass_grid27(self.kern, self.visc, self.box,
+                                  self.gridspec, self.eos, self.h_fac,
+                                  self.h_converge, self.hydro_forces, s,
+                                  alive=alive)
         if self.self_gravity:
             a_g, gpot, overflow = tree_gravity_grouped(
                 self.treespec, s.bucket_map, s.r, self._gravity_mass(s),
@@ -666,6 +705,55 @@ class GradhSphSimulation(SimulationBase):
             s = s.replace(a=s.a + a_g, gpot=gpot,
                           neib_overflow=s.neib_overflow | overflow)
         return s
+
+    def _dust_hydro_pass(self, s: SphState) -> SphState:
+        """The grid pass of a dust run (gandalf_tpu/sim/simulation.py:
+        1496-1525): two type-masked passes (K1 and K2 each, K3 for the
+        gas), the gas's density, EOS and forces from the gas alone, and
+        the dust's own h, rho, zeta and hfactor from the dust alone with
+        no hydro force; the dust carries no u, pressure or sound (the
+        drag pass sets its sound speed)."""
+        alive = s.alive
+        is_dust = s.ptype == DUST_TYPE
+        args = (self.kern, self.visc, self.box, self.gridspec, self.eos,
+                self.h_fac, self.h_converge)
+        s_g = hydro_pass_grid27(*args, self.hydro_forces, s,
+                                alive=alive & ~is_dust)
+        s_d = hydro_pass_grid27(*args, False, s, alive=alive & is_dust)
+
+        def pick(g, d):
+            return torch.where(is_dust if g.dim() == 1 else is_dust[:, None],
+                               d, g)
+
+        z = torch.zeros_like(s.u)
+        return s.replace(
+            h=pick(s_g.h, s_d.h), rho=pick(s_g.rho, s_d.rho),
+            invomega=pick(s_g.invomega, s_d.invomega),
+            zeta=pick(s_g.zeta, s_d.zeta),
+            hfactor=pick(s_g.hfactor, s_d.hfactor), u=pick(s_g.u, z),
+            pressure=pick(s_g.pressure, z), sound=pick(s_g.sound, z),
+            a=pick(s_g.a, torch.zeros_like(s.a)), dudt=pick(s_g.dudt, z),
+            div_v=pick(s_g.div_v, z),
+            neib_overflow=s_g.neib_overflow | s_d.neib_overflow)
+
+    def _apply_drag(self, s: SphState, dt) -> SphState:
+        """The gas-dust drag (K23, K24) added after the hydro and gravity
+        pass, over a step of dt (a scalar, or each particle's step under
+        block timesteps; 0 at the bootstrap: the instantaneous drag
+        force): a and du/dt gain the drag's, and the dust takes the
+        drag's sound speed and |dv|/h (gandalf_tpu/sim/simulation.py:
+        1954-2005, grid branch).  The overflow of the pass's binning
+        (the alive particles of both types and their images) ORs into
+        the state's."""
+        d, overflow = drag_pass_grid(
+            self.kern, self.drag_law, self.gridspec, self.box, dt, s,
+            s.alive, self.dust_forces == "test_particle")
+        is_dust = s.ptype == DUST_TYPE
+        return s.replace(
+            a=s.a + d.a_drag, dudt=s.dudt + d.dudt,
+            sound=torch.where(is_dust, d.sound, s.sound),
+            div_v=torch.where(is_dust, d.div_v, s.div_v),
+            neib_overflow=s.neib_overflow | overflow)
 
     def _mac_inputs(self, s, spec=None) -> dict:
         """The accuracy MAC's target-side input for `spec` (default the
@@ -680,11 +768,12 @@ class GradhSphSimulation(SimulationBase):
         return {}
 
     def _gravity_mass(self, s: SphState):
-        """Gravitating mass: gas (and cdm); icm, boundary and dust
-        particles do not gravitate (dust only in two-fluid runs, which
-        the port does not run)."""
-        no_grav = ((s.ptype == ICM_TYPE) | (s.ptype == BOUNDARY_TYPE)
-                   | (s.ptype == DUST_TYPE))
+        """Gravitating mass per particle: gas (and cdm) always, dust only
+        in full two-fluid runs, icm and boundary particles never
+        (gandalf_tpu/sim/simulation.py:571-581)."""
+        no_grav = (s.ptype == ICM_TYPE) | (s.ptype == BOUNDARY_TYPE)
+        if self.dust_forces != "full_twofluid":
+            no_grav = no_grav | (s.ptype == DUST_TYPE)
         return torch.where(no_grav, 0.0, s.m)
 
     # -- sinks ----------------------------------------------------------------
@@ -764,7 +853,8 @@ class GradhSphSimulation(SimulationBase):
         return torch.minimum(dt_gas, self._sink_timestep(s.sinks))
 
     def _build_bootstrap(self):
-        """Initial force and timestep pass."""
+        """Initial force and timestep pass (with the instantaneous drag
+        force, dt = 0, in a dust run)."""
         integ = self.integ
 
         def bootstrap(s: SphState) -> SphState:
@@ -774,6 +864,8 @@ class GradhSphSimulation(SimulationBase):
                 s = s.replace(sinks=sk.replace(a0=sk.a, r0=sk.r, v0=sk.v))
             else:
                 s = self._hydro_pass(s)
+                if self.has_dust:
+                    s = self._apply_drag(s, torch.zeros_like(s.t))
             s = s.replace(a0=s.a, dudt0=s.dudt, u0=s.u, r0=s.r, v0=s.v)
             if self.use_block:
                 # the initial ladder; a tick is dt_base, which the sinks'
@@ -789,8 +881,8 @@ class GradhSphSimulation(SimulationBase):
         return bootstrap
 
     def _build_step(self):
-        """One global-timestep KDK step: predict, wrap, hydro pass,
-        correct, next dt; with sinks the stars drift and kick at the same
+        """One global-timestep KDK step: predict, wrap, hydro pass (and
+        the drag over dt in a dust run), correct, next dt; with sinks the stars drift and kick at the same
         dt around the coupled pass, then sinks form and accrete
         (gandalf_tpu/sim/simulation.py:1891-1923); with a time-dependent
         alpha, _td_avisc's rate goes into the closing kick.  The overflow
@@ -821,6 +913,8 @@ class GradhSphSimulation(SimulationBase):
                 s = self._sink_coupled_pass(s)
             else:
                 s = self._hydro_pass(s)
+                if self.has_dust:
+                    s = self._apply_drag(s, dt)
             s = s.replace(neib_overflow=s.neib_overflow | overflow_in)
             s, dal = self._td_avisc(s)
             s = correct(integ, s, dt, dal)
@@ -958,50 +1052,61 @@ class GradhSphSimulation(SimulationBase):
                     prev = self.state
         raise RuntimeError("neighbour overflow persists after 5 replans")
 
-    def _sink_tick(self, s: SphState, B):
-        """One dense block tick with sinks from state s and schedule B
-        (gandalf_tpu/sim/simulation.py:1814-1853): drift every particle
-        and the sinks (at dt_base), wrap and reflect, the whole coupled
-        pass, the neighbour levels of every alive particle (K22), alpha's
-        step, the Saitoh-Makino limiter, the sinks' closing kick, creation
-        and accretion over dt_base, then the closing kick and the ladder
-        update with the sinks' bound."""
+    def _dense_tick(self, s: SphState, B):
+        """One dense block tick from state s and schedule B, the JAX
+        package's tick with sinks (gandalf_tpu/sim/simulation.py:
+        1814-1853) or with dust (:1854-1880): drift every particle (and
+        the sinks, at dt_base), wrap and reflect, the whole pass of every
+        particle (the coupled pass with sinks; the hydro pass and the
+        drag over each particle's own step, nstep_part dt_base, with
+        dust), the neighbour levels of every alive particle (K22),
+        alpha's step, the Saitoh-Makino limiter, with sinks their closing
+        kick, creation and accretion over dt_base, then the closing kick
+        and the ladder update (with the sinks' bound)."""
         cfg, integ = self.block_cfg, self.integ
         dtb = B.dt_base
         s, active, t = advance(s, B, self.u_mode)
-        sk = s.sinks
         r, v = self.box.reflect(self.box.wrap(s.r), s.v)
-        s = s.replace(r=r, v=v, r0=self.box.wrap(s.r0), sinks=sk.replace(
-            r=sk.r0 + sk.v0 * dtb + 0.5 * sk.a0 * dtb * dtb,
-            v=sk.v0 + sk.a0 * dtb))
-        s = self._sink_coupled_pass(s)
+        s = s.replace(r=r, v=v, r0=self.box.wrap(s.r0))
+        if self.has_sinks:
+            sk = s.sinks
+            s = s.replace(sinks=sk.replace(
+                r=sk.r0 + sk.v0 * dtb + 0.5 * sk.a0 * dtb * dtb,
+                v=sk.v0 + sk.a0 * dtb))
+            s = self._sink_coupled_pass(s)
+        else:
+            s = self._hydro_pass(s)
+            s = self._apply_drag(s, B.nstep_part.to(s.m.dtype) * dtb)
         s = s.replace(levelneib=levelneib_grid27(
             self.kern, self.gridspec, s.r, s.h, s.level, s.alive))
         s = self._advance_alpha(s, B)
         active, nstep_p, level = check_timesteps(cfg, s, B, active)
         dt_crit = sph_timestep(integ, s, self.hydro_forces)
-        sk = s.sinks
-        v_c = sk.v + 0.5 * dtb * (sk.a - sk.a0)
-        s = s.replace(sinks=sk.replace(v=v_c, r0=sk.r, v0=v_c, a0=sk.a))
-        s = self._sink_create_accrete(s, dtb)
+        dt_extra = None
+        if self.has_sinks:
+            sk = s.sinks
+            v_c = sk.v + 0.5 * dtb * (sk.a - sk.a0)
+            s = s.replace(sinks=sk.replace(v=v_c, r0=sk.r, v0=v_c,
+                                           a0=sk.a))
+            s = self._sink_create_accrete(s, dtb)
+            dt_extra = self._sink_timestep(s.sinks)
         s, B = end_timestep(cfg, s, B, active, level, nstep_p, dt_crit, t,
-                            self.u_mode,
-                            dt_extra=self._sink_timestep(s.sinks))
+                            self.u_mode, dt_extra=dt_extra)
         self.active_rows += s.N
         self.last_tick_rows.append(s.N)
         return s.replace(nstep=s.nstep + 1), B
 
-    def _block_sink_tick(self):
-        """One dense tick with sinks (_sink_tick), every particle's pass
-        each tick as the JAX package chose
-        (gandalf_tpu/sim/simulation.py:1076-1082); on overflow the state,
+    def _block_dense_tick(self):
+        """One dense tick (_dense_tick), every particle's pass each tick
+        as the JAX package chose for sinks and for dust
+        (gandalf_tpu/sim/simulation.py:1076-1085); on overflow the state,
         its sinks and the schedule rewind together, the grid (and the
         tree buckets with grown caps) is replanned from the pre-tick
         state and the tick redone, at most 5 attempts."""
         prev, prev_sched = self.state, self._blocksched
         self.last_tick_rows = []
         for attempt in range(5):
-            s, B = self._sink_tick(prev, prev_sched)
+            s, B = self._dense_tick(prev, prev_sched)
             if not bool(s.neib_overflow):
                 self.state, self._blocksched = s, B
                 return
@@ -1020,14 +1125,14 @@ class GradhSphSimulation(SimulationBase):
     def main_loop_step(self):
         """One step, or one block tick with block timesteps (the ladder's
         tick is not clamped to tend, as in the JAX package): the dense
-        tick with sinks, else the active-compacted one."""
+        tick with sinks or dust, else the active-compacted one."""
         if not self.use_block:
             super().main_loop_step()
             return
         self._tree_cadence()
         with self.timing.block("MAIN_LOOP"):
-            if self.has_sinks:
-                self._block_sink_tick()
+            if self.has_sinks or self.has_dust:
+                self._block_dense_tick()
             else:
                 self._block_tick()
         self.Nsteps += 1

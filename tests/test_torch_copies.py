@@ -2,7 +2,8 @@
 originals: the Parameters default table, the unit system, the IC
 generators the port's configurations use (box, lattice and random
 sphere; the xorshift generator's sphere sampler is not ported and
-raises; the Boss-Bodenheimer cloud and the hybrid Plummer sphere), the
+raises; the Boss-Bodenheimer cloud and the hybrid Plummer sphere; the
+dusty box and the Evrard cloud with its dust), the
 isothermal, barotropic and polytropic EOS, the bit-exact xorshift
 generator and the N-body ICs drawn through it, the N-body sub-system
 tree, and the C++ tree planner built from the port's own kdplan.cpp."""
@@ -236,6 +237,30 @@ def test_hydro_test_ics_are_identical(case):
         getattr(q, table).update(getattr(p, table))
     mine, theirs = _ics(p, q)
     assert sorted(mine) == sorted(theirs)
+    for k in mine:
+        assert np.array_equal(mine[k], theirs[k]), k
+
+
+@pytest.mark.parametrize("case", ["dustybox_1d", "dustybox_3d",
+                                  "evrard_dust", "evrard_gas"])
+def test_dust_ics_are_identical(case):
+    """dustybox_ic and evrard_ic (with and without its dust copy) equal
+    the JAX package's bit for bit, ptype included."""
+    from gandalf_tpu_torch.check import dust_params, dustybox_params
+
+    if case.startswith("dustybox"):
+        p = dustybox_params(8 if case.endswith("3d") else 32,
+                            3 if case.endswith("3d") else 1,
+                            dust_mass_factor=0.25)
+    else:
+        p = dust_params(500, "full_twofluid" if case == "evrard_dust"
+                        else "none")
+    q = jparams.Parameters()
+    for table in ("intparams", "floatparams", "stringparams"):
+        getattr(q, table).update(getattr(p, table))
+    mine, theirs = _ics(p, q)
+    assert sorted(mine) == sorted(theirs)
+    assert ("ptype" in mine) == (case != "evrard_gas")
     for k in mine:
         assert np.array_equal(mine[k], theirs[k]), k
 

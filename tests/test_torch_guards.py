@@ -1,8 +1,8 @@
 """Guards of the PyTorch port: no module of it imports JAX or the JAX
 package (an AST scan) and running it never loads JAX, whatever
 GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
-N-body and sink slices, block-stepped smooth accretion and the cd2010
-switch included); chip_smoke.py refuses to run without
+N-body and sink slices, block-stepped smooth accretion, the cd2010
+switch and a dusty box included); chip_smoke.py refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
 tensors, and on a GPU each CUDA kernel agrees with its plain PyTorch
 version.
@@ -114,6 +114,12 @@ def test_port_never_imports_jax():
         "sim.SetupSimulation()\n"
         "sim.main_loop_step()\n"
         "assert float(sim.state.alpha.max()) > 0.1\n"
+        "from gandalf_tpu_torch.check import dustybox_params\n"
+        "sim = GradhSphSimulation(dustybox_params(16, 1), device='cpu',\n"
+        "                         dtype=torch.float64)\n"
+        "sim.SetupSimulation()\n"
+        "sim.main_loop_step()\n"
+        "assert sim.has_dust and bool((sim.state.ptype == 3).any())\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -395,6 +401,62 @@ def test_td_sink_wrappers_refuse_cpu_tensors():
                  lambda: _ext.cullen_dehnen(spec, kern, visc, ids, r,
                                             torch.rand((32, 11), **f64)),
                  lambda: _ext.levelneib(spec, kern, ids, r, m, level)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dust_kernels_match_plain_versions_on_gpu(dtype):
+    """K23 and K24 against their plain versions on the card on
+    check.dust_kernel_inputs at 2,000 particles: ndim 1, 2 and 3, the
+    fixed and Epstein laws, two-fluid and test-particle, and the 3D mirror
+    layout of tests/test_grid_mirror.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (MIRROR_MIXED, compare_dust_kernels,
+                                         dust_kernel_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.ops.dust import DragLaw
+
+    report = {}
+    for ndim, walls in ((1, None), (2, None), (3, None), (3, MIRROR_MIXED)):
+        s, box, spec, dt = dust_kernel_inputs(2000, ndim, "cuda", dtype,
+                                              walls=walls)
+        for law, coeff in (("fixed", 2.0), ("epstein", 1.5)):
+            for tp in (False, True):
+                rep = compare_dust_kernels(kernel_factory("m4", ndim),
+                                           DragLaw(law, coeff, True), tp, s,
+                                           box, spec, dt)
+                report.update({f"{k}_{ndim}_{walls is not None}_{law}_{tp}":
+                               r for k, r in rep.items()})
+    torch.cuda.synchronize()
+    bad = {k: r["scaled_err"] for k, r in report.items() if not r["ok"]}
+    assert not bad, bad
+
+
+def test_dust_wrappers_refuse_cpu_tensors():
+    """K23 and K24: CPU tensors raise and count no launch; the plain
+    versions run only through ops.dust's dispatch on CPU tensors."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.dust import DragLaw
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
+
+    f64 = dict(dtype=torch.float64)
+    n = 32
+    spec = Grid27Spec(3, (2, 2, 2), (0.0,) * 3, (1.0,) * 3, 8,
+                      (True,) * 3)
+    ids = torch.full((2, 2, 2, 8), -1, dtype=torch.int32)
+    r, vec = torch.rand((n, 3), **f64), torch.rand((n, 9), **f64)
+    sc, m = torch.rand((n, 4), **f64), torch.rand((n,), **f64)
+    pt = torch.zeros((n,), dtype=torch.int32)
+    kern = type("K", (), {"kernnorm": 1.0, "kernnormdrag": 1.0})()
+    before = dict(_ext.LAUNCHES)
+    for call in (lambda: _ext.dust_drag_sums(spec, kern, DragLaw(), False,
+                                             ids, n, r, vec, sc, pt, m),
+                 lambda: _ext.dust_drag_deposit(spec, kern, ids, n, r, sc,
+                                                pt, m, m)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert _ext.LAUNCHES == before

@@ -118,18 +118,18 @@ def test_run_lands_on_tend():
                                        ("sim", "mfvmuscl")])
 def test_options_outside_the_slice_raise(key, value, request):
     """Options the port does not run raise: a kernel other than M4, the
-    locally isothermal EOS (also with sinks), dust with block timesteps
-    (Nlevels = 3), sinks with mirror walls, sinks in the MFV controller
+    locally isothermal EOS (also with sinks), dust with sinks (ROADMAP
+    fault F14), sinks with mirror walls, sinks in the MFV controller
     (which has no sink code), self-gravity (which runs every walk
     option, the Ewald sum of this periodic box included) with octtree
     buckets, and a 2D run (which the grid path now takes) with block
     timesteps."""
     p = slice_params(8)
     case = request.node.callspec.id
-    if key in ("dust_forces", "ndim"):
+    if key == "ndim":
         p.set("Nlevels", 3)
-    if key == "sim" or case in ("locally_isothermal-sinks",
-                                "sinks-mirror_walls"):
+    if key in ("sim", "dust_forces") or case in ("locally_isothermal-sinks",
+                                                 "sinks-mirror_walls"):
         p.set("sink_particles", 1)
     if case == "sinks-mirror_walls":
         p.set("boundary_rhs[0]", "mirror")

@@ -6,13 +6,13 @@ meshless finite-volume box, the direct-summation N-body cluster, the
 walk's options, the Boss-Bodenheimer collapse with sinks, the 1D and 2D
 grid path and mirror walls (the Sod tube, the Kelvin-Helmholtz
 instability, the mirror-wall box), block-stepped star formation and
-time-dependent viscosity, and the gas-dust drag (the dusty box and the
-dusty Evrard collapse), and checks them, in phases, each printing one
-line:
+time-dependent viscosity, the gas-dust drag (the dusty box and the
+dusty Evrard collapse), Saitoh & Makino (2012) SPH and the external
+potentials, and checks them, in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K24 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K26 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -201,7 +201,34 @@ line:
    launches, finiteness, rho > 0 of both types, exact gas and dust mass,
    overflow, the energy drift (kinetic + thermal + potential) and the
    tree's accuracy with the dust's masses, then K23 and K24 against
-   their plain versions at the path's state.
+   their plain versions at the path's state;
+44. sm2012_kernels: K25 (the Saitoh & Makino h-rho iteration and q sum)
+   and K26 (the pressure-energy forces) against their plain versions on
+   the card on check.sm2012_kernel_inputs (a jittered lattice with a u
+   jump, 5% dead, a coincident pair in 2 and 3 dims, a full cell) at
+   4,096 and 32,768 particles in 1, 2 and 3 dims, float64 and float32,
+   alpha fixed and per particle; timed at 32^3 in float32;
+45. khi_sm2012: khi_main_path's KHI (425,984 particles, float32) through
+   SM2012SphSimulation: setup, 2 warm-up and 32 timed steps, the rate
+   beside khi_main_path's, khi_main_path's gates, K1, K25 and K26 (2D)
+   every step and no K2 or K3, then K25 and K26 against their plain
+   versions at the path's state;
+46. sm2012_gravity_box: gravity_main_path's self-gravitating box at 64^3
+   through SM2012SphSimulation in float32: 2 + 2 warm-up steps around
+   the replan, 32 timed steps, K1, K25, K26 and K4-K7 every step, the
+   energy drift and the tree's accuracy, then K25 and K26 against their
+   plain versions at the path's state;
+47. sm2012_tube: tests/test_sm2012.py's 1D gates in float64 on the grid
+   path: the Sod tube (256 + 64, t = 0.25: L1(vx) < 0.03, energy within
+   1e-4) and the contact discontinuity (32 + 128, t = 0.5: largest |v|
+   below 0.05 and below 0.8 times grad-h SPH's);
+48. sm2012_parity: float64 on the card against the plain path on the
+   CPU: 5 steps of the self-gravitating box at 16^3 and of the hybrid
+   Plummer sphere with 8 accreting stars, through SM2012;
+49. extpot_box: the vertical field of tests/test_extpot.py:18-42 on the
+   grid path on the card (a_z = avert to 1e-10), and 8 steps of the
+   hybrid Plummer sphere with stars in a Plummer field against the plain
+   path on the CPU.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -215,7 +242,9 @@ khi_main_path, the 1D ones from sod_path's periodic run and K19 from
 mirror_box's dim-0 layout, K20 and K22 from bb_block_collapse, K21 in
 2D from khi_cd2010, in 1D from sod_td_avisc's cd2010 run and in 3D from
 block_sink_parity's Boss-Bodenheimer run on the card (timed at the 64^3
-box in phase 35), K23 and K24 from dusty_evrard, each counted over its
+box in phase 35), K23 and K24 from dusty_evrard, K25 and K26 in 2D from
+khi_sm2012, in 3D from sm2012_gravity_box and in 1D from sm2012_tube's
+Sod run (float64), each counted over its
 path's timed window
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -400,6 +429,19 @@ DUST_STEPS_TIMED = 32
 # the SPH gravity gate on E = kinetic + thermal + potential, the drag's
 # heating in the thermal term
 DUST_ENERGY_DRIFT_TOL = 1e-2
+# Saitoh & Makino (2012) SPH (phases 44-49): the kernels' lattice sides
+# per ndim (4,096 and 32,768 particles), tests/test_sm2012.py's 1D gates
+# (the Sod tube 256 + 64 to t = 0.25, :45-64; the contact discontinuity,
+# :67-97), and the vertical field of tests/test_extpot.py:18-42
+SM_KERNEL_SIDES = {1: (4096, 32768), 2: (64, 181), 3: (16, 32)}
+SM_SOD = (256, 64, 0.25)
+SM_SOD_L1_GATE = 0.03
+SM_SOD_ENERGY_TOL = 1e-4
+SM_CONTACT_VMAX = 0.05
+SM_CONTACT_RATIO = 0.8
+EXTPOT_AVERT = -0.5
+EXTPOT_TOL = 1e-10
+EXTPOT_STEPS = 8
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -484,6 +526,18 @@ SOURCES = {
                        "gandalf_tpu/ops/dust.py:177"),
     "dust_drag_deposit": ("gandalf_tpu_torch/csrc/dust_drag.cu",
                           "gandalf_tpu/ops/dust.py:255"),
+    "sm2012_density": ("gandalf_tpu_torch/csrc/sm2012.cu",
+                       "gandalf_tpu/ops/sm2012.py:198"),
+    "sm2012_forces": ("gandalf_tpu_torch/csrc/sm2012.cu",
+                      "gandalf_tpu/ops/sm2012.py:228"),
+    "sm2012_density_2d": ("gandalf_tpu_torch/csrc/sm2012.cu",
+                          "gandalf_tpu/ops/sm2012.py:198"),
+    "sm2012_forces_2d": ("gandalf_tpu_torch/csrc/sm2012.cu",
+                         "gandalf_tpu/ops/sm2012.py:228"),
+    "sm2012_density_1d": ("gandalf_tpu_torch/csrc/sm2012.cu",
+                          "gandalf_tpu/ops/sm2012.py:198"),
+    "sm2012_forces_1d": ("gandalf_tpu_torch/csrc/sm2012.cu",
+                         "gandalf_tpu/ops/sm2012.py:228"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
@@ -507,6 +561,8 @@ BB_BLOCK = GRAVITY + ("star_gas_forces", "sink_candidate",
 # the kernels of a step of dusty_evrard (K1 and K2 twice a step, and once
 # more K1 for the drag's binning)
 DUST = GRAVITY + ("dust_drag_sums", "dust_drag_deposit")
+# the SM2012 kernels of a step (K25 and K26, after K1)
+SM2012 = ("sm2012_density", "sm2012_forces")
 # rates of earlier phases that later ones print beside their own
 RATES = {}
 
@@ -2304,14 +2360,15 @@ def dust_kernels(dev):
     return timed
 
 
-def _dust_pair(make, steps, tick_check=None):
-    """Two simulations from `make(device)`, on the card and on the CPU in
-    float64, stepped together `steps` times; `tick_check(a, b)` is called
-    after every step.  Returns the pair."""
+def _sim_pair(make, steps, tick_check=None):
+    """Two simulations from `make(device)` -> (simulation, IC or None),
+    on the card and on the CPU in float64, stepped together `steps`
+    times; `tick_check(a, b)` is called after every step.  Returns the
+    pair."""
     sims = []
     for device in (torch.device("cuda", 0), torch.device("cpu")):
-        sim = make(device)
-        sim.SetupSimulation()
+        sim, ic = make(device)
+        sim.SetupSimulation(ic)
         sims.append(sim)
     for _ in range(steps):
         for sim in sims:
@@ -2335,29 +2392,25 @@ def dust_parity(dev) -> None:
     t0 = time.perf_counter()
     f64 = torch.float64
     runs = (
-        ("dustybox_1d", DUST_PARITY_BOX_STEPS,
-         lambda d: GradhSphSimulation(dustybox_params(32, 1), d, f64)),
+        ("dustybox_1d", DUST_PARITY_BOX_STEPS, dustybox_params(32, 1)),
         ("dustybox_1d_mirror", DUST_PARITY_BOX_STEPS,
-         lambda d: GradhSphSimulation(dustybox_params(32, 1, mirror_dim=0),
-                                      d, f64)),
+         dustybox_params(32, 1, mirror_dim=0)),
         ("evrard_twofluid", DUST_PARITY_STEPS,
-         lambda d: GradhSphSimulation(dust_params(DUST_PARITY_EVRARD), d,
-                                      f64)),
+         dust_params(DUST_PARITY_EVRARD)),
         ("evrard_test_particle", DUST_PARITY_STEPS,
-         lambda d: GradhSphSimulation(
-             dust_params(DUST_PARITY_EVRARD, "test_particle"), d, f64)),
+         dust_params(DUST_PARITY_EVRARD, "test_particle")),
         ("evrard_block", DUST_PARITY_TICKS,
-         lambda d: GradhSphSimulation(
-             dust_params(DUST_PARITY_EVRARD, nlevels=3), d, f64)),
+         dust_params(DUST_PARITY_EVRARD, nlevels=3)),
     )
-    for name, steps, make in runs:
+    for name, steps, params in runs:
         same = [True]
 
         def levels(a, b):
             same[0] &= bool(torch.equal(a.level.cpu(), b.level))
 
-        sims = _dust_pair(make, steps,
-                          levels if name == "evrard_block" else None)
+        sims = _sim_pair(
+            lambda d: (GradhSphSimulation(params.copy(), d, f64), None),
+            steps, levels if name == "evrard_block" else None)
         fields = ("r", "v", "u", "h", "rho")
         if sims[1].self_gravity:
             fields += ("gpot",)
@@ -2549,6 +2602,328 @@ def dusty_evrard(dev, card):
     return {k: launches[k] for k in names}, {k: rep[k] for k in names}
 
 
+def sm2012_kernels(dev) -> None:
+    """Phase 44: K25 and K26 against their plain versions on the card on
+    check.sm2012_kernel_inputs (a jittered lattice with a u jump, 5%
+    dead, a coincident pair in 2 and 3 dims, a full cell, h off its
+    converged value) at two sizes in 1, 2 and 3 dims, in float64 and
+    float32, with mon97 viscosity per pair and alpha per particle
+    (mon97mm97).  One line per case; K25 and K26 are timed at the larger
+    3D size in float32 beside their bounds."""
+    from gandalf_tpu_torch.check import (bound, compare_sm2012_kernels,
+                                         sm2012_kernel_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.ops.forces import (AVISC_MON97, AVISC_MON97MM97,
+                                              ArtificialViscosity)
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for nd, sides in SM_KERNEL_SIDES.items():
+        for side in sides:
+            for dtype in (torch.float64, torch.float32):
+                s, spec = sm2012_kernel_inputs(side, nd, dev, dtype)
+                for avisc in (AVISC_MON97, AVISC_MON97MM97):
+                    timing = (nd == 3 and side == sides[-1]
+                              and dtype == torch.float32
+                              and avisc == AVISC_MON97)
+                    rep = compare_sm2012_kernels(
+                        kernel_factory("m4", nd),
+                        ArtificialViscosity(avisc=avisc), 1.4, 1.2, 0.01,
+                        spec, s, repeats=5 if timing else 0)
+                    if timing:
+                        for r in rep.values():
+                            r["bound_ms"], r["bound_by"] = bound(r["work"],
+                                                                 dtype)
+                    n_cases += 1
+                    phase("sm2012_kernels", ndim=nd, N=s.N,
+                          dtype=str(dtype), avisc=avisc, report=rep)
+                    require_ok("sm2012_kernels", rep)
+    phase("sm2012_kernels_done", cases=n_cases,
+          seconds=time.perf_counter() - t0)
+
+
+def _sm2012_report(sim, state, repeats):
+    """K25 and K26 against their plain versions at a simulation's state,
+    each with its bound in the state's dtype."""
+    from gandalf_tpu_torch.check import bound, compare_sm2012_kernels
+
+    rep = compare_sm2012_kernels(sim.kern, sim.visc, sim.gamma, sim.h_fac,
+                                 sim.h_converge, sim.gridspec, state,
+                                 repeats=repeats)
+    for r in rep.values():
+        r["bound_ms"], r["bound_by"] = bound(r["work"], state.r.dtype)
+    return rep
+
+
+def khi_sm2012(dev, card):
+    """Phase 45, the slice at full width: khi_main_path's KHI
+    (check.khi_params(KHI_SCALE), 425,984 particles, float32) through
+    SM2012SphSimulation: setup, 2 warm-up steps, 32 timed steps with the
+    counts set to 0 just before them, khi_main_path's gates, and K25 and
+    K26 (2D) against their plain versions at the path's state.  Returns
+    the launches and the kernel reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import kernel_name, khi_params, sm2012_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    sim = SimulationBase.factory(sm2012_params(khi_params(KHI_SCALE)), dev,
+                                 torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, KHI_STEPS_WARM)
+    e0 = energy(sim.state)
+    p0, _ = momentum(sim.state)
+    replans0 = sim._n_grid_overflows
+    _ext.reset_launches()
+    elapsed = run_timed(sim, KHI_STEPS_TIMED)
+    names = [kernel_name(k, sim.gridspec) for k in SM2012]
+    launches = {k: _ext.LAUNCHES[k] for k in ["grid27_bin_2d"] + names}
+    grad_h = {k: _ext.LAUNCHES[kernel_name(k, sim.gridspec)]
+              for k in HYDRO[1:]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = sim.state
+    N = s.N
+    drift = abs(energy(s) - e0) / abs(e0)
+    p1, mv = momentum(s)
+    dp = float(np.abs(p1 - p0).max()) / mv
+    rho = s.rho.double()
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow),
+        "launches": all(n >= KHI_STEPS_TIMED for n in launches.values()),
+        "no_grad_h_kernels": not any(grad_h.values()),
+        "energy_drift": drift < ENERGY_DRIFT_TOL,
+        "contrast": float(rho.min()) < 1.3 and float(rho.max()) > 1.6,
+    }
+    rep = _sm2012_report(sim, s, 5)
+    rate = N * KHI_STEPS_TIMED / elapsed
+    phase("khi_sm2012", N=N, ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, steps=sim.Nsteps,
+          timed_steps=KHI_STEPS_TIMED, setup_s=t_setup, timed_s=elapsed,
+          particle_steps_per_s=rate,
+          khi_main_path_particle_steps_per_s=RATES.get("khi_main_path"),
+          t_code=sim.t, dt_code=float(s.dt),
+          replans_in_window=sim._n_grid_overflows - replans0,
+          launches=launches, grad_h_launches=grad_h, energy_drift=drift,
+          momentum_change_over_sum_m_abs_v=dp, rho_min=float(rho.min()),
+          rho_max=float(rho.max()), checks=checks, kernels=rep, card=card,
+          peak_mem_gb=peak_gb, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"khi_sm2012 checks failed: {failed}")
+    return {k: launches[k] for k in names}, rep
+
+
+def sm2012_gravity_box(dev, card):
+    """Phase 46: the self-gravitating box of gravity_main_path
+    (make_sim(64, ..., self_gravity=1), 262,144 particles, float32)
+    through SM2012SphSimulation: setup, 2 warm-up steps, the post-warm-up
+    replan, 2 more, then 32 timed steps (the counts set to 0 just before
+    them), with the energy drift, the tree's accuracy against the direct
+    sum, the launches of K1, K25, K26 and K4-K7 each step, and K25 and
+    K26 against their plain versions at the path's state.  Returns K25's
+    and K26's launches and reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (gravity_accuracy, jittered_box_ic,
+                                         slice_params, sm2012_params)
+    from gandalf_tpu_torch.sim.simulation import SM2012SphSimulation
+
+    t_phase = time.perf_counter()
+    params = sm2012_params(slice_params(N_MAIN, self_gravity=1))
+    sim = SM2012SphSimulation(params, device=dev, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation(jittered_box_ic(params, N_MAIN))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, STEPS_WARM)
+    sim._plan_tree_buckets(sim.state.r.cpu().numpy())
+    run_timed(sim, STEPS_WARM)
+    e0 = energy(sim.state, gravity=True)
+    replans0 = sim._n_grid_overflows
+    _ext.reset_launches()
+    elapsed = run_timed(sim, GRAVITY_STEPS_TIMED)
+    names = ("grid27_bin",) + SM2012 + GRAVITY[3:]
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    grad_h = {k: _ext.LAUNCHES[k] for k in HYDRO[1:]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = sim.state
+    N = s.N
+    drift = abs(energy(s, gravity=True) - e0) / abs(e0)
+    acc = gravity_accuracy(sim, n_sample=2048)
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt",
+                                "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(n >= GRAVITY_STEPS_TIMED
+                        for n in launches.values()),
+        "no_grad_h_kernels": not any(grad_h.values()),
+        "zeta_zero": float(torch.abs(s.zeta).max()) == 0.0,
+        "accuracy": acc["rms_rel_err"] <= ACCURACY_TOL,
+        "energy_drift": drift <= GRAVITY_ENERGY_DRIFT_TOL,
+    }
+    rep = _sm2012_report(sim, s, 5)
+    phase("sm2012_gravity_box", N=N, steps=sim.Nsteps,
+          timed_steps=GRAVITY_STEPS_TIMED, setup_s=t_setup, timed_s=elapsed,
+          particle_steps_per_s=N * GRAVITY_STEPS_TIMED / elapsed,
+          replans_in_window=sim._n_grid_overflows - replans0,
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          launches=launches, grad_h_launches=grad_h, energy_drift=drift,
+          accuracy=acc, accuracy_gate=ACCURACY_TOL, checks=checks,
+          kernels=rep, card=card, peak_mem_gb=peak_gb,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"sm2012_gravity_box checks failed: {failed}")
+    return {k: launches[k] for k in SM2012}, rep
+
+
+def sm2012_tube(dev, card):
+    """Phase 47: tests/test_sm2012.py's 1D gates in float64 on the card,
+    on the grid path: the Sod tube (256 + 64, t = 0.25, the counts set to
+    0 just before its run) with L1(vx) over -1 < x < 1 below 0.03 and
+    the energy within 1e-4 of its initial value (:45-64); the static
+    contact discontinuity (32 + 128, t = 0.5) through SM2012 and through
+    grad-h SPH, SM2012's largest |v| below 0.05 and below 0.8 times
+    grad-h's (:67-97).  Then K25 and K26 (1D) against their plain
+    versions at the Sod run's end.  Returns the Sod run's launches and
+    the kernel reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (contact_params, kernel_name,
+                                         sm2012_params, sod_l1, sod_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    n1, n2, tend = SM_SOD
+    sim = SimulationBase.factory(sm2012_params(sod_params(n1, n2, tend)),
+                                 dev, torch.float64)
+    sim.SetupSimulation()
+    _ext.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.Run()
+    torch.cuda.synchronize()
+    sod_s = time.perf_counter() - t0
+    launches = {kernel_name(k, sim.gridspec):
+                _ext.LAUNCHES[kernel_name(k, sim.gridspec)] for k in SM2012}
+    l1 = sod_l1(sim)
+    e0 = 2.0 * (1.0 + 0.1975) / 0.4
+    e_err = abs(energy(sim.state) - e0) / e0
+    rep = _sm2012_report(sim, sim.state, 20)
+    sod = {"N": sim.state.N, "steps": sim.Nsteps, "t": sim.t,
+           "run_s": sod_s, "L1_vx": l1, "energy_rel_err": e_err}
+    vmax = {}
+    for name in ("sm2012sph", "gradhsph"):
+        c = SimulationBase.factory(contact_params(name), dev, torch.float64)
+        c.Run()
+        vmax[name] = float(torch.abs(c.state.v[:, 0]).max())
+    checks = {
+        "sod_l1": l1 < SM_SOD_L1_GATE and abs(sim.t - tend) < 1e-12,
+        "sod_energy": e_err <= SM_SOD_ENERGY_TOL,
+        "launches": all(n >= sim.Nsteps for n in launches.values()),
+        "contact_quiet": vmax["sm2012sph"] < SM_CONTACT_VMAX,
+        "contact_sharper_than_gradh":
+            vmax["sm2012sph"] < SM_CONTACT_RATIO * vmax["gradhsph"],
+    }
+    phase("sm2012_tube", sod=sod, contact_vmax=vmax, launches=launches,
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"sm2012_tube checks failed: {failed}")
+    return launches, rep
+
+
+def sm2012_parity(dev) -> None:
+    """Phase 48: float64, kernels on the card against the plain path on
+    the CPU, with equal grid and tree plans: 5 steps of the
+    self-gravitating box at 16^3 (the tree rebuilt every 2 steps) and 5
+    steps of the hybrid Plummer sphere with 256 gas particles and 8
+    accreting stars, both through SM2012SphSimulation, the sinks' masses
+    and the alive gas equal."""
+    from gandalf_tpu_torch.check import (jittered_box_ic,
+                                         plummer_stars_params, slice_params,
+                                         sm2012_params)
+    from gandalf_tpu_torch.sim.simulation import SM2012SphSimulation
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+
+    def box(d):
+        p = sm2012_params(slice_params(16, self_gravity=1))
+        p.set("ntreebuildstep", GRAVITY_NTB_PARITY)
+        return SM2012SphSimulation(p, d, f64), jittered_box_ic(p, 16)
+
+    def stars(d):
+        return (SM2012SphSimulation(sm2012_params(plummer_stars_params()),
+                                    d, f64), None)
+
+    for name, make in (("gravity_box", box), ("sinks", stars)):
+        sims = _sim_pair(make, PARITY_STEPS)
+        errs = parity_errors(sims, ("r", "v", "u", "h", "rho", "gpot"))
+        same = sims[0].gridspec == sims[1].gridspec and torch.equal(
+            sims[0].state.alive.cpu(), sims[1].state.alive)
+        if sims[1].has_sinks:
+            ref = sims[1].state.sinks.m
+            errs["sink_m"] = float(torch.abs(sims[0].state.sinks.m.cpu()
+                                             - ref).max() / ref.max())
+        counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
+        phase("sm2012_parity", run=name, N=sims[1].state.N,
+              steps=PARITY_STEPS, rel_err=errs,
+              tree_plans_and_replans=counts, same_plans_and_alive=same)
+        if max(errs.values()) > PARITY_TOL or counts[0] != counts[1] \
+                or not same:
+            raise RuntimeError(f"sm2012_parity {name}: kernel path "
+                               f"disagrees with the plain path: {errs}")
+    phase("sm2012_parity_done", seconds=time.perf_counter() - t0)
+
+
+def extpot_box(dev, card) -> None:
+    """Phase 49: external potentials in the hydro controllers on the card
+    (float64): the vertical-potential box of tests/test_extpot.py:18-42
+    on the grid path (a 6^3 lattice; every particle's a_z is avert to
+    1e-10, its other components 0), and 8 steps of the hybrid Plummer
+    sphere with stars in a Plummer field, held against the plain path on
+    the CPU (PARITY_TOL, the sinks' masses included)."""
+    from gandalf_tpu_torch.check import (extpot_box_params,
+                                         plummer_stars_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    sim = GradhSphSimulation(extpot_box_params("vertical", EXTPOT_AVERT),
+                             dev, torch.float64)
+    sim.SetupSimulation()
+    a = sim.state.a
+    err_z = float(torch.abs(a[:, 2] - EXTPOT_AVERT).max())
+    err_xy = float(torch.abs(a[:, :2]).max())
+    sims = _sim_pair(lambda d: (GradhSphSimulation(
+        plummer_stars_params(extpot="plummer"), d, torch.float64), None),
+        EXTPOT_STEPS)
+    errs = parity_errors(sims, ("r", "v", "a", "u", "h", "rho", "gpot"))
+    ref = sims[1].state.sinks.m
+    errs["sink_m"] = float(torch.abs(sims[0].state.sinks.m.cpu() - ref).max()
+                           / ref.max())
+    checks = {"vertical_az": err_z <= EXTPOT_TOL and err_xy <= EXTPOT_TOL,
+              "plummer_parity": max(errs.values()) <= PARITY_TOL}
+    phase("extpot_box", N=sim.state.N, az_err=err_z, axy_max=err_xy,
+          plummer_steps=EXTPOT_STEPS, plummer_rel_err=errs, checks=checks,
+          card=card, seconds=time.perf_counter() - t0)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"extpot_box checks failed: {failed}")
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -2602,7 +2977,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "ptxas.txt").write_text(_ext.ptxas_report())
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
-          library=so.name, kernels="K1-K24", sources=list(_ext._UNITS),
+          library=so.name, kernels="K1-K26", sources=list(_ext._UNITS),
           ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
@@ -2837,6 +3212,15 @@ def main() -> int:
     d_launches, d_rep = dusty_evrard(dev, card)
     launches.update(d_launches)
     rep.update(d_rep)
+
+    # 44-49. Saitoh & Makino (2012) SPH and the external potentials
+    sm2012_kernels(dev)
+    for path in (khi_sm2012, sm2012_gravity_box, sm2012_tube):
+        m_launches, m_rep = path(dev, card)
+        launches.update(m_launches)
+        rep.update(m_rep)
+    sm2012_parity(dev)
+    extpot_box(dev, card)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K24 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K26 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -28,9 +28,12 @@ K19, the mirror images, under ``grid27_mirror``.  K20's two wrappers
 (the smooth-accretion sums and the sink update) each count one under
 ``smooth_accretion``; K21, the Cullen & Dehnen switch, counts under
 ``cullen_dehnen`` (``_1d`` or ``_2d`` appended below 3D), K22, the
-neighbour-level pass, under ``levelneib``, and K23 and K24, the gas-dust
+neighbour-level pass, under ``levelneib``, K23 and K24, the gas-dust
 drag sums and energy deposit, under ``dust_drag_sums`` and
-``dust_drag_deposit`` in every ndim.
+``dust_drag_deposit`` in every ndim, and K25 and K26, the Saitoh &
+Makino (2012) h-rho iteration with its q sum and the pressure-energy
+forces, under ``sm2012_density`` and ``sm2012_forces`` (``_1d`` or
+``_2d`` appended below 3D).
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
           "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu",
           "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
-          "grid27_levelneib.cu", "dust_drag.cu")
+          "grid27_levelneib.cu", "dust_drag.cu", "sm2012.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -76,7 +79,10 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "star_gas_forces": 0, "sink_candidate": 0, "accretion_sums": 0,
             "smooth_accretion": 0, "cullen_dehnen": 0,
             "cullen_dehnen_2d": 0, "cullen_dehnen_1d": 0, "levelneib": 0,
-            "dust_drag_sums": 0, "dust_drag_deposit": 0}
+            "dust_drag_sums": 0, "dust_drag_deposit": 0,
+            "sm2012_density": 0, "sm2012_density_2d": 0,
+            "sm2012_density_1d": 0, "sm2012_forces": 0,
+            "sm2012_forces_2d": 0, "sm2012_forces_1d": 0}
 
 _lib = None
 
@@ -134,6 +140,11 @@ _ARGTYPES = {
                        _P, _P, _I, _P],
     "dust_drag_deposit": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _D, _D, _D, _D, _D, _P, _I, _P],
+    "sm2012_density": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _P, _I,
+                       _P],
+    "sm2012_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
+                      _D, _D, _D, _D, _I, _D, _D, _P, _P, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -1062,3 +1073,56 @@ def dust_drag_deposit(spec, kern, ids_d, n_targets, r, sc, ptype, payload,
             _p(sc), _p(ptype), _p(payload), _p(dek), *_grid_args_nd(spec),
             float(kern.kernnorm), float(kern.kernnormdrag), _p(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Saitoh & Makino (2012) SPH, K25 and K26 (ops/sm2012.py)
+# ---------------------------------------------------------------------------
+
+def _slot_map_nd(spec, ids_d, r):
+    """(N, ndim) after checking K1's slot map and r on spec's dims."""
+    N, nd = r.shape
+    if nd != spec.ndim:
+        raise ValueError(f"r: expected {spec.ndim} dims, got {nd}")
+    _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
+    _check(r, "r", r.dtype, (N, nd))
+    return N, nd
+
+
+def sm2012_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, u, h):
+    """K25 over K1's slot map ids_d (*ncells, K) int32 (-1 empty): h, rho,
+    q, hfactor (N,) and the converged flag (N,) bool of every particle
+    with a slot; a particle without one keeps its h and takes rho = q =
+    hfactor = 0, converged."""
+    N, _ = _slot_map_nd(spec, ids_d, r)
+    dt, dev = r.dtype, r.device
+    for name, x in (("m", m), ("u", u), ("h", h)):
+        _check(x, name, dt, (N,))
+    h_out = h.clone()
+    rho, q, hfac = (torch.zeros((N,), dtype=dt, device=dev)
+                    for _ in range(3))
+    done = torch.ones((N,), dtype=torch.bool, device=dev)
+    _launch("sm2012_density", dt, dev, _p(ids_d), _p(r), _p(m), _p(u),
+            _p(h), *_grid_args_nd(spec), float(kern.kernnorm), float(h_fac),
+            float(h_converge), float(hmax), _p(h_out), _p(rho), _p(q),
+            _p(hfac), _p(done), count=_grid_count("sm2012_density", spec))
+    return h_out, rho, q, hfac, done
+
+
+def sm2012_forces(spec, kern, visc, gamma, ids_d, r, v, packed):
+    """K26 over K1's slot map ids_d: a (N, ndim), du/dt and div v (N,) of
+    every particle with a slot (zero for the others).  `packed` (N, 8)
+    holds ops.sm2012.SM_SCALARS per particle."""
+    N, nd = _slot_map_nd(spec, ids_d, r)
+    dt, dev = r.dtype, r.device
+    _check(v, "v", dt, (N, nd))
+    _check(packed, "packed", dt, (N, 8))
+    a = torch.zeros((N, nd), dtype=dt, device=dev)
+    dudt = torch.zeros((N,), dtype=dt, device=dev)
+    div_v = torch.zeros((N,), dtype=dt, device=dev)
+    _launch("sm2012_forces", dt, dev, _p(ids_d), _p(r), _p(v), _p(packed),
+            *_grid_args_nd(spec), float(kern.kernnorm), float(gamma),
+            int(visc.avisc), float(visc.alpha_visc), float(visc.beta_visc),
+            _p(a), _p(dudt), _p(div_v),
+            count=_grid_count("sm2012_forces", spec))
+    return a, dudt, div_v

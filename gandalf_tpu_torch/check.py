@@ -47,6 +47,12 @@ and K2/K3 on the mirror path's extended set with their plain versions.
 ``compare_dust_kernels`` compares K23 and K24 with their plain versions
 on ``dust_kernel_inputs`` (synthetic, with the edge cases) or a
 simulation's state, and ``dust_energy`` is a dust run's total energy.
+``sm2012_params`` runs a configuration through SM2012SphSimulation,
+``contact_params`` is the contact discontinuity of the JAX package's
+SM2012 tests, ``plummer_stars_params`` the hybrid Plummer sphere with
+accreting stars, ``extpot_box_params`` the external-potential box, and ``compare_sm2012_kernels`` compares K25 and K26 with
+their plain versions on ``sm2012_kernel_inputs`` (synthetic, with the
+edge cases) or a simulation's state.
 ``chip_smoke.py`` and the CUDA tests use them.
 """
 
@@ -163,6 +169,18 @@ TOL_F32_ACCRETION = 1e-5
 # dust's sound speed, |dv|) and norm (a sum of positive terms) stay far
 # inside the same bound.
 TOL_F32_DRAG = 1e-3
+# K25 in float32: the h-rho iteration of K2 and K8 with one more sweep,
+# the q sum at the final h, so the same rule as K2 holds h, rho, q and
+# hfactor (a particle on the convergence test may take one fixed-point
+# step more or less, moving h by less than h_converge and rho and q by
+# less than ndim times that).  K26 in float32 (the same packed inputs on
+# both sides): a particle's force sums ~30-60 pair terms (the
+# pressure-energy term and the viscosity) that cancel to a net one to
+# two orders smaller where the medium is smooth; where u jumps, as at
+# the KHI's interface, 1/q_i + 1/q_j sums two terms of different size,
+# and the rounding of each term (6e-8) shows at ~1e-5 of the largest net
+# value: 1e-3 of each output's largest value, as K3 on a quiet lattice.
+TOL_F32_SM2012_FORCES = 1e-3
 
 # The least time the card could take for a kernel's work (its bound):
 # the larger of the bytes it must move (each input read once, each output
@@ -208,7 +226,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # Lambda with one exp, S: 50; the unit vector, da, dv.r and da.r and
 # the acceleration: 9 a dim); K24 per dust candidate of a gas
 # target (d^2 and the support test: 2 plus 3 a dim) and per pair inside
-# the support (the kernel and the payload's product, 14).
+# the support (the kernel and the payload's product, 14).  K25 per
+# candidate visited in a sweep (the separation and d^2, 4 a dim; s and
+# the support test, 3), two sweeps (one of the iteration, the least the
+# data needs, and the q sweep), and per pair inside kernrange h_i the
+# kernel and the sum, 12 in the rho sweep and 13 in the q sweep.  K26
+# per candidate visited (d^2, 4 a dim, and the d^2 > 0 test) and per
+# pair inside kernrange max(h_i, h_j): the two kernel derivatives, the
+# pressure-energy term, du/dt and div v (38), the unit vector, dv.r and
+# the acceleration (6 a dim), and for an approaching pair the viscosity
+# (22).
 FLOPS_PER = {
     "grid27_bin": 15, "grid27_density": 40, "grid27_forces": 80,
     "grid27_bin_2d": 10, "grid27_density_2d": 36, "grid27_forces_2d": 71,
@@ -228,6 +255,10 @@ FLOPS_PER = {
     "dust_drag_cross": 8, "dust_drag_cross_dim": 10,
     "dust_drag_pair": 50, "dust_drag_pair_dim": 9,
     "dust_drag_deposit_pair": 14, "dust_drag_deposit_cand": 2,
+    "sm2012_density_cand": 3, "sm2012_density_cand_dim": 4,
+    "sm2012_density_pair": 25, "sm2012_forces_cand": 1,
+    "sm2012_forces_cand_dim": 4, "sm2012_forces_pair": 38,
+    "sm2012_forces_pair_dim": 6, "sm2012_forces_approach": 22,
 }
 
 
@@ -423,6 +454,47 @@ def plummer_block_params(n_gas: int = 512, n_star: int = 16,
                      time_dependent_avisc="mm97", tsnapfirst=1e30,
                      tend=1e30).items():
         p.set(k, v)
+    return p
+
+
+def plummer_stars_params(n_gas: int = 256, n_star: int = 8,
+                         extpot: str = "none") -> Parameters:
+    """The hybrid Plummer sphere of tests/test_torch_sink_sim.py with a
+    global timestep: n_gas gas and n_star accreting stars (create_sinks =
+    0), half the mass each, on the grid path with tree gravity,
+    dimensionless, energy_eqn, in the external field `extpot` (plummer:
+    mplummer 2, rplummer 0.5)."""
+    p = Parameters()
+    for k, v in dict(run_id="", sim="sph", ndim=3, ic="plummer",
+                     Nhydro=n_gas, Nstar=n_star, gasfrac=0.5, starfrac=0.5,
+                     self_gravity=1, hydro_forces=1, dimensionless=1,
+                     gas_eos="energy_eqn", neib_search="kdtree",
+                     sink_particles=1, create_sinks=0, tsnapfirst=1e30,
+                     tend=1e30, external_potential=extpot, mplummer=2.0,
+                     rplummer=0.5).items():
+        p.set(k, v)
+    return p
+
+
+def extpot_box_params(extpot: str, avert: float = -0.5) -> Parameters:
+    """The uniform periodic box of tests/test_extpot.py:18-42 (a 6^3
+    lattice in the unit box, energy_eqn gamma 1.4, rho 1, p 1) on the grid
+    path (neib_search = kdtree) in the external field `extpot`: vertical
+    along z with `avert`, or plummer (mplummer 1, rplummer 0.5)."""
+    p = Parameters()
+    for k, v in {"run_id": "", "sim": "gradhsph", "ic": "box", "ndim": 3,
+                 "dimensionless": 1, "gas_eos": "energy_eqn",
+                 "gamma_eos": 1.4, "rhofluid1": 1.0, "press1": 1.0,
+                 "tend": 1e30, "tsnapfirst": 1e30,
+                 "external_potential": extpot, "kgrav": 2, "avert": avert,
+                 "mplummer": 1.0, "rplummer": 0.5,
+                 "neib_search": "kdtree"}.items():
+        p.set(k, v)
+    for k in range(3):
+        for key, val in (("boxmin", 0.0), ("boxmax", 1.0),
+                         ("boundary_lhs", "periodic"),
+                         ("boundary_rhs", "periodic"), ("Nlattice1", 6)):
+            p.set(f"{key}[{k}]", val)
     return p
 
 
@@ -2484,3 +2556,203 @@ def total_mass(sim) -> float:
         st = s.sinks
         mass += torch.where(st.active, st.m, 0.0).cpu().double().sum().item()
     return mass
+
+
+# ---------------------------------------------------------------------------
+# Saitoh & Makino (2012) SPH: K25 and K26
+# ---------------------------------------------------------------------------
+
+def sm2012_params(params: Parameters) -> Parameters:
+    """`params` run through SM2012SphSimulation (sim = sm2012sph)."""
+    p = params.copy()
+    p.set("sim", "sm2012sph")
+    return p
+
+
+def contact_params(sim: str = "sm2012sph", tend: float = 0.5) -> Parameters:
+    """The static contact discontinuity of tests/test_sm2012.py:67-97 on
+    the grid path (neib_search = kdtree): 1D, box [-1, 1] periodic, 32 +
+    128 lattice particles at rho 1 | 4 and p 1, energy_eqn gamma 1.4,
+    mon97 (alpha 1, beta 2), to `tend`, through `sim`."""
+    p = Parameters()
+    for k, v in {
+            "run_id": "", "ndim": 1, "sim": sim, "ic": "cdiscontinuity",
+            "dimensionless": 1, "rhofluid1": 1.0, "rhofluid2": 4.0,
+            "press1": 1.0, "Nlattice1[0]": 32, "Nlattice2[0]": 128,
+            "boxmin[0]": -1.0, "boxmax[0]": 1.0,
+            "boundary_lhs[0]": "periodic", "boundary_rhs[0]": "periodic",
+            "gas_eos": "energy_eqn", "gamma_eos": 1.4, "hydro_forces": 1,
+            "neib_search": "kdtree", "avisc": "mon97", "alpha_visc": 1.0,
+            "beta_visc": 2.0, "tend": tend, "tsnapfirst": 1.0e30,
+            "dt_snap": 1.0e30}.items():
+        p.set(k, v)
+    return p
+
+
+def sm2012_kernel_inputs(n_side: int, ndim: int, device, dtype,
+                         seed: int = 5):
+    """A synthetic state for K25 and K26 in the periodic unit box of
+    `ndim` dims: an n_side^ndim lattice jittered by 0.3 spacings N(0, 1)
+    (0.1 in 1D) with a coincident pair (particles 0 and 1; in 2 and 3
+    dims only: in 1D, where h_fac 1.2 leaves a particle about 2.4
+    neighbours, such a pair's h-rho fixed point collapses to h = 0, and
+    the smaller jitter keeps float32 from rounding neighbours onto each
+    other), v ~ N(0, 0.1), m = 1/N
+    with 5% of the particles dead (FLAG_DEAD, zero mass), u uniform in
+    [0.5, 1.5] and twice that where x_0 < 0.5 (a jump like the KHI's
+    interface), alpha in [0.1, 1], h within [0.7, 1.4] of 1.2 times the
+    spacing, so that the iteration moves it.  The plan is for 1.3 times
+    the largest h, as the controllers plan it, and its K is the fullest
+    cell's occupancy, so that some cell is full and its sweep meets no
+    empty slot.  Returns (state, grid plan)."""
+    from .state import FLAG_DEAD, PERIODIC, make_sph_state
+
+    rng = np.random.default_rng(seed)
+    n = n_side ** ndim
+    dx = 1.0 / n_side
+    grid = np.stack(np.meshgrid(*[(np.arange(n_side) + 0.5) * dx] * ndim,
+                                indexing="ij"), -1).reshape(n, ndim)
+    jitter = 0.3 if ndim > 1 else 0.1
+    r = np.mod(grid + jitter * dx * rng.standard_normal((n, ndim)), 1.0)
+    if ndim > 1:
+        r[1] = r[0]
+    u = rng.uniform(0.5, 1.5, n) * np.where(r[:, 0] < 0.5, 2.0, 1.0)
+    h = 1.2 * dx * rng.uniform(0.7, 1.4, n)
+    dead = rng.random(n) < 0.05
+    dead[:2] = False
+    m = np.where(dead, 0.0, 1.0 / n)
+    s = make_sph_state(r, rng.normal(0, 0.1, (n, ndim)), m, h, u,
+                       device=device, dtype=dtype)
+    s = s.replace(
+        alpha=torch.as_tensor(rng.uniform(0.1, 1.0, n), dtype=dtype,
+                              device=device),
+        flags=torch.as_tensor(np.where(dead, FLAG_DEAD, 0),
+                              dtype=torch.int32, device=device))
+    box = DomainBox(ndim, (0.0,) * ndim, (1.0,) * ndim, (PERIODIC,) * ndim,
+                    (PERIODIC,) * ndim)
+    spec = g27.plan_grid27(box, r[~dead], 1.3 * float(h.max()), 2.0)
+    b = g27.bin_particles_plain(spec, torch.as_tensor(r[~dead]))
+    k_full = int(torch.bincount(b.cell_of.long()).max())
+    return s, dataclasses.replace(spec, k_cell=k_full)
+
+
+def _sm2012_work(spec, kern, ids_d, r, v, h):
+    """(K25's, K26's) operations on this data, and the counts behind
+    them: the candidates each slotted particle visits (the filled slots
+    of its 3^ndim cells, itself included), its pairs within kernrange h_i
+    (itself included) and within kernrange max(h_i, h_j) (d^2 > 0), and
+    those of the latter that approach."""
+    nd, K = spec.ndim, spec.k_cell
+    nb, _, ok = g27._neighbour_table(spec, r.device)
+    filled = (ids_d.reshape(-1, K) >= 0).sum(1)
+    n_cand = int((filled * (filled[nb] * ok).sum(1)).sum())
+    ids = ids_d.reshape(-1).long()
+    ids = ids[ids >= 0]
+    cut2 = (kern.kernrange * float(h[ids].max())) ** 2 * (1.0 + 1e-6)
+    row, col, dx, d2 = mg.slot_pairs(spec, ids_d, r, cut2, True)
+    n_i, n_ij = _support_counts(row, col, d2, h, kern.kernrange)
+    rad = kern.kernrange * torch.maximum(h[row], h[col])
+    dvdr = torch.sum((v[col] - v[row]) * dx, dim=-1)
+    n_app = int(((d2 < rad * rad) & (dvdr < 0.0)).sum())
+    f = FLOPS_PER
+    ops25 = (2 * n_cand * (f["sm2012_density_cand"]
+                           + f["sm2012_density_cand_dim"] * nd)
+             + (n_i + ids.numel()) * f["sm2012_density_pair"])
+    ops26 = (n_cand * (f["sm2012_forces_cand"]
+                       + f["sm2012_forces_cand_dim"] * nd)
+             + n_ij * (f["sm2012_forces_pair"]
+                       + f["sm2012_forces_pair_dim"] * nd)
+             + n_app * f["sm2012_forces_approach"])
+    return ops25, ops26, {"candidates": n_cand,
+                          "pairs_within_h_i": n_i + ids.numel(),
+                          "pairs_within_max_h": n_ij,
+                          "approaching_pairs": n_app}
+
+
+def compare_sm2012_kernels(kern, visc, gamma, h_fac, h_converge, spec,
+                           state, repeats: int = 0):
+    """Run K25 and K26 and their plain versions on the same CUDA tensors:
+    K1's slot map of the alive particles of `state` (the dead binned
+    out), K25 from the state's h, and K26 on the packed fields that the
+    plain K25's outputs give (so that both see the same inputs).  Returns
+    {kernel: report} keyed by kernel_name.  float64: h, rho, q and
+    hfactor each within 1e-10 relative with the same converged flags, and
+    a, du/dt and div v within 1e-10 of their largest value; float32:
+    TOL_F32_DENSITY_* and TOL_F32_SM2012_FORCES.  With `repeats`, both
+    kernels are timed plain, kernel, kernel, plain; library_ms is null
+    (no one PyTorch call computes either).  Launch counts are restored
+    afterwards."""
+    from .ops import sm2012 as sm
+
+    saved = dict(_ext.LAUNCHES)
+    f64 = state.r.dtype == torch.float64
+    k25, k26 = (kernel_name(n, spec) for n in ("sm2012_density",
+                                                "sm2012_forces"))
+    s, alive = state, state.alive
+    ids_d = ag.dense_ids(spec, g27.bin_particles(spec, s.r,
+                                                 discard=~alive))
+    flat = ids_d.reshape(-1)
+    rows = torch.zeros_like(alive)
+    rows[flat[flat >= 0].long()] = True
+    hmax = g27.hmax_of(spec, kern.kernrange)
+    d_args = (spec, kern, h_fac, h_converge, hmax, ids_d, s.r, s.m, s.u,
+              s.h)
+    dp_args = (kern, spec, h_fac, h_converge, hmax, ids_d, s.r, s.m, s.u,
+               s.h)
+    got = _ext.sm2012_density(*d_args)
+    want = sm.sm2012_density_plain(*dp_args)
+    errs = {k: _rel(x, y, rows) for k, x, y in
+            zip(("h", "rho", "q", "hfactor"), got, want)}
+    same_done = bool(torch.equal(got[4][rows], want[4][rows]))
+    rep = {"N": s.N, "ndim": spec.ndim, "k_cell": spec.k_cell,
+           "ncells": list(spec.ncells), "dtype": str(s.r.dtype),
+           "rel_err": errs, "same_converged": same_done,
+           "converged": bool(want[4][rows].all()),
+           "max_abs_err": float(torch.abs(got[1] - want[1])[rows].max())}
+    if f64:
+        rep["ok"] = same_done and max(errs.values()) <= TOL_F64
+    else:
+        beyond = max(float((torch.abs(x / y - 1.0)[rows]
+                            > TOL_F32_DENSITY_TYPICAL).float().mean())
+                     for x, y in zip(got[1:3], want[1:3]))
+        rep["fraction_beyond_typical"] = beyond
+        rep["ok"] = (max(errs.values()) <= TOL_F32_DENSITY_MAX
+                     and beyond <= TOL_F32_DENSITY_FRACTION)
+    h, rho, q, hfac, _ = want
+
+    def live(x, d):
+        return torch.where(alive, x, d)
+
+    sound = torch.sqrt(gamma * (gamma - 1.0) * torch.clamp_min(s.u, 1e-30))
+    packed = torch.stack([s.m, s.u, live(h, 1.0), live(rho, 1.0),
+                          live(q, 1.0), live(hfac, 0.0), live(sound, 0.0),
+                          s.alpha], dim=-1)
+    f_args = (spec, kern, visc, gamma, ids_d, s.r, s.v, packed)
+    fp_args = (kern, visc, gamma, spec, ids_d, s.r, s.v, packed)
+    got_f = _ext.sm2012_forces(*f_args)
+    want_f = sm.sm2012_forces_plain(*fp_args)
+    errs_f = {k: _scaled_all(x, y, rows if x.dim() == 1
+                             else rows[:, None].expand_as(x))
+              for k, x, y in zip(("a", "dudt", "div_v"), got_f, want_f)}
+    out = {k25: rep, k26: {
+        "N": s.N, "ndim": spec.ndim, "k_cell": spec.k_cell,
+        "dtype": str(s.r.dtype), "scaled_err": errs_f,
+        "max_abs_err": float(torch.abs(got_f[0] - want_f[0])[rows].max()),
+        "ok": max(errs_f.values()) <= (TOL_F64 if f64
+                                       else TOL_F32_SM2012_FORCES)}}
+    ops25, ops26, counts = _sm2012_work(spec, kern, ids_d, s.r, s.v,
+                                        live(h, 1.0))
+    rep.update(counts)
+    rep["work"] = _work((ids_d, s.r, s.m, s.u, s.h), got, ops25)
+    out[k26]["work"] = _work((ids_d, s.r, s.v, packed), got_f, ops26)
+    if repeats > 0:
+        _time_pairs(out, {
+            k25: (lambda: _ext.sm2012_density(*d_args),
+                  lambda: sm.sm2012_density_plain(*dp_args)),
+            k26: (lambda: _ext.sm2012_forces(*f_args),
+                  lambda: sm.sm2012_forces_plain(*fp_args))}, repeats)
+    for r in out.values():
+        r["library_ms"] = None
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out

@@ -82,18 +82,20 @@ def _compact_columns(keep: Tensor, *xs: Tensor):
 
 def gather_active_candidates(spec: g27.Grid27Spec, cell_of: Tensor,
                              ids_d: Tensor, r: Tensor, idx: Tensor):
-    """The 27K candidates of each listed particle: ids (n, 27K) int64
-    (-1 invalid) and dr = r_cand - r_i (n, 27K, 3) with periodic shifts
-    applied.  The particle itself is among its candidates."""
-    K = spec.k_cell
+    """The S K candidates of each listed particle, S = 3^ndim: ids
+    (n, S K) int64 (-1 invalid) and dr = r_cand - r_i (n, S K, ndim)
+    with periodic shifts applied.  The particle itself is among its
+    candidates."""
+    K, nd = spec.k_cell, spec.ndim
+    S = 3 ** nd
     nb, off, ok = g27._neighbour_table(spec, r.device)
     il = idx.long()
     c = cell_of[il].long()
-    cand = ids_d.reshape(-1, K)[nb[c]].long()              # (n, 27, K)
+    cand = ids_d.reshape(-1, K)[nb[c]].long()              # (n, S, K)
     cand = torch.where(ok[c][..., None], cand, -1).reshape(il.numel(), -1)
-    shift = off[c].to(r.dtype)                              # (n, 27, 3)
-    r_c = r[torch.clamp_min(cand, 0)].reshape(il.numel(), 27, K, 3)
-    dr = ((r_c + shift[:, :, None, :]).reshape(il.numel(), 27 * K, 3)
+    shift = off[c].to(r.dtype)                              # (n, S, nd)
+    r_c = r[torch.clamp_min(cand, 0)].reshape(il.numel(), S, K, nd)
+    dr = ((r_c + shift[:, :, None, :]).reshape(il.numel(), S * K, nd)
           - r[il][:, None, :])
     return cand, dr
 

@@ -53,15 +53,17 @@ def _density_sums(kern, ndim: int, h: Tensor, drsqd: Tensor, m_j: Tensor,
 
 def iterate_h(kern, ndim: int, h_fac: float, h_converge: float, m: Tensor,
               h_init: Tensor, drsqd: Tensor, m_j: Tensor,
-              mask: Optional[Tensor], hmax: float):
+              mask: Optional[Tensor], hmax: float,
+              active: Optional[Tensor] = None):
     """The lockstep h-rho iteration: (rho, invom, zeta) sums at each
     row's final h, its converged flag, and the largest h at which any
-    row's sums were taken."""
+    row's sums were taken.  Rows outside `active` start done."""
     invndim = 1.0 / ndim
     h = h_init
     lo = torch.zeros_like(h)
     hi = torch.full_like(h, hmax)
-    done = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+    done = (torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+            if active is None else ~active)
     rho = invom = zeta = torch.zeros_like(h)
     h_peak = torch.zeros((), dtype=h.dtype, device=h.device)
     it = 0
@@ -99,9 +101,11 @@ def finish_h(ndim: int, h_fac: float, m: Tensor, rho: Tensor,
 def compute_h(kern, ndim: int, h_fac: float, h_converge: float, m: Tensor,
               h_init: Tensor, drsqd: Tensor, m_j: Tensor,
               mask: Optional[Tensor] = None,
-              hmax: float = 1.0e30) -> DensityResult:
+              hmax: float = 1.0e30,
+              active: Optional[Tensor] = None) -> DensityResult:
     """Converge h and return the density sums (batch ComputeH): m,
-    h_init (n,); drsqd, m_j, mask (n, K)."""
+    h_init (n,); drsqd, m_j, mask (n, K); rows outside `active` (n,)
+    start done."""
     sums = iterate_h(kern, ndim, h_fac, h_converge, m, h_init, drsqd, m_j,
-                     mask, hmax)
+                     mask, hmax, active)
     return finish_h(ndim, h_fac, m, *sums[:4])

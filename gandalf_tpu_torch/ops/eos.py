@@ -6,7 +6,8 @@ Counterpart of ``gandalf_tpu/ops/eos.py`` (``EOS``, ``Adiabatic``,
 EOS of the ported slices, elementwise torch.  Pressure is (gamma-1)*rho*u
 (K*rho^eta for the polytrope); the adiabatic sound speed is
 sqrt(gamma*(gamma-1)*u), the others' sqrt((gamma-1)*u).  The locally
-isothermal family (it reads the star positions), radws and the radiation
+isothermal family (it reads the star positions, which the JAX package's
+grid passes do not give its EOS: fault F20), radws and the radiation
 wrappers raise NotImplementedError naming their ROADMAP item.
 """
 
@@ -123,5 +124,14 @@ def eos_factory(params) -> EOS:
     if name == "polytropic":
         return Polytropic(gamma=gamma, mu_bar=mu_bar, Kpoly=fp["Kpoly"],
                           eta=fp["eta_eos"])
+    if name in ("locally_isothermal", "local_isothermal",
+                "disc_locally_isothermal"):
+        # their temperature reads the particle positions, which the JAX
+        # package's grid passes do not hand to thermal_update
+        # (gandalf_tpu/ops/sph_grid27.py:777-778, :836; ops/eos.py:143-145)
+        raise NotImplementedError(
+            f"gas_eos {name!r} is not ported yet: the JAX package runs the "
+            "locally isothermal family only on its all-pairs path (fault "
+            "F20; ROADMAP queue 1, item 9)")
     raise NotImplementedError(
         f"gas_eos {name!r} is not ported yet (ROADMAP queue 1, item 9)")

@@ -180,6 +180,9 @@ def direct_snap(r: Tensor, v: Tensor, a: Tensor, m: Tensor) -> Tensor:
     return direct_snap_plain(r, v, a, m)
 
 
+EXTERNAL_POTENTIALS = ("none", "silcc", "plummer", "vertical")
+
+
 def external_potential(name: str, cfg: dict, r: Tensor, v: Tensor):
     """External analytic potentials: (accel, jerk, potential) as the
     reference's AddExternalPotential adds them (ExternalPotential.h:45-173,

@@ -12,6 +12,7 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --block-sinks
     python -m gandalf_tpu_torch.profile_step --cd2010
     python -m gandalf_tpu_torch.profile_step --dust [--dust-case C]
+    python -m gandalf_tpu_torch.profile_step --sm2012 [--khi]
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -44,12 +45,15 @@ with time_dependent_avisc = cd2010 (K21 once a step), as --khi.  With
 --dust: the dusty Evrard collapse (check.dust_params at Nhydro 131,072,
 about 262,144 gas and dust particles, two-fluid Epstein drag, tree
 gravity) in float32, as the SPH box; --dust-case box takes the 3D dusty
-box at 64^3 gas + 64^3 dust (check.dustybox_params) instead.
+box at 64^3 gas + 64^3 dust (check.dustybox_params) instead.  With
+--sm2012: the SPH box (self-gravitating unless --self-gravity 0), or
+with --khi the KHI, through SM2012SphSimulation (K25, K26 in place of
+K2, K3).
 Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
 the device time summed over kernels and copies, the device's idle share
-of the window, the device time of each of K1-K24 and of the torch glue
+of the window, the device time of each of K1-K26 and of the torch glue
 between them, and the device time per kernel name (largest first); with
 --block also the active rows per tick.  Refuses to run without CUDA.
 """
@@ -68,7 +72,7 @@ N_SIDE = 64
 STEPS = 8
 BLOCK_N = 262144
 BLOCK_WARM = 4
-# device kernel names of K1-K24 (csrc/); every other device event is glue
+# device kernel names of K1-K26 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -99,6 +103,8 @@ FAMILIES = {
     "K22 levelneib": ("levelneib_kernel",),
     "K23 dust_drag_sums": ("dust_sums_kernel",),
     "K24 dust_drag_deposit": ("dust_deposit_kernel",),
+    "K25 sm2012_density": ("sm2012_density_kernel",),
+    "K26 sm2012_forces": ("sm2012_forces_kernel",),
 }
 DUST_NHYDRO = 131072
 NBODY_N = 65536
@@ -176,6 +182,7 @@ def _profile_window(sim, args, before: int) -> int:
             "block_sinks": args.block_sinks, "cd2010": args.cd2010,
             "mirror": args.layout if args.mirror else None,
             "dust": args.dust_case if args.dust else None,
+            "sm2012": args.sm2012,
             "ndim": sim.ndim,
             "sinks_active": (int(sim.state.sinks.active.sum())
                              if getattr(sim, "has_sinks", False) else 0),
@@ -234,6 +241,9 @@ def main(argv=None) -> int:
                     help="the dusty Evrard collapse (dusty_evrard)")
     ap.add_argument("--dust-case", default="evrard",
                     choices=("evrard", "box"))
+    ap.add_argument("--sm2012", action="store_true",
+                    help="the SPH box, or with --khi the KHI, through "
+                         "SM2012SphSimulation")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
@@ -242,7 +252,7 @@ def main(argv=None) -> int:
                         jeans_params,
                         jittered_box_ic, khi_params, mfv_params, mirror_ic,
                         mirror_params, nbody_params, slice_params,
-                        sphere_block_params)
+                        sm2012_params, sphere_block_params)
     from .sim.simulation import GradhSphSimulation, SimulationBase
 
     if args.nbody:
@@ -273,8 +283,9 @@ def main(argv=None) -> int:
         params = khi_params()
         if args.cd2010:
             params.set("time_dependent_avisc", "cd2010")
-        sim = GradhSphSimulation(params, device="cuda",
-                                 dtype=torch.float32)
+        if args.sm2012:
+            params = sm2012_params(params)
+        sim = SimulationBase.factory(params, "cuda", torch.float32)
         sim.SetupSimulation()
         warm = 2
     elif args.mirror:
@@ -300,7 +311,9 @@ def main(argv=None) -> int:
         warm = BLOCK_WARM
     else:
         params = slice_params(N_SIDE, self_gravity=args.self_gravity)
-        sim = GradhSphSimulation(params, device="cuda", dtype=torch.float32)
+        if args.sm2012:
+            params = sm2012_params(params)
+        sim = SimulationBase.factory(params, "cuda", torch.float32)
         sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
         warm = 2
     done = 0

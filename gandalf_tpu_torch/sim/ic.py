@@ -2,7 +2,8 @@
 
 A copy of the generators of ``gandalf_tpu/sim/ic.py`` that the port's
 slices use: the hydro tests of GANDALF's examples and regression suite
-(``shocktube`` and ``soundwave`` in 1D, ``khi`` in 2D, ``sedov`` and
+(``shocktube``, ``cdiscontinuity`` and ``soundwave`` in 1D, ``khi`` in
+2D, ``sedov`` and
 ``noh`` in any dimension), the uniform box (``ic = box``) on a cubic
 lattice, the uniform sphere (``ic = sphere``), lattice or random
 (numpy's generator,
@@ -120,6 +121,16 @@ def shocktube_ic(params, eos) -> Dict[str, np.ndarray]:
     rho = np.concatenate([np.full(N1, rho1), np.full(N2, rho2)])
     h = h_fac * (m / rho) ** (1.0 / ndim)
     return {"r": r, "v": v, "m": m, "h": h, "u": u}
+
+
+def cdiscontinuity_ic(params, eos) -> Dict[str, np.ndarray]:
+    """1D contact discontinuity: two densities, equal pressure
+    (src/Ic/ContactDiscontinuityIc.cpp)."""
+    p2 = params.copy()
+    p2.set("press2", params.floatparams["press1"])
+    p2.set("vfluid1[0]", 0.0)
+    p2.set("vfluid2[0]", 0.0)
+    return shocktube_ic(p2, eos)
 
 
 def soundwave_ic(params, eos) -> Dict[str, np.ndarray]:
@@ -739,6 +750,7 @@ def quadruple_ic(params) -> Dict[str, np.ndarray]:
 
 _IC_REGISTRY = {
     "shocktube": shocktube_ic,
+    "cdiscontinuity": cdiscontinuity_ic,
     "soundwave": soundwave_ic,
     "sedov": sedov_ic,
     "khi": khi_ic,

@@ -61,9 +61,17 @@ class MfvMusclSimulation(SimulationBase):
         if ip["Nlevels"] > 1:
             raise _unsupported("block timesteps for MFV (Nlevels > 1)",
                                "item 10")
-        # the JAX MFV controller has no sink code
+        # the JAX MFV controller never reads these options: a run there
+        # makes no sinks (fault F16) and feels no external potential
+        # (fault F19); the port refuses both rather than ignore them
         if ip["sink_particles"] or ip["create_sinks"]:
-            raise _unsupported("sink particles in MFV", "item 9")
+            raise _unsupported("sink particles in MFV (the JAX package's "
+                               "MFV controller ignores them: fault F16)",
+                               "item 9")
+        if sp["external_potential"] != "none":
+            raise _unsupported("external potentials in MFV (the JAX "
+                               "package's MFV controller ignores them: "
+                               "fault F19)", "item 9")
         if sp["gas_eos"] not in ("energy_eqn", "constant_temp", "radws"):
             raise _unsupported(f"gas_eos {sp['gas_eos']!r} in MFV", "item 10")
         self._common_parameters()

@@ -40,15 +40,14 @@ import torch
 from ..integrate import hermite
 from ..integrate.hermite import HermiteConfig
 from ..kernels.smoothing import kernel_factory
-from ..ops.gravity import (direct_nbody, direct_snap, direct_softened,
-                           external_potential)
+from ..ops.gravity import (EXTERNAL_POTENTIALS, direct_nbody, direct_snap,
+                           direct_softened, external_potential)
 from ..ops.systemtree import build_subsystems, integrate_internal_motion
 from ..state import NbodyState, make_nbody_state
 from .ic import generate_nbody_ic
 from .simulation import SimulationBase, _host, _unsupported
 
 SCHEMES = ("hermite4", "hermite4ts", "hermite6ts", "lfkdk", "lfdkd")
-EXTERNAL_POTENTIALS = ("none", "silcc", "plummer", "vertical")
 
 
 class NbodySimulation(SimulationBase):

@@ -33,9 +33,16 @@ on the grid path with a global timestep or block timesteps, between
 mirror walls and with self-gravity (the dust gravitates in two-fluid
 runs): two type-masked grid passes give the gas its density and forces
 and the dust its own h, then the semi-implicit drag (K23, K24) adds its
-acceleration and heating.  Options outside that slice raise
-NotImplementedError naming their ROADMAP item; dust with sinks or stars
-is refused (the JAX package's sink paths apply no drag: fault F14).
+acceleration and heating.  The external analytic potentials (vertical,
+plummer) act on the gas after its gravity and on the stars.  Options
+outside that slice raise NotImplementedError naming their ROADMAP item;
+dust with sinks or stars is refused (the JAX package's sink paths apply
+no drag: fault F14), and so are external potentials under the compacted
+block tick (which skips them there: fault F19).
+
+``SM2012SphSimulation`` is the counterpart of gandalf_tpu's: the same
+controller with the Saitoh & Makino (2012) grid pass of
+``ops/sm2012.py`` (K1, K25, K26) in place of the grad-h one.
 
 A global step runs eagerly as a sequence of torch operations and kernel
 launches on the simulation's device; on a CUDA device nothing in it
@@ -71,10 +78,12 @@ from ..ops.dust import DragLaw, drag_pass_grid
 from ..ops.eos import eos_factory
 from ..ops.ewald import table_from_params
 from ..ops.forces import ArtificialViscosity, cullen_dehnen_dense
-from ..ops.gravity import direct_softened
+from ..ops.gravity import (EXTERNAL_POTENTIALS, direct_softened,
+                           external_potential)
 from ..ops.sinks import (SinkConfig, accrete_to_sinks,
                          apply_smooth_accretion, create_sinks, empty_sinks,
                          make_sinks, smooth_accretion_sums)
+from ..ops.sm2012 import sm2012_hydro_pass_grid
 from ..ops.sph_gravity import star_gas_forces
 from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
 from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
@@ -152,6 +161,8 @@ class SimulationBase:
         dtype = dtype or torch.float32
         if sim in ("sph", "gradhsph", "gradsph"):
             return GradhSphSimulation(params, device, dtype)
+        if sim == "sm2012sph":
+            return SM2012SphSimulation(params, device, dtype)
         if sim in ("meshlessfv", "mfvmuscl"):
             from .mfv_sim import MfvMusclSimulation
 
@@ -177,8 +188,6 @@ class SimulationBase:
             raise _unsupported("radws", "item 9")
         if sp["radiation"] not in ("none", "null", ""):
             raise _unsupported("radiation", "item 12")
-        if sp["external_potential"] != "none":
-            raise _unsupported("external potentials", "item 9")
         if sp["neib_search"] == "bruteforce":
             raise _unsupported("neib_search = bruteforce",
                                "'Not to port': brute-force paths")
@@ -519,6 +528,9 @@ class GradhSphSimulation(SimulationBase):
     """Conservative grad-h SPH on one device, with a global timestep or
     block timesteps."""
 
+    # the `sim` parameter values this controller runs
+    SIM_NAMES = ("sph", "gradhsph", "gradsph")
+
     def __init__(self, params, device="cuda", dtype=torch.float32):
         super().__init__(params, device, dtype)
         self._bootstrap_fn = None
@@ -536,7 +548,7 @@ class GradhSphSimulation(SimulationBase):
     def process_parameters(self):
         p = self.params
         ip, sp = p.intparams, p.stringparams
-        if sp["sim"] not in ("sph", "gradhsph", "gradsph"):
+        if sp["sim"] not in self.SIM_NAMES:
             raise _unsupported(f"sim {sp['sim']!r}", "items 9-10")
         if sp["supernova_feedback"] not in ("none", "null", ""):
             raise _unsupported("supernova feedback", "item 9")
@@ -545,6 +557,18 @@ class GradhSphSimulation(SimulationBase):
         self._common_parameters()
         self.visc = ArtificialViscosity.from_params(p)
         self.td_avisc_type = sp["time_dependent_avisc"]
+        # external analytic potentials (gandalf_tpu/sim/simulation.py:
+        # 957-965)
+        self.extpot = sp["external_potential"]
+        if self.extpot not in EXTERNAL_POTENTIALS:
+            raise ValueError(
+                f"Unrecognised external_potential: {self.extpot!r}")
+        kgrav = ip["kgrav"]
+        self.extpot_cfg = {
+            "mplummer": p.floatparams["mplummer"],
+            "rplummer": p.floatparams["rplummer"],
+            "kgrav": kgrav, "avert": p.floatparams["avert"],
+            "rzero": self.box.boxmin[kgrav] if kgrav < self.ndim else 0.0}
         # u is integrated for energy_eqn only; the other EOS set it from rho
         self.integ = IntegratorConfig.from_params(
             p, energy_integration=sp["gas_eos"] == "energy_eqn")
@@ -642,6 +666,8 @@ class GradhSphSimulation(SimulationBase):
                 sinks=self._initial_sinks(ic))
             self.has_sinks = self.state.sinks is not None
             self._mask_dead = self.has_sinks or bool(dead.any())
+            if self.use_block and not (self.has_sinks or self.has_dust):
+                self._check_compacted_tick()
             if "t" in ic:
                 self.state = self.state.replace(t=torch.tensor(
                     float(ic["t"]), dtype=self.dtype, device=self.device))
@@ -653,6 +679,18 @@ class GradhSphSimulation(SimulationBase):
             self._bootstrap_with_replans()
         self.t = float(self.state.t)
         self.setup_complete = True
+
+    def _check_compacted_tick(self):
+        """Options that the compacted block tick (the block tick without
+        sinks or dust) does not run: the JAX package's tick skips the
+        external potential (f_active and f_active_grav,
+        gandalf_tpu/sim/simulation.py:1135-1160, add none: fault F19),
+        so the port refuses it."""
+        if self.extpot != "none":
+            raise _unsupported(
+                "external potentials under block timesteps without sinks "
+                "(the JAX package's compacted tick skips them: fault F19)",
+                "item 9")
 
     def _initial_sinks(self, ic):
         """The star slots of the IC plus the creation slots (Nsinkfixed,
@@ -683,18 +721,13 @@ class GradhSphSimulation(SimulationBase):
 
     # -- the physics -----------------------------------------------------------
     def _hydro_pass(self, s: SphState) -> SphState:
-        """density -> EOS -> hydro forces -> self-gravity at the current
-        positions, dead particles masked out where there may be any.  The
-        overflow flag is the OR of both passes'.  In a dust run the grid
-        pass is _dust_hydro_pass's two type-masked passes."""
+        """density -> EOS -> hydro forces (_hydro_only_pass) ->
+        self-gravity -> the external potential at the current positions,
+        dead particles masked out where there may be any
+        (gandalf_tpu/sim/simulation.py:1425-1488).  The overflow flag is
+        the OR of both passes'."""
         alive = self.alive_mask(s)
-        if self.has_dust:
-            s = self._dust_hydro_pass(s)
-        else:
-            s = hydro_pass_grid27(self.kern, self.visc, self.box,
-                                  self.gridspec, self.eos, self.h_fac,
-                                  self.h_converge, self.hydro_forces, s,
-                                  alive=alive)
+        s = self._hydro_only_pass(s)
         if self.self_gravity:
             a_g, gpot, overflow = tree_gravity_grouped(
                 self.treespec, s.bucket_map, s.r, self._gravity_mass(s),
@@ -704,7 +737,23 @@ class GradhSphSimulation(SimulationBase):
                 **self._mac_inputs(s))
             s = s.replace(a=s.a + a_g, gpot=gpot,
                           neib_overflow=s.neib_overflow | overflow)
+        if self.extpot != "none":
+            # after the force loop, on every particle, as the JAX package
+            # adds it
+            a_x, _, pot_x = external_potential(self.extpot, self.extpot_cfg,
+                                               s.r, s.v)
+            s = s.replace(a=s.a + a_x, gpot=s.gpot + pot_x)
         return s
+
+    def _hydro_only_pass(self, s: SphState) -> SphState:
+        """The grid pass: density, EOS and hydro forces; in a dust run
+        _dust_hydro_pass's two type-masked passes."""
+        if self.has_dust:
+            return self._dust_hydro_pass(s)
+        return hydro_pass_grid27(self.kern, self.visc, self.box,
+                                 self.gridspec, self.eos, self.h_fac,
+                                 self.h_converge, self.hydro_forces, s,
+                                 alive=self.alive_mask(s))
 
     def _dust_hydro_pass(self, s: SphState) -> SphState:
         """The grid pass of a dust run (gandalf_tpu/sim/simulation.py:
@@ -787,7 +836,13 @@ class GradhSphSimulation(SimulationBase):
         a_gs, gp_gs, a_st, _ = star_gas_forces(
             self.kern, s.r, m_live, s.h, sk.r, m_star, sk.h, sk.active)
         ss = direct_softened(sk.r, sk.v, m_star, sk.h, self.kern)
-        sk = sk.replace(a=torch.where(sk.active[:, None], a_st + ss.a, 0.0))
+        a_star = a_st + ss.a
+        if self.extpot != "none":
+            # the stars feel the external field too
+            # (gandalf_tpu/sim/simulation.py:1626-1632)
+            a_star = a_star + external_potential(
+                self.extpot, self.extpot_cfg, sk.r, sk.v)[0]
+        sk = sk.replace(a=torch.where(sk.active[:, None], a_star, 0.0))
         return s.replace(
             a=torch.where(alive[:, None], s.a + a_gs, 0.0),
             dudt=torch.where(alive, s.dudt, 0.0),
@@ -1137,3 +1192,49 @@ class GradhSphSimulation(SimulationBase):
                 self._block_tick()
         self.Nsteps += 1
         self.t = float(self.state.t)
+
+
+class SM2012SphSimulation(GradhSphSimulation):
+    """Saitoh & Makino (2012) density-independent SPH (gandalf_tpu's
+    SM2012SphSimulation, :2283-2346; GANDALF's SM2012SphSimulation).  The
+    grad-h controller's steps, tree gravity, sinks and stars, with the
+    grid pass of ops/sm2012.py (K1, K25, K26): the density iteration
+    carries the smoothed energy density q and the force uses u_i u_j
+    (1/q_i + 1/q_j) instead of P Omega / rho^2; invomega = 1 and zeta = 0,
+    so the tree's zeta correction vanishes.  energy_eqn and isothermal
+    only.  Refused where the JAX package runs something other than the
+    SM2012 grid pass: mirror walls (its all-pairs path, item 8), dust
+    (one untyped pass over gas and dust: fault F18) and block timesteps
+    without sinks (its compacted tick runs grad-h SPH: fault F17)."""
+
+    SIM_NAMES = ("sm2012sph",)
+
+    def process_parameters(self):
+        super().process_parameters()
+        sp = self.params.stringparams
+        self.gamma = self.params.floatparams["gamma_eos"]
+        if sp["gas_eos"] not in ("energy_eqn", "isothermal"):
+            raise ValueError("sm2012sph supports energy_eqn/isothermal only")
+        if self.box.mirror_walls():
+            raise _unsupported(
+                "mirror/wall boundaries in SM2012 (the JAX package's "
+                "all-pairs path)", "item 8")
+        if self.has_dust:
+            raise _unsupported(
+                "dust in SM2012 (the JAX package runs gas and dust through "
+                "one untyped SM2012 pass: fault F18)", "item 9")
+
+    def _check_compacted_tick(self):
+        """The JAX package's compacted block tick calls the grad-h
+        active_hydro_pass (gandalf_tpu/sim/simulation.py:1077-1089,
+        1135-1147), so every tick after the SM2012 bootstrap runs grad-h
+        SPH (fault F17): refused."""
+        raise _unsupported(
+            "SM2012 under block timesteps without sinks (the JAX package's "
+            "compacted tick runs grad-h SPH: fault F17)", "item 9")
+
+    def _hydro_only_pass(self, s: SphState) -> SphState:
+        s, _ = sm2012_hydro_pass_grid(
+            self.kern, self.visc, self.gamma, self.gridspec, self.h_fac,
+            self.h_converge, s, self.alive_mask(s), self.hydro_forces)
+        return s

@@ -202,13 +202,19 @@ def test_eos_classes_are_identical(name):
 
 
 def _hydro_test_ic_params(case):
-    """The hydro tests' ICs at a small size: the Sod tube and the sound
-    wave (1D), the KHI (2D), the Sedov blast (2D lattice, smoothed and
+    """The hydro tests' ICs at a small size: the Sod tube, the contact
+    discontinuity (its velocities set and its pressures equalised by the
+    generator) and the sound wave (1D), the KHI (2D), the Sedov blast (2D lattice, smoothed and
     not, with some kinetic energy) and the Noh implosion (3D)."""
     from gandalf_tpu_torch.check import khi_params, sod_params
 
     if case == "shocktube":
         return sod_params(64, 16)
+    if case == "cdiscontinuity":
+        p = sod_params(32, 64)
+        p.set("ic", "cdiscontinuity")
+        p.set("rhofluid2", 4.0)
+        return p
     if case == "khi":
         return khi_params(1)
     p = params.Parameters()
@@ -225,12 +231,13 @@ def _hydro_test_ic_params(case):
     return p
 
 
-@pytest.mark.parametrize("case", ["shocktube", "soundwave", "khi", "sedov",
+@pytest.mark.parametrize("case", ["shocktube", "cdiscontinuity",
+                                  "soundwave", "khi", "sedov",
                                   "sedov_smooth", "noh"])
 def test_hydro_test_ics_are_identical(case):
-    """shocktube_ic, soundwave_ic, khi_ic, sedov_ic (with the port's own
-    M4 kernel for the smoothed injection) and noh_ic equal the JAX
-    package's bit for bit."""
+    """shocktube_ic, cdiscontinuity_ic, soundwave_ic, khi_ic, sedov_ic
+    (with the port's own M4 kernel for the smoothed injection) and noh_ic
+    equal the JAX package's bit for bit."""
     p = _hydro_test_ic_params(case)
     q = jparams.Parameters()
     for table in ("intparams", "floatparams", "stringparams"):

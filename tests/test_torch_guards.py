@@ -2,7 +2,8 @@
 package (an AST scan) and running it never loads JAX, whatever
 GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
 N-body and sink slices, block-stepped smooth accretion, the cd2010
-switch and a dusty box included); chip_smoke.py refuses to run without
+switch, a dusty box, an SM2012 tube and an external potential
+included); chip_smoke.py refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
 tensors, and on a GPU each CUDA kernel agrees with its plain PyTorch
 version.
@@ -120,6 +121,18 @@ def test_port_never_imports_jax():
         "sim.SetupSimulation()\n"
         "sim.main_loop_step()\n"
         "assert sim.has_dust and bool((sim.state.ptype == 3).any())\n"
+        "from gandalf_tpu_torch.check import sm2012_params\n"
+        "sim = SimulationBase.factory(sm2012_params(sod_params(64, 16)),\n"
+        "                             'cpu', torch.float64)\n"
+        "sim.SetupSimulation()\n"
+        "sim.main_loop_step()\n"
+        "assert float(sim.state.invomega.min()) == 1.0\n"
+        "p = slice_params(6)\n"
+        "p.set('external_potential', 'vertical')\n"
+        "sim = GradhSphSimulation(p, device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation(jittered_box_ic(p, 6))\n"
+        "sim.main_loop_step()\n"
+        "assert sim.Nsteps == 1\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -434,6 +447,56 @@ def test_dust_kernels_match_plain_versions_on_gpu(dtype):
     torch.cuda.synchronize()
     bad = {k: r["scaled_err"] for k, r in report.items() if not r["ok"]}
     assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sm2012_kernels_match_plain_versions_on_gpu(dtype):
+    """K25 and K26 against their plain versions on the card on
+    check.sm2012_kernel_inputs at about 4,000 particles in 1, 2 and 3
+    dims, alpha fixed and per particle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (compare_sm2012_kernels,
+                                         sm2012_kernel_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.ops.forces import ArtificialViscosity
+
+    report = {}
+    for ndim, side in ((1, 4096), (2, 64), (3, 16)):
+        s, spec = sm2012_kernel_inputs(side, ndim, "cuda", dtype)
+        for avisc in (1, 2):
+            rep = compare_sm2012_kernels(
+                kernel_factory("m4", ndim), ArtificialViscosity(avisc=avisc),
+                1.4, 1.2, 0.01, spec, s)
+            report.update({f"{k}_{avisc}": r for k, r in rep.items()})
+    torch.cuda.synchronize()
+    bad = {k: r for k, r in report.items() if not r["ok"]}
+    assert not bad, bad
+
+
+def test_sm2012_wrappers_refuse_cpu_tensors():
+    """K25 and K26: CPU tensors raise and count no launch; the plain
+    versions run only through ops.sm2012's dispatch on CPU tensors."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.forces import ArtificialViscosity
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
+
+    f64 = dict(dtype=torch.float64)
+    n = 32
+    spec = Grid27Spec(2, (2, 2), (0.0,) * 2, (1.0,) * 2, 8, (True,) * 2)
+    ids = torch.full((2, 2, 8), -1, dtype=torch.int32)
+    r, v = torch.rand((n, 2), **f64), torch.rand((n, 2), **f64)
+    m, pk = torch.rand((n,), **f64), torch.rand((n, 8), **f64)
+    kern = type("K", (), {"kernnorm": 1.0})()
+    before = dict(_ext.LAUNCHES)
+    for call in (lambda: _ext.sm2012_density(spec, kern, 1.2, 0.01, 1.0,
+                                             ids, r, m, m, m),
+                 lambda: _ext.sm2012_forces(spec, kern, ArtificialViscosity(),
+                                            1.4, ids, r, v, pk)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before
 
 
 def test_dust_wrappers_refuse_cpu_tensors():

@@ -120,7 +120,7 @@ def test_options_outside_the_slice_raise(key, value, request):
     """Options the port does not run raise: a kernel other than M4, the
     locally isothermal EOS (also with sinks), dust with sinks (ROADMAP
     fault F14), sinks with mirror walls, sinks in the MFV controller
-    (which has no sink code), self-gravity (which runs every walk
+    (which the JAX package's ignores: fault F16), self-gravity (which runs every walk
     option, the Ewald sum of this periodic box included) with octtree
     buckets, and a 2D run (which the grid path now takes) with block
     timesteps."""

@@ -8,11 +8,12 @@ grid path and mirror walls (the Sod tube, the Kelvin-Helmholtz
 instability, the mirror-wall box), block-stepped star formation and
 time-dependent viscosity, the gas-dust drag (the dusty box and the
 dusty Evrard collapse), Saitoh & Makino (2012) SPH and the external
-potentials, and checks them, in phases, each printing one line:
+potentials, RadWS radiative cooling and radiative feedback, and checks
+them, in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K26 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K30 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -228,7 +229,35 @@ potentials, and checks them, in phases, each printing one line:
 49. extpot_box: the vertical field of tests/test_extpot.py:18-42 on the
    grid path on the card (a_z = avert to 1e-10), and 8 steps of the
    hybrid Plummer sphere with stars in a Plummer field against the plain
-   path on the CPU.
+   path on the CPU;
+50. radws_kernels: K27 (the radws table EOS), K28 (the equilibrium
+   finder) and K29 (the implicit heating rate) against their plain
+   versions on the card on check.radws_kernel_inputs at 262,144
+   elements (both clamps hit), on the ideal table and on
+   check.nonideal_table, in float64 and float32 (K27 also on a dense
+   (cells, K) shape with empty slots, K28 and K29 with scalar and
+   per-element T_amb), with the flips counted; K30 (the radiative-
+   feedback ambient temperature) on check.ambient_kernel_inputs at
+   262,144 particles with 16 and 4,096 slots, disc heating off, about one
+   and two central slots, and sink_heating off; timed in float32;
+51. radws_box: gravity_main_path's box at 64^3 on radws (float32, the
+   quadrupole tree): 2 warm-up and 32 timed steps, K1-K7, K27 and K28
+   every step, the tree's accuracy, T within 10% of temp_ambient; then
+   K27-K29 against their plain versions at the path's state;
+52. radws_block_box: the same with Nlevels 3 (the compacted tick: K1, K8,
+   K9, the group-list K6/K7, K27, K28), 32 timed ticks, the same gates;
+53. radfb_cluster: the hybrid Plummer sphere of 262,144 gas particles and
+   4 stars on radws with radiative feedback (sink, ambient and disc
+   heating), 32 timed steps with K1-K7, K14, K16, K18, K27, K28 and K30
+   every step, the mass, T_amb >= temp_ambient; then K30 against its
+   plain version at the path's state;
+54. radws_mfv_box: mfv_box at 64^3 on radws, 32 timed steps with K1,
+   K4-K7 (MFV), K10-K12, K27 and K29 every step, the mass exact, T within
+   12% of temp_ambient; then K27-K29 at the path's state;
+55. radws_parity: float64 on the card against the plain path on the CPU:
+   5 steps of the radws box at 8^3 with gravity, with a global dt and
+   Nlevels 3, of the hybrid Plummer sphere (256 gas, 4 stars) with
+   radiative feedback and of the radws MFV box at 8^3.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -244,7 +273,8 @@ mirror_box's dim-0 layout, K20 and K22 from bb_block_collapse, K21 in
 block_sink_parity's Boss-Bodenheimer run on the card (timed at the 64^3
 box in phase 35), K23 and K24 from dusty_evrard, K25 and K26 in 2D from
 khi_sm2012, in 3D from sm2012_gravity_box and in 1D from sm2012_tube's
-Sod run (float64), each counted over its
+Sod run (float64), K27 and K28 from radws_box, K29 from radws_mfv_box
+and K30 from radfb_cluster, each counted over its
 path's timed window
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -442,6 +472,20 @@ SM_CONTACT_RATIO = 0.8
 EXTPOT_AVERT = -0.5
 EXTPOT_TOL = 1e-10
 EXTPOT_STEPS = 8
+# RadWS and radiative feedback (phases 50-55): the kernels' sizes (K30
+# also at the embedded cluster's 4,096 slots, K16's shape), the T gates
+# of tests/test_radws.py (10% of temp_ambient for SPH, :96-104 and
+# :106-130; 12% for MFV, :320-335), the block ticks and the cluster's
+# gas particles
+RADWS_N = 262144
+RADWS_DENSE = (4096, 64)
+RADWS_SLOTS = (16, 4096)
+RADWS_T_TOL = 0.1
+RADWS_MFV_T_TOL = 0.12
+RADWS_BLOCK_WARM = 2
+RADWS_BLOCK_TICKS = 32
+RADFB_N = 262144
+RADWS_PARITY_N = 8
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -538,6 +582,14 @@ SOURCES = {
                           "gandalf_tpu/ops/sm2012.py:198"),
     "sm2012_forces_1d": ("gandalf_tpu_torch/csrc/sm2012.cu",
                          "gandalf_tpu/ops/sm2012.py:228"),
+    "radws_eos": ("gandalf_tpu_torch/csrc/radws.cu",
+                  "gandalf_tpu/ops/radws.py:133"),
+    "radws_equilibrium": ("gandalf_tpu_torch/csrc/radws.cu",
+                          "gandalf_tpu/ops/radws.py:156"),
+    "radws_implicit_heating": ("gandalf_tpu_torch/csrc/radws.cu",
+                               "gandalf_tpu/ops/radws.py:229"),
+    "ambient_temperature": ("gandalf_tpu_torch/csrc/radiative_fb.cu",
+                            "gandalf_tpu/ops/radiative_fb.py:92"),
 }
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
@@ -563,6 +615,9 @@ BB_BLOCK = GRAVITY + ("star_gas_forces", "sink_candidate",
 DUST = GRAVITY + ("dust_drag_sums", "dust_drag_deposit")
 # the SM2012 kernels of a step (K25 and K26, after K1)
 SM2012 = ("sm2012_density", "sm2012_forces")
+# the radws kernels of an SPH step or tick (the table EOS, the
+# equilibrium finder)
+RADWS_SPH = ("radws_eos", "radws_equilibrium")
 # rates of earlier phases that later ones print beside their own
 RATES = {}
 
@@ -628,7 +683,9 @@ def parity_errors(sims, fields):
     for f in fields:
         x = getattr(sims[0].state, f).cpu()
         ref = getattr(sims[1].state, f)
-        errs[f] = float(torch.abs(x - ref).max() / torch.abs(ref).max())
+        err, scale = torch.abs(x - ref).max(), torch.abs(ref).max()
+        # a field that is 0 everywhere is held absolutely
+        errs[f] = float(err / scale if scale > 0 else err)
     errs["t"] = abs(sims[0].t - sims[1].t) / sims[1].t
     return errs
 
@@ -883,6 +940,7 @@ def mfv_main_path(dev, card):
     }
     rep = compare_mfv_kernels(sim, s, repeats=5)
     spec = sim.treespec
+    RATES["mfv"] = N * done / elapsed
     phase("mfv_main_path", N=N, steps=sim.Nsteps, timed_steps=done,
           setup_s=t_setup, timed_s=elapsed,
           particle_steps_per_s=N * done / elapsed,
@@ -2924,6 +2982,411 @@ def extpot_box(dev, card) -> None:
         raise RuntimeError(f"extpot_box checks failed: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# RadWS and radiative feedback (phases 50-55)
+# ---------------------------------------------------------------------------
+
+def radws_kernels(dev) -> None:
+    """Phase 50: K27-K29 against their plain versions on the card on
+    check.radws_kernel_inputs at 262,144 elements (both edge clamps hit),
+    on the synthetic ideal table and on check.nonideal_table (kappa,
+    kappa_p, mu and gamma varying, one energy row not monotone), in
+    float64 and float32: K27 flat and on a dense (4,096, 64) shape with
+    every fifth slot empty, K28 with the scalar and the per-element
+    T_amb, K29 with a scalar dt and per-element dt and T_amb; then K30 on
+    check.ambient_kernel_inputs at 262,144 particles with 16 and with
+    4,096 slots (every mass class, an eighth inactive, a particle on an
+    active slot), disc heating off, with one and two central slots, and
+    sink_heating off.  Flips and errors per case; timed in float32 beside
+    the bounds (the ideal table; K30 at both slot counts)."""
+    from gandalf_tpu_torch.check import (ambient_kernel_inputs, bound,
+                                         compare_ambient_kernels,
+                                         compare_radws_kernels,
+                                         radws_kernel_inputs)
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for dtype in (torch.float64, torch.float32):
+        for table in ("ideal", "nonideal"):
+            timing = dtype == torch.float32 and table == "ideal"
+            inp = radws_kernel_inputs(RADWS_N, dev, dtype, table)
+            rep = compare_radws_kernels(inp, repeats=5 if timing else 0,
+                                        dense_shape=RADWS_DENSE)
+            if timing:
+                for r in rep.values():
+                    r["bound_ms"], r["bound_by"] = bound(r["work"], dtype)
+            n_cases += len(rep)
+            phase("radws_kernels", table=table, dtype=str(dtype),
+                  report=rep)
+            require_ok("radws_kernels", rep)
+        for ns in RADWS_SLOTS:
+            inp = ambient_kernel_inputs(RADWS_N, ns, dev, dtype)
+            timing = dtype == torch.float32
+            rep = compare_ambient_kernels(inp, repeats=5 if timing else 0)
+            if timing:
+                for r in rep.values():
+                    r["bound_ms"], r["bound_by"] = bound(r["work"], dtype)
+            n_cases += len(rep)
+            phase("radws_kernels", kernel="K30", Ns=ns, dtype=str(dtype),
+                  report=rep)
+            require_ok("radws_kernels", rep)
+    phase("radws_kernels_done", cases=n_cases,
+          seconds=time.perf_counter() - t0)
+
+
+def _radws_report(sim, dense=False, repeats=5):
+    """K27-K29 against their plain versions at a simulation's state (its
+    table and alive particles; with `dense` K27 first on the grid pass's
+    own dense slots, then flat as the block tick calls it), each with its
+    bound in the state's dtype."""
+    from gandalf_tpu_torch.check import (bound, compare_radws_kernels,
+                                         radws_dense_inputs,
+                                         radws_sim_inputs)
+
+    rep = compare_radws_kernels(
+        radws_sim_inputs(sim), repeats=repeats,
+        dense=radws_dense_inputs(sim) if dense else None)
+    for r in rep.values():
+        r["bound_ms"], r["bound_by"] = bound(r["work"], sim.dtype)
+    return rep
+
+
+def _temperature_gate(sim):
+    """T = u (gamma-1) mu_bar of the alive particles against
+    temp_ambient: (min T, max T, all within RADWS_T_TOL of it)."""
+    s, fp = sim.state, sim.params.floatparams
+    T = (s.u[s.alive] * (fp["gamma_eos"] - 1.0) * fp["mu_bar"]).double()
+    t_amb = fp["temp_ambient"]
+    ok = bool((torch.abs(T / t_amb - 1.0) <= RADWS_T_TOL).all())
+    return float(T.min()), float(T.max()), ok
+
+
+def _radws_box_sim(dev, nlevels=1):
+    from gandalf_tpu_torch.check import (jittered_box_ic, radws_params,
+                                         slice_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    params = radws_params(slice_params(N_MAIN, self_gravity=1))
+    if nlevels > 1:
+        params.set("Nlevels", nlevels)
+        params.set("level_diff_max", 1)
+    sim = GradhSphSimulation(params, device=dev, dtype=torch.float32)
+    return sim, jittered_box_ic(params, N_MAIN)
+
+
+def radws_box(dev, card):
+    """Phase 51, the radws path at full width: gravity_main_path's box
+    (check.slice_params(64, self_gravity=1), 262,144 particles, float32,
+    the quadrupole tree) on check.radws_params (gas_eos =
+    energy_integration = radws, gamma 5/3, mu 1, press1 66.67,
+    temp_ambient 10: tests/test_radws.py's hot box, T0 = 66.7): setup, 2
+    warm-up and 32 timed steps (the counts set to 0 just before them),
+    finiteness, rho > 0, no unresolved overflow, K1-K7, K27 and K28
+    every step, the tree's accuracy, and T = u (gamma-1) mu within 10%
+    of temp_ambient at the end (tests/test_radws.py:96-104); then K27-K29
+    against their plain versions at the path's state, K27 on the grid
+    pass's dense slots (the kernel line's case) and flat.  Returns K27's
+    and K28's launches and reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import gravity_accuracy
+
+    t_phase = time.perf_counter()
+    sim, ic = _radws_box_sim(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation(ic)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    fp = sim.params.floatparams
+    T0 = float(sim.state.u.max()) * (fp["gamma_eos"] - 1.0) * fp["mu_bar"]
+    run_timed(sim, STEPS_WARM)
+    replans0 = sim._n_grid_overflows
+    steps0 = sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, GRAVITY_STEPS_TIMED)
+    done = sim.Nsteps - steps0
+    launches = {k: _ext.LAUNCHES[k] for k in GRAVITY + RADWS_SPH}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = sim.state
+    N = s.N
+    acc = gravity_accuracy(sim, n_sample=2048)
+    t_min, t_max, t_ok = _temperature_gate(sim)
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt",
+                                "gpot", "ueq", "pressure", "sound")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(n >= done for n in launches.values()),
+        "accuracy": acc["rms_rel_err"] <= ACCURACY_TOL,
+        "cooled_to_ambient": t_ok,
+    }
+    rep = _radws_report(sim, dense=True)
+    phase("radws_box", N=N, steps=sim.Nsteps, timed_steps=done,
+          setup_s=t_setup, timed_s=elapsed,
+          particle_steps_per_s=N * done / elapsed,
+          gravity_main_path_particle_steps_per_s=RATES.get("gravity"),
+          t_code=sim.t, dt_code=float(s.dt), T_start_max=T0,
+          T_min=t_min, T_max=t_max, T_gate=RADWS_T_TOL,
+          replans_in_window=sim._n_grid_overflows - replans0,
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          launches=launches, accuracy=acc, accuracy_gate=ACCURACY_TOL,
+          checks=checks, kernels=rep, card=card, peak_mem_gb=peak_gb,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"radws_box checks failed: {failed}")
+    return ({k: launches[k] for k in RADWS_SPH},
+            {k: rep[k] for k in RADWS_SPH})
+
+
+def radws_block_box(dev, card):
+    """Phase 52: radws_box's configuration with Nlevels 3 (level_diff_max
+    1; tests/test_radws.py:106-130): setup, 2 warm-up and 32 timed
+    ticks of the compacted tick (K1, K8, K9, the group-list K6/K7, K27,
+    K28 every tick), the same checks and the T gate at the end."""
+    from gandalf_tpu_torch import _ext
+
+    t_phase = time.perf_counter()
+    sim, ic = _radws_box_sim(dev, nlevels=3)
+    t0 = time.perf_counter()
+    sim.SetupSimulation(ic)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, RADWS_BLOCK_WARM)
+    rows0, steps0 = sim.active_rows, sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, RADWS_BLOCK_TICKS)
+    ticks = sim.Nsteps - steps0
+    names = BLOCK + RADWS_SPH
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    t_min, t_max, t_ok = _temperature_gate(sim)
+    levels = torch.bincount(s.level.long()).tolist()
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "ueq",
+                                "pressure", "sound")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow),
+        "launches": all(n >= ticks for n in launches.values()),
+        "cooled_to_ambient": t_ok,
+    }
+    phase("radws_block_box", N=s.N, ticks=ticks, setup_s=t_setup,
+          timed_s=elapsed, ticks_per_s=ticks / elapsed,
+          active_updates_per_s=(sim.active_rows - rows0) / elapsed,
+          levels=levels, t_code=sim.t, T_min=t_min, T_max=t_max,
+          T_gate=RADWS_T_TOL, launches=launches, checks=checks, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"radws_block_box checks failed: {failed}")
+
+
+def radfb_cluster(dev, card):
+    """Phase 53: check.plummer_stars_params(RADFB_N, 4) on radws with
+    radiative feedback (check.radfb_params: rad_fb = sink_heating =
+    ambient_heating = disc_heating = 1, temp_ambient 1, source radii
+    0.01); mplummer 2 and starfrac 0.5 give each star about 0.25, a
+    stellar-class source, and slot 0 is the central one.  Setup (the
+    host IC's seconds), 2 warm-up and 32 timed steps (K1-K7, K14, K16,
+    K18, K27, K28 and K30 every step; no K17: the stars come from the IC,
+    create_sinks = 0), gas plus star mass within BB_MASS_TOL, finiteness
+    over the alive gas, and T_amb >= temp_ambient for every particle at
+    the end; then K30 against its plain version at the path's state (the
+    run's own case, 4 slots).  Returns K30's launches and report."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (bound, compare_ambient_kernels,
+                                         plummer_stars_params, radfb_params,
+                                         total_mass)
+    from gandalf_tpu_torch.ops.radiative_fb import \
+        combined_ambient_temperature
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    sim = GradhSphSimulation(radfb_params(plummer_stars_params(RADFB_N, 4)),
+                             device=dev, dtype=torch.float32)
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    ic_s = sim.timing.totals.get("GENERATE_IC", 0.0)
+    run_timed(sim, STEPS_WARM)
+    m0 = total_mass(sim)
+    steps0 = sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, GRAVITY_STEPS_TIMED)
+    done = sim.Nsteps - steps0
+    names = GRAVITY + ("direct_softened", "star_gas_forces",
+                       "accretion_sums") + RADWS_SPH + ("ambient_temperature",)
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s, sk = sim.state, sim.state.sinks
+    alive = s.alive
+    m1 = total_mass(sim)
+    act = sk.active if sim.radfb_sink_on else torch.zeros_like(sk.active)
+    t_amb = combined_ambient_temperature(
+        sim.radfb_sink_cfg, sim.radfb_disc_cfg, s.r, sk.r, sk.m, sk.mdot,
+        sk.h * sim.sink_cfg.sink_radius, act)
+    _ext.reset_launches()
+    _ext.LAUNCHES.update(launches)
+    t_inf = sim.params.floatparams["temp_ambient"]
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)[alive]).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "ueq",
+                                "dt_therm")),
+        "mass": abs(m1 - m0) / m0 <= BB_MASS_TOL,
+        "t_amb_at_least_ambient": bool((t_amb >= t_inf).all()),
+        "launches": all(n >= done for n in launches.values()),
+    }
+    inputs = {"r": s.r, "rs": sk.r, "m": sk.m, "mdot": sk.mdot,
+              "rad": sk.h * sim.sink_cfg.sink_radius, "active": sk.active,
+              "cfg": sim.radfb_sink_cfg}
+    rep = compare_ambient_kernels(inputs, repeats=5, cases=(
+        ("path", int(sim.radfb_sink_on), sim.radfb_disc_cfg),))
+    rep = {"ambient_temperature": rep["ambient_temperature_path"]}
+    for r in rep.values():
+        r["bound_ms"], r["bound_by"] = bound(r["work"], torch.float32)
+    phase("radfb_cluster", N=s.N, n_star=sk.N, alive=int(alive.sum()),
+          steps=sim.Nsteps, timed_steps=done, setup_s=t_setup, ic_s=ic_s,
+          timed_s=elapsed, particle_steps_per_s=s.N * done / elapsed,
+          star_m=sk.m.tolist(), star_mdot=sk.mdot.tolist(),
+          t_amb_min=float(t_amb.min()), t_amb_max=float(t_amb.max()),
+          t_amb_median=float(t_amb.median()), mass_rel_change=
+          abs(m1 - m0) / m0, ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, launches=launches, checks=checks,
+          kernels=rep,
+          card=card, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"radfb_cluster checks failed: {failed}")
+    return ({"ambient_temperature": launches["ambient_temperature"]}, rep)
+
+
+def radws_mfv_box(dev, card):
+    """Phase 54: mfv_box (check.mfv_params(64), 262,144 particles,
+    float32, the quadrupole tree) on check.radws_params: setup, 2
+    warm-up steps, the post-warm-up replan, 2 more, then 32 timed steps
+    (K1, K4-K7 in the MFV mode, K10-K12, K27 and K29 every step), the
+    mass exact, finiteness, and T within 12% of temp_ambient at the end
+    (tests/test_radws.py:320-335); then K27-K29 against their plain
+    versions at the path's state.  Returns K29's launches and report."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import jittered_box_ic, mfv_params, \
+        radws_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    params = radws_params(mfv_params(N_MAIN))
+    sim = SimulationBase.factory(params, dev, torch.float32)
+    t0 = time.perf_counter()
+    sim.SetupSimulation(jittered_box_ic(params, N_MAIN))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    m0 = sim.state.m.clone()
+    run_timed(sim, STEPS_WARM)
+    sim._plan_tree_buckets(sim.state.r.cpu().numpy())
+    run_timed(sim, STEPS_WARM)
+    steps0 = sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, MFV_STEPS_TIMED)
+    done = sim.Nsteps - steps0
+    names = MFV + ("radws_eos", "radws_implicit_heating")
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    T = (s.u * (params.floatparams["gamma_eos"] - 1.0)).double()
+    t_amb = params.floatparams["temp_ambient"]
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "Qcons0",
+                                "pressure", "sound", "gpot")),
+        "mass_exact": bool(torch.equal(s.m, m0)),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow),
+        "launches": all(n >= (2 * done if k == "grid27_bin" else done)
+                        for k, n in launches.items()),
+        "cooled_to_ambient": bool((torch.abs(T / t_amb - 1.0)
+                                   <= RADWS_MFV_T_TOL).all()),
+    }
+    rep = _radws_report(sim)
+    phase("radws_mfv_box", N=s.N, steps=sim.Nsteps, timed_steps=done,
+          setup_s=t_setup, timed_s=elapsed,
+          particle_steps_per_s=s.N * done / elapsed,
+          mfv_main_path_particle_steps_per_s=RATES.get("mfv"),
+          T_min=float(T.min()), T_max=float(T.max()),
+          T_gate=RADWS_MFV_T_TOL, launches=launches, checks=checks,
+          kernels=rep, card=card, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"radws_mfv_box checks failed: {failed}")
+    return ({"radws_implicit_heating": launches["radws_implicit_heating"]},
+            {"radws_implicit_heating": rep["radws_implicit_heating"]})
+
+
+def radws_parity(dev) -> None:
+    """Phase 55: float64, kernels on the card against the plain path on
+    the CPU through _sim_pair (equal grid and tree plans, alive gas and
+    sinks): 5 steps of the radws box at 8^3 with self-gravity (the tree
+    rebuilt every 2 steps), 5 ticks of it with Nlevels 3 (equal levels
+    each tick), 5 steps of the hybrid Plummer sphere (256 gas, 4 stars)
+    with radiative feedback, and 5 steps of the radws MFV box at 8^3;
+    every field within PARITY_TOL, ueq and dt_therm included."""
+    from gandalf_tpu_torch.check import (jittered_box_ic, mfv_params,
+                                         plummer_stars_params, radfb_params,
+                                         radws_params, slice_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+
+    def box(nlevels):
+        def make(d):
+            p = radws_params(slice_params(RADWS_PARITY_N, self_gravity=1))
+            p.set("ntreebuildstep", GRAVITY_NTB_PARITY)
+            if nlevels > 1:
+                p.set("Nlevels", nlevels)
+                p.set("level_diff_max", 1)
+            return (SimulationBase.factory(p, d, f64),
+                    jittered_box_ic(p, RADWS_PARITY_N))
+        return make
+
+    def cluster(d):
+        return SimulationBase.factory(radfb_params(plummer_stars_params(
+            256, 4)), d, f64), None
+
+    def mfv(d):
+        p = radws_params(mfv_params(RADWS_PARITY_N))
+        p.set("ntreebuildstep", GRAVITY_NTB_PARITY)
+        return SimulationBase.factory(p, d, f64), jittered_box_ic(
+            p, RADWS_PARITY_N)
+
+    def same_levels(a, b):
+        if not torch.equal(a.level.cpu(), b.level):
+            raise RuntimeError("radws_parity: levels differ")
+
+    runs = (("box", box(1), None, ("ueq", "dt_therm")),
+            ("block_box", box(3), same_levels, ("ueq", "dt_therm")),
+            ("cluster_radfb", cluster, None, ("ueq", "dt_therm")),
+            ("mfv_box", mfv, None, ()))
+    for name, make, check, extra in runs:
+        sims = _sim_pair(make, PARITY_STEPS, check)
+        fields = ("r", "v", "u", "h", "rho", "gpot") + extra
+        errs = parity_errors(sims, fields)
+        if getattr(sims[1], "has_sinks", False):
+            ref = sims[1].state.sinks.m
+            errs["sink_m"] = float(torch.abs(sims[0].state.sinks.m.cpu()
+                                             - ref).max() / ref.max())
+        same = sims[0].gridspec == sims[1].gridspec
+        phase("radws_parity", run=name, N=sims[1].state.N,
+              steps=PARITY_STEPS, rel_err=errs, same_grid_plan=same)
+        if max(errs.values()) > PARITY_TOL or not same:
+            raise RuntimeError(f"radws_parity {name}: kernel path disagrees "
+                               f"with the plain path: {errs}")
+    phase("radws_parity_done", seconds=time.perf_counter() - t0)
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -2977,7 +3440,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "ptxas.txt").write_text(_ext.ptxas_report())
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
-          library=so.name, kernels="K1-K26", sources=list(_ext._UNITS),
+          library=so.name, kernels="K1-K30", sources=list(_ext._UNITS),
           ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
@@ -3129,6 +3592,7 @@ def main() -> int:
     }
     rep = compare_kernels(sim, s, repeats=5)
     rep.update(compare_tree_kernels(sim, s, repeats=5))
+    RATES["gravity"] = N * GRAVITY_STEPS_TIMED / elapsed
     phase("gravity_main_path", N=N, steps=sim.Nsteps,
           timed_steps=GRAVITY_STEPS_TIMED, setup_s=t_setup,
           timed_s=elapsed,
@@ -3221,6 +3685,15 @@ def main() -> int:
         rep.update(m_rep)
     sm2012_parity(dev)
     extpot_box(dev, card)
+
+    # 50-55. RadWS and radiative feedback
+    radws_kernels(dev)
+    for path in (radws_box, radws_block_box, radfb_cluster, radws_mfv_box):
+        out = path(dev, card)
+        if out is not None:        # radws_block_box adds no kernel entry
+            launches.update(out[0])
+            rep.update(out[1])
+    radws_parity(dev)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

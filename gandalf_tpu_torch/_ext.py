@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K26 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K30 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -33,7 +33,11 @@ drag sums and energy deposit, under ``dust_drag_sums`` and
 ``dust_drag_deposit`` in every ndim, and K25 and K26, the Saitoh &
 Makino (2012) h-rho iteration with its q sum and the pressure-energy
 forces, under ``sm2012_density`` and ``sm2012_forces`` (``_1d`` or
-``_2d`` appended below 3D).
+``_2d`` appended below 3D).  The RadWS kernels K27-K29, the opacity-table
+EOS, the equilibrium finder and the implicit heating rate, count under
+``radws_eos``, ``radws_equilibrium`` and ``radws_implicit_heating``, and
+K30, the radiative-feedback ambient temperature, under
+``ambient_temperature``.
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
           "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu",
           "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
-          "grid27_levelneib.cu", "dust_drag.cu", "sm2012.cu")
+          "grid27_levelneib.cu", "dust_drag.cu", "sm2012.cu", "radws.cu",
+          "radiative_fb.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -82,11 +87,17 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "dust_drag_sums": 0, "dust_drag_deposit": 0,
             "sm2012_density": 0, "sm2012_density_2d": 0,
             "sm2012_density_1d": 0, "sm2012_forces": 0,
-            "sm2012_forces_2d": 0, "sm2012_forces_1d": 0}
+            "sm2012_forces_2d": 0, "sm2012_forces_1d": 0, "radws_eos": 0,
+            "radws_equilibrium": 0, "radws_implicit_heating": 0,
+            "ambient_temperature": 0}
 
 _lib = None
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_L = ctypes.c_longlong
+# the opacity table's arguments of K27-K29: 7 arrays, nd, nt, fcol2,
+# 4 rad_const and temp_min
+_TABLE = [_P] * 7 + [_I, _I, _D, _D, _D]
 _ARGTYPES = {
     "grid27_bin": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _I,
                    _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -145,6 +156,13 @@ _ARGTYPES = {
                        _P],
     "sm2012_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
                       _D, _D, _D, _D, _I, _D, _D, _P, _P, _P, _I, _P],
+    "radws_eos": _TABLE + [_P, _P, _L, _P, _P, _P, _I, _P],
+    "radws_equilibrium": _TABLE + [_P, _P, _P, _P, _P, _I, _L, _P, _P, _P,
+                                   _I, _P],
+    "radws_implicit_heating": _TABLE + [_P, _P, _P, _P, _P, _I, _P, _I, _L,
+                                        _P, _P, _I, _P],
+    "ambient_temperature": [_P, _I, _P, _P, _P, _P, _I, _D, _I, _P, _D, _D,
+                            _D, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -1126,3 +1144,106 @@ def sm2012_forces(spec, kern, visc, gamma, ids_d, r, v, packed):
             _p(a), _p(dudt), _p(div_v),
             count=_grid_count("sm2012_forces", spec))
     return a, dudt, div_v
+
+
+def _table_args(table, x):
+    """K27-K29's table arguments, its arrays checked against x's device
+    and dtype."""
+    dt = x.dtype
+    nd, nt = table.log_dens.shape[0], table.log_temp.shape[0]
+    _check(table.log_dens, "log_dens", dt, (nd,))
+    _check(table.log_temp, "log_temp", dt, (nt,))
+    for name in ("energy", "mu", "kappa", "kappap", "gamma"):
+        _check(getattr(table, name), name, dt, (nd, nt))
+    return (*(_p(getattr(table, k)) for k in ("log_dens", "log_temp",
+                                              "energy", "mu", "kappa",
+                                              "kappap", "gamma")),
+            nd, nt, float(table.fcol2), 4.0 * table.rad_const,
+            float(table.temp_min))
+
+
+def _elements(x, name, dtype, n):
+    """x as an (n,) argument, or a scalar one (0-d or 1 element):
+    (pointer, per-element flag)."""
+    if x.numel() == 1 and tuple(x.shape) != (n,):
+        _check(x.reshape(1), name, dtype, (1,))
+        return _p(x), 0
+    _check(x, name, dtype, (n,))
+    return _p(x), 1
+
+
+def _index_out(n, index, dev):
+    return torch.empty((n,), dtype=torch.int32, device=dev) if index \
+        else None
+
+
+def radws_eos(table, rho, u, index=False):
+    """K27 on flat rho, u (n,): (P, c) (n,) and, with `index`, the int32
+    index idens nt + itemp of each gamma read."""
+    n, dt, dev = rho.shape[0], rho.dtype, rho.device
+    _check(rho, "rho", dt, (n,))
+    _check(u, "u", dt, (n,))
+    targs = _table_args(table, rho)
+    P, c = (torch.empty((n,), dtype=dt, device=dev) for _ in range(2))
+    idx = _index_out(n, index, dev)
+    _launch("radws_eos", dt, dev, *targs, _p(rho), _p(u), n, _p(P), _p(c),
+            None if idx is None else _p(idx))
+    return (P, c) + ((idx,) if index else ())
+
+
+def radws_equilibrium(table, rho, u, dudt, gpot, temp_amb, index=False):
+    """K28 on (N,) rho, u, du/dt, gpot and a scalar or (N,) temp_amb:
+    (ueq, dt_therm) (N,) and, with `index`, the int32 index ((idens nt
+    + it_eq) nt + it_now) 3 + branch."""
+    n, dt, dev = rho.shape[0], rho.dtype, rho.device
+    for name, x in (("rho", rho), ("u", u), ("dudt", dudt), ("gpot", gpot)):
+        _check(x, name, dt, (n,))
+    tp, t_per = _elements(temp_amb, "temp_amb", dt, n)
+    targs = _table_args(table, rho)
+    ueq, dtt = (torch.empty((n,), dtype=dt, device=dev) for _ in range(2))
+    idx = _index_out(n, index, dev)
+    _launch("radws_equilibrium", dt, dev, *targs, _p(rho), _p(u), _p(dudt),
+            _p(gpot), tp, t_per, n, _p(ueq), _p(dtt),
+            None if idx is None else _p(idx))
+    return (ueq, dtt) + ((idx,) if index else ())
+
+
+def radws_implicit_heating(table, rho, u, dudt, gpot, dt_step, temp_amb,
+                           index=False):
+    """K29 on (N,) rho, u, du/dt, gpot, a scalar or (N,) step dt_step and
+    temp_amb: the heating rate (N,) and, with `index`, the int32 index
+    (idens nt + it) 3 + branch."""
+    n, dt, dev = rho.shape[0], rho.dtype, rho.device
+    for name, x in (("rho", rho), ("u", u), ("dudt", dudt), ("gpot", gpot)):
+        _check(x, name, dt, (n,))
+    sp, s_per = _elements(dt_step, "dt", dt, n)
+    tp, t_per = _elements(temp_amb, "temp_amb", dt, n)
+    targs = _table_args(table, rho)
+    heat = torch.empty((n,), dtype=dt, device=dev)
+    idx = _index_out(n, index, dev)
+    _launch("radws_implicit_heating", dt, dev, *targs, _p(rho), _p(u),
+            _p(dudt), _p(gpot), sp, s_per, tp, t_per, n, _p(heat),
+            None if idx is None else _p(idx))
+    return (heat, idx) if index else heat
+
+
+def ambient_temperature(r, rs, q, tsink4, act, active, temp_inf, disc):
+    """K30: (N,) T_amb of particles r (N, 3) from the slots rs (Ns, 3)
+    with their factors q = 0.25 r_src^2 and T_sink^4 (Ns,), the sink
+    sum's mask act and the disc's active (Ns,) bool; `disc` a
+    DiscHeatingConfig or None."""
+    N, Ns = _gas_and_slots(r, rs, act)
+    dt, dev = r.dtype, r.device
+    _check(q, "q", dt, (Ns,))
+    _check(tsink4, "tsink4", dt, (Ns,))
+    _check(active, "active", torch.bool, (Ns,))
+    nc = 0 if disc is None else min(int(disc.n_central), Ns)
+    tau4 = rs2 = expo = 0.0
+    if disc is not None:
+        tau4, rs2 = disc.temp_au ** 4, disc.rsmooth ** 2
+        expo = -2.0 * disc.temp_q
+    out = torch.empty((N,), dtype=dt, device=dev)
+    _launch("ambient_temperature", dt, dev, _p(r), N, _p(rs), _p(q),
+            _p(tsink4), _p(act), Ns, float(temp_inf) ** 4, nc, _p(active),
+            float(tau4), float(rs2), float(expo), _p(out))
+    return out

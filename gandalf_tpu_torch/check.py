@@ -53,6 +53,13 @@ SM2012 tests, ``plummer_stars_params`` the hybrid Plummer sphere with
 accreting stars, ``extpot_box_params`` the external-potential box, and ``compare_sm2012_kernels`` compares K25 and K26 with
 their plain versions on ``sm2012_kernel_inputs`` (synthetic, with the
 edge cases) or a simulation's state.
+``radws_params`` puts a configuration on the RadWS thermodynamics and
+``radfb_params`` adds radiative feedback; ``compare_radws_kernels``
+compares K27-K29 with their plain versions on ``radws_kernel_inputs``
+(the synthetic ideal table or ``nonideal_table``, with both clamps) or
+``radws_sim_inputs`` (a simulation's state), counting the elements
+whose table indices differ, and ``compare_ambient_kernels`` compares
+K30 on ``ambient_kernel_inputs`` or a simulation's particles and slots.
 ``chip_smoke.py`` and the CUDA tests use them.
 """
 
@@ -2756,3 +2763,438 @@ def compare_sm2012_kernels(kern, visc, gamma, h_fac, h_converge, spec,
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
+
+
+# ---------------------------------------------------------------------------
+# RadWS and radiative feedback: K27-K30
+# ---------------------------------------------------------------------------
+
+# K27-K29 against their plain versions, on the elements whose table
+# indices agree.  float64: both evaluate the same formulas in the same
+# rounded steps; log10 and pow may differ by an ulp between the card's
+# kernel and torch's, which moves a value by far less than 1e-12 and an
+# index only where its argument lies within an ulp of a midpoint between
+# grid points: none is expected, so the gate asks for equal indices.
+# float32: the same ulps of log10f and powf (6e-8 relative) flip an
+# index where the argument lies within them of a midpoint, and a flip
+# moves a value by a whole table step (5/127 dex of T on the synthetic
+# table) and, inside a bisection, the rest of its path.  A flip is
+# counted, not hidden: at most TOL_RADWS_FLIP_FRACTION of the elements,
+# as TOL_TREE_FLIP_FRACTION allows MAC flips; every other element within
+# TOL_F32_RADWS relative, the rounding of the few operations after the
+# last gather.  K30: the slot sum of positive terms in slot order on
+# the card and in torch.sum's order on the host; each term rounded at
+# 6e-8 in float32, the sum at up to sqrt(Ns) 6e-8 relative (4e-6 at
+# 4,096 slots), the fourth root a quarter of that: TOL_F32_AMBIENT; in
+# float64 TOL_F64_RADWS.
+TOL_F64_RADWS = 1e-12
+TOL_F32_RADWS = 1e-5
+TOL_RADWS_FLIP_FRACTION = 1e-4
+TOL_F32_AMBIENT = 1e-5
+# Operations of K27-K30, counted as FLOPS_PER counts the others: a log10
+# or a pow counts 20 ("radws_transcendental"), a step of a binary search
+# 3 and the nearer-neighbour pick 4, an entry of the u -> T row count 2;
+# the energy balance 12 (T^4, the difference, the products, the
+# reciprocal, the sum, the division and the difference), K29's u(T) and
+# g 5 more, a bisection step's midpoint and selects 4, K27's P and c 6,
+# K28's col2, T_amb^4 and dt_therm 12, K29's col2, T_amb^4 and edge
+# selects 8.  K30 per (particle, slot) pair with the slot in the sum 13
+# (separation, d^2, the floor, the division, the product and the sum),
+# per pair outside it 1 (the mask test), per (particle, central slot)
+# pair of the disc term 28 with its pow, per particle 22 (T_inf^4's sum
+# and the fourth root).
+FLOPS_PER.update({
+    "radws_transcendental": 20, "radws_search_step": 3, "radws_pick": 4,
+    "radws_count": 2, "radws_ebalance": 12, "radws_implicit_g": 5,
+    "radws_bisect_step": 4, "radws_eos_tail": 6, "radws_find_tail": 12,
+    "radws_implicit_tail": 8, "ambient_pair": 13, "ambient_skip": 1,
+    "ambient_disc": 28, "ambient_particle": 22,
+})
+
+
+def radws_params(params: Parameters, press1: float = 66.67,
+                 temp_ambient: float = 10.0) -> Parameters:
+    """`params` on the radws thermodynamics of tests/test_radws.py's hot
+    box (:18-37): gas_eos = energy_integration = radws, gamma 5/3,
+    mu_bar 1, press1 (None keeps the configuration's) and temp_ambient
+    as given; radws_table stays the default eos.bell.cc.dat, which the
+    repository does not hold, so both packages take the synthetic
+    ideal-gas, constant-opacity table."""
+    p = params.copy()
+    for k, v in {"gas_eos": "radws", "energy_integration": "radws",
+                 "gamma_eos": 5.0 / 3.0, "mu_bar": 1.0,
+                 "temp_ambient": temp_ambient}.items():
+        p.set(k, v)
+    if press1 is not None:
+        p.set("press1", press1)
+    return p
+
+
+def radfb_params(params: Parameters, disc_heating: int = 1,
+                 sink_heating: int = 1, ambient_heating: int = 1,
+                 temp_ambient: float = 1.0,
+                 r_source: float = 0.01) -> Parameters:
+    """`params` (a configuration with sinks or stars) on radws with
+    radiative feedback: rad_fb = 1 with the sink, ambient and disc
+    heating flags given, and, as tests/test_radws.py's dimensionless
+    feedback runs take them, temp_ambient 1 and every class's source
+    radius `r_source` (r_star, r_bdwarf and r_planet are solar radii
+    only in physical units)."""
+    p = radws_params(params, press1=None, temp_ambient=temp_ambient)
+    for k, v in {"rad_fb": 1, "sink_heating": sink_heating,
+                 "ambient_heating": ambient_heating,
+                 "disc_heating": disc_heating, "r_star": r_source,
+                 "r_bdwarf": r_source, "r_planet": r_source}.items():
+        p.set(k, v)
+    return p
+
+
+def nonideal_table(device, dtype, nd: int = 12, nt: int = 128):
+    """An opacity table built in code whose every column varies: log rho
+    in [-10, 2], log T in [0.5, 5]; mu falls from 2.35 to 0.6 and gamma
+    from 5/3 through 1.4 to 1.1 with T (and with rho), u = T/((gamma-1)
+    mu) with a ripple, kappa and kappa_p power laws in rho and T with a
+    break, and density row 3's energies 60-63 reversed, so that row is
+    not monotone (the u -> T count and a binary search disagree there).
+    rad_const 1, temp_min 3, temp_ambient 10, fcol2 4 pi."""
+    from .ops.radws import OpacityTable
+
+    ld = np.linspace(-10.0, 2.0, nd)
+    lt = np.linspace(0.5, 5.0, nt)
+    LD, LT = np.meshgrid(ld, lt, indexing="ij")
+    T = 10.0 ** LT
+    x = np.tanh((LT - 3.3 - 0.05 * LD) / 0.4)
+    mu = 1.475 - 0.875 * x
+    gamma = np.where(LT < 2.5, 5.0 / 3.0 - 0.27 * (LT / 2.5) ** 2,
+                     1.4 - 0.3 * (LT - 2.5) / 2.5)
+    energy = T / ((gamma - 1.0) * mu) * (1.0 + 0.05 * np.sin(3.0 * LT))
+    energy[3, 60:64] = energy[3, 60:64][::-1].copy()
+    kappa = 10.0 ** (0.3 * LD + np.where(LT < 2.0, 2.0 * (LT - 2.0),
+                                         -1.5 * (LT - 2.0)))
+    kappap = 2.0 * kappa
+    kw = dict(dtype=dtype, device=device)
+    return OpacityTable(
+        log_dens=torch.as_tensor(ld, **kw), log_temp=torch.as_tensor(lt, **kw),
+        **{k: torch.as_tensor(v, **kw).contiguous() for k, v in
+           (("energy", energy), ("mu", mu), ("kappa", kappa),
+            ("kappap", kappap), ("gamma", gamma))},
+        fcol2=4.0 * math.pi, rad_const=1.0, temp_min=3.0, temp_ambient=10.0)
+
+
+def radws_kernel_inputs(n: int, device, dtype, table: str = "ideal",
+                        seed: int = 11):
+    """Synthetic inputs of K27-K29 (a dict: table, rho, u, dudt, gpot,
+    temp_amb (N,), dt (N,)) on the synthetic ideal table
+    (make_ideal_table) or nonideal_table(): rho log-uniform over a decade
+    beyond each end of the density grid, u log-uniform from below the
+    lowest tabulated energy to above the highest, du/dt N(0, 1) u with
+    3% at -1e6 (net cooling at T_min: the clamp to T_min) and 3% at +1e22
+    (net heating at the table's top: the clamp to the top), gpot uniform
+    in [-1, 5] (negative ones give col2 = 0), T_amb log-uniform in [0.5,
+    1e4], and dt log-uniform in [1e-6, 1]."""
+    from .ops.radws import make_ideal_table
+
+    tab = (make_ideal_table(device=device, dtype=dtype) if table == "ideal"
+           else nonideal_table(device, dtype))
+    rng = np.random.default_rng(seed)
+    ld = tab.log_dens.double().cpu().numpy()
+    e = tab.energy.double().cpu().numpy()
+    rho = 10.0 ** rng.uniform(ld[0] - 1.0, ld[-1] + 1.0, n)
+    u = 10.0 ** rng.uniform(np.log10(e.min()) - 0.5,
+                            np.log10(e.max()) + 0.5, n)
+    dudt = rng.standard_normal(n) * u
+    pick = rng.random(n)
+    dudt[pick < 0.03] = -1e6
+    dudt[pick > 0.97] = 1e22
+    out = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in (
+        ("rho", rho), ("u", u), ("dudt", dudt),
+        ("gpot", rng.uniform(-1.0, 5.0, n)),
+        ("temp_amb", 10.0 ** rng.uniform(np.log10(0.5), 4.0, n)),
+        ("dt", 10.0 ** rng.uniform(-6.0, 0.0, n)))}
+    out["table"] = tab
+    return out
+
+
+def _radws_ops(table, kind: str) -> int:
+    """Operations per element of K27 ("eos"), K28 ("find") or K29
+    ("implicit") on `table` (FLOPS_PER's radws_* counts)."""
+    F = FLOPS_PER
+    nd, nt = table.log_dens.shape[0], table.log_temp.shape[0]
+
+    def lookup(n):          # log10, the search and the pick
+        return (F["radws_transcendental"] + F["radws_pick"]
+                + (math.ceil(math.log2(n)) + 1) * F["radws_search_step"])
+
+    t_of_u = nt * F["radws_count"] + F["radws_pick"] \
+        + F["radws_transcendental"]
+    if kind == "eos":
+        return lookup(nd) + t_of_u + lookup(nt) + F["radws_eos_tail"]
+    f_eval = lookup(nt) + F["radws_ebalance"]
+    step = F["radws_bisect_step"] + F["radws_transcendental"] + f_eval
+    edges = 3 * F["radws_transcendental"]       # the top's pow, two logs
+    if kind == "find":
+        return (lookup(nd) + t_of_u + edges + 2 * f_eval + 30 * step
+                + F["radws_transcendental"] + 2 * lookup(nt)
+                + F["radws_ebalance"] + F["radws_find_tail"])
+    g_eval = f_eval + F["radws_implicit_g"]
+    step = F["radws_bisect_step"] + F["radws_transcendental"] + g_eval
+    return (lookup(nd) + edges + 2 * g_eval + 40 * step
+            + F["radws_transcendental"] + g_eval + F["radws_implicit_tail"])
+
+
+def _rel_errs(x, y):
+    """Elementwise |x - y| / |y| (|x - y| where y = 0; 0 where x == y,
+    infinities included)."""
+    d = torch.abs(x - y)
+    d = torch.where(x == y, torch.zeros_like(d), d)
+    return torch.where(y != 0, d / torch.abs(y), d)
+
+
+def _flip_report(name, got, want, idx_k, idx_p, f64, extra):
+    """A report of K27-K29: flips (index differs), the largest relative
+    error of each output over the other elements, ok."""
+    flip = idx_k != idx_p
+    keep = ~flip
+    n = idx_k.numel()
+    n_flip = int(flip.sum())
+    errs = {k: float(_rel_errs(x, y)[keep].max()) if n_flip < n else 0.0
+            for k, x, y in zip(name, got, want)}
+    prim = torch.abs(got[0] - want[0])[keep]
+    rep = {"N": n, "flips": n_flip, "flip_share": n_flip / max(n, 1),
+           "rel_err": errs,
+           "max_abs_err": float(prim.max()) if prim.numel() else 0.0,
+           **extra}
+    if f64:
+        rep["ok"] = n_flip == 0 and max(errs.values()) <= TOL_F64_RADWS
+    else:
+        rep["ok"] = (n_flip / max(n, 1) <= TOL_RADWS_FLIP_FRACTION
+                     and max(errs.values()) <= TOL_F32_RADWS)
+    return rep
+
+
+def _branches(index, dtype):
+    """The dtype and how many elements K28's or K29's plain index puts
+    at T_min (branch 1) and at the table's top (branch 2)."""
+    branch = index % 3
+    return {"dtype": str(dtype), "at_t_min": int((branch == 1).sum()),
+            "at_top": int((branch == 2).sum())}
+
+
+def compare_radws_kernels(inputs, repeats: int = 0, dense_shape=None,
+                          dense=None):
+    """Run K27, K28 and K29 and their plain versions on the same CUDA
+    tensors (a dict from radws_kernel_inputs, or a simulation's fields
+    with its table), each with its index output; returns {case: report}
+    for K27 on the flat inputs (and, with `dense_shape` (cells, K), on
+    the first prod(dense_shape) elements in that shape with every fifth
+    slot empty: rho 1e-30 and u 0), K28 with the table's scalar T_amb
+    and with the per-element field, K29 with a scalar dt and per-element
+    dt and T_amb.  `dense`, a grid pass's own (rho_d, u_d) from
+    radws_dense_inputs, makes K27's first case "radws_eos" and the flat
+    one "radws_eos_flat".  A report holds the flips, the errors over the
+    other elements, `ok`, `work`, the dtype and, with `repeats`, ms and
+    plain_ms (the first case of each kernel, which chip_smoke.py keys by
+    the kernel's name); library_ms null.  Launch counts are restored
+    afterwards."""
+    from .ops import radws as rw
+
+    saved = dict(_ext.LAUNCHES)
+    tab = inputs["table"]
+    rho, u, dudt, gpot = (inputs[k] for k in ("rho", "u", "dudt", "gpot"))
+    tamb, dt = inputs["temp_amb"], inputs["dt"]
+    f64 = rho.dtype == torch.float64
+    tb = _nbytes(*(getattr(tab, k) for k in rw.OpacityTable.ARRAYS))
+    out, timed = {}, {}
+    eos_cases = {"radws_eos": (rho, u)} if dense is None else {
+        "radws_eos": dense, "radws_eos_flat": (rho, u)}
+    if dense_shape is not None:
+        k = int(np.prod(dense_shape))
+        empty = torch.arange(k, device=rho.device) % 5 == 4
+        rho_d = torch.where(empty, 1e-30, rho[:k]).reshape(dense_shape)
+        u_d = torch.where(empty, 0.0, u[:k]).reshape(dense_shape)
+        eos_cases["radws_eos_dense"] = (rho_d, u_d)
+    for name, (r_, u_) in eos_cases.items():
+        got = rw.radws_eos(tab, r_, u_, index=True)
+        want = rw.radws_eos_plain(tab, r_, u_, index=True)
+        out[name] = _flip_report(("P", "c"), got[:2], want[:2], got[2],
+                                 want[2], f64, {"dtype": str(rho.dtype),
+                                                "shape": list(r_.shape)})
+        out[name]["work"] = {"bytes": _nbytes(r_, u_, *got[:2]) + tb,
+                             "flops": r_.numel() * _radws_ops(tab, "eos")}
+        timed.setdefault("radws_eos", (
+            lambda a=r_, b=u_: rw.radws_eos(tab, a, b),
+            lambda a=r_, b=u_: rw.radws_eos_plain(tab, a, b)))
+    amb0 = torch.tensor(tab.temp_ambient, dtype=rho.dtype, device=rho.device)
+    for name, ta in (("radws_equilibrium", amb0),
+                     ("radws_equilibrium_field", tamb)):
+        got = rw.energy_find_equi(tab, rho, u, dudt, gpot, ta, index=True)
+        want = rw.energy_find_equi_plain(tab, rho, u, dudt, gpot, ta,
+                                         index=True)
+        out[name] = _flip_report(("ueq", "dt_therm"), got[:2], want[:2],
+                                 got[2], want[2], f64,
+                                 _branches(want[2], rho.dtype))
+        out[name]["work"] = {
+            "bytes": _nbytes(rho, u, dudt, gpot, ta, *got[:2]) + tb,
+            "flops": rho.numel() * _radws_ops(tab, "find")}
+    timed["radws_equilibrium"] = (
+        lambda: rw.energy_find_equi(tab, rho, u, dudt, gpot, amb0),
+        lambda: rw.energy_find_equi_plain(tab, rho, u, dudt, gpot, amb0))
+    dt0 = dt[:1].reshape(())
+    for name, d_, ta in (("radws_implicit_heating", dt0, amb0),
+                         ("radws_implicit_heating_field", dt, tamb)):
+        got = rw.radws_implicit_heating(tab, rho, u, dudt, gpot, d_, ta,
+                                        index=True)
+        want = rw.radws_implicit_heating_plain(tab, rho, u, dudt, gpot, d_,
+                                               ta, index=True)
+        out[name] = _flip_report(("heat",), got[:1], want[:1], got[1],
+                                 want[1], f64, _branches(want[1], rho.dtype))
+        out[name]["work"] = {
+            "bytes": _nbytes(rho, u, dudt, gpot, d_, ta, got[0]) + tb,
+            "flops": rho.numel() * _radws_ops(tab, "implicit")}
+    timed["radws_implicit_heating"] = (
+        lambda: rw.radws_implicit_heating(tab, rho, u, dudt, gpot, dt0, amb0),
+        lambda: rw.radws_implicit_heating_plain(tab, rho, u, dudt, gpot, dt0,
+                                                amb0))
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    for r in out.values():
+        r["library_ms"] = None
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def ambient_kernel_inputs(n: int, n_slots: int, device, dtype,
+                          seed: int = 13):
+    """Synthetic inputs of K30 (a dict: r (N, 3), the slots' r, m, mdot,
+    rad (sink radius) and active, and the SinkHeatingConfig): particles
+    in the unit cube; slot masses cycling through the three classes
+    (planet 5 M_J, brown dwarf 40 M_J, star 0.25 msun, M_J = 9.546e-4
+    msun) with mdot log-uniform, the last eighth of the slots inactive
+    and empty; particle 0 on active slot 1's position (d = 0, the 1e-30
+    floor) and particle 1 on an inactive slot's."""
+    from .ops.radiative_fb import SinkHeatingConfig
+
+    rng = np.random.default_rng(seed)
+    r = rng.random((n, 3))
+    n_act = n_slots - n_slots // 8
+    rs = rng.random((n_slots, 3))
+    mj = 9.546e-4
+    m = np.array([5.0 * mj, 40.0 * mj, 0.25])[np.arange(n_slots) % 3]
+    mdot = 10.0 ** rng.uniform(-4.0, 0.0, n_slots)
+    rad = np.full(n_slots, 0.02)
+    active = np.arange(n_slots) < n_act
+    m[~active], mdot[~active] = 0.0, 0.0
+    r[0] = rs[min(1, n_slots - 1)]
+    r[1] = rs[-1]
+    kw = dict(dtype=dtype, device=device)
+    return {"r": torch.as_tensor(r, **kw), "rs": torch.as_tensor(rs, **kw),
+            "m": torch.as_tensor(m, **kw), "mdot": torch.as_tensor(mdot, **kw),
+            "rad": torch.as_tensor(rad, **kw),
+            "active": torch.as_tensor(active, device=device),
+            "cfg": SinkHeatingConfig(temp_inf=5.0, r_star=0.01,
+                                     r_bdwarf=0.005, r_planet=0.002)}
+
+
+def _disc(n_central):
+    from .ops.radiative_fb import DiscHeatingConfig
+
+    return DiscHeatingConfig(temp_au=250.0, temp_q=0.75, rsmooth=0.01,
+                             n_central=n_central)
+
+
+# (name, sink_heating, DiscHeatingConfig or None) of compare_ambient_kernels
+AMBIENT_CASES = (("sinks", 1, None), ("disc_1", 1, _disc(1)),
+                 ("disc_2", 1, _disc(2)), ("sink_heating_off", 0, _disc(1)))
+
+
+def compare_ambient_kernels(inputs, repeats: int = 0, cases=AMBIENT_CASES):
+    """Run K30 and its plain version on the same CUDA tensors (a dict
+    from ambient_kernel_inputs, or a simulation's particles and slots
+    with its SinkHeatingConfig): per case (name, sink_heating, n_central
+    config or None) the per-slot factors are computed once (the O(Ns)
+    torch pass) and both versions take them; the sink sum's mask is the
+    active slots (none with sink_heating off) past the central ones.  Each
+    report holds the largest relative error (TOL_F64_RADWS,
+    TOL_F32_AMBIENT), `ok`, `work` and, with `repeats`, ms and plain_ms
+    for the first case; library_ms null.  Launch counts are restored."""
+    from .ops import radiative_fb as fb
+
+    saved = dict(_ext.LAUNCHES)
+    r, rs = inputs["r"], inputs["rs"]
+    f64 = r.dtype == torch.float64
+    cfg = inputs["cfg"]
+    q, ts4 = fb._sink_terms(cfg, inputs["m"], inputs["mdot"], inputs["rad"])
+    N, Ns = r.shape[0], rs.shape[0]
+    out, timed = {}, {}
+    for name, heating, disc in cases:
+        active = inputs["active"] if heating \
+            else torch.zeros_like(inputs["active"])
+        act = active if disc is None else active & (
+            torch.arange(Ns, device=r.device) >= disc.n_central)
+        args = (r, rs, q, ts4, act, active, cfg.temp_inf, disc)
+        got = _ext.ambient_temperature(*args)
+        want = fb.combined_ambient_temperature_plain(cfg, disc, r, rs, q, ts4,
+                                                     act, active)
+        err = float(_rel_errs(got, want).max())
+        n_sum = int(act.sum())
+        n_disc = 0 if disc is None else int(active[:disc.n_central].sum())
+        flops = N * (n_sum * FLOPS_PER["ambient_pair"]
+                     + (Ns - n_sum) * FLOPS_PER["ambient_skip"]
+                     + n_disc * FLOPS_PER["ambient_disc"]
+                     + FLOPS_PER["ambient_particle"])
+        out[f"ambient_temperature_{name}"] = {
+            "N": N, "Ns": Ns, "slots_in_sum": n_sum, "disc_slots": n_disc,
+            "dtype": str(r.dtype), "rel_err": err,
+            "max_abs_err": float(torch.abs(got - want).max()),
+            "ok": err <= (TOL_F64_RADWS if f64 else TOL_F32_AMBIENT),
+            "work": _work((r, rs, q, ts4, act, active), (got,), flops)}
+        if not timed:
+            timed[f"ambient_temperature_{name}"] = (
+                lambda a=args: _ext.ambient_temperature(*a),
+                lambda d=disc, a=act, b=active:
+                    fb.combined_ambient_temperature_plain(cfg, d, r, rs, q,
+                                                          ts4, a, b))
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    for rep in out.values():
+        rep["library_ms"] = None
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def radws_dense_inputs(sim):
+    """K27's inputs in a grid pass of a simulation's state (no mirror
+    planes): the (*ncells, K) slots of its binning, rho clamped to 1e-30
+    (empty and dead slots rho 1 from the density finish) and u (0 in
+    empty slots), as hydro_pass_grid27 gives them to the EOS."""
+    s, spec = sim.state, sim.gridspec
+    b = g27.bin_particles_plain(spec, s.r)
+    fill = g27.dense_fill_mask(spec, b)
+    alive = getattr(s, "alive", None)
+    if alive is not None:
+        fill = fill & g27.to_dense(spec, b, alive)
+    rho_d = torch.where(fill, g27.to_dense(spec, b, s.rho), 1.0)
+    return torch.clamp_min(rho_d, 1e-30), g27.to_dense(spec, b, s.u)
+
+
+def radws_sim_inputs(sim):
+    """K27-K29's inputs at a simulation's state (its alive particles; an
+    MFV state's all, with du/dt 0 as its cooling takes it): its table,
+    rho, u, du/dt, gpot, the table's T_amb as a field and its dt per
+    particle."""
+    s = sim.state
+    alive = getattr(s, "alive", None)
+    if alive is None:
+        alive = torch.ones_like(s.rho, dtype=torch.bool)
+    dudt = getattr(s, "dudt", None)
+    if dudt is None:
+        dudt = torch.zeros_like(s.u)
+    n = int(alive.sum())
+    return {"table": sim.eos.table, "rho": s.rho[alive].contiguous(),
+            "u": s.u[alive].contiguous(), "dudt": dudt[alive].contiguous(),
+            "gpot": s.gpot[alive].contiguous(),
+            "temp_amb": torch.full((n,), sim.eos.table.temp_ambient,
+                                   dtype=s.rho.dtype, device=s.rho.device),
+            "dt": s.dt.expand(n).contiguous()}

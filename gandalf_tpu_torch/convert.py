@@ -11,7 +11,9 @@ goes back).
 ``Grid27Spec`` or ``TreeSpec`` field for field (the TreeSpec's MAC and
 fast-multipole fields included); ``ewald_table_from_jax`` copies a JAX
 ``EwaldTable`` into the port's (float64 numpy arrays and the same
-metadata); ``schedule_from_jax``
+metadata), ``opacity_table_from_jax`` a JAX RadWS ``OpacityTable`` into
+the port's (tensors on a device in a dtype, Python float scalars);
+``schedule_from_jax``
 copies a JAX ``BlockSchedule`` and ``schedule_to_jax`` gives a port
 schedule's fields as numpy arrays in the JAX package's types (for
 ``BlockSchedule(**{k: jnp.asarray(v) ...})``).  Nothing here imports
@@ -28,6 +30,7 @@ import torch
 
 from .integrate.block import BlockSchedule
 from .ops.ewald import EwaldTable
+from .ops.radws import OpacityTable
 from .ops.sinks import SinkState
 from .ops.sph_grid27 import Grid27Spec
 from .ops.tree import TreeSpec
@@ -166,6 +169,20 @@ def ewald_table_from_jax(table) -> EwaldTable:
         per_axes=tuple(table.per_axes), L_per=float(table.L_per),
         area=float(table.area), pot_const=float(table.pot_const),
         far_thresh=table.far_thresh)
+
+
+def opacity_table_from_jax(table, device="cpu",
+                           dtype=torch.float64) -> OpacityTable:
+    """The port's OpacityTable from a JAX one (read through its
+    attributes): the arrays on `device` in `dtype`, the scalars as
+    Python floats."""
+    return OpacityTable(
+        **{k: torch.as_tensor(np.array(getattr(table, k)), device=device,
+                              dtype=dtype).contiguous()
+           for k in OpacityTable.ARRAYS},
+        **{k: float(getattr(table, k)) for k in ("fcol2", "rad_const",
+                                                 "temp_min",
+                                                 "temp_ambient")})
 
 
 _SCHED_INT = ("n", "level_max", "nresync", "nstep_part")

@@ -3,7 +3,8 @@
 Counterpart of ``gandalf_tpu/integrate/block.py`` (``BlockSchedule``,
 ``BlockConfig``, ``compute_timestep_level``, ``init_schedule``,
 ``advance``, ``check_timesteps``, ``end_timestep``, ``ladder_update``)
-for the SPH leapfrog KDK with ``u_mode`` "energy" or "none".  Every
+for the SPH leapfrog KDK with ``u_mode`` "energy", "radws" or "none".
+Every
 branch is a masked update over all particles, as in the JAX package:
 
 - integer tick counter ``n``, base tick ``dt_base = dt_max / nresync``;
@@ -32,6 +33,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..ops.radws import radws_energy_integration
 from ..state import SphState
 
 Tensor = torch.Tensor
@@ -105,11 +107,11 @@ def init_schedule(cfg: BlockConfig, s: SphState, dt_part: Tensor,
 def advance(s: SphState, B: BlockSchedule, u_mode: str
             ) -> Tuple[SphState, Tensor, Tensor]:
     """One tick of drift for every particle.  Returns (state, active
-    mask, new t); `u_mode` is "energy" (u integrated forward from du/dt)
-    or "none"."""
-    if u_mode not in ("energy", "none"):
-        raise NotImplementedError(f"u_mode {u_mode!r} is not ported yet "
-                                  "(ROADMAP queue 1, item 9)")
+    mask, new t); `u_mode` is "energy" (u integrated forward from du/dt),
+    "radws" (u relaxed from u0 toward ueq over the particle's own time
+    since its step began, EnergyRadws::EnergyIntegration) or "none"."""
+    if u_mode not in ("energy", "radws", "none"):
+        raise ValueError(f"unknown u_mode {u_mode!r}")
     n = B.n + 1
     t = s.t + B.dt_base
     dtp = (t - s.tlast)[:, None]
@@ -117,6 +119,9 @@ def advance(s: SphState, B: BlockSchedule, u_mode: str
            "v": s.v0 + s.a0 * dtp}
     if u_mode == "energy":
         out["u"] = s.u0 + s.dudt0 * dtp[:, 0]
+    elif u_mode == "radws":
+        out["u"] = radws_energy_integration(s.u0, s.ueq, s.dt_therm,
+                                            dtp[:, 0])
     active = ((n - s.nlast) == B.nstep_part) & s.alive
     return s.replace(**out), active, t
 
@@ -160,6 +165,11 @@ def end_timestep(cfg: BlockConfig, s: SphState, B: BlockSchedule,
         u = torch.where(active, u, s.u)
         upd["u"] = u
         upd["u0"] = torch.where(active, u, s.u0)
+        upd["dudt0"] = torch.where(active, s.dudt, s.dudt0)
+    elif u_mode == "radws":
+        # advance() wrote u; the particles ending their step start the
+        # next relaxation from it (EnergyRadws::EndTimestep)
+        upd["u0"] = torch.where(active, s.u, s.u0)
         upd["dudt0"] = torch.where(active, s.dudt, s.dudt0)
     dt_next = torch.where(active, dt_crit, B.dt_next)
     lad, B = ladder_update(cfg, B, s.alive, active, level, s.levelneib,

@@ -1,21 +1,27 @@
-"""Equation of state: the adiabatic (`energy_eqn`), isothermal, barotropic
-and polytropic EOS.
+"""Equation of state: the adiabatic (`energy_eqn`), isothermal,
+barotropic, polytropic and radws EOS.
 
 Counterpart of ``gandalf_tpu/ops/eos.py`` (``EOS``, ``Adiabatic``,
-``Isothermal``, ``Barotropic``, ``Polytropic``, ``eos_factory``) for the
-EOS of the ported slices, elementwise torch.  Pressure is (gamma-1)*rho*u
-(K*rho^eta for the polytrope); the adiabatic sound speed is
-sqrt(gamma*(gamma-1)*u), the others' sqrt((gamma-1)*u).  The locally
-isothermal family (it reads the star positions, which the JAX package's
-grid passes do not give its EOS: fault F20), radws and the radiation
-wrappers raise NotImplementedError naming their ROADMAP item.
+``Isothermal``, ``Barotropic``, ``Polytropic``, ``Radws``,
+``eos_factory``) for the EOS of the ported slices.  Pressure is
+(gamma-1)*rho*u (K*rho^eta for the polytrope); the adiabatic sound speed
+is sqrt(gamma*(gamma-1)*u), the others' sqrt((gamma-1)*u), all
+elementwise torch.  The radws EOS reads gamma from its opacity table at
+the nearest (rho, T(u)) entry through ``ops/radws.py:radws_eos`` (K27 on
+CUDA tensors).  The locally isothermal family (it reads the star
+positions, which the JAX package's grid passes do not give its EOS:
+fault F20) and the radiation wrappers raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
+
+from .radws import make_ideal_table, radws_eos, read_opacity_table
 
 Tensor = torch.Tensor
 
@@ -103,10 +109,35 @@ class Polytropic(EOS):
         return torch.sqrt(self.gammam1 * u)
 
 
-def eos_factory(params) -> EOS:
+@dataclasses.dataclass(frozen=True, eq=False)
+class Radws(EOS):
+    """Opacity-table EOS with variable gamma (src/Thermal/RadwsEOS.cpp):
+    P = (gamma(rho,T) - 1) rho u, c = sqrt(gamma (gamma-1) u), u kept."""
+
+    table: object = None
+
+    def specific_internal_energy(self, rho, u):
+        return u
+
+    def pressure(self, rho, u):
+        return radws_eos(self.table, rho, u)[0]
+
+    def sound_speed(self, rho, u):
+        return radws_eos(self.table, rho, u)[1]
+
+    def thermal_update(self, rho, u):
+        p, c = radws_eos(self.table, rho, u)
+        return u, p, c
+
+
+def eos_factory(params, device="cpu", dtype=torch.float64) -> EOS:
     """Build the EOS named by `gas_eos` without a radiation wrapper:
     `energy_eqn` (and its alias `constant_temp`), `isothermal`,
-    `barotropic` and `polytropic`."""
+    `barotropic`, `polytropic` and `radws`, whose opacity table
+    (`radws_table`, the reference's text format) is read onto `device`
+    in `dtype`; when the file is missing, a warning, and the synthetic
+    ideal-gas, constant-opacity table at gamma_eos, mu_bar and
+    temp_ambient."""
     name = params.stringparams["gas_eos"]
     if params.stringparams["radiation"] not in ("none", "null", ""):
         raise NotImplementedError(
@@ -116,6 +147,17 @@ def eos_factory(params) -> EOS:
     gamma, mu_bar = fp["gamma_eos"], fp["mu_bar"]
     if name in ("energy_eqn", "constant_temp"):
         return Adiabatic(gamma=gamma, mu_bar=mu_bar)
+    if name == "radws":
+        path = params.stringparams["radws_table"]
+        temp_amb = fp["temp_ambient"]
+        kw = dict(temp_ambient=temp_amb, device=device, dtype=dtype)
+        if os.path.exists(path):
+            table = read_opacity_table(path, **kw)
+        else:
+            print(f"WARNING: radws_table {path!r} not found; using a "
+                  "synthetic ideal-gas/constant-opacity table")
+            table = make_ideal_table(gamma=gamma, mu_bar=mu_bar, **kw)
+        return Radws(gamma=gamma, mu_bar=mu_bar, table=table)
     if name == "isothermal":
         return Isothermal(gamma=gamma, mu_bar=mu_bar, temp0=fp["temp0"])
     if name == "barotropic":

@@ -13,6 +13,8 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --cd2010
     python -m gandalf_tpu_torch.profile_step --dust [--dust-case C]
     python -m gandalf_tpu_torch.profile_step --sm2012 [--khi]
+    python -m gandalf_tpu_torch.profile_step --radws [--mfv]
+    python -m gandalf_tpu_torch.profile_step --radfb
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -48,12 +50,17 @@ gravity) in float32, as the SPH box; --dust-case box takes the 3D dusty
 box at 64^3 gas + 64^3 dust (check.dustybox_params) instead.  With
 --sm2012: the SPH box (self-gravitating unless --self-gravity 0), or
 with --khi the KHI, through SM2012SphSimulation (K25, K26 in place of
-K2, K3).
+K2, K3).  With --radws: the SPH box (self-gravitating unless
+--self-gravity 0), or with --mfv the MFV box, on the radws
+thermodynamics (check.radws_params: K27 and K28, or K27 and K29 in
+MFV).  With --radfb: the hybrid Plummer sphere of 262,144 gas particles
+and 4 stars on radws with radiative feedback (check.radfb_params;
+K27, K28 and K30 beside the sink path's kernels), as the SPH box.
 Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
 the device time summed over kernels and copies, the device's idle share
-of the window, the device time of each of K1-K26 and of the torch glue
+of the window, the device time of each of K1-K30 and of the torch glue
 between them, and the device time per kernel name (largest first); with
 --block also the active rows per tick.  Refuses to run without CUDA.
 """
@@ -72,7 +79,7 @@ N_SIDE = 64
 STEPS = 8
 BLOCK_N = 262144
 BLOCK_WARM = 4
-# device kernel names of K1-K26 (csrc/); every other device event is glue
+# device kernel names of K1-K30 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -105,6 +112,10 @@ FAMILIES = {
     "K24 dust_drag_deposit": ("dust_deposit_kernel",),
     "K25 sm2012_density": ("sm2012_density_kernel",),
     "K26 sm2012_forces": ("sm2012_forces_kernel",),
+    "K27 radws_eos": ("radws_eos_kernel",),
+    "K28 radws_equilibrium": ("radws_equilibrium_kernel",),
+    "K29 radws_implicit_heating": ("radws_implicit_kernel",),
+    "K30 ambient_temperature": ("ambient_kernel",),
 }
 DUST_NHYDRO = 131072
 NBODY_N = 65536
@@ -182,8 +193,8 @@ def _profile_window(sim, args, before: int) -> int:
             "block_sinks": args.block_sinks, "cd2010": args.cd2010,
             "mirror": args.layout if args.mirror else None,
             "dust": args.dust_case if args.dust else None,
-            "sm2012": args.sm2012,
-            "ndim": sim.ndim,
+            "sm2012": args.sm2012, "radws": args.radws,
+            "radfb": args.radfb, "ndim": sim.ndim,
             "sinks_active": (int(sim.state.sinks.active.sum())
                              if getattr(sim, "has_sinks", False) else 0),
             "self_gravity": int(sim.self_gravity),
@@ -244,6 +255,12 @@ def main(argv=None) -> int:
     ap.add_argument("--sm2012", action="store_true",
                     help="the SPH box, or with --khi the KHI, through "
                          "SM2012SphSimulation")
+    ap.add_argument("--radws", action="store_true",
+                    help="the SPH box, or with --mfv the MFV box, on radws "
+                         "(radws_box, radws_mfv_box)")
+    ap.add_argument("--radfb", action="store_true",
+                    help="the Plummer sphere with 4 stars on radws with "
+                         "radiative feedback (radfb_cluster)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
@@ -251,7 +268,8 @@ def main(argv=None) -> int:
                         bb_params, dust_params, dustybox_params,
                         jeans_params,
                         jittered_box_ic, khi_params, mfv_params, mirror_ic,
-                        mirror_params, nbody_params, slice_params,
+                        mirror_params, nbody_params, plummer_stars_params,
+                        radfb_params, radws_params, slice_params,
                         sm2012_params, sphere_block_params)
     from .sim.simulation import GradhSphSimulation, SimulationBase
 
@@ -261,6 +279,12 @@ def main(argv=None) -> int:
                               nbody=args.nbody_scheme,
                               nbody_softening=0 if ts6 else 1)
         sim = SimulationBase.factory(params, "cuda")
+        sim.SetupSimulation()
+        warm = 2
+    elif args.radfb:
+        sim = GradhSphSimulation(
+            radfb_params(plummer_stars_params(SINK_N, 4)), device="cuda",
+            dtype=torch.float32)
         sim.SetupSimulation()
         warm = 2
     elif args.sinks:
@@ -301,6 +325,8 @@ def main(argv=None) -> int:
         warm = 2
     elif args.mfv:
         params = mfv_params(N_SIDE, self_gravity=args.self_gravity)
+        if args.radws:
+            params = radws_params(params)
         sim = SimulationBase.factory(params, "cuda", torch.float32)
         sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
         warm = 2
@@ -313,6 +339,8 @@ def main(argv=None) -> int:
         params = slice_params(N_SIDE, self_gravity=args.self_gravity)
         if args.sm2012:
             params = sm2012_params(params)
+        if args.radws:
+            params = radws_params(params)
         sim = SimulationBase.factory(params, "cuda", torch.float32)
         sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
         warm = 2

@@ -19,10 +19,14 @@ step is
 The JAX package bins three times a step; a binning is a function of r
 and the grid plan only, so the port bins once at the old r and once at
 the new r.  The host loop (bursts, overflow replans, tree cadence, the
-clamp to tend) is ``SimulationBase``'s.  Block timesteps, RK2, the exact
-Riemann solver, the other limiters, static particles, radws and mirror
-walls, sinks and the non-adiabatic EOS raise NotImplementedError naming
-their ROADMAP item.
+clamp to tend) is ``SimulationBase``'s.  With ``gas_eos = radws`` the
+EOS reads gamma from the opacity table (K27), and with
+``energy_integration = radws`` the implicit radiative heating rate (K29)
+at the step's end, after the gravity source terms with the new gpot, is
+folded into the total-energy column.  Block timesteps, RK2, the exact
+Riemann solver, the other limiters, static particles, mirror walls,
+sinks, radiative feedback and the other EOS raise NotImplementedError
+naming their ROADMAP item or fault.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..ops import mfv as mfv_ops
 from ..ops import mfv_grid27 as mg
 from ..ops import sph_grid27 as g27
 from ..ops.active_grid import dense_ids
+from ..ops.radws import radws_implicit_heating
 from ..ops.tree import tree_gravity_grouped
 from ..state import MfvState, make_mfv_state
 from .ic import generate_ic
@@ -56,8 +61,6 @@ class MfvMusclSimulation(SimulationBase):
         ip, sp = p.intparams, p.stringparams
         if sp["sim"] not in ("meshlessfv", "mfvmuscl"):
             raise _unsupported(f"sim {sp['sim']!r}", "item 10")
-        if sp["energy_integration"] == "radws":
-            raise _unsupported("radws energy integration", "item 9")
         if ip["Nlevels"] > 1:
             raise _unsupported("block timesteps for MFV (Nlevels > 1)",
                                "item 10")
@@ -72,6 +75,10 @@ class MfvMusclSimulation(SimulationBase):
             raise _unsupported("external potentials in MFV (the JAX "
                                "package's MFV controller ignores them: "
                                "fault F19)", "item 9")
+        if ip["rad_fb"]:
+            raise _unsupported("radiative feedback in MFV (the JAX "
+                               "package's MFV controller ignores rad_fb: "
+                               "fault F21)", "item 9")
         if sp["gas_eos"] not in ("energy_eqn", "constant_temp", "radws"):
             raise _unsupported(f"gas_eos {sp['gas_eos']!r} in MFV", "item 10")
         self._common_parameters()
@@ -166,6 +173,18 @@ class MfvMusclSimulation(SimulationBase):
             zh=s.zeta * s.hfactor, periodic_extent=self._periodic_extent(),
             zeta_scaling="mfv", ewald_table=self.ewald_table)
 
+    def _apply_radws_cooling(self, Qcons, ndens, gpot, dt):
+        """The implicit radiative heating rate (K29, col2 from max(gpot,
+        0)) at the state of Qcons, clipped at -0.95 u / dt, times m dt
+        added to the total-energy column (gandalf_tpu/sim/mfv_sim.py:
+        426-441; EnergyRadws<MeshlessFVParticle>::EndTimestep)."""
+        m, rho, _, u = mfv_ops.state_from_qcons(3, Qcons, ndens)
+        heat = radws_implicit_heating(self.eos.table, rho, u,
+                                      torch.zeros_like(u), gpot, dt)
+        heat = torch.maximum(heat, -0.95 * u / torch.clamp_min(dt, 1e-30))
+        energy = Qcons[:, 4] + m * heat * dt
+        return torch.cat([Qcons[:, :4], energy[:, None]], -1)
+
     def _dt_criterion(self, s: MfvState):
         """Courant and acceleration timestep, the minimum over particles
         (MfvIntegration::Timestep)."""
@@ -215,11 +234,15 @@ class MfvMusclSimulation(SimulationBase):
             a, gpot, ovg = self._gravity_pass(s.replace(r=r, m=m_new))
             Qcons = mfv_ops.gravity_source_terms(
                 3, dt, s.Qcons0, Qcons, s.a0, a, flux.rdmdt_dot * dt)
+            if self.use_radws_energy:
+                Qcons = self._apply_radws_cooling(Qcons, s.ndens, gpot, dt)
             m, _, v, u = mfv_ops.state_from_qcons(3, Qcons, s.ndens)
             s = s.replace(m=m.contiguous(), v=v, u=u, r=r, Qcons0=Qcons,
                           r0=r, v0=v, a=a,
                           a0=a, gpot=gpot, neib_overflow=overflow | ovg)
         else:
+            if self.use_radws_energy:
+                Qcons = self._apply_radws_cooling(Qcons, s.ndens, s.gpot, dt)
             m, _, v, u = mfv_ops.state_from_qcons(3, Qcons, s.ndens)
             r = self.box.wrap(s.r0 + 0.5 * (s.v0 + v) * dt)
             # the momentum as the JAX package rebuilds it after its

@@ -11,7 +11,12 @@ controller is in ``sim/mfv_sim.py``, the N-body one in ``sim/nbody_sim.py``.
 
 ``GradhSphSimulation`` is the counterpart of gandalf_tpu's
 ``GradhSphSimulation`` for one configuration: grad-h SPH with the M4
-kernel, the adiabatic, isothermal, barotropic or polytropic EOS, mon97
+kernel, the adiabatic, isothermal, barotropic, polytropic or radws EOS
+(the opacity table's gamma, K27; with energy_integration = radws u
+relaxes each step toward the radiative equilibrium that K28 finds at
+the previous step's end, instead of integrating du/dt, and with rad_fb
+the equilibrium takes K30's per-particle ambient temperature from the
+sinks' accretion luminosity and the disc profile), mon97
 viscosity (or none; with time_dependent_avisc = mm97 or cd2010 its
 alpha evolves per particle) and optional conductivity, the structured
 3^ndim shift grid (in 1D and 2D too, and with mirror or wall boundaries, whose
@@ -80,6 +85,9 @@ from ..ops.ewald import table_from_params
 from ..ops.forces import ArtificialViscosity, cullen_dehnen_dense
 from ..ops.gravity import (EXTERNAL_POTENTIALS, direct_softened,
                            external_potential)
+from ..ops.radiative_fb import (DiscHeatingConfig, SinkHeatingConfig,
+                                combined_ambient_temperature)
+from ..ops.radws import energy_find_equi, radws_energy_integration
 from ..ops.sinks import (SinkConfig, accrete_to_sinks,
                          apply_smooth_accretion, create_sinks, empty_sinks,
                          make_sinks, smooth_accretion_sums)
@@ -91,7 +99,8 @@ from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
                         tree_gravity_grouped, walk_stats_levels_native)
 from ..state import (BOUNDARY_TYPE, DUST_TYPE, FLAG_DEAD, GAS_TYPE,
                      ICM_TYPE, DomainBox, SphState, make_sph_state)
-from ..units import SimUnits, inscale_parameters
+from ..units import (L_SUN, M_JUP, M_SUN, R_SUN, SimUnits,
+                     inscale_parameters)
 from ..utils.timing import CodeTiming
 from .ic import generate_ic
 
@@ -184,8 +193,6 @@ class SimulationBase:
         ip, sp = p.intparams, p.stringparams
         if self.ndim not in (1, 2, 3):
             raise ValueError(f"ndim must be 1, 2 or 3, not {self.ndim}")
-        if sp["gas_eos"] == "radws":
-            raise _unsupported("radws", "item 9")
         if sp["radiation"] not in ("none", "null", ""):
             raise _unsupported("radiation", "item 12")
         if sp["neib_search"] == "bruteforce":
@@ -197,8 +204,12 @@ class SimulationBase:
             inscale_parameters(p, self.units)
         self.kern = kernel_factory(sp["kernel"], self.ndim,
                                    ip["tabulated_kernel"])
-        self.eos = eos_factory(p)
+        self.eos = eos_factory(p, self.device, self.dtype)
         self.box = DomainBox.from_params(p)
+        # radws: the relaxation toward radiative equilibrium replaces the
+        # explicit integration of u (gandalf_tpu/sim/simulation.py:887-890)
+        self.use_radws_energy = (sp["gas_eos"] == "radws"
+                                 and sp["energy_integration"] == "radws")
         self.self_gravity = bool(ip["self_gravity"])
         if self.self_gravity:
             self._check_gravity_options()
@@ -552,8 +563,6 @@ class GradhSphSimulation(SimulationBase):
             raise _unsupported(f"sim {sp['sim']!r}", "items 9-10")
         if sp["supernova_feedback"] not in ("none", "null", ""):
             raise _unsupported("supernova feedback", "item 9")
-        if ip["rad_fb"]:
-            raise _unsupported("radiative feedback (rad_fb)", "item 9")
         self._common_parameters()
         self.visc = ArtificialViscosity.from_params(p)
         self.td_avisc_type = sp["time_dependent_avisc"]
@@ -569,9 +578,12 @@ class GradhSphSimulation(SimulationBase):
             "rplummer": p.floatparams["rplummer"],
             "kgrav": kgrav, "avert": p.floatparams["avert"],
             "rzero": self.box.boxmin[kgrav] if kgrav < self.ndim else 0.0}
-        # u is integrated for energy_eqn only; the other EOS set it from rho
+        # u is integrated explicitly for energy_eqn, and for radws without
+        # the radws relaxation; the other EOS set it from rho
+        # (gandalf_tpu/sim/simulation.py:891-893)
         self.integ = IntegratorConfig.from_params(
-            p, energy_integration=sp["gas_eos"] == "energy_eqn")
+            p, energy_integration=sp["gas_eos"] == "energy_eqn" or (
+                sp["gas_eos"] == "radws" and not self.use_radws_energy))
         self.hydro_forces = bool(ip["hydro_forces"])
         # hierarchical block timesteps on the grid path
         self.nlevels = max(ip["Nlevels"], 1)
@@ -585,7 +597,8 @@ class GradhSphSimulation(SimulationBase):
                                "item 8")
         self.block_cfg = BlockConfig(nlevels=self.nlevels,
                                      level_diff_max=ip["level_diff_max"])
-        self.u_mode = "energy" if self.integ.energy_integration else "none"
+        self.u_mode = "radws" if self.use_radws_energy else (
+            "energy" if self.integ.energy_integration else "none")
         # sinks (gandalf_tpu/sim/simulation.py:984-993); rho_sink is in
         # code units after _common_parameters
         self.sink_cfg = SinkConfig(
@@ -596,6 +609,7 @@ class GradhSphSimulation(SimulationBase):
         self.smooth_accretion = bool(ip["smooth_accretion"])
         if self.sink_cfg.create or self.sink_cfg.accrete:
             self._check_sink_options()
+        self._radfb_parameters()
         # gas-dust drag (gandalf_tpu/sim/simulation.py:1042-1050)
         self.dust_forces = sp["dust_forces"]
         self.has_dust = self.dust_forces not in ("none", "null", "")
@@ -606,6 +620,45 @@ class GradhSphSimulation(SimulationBase):
             if self.sink_cfg.create or self.sink_cfg.accrete:
                 raise self._dust_with_sinks()
             self.drag_law = DragLaw.from_params(p)
+
+    def _radfb_parameters(self):
+        """Radiative feedback (gandalf_tpu/sim/simulation.py:994-1044): on
+        with rad_fb and the radws relaxation only; the sink-heating and
+        disc-heating configurations in code units (the reference's
+        SinkHeating constructor, RadiativeFB.cpp:171-211), temp_ambient,
+        temp_au and r_smooth already scaled by inscale_parameters."""
+        p = self.params
+        ip, fp = p.intparams, p.floatparams
+        self.rad_fb = bool(ip["rad_fb"]) and self.use_radws_energy
+        self.radfb_sink_on = False
+        self.radfb_sink_cfg = self.radfb_disc_cfg = None
+        if not self.rad_fb:
+            return
+        u = self.units
+        if u.dimensionless:
+            rad_const = lsun = msun = rsun = 1.0
+        else:
+            R = u.r.outscale * u.r.outSI
+            T = u.t.outscale * u.t.outSI
+            E = u.E.outscale * u.E.outSI
+            temp_unit = u.temp.outscale * u.temp.outSI
+            stefboltz = 5.67037321e-8      # SI (the reference's Constants.h)
+            rad_const = stefboltz * (R * R * T * temp_unit ** 4) / E
+            lsun = L_SUN / (u.L.outscale * u.L.outSI)
+            msun = M_SUN / (u.m.outscale * u.m.outSI)
+            rsun = R_SUN / R
+        self.radfb_sink_on = bool(ip["sink_heating"])
+        self.radfb_sink_cfg = SinkHeatingConfig(
+            rad_const=rad_const,
+            temp_inf=fp["temp_ambient"] if ip["ambient_heating"] else 0.0,
+            f_acc=fp["f_acc"], lsun=lsun, msun=msun, mjup=M_JUP / M_SUN,
+            r_planet=fp["r_planet"] * rsun, r_bdwarf=fp["r_bdwarf"] * rsun,
+            r_star=fp["r_star"] * rsun)
+        ncentral = min(max(ip["disc_heating"], 0), 2)
+        if ncentral:
+            self.radfb_disc_cfg = DiscHeatingConfig(
+                temp_au=fp["temp_au"], temp_q=fp["temp_q"],
+                rsmooth=fp["r_smooth"], n_central=ncentral)
 
     @staticmethod
     def _dust_with_sinks():
@@ -921,6 +974,8 @@ class GradhSphSimulation(SimulationBase):
                 s = self._hydro_pass(s)
                 if self.has_dust:
                     s = self._apply_drag(s, torch.zeros_like(s.t))
+            if self.use_radws_energy:
+                s = self._radws_equilibrium(s)
             s = s.replace(a0=s.a, dudt0=s.dudt, u0=s.u, r0=s.r, v0=s.v)
             if self.use_block:
                 # the initial ladder; a tick is dt_base, which the sinks'
@@ -957,6 +1012,11 @@ class GradhSphSimulation(SimulationBase):
             t = torch.clamp_max(s.t + dt, tend) if bounded else s.t + dt
             overflow_in = s.neib_overflow
             s = predict(integ, s, dt)
+            if self.use_radws_energy:
+                # the relaxation toward the previous step's equilibrium
+                # (EnergyRadws::EnergyIntegration)
+                s = s.replace(u=radws_energy_integration(
+                    s.u0, s.ueq, s.dt_therm, dt))
             # boundary enforcement: wrap, then reflect across mirror walls
             r, v = box.reflect(box.wrap(s.r), s.v)
             s = s.replace(r=r, v=v, r0=box.wrap(s.r0))
@@ -973,6 +1033,11 @@ class GradhSphSimulation(SimulationBase):
             s = s.replace(neib_overflow=s.neib_overflow | overflow_in)
             s, dal = self._td_avisc(s)
             s = correct(integ, s, dt, dal)
+            if self.use_radws_energy:
+                # the next relaxation starts here, toward the equilibrium
+                # of this step's end
+                s = self._radws_equilibrium(s)
+                s = s.replace(u0=s.u, dudt0=s.dudt)
             if self.has_sinks:
                 sk = s.sinks
                 v_c = sk.v + 0.5 * dt * (sk.a - sk.a0)
@@ -983,6 +1048,36 @@ class GradhSphSimulation(SimulationBase):
                              nstep=s.nstep + 1)
 
         return step
+
+    # -- radws -----------------------------------------------------------------
+    def _radws_equilibrium(self, s: SphState) -> SphState:
+        """(ueq, dt_therm) at the end of a step (EnergyRadws::EndTimestep;
+        gandalf_tpu/sim/simulation.py:2007-2031) through K28, with col2
+        from max(gpot, 0).  With radiative feedback and sinks the ambient
+        temperature is K30's per-particle field; sink_heating = 0 masks
+        every slot out of it, the disc term included, as there."""
+        temp_amb, sk = None, s.sinks
+        if self.rad_fb and sk is not None:
+            act = sk.active if self.radfb_sink_on \
+                else torch.zeros_like(sk.active)
+            temp_amb = combined_ambient_temperature(
+                self.radfb_sink_cfg, self.radfb_disc_cfg, s.r, sk.r, sk.m,
+                sk.mdot, sk.h * self.sink_cfg.sink_radius, act)
+        ueq, dt_therm = energy_find_equi(self.eos.table, s.rho, s.u, s.dudt,
+                                         s.gpot, temp_amb)
+        return s.replace(ueq=ueq, dt_therm=dt_therm)
+
+    def _radws_refresh(self, s: SphState, active) -> SphState:
+        """A block tick's (ueq, dt_therm), refreshed for the particles
+        ending their step only (gandalf_tpu/sim/simulation.py:1172-1178,
+        :1835-1842, :1877-1884); the state as it is without the radws
+        relaxation."""
+        if not self.use_radws_energy:
+            return s
+        s2 = self._radws_equilibrium(s)
+        return s.replace(ueq=torch.where(active, s2.ueq, s.ueq),
+                         dt_therm=torch.where(active, s2.dt_therm,
+                                              s.dt_therm))
 
     # -- time-dependent viscosity ---------------------------------------------
     def _dalphadt(self, s: SphState):
@@ -1089,6 +1184,7 @@ class GradhSphSimulation(SimulationBase):
                 # their closing kick
                 s = self._active_pass(s, newly.to(torch.int32))
             s = self._advance_alpha(s, B)
+            s = self._radws_refresh(s, active2)
             dt_crit = sph_timestep(integ, s, self.hydro_forces)
             s, B = end_timestep(cfg, s, B, active2, level, nstep_p, dt_crit,
                                 s.t, self.u_mode)
@@ -1136,6 +1232,7 @@ class GradhSphSimulation(SimulationBase):
             self.kern, self.gridspec, s.r, s.h, s.level, s.alive))
         s = self._advance_alpha(s, B)
         active, nstep_p, level = check_timesteps(cfg, s, B, active)
+        s = self._radws_refresh(s, active)
         dt_crit = sph_timestep(integ, s, self.hydro_forces)
         dt_extra = None
         if self.has_sinks:

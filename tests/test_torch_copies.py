@@ -4,7 +4,8 @@ generators the port's configurations use (box, lattice and random
 sphere; the xorshift generator's sphere sampler is not ported and
 raises; the Boss-Bodenheimer cloud and the hybrid Plummer sphere; the
 dusty box and the Evrard cloud with its dust), the
-isothermal, barotropic and polytropic EOS, the bit-exact xorshift
+isothermal, barotropic and polytropic EOS, the RadWS constant and
+synthetic opacity table, the bit-exact xorshift
 generator and the N-body ICs drawn through it, the N-body sub-system
 tree, and the C++ tree planner built from the port's own kdplan.cpp."""
 
@@ -199,6 +200,27 @@ def test_eos_classes_are_identical(name):
             assert np.array_equal(x, y), tag
         else:
             assert np.all(np.abs(x - y) <= 2e-15 * np.abs(y)), tag
+
+
+@pytest.mark.parametrize("kw", [{}, dict(ndens=5, ntemp=33, gamma=1.4,
+                                         mu_bar=2.35, kappa0=0.3,
+                                         rad_const=7.0, temp_ambient=20.0,
+                                         temp_min=2.0, fcol=0.5,
+                                         logrho_range=(-3.0, 1.0),
+                                         logtemp_range=(0.5, 4.0))])
+def test_radws_ideal_table_is_identical(kw):
+    """RAD_CONST_CGS and make_ideal_table (the defaults, and every
+    argument set) equal the JAX package's bit for bit."""
+    from gandalf_tpu.ops import radws as jrw
+    from gandalf_tpu_torch.ops import radws as trw
+
+    assert trw.RAD_CONST_CGS == jrw.RAD_CONST_CGS
+    mine, theirs = trw.make_ideal_table(**kw), jrw.make_ideal_table(**kw)
+    for k in trw.OpacityTable.ARRAYS:
+        assert np.array_equal(getattr(mine, k).numpy(),
+                              np.asarray(getattr(theirs, k))), k
+    for k in ("fcol2", "rad_const", "temp_min", "temp_ambient"):
+        assert getattr(mine, k) == float(getattr(theirs, k)), k
 
 
 def _hydro_test_ic_params(case):

@@ -2,8 +2,9 @@
 package (an AST scan) and running it never loads JAX, whatever
 GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
 N-body and sink slices, block-stepped smooth accretion, the cd2010
-switch, a dusty box, an SM2012 tube and an external potential
-included); chip_smoke.py refuses to run without
+switch, a dusty box, an SM2012 tube, an external potential and the
+radws box and cluster with radiative feedback included); chip_smoke.py
+refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
 tensors, and on a GPU each CUDA kernel agrees with its plain PyTorch
 version.
@@ -133,6 +134,18 @@ def test_port_never_imports_jax():
         "sim.SetupSimulation(jittered_box_ic(p, 6))\n"
         "sim.main_loop_step()\n"
         "assert sim.Nsteps == 1\n"
+        "from gandalf_tpu_torch.check import (plummer_stars_params,\n"
+        "                                     radfb_params, radws_params)\n"
+        "p = radws_params(slice_params(6, self_gravity=1))\n"
+        "sim = GradhSphSimulation(p, device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation(jittered_box_ic(p, 6))\n"
+        "sim.main_loop_step()\n"
+        "assert sim.use_radws_energy and sim.Nsteps == 1\n"
+        "sim = GradhSphSimulation(radfb_params(plummer_stars_params(128, 4)),\n"
+        "                         device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation()\n"
+        "sim.main_loop_step()\n"
+        "assert sim.rad_fb and bool(torch.isfinite(sim.state.ueq).all())\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -699,3 +712,56 @@ def test_controllers_default_to_the_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             s.SetupSimulation()
         assert s.state is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_radws_kernels_match_plain_versions_on_gpu(dtype):
+    """K27-K29 against their plain versions on the card on
+    check.radws_kernel_inputs at 4,000 elements on both tables (K27 also
+    on a dense shape with empty slots), and K30 on
+    check.ambient_kernel_inputs with 16 slots in every case of
+    check.AMBIENT_CASES: no flip in float64, at most
+    TOL_RADWS_FLIP_FRACTION in float32, the stated tolerances elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (ambient_kernel_inputs,
+                                         compare_ambient_kernels,
+                                         compare_radws_kernels,
+                                         radws_kernel_inputs)
+
+    report = {}
+    for table in ("ideal", "nonideal"):
+        rep = compare_radws_kernels(
+            radws_kernel_inputs(4000, "cuda", dtype, table),
+            dense_shape=(50, 40))
+        report.update({f"{k}_{table}": r for k, r in rep.items()})
+    report.update(compare_ambient_kernels(
+        ambient_kernel_inputs(4000, 16, "cuda", dtype)))
+    torch.cuda.synchronize()
+    bad = {k: r for k, r in report.items() if not r["ok"]}
+    assert not bad, bad
+
+
+def test_radws_wrappers_refuse_cpu_tensors():
+    """K27-K30: CPU tensors raise and count no launch; the plain versions
+    run only through ops.radws' and ops.radiative_fb's dispatch on CPU
+    tensors."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.radws import make_ideal_table
+
+    f64 = dict(dtype=torch.float64)
+    tab = make_ideal_table()
+    x = torch.rand((32,), **f64)
+    r, rs = torch.rand((32, 3), **f64), torch.rand((4, 3), **f64)
+    q = torch.rand((4,), **f64)
+    act = torch.ones((4,), dtype=torch.bool)
+    before = dict(_ext.LAUNCHES)
+    for call in (lambda: _ext.radws_eos(tab, x, x),
+                 lambda: _ext.radws_equilibrium(tab, x, x, x, x, x),
+                 lambda: _ext.radws_implicit_heating(tab, x, x, x, x, x, x),
+                 lambda: _ext.ambient_temperature(r, rs, q, q, act, act, 5.0,
+                                                  None)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before

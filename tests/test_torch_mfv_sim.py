@@ -245,7 +245,7 @@ def test_burst_overflow_replays_step_by_step():
     ("static_particles", 1, "item 10"),
     ("Nlevels", 3, "item 10"),
     ("sim", "mfvrk", "item"),
-    ("gas_eos", "radws", "item 9"),
+    ("rad_fb", 1, "F21"),
     ("boundary_lhs[0]", "mirror", "item 8")])
 def test_options_outside_the_slice_raise(key, value, item):
     p = mfv_params(N_SIDE, self_gravity=1)

@@ -8,8 +8,9 @@ grid path and mirror walls (the Sod tube, the Kelvin-Helmholtz
 instability, the mirror-wall box), block-stepped star formation and
 time-dependent viscosity, the gas-dust drag (the dusty box and the
 dusty Evrard collapse), Saitoh & Makino (2012) SPH and the external
-potentials, RadWS radiative cooling and radiative feedback, and checks
-them, in phases, each printing one line:
+potentials, RadWS radiative cooling and radiative feedback, and the
+quintic, gaussian and tabulated smoothing kernels, and checks them, in
+phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
@@ -257,7 +258,41 @@ them, in phases, each printing one line:
 55. radws_parity: float64 on the card against the plain path on the CPU:
    5 steps of the radws box at 8^3 with gravity, with a global dt and
    Nlevels 3, of the hybrid Plummer sphere (256 gas, 4 stars) with
-   radiative feedback and of the radws MFV box at 8^3.
+   radiative feedback and of the radws MFV box at 8^3;
+56. kernel_family_kernels: K2 and K3 (1-3 dims), K7 (3D, tree gravity)
+   and K8, K9 with the group-list K6/K7 (3D) with the quintic, the
+   gaussian (no K7: fault F23), the tabulated M4 and the tabulated
+   quintic against their plain versions on the card
+   (check.compare_family_kernels: the Sod tube, the small KHI, the 16^3
+   box, the 2,000-particle block sphere), float64 and float32, with the
+   tabulated kernels' pairs near a table point counted;
+57. family_parity: float64 on the card against the plain path on the
+   CPU with equal grid and tree plans: 3 steps of the 8^3 box with each
+   variant (tree gravity but with the gaussian) and 6 ticks of the block
+   sphere (1,000) with the quintic, with equal levels;
+58. quintic_gravity_box: gravity_main_path's box at 64^3 in float32
+   with the quintic: 2 + 2 warm-up steps around the replan, 32 timed
+   steps, K2, K3 and K7 (quintic) every step and no M4 K2, K3 or K7,
+   the energy drift (1e-2) and the tree's accuracy against the float64
+   all-pairs sum with the quintic softening (2e-4), the rate beside
+   gravity_main_path's; then K2, K3 and K7 against their plain versions
+   at the path's state;
+59. tabulated_gravity_box: the same with the tabulated M4 (the
+   reference's default), 32 timed steps, then the tabulated quintic, 8
+   timed steps, the same gates;
+60. gaussian_box: main_path's hydro-only box at 64^3 with the gaussian,
+   16 timed steps, the energy drift below 1e-3;
+61. gaussian_soundwave: tests/test_soundwave.py:14-32's wave (1D, 64
+   particles, isothermal, the gaussian, one period to t = 2) on the grid
+   path in float64: L1(rho) < 1e-4, test_soundwave_sph's gate;
+62. quintic_block: block_main_path's cold sphere (the same IC) with the
+   quintic: 4 warm-up and 16 timed ticks (half the M4 run's: at the
+   end of 32 its K is 1,351 and the plain versions it is held against
+   take 3 s a call) through K8, K9 and the list
+   K6/K7 (quintic) and no M4 K8, K9 or K7, the block gates but the
+   energy drift's (2e-2: the JAX package's quintic zeta term is wrong,
+   ROADMAP fault F24); then K8, K9 and the list K7 against their plain
+   versions at the path's state.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -274,7 +309,11 @@ block_sink_parity's Boss-Bodenheimer run on the card (timed at the 64^3
 box in phase 35), K23 and K24 from dusty_evrard, K25 and K26 in 2D from
 khi_sm2012, in 3D from sm2012_gravity_box and in 1D from sm2012_tube's
 Sod run (float64), K27 and K28 from radws_box, K29 from radws_mfv_box
-and K30 from radfb_cluster, each counted over its
+and K30 from radfb_cluster, and the kernel variants (K2, K3 and K7
+quintic from quintic_gravity_box, tabulated M4 and tabulated quintic
+from tabulated_gravity_box, K2 and K3 gaussian from gaussian_box and in
+1D from gaussian_soundwave (float64), K8, K9 and the list K7 quintic
+from quintic_block), each counted over its
 path's timed window
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -486,6 +525,26 @@ RADWS_BLOCK_WARM = 2
 RADWS_BLOCK_TICKS = 32
 RADFB_N = 262144
 RADWS_PARITY_N = 8
+# the quintic, gaussian and tabulated kernels (phases 56-62): the
+# variants of the grid path's K2, K3, K7-K9 beside the direct M4, the
+# parity box and block runs, the tabulated quintic's timed steps, the
+# sound wave's gate (tests/test_soundwave.py:46) and the quintic block
+# run's ticks
+FAMILY_VARIANTS = ("quintic", "gaussian", "m4_tab", "quintic_tab")
+FAMILY_PARITY_N = 8
+FAMILY_PARITY_STEPS = 3
+FAMILY_BLOCK_TICKS = 6
+TAB_QUINTIC_STEPS = 8
+SOUNDWAVE_L1_GATE = 1e-4
+QUINTIC_BLOCK_WARM = 4
+QUINTIC_BLOCK_TICKS = 16
+# the quintic block run's energy gate.  The JAX package's quintic wzeta
+# is -(359/12) times the h-derivative of s wpot that M4's is (ROADMAP
+# fault F24, kept for parity), so its grad-h gravity correction is wrong:
+# on an H100 this run drifted 9.97e-3 over 32 ticks at 258,135
+# particles in float32 (3.2e-3 over 16), block_main_path's M4 1.27e-4.
+# The gate is twice the 32-tick reading.
+QUINTIC_BLOCK_ENERGY_DRIFT_TOL = 2e-2
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -591,6 +650,32 @@ SOURCES = {
     "ambient_temperature": ("gandalf_tpu_torch/csrc/radiative_fb.cu",
                             "gandalf_tpu/ops/radiative_fb.py:92"),
 }
+# the quintic, gaussian and tabulated variants on their main paths: the
+# JAX functions' kernel evaluations they replace
+_FAMILY_SOURCES = {
+    "grid27_density": ("gandalf_tpu_torch/csrc/grid27_density.cu",
+                       "gandalf_tpu/ops/sph_grid27.py:439"),
+    "grid27_forces": ("gandalf_tpu_torch/csrc/grid27_forces.cu",
+                      "gandalf_tpu/ops/sph_grid27.py:680"),
+    "tree_near": ("gandalf_tpu_torch/csrc/tree_near.cu",
+                  "gandalf_tpu/ops/tree.py:768"),
+    "active_density": ("gandalf_tpu_torch/csrc/active_density.cu",
+                       "gandalf_tpu/ops/active_grid.py:118"),
+    "active_forces": ("gandalf_tpu_torch/csrc/active_forces.cu",
+                      "gandalf_tpu/ops/active_grid.py:179"),
+    "tree_near_list": ("gandalf_tpu_torch/csrc/tree_near.cu",
+                       "gandalf_tpu/ops/tree.py:768"),
+}
+for _base, _variants in (
+        ("grid27_density", ("quintic", "m4_tab", "quintic_tab", "gaussian",
+                            "gaussian_1d")),
+        ("grid27_forces", ("quintic", "m4_tab", "quintic_tab", "gaussian",
+                           "gaussian_1d")),
+        ("tree_near", ("quintic", "m4_tab", "quintic_tab")),
+        ("active_density", ("quintic",)), ("active_forces", ("quintic",)),
+        ("tree_near_list", ("quintic",))):
+    for _v in _variants:
+        SOURCES[f"{_base}_{_v}"] = _FAMILY_SOURCES[_base]
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
 # the kernels of a block tick with self-gravity
@@ -647,6 +732,24 @@ def make_block_sim(n_target, device, dtype):
 
     return GradhSphSimulation(sphere_block_params(n_target), device=device,
                               dtype=dtype)
+
+
+# the cold sphere's IC per particle count, generated once on the host
+# (its 262,144-particle lattice takes ~27 s) and shared by the block
+# paths of every kernel, with the seconds it took
+_BLOCK_IC = {}
+
+
+def block_ic(params):
+    """A copy of the cold sphere's IC for `params` (sphere_block_params
+    at its Nhydro; the IC does not depend on the smoothing kernel)."""
+    from gandalf_tpu_torch.sim.ic import generate_ic
+
+    n = params.intparams["Nhydro"]
+    if n not in _BLOCK_IC:
+        t0 = time.perf_counter()
+        _BLOCK_IC[n] = (generate_ic(params, None), time.perf_counter() - t0)
+    return {k: v.copy() for k, v in _BLOCK_IC[n][0].items()}
 
 
 def full_gravity_energy(sim) -> float:
@@ -753,7 +856,7 @@ def block_main_path(dev, card):
     sim = make_block_sim(BLOCK_N, dev, torch.float32)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sim.SetupSimulation()
+    sim.SetupSimulation(block_ic(sim.params))
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     N = sim.state.N
@@ -810,7 +913,7 @@ def block_main_path(dev, card):
     spec = sim.treespec
     phase("block_main_path", N=N, ticks=ticks,
           timed_ticks=BLOCK_TICKS_TIMED, setup_s=t_setup,
-          ic_s=sim.timing.totals.get("GENERATE_IC", 0.0), timed_s=elapsed,
+          ic_s=_BLOCK_IC[BLOCK_N][1], timed_s=elapsed,
           ticks_per_s=BLOCK_TICKS_TIMED / elapsed,
           sim_time_per_wall_s=(sim.t - t_sim0) / elapsed,
           active_rows_per_s=rows / elapsed,
@@ -3387,6 +3490,328 @@ def radws_parity(dev) -> None:
     phase("radws_parity_done", seconds=time.perf_counter() - t0)
 
 
+# -- the quintic, gaussian and tabulated kernels (phases 56-62) ---------------
+
+def kernel_family_kernels(dev) -> None:
+    """Phase 56: K2 and K3 (1-3 dims), K7 (3D, not the gaussian) and K8,
+    K9 (3D) with each smoothing-kernel variant against their plain
+    versions on the card (check.compare_family_kernels), in float64 and
+    float32, with the tabulated kernels' pairs near a table point."""
+    from gandalf_tpu_torch.check import compare_family_kernels
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for variant in FAMILY_VARIANTS:
+        for ndim in (1, 2, 3):
+            for dtype in (torch.float64, torch.float32):
+                t1 = time.perf_counter()
+                rep = compare_family_kernels(variant, ndim, dev, dtype)
+                torch.cuda.synchronize()
+                phase("kernel_family_kernels", variant=variant, ndim=ndim,
+                      dtype=str(dtype), report=rep,
+                      seconds=time.perf_counter() - t1)
+                require_ok("kernel_family_kernels", rep)
+                n_cases += 1
+    phase("kernel_family_kernels_done", cases=n_cases,
+          seconds=time.perf_counter() - t0)
+
+
+def family_parity(dev) -> None:
+    """Phase 57: float64 on the card against the plain path on the CPU,
+    with equal grid and tree plans: FAMILY_PARITY_STEPS steps of the 8^3
+    box with each variant (tree gravity but with the gaussian), and
+    FAMILY_BLOCK_TICKS ticks of the block sphere (BLOCK_PARITY_N) with
+    the quintic."""
+    from gandalf_tpu_torch.check import (family_params, jittered_box_ic,
+                                         slice_params, sphere_block_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    fields = ("r", "v", "u", "h", "rho")
+    for variant in FAMILY_VARIANTS + ("quintic_block",):
+        block = variant == "quintic_block"
+        grav = 0 if variant.startswith("gaussian") else 1
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            if block:
+                p = family_params("quintic",
+                                  sphere_block_params(BLOCK_PARITY_N))
+                ic = None
+            else:
+                p = family_params(variant, slice_params(
+                    FAMILY_PARITY_N, self_gravity=grav))
+                ic = jittered_box_ic(p, FAMILY_PARITY_N)
+            sim = GradhSphSimulation(p, device=device, dtype=torch.float64)
+            sim.SetupSimulation(ic)
+            for _ in range(FAMILY_BLOCK_TICKS if block
+                           else FAMILY_PARITY_STEPS):
+                sim.main_loop_step()
+            sims.append(sim)
+        torch.cuda.synchronize()
+        errs = parity_errors(sims, fields + (("gpot",) if grav else ()))
+        same = {"grid": sims[0].gridspec == sims[1].gridspec,
+                "tree": sims[0].treespec == sims[1].treespec,
+                "plans": ((sims[0]._n_tree_plans, sims[0]._n_grid_overflows)
+                          == (sims[1]._n_tree_plans,
+                              sims[1]._n_grid_overflows))}
+        if block:
+            same["levels"] = bool(torch.equal(sims[0].state.level.cpu(),
+                                              sims[1].state.level))
+        phase("family_parity", run=variant, N=sims[1].state.N,
+              steps=sims[1].Nsteps, kernel=sims[1].kern.variant,
+              rel_err=errs, same=same)
+        if max(errs.values()) > PARITY_TOL or not all(same.values()):
+            raise RuntimeError(f"family_parity {variant}: kernel path "
+                               f"disagrees with the plain path: {errs} "
+                               f"{same}")
+    phase("family_parity_done", seconds=time.perf_counter() - t0)
+
+
+def _family_box(dev, card, tag, variant, grav, steps):
+    """gravity_main_path's box (or, without `grav`, main_path's) at 64^3
+    in float32 with the smoothing kernel `variant`: setup, warm-up (with
+    gravity, the post-warm-up replan and more warm-up), `steps` timed
+    steps (the counts set to 0 just before them), the checks, and K2, K3
+    (and K7) against their plain versions at the path's state; prints
+    the phase line `tag` and raises if a check failed.  Returns the
+    launches and the kernel reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_kernels,
+                                         compare_tree_kernels,
+                                         family_params, gravity_accuracy,
+                                         jittered_box_ic, slice_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    p = family_params(variant, slice_params(N_MAIN, self_gravity=grav))
+    sim = GradhSphSimulation(p, device=dev, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation(jittered_box_ic(p, N_MAIN))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, STEPS_WARM)
+    if grav:
+        sim._plan_tree_buckets(sim.state.r.cpu().numpy())
+        run_timed(sim, STEPS_WARM)
+    e0 = energy(sim.state, gravity=bool(grav))
+    replans0, steps0 = sim._n_grid_overflows, sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, steps)
+    done = sim.Nsteps - steps0
+    kern = sim.kern
+    names = ([_ext.family_count(k, kern)
+              for k in ("grid27_density", "grid27_forces")]
+             + ([_ext.family_count("tree_near", kern)] if grav else []))
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    for k in ("grid27_density", "grid27_forces", "tree_near"):
+        # no M4 kernel runs on this path
+        launches[f"{k} (M4)"] = _ext.LAUNCHES[k]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = sim.state
+    N = s.N
+    drift = abs(energy(s, gravity=bool(grav)) - e0) / abs(e0)
+    flds = ("r", "v", "a", "u", "h", "rho", "dudt") + (
+        ("gpot",) if grav else ())
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in flds),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow),
+        "launches": all(launches[k] >= done for k in names),
+        "no_m4_launch": all(launches[f"{k} (M4)"] == 0 for k in
+                            ("grid27_density", "grid27_forces",
+                             "tree_near")),
+        "energy_drift": drift <= (GRAVITY_ENERGY_DRIFT_TOL if grav
+                                  else ENERGY_DRIFT_TOL),
+    }
+    out = dict(variant=variant, N=N, steps=sim.Nsteps, timed_steps=done,
+               setup_s=t_setup, timed_s=elapsed,
+               particle_steps_per_s=N * done / elapsed,
+               replans_in_window=sim._n_grid_overflows - replans0,
+               ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+               launches=launches, energy_drift=drift,
+               peak_mem_gb=peak_gb)
+    if grav:
+        acc = gravity_accuracy(sim, n_sample=2048)
+        checks["accuracy"] = acc["rms_rel_err"] <= ACCURACY_TOL
+        checks["no_overflow"] = checks["no_overflow"] and not acc["overflow"]
+        out.update(accuracy=acc, accuracy_gate=ACCURACY_TOL,
+                   near_cap=sim.treespec.near_cap,
+                   support_cap=sim.treespec.support_cap)
+    rep = compare_kernels(sim, s, repeats=5)
+    if grav:
+        rep.update(compare_tree_kernels(sim, s, repeats=5))
+    rep = {k: r for k, r in rep.items() if k in names}
+    phase(tag, **out, checks=checks, kernels=rep, card=card,
+          gravity_main_path_particle_steps_per_s=RATES.get("gravity"),
+          main_path_particle_steps_per_s=RATES.get("hydro"),
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"{tag} ({variant}) checks failed: {failed}")
+    return {k: launches[k] for k in names}, rep
+
+
+def quintic_gravity_box(dev, card):
+    """Phase 58: gravity_main_path's self-gravitating box
+    (bench.build_sim(64), 262,144 particles, float32) with the quintic:
+    32 timed steps, K1-K7 (K2, K3, K7 quintic) every step and no M4
+    K2, K3 or K7, the energy drift (<= 1e-2) and the tree's accuracy at
+    2,048 particles against the float64 all-pairs sum with the quintic
+    softening (<= 2e-4), the rate beside gravity_main_path's; then K2,
+    K3 and K7 against their plain versions at the path's state."""
+    return _family_box(dev, card, "quintic_gravity_box", "quintic", 1,
+                       GRAVITY_STEPS_TIMED)
+
+
+def tabulated_gravity_box(dev, card):
+    """Phase 59: the same box with the reference's default, the M4
+    kernel tabulated (tabulated_kernel = 1): 32 timed steps, the same
+    gates; then the tabulated quintic for TAB_QUINTIC_STEPS steps, the
+    same gates.  K2, K3 and K7 of both against their plain versions."""
+    launches, rep = {}, {}
+    for variant, steps in (("m4_tab", GRAVITY_STEPS_TIMED),
+                           ("quintic_tab", TAB_QUINTIC_STEPS)):
+        lch, r = _family_box(dev, card, "tabulated_gravity_box", variant, 1,
+                             steps)
+        launches.update(lch)
+        rep.update(r)
+    return launches, rep
+
+
+def gaussian_box(dev, card):
+    """Phase 60: main_path's hydro-only box (64^3, float32) with the
+    gaussian: 16 timed steps, K1-K3 (K2, K3 gaussian) every step, the
+    energy drift below 1e-3; then K2 and K3 against their plain
+    versions at the path's state."""
+    return _family_box(dev, card, "gaussian_box", "gaussian", 0,
+                       STEPS_TIMED)
+
+
+def gaussian_soundwave(dev, card):
+    """Phase 61: the SPH sound wave of tests/test_soundwave.py:14-32
+    (check.soundwave_params: 1D, 64 particles, isothermal, the gaussian,
+    one period to t = 2) on the port's grid path in float64, the counts
+    set to 0 just before Run(): L1(rho) below 1e-4 (test_soundwave_sph's
+    gate, check.soundwave_l1), K2 and K3 (1D, gaussian) every step; then
+    both against their plain versions at the end."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_kernels, soundwave_l1,
+                                         soundwave_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    sim = SimulationBase.factory(soundwave_params(), dev, torch.float64)
+    sim.SetupSimulation()
+    _ext.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.Run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    names = [_ext.family_count(k, sim.kern) + "_1d"
+             for k in ("grid27_density", "grid27_forces")]
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    l1 = soundwave_l1(sim)
+    rep = {k: r for k, r in compare_kernels(sim, sim.state,
+                                            repeats=20).items()
+           if k in names}
+    for r in rep.values():
+        r["dtype"] = str(torch.float64)
+    checks = {"l1_rho": l1 < SOUNDWAVE_L1_GATE,
+              "at_tend": abs(sim.t - 2.0) < 1e-12,
+              "launches": all(n >= sim.Nsteps for n in launches.values())}
+    phase("gaussian_soundwave", N=sim.state.N, steps=sim.Nsteps, t=sim.t,
+          run_s=elapsed, L1_rho=l1, l1_gate=SOUNDWAVE_L1_GATE,
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          launches=launches, checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"gaussian_soundwave checks failed: {failed}")
+    return launches, rep
+
+
+def quintic_block(dev, card):
+    """Phase 62: block_main_path's cold sphere (BLOCK_N, the same IC)
+    with the quintic: QUINTIC_BLOCK_WARM warm-up and QUINTIC_BLOCK_TICKS
+    timed ticks (the counts set to 0 just before them) through K1, K8,
+    K9 and the group-list K6/K7 (quintic), with no M4 K8, K9 or K7, the
+    block gates (finiteness, overflow, the tree's accuracy among the
+    active) and the energy drift held to QUINTIC_BLOCK_ENERGY_DRIFT_TOL
+    (fault F24); then K8, K9 and the list K6/K7 against their plain
+    versions at the path's state."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_active_kernels,
+                                         family_params, gravity_accuracy,
+                                         sphere_block_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    p = family_params("quintic", sphere_block_params(BLOCK_N))
+    sim = GradhSphSimulation(p, device=dev, dtype=torch.float32)
+    t0 = time.perf_counter()
+    sim.SetupSimulation(block_ic(p))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    N = sim.state.N
+    for _ in range(QUINTIC_BLOCK_WARM):
+        sim.main_loop_step()
+    e0 = full_gravity_energy(sim)
+    rows0 = sim.active_rows
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(QUINTIC_BLOCK_TICKS):
+        sim.main_loop_step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    names = [_ext.family_count(k, sim.kern) for k in
+             ("active_density", "active_forces", "tree_near_list")]
+    launches = {k: _ext.LAUNCHES[k] for k in names + ["tree_walk_list"]}
+    m4 = {k: _ext.LAUNCHES[k] for k in
+          ("active_density", "active_forces", "tree_near_list")}
+    s = sim.state
+    drift = abs(full_gravity_energy(sim) - e0) / abs(e0)
+    active = torch.nonzero(s.nlast == sim._blocksched.n).flatten().to(
+        torch.int32)
+    acc = gravity_accuracy(sim, n_sample=2048, among=active)
+    levels = torch.bincount(s.level.cpu()).tolist()
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt",
+                                "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(launches[k] >= QUINTIC_BLOCK_TICKS
+                        for k in names[:2]),
+        "no_m4_launch": not any(m4.values()),
+        "accuracy": acc["rms_rel_err"] <= BLOCK_ACCURACY_TOL,
+        "energy_drift": drift <= QUINTIC_BLOCK_ENERGY_DRIFT_TOL,
+    }
+    rep = {k: r for k, r in compare_active_kernels(sim, s, active,
+                                                   repeats=5).items()
+           if k in names}
+    phase("quintic_block", N=N, ticks=sim.Nsteps,
+          timed_ticks=QUINTIC_BLOCK_TICKS, setup_s=t_setup,
+          timed_s=elapsed, ticks_per_s=QUINTIC_BLOCK_TICKS / elapsed,
+          active_rows_per_s=(sim.active_rows - rows0) / elapsed,
+          levels=levels, ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, launches=launches, m4_launches=m4,
+          energy_drift=drift,
+          energy_drift_gate=QUINTIC_BLOCK_ENERGY_DRIFT_TOL, accuracy=acc,
+          accuracy_gate=BLOCK_ACCURACY_TOL, checks=checks, kernels=rep,
+          card=card, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"quintic_block checks failed: {failed}")
+    return {k: launches[k] for k in names}, rep
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -3536,6 +3961,7 @@ def main() -> int:
     }
     rep = compare_kernels(sim, s, repeats=5)
     mapping = mapping_times(sim, s)
+    RATES["hydro"] = N * STEPS_TIMED / elapsed
     phase("main_path", N=N, ncells=list(sim.gridspec.ncells),
           k_cell=sim.gridspec.k_cell, steps=sim.Nsteps,
           timed_steps=STEPS_TIMED, setup_s=t_setup, timed_s=elapsed,
@@ -3694,6 +4120,15 @@ def main() -> int:
             launches.update(out[0])
             rep.update(out[1])
     radws_parity(dev)
+
+    # 56-62. the quintic, gaussian and tabulated kernels
+    kernel_family_kernels(dev)
+    family_parity(dev)
+    for path in (quintic_gravity_box, tabulated_gravity_box, gaussian_box,
+                 gaussian_soundwave, quintic_block):
+        f_launches, f_rep = path(dev, card)
+        launches.update(f_launches)
+        rep.update(f_rep)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

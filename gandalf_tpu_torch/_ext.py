@@ -37,7 +37,13 @@ forces, under ``sm2012_density`` and ``sm2012_forces`` (``_1d`` or
 EOS, the equilibrium finder and the implicit heating rate, count under
 ``radws_eos``, ``radws_equilibrium`` and ``radws_implicit_heating``, and
 K30, the radiative-feedback ambient temperature, under
-``ambient_temperature``.
+``ambient_temperature``.  K2, K3, K7, K8 and K9 take the quintic,
+gaussian (not K7) and tabulated smoothing kernels as well as M4
+(``csrc/kernel_family.cuh``, a template parameter); with any kernel but
+the direct M4 they count under their names with the kernel's variant
+appended before any ``_1d`` or ``_2d`` (``grid27_density_quintic_tab``,
+``tree_near_list_quintic``).  Every other wrapper whose kernel
+evaluates W refuses those kernels (``require_m4``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from .kernels.smoothing import VARIANTS
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -91,6 +99,28 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "radws_equilibrium": 0, "radws_implicit_heating": 0,
             "ambient_temperature": 0}
 
+# the smoothing-kernel families of csrc/kernel_family.cuh, and the
+# kernels that take any of them, direct or tabulated (K2, K3 and K8, K9;
+# K7 in each mode but MFV's, without the gaussian: fault F23).  Launches
+# with a kernel other than the direct M4 count under the kernel's name
+# with the kernel's variant appended (grid27_density_quintic_tab_2d).
+# Every other kernel that evaluates W holds M4 only, and its wrapper
+# refuses the rest (require_m4).
+FAMILIES = {"m4": 0, "quintic": 1, "gaussian": 2}
+GRID_FAMILY_KERNELS = ("grid27_density", "grid27_forces")
+TREE_FAMILY_KERNELS = ("tree_near", "tree_near_list", "tree_near_ewald",
+                       "tree_near_fast")
+ACTIVE_FAMILY_KERNELS = ("active_density", "active_forces")
+for _v in VARIANTS:
+    for _k in GRID_FAMILY_KERNELS:
+        for _d in ("", "_2d", "_1d"):
+            LAUNCHES[f"{_k}_{_v}{_d}"] = 0
+    for _k in ACTIVE_FAMILY_KERNELS:
+        LAUNCHES[f"{_k}_{_v}"] = 0
+    if not _v.startswith("gaussian"):
+        for _k in TREE_FAMILY_KERNELS:
+            LAUNCHES[f"{_k}_{_v}"] = 0
+
 _lib = None
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -102,11 +132,11 @@ _ARGTYPES = {
     "grid27_bin": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _I,
                    _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "grid27_density": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _I,
-                       _P],
+                       _D, _D, _D, _D, _I, _I, _D, _D, _D, _P, _P, _P, _P,
+                       _I, _I, _P],
     "grid27_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _D, _D, _D, _D, _I, _I, _D, _D, _P, _P, _P, _I, _I,
-                      _P],
+                      _D, _D, _D, _D, _I, _I, _I, _I, _D, _D, _P, _P, _P,
+                      _I, _I, _P],
     "grid27_mirror": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "tree_gather": [_P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _I,
                     _P],
@@ -114,13 +144,13 @@ _ARGTYPES = {
     "tree_walk": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _I, _I, _D, _P,
                   _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "tree_near": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                  _I, _D, _D, _P, _P, _P, _P, _P, _I, _P],
+                  _I, _D, _D, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "active_density": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _I,
-                       _P],
+                       _I, _D, _D, _D, _D, _I, _I, _D, _D, _D, _P, _P, _P,
+                       _P, _I, _P],
     "active_forces": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _D, _D, _D, _D, _D, _I, _I, _I, _D, _D, _P,
-                      _P, _P, _P, _I, _P],
+                      _I, _I, _D, _D, _D, _D, _I, _I, _D, _I, _I, _I, _D,
+                      _D, _P, _P, _P, _P, _I, _P],
     "mfv_density": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
                     _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _P],
     "mfv_gradients": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
@@ -308,9 +338,35 @@ def _grid_args_nd(spec):
             *[float(x) for x in spec.extents], *(0.0,) * pad)
 
 
-def _grid_count(name: str, spec) -> str:
-    """The LAUNCHES key of grid kernel `name` on `spec`'s dims."""
+def family_count(name: str, kern) -> str:
+    """`name` with the variant of smoothing kernel `kern` appended, for
+    any kernel but the direct M4 (or None: Newtonian)."""
+    if kern is None or kern.variant == "m4":
+        return name
+    return f"{name}_{kern.variant}"
+
+
+def _grid_count(name: str, spec, kern=None) -> str:
+    """The LAUNCHES key of grid kernel `name` on `spec`'s dims, with
+    `kern`'s variant (family_count)."""
+    name = family_count(name, kern)
     return name if spec.ndim == 3 else f"{name}_{spec.ndim}d"
+
+
+def _family_args(kern):
+    """(norm, family, table resolution) of smoothing kernel `kern` for a
+    kernel of csrc/kernel_family.cuh."""
+    return float(kern.kernnorm), FAMILIES[kern.name], int(kern.table_res)
+
+
+def require_m4(kern, what: str) -> None:
+    """Refuse a smoothing kernel other than the direct M4 (None: no
+    kernel) for `what`, whose kernels hold M4 only (csrc/m4.cuh)."""
+    variant = getattr(kern, "variant", "m4")
+    if variant != "m4":
+        raise NotImplementedError(
+            f"{what} holds the M4 kernel only: the {variant} kernel is "
+            "not ported there yet (ROADMAP queue 1, item 9)")
 
 
 def _launch(name: str, dtype, device: torch.device, *args,
@@ -383,10 +439,10 @@ def grid27_density(spec, kern, h_fac, h_converge, hmax, r_d, m_d, h_d,
     done = torch.empty(shape, dtype=torch.bool, device=r_d.device)
     _launch("grid27_density", dt, r_d.device, _p(r_d), _p(m_d), _p(h_d),
             _p(fill), None if target is None else _p(target),
-            *_grid_args_nd(spec), float(kern.kernnorm), float(h_fac),
+            *_grid_args_nd(spec), *_family_args(kern), float(h_fac),
             float(h_converge), float(hmax), _p(rho), _p(invom), _p(zeta),
             _p(done), SLOT_MAPPINGS[mapping],
-            count=_grid_count("grid27_density", spec))
+            count=_grid_count("grid27_density", spec, kern))
     return rho, invom, zeta, done
 
 
@@ -405,10 +461,11 @@ def grid27_forces(spec, kern, visc, r_d, v_d, packed, fill,
     dudt = torch.empty(shape, dtype=dt, device=r_d.device)
     div_v = torch.empty(shape, dtype=dt, device=r_d.device)
     _launch("grid27_forces", dt, r_d.device, _p(r_d), _p(v_d), _p(packed),
-            _p(fill), *_grid_args_nd(spec), float(kern.kernnorm),
+            _p(fill), *_grid_args_nd(spec), *_family_args(kern),
             int(visc.avisc), int(visc.acond), float(visc.alpha_visc),
             float(visc.beta_visc), _p(a), _p(dudt), _p(div_v),
-            SLOT_MAPPINGS[mapping], count=_grid_count("grid27_forces", spec))
+            SLOT_MAPPINGS[mapping],
+            count=_grid_count("grid27_forces", spec, kern))
     return a, dudt, div_v
 
 
@@ -529,18 +586,22 @@ def _ewald_args(ewald, dt, dev):
     return tab, table.meta(extent)
 
 
-def launch_names(spec, ewald=False, listed=False, mfv=False):
+def launch_names(spec, ewald=False, listed=False, mfv=False, kern=None):
     """The LAUNCHES names (K6, K7) of a walk with TreeSpec `spec`, with
     or without the Ewald sum, over a group list or all groups, and (K7)
-    in the SPH or the MFV zeta mode."""
+    in the SPH or the MFV zeta mode, with the smoothing kernel `kern`
+    (family_count)."""
     if listed:
-        return "tree_walk_list", "tree_near_list"
-    if ewald:
-        return "tree_walk_ewald", "tree_near_ewald"
-    if spec.fast:
-        return "tree_walk_fast", "tree_near_fast"
-    walk = "tree_walk" if spec.mac == "geometric" else f"tree_walk_{spec.mac}"
-    return walk, "tree_near_mfv" if mfv else "tree_near"
+        walk, near = "tree_walk_list", "tree_near_list"
+    elif ewald:
+        walk, near = "tree_walk_ewald", "tree_near_ewald"
+    elif spec.fast:
+        walk, near = "tree_walk_fast", "tree_near_fast"
+    else:
+        walk = ("tree_walk" if spec.mac == "geometric"
+                else f"tree_walk_{spec.mac}")
+        near = "tree_near_mfv" if mfv else "tree_near"
+    return walk, family_count(near, kern)
 
 
 def tree_walk(spec, ctab, ptab, alive, group_ids=None, gfac=None,
@@ -605,6 +666,13 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
     mfv = zeta_scaling == "mfv"
     if mfv and group_ids is not None:
         raise NotImplementedError("the MFV zeta mode walks all groups")
+    if mfv:
+        require_m4(kern, "K7's MFV zeta mode")
+    if kern is not None and kern.name == "gaussian":
+        raise NotImplementedError(
+            "the gaussian kernel has no softened gravity (its wgrav and "
+            "wpot are zero): self-gravity with it is refused (ROADMAP "
+            "queue 3, fault F23)")
     G, S, rows = _tree_shapes(spec)
     dt, dev = ptab.dtype, ptab.device
     _check(ctab, "ctab", dt, (rows, _CCOLS))
@@ -627,7 +695,7 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
     smoothed = kern is not None
     tab, meta = _ewald_args(ewald, dt, dev)
     count = launch_names(spec, tab is not None, group_ids is not None,
-                         mfv)[1]
+                         mfv, kern)[1]
     if n_groups:
         _launch("tree_near", dt, dev, _p(ctab), _p(ptab), _p(alive),
                 _p(near), None if spec.fast else _p(a_far),
@@ -636,7 +704,7 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
                 n_groups, spec.depth, spec.near_cap, spec.support_cap,
                 int(smoothed), int(mfv),
                 float(kern.kernrange) if smoothed else 0.0,
-                float(kern.kernnorm) if smoothed else 0.0,
+                *(_family_args(kern) if smoothed else (0.0, 0, 0)),
                 None if tab is None else _p(tab),
                 None if meta is None else meta.ctypes.data, _p(a), _p(gpot),
                 _p(overflow), count=count)
@@ -672,8 +740,9 @@ def active_density(spec, kern, h_fac, h_converge, hmax, idx, cell_of,
     if n:
         _launch("active_density", dt, dev, _p(idx), n, _p(cell_of),
                 _p(ids_d), _p(r), _p(m), _p(h), *_grid_args(spec),
-                float(kern.kernnorm), float(h_fac), float(h_converge),
-                float(hmax), _p(rho), _p(invom), _p(zeta), _p(done))
+                *_family_args(kern), float(h_fac), float(h_converge),
+                float(hmax), _p(rho), _p(invom), _p(zeta), _p(done),
+                count=family_count("active_density", kern))
     return rho, invom, zeta, done
 
 
@@ -698,11 +767,11 @@ def active_forces(spec, kern, visc, idx, cell_of, ids_d, r, v, packed,
     if n:
         _launch("active_forces", dt, dev, _p(idx), n, _p(cell_of),
                 _p(ids_d), _p(r), _p(v), _p(packed), _p(level),
-                *_grid_args(spec), float(kern.kernnorm),
+                *_grid_args(spec), *_family_args(kern),
                 float(kern.kernrange), int(hydro_forces), int(visc.avisc),
                 int(visc.acond), float(visc.alpha_visc),
                 float(visc.beta_visc), _p(a), _p(dudt), _p(div_v),
-                _p(lneib))
+                _p(lneib), count=family_count("active_forces", kern))
     return a, dudt, div_v, lneib
 
 
@@ -722,6 +791,7 @@ def mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, h):
     zeta) sums at each particle's final h and its converged flag, each
     (N,) in particle order.  A particle without a slot keeps zeros and
     counts as not converged."""
+    require_m4(kern, "K10 mfv_density")
     N = _slot_map_args(spec, ids_d, r)
     dt, dev = r.dtype, r.device
     _check(m, "m", dt, (N,))
@@ -740,6 +810,7 @@ def mfv_gradients(spec, kern, ids_d, r, packed):
     """K11 over the slot map: B (N, 3, 3), grad (N, 5, 3), alpha_slope
     (N, 5), vsig_max (N,) and bad (N,) bool.  `packed` (N, 8) holds
     ops.mfv_grid27.GRAD_COLS."""
+    require_m4(kern, "K11 mfv_gradients")
     N = _slot_map_args(spec, ids_d, r)
     dt, dev = r.dtype, r.device
     _check(packed, "packed", dt, (N, 8))
@@ -758,6 +829,7 @@ def mfv_fluxes(spec, kern, cfg, dt_t, ids_d, r, packed):
     """K12 over the slot map: dQdt (N, 5) and rdmdt_dot (N, 3) with the
     MUSCL half step over dt_t (a 0-d tensor on the device, read there).
     `packed` (N, 41) holds ops.mfv_grid27.FLUX_COLS."""
+    require_m4(kern, "K12 mfv_fluxes")
     N = _slot_map_args(spec, ids_d, r)
     dt, dev = r.dtype, r.device
     _check(packed, "packed", dt, (N, 41))
@@ -801,9 +873,11 @@ def direct_nbody(r, v, m, compute_jerk: bool = True):
     return a, adot, gpot
 
 
-def direct_softened(r, v, m, h, compute_jerk: bool = False):
+def direct_softened(r, v, m, h, compute_jerk: bool = False, *, kern=None):
     """K14: mean-h M4-softened (a, adot, gpot); adot is the Newtonian
-    jerk, zero without `compute_jerk`."""
+    jerk, zero without `compute_jerk`.  `kern` (the caller's smoothing
+    kernel) must be the direct M4."""
+    require_m4(kern, "K14 direct_softened")
     N, ndim = _stars(r, m, ("v", v))
     _check(h, "h", r.dtype, (N,))
     a = torch.empty_like(r)
@@ -851,9 +925,12 @@ def _partials(N, Ns, cols, dt, dev):
     return torch.empty((chunks, Ns, cols), dtype=dt, device=dev)
 
 
-def star_gas_forces(r_gas, m_gas, h_gas, r_star, m_star, h_star, act):
+def star_gas_forces(r_gas, m_gas, h_gas, r_star, m_star, h_star, act, *,
+                    kern=None):
     """K16: (a_gas (N, 3), gpot_gas (N,), a_star (Ns, 3), gpot_star
-    (Ns,)) of the mean-h M4-softened star-gas pairs."""
+    (Ns,)) of the mean-h M4-softened star-gas pairs; `kern` must be the
+    direct M4."""
+    require_m4(kern, "K16 star_gas_forces")
     N, Ns = _gas_and_slots(r_gas, r_star, act)
     dt, dev = r_gas.dtype, r_gas.device
     for name, x, n in (("m_gas", m_gas, N), ("h_gas", h_gas, N),
@@ -893,10 +970,13 @@ def sink_candidate(rho, alive, rho_sink, r, v, m, h):
     return cand, gi
 
 
-def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius):
+def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius, *,
+                   kern=None):
     """K18: per slot dm (Ns,), dmom and dmr (Ns, 3) of the gas each
     active slot eats (the nearest one within sink_radius h_star), and the
-    eaten mask (N,) bool."""
+    eaten mask (N,) bool.  The sink path holds M4 only: `kern` must be
+    the direct M4."""
+    require_m4(kern, "K18 accretion_sums")
     N, Ns = _gas_and_slots(r, r_star, act)
     dt, dev = r.dtype, r.device
     _check(v, "v", dt, (N, 3))
@@ -924,10 +1004,12 @@ _MOVE_COLS = 7   # K20's widest per-particle table: dm, dm r, dm v
 
 def smooth_accretion_sums(r, v, m, rho, sound, alive, r_star, v_star,
                           m_star, h_star, act, sink_radius, dt, kernnorm,
-                          mmean, alpha_ss, frac, sdt):
+                          mmean, alpha_ss, frac, sdt, *, kern=None):
     """K20, first launch: dm (N,), the claimed slot of each gas particle
     (N,) int32 (-1 for none), and menc, macc and taccrete (Ns,).  `dt`
-    is a 0-d tensor on the device, read there."""
+    is a 0-d tensor on the device, read there.  `kern` must be the
+    direct M4 (K20 weights with M4's W)."""
+    require_m4(kern, "K20 smooth_accretion_sums")
     N, Ns = _gas_and_slots(r, r_star, act)
     dt_, dev = r.dtype, r.device
     _check(v, "v", dt_, (N, 3))
@@ -956,10 +1038,13 @@ def smooth_accretion_sums(r, v, m, rho, sound, alive, r_star, v_star,
 
 
 def smooth_accretion_apply(r, v, m, dm, slot_of, alive, r_star, v_star,
-                           r0_star, v0_star, m_star, angmom, act):
+                           r0_star, v0_star, m_star, angmom, act, *,
+                           kern=None):
     """K20, second launch: the slots' new r, v, r0, v0 (Ns, 3), m (Ns,)
     and angmom (Ns, 3), the gas's m - dm (N,) and its alive mask (N,)
-    with the emptied particles dead."""
+    with the emptied particles dead.  The sink path holds M4 only:
+    `kern` must be the direct M4."""
+    require_m4(kern, "K20 smooth_accretion_apply")
     N, Ns = _gas_and_slots(r, r_star, act)
     dt_, dev = r.dtype, r.device
     _check(v, "v", dt_, (N, 3))
@@ -1000,6 +1085,7 @@ def cullen_dehnen(spec, kern, visc, ids_d, r, packed):
     ndim: alpha_new, dalphadt (N,) and bad (N,) bool of every particle
     with a slot (the others are left zero).  `packed` (N, 2 ndim + 5)
     holds ops.forces.CD_COLS."""
+    require_m4(kern, "K21 cullen_dehnen")
     N, nd = r.shape
     dt, dev = r.dtype, r.device
     if nd != spec.ndim:
@@ -1057,6 +1143,7 @@ def dust_drag_sums(spec, kern, law, test_particle, ids_d, n_targets, r, vec,
     ops.dust.DRAG_SCALARS; ptype (M,) int32): a_drag (n, ndim), norm,
     sound and div_v (n,) of the targets, ids below n = n_targets, each
     target's step dt (n,); zero for a target without a slot."""
+    require_m4(kern, "K23 dust_drag_sums")
     M, nd = _dust_checks(spec, ids_d, n_targets, r, sc, ptype)
     dt_, dev = r.dtype, r.device
     _check(vec, "vec", dt_, (M, 3 * nd))
@@ -1082,6 +1169,7 @@ def dust_drag_deposit(spec, kern, ids_d, n_targets, r, sc, ptype, payload,
     gas targets, -dEk_i - sum_j wraw(|r_ij|, h_i) P_j / rho_i over their
     dust candidates (payload P (M,), dek (n,)); zero for dust and for a
     target without a slot."""
+    require_m4(kern, "K24 dust_drag_deposit")
     M, nd = _dust_checks(spec, ids_d, n_targets, r, sc, ptype)
     dt_, dev = r.dtype, r.device
     _check(payload, "payload", dt_, (M,))
@@ -1112,6 +1200,7 @@ def sm2012_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, u, h):
     q, hfactor (N,) and the converged flag (N,) bool of every particle
     with a slot; a particle without one keeps its h and takes rho = q =
     hfactor = 0, converged."""
+    require_m4(kern, "K25 sm2012_density")
     N, _ = _slot_map_nd(spec, ids_d, r)
     dt, dev = r.dtype, r.device
     for name, x in (("m", m), ("u", u), ("h", h)):
@@ -1131,6 +1220,7 @@ def sm2012_forces(spec, kern, visc, gamma, ids_d, r, v, packed):
     """K26 over K1's slot map ids_d: a (N, ndim), du/dt and div v (N,) of
     every particle with a slot (zero for the others).  `packed` (N, 8)
     holds ops.sm2012.SM_SCALARS per particle."""
+    require_m4(kern, "K26 sm2012_forces")
     N, nd = _slot_map_nd(spec, ids_d, r)
     dt, dev = r.dtype, r.device
     _check(v, "v", dt, (N, nd))

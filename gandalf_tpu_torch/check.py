@@ -84,6 +84,7 @@ from .ops import tree as tr
 from .ops.density import finish_h
 from .ops.sph_gravity import direct_sph_gravity
 from .analysis.riemann import shocktube_solution
+from .kernels.smoothing import VARIANTS
 from .params import Parameters
 from .sim.ic import generate_ic
 from .state import OPEN, DomainBox
@@ -188,6 +189,30 @@ TOL_F32_DRAG = 1e-3
 # and the rounding of each term (6e-8) shows at ~1e-5 of the largest net
 # value: 1e-3 of each output's largest value, as K3 on a quiet lattice.
 TOL_F32_SM2012_FORCES = 1e-3
+# K2, K3, K7, K8 and K9 with the quintic, gaussian and tabulated kernels
+# (compare_family_kernels) keep the M4 tolerances above.  Their kernel
+# functions take the plain version's rounded steps (csrc/
+# kernel_family.cuh: no fused products in the quintic and gaussian, the
+# same exp, IEEE division and square root), and K2, K3, K7 and K8 sum
+# d^2 in the plain version's steps too, so a pair's W equals the plain
+# version's wherever its h does; what differs is, as for M4, the order
+# of the sums.  That matters: the quintic's derivative cancels some three
+# digits near s = 2, so an ulp of s moves it by ~2e-5 relative in
+# float32, and K3's |a| error at the 64^3 box fell from 2.9e-5 to 9.4e-6
+# of the largest |a| when d^2 stopped being fused (NVIDIA H100 80GB
+# HBM3, 700 W).  K9's plain version sums d^2 through torch.sum, whose
+# order the kernel need not share.  At kernrange 3 a particle sums 3.4
+# times M4's pairs, which moves a sum by sqrt(3.4) = 1.8 times as much:
+# still inside the bounds.  A tabulated kernel takes the base polynomial
+# at the table point floor(s/step) step; where a rounding difference in s
+# or s^2 moves a pair across a table point, W jumps by |W'| step (~1e-3
+# of W at res = 1000).  K3 and K7 form s from the plain version's d^2, so
+# their indices agree wherever h does; K2 and K8 reach h by an iteration
+# whose float32 sums differ in order, so their pairs near a table point
+# can flip.  A flip moves rho by ~1e-3/~200 pairs = 5e-6, inside
+# TOL_F32_DENSITY_TYPICAL.  compare_kernels counts the pairs within 4
+# ulps of a table point ("table": "near_grid"), an upper bound on the
+# flips.
 
 # The least time the card could take for a kernel's work (its bound):
 # the larger of the bytes it must move (each input read once, each output
@@ -267,6 +292,28 @@ FLOPS_PER = {
     "sm2012_forces_cand_dim": 4, "sm2012_forces_pair": 38,
     "sm2012_forces_pair_dim": 6, "sm2012_forces_approach": 22,
 }
+
+
+# the operations a pair of the quintic, gaussian and tabulated kernels
+# adds to M4's (K2 and K8: the three density polynomials; K3 and K9: two
+# kernel derivatives).  Quintic: powers to s^7 and five- to seven-term
+# polynomials (+16 for the density's three, +7 per derivative);
+# gaussian: one exp (counted 20, as eigenmac's power) per pair and a few
+# products (+2, +18 per derivative); a table adds the index (a division,
+# a floor, a product; and the root of s^2 for K2, K8): +4 for the
+# density, +4 per derivative.  K7's pairs count as M4's: the support tier
+# is a few per cent of its near pairs.
+_FAMILY_EXTRA = {"quintic": (16, 14), "gaussian": (2, 36),
+                 "m4_tab": (4, 8), "quintic_tab": (20, 22),
+                 "gaussian_tab": (6, 44)}
+for _v, (_dd, _df) in _FAMILY_EXTRA.items():
+    for _sfx in ("", "_2d", "_1d"):
+        FLOPS_PER[f"grid27_density_{_v}{_sfx}"] = (
+            FLOPS_PER[f"grid27_density{_sfx}"] + _dd)
+        FLOPS_PER[f"grid27_forces_{_v}{_sfx}"] = (
+            FLOPS_PER[f"grid27_forces{_sfx}"] + _df)
+    FLOPS_PER[f"active_density_{_v}"] = FLOPS_PER["active_density"] + _dd
+    FLOPS_PER[f"active_forces_{_v}"] = FLOPS_PER["active_forces"] + _df
 
 
 def _nbytes(*ts) -> int:
@@ -703,6 +750,132 @@ def sod_l1(sim) -> float:
     return float(np.abs(vx[sel] - v_ref).mean())
 
 
+def soundwave_params(tend: float = 2.0) -> Parameters:
+    """The SPH sound wave of the JAX package's regression
+    (tests/test_soundwave.py:14-32): 1D periodic unit box, 64 particles,
+    amplitude 1e-3, isothermal (T0 1, mu 1), gaussian kernel, h_converge
+    1e-3, courant 0.025, no viscosity, one period to t = 2, on the grid
+    path (neib_search kdtree; the test runs the all-pairs path)."""
+    p = Parameters()
+    for k, v in {
+            "run_id": "", "sim": "gradhsph", "ic": "soundwave", "ndim": 1,
+            "Nhydro": 64, "rhofluid1": 1.0, "press1": 1.0, "amp": 0.001,
+            "dimensionless": 1, "boxmin[0]": 0.0, "boxmax[0]": 1.0,
+            "boundary_lhs[0]": "periodic", "boundary_rhs[0]": "periodic",
+            "tend": tend, "dt_snap": 1.0, "tsnapfirst": 0.0,
+            "gas_eos": "isothermal", "gamma_eos": 1.66666666666666666,
+            "temp0": 1.0, "mu_bar": 1.0, "kernel": "gaussian",
+            "h_converge": 0.001, "courant_mult": 0.025, "accel_mult": 0.1,
+            "avisc": "none", "acond": "none", "Nlevels": 1,
+            "neib_search": "kdtree"}.items():
+        p.set(k, v)
+    return p
+
+
+def soundwave_l1(sim, xmin: float = 0.01, xmax: float = 0.99) -> float:
+    """L1(rho) against the travelling linear wave at the simulation's
+    time, as gandalf_tpu.analysis.compute.L1errornorm("soundwave", "x",
+    "rho", 0.01, 0.99) takes it (the wave on a 2,000-point grid,
+    interpolated at the particles inside the window); the JAX package's
+    gate is 1e-4."""
+    fp = sim.params.floatparams
+    rho0, amp = fp["rhofluid1"], fp["amp"]
+    xl, xr = fp["boxmin[0]"], fp["boxmax[0]"]
+    if sim.params.stringparams["gas_eos"] == "isothermal":
+        cs = math.sqrt(fp["temp0"] / fp["mu_bar"])
+    else:
+        cs = math.sqrt(fp["gamma_eos"] * fp["press1"] / rho0)
+    lam = xr - xl
+    ax = np.linspace(xl, xr, 2000)
+    ay = rho0 * (1.0 + amp * np.sin(2.0 * math.pi / lam * ax
+                                    - 2.0 * math.pi * cs / lam * sim.t))
+    keep = (ax > xmin) & (ax < xmax)
+    ax, ay = ax[keep], ay[keep]
+    px = sim.state.r[:, 0].double().cpu().numpy()
+    py = sim.state.rho.double().cpu().numpy()
+    sel = (px > ax.min()) & (px < ax.max())
+    px, py = px[sel], py[sel]
+    return float(np.abs(py - np.interp(px, ax, ay)).sum() / px.size)
+
+
+def family_params(variant: str, params: Parameters) -> Parameters:
+    """`params` with the smoothing kernel of `variant` (a key of
+    kernels.smoothing.VARIANTS, or "m4")."""
+    name, tab = VARIANTS.get(variant, ("m4", 0))
+    params.set("kernel", name)
+    params.set("tabulated_kernel", tab)
+    return params
+
+
+def compare_family_kernels(variant: str, ndim: int, device, dtype,
+                           repeats: int = 0):
+    """K2 and K3 with the smoothing kernel `variant` against their plain
+    versions, at `ndim`: on the Sod tube (sod_params(128, 32)) in 1D,
+    the small KHI (khi_params(1)) in 2D and the jittered periodic box
+    (16^3) in 3D.  In 3D also K4-K7 on that box with self-gravity (not
+    with the gaussian: fault F23), and K8, K9 and the group-list K6/K7 on
+    the cold block sphere (about 2,000 particles) for every other
+    particle.  Returns {kernel: report} as compare_kernels does, under
+    the kernels' family names."""
+    from .sim.simulation import GradhSphSimulation
+
+    ic = None
+    if ndim == 1:
+        p = sod_params(128, 32)
+    elif ndim == 2:
+        p = khi_params(1)
+    else:
+        grav = 0 if variant.startswith("gaussian") else 1
+        p = slice_params(16, self_gravity=grav)
+        ic = jittered_box_ic(p, 16)
+    sim = GradhSphSimulation(family_params(variant, p), device, dtype)
+    sim.SetupSimulation(ic)
+    out = compare_kernels(sim, sim.state, repeats)
+    if ndim < 3:
+        return out
+    if sim.self_gravity:
+        out.update(compare_tree_kernels(sim, sim.state, repeats))
+    p = family_params(variant, sphere_block_params(
+        2000, self_gravity=int(sim.self_gravity)))
+    sim = GradhSphSimulation(p, device, dtype)
+    sim.SetupSimulation()
+    idx = torch.arange(0, sim.state.N, 2, dtype=torch.int32,
+                       device=sim.state.r.device)
+    out.update(compare_active_kernels(sim, sim.state, idx, repeats))
+    return out
+
+
+def _near_grid(x, step, dtype) -> int:
+    """Elements of x within 4 ulps (of `dtype`) of a multiple of step:
+    those whose table index a rounding difference can move."""
+    q = x.double() / step
+    eps = float(torch.finfo(dtype).eps)
+    return int((torch.abs(q - torch.round(q))
+                <= 4.0 * eps * torch.clamp_min(q, 1.0)).sum())
+
+
+def _table_report(rep2, rep3, kern, spec, r_d, fill, h_d):
+    """Add to K2's and K3's reports of a tabulated kernel the pairs in
+    support and those near a table point (an upper bound on the pairs
+    whose index the kernel and its plain version can disagree on): on
+    the s^2 grid at each particle's finished h for K2, on the s grid at
+    both particles' h for K3."""
+    rng, res = kern.kernrange, kern.table_res
+    h = h_d.reshape(-1)
+    cut2 = (rng * float(torch.max(torch.where(fill.reshape(-1), h, 0.0)))
+            ) ** 2 * (1.0 + 1e-6)
+    row, col, _, d2 = g27._pair_list(spec, r_d, fill, cut2, True)
+    ssqd = d2 / (h[row] * h[row])
+    sup = ssqd < rng * rng
+    rep2["table"] = {"pairs": int(sup.sum()), "near_grid": _near_grid(
+        ssqd[sup], rng * rng / res, r_d.dtype)}
+    d = torch.sqrt(d2)
+    s = torch.cat([d / h[row], d / h[col]])
+    sup = s < rng
+    rep3["table"] = {"pairs": int(sup.sum()), "near_grid": _near_grid(
+        s[sup], rng / res, r_d.dtype)}
+
+
 def nbody_params(n_star: int = 65536, tend: float = 1.0e30,
                  **overrides) -> Parameters:
     """The plummer_cluster configuration: a Plummer cluster of `n_star`
@@ -779,14 +952,18 @@ def _rel(x, ref, fill):
 
 
 def _scaled(x, ref, fill):
-    """Largest error over filled slots relative to the largest |ref|."""
-    err = torch.abs(x - ref)[fill].max()
-    return float(err / torch.abs(ref)[fill].max())
+    """Largest error over filled slots relative to the largest |ref| (0
+    where both are 0: the gaussian's zeta, du/dt of a fluid at rest)."""
+    err = float(torch.abs(x - ref)[fill].max())
+    return err / max(float(torch.abs(ref)[fill].max()), 1e-300)
 
 
-def kernel_name(name: str, spec) -> str:
+def kernel_name(name: str, spec, kern=None) -> str:
     """The report and LAUNCHES key of grid kernel `name` (K1-K3) on
-    `spec`'s dims: the name, with _1d or _2d appended below 3D."""
+    `spec`'s dims: the name, with the smoothing kernel's variant (K2, K3
+    with `kern` other than the direct M4: _ext.family_count) and _1d or
+    _2d appended below 3D."""
+    name = _ext.family_count(name, kern)
     return name if spec.ndim == 3 else f"{name}_{spec.ndim}d"
 
 
@@ -802,8 +979,9 @@ def compare_kernels(sim, state, repeats: int = 0, quiet: bool = False):
     saved = dict(_ext.LAUNCHES)
     spec, kern, visc = sim.gridspec, sim.kern, sim.visc
     f64 = state.r.dtype == torch.float64
-    k1, k2, k3 = (kernel_name(n, spec) for n in
-                  ("grid27_bin", "grid27_density", "grid27_forces"))
+    k1 = kernel_name("grid27_bin", spec)
+    k2, k3 = (kernel_name(n, spec, kern) for n in
+              ("grid27_density", "grid27_forces"))
     out = {}
 
     # K1 at the plan's K and at a K too small for the densest cell
@@ -848,6 +1026,8 @@ def compare_kernels(sim, state, repeats: int = 0, quiet: bool = False):
     f_k = _ext.grid27_forces(spec, kern, visc, r_d, v_d, packed, fill)
     f_p = g27.force_sums_plain(kern, visc, spec, r_d, v_d, packed, fill)
     out[k3] = _forces_report(f_k, f_p, fill, f64, quiet)
+    if kern.table_res:
+        _table_report(out[k2], out[k3], kern, spec, r_d, fill, dp.h)
 
     ids_d = ag.dense_ids(spec, b_p)
     n_i, n_ij = _slot_support_counts(spec, kern, ids_d, state.r, state.h)
@@ -1152,7 +1332,9 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
     r, m, h, kern, zh, pext = (mfv_gravity_inputs if mfv
                                else gravity_inputs)(sim, state)
     gfac, ewald = walk_options(sim, state, spec)
-    wname, nname = _ext.launch_names(spec, ewald is not None, mfv=mfv)
+    wname, nname = _ext.launch_names(spec, ewald is not None, mfv=mfv,
+                                     kern=kern)
+    lname = _ext.family_count("tree_near_list", kern)
     f64 = r.dtype == torch.float64
     G, L = spec.n_leaves, spec.leaf_size
     alive = sim.alive_mask(state)
@@ -1283,7 +1465,7 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
         errs = {"a": _scaled_all(lnk[0], lnp[0], every),
                 "gpot": _scaled_all(lnk[1], lnp[1], every)}
         same_ovf = bool(lnk[2]) == bool(lnp[2])
-        out["tree_near_list"] = {
+        out[lname] = {
             "scaled_err": errs, "same_overflow": same_ovf,
             "max_abs_err": float(torch.abs(lnk[0] - lnp[0]).max()),
             "ok": (same_ovf and not bool(lnp[2]) and max(errs.values())
@@ -1291,7 +1473,7 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
         out["tree_walk_list"]["work"] = _work(
             (cp, pp, ap, group_ids), [x for x in lk if x is not None],
             _walk_flops(spec, None, lstats))
-        out["tree_near_list"]["work"] = _work(
+        out[lname]["work"] = _work(
             [x for x in (cp, pp, ap, lp[2], lp[0], lp[1], gmap, group_ids)
              if x is not None], lnk[:2],
             FLOPS_PER["tree_near"] * _near_pairs(spec, ap, lp[2], group_ids))
@@ -1299,8 +1481,8 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
             lambda: _ext.tree_walk(spec, cp, pp, ap, group_ids, lfac),
             lambda: tr.tree_walk_plain(spec, cp, pp, ap, group_ids,
                                        gfac=lfac))
-        timed["tree_near_list"] = (lambda: _ext.tree_near(*largs),
-                                   lambda: tr.tree_near_plain(*largs))
+        timed[lname] = (lambda: _ext.tree_near(*largs),
+                        lambda: tr.tree_near_plain(*largs))
 
     if repeats > 0:
         _time_pairs(out, timed, repeats)
@@ -1484,6 +1666,8 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
     f64 = state.r.dtype == torch.float64
     il = idx.long()
     out = {}
+    k8, k9, k7l = (_ext.family_count(n, kern) for n in
+                   ("active_density", "active_forces", "tree_near_list"))
 
     # K8 on the plain binning's slot map; the finish is shared torch code
     b = g27.bin_particles_plain(spec, state.r)
@@ -1514,7 +1698,7 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
         rep["fraction_beyond_typical"] = frac
         rep["ok"] = (max(errs.values()) <= TOL_F32_DENSITY_MAX
                      and frac <= TOL_F32_DENSITY_FRACTION)
-    out["active_density"] = rep
+    out[k8] = rep
 
     # K9 on the state with the plain K8's rows written back
     dp = dens["plain"]
@@ -1537,7 +1721,7 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
             zip(("a", "dudt", "div_v"), f_k[:3], f_p[:3],
                 (every3, every, every))}
     same_lneib = bool(torch.equal(f_k[3], f_p[3]))
-    out["active_forces"] = {
+    out[k9] = {
         "n": int(il.numel()), "scaled_err": errs,
         "same_levelneib": same_lneib,
         "levelneib_raised": int((f_p[3] != s2.levelneib).sum()),
@@ -1548,14 +1732,13 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
     rows = torch.zeros((state.N,), dtype=torch.bool, device=state.r.device)
     rows[il] = True
     n_i, n_ij = _slot_support_counts(spec, kern, ids_d, s2.r, s2.h, rows)
-    out["active_density"]["work"] = _work(
-        kargs[5:], s_k, FLOPS_PER["active_density"] * (n_i + il.numel()))
-    out["active_forces"]["work"] = _work(
-        fargs[1:9], f_k, FLOPS_PER["active_forces"] * n_ij)
+    out[k8]["work"] = _work(
+        kargs[5:], s_k, FLOPS_PER[k8] * (n_i + il.numel()))
+    out[k9]["work"] = _work(fargs[1:9], f_k, FLOPS_PER[k9] * n_ij)
     timed = {
-        "active_density": (lambda: _ext.active_density(*kargs),
-                           lambda: ag.active_density_plain(*pargs)),
-        "active_forces": (
+        k8: (lambda: _ext.active_density(*kargs),
+             lambda: ag.active_density_plain(*pargs)),
+        k9: (
             lambda: _ext.active_forces(fargs[0], kern, visc, *fargs[1:]),
             lambda: ag.active_forces_plain(kern, visc, *fargs)),
     }
@@ -1616,7 +1799,7 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
                           and not bool(nk[1][~mine].any()))
         same_ovf = bool(nk[2]) == bool(np_[2])
         tol = TOL_F64 if f64 else TOL_F32_TREE_NEAR
-        out["tree_near_list"] = {
+        out[k7l] = {
             "scaled_err": errs, "same_overflow": same_ovf,
             "zero_elsewhere": zero_elsewhere,
             "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
@@ -1626,15 +1809,15 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
             (cp, pp, ap, group_ids), wk,
             FLOPS_PER["tree_walk_mac"] * wstats["mac_tests"]
             + FLOPS_PER["tree_walk_far"] * wstats["far_terms"])
-        out["tree_near_list"]["work"] = _work(
+        out[k7l]["work"] = _work(
             (cp, pp, ap, wp[2], wp[0], wp[1], gmap, group_ids), nk[:2],
             FLOPS_PER["tree_near"] * _near_pairs(tspec, ap, wp[2],
                                                  group_ids))
         timed["tree_walk_list"] = (
             lambda: _ext.tree_walk(tspec, cp, pp, ap, group_ids),
             lambda: tr.tree_walk_plain(tspec, cp, pp, ap, group_ids))
-        timed["tree_near_list"] = (lambda: _ext.tree_near(*nargs),
-                                   lambda: tr.tree_near_plain(*nargs))
+        timed[k7l] = (lambda: _ext.tree_near(*nargs),
+                      lambda: tr.tree_near_plain(*nargs))
 
     if repeats > 0:
         _time_pairs(out, timed, repeats)

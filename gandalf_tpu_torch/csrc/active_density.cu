@@ -22,10 +22,15 @@
 // and re-evaluates the same sums, so the two agree.  Outputs are the
 // sums at the final h and the converged flag; the finish (h from rho,
 // invomega, zeta, hfactor) is elementwise torch on the listed rows.
+// The smoothing kernel (kernel_family.cuh) is a template parameter, with
+// K2's support cut; any kernel but the direct M4 sums d^2 in rounded
+// steps (kExactD2).
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "grid27.cuh"
-#include "m4.cuh"
+#include "kernel_family.cuh"
 
 namespace {
 
@@ -33,11 +38,11 @@ constexpr int kIterFixedPoint = 30;
 constexpr int kIterMax = 150;
 constexpr int kThreads = 128;
 
-template <typename T>
+template <typename T, class KF>
 __global__ void __launch_bounds__(kThreads) active_density_kernel(
     const int* __restrict__ idx, int n, const int* __restrict__ cell_of,
     const int* __restrict__ ids_d, const T* __restrict__ r,
-    const T* __restrict__ m, const T* __restrict__ h, Grid3 g, T norm,
+    const T* __restrict__ m, const T* __restrict__ h, Grid3 g, KF kern,
     T h_fac, T h_converge, T hmax, T* __restrict__ rho_out,
     T* __restrict__ invom_out, T* __restrict__ zeta_out,
     unsigned char* __restrict__ done_out) {
@@ -47,7 +52,6 @@ __global__ void __launch_bounds__(kThreads) active_density_kernel(
   const int K = g.K;
   int cc[3];
   cell_coords(g, cell_of[i], cc);
-  const T nd = T(3);
   const T invndim = T(1.0 / 3.0);
   const T xi = r[3 * i], yi = r[3 * i + 1], zi = r[3 * i + 2];
   const T m_i = m[i];
@@ -70,12 +74,17 @@ __global__ void __launch_bounds__(kThreads) active_density_kernel(
         const T dx = (r[3 * q] + sh[0]) - xi;
         const T dy = (r[3 * q + 1] + sh[1]) - yi;
         const T dz = (r[3 * q + 2] + sh[2]) - zi;
-        const T s = sqrt((dx * dx + dy * dy + dz * dz) * invhsqd);
-        if (s >= T(2)) continue;  // every M4 term is zero there
+        const T d2 = KF::kExactD2 ? kf::add(kf::add(kf::mul(dx, dx),
+                                                kf::mul(dy, dy)),
+                                        kf::mul(dz, dz))
+                              : dx * dx + dy * dy + dz * dz;
+        T w0, wom, wz;
+        // every term is zero beyond the support
+        if (!kern.density(d2 * invhsqd, &w0, &wom, &wz)) continue;
         const T mj = m[q];
-        s_rho += mj * m4_w0<T>(s, norm);
-        s_om += mj * m4_womega<T>(s, norm, nd);
-        s_zeta += mj * m4_wzeta<T>(s);
+        s_rho += mj * w0;
+        s_om += mj * wom;
+        s_zeta += mj * wz;
       }
     }
     const T hfac = invh * invh * invh;
@@ -106,18 +115,25 @@ int run_active_density(const int* idx, int n, const int* cell_of,
                        const int* ids_d, const T* r, const T* m, const T* h,
                        int n0, int n1, int n2, int k_cell, int per0,
                        int per1, int per2, double L0, double L1, double L2,
-                       double norm, double h_fac, double h_converge,
-                       double hmax, T* rho, T* invom, T* zeta,
-                       unsigned char* done, int device, void* stream_ptr) {
+                       double norm, int family, int res, double h_fac,
+                       double h_converge, double hmax, T* rho, T* invom,
+                       T* zeta, unsigned char* done, int device,
+                       void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Grid3 g = {{n0, n1, n2}, {per0, per1, per2}, {L0, L1, L2}, k_cell};
-  if (n > 0)
-    active_density_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                               stream>>>(
-        idx, n, cell_of, ids_d, r, m, h, g, T(norm), T(h_fac),
-        T(h_converge), T(hmax), rho, invom, zeta, done);
+  if (n > 0) {
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, 3, [&](const auto& kern) {
+          using KF = std::decay_t<decltype(kern)>;
+          active_density_kernel<T, KF><<<(n + kThreads - 1) / kThreads,
+                                         kThreads, 0, stream>>>(
+              idx, n, cell_of, ids_d, r, m, h, g, kern, T(h_fac),
+              T(h_converge), T(hmax), rho, invom, zeta, done);
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -129,13 +145,14 @@ extern "C" {
   int NAME(const int* idx, int n, const int* cell_of, const int* ids_d,     \
            const T* r, const T* m, const T* h, int n0, int n1, int n2,      \
            int k_cell, int per0, int per1, int per2, double L0, double L1,  \
-           double L2, double norm, double h_fac, double h_converge,         \
-           double hmax, T* rho, T* invom, T* zeta, unsigned char* done,     \
-           int device, void* stream) {                                      \
+           double L2, double norm, int family, int res, double h_fac,       \
+           double h_converge, double hmax, T* rho, T* invom, T* zeta,       \
+           unsigned char* done, int device, void* stream) {                 \
     return run_active_density<T>(idx, n, cell_of, ids_d, r, m, h, n0, n1,   \
                                  n2, k_cell, per0, per1, per2, L0, L1, L2,  \
-                                 norm, h_fac, h_converge, hmax, rho, invom, \
-                                 zeta, done, device, stream);               \
+                                 norm, family, res, h_fac, h_converge,      \
+                                 hmax, rho, invom, zeta, done, device,      \
+                                 stream);                                   \
   }
 
 ACTIVE_DENSITY_ENTRY(active_density_f32, float)

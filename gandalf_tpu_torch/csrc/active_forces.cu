@@ -26,8 +26,11 @@
 // pair terms (sph_pair.cuh, shared with K3), and the epilogue normalises
 // div_v and adds -P div_v / (rho Omega) to du/dt, as compute_hydro_forces
 // does.  Outputs are per listed row; levelneib is updated in place in a
-// copy the wrapper makes.
+// copy the wrapper makes.  The smoothing kernel (kernel_family.cuh) is
+// a template parameter.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "grid27.cuh"
 #include "sph_pair.cuh"
@@ -41,12 +44,12 @@ using tree::mul_rn;
 
 constexpr int kThreads = 128;
 
-template <typename T>
+template <typename T, class KF>
 __global__ void __launch_bounds__(kThreads) active_forces_kernel(
     const int* __restrict__ idx, int n, const int* __restrict__ cell_of,
     const int* __restrict__ ids_d, const T* __restrict__ r,
     const T* __restrict__ v, const T* __restrict__ pk,
-    const int* __restrict__ level, Grid3 g, T norm, T kernrange,
+    const int* __restrict__ level, Grid3 g, KF kern, T kernrange,
     int hydro, sph::Dissipation dis, T* __restrict__ a_out,
     T* __restrict__ dudt_out, T* __restrict__ divv_out,
     int* __restrict__ levelneib) {
@@ -87,7 +90,7 @@ __global__ void __launch_bounds__(kThreads) active_forces_kernel(
       if (!hydro || !(d2 > T(0))) continue;
       sph::pair_add<T>(own, sj, dx, dy, dz, v[3 * q] - vxi,
                        v[3 * q + 1] - vyi, v[3 * q + 2] - vzi, sqrt(d2),
-                       norm, dis, acc);
+                       kern, dis, acc);
     }
   }
   atomicMax(levelneib + i, lvl_nb);
@@ -110,7 +113,8 @@ int run_active_forces(const int* idx, int n, const int* cell_of,
                       const int* ids_d, const T* r, const T* v, const T* pk,
                       const int* level, int n0, int n1, int n2, int k_cell,
                       int per0, int per1, int per2, double L0, double L1,
-                      double L2, double norm, double kernrange, int hydro,
+                      double L2, double norm, int family, int res,
+                      double kernrange, int hydro,
                       int avisc, int acond, double alpha_visc,
                       double beta_visc, T* a, T* dudt, T* div_v,
                       int* levelneib, int device, void* stream_ptr) {
@@ -118,12 +122,19 @@ int run_active_forces(const int* idx, int n, const int* cell_of,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Grid3 g = {{n0, n1, n2}, {per0, per1, per2}, {L0, L1, L2}, k_cell};
-  if (n > 0)
-    active_forces_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                              stream>>>(
-        idx, n, cell_of, ids_d, r, v, pk, level, g, T(norm), T(kernrange),
-        hydro, sph::Dissipation{avisc, acond, alpha_visc, beta_visc}, a,
-        dudt, div_v, levelneib);
+  if (n > 0) {
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, 3, [&](const auto& kern) {
+          using KF = std::decay_t<decltype(kern)>;
+          active_forces_kernel<T, KF><<<(n + kThreads - 1) / kThreads,
+                                        kThreads, 0, stream>>>(
+              idx, n, cell_of, ids_d, r, v, pk, level, g, kern,
+              T(kernrange), hydro,
+              sph::Dissipation{avisc, acond, alpha_visc, beta_visc}, a, dudt,
+              div_v, levelneib);
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -135,15 +146,15 @@ extern "C" {
   int NAME(const int* idx, int n, const int* cell_of, const int* ids_d,     \
            const T* r, const T* v, const T* pk, const int* level, int n0,   \
            int n1, int n2, int k_cell, int per0, int per1, int per2,        \
-           double L0, double L1, double L2, double norm, double kernrange,  \
-           int hydro, int avisc, int acond, double alpha_visc,              \
-           double beta_visc, T* a, T* dudt, T* div_v, int* levelneib,       \
-           int device, void* stream) {                                      \
+           double L0, double L1, double L2, double norm, int family,        \
+           int res, double kernrange, int hydro, int avisc, int acond,      \
+           double alpha_visc, double beta_visc, T* a, T* dudt, T* div_v,    \
+           int* levelneib, int device, void* stream) {                      \
     return run_active_forces<T>(idx, n, cell_of, ids_d, r, v, pk, level,    \
                                 n0, n1, n2, k_cell, per0, per1, per2, L0,   \
-                                L1, L2, norm, kernrange, hydro, avisc,      \
-                                acond, alpha_visc, beta_visc, a, dudt,      \
-                                div_v, levelneib, device, stream);          \
+                                L1, L2, norm, family, res, kernrange,       \
+                                hydro, avisc, acond, alpha_visc, beta_visc, \
+                                a, dudt, div_v, levelneib, device, stream); \
   }
 
 ACTIVE_FORCES_ENTRY(active_forces_f32, float)

@@ -27,22 +27,32 @@
 // flag; the per-slot finish (h from rho, invomega, zeta, hfactor,
 // overflow) stays elementwise torch.  No shared-memory staging yet:
 // that is later work.
+//
+// The smoothing kernel (M4, quintic or gaussian, direct or tabulated:
+// kernel_family.cuh) is a template parameter; a pair counts where the
+// family's density terms do not all vanish (s < kernrange, or for a
+// tabulated kernel s^2 < kernrange^2, JAX's w0_s2 cut).  Any kernel but
+// the direct M4 sums d^2 in the plain version's rounded steps (kExactD2),
+// so that s^2, and a table index, come from the same d^2.  At kernrange
+// 3 (quintic, gaussian) and the same h_fac a 3D particle meets (3/2)^3 =
+// 3.4 times M4's candidates and neighbours.
 #include <cuda_runtime.h>
 
 #include "grid27.cuh"
-#include "m4.cuh"
+#include "kernel_family.cuh"
 
 namespace {
 
 constexpr int kIterFixedPoint = 30;
 constexpr int kIterMax = 150;
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __device__ __forceinline__ void density_slot(
     const T* __restrict__ r, const T* __restrict__ m,
     const T* __restrict__ h, const unsigned char* __restrict__ fill,
     const unsigned char* __restrict__ target, const Grid3& g, int c, int i,
-    T norm, T h_fac, T h_converge, T h_lo, T h_hi, T* __restrict__ rho_out,
+    const KF& kern, T h_fac, T h_converge, T h_lo, T h_hi,
+    T* __restrict__ rho_out,
     T* __restrict__ invom_out, T* __restrict__ zeta_out,
     unsigned char* __restrict__ done_out) {
   const int K = g.K;
@@ -59,7 +69,6 @@ __device__ __forceinline__ void density_slot(
   T xi[NDIM];
 #pragma unroll
   for (int k = 0; k < NDIM; ++k) xi[k] = r[NDIM * p + k];
-  const T nd = T(NDIM);
   const T invndim = T(1.0 / NDIM);
   const T m_t = max(m[p], T(1e-30));
   T hh = min(max(h[p], h_lo), h_hi);
@@ -82,14 +91,18 @@ __device__ __forceinline__ void density_slot(
 #pragma unroll
         for (int k = 0; k < NDIM; ++k) {
           const T dk = (r[NDIM * q + k] + sh[k]) - xi[k];
-          d2 += dk * dk;
+          if (KF::kExactD2)
+            d2 = kf::add(d2, kf::mul(dk, dk));
+          else
+            d2 += dk * dk;
         }
-        const T s = sqrt(d2 * invhsqd);
-        if (s >= T(2)) continue;  // every M4 term is zero there
+        T w0, wom, wz;
+        // every term is zero beyond the support
+        if (!kern.density(d2 * invhsqd, &w0, &wom, &wz)) continue;
         const T mj = m[q];
-        s_rho += mj * m4_w0<T>(s, norm);
-        s_om += mj * m4_womega<T>(s, norm, nd);
-        s_zeta += mj * m4_wzeta<T>(s);
+        s_rho += mj * w0;
+        s_om += mj * wom;
+        s_zeta += mj * wz;
       }
     }
     T hfac = invh;
@@ -117,11 +130,11 @@ __device__ __forceinline__ void density_slot(
   done_out[p] = conv ? 1 : 0;
 }
 
-template <typename T, int NDIM, bool kFlat>
+template <typename T, int NDIM, bool kFlat, class KF>
 __global__ void __launch_bounds__(256) grid27_density_kernel(
     const T* __restrict__ r, const T* __restrict__ m,
     const T* __restrict__ h, const unsigned char* __restrict__ fill,
-    const unsigned char* __restrict__ target, Grid3 g, int n_cells, T norm,
+    const unsigned char* __restrict__ target, Grid3 g, int n_cells, KF kern,
     T h_fac, T h_converge, T h_lo, T h_hi, T* __restrict__ rho_out,
     T* __restrict__ invom_out, T* __restrict__ zeta_out,
     unsigned char* __restrict__ done_out) {
@@ -131,21 +144,21 @@ __global__ void __launch_bounds__(256) grid27_density_kernel(
     if (t >= static_cast<long long>(n_cells) * g.K) return;
     density_slot<T, NDIM>(r, m, h, fill, target, g,
                           static_cast<int>(t / g.K),
-                          static_cast<int>(t % g.K), norm, h_fac,
+                          static_cast<int>(t % g.K), kern, h_fac,
                           h_converge, h_lo, h_hi, rho_out, invom_out,
                           zeta_out, done_out);
     return;
   }
   for (int i = threadIdx.x; i < g.K; i += blockDim.x)
-    density_slot<T, NDIM>(r, m, h, fill, target, g, blockIdx.x, i, norm,
+    density_slot<T, NDIM>(r, m, h, fill, target, g, blockIdx.x, i, kern,
                           h_fac, h_converge, h_lo, h_hi, rho_out, invom_out,
                           zeta_out, done_out);
 }
 
-template <typename T, int NDIM, bool kFlat>
+template <typename T, int NDIM, bool kFlat, class KF>
 void launch_density(const T* r, const T* m, const T* h,
                     const unsigned char* fill, const unsigned char* target,
-                    const Grid3& g, int n_cells, T norm, T h_fac,
+                    const Grid3& g, int n_cells, const KF& kern, T h_fac,
                     T h_converge, T h_lo, T h_hi, T* rho, T* invom, T* zeta,
                     unsigned char* done, cudaStream_t stream) {
   const long long slots = static_cast<long long>(n_cells) * g.K;
@@ -153,25 +166,26 @@ void launch_density(const T* r, const T* m, const T* h,
                                               / kFlatThreads)
                            : n_cells;
   const int threads = kFlat ? kFlatThreads : slot_threads(g.K);
-  grid27_density_kernel<T, NDIM, kFlat><<<blocks, threads, 0, stream>>>(
-      r, m, h, fill, target, g, n_cells, norm, h_fac, h_converge, h_lo,
+  grid27_density_kernel<T, NDIM, kFlat, KF><<<blocks, threads, 0,
+                                               stream>>>(
+      r, m, h, fill, target, g, n_cells, kern, h_fac, h_converge, h_lo,
       h_hi, rho, invom, zeta, done);
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 void launch_density_ndim(const T* r, const T* m, const T* h,
                          const unsigned char* fill,
                          const unsigned char* target, const Grid3& g,
-                         int n_cells, T norm, T h_fac, T h_converge, T h_lo,
-                         T h_hi, T* rho, T* invom, T* zeta,
+                         int n_cells, const KF& kern, T h_fac, T h_converge,
+                         T h_lo, T h_hi, T* rho, T* invom, T* zeta,
                          unsigned char* done, bool flat,
                          cudaStream_t stream) {
   if (flat)
-    launch_density<T, NDIM, true>(r, m, h, fill, target, g, n_cells, norm,
+    launch_density<T, NDIM, true>(r, m, h, fill, target, g, n_cells, kern,
                                   h_fac, h_converge, h_lo, h_hi, rho, invom,
                                   zeta, done, stream);
   else
-    launch_density<T, NDIM, false>(r, m, h, fill, target, g, n_cells, norm,
+    launch_density<T, NDIM, false>(r, m, h, fill, target, g, n_cells, kern,
                                    h_fac, h_converge, h_lo, h_hi, rho,
                                    invom, zeta, done, stream);
 }
@@ -181,9 +195,10 @@ int run_density(const T* r, const T* m, const T* h,
                 const unsigned char* fill, const unsigned char* target,
                 int ndim, int n0, int n1, int n2, int k_cell, int per0,
                 int per1, int per2, double L0, double L1, double L2,
-                double norm, double h_fac, double h_converge, double hmax,
-                T* rho, T* invom, T* zeta, unsigned char* done, int mapping,
-                int device, void* stream_ptr) {
+                double norm, int family, int res, double h_fac,
+                double h_converge, double hmax, T* rho, T* invom, T* zeta,
+                unsigned char* done, int mapping, int device,
+                void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ndim < 1 || ndim > 3) return static_cast<int>(cudaErrorInvalidValue);
@@ -193,20 +208,26 @@ int run_density(const T* r, const T* m, const T* h,
   const bool flat = slot_mapping_flat(mapping, ndim, k_cell);
   if (n_cells > 0 && k_cell > 0) {
     // bounds as the JAX code forms them: in double, then cast
-    const T args[] = {T(norm), T(h_fac), T(h_converge), T(1e-6 * hmax),
-                      T(hmax)};
-    if (ndim == 1)
-      launch_density_ndim<T, 1>(r, m, h, fill, target, g, n_cells, args[0],
-                                args[1], args[2], args[3], args[4], rho,
-                                invom, zeta, done, flat, stream);
-    else if (ndim == 2)
-      launch_density_ndim<T, 2>(r, m, h, fill, target, g, n_cells, args[0],
-                                args[1], args[2], args[3], args[4], rho,
-                                invom, zeta, done, flat, stream);
-    else
-      launch_density_ndim<T, 3>(r, m, h, fill, target, g, n_cells, args[0],
-                                args[1], args[2], args[3], args[4], rho,
-                                invom, zeta, done, flat, stream);
+    const T args[] = {T(h_fac), T(h_converge), T(1e-6 * hmax), T(hmax)};
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, ndim, [&](const auto& kern) {
+          if (ndim == 1)
+            launch_density_ndim<T, 1>(r, m, h, fill, target, g, n_cells,
+                                      kern, args[0], args[1], args[2],
+                                      args[3], rho, invom, zeta, done, flat,
+                                      stream);
+          else if (ndim == 2)
+            launch_density_ndim<T, 2>(r, m, h, fill, target, g, n_cells,
+                                      kern, args[0], args[1], args[2],
+                                      args[3], rho, invom, zeta, done, flat,
+                                      stream);
+          else
+            launch_density_ndim<T, 3>(r, m, h, fill, target, g, n_cells,
+                                      kern, args[0], args[1], args[2],
+                                      args[3], rho, invom, zeta, done, flat,
+                                      stream);
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -219,12 +240,12 @@ extern "C" {
   int NAME(const T* r, const T* m, const T* h, const unsigned char* fill,   \
            const unsigned char* target, int ndim, int n0, int n1, int n2,   \
            int k_cell, int per0, int per1, int per2, double L0, double L1,  \
-           double L2, double norm, double h_fac, double h_converge,         \
-           double hmax, T* rho, T* invom, T* zeta, unsigned char* done,     \
-           int mapping, int device, void* stream) {                         \
+           double L2, double norm, int family, int res, double h_fac,       \
+           double h_converge, double hmax, T* rho, T* invom, T* zeta,       \
+           unsigned char* done, int mapping, int device, void* stream) {    \
     return run_density<T>(r, m, h, fill, target, ndim, n0, n1, n2, k_cell,  \
-                          per0, per1, per2, L0, L1, L2, norm, h_fac,        \
-                          h_converge, hmax, rho, invom, zeta, done,         \
+                          per0, per1, per2, L0, L1, L2, norm, family, res,  \
+                          h_fac, h_converge, hmax, rho, invom, zeta, done,  \
                           mapping, device, stream);                         \
   }
 

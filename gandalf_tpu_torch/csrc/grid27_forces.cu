@@ -25,6 +25,10 @@
 // Price (2008) conductivities are selected by integer arguments.  The
 // epilogue (div_v normalisation, -P div_v term, MM97 dalpha/dt) stays
 // elementwise torch.  No shared-memory staging yet: that is later work.
+//
+// The smoothing kernel (kernel_family.cuh) is a template parameter.  Any
+// kernel but the direct M4 sums d^2 in the plain version's rounded steps
+// (kExactD2), so its s, and a table index, are the plain version's.
 #include <cuda_runtime.h>
 
 #include "grid27.cuh"
@@ -34,11 +38,12 @@ namespace {
 
 using sph::kNScalars;
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __device__ __forceinline__ void forces_slot(
     const T* __restrict__ r, const T* __restrict__ v,
     const T* __restrict__ pk, const unsigned char* __restrict__ fill,
-    const Grid3& g, int c, int i, T norm, const sph::Dissipation& dis,
+    const Grid3& g, int c, int i, const KF& kern,
+    const sph::Dissipation& dis,
     T* __restrict__ a_out, T* __restrict__ dudt_out,
     T* __restrict__ divv_out) {
   const int K = g.K;
@@ -76,11 +81,14 @@ __device__ __forceinline__ void forces_slot(
       for (int k = 0; k < NDIM; ++k) {
         dr[k] = (r[NDIM * q + k] + sh[k]) - xi[k];
         dv[k] = v[NDIM * q + k] - vi[k];
-        drsqd += dr[k] * dr[k];
+        if (KF::kExactD2)
+          drsqd = kf::add(drsqd, kf::mul(dr[k], dr[k]));
+        else
+          drsqd += dr[k] * dr[k];
       }
       if (!(drsqd > T(0))) continue;
       sph::pair_add_n<T, NDIM>(own, pk + kNScalars * q, dr, dv, sqrt(drsqd),
-                               norm, dis, acc);
+                               kern, dis, acc);
     }
   }
 #pragma unroll
@@ -89,11 +97,11 @@ __device__ __forceinline__ void forces_slot(
   divv_out[p] = acc[NDIM + 1];
 }
 
-template <typename T, int NDIM, bool kFlat>
+template <typename T, int NDIM, bool kFlat, class KF>
 __global__ void __launch_bounds__(256) grid27_forces_kernel(
     const T* __restrict__ r, const T* __restrict__ v,
     const T* __restrict__ pk, const unsigned char* __restrict__ fill,
-    Grid3 g, int n_cells, T norm, sph::Dissipation dis,
+    Grid3 g, int n_cells, KF kern, sph::Dissipation dis,
     T* __restrict__ a_out, T* __restrict__ dudt_out,
     T* __restrict__ divv_out) {
   if (kFlat) {
@@ -101,31 +109,31 @@ __global__ void __launch_bounds__(256) grid27_forces_kernel(
                         + threadIdx.x;
     if (t >= static_cast<long long>(n_cells) * g.K) return;
     forces_slot<T, NDIM>(r, v, pk, fill, g, static_cast<int>(t / g.K),
-                         static_cast<int>(t % g.K), norm, dis, a_out,
+                         static_cast<int>(t % g.K), kern, dis, a_out,
                          dudt_out, divv_out);
     return;
   }
   for (int i = threadIdx.x; i < g.K; i += blockDim.x)
-    forces_slot<T, NDIM>(r, v, pk, fill, g, blockIdx.x, i, norm, dis, a_out,
+    forces_slot<T, NDIM>(r, v, pk, fill, g, blockIdx.x, i, kern, dis, a_out,
                          dudt_out, divv_out);
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 void launch_forces(const T* r, const T* v, const T* pk,
                    const unsigned char* fill, const Grid3& g, int n_cells,
-                   T norm, const sph::Dissipation& dis, T* a, T* dudt,
-                   T* div_v, bool flat, cudaStream_t stream) {
+                   const KF& kern, const sph::Dissipation& dis, T* a,
+                   T* dudt, T* div_v, bool flat, cudaStream_t stream) {
   if (flat) {
     const long long slots = static_cast<long long>(n_cells) * g.K;
     const int blocks =
         static_cast<int>((slots + kFlatThreads - 1) / kFlatThreads);
-    grid27_forces_kernel<T, NDIM, true><<<blocks, kFlatThreads, 0,
-                                          stream>>>(
-        r, v, pk, fill, g, n_cells, norm, dis, a, dudt, div_v);
+    grid27_forces_kernel<T, NDIM, true, KF><<<blocks, kFlatThreads, 0,
+                                              stream>>>(
+        r, v, pk, fill, g, n_cells, kern, dis, a, dudt, div_v);
   } else {
-    grid27_forces_kernel<T, NDIM, false><<<n_cells, slot_threads(g.K), 0,
-                                           stream>>>(
-        r, v, pk, fill, g, n_cells, norm, dis, a, dudt, div_v);
+    grid27_forces_kernel<T, NDIM, false, KF><<<n_cells, slot_threads(g.K),
+                                               0, stream>>>(
+        r, v, pk, fill, g, n_cells, kern, dis, a, dudt, div_v);
   }
 }
 
@@ -133,9 +141,10 @@ template <typename T>
 int run_forces(const T* r, const T* v, const T* pk,
                const unsigned char* fill, int ndim, int n0, int n1, int n2,
                int k_cell, int per0, int per1, int per2, double L0,
-               double L1, double L2, double norm, int avisc, int acond,
-               double alpha_visc, double beta_visc, T* a, T* dudt, T* div_v,
-               int mapping, int device, void* stream_ptr) {
+               double L1, double L2, double norm, int family, int res,
+               int avisc, int acond, double alpha_visc, double beta_visc,
+               T* a, T* dudt, T* div_v, int mapping, int device,
+               void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ndim < 1 || ndim > 3) return static_cast<int>(cudaErrorInvalidValue);
@@ -145,15 +154,19 @@ int run_forces(const T* r, const T* v, const T* pk,
   const sph::Dissipation dis{avisc, acond, alpha_visc, beta_visc};
   const bool flat = slot_mapping_flat(mapping, ndim, k_cell);
   if (n_cells > 0 && k_cell > 0) {
-    if (ndim == 1)
-      launch_forces<T, 1>(r, v, pk, fill, g, n_cells, T(norm), dis, a, dudt,
-                          div_v, flat, stream);
-    else if (ndim == 2)
-      launch_forces<T, 2>(r, v, pk, fill, g, n_cells, T(norm), dis, a, dudt,
-                          div_v, flat, stream);
-    else
-      launch_forces<T, 3>(r, v, pk, fill, g, n_cells, T(norm), dis, a, dudt,
-                          div_v, flat, stream);
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, ndim, [&](const auto& kern) {
+          if (ndim == 1)
+            launch_forces<T, 1>(r, v, pk, fill, g, n_cells, kern, dis, a,
+                                dudt, div_v, flat, stream);
+          else if (ndim == 2)
+            launch_forces<T, 2>(r, v, pk, fill, g, n_cells, kern, dis, a,
+                                dudt, div_v, flat, stream);
+          else
+            launch_forces<T, 3>(r, v, pk, fill, g, n_cells, kern, dis, a,
+                                dudt, div_v, flat, stream);
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -166,13 +179,13 @@ extern "C" {
   int NAME(const T* r, const T* v, const T* pk, const unsigned char* fill,  \
            int ndim, int n0, int n1, int n2, int k_cell, int per0,          \
            int per1, int per2, double L0, double L1, double L2,             \
-           double norm, int avisc, int acond, double alpha_visc,            \
-           double beta_visc, T* a, T* dudt, T* div_v, int mapping,          \
-           int device, void* stream) {                                      \
+           double norm, int family, int res, int avisc, int acond,          \
+           double alpha_visc, double beta_visc, T* a, T* dudt, T* div_v,    \
+           int mapping, int device, void* stream) {                         \
     return run_forces<T>(r, v, pk, fill, ndim, n0, n1, n2, k_cell, per0,    \
-                         per1, per2, L0, L1, L2, norm, avisc, acond,        \
-                         alpha_visc, beta_visc, a, dudt, div_v, mapping,    \
-                         device, stream);                                   \
+                         per1, per2, L0, L1, L2, norm, family, res, avisc,  \
+                         acond, alpha_visc, beta_visc, a, dudt, div_v,      \
+                         mapping, device, stream);                          \
   }
 
 GRID27_FORCES_ENTRY(grid27_forces_f32, float)

@@ -8,10 +8,12 @@
 // velocity divergence: the conservative grad-h pressure term, mon97
 // viscosity (or the mean of the two alphas) on approaching pairs with
 // the signal velocity, and the Wadsley (2008) or Price (2008)
-// conductivity.  Separations and dvdr are computed directly.
+// conductivity.  Separations and dvdr are computed directly.  The
+// kernel derivative is the family's (kernel_family.cuh), a template
+// parameter of the callers.
 #pragma once
 
-#include "m4.cuh"
+#include "kernel_family.cuh"
 
 namespace sph {
 
@@ -44,17 +46,17 @@ struct Own {
 
 // sums over NDIM dims: acc[0..NDIM-1] the acceleration, acc[NDIM] dudt,
 // acc[NDIM+1] divv.  dv = v_j - v_i; dr = r_j - r_i; drmag = |dr| > 0.
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __device__ __forceinline__ void pair_add_n(const Own<T>& o, const T* sj,
                                            const T* dr, const T* dv,
-                                           T drmag, T norm,
+                                           T drmag, const KF& kern,
                                            const Dissipation& dis,
                                            T* acc) {
   const T inv_drmag = T(1) / drmag;
   const T m_j = sj[kM];
   const T invrho_j = T(1) / sj[kRho];
-  const T wkerni = o.hfac * m4_w1<T>(drmag * o.invh, norm);
-  const T wkernj = sj[kHfac] * m4_w1<T>(drmag / sj[kH], norm);
+  const T wkerni = o.hfac * kern.w1(drmag * o.invh);
+  const T wkernj = sj[kHfac] * kern.w1(drmag / sj[kH]);
   T dvdr_sum = dv[0] * dr[0];
 #pragma unroll
   for (int k = 1; k < NDIM; ++k) dvdr_sum += dv[k] * dr[k];
@@ -85,14 +87,14 @@ __device__ __forceinline__ void pair_add_n(const Own<T>& o, const T* sj,
 }
 
 // the 3D form (K9): sums ax, ay, az, dudt, divv
-template <typename T>
+template <typename T, class KF>
 __device__ __forceinline__ void pair_add(const Own<T>& o, const T* sj,
                                          T dx, T dy, T dz, T dvx, T dvy,
-                                         T dvz, T drmag, T norm,
+                                         T dvz, T drmag, const KF& kern,
                                          const Dissipation& dis, T acc[5]) {
   const T dr[3] = {dx, dy, dz};
   const T dv[3] = {dvx, dvy, dvz};
-  pair_add_n<T, 3>(o, sj, dr, dv, drmag, norm, dis, acc);
+  pair_add_n<T, 3>(o, sj, dr, dv, drmag, kern, dis, acc);
 }
 
 }  // namespace sph

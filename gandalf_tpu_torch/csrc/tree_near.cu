@@ -50,11 +50,18 @@
 // With a group list (K6's), warp k takes group group_ids[k], and only
 // the listed groups' rows are written (the wrapper zeroes the outputs).
 // The Ewald sum is a template parameter, so the other modes' pair loop
-// carries none of its code or registers.
+// carries none of its code or registers.  So is the smoothing kernel
+// (kernel_family.cuh: M4 or the quintic, direct or tabulated; the
+// gaussian has no softened gravity, ROADMAP fault F23); any kernel but
+// the direct M4 sums d^2 in the plain version's rounded steps (kExactD2),
+// so that s and a table index are the plain version's.  At kernrange 3 about (3/2)^3 =
+// 3.4 times as many pairs fall in the support tier as with M4.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "ewald.cuh"
-#include "m4.cuh"
+#include "kernel_family.cuh"
 #include "tree.cuh"
 
 namespace {
@@ -63,7 +70,7 @@ using namespace tree;
 
 constexpr int kWarps = 4;
 
-template <typename T, bool kEwald>
+template <typename T, bool kEwald, class KF>
 __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
     const T* __restrict__ ctab, const T* __restrict__ ptab,
     const unsigned char* __restrict__ alive, const int* __restrict__ near,
@@ -71,7 +78,7 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
     const T* __restrict__ fast_tab,
     const int* __restrict__ out_index, const int* __restrict__ group_ids,
     int n_groups, int depth, int near_cap,
-    int support_cap, int smoothed, int mfv, T kernrange, T norm,
+    int support_cap, int smoothed, int mfv, T kernrange, KF kern,
     EwaldTab<T> ew, T* __restrict__ a_out, T* __restrict__ gpot_out,
     unsigned char* __restrict__ overflow) {
   __shared__ T part[kWarps][kLeaf][kPCols];
@@ -141,7 +148,10 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
           for (int k = 0; k < 3; ++k) dr[k] = min_image(dr[k], ew.period[k]);
         }
         const T dx = dr[0], dy = dr[1], dz = dr[2];
-        const T d2 = dx * dx + dy * dy + dz * dz;
+        const T d2 =
+            KF::kExactD2 ? add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)),
+                              mul_rn(dz, dz))
+                     : dx * dx + dy * dy + dz * dz;
         if (!(d2 > T(0))) continue;
         const T m_j = pj[kPM];
         const T d = sqrt(d2);
@@ -151,12 +161,12 @@ __global__ void __launch_bounds__(kWarps * kLeaf) tree_near_kernel(
         if (smoothed && leaf_sup && d < kernrange * max(h_i, pj[kPH])) {
           const T invh_j = T(1) / pj[kPH];
           const T s_i = d * invh_i, s_j = d * invh_j;
-          const T paux = T(0.5) * (invh_i * invh_i * m4_wgrav(s_i)
-                                   + invh_j * invh_j * m4_wgrav(s_j));
-          const T zterm = T(0.5) * (zh_i * m4_w1(s_i, norm)
-                                    + pj[kPZH] * m4_w1(s_j, norm));
-          const T gaux = T(0.5) * (invh_i * m4_wpot(s_i)
-                                   + invh_j * m4_wpot(s_j));
+          const T paux = T(0.5) * (invh_i * invh_i * kern.wgrav(s_i)
+                                   + invh_j * invh_j * kern.wgrav(s_j));
+          const T zterm = T(0.5) * (zh_i * kern.w1(s_i)
+                                    + pj[kPZH] * kern.w1(s_j));
+          const T gaux = T(0.5) * (invh_i * kern.wpot(s_i)
+                                   + invh_j * kern.wpot(s_j));
           if (!mfv) {
             coef = m_j * (paux + zterm) / d;
           } else {
@@ -216,7 +226,8 @@ int run_near(const T* ctab, const T* ptab, const unsigned char* alive,
              const T* fast_tab, const int* out_index, const int* group_ids,
              int n_groups, int depth, int near_cap, int support_cap,
              int smoothed, int mfv, double kernrange, double norm,
-             const T* ewald_tab, const double* ewald_meta, T* a_out,
+             int family, int res, const T* ewald_tab,
+             const double* ewald_meta, T* a_out,
              T* gpot_out, unsigned char* overflow, int device,
              void* stream_ptr) {
   if (fast_tab == nullptr && (a_far == nullptr || pot_far == nullptr))
@@ -226,13 +237,21 @@ int run_near(const T* ctab, const T* ptab, const unsigned char* alive,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int groups = group_ids != nullptr ? n_groups : 1 << depth;
   const EwaldTab<T> ew = ewald_from_meta<T>(ewald_tab, ewald_meta);
-  auto kernel = ew.tab != nullptr ? tree_near_kernel<T, true>
-                                  : tree_near_kernel<T, false>;
-  if (groups > 0)
-    kernel<<<(groups + kWarps - 1) / kWarps, kWarps * kLeaf, 0, stream>>>(
-        ctab, ptab, alive, near, a_far, pot_far, fast_tab, out_index,
-        group_ids, groups, depth, near_cap, support_cap, smoothed, mfv,
-        T(kernrange), T(norm), ew, a_out, gpot_out, overflow);
+  // the Newtonian mode (smoothed 0) takes the M4 instance
+  const bool known = kf::with_kernel<T, true>(
+      smoothed ? family : kf::kM4, smoothed ? res : 0, norm, 3,
+      [&](const auto& kern) {
+        using KF = std::decay_t<decltype(kern)>;
+        auto kernel = ew.tab != nullptr ? tree_near_kernel<T, true, KF>
+                                        : tree_near_kernel<T, false, KF>;
+        if (groups > 0)
+          kernel<<<(groups + kWarps - 1) / kWarps, kWarps * kLeaf, 0,
+                   stream>>>(
+              ctab, ptab, alive, near, a_far, pot_far, fast_tab, out_index,
+              group_ids, groups, depth, near_cap, support_cap, smoothed, mfv,
+              T(kernrange), kern, ew, a_out, gpot_out, overflow);
+      });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,14 +265,14 @@ extern "C" {
            const T* fast_tab, const int* out_index, const int* group_ids,   \
            int n_groups, int depth, int near_cap, int support_cap,          \
            int smoothed, int mfv, double kernrange, double norm,            \
-           const T* ewald_tab, const double* ewald_meta, T* a_out,          \
-           T* gpot_out, unsigned char* overflow, int device,                \
-           void* stream) {                                                  \
+           int family, int res, const T* ewald_tab,                         \
+           const double* ewald_meta, T* a_out, T* gpot_out,                 \
+           unsigned char* overflow, int device, void* stream) {             \
     return run_near<T>(ctab, ptab, alive, near, a_far, pot_far, fast_tab,   \
                        out_index, group_ids, n_groups, depth, near_cap,     \
-                       support_cap, smoothed, mfv, kernrange, norm,         \
-                       ewald_tab, ewald_meta, a_out, gpot_out, overflow,    \
-                       device, stream);                                     \
+                       support_cap, smoothed, mfv, kernrange, norm, family, \
+                       res, ewald_tab, ewald_meta, a_out, gpot_out,         \
+                       overflow, device, stream);                           \
   }
 
 TREE_NEAR_ENTRY(tree_near_f32, float)

@@ -159,8 +159,6 @@ def drag_sums(kern, law: DragLaw, spec: g27.Grid27Spec, ids_d: Tensor,
     3 ndim) holds v, a, a0, `sc` (M, 4) DRAG_SCALARS, ptype (M,) int32,
     dt (n_targets,) each target's step.  K23 on CUDA tensors."""
     if r.is_cuda:
-        if kern.name != "m4":
-            raise NotImplementedError("K23 weights with the M4 kernel only")
         return _ext.dust_drag_sums(spec, kern, law, test_particle, ids_d,
                                    n_targets, r, vec, sc, ptype, dt)
     return drag_sums_plain(kern, law, spec, ids_d, n_targets, r, vec, sc,
@@ -265,8 +263,6 @@ def drag_deposit(kern, spec: g27.Grid27Spec, ids_d: Tensor, n_targets: int,
     candidates j, P the payload (M,) of the particles and images; zero
     for dust and for a target without a slot.  K24 on CUDA tensors."""
     if r.is_cuda:
-        if kern.name != "m4":
-            raise NotImplementedError("K24 weights with the M4 kernel only")
         return _ext.dust_drag_deposit(spec, kern, ids_d, n_targets, r, sc,
                                       ptype, payload, dek)
     return drag_deposit_plain(kern, spec, ids_d, n_targets, r, sc, ptype,

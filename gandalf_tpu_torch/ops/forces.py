@@ -230,8 +230,6 @@ def cullen_dehnen_sums(kern, visc: ArtificialViscosity, spec, ids_d: Tensor,
     a particle without a slot).  `packed` is cd_packed's table.  K21 on
     CUDA tensors."""
     if r.is_cuda:
-        if kern.name != "m4":
-            raise NotImplementedError("K21 weights with the M4 kernel only")
         return _ext.cullen_dehnen(spec, kern, visc, ids_d, r.contiguous(),
                                   packed.contiguous())
     return cullen_dehnen_sums_plain(kern, visc, spec, ids_d, r, packed)

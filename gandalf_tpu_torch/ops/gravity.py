@@ -164,11 +164,9 @@ def direct_softened(r: Tensor, v: Tensor, m: Tensor, h: Tensor, kern,
     """K14 on CUDA tensors (the M4 kernel of csrc/m4.cuh), the plain
     version on CPU tensors."""
     if r.is_cuda:
-        if kern.name != "m4":
-            raise NotImplementedError("K14 softens with the M4 kernel only")
         return GravityResult(*_ext.direct_softened(
             r.contiguous(), v.contiguous(), m.contiguous(), h.contiguous(),
-            compute_jerk))
+            compute_jerk, kern=kern))
     return direct_softened_plain(r, v, m, h, kern, compute_jerk)
 
 

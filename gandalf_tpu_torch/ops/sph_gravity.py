@@ -42,12 +42,10 @@ def star_gas_forces(kern, r_gas: Tensor, m_gas: Tensor, h_gas: Tensor,
     meaningless); the star side sums every gas particle with its mass.
     K16 on CUDA tensors (the M4 kernel of csrc/m4.cuh)."""
     if r_gas.is_cuda:
-        if kern.name != "m4":
-            raise NotImplementedError("K16 softens with the M4 kernel only")
         return _ext.star_gas_forces(
             r_gas.contiguous(), m_gas.contiguous(), h_gas.contiguous(),
             r_star.contiguous(), m_star.contiguous(), h_star.contiguous(),
-            star_active.contiguous())
+            star_active.contiguous(), kern=kern)
     return star_gas_forces_plain(kern, r_gas, m_gas, h_gas, r_star, m_star,
                                  h_star, star_active)
 

@@ -15,6 +15,7 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --sm2012 [--khi]
     python -m gandalf_tpu_torch.profile_step --radws [--mfv]
     python -m gandalf_tpu_torch.profile_step --radfb
+    python -m gandalf_tpu_torch.profile_step [--block] --kernel V
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
 or self-gravitating as in bench.build_sim(64), the default), runs two
@@ -56,6 +57,9 @@ thermodynamics (check.radws_params: K27 and K28, or K27 and K29 in
 MFV).  With --radfb: the hybrid Plummer sphere of 262,144 gas particles
 and 4 stars on radws with radiative feedback (check.radfb_params;
 K27, K28 and K30 beside the sink path's kernels), as the SPH box.
+With --kernel V (quintic, gaussian, m4_tab, quintic_tab, gaussian_tab)
+the SPH box, or with --block the block sphere, runs that smoothing
+kernel (check.family_params; the gaussian with --self-gravity 0).
 Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
@@ -74,6 +78,8 @@ import sys
 import time
 
 import torch
+
+from .kernels.smoothing import VARIANTS
 
 N_SIDE = 64
 STEPS = 8
@@ -194,7 +200,8 @@ def _profile_window(sim, args, before: int) -> int:
             "mirror": args.layout if args.mirror else None,
             "dust": args.dust_case if args.dust else None,
             "sm2012": args.sm2012, "radws": args.radws,
-            "radfb": args.radfb, "ndim": sim.ndim,
+            "radfb": args.radfb, "kernel": sim.kern.variant,
+            "ndim": sim.ndim,
             "sinks_active": (int(sim.state.sinks.active.sum())
                              if getattr(sim, "has_sinks", False) else 0),
             "self_gravity": int(sim.self_gravity),
@@ -261,12 +268,16 @@ def main(argv=None) -> int:
     ap.add_argument("--radfb", action="store_true",
                     help="the Plummer sphere with 4 stars on radws with "
                          "radiative feedback (radfb_cluster)")
+    ap.add_argument("--kernel", default="m4",
+                    choices=("m4",) + tuple(VARIANTS),
+                    help="the smoothing kernel of the SPH box or the "
+                         "block sphere")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     from .check import (MIRROR_DIM0, MIRROR_MIXED, bb_block_params,
                         bb_params, dust_params, dustybox_params,
-                        jeans_params,
+                        family_params, jeans_params,
                         jittered_box_ic, khi_params, mfv_params, mirror_ic,
                         mirror_params, nbody_params, plummer_stars_params,
                         radfb_params, radws_params, slice_params,
@@ -331,12 +342,14 @@ def main(argv=None) -> int:
         sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
         warm = 2
     elif args.block:
-        sim = GradhSphSimulation(sphere_block_params(BLOCK_N),
-                                 device="cuda", dtype=torch.float32)
+        sim = GradhSphSimulation(
+            family_params(args.kernel, sphere_block_params(BLOCK_N)),
+            device="cuda", dtype=torch.float32)
         sim.SetupSimulation()
         warm = BLOCK_WARM
     else:
-        params = slice_params(N_SIDE, self_gravity=args.self_gravity)
+        params = family_params(
+            args.kernel, slice_params(N_SIDE, self_gravity=args.self_gravity))
         if args.sm2012:
             params = sm2012_params(params)
         if args.radws:

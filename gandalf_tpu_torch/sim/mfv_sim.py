@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .._ext import require_m4
 from ..ops import mfv as mfv_ops
 from ..ops import mfv_grid27 as mg
 from ..ops import sph_grid27 as g27
@@ -82,6 +83,7 @@ class MfvMusclSimulation(SimulationBase):
         if sp["gas_eos"] not in ("energy_eqn", "constant_temp", "radws"):
             raise _unsupported(f"gas_eos {sp['gas_eos']!r} in MFV", "item 10")
         self._common_parameters()
+        require_m4(self.kern, "MFV (K7's MFV mode, K10-K12)")
         if self.ndim != 3:
             raise _unsupported("MFV at ndim < 3 (K10-K12 are 3D)",
                                "item 10")

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .._ext import require_m4
 from ..integrate import hermite
 from ..integrate.hermite import HermiteConfig
 from ..kernels.smoothing import kernel_factory
@@ -79,6 +80,7 @@ class NbodySimulation(SimulationBase):
         self.kern = (kernel_factory(sp["kernel"], self.ndim,
                                     ip["tabulated_kernel"])
                      if self.softening else None)
+        require_m4(self.kern, "softened N-body gravity (K14)")
         self.extpot = sp["external_potential"]
         if self.extpot not in EXTERNAL_POTENTIALS:
             raise ValueError(

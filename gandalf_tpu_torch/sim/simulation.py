@@ -10,8 +10,11 @@ controller by the ``sim`` parameter.  The meshless finite-volume
 controller is in ``sim/mfv_sim.py``, the N-body one in ``sim/nbody_sim.py``.
 
 ``GradhSphSimulation`` is the counterpart of gandalf_tpu's
-``GradhSphSimulation`` for one configuration: grad-h SPH with the M4
-kernel, the adiabatic, isothermal, barotropic, polytropic or radws EOS
+``GradhSphSimulation`` for one configuration: grad-h SPH with the M4,
+quintic or gaussian kernel, direct or tabulated (the quintic, gaussian
+and tabulated kernels through K2, K3, K7-K9 only, so not with sinks,
+stars, dust, cd2010 or SM2012; the gaussian not with self-gravity:
+fault F23), the adiabatic, isothermal, barotropic, polytropic or radws EOS
 (the opacity table's gamma, K27; with energy_integration = radws u
 relaxes each step toward the radiative equilibrium that K28 finds at
 the previous step's end, instead of integrating du/dt, and with rad_fb
@@ -73,6 +76,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .._ext import require_m4
 from ..integrate.block import (BlockConfig, advance, check_timesteps,
                                end_timestep, init_schedule)
 from ..integrate.leapfrog import (IntegratorConfig, correct, predict,
@@ -213,6 +217,14 @@ class SimulationBase:
         self.self_gravity = bool(ip["self_gravity"])
         if self.self_gravity:
             self._check_gravity_options()
+            if self.kern.name == "gaussian":
+                # the JAX package's gaussian wgrav and wpot are zero, so
+                # its tree drops every support-tier pair's gravity
+                raise NotImplementedError(
+                    "self-gravity with the gaussian kernel: its softened "
+                    "gravity kernels are zero in the JAX package, whose "
+                    "tree then loses the gravity of every pair in a "
+                    "support leaf (ROADMAP queue 3, fault F23)")
         # the Ewald sum of a periodic self-gravitating box (ewald = 0
         # treats the box's mass as isolated), its table built once on the
         # host (gandalf_tpu/sim/simulation.py:897-921)
@@ -566,6 +578,8 @@ class GradhSphSimulation(SimulationBase):
         self._common_parameters()
         self.visc = ArtificialViscosity.from_params(p)
         self.td_avisc_type = sp["time_dependent_avisc"]
+        if self.td_avisc_type == "cd2010":
+            require_m4(self.kern, "cd2010 viscosity (K21)")
         # external analytic potentials (gandalf_tpu/sim/simulation.py:
         # 957-965)
         self.extpot = sp["external_potential"]
@@ -619,6 +633,7 @@ class GradhSphSimulation(SimulationBase):
                 raise ValueError(f"unknown dust_forces {self.dust_forces!r}")
             if self.sink_cfg.create or self.sink_cfg.accrete:
                 raise self._dust_with_sinks()
+            require_m4(self.kern, "gas-dust drag (K23, K24)")
             self.drag_law = DragLaw.from_params(p)
 
     def _radfb_parameters(self):
@@ -670,7 +685,8 @@ class GradhSphSimulation(SimulationBase):
                             "item 9")
 
     def _check_sink_options(self):
-        """The sink options the port runs: 3D and no mirror walls."""
+        """The sink options the port runs: 3D, no mirror walls, M4."""
+        require_m4(self.kern, "sinks or stars (K14, K16-K18, K20)")
         if self.ndim != 3:
             raise _unsupported("sinks at ndim < 3", "item 9")
         if self.box.mirror_walls():
@@ -697,6 +713,9 @@ class GradhSphSimulation(SimulationBase):
                                    "dust in a dust run)", "item 9")
             if self.has_dust and "star" in ic:
                 raise self._dust_with_sinks()
+            if "star" in ic:
+                require_m4(self.kern,
+                                  "sinks or stars (K14, K16-K18, K20)")
             # smooth accretion's floor (gandalf_tpu/sim/simulation.py:1339)
             self.mmean = float(np.asarray(ic["m"]).mean())
             self.state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"],
@@ -922,10 +941,11 @@ class GradhSphSimulation(SimulationBase):
                     smooth_accrete_frac=fp["smooth_accrete_frac"],
                     smooth_accrete_dt=fp["smooth_accrete_dt"])
                 sk, m_new, alive = apply_smooth_accretion(
-                    sk, s.r, s.v, s.m, dm, sums["claim"], alive)
+                    sk, s.r, s.v, s.m, dm, sums["claim"], alive, self.kern)
                 s = s.replace(m=m_new)
             else:
-                sk, alive = accrete_to_sinks(cfg, sk, s.r, s.v, s.m, alive)
+                sk, alive = accrete_to_sinks(cfg, sk, s.r, s.v, s.m, alive,
+                                             self.kern)
             sk = sk.replace(mdot=(sk.m - m_before)
                             / torch.clamp_min(dt, 1e-30))
         return self._kill_eaten(s.replace(sinks=sk), alive)
@@ -1320,6 +1340,7 @@ class SM2012SphSimulation(GradhSphSimulation):
             raise _unsupported(
                 "dust in SM2012 (the JAX package runs gas and dust through "
                 "one untyped SM2012 pass: fault F18)", "item 9")
+        require_m4(self.kern, "SM2012 SPH (K25, K26)")
 
     def _check_compacted_tick(self):
         """The JAX package's compacted block tick calls the grad-h

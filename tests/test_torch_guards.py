@@ -3,7 +3,8 @@ package (an AST scan) and running it never loads JAX, whatever
 GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
 N-body and sink slices, block-stepped smooth accretion, the cd2010
 switch, a dusty box, an SM2012 tube, an external potential and the
-radws box and cluster with radiative feedback included); chip_smoke.py
+radws box and cluster with radiative feedback and a quintic box
+included); chip_smoke.py
 refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
 tensors, and on a GPU each CUDA kernel agrees with its plain PyTorch
@@ -134,6 +135,12 @@ def test_port_never_imports_jax():
         "sim.SetupSimulation(jittered_box_ic(p, 6))\n"
         "sim.main_loop_step()\n"
         "assert sim.Nsteps == 1\n"
+        "p = slice_params(6)\n"
+        "p.set('kernel', 'quintic')\n"
+        "sim = GradhSphSimulation(p, device='cpu', dtype=torch.float64)\n"
+        "sim.SetupSimulation(jittered_box_ic(p, 6))\n"
+        "sim.main_loop_step()\n"
+        "assert sim.kern.variant == 'quintic' and sim.Nsteps == 1\n"
         "from gandalf_tpu_torch.check import (plummer_stars_params,\n"
         "                                     radfb_params, radws_params)\n"
         "p = radws_params(slice_params(6, self_gravity=1))\n"
@@ -486,6 +493,60 @@ def test_sm2012_kernels_match_plain_versions_on_gpu(dtype):
     torch.cuda.synchronize()
     bad = {k: r for k, r in report.items() if not r["ok"]}
     assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_family_kernels_match_plain_versions_on_gpu(dtype):
+    """K2, K3 (1-3 dims), K7, K8 and K9 (3D) with the quintic, gaussian,
+    tabulated M4 and tabulated quintic against their plain versions on
+    the card (check.compare_family_kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import compare_family_kernels
+
+    report = {}
+    for variant in ("quintic", "gaussian", "m4_tab", "quintic_tab"):
+        for ndim in (1, 2, 3):
+            rep = compare_family_kernels(variant, ndim, "cuda", dtype)
+            report.update({f"{k}_{ndim}": r for k, r in rep.items()})
+    torch.cuda.synchronize()
+    bad = {k: r for k, r in report.items() if not r["ok"]}
+    assert not bad, bad
+
+
+def test_family_wrappers_refuse_cpu_tensors():
+    """K2, K3, K7, K8 and K9 with the quintic: CPU tensors raise and count
+    no launch."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.ops.forces import ArtificialViscosity
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
+
+    kern = kernel_factory("quintic", 3)
+    f64 = dict(dtype=torch.float64)
+    spec = Grid27Spec(3, (2, 2, 2), (0.0,) * 3, (1.0,) * 3, 8,
+                      (True,) * 3)
+    shape = (2, 2, 2, 8)
+    x, x3 = torch.rand(shape, **f64), torch.rand(shape + (3,), **f64)
+    fill = torch.ones(shape, dtype=torch.bool)
+    idx = torch.arange(4, dtype=torch.int32)
+    ids = torch.full(shape, -1, dtype=torch.int32)
+    r = torch.rand((32, 3), **f64)
+    m = torch.rand((32,), **f64)
+    cell = torch.zeros((32,), dtype=torch.int32)
+    before = dict(_ext.LAUNCHES)
+    for call in (
+            lambda: _ext.grid27_density(spec, kern, 1.2, 0.01, 1.0, x3, x,
+                                        x, fill),
+            lambda: _ext.grid27_forces(spec, kern, ArtificialViscosity(),
+                                       x3, x3, torch.rand(shape + (9,),
+                                                          **f64), fill),
+            lambda: _ext.active_density(spec, kern, 1.2, 0.01, 1.0, idx,
+                                        cell, ids, r, m, m)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before
 
 
 def test_sm2012_wrappers_refuse_cpu_tensors():

@@ -117,7 +117,8 @@ def test_run_lands_on_tend():
                                            id="sinks-mirror_walls"),
                                        ("sim", "mfvmuscl")])
 def test_options_outside_the_slice_raise(key, value, request):
-    """Options the port does not run raise: a kernel other than M4, the
+    """Options the port does not run raise: a kernel other than M4 with
+    sinks (the sink kernels hold M4 only), the
     locally isothermal EOS (also with sinks), dust with sinks (ROADMAP
     fault F14), sinks with mirror walls, sinks in the MFV controller
     (which the JAX package's ignores: fault F16), self-gravity (which runs every walk
@@ -128,8 +129,8 @@ def test_options_outside_the_slice_raise(key, value, request):
     case = request.node.callspec.id
     if key == "ndim":
         p.set("Nlevels", 3)
-    if key in ("sim", "dust_forces") or case in ("locally_isothermal-sinks",
-                                                 "sinks-mirror_walls"):
+    if key in ("sim", "dust_forces", "kernel") or case in (
+            "locally_isothermal-sinks", "sinks-mirror_walls"):
         p.set("sink_particles", 1)
     if case == "sinks-mirror_walls":
         p.set("boundary_rhs[0]", "mirror")

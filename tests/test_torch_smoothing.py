@@ -95,8 +95,61 @@ def test_m4_reference_values():
     assert w0(2.5) == 0.0
 
 
+def _m4_only_wrappers():
+    """Each wrapper of a kernel that evaluates W with M4 only, called with
+    kernel `k` and no inputs (the refusal comes before any is read)."""
+    from gandalf_tpu_torch import _ext
+
+    return {
+        "mfv_density": lambda k: _ext.mfv_density(None, k, 1.2, 0.01, 1.0,
+                                                  None, None, None, None),
+        "mfv_gradients": lambda k: _ext.mfv_gradients(None, k, None, None,
+                                                      None),
+        "mfv_fluxes": lambda k: _ext.mfv_fluxes(None, k, None, None, None,
+                                                None, None),
+        "tree_near_mfv": lambda k: _ext.tree_near(
+            None, k, None, None, None, None, None, None, None, 0,
+            zeta_scaling="mfv"),
+        "direct_softened": lambda k: _ext.direct_softened(
+            None, None, None, None, True, kern=k),
+        "star_gas_forces": lambda k: _ext.star_gas_forces(
+            None, None, None, None, None, None, None, kern=k),
+        "accretion_sums": lambda k: _ext.accretion_sums(
+            None, None, None, None, None, None, None, 2.0, kern=k),
+        "smooth_accretion_sums": lambda k: _ext.smooth_accretion_sums(
+            *[None] * 13, 1.0, 1.0, 0.01, 0.01, 0.01, kern=k),
+        "smooth_accretion_apply": lambda k: _ext.smooth_accretion_apply(
+            *[None] * 13, kern=k),
+        "cullen_dehnen": lambda k: _ext.cullen_dehnen(None, k, None, None,
+                                                      None, None),
+        "dust_drag_sums": lambda k: _ext.dust_drag_sums(
+            None, k, None, False, None, 0, None, None, None, None, None),
+        "dust_drag_deposit": lambda k: _ext.dust_drag_deposit(
+            None, k, None, 0, None, None, None, None, None),
+        "sm2012_density": lambda k: _ext.sm2012_density(
+            None, k, 1.2, 0.01, 1.0, None, None, None, None, None),
+        "sm2012_forces": lambda k: _ext.sm2012_forces(
+            None, k, None, 1.4, None, None, None, None),
+    }
+
+
 @pytest.mark.parametrize("name,tab", [("quintic", 0), ("gaussian", 0),
                                       ("m4", 1)])
 def test_unported_kernels_raise(name, tab):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernel_factory(name, 3, tab)
+    """The kernel factory builds the quintic, the gaussian and the
+    tabulated M4, which the grad-h grid and tree kernels run; every
+    kernel that evaluates W with M4 only (MFV, N-body, sinks, cd2010,
+    dust, SM2012) refuses them, naming ROADMAP queue 1, item 9, and K7
+    refuses the gaussian (no softened gravity, fault F23)."""
+    from gandalf_tpu_torch import _ext
+
+    kern = kernel_factory(name, 3, tab)
+    assert kern.variant == (f"{name}_tab" if tab else name)
+    for wrapper, call in _m4_only_wrappers().items():
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1, item 9"):
+            call(kern)
+    if name == "gaussian":
+        with pytest.raises(NotImplementedError, match="F23"):
+            _ext.tree_near(None, kern, None, None, None, None, None, None,
+                           None, 0)

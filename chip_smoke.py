@@ -8,13 +8,14 @@ grid path and mirror walls (the Sod tube, the Kelvin-Helmholtz
 instability, the mirror-wall box), block-stepped star formation and
 time-dependent viscosity, the gas-dust drag (the dusty box and the
 dusty Evrard collapse), Saitoh & Makino (2012) SPH and the external
-potentials, RadWS radiative cooling and radiative feedback, and the
-quintic, gaussian and tabulated smoothing kernels, and checks them, in
-phases, each printing one line:
+potentials, RadWS radiative cooling and radiative feedback, the
+quintic, gaussian and tabulated smoothing kernels, and MFV's options
+(the exact Riemann solver, RK2, every slope limiter) and its 1D and 2D
+grid path, and checks them, in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K30 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K31 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -292,7 +293,36 @@ phases, each printing one line:
    K6/K7 (quintic) and no M4 K8, K9 or K7, the block gates but the
    energy drift's (2e-2: the JAX package's quintic zeta term is wrong,
    ROADMAP fault F24); then K8, K9 and the list K7 against their plain
-   versions at the path's state.
+   versions at the path's state;
+63. mfv_option_kernels: K10-K12 at ndim 1 and 2, K12 in 32 modes (HLLC
+   and exact; the Gizmo clamp, the cell alphas, null and zeroslope; MUSCL
+   and RK2; moving and static) and K31 (tvdscalar, springel2009) at ndim
+   1-3 against their plain versions on the card, in float64 and float32,
+   on the MFV Sod tube, the 2D box of tests/test_mfv_grid.py and mfv_box
+   at 16^3 (K11's alpha compared where the gradient is above rounding,
+   ROADMAP fault F25);
+64. mfv_dims_parity: check.MFV_PARITY_CASES (the tube in four option
+   sets, the 2D box in two, the Gresho vortex, the isothermal sound
+   wave), 5 float64 steps each, kernels on the card against the plain
+   path on the CPU, with equal grid plans;
+65. mfv_sod_tube: the MFV Sod tube (512 + 128) in float64 to t = 0.5:
+   L1(vx) < 7e-3 with MUSCL/HLLC/Gizmo and with mfvrk (the reference's
+   AdSodMeshlessTest gate), the exact solver with tvdscalar equal to the
+   CPU plain path's L1 (check.MFV_EXACT_TUBE_L1); then the seven limiter
+   names at 128 + 32 to t = 0.1, finite with vx.max() > 0.3;
+66. mfv_soundwave: tests/test_soundwave.py's MFV wave on the grid path in
+   float64, L1(rho) < 2e-3;
+67. gresho_mfv: the Gresho vortex at 32^2 through MFV in float64 to t =
+   0.3, L1(v_phi) < 0.12;
+68. mfv_khi: the 2D box of tests/test_mfv_grid.py at x16 per axis
+   (524,288 particles) in float32, 32 timed steps with HLLC and the Gizmo
+   limiter, then 16 with the exact solver and tvdscalar: rates, mass
+   exact, energy drift within 2e-3, min rho < 1.3 and max rho > 1.6, the
+   kernels against their plain versions (K12 also under RK2) and under
+   both thread mappings;
+69. mfvrk_box and 70. mfv_exact_box: mfv_box (64^3, the quadrupole tree)
+   under mfvrk, and with the exact solver and springel2009, 32 timed
+   steps each under mfv_main_path's gates.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -313,7 +343,12 @@ and K30 from radfb_cluster, and the kernel variants (K2, K3 and K7
 quintic from quintic_gravity_box, tabulated M4 and tabulated quintic
 from tabulated_gravity_box, K2 and K3 gaussian from gaussian_box and in
 1D from gaussian_soundwave (float64), K8, K9 and the list K7 quintic
-from quintic_block), each counted over its
+from quintic_block), K10-K12 in 2D from mfv_khi (K12's exact cell-alpha
+mode and K31 tvdscalar from its second run) and in 1D from mfv_sod_tube
+(float64: K12 RK2 from the mfvrk tube, exact cell-alpha and K31
+tvdscalar from the exact tube, the cell-alpha and zeroslope modes and K31
+springel2009 from the limiter names), K12 RK2 from mfvrk_box, K12 exact
+cell-alpha and K31 springel2009 from mfv_exact_box), each counted over its
 path's timed window
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -545,6 +580,24 @@ QUINTIC_BLOCK_TICKS = 16
 # particles in float32 (3.2e-3 over 16), block_main_path's M4 1.27e-4.
 # The gate is twice the 32-tick reading.
 QUINTIC_BLOCK_ENERGY_DRIFT_TOL = 2e-2
+# MFV's options and its 1D and 2D grid path (phases 63-70): the reference
+# gates of tests/test_mfv.py (AdSodMeshlessTest, L1(vx) < 7e-3 at 512 +
+# 128 and t = 0.5; the limiter names at 128 + 32 to t = 0.1 with vx.max()
+# > 0.3), tests/test_soundwave.py:50-53 (L1(rho) < 2e-3) and
+# tests/test_ic_2d.py:78-109 (Gresho at 32^2 to t = 0.3, L1(v_phi) <
+# 0.12); the 2D box of tests/test_mfv_grid.py:19-41 at x16 per axis
+# (524,288 particles) with tests/test_ic_2d.py:67-75's KHI gates on the
+# density (min rho < 1.3, max rho > 1.6)
+MFV_SOD_L1_GATE = 7e-3
+MFV_LIMITER_NAMES = ("scalar", "null", "zeroslope", "tvdscalar",
+                     "springel2009", "tess2011", "balsara2004")
+MFV_LIMITER_VX = 0.3
+MFV_SOUNDWAVE_GATE = 2e-3
+GRESHO_N = 32
+GRESHO_L1_GATE = 0.12
+MFV_KHI_N = 512
+MFV_KHI_STEPS = (32, 16)
+MFV_KHI_ENERGY_TOL = 2e-3
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -573,10 +626,44 @@ SOURCES = {
                     "gandalf_tpu/ops/mfv_grid27.py:70"),
     "mfv_gradients": ("gandalf_tpu_torch/csrc/mfv_gradients.cu",
                       "gandalf_tpu/ops/mfv_grid27.py:198"),
-    "mfv_fluxes": ("gandalf_tpu_torch/csrc/mfv_fluxes.cu",
+    "mfv_fluxes": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
                    "gandalf_tpu/ops/mfv_grid27.py:342"),
     "tree_near_mfv": ("gandalf_tpu_torch/csrc/tree_near.cu",
                       "gandalf_tpu/ops/tree.py:770"),
+    "mfv_fluxes_rk2": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
+                       "gandalf_tpu/ops/mfv.py:793"),
+    "mfv_fluxes_exact_cell": ("gandalf_tpu_torch/csrc/riemann_exact.cuh",
+                              "gandalf_tpu/ops/mfv.py:509"),
+    "mfv_limiter_springel2009": ("gandalf_tpu_torch/csrc/mfv_limiter.cu",
+                                 "gandalf_tpu/ops/mfv_grid27.py:281"),
+    "mfv_density_2d": ("gandalf_tpu_torch/csrc/mfv_density.cu",
+                       "gandalf_tpu/ops/mfv_grid27.py:70"),
+    "mfv_gradients_2d": ("gandalf_tpu_torch/csrc/mfv_gradients.cu",
+                         "gandalf_tpu/ops/mfv_grid27.py:198"),
+    "mfv_fluxes_2d": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
+                      "gandalf_tpu/ops/mfv_grid27.py:342"),
+    "mfv_fluxes_exact_cell_2d": ("gandalf_tpu_torch/csrc/riemann_exact.cuh",
+                                 "gandalf_tpu/ops/mfv.py:509"),
+    "mfv_limiter_tvdscalar_2d": ("gandalf_tpu_torch/csrc/mfv_limiter.cu",
+                                 "gandalf_tpu/ops/mfv_grid27.py:281"),
+    "mfv_density_1d": ("gandalf_tpu_torch/csrc/mfv_density.cu",
+                       "gandalf_tpu/ops/mfv_grid27.py:70"),
+    "mfv_gradients_1d": ("gandalf_tpu_torch/csrc/mfv_gradients.cu",
+                         "gandalf_tpu/ops/mfv_grid27.py:198"),
+    "mfv_fluxes_1d": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
+                      "gandalf_tpu/ops/mfv_grid27.py:342"),
+    "mfv_fluxes_rk2_1d": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
+                          "gandalf_tpu/ops/mfv.py:793"),
+    "mfv_fluxes_exact_cell_1d": ("gandalf_tpu_torch/csrc/riemann_exact.cuh",
+                                 "gandalf_tpu/ops/mfv.py:509"),
+    "mfv_limiter_tvdscalar_1d": ("gandalf_tpu_torch/csrc/mfv_limiter.cu",
+                                 "gandalf_tpu/ops/mfv_grid27.py:281"),
+    "mfv_fluxes_cell_1d": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
+                           "gandalf_tpu/ops/mfv.py:740"),
+    "mfv_fluxes_zeroslope_1d": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
+                                "gandalf_tpu/ops/mfv.py:740"),
+    "mfv_limiter_springel2009_1d": ("gandalf_tpu_torch/csrc/mfv_limiter.cu",
+                                    "gandalf_tpu/ops/mfv_grid27.py:281"),
     "direct_nbody": ("gandalf_tpu_torch/csrc/nbody_direct.cu",
                      "gandalf_tpu/ops/gravity.py:30"),
     "direct_softened": ("gandalf_tpu_torch/csrc/nbody_direct.cu",
@@ -3812,6 +3899,383 @@ def quintic_block(dev, card):
     return {k: launches[k] for k in names}, rep
 
 
+def _mfv_modes(gamma):
+    """K12's modes for mfv_option_kernels: both Riemann solvers, the
+    Gizmo clamp, the cell alphas (tvdscalar), alpha = 1 (null) and
+    zeroslope, MUSCL and RK2, moving and static particles."""
+    from gandalf_tpu_torch.ops.mfv import MfvConfig
+
+    return [MfvConfig(gamma=gamma, riemann=rs, slope_limiter=lim,
+                      time_scheme=ts, static_particles=st)
+            for rs in ("hllc", "exact")
+            for lim in ("gizmo", "tvdscalar", "null", "zeroslope")
+            for ts in ("muscl", "rk2") for st in (False, True)]
+
+
+def mfv_option_kernels(dev) -> None:
+    """Phase 63: K10-K12 at ndim 1 and 2, K12 in 32 modes (_mfv_modes) and
+    K31 (tvdscalar and springel2009) at ndim 1-3 against their plain
+    versions on the card, in float64 and float32, after setup and 2
+    steps of the MFV Sod tube (128 + 32), the 2D box of
+    tests/test_mfv_grid.py (64^2 + 64^2) and mfv_box at 16^3 (hydro
+    only, jittered)."""
+    from gandalf_tpu_torch.check import (compare_mfv_kernels,
+                                         jittered_box_ic, mfv_khi_params,
+                                         mfv_params, mfv_sod_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+    box = mfv_params(16, self_gravity=0)
+    cases = (("tube", mfv_sod_params(128, 32), None),
+             ("box2d", mfv_khi_params(64), None),
+             ("box3d", box, jittered_box_ic(box, 16)))
+    for tag, params, ic in cases:
+        for dtype in (torch.float64, torch.float32):
+            sim = SimulationBase.factory(params.copy(), dev, dtype)
+            sim.SetupSimulation(None if ic is None else dict(ic))
+            sim.main_loop_steps(2)
+            rep = compare_mfv_kernels(
+                sim, sim.state, flux_cfgs=_mfv_modes(sim.mfv_cfg.gamma),
+                sweeps=["tvdscalar", "springel2009"])
+            for r in rep.values():
+                r.pop("work", None)
+            phase("mfv_option_kernels", case=tag, ndim=sim.ndim,
+                  N=sim.state.N, dtype=str(dtype),
+                  k_cell=sim.gridspec.k_cell, report=rep)
+            require_ok("mfv_option_kernels", rep)
+    phase("mfv_option_kernels_done", seconds=time.perf_counter() - t0)
+
+
+def mfv_dims_parity(dev) -> None:
+    """Phase 64: the five-step runs of tests/test_torch_mfv_dims.py
+    (check.MFV_PARITY_CASES: the tube in four option sets, the 2D box in
+    two, the Gresho vortex, the isothermal sound wave) in float64,
+    kernels on the card against the plain path on the CPU: r, v, u, rho,
+    h and Wprim within PARITY_TOL, the same grid plans."""
+    from gandalf_tpu_torch.check import MFV_PARITY_CASES, mfv_parity_case
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+    worst = {}
+    for name in MFV_PARITY_CASES:
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            params, ic = mfv_parity_case(name)
+            sim = SimulationBase.factory(params, device, torch.float64)
+            sim.SetupSimulation(ic)
+            for _ in range(PARITY_STEPS):
+                sim.main_loop_step()
+            sims.append(sim)
+        errs = parity_errors(sims, ("r", "v", "u", "rho", "h", "Wprim"))
+        same_plan = sims[0].gridspec == sims[1].gridspec
+        worst[name] = max(errs.values())
+        phase("mfv_dims_parity", case=name, N=sims[1].state.N,
+              steps=PARITY_STEPS, rel_err=errs, same_grid_plan=same_plan)
+        if worst[name] > PARITY_TOL or not same_plan:
+            raise RuntimeError(f"mfv_dims_parity: {name} disagrees with "
+                               f"the plain path: {errs}")
+    phase("mfv_dims_parity_done", worst=worst,
+          seconds=time.perf_counter() - t0)
+
+
+def _first_counts(launches, rep, counts, report):
+    """Add each kernel of `counts` (a run's counts) and its report the
+    first time a phase's runs meet it: the kernel line takes it from
+    the first run that launched it."""
+    for k, n in counts.items():
+        if k not in launches:
+            launches[k] = n
+            rep[k] = report[k]
+
+
+def _mfv_run(params, dev, dtype, ic=None):
+    """An MFV controller on the card after setup, its counts set to 0,
+    then Run() to tend: (sim, seconds)."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    sim = SimulationBase.factory(params, dev, dtype)
+    sim.SetupSimulation(ic)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    sim.Run()
+    torch.cuda.synchronize()
+    return sim, time.perf_counter() - t0
+
+
+def _mfv_path_counts(sim, names):
+    """The counts of `names`, each given in a ndim-free form, on the
+    simulation's dims."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import kernel_name
+
+    keys = [kernel_name(k, sim.gridspec) for k in names]
+    keys.append(_ext.mfv_flux_count(sim.gridspec, sim.mfv_cfg))
+    return {k: _ext.LAUNCHES[k] for k in keys}
+
+
+def mfv_sod_tube(dev, card):
+    """Phase 65: the MFV Sod tube (check.mfv_sod_params, 512 + 128) on the
+    card in float64 to t = 0.5, the counts set to 0 before each Run():
+    MUSCL with HLLC and the Gizmo limiter and mfvrk held to the
+    reference's gate L1(vx) < 7e-3 (tests/test_mfv.py:62, :171-185), the
+    exact solver with tvdscalar to its CPU plain run's L1 within 1e-9;
+    then the seven limiter names at 128 + 32 to t = 0.1, finite with
+    vx.max() > 0.3 (tests/test_mfv.py:144-168).  Each run's kernels every
+    step, the mass exact; the kernels against their plain versions at
+    the runs' ends."""
+    from gandalf_tpu_torch.check import (MFV_EXACT_TUBE_L1,
+                                         compare_mfv_kernels,
+                                         mfv_sod_params, sod_l1)
+
+    t_phase = time.perf_counter()
+    launches, rep, l1s, checks = {}, {}, {}, {}
+    for tag, over in (("muscl", {}), ("mfvrk", {"sim": "mfvrk"}),
+                      ("exact_tvdscalar", {"riemann_solver": "exact",
+                                           "slope_limiter": "tvdscalar"})):
+        sim, run_s = _mfv_run(mfv_sod_params(**over), dev, torch.float64)
+        sweep = ("mfv_limiter_tvdscalar",) if "tvd" in tag else ()
+        counts = _mfv_path_counts(sim, ("mfv_density", "mfv_gradients")
+                                  + sweep)
+        l1 = sod_l1(sim)
+        l1s[tag] = {"L1_vx": l1, "steps": sim.Nsteps, "run_s": run_s}
+        checks[f"{tag}_at_tend"] = abs(
+            sim.t - sim.params.floatparams["tend"]) < 1e-12
+        checks[f"{tag}_launches"] = all(n >= sim.Nsteps
+                                        for n in counts.values())
+        checks[f"{tag}_finite"] = bool(torch.isfinite(sim.state.v).all())
+        if tag == "exact_tvdscalar":
+            checks["exact_l1_equals_cpu"] = abs(
+                l1 - MFV_EXACT_TUBE_L1) <= 1e-9 * MFV_EXACT_TUBE_L1
+        else:
+            checks[f"{tag}_l1"] = l1 < MFV_SOD_L1_GATE
+        r = compare_mfv_kernels(sim, sim.state, repeats=20)
+        _first_counts(launches, rep, counts, r)
+    limiters = {}
+    for lim in MFV_LIMITER_NAMES:
+        sim, run_s = _mfv_run(mfv_sod_params(128, 32, 0.1,
+                                             slope_limiter=lim),
+                              dev, torch.float64)
+        vx = sim.state.v[:, 0]
+        limiters[lim] = {"vx_max": float(vx.max()), "steps": sim.Nsteps}
+        checks[f"{lim}_finite"] = bool(torch.isfinite(vx).all())
+        checks[f"{lim}_vx_max"] = float(vx.max()) > MFV_LIMITER_VX
+        if lim in ("zeroslope", "scalar", "springel2009"):
+            sweep = (("mfv_limiter_springel2009",)
+                     if lim == "springel2009" else ())
+            counts = _mfv_path_counts(sim, sweep)
+            checks[f"{lim}_launches"] = all(n >= sim.Nsteps
+                                            for n in counts.values())
+            r = compare_mfv_kernels(sim, sim.state, repeats=20)
+            _first_counts(launches, rep, counts, r)
+    phase("mfv_sod_tube", runs=l1s, l1_gate=MFV_SOD_L1_GATE,
+          exact_l1_cpu=MFV_EXACT_TUBE_L1, limiter_names=limiters,
+          launches=launches, checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"mfv_sod_tube checks failed: {failed}")
+    return launches, rep
+
+
+def mfv_soundwave(dev, card):
+    """Phase 66: the MFV sound wave of tests/test_soundwave.py:50-53
+    (check.mfv_soundwave_params: 64 particles, isothermal, M4, HLLC, one
+    period to t = 2) on the grid path in float64: L1(rho) < 2e-3."""
+    from gandalf_tpu_torch.check import mfv_soundwave_params, soundwave_l1
+
+    t_phase = time.perf_counter()
+    sim, run_s = _mfv_run(mfv_soundwave_params(), dev, torch.float64)
+    counts = _mfv_path_counts(sim, ("mfv_density", "mfv_gradients"))
+    l1 = soundwave_l1(sim)
+    checks = {"l1_rho": l1 < MFV_SOUNDWAVE_GATE,
+              "at_tend": abs(sim.t - sim.params.floatparams["tend"]) < 1e-12,
+              "launches": all(n >= sim.Nsteps for n in counts.values())}
+    phase("mfv_soundwave", N=sim.state.N, steps=sim.Nsteps, run_s=run_s,
+          L1_rho=l1, l1_gate=MFV_SOUNDWAVE_GATE, launches=counts,
+          checks=checks, card=card, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"mfv_soundwave checks failed: {failed}")
+
+
+def gresho_mfv(dev, card):
+    """Phase 67: the Gresho vortex of tests/test_ic_2d.py:78-109 through
+    MFV (check.gresho_params(32)) on the card in float64 to t = 0.3:
+    L1(v_phi) < 0.12 (check.gresho_l1), the kernels every step."""
+    from gandalf_tpu_torch.check import gresho_l1, gresho_params
+
+    t_phase = time.perf_counter()
+    sim, run_s = _mfv_run(gresho_params(GRESHO_N), dev, torch.float64)
+    counts = _mfv_path_counts(sim, ("mfv_density", "mfv_gradients"))
+    l1 = gresho_l1(sim)
+    checks = {"l1_vphi": l1 < GRESHO_L1_GATE,
+              "at_tend": abs(sim.t - sim.params.floatparams["tend"]) < 1e-12,
+              "launches": all(n >= sim.Nsteps for n in counts.values())}
+    phase("gresho_mfv", N=sim.state.N, steps=sim.Nsteps, run_s=run_s,
+          L1_vphi=l1, l1_gate=GRESHO_L1_GATE, launches=counts,
+          checks=checks, card=card, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"gresho_mfv checks failed: {failed}")
+
+
+def _mfv_energy_nd(s) -> float:
+    """sum Q_E of an MFV state without gravity, in float64."""
+    return float(torch.sum(s.Qcons0[:, s.ndim + 1].double()))
+
+
+def mfv_khi(dev, card):
+    """Phase 68: the 2D box of tests/test_mfv_grid.py:19-41 at x16 per
+    axis (check.mfv_khi_params(512): 524,288 particles) in float32:
+    setup, 2 warm-up steps, 32 timed steps with HLLC and the Gizmo
+    limiter; then the same from a new setup with the exact solver and
+    tvdscalar, 16 timed steps.  Each: the rate, the counts (set to 0
+    before the timed steps), K1 twice and K10-K12 (and K31) every step,
+    mass exact, energy drift within 2e-3, min rho < 1.3 and max rho >
+    1.6, finite fields; the kernels against their plain versions and
+    under both thread mappings at the run's end."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_mfv_kernels,
+                                         mfv_khi_params, mfv_mapping_times)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    launches, rep = {}, {}
+    for steps, over in zip(MFV_KHI_STEPS, ({}, {
+            "riemann_solver": "exact", "slope_limiter": "tvdscalar"})):
+        t_phase = time.perf_counter()
+        sim = SimulationBase.factory(mfv_khi_params(MFV_KHI_N, **over), dev,
+                                     torch.float32)
+        sim.SetupSimulation()
+        m0 = sim.state.m.clone()
+        run_timed(sim, STEPS_WARM)
+        e0 = _mfv_energy_nd(sim.state)
+        steps0 = sim.Nsteps
+        _ext.reset_launches()
+        elapsed = run_timed(sim, steps)
+        done = sim.Nsteps - steps0
+        sweep = ("mfv_limiter_tvdscalar",) if over else ()
+        counts = _mfv_path_counts(sim, ("mfv_density", "mfv_gradients")
+                                  + sweep)
+        bins = _ext.LAUNCHES["grid27_bin_2d"]
+        s = sim.state
+        drift = abs(_mfv_energy_nd(s) - e0) / abs(e0)
+        checks = {
+            "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                          for f in ("r", "v", "u", "h", "rho", "Qcons0",
+                                    "grad")),
+            "mass_exact": bool(torch.equal(s.m, m0)),
+            "no_overflow": not bool(s.neib_overflow),
+            "launches": all(n >= done for n in counts.values())
+            and bins >= 2 * done,
+            "energy_drift": drift <= MFV_KHI_ENERGY_TOL,
+            "rho_min": float(s.rho.min()) < 1.3,
+            "rho_max": float(s.rho.max()) > 1.6,
+        }
+        # K12 also under RK2 at this state, for its time at the 2D box
+        r = compare_mfv_kernels(sim, s, repeats=5, flux_cfgs=[
+            sim.mfv_cfg, dataclasses.replace(sim.mfv_cfg,
+                                             time_scheme="rk2")])
+        mapping = mfv_mapping_times(sim, s)
+        tag = "exact_tvdscalar" if over else "hllc_gizmo"
+        RATES[f"mfv_khi_{tag}"] = s.N * done / elapsed
+        phase("mfv_khi", mode=tag, N=s.N, steps=sim.Nsteps,
+              timed_steps=done, timed_s=elapsed,
+              particle_steps_per_s=s.N * done / elapsed,
+              ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+              launches=counts, energy_drift=drift,
+              rho_range=[float(s.rho.min()), float(s.rho.max())],
+              checks=checks, kernels=r, slot_mappings=mapping, card=card,
+              seconds=time.perf_counter() - t_phase)
+        failed = [k for k, ok in checks.items() if not ok]
+        failed += [k for k, x in r.items() if not x["ok"]]
+        if failed:
+            raise RuntimeError(f"mfv_khi ({tag}) checks failed: {failed}")
+        _first_counts(launches, rep, counts, r)
+    return launches, rep
+
+
+def _mfv_box_variant(dev, card, tag, **over):
+    """mfv_main_path's box (mfv_box, 64^3, the quadrupole tree) with
+    `over` set: setup, 2 warm-up steps, the replan, 2 more, then 32
+    timed steps, mfv_main_path's gates (finite, mass exact, overflow,
+    launches, the tree's accuracy, energy drift), then the kernels
+    against their plain versions at the path's state."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_mfv_kernels,
+                                         jittered_box_ic, mfv_gravity_accuracy,
+                                         mfv_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    params = mfv_params(N_MAIN)
+    for k, v in over.items():
+        params.set(k, v)
+    sim = SimulationBase.factory(params, dev, torch.float32)
+    sim.SetupSimulation(jittered_box_ic(params, N_MAIN))
+    m0 = sim.state.m.clone()
+    run_timed(sim, STEPS_WARM)
+    sim._plan_tree_buckets(sim.state.r.cpu().numpy())
+    run_timed(sim, STEPS_WARM)
+    e0 = mfv_energy(sim.state)
+    steps0 = sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, MFV_STEPS_TIMED)
+    done = sim.Nsteps - steps0
+    sweep = (("mfv_limiter_" + sim.mfv_cfg.slope_limiter,)
+             if sim.mfv_cfg.slope_limiter in ("tvdscalar", "springel2009")
+             else ())
+    counts = _mfv_path_counts(sim, ("mfv_density", "mfv_gradients",
+                                    "tree_near_mfv") + sweep)
+    s = sim.state
+    drift = abs(mfv_energy(s) - e0) / abs(e0)
+    acc = mfv_gravity_accuracy(sim, n_sample=2048)
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "Qcons0",
+                                "grad", "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "launches": all(n >= done for n in counts.values()),
+        "mass_exact": bool(torch.equal(s.m, m0)),
+        "accuracy": acc["rms_rel_err"] <= ACCURACY_TOL,
+        "energy_drift": drift <= MFV_ENERGY_DRIFT_TOL,
+    }
+    r = compare_mfv_kernels(sim, s, repeats=5)
+    RATES[tag] = s.N * done / elapsed
+    phase(tag, N=s.N, steps=sim.Nsteps, timed_steps=done, timed_s=elapsed,
+          particle_steps_per_s=s.N * done / elapsed,
+          mfv_main_path_particle_steps_per_s=RATES.get("mfv"),
+          k_cell=sim.gridspec.k_cell, launches=counts, energy_drift=drift,
+          energy_gate=MFV_ENERGY_DRIFT_TOL, accuracy=acc, checks=checks,
+          kernels=r, card=card, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, x in r.items() if not x["ok"]]
+    if failed:
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+    # mfv_main_path's K10, K11 and K7 entries stand in the kernel line
+    keep = [k for k in counts if k not in ("mfv_density", "mfv_gradients",
+                                           "tree_near_mfv")]
+    return {k: counts[k] for k in keep}, {k: r[k] for k in keep}
+
+
+def mfvrk_box(dev, card):
+    """Phase 69: mfv_box under mfvrk (MfvRungeKuttaSimulation): K12 in its
+    RK2 mode every step, mfv_main_path's gates."""
+    return _mfv_box_variant(dev, card, "mfvrk_box", sim="mfvrk")
+
+
+def mfv_exact_box(dev, card):
+    """Phase 70: mfv_box with the exact Riemann solver and springel2009:
+    K11, K31 and K12 in its exact, cell-alpha mode every step,
+    mfv_main_path's gates."""
+    return _mfv_box_variant(dev, card, "mfv_exact_box",
+                            riemann_solver="exact",
+                            slope_limiter="springel2009")
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -3865,7 +4329,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "ptxas.txt").write_text(_ext.ptxas_report())
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
-          library=so.name, kernels="K1-K30", sources=list(_ext._UNITS),
+          library=so.name, kernels="K1-K31", sources=list(_ext._UNITS),
           ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
@@ -4129,6 +4593,16 @@ def main() -> int:
         f_launches, f_rep = path(dev, card)
         launches.update(f_launches)
         rep.update(f_rep)
+
+    # 63-70. MFV's options and its 1D and 2D grid path
+    mfv_option_kernels(dev)
+    mfv_dims_parity(dev)
+    for path in (mfv_sod_tube, mfv_soundwave, gresho_mfv, mfv_khi,
+                 mfvrk_box, mfv_exact_box):
+        out = path(dev, card)
+        if out is not None:        # the sound wave and Gresho add none
+            launches.update(out[0])
+            rep.update(out[1])
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K30 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K31 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -59,6 +59,7 @@ from pathlib import Path
 import torch
 
 from .kernels.smoothing import VARIANTS
+from .ops.mfv import CELL_LIMITERS, SWEEP_LIMITERS
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -67,7 +68,10 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "grid27_mirror.cu",
           "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
-          "mfv_gradients.cu", "mfv_fluxes.cu", "nbody_direct.cu",
+          "mfv_gradients.cu", "mfv_limiter.cu", "mfv_fluxes_hllc_1d.cu",
+          "mfv_fluxes_hllc_2d.cu", "mfv_fluxes_hllc_3d.cu",
+          "mfv_fluxes_exact_1d.cu", "mfv_fluxes_exact_2d.cu",
+          "mfv_fluxes_exact_3d.cu", "nbody_direct.cu",
           "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
           "grid27_levelneib.cu", "dust_drag.cu", "sm2012.cu", "radws.cu",
           "radiative_fb.cu")
@@ -87,7 +91,6 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "tree_walk_gadget2": 0, "tree_walk_eigenmac": 0,
             "tree_walk_fast": 0, "tree_near_fast": 0, "active_density": 0,
             "active_forces": 0,
-            "mfv_density": 0, "mfv_gradients": 0, "mfv_fluxes": 0,
             "direct_nbody": 0, "direct_softened": 0, "direct_snap": 0,
             "star_gas_forces": 0, "sink_candidate": 0, "accretion_sums": 0,
             "smooth_accretion": 0, "cullen_dehnen": 0,
@@ -98,6 +101,24 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "sm2012_forces_2d": 0, "sm2012_forces_1d": 0, "radws_eos": 0,
             "radws_equilibrium": 0, "radws_implicit_heating": 0,
             "ambient_temperature": 0}
+
+# the meshless finite-volume kernels in every dim, K12 in every mode
+_DIMS = ("", "_2d", "_1d")
+# K12's limiter classes (csrc/mfv.cuh: the Gizmo clamp, the cell alphas,
+# none) and K31's limiters (csrc/mfv_limiter.cu)
+MFV_LIMITER_CLASS = {"gizmo": 0, "zeroslope": 2,
+                     **{lim: 1 for lim in CELL_LIMITERS}}
+MFV_SWEEP = {lim: i for i, lim in enumerate(SWEEP_LIMITERS)}
+for _d in _DIMS:
+    LAUNCHES[f"mfv_density{_d}"] = 0
+    LAUNCHES[f"mfv_gradients{_d}"] = 0
+    for _lim in MFV_SWEEP:
+        LAUNCHES[f"mfv_limiter_{_lim}{_d}"] = 0
+    for _r in ("", "_exact"):
+        for _t in ("", "_rk2"):
+            for _c in ("", "_cell", "_zeroslope"):
+                for _st in ("", "_static"):
+                    LAUNCHES[f"mfv_fluxes{_r}{_t}{_c}{_st}{_d}"] = 0
 
 # the smoothing-kernel families of csrc/kernel_family.cuh, and the
 # kernels that take any of them, direct or tabulated (K2, K3 and K8, K9;
@@ -151,12 +172,16 @@ _ARGTYPES = {
     "active_forces": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _D, _D, _D, _D, _I, _I, _D, _I, _I, _I, _D,
                       _D, _P, _P, _P, _P, _I, _P],
-    "mfv_density": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
-                    _D, _D, _D, _D, _D, _P, _P, _P, _P, _I, _P],
-    "mfv_gradients": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
-                      _D, _D, _P, _P, _P, _P, _P, _I, _P],
-    "mfv_fluxes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
-                   _D, _D, _I, _P, _P, _I, _P],
+    # the grid arguments of _grid_args_nd: 8 ints and 3 extents
+    "mfv_density": [_P] * 4 + [_I] * 8 + [_D] * 8 + [_I] + [_P] * 4
+    + [_I, _P],
+    "mfv_gradients": [_P] * 3 + [_I] * 8 + [_D] * 5 + [_I] + [_P] * 7
+    + [_I, _P],
+    "mfv_limiter": [_P] * 6 + [_I] * 8 + [_D] * 4 + [_I] * 2 + [_P]
+    + [_I, _P],
+    # K12 per Riemann solver and NDIM: the grid arguments without ndim
+    **{f"mfv_fluxes_{_s}_{_n}d": [_P] * 4 + [_I] * 7 + [_D] * 5 + [_I] * 6
+       + [_P] * 2 + [_I, _P] for _s in ("hllc", "exact") for _n in (1, 2, 3)},
     "direct_nbody": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_softened": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_snap": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
@@ -311,15 +336,16 @@ def _float_suffix(dtype) -> str:
 
 
 def _grid_args(spec):
-    """The 3D grid arguments of K8-K12 (active-subset and MFV kernels)."""
+    """The 3D grid arguments of K8, K9 and K22 (the active-subset and
+    neighbour-level kernels)."""
     if spec.ndim != 3:
         raise NotImplementedError(
-            "the active-subset (K8, K9) and MFV (K10-K12) kernels take 3D "
-            "grids only (ROADMAP queue 1, items 3 and 10)")
+            "the active-subset (K8, K9) and neighbour-level (K22) kernels "
+            "take 3D grids only (ROADMAP queue 1, item 3)")
     if spec.mirror:
         raise NotImplementedError(
-            "the active-subset and MFV kernels take no mirror layers "
-            "(ROADMAP queue 1, items 8 and 10)")
+            "the active-subset kernels take no mirror layers (ROADMAP "
+            "queue 1, item 8)")
     return _grid_args_nd(spec)[1:]
 
 
@@ -776,17 +802,35 @@ def active_forces(spec, kern, visc, idx, cell_of, ids_d, r, v, packed,
 
 
 # ---------------------------------------------------------------------------
-# Meshless finite volume, K10-K12 (layouts of ops/mfv_grid27.py)
+# Meshless finite volume, K10-K12 and K31 (layouts of ops/mfv_grid27.py)
 # ---------------------------------------------------------------------------
 
 def _slot_map_args(spec, ids_d, r):
     N = r.shape[0]
     _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
-    _check(r, "r", r.dtype, (N, 3))
+    _check(r, "r", r.dtype, (N, spec.ndim))
+    if spec.mirror:
+        raise NotImplementedError(
+            "the MFV kernels take no mirror layers (ROADMAP queue 1, items "
+            "8 and 10)")
     return N
 
 
-def mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, h):
+def mfv_flux_count(spec, cfg) -> str:
+    """The LAUNCHES key of K12 in `cfg`'s modes on `spec`'s dims."""
+    name = "mfv_fluxes"
+    if cfg.riemann == "exact":
+        name += "_exact"
+    if cfg.time_scheme == "rk2":
+        name += "_rk2"
+    name += ("", "_cell", "_zeroslope")[MFV_LIMITER_CLASS[cfg.slope_limiter]]
+    if cfg.static_particles:
+        name += "_static"
+    return _grid_count(name, spec)
+
+
+def mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, h,
+                mapping="auto"):
     """K10 over K1's slot map ids_d (*ncells, K) int32: (ndens, invom,
     zeta) sums at each particle's final h and its converged flag, each
     (N,) in particle order.  A particle without a slot keeps zeros and
@@ -800,45 +844,95 @@ def mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, h):
                           for _ in range(3))
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
     _launch("mfv_density", dt, dev, _p(ids_d), _p(r), _p(m), _p(h),
-            *_grid_args(spec), float(kern.kernnorm), float(h_fac),
-            float(h_fac ** 3), float(h_converge), float(hmax), _p(ndens),
-            _p(invom), _p(zeta), _p(done))
+            *_grid_args_nd(spec), float(kern.kernnorm), float(h_fac),
+            float(h_fac ** spec.ndim), float(h_converge), float(hmax),
+            SLOT_MAPPINGS[mapping], _p(ndens), _p(invom), _p(zeta), _p(done),
+            count=_grid_count("mfv_density", spec))
     return ndens, invom, zeta, done
 
 
-def mfv_gradients(spec, kern, ids_d, r, packed):
-    """K11 over the slot map: B (N, 3, 3), grad (N, 5, 3), alpha_slope
-    (N, 5), vsig_max (N,) and bad (N,) bool.  `packed` (N, 8) holds
-    ops.mfv_grid27.GRAD_COLS."""
+def mfv_gradients(spec, kern, ids_d, r, packed, extrema=False,
+                  mapping="auto"):
+    """K11 over the slot map: B (N, ndim, ndim), grad (N, nvar, ndim),
+    alpha_slope (N, nvar), vsig_max (N,) and bad (N,) bool, nvar = ndim
+    + 2; with `extrema` also K31's inputs dWmax and dWmin (N, nvar).
+    `packed` (N, ndim + 5) holds h, ndens, W and sound (the columns of
+    ops.mfv_grid27.gradients)."""
     require_m4(kern, "K11 mfv_gradients")
     N = _slot_map_args(spec, ids_d, r)
+    nd = spec.ndim
+    nvar = nd + 2
     dt, dev = r.dtype, r.device
-    _check(packed, "packed", dt, (N, 8))
-    B = torch.zeros((N, 3, 3), dtype=dt, device=dev)
-    grad = torch.zeros((N, 5, 3), dtype=dt, device=dev)
-    alpha = torch.ones((N, 5), dtype=dt, device=dev)
-    vsig = torch.zeros((N,), dtype=dt, device=dev)
+    _check(packed, "packed", dt, (N, nd + 5))
+    kw = dict(dtype=dt, device=dev)
+    B = torch.zeros((N, nd, nd), **kw)
+    grad = torch.zeros((N, nvar, nd), **kw)
+    alpha = torch.ones((N, nvar), **kw)
+    vsig = torch.zeros((N,), **kw)
     bad = torch.zeros((N,), dtype=torch.bool, device=dev)
+    ext = ([torch.zeros((N, nvar), **kw) for _ in range(2)] if extrema
+           else [None, None])
     _launch("mfv_gradients", dt, dev, _p(ids_d), _p(r), _p(packed),
-            *_grid_args(spec), float(kern.kernnorm), float(kern.kernrange),
-            _p(B), _p(grad), _p(alpha), _p(vsig), _p(bad))
-    return B, grad, alpha, vsig, bad
+            *_grid_args_nd(spec), float(kern.kernnorm),
+            float(kern.kernrange), SLOT_MAPPINGS[mapping], _p(B), _p(grad),
+            _p(alpha), _p(vsig), _p(bad),
+            *[None if x is None else _p(x) for x in ext],
+            count=_grid_count("mfv_gradients", spec))
+    out = (B, grad, alpha, vsig, bad)
+    return out + tuple(ext) if extrema else out
 
 
-def mfv_fluxes(spec, kern, cfg, dt_t, ids_d, r, packed):
-    """K12 over the slot map: dQdt (N, 5) and rdmdt_dot (N, 3) with the
-    MUSCL half step over dt_t (a 0-d tensor on the device, read there).
-    `packed` (N, 41) holds ops.mfv_grid27.FLUX_COLS."""
+def mfv_limiter(spec, kern, limiter, ids_d, r, packed, grad, dWmax, dWmin,
+                mapping="auto"):
+    """K31 over the slot map: the cell alphas (N, nvar) of `limiter`
+    (tvdscalar or springel2009), the running min from 1 over the pairs
+    within kernrange h_i, from K11's gradients `grad` (N, nvar, ndim) and
+    signed extrema dWmax, dWmin (N, nvar).  `packed` as K11's."""
+    require_m4(kern, "K31 mfv_limiter")
+    if limiter not in MFV_SWEEP:
+        raise ValueError(f"K31 takes tvdscalar or springel2009, not "
+                         f"{limiter!r}")
+    N = _slot_map_args(spec, ids_d, r)
+    nd = spec.ndim
+    nvar = nd + 2
+    dt, dev = r.dtype, r.device
+    _check(packed, "packed", dt, (N, nd + 5))
+    _check(grad, "grad", dt, (N, nvar, nd))
+    _check(dWmax, "dWmax", dt, (N, nvar))
+    _check(dWmin, "dWmin", dt, (N, nvar))
+    alpha = torch.ones((N, nvar), dtype=dt, device=dev)
+    _launch("mfv_limiter", dt, dev, _p(ids_d), _p(r), _p(packed), _p(grad),
+            _p(dWmax), _p(dWmin), *_grid_args_nd(spec),
+            float(kern.kernrange), MFV_SWEEP[limiter],
+            SLOT_MAPPINGS[mapping], _p(alpha),
+            count=_grid_count(f"mfv_limiter_{limiter}", spec))
+    return alpha
+
+
+def mfv_fluxes(spec, kern, cfg, dt_t, ids_d, r, packed, mapping="auto"):
+    """K12 over the slot map: dQdt (N, nvar) and rdmdt_dot (N, ndim) in
+    `cfg`'s modes (Riemann solver, limiter class, MUSCL or RK2 over dt_t,
+    a 0-d tensor read on the device, static particles, zero mass flux).
+    `packed` (N, 15 / 26 / 41) holds ops.mfv_grid27.flux_cols."""
     require_m4(kern, "K12 mfv_fluxes")
     N = _slot_map_args(spec, ids_d, r)
+    nd = spec.ndim
+    nvar = nd + 2
     dt, dev = r.dtype, r.device
-    _check(packed, "packed", dt, (N, 41))
+    ncols = 2 * nvar + nd * nd + nvar * nd + nd + 4
+    _check(packed, "packed", dt, (N, ncols))
     _check(dt_t, "dt", dt, ())
-    dQdt = torch.zeros((N, 5), dtype=dt, device=dev)
-    rdmdt = torch.zeros((N, 3), dtype=dt, device=dev)
-    _launch("mfv_fluxes", dt, dev, _p(ids_d), _p(r), _p(packed), _p(dt_t),
-            *_grid_args(spec), float(kern.kernnorm), float(cfg.gamma),
-            int(cfg.zero_mass_flux), _p(dQdt), _p(rdmdt))
+    dQdt = torch.zeros((N, nvar), dtype=dt, device=dev)
+    rdmdt = torch.zeros((N, nd), dtype=dt, device=dev)
+    solver = "exact" if cfg.riemann == "exact" else "hllc"
+    _launch(f"mfv_fluxes_{solver}_{nd}d", dt, dev, _p(ids_d), _p(r),
+            _p(packed), _p(dt_t), *_grid_args_nd(spec)[1:],
+            float(kern.kernnorm), float(cfg.gamma),
+            int(cfg.zero_mass_flux), MFV_LIMITER_CLASS[cfg.slope_limiter],
+            int(cfg.slope_limiter == "null"),
+            int(cfg.time_scheme == "rk2"), int(cfg.static_particles),
+            SLOT_MAPPINGS[mapping], _p(dQdt), _p(rdmdt),
+            count=mfv_flux_count(spec, cfg))
     return dQdt, rdmdt
 
 

@@ -143,12 +143,28 @@ TOL_F32_EWALD_NEAR = 1e-3
 # 1e4: at most 1e-3 of the particles.
 TOL_F32_MFV_GRADIENTS = 1e-4
 TOL_F32_MFV_BAD_FRACTION = 1e-3
+# K11's cell alpha of a variable whose gradient is rounding noise (below
+# this fraction of the variable's largest gradient; float64, float32)
+# follows the noise (ROADMAP fault F25) and is not compared; its limited
+# gradient alpha * grad is, with the others
+TOL_MFV_NOISE_GRAD = {True: 1e-10, False: 1e-4}
 # float32, K12: each particle's dQdt is the sum of ~60 face fluxes of
 # order p |A| that cancel to a net one to two orders smaller in a
 # near-uniform medium, so the rounding of the terms (6e-8 each) shows
 # at ~1e-5 of the largest net value; the Gizmo clamp and the HLLC wave
 # choice take the same branch except within rounding of a tie.
 TOL_F32_MFV_FLUXES = 1e-3
+# float32, K31: a ratio per variable and pair, rounded at 6e-8, and the
+# min over the pairs; an alpha moves by ~1e-6 where the same pair sets
+# the min, and by up to 1 where a pair within rounding of the edge
+# kernrange h_i, or a tvdscalar ratio within rounding of a clip, counts
+# on one side only: at most 1e-3 of the particles beyond 1e-4.  K11's
+# extrema (max(Wmax, W) - W), drmax and so its cell alphas share the
+# edge (mfv_exact_box's state at 64^3 had one particle 5% off in
+# dWmin, NVIDIA H100 80GB HBM3, 700 W): held the same way, B, the
+# gradients and vsig_max to TOL_F32_MFV_GRADIENTS everywhere.
+TOL_F32_MFV_LIMITER = 1e-4
+TOL_F32_MFV_LIMITER_FRACTION = 1e-3
 # K13-K15 (all-pairs sums over the stars), each output's largest error
 # relative to its largest |value|.  float64: the same formulas, the sums
 # in another order (the kernel's tiles against torch's reductions) and
@@ -667,6 +683,166 @@ def khi_params(scale: int = 16, tend: float = 1.0e30) -> Parameters:
             "tend": tend, "tsnapfirst": 1.0e30, "dt_snap": 1.0e30}.items():
         p.set(k, v)
     return p
+
+
+def mfv_sod_params(n1: int = 512, n2: int = 128, tend: float = 0.5,
+                   **over) -> Parameters:
+    """The MFV Sod tube of the JAX package's gate (tests/test_mfv.py:
+    15-35, the reference's AdSodMeshlessTest) on the grid path: 1D, box
+    [-2, 2] periodic, n1 + n2 lattice particles with rho 1 | 0.25 and p 1
+    | 0.1975, energy_eqn gamma 1.4, M4, h_converge 0.01, HLLC, the Gizmo
+    limiter, zero mass flux, courant 0.2, accel 0.4, a global dt, to
+    `tend`; `over` sets any other parameter (sim = mfvrk,
+    riemann_solver, slope_limiter, static_particles, ...)."""
+    p = Parameters()
+    upd = {
+        "run_id": "", "sim": "mfvmuscl", "ic": "shocktube", "ndim": 1,
+        "press1": 1.0, "press2": 0.1975, "rhofluid1": 1.0,
+        "rhofluid2": 0.25, "Nlattice1[0]": n1, "Nlattice2[0]": n2,
+        "dimensionless": 1, "boxmin[0]": -2.0, "boxmax[0]": 2.0,
+        "boundary_lhs[0]": "periodic", "boundary_rhs[0]": "periodic",
+        "tend": tend, "dt_snap": 1.0e30, "tsnapfirst": 1.0e30,
+        "gas_eos": "energy_eqn", "gamma_eos": 1.4, "kernel": "m4",
+        "h_converge": 0.01, "riemann_solver": "hllc",
+        "slope_limiter": "gizmo", "zero_mass_flux": 1, "courant_mult": 0.2,
+        "accel_mult": 0.4, "Nlevels": 1, "neib_search": "kdtree"}
+    upd.update(over)
+    for k, v in upd.items():
+        p.set(k, v)
+    return p
+
+
+def mfv_khi_params(n_side: int = 32, tend: float = 1.0e30,
+                   **over) -> Parameters:
+    """The 2D MFV box of the JAX package's grid-path gate
+    (tests/test_mfv_grid.py:19-41): [0, 1]^2 periodic, two n_side^2
+    lattices, rho 1 below and 2 above at p 2.5 and 1 (the default
+    press2), at rest but for the seeded v_y mode (amp 0.1, lambda 0.5),
+    energy_eqn gamma 5/3, M4, HLLC, the Gizmo limiter, zero mass flux,
+    courant 0.2, accel 0.4, a global dt; `over` sets any other parameter.
+    n_side 32 is the test's, 512 the 524,288-particle mfv_khi."""
+    p = Parameters()
+    upd = {
+        "run_id": "", "sim": "mfvmuscl", "ic": "khi", "ndim": 2,
+        "Nlattice1[0]": n_side, "Nlattice1[1]": n_side,
+        "Nlattice2[0]": n_side, "Nlattice2[1]": n_side,
+        "dimensionless": 1, "boxmin[0]": 0.0, "boxmax[0]": 1.0,
+        "boxmin[1]": 0.0, "boxmax[1]": 1.0,
+        "boundary_lhs[0]": "periodic", "boundary_rhs[0]": "periodic",
+        "boundary_lhs[1]": "periodic", "boundary_rhs[1]": "periodic",
+        "rhofluid1": 1.0, "rhofluid2": 2.0, "press1": 2.5,
+        "gas_eos": "energy_eqn", "gamma_eos": 1.6666666666666667,
+        "kernel": "m4", "riemann_solver": "hllc", "slope_limiter": "gizmo",
+        "zero_mass_flux": 1, "courant_mult": 0.2, "accel_mult": 0.4,
+        "Nlevels": 1, "tend": tend, "neib_search": "kdtree",
+        "tsnapfirst": 1.0e30, "dt_snap": 1.0e30}
+    upd.update(over)
+    for k, v in upd.items():
+        p.set(k, v)
+    return p
+
+
+def gresho_params(n_side: int = 32, tend: float = 0.3,
+                  **over) -> Parameters:
+    """The Gresho-Chan vortex of the JAX package's 2D gate
+    (tests/test_ic_2d.py:78-109) through MFV: [-0.5, 0.5]^2 periodic, an
+    n_side^2 lattice, gamma 1.4, M4, HLLC, courant 0.2, accel 0.3, a
+    global dt, to `tend`."""
+    p = Parameters()
+    upd = {
+        "run_id": "", "sim": "mfvmuscl", "ic": "gresho", "ndim": 2,
+        "dimensionless": 1, "gas_eos": "energy_eqn", "gamma_eos": 1.4,
+        "tsnapfirst": 1.0e30, "dt_snap": 1.0e30, "kernel": "m4",
+        "courant_mult": 0.2, "accel_mult": 0.3, "Nlevels": 1,
+        "neib_search": "kdtree", "riemann_solver": "hllc",
+        "Nlattice1[0]": n_side, "Nlattice1[1]": n_side,
+        "boxmin[0]": -0.5, "boxmax[0]": 0.5, "boxmin[1]": -0.5,
+        "boxmax[1]": 0.5, "boundary_lhs[0]": "periodic",
+        "boundary_rhs[0]": "periodic", "boundary_lhs[1]": "periodic",
+        "boundary_rhs[1]": "periodic", "tend": tend}
+    upd.update(over)
+    for k, v in upd.items():
+        p.set(k, v)
+    return p
+
+
+def gresho_l1(sim) -> float:
+    """L1(v_phi) within r < 0.45 against the steady vortex
+    (tests/test_ic_2d.py:96-109; the gate is 0.12)."""
+    r = sim.state.r.double().cpu().numpy()
+    v = sim.state.v.double().cpu().numpy()
+    rad = np.sqrt((r ** 2).sum(-1)) + 1e-30
+    vphi = (-v[:, 0] * r[:, 1] + v[:, 1] * r[:, 0]) / rad
+    exact = np.where(rad < 0.2, 5.0 * rad,
+                     np.where(rad < 0.4, 2.0 - 5.0 * rad, 0.0))
+    mask = rad < 0.45
+    return float(np.abs(vphi[mask] - exact[mask]).mean())
+
+
+def mfv_soundwave_params(tend: float = 2.0) -> Parameters:
+    """The MFV sound wave of the JAX package's regression
+    (tests/test_soundwave.py:14-32 with sim = mfvmuscl, the M4 kernel and
+    HLLC; gate L1(rho) < 2e-3, soundwave_l1) on the grid path
+    (neib_search kdtree; the test runs the all-pairs path)."""
+    p = soundwave_params(tend)
+    p.set("sim", "mfvmuscl")
+    p.set("kernel", "m4")
+    p.set("riemann_solver", "hllc")
+    return p
+
+
+def jittered_lattice_ic(params: Parameters, seed: int = 7,
+                        frac: float = 0.1):
+    """The configuration's IC with positions moved by `frac` lattice
+    spacings N(0,1) (numpy generator `seed`), wrapped into the periodic
+    box: on an exact lattice a gradient component or a difference to a
+    neighbour extremum that is 0 by symmetry is rounding noise in one
+    order of the sums and 0 in another, and the cell limiters follow it
+    (ROADMAP fault F25)."""
+    ic = generate_ic(params, None)
+    fp, nd = params.floatparams, params.intparams["ndim"]
+    lo = np.array([fp[f"boxmin[{k}]"] for k in range(nd)])
+    size = np.array([fp[f"boxmax[{k}]"] for k in range(nd)]) - lo
+    spacing = (np.prod(size) / len(ic["m"])) ** (1.0 / nd)
+    rng = np.random.default_rng(seed)
+    r = ic["r"] + frac * spacing * rng.standard_normal(ic["r"].shape)
+    ic["r"] = lo + np.mod(r - lo, size)
+    return ic
+
+
+# L1(vx) of the MFV Sod tube with the exact solver and tvdscalar
+# (mfv_sod_params(riemann_solver="exact", slope_limiter="tvdscalar"), 512
+# + 128 to t = 0.5) through the port's plain path on the CPU in float64,
+# as tests/test_torch_mfv_dims.py::test_sod_tube_on_the_cpu reads it;
+# chip_smoke.py holds the card's float64 run to it within 1e-9
+MFV_EXACT_TUBE_L1 = 0.007004468589186162
+
+
+# the five-step parity runs of MFV's options and its 1D and 2D grid path
+# (tests/test_torch_mfv_dims.py against the JAX package, chip_smoke.py's
+# mfv_dims_parity card against CPU): (configuration, jittered)
+MFV_PARITY_CASES = {
+    "tube": (lambda: mfv_sod_params(128, 32), False),
+    "tube_mfvrk": (lambda: mfv_sod_params(128, 32, sim="mfvrk"), False),
+    "tube_exact_tvdscalar": (lambda: mfv_sod_params(
+        128, 32, riemann_solver="exact", slope_limiter="tvdscalar"), False),
+    "tube_springel2009_static": (lambda: mfv_sod_params(
+        128, 32, slope_limiter="springel2009", static_particles=1), False),
+    "box2d_jittered_exact_tvdscalar": (lambda: mfv_khi_params(
+        16, riemann_solver="exact", slope_limiter="tvdscalar"), True),
+    "box2d_mfvrk_springel2009": (lambda: mfv_khi_params(
+        16, sim="mfvrk", slope_limiter="springel2009"), False),
+    "gresho_jittered": (lambda: gresho_params(16), True),
+    "soundwave": (lambda: mfv_soundwave_params(), False),
+}
+
+
+def mfv_parity_case(name: str):
+    """(params, IC or None) of MFV_PARITY_CASES[name]: None lets the
+    controller generate the IC."""
+    make, jitter = MFV_PARITY_CASES[name]
+    params = make()
+    return params, (jittered_lattice_ic(params) if jitter else None)
 
 
 # the two wall layouts of tests/test_grid_mirror.py: (dim, lhs, rhs)
@@ -1833,19 +2009,34 @@ def mfv_gravity_inputs(sim, state):
             sim._periodic_extent())
 
 
-def compare_mfv_kernels(sim, state, repeats: int = 0):
-    """Run K10, K11, K12 and (with self-gravity) K7 in its MFV zeta mode
-    and their plain versions on the same inputs, from an MfvState on a
-    CUDA device; returns {kernel: report} as compare_kernels does, under
-    the names mfv_density, mfv_gradients, mfv_fluxes and tree_near_mfv.
-    K12 takes the plain K11's outputs.  Launch counts are restored
-    afterwards."""
+def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
+                        sweeps=None, mapping="auto"):
+    """Run K10, K11, K31, K12 and (with self-gravity) K7 in its MFV zeta
+    mode and their plain versions on the same inputs, from an MfvState
+    on a CUDA device at the grid's ndim; returns {kernel: report} as
+    compare_kernels does, keyed by their LAUNCHES names (mfv_density,
+    mfv_gradients, mfv_limiter_<limiter>, _ext.mfv_flux_count's name of
+    each K12 mode, tree_near_mfv; _1d or _2d below 3D).  K12 runs in the
+    modes of `flux_cfgs` (MfvConfigs; the simulation's by default) and
+    K31 for the limiters `sweeps` (the simulation's, if it sweeps), both
+    on the plain K11's outputs.  `mapping` forces the thread mapping of
+    the grid kernels.  Launch counts are restored afterwards."""
     saved = dict(_ext.LAUNCHES)
     spec, kern = sim.gridspec, sim.kern
+    nd = spec.ndim
+    nvar = nd + 2
     f64 = state.r.dtype == torch.float64
+    tol = TOL_F64 if f64 else None
     N = state.N
     every = torch.ones((N,), dtype=torch.bool, device=state.r.device)
-    out = {}
+    cfg0 = sim.mfv_cfg
+    if flux_cfgs is None:
+        flux_cfgs = [cfg0]
+    if sweeps is None:
+        sweeps = ([cfg0.slope_limiter]
+                  if cfg0.slope_limiter in mfv_ops.SWEEP_LIMITERS else [])
+    name = lambda k: kernel_name(k, spec)  # noqa: E731
+    out, timed = {}, {}
 
     # K10 on the plain binning's slot map; the finish is shared torch code
     b = g27.bin_particles_plain(spec, state.r)
@@ -1853,9 +2044,10 @@ def compare_mfv_kernels(sim, state, repeats: int = 0):
     hmax = g27.hmax_of(spec, kern.kernrange)
     dargs = (sim.h_fac, sim.h_converge, hmax, ids_d, state.r, state.m,
              state.h)
-    s_k = _ext.mfv_density(spec, kern, *dargs)
+    s_k = _ext.mfv_density(spec, kern, *dargs, mapping=mapping)
     s_p = mg.density_sums_plain(kern, spec, *dargs)
-    dens = {tag: mg.density_finish(sim.h_fac, hmax, state.m, *sums)
+    dens = {tag: mg.density_finish(sim.h_fac, hmax, state.m, *sums,
+                                   ndim=nd)
             for tag, sums in (("kernel", s_k), ("plain", s_p))}
     errs = {f: (_scaled if f == "zeta" else _rel)(
         getattr(dens["kernel"], f), getattr(dens["plain"], f), every)
@@ -1872,74 +2064,141 @@ def compare_mfv_kernels(sim, state, repeats: int = 0):
         rep["fraction_beyond_typical"] = frac
         rep["ok"] = (max(errs.values()) <= TOL_F32_DENSITY_MAX
                      and frac <= TOL_F32_DENSITY_FRACTION)
-    out["mfv_density"] = rep
+    k10 = name("mfv_density")
+    out[k10] = rep
 
-    # K11 on the state's fields
+    # K11 on the state's fields, with the extrema K31 reads
     gpk = torch.cat([state.h[:, None], state.ndens[:, None], state.Wprim,
                      state.sound[:, None]], -1).contiguous()
-    g_k = mfv_ops.GradientResult(*_ext.mfv_gradients(spec, kern, ids_d,
-                                                     state.r, gpk))
-    g_p = mg.gradients_plain(kern, spec, ids_d, state.r, gpk)
+    g_out = _ext.mfv_gradients(spec, kern, ids_d, state.r, gpk,
+                               extrema=True, mapping=mapping)
+    g_k = mfv_ops.GradientResult(*g_out[:5])
+    g_p, ext_p = mg.gradients_plain(kern, spec, ids_d, state.r, gpk)
     # a flag within rounding of the guard may flip in float32: compare the
-    # other outputs where both took the same branch
+    # other outputs where both took the same branch.  A variable's alpha
+    # is compared where its gradient is above rounding (TOL_MFV_NOISE_GRAD
+    # of that variable's largest): of a gradient that is 0 by symmetry
+    # the two versions sum 0 or noise, and its alpha is then 1 or any
+    # value in [0, 1] (ROADMAP fault F25); the limited gradient alpha *
+    # grad, what K12 reads, is compared everywhere
     same = g_k.bad == g_p.bad
     rows3 = same[:, None, None]
+    gmag = torch.linalg.vector_norm(g_p.grad, dim=-1)
+    noise = TOL_MFV_NOISE_GRAD[f64] * gmag.amax(0, keepdim=True)
+    live = same[:, None] & (gmag > noise)
+    lim_k = g_k.alpha_slope[..., None] * g_k.grad
+    lim_p = g_p.alpha_slope[..., None] * g_p.grad
     errs = {"B": _scaled_all(g_k.B, g_p.B, rows3.expand_as(g_p.B)),
             "grad": _scaled_all(g_k.grad, g_p.grad,
                                 rows3.expand_as(g_p.grad)),
             "alpha_slope": float(torch.abs(g_k.alpha_slope
-                                           - g_p.alpha_slope)[same].max()),
-            "vsig_max": _scaled_all(g_k.vsig_max, g_p.vsig_max, every)}
+                                           - g_p.alpha_slope)[live].max())
+            if bool(live.any()) else 0.0,
+            "limited_grad": _scaled_all(lim_k, lim_p,
+                                        rows3.expand_as(lim_p)),
+            "vsig_max": _scaled_all(g_k.vsig_max, g_p.vsig_max, every),
+            "dWmax": _scaled_all(g_out[5], ext_p.dWmax,
+                                 every[:, None].expand_as(ext_p.dWmax)),
+            "dWmin": _scaled_all(g_out[6], ext_p.dWmin,
+                                 every[:, None].expand_as(ext_p.dWmin))}
     n_bad_differ = int((~same).sum())
+    # float32: the kernel-range statistics (the extrema, drmax, so the
+    # cell alphas) of a particle with a pair within rounding of kernrange
+    # h_i may take the pair on one side only: such particles are counted
+    edge = torch.zeros((N,), dtype=torch.bool, device=state.r.device)
+    if not f64:
+        for x, ref, rows in ((g_k.alpha_slope, g_p.alpha_slope, live),
+                             (lim_k, lim_p, rows3.expand_as(lim_p)),
+                             (g_out[5], ext_p.dWmax, every[:, None]),
+                             (g_out[6], ext_p.dWmin, every[:, None])):
+            scale = max(float(torch.abs(ref).max()), 1e-300)
+            err = torch.where(rows, torch.abs(x - ref), 0.0)
+            edge |= err.reshape(N, -1).amax(1) > TOL_F32_MFV_GRADIENTS * scale
     if f64:
         ok = n_bad_differ == 0 and max(errs.values()) <= TOL_F64
     else:
         ok = (n_bad_differ <= TOL_F32_MFV_BAD_FRACTION * N
-              and max(errs.values()) <= TOL_F32_MFV_GRADIENTS)
-    out["mfv_gradients"] = {
+              and max(errs[k] for k in ("B", "grad", "vsig_max"))
+              <= TOL_F32_MFV_GRADIENTS
+              and int(edge.sum()) <= TOL_F32_MFV_LIMITER_FRACTION * N)
+    k11 = name("mfv_gradients")
+    out[k11] = {
         "scaled_err": errs, "bad_flags_differ": n_bad_differ,
-        "bad": int(g_p.bad.sum()),
+        "bad": int(g_p.bad.sum()), "edge_rows": int(edge.sum()),
+        "noise_gradients": int((same[:, None] & ~live).sum()),
         "max_abs_err": float(torch.abs(g_k.grad - g_p.grad).max()),
         "ok": ok}
+
+    n_i, n_ij = _slot_support_counts(spec, kern, ids_d, state.r,
+                                     dens["plain"].h)
+    out[k10]["work"] = _work(
+        (ids_d, state.r, state.m, state.h), s_k,
+        FLOPS_PER[k10] * (n_i + N))
+    out[k11]["work"] = _work(
+        (ids_d, state.r, gpk), g_out, FLOPS_PER[k11] * n_i)
+    timed[k10] = (lambda: _ext.mfv_density(spec, kern, *dargs,
+                                           mapping=mapping),
+                  lambda: mg.density_sums_plain(kern, spec, *dargs))
+    timed[k11] = (lambda: _ext.mfv_gradients(spec, kern, ids_d, state.r,
+                                             gpk, extrema=bool(sweeps),
+                                             mapping=mapping),
+                  lambda: mg.gradients_plain(kern, spec, ids_d, state.r,
+                                             gpk))
+
+    # K31 on the plain K11's gradients and extrema
+    for lim in sweeps:
+        largs = (lim, ids_d, state.r, gpk, g_p.grad, ext_p.dWmax,
+                 ext_p.dWmin)
+        a_k = _ext.mfv_limiter(spec, kern, *largs, mapping=mapping)
+        a_p = mg.limiter_sweep_plain(kern, spec, lim, ids_d, state.r, gpk,
+                                     g_p.grad, ext_p)
+        err = torch.abs(a_k - a_p)
+        rep = {"max_abs_err": float(err.max()),
+               "alpha_below_1": float((a_p < 1.0).float().mean()),
+               "dtype": str(state.r.dtype)}
+        if f64:
+            rep["ok"] = rep["max_abs_err"] <= TOL_F64
+        else:
+            frac = float((err > TOL_F32_MFV_LIMITER).any(1).float().mean())
+            rep["fraction_beyond"] = frac
+            rep["ok"] = frac <= TOL_F32_MFV_LIMITER_FRACTION
+        key = name(f"mfv_limiter_{lim}")
+        rep["work"] = _work((ids_d, state.r, gpk, g_p.grad, ext_p.dWmax,
+                             ext_p.dWmin), (a_k,),
+                            FLOPS_PER[name("mfv_limiter")] * n_i)
+        out[key] = rep
+        timed[key] = (
+            lambda la=largs: _ext.mfv_limiter(spec, kern, *la,
+                                              mapping=mapping),
+            lambda lim=lim: mg.limiter_sweep_plain(
+                kern, spec, lim, ids_d, state.r, gpk, g_p.grad, ext_p))
 
     # K12 on the plain K11's outputs and the state's a0 and dt
     fpk = mg.pack_flux_fields(state.h, state.ndens, state.Wprim,
                               state.sound, state.a0, g_p.B, g_p.grad,
                               g_p.alpha_slope, g_p.bad)
     dt_t = state.dt
-    f_k = _ext.mfv_fluxes(spec, kern, sim.mfv_cfg, dt_t, ids_d, state.r,
-                          fpk)
-    f_p = mg.fluxes_plain(kern, sim.mfv_cfg, spec, dt_t, ids_d, state.r, fpk)
-    errs = {"dQdt": _scaled_all(f_k[0], f_p.dQdt, every[:, None]
-                                .expand_as(f_p.dQdt)),
-            "rdmdt_dot": _scaled_all(f_k[1], f_p.rdmdt_dot, every[:, None]
-                                     .expand_as(f_p.rdmdt_dot))}
-    out["mfv_fluxes"] = {
-        "scaled_err": errs,
-        "max_abs_err": float(torch.abs(f_k[0] - f_p.dQdt).max()),
-        "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_MFV_FLUXES)}
-
-    n_i, n_ij = _slot_support_counts(spec, kern, ids_d, state.r,
-                                     dens["plain"].h)
-    out["mfv_density"]["work"] = _work(
-        (ids_d, state.r, state.m, state.h), s_k,
-        FLOPS_PER["mfv_density"] * (n_i + N))
-    out["mfv_gradients"]["work"] = _work(
-        (ids_d, state.r, gpk), g_k, FLOPS_PER["mfv_gradients"] * n_i)
-    out["mfv_fluxes"]["work"] = _work(
-        (ids_d, state.r, fpk, dt_t), f_k, FLOPS_PER["mfv_fluxes"] * n_ij)
-    timed = {
-        "mfv_density": (lambda: _ext.mfv_density(spec, kern, *dargs),
-                        lambda: mg.density_sums_plain(kern, spec, *dargs)),
-        "mfv_gradients": (
-            lambda: _ext.mfv_gradients(spec, kern, ids_d, state.r, gpk),
-            lambda: mg.gradients_plain(kern, spec, ids_d, state.r, gpk)),
-        "mfv_fluxes": (
-            lambda: _ext.mfv_fluxes(spec, kern, sim.mfv_cfg, dt_t, ids_d,
-                                    state.r, fpk),
-            lambda: mg.fluxes_plain(kern, sim.mfv_cfg, spec, dt_t, ids_d,
-                                    state.r, fpk)),
-    }
+    for cfg in flux_cfgs:
+        f_k = _ext.mfv_fluxes(spec, kern, cfg, dt_t, ids_d, state.r, fpk,
+                              mapping=mapping)
+        f_p = mg.fluxes_plain(kern, cfg, spec, dt_t, ids_d, state.r, fpk)
+        errs = {"dQdt": _scaled_all(f_k[0], f_p.dQdt, every[:, None]
+                                    .expand_as(f_p.dQdt)),
+                "rdmdt_dot": _scaled_all(f_k[1], f_p.rdmdt_dot,
+                                         every[:, None]
+                                         .expand_as(f_p.rdmdt_dot))}
+        key = _ext.mfv_flux_count(spec, cfg)
+        out[key] = {
+            "scaled_err": errs,
+            "max_abs_err": float(torch.abs(f_k[0] - f_p.dQdt).max()),
+            "ok": max(errs.values()) <= (tol or TOL_F32_MFV_FLUXES),
+            "work": _work((ids_d, state.r, fpk, dt_t), f_k,
+                          mfv_flux_flops(nd, cfg) * n_ij)}
+        timed[key] = (
+            lambda c=cfg: _ext.mfv_fluxes(spec, kern, c, dt_t, ids_d,
+                                          state.r, fpk, mapping=mapping),
+            lambda c=cfg: mg.fluxes_plain(kern, c, spec, dt_t, ids_d,
+                                          state.r, fpk))
 
     if sim.self_gravity:
         # K7 in its MFV zeta mode on the plain walk, in particle order
@@ -1966,8 +2225,59 @@ def compare_mfv_kernels(sim, state, repeats: int = 0):
             lambda: _ext.tree_near(*nargs, zeta_scaling="mfv"),
             lambda: tr.tree_near_plain(*nargs, zeta_scaling="mfv"))
 
+    for r in out.values():
+        r["dtype"] = str(state.r.dtype)
     if repeats > 0:
         _time_pairs(out, timed, repeats)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def mfv_mapping_times(sim, state, repeats: int = 5):
+    """K10, K11, K31 (the simulation's sweep limiter, else tvdscalar) and
+    K12 (the simulation's modes) under each thread mapping, turns cell,
+    flat, flat, cell, on the inputs compare_mfv_kernels gives them, and
+    whether the two mappings give the same bits.  Launch counts are
+    restored afterwards."""
+    saved = dict(_ext.LAUNCHES)
+    spec, kern, cfg = sim.gridspec, sim.kern, sim.mfv_cfg
+    lim = cfg.slope_limiter if cfg.slope_limiter in mfv_ops.SWEEP_LIMITERS \
+        else "tvdscalar"
+    b = g27.bin_particles(spec, state.r)
+    ids_d = ag.dense_ids(spec, b)
+    hmax = g27.hmax_of(spec, kern.kernrange)
+    gpk = torch.cat([state.h[:, None], state.ndens[:, None], state.Wprim,
+                     state.sound[:, None]], -1).contiguous()
+    fpk = mg.pack_flux_fields(state.h, state.ndens, state.Wprim,
+                              state.sound, state.a0, state.B, state.grad,
+                              state.alpha_slope, state.bad_grad)
+    ext = _ext.mfv_gradients(spec, kern, ids_d, state.r, gpk,
+                             extrema=True)[5:]
+    fns = {
+        "mfv_density": lambda m: _ext.mfv_density(
+            spec, kern, sim.h_fac, sim.h_converge, hmax, ids_d, state.r,
+            state.m, state.h, mapping=m),
+        "mfv_gradients": lambda m: _ext.mfv_gradients(
+            spec, kern, ids_d, state.r, gpk, mapping=m),
+        f"mfv_limiter_{lim}": lambda m: (_ext.mfv_limiter(
+            spec, kern, lim, ids_d, state.r, gpk, state.grad, *ext,
+            mapping=m),),
+        "mfv_fluxes": lambda m: _ext.mfv_fluxes(
+            spec, kern, cfg, state.dt, ids_d, state.r, fpk, mapping=m),
+    }
+    flat = spec.ndim < 3 or spec.k_cell < 32
+    out = {"k_cell": spec.k_cell, "auto": "flat" if flat else "cell"}
+    for key, fn in fns.items():
+        same = all(torch.equal(x, y) for x, y in zip(fn("cell"), fn("flat")))
+        c1 = _time_ms(lambda: fn("cell"), repeats)
+        f1 = _time_ms(lambda: fn("flat"), repeats)
+        f2 = _time_ms(lambda: fn("flat"), repeats)
+        c2 = _time_ms(lambda: fn("cell"), repeats)
+        label = _ext.mfv_flux_count(spec, cfg) if key == "mfv_fluxes" \
+            else kernel_name(key, spec)
+        out[label] = {"cell_ms": 0.5 * (c1 + c2), "flat_ms": 0.5 * (f1 + f2),
+                      "same_bits": same}
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
@@ -2974,6 +3284,52 @@ TOL_F64_RADWS = 1e-12
 TOL_F32_RADWS = 1e-5
 TOL_RADWS_FLIP_FRACTION = 1e-4
 TOL_F32_AMBIENT = 1e-5
+# The meshless finite-volume kernels below 3D and in every mode, counted
+# as above.  K10 per pair within kernrange h_i drops a dim's share of the
+# separation (4), as K2 does.  K11 per such pair: the separation and d^2
+# (3 a dim), the two kernels and their norms (~25), E (3 NDIM^2), and
+# grad_tmp and grad_sph (3 nvar NDIM each), nvar = NDIM + 2: 120 in 3D
+# (mfv_gradients' count), 70 in 2D, 40 in 1D.  K31 per pair within
+# kernrange h_i: the separation and d^2 (3 a dim), the two tests, and
+# per variable the dot product (2 NDIM), the 0.51 product, the live
+# test, the division, the clip or select and the min (6): 71, 48 and 29
+# in 3D, 2D and 1D.  K12 per pair within kernrange max(h_i, h_j):
+# mfv_fluxes counts MUSCL with the Gizmo limiter and HLLC (450 in 3D, its
+# count above; 300 in 2D, 190 in 1D), of which an HLLC solve is
+# about 100; an exact solve is about 670 (Toro's guess 30, 10 Newton
+# steps of two pressure functions at 30 each with their pow or square
+# root, the sample at x/t = 0 with its pow 40); RK2 solves twice and
+# adds the full-step states (4 nvar); the cell limiters skip the Gizmo
+# clamp (10 a variable a side), zeroslope the reconstruction and the
+# time derivative too (2 NDIM + 10 a variable a side, 2 NDIM a variable
+# for the derivative).
+FLOPS_PER.update({
+    "mfv_density_2d": 36, "mfv_density_1d": 32,
+    "mfv_gradients_2d": 70, "mfv_gradients_1d": 40,
+    "mfv_limiter": 71, "mfv_limiter_2d": 48, "mfv_limiter_1d": 29,
+    "mfv_fluxes_2d": 300, "mfv_fluxes_1d": 190,
+    "mfv_hllc_solve": 100, "mfv_exact_solve": 670,
+})
+
+
+def mfv_flux_flops(ndim: int, cfg) -> int:
+    """K12's operations per pair within kernrange max(h_i, h_j) in `cfg`'s
+    modes (FLOPS_PER's notes)."""
+    nvar = ndim + 2
+    base = FLOPS_PER["mfv_fluxes" + ("" if ndim == 3 else f"_{ndim}d")]
+    solve = FLOPS_PER["mfv_exact_solve" if cfg.riemann == "exact"
+                      else "mfv_hllc_solve"]
+    ops = base - FLOPS_PER["mfv_hllc_solve"] + solve
+    if cfg.time_scheme == "rk2":
+        ops += solve + 4 * nvar
+    lim = _ext.MFV_LIMITER_CLASS[cfg.slope_limiter]
+    if lim >= 1:
+        ops -= 2 * nvar * 10
+    if lim == 2:
+        ops -= 2 * nvar * (2 * ndim) + 2 * nvar * (2 * ndim)
+    return ops
+
+
 # Operations of K27-K30, counted as FLOPS_PER counts the others: a log10
 # or a pow counts 20 ("radws_transcendental"), a step of a binary search
 # 3 and the nearer-neighbour pick 4, an entry of the u -> T row count 2;

@@ -1,0 +1,6 @@
+// K12 mfv_fluxes in 3D with the exact Riemann solver
+// (riemann_exact.cuh); mfv_fluxes.cuh holds the kernel and its notes.
+#include "mfv_fluxes.cuh"
+
+MFV_FLUXES_ENTRY(mfv_fluxes_exact_3d_f32, float, mfv_k12::kExact, 3)
+MFV_FLUXES_ENTRY(mfv_fluxes_exact_3d_f64, double, mfv_k12::kExact, 3)

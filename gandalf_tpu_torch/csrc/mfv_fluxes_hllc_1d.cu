@@ -1,0 +1,6 @@
+// K12 mfv_fluxes in 1D with the HLLC Riemann solver; mfv_fluxes.cuh
+// holds the kernel and its notes.
+#include "mfv_fluxes.cuh"
+
+MFV_FLUXES_ENTRY(mfv_fluxes_hllc_1d_f32, float, mfv_k12::kHllc, 1)
+MFV_FLUXES_ENTRY(mfv_fluxes_hllc_1d_f64, double, mfv_k12::kHllc, 1)

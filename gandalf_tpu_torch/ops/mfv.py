@@ -3,17 +3,17 @@
 Counterpart of ``gandalf_tpu/ops/mfv.py`` for the MUSCL global-timestep
 path: conserved <-> primitive variables, the least-squares gradient
 sums and their finish (B matrix, condition-number guard with the SPH
-gradient fallback, cell limiter alphas), the pairwise Gizmo face
-limiter, the primitive time derivative, the HLLC Riemann solver (with
-and without zero mass flux), the MUSCL face fluxes and the gravity
+gradient fallback, cell limiter alphas), the per-neighbour cell limiters
+(tvdscalar, springel2009), the pairwise Gizmo face limiter, the
+primitive time derivative, the HLLC and exact Riemann solvers (with and
+without zero mass flux), the face fluxes of MUSCL and RK2 (Heun) under
+every slope limiter, with moving or static particles, and the gravity
 source terms, plus the O(N^2) smoothed MFV gravity used as an oracle.
-The exact Riemann solver, the per-neighbour limiters and RK2 are not
-ported (ROADMAP queue 1, item 10).
 
 The functions work on the same (N, K) neighbour views as the JAX
 package's, with the same formulas and guards: ``1e-300`` floors round to
-0 in float32 there as here.  Primitive vector W = (v_0..v_2, rho, p);
-conserved Q = (m v, m, E_tot).  The structured-grid drivers and the CUDA
+0 in float32 there as here.  Primitive vector W = (v_0..v_{ndim-1}, rho,
+p); conserved Q = (m v, m, E_tot).  The structured-grid drivers and the CUDA
 kernels K10-K12 are in ``ops/mfv_grid27.py``; ``csrc/mfv.cuh`` holds the
 same pair arithmetic in CUDA C++.
 """
@@ -192,6 +192,43 @@ def gradient_finalize(ndim: int, acc: GradAccum, h: Tensor, Wprim: Tensor,
                           vsig_max=vsig_max, bad=bad)
 
 
+# the limiters whose cell alpha takes a second neighbour sweep
+SWEEP_LIMITERS = ("tvdscalar", "springel2009")
+
+
+def limiter_alpha_accumulate(limiter: str, kern: SmoothingKernel, ndim: int,
+                             alpha: Tensor, h: Tensor, Wprim: Tensor,
+                             grad: Tensor, dWmax: Tensor, dWmin: Tensor,
+                             dr: Tensor, W_j: Tensor,
+                             mask: Optional[Tensor]) -> Tensor:
+    """The second neighbour sweep of the per-neighbour cell limiters
+    (TVDScalarLimiter and Springel2009Limiter::CellLimiter): the running
+    min of each variable's alpha over one (N, K) block of neighbours
+    within kernrange h_i.  `grad` is the finalised gradient, `dWmax` and
+    `dWmin` the signed extrema Wmax - W >= 0 and Wmin - W <= 0
+    (springel2009 only); 0.51 is the reference's edge factor.  tvdscalar
+    clips its ratio to [0, 1]; springel2009's is bounded only by the
+    running min from alpha.  The 1e-300 of the live test is 0 in
+    float32."""
+    drsqd = torch.sum(dr * dr, dim=-1)
+    valid = drsqd > 0.0
+    if mask is not None:
+        valid = valid & mask
+    near = valid & (drsqd <= (kern.kernrange * h[:, None]) ** 2)
+    dW = 0.51 * torch.einsum("nvi,nki->nkv", grad, dr)
+    live = torch.abs(dW) > 1e-300
+    dW_safe = torch.where(live, dW, 1.0)
+    if limiter == "tvdscalar":
+        ratio = torch.clamp((W_j - Wprim[:, None, :]) / dW_safe, 0.0, 1.0)
+    elif limiter == "springel2009":
+        ratio = torch.where(dW > 0.0, dWmax[:, None, :] / dW_safe,
+                            dWmin[:, None, :] / dW_safe)
+    else:
+        raise ValueError(f"unknown per-neighbour limiter '{limiter}'")
+    ratio = torch.where(near[..., None] & live, ratio, 1.0)
+    return torch.minimum(alpha, torch.amin(ratio, dim=1))
+
+
 # ---------------------------------------------------------------------------
 # Gizmo pairwise face limiter
 # ---------------------------------------------------------------------------
@@ -365,12 +402,154 @@ def hllc_flux(Wl: Tensor, Wr: Tensor, n: Tensor, vface: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MUSCL Godunov flux accumulation
+# exact Riemann solver (Toro 1999, ch. 4), every branch evaluated
+# ---------------------------------------------------------------------------
+
+NEWTON_STEPS = 10
+
+
+def _pressure_fn(p: Tensor, pk: Tensor, dk: Tensor, ck: Tensor,
+                 gamma: float):
+    """f_K(p) and f_K'(p), the shock form where p > p_K, else the
+    rarefaction form (ExactRiemannSolver::Prefun); one pow per side."""
+    ak = 2.0 / ((gamma + 1.0) * dk)
+    bk = (gamma - 1.0) / (gamma + 1.0) * pk
+    sq = torch.sqrt(ak / (p + bk))
+    f_s = (p - pk) * sq
+    fp_s = sq * (1.0 - 0.5 * (p - pk) / (p + bk))
+    g1 = (gamma - 1.0) / (2.0 * gamma)
+    pr = torch.clamp_min(p / pk, 1e-30)
+    q = pr ** g1
+    f_r = 2.0 * ck / (gamma - 1.0) * (q - 1.0)
+    fp_r = q / (pr * dk * ck)
+    shock = p > pk
+    return torch.where(shock, f_s, f_r), torch.where(shock, fp_s, fp_r)
+
+
+def exact_star_region(dl, ul, pl, cl, dr, ur, pr, cr, gamma: float,
+                      n_iter: int = NEWTON_STEPS):
+    """(p*, u*) by exactly `n_iter` Newton steps from Toro's adaptive
+    guess (ExactRiemannSolver::ComputeStarRegion), no convergence test.
+    Vacuum gives (0, 0)."""
+    g1 = (gamma - 1.0) / (2.0 * gamma)
+    cup = 0.25 * (dl + dr) * (cl + cr)
+    ppv = torch.clamp_min(0.5 * (pl + pr) + 0.5 * (ul - ur) * cup, 0.0)
+    pmin = torch.minimum(pl, pr)
+    pmax = torch.maximum(pl, pr)
+    pq = torch.clamp_min(pl / pr, 1e-30) ** g1
+    um = (pq * ul / cl + ur / cr + 2.0 / (gamma - 1.0) * (pq - 1.0)) \
+        / (pq / cl + 1.0 / cr)
+    ptl = torch.clamp_min(1.0 + 0.5 * (gamma - 1.0) * (ul - um) / cl, 1e-30)
+    ptr = torch.clamp_min(1.0 + 0.5 * (gamma - 1.0) * (um - ur) / cr, 1e-30)
+    p_tr = 0.5 * (pl * ptl ** (1.0 / g1) + pr * ptr ** (1.0 / g1))
+    gel = torch.sqrt((2.0 / ((gamma + 1.0) * dl))
+                     / ((gamma - 1.0) / (gamma + 1.0) * pl + ppv))
+    ger = torch.sqrt((2.0 / ((gamma + 1.0) * dr))
+                     / ((gamma - 1.0) / (gamma + 1.0) * pr + ppv))
+    p_ts = (gel * pl + ger * pr - (ur - ul)) / (gel + ger)
+    p0 = torch.where((pmax / pmin <= 2.0) & (pmin <= ppv) & (ppv <= pmax),
+                     ppv, torch.where(ppv < pmin, p_tr, p_ts))
+    p = torch.clamp_min(p0, 1e-30)
+    for _ in range(n_iter):
+        fl, flp = _pressure_fn(p, pl, dl, cl, gamma)
+        fr, frp = _pressure_fn(p, pr, dr, cr, gamma)
+        p = torch.clamp_min(p - (fl + fr + ur - ul) / (flp + frp), 1e-30)
+    fl, _ = _pressure_fn(p, pl, dl, cl, gamma)
+    fr, _ = _pressure_fn(p, pr, dr, cr, gamma)
+    u = 0.5 * (ul + ur) + 0.5 * (fr - fl)
+    vacuum = (2.0 / (gamma - 1.0)) * (cl + cr) <= (ur - ul)
+    return torch.where(vacuum, 0.0, p), torch.where(vacuum, 0.0, u)
+
+
+def _sample_zero(pstar, ustar, dl, ul, pl, cl, dr, ur, pr, cr,
+                 gamma: float):
+    """(rho, u, p) of the self-similar solution at x/t = 0
+    (ExactRiemannSolver::SampleExactSolution), both sides and both wave
+    forms evaluated, then selected."""
+    g7 = 0.5 * (gamma - 1.0)
+    gp = (gamma + 1.0) / (2.0 * gamma)
+    gm = (gamma - 1.0) / (2.0 * gamma)
+    g6 = (gamma - 1.0) / (gamma + 1.0)
+
+    def side(dk, uk, pk, ck, sign):
+        un = sign * uk
+        ratio = torch.clamp_min(pstar / pk, 1e-30)
+        sK = un - ck * torch.sqrt(gp * ratio + gm)
+        d_shock = dk * (ratio + g6) / (g6 * ratio + 1.0)
+        shK = un - ck
+        cmK = ck * ratio ** gm
+        stK = sign * ustar - cmK
+        cfan = (2.0 / (gamma + 1.0)) * (ck + g7 * un)
+        u_fan = (2.0 / (gamma + 1.0)) * (ck + g7 * un)
+        d_fan = dk * torch.clamp_min(cfan / ck, 0.0) ** (2.0 / (gamma - 1.0))
+        p_fan = pk * torch.clamp_min(cfan / ck, 0.0) ** (
+            2.0 * gamma / (gamma - 1.0))
+        is_shock = pstar > pk
+        outer = torch.where(is_shock, sK >= 0.0, shK >= 0.0)
+        in_star = torch.where(is_shock, sK < 0.0, stK <= 0.0)
+        d_star = torch.where(is_shock, d_shock, dk * ratio ** (1.0 / gamma))
+        d = torch.where(outer, dk, torch.where(in_star, d_star, d_fan))
+        u = torch.where(outer, un, torch.where(in_star, sign * ustar, u_fan))
+        p = torch.where(outer, pk, torch.where(in_star, pstar, p_fan))
+        return d, sign * u, p
+
+    dl0, ul0, pl0 = side(dl, ul, pl, cl, 1.0)
+    dr0, ur0, pr0 = side(dr, ur, pr, cr, -1.0)
+    on_left = ustar >= 0.0
+    return (torch.where(on_left, dl0, dr0), torch.where(on_left, ul0, ur0),
+            torch.where(on_left, pl0, pr0))
+
+
+def exact_flux(Wl: Tensor, Wr: Tensor, n: Tensor, vface: Tensor,
+               gamma: float, zero_mass_flux: bool) -> Tensor:
+    """The exact Godunov flux along n (ExactRiemannSolver::ComputeFluxes),
+    with hllc_flux's interface: face-frame primitives in, the lab-frame
+    flux along n out; the transverse velocity from the upwind side, zero
+    at vacuum (p* = 0)."""
+    ndim = n.shape[-1]
+    irho, iE = ndim, ndim + 1
+    rl, pl = Wl[..., irho], Wl[..., iE]
+    rr, pr = Wr[..., irho], Wr[..., iE]
+    vl, vr = Wl[..., :ndim], Wr[..., :ndim]
+    vll = torch.sum(vl * n, dim=-1)
+    vlr = torch.sum(vr * n, dim=-1)
+    cl = torch.sqrt(gamma * pl / rl)
+    cr = torch.sqrt(gamma * pr / rr)
+    pstar, ustar = exact_star_region(rl, vll, pl, cl, rr, vlr, pr, cr, gamma)
+    d0, u0, p0 = _sample_zero(pstar, ustar, rl, vll, pl, cl, rr, vlr, pr, cr,
+                              gamma)
+    vt = torch.where((u0 > 0.0)[..., None], vl - vll[..., None] * n,
+                     vr - vlr[..., None] * n)
+    if zero_mass_flux:
+        vface = vface + u0[..., None] * n
+        un = torch.zeros_like(u0)
+    else:
+        un = u0
+    W_v = vt + un[..., None] * n + vface
+    etot = 0.5 * torch.sum(W_v * W_v, -1) \
+        + p0 / ((gamma - 1.0) * torch.clamp_min(d0, 1e-30))
+    f_rho = d0 * un
+    f_v = f_rho[..., None] * W_v + p0[..., None] * n
+    f_E = d0 * etot * un + p0 * torch.sum(W_v * n, -1)
+    flux = torch.cat([f_v, f_rho[..., None], f_E[..., None]], -1)
+    return torch.where((pstar > 0.0)[..., None], flux, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Godunov flux accumulation (MUSCL and RK2)
 # ---------------------------------------------------------------------------
 
 class FluxResult(NamedTuple):
     dQdt: Tensor       # (N, nvar) conserved-variable flux rate
     rdmdt_dot: Tensor  # (N, ndim) rate of r*dm/dt bookkeeping
+
+
+RIEMANN_SOLVERS = ("hllc", "exact")
+SLOPE_LIMITERS = ("gizmo", "scalar", "null", "zeroslope", "tvdscalar",
+                  "springel2009")
+TIME_SCHEMES = ("muscl", "rk2")
+# the limiters that extrapolate with the cell alphas and no face clamp
+CELL_LIMITERS = ("null", "scalar", "tvdscalar", "springel2009")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -384,23 +563,22 @@ class MfvConfig:
 
 
 def check_config(cfg: MfvConfig) -> None:
-    """The port runs MUSCL with the Gizmo limiter and HLLC only."""
-    if cfg.riemann != "hllc":
-        raise NotImplementedError(
-            f"riemann_solver {cfg.riemann!r} is not ported yet (ROADMAP "
-            "queue 1, item 10)")
-    if cfg.slope_limiter != "gizmo":
-        raise NotImplementedError(
-            f"slope_limiter {cfg.slope_limiter!r} is not ported yet "
-            "(ROADMAP queue 1, item 10)")
-    if cfg.time_scheme != "muscl":
-        raise NotImplementedError(
-            f"time scheme {cfg.time_scheme!r} is not ported yet (ROADMAP "
-            "queue 1, item 10)")
-    if cfg.static_particles:
-        raise NotImplementedError(
-            "static_particles = 1 is not ported yet (ROADMAP queue 1, "
-            "item 10)")
+    """Refuse an option name the JAX package does not know."""
+    for what, value, known in (("riemann_solver", cfg.riemann,
+                                RIEMANN_SOLVERS),
+                               ("slope_limiter", cfg.slope_limiter,
+                                SLOPE_LIMITERS),
+                               ("time scheme", cfg.time_scheme,
+                                TIME_SCHEMES)):
+        if value not in known:
+            raise ValueError(f"unrecognised {what} {value!r}: one of "
+                             f"{known}")
+
+
+def _sanitise(W: Tensor, ndim: int) -> Tensor:
+    """The positivity floors 1e-15 of a face state's rho and p."""
+    return torch.cat([W[..., :ndim], torch.clamp_min(W[..., ndim:], 1e-15)],
+                     -1)
 
 
 def compute_godunov_fluxes(kern: SmoothingKernel, cfg: MfvConfig, ndim: int,
@@ -409,8 +587,14 @@ def compute_godunov_fluxes(kern: SmoothingKernel, cfg: MfvConfig, ndim: int,
                            grad: Tensor, alpha_slope: Tensor, bad: Tensor,
                            dr: Tensor, nb: dict,
                            mask: Optional[Tensor]) -> FluxResult:
-    """Pairwise MUSCL face fluxes accumulated per particle
-    (MfvMuscl::ComputeGodunovFlux), every pair evaluated from both sides.
+    """Pairwise face fluxes accumulated per particle
+    (MfvMuscl::ComputeGodunovFlux, MfvRungeKutta::ComputeGodunovFlux),
+    every pair evaluated from both sides.  The face states take the
+    slope limiter's reconstruction: the Gizmo clamp, the cell alphas
+    (null: alpha = 1) or none (zeroslope); the face moves with the mean
+    velocity, or not with static particles.  MUSCL predicts each state
+    half a step; RK2 averages the fluxes of the states as they are and
+    of the states advanced a full dt, each floored alone.
 
     nb keys (all (N, K, ...)): h, ndens, Wprim, sound, a0, B, grad,
     alpha_slope, bad.  `dt` is a 0-d tensor or a float."""
@@ -450,32 +634,60 @@ def compute_godunov_fluxes(kern: SmoothingKernel, cfg: MfvConfig, ndim: int,
 
     v_i = Wprim[:, :ndim]
     v_j = nb["Wprim"][..., :ndim]
-    vface = 0.5 * (v_i[:, None, :] + v_j)
+    if cfg.static_particles:
+        vface = torch.zeros_like(v_j)
+    else:
+        vface = 0.5 * (v_i[:, None, :] + v_j)
     half_dr = 0.5 * dr
+    ones = torch.ones_like(Amag)[..., None]
+    limiter = cfg.slope_limiter
 
-    def face_state(W, dW, gradW, snd, acc):
-        Wf = W + dW
+    def reconstruct(W, Wo, g, alpha, draux, dr_own, own_row):
+        """(W + dW, gradW) of one side; `own_row` broadcasts the target's
+        (N, ...) fields over K."""
+        if limiter == "zeroslope":
+            gradW = torch.zeros_like(g)
+            return W + 0.0 * ones, (gradW[:, None] if own_row else gradW)
+        if limiter in CELL_LIMITERS:
+            alph = torch.ones_like(alpha) if limiter == "null" else alpha
+            gradW = alph[..., None] * g
+            if own_row:
+                gradW = gradW[:, None]
+            dW = torch.einsum("nkvi,nki->nkv",
+                              gradW * ones[..., None], draux)
+            return W + dW, gradW
+        if own_row:
+            dW, gradW = gizmo_limited_dW(W[:, 0], Wo, g, alpha, draux,
+                                         dr_own)
+        else:
+            dW, gradW = _gizmo_limited_dW_j(W, Wo, g, alpha, draux, dr_own)
+        return W + dW, gradW
+
+    def face_state(Wf, gradW, snd, acc):
+        """The face-frame state and its primitive time derivative."""
         Wf = torch.cat([Wf[..., :ndim] - vface, Wf[..., ndim:]], -1)
         Wdot = _primitive_time_derivative(Wf, gradW, snd, ndim)
         Wdot = torch.cat([Wdot[..., :ndim] + acc, Wdot[..., ndim:]], -1)
-        return Wf + 0.5 * Wdot * dt
+        return Wf, Wdot
 
-    dW_i, gradW_i = gizmo_limited_dW(Wprim, nb["Wprim"], grad, alpha_slope,
-                                     half_dr, dr)
-    Wl = face_state(Wprim[:, None, :], dW_i, gradW_i, sound[:, None],
-                    a0[:, None, :])
-    dW_j, gradW_j = _gizmo_limited_dW_j(nb["Wprim"], Wprim, nb["grad"],
-                                        nb["alpha_slope"], -half_dr, -dr)
-    Wr = face_state(nb["Wprim"], dW_j, gradW_j, nb["sound"], nb["a0"])
-
-    tiny = 1e-15
-
-    def sanitise(W):
-        return torch.cat([W[..., :ndim],
-                          torch.clamp_min(W[..., ndim:], tiny)], -1)
-
-    flux_line = hllc_flux(sanitise(Wl), sanitise(Wr), Aunit, vface,
-                          cfg.gamma, cfg.zero_mass_flux)
+    Wl, gradW_i = reconstruct(Wprim[:, None, :], nb["Wprim"], grad,
+                              alpha_slope, half_dr, dr, True)
+    Wl, Wdot_l = face_state(Wl, gradW_i, sound[:, None], a0[:, None, :])
+    Wr, gradW_j = reconstruct(nb["Wprim"], Wprim, nb["grad"],
+                              nb["alpha_slope"], -half_dr, -dr, False)
+    Wr, Wdot_r = face_state(Wr, gradW_j, nb["sound"], nb["a0"])
+    flux_fn = exact_flux if cfg.riemann == "exact" else hllc_flux
+    if cfg.time_scheme == "rk2":
+        f1 = flux_fn(_sanitise(Wl, ndim), _sanitise(Wr, ndim), Aunit, vface,
+                     cfg.gamma, cfg.zero_mass_flux)
+        f2 = flux_fn(_sanitise(Wl + Wdot_l * dt, ndim),
+                     _sanitise(Wr + Wdot_r * dt, ndim), Aunit, vface,
+                     cfg.gamma, cfg.zero_mass_flux)
+        flux_line = 0.5 * (f1 + f2)
+    else:
+        flux_line = flux_fn(_sanitise(Wl + 0.5 * Wdot_l * dt, ndim),
+                            _sanitise(Wr + 0.5 * Wdot_r * dt, ndim), Aunit,
+                            vface, cfg.gamma, cfg.zero_mass_flux)
     # f_var = (flux_var * n) . Aij = flux_line_var * |Aij|
     f = flux_line * Amag[..., None]
     f = torch.where(face_ok[..., None], f, 0.0)

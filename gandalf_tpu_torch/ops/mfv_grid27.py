@@ -1,15 +1,17 @@
-"""Meshless finite-volume passes over the structured 27-cell grid: the
-number-density h iteration (K10), the least-squares gradients with the
-cell limiter (K11) and the MUSCL face fluxes (K12).
+"""Meshless finite-volume passes over the structured 3^ndim-cell grid,
+in 1, 2 or 3 dims: the number-density h iteration (K10), the
+least-squares gradients with the cell limiter (K11), the per-neighbour
+limiter sweep of tvdscalar and springel2009 (K31) and the face fluxes
+(K12) of MUSCL or RK2 with either Riemann solver and any slope limiter.
 
 Counterpart of ``gandalf_tpu/ops/mfv_grid27.py``'s
-``density_mfv_grid27``, ``gradients_mfv_grid27`` (the cell-limiter
-branch) and ``fluxes_mfv_grid27`` (global timestep).  The JAX package
+``density_mfv_grid27``, ``gradients_mfv_grid27`` (both limiter
+branches) and ``fluxes_mfv_grid27`` (global timestep).  The JAX package
 scatters every field into dense (*ncells, K) cell tensors and slices a
 ghosted copy over 27 shifts; here particles stay in particle order and
 every pass reads K1's slot map ``ids_d`` (*ncells, K) int32 (particle id
 per slot, -1 empty, ``ops.active_grid.dense_ids``).  Each target visits
-the 27 cells around its own with wrapped indices, and a neighbour's
+the 3^ndim cells around its own with wrapped indices, and a neighbour's
 position is shifted by the box length where the index wrapped, the
 images the ghost layers hold; no copies are made.  Outputs are in
 particle order.
@@ -36,21 +38,23 @@ Tensor = torch.Tensor
 ITER_FP = 30
 ITER_MAX = 150
 
-# per-particle columns read by K11 and K12 (besides r)
-GRAD_COLS = ("h", "ndens", "W0", "W1", "W2", "W3", "W4", "sound")
-FLUX_COLS = (("h", 1), ("ndens", 1), ("W", 5), ("sound", 1), ("a0", 3),
-             ("B", 9), ("grad", 15), ("alpha", 5), ("bad", 1))
+
+def flux_cols(ndim: int):
+    """The (name, width) columns of K12's table: 15, 26 and 41 columns
+    in 1, 2 and 3 dims."""
+    nvar = ndim + 2
+    return (("h", 1), ("ndens", 1), ("W", nvar), ("sound", 1), ("a0", ndim),
+            ("B", ndim * ndim), ("grad", nvar * ndim), ("alpha", nvar),
+            ("bad", 1))
 
 
-def _offsets():
+def flux_slices(ndim: int):
+    """Column slices of K12's table by name."""
     out, o = {}, 0
-    for name, w in FLUX_COLS:
+    for name, w in flux_cols(ndim):
         out[name] = slice(o, o + w)
         o += w
     return out
-
-
-FLUX_SLICES = _offsets()
 
 
 def _pair_chunk(device) -> int:
@@ -109,7 +113,7 @@ def density_sums_plain(kern: SmoothingKernel, spec: g27.Grid27Spec,
                        ids_d: Tensor, r: Tensor, m: Tensor, h: Tensor):
     """Plain version of K10: the lockstep iteration of gandalf_tpu's
     density_mfv_grid27 (h clamped to [1e-6 hmax, hmax]; 30 fixed-point
-    steps h = h_fac ndens^(-1/3), then bisection up to step 150; a
+    steps h = h_fac ndens^(-1/ndim), then bisection up to step 150; a
     converged particle, |h - h(ndens)| < h_converge, keeps its h) over a
     list of the pairs within kernrange*hmax, the farthest any h <= hmax
     reaches.  The particle itself is among its pairs."""
@@ -179,28 +183,51 @@ def density_finish(h_fac: float, hmax: float, m: Tensor, ndens: Tensor,
 # K11: least-squares gradients and the cell limiter
 # ---------------------------------------------------------------------------
 
+class GradExtrema(NamedTuple):
+    """The signed neighbour extrema of K11 that K31 reads: Wmax - W >= 0
+    and Wmin - W <= 0, each (N, ndim + 2), over the pairs within
+    kernrange h_i and the particle itself."""
+
+    dWmax: Tensor
+    dWmin: Tensor
+
+
 def gradients(kern: SmoothingKernel, spec: g27.Grid27Spec, ids_d: Tensor,
-              r: Tensor, packed: Tensor) -> mfv_ops.GradientResult:
-    """B (N, 3, 3), grad (N, 5, 3), alpha_slope (N, 5), vsig_max (N,) and
-    bad (N,) bool of every particle.  `packed` (N, 8) holds GRAD_COLS.
-    K11 on CUDA tensors."""
+              r: Tensor, packed: Tensor,
+              limiter: str = "gizmo") -> mfv_ops.GradientResult:
+    """B (N, ndim, ndim), grad (N, nvar, ndim), alpha_slope (N, nvar),
+    vsig_max (N,) and bad (N,) bool of every particle (nvar = ndim + 2).
+    `packed` (N, ndim + 5) holds the columns K11 and K31 read besides r:
+    h, the number density, W and the sound speed.  With a per-neighbour
+    limiter (tvdscalar, springel2009) the cell alphas are K31's sweep
+    from alpha = 1 over K11's gradients and extrema.  K11 and K31 on
+    CUDA tensors."""
+    sweep = limiter in mfv_ops.SWEEP_LIMITERS
     if r.is_cuda:
-        return mfv_ops.GradientResult(*_ext.mfv_gradients(spec, kern, ids_d,
-                                                          r, packed))
-    return gradients_plain(kern, spec, ids_d, r, packed)
+        out = _ext.mfv_gradients(spec, kern, ids_d, r, packed,
+                                 extrema=sweep)
+        res = mfv_ops.GradientResult(*out[:5])
+        ext = GradExtrema(*out[5:]) if sweep else None
+    else:
+        res, ext = gradients_plain(kern, spec, ids_d, r, packed)
+    if not sweep:
+        return res
+    return res._replace(alpha_slope=limiter_sweep(
+        kern, spec, limiter, ids_d, r, packed, res.grad, ext))
 
 
 def gradients_plain(kern: SmoothingKernel, spec: g27.Grid27Spec,
-                    ids_d: Tensor, r: Tensor,
-                    packed: Tensor) -> mfv_ops.GradientResult:
+                    ids_d: Tensor, r: Tensor, packed: Tensor):
     """Plain version of K11: ops.mfv's gradient terms over a list of the
     pairs within kernrange * max(h) (every term beyond is zero), reduced
     per target (sums, and maxima and minima for the kernel-range
-    statistics), then gradient_finalize."""
+    statistics), then gradient_finalize.  Returns the GradientResult and
+    the GradExtrema."""
     nd = spec.ndim
+    nvar = nd + 2
     N, dt, dev = r.shape[0], r.dtype, r.device
     h = torch.clamp_min(packed[:, 0], 1e-30)
-    ndens, W, sound = packed[:, 1], packed[:, 2:7], packed[:, 7]
+    ndens, W, sound = packed[:, 1], packed[:, 2:2 + nvar], packed[:, 2 + nvar]
     cut2 = (kern.kernrange * float(h.max())) ** 2 * (1.0 + 1e-6)
     row, col, dx, _ = slot_pairs(spec, ids_d, r, cut2, True)
     acc = mfv_ops.gradient_init(N, nd, dt, dev)
@@ -218,34 +245,82 @@ def gradients_plain(kern: SmoothingKernel, spec: g27.Grid27Spec,
         gt.index_add_(0, i, t.grad_tmp[:, 0])
         gs.index_add_(0, i, t.grad_sph[:, 0])
         vs.scatter_reduce_(0, i, t.vsig_max[:, 0], "amax")
-        i5 = i[:, None].expand(-1, nd + 2)
-        wmax.scatter_reduce_(0, i5, t.Wmax[:, 0], "amax")
-        wmin.scatter_reduce_(0, i5, t.Wmin[:, 0], "amin")
+        iv = i[:, None].expand(-1, nvar)
+        wmax.scatter_reduce_(0, iv, t.Wmax[:, 0], "amax")
+        wmin.scatter_reduce_(0, iv, t.Wmin[:, 0], "amin")
         drm.scatter_reduce_(0, i, t.drmax_sqd[:, 0], "amax")
     acc = mfv_ops.GradAccum(E=E, grad_tmp=gt, grad_sph=gs, vsig_max=vs,
                             Wmax=wmax, Wmin=wmin, drmax_sqd=drm)
-    return mfv_ops.gradient_finalize(nd, acc, h, W, sound)
+    ext = GradExtrema(dWmax=torch.maximum(wmax, W) - W,
+                      dWmin=torch.minimum(wmin, W) - W)
+    return mfv_ops.gradient_finalize(nd, acc, h, W, sound), ext
 
 
 # ---------------------------------------------------------------------------
-# K12: MUSCL face fluxes
+# K31: the per-neighbour limiter sweep
+# ---------------------------------------------------------------------------
+
+def limiter_sweep(kern: SmoothingKernel, spec: g27.Grid27Spec, limiter: str,
+                  ids_d: Tensor, r: Tensor, packed: Tensor, grad: Tensor,
+                  ext: GradExtrema) -> Tensor:
+    """The cell alphas (N, nvar) of a per-neighbour limiter: K31 on CUDA
+    tensors."""
+    if r.is_cuda:
+        return _ext.mfv_limiter(spec, kern, limiter, ids_d, r, packed, grad,
+                                ext.dWmax, ext.dWmin)
+    return limiter_sweep_plain(kern, spec, limiter, ids_d, r, packed, grad,
+                               ext)
+
+
+def limiter_sweep_plain(kern: SmoothingKernel, spec: g27.Grid27Spec,
+                        limiter: str, ids_d: Tensor, r: Tensor,
+                        packed: Tensor, grad: Tensor,
+                        ext: GradExtrema) -> Tensor:
+    """Plain version of K31: ops.mfv.limiter_alpha_accumulate from alpha
+    = 1 over a list of the pairs within kernrange * max(h), one pair per
+    row, the running min taken per target (pairs beyond kernrange h_i
+    give 1, as the JAX sweep's `near` mask makes them)."""
+    nd = spec.ndim
+    nvar = nd + 2
+    N = r.shape[0]
+    h = torch.clamp_min(packed[:, 0], 1e-30)
+    W = packed[:, 2:2 + nvar]
+    cut2 = (kern.kernrange * float(h.max())) ** 2 * (1.0 + 1e-6)
+    row, col, dx, _ = slot_pairs(spec, ids_d, r, cut2, True)
+    alpha = torch.ones((N, nvar), dtype=r.dtype, device=r.device)
+    step = _pair_chunk(r.device)
+    for c0 in range(0, row.numel(), step):
+        i, j = row[c0:c0 + step], col[c0:c0 + step]
+        a = mfv_ops.limiter_alpha_accumulate(
+            limiter, kern, nd, torch.ones((i.numel(), nvar), dtype=r.dtype,
+                                          device=r.device),
+            h[i], W[i], grad[i], ext.dWmax[i], ext.dWmin[i],
+            dx[c0:c0 + step][:, None, :], W[j][:, None, :], None)
+        alpha.scatter_reduce_(0, i[:, None].expand(-1, nvar), a, "amin")
+    return alpha
+
+
+# ---------------------------------------------------------------------------
+# K12: face fluxes
 # ---------------------------------------------------------------------------
 
 def pack_flux_fields(h, ndens, W, sound, a0, B, grad, alpha, bad) -> Tensor:
-    """The (N, 41) table K12 reads, columns FLUX_COLS."""
+    """The (N, 15 / 26 / 41) table K12 reads in 1 / 2 / 3 dims, columns
+    flux_cols."""
     N = h.shape[0]
     return torch.cat([h[:, None], ndens[:, None], W, sound[:, None], a0,
-                      B.reshape(N, 9), grad.reshape(N, 15), alpha,
+                      B.reshape(N, -1), grad.reshape(N, -1), alpha,
                       bad.to(h.dtype)[:, None]], -1).contiguous()
 
 
 def fluxes(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
            spec: g27.Grid27Spec, dt: Tensor, ids_d: Tensor, r: Tensor,
            packed: Tensor) -> mfv_ops.FluxResult:
-    """dQdt (N, 5) and rdmdt_dot (N, 3) of every particle from the face
-    fluxes with all its neighbours, the MUSCL half-step prediction over
-    `dt` (0-d tensor, read on the device).  `packed` (N, 41)
-    from pack_flux_fields.  K12 on CUDA tensors."""
+    """dQdt (N, nvar) and rdmdt_dot (N, ndim) of every particle from the
+    face fluxes with all its neighbours under `cfg`'s Riemann solver,
+    slope limiter, time scheme (the MUSCL half step or the RK2 full step
+    over `dt`, a 0-d tensor read on the device) and face velocity.
+    `packed` from pack_flux_fields.  K12 on CUDA tensors."""
     mfv_ops.check_config(cfg)
     if r.is_cuda:
         return mfv_ops.FluxResult(*_ext.mfv_fluxes(spec, kern, cfg, dt,
@@ -261,8 +336,9 @@ def fluxes_plain(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
     area is 0 and the pair adds nothing), one pair per row, summed per
     target."""
     nd = spec.ndim
+    nvar = nd + 2
     N, dev = r.shape[0], r.device
-    sl = FLUX_SLICES
+    sl = flux_slices(nd)
 
     def col(x, name):
         return x[..., sl[name]]
@@ -270,7 +346,7 @@ def fluxes_plain(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
     h = col(packed, "h")[:, 0]
     cut2 = (kern.kernrange * float(h.max())) ** 2 * (1.0 + 1e-6)
     row, cl, dx, _ = slot_pairs(spec, ids_d, r, cut2, True)
-    dQdt = torch.zeros((N, nd + 2), dtype=r.dtype, device=dev)
+    dQdt = torch.zeros((N, nvar), dtype=r.dtype, device=dev)
     rdmdt = torch.zeros((N, nd), dtype=r.dtype, device=dev)
     step = _pair_chunk(dev)
     for c0 in range(0, row.numel(), step):
@@ -280,14 +356,14 @@ def fluxes_plain(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
               "Wprim": col(pj, "W"), "sound": col(pj, "sound")[..., 0],
               "a0": col(pj, "a0"),
               "B": col(pj, "B").reshape(-1, 1, nd, nd),
-              "grad": col(pj, "grad").reshape(-1, 1, nd + 2, nd),
+              "grad": col(pj, "grad").reshape(-1, 1, nvar, nd),
               "alpha_slope": col(pj, "alpha"),
               "bad": col(pj, "bad")[..., 0] > 0.5}
         res = mfv_ops.compute_godunov_fluxes(
             kern, cfg, nd, dt, torch.clamp_min(col(pi, "h")[:, 0], 1e-30),
             col(pi, "ndens")[:, 0], col(pi, "W"), col(pi, "sound")[:, 0],
             col(pi, "a0"), col(pi, "B").reshape(-1, nd, nd),
-            col(pi, "grad").reshape(-1, nd + 2, nd), col(pi, "alpha"),
+            col(pi, "grad").reshape(-1, nvar, nd), col(pi, "alpha"),
             col(pi, "bad")[:, 0] > 0.5, dx[c0:c0 + step][:, None, :], nb,
             None)
         dQdt.index_add_(0, i, res.dQdt)

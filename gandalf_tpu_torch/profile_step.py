@@ -4,6 +4,7 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step [--self-gravity {0,1}]
     python -m gandalf_tpu_torch.profile_step --block
     python -m gandalf_tpu_torch.profile_step --mfv [--self-gravity {0,1}]
+        [--ndim {1,2,3}] [--riemann {hllc,exact}] [--limiter L] [--rk2]
     python -m gandalf_tpu_torch.profile_step --nbody [--nbody-scheme S]
     python -m gandalf_tpu_torch.profile_step --ewald
     python -m gandalf_tpu_torch.profile_step --sinks
@@ -24,7 +25,12 @@ that holds no tree rebuild.  With --block: the block slice
 (cold_sphere_block) at about 262,144 particles in float32, 4 warm-up
 ticks, then a window of 8 ticks without a tree rebuild.  With --mfv:
 the meshless finite-volume box (check.mfv_params, self-gravitating by
-default) at 64^3 in float32, as the SPH box.  With --nbody: the N-body
+default) at 64^3 in float32, as the SPH box; --ndim 2 takes the 2D box
+of tests/test_mfv_grid.py at x16 per axis (check.mfv_khi_params(512),
+524,288 particles, no gravity) and --ndim 1 the MFV Sod tube (512 +
+128, float64), --riemann the Riemann solver, --limiter the slope
+limiter (gizmo, scalar, null, zeroslope, tvdscalar, springel2009) and
+--rk2 the Heun scheme (sim = mfvrk).  With --nbody: the N-body
 cluster (check.nbody_params, plummer_cluster) at 65,536 stars in
 float64 under hermite4 (or --nbody-scheme, hermite6ts unsoftened at
 16,384 stars), 2 warm-up steps, then a window of 8 steps
@@ -64,7 +70,7 @@ Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
 the device time summed over kernels and copies, the device's idle share
-of the window, the device time of each of K1-K30 and of the torch glue
+of the window, the device time of each of K1-K31 and of the torch glue
 between them, and the device time per kernel name (largest first); with
 --block also the active rows per tick.  Refuses to run without CUDA.
 """
@@ -85,7 +91,7 @@ N_SIDE = 64
 STEPS = 8
 BLOCK_N = 262144
 BLOCK_WARM = 4
-# device kernel names of K1-K30 (csrc/); every other device event is glue
+# device kernel names of K1-K31 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -122,6 +128,7 @@ FAMILIES = {
     "K28 radws_equilibrium": ("radws_equilibrium_kernel",),
     "K29 radws_implicit_heating": ("radws_implicit_kernel",),
     "K30 ambient_temperature": ("ambient_kernel",),
+    "K31 mfv_limiter": ("mfv_limiter_kernel",),
 }
 DUST_NHYDRO = 131072
 NBODY_N = 65536
@@ -195,6 +202,9 @@ def _profile_window(sim, args, before: int) -> int:
     else:
         slice_fields = {
             "block": args.block, "mfv": args.mfv, "ewald": args.ewald,
+            "mfv_modes": ({k: getattr(sim.mfv_cfg, k) for k in
+                           ("riemann", "slope_limiter", "time_scheme")}
+                          if args.mfv else None),
             "sinks": args.sinks, "khi": args.khi,
             "block_sinks": args.block_sinks, "cd2010": args.cd2010,
             "mirror": args.layout if args.mirror else None,
@@ -235,6 +245,16 @@ def main(argv=None) -> int:
                     help="the block-timestep slice (cold_sphere_block)")
     ap.add_argument("--mfv", action="store_true",
                     help="the meshless finite-volume box (mfv_box)")
+    ap.add_argument("--ndim", type=int, default=3, choices=(1, 2, 3),
+                    help="with --mfv: the Sod tube (1) or the 2D box (2)")
+    ap.add_argument("--riemann", default="hllc", choices=("hllc", "exact"),
+                    help="with --mfv: the Riemann solver")
+    ap.add_argument("--limiter", default="gizmo",
+                    choices=("gizmo", "scalar", "null", "zeroslope",
+                             "tvdscalar", "springel2009"),
+                    help="with --mfv: the slope limiter")
+    ap.add_argument("--rk2", action="store_true",
+                    help="with --mfv: RK2 (sim = mfvrk)")
     ap.add_argument("--nbody", action="store_true",
                     help="the N-body cluster (plummer_cluster)")
     ap.add_argument("--nbody-scheme", default="hermite4",
@@ -278,7 +298,8 @@ def main(argv=None) -> int:
     from .check import (MIRROR_DIM0, MIRROR_MIXED, bb_block_params,
                         bb_params, dust_params, dustybox_params,
                         family_params, jeans_params,
-                        jittered_box_ic, khi_params, mfv_params, mirror_ic,
+                        jittered_box_ic, khi_params, mfv_khi_params,
+                        mfv_params, mfv_sod_params, mirror_ic,
                         mirror_params, nbody_params, plummer_stars_params,
                         radfb_params, radws_params, slice_params,
                         sm2012_params, sphere_block_params)
@@ -335,11 +356,24 @@ def main(argv=None) -> int:
         sim.SetupSimulation()
         warm = 2
     elif args.mfv:
-        params = mfv_params(N_SIDE, self_gravity=args.self_gravity)
-        if args.radws:
-            params = radws_params(params)
-        sim = SimulationBase.factory(params, "cuda", torch.float32)
-        sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
+        opts = {"riemann_solver": args.riemann,
+                "slope_limiter": args.limiter,
+                "sim": "mfvrk" if args.rk2 else "meshlessfv"}
+        if args.ndim == 3:
+            params = mfv_params(N_SIDE, self_gravity=args.self_gravity)
+            for k, v in opts.items():
+                params.set(k, v)
+            if args.radws:
+                params = radws_params(params)
+            sim = SimulationBase.factory(params, "cuda", torch.float32)
+            sim.SetupSimulation(jittered_box_ic(params, N_SIDE))
+        else:
+            params = (mfv_khi_params(512, **opts) if args.ndim == 2
+                      else mfv_sod_params(**opts))
+            sim = SimulationBase.factory(
+                params, "cuda",
+                torch.float32 if args.ndim == 2 else torch.float64)
+            sim.SetupSimulation()
         warm = 2
     elif args.block:
         sim = GradhSphSimulation(

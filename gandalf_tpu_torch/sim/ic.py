@@ -266,6 +266,38 @@ def khi_ic(params, eos) -> Dict[str, np.ndarray]:
     return {"r": r, "v": v, "m": m, "h": h, "u": u}
 
 
+def gresho_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Gresho-Chan vortex (src/Ic/GreshoVortexIc.cpp): a rotationally
+    supported vortex in exact steady state, on a lattice of uniform
+    density."""
+    ip, fp = params.intparams, params.floatparams
+    if ip["ndim"] != 2:
+        raise ValueError("gresho IC is 2D only")
+    n_lattice = [ip["Nlattice1[0]"], ip["Nlattice1[1]"]]
+    boxmin = [fp["boxmin[0]"], fp["boxmin[1]"]]
+    boxmax = [fp["boxmax[0]"], fp["boxmax[1]"]]
+    gammam1 = fp["gamma_eos"] - 1.0
+    h_fac = fp["h_fac"]
+    rho0 = 1.0
+    r = add_cubic_lattice(n_lattice, boxmin, boxmax)
+    N = r.shape[0]
+    rad = np.sqrt((r ** 2).sum(-1)) + 1e-30
+    # azimuthal velocity and pressure profiles (Gresho & Chan 1990)
+    vphi = np.where(rad < 0.2, 5.0 * rad,
+                    np.where(rad < 0.4, 2.0 - 5.0 * rad, 0.0))
+    press = np.where(
+        rad < 0.2, 5.0 + 12.5 * rad ** 2,
+        np.where(rad < 0.4,
+                 9.0 + 12.5 * rad ** 2 - 20.0 * rad + 4.0 * np.log(rad / 0.2),
+                 3.0 + 4.0 * np.log(2.0)))
+    v = np.stack([-vphi * r[:, 1] / rad, vphi * r[:, 0] / rad], axis=-1)
+    volume = np.prod([boxmax[k] - boxmin[k] for k in range(2)])
+    m = np.full(N, rho0 * volume / N)
+    h = h_fac * (m / rho0) ** 0.5
+    u = press / (rho0 * gammam1)
+    return {"r": r, "v": v, "m": m, "h": h, "u": u}
+
+
 def noh_ic(params, eos) -> Dict[str, np.ndarray]:
     """Noh problem: uniform gas with radial inflow v_r = -1
     (src/Ic/NohIc.cpp)."""
@@ -754,6 +786,7 @@ _IC_REGISTRY = {
     "soundwave": soundwave_ic,
     "sedov": sedov_ic,
     "khi": khi_ic,
+    "gresho": gresho_ic,
     "noh": noh_ic,
     "box": uniform_box_ic,
     "sphere": sphere_ic,

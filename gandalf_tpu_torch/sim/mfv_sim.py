@@ -1,19 +1,24 @@
-"""Meshless finite-volume (MUSCL) simulation controller.
+"""Meshless finite-volume simulation controllers (MUSCL and RK2).
 
-Counterpart of ``gandalf_tpu/sim/mfv_sim.py:MfvMusclSimulation`` for
-the global-timestep path on the structured grid: the M4 kernel, the
-adiabatic EOS, HLLC with or without zero mass flux, the Gizmo slope
-limiter, and optionally self-gravity from the KD-bucket Barnes-Hut tree
-with the MFV zeta scaling (and, in a periodic box, the Ewald sum).  One
-step is
+Counterpart of ``gandalf_tpu/sim/mfv_sim.py:MfvMusclSimulation`` and
+``MfvRungeKuttaSimulation`` for the global-timestep path on the
+structured grid in 1, 2 or 3 dims: the M4 kernel, any EOS of the port
+but the locally isothermal family, the HLLC or exact Riemann solver with
+or without zero mass flux, every slope limiter (gizmo, scalar, null,
+zeroslope, tvdscalar, springel2009 and the aliases tess2011 and
+balsara2004), moving or static particles, and in 3D optionally
+self-gravity from the KD-bucket Barnes-Hut tree with the MFV zeta
+scaling (and, in a periodic box, the Ewald sum).  One step is
 
   1. Godunov fluxes from the previous step's gradients and positions
-     (K1 at the old r, K12),
+     (K1 at the old r, K12: the MUSCL half step, or under RK2 the mean
+     of the fluxes before and after a full step),
   2. the conserved update and the drift with the mean velocity; with
      self-gravity, the tree at the drifted r and new m (K4-K7, the
      previous h, zeta and hfactor) and the gravity source terms,
   3. the number-density h iteration at the new r (K1, K10) and the EOS,
-  4. gradients and the cell limiter for the next step (K11),
+  4. gradients and the cell limiter for the next step (K11; with
+     tvdscalar or springel2009 the per-neighbour sweep, K31),
   5. the next dt from vsig_max (and |a|).
 
 The JAX package bins three times a step; a binning is a function of r
@@ -23,10 +28,10 @@ clamp to tend) is ``SimulationBase``'s.  With ``gas_eos = radws`` the
 EOS reads gamma from the opacity table (K27), and with
 ``energy_integration = radws`` the implicit radiative heating rate (K29)
 at the step's end, after the gravity source terms with the new gpot, is
-folded into the total-energy column.  Block timesteps, RK2, the exact
-Riemann solver, the other limiters, static particles, mirror walls,
-sinks, radiative feedback and the other EOS raise NotImplementedError
-naming their ROADMAP item or fault.
+folded into the total-energy column.  Block timesteps, mirror walls,
+sinks, external potentials, radiative feedback, the locally isothermal
+EOS, smoothing kernels other than M4 and self-gravity below 3D raise
+NotImplementedError naming their ROADMAP item or fault.
 """
 
 from __future__ import annotations
@@ -56,13 +61,19 @@ class MfvMusclSimulation(SimulationBase):
     """MUSCL meshless finite volume on one device with a global
     timestep."""
 
+    time_scheme = "muscl"
+
     # -- parameters ------------------------------------------------------------
     def process_parameters(self):
         p = self.params
         ip, sp = p.intparams, p.stringparams
-        if sp["sim"] not in ("meshlessfv", "mfvmuscl"):
-            raise _unsupported(f"sim {sp['sim']!r}", "item 10")
         if ip["Nlevels"] > 1:
+            if self.time_scheme == "rk2":
+                # the JAX package refuses it too
+                # (gandalf_tpu/sim/mfv_sim.py:89-92)
+                raise NotImplementedError(
+                    "block timesteps are wired to the MUSCL MFV scheme "
+                    "(the reference's RK2 block coupling differs)")
             raise _unsupported("block timesteps for MFV (Nlevels > 1)",
                                "item 10")
         # the JAX MFV controller never reads these options: a run there
@@ -80,13 +91,8 @@ class MfvMusclSimulation(SimulationBase):
             raise _unsupported("radiative feedback in MFV (the JAX "
                                "package's MFV controller ignores rad_fb: "
                                "fault F21)", "item 9")
-        if sp["gas_eos"] not in ("energy_eqn", "constant_temp", "radws"):
-            raise _unsupported(f"gas_eos {sp['gas_eos']!r} in MFV", "item 10")
         self._common_parameters()
-        require_m4(self.kern, "MFV (K7's MFV mode, K10-K12)")
-        if self.ndim != 3:
-            raise _unsupported("MFV at ndim < 3 (K10-K12 are 3D)",
-                               "item 10")
+        require_m4(self.kern, "MFV (K7's MFV mode, K10-K12, K31)")
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries in MFV",
                                "items 8 and 10")
@@ -96,7 +102,8 @@ class MfvMusclSimulation(SimulationBase):
             static_particles=bool(ip["static_particles"]),
             riemann=sp["riemann_solver"],
             slope_limiter=_LIMITER_ALIAS.get(sp["slope_limiter"],
-                                             sp["slope_limiter"]))
+                                             sp["slope_limiter"]),
+            time_scheme=self.time_scheme)
         mfv_ops.check_config(self.mfv_cfg)
         self.courant_mult = p.floatparams["courant_mult"]
         self.accel_mult = p.floatparams["accel_mult"]
@@ -138,7 +145,7 @@ class MfvMusclSimulation(SimulationBase):
         hmax = g27.hmax_of(self.gridspec, self.kern.kernrange)
         sums = mg.density_sums(self.kern, self.gridspec, self.h_fac,
                                self.h_converge, hmax, ids_d, s.r, s.m, s.h)
-        d = mg.density_finish(self.h_fac, hmax, s.m, *sums)
+        d = mg.density_finish(self.h_fac, hmax, s.m, *sums, ndim=self.ndim)
         u, pressure, sound = self.eos.thermal_update(
             torch.clamp_min(d.rho, 1e-30), s.u)
         return s.replace(h=d.h, ndens=d.ndens, rho=d.rho,
@@ -149,11 +156,12 @@ class MfvMusclSimulation(SimulationBase):
                          | bin_ovf)
 
     def _gradient_pass(self, s: MfvState, ids_d) -> MfvState:
-        """K11: B, the gradients, the cell alphas, vsig_max and the
-        bad-gradient flag for the next step's fluxes."""
+        """K11 (and K31): B, the gradients, the cell alphas, vsig_max and
+        the bad-gradient flag for the next step's fluxes."""
         packed = torch.cat([s.h[:, None], s.ndens[:, None], s.Wprim,
                             s.sound[:, None]], -1).contiguous()
-        res = mg.gradients(self.kern, self.gridspec, ids_d, s.r, packed)
+        res = mg.gradients(self.kern, self.gridspec, ids_d, s.r, packed,
+                           self.mfv_cfg.slope_limiter)
         return s.replace(B=res.B, grad=res.grad, alpha_slope=res.alpha_slope,
                          vsig_max=res.vsig_max,
                          bad_grad=res.bad.to(s.h.dtype))
@@ -180,12 +188,13 @@ class MfvMusclSimulation(SimulationBase):
         0)) at the state of Qcons, clipped at -0.95 u / dt, times m dt
         added to the total-energy column (gandalf_tpu/sim/mfv_sim.py:
         426-441; EnergyRadws<MeshlessFVParticle>::EndTimestep)."""
-        m, rho, _, u = mfv_ops.state_from_qcons(3, Qcons, ndens)
+        nd = self.ndim
+        m, rho, _, u = mfv_ops.state_from_qcons(nd, Qcons, ndens)
         heat = radws_implicit_heating(self.eos.table, rho, u,
                                       torch.zeros_like(u), gpot, dt)
         heat = torch.maximum(heat, -0.95 * u / torch.clamp_min(dt, 1e-30))
-        energy = Qcons[:, 4] + m * heat * dt
-        return torch.cat([Qcons[:, :4], energy[:, None]], -1)
+        energy = Qcons[:, nd + 1] + m * heat * dt
+        return torch.cat([Qcons[:, :nd + 1], energy[:, None]], -1)
 
     def _dt_criterion(self, s: MfvState):
         """Courant and acceleration timestep, the minimum over particles
@@ -204,7 +213,7 @@ class MfvMusclSimulation(SimulationBase):
         kept, as in the JAX package), gradients and the first dt."""
         ids_d, ovf = self._bin(s.r)
         s = self._density_pass(s, ids_d, ovf)
-        Q0 = mfv_ops.qcons_from_state(3, s.m, s.v, s.u)
+        Q0 = mfv_ops.qcons_from_state(self.ndim, s.m, s.v, s.u)
         s = s.replace(Qcons0=Q0, r0=s.r, v0=s.v)
         if self.self_gravity:
             a, _, ovg = self._gravity_pass(s)
@@ -213,7 +222,7 @@ class MfvMusclSimulation(SimulationBase):
         return s.replace(dt=self._dt_criterion(s))
 
     def _step(self, s: MfvState) -> MfvState:
-        """One global MUSCL step (gandalf_tpu/sim/mfv_sim.py:449-491).
+        """One global step (gandalf_tpu/sim/mfv_sim.py:449-491).
         The overflow flag is sticky across the steps of a burst.  With a
         finite tend the step's dt is clamped on the device to tend - t."""
         tend = self.params.floatparams["tend"]
@@ -226,34 +235,44 @@ class MfvMusclSimulation(SimulationBase):
         flux = self._flux_pass(s, dt, ids_old)
         Qcons = s.Qcons0 + flux.dQdt * dt
         overflow = s.neib_overflow | ovf_old
+        nd = self.ndim
         if self.self_gravity:
             # drift, gravity at the drifted r and new m with the old h,
             # zeta and hfactor, then the source terms (MfvIntegration.cpp:
             # 150-170)
-            m_new = Qcons[:, 3].contiguous()
-            v_mid = Qcons[:, :3] / torch.clamp_min(m_new, 1e-30)[:, None]
+            m_new = Qcons[:, nd].contiguous()
+            v_mid = Qcons[:, :nd] / torch.clamp_min(m_new, 1e-30)[:, None]
             r = self.box.wrap(s.r0 + 0.5 * (s.v0 + v_mid) * dt)
             a, gpot, ovg = self._gravity_pass(s.replace(r=r, m=m_new))
             Qcons = mfv_ops.gravity_source_terms(
-                3, dt, s.Qcons0, Qcons, s.a0, a, flux.rdmdt_dot * dt)
+                nd, dt, s.Qcons0, Qcons, s.a0, a, flux.rdmdt_dot * dt)
             if self.use_radws_energy:
                 Qcons = self._apply_radws_cooling(Qcons, s.ndens, gpot, dt)
-            m, _, v, u = mfv_ops.state_from_qcons(3, Qcons, s.ndens)
+            m, _, v, u = mfv_ops.state_from_qcons(nd, Qcons, s.ndens)
             s = s.replace(m=m.contiguous(), v=v, u=u, r=r, Qcons0=Qcons,
                           r0=r, v0=v, a=a,
                           a0=a, gpot=gpot, neib_overflow=overflow | ovg)
         else:
             if self.use_radws_energy:
                 Qcons = self._apply_radws_cooling(Qcons, s.ndens, s.gpot, dt)
-            m, _, v, u = mfv_ops.state_from_qcons(3, Qcons, s.ndens)
+            m, _, v, u = mfv_ops.state_from_qcons(nd, Qcons, s.ndens)
             r = self.box.wrap(s.r0 + 0.5 * (s.v0 + v) * dt)
             # the momentum as the JAX package rebuilds it after its
             # (here empty) wall reflection
-            mom = v * torch.clamp_min(Qcons[:, 3], 1e-30)[:, None]
-            Qcons = torch.cat([mom, Qcons[:, 3:]], -1)
+            mom = v * torch.clamp_min(Qcons[:, nd], 1e-30)[:, None]
+            Qcons = torch.cat([mom, Qcons[:, nd:]], -1)
             s = s.replace(m=m.contiguous(), v=v, u=u, r=r, Qcons0=Qcons,
                           r0=r, v0=v, neib_overflow=overflow)
         ids_new, ovf_new = self._bin(s.r)
         s = self._density_pass(s, ids_new, ovf_new)
         s = self._gradient_pass(s, ids_new)
         return s.replace(t=t, dt=self._dt_criterion(s), nstep=s.nstep + 1)
+
+
+class MfvRungeKuttaSimulation(MfvMusclSimulation):
+    """Heun (RK2) meshless finite volume (MfvRungeKuttaSimulation): the
+    flux pass averages the Riemann fluxes of the face states as they
+    are and of the states advanced a full dt by the primitive time
+    derivative; the rest of the step is MUSCL's."""
+
+    time_scheme = "rk2"

@@ -180,6 +180,10 @@ class SimulationBase:
             from .mfv_sim import MfvMusclSimulation
 
             return MfvMusclSimulation(params, device, dtype)
+        if sim == "mfvrk":
+            from .mfv_sim import MfvRungeKuttaSimulation
+
+            return MfvRungeKuttaSimulation(params, device, dtype)
         raise _unsupported(f"sim {sim!r}", "items 9-10")
 
     def _require_device(self):

@@ -314,7 +314,7 @@ def test_riemann_copy_is_identical(t):
 
 def test_other_ics_raise():
     p = params.Parameters()
-    p.set("ic", "gresho")
+    p.set("ic", "rti")
     with pytest.raises(NotImplementedError, match="item 9"):
         ic.generate_ic(p, None)
 

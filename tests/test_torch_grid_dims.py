@@ -272,8 +272,8 @@ def _refused(params, item):
 
 @pytest.mark.parametrize("ndim", [1, 2])
 def test_refusals_below_3d_name_their_items(ndim):
-    """Block steps (item 3), self-gravity (item 3), sinks (item 9) and
-    MFV (item 10) stay 3D-only."""
+    """Block steps (item 3), self-gravity (item 3) and sinks (item 9)
+    stay 3D-only, and so does MFV's self-gravity (item 3)."""
     for key, value, item in (("Nlevels", 3, "item 3"),
                              ("self_gravity", 1, "item 3"),
                              ("create_sinks", 1, "item 9")):
@@ -282,7 +282,8 @@ def test_refusals_below_3d_name_their_items(ndim):
         _refused(p, item)
     p = mirror_params(8, ndim, walls=())
     p.set("sim", "meshlessfv")
-    _refused(p, "item 10")
+    p.set("self_gravity", 1)
+    _refused(p, "item 3")
 
 
 def test_mirror_refusals_name_their_items():
@@ -301,13 +302,13 @@ def test_mirror_refusals_name_their_items():
 
 def test_kernels_refuse_z_slab_plans():
     """qz != 1 comes only from the distributed planner (item 13); the
-    active and MFV kernels stay 3D (items 3 and 10)."""
+    active-subset and neighbour-level kernels stay 3D (item 3)."""
     spec = tg.Grid27Spec(ndim=2, ncells=(4, 4), lo=(0.0, 0.0),
                          extents=(1.0, 1.0), k_cell=8,
                          periodic=(True, True))
     with pytest.raises(NotImplementedError, match="item 13"):
         _ext._grid_args_nd(dataclasses.replace(spec, qz=2))
-    with pytest.raises(NotImplementedError, match="items 3 and 10"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         _ext._grid_args(spec)
     assert _ext._grid_args_nd(spec) == (2, 4, 4, 1, 8, 1, 1, 0, 1.0, 1.0,
                                         0.0)

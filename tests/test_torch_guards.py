@@ -210,6 +210,38 @@ def test_kernels_match_plain_versions_on_gpu(dtype):
     assert all(r["ok"] for r in report.values()), report
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_mfv_option_kernels_match_plain_versions_on_gpu(dtype):
+    """K10-K12 in 1D and 2D with K12 in every Riemann solver, limiter
+    class, time scheme and face velocity, and K31 for both limiters,
+    against their plain versions (chip_smoke.py's mfv_option_kernels at
+    its small sizes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (compare_mfv_kernels,
+                                         mfv_khi_params, mfv_sod_params)
+    from gandalf_tpu_torch.ops.mfv import MfvConfig
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    report = {}
+    for params in (mfv_sod_params(128, 32), mfv_khi_params(16)):
+        sim = SimulationBase.factory(params, "cuda", dtype)
+        sim.SetupSimulation()
+        sim.main_loop_steps(2)
+        cfgs = [MfvConfig(gamma=sim.mfv_cfg.gamma, riemann=rs,
+                          slope_limiter=lim, time_scheme=ts,
+                          static_particles=st)
+                for rs in ("hllc", "exact")
+                for lim in ("gizmo", "tvdscalar", "null", "zeroslope")
+                for ts in ("muscl", "rk2") for st in (False, True)]
+        report.update(compare_mfv_kernels(
+            sim, sim.state, flux_cfgs=cfgs,
+            sweeps=["tvdscalar", "springel2009"]))
+    torch.cuda.synchronize()
+    assert all(r["ok"] for r in report.values()), report
+
+
 def _option_sims(dtype):
     """(tag, simulation) of each K6/K7 option after setup on the card:
     the Jeans box with the Ewald sum, the slab and the cylinder, the MFV

@@ -4009,9 +4009,10 @@ def _mfv_path_counts(sim, names):
     simulation's dims."""
     from gandalf_tpu_torch import _ext
     from gandalf_tpu_torch.check import kernel_name
+    from gandalf_tpu_torch.ops.mfv_grid27 import flux_count
 
     keys = [kernel_name(k, sim.gridspec) for k in names]
-    keys.append(_ext.mfv_flux_count(sim.gridspec, sim.mfv_cfg))
+    keys.append(flux_count(sim.gridspec, sim.mfv_cfg))
     return {k: _ext.LAUNCHES[k] for k in keys}
 
 

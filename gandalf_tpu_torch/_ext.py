@@ -55,11 +55,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from .kernels.smoothing import VARIANTS
-from .ops.mfv import CELL_LIMITERS, SWEEP_LIMITERS
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -104,11 +104,8 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
 
 # the meshless finite-volume kernels in every dim, K12 in every mode
 _DIMS = ("", "_2d", "_1d")
-# K12's limiter classes (csrc/mfv.cuh: the Gizmo clamp, the cell alphas,
-# none) and K31's limiters (csrc/mfv_limiter.cu)
-MFV_LIMITER_CLASS = {"gizmo": 0, "zeroslope": 2,
-                     **{lim: 1 for lim in CELL_LIMITERS}}
-MFV_SWEEP = {lim: i for i, lim in enumerate(SWEEP_LIMITERS)}
+# K31's limiters (csrc/mfv_limiter.cu)
+MFV_SWEEP = {"tvdscalar": 0, "springel2009": 1}
 for _d in _DIMS:
     LAUNCHES[f"mfv_density{_d}"] = 0
     LAUNCHES[f"mfv_gradients{_d}"] = 0
@@ -180,7 +177,7 @@ _ARGTYPES = {
     "mfv_limiter": [_P] * 6 + [_I] * 8 + [_D] * 4 + [_I] * 2 + [_P]
     + [_I, _P],
     # K12 per Riemann solver and NDIM: the grid arguments without ndim
-    **{f"mfv_fluxes_{_s}_{_n}d": [_P] * 4 + [_I] * 7 + [_D] * 5 + [_I] * 6
+    **{f"mfv_fluxes_{_s}_{_n}d": [_P] * 4 + [_I] * 7 + [_D] * 5 + [_I] * 5
        + [_P] * 2 + [_I, _P] for _s in ("hllc", "exact") for _n in (1, 2, 3)},
     "direct_nbody": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_softened": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
@@ -816,16 +813,25 @@ def _slot_map_args(spec, ids_d, r):
     return N
 
 
-def mfv_flux_count(spec, cfg) -> str:
-    """The LAUNCHES key of K12 in `cfg`'s modes on `spec`'s dims."""
-    name = "mfv_fluxes"
-    if cfg.riemann == "exact":
-        name += "_exact"
-    if cfg.time_scheme == "rk2":
-        name += "_rk2"
-    name += ("", "_cell", "_zeroslope")[MFV_LIMITER_CLASS[cfg.slope_limiter]]
-    if cfg.static_particles:
-        name += "_static"
+class FluxModes(NamedTuple):
+    """K12's modes as plain numbers: the adiabatic index, the Riemann
+    solver (1 exact, 0 HLLC), the limiter class (csrc/mfv.cuh: 0 the
+    Gizmo clamp, 1 the cell alphas, 2 none), RK2, static particles and
+    zero mass flux (each 0 or 1)."""
+    gamma: float
+    exact: int
+    limiter: int
+    rk2: int
+    static: int
+    zmf: int
+
+
+def mfv_flux_count(spec, modes: FluxModes) -> str:
+    """The LAUNCHES key of K12 in `modes` on `spec`'s dims."""
+    name = ("mfv_fluxes" + ("", "_exact")[modes.exact]
+            + ("", "_rk2")[modes.rk2]
+            + ("", "_cell", "_zeroslope")[modes.limiter]
+            + ("", "_static")[modes.static])
     return _grid_count(name, spec)
 
 
@@ -909,10 +915,10 @@ def mfv_limiter(spec, kern, limiter, ids_d, r, packed, grad, dWmax, dWmin,
     return alpha
 
 
-def mfv_fluxes(spec, kern, cfg, dt_t, ids_d, r, packed, mapping="auto"):
+def mfv_fluxes(spec, kern, modes: FluxModes, dt_t, ids_d, r, packed,
+               mapping="auto"):
     """K12 over the slot map: dQdt (N, nvar) and rdmdt_dot (N, ndim) in
-    `cfg`'s modes (Riemann solver, limiter class, MUSCL or RK2 over dt_t,
-    a 0-d tensor read on the device, static particles, zero mass flux).
+    `modes` (MUSCL or RK2 over dt_t, a 0-d tensor read on the device).
     `packed` (N, 15 / 26 / 41) holds ops.mfv_grid27.flux_cols."""
     require_m4(kern, "K12 mfv_fluxes")
     N = _slot_map_args(spec, ids_d, r)
@@ -924,15 +930,13 @@ def mfv_fluxes(spec, kern, cfg, dt_t, ids_d, r, packed, mapping="auto"):
     _check(dt_t, "dt", dt, ())
     dQdt = torch.zeros((N, nvar), dtype=dt, device=dev)
     rdmdt = torch.zeros((N, nd), dtype=dt, device=dev)
-    solver = "exact" if cfg.riemann == "exact" else "hllc"
+    solver = ("hllc", "exact")[modes.exact]
     _launch(f"mfv_fluxes_{solver}_{nd}d", dt, dev, _p(ids_d), _p(r),
             _p(packed), _p(dt_t), *_grid_args_nd(spec)[1:],
-            float(kern.kernnorm), float(cfg.gamma),
-            int(cfg.zero_mass_flux), MFV_LIMITER_CLASS[cfg.slope_limiter],
-            int(cfg.slope_limiter == "null"),
-            int(cfg.time_scheme == "rk2"), int(cfg.static_particles),
+            float(kern.kernnorm), float(modes.gamma), int(modes.zmf),
+            int(modes.limiter), int(modes.rk2), int(modes.static),
             SLOT_MAPPINGS[mapping], _p(dQdt), _p(rdmdt),
-            count=mfv_flux_count(spec, cfg))
+            count=mfv_flux_count(spec, modes))
     return dQdt, rdmdt
 
 

@@ -159,10 +159,11 @@ TOL_F32_MFV_FLUXES = 1e-3
 # the min, and by up to 1 where a pair within rounding of the edge
 # kernrange h_i, or a tvdscalar ratio within rounding of a clip, counts
 # on one side only: at most 1e-3 of the particles beyond 1e-4.  K11's
-# extrema (max(Wmax, W) - W), drmax and so its cell alphas share the
-# edge (mfv_exact_box's state at 64^3 had one particle 5% off in
-# dWmin, NVIDIA H100 80GB HBM3, 700 W): held the same way, B, the
-# gradients and vsig_max to TOL_F32_MFV_GRADIENTS everywhere.
+# extrema (max(Wmax, W) - W) share the edge (mfv_exact_box's state at
+# 64^3 had one particle 5% off in dWmin, NVIDIA H100 80GB HBM3, 700 W),
+# and the cell alphas of such a particle follow its extrema: at most
+# 1e-3 of the particles with an extremum beyond TOL_F32_MFV_GRADIENTS;
+# on every other row the alphas and limited gradients are held to it.
 TOL_F32_MFV_LIMITER = 1e-4
 TOL_F32_MFV_LIMITER_FRACTION = 1e-3
 # K13-K15 (all-pairs sums over the stars), each output's largest error
@@ -2010,17 +2011,17 @@ def mfv_gravity_inputs(sim, state):
 
 
 def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
-                        sweeps=None, mapping="auto"):
+                        sweeps=None):
     """Run K10, K11, K31, K12 and (with self-gravity) K7 in its MFV zeta
     mode and their plain versions on the same inputs, from an MfvState
     on a CUDA device at the grid's ndim; returns {kernel: report} as
     compare_kernels does, keyed by their LAUNCHES names (mfv_density,
-    mfv_gradients, mfv_limiter_<limiter>, _ext.mfv_flux_count's name of
-    each K12 mode, tree_near_mfv; _1d or _2d below 3D).  K12 runs in the
-    modes of `flux_cfgs` (MfvConfigs; the simulation's by default) and
-    K31 for the limiters `sweeps` (the simulation's, if it sweeps), both
-    on the plain K11's outputs.  `mapping` forces the thread mapping of
-    the grid kernels.  Launch counts are restored afterwards."""
+    mfv_gradients, mfv_limiter_<limiter>, ops.mfv_grid27.flux_count's
+    name of each K12 mode, tree_near_mfv; _1d or _2d below 3D).  K12
+    runs in the modes of `flux_cfgs` (MfvConfigs; the simulation's by
+    default) and K31 for the limiters `sweeps` (the simulation's, if it
+    sweeps), both on the plain K11's outputs.  Launch counts are restored
+    afterwards."""
     saved = dict(_ext.LAUNCHES)
     spec, kern = sim.gridspec, sim.kern
     nd = spec.ndim
@@ -2044,7 +2045,7 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     hmax = g27.hmax_of(spec, kern.kernrange)
     dargs = (sim.h_fac, sim.h_converge, hmax, ids_d, state.r, state.m,
              state.h)
-    s_k = _ext.mfv_density(spec, kern, *dargs, mapping=mapping)
+    s_k = _ext.mfv_density(spec, kern, *dargs)
     s_p = mg.density_sums_plain(kern, spec, *dargs)
     dens = {tag: mg.density_finish(sim.h_fac, hmax, state.m, *sums,
                                    ndim=nd)
@@ -2071,7 +2072,7 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     gpk = torch.cat([state.h[:, None], state.ndens[:, None], state.Wprim,
                      state.sound[:, None]], -1).contiguous()
     g_out = _ext.mfv_gradients(spec, kern, ids_d, state.r, gpk,
-                               extrema=True, mapping=mapping)
+                               extrema=True)
     g_k = mfv_ops.GradientResult(*g_out[:5])
     g_p, ext_p = mg.gradients_plain(kern, spec, ids_d, state.r, gpk)
     # a flag within rounding of the guard may flip in float32: compare the
@@ -2080,12 +2081,23 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     # of that variable's largest): of a gradient that is 0 by symmetry
     # the two versions sum 0 or noise, and its alpha is then 1 or any
     # value in [0, 1] (ROADMAP fault F25); the limited gradient alpha *
-    # grad, what K12 reads, is compared everywhere
+    # grad, what K12 reads, is compared on every such row.  float32: a
+    # particle with a pair within rounding of kernrange h_i may take it
+    # into its extrema on one side only; such edge rows, where dWmax or
+    # dWmin differ beyond TOL_F32_MFV_GRADIENTS, are counted, and their
+    # alphas follow their extrema (TOL_F32_MFV_LIMITER's notes)
     same = g_k.bad == g_p.bad
+    edge = torch.zeros((N,), dtype=torch.bool, device=state.r.device)
+    if not f64:
+        for x, ref in ((g_out[5], ext_p.dWmax), (g_out[6], ext_p.dWmin)):
+            scale = max(float(torch.abs(ref).max()), 1e-300)
+            edge |= (torch.abs(x - ref)
+                     > TOL_F32_MFV_GRADIENTS * scale).any(1)
     rows3 = same[:, None, None]
+    held = same & ~edge
     gmag = torch.linalg.vector_norm(g_p.grad, dim=-1)
     noise = TOL_MFV_NOISE_GRAD[f64] * gmag.amax(0, keepdim=True)
-    live = same[:, None] & (gmag > noise)
+    live = held[:, None] & (gmag > noise)
     lim_k = g_k.alpha_slope[..., None] * g_k.grad
     lim_p = g_p.alpha_slope[..., None] * g_p.grad
     errs = {"B": _scaled_all(g_k.B, g_p.B, rows3.expand_as(g_p.B)),
@@ -2094,38 +2106,27 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
             "alpha_slope": float(torch.abs(g_k.alpha_slope
                                            - g_p.alpha_slope)[live].max())
             if bool(live.any()) else 0.0,
-            "limited_grad": _scaled_all(lim_k, lim_p,
-                                        rows3.expand_as(lim_p)),
+            "limited_grad": _scaled_all(
+                lim_k, lim_p, held[:, None, None].expand_as(lim_p)),
             "vsig_max": _scaled_all(g_k.vsig_max, g_p.vsig_max, every),
             "dWmax": _scaled_all(g_out[5], ext_p.dWmax,
                                  every[:, None].expand_as(ext_p.dWmax)),
             "dWmin": _scaled_all(g_out[6], ext_p.dWmin,
                                  every[:, None].expand_as(ext_p.dWmin))}
     n_bad_differ = int((~same).sum())
-    # float32: the kernel-range statistics (the extrema, drmax, so the
-    # cell alphas) of a particle with a pair within rounding of kernrange
-    # h_i may take the pair on one side only: such particles are counted
-    edge = torch.zeros((N,), dtype=torch.bool, device=state.r.device)
-    if not f64:
-        for x, ref, rows in ((g_k.alpha_slope, g_p.alpha_slope, live),
-                             (lim_k, lim_p, rows3.expand_as(lim_p)),
-                             (g_out[5], ext_p.dWmax, every[:, None]),
-                             (g_out[6], ext_p.dWmin, every[:, None])):
-            scale = max(float(torch.abs(ref).max()), 1e-300)
-            err = torch.where(rows, torch.abs(x - ref), 0.0)
-            edge |= err.reshape(N, -1).amax(1) > TOL_F32_MFV_GRADIENTS * scale
     if f64:
         ok = n_bad_differ == 0 and max(errs.values()) <= TOL_F64
     else:
         ok = (n_bad_differ <= TOL_F32_MFV_BAD_FRACTION * N
-              and max(errs[k] for k in ("B", "grad", "vsig_max"))
+              and max(errs[k] for k in ("B", "grad", "alpha_slope",
+                                        "limited_grad", "vsig_max"))
               <= TOL_F32_MFV_GRADIENTS
               and int(edge.sum()) <= TOL_F32_MFV_LIMITER_FRACTION * N)
     k11 = name("mfv_gradients")
     out[k11] = {
         "scaled_err": errs, "bad_flags_differ": n_bad_differ,
         "bad": int(g_p.bad.sum()), "edge_rows": int(edge.sum()),
-        "noise_gradients": int((same[:, None] & ~live).sum()),
+        "noise_gradients": int((held[:, None] & ~live).sum()),
         "max_abs_err": float(torch.abs(g_k.grad - g_p.grad).max()),
         "ok": ok}
 
@@ -2136,12 +2137,10 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
         FLOPS_PER[k10] * (n_i + N))
     out[k11]["work"] = _work(
         (ids_d, state.r, gpk), g_out, FLOPS_PER[k11] * n_i)
-    timed[k10] = (lambda: _ext.mfv_density(spec, kern, *dargs,
-                                           mapping=mapping),
+    timed[k10] = (lambda: _ext.mfv_density(spec, kern, *dargs),
                   lambda: mg.density_sums_plain(kern, spec, *dargs))
     timed[k11] = (lambda: _ext.mfv_gradients(spec, kern, ids_d, state.r,
-                                             gpk, extrema=bool(sweeps),
-                                             mapping=mapping),
+                                             gpk, extrema=bool(sweeps)),
                   lambda: mg.gradients_plain(kern, spec, ids_d, state.r,
                                              gpk))
 
@@ -2149,7 +2148,7 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     for lim in sweeps:
         largs = (lim, ids_d, state.r, gpk, g_p.grad, ext_p.dWmax,
                  ext_p.dWmin)
-        a_k = _ext.mfv_limiter(spec, kern, *largs, mapping=mapping)
+        a_k = _ext.mfv_limiter(spec, kern, *largs)
         a_p = mg.limiter_sweep_plain(kern, spec, lim, ids_d, state.r, gpk,
                                      g_p.grad, ext_p)
         err = torch.abs(a_k - a_p)
@@ -2168,8 +2167,7 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
                             FLOPS_PER[name("mfv_limiter")] * n_i)
         out[key] = rep
         timed[key] = (
-            lambda la=largs: _ext.mfv_limiter(spec, kern, *la,
-                                              mapping=mapping),
+            lambda la=largs: _ext.mfv_limiter(spec, kern, *la),
             lambda lim=lim: mg.limiter_sweep_plain(
                 kern, spec, lim, ids_d, state.r, gpk, g_p.grad, ext_p))
 
@@ -2179,15 +2177,14 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
                               g_p.alpha_slope, g_p.bad)
     dt_t = state.dt
     for cfg in flux_cfgs:
-        f_k = _ext.mfv_fluxes(spec, kern, cfg, dt_t, ids_d, state.r, fpk,
-                              mapping=mapping)
+        f_k = mg.fluxes_kernel(kern, cfg, spec, dt_t, ids_d, state.r, fpk)
         f_p = mg.fluxes_plain(kern, cfg, spec, dt_t, ids_d, state.r, fpk)
         errs = {"dQdt": _scaled_all(f_k[0], f_p.dQdt, every[:, None]
                                     .expand_as(f_p.dQdt)),
                 "rdmdt_dot": _scaled_all(f_k[1], f_p.rdmdt_dot,
                                          every[:, None]
                                          .expand_as(f_p.rdmdt_dot))}
-        key = _ext.mfv_flux_count(spec, cfg)
+        key = mg.flux_count(spec, cfg)
         out[key] = {
             "scaled_err": errs,
             "max_abs_err": float(torch.abs(f_k[0] - f_p.dQdt).max()),
@@ -2195,8 +2192,8 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
             "work": _work((ids_d, state.r, fpk, dt_t), f_k,
                           mfv_flux_flops(nd, cfg) * n_ij)}
         timed[key] = (
-            lambda c=cfg: _ext.mfv_fluxes(spec, kern, c, dt_t, ids_d,
-                                          state.r, fpk, mapping=mapping),
+            lambda c=cfg: mg.fluxes_kernel(kern, c, spec, dt_t, ids_d,
+                                           state.r, fpk),
             lambda c=cfg: mg.fluxes_plain(kern, c, spec, dt_t, ids_d,
                                           state.r, fpk))
 
@@ -2263,8 +2260,8 @@ def mfv_mapping_times(sim, state, repeats: int = 5):
         f"mfv_limiter_{lim}": lambda m: (_ext.mfv_limiter(
             spec, kern, lim, ids_d, state.r, gpk, state.grad, *ext,
             mapping=m),),
-        "mfv_fluxes": lambda m: _ext.mfv_fluxes(
-            spec, kern, cfg, state.dt, ids_d, state.r, fpk, mapping=m),
+        "mfv_fluxes": lambda m: mg.fluxes_kernel(
+            kern, cfg, spec, state.dt, ids_d, state.r, fpk, mapping=m),
     }
     flat = spec.ndim < 3 or spec.k_cell < 32
     out = {"k_cell": spec.k_cell, "auto": "flat" if flat else "cell"}
@@ -2274,7 +2271,7 @@ def mfv_mapping_times(sim, state, repeats: int = 5):
         f1 = _time_ms(lambda: fn("flat"), repeats)
         f2 = _time_ms(lambda: fn("flat"), repeats)
         c2 = _time_ms(lambda: fn("cell"), repeats)
-        label = _ext.mfv_flux_count(spec, cfg) if key == "mfv_fluxes" \
+        label = mg.flux_count(spec, cfg) if key == "mfv_fluxes" \
             else kernel_name(key, spec)
         out[label] = {"cell_ms": 0.5 * (c1 + c2), "flat_ms": 0.5 * (f1 + f2),
                       "same_bits": same}
@@ -3322,7 +3319,7 @@ def mfv_flux_flops(ndim: int, cfg) -> int:
     ops = base - FLOPS_PER["mfv_hllc_solve"] + solve
     if cfg.time_scheme == "rk2":
         ops += solve + 4 * nvar
-    lim = _ext.MFV_LIMITER_CLASS[cfg.slope_limiter]
+    lim = mg.FLUX_LIMITER_CLASS[cfg.slope_limiter]
     if lim >= 1:
         ops -= 2 * nvar * 10
     if lim == 2:

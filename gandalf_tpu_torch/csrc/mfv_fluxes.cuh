@@ -26,8 +26,8 @@
 // Design: K2's layout, one thread per slot of K1's slot map (one block
 // per cell in 3D with K >= 32, else flat over (cell, slot)).  NDIM, the
 // Riemann solver and the limiter class (the Gizmo clamp; the cell
-// alphas, which null takes as 1; zeroslope's none) are template
-// parameters; the time scheme (the MUSCL half step, or RK2's mean of
+// alphas, which the caller packs as 1 for null; zeroslope's none) are
+// template parameters; the time scheme (the MUSCL half step, or RK2's mean of
 // the fluxes of the states before and after a full step, each floored
 // alone), static particles (a face velocity of 0) and zero mass flux
 // are runtime flags: they touch a few lines.  The thread keeps its
@@ -57,7 +57,7 @@ template <typename T>
 struct FluxArgs {
   T norm, gamma, gm1;
   mfv::ExactConsts<T> ec;
-  bool zmf, unit_alpha, rk2, stat;
+  bool zmf, rk2, stat;
 };
 
 // columns of the packed per-particle table (ops/mfv_grid27.py:flux_cols)
@@ -86,10 +86,10 @@ __device__ __forceinline__ void solve(const T Wl[NDIM + 2],
     mfv::hllc<T, NDIM>(Wl, Wr, n, vface, a.gamma, a.gm1, a.zmf, flux);
 }
 
-// the limited gradient of one particle's row: alpha * grad (grad alone
-// for null); unused under zeroslope
+// the limited gradient of one particle's row: alpha * grad; unused
+// under zeroslope
 template <typename T, int NDIM, int LIM>
-__device__ __forceinline__ void limited_gradient(const T* row, bool unit,
+__device__ __forceinline__ void limited_gradient(const T* row,
                                                  T gW[(NDIM + 2) * NDIM]) {
   using C = Cols<NDIM>;
 #pragma unroll
@@ -97,11 +97,8 @@ __device__ __forceinline__ void limited_gradient(const T* row, bool unit,
 #pragma unroll
     for (int a = 0; a < NDIM; ++a) {
       const T gr = row[C::kGrad + NDIM * v + a];
-      gW[NDIM * v + a] = LIM == mfv::kZeroSlope
-                             ? T(0)
-                             : (LIM == mfv::kGizmo || !unit
-                                    ? row[C::kAlpha + v] * gr
-                                    : gr);
+      gW[NDIM * v + a] =
+          LIM == mfv::kZeroSlope ? T(0) : row[C::kAlpha + v] * gr;
     }
 }
 
@@ -133,7 +130,7 @@ __device__ __forceinline__ void flux_slot(
   T Wi[kNvar], gWi[kNvar * NDIM], Bi[NDIM * NDIM], a0i[NDIM];
 #pragma unroll
   for (int v = 0; v < kNvar; ++v) Wi[v] = own[C::kW + v];
-  limited_gradient<T, NDIM, LIM>(own, a.unit_alpha, gWi);
+  limited_gradient<T, NDIM, LIM>(own, gWi);
 #pragma unroll
   for (int k = 0; k < NDIM * NDIM; ++k) Bi[k] = own[C::kB + k];
 #pragma unroll
@@ -199,7 +196,7 @@ __device__ __forceinline__ void flux_slot(
       for (int k = 0; k < NDIM; ++k) n[k] = A[k] / an;
 #pragma unroll
       for (int v = 0; v < kNvar; ++v) Wj[v] = pq[C::kW + v];
-      limited_gradient<T, NDIM, LIM>(pq, a.unit_alpha, gWj);
+      limited_gradient<T, NDIM, LIM>(pq, gWj);
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) {
         vface[k] = a.stat ? T(0) : T(0.5) * (Wi[k] + Wj[k]);
@@ -297,8 +294,8 @@ template <typename T, int RIEMANN, int NDIM>
 int run_fluxes(const int* ids, const T* r, const T* pk, const T* dt,
                int n0, int n1, int n2, int k_cell, int per0, int per1,
                int per2, double L0, double L1, double L2, double norm,
-               double gamma, int zmf, int limiter, int unit_alpha, int rk2,
-               int stat, int mapping, T* dQdt, T* rdmdt, int device,
+               double gamma, int zmf, int limiter, int rk2, int stat,
+               int mapping, T* dQdt, T* rdmdt, int device,
                void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -309,8 +306,8 @@ int run_fluxes(const int* ids, const T* r, const T* pk, const T* dt,
   const int n_cells = n0 * n1 * n2;
   const bool flat = slot_mapping_flat(mapping, NDIM, k_cell);
   const FluxArgs<T> a = {T(norm), T(gamma), T(gamma - 1.0),
-                         mfv::exact_consts<T>(gamma), zmf != 0,
-                         unit_alpha != 0, rk2 != 0, stat != 0};
+                         mfv::exact_consts<T>(gamma), zmf != 0, rk2 != 0,
+                         stat != 0};
   if (n_cells > 0 && k_cell > 0) {
     if (limiter == mfv::kGizmo)
       launch<T, NDIM, RIEMANN, mfv::kGizmo>(ids, r, pk, dt, g, n_cells,
@@ -335,10 +332,10 @@ int run_fluxes(const int* ids, const T* r, const T* pk, const T* dt,
                       int n0, int n1, int n2, int k_cell, int per0,         \
                       int per1, int per2, double L0, double L1, double L2,  \
                       double norm, double gamma, int zmf, int limiter,      \
-                      int unit_alpha, int rk2, int stat, int mapping,       \
-                      T* dQdt, T* rdmdt, int device, void* stream) {        \
+                      int rk2, int stat, int mapping, T* dQdt, T* rdmdt,    \
+                      int device, void* stream) {                           \
     return mfv_k12::run_fluxes<T, RIEMANN, NDIM>(                           \
         ids, r, pk, dt, n0, n1, n2, k_cell, per0, per1, per2, L0, L1, L2,   \
-        norm, gamma, zmf, limiter, unit_alpha, rk2, stat, mapping, dQdt,    \
-        rdmdt, device, stream);                                             \
+        norm, gamma, zmf, limiter, rk2, stat, mapping, dQdt, rdmdt, device, \
+        stream);                                                            \
   }

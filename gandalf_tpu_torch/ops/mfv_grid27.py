@@ -313,6 +313,39 @@ def pack_flux_fields(h, ndens, W, sound, a0, B, grad, alpha, bad) -> Tensor:
                       bad.to(h.dtype)[:, None]], -1).contiguous()
 
 
+# K12's limiter class of each slope limiter (csrc/mfv.cuh): the Gizmo
+# clamp, the cell alphas (null's all 1), none
+FLUX_LIMITER_CLASS = {"gizmo": 0, "zeroslope": 2,
+                      **{lim: 1 for lim in mfv_ops.CELL_LIMITERS}}
+
+
+def flux_modes(cfg: mfv_ops.MfvConfig) -> _ext.FluxModes:
+    """K12's modes under `cfg`."""
+    return _ext.FluxModes(
+        gamma=float(cfg.gamma), exact=int(cfg.riemann == "exact"),
+        limiter=FLUX_LIMITER_CLASS[cfg.slope_limiter],
+        rk2=int(cfg.time_scheme == "rk2"), static=int(cfg.static_particles),
+        zmf=int(cfg.zero_mass_flux))
+
+
+def flux_count(spec: g27.Grid27Spec, cfg: mfv_ops.MfvConfig) -> str:
+    """The LAUNCHES key of K12 under `cfg` on `spec`'s dims."""
+    return _ext.mfv_flux_count(spec, flux_modes(cfg))
+
+
+def fluxes_kernel(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
+                  spec: g27.Grid27Spec, dt: Tensor, ids_d: Tensor,
+                  r: Tensor, packed: Tensor,
+                  mapping: str = "auto") -> mfv_ops.FluxResult:
+    """K12 under `cfg` on CUDA tensors, in the slot `mapping`: null runs
+    the cell class on a copy of `packed` whose alphas are all 1."""
+    if cfg.slope_limiter == "null":
+        packed = packed.clone()
+        packed[:, flux_slices(spec.ndim)["alpha"]] = 1.0
+    return mfv_ops.FluxResult(*_ext.mfv_fluxes(
+        spec, kern, flux_modes(cfg), dt, ids_d, r, packed, mapping=mapping))
+
+
 def fluxes(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
            spec: g27.Grid27Spec, dt: Tensor, ids_d: Tensor, r: Tensor,
            packed: Tensor) -> mfv_ops.FluxResult:
@@ -323,8 +356,7 @@ def fluxes(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,
     `packed` from pack_flux_fields.  K12 on CUDA tensors."""
     mfv_ops.check_config(cfg)
     if r.is_cuda:
-        return mfv_ops.FluxResult(*_ext.mfv_fluxes(spec, kern, cfg, dt,
-                                                   ids_d, r, packed))
+        return fluxes_kernel(kern, cfg, spec, dt, ids_d, r, packed)
     return fluxes_plain(kern, cfg, spec, dt, ids_d, r, packed)
 
 

@@ -720,6 +720,7 @@ def test_mfv_wrappers_refuse_cpu_tensors():
     from gandalf_tpu_torch import _ext
     from gandalf_tpu_torch.kernels.smoothing import kernel_factory
     from gandalf_tpu_torch.ops.mfv import MfvConfig
+    from gandalf_tpu_torch.ops.mfv_grid27 import flux_modes
     from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
     from gandalf_tpu_torch.ops.tree import plan_tree
 
@@ -734,7 +735,8 @@ def test_mfv_wrappers_refuse_cpu_tensors():
         lambda: _ext.mfv_density(spec, kern, 1.2, 0.01, 0.2, ids, r, x, x),
         lambda: _ext.mfv_gradients(spec, kern, ids, r,
                                    torch.rand((32, 8), **f64)),
-        lambda: _ext.mfv_fluxes(spec, kern, MfvConfig(gamma=1.4),
+        lambda: _ext.mfv_fluxes(spec, kern,
+                                flux_modes(MfvConfig(gamma=1.4)),
                                 torch.tensor(1e-3, **f64), ids, r,
                                 torch.rand((32, 41), **f64)))
     for call in calls:

@@ -9,13 +9,14 @@ instability, the mirror-wall box), block-stepped star formation and
 time-dependent viscosity, the gas-dust drag (the dusty box and the
 dusty Evrard collapse), Saitoh & Makino (2012) SPH and the external
 potentials, RadWS radiative cooling and radiative feedback, the
-quintic, gaussian and tabulated smoothing kernels, and MFV's options
-(the exact Riemann solver, RK2, every slope limiter) and its 1D and 2D
-grid path, and checks them, in phases, each printing one line:
+quintic, gaussian and tabulated smoothing kernels, MFV's options (the
+exact Riemann solver, RK2, every slope limiter) and its 1D and 2D grid
+path, and block-timestep MFV, and checks them, in phases, each printing
+one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K31 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K33 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -322,7 +323,29 @@ grid path, and checks them, in phases, each printing one line:
    both thread mappings;
 69. mfvrk_box and 70. mfv_exact_box: mfv_box (64^3, the quadrupole tree)
    under mfvrk, and with the exact solver and springel2009, 32 timed
-   steps each under mfv_main_path's gates.
+   steps each under mfv_main_path's gates;
+71. mfv_block_kernels: K12's block mode, K22 (1-3 dims), K32 and K33
+   against their plain versions on the card in float64 and float32 after
+   3 conservative ticks of the block tube, the 2D box and mfv_box at
+   16^3 with the tree (check.compare_mfv_block_kernels);
+72. mfv_block_parity: the 2D box (32^2 + 32^2, jittered) with Nlevels 3
+   under each time_step_limiter, 5 float64 ticks, kernels on the card
+   against the plain path on the CPU, equal levels and schedules;
+73. mfv_block_tube: tests/test_mfv_block.py's Sod tube (256 + 64, open
+   ends, float64) to t = 0.1 with a global dt and with Nlevels 3: two
+   levels occupied, the masses equal to 1e-13, L1(v) < 2e-3 and L1(rho)
+   < 1e-3 of block against global;
+74. mfv_block_khi: the 2D box at 524,288 particles with Nlevels 3, 32
+   timed ticks under simple, then 16 under conservative (finite, mass
+   exact, sum Q_E within 5e-2, level_max >= 1; the conservative bound
+   at 2,048 sampled particles at or above the float64 all-pairs oracle,
+   median ratio < 10), with ticks/s, particle-updates/s and the level
+   histogram;
+75. mfv_block_sphere: cold_sphere_block's sphere (258,135 particles,
+   Nlevels 4, the quadrupole tree, conservative) through block MFV, 32
+   timed ticks: mfv_main_path's gates (the tree's accuracy with
+   block_main_path's bound for this sphere), the bound against its
+   oracle, rates and levels.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -348,8 +371,12 @@ mode and K31 tvdscalar from its second run) and in 1D from mfv_sod_tube
 (float64: K12 RK2 from the mfvrk tube, exact cell-alpha and K31
 tvdscalar from the exact tube, the cell-alpha and zeroslope modes and K31
 springel2009 from the limiter names), K12 RK2 from mfvrk_box, K12 exact
-cell-alpha and K31 springel2009 from mfv_exact_box), each counted over its
-path's timed window
+cell-alpha and K31 springel2009 from mfv_exact_box), K12's block mode in
+3D from mfv_block_sphere, in 2D from mfv_block_khi and in 1D from
+mfv_block_tube (float64), K22 in 2D from mfv_block_khi and in 1D from
+mfv_block_tube, K32 and K33 in 3D from mfv_block_sphere and in 2D from
+mfv_block_khi's conservative run, each counted over its path's timed
+window (the tube's over its whole block run)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
 for the work, check.bound) and library_ms null where no single PyTorch
@@ -598,6 +625,22 @@ GRESHO_L1_GATE = 0.12
 MFV_KHI_N = 512
 MFV_KHI_STEPS = (32, 16)
 MFV_KHI_ENERGY_TOL = 2e-3
+# block-timestep MFV (phases 71-75): the JAX package's block gates
+# (tests/test_mfv_block.py): the tube to t = 0.1 with L1(v) < 2e-3 and
+# L1(rho) < 1e-3 of the block run against the global one, the KHI's sum
+# Q_E within 5e-2; the conservative bound at 2,048 sampled particles at or
+# above the all-pairs oracle, median ratio below 10
+MFV_BLOCK_KERNEL_TICKS = 3
+MFV_BLOCK_TUBE_T = 0.1
+MFV_BLOCK_TUBE_L1_V = 2e-3
+MFV_BLOCK_TUBE_L1_RHO = 1e-3
+MFV_BLOCK_WARM = 2
+MFV_BLOCK_KHI_TICKS = (32, 16)
+MFV_BLOCK_KHI_ENERGY_TOL = 5e-2
+MFV_BLOCK_ORACLE_N = 2048
+MFV_BLOCK_SPHERE_WARM = 4
+MFV_BLOCK_SPHERE_TICKS = 32
+MFV_BLOCK_SPHERE_ENERGY_TOL = 2e-3
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -737,6 +780,21 @@ SOURCES = {
     "ambient_temperature": ("gandalf_tpu_torch/csrc/radiative_fb.cu",
                             "gandalf_tpu/ops/radiative_fb.py:92"),
 }
+# block-timestep MFV: K12's block mode (3D from mfv_block_sphere, 2D from
+# mfv_block_khi, 1D from mfv_block_tube), K22 below 3D (2D from the KHI,
+# 1D from the tube), K32 and K33 (3D from the sphere, 2D from the KHI's
+# conservative run)
+for _d in ("", "_2d", "_1d"):
+    SOURCES[f"mfv_fluxes_block{_d}"] = (
+        "gandalf_tpu_torch/csrc/mfv_fluxes.cuh", "gandalf_tpu/ops/mfv.py:815")
+for _d in ("_2d", "_1d"):
+    SOURCES[f"levelneib{_d}"] = ("gandalf_tpu_torch/csrc/grid27_levelneib.cu",
+                                 "gandalf_tpu/sim/mfv_sim.py:345")
+for _d in ("", "_2d"):
+    SOURCES[f"mfv_vsig_near{_d}"] = ("gandalf_tpu_torch/csrc/mfv_vsig.cu",
+                                     "gandalf_tpu/ops/mfv_grid27.py:485")
+    SOURCES[f"mfv_vsig_far{_d}"] = ("gandalf_tpu_torch/csrc/mfv_vsig.cu",
+                                    "gandalf_tpu/ops/mfv_grid27.py:566")
 # the quintic, gaussian and tabulated variants on their main paths: the
 # JAX functions' kernel evaluations they replace
 _FAMILY_SOURCES = {
@@ -4277,6 +4335,417 @@ def mfv_exact_box(dev, card):
                             slope_limiter="springel2009")
 
 
+def mfv_block_kernels(dev) -> None:
+    """Phase 71: K12's block mode, K22 (1-3 dims), K32 and K33 against
+    their plain versions on the card in float64 and float32
+    (check.compare_mfv_block_kernels), after setup and 3 ticks under the
+    conservative limiter of the block Sod tube (128 + 32), the 2D box of
+    tests/test_mfv_grid.py (32^2 + 32^2, jittered) and mfv_box at 16^3
+    with the tree (jittered), Nlevels 3."""
+    from gandalf_tpu_torch.check import (compare_mfv_block_kernels,
+                                         jittered_box_ic, jittered_lattice_ic,
+                                         mfv_block_tube_params,
+                                         mfv_khi_params, mfv_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+    box = mfv_params(16, self_gravity=1)
+    box.set("Nlevels", 3)
+    khi = mfv_khi_params(32, Nlevels=3)
+    cases = (("tube", mfv_block_tube_params(3, 128, 32), None),
+             ("box2d", khi, jittered_lattice_ic(khi)),
+             ("box3d", box, jittered_box_ic(box, 16)))
+    for tag, params, ic in cases:
+        params.set("time_step_limiter", "conservative")
+        for dtype in (torch.float64, torch.float32):
+            sim = SimulationBase.factory(params.copy(), dev, dtype)
+            sim.SetupSimulation(None if ic is None else dict(ic))
+            for _ in range(MFV_BLOCK_KERNEL_TICKS):
+                sim.main_loop_step()
+            rep = compare_mfv_block_kernels(sim)
+            for r in rep.values():
+                r.pop("work", None)
+            phase("mfv_block_kernels", case=tag, ndim=sim.ndim,
+                  N=sim.state.N, dtype=str(dtype),
+                  k_cell=sim.gridspec.k_cell,
+                  ncells=list(sim.gridspec.ncells), report=rep)
+            require_ok("mfv_block_kernels", rep)
+    phase("mfv_block_kernels_done", seconds=time.perf_counter() - t0)
+
+
+def mfv_block_parity(dev) -> None:
+    """Phase 72: the 2D box (32^2 + 32^2, jittered) with Nlevels 3 under
+    each time_step_limiter, 5 float64 ticks, kernels on the card against
+    the plain path on the CPU: the state within PARITY_TOL, levels,
+    levelneib, nlast and the schedule's integers equal, dt_base within
+    1e-12, the same grid plans."""
+    from gandalf_tpu_torch.check import jittered_lattice_ic, mfv_khi_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+    worst = {}
+    for limiter in ("none", "simple", "conservative"):
+        params = mfv_khi_params(32, Nlevels=3, time_step_limiter=limiter)
+        ic = jittered_lattice_ic(params)
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = SimulationBase.factory(params.copy(), device,
+                                         torch.float64)
+            sim.SetupSimulation(dict(ic))
+            for _ in range(PARITY_STEPS):
+                sim.main_loop_step()
+            sims.append(sim)
+        errs = parity_errors(sims, ("r", "v", "u", "m", "h", "rho", "Qcons0",
+                                    "dQ", "dQdt"))
+        same_ints = all(torch.equal(getattr(sims[0].state, f).cpu(),
+                                    getattr(sims[1].state, f))
+                        for f in ("level", "levelneib", "nlast"))
+        same_ints &= all(torch.equal(getattr(sims[0]._blocksched, f).cpu(),
+                                     getattr(sims[1]._blocksched, f))
+                         for f in ("n", "level_max", "nresync", "nstep_part"))
+        dtb = [float(x._blocksched.dt_base) for x in sims]
+        dtb_err = abs(dtb[0] - dtb[1]) / dtb[1]
+        same_plan = sims[0].gridspec == sims[1].gridspec
+        worst[limiter] = max(errs.values())
+        phase("mfv_block_parity", limiter=limiter, N=sims[1].state.N,
+              ticks=PARITY_STEPS, rel_err=errs, same_levels_and_schedule=
+              same_ints, dt_base_rel_err=dtb_err, same_grid_plan=same_plan,
+              levels=torch.bincount(sims[1].state.level).tolist())
+        if worst[limiter] > PARITY_TOL or not same_ints or dtb_err > 1e-12 \
+                or not same_plan:
+            raise RuntimeError(f"mfv_block_parity ({limiter}) disagrees "
+                               f"with the plain path: {errs}")
+    phase("mfv_block_parity_done", worst=worst,
+          seconds=time.perf_counter() - t0)
+
+
+def _run_to(sim, t_target, max_ticks=20000):
+    """main_loop_step until t >= t_target (tests/test_mfv_block.py's
+    _run_to): the ticks taken."""
+    n = 0
+    while sim.t < t_target and n < max_ticks:
+        sim.main_loop_step()
+        n += 1
+    if sim.t < t_target:
+        raise RuntimeError(f"only reached t = {sim.t} in {n} ticks")
+    return n
+
+
+def mfv_block_tube(dev, card):
+    """Phase 73: tests/test_mfv_block.py:61-113's tube on the grid path
+    on the card in float64 (check.mfv_block_tube_params: 256 + 64, open
+    ends, the simple limiter) to t = 0.1 with a global dt and with
+    Nlevels 3: at least 2 occupied levels, the masses' sums equal to
+    1e-13, the block run against the global one L1(v) < 2e-3 and L1(rho)
+    < 1e-3 over -1 < x < 1; the block run's kernels every tick and
+    against their plain versions at its end.  Returns the block run's
+    counts and reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_mfv_block_kernels,
+                                         mfv_block_tube_params)
+    from gandalf_tpu_torch.ops.mfv_grid27 import flux_count
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for nlev in (1, 3):
+        sim = SimulationBase.factory(mfv_block_tube_params(nlev), dev,
+                                     torch.float64)
+        sim.SetupSimulation()
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        ticks = _run_to(sim, MFV_BLOCK_TUBE_T)
+        torch.cuda.synchronize()
+        runs[nlev] = (sim, ticks, time.perf_counter() - t0)
+    ref, blk = runs[1][0], runs[3][0]
+    counts = {k: _ext.LAUNCHES[k] for k in (
+        "grid27_bin_1d", "mfv_density_1d", "mfv_gradients_1d",
+        "levelneib_1d", flux_count(blk.gridspec, blk.mfv_cfg, block=True))}
+
+    def prof(sim):
+        x = sim.state.r[:, 0].cpu().numpy()
+        o = np.argsort(x)
+        return (x[o], sim.state.v[:, 0].cpu().numpy()[o],
+                sim.state.rho.cpu().numpy()[o])
+
+    xr, vr, rr = prof(ref)
+    xb, vb, rb = prof(blk)
+    sel = (xr > -1.0) & (xr < 1.0)
+    l1v = float(np.mean(np.abs(np.interp(xr, xb, vb) - vr)[sel]))
+    l1r = float(np.mean(np.abs(np.interp(xr, xb, rb) - rr)[sel]))
+    m_ref, m_blk = float(ref.state.m.sum()), float(blk.state.m.sum())
+    levels = torch.bincount(blk.state.level.cpu()).tolist()
+    ticks = runs[3][1]
+    checks = {
+        "two_levels": sum(1 for n in levels if n) >= 2
+        and int(blk._blocksched.level_max) >= 1,
+        "mass": abs(m_blk - m_ref) <= 1e-13 * abs(m_ref),
+        "l1_v": l1v < MFV_BLOCK_TUBE_L1_V,
+        "l1_rho": l1r < MFV_BLOCK_TUBE_L1_RHO,
+        "finite": bool(torch.isfinite(blk.state.v).all()),
+        "launches": all(n >= ticks for n in counts.values())
+        and counts["grid27_bin_1d"] >= 2 * ticks,
+    }
+    rep = compare_mfv_block_kernels(blk, repeats=20)
+    phase("mfv_block_tube", N=blk.state.N, t=blk.t,
+          global_steps=runs[1][1], global_s=runs[1][2], block_ticks=ticks,
+          block_s=runs[3][2], ticks_per_s=ticks / runs[3][2],
+          levels=levels, level_max=int(blk._blocksched.level_max),
+          L1_v=l1v, L1_rho=l1r, mass=[m_ref, m_blk], launches=counts,
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"mfv_block_tube checks failed: {failed}")
+    keep = ("levelneib_1d", flux_count(blk.gridspec, blk.mfv_cfg, block=True))
+    return {k: counts[k] for k in keep}, {k: rep[k] for k in keep}
+
+
+def _bound_against_oracle(sim, n_sample=MFV_BLOCK_ORACLE_N, seed=0):
+    """The conservative limiter's grid bound (K32 and K33) on the card
+    from the state's r, v, c and h, in float64 and in the run's own dtype
+    (the bound the timed ticks use), against the all-pairs oracle
+    (integrate/mfv_block.vsig_distant_dense, float64) at `n_sample`
+    particles (numpy generator `seed`): the float64 bound's least margin
+    bound - oracle, whether it is above -1e-10 everywhere, and its median
+    ratio (tests/test_mfv_block.py:193-204); the run dtype's least margin
+    and whether it is above -TOL_F32_MFV_VSIG times the largest oracle
+    value in float32 (check.py's float32 rule for K32 and K33; -1e-10 in
+    float64)."""
+    from gandalf_tpu_torch.check import TOL_F32_MFV_VSIG
+    from gandalf_tpu_torch.integrate.mfv_block import vsig_distant_dense
+    from gandalf_tpu_torch.ops import active_grid as ag
+    from gandalf_tpu_torch.ops import mfv_grid27 as mg
+    from gandalf_tpu_torch.ops import sph_grid27 as g27
+
+    s, spec = sim.state, sim.gridspec
+
+    def bound(r, v, c, h):
+        b = g27.bin_particles(spec, r)
+        return mg.vsig_conservative(spec, ag.dense_ids(spec, b), b.cell_of,
+                                    r, v, c, h)
+
+    fields = (s.r, s.v, s.sound, s.h)
+    own = bound(*(x.contiguous() for x in fields))
+    r, v, c, h = (x.double().contiguous() for x in fields)
+    f64 = bound(r, v, c, h)
+    idx = np.sort(np.random.default_rng(seed).choice(
+        s.N, size=min(n_sample, s.N), replace=False))
+    rows = torch.as_tensor(idx, device=r.device)
+    step = max(1, (1 << 24) // s.N)
+    oracle = torch.cat([vsig_distant_dense(
+        sim.box, r, v, h, c, s.alive, rows=rows[c0:c0 + step])
+        for c0 in range(0, rows.numel(), step)])
+    b = f64[rows]
+    ratio = b / torch.clamp_min(oracle, 1e-30)
+    margin = (own[rows].double() - oracle).min()
+    slack = (TOL_F32_MFV_VSIG * float(oracle.abs().max())
+             if s.r.dtype == torch.float32 else 1e-10)
+    return {"n_sample": int(rows.numel()),
+            "least_margin": float((b - oracle).min()),
+            "above_oracle": bool((b >= oracle - 1e-10).all()),
+            "median_ratio": float(ratio.median()),
+            "run_dtype": str(s.r.dtype),
+            "run_dtype_least_margin": float(margin),
+            "run_dtype_slack": slack,
+            "run_dtype_above_oracle": bool(margin >= -slack)}
+
+
+def _block_window(sim, ticks):
+    """`ticks` ticks through main_loop_step with the counts set to 0 just
+    before them: (seconds, steps ended in the window)."""
+    from gandalf_tpu_torch import _ext
+
+    torch.cuda.synchronize()
+    ended0 = int(sim.steps_ended)
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        sim.main_loop_step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, int(sim.steps_ended) - ended0
+
+
+def mfv_block_khi(dev, card):
+    """Phase 74: the 2D box of tests/test_mfv_grid.py at x16 per axis
+    (check.mfv_khi_params(512, Nlevels=3): 524,288 particles) in float32
+    under the simple limiter, 2 warm-up and 32 timed ticks, then from a
+    new setup under the conservative limiter, 2 warm-up and 16 timed
+    ticks (tests/test_mfv_block.py:121-134's gates: finite rho and v,
+    the mass exact, sum Q_E within 5e-2 of its start, level_max >= 1),
+    with ticks/s, particle-updates/s, steps ended/s, the level histogram
+    and the counts; K12's block mode, K22 and (conservative) K32 and K33
+    every tick and against their plain versions at the run's end; the
+    conservative bound against the all-pairs oracle."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_mfv_block_kernels,
+                                         kernel_name, mfv_khi_params)
+    from gandalf_tpu_torch.ops.mfv_grid27 import flux_count
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    launches, rep = {}, {}
+    for ticks, limiter in zip(MFV_BLOCK_KHI_TICKS,
+                              ("simple", "conservative")):
+        t_phase = time.perf_counter()
+        sim = SimulationBase.factory(
+            mfv_khi_params(MFV_KHI_N, Nlevels=3, time_step_limiter=limiter),
+            dev, torch.float32)
+        sim.SetupSimulation()
+        m0 = sim.state.m.clone()
+        e0 = _mfv_energy_nd(sim.state)
+        for _ in range(MFV_BLOCK_WARM):
+            sim.main_loop_step()
+        elapsed, ended = _block_window(sim, ticks)
+        spec = sim.gridspec
+        names = ["grid27_bin_2d", "mfv_density_2d", "mfv_gradients_2d",
+                 "levelneib_2d", flux_count(spec, sim.mfv_cfg, block=True)]
+        if limiter == "conservative":
+            names += [kernel_name("mfv_vsig_near", spec),
+                      kernel_name("mfv_vsig_far", spec)]
+        counts = {k: _ext.LAUNCHES[k] for k in names}
+        s = sim.state
+        drift = abs(_mfv_energy_nd(s) - e0) / abs(e0)
+        checks = {
+            "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                          for f in ("r", "v", "u", "h", "rho", "Qcons0")),
+            "mass_exact": bool(torch.equal(s.m, m0)),
+            "no_overflow": not bool(s.neib_overflow),
+            "energy": drift <= MFV_BLOCK_KHI_ENERGY_TOL,
+            "level_max": int(sim._blocksched.level_max) >= 1,
+            "launches": all(n >= ticks for n in counts.values())
+            and counts["grid27_bin_2d"] >= 2 * ticks,
+        }
+        r = compare_mfv_block_kernels(sim, repeats=5)
+        extra = {}
+        if limiter == "conservative":
+            extra["bound_vs_oracle"] = _bound_against_oracle(sim)
+            checks["bound_above_oracle"] = \
+                extra["bound_vs_oracle"]["above_oracle"]
+            checks["run_dtype_bound_above_oracle"] = \
+                extra["bound_vs_oracle"]["run_dtype_above_oracle"]
+            checks["bound_median_ratio"] = \
+                extra["bound_vs_oracle"]["median_ratio"] < 10.0
+        RATES[f"mfv_block_khi_{limiter}"] = s.N * ticks / elapsed
+        phase("mfv_block_khi", limiter=limiter, N=s.N, ticks=sim.Nsteps,
+              timed_ticks=ticks, timed_s=elapsed, ticks_per_s=ticks / elapsed,
+              particle_updates_per_s=s.N * ticks / elapsed,
+              steps_ended_per_s=ended / elapsed,
+              sim_time=sim.t, levels=torch.bincount(s.level.cpu()).tolist(),
+              level_max=int(sim._blocksched.level_max),
+              mfv_khi_particle_steps_per_s=RATES.get("mfv_khi_hllc_gizmo"),
+              ncells=list(spec.ncells), k_cell=spec.k_cell,
+              launches=counts, energy_drift=drift, checks=checks,
+              kernels=r, card=card, seconds=time.perf_counter() - t_phase,
+              **extra)
+        failed = [k for k, ok in checks.items() if not ok]
+        failed += [k for k, x in r.items() if not x["ok"]]
+        if failed:
+            raise RuntimeError(f"mfv_block_khi ({limiter}) checks failed: "
+                               f"{failed}")
+        _first_counts(launches, rep, {k: counts[k] for k in names[3:]}, r)
+    return launches, rep
+
+
+def mfv_block_sphere(dev, card):
+    """Phase 75: the cold sphere of cold_sphere_block
+    (check.mfv_block_sphere_params(262144): 258,135 particles, Nlevels
+    4, the quadrupole tree, the conservative limiter) through block MFV
+    in float32, block_main_path's IC: setup, 4 warm-up ticks, 32 timed
+    ticks, with the rates, the level histogram and the counts (K1 twice,
+    K4-K7 in the MFV zeta mode, K10, K11, K12's block mode, K22, K32
+    and K33 every tick); mfv_main_path's gates (finite, rho > 0, no
+    overflow, the mass exact, the tree's accuracy against the all-pairs
+    mfv_smoothed_gravity, with block_main_path's bound for this sphere,
+    and the drift of the predicted energy sum m (u + v^2/2) - sum m gpot
+    / 2 over the window within MFV_BLOCK_SPHERE_ENERGY_TOL); the
+    conservative bound against the oracle; the block kernels and K10-K12
+    against their plain versions at the run's end."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_mfv_block_kernels,
+                                         compare_mfv_kernels,
+                                         mfv_block_sphere_params,
+                                         mfv_gravity_accuracy)
+    from gandalf_tpu_torch.ops.mfv_grid27 import flux_count
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    params = mfv_block_sphere_params(BLOCK_N)
+    sim = SimulationBase.factory(params, dev, torch.float32)
+    t0 = time.perf_counter()
+    sim.SetupSimulation(block_ic(params))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    m0 = sim.state.m.clone()
+    for _ in range(MFV_BLOCK_SPHERE_WARM):
+        sim.main_loop_step()
+    e0 = _predicted_energy(sim.state)
+    plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
+    t_sim0 = sim.t
+    elapsed, ended = _block_window(sim, MFV_BLOCK_SPHERE_TICKS)
+    ticks = MFV_BLOCK_SPHERE_TICKS
+    names = ["grid27_bin", "tree_gather", "tree_build", "tree_walk",
+             "tree_near_mfv", "mfv_density", "mfv_gradients", "levelneib",
+             "mfv_vsig_near", "mfv_vsig_far",
+             flux_count(sim.gridspec, sim.mfv_cfg, block=True)]
+    counts = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    drift = abs(_predicted_energy(s) - e0) / abs(e0)
+    acc = mfv_gravity_accuracy(sim, n_sample=2048)
+    oracle = _bound_against_oracle(sim)
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "Qcons0",
+                                "grad", "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
+        "mass_exact": bool(torch.equal(s.m, m0)),
+        "launches": all(n >= ticks for n in counts.values())
+        and counts["grid27_bin"] >= 2 * ticks,
+        "accuracy": acc["rms_rel_err"] <= BLOCK_ACCURACY_TOL,
+        "energy_drift": drift <= MFV_BLOCK_SPHERE_ENERGY_TOL,
+        "bound_above_oracle": oracle["above_oracle"],
+        "run_dtype_bound_above_oracle": oracle["run_dtype_above_oracle"],
+        "bound_median_ratio": oracle["median_ratio"] < 10.0,
+    }
+    rep = compare_mfv_block_kernels(sim, repeats=5)
+    rep.update(compare_mfv_kernels(sim, s, repeats=5))
+    spec = sim.treespec
+    phase("mfv_block_sphere", N=s.N, ticks=sim.Nsteps, timed_ticks=ticks,
+          setup_s=t_setup, timed_s=elapsed, ticks_per_s=ticks / elapsed,
+          particle_updates_per_s=s.N * ticks / elapsed,
+          steps_ended_per_s=ended / elapsed,
+          sim_time_per_wall_s=(sim.t - t_sim0) / elapsed,
+          levels=torch.bincount(s.level.cpu()).tolist(),
+          level_max=int(sim._blocksched.level_max),
+          rebuilds_in_window=sim._n_tree_plans - plans0
+          - (sim._n_grid_overflows - replans0),
+          replans_in_window=sim._n_grid_overflows - replans0,
+          G_pad=spec.n_leaves, ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, launches=counts, energy_drift=drift,
+          energy_gate=MFV_BLOCK_SPHERE_ENERGY_TOL, accuracy=acc,
+          accuracy_gate=BLOCK_ACCURACY_TOL, bound_vs_oracle=oracle,
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"mfv_block_sphere checks failed: {failed}")
+    keep = ("mfv_vsig_near", "mfv_vsig_far",
+            flux_count(sim.gridspec, sim.mfv_cfg, block=True))
+    return {k: counts[k] for k in keep}, {k: rep[k] for k in keep}
+
+
+def _predicted_energy(s) -> float:
+    """sum m (u + v^2/2) - sum m gpot / 2 of a block MFV state, each
+    particle at its predicted state of the last tick, in float64."""
+    m = s.m.double()
+    kin = 0.5 * torch.sum(s.v.double() ** 2, dim=1)
+    return float(torch.sum(m * (s.u.double() + kin))
+                 - 0.5 * torch.sum(m * s.gpot.double()))
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -4330,7 +4799,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "ptxas.txt").write_text(_ext.ptxas_report())
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
-          library=so.name, kernels="K1-K31", sources=list(_ext._UNITS),
+          library=so.name, kernels="K1-K33", sources=list(_ext._UNITS),
           ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
@@ -4604,6 +5073,14 @@ def main() -> int:
         if out is not None:        # the sound wave and Gresho add none
             launches.update(out[0])
             rep.update(out[1])
+
+    # 71-75. block-timestep MFV
+    mfv_block_kernels(dev)
+    mfv_block_parity(dev)
+    for path in (mfv_block_tube, mfv_block_khi, mfv_block_sphere):
+        b_launches, b_rep = path(dev, card)
+        launches.update(b_launches)
+        rep.update(b_rep)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

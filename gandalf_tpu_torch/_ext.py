@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K31 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K33 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -28,7 +28,8 @@ K19, the mirror images, under ``grid27_mirror``.  K20's two wrappers
 (the smooth-accretion sums and the sink update) each count one under
 ``smooth_accretion``; K21, the Cullen & Dehnen switch, counts under
 ``cullen_dehnen`` (``_1d`` or ``_2d`` appended below 3D), K22, the
-neighbour-level pass, under ``levelneib``, K23 and K24, the gas-dust
+neighbour-level pass, under ``levelneib`` (``_1d`` or ``_2d`` appended
+below 3D), K23 and K24, the gas-dust
 drag sums and energy deposit, under ``dust_drag_sums`` and
 ``dust_drag_deposit`` in every ndim, and K25 and K26, the Saitoh &
 Makino (2012) h-rho iteration with its q sum and the pressure-energy
@@ -43,7 +44,14 @@ gaussian (not K7) and tabulated smoothing kernels as well as M4
 the direct M4 they count under their names with the kernel's variant
 appended before any ``_1d`` or ``_2d`` (``grid27_density_quintic_tab``,
 ``tree_near_list_quintic``).  Every other wrapper whose kernel
-evaluates W refuses those kernels (``require_m4``).
+evaluates W refuses those kernels (``require_m4``).  The meshless
+finite-volume kernels count under ``mfv_density``, ``mfv_gradients``,
+``mfv_limiter_<limiter>`` and K12 under ``mfv_fluxes`` with its modes
+appended (``mfv_fluxes_exact_cell_static``; block timesteps
+``_block``), K32 and K33, the conservative limiter's near and far
+passes, under ``mfv_vsig_near`` and ``mfv_vsig_far`` (K33's wrapper
+launches its three stages and counts one); each with ``_1d`` or ``_2d``
+appended below 3D.
 """
 
 from __future__ import annotations
@@ -74,7 +82,7 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "mfv_fluxes_exact_3d.cu", "nbody_direct.cu",
           "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
           "grid27_levelneib.cu", "dust_drag.cu", "sm2012.cu", "radws.cu",
-          "radiative_fb.cu")
+          "radiative_fb.cu", "mfv_vsig.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -95,6 +103,7 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "star_gas_forces": 0, "sink_candidate": 0, "accretion_sums": 0,
             "smooth_accretion": 0, "cullen_dehnen": 0,
             "cullen_dehnen_2d": 0, "cullen_dehnen_1d": 0, "levelneib": 0,
+            "levelneib_2d": 0, "levelneib_1d": 0,
             "dust_drag_sums": 0, "dust_drag_deposit": 0,
             "sm2012_density": 0, "sm2012_density_2d": 0,
             "sm2012_density_1d": 0, "sm2012_forces": 0,
@@ -109,10 +118,13 @@ MFV_SWEEP = {"tvdscalar": 0, "springel2009": 1}
 for _d in _DIMS:
     LAUNCHES[f"mfv_density{_d}"] = 0
     LAUNCHES[f"mfv_gradients{_d}"] = 0
+    LAUNCHES[f"mfv_vsig_near{_d}"] = 0
+    LAUNCHES[f"mfv_vsig_far{_d}"] = 0
     for _lim in MFV_SWEEP:
         LAUNCHES[f"mfv_limiter_{_lim}{_d}"] = 0
     for _r in ("", "_exact"):
-        for _t in ("", "_rk2"):
+        # block timesteps run under MUSCL only
+        for _t in ("", "_rk2", "_block"):
             for _c in ("", "_cell", "_zeroslope"):
                 for _st in ("", "_static"):
                     LAUNCHES[f"mfv_fluxes{_r}{_t}{_c}{_st}{_d}"] = 0
@@ -177,8 +189,11 @@ _ARGTYPES = {
     "mfv_limiter": [_P] * 6 + [_I] * 8 + [_D] * 4 + [_I] * 2 + [_P]
     + [_I, _P],
     # K12 per Riemann solver and NDIM: the grid arguments without ndim
-    **{f"mfv_fluxes_{_s}_{_n}d": [_P] * 4 + [_I] * 7 + [_D] * 5 + [_I] * 5
-       + [_P] * 2 + [_I, _P] for _s in ("hllc", "exact") for _n in (1, 2, 3)},
+    **{f"mfv_fluxes_{_s}_{_n}d": [_P] * 4 + [_I] * 7 + [_D] * 5 + [_I] * 6
+       + [_P] * 4 + [_I, _P] for _s in ("hllc", "exact") for _n in (1, 2, 3)},
+    "mfv_vsig_near": [_P] * 5 + [_I] * 8 + [_D] * 3 + [_P, _I, _P],
+    "mfv_vsig_far": [_P] * 3 + [_I] * 8 + [_D] * 12 + [_I] + [_P] * 4
+    + [_I, _P],
     "direct_nbody": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_softened": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_snap": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
@@ -196,8 +211,7 @@ _ARGTYPES = {
                                _P, _P, _P, _P, _P, _P, _I, _P],
     "cullen_dehnen": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D,
                       _D, _D, _D, _D, _P, _P, _P, _I, _P],
-    "levelneib": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D,
-                  _D, _D, _I, _P],
+    "levelneib": [_P] * 5 + [_I] * 8 + [_D] * 4 + [_I, _P],
     "dust_drag_sums": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _I, _D, _D, _D, _D, _D, _I, _D, _D, _I, _P, _P,
                        _P, _P, _I, _P],
@@ -333,12 +347,11 @@ def _float_suffix(dtype) -> str:
 
 
 def _grid_args(spec):
-    """The 3D grid arguments of K8, K9 and K22 (the active-subset and
-    neighbour-level kernels)."""
+    """The 3D grid arguments of K8 and K9 (the active-subset kernels)."""
     if spec.ndim != 3:
         raise NotImplementedError(
-            "the active-subset (K8, K9) and neighbour-level (K22) kernels "
-            "take 3D grids only (ROADMAP queue 1, item 3)")
+            "the active-subset kernels (K8, K9) take 3D grids only "
+            "(ROADMAP queue 1, item 3)")
     if spec.mirror:
         raise NotImplementedError(
             "the active-subset kernels take no mirror layers (ROADMAP "
@@ -816,20 +829,22 @@ def _slot_map_args(spec, ids_d, r):
 class FluxModes(NamedTuple):
     """K12's modes as plain numbers: the adiabatic index, the Riemann
     solver (1 exact, 0 HLLC), the limiter class (csrc/mfv.cuh: 0 the
-    Gizmo clamp, 1 the cell alphas, 2 none), RK2, static particles and
-    zero mass flux (each 0 or 1)."""
+    Gizmo clamp, 1 the cell alphas, 2 none), RK2, static particles, zero
+    mass flux and block timesteps (each 0 or 1; block under MUSCL
+    only)."""
     gamma: float
     exact: int
     limiter: int
     rk2: int
     static: int
     zmf: int
+    block: int = 0
 
 
 def mfv_flux_count(spec, modes: FluxModes) -> str:
     """The LAUNCHES key of K12 in `modes` on `spec`'s dims."""
     name = ("mfv_fluxes" + ("", "_exact")[modes.exact]
-            + ("", "_rk2")[modes.rk2]
+            + ("", "_rk2")[modes.rk2] + ("", "_block")[modes.block]
             + ("", "_cell", "_zeroslope")[modes.limiter]
             + ("", "_static")[modes.static])
     return _grid_count(name, spec)
@@ -918,26 +933,83 @@ def mfv_limiter(spec, kern, limiter, ids_d, r, packed, grad, dWmax, dWmin,
 def mfv_fluxes(spec, kern, modes: FluxModes, dt_t, ids_d, r, packed,
                mapping="auto"):
     """K12 over the slot map: dQdt (N, nvar) and rdmdt_dot (N, ndim) in
-    `modes` (MUSCL or RK2 over dt_t, a 0-d tensor read on the device).
-    `packed` (N, 15 / 26 / 41) holds ops.mfv_grid27.flux_cols."""
+    `modes` (MUSCL or RK2 over dt_t, a 0-d tensor read on the device);
+    in block mode also the committed dQ (N, nvar) and rdmdt (N, ndim).
+    `packed` (N, 15 / 26 / 41, two more in block mode) holds
+    ops.mfv_grid27.flux_cols."""
     require_m4(kern, "K12 mfv_fluxes")
+    if modes.block and modes.rk2:
+        raise ValueError("K12's block mode runs under MUSCL only")
     N = _slot_map_args(spec, ids_d, r)
     nd = spec.ndim
     nvar = nd + 2
     dt, dev = r.dtype, r.device
-    ncols = 2 * nvar + nd * nd + nvar * nd + nd + 4
+    ncols = 2 * nvar + nd * nd + nvar * nd + nd + 4 + 2 * modes.block
     _check(packed, "packed", dt, (N, ncols))
     _check(dt_t, "dt", dt, ())
-    dQdt = torch.zeros((N, nvar), dtype=dt, device=dev)
-    rdmdt = torch.zeros((N, nd), dtype=dt, device=dev)
+    out = [torch.zeros((N, w), dtype=dt, device=dev)
+           for w in (nvar, nd) * (2 if modes.block else 1)]
     solver = ("hllc", "exact")[modes.exact]
+    ptrs = [_p(x) for x in out] + [None] * (4 - len(out))
     _launch(f"mfv_fluxes_{solver}_{nd}d", dt, dev, _p(ids_d), _p(r),
             _p(packed), _p(dt_t), *_grid_args_nd(spec)[1:],
             float(kern.kernnorm), float(modes.gamma), int(modes.zmf),
             int(modes.limiter), int(modes.rk2), int(modes.static),
-            SLOT_MAPPINGS[mapping], _p(dQdt), _p(rdmdt),
+            int(modes.block), SLOT_MAPPINGS[mapping], *ptrs,
             count=mfv_flux_count(spec, modes))
-    return dQdt, rdmdt
+    return tuple(out)
+
+
+def mfv_vsig_near(spec, ids_d, r, v, sound, h):
+    """K32 over the slot map: each particle's largest (c_i + c_j -
+    dv.dr/|dr|) h_i / max(|dr|, h_i) over every particle of its stencil
+    at d^2 > 0 (N,), 0 where there is none."""
+    N = _slot_map_args(spec, ids_d, r)
+    dt, dev = r.dtype, r.device
+    _check(v, "v", dt, (N, spec.ndim))
+    _check(sound, "sound", dt, (N,))
+    _check(h, "h", dt, (N,))
+    out = torch.zeros((N,), dtype=dt, device=dev)
+    _launch("mfv_vsig_near", dt, dev, _p(ids_d), _p(r), _p(v), _p(sound),
+            _p(h), *_grid_args_nd(spec), _p(out),
+            count=_grid_count("mfv_vsig_near", spec))
+    return out
+
+
+def mfv_vsig_far(spec, ids_d, v, sound, lo, csize, reach):
+    """K33 over the slot map: the per-cell far-field bound (A, Bc), each
+    (C,) in z-major cell order, from the cells' sound and velocity
+    aggregates; `lo`, `csize` and `reach` (ndim floats each) are the
+    grid's lower corner, cell size and the stencil's reach per dim.  Its
+    three stages (aggregates, the cell pairs in source slices, the max
+    over the slices) count one launch."""
+    N = v.shape[0]
+    dt, dev = v.dtype, v.device
+    nd = spec.ndim
+    _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
+    _check(v, "v", dt, (N, nd))
+    _check(sound, "sound", dt, (N,))
+    if spec.mirror:
+        raise NotImplementedError(
+            "the MFV kernels take no mirror layers (ROADMAP queue 1, items "
+            "8 and 10)")
+    C = spec.total_cells
+    # slices of the source cells so that the blocks of 128 target cells
+    # fill the card, 16 a multiprocessor, each slice at least 128 sources
+    blocks = -(-C // 128)
+    fill = 16 * torch.cuda.get_device_properties(dev).multi_processor_count
+    slices = max(1, min(-(-fill // blocks), -(-C // 128)))
+    agg = torch.empty((C, 3 * nd + 2), dtype=dt, device=dev)
+    part = torch.empty((2, slices, C), dtype=dt, device=dev)
+    A = torch.empty((C,), dtype=dt, device=dev)
+    Bc = torch.empty((C,), dtype=dt, device=dev)
+    pad = [0.0] * (3 - nd)
+    _launch("mfv_vsig_far", dt, dev, _p(ids_d), _p(v), _p(sound),
+            *_grid_args_nd(spec), *[float(x) for x in lo], *pad,
+            *[float(x) for x in csize], *pad, *[float(x) for x in reach],
+            *pad, slices, _p(agg), _p(part), _p(A), _p(Bc),
+            count=_grid_count("mfv_vsig_far", spec))
+    return A, Bc
 
 
 # ---------------------------------------------------------------------------
@@ -1202,18 +1274,23 @@ def cullen_dehnen(spec, kern, visc, ids_d, r, packed):
 
 
 def levelneib(spec, kern, ids_d, r, h, level):
-    """K22 over K1's slot map ids_d (*ncells, K) int32 of a 3D grid: each
-    particle's largest level among the particles of the map within
-    kernrange max(h_i, h_j), itself included (N,) int32; 0 for a particle
-    without a slot."""
+    """K22 over K1's slot map ids_d (*ncells, K) int32 of a grid in 1-3
+    dims without mirror layers: each particle's largest level among the
+    particles of the map within kernrange max(h_i, h_j), itself included
+    (N,) int32; 0 for a particle without a slot."""
     N, dt, dev = r.shape[0], r.dtype, r.device
     _check(ids_d, "ids_d", torch.int32, tuple(spec.ncells) + (spec.k_cell,))
-    _check(r, "r", dt, (N, 3))
+    _check(r, "r", dt, (N, spec.ndim))
     _check(h, "h", dt, (N,))
     _check(level, "level", torch.int32, (N,))
+    if spec.mirror:
+        raise NotImplementedError(
+            "the neighbour-level kernel takes no mirror layers (ROADMAP "
+            "queue 1, item 8)")
     out = torch.zeros((N,), dtype=torch.int32, device=dev)
     _launch("levelneib", dt, dev, _p(ids_d), _p(r), _p(h), _p(level),
-            _p(out), *_grid_args(spec), float(kern.kernrange))
+            _p(out), *_grid_args_nd(spec), float(kern.kernrange),
+            count=_grid_count("levelneib", spec))
     return out
 
 

@@ -166,6 +166,13 @@ TOL_F32_MFV_FLUXES = 1e-3
 # on every other row the alphas and limited gradients are held to it.
 TOL_F32_MFV_LIMITER = 1e-4
 TOL_F32_MFV_LIMITER_FRACTION = 1e-3
+# float32, K32 and K33: a signal velocity is one pair's (or cell pair's)
+# terms, a dot product of ndim products, a square root and two divisions,
+# each rounded at 6e-8 (and fused multiply-adds on the card), then a
+# max; the same pair sets the max in both versions except within
+# rounding of a tie, where the two values are as close.  1e-5 of each
+# output's largest value.
+TOL_F32_MFV_VSIG = 1e-5
 # K13-K15 (all-pairs sums over the stars), each output's largest error
 # relative to its largest |value|.  float64: the same formulas, the sums
 # in another order (the kernel's tiles against torch's reductions) and
@@ -740,6 +747,43 @@ def mfv_khi_params(n_side: int = 32, tend: float = 1.0e30,
     upd.update(over)
     for k, v in upd.items():
         p.set(k, v)
+    return p
+
+
+def mfv_block_tube_params(nlevels: int, n1: int = 256, n2: int = 64,
+                          limiter: str = "simple") -> Parameters:
+    """The MFV Sod tube of the JAX package's block gate
+    (tests/test_mfv_block.py:19-34) on the grid path: 1D, box [-2, 2]
+    with open ends, n1 + n2 lattice particles, rho 1 | 0.25 and p 1 |
+    0.1795 at rest, energy_eqn gamma 1.4, HLLC, the Gizmo limiter, tend
+    0.2, `nlevels` levels and time_step_limiter `limiter` (every other
+    option the defaults)."""
+    p = Parameters()
+    upd = {
+        "run_id": "", "sim": "mfvmuscl", "ic": "shocktube", "ndim": 1,
+        "dimensionless": 1, "gas_eos": "energy_eqn", "gamma_eos": 1.4,
+        "riemann_solver": "hllc", "slope_limiter": "gizmo",
+        "Nlattice1[0]": n1, "Nlattice2[0]": n2, "boxmin[0]": -2.0,
+        "boxmax[0]": 2.0, "boundary_lhs[0]": "open",
+        "boundary_rhs[0]": "open", "rhofluid1": 1.0, "press1": 1.0,
+        "vfluid1[0]": 0.0, "rhofluid2": 0.25, "press2": 0.1795,
+        "vfluid2[0]": 0.0, "tend": 0.2, "tsnapfirst": 1.0e30,
+        "Nlevels": nlevels, "time_step_limiter": limiter,
+        "neib_search": "kdtree"}
+    for k, v in upd.items():
+        p.set(k, v)
+    return p
+
+
+def mfv_block_sphere_params(n_target: int, ntreebuildstep: int = 32
+                            ) -> Parameters:
+    """The cold_sphere_block configuration (sphere_block_params: Nlevels
+    4, level_diff_max 1, the quadrupole tree) through the MUSCL
+    meshless finite-volume scheme (HLLC, the Gizmo limiter, zero mass
+    flux) with the conservative timestep limiter: mfv_block_sphere."""
+    p = sphere_block_params(n_target, ntreebuildstep=ntreebuildstep)
+    p.set("sim", "mfvmuscl")
+    p.set("time_step_limiter", "conservative")
     return p
 
 
@@ -2231,6 +2275,160 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     return out
 
 
+def _far_pairs(spec, occ):
+    """K33's work on this grid's data: (target, occupied source) pairs,
+    and those of them outside the target's stencil."""
+    C = spec.total_cells
+    n_occ = int(occ.sum())
+    nb, _, ok = g27._neighbour_table(spec, occ.device)
+    near = 0
+    for c in range(0, C, 1 << 16):
+        rows = nb[c:c + (1 << 16)]
+        # a dim of fewer than 3 cells repeats a neighbour: count it once
+        uniq = torch.where(ok[c:c + (1 << 16)], rows, -1).sort(1).values
+        first = torch.ones_like(uniq, dtype=torch.bool)
+        first[:, 1:] = uniq[:, 1:] != uniq[:, :-1]
+        keep = first & (uniq >= 0)
+        near += int((occ[torch.clamp_min(uniq, 0)] & keep).sum())
+    return C * n_occ, C * n_occ - near
+
+
+def compare_mfv_block_kernels(sim, state=None, sched=None, repeats: int = 0):
+    """Run K12 in its block mode, K22, K32 and K33 and their plain
+    versions on the same inputs, from a block MFV simulation's state and
+    schedule (its own by default) on a CUDA device at the grid's ndim;
+    returns {kernel: report} as compare_mfv_kernels does, keyed by their
+    LAUNCHES names (ops.mfv_grid27.flux_count's block name, levelneib,
+    mfv_vsig_near, mfv_vsig_far; _1d or _2d below 3D).  float64 within
+    TOL_F64 (K22 exact); float32: K12 within TOL_F32_MFV_FLUXES, K32 and
+    K33 within TOL_F32_MFV_VSIG of their largest values, K22 exact.
+    Launch counts are restored afterwards."""
+    saved = dict(_ext.LAUNCHES)
+    state = sim.state if state is None else state
+    sched = sim._blocksched if sched is None else sched
+    spec, kern, cfg = sim.gridspec, sim.kern, sim.mfv_cfg
+    nd = spec.ndim
+    f64 = state.r.dtype == torch.float64
+    N = state.N
+    every = torch.ones((N,), dtype=torch.bool, device=state.r.device)
+    name = lambda k: kernel_name(k, spec)  # noqa: E731
+    b = g27.bin_particles_plain(spec, state.r)
+    ids_d = ag.dense_ids(spec, b)
+    out, timed = {}, {}
+    n_i, n_ij = _slot_support_counts(spec, kern, ids_d, state.r, state.h)
+
+    # K12's block mode on the state's gradients, a0 and the schedule's
+    # steps: each particle's own step and its start flag (n == nlast)
+    start = (sched.n == state.nlast) & state.alive
+    packed = mg.pack_flux_fields(
+        state.h, state.ndens, state.Wprim, state.sound, state.a0, state.B,
+        state.grad, state.alpha_slope, state.bad_grad,
+        dt_own=sched.dt_base * sched.nstep_part.to(state.m.dtype),
+        start=start)
+    dt_t = sched.dt_base
+    f_k = mg.fluxes_kernel(kern, cfg, spec, dt_t, ids_d, state.r, packed,
+                           block=True)
+    f_p = mg.fluxes_plain(kern, cfg, spec, dt_t, ids_d, state.r, packed,
+                          block=True)
+    errs = {f: _scaled_all(getattr(f_k, f), getattr(f_p, f),
+                           every[:, None].expand_as(getattr(f_p, f)))
+            for f in ("dQdt", "rdmdt_dot", "dQ", "rdmdt")}
+    key = mg.flux_count(spec, cfg, block=True)
+    out[key] = {
+        "scaled_err": errs, "starting": int(start.sum()),
+        "max_abs_err": float(torch.abs(f_k.dQ - f_p.dQ).max()),
+        "ok": max(errs.values()) <= (TOL_F64 if f64
+                                     else TOL_F32_MFV_FLUXES),
+        "work": _work((ids_d, state.r, packed, dt_t), f_k,
+                      mfv_flux_flops(nd, cfg, block=True) * n_ij)}
+    timed[key] = (
+        lambda: mg.fluxes_kernel(kern, cfg, spec, dt_t, ids_d, state.r,
+                                 packed, block=True),
+        lambda: mg.fluxes_plain(kern, cfg, spec, dt_t, ids_d, state.r,
+                                packed, block=True))
+
+    # K22 on the slot map (no particle is dead in MFV)
+    largs = (spec, kern, ids_d, state.r, state.h, state.level)
+    plain = (kern, spec, b.cell_of, ids_d, state.r, state.h, state.level,
+             state.alive)
+    got = _ext.levelneib(*largs)
+    want = ag.levelneib_plain(*plain)
+    mismatch = int((got != want).sum())
+    key = name("levelneib")
+    out[key] = {"mismatches": mismatch,
+                "levels": torch.bincount(want).tolist(),
+                "max_abs_err": float((got - want).abs().max()),
+                "ok": mismatch == 0,
+                "work": _work((ids_d, state.r, state.h, state.level), (got,),
+                              FLOPS_PER[key] * (n_ij + N))}
+    timed[key] = (lambda: _ext.levelneib(*largs),
+                  lambda: ag.levelneib_plain(*plain))
+
+    # K32: every slot of each particle's stencil
+    vargs = (spec, ids_d, state.r, state.v, state.sound, state.h)
+    pargs = (spec, ids_d, b.cell_of, *vargs[2:])
+    near_k = _ext.mfv_vsig_near(*vargs)
+    near_p = mg.vsig_near_plain(*pargs)
+    err = _scaled_all(near_k, near_p, every)
+    cand = _stencil_candidates(spec, ids_d)
+    key = name("mfv_vsig_near")
+    out[key] = {"scaled_err": err,
+                "max_abs_err": float(torch.abs(near_k - near_p).max()),
+                "candidates": cand,
+                "ok": err <= (TOL_F64 if f64 else TOL_F32_MFV_VSIG),
+                "work": _work((ids_d, state.r, state.v, state.sound,
+                               state.h), (near_k,),
+                              FLOPS_PER[key] * cand)}
+    timed[key] = (lambda: _ext.mfv_vsig_near(*vargs),
+                  lambda: mg.vsig_near_plain(*pargs))
+
+    # K33: the per-cell aggregates and the cell-pair bound
+    lo, csize, reach = mg.far_geometry(spec)
+    fargs = (spec, ids_d, state.v, state.sound)
+    A_k, B_k = _ext.mfv_vsig_far(*fargs, lo, csize, reach)
+    A_p, B_p = mg.vsig_far_plain(*fargs)
+    some = B_p > -1e29
+    same_empty = bool(torch.equal(B_k > -1e29, some))
+    errs = {"A": _scaled_all(A_k, A_p, torch.ones_like(some)),
+            "Bc": _scaled_all(B_k, B_p, some) if bool(some.any()) else 0.0}
+    occ = (ids_d.reshape(spec.total_cells, -1) >= 0).any(1)
+    pairs, valid = _far_pairs(spec, occ)
+    key = name("mfv_vsig_far")
+    out[key] = {"scaled_err": errs, "same_far_sets": same_empty,
+                "cells": spec.total_cells, "occupied": int(occ.sum()),
+                "far_pairs": valid,
+                "max_abs_err": float(torch.abs(A_k - A_p).max()),
+                "ok": same_empty and max(errs.values())
+                <= (TOL_F64 if f64 else TOL_F32_MFV_VSIG),
+                "work": _work((ids_d, state.v, state.sound), (A_k, B_k),
+                              (FLOPS_PER["mfv_vsig_far_pair_dim"] * nd
+                               + FLOPS_PER["mfv_vsig_far_wrap"]
+                               * sum(map(bool, spec.periodic))) * pairs
+                              + (FLOPS_PER["mfv_vsig_far_valid"]
+                                 + FLOPS_PER["mfv_vsig_far_valid_dim"] * nd)
+                              * valid)}
+    timed[key] = (lambda: _ext.mfv_vsig_far(*fargs, lo, csize, reach),
+                  lambda: mg.vsig_far_plain(*fargs))
+
+    for r in out.values():
+        r["dtype"] = str(state.r.dtype)
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def _stencil_candidates(spec, ids_d) -> int:
+    """Slots of the 3^ndim cells around each particle's cell, summed over
+    the particles (K32's candidates, each particle itself included)."""
+    C, K = spec.total_cells, spec.k_cell
+    count = (ids_d.reshape(C, K) >= 0).sum(1)
+    nb, _, ok = g27._neighbour_table(spec, ids_d.device)
+    per_cell = torch.where(ok, count[nb], 0).sum(1)
+    return int((per_cell * count).sum())
+
+
 def mfv_mapping_times(sim, state, repeats: int = 5):
     """K10, K11, K31 (the simulation's sweep limiter, else tvdscalar) and
     K12 (the simulation's modes) under each thread mapping, turns cell,
@@ -2266,7 +2464,10 @@ def mfv_mapping_times(sim, state, repeats: int = 5):
     flat = spec.ndim < 3 or spec.k_cell < 32
     out = {"k_cell": spec.k_cell, "auto": "flat" if flat else "cell"}
     for key, fn in fns.items():
-        same = all(torch.equal(x, y) for x, y in zip(fn("cell"), fn("flat")))
+        # K12's result leaves its block-mode fields None at a global dt
+        same = all(torch.equal(x, y)
+                   for x, y in zip(fn("cell"), fn("flat"))
+                   if x is not None)
         c1 = _time_ms(lambda: fn("cell"), repeats)
         f1 = _time_ms(lambda: fn("flat"), repeats)
         f2 = _time_ms(lambda: fn("flat"), repeats)
@@ -3301,6 +3502,27 @@ TOL_F32_AMBIENT = 1e-5
 # time derivative too (2 NDIM + 10 a variable a side, 2 NDIM a variable
 # for the derivative).
 FLOPS_PER.update({
+    # K12's block mode per pair within kernrange max(h_i, h_j): the pair's
+    # step (a min) and its start test; mfv_flux_flops adds the committed
+    # exchange (nvar products and sums, ndim for the moment)
+    "mfv_block_pair": 2,
+    # K22 below 3D: d^2 (2 ndim - 1), the radius, its square and the
+    # compare, with the max: 12 in 3D, 9 in 2D, 6 in 1D
+    "levelneib_2d": 9, "levelneib_1d": 6,
+    # K32 per candidate (every filled slot of the stencil): the
+    # separation and d^2 (3 a dim), the test, the square root, dv.dr (3 a
+    # dim) and its division, c_i + c_j - dvdr (2), the scale (a max and a
+    # division), the product and the max: 8 + 6 ndim
+    "mfv_vsig_near": 26, "mfv_vsig_near_2d": 20, "mfv_vsig_near_1d": 14,
+    # K33 per (target cell, occupied source cell) pair and dim: dr, |dr|,
+    # the gap (a difference and a max) and the reach test (5), and on a
+    # periodic dim the wrap (a division, rint, a product and a
+    # difference: 4); per pair outside the stencil: the gap's square and
+    # sum, the edge velocity's difference, the signed product and sum (5
+    # a dim), the square root, three divisions, the difference and two
+    # maxima (8)
+    "mfv_vsig_far_pair_dim": 5, "mfv_vsig_far_wrap": 4,
+    "mfv_vsig_far_valid": 8, "mfv_vsig_far_valid_dim": 5,
     "mfv_density_2d": 36, "mfv_density_1d": 32,
     "mfv_gradients_2d": 70, "mfv_gradients_1d": 40,
     "mfv_limiter": 71, "mfv_limiter_2d": 48, "mfv_limiter_1d": 29,
@@ -3309,9 +3531,9 @@ FLOPS_PER.update({
 })
 
 
-def mfv_flux_flops(ndim: int, cfg) -> int:
+def mfv_flux_flops(ndim: int, cfg, block: bool = False) -> int:
     """K12's operations per pair within kernrange max(h_i, h_j) in `cfg`'s
-    modes (FLOPS_PER's notes)."""
+    modes, in block mode with `block` (FLOPS_PER's notes)."""
     nvar = ndim + 2
     base = FLOPS_PER["mfv_fluxes" + ("" if ndim == 3 else f"_{ndim}d")]
     solve = FLOPS_PER["mfv_exact_solve" if cfg.riemann == "exact"
@@ -3324,6 +3546,8 @@ def mfv_flux_flops(ndim: int, cfg) -> int:
         ops -= 2 * nvar * 10
     if lim == 2:
         ops -= 2 * nvar * (2 * ndim) + 2 * nvar * (2 * ndim)
+    if block:
+        ops += FLOPS_PER["mfv_block_pair"] + 2 * nvar + ndim
     return ops
 
 

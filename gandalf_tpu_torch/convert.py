@@ -3,7 +3,8 @@
 ``state_from_numpy`` turns a dict of numpy arrays (the JAX ``SphState``'s
 fields, read out with ``np.asarray``) into the port's ``SphState`` on a
 given device and float dtype; ``state_to_numpy`` goes back.
-``mfv_state_from_jax`` does the same for a JAX ``MfvState``, and
+``mfv_state_from_jax`` does the same for a JAX ``MfvState`` (its
+block-timestep fields included; ``mfv_state_to_numpy`` goes back), and
 ``nbody_state_from_jax`` for a JAX ``NbodyState`` (``nbody_state_to_numpy``
 goes back).
 ``sinks_from_jax`` copies a JAX ``SinkState`` into the port's.
@@ -95,11 +96,12 @@ def mfv_state_from_jax(state, device="cpu",
     """The port's MfvState from a JAX MfvState (read through its
     attributes): floating fields take `dtype`, integer and bool fields
     keep their kind, ``bad_grad`` becomes a 0/1 float; the block-timestep
-    fields are dropped."""
+    fields (dQ, dQdt, rdmdt, rdmdt0, level, levelneib, nlast, tlast) come
+    along where the JAX state has them."""
     kw = {}
     for f in dataclasses.fields(MfvState):
         x = getattr(state, f.name, None)
-        if x is None or f.name in _MFV_BLOCK:
+        if x is None:
             kw[f.name] = None
             continue
         x = np.array(x)
@@ -112,8 +114,12 @@ def mfv_state_from_jax(state, device="cpu",
     return MfvState(**kw)
 
 
-_MFV_BLOCK = ("dQ", "rdmdt", "dQdt", "rdmdt0", "level", "levelneib",
-              "nlast", "tlast")
+def mfv_state_to_numpy(state: MfvState) -> Dict[str, np.ndarray]:
+    """Every non-None tensor field of an MfvState as a host numpy
+    array."""
+    return {f.name: getattr(state, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(MfvState)
+            if isinstance(getattr(state, f.name), torch.Tensor)}
 
 
 def nbody_state_from_jax(state, device="cpu",

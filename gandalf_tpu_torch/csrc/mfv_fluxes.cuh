@@ -6,8 +6,9 @@
 // parallel.
 //
 // Replaces gandalf_tpu/ops/mfv_grid27.py:fluxes_mfv_grid27 (:342-478,
-// global timestep) with gandalf_tpu/ops/mfv.py:compute_godunov_fluxes
-// (:671-819), hllc_flux (:553-645) and exact_flux (:509): there each of
+// global timestep and block mode) with gandalf_tpu/ops/mfv.py:
+// compute_godunov_fluxes (:671-819), hllc_flux (:553-645) and exact_flux
+// (:509): there each of
 // the 3^ndim shifted slices of a ghosted (cells, K, columns) table is
 // broadcast to a (cells*K, K) pair block and every face quantity is an
 // XLA array.
@@ -40,6 +41,15 @@
 // skipped.  dt is read on the device (no host sync).  Outputs are in
 // particle order.  No shared-memory staging of neighbour rows yet: that
 // is later work (see the register and spill counts in PERF.md).
+//
+// Block-timestep mode (MUSCL only; ops/mfv.py:761-783, :815-819) is a
+// template parameter, so that the global-dt kernels keep their code and
+// registers (a runtime mode branch slowed K6/K7, PERF.md): the table
+// gains two columns, each particle's own step dt_own and a start flag;
+// a pair's half step takes dt_pair = min(dt_own_i, dt_own_j) in place
+// of dt, and besides dQdt and rdmdt_dot the thread sums the committed
+// exchange dQ -= f |A| dt_pair and rdmdt += dr f_rho |A| dt_pair over
+// the pairs whose either member starts a step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,8 +70,9 @@ struct FluxArgs {
   bool zmf, rk2, stat;
 };
 
-// columns of the packed per-particle table (ops/mfv_grid27.py:flux_cols)
-template <int NDIM>
+// columns of the packed per-particle table (ops/mfv_grid27.py:flux_cols),
+// with BLOCK the own step and the start flag after them
+template <int NDIM, bool BLOCK = false>
 struct Cols {
   static constexpr int kNvar = NDIM + 2;
   static constexpr int kH = 0, kNdens = 1, kW = 2;
@@ -71,7 +82,9 @@ struct Cols {
   static constexpr int kGrad = kB + NDIM * NDIM;
   static constexpr int kAlpha = kGrad + kNvar * NDIM;
   static constexpr int kBad = kAlpha + kNvar;
-  static constexpr int kCount = kBad + 1;
+  static constexpr int kDtOwn = kBad + 1;
+  static constexpr int kStart = kBad + 2;
+  static constexpr int kCount = kBad + (BLOCK ? 3 : 1);
 };
 
 template <typename T, int NDIM, int RIEMANN>
@@ -102,13 +115,14 @@ __device__ __forceinline__ void limited_gradient(const T* row,
     }
 }
 
-template <typename T, int NDIM, int RIEMANN, int LIM>
+template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK>
 __device__ __forceinline__ void flux_slot(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ pk, const Grid3& g, int c, int i, T dt,
     const FluxArgs<T>& a, T* __restrict__ dQdt_out,
-    T* __restrict__ rdmdt_out) {
-  using C = Cols<NDIM>;
+    T* __restrict__ rdmdt_out, T* __restrict__ dQ_out,
+    T* __restrict__ rdm_out) {
+  using C = Cols<NDIM, BLOCK>;
   constexpr int kNvar = C::kNvar;
   constexpr int kRho = mfv::Dims<NDIM>::kRho;
   const int K = g.K;
@@ -136,10 +150,22 @@ __device__ __forceinline__ void flux_slot(
 #pragma unroll
   for (int k = 0; k < NDIM; ++k) a0i[k] = own[C::kA0 + k];
   T dQ[kNvar], rdm[NDIM];
+  // block mode: the committed exchange (unused otherwise)
+  T dQc[BLOCK ? kNvar : 1], rdmc[BLOCK ? NDIM : 1];
 #pragma unroll
   for (int v = 0; v < kNvar; ++v) dQ[v] = T(0);
 #pragma unroll
   for (int k = 0; k < NDIM; ++k) rdm[k] = T(0);
+  T dt_i = T(0);
+  bool start_i = false;
+  if (BLOCK) {
+    dt_i = own[C::kDtOwn];
+    start_i = own[C::kStart] > T(0.5);
+#pragma unroll
+    for (int v = 0; v < (BLOCK ? kNvar : 1); ++v) dQc[v] = T(0);
+#pragma unroll
+    for (int k = 0; k < (BLOCK ? NDIM : 1); ++k) rdmc[k] = T(0);
+  }
   for (int d = 0; d < Stencil<NDIM>::kSize; ++d) {
     int nc;
     T sh[3];
@@ -211,7 +237,9 @@ __device__ __forceinline__ void flux_slot(
                                     sound_i, a0i, Wl, Wdl);
       mfv::face_state<T, NDIM, LIM>(Wj, Wi, gWj, mhalf, ratio, vface,
                                     pq[C::kSound], a0j, Wr, Wdr);
-      if (a.rk2) {
+      // the half step's length: dt, or the pair's in block mode
+      const T dtp = BLOCK ? min(dt_i, pq[C::kDtOwn]) : dt;
+      if (!BLOCK && a.rk2) {
         // Heun: the states as they are, then advanced a full dt
         T Wl2[kNvar], Wr2[kNvar], f2[kNvar];
 #pragma unroll
@@ -231,8 +259,8 @@ __device__ __forceinline__ void flux_slot(
         // MUSCL: the half-step prediction
 #pragma unroll
         for (int v = 0; v < kNvar; ++v) {
-          Wl[v] = Wl[v] + T(0.5) * Wdl[v] * dt;
-          Wr[v] = Wr[v] + T(0.5) * Wdr[v] * dt;
+          Wl[v] = Wl[v] + T(0.5) * Wdl[v] * dtp;
+          Wr[v] = Wr[v] + T(0.5) * Wdr[v] * dtp;
         }
         mfv::sanitise<T, NDIM>(Wl);
         mfv::sanitise<T, NDIM>(Wr);
@@ -243,6 +271,14 @@ __device__ __forceinline__ void flux_slot(
       const T fm = flux[kRho] * Amag;
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) rdm[k] += dr[k] * fm;
+      if (BLOCK && (start_i || pq[C::kStart] > T(0.5))) {
+#pragma unroll
+        for (int v = 0; v < (BLOCK ? kNvar : 1); ++v)
+          dQc[v] -= (flux[v] * Amag) * dtp;
+        const T fmdt = fm * dtp;
+#pragma unroll
+        for (int k = 0; k < (BLOCK ? NDIM : 1); ++k) rdmc[k] += dr[k] * fmdt;
+      }
     }
   }
 #pragma unroll
@@ -251,33 +287,43 @@ __device__ __forceinline__ void flux_slot(
 #pragma unroll
   for (int k = 0; k < NDIM; ++k)
     rdmdt_out[NDIM * static_cast<long long>(p) + k] = rdm[k];
+  if (BLOCK) {
+#pragma unroll
+    for (int v = 0; v < (BLOCK ? kNvar : 1); ++v)
+      dQ_out[kNvar * static_cast<long long>(p) + v] = dQc[v];
+#pragma unroll
+    for (int k = 0; k < (BLOCK ? NDIM : 1); ++k)
+      rdm_out[NDIM * static_cast<long long>(p) + k] = rdmc[k];
+  }
 }
 
-template <typename T, int NDIM, int RIEMANN, int LIM>
+template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK>
 __global__ void __launch_bounds__(128) mfv_fluxes_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ pk, const T* __restrict__ dt_ptr, Grid3 g,
     int n_cells, bool flat, FluxArgs<T> a, T* __restrict__ dQdt_out,
-    T* __restrict__ rdmdt_out) {
+    T* __restrict__ rdmdt_out, T* __restrict__ dQ_out,
+    T* __restrict__ rdm_out) {
   const T dt = *dt_ptr;
   if (flat) {
     const long long t = static_cast<long long>(blockIdx.x) * blockDim.x
                         + threadIdx.x;
     if (t >= static_cast<long long>(n_cells) * g.K) return;
-    flux_slot<T, NDIM, RIEMANN, LIM>(ids, r, pk, g, static_cast<int>(t / g.K),
-                                     static_cast<int>(t % g.K), dt, a,
-                                     dQdt_out, rdmdt_out);
+    flux_slot<T, NDIM, RIEMANN, LIM, BLOCK>(
+        ids, r, pk, g, static_cast<int>(t / g.K), static_cast<int>(t % g.K),
+        dt, a, dQdt_out, rdmdt_out, dQ_out, rdm_out);
     return;
   }
   for (int i = threadIdx.x; i < g.K; i += blockDim.x)
-    flux_slot<T, NDIM, RIEMANN, LIM>(ids, r, pk, g, blockIdx.x, i, dt, a,
-                                     dQdt_out, rdmdt_out);
+    flux_slot<T, NDIM, RIEMANN, LIM, BLOCK>(ids, r, pk, g, blockIdx.x, i, dt,
+                                            a, dQdt_out, rdmdt_out, dQ_out,
+                                            rdm_out);
 }
 
-template <typename T, int NDIM, int RIEMANN, int LIM>
+template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK>
 void launch(const int* ids, const T* r, const T* pk, const T* dt,
             const Grid3& g, int n_cells, bool flat, const FluxArgs<T>& a,
-            T* dQdt, T* rdmdt, cudaStream_t stream) {
+            T* dQdt, T* rdmdt, T* dQ, T* rdm, cudaStream_t stream) {
   constexpr int kThreads = 128;
   const long long slots = static_cast<long long>(n_cells) * g.K;
   const int blocks = flat ? static_cast<int>((slots + kThreads - 1)
@@ -286,8 +332,28 @@ void launch(const int* ids, const T* r, const T* pk, const T* dt,
   const int threads = flat ? kThreads
                            : (slot_threads(g.K) < kThreads
                                   ? slot_threads(g.K) : kThreads);
-  mfv_fluxes_kernel<T, NDIM, RIEMANN, LIM><<<blocks, threads, 0, stream>>>(
-      ids, r, pk, dt, g, n_cells, flat, a, dQdt, rdmdt);
+  mfv_fluxes_kernel<T, NDIM, RIEMANN, LIM, BLOCK>
+      <<<blocks, threads, 0, stream>>>(ids, r, pk, dt, g, n_cells, flat, a,
+                                       dQdt, rdmdt, dQ, rdm);
+}
+
+template <typename T, int NDIM, int RIEMANN, bool BLOCK>
+void launch_limiter(int limiter, const int* ids, const T* r, const T* pk,
+                    const T* dt, const Grid3& g, int n_cells, bool flat,
+                    const FluxArgs<T>& a, T* dQdt, T* rdmdt, T* dQ, T* rdm,
+                    cudaStream_t stream) {
+  if (limiter == mfv::kGizmo)
+    launch<T, NDIM, RIEMANN, mfv::kGizmo, BLOCK>(ids, r, pk, dt, g, n_cells,
+                                                 flat, a, dQdt, rdmdt, dQ,
+                                                 rdm, stream);
+  else if (limiter == mfv::kCell)
+    launch<T, NDIM, RIEMANN, mfv::kCell, BLOCK>(ids, r, pk, dt, g, n_cells,
+                                                flat, a, dQdt, rdmdt, dQ, rdm,
+                                                stream);
+  else
+    launch<T, NDIM, RIEMANN, mfv::kZeroSlope, BLOCK>(ids, r, pk, dt, g,
+                                                     n_cells, flat, a, dQdt,
+                                                     rdmdt, dQ, rdm, stream);
 }
 
 template <typename T, int RIEMANN, int NDIM>
@@ -295,11 +361,11 @@ int run_fluxes(const int* ids, const T* r, const T* pk, const T* dt,
                int n0, int n1, int n2, int k_cell, int per0, int per1,
                int per2, double L0, double L1, double L2, double norm,
                double gamma, int zmf, int limiter, int rk2, int stat,
-               int mapping, T* dQdt, T* rdmdt, int device,
-               void* stream_ptr) {
+               int block, int mapping, T* dQdt, T* rdmdt, T* dQ, T* rdm,
+               int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (limiter < 0 || limiter > 2)
+  if (limiter < 0 || limiter > 2 || (block && (rk2 || !dQ || !rdm)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Grid3 g = {{n0, n1, n2}, {per0, per1, per2}, {L0, L1, L2}, k_cell};
@@ -309,16 +375,14 @@ int run_fluxes(const int* ids, const T* r, const T* pk, const T* dt,
                          mfv::exact_consts<T>(gamma), zmf != 0, rk2 != 0,
                          stat != 0};
   if (n_cells > 0 && k_cell > 0) {
-    if (limiter == mfv::kGizmo)
-      launch<T, NDIM, RIEMANN, mfv::kGizmo>(ids, r, pk, dt, g, n_cells,
-                                            flat, a, dQdt, rdmdt, stream);
-    else if (limiter == mfv::kCell)
-      launch<T, NDIM, RIEMANN, mfv::kCell>(ids, r, pk, dt, g, n_cells, flat,
-                                           a, dQdt, rdmdt, stream);
+    if (block)
+      launch_limiter<T, NDIM, RIEMANN, true>(limiter, ids, r, pk, dt, g,
+                                             n_cells, flat, a, dQdt, rdmdt,
+                                             dQ, rdm, stream);
     else
-      launch<T, NDIM, RIEMANN, mfv::kZeroSlope>(ids, r, pk, dt, g, n_cells,
-                                                flat, a, dQdt, rdmdt,
-                                                stream);
+      launch_limiter<T, NDIM, RIEMANN, false>(limiter, ids, r, pk, dt, g,
+                                              n_cells, flat, a, dQdt, rdmdt,
+                                              nullptr, nullptr, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -332,10 +396,10 @@ int run_fluxes(const int* ids, const T* r, const T* pk, const T* dt,
                       int n0, int n1, int n2, int k_cell, int per0,         \
                       int per1, int per2, double L0, double L1, double L2,  \
                       double norm, double gamma, int zmf, int limiter,      \
-                      int rk2, int stat, int mapping, T* dQdt, T* rdmdt,    \
-                      int device, void* stream) {                           \
+                      int rk2, int stat, int block, int mapping, T* dQdt,   \
+                      T* rdmdt, T* dQ, T* rdm, int device, void* stream) {  \
     return mfv_k12::run_fluxes<T, RIEMANN, NDIM>(                           \
         ids, r, pk, dt, n0, n1, n2, k_cell, per0, per1, per2, L0, L1, L2,   \
-        norm, gamma, zmf, limiter, rk2, stat, mapping, dQdt, rdmdt, device, \
-        stream);                                                            \
+        norm, gamma, zmf, limiter, rk2, stat, block, mapping, dQdt, rdmdt,  \
+        dQ, rdm, device, stream);                                           \
   }

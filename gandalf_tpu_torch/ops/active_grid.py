@@ -1,7 +1,7 @@
 """Active-subset hydro pass over the structured grid: the density (K8)
 and forces (K9) of a listed subset of particles, the pair work of a
 block-timestep tick; and the neighbour-level pass (K22) of the dense
-block tick with sinks.
+block tick (with sinks or dust, and of block MFV) in 1-3 dims.
 
 Counterpart of ``gandalf_tpu/ops/active_grid.py``.  Every particle is
 binned (K1) into the grid's dense slot map, which holds each slot's
@@ -26,7 +26,8 @@ the JAX package followed by ``ops/density.py:compute_h`` or
 version; a CUDA tensor takes the kernel, or the wrapper raises.
 
 ``levelneib_grid27`` is gandalf_tpu/sim/simulation.py:_levelneib_pass
-(:1682-1702): every alive particle's largest neighbour level within
+(:1682-1702) and gandalf_tpu/sim/mfv_sim.py:_levelneib_pass (:345-363),
+the same pass: every alive particle's largest neighbour level within
 kernrange * max(h_i, h_j), itself included, over the alive particles
 binned into the grid (the dead binned out); it overwrites levelneib, and
 the dead get 0.  Unlike K9's scatter, it is one-sided.
@@ -280,15 +281,18 @@ def active_hydro_pass(kern, visc, spec: g27.Grid27Spec, eos, h_fac: float,
 # ---------------------------------------------------------------------------
 
 def levelneib_grid27(kern, spec: g27.Grid27Spec, r: Tensor, h: Tensor,
-                     level: Tensor, alive: Tensor) -> Tensor:
+                     level: Tensor, alive: Tensor, b=None) -> Tensor:
     """The largest level (N,) int32 among each alive particle's alive
     candidates within kernrange * max(h_i, h_j) (itself included), 0 for
-    the dead.  K1 (with the dead discarded), then K22 on CUDA tensors."""
-    if spec.ndim != 3 or spec.mirror or spec.qz != 1:
+    the dead, in 1-3 dims.  K1 (with the dead discarded; `b`, a binning
+    of r with them discarded, is taken where given), then K22 on CUDA
+    tensors."""
+    if spec.mirror or spec.qz != 1:
         raise NotImplementedError(
-            "the neighbour-level pass takes 3D grids without mirror layers "
-            "(ROADMAP queue 1, items 3 and 8)")
-    b = g27.bin_particles(spec, r, discard=~alive)
+            "the neighbour-level pass takes grids without mirror layers "
+            "(ROADMAP queue 1, item 8)")
+    if b is None:
+        b = g27.bin_particles(spec, r, discard=~alive)
     ids_d = dense_ids(spec, b)
     if r.is_cuda:
         return _ext.levelneib(spec, kern, ids_d, r, h, level)
@@ -300,14 +304,15 @@ def levelneib_plain(kern, spec, cell_of, ids_d, r, h, level, alive):
     of the alive particles, d^2 summed and the radius squared as there."""
     out = torch.zeros_like(level)
     idx = torch.nonzero(alive).flatten()
-    step = _row_chunk(27 * spec.k_cell, r.device)
+    step = _row_chunk(3 ** spec.ndim * spec.k_cell, r.device)
     for c0 in range(0, idx.numel(), step):
         sel = idx[c0:c0 + step]
         cand, dr = gather_active_candidates(spec, cell_of, ids_d, r, sel)
         mask = cand >= 0
         cid = torch.clamp_min(cand, 0)
-        d2 = (dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1]
-              + dr[..., 2] * dr[..., 2])
+        d2 = dr[..., 0] * dr[..., 0]
+        for k in range(1, spec.ndim):
+            d2 = d2 + dr[..., k] * dr[..., k]
         rad = kern.kernrange * torch.maximum(h[sel][:, None], h[cid])
         near = mask & (d2 <= rad * rad)
         out[sel] = torch.where(near, level[cid],

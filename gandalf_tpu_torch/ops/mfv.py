@@ -542,6 +542,8 @@ def exact_flux(Wl: Tensor, Wr: Tensor, n: Tensor, vface: Tensor,
 class FluxResult(NamedTuple):
     dQdt: Tensor       # (N, nvar) conserved-variable flux rate
     rdmdt_dot: Tensor  # (N, ndim) rate of r*dm/dt bookkeeping
+    dQ: Optional[Tensor] = None      # block mode: the committed exchange
+    rdmdt: Optional[Tensor] = None   # block mode: its r*dm moment
 
 
 RIEMANN_SOLVERS = ("hllc", "exact")
@@ -586,7 +588,9 @@ def compute_godunov_fluxes(kern: SmoothingKernel, cfg: MfvConfig, ndim: int,
                            sound: Tensor, a0: Tensor, B: Tensor,
                            grad: Tensor, alpha_slope: Tensor, bad: Tensor,
                            dr: Tensor, nb: dict,
-                           mask: Optional[Tensor]) -> FluxResult:
+                           mask: Optional[Tensor],
+                           dt_pair: Optional[Tensor] = None,
+                           pair_on: Optional[Tensor] = None) -> FluxResult:
     """Pairwise face fluxes accumulated per particle
     (MfvMuscl::ComputeGodunovFlux, MfvRungeKutta::ComputeGodunovFlux),
     every pair evaluated from both sides.  The face states take the
@@ -597,8 +601,18 @@ def compute_godunov_fluxes(kern: SmoothingKernel, cfg: MfvConfig, ndim: int,
     of the states advanced a full dt, each floored alone.
 
     nb keys (all (N, K, ...)): h, ndens, Wprim, sound, a0, B, grad,
-    alpha_slope, bad.  `dt` is a 0-d tensor or a float."""
+    alpha_slope, bad.  `dt` is a 0-d tensor or a float.
+
+    Block-timestep mode (MUSCL only): `dt_pair` (N, K), min(dt_own_i,
+    dt_own_j), replaces dt in the half step, and the result also carries
+    the committed exchange dQ = -sum_j [pair_on] f dt_pair and its moment
+    rdmdt = sum_j dr [pair_on] f_rho dt_pair; `pair_on` (N, K) marks the
+    pairs whose deeper member starts a step this tick."""
     check_config(cfg)
+    if dt_pair is not None:
+        if cfg.time_scheme != "muscl":
+            raise ValueError("block mode takes the MUSCL time scheme")
+        dt = dt_pair[..., None]
     irho = ndim
     drsqd = torch.sum(dr * dr, dim=-1)
     valid = drsqd > 0.0
@@ -693,7 +707,13 @@ def compute_godunov_fluxes(kern: SmoothingKernel, cfg: MfvConfig, ndim: int,
     f = torch.where(face_ok[..., None], f, 0.0)
     dQdt = -torch.sum(f, dim=1)
     rdmdt_dot = torch.sum(dr * f[..., irho, None], dim=1)
-    return FluxResult(dQdt=dQdt, rdmdt_dot=rdmdt_dot)
+    if dt_pair is None:
+        return FluxResult(dQdt=dQdt, rdmdt_dot=rdmdt_dot)
+    wdt = torch.where(pair_on, dt_pair, 0.0)
+    return FluxResult(dQdt=dQdt, rdmdt_dot=rdmdt_dot,
+                      dQ=-torch.sum(f * wdt[..., None], dim=1),
+                      rdmdt=torch.sum(dr * (f[..., irho] * wdt)[..., None],
+                                      dim=1))
 
 
 # ---------------------------------------------------------------------------

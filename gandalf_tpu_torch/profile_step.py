@@ -5,6 +5,8 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --block
     python -m gandalf_tpu_torch.profile_step --mfv [--self-gravity {0,1}]
         [--ndim {1,2,3}] [--riemann {hllc,exact}] [--limiter L] [--rk2]
+    python -m gandalf_tpu_torch.profile_step --mfv --block [--ndim {1,2,3}]
+        [--timestep-limiter {none,simple,conservative}]
     python -m gandalf_tpu_torch.profile_step --nbody [--nbody-scheme S]
     python -m gandalf_tpu_torch.profile_step --ewald
     python -m gandalf_tpu_torch.profile_step --sinks
@@ -30,7 +32,14 @@ of tests/test_mfv_grid.py at x16 per axis (check.mfv_khi_params(512),
 524,288 particles, no gravity) and --ndim 1 the MFV Sod tube (512 +
 128, float64), --riemann the Riemann solver, --limiter the slope
 limiter (gizmo, scalar, null, zeroslope, tvdscalar, springel2009) and
---rk2 the Heun scheme (sim = mfvrk).  With --nbody: the N-body
+--rk2 the Heun scheme (sim = mfvrk).  With --mfv --block: block-timestep
+MFV, 4 warm-up ticks and a window of 8: at ndim 3 mfv_block_sphere
+(check.mfv_block_sphere_params at about 262,144 particles, the
+quadrupole tree) in float32, at ndim 2 the 2D box (524,288 particles)
+with Nlevels 3 in float32, at ndim 1 the block Sod tube
+(check.mfv_block_tube_params(3), float64); --timestep-limiter sets
+time_step_limiter (conservative at ndim 3, simple otherwise, by
+default; --limiter is the slope limiter).  With --nbody: the N-body
 cluster (check.nbody_params, plummer_cluster) at 65,536 stars in
 float64 under hermite4 (or --nbody-scheme, hermite6ts unsoftened at
 16,384 stars), 2 warm-up steps, then a window of 8 steps
@@ -70,7 +79,7 @@ Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
 the device time summed over kernels and copies, the device's idle share
-of the window, the device time of each of K1-K31 and of the torch glue
+of the window, the device time of each of K1-K33 and of the torch glue
 between them, and the device time per kernel name (largest first); with
 --block also the active rows per tick.  Refuses to run without CUDA.
 """
@@ -129,6 +138,9 @@ FAMILIES = {
     "K29 radws_implicit_heating": ("radws_implicit_kernel",),
     "K30 ambient_temperature": ("ambient_kernel",),
     "K31 mfv_limiter": ("mfv_limiter_kernel",),
+    "K32 mfv_vsig_near": ("vsig_near_kernel",),
+    "K33 mfv_vsig_far": ("vsig_agg_kernel", "vsig_far_kernel",
+                         "vsig_far_reduce"),
 }
 DUST_NHYDRO = 131072
 NBODY_N = 65536
@@ -205,6 +217,8 @@ def _profile_window(sim, args, before: int) -> int:
             "mfv_modes": ({k: getattr(sim.mfv_cfg, k) for k in
                            ("riemann", "slope_limiter", "time_scheme")}
                           if args.mfv else None),
+            "time_step_limiter": (sim.time_step_limiter
+                                  if args.mfv and args.block else None),
             "sinks": args.sinks, "khi": args.khi,
             "block_sinks": args.block_sinks, "cd2010": args.cd2010,
             "mirror": args.layout if args.mirror else None,
@@ -255,6 +269,9 @@ def main(argv=None) -> int:
                     help="with --mfv: the slope limiter")
     ap.add_argument("--rk2", action="store_true",
                     help="with --mfv: RK2 (sim = mfvrk)")
+    ap.add_argument("--timestep-limiter", default=None,
+                    choices=("none", "simple", "conservative"),
+                    help="with --mfv --block: time_step_limiter")
     ap.add_argument("--nbody", action="store_true",
                     help="the N-body cluster (plummer_cluster)")
     ap.add_argument("--nbody-scheme", default="hermite4",
@@ -298,7 +315,8 @@ def main(argv=None) -> int:
     from .check import (MIRROR_DIM0, MIRROR_MIXED, bb_block_params,
                         bb_params, dust_params, dustybox_params,
                         family_params, jeans_params,
-                        jittered_box_ic, khi_params, mfv_khi_params,
+                        jittered_box_ic, khi_params, mfv_block_sphere_params,
+                        mfv_block_tube_params, mfv_khi_params,
                         mfv_params, mfv_sod_params, mirror_ic,
                         mirror_params, nbody_params, plummer_stars_params,
                         radfb_params, radws_params, slice_params,
@@ -355,6 +373,23 @@ def main(argv=None) -> int:
                                  dtype=torch.float32)
         sim.SetupSimulation()
         warm = 2
+    elif args.mfv and args.block:
+        lim = args.timestep_limiter or ("conservative" if args.ndim == 3
+                                        else "simple")
+        if args.ndim == 3:
+            params = mfv_block_sphere_params(BLOCK_N)
+        elif args.ndim == 2:
+            params = mfv_khi_params(512, Nlevels=3)
+        else:
+            params = mfv_block_tube_params(3)
+        params.set("time_step_limiter", lim)
+        params.set("riemann_solver", args.riemann)
+        params.set("slope_limiter", args.limiter)
+        sim = SimulationBase.factory(
+            params, "cuda", torch.float64 if args.ndim == 1
+            else torch.float32)
+        sim.SetupSimulation()
+        warm = BLOCK_WARM
     elif args.mfv:
         opts = {"riemann_solver": args.riemann,
                 "slope_limiter": args.limiter,

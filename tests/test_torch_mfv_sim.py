@@ -136,14 +136,18 @@ def test_five_steps_match_jax(which, request):
 
 def test_state_converts_from_jax(gravity):
     """convert.mfv_state_from_jax carries the JAX MfvState across: the
-    same fields, bad_grad as a float flag, the block fields dropped."""
+    same fields, bad_grad as a float flag, the block fields as the JAX
+    state holds them (zeros at a global timestep)."""
     js = gravity["jax_state"]
     s = mfv_state_from_jax(js)
     for f in FIELDS + ("gpot", "B", "grad", "alpha_slope", "ndens"):
         assert np.array_equal(getattr(s, f).numpy(),
                               np.asarray(getattr(js, f)))
     assert s.bad_grad.dtype == torch.float64
-    assert s.dQ is None and s.level is None
+    for f in ("dQ", "dQdt", "rdmdt", "rdmdt0", "level", "levelneib",
+              "nlast", "tlast"):
+        assert np.array_equal(getattr(s, f).numpy(),
+                              np.asarray(getattr(js, f))), f
     assert int(s.nstep) == STEPS
     assert torch.equal(s.Wprim, torch.tensor(np.asarray(js.Wprim)))
 
@@ -243,18 +247,17 @@ def test_burst_overflow_replays_step_by_step():
     ({"gas_eos": "locally_isothermal"}, "F20"),
     ({"ndim": 1}, "item 3"),
     ({"sink_particles": 1}, "F16"),
-    ({"Nlevels": 3}, "item 10"),
     ({"sim": "mfvrk", "Nlevels": 3}, "RK2 block coupling"),
     ({"rad_fb": 1}, "F21"),
     ({"boundary_lhs[0]": "mirror"}, "item 8")],
     ids=["quintic", "locally_isothermal", "gravity_1d", "sinks",
-         "Nlevels", "mfvrk_Nlevels", "rad_fb", "mirror"])
+         "mfvrk_Nlevels", "rad_fb", "mirror"])
 def test_options_outside_the_slice_raise(settings, item):
     """What the MFV controllers still refuse, each naming its ROADMAP
     item or fault: a kernel other than M4 (item 9), the locally
     isothermal EOS (F20), self-gravity below 3D (item 3), sinks (F16),
-    block timesteps (item 10) and RK2 with them (the JAX package
-    refuses that too), radiative feedback (F21) and mirror walls."""
+    RK2 with block timesteps (the JAX package refuses that too),
+    radiative feedback (F21) and mirror walls."""
     p = mfv_params(N_SIDE, self_gravity=1)
     for key, value in settings.items():
         p.set(key, value)

@@ -13,10 +13,10 @@ block tick; the MFV box at 6^3; the box without gravity on an opacity
 table this file writes (kappa, mu and gamma varying, so the relaxation
 takes several steps), and radws without the radws relaxation (u
 integrated explicitly); and check.radws_dense_inputs against the dense
-slots a step's grid pass gives the EOS.  Then the refusals that stay, each shown first
-on the JAX package: radws MFV under block timesteps (ROADMAP item 10)
-and rad_fb in MFV, which the JAX MFV controller never reads (fault
-F21)."""
+slots a step's grid pass gives the EOS.  Then the refusal that stays,
+shown first on the JAX package: rad_fb in MFV, which the JAX MFV
+controller never reads (fault F21).  Radws MFV under block timesteps is
+held to the JAX package in tests/test_torch_mfv_block_sim.py."""
 
 import numpy as np
 import pytest
@@ -220,19 +220,6 @@ def test_radws_without_relaxation_integrates_u(tmp_path):
     assert not tsim.use_radws_energy and tsim.integ.energy_integration
     _steps(jsim, tsim, ("r", "v", "u", "h", "rho"))
     assert not torch.equal(tsim.state.u, tsim.state.ueq)
-
-
-def test_mfv_block_timesteps_refused_item_10():
-    """Radws MFV with Nlevels > 1: the JAX package runs it (its block MFV
-    tick folds the cooling in at each particle's end of step); the port
-    has no block MFV yet and refuses it naming item 10."""
-    p = radws_params(mfv_params(N_SIDE, 0, 1.0))
-    p.set("Nlevels", 3)
-    jsim = jax_mfv.MfvMusclSimulation(_jax_params(p))
-    jsim.process_parameters()
-    assert jsim.use_block and jsim.use_radws_energy
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SimulationBase.factory(p, "cpu", torch.float64).process_parameters()
 
 
 def test_mfv_radiative_feedback_refused_f21():

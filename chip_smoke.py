@@ -11,12 +11,13 @@ dusty Evrard collapse), Saitoh & Makino (2012) SPH and the external
 potentials, RadWS radiative cooling and radiative feedback, the
 quintic, gaussian and tabulated smoothing kernels, MFV's options (the
 exact Riemann solver, RK2, every slope limiter) and its 1D and 2D grid
-path, and block-timestep MFV, and checks them, in phases, each printing
-one line:
+path, block-timestep MFV, and the radiation schemes (ionisation,
+treeray and Monte-Carlo photoionisation of the Spitzer HII region), and
+checks them, in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K33 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K37 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -345,7 +346,23 @@ one line:
    Nlevels 4, the quadrupole tree, conservative) through block MFV, 32
    timed ticks: mfv_main_path's gates (the tree's accuracy with
    block_main_path's bound for this sphere), the bound against its
-   oracle, rates and levels.
+   oracle, rates and levels;
+76. radiation_kernels: K34-K37 against their plain versions on the card
+   at the Spitzer HII region's shapes (258,135 particles in float32, K36
+   with the first Monte-Carlo iteration's 2,065,080 packets (8 N) and 256
+   steps, K37 also on three overlapping sources), and in float64 at 739
+   particles; flags counted against K37's rounding band;
+77. radiation_parity: the CPU parity configurations of
+   tests/test_torch_radiation_sim.py on the card in float64 against the
+   plain path on the CPU, 3 steps each of ionisation, treeray,
+   monoionisation (the draws made on the host) and block ionisation;
+78-80. spitzer_ionisation, spitzer_treeray and spitzer_mcrt: the Spitzer
+   HII region at 258,135 particles in float32, 4 steps each with its
+   radiation update: the first update's front within 0.08 (ionisation)
+   and 0.1 (treeray) of Rs = 0.35, the ionised volume's radius within
+   15% of Rs under monoionisation (cross-section 3,000, an optically
+   thick front, and 10 iterations), finite u and 0 <= ionfrac <= 1, with particle-steps/s
+   and one update's device ms.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -375,8 +392,9 @@ cell-alpha and K31 springel2009 from mfv_exact_box), K12's block mode in
 3D from mfv_block_sphere, in 2D from mfv_block_khi and in 1D from
 mfv_block_tube (float64), K22 in 2D from mfv_block_khi and in 1D from
 mfv_block_tube, K32 and K33 in 3D from mfv_block_sphere and in 2D from
-mfv_block_khi's conservative run, each counted over its path's timed
-window (the tube's over its whole block run)
+mfv_block_khi's conservative run, K37 from spitzer_ionisation, K35
+from spitzer_treeray, K34 and K36 from spitzer_mcrt, each counted over
+its path's timed window (the tube's over its whole block run)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
 for the work, check.bound) and library_ms null where no single PyTorch
@@ -641,6 +659,20 @@ MFV_BLOCK_ORACLE_N = 2048
 MFV_BLOCK_SPHERE_WARM = 4
 MFV_BLOCK_SPHERE_TICKS = 32
 MFV_BLOCK_SPHERE_ENERGY_TOL = 2e-3
+# radiation (phases 76-80): the Spitzer HII region at full width, its
+# steps (each with its radiation update), the parity runs' sizes (as
+# tests/test_torch_radiation_sim.py's) and the gates of
+# tests/test_spitzer.py:93, tests/test_treeray.py:195 and
+# tests/test_mcrt.py:122
+SPITZER_N = 262144
+SPITZER_STEPS = 4
+RAD_PARITY_N = 300
+RAD_PARITY_MC_N = 700
+RAD_PARITY_MC_ACROSS = 50.0
+RAD_PARITY_STEPS = 3
+RAD_KERNEL_N = 262144
+SPITZER_FRONT_TOL = {"ionisation": 0.08, "treeray": 0.1}
+SPITZER_MC_RADIUS_TOL = 0.15
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -779,6 +811,14 @@ SOURCES = {
                                "gandalf_tpu/ops/radws.py:229"),
     "ambient_temperature": ("gandalf_tpu_torch/csrc/radiative_fb.cu",
                             "gandalf_tpu/ops/radiative_fb.py:92"),
+    "cell_field": ("gandalf_tpu_torch/csrc/radiation.cu",
+                   "gandalf_tpu/ops/treeray.py:104"),
+    "ray_march": ("gandalf_tpu_torch/csrc/radiation.cu",
+                  "gandalf_tpu/ops/treeray.py:123"),
+    "packet_march": ("gandalf_tpu_torch/csrc/radiation.cu",
+                     "gandalf_tpu/ops/mcrt.py:83"),
+    "stromgren_prefix": ("gandalf_tpu_torch/csrc/radiation.cu",
+                         "gandalf_tpu/ops/ionisation.py:67"),
 }
 # block-timestep MFV: K12's block mode (3D from mfv_block_sphere, 2D from
 # mfv_block_khi, 1D from mfv_block_tube), K22 below 3D (2D from the KHI,
@@ -848,6 +888,11 @@ SM2012 = ("sm2012_density", "sm2012_forces")
 # the radws kernels of an SPH step or tick (the table EOS, the
 # equilibrium finder)
 RADWS_SPH = ("radws_eos", "radws_equilibrium")
+# the kernels of each radiation scheme's update (K1 bins for the
+# per-cell field)
+RADIATION = {"ionisation": ("stromgren_prefix",),
+             "treeray": ("grid27_bin", "cell_field", "ray_march"),
+             "monoionisation": ("grid27_bin", "cell_field", "packet_march")}
 # rates of earlier phases that later ones print beside their own
 RATES = {}
 
@@ -4746,6 +4791,188 @@ def _predicted_energy(s) -> float:
                  - 0.5 * torch.sum(m * s.gpot.double()))
 
 
+def radiation_kernels(dev):
+    """Phase 76: K34-K37 against their plain versions on the card at the
+    Spitzer HII region's shapes (258,135 particles in float32 after
+    setup, K36 with the first Monte-Carlo iteration's 2,065,080 packets (8 N)
+    and 256 steps) and K37 on three overlapping sources at 262,144
+    particles; then the same in float64 at the parity runs' sizes (739
+    particles, 4,096 packets).  Fields to 1e-5 (1e-12 in float64) of
+    their largest value, K36 against its plain version in float64; K37's
+    flags only inside the rounding band and in at most 1e-3 of the
+    particles, the counts printed.  Timed in float32 beside the bounds
+    (K34's library time: index_add_).  Returns the float32 reports."""
+    from gandalf_tpu_torch.check import (bound, compare_radiation_kernels,
+                                         radiation_kernel_inputs,
+                                         spitzer_sim, stromgren_inputs)
+
+    t0 = time.perf_counter()
+    sim = spitzer_sim(RAD_KERNEL_N, "monoionisation", dev)
+    rep = compare_radiation_kernels(
+        radiation_kernel_inputs(sim), repeats=5,
+        stromgren=stromgren_inputs(RAD_KERNEL_N, dev, torch.float32))
+    for r in rep.values():
+        r["bound_ms"], r["bound_by"] = bound(r["work"], torch.float32)
+    phase("radiation_kernels", N=sim.state.N, dtype="torch.float32",
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          report=rep)
+    require_ok("radiation_kernels", rep)
+    del sim
+    small = spitzer_sim(RAD_PARITY_MC_N, "monoionisation", dev,
+                        torch.float64)
+    rep64 = compare_radiation_kernels(
+        radiation_kernel_inputs(small, n_packets=4096),
+        stromgren=stromgren_inputs(4096, dev, torch.float64))
+    phase("radiation_kernels", N=small.state.N, dtype="torch.float64",
+          report=rep64, seconds=time.perf_counter() - t0)
+    require_ok("radiation_kernels", rep64)
+    return rep
+
+
+def _host_draws(device):
+    """Monte-Carlo draws made on the host from a CPU torch.Generator and
+    moved to `device`, so both devices march the same packets."""
+    from gandalf_tpu_torch.ops.mcrt import mc_draws
+
+    def draw(seed, ndot, n_packets, n_iter):
+        gen = torch.Generator().manual_seed(seed)
+        return [(src.to(device), dirs.to(device)) for src, dirs in
+                mc_draws(gen, ndot.cpu(), n_packets, 3, n_iter)]
+
+    return draw
+
+
+def radiation_parity(dev) -> None:
+    """Phase 77: tests/test_torch_radiation_sim.py's configurations on
+    the card in float64 against the plain path on the CPU, 3 steps each:
+    the Spitzer sphere at 280 particles under ionisation (the field
+    updated at the first step only: later updates rank the lattice's
+    shells of equal distance by each device's rounding noise) and
+    treeray, at 739 under monoionisation (cross-section 50, the draws
+    made on the host), and 3 dense block ticks of ionisation (Nlevels 2).
+    ionfrac equal and r, v, u, dt within 1e-9 of each field's largest
+    value after every step."""
+    from gandalf_tpu_torch.check import spitzer_sim
+
+    t0 = time.perf_counter()
+    cases = {"ionisation": ("ionisation", RAD_PARITY_N,
+                            {"nradstep": RAD_PARITY_STEPS}),
+             "treeray": ("treeray", RAD_PARITY_N, {}),
+             "monoionisation": ("monoionisation", RAD_PARITY_MC_N,
+                                {"Nraditerations": 2}),
+             "block_ionisation": ("ionisation", RAD_PARITY_N,
+                                  {"Nlevels": 2,
+                                   "nradstep": RAD_PARITY_STEPS})}
+    results = {}
+    for tag, (scheme, n, over) in cases.items():
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = spitzer_sim(n, scheme, device, torch.float64, **over)
+            if scheme == "monoionisation":
+                sim.mc_across = RAD_PARITY_MC_ACROSS
+                sim.mc_draw_fn = _host_draws(device)
+            sims.append(sim)
+        errs, same_ion = {}, True
+        for _ in range(RAD_PARITY_STEPS):
+            for sim in sims:
+                sim.main_loop_step()
+            a, b = (x.state for x in sims)
+            same_ion &= bool(torch.equal(a.ionfrac.cpu(), b.ionfrac))
+            for f in ("r", "v", "u"):
+                want = getattr(b, f)
+                err = float(torch.abs(getattr(a, f).cpu() - want).max()
+                            / torch.abs(want).max())
+                errs[f] = max(errs.get(f, 0.0), err)
+            errs["dt"] = max(errs.get("dt", 0.0), abs(float(a.dt)
+                                                      - float(b.dt))
+                             / abs(float(b.dt)))
+        results[tag] = {"rel_err": errs, "same_ionfrac": same_ion,
+                        "ionised": int((sims[1].state.ionfrac > 0.5).sum()),
+                        "N": sims[1].state.N}
+        if not same_ion or max(errs.values()) > PARITY_TOL:
+            phase("radiation_parity", cases=results)
+            raise RuntimeError(f"radiation_parity {tag}: the card parts "
+                               f"from the plain path: {results[tag]}")
+    phase("radiation_parity", steps=RAD_PARITY_STEPS, cases=results,
+          seconds=time.perf_counter() - t0)
+
+
+def _spitzer_path(dev, card, scheme):
+    """Phases 78-80: the Spitzer HII region at 258,135 particles in
+    float32 under `scheme`: setup, then SPITZER_STEPS steps, each with its
+    radiation update (the counts set to 0 just before them); the first
+    update's front (tests/test_spitzer.py's 97th percentile of the
+    ionised particles' distance) within SPITZER_FRONT_TOL of Rs, or for
+    monoionisation (cross-section check.SPITZER_MC_ACROSS, 10
+    iterations as tests/test_mcrt.py runs them) the radius of the
+    ionised particles' volume within 15% of Rs; finite u, 0 <= ionfrac <= 1, the scheme's kernels every
+    step; the rate and one update's device time (CUDA events).  Returns
+    the scheme's launches."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (SPITZER_RS, front_radius,
+                                         ionised_radius, spitzer_sim)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sim = spitzer_sim(SPITZER_N, scheme, dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    names = RADIATION[scheme]
+    _ext.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.main_loop_step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    front = front_radius(sim)
+    r_ion = ionised_radius(sim)
+    for _ in range(SPITZER_STEPS - 1):
+        sim.main_loop_step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    N = s.N
+    # one more update, timed on the device, from the final state
+    saved = s
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim._radiation_update()
+    stop.record()
+    torch.cuda.synchronize()
+    update_ms = start.elapsed_time(stop)
+    sim.state = saved
+    alive = s.alive
+    if scheme == "monoionisation":
+        gate = abs(r_ion / SPITZER_RS - 1.0) <= SPITZER_MC_RADIUS_TOL
+    else:
+        gate = abs(front - SPITZER_RS) < SPITZER_FRONT_TOL[scheme]
+    checks = {
+        "front": gate,
+        "finite_u": bool(torch.isfinite(s.u[alive]).all()),
+        "ionfrac_in_0_1": bool(((s.ionfrac >= 0) & (s.ionfrac <= 1)).all()),
+        "some_neutral": bool((s.ionfrac[alive] < 0.5).any()),
+        "launches": all(n >= SPITZER_STEPS for n in launches.values()),
+    }
+    tag = {"ionisation": "spitzer_ionisation", "treeray": "spitzer_treeray",
+           "monoionisation": "spitzer_mcrt"}[scheme]
+    phase(tag, N=N, steps=SPITZER_STEPS, setup_s=t_setup,
+          first_step_s=first_s, timed_s=elapsed,
+          particle_steps_per_s=N * SPITZER_STEPS / elapsed,
+          update_device_ms=update_ms, Rs=SPITZER_RS, front_radius=front,
+          ionised_volume_radius=r_ion,
+          ionised=int((s.ionfrac > 0.5).sum()),
+          mc_across=getattr(sim, "mc_across", None),
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          t_code=sim.t, dt_code=float(s.dt), launches=launches,
+          checks=checks, card=card, seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+    return launches
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -4799,7 +5026,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "ptxas.txt").write_text(_ext.ptxas_report())
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
-          library=so.name, kernels="K1-K33", sources=list(_ext._UNITS),
+          library=so.name, kernels="K1-K37", sources=list(_ext._UNITS),
           ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
@@ -5081,6 +5308,15 @@ def main() -> int:
         b_launches, b_rep = path(dev, card)
         launches.update(b_launches)
         rep.update(b_rep)
+
+    # 76-80. radiation: ionisation, treeray and Monte-Carlo
+    # photoionisation of the Spitzer HII region
+    rep.update(radiation_kernels(dev))
+    radiation_parity(dev)
+    for scheme in ("ionisation", "treeray", "monoionisation"):
+        for k, n in _spitzer_path(dev, card, scheme).items():
+            if k not in ("grid27_bin",):
+                launches[k] = n
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA kernels K1-K33 of ``csrc/``.
+"""Build, load and launch the CUDA kernels K1-K37 of ``csrc/``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build goes
@@ -51,7 +51,12 @@ appended (``mfv_fluxes_exact_cell_static``; block timesteps
 ``_block``), K32 and K33, the conservative limiter's near and far
 passes, under ``mfv_vsig_near`` and ``mfv_vsig_far`` (K33's wrapper
 launches its three stages and counts one); each with ``_1d`` or ``_2d``
-appended below 3D.
+appended below 3D.  The radiation kernels K34-K37, the per-cell fields,
+the ray march, the packet march and the Stromgren prefix select, count
+under ``cell_field``, ``ray_march``, ``packet_march`` and
+``stromgren_prefix`` (K34's wrapper launches its two stages and K37's its
+distances, weights and radix passes of every round, and each counts
+one).
 """
 
 from __future__ import annotations
@@ -82,7 +87,7 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "mfv_fluxes_exact_3d.cu", "nbody_direct.cu",
           "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
           "grid27_levelneib.cu", "dust_drag.cu", "sm2012.cu", "radws.cu",
-          "radiative_fb.cu", "mfv_vsig.cu")
+          "radiative_fb.cu", "mfv_vsig.cu", "radiation.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,7 +114,8 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "sm2012_density_1d": 0, "sm2012_forces": 0,
             "sm2012_forces_2d": 0, "sm2012_forces_1d": 0, "radws_eos": 0,
             "radws_equilibrium": 0, "radws_implicit_heating": 0,
-            "ambient_temperature": 0}
+            "ambient_temperature": 0, "cell_field": 0, "ray_march": 0,
+            "packet_march": 0, "stromgren_prefix": 0}
 
 # the meshless finite-volume kernels in every dim, K12 in every mode
 _DIMS = ("", "_2d", "_1d")
@@ -229,6 +235,16 @@ _ARGTYPES = {
                                         _P, _P, _I, _P],
     "ambient_temperature": [_P, _I, _P, _P, _P, _P, _I, _D, _I, _P, _D, _D,
                             _D, _P, _I, _P],
+    "cell_field": [_P, _P, _I, _I, _I, _P, _P, _P, _D, _D, _P, _P, _I, _P],
+    # the radiation grid's arguments (_radiation_grid): nd, 3 cells, 3 lo,
+    # 3 extents, 3 periodic flags
+    "ray_march": [_I] * 4 + [_D] * 6 + [_I] * 3 + [_P, _P, _P, _I, _P, _I,
+                                                    _I, _I, _P, _I, _P],
+    "packet_march": [_I] * 4 + [_D] * 6 + [_I] * 3 + [_P, _P, _P, _I, _I,
+                                                       _D, _P, _P, _P, _P,
+                                                       _I, _P],
+    "stromgren_prefix": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -1511,4 +1527,105 @@ def ambient_temperature(r, rs, q, tsink4, act, active, temp_inf, disc):
     _launch("ambient_temperature", dt, dev, _p(r), N, _p(rs), _p(q),
             _p(tsink4), _p(act), Ns, float(temp_inf) ** 4, nc, _p(active),
             float(tau4), float(rs2), float(expo), _p(out))
+    return out
+
+
+# --- K34-K37: radiation -------------------------------------------------------
+
+def _radiation_grid(spec):
+    """nd, then the cells, lo, extents and periodic flags of a radiation
+    field's grid padded to three dims (any object with ndim, lo,
+    extents, ncells and periodic)."""
+    nd = spec.ndim
+    pad = 3 - nd
+    return (nd, *[int(n) for n in spec.ncells[:nd]], *(1,) * pad,
+            *[float(x) for x in spec.lo[:nd]], *(0.0,) * pad,
+            *[float(x) for x in spec.extents[:nd]], *(1.0,) * pad,
+            *[int(bool(p)) for p in spec.periodic[:nd]], *(0,) * pad)
+
+
+def cell_field(spec, cell_of, slot_of, m, rho, mu_bar, vol):
+    """K34: flat (C,) per-cell rho and n_H^2 from K1's binning (cell_of,
+    slot_of (N,) int32; the discarded in cell C) and the particles' m,
+    rho (N,): the slot map, then the per-cell sums over V_cell `vol`."""
+    N, dt, dev = m.shape[0], m.dtype, m.device
+    _check(rho, "rho", dt, (N,))
+    _check(cell_of, "cell_of", torch.int32, (N,))
+    _check(slot_of, "slot_of", torch.int32, (N,))
+    C, K = spec.total_cells, spec.k_cell
+    ids = torch.full((C * K,), -1, dtype=torch.int32, device=dev)
+    rho_c, nh2_c = (torch.empty((C,), dtype=dt, device=dev)
+                    for _ in range(2))
+    _launch("cell_field", dt, dev, _p(cell_of), _p(slot_of), N, C, K,
+            _p(ids), _p(m), _p(rho), float(mu_bar), float(vol), _p(rho_c),
+            _p(nh2_c))
+    return rho_c, nh2_c
+
+
+def ray_march(spec, field, r0, dirs, lengths, n_steps):
+    """K35: (N, S) midpoint integrals of the flat per-cell `field` along
+    rays from r0 (N, nd) with directions dirs (N, S, nd), or (S, nd)
+    shared by every particle, and lengths (N, S)."""
+    N, nd = r0.shape
+    S = lengths.shape[1]
+    dt, dev = r0.dtype, r0.device
+    n_cells = math.prod(spec.ncells[:spec.ndim])
+    _check(field, "field", dt, (n_cells,))
+    _check(lengths, "lengths", dt, (N, S))
+    shared = dirs.dim() == 2
+    _check(dirs, "dirs", dt, (S, nd) if shared else (N, S, nd))
+    out = torch.empty((N, S), dtype=dt, device=dev)
+    _launch("ray_march", dt, dev, *_radiation_grid(spec), _p(field), _p(r0),
+            _p(dirs), int(shared), _p(lengths), N, S, int(n_steps), _p(out))
+    return out
+
+
+def packet_march(spec, opacity, r0, dirs, n_steps, ds):
+    """K36: (path (C,), absorbed (C,), escaped 0-d) of packets from r0
+    (Np, nd) along dirs (Np, nd) through the flat per-cell `opacity`, at
+    step ds."""
+    n, nd = r0.shape
+    dt, dev = r0.dtype, r0.device
+    n_cells = math.prod(spec.ncells[:spec.ndim])
+    _check(opacity, "opacity", dt, (n_cells,))
+    _check(dirs, "dirs", dt, (n, nd))
+    # the float64 sums: path, absorbed, then the escaped weight
+    acc = torch.zeros((2 * n_cells + 1,), dtype=torch.float64, device=dev)
+    path, absorbed = (torch.empty((n_cells,), dtype=dt, device=dev)
+                      for _ in range(2))
+    escaped = torch.empty((), dtype=dt, device=dev)
+    _launch("packet_march", dt, dev, *_radiation_grid(spec), _p(opacity),
+            _p(r0), _p(dirs), n, int(n_steps), float(ds), _p(acc), _p(path),
+            _p(absorbed), _p(escaped))
+    return path, absorbed, escaped
+
+
+# particles per block of a K37 histogram pass, and the most blocks
+STROMGREN_CHUNK = 2048
+STROMGREN_MAX_BLOCKS = 1024
+
+
+def stromgren_prefix(r, rec, r_src, ndot, on, n_iter):
+    """K37: (N,) bool, reached by some source after the independent
+    Stromgren prefixes and `n_iter` flux-weighted rounds, from r (N, 3),
+    the recombination rates rec (N,), the sources r_src (S, 3), ndot (S,)
+    and on (S,) bool."""
+    N, dt, dev = r.shape[0], r.dtype, r.device
+    S = r_src.shape[0]
+    _check(r, "r", dt, (N, 3))
+    _check(rec, "rec", dt, (N,))
+    _check(r_src, "r_src", dt, (S, 3))
+    _check(ndot, "ndot", dt, (S,))
+    _check(on, "on", torch.bool, (S,))
+    n_blocks = max(1, min(-(-N // STROMGREN_CHUNK), STROMGREN_MAX_BLOCKS))
+    chunk = max(1, -(-N // n_blocks))
+    nlo = max(1, -(-max(N - 1, 1).bit_length() // 8))
+    d, wrec = (torch.empty((S, N), dtype=dt, device=dev) for _ in range(2))
+    partial = torch.empty((S, n_blocks, 256), dtype=dt, device=dev)
+    # five 8-byte words a source (csrc/radiation.cu:SrcState)
+    state = torch.zeros((S, 5), dtype=torch.int64, device=dev)
+    out = torch.empty((N,), dtype=torch.bool, device=dev)
+    _launch("stromgren_prefix", dt, dev, _p(r), _p(rec), N, _p(r_src),
+            _p(ndot), _p(on), S, int(n_iter), nlo, chunk, n_blocks, _p(d),
+            _p(wrec), _p(partial), _p(state), _p(out))
     return out

@@ -554,6 +554,64 @@ def plummer_stars_params(n_gas: int = 256, n_star: int = 8,
     return p
 
 
+# the Spitzer HII region of tests/test_spitzer.py: the cloud's radius,
+# mass and the Stromgren radius its source's Ndot sets (alphaB = mu_bar
+# = 1)
+SPITZER_RS = 0.35
+SPITZER_RHO0 = 3.0 / (4.0 * math.pi)
+
+
+def spitzer_params(n_hydro: int, radiation: str = "ionisation",
+                   **over) -> Parameters:
+    """tests/test_spitzer.py:21-29's configuration at n_hydro particles:
+    the cold lattice sphere (ic = spitzer, mcloud = radius = 1),
+    isothermal at temp0 1e-6 with temp_ion 0.05 and mu_ion = mu_bar = 1,
+    no self-gravity, the grid path, the radiation field every step from
+    the star (sink_particles 1, create_sinks 0), alphaB = 1, a global
+    timestep; keyword overrides after."""
+    p = Parameters()
+    values = dict(run_id="", ndim=3, sim="sph", ic="spitzer",
+                  Nhydro=n_hydro, mcloud=1.0, radius=1.0, dimensionless=1,
+                  gas_eos="isothermal", gamma_eos=5.0 / 3.0, hydro_forces=1,
+                  self_gravity=0, neib_search="kdtree", radiation=radiation,
+                  nradstep=1, sink_particles=1, create_sinks=0,
+                  temp_ion=0.05, mu_ion=1.0, mu_bar=1.0, arecomb=1.0,
+                  Ndotmin=0.0, temp0=1e-6, courant_mult=0.1,
+                  accel_mult=0.3, Nlevels=1, tsnapfirst=1e30, tend=1e30)
+    values.update(over)
+    for k, v in values.items():
+        p.set(k, v)
+    return p
+
+
+def spitzer_ndot(radiation: str = "ionisation",
+                 rs: float = SPITZER_RS) -> float:
+    """The source's Ndot (alphaB = mu_bar = 1): 4 pi/3 rho0^2 Rs^3, whose
+    Stromgren sphere has radius Rs (tests/test_spitzer.py:74); for
+    treeray 4 pi rho0^2 Rs^3, whose OnTheSpot front, flux = alphaB n_H^2
+    d, lies at Rs (tests/test_treeray.py:140)."""
+    k = 4.0 * math.pi if radiation == "treeray" else 4.0 * math.pi / 3.0
+    return k * SPITZER_RHO0 ** 2 * rs ** 3
+
+
+def spitzer_star():
+    """The IC's star: mass 1e-6 at rest at the origin, h 1e-3."""
+    return {"r": np.zeros((1, 3)), "v": np.zeros((1, 3)),
+            "m": np.asarray([1e-6]), "h": np.asarray([1e-3])}
+
+
+def spitzer_table(ndot: float):
+    """The flat stellar table of tests/test_spitzer.py:55-64: any mass
+    gives `ndot`."""
+    from .ops.stellar import StellarTable
+
+    logn = math.log10(ndot)
+    return StellarTable(mass=np.asarray([0.0, 1e3]), log_lum=np.zeros(2),
+                        log_nlyc=np.asarray([logn, logn]),
+                        teff=np.full(2, 4e4), mdot=np.zeros(2),
+                        vwind=np.zeros(2))
+
+
 def extpot_box_params(extpot: str, avert: float = -0.5) -> Parameters:
     """The uniform periodic box of tests/test_extpot.py:18-42 (a 6^3
     lattice in the unit box, energy_eqn gamma 1.4, rho 1, p 1) on the grid
@@ -3958,3 +4016,323 @@ def radws_sim_inputs(sim):
             "temp_amb": torch.full((n,), sim.eos.table.temp_ambient,
                                    dtype=s.rho.dtype, device=s.rho.device),
             "dt": s.dt.expand(n).contiguous()}
+
+
+# ---------------------------------------------------------------------------
+# radiation: K34-K37
+# ---------------------------------------------------------------------------
+
+# K34-K37's operations, counted by hand from csrc/radiation.cu: K34 per
+# particle in a slot (its weight m / max(rho, 1e-30), the two products
+# and sums, n_H and its square: 8) and per cell (the two divisions by
+# V_cell); K35 per sample (t, L t, the position, 2 a dim, the cell index,
+# 3 a dim, the bounds and flat index, 6, the sum: 25) and per ray (the
+# last product and division); K36 per step a packet takes inside the
+# domain (the midpoint, 2 a dim; the cell, 5 a dim; tau, the exp counted
+# 20, absorb, the Lucy path's test and division, the two sums, w and the
+# next position, 2 a dim: 55); K37 per (source, particle) the distance
+# (9) once, per round the flux weight (6) and per radix pass the key's
+# prefix test, its digit and the histogram add (4).
+FLOPS_PER.update({
+    "cell_field": 8, "cell_field_cell": 2, "ray_march_sample": 25,
+    "ray_march_ray": 2, "packet_step": 55, "stromgren_dist": 9,
+    "stromgren_weight": 6, "stromgren_pass": 4,
+})
+# K34's and K35's sums run in another order than the plain versions'
+# torch.sum (relative rounding ~ K eps); K36 sums in float64 against the
+# float32 plain version's atomics, so it is held against the plain version
+# in float64 on the same inputs (scaled by the field's largest value)
+TOL_F32_RADIATION = 1e-5
+TOL_F64_RADIATION = 1e-12
+# K37's flags may differ only where the plain version's cumulative sum at
+# the particle lies within this fraction of Ndot (the two sum in other
+# orders), and in at most TOL_FLAG_FRACTION of the particles
+STROMGREN_BAND = 1e-4
+TOL_FLAG_FRACTION = 1e-3
+# K37's rounds after the independent solution (the JAX default)
+STROMGREN_ROUNDS = 8
+# the Monte-Carlo cross-section of the Spitzer runs on the card (code
+# length units): about 50 optical depths a cell of the 262,144-particle
+# grid in the neutral gas, so the front is optically thick
+SPITZER_MC_ACROSS = 3000.0
+# its Monte-Carlo iterations (Nraditerations), as tests/test_mcrt.py:105
+# runs them: from xHI = 1e-3 the under-relaxed balance closes in on the
+# front from outside, ~35% beyond Rs after the default 4, ~9% after 10
+SPITZER_MC_ITERATIONS = 10
+_SPITZER_IC = {}
+
+
+def spitzer_sim(n_hydro: int, radiation: str, device="cuda",
+                dtype=torch.float32, **over):
+    """The Spitzer HII region through GradhSphSimulation, set up: the
+    lattice sphere (cached per n_hydro) with spitzer_star, the flat
+    spitzer_table at the scheme's spitzer_ndot and, for monoionisation,
+    SPITZER_MC_ACROSS and SPITZER_MC_ITERATIONS unless `over` sets
+    Nraditerations."""
+    from .sim.ic import spitzer_ic
+    from .sim.simulation import GradhSphSimulation
+
+    if radiation == "monoionisation":
+        over.setdefault("Nraditerations", SPITZER_MC_ITERATIONS)
+    params = spitzer_params(n_hydro, radiation, **over)
+    if n_hydro not in _SPITZER_IC:
+        _SPITZER_IC[n_hydro] = spitzer_ic(params, None)
+    ic = dict(_SPITZER_IC[n_hydro], star=spitzer_star())
+    sim = GradhSphSimulation(params, device=device, dtype=dtype)
+    sim.SetupSimulation(ic)
+    sim.stellar_table = spitzer_table(spitzer_ndot(radiation))
+    if radiation == "monoionisation":
+        sim.mc_across = SPITZER_MC_ACROSS
+    return sim
+
+
+def front_radius(sim) -> float:
+    """tests/test_spitzer.py's front: the 97th percentile of the ionised
+    particles' distance from the origin (0 with none ionised)."""
+    s = sim.state
+    ion = s.ionfrac > 0.5
+    if not bool(ion.any()):
+        return 0.0
+    d = torch.sqrt(torch.sum(s.r[ion].double() ** 2, dim=-1))
+    return float(torch.quantile(d, 0.97))
+
+
+def ionised_radius(sim) -> float:
+    """The radius of a sphere of the ionised particles' volume, sum m /
+    rho over them."""
+    s = sim.state
+    ion = (s.ionfrac > 0.5) & s.alive
+    vol = float(torch.sum((s.m / s.rho)[ion].double()))
+    return (3.0 * vol / (4.0 * math.pi)) ** (1.0 / 3.0)
+
+
+def radiation_kernel_inputs(sim, n_packets: int = None, seed: int = 1):
+    """K34-K37's inputs at a Spitzer simulation's state as its update
+    forms them: K1's binning of the alive particles, m, rho and mu_bar
+    (K34); the n_H^2 field and the rays toward the first source, 48
+    samples (K35); the first Monte-Carlo iteration's opacity (n_H 1e-3
+    sigma) and draws of max(Nphotonratio N, 4096) packets (or
+    `n_packets`), 256 steps (K36); the recombination rates and the
+    sources (K37)."""
+    from .ops import treeray as trr
+    from .ops.ionisation import recombination_rate
+    from .ops.stellar import stellar_nlyc
+
+    s, spec, cfg = sim.state, sim.gridspec, sim.ion_cfg
+    sk = s.sinks
+    b = g27.bin_particles(spec, s.r, discard=~s.alive)
+    rho_c, nh2_c = trr.cell_field_plain(spec, b, s.m, s.rho, cfg.mu_bar)
+    ndot = stellar_nlyc(sim.stellar_table, sk.m)
+    dr = sk.r[:1][None, :, :] - s.r[:, None, :]
+    d = torch.sqrt(torch.sum(dr * dr, dim=-1))
+    if n_packets is None:
+        n_packets = max(int(sim.params.floatparams["Nphotonratio"]) * s.N,
+                        4096)
+    src, pdirs = next(iter(sim._mc_draws(seed, ndot, n_packets, 1)))
+    nH = torch.clamp_min(rho_c / cfg.mu_bar, 1e-300)
+    return {
+        "spec": spec, "b": b, "m": s.m, "rho": s.rho, "mu_bar": cfg.mu_bar,
+        "field": nh2_c, "r": s.r,
+        "dirs": (dr / torch.clamp_min(d, 1e-30)[..., None]).contiguous(),
+        "lengths": d.contiguous(), "n_samples": 48,
+        "ndot": ndot, "alphaB": cfg.alphaB,
+        "opacity": nH * 1e-3 * getattr(sim, "mc_across", SPITZER_MC_ACROSS),
+        "r0": sk.r[src].contiguous(), "pdirs": pdirs.contiguous(),
+        "n_steps": 256,
+        "rec": recombination_rate(cfg, s.m, s.rho), "r_src": sk.r,
+        "on": sk.active & (ndot > cfg.Ndotmin)}
+
+
+def stromgren_inputs(n: int, device, dtype, seed: int = 4):
+    """K37's synthetic case: n particles uniform in [-1.5, 1.5]^3 with
+    rho in [0.8, 1.2] and three overlapping sources (one at twice the
+    others' Ndot), each reaching about 0.5 alone."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(-1.5, 1.5, (n, 3))
+    rho = rng.uniform(0.8, 1.2, n)
+    m = np.full(n, 27.0 / n)
+    ndot = 4.0 * math.pi / 3.0 * 0.5 ** 3 * np.array([1.0, 1.0, 2.0])
+    kw = dict(device=device, dtype=dtype)
+    rho_t = torch.tensor(rho, **kw)
+    return {"r": torch.tensor(r, **kw),
+            "rec": torch.tensor(m, **kw) * rho_t,   # alphaB = mu_bar = 1
+            "r_src": torch.tensor([[-0.3, 0.0, 0.0], [0.3, 0.0, 0.0],
+                                   [0.0, 0.45, 0.2]], **kw),
+            "ndot": torch.tensor(ndot, **kw),
+            "on": torch.ones(3, dtype=torch.bool, device=device)}
+
+
+def _packet_steps(spec, r0, dirs, n_steps, ds) -> int:
+    """The steps K36's packets take inside the domain (each until its
+    first midpoint outside an open dim), as the plain march finds them."""
+    from .ops.treeray import cell_indexer
+
+    index = cell_indexer(spec, r0.dtype, r0.device)
+    pos, live, steps = r0, torch.ones(r0.shape[0], dtype=torch.bool,
+                                      device=r0.device), 0
+    for _ in range(n_steps):
+        _, inside = index(pos + (0.5 * ds) * dirs)
+        live = live & inside
+        steps += int(live.sum())
+        pos = pos + ds * dirs
+    return steps
+
+
+def compare_stromgren(inp):
+    """K37 against its plain version on the same CUDA tensors: the flags
+    that differ, those outside STROMGREN_BAND of Ndot (must be none) and
+    their fraction (at most TOL_FLAG_FRACTION)."""
+    from .ops.ionisation import multi_source_ionisation_plain
+
+    r, rec, rs, ndot, on = (inp[k] for k in ("r", "rec", "r_src", "ndot",
+                                             "on"))
+    N, S = r.shape[0], rs.shape[0]
+    got = _ext.stromgren_prefix(r, rec, rs, ndot, on, STROMGREN_ROUNDS)
+    want, cum = multi_source_ionisation_plain(r, rec, rs, ndot, on,
+                                              STROMGREN_ROUNDS, cums=True)
+    band = torch.any(torch.abs(cum - ndot[:, None])
+                     <= STROMGREN_BAND * ndot[:, None], dim=0)
+    diff = got != want
+    flips = int(diff.sum())
+    outside = int((diff & ~band).sum())
+    # radix passes: a byte of d's bits each, then of the index's
+    n_pass = r.element_size() + max(1, -(-max(N - 1, 1).bit_length() // 8))
+    flops = S * N * (FLOPS_PER["stromgren_dist"] + (STROMGREN_ROUNDS + 1) * (
+        FLOPS_PER["stromgren_weight"] + n_pass * FLOPS_PER["stromgren_pass"]))
+    rep = {"N": N, "S": S, "dtype": str(r.dtype), "flips": flips,
+           "flips_outside_band": outside, "in_band": int(band.sum()),
+           "ionised": int(want.sum()), "max_abs_err": float(flips),
+           "ok": outside == 0 and flips <= TOL_FLAG_FRACTION * N,
+           "work": _work((r, rec, rs, ndot, on), (got,), flops),
+           "library_ms": None}
+    return rep
+
+
+def compare_radiation_kernels(inp, repeats: int = 0, stromgren=None):
+    """K34-K37 against their plain versions on the same CUDA tensors (a
+    dict from radiation_kernel_inputs; `stromgren` a second K37 case from
+    stromgren_inputs): per kernel the largest error relative to the
+    field's largest value (K36's against its plain version in float64),
+    the treeray flags the K35 integrals flip, K37's flag report, `ok`,
+    `work` and, with `repeats`, ms and plain_ms; K34's library_ms is
+    index_add_ of the same terms over K1's cell ids.  Launch counts are
+    restored."""
+    from .ops import mcrt as mc
+    from .ops import treeray as trr
+    from .ops.ionisation import multi_source_ionisation_plain
+
+    saved = dict(_ext.LAUNCHES)
+    spec, b = inp["spec"], inp["b"]
+    m, rho, mu = inp["m"], inp["rho"], inp["mu_bar"]
+    f32 = m.dtype == torch.float32
+    tol = TOL_F32_RADIATION if f32 else TOL_F64_RADIATION
+    C, N = spec.total_cells, m.shape[0]
+    vol = trr.cell_volume(spec)
+    out, timed = {}, {}
+
+    # K34
+    got = _ext.cell_field(spec, b.cell_of, b.slot_of, m, rho, mu, vol)
+    want = [x.reshape(-1) for x in trr.cell_field_plain(spec, b, m, rho, mu)]
+    n_in = int((b.cell_of < C).sum())
+    err = max(_scaled_err(g, w) for g, w in zip(got, want))
+    out["cell_field"] = {
+        "N": N, "cells": C, "k_cell": spec.k_cell, "dtype": str(m.dtype),
+        "max_abs_err": max(float(torch.abs(g - w).max())
+                           for g, w in zip(got, want)),
+        "rel_err": err, "ok": err <= tol,
+        "work": _work((b.cell_of, b.slot_of, m, rho), got,
+                      n_in * FLOPS_PER["cell_field"]
+                      + C * FLOPS_PER["cell_field_cell"])}
+    w_p = m / torch.clamp_min(rho, 1e-30)
+    t_rho, t_nh2 = w_p * rho, w_p * (rho / mu) ** 2
+    cid = torch.where(b.cell_of < C, b.cell_of, C).long()
+    timed["cell_field"] = (
+        lambda: _ext.cell_field(spec, b.cell_of, b.slot_of, m, rho, mu, vol),
+        lambda: trr.cell_field_plain(spec, b, m, rho, mu))
+    library = {"cell_field": lambda: (
+        torch.zeros(C + 1, dtype=m.dtype, device=m.device).index_add_(
+            0, cid, t_rho),
+        torch.zeros(C + 1, dtype=m.dtype, device=m.device).index_add_(
+            0, cid, t_nh2))}
+
+    # K35
+    field, r, dirs, ln = inp["field"], inp["r"], inp["dirs"], inp["lengths"]
+    ns = inp["n_samples"]
+    fflat = field.reshape(-1).contiguous()
+    got = _ext.ray_march(spec, fflat, r, dirs, ln, ns)
+    want = trr.march_plain(spec, field, r, dirs, ln, ns)
+    err = _scaled_err(got, want)
+    flux = inp["ndot"][:1][None, :] / (4.0 * math.pi
+                                       * torch.clamp_min(ln, 1e-30) ** 2)
+    flips = int(((flux >= inp["alphaB"] * got)
+                 != (flux >= inp["alphaB"] * want)).sum())
+    rays = ln.numel()
+    out["ray_march"] = {
+        "N": N, "rays": rays, "samples": ns, "dtype": str(m.dtype),
+        "max_abs_err": float(torch.abs(got - want).max()), "rel_err": err,
+        "treeray_flips": flips,
+        "ok": err <= tol and flips <= TOL_FLAG_FRACTION * N,
+        "work": _work((fflat, r, dirs, ln), (got,),
+                      rays * (ns * FLOPS_PER["ray_march_sample"]
+                              + FLOPS_PER["ray_march_ray"]))}
+    timed["ray_march"] = (
+        lambda: _ext.ray_march(spec, fflat, r, dirs, ln, ns),
+        lambda: trr.march_plain(spec, field, r, dirs, ln, ns))
+
+    # K36
+    op, r0, pd, nst = inp["opacity"], inp["r0"], inp["pdirs"], inp["n_steps"]
+    opflat = op.reshape(-1).contiguous()
+    ds = 0.5 * min(spec.extents[k] / spec.ncells[k]
+                   for k in range(spec.ndim))
+    got = _ext.packet_march(spec, opflat, r0, pd, nst, ds)
+    want = mc.propagate_packets_plain(spec, op.double(), r0.double(),
+                                      pd.double(), nst, ds)
+    errs = [_scaled_err(g.double().reshape(-1), w.reshape(-1))
+            for g, w in zip(got, want)]
+    steps = _packet_steps(spec, r0, pd, nst, ds)
+    out["packet_march"] = {
+        "packets": r0.shape[0], "steps": nst, "steps_inside": steps,
+        "cells": C, "dtype": str(m.dtype),
+        "max_abs_err": max(float(torch.abs(g.double().reshape(-1)
+                                           - w.reshape(-1)).max())
+                           for g, w in zip(got, want)),
+        "rel_err": {"path": errs[0], "absorbed": errs[1],
+                    "escaped": errs[2]},
+        "escaped_fraction": float(got[2]) / r0.shape[0],
+        "ok": max(errs) <= tol,
+        "work": _work((opflat, r0, pd), got, steps * FLOPS_PER["packet_step"])}
+    timed["packet_march"] = (
+        lambda: _ext.packet_march(spec, opflat, r0, pd, nst, ds),
+        lambda: mc.propagate_packets_plain(spec, op, r0, pd, nst, ds))
+
+    # K37 at the simulation's state, and the synthetic case
+    k37 = {"r": r, "rec": inp["rec"], "r_src": inp["r_src"],
+           "ndot": inp["ndot"], "on": inp["on"]}
+    out["stromgren_prefix"] = compare_stromgren(k37)
+    timed["stromgren_prefix"] = (
+        lambda: _ext.stromgren_prefix(r, inp["rec"], inp["r_src"],
+                                      inp["ndot"], inp["on"],
+                                      STROMGREN_ROUNDS),
+        lambda: multi_source_ionisation_plain(
+            r, inp["rec"], inp["r_src"], inp["ndot"], inp["on"],
+            STROMGREN_ROUNDS))
+    if stromgren is not None:
+        out["stromgren_prefix_3src"] = compare_stromgren(stromgren)
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+        for name, fn in library.items():
+            out[name]["library_ms"] = _time_ms(fn, repeats)
+    for rep in out.values():
+        rep.setdefault("library_ms", None)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def _scaled_err(x, ref) -> float:
+    """Largest |x - ref| over the largest |ref| (finite entries of ref)."""
+    ok = torch.isfinite(ref)
+    if not bool(ok.any()):
+        return 0.0
+    err = float(torch.abs(x - ref)[ok].max())
+    return err / max(float(torch.abs(ref)[ok].max()), 1e-300)

@@ -13,7 +13,11 @@ goes back).
 fast-multipole fields included); ``ewald_table_from_jax`` copies a JAX
 ``EwaldTable`` into the port's (float64 numpy arrays and the same
 metadata), ``opacity_table_from_jax`` a JAX RadWS ``OpacityTable`` into
-the port's (tensors on a device in a dtype, Python float scalars);
+the port's (tensors on a device in a dtype, Python float scalars),
+``stellar_table_from_jax`` a JAX ``StellarTable`` and
+``mc_draws_from_numpy`` the Monte-Carlo packets' draws (source index,
+direction) of each iteration, made with jax.random and read out as
+numpy, into what ``ops/mcrt.py`` takes;
 ``schedule_from_jax``
 copies a JAX ``BlockSchedule`` and ``schedule_to_jax`` gives a port
 schedule's fields as numpy arrays in the JAX package's types (for
@@ -34,6 +38,7 @@ from .ops.ewald import EwaldTable
 from .ops.radws import OpacityTable
 from .ops.sinks import SinkState
 from .ops.sph_grid27 import Grid27Spec
+from .ops.stellar import StellarTable
 from .ops.tree import TreeSpec
 from .state import MfvState, NbodyState, SphState
 
@@ -208,3 +213,19 @@ def schedule_to_jax(sched: BlockSchedule) -> Dict[str, np.ndarray]:
     """A schedule's fields as host numpy arrays (int32 and float)."""
     return {f: getattr(sched, f).detach().cpu().numpy()
             for f in BlockSchedule._fields}
+
+
+def stellar_table_from_jax(table) -> StellarTable:
+    """The port's StellarTable from a JAX one (host numpy columns)."""
+    return StellarTable(**{f.name: np.array(getattr(table, f.name),
+                                            dtype=np.float64)
+                           for f in dataclasses.fields(StellarTable)})
+
+
+def mc_draws_from_numpy(draws, device="cpu", dtype=torch.float64):
+    """[(source index (Np,) int64, direction (Np, ndim))] on `device` in
+    `dtype` from numpy pairs, one pair per Monte-Carlo iteration."""
+    return [(torch.tensor(np.asarray(src), dtype=torch.int64,
+                          device=device),
+             torch.tensor(np.asarray(dirs), dtype=dtype, device=device))
+            for src, dirs in draws]

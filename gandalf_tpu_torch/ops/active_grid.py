@@ -253,8 +253,9 @@ def active_hydro_pass(kern, visc, spec: g27.Grid27Spec, eos, h_fac: float,
                           b.cell_of, ids_d, s.r, s.m, s.h)
     il = idx.long()
     dens = finish_h(spec.ndim, h_fac, s.m[il], *sums)
+    eos_kw = {"ionfrac": s.ionfrac[il]} if eos.needs_ionfrac else {}
     u_a, press_a, sound_a = eos.thermal_update(
-        torch.clamp_min(dens.rho, 1e-30), s.u[il])
+        torch.clamp_min(dens.rho, 1e-30), s.u[il], **eos_kw)
 
     def put(f, x):
         return f.index_copy(0, il, x)

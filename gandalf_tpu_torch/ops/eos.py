@@ -3,15 +3,19 @@ barotropic, polytropic and radws EOS.
 
 Counterpart of ``gandalf_tpu/ops/eos.py`` (``EOS``, ``Adiabatic``,
 ``Isothermal``, ``Barotropic``, ``Polytropic``, ``Radws``,
-``eos_factory``) for the EOS of the ported slices.  Pressure is
+``IonisingRadiationEOS``, ``MCRadiationEOS``, ``eos_factory``) for the
+EOS of the ported slices.  Pressure is
 (gamma-1)*rho*u (K*rho^eta for the polytrope); the adiabatic sound speed
 is sqrt(gamma*(gamma-1)*u), the others' sqrt((gamma-1)*u), all
 elementwise torch.  The radws EOS reads gamma from its opacity table at
 the nearest (rho, T(u)) entry through ``ops/radws.py:radws_eos`` (K27 on
-CUDA tensors).  The locally isothermal family (it reads the star
-positions, which the JAX package's grid passes do not give its EOS:
-fault F20) and the radiation wrappers raise NotImplementedError naming
-their ROADMAP item.
+CUDA tensors).  With a radiation scheme (ionisation, treeray,
+monoionisation) the factory wraps every EOS but radws in the ionisation
+blend, whose ``thermal_update`` takes the particles' ``ionfrac``
+(``needs_ionfrac``); every EOS's ``thermal_update`` accepts the keyword.
+The locally isothermal family (it reads the star positions, which the
+JAX package's grid passes do not give its EOS: fault F20) raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,6 +37,10 @@ class EOS:
     gamma: float
     mu_bar: float = 1.0
 
+    # the radiation wrappers blend the base state with the ionisation
+    # fraction; the passes hand `ionfrac` to thermal_update where it is set
+    needs_ionfrac = False
+
     @property
     def gammam1(self) -> float:
         return self.gamma - 1.0
@@ -46,7 +54,7 @@ class EOS:
     def sound_speed(self, rho: Tensor, u: Tensor) -> Tensor:
         raise NotImplementedError
 
-    def thermal_update(self, rho: Tensor, u: Tensor):
+    def thermal_update(self, rho: Tensor, u: Tensor, ionfrac=None):
         """Return (u, pressure, sound) after a density update."""
         u_new = self.specific_internal_energy(rho, u)
         return u_new, self.pressure(rho, u_new), self.sound_speed(rho, u_new)
@@ -125,26 +133,95 @@ class Radws(EOS):
     def sound_speed(self, rho, u):
         return radws_eos(self.table, rho, u)[1]
 
-    def thermal_update(self, rho, u):
+    def thermal_update(self, rho, u, ionfrac=None):
         p, c = radws_eos(self.table, rho, u)
         return u, p, c
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class IonisingRadiationEOS(EOS):
+    """The photoionised-gas wrapper (IonisingRadiation,
+    src/Thermal/IonisingRadiationEOS.cpp:96-121): an ionised particle
+    (ionfrac > 0.5) keeps its u where it exceeds the base EOS's, so an
+    isothermal base does not reset the HII region's temperature."""
+
+    base: object = None
+    needs_ionfrac = True
+
+    def thermal_update(self, rho, u, ionfrac=None):
+        u_b, p_b, c_b = self.base.thermal_update(rho, u)
+        if ionfrac is None:
+            return u_b, p_b, c_b
+        u_new = torch.where(ionfrac > 0.5, torch.maximum(u, u_b), u_b)
+        return (u_new, self.base.pressure(rho, u_new),
+                self.base.sound_speed(rho, u_new))
+
+    def specific_internal_energy(self, rho, u):
+        return self.base.specific_internal_energy(rho, u)
+
+    def sound_speed(self, rho, u):
+        return self.base.sound_speed(rho, u)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MCRadiationEOS(EOS):
+    """The ionisation-fraction blend (MCRadiationEOS,
+    src/Thermal/MCRadiationEOS.cpp): u = f u_ion + (1 - f) u_base with
+    u_ion = temp_ion / (gamma - 1) / mu_ion."""
+
+    base: object = None
+    temp_ion: float = 1.0e4
+    mu_ion: float = 0.678
+    needs_ionfrac = True
+
+    def thermal_update(self, rho, u, ionfrac=None):
+        u_b, p_b, c_b = self.base.thermal_update(rho, u)
+        if ionfrac is None:
+            return u_b, p_b, c_b
+        u_ion = self.temp_ion / self.gammam1 / self.mu_ion
+        u_new = ionfrac * u_ion + (1.0 - ionfrac) * u_b
+        return (u_new, self.base.pressure(rho, u_new),
+                self.base.sound_speed(rho, u_new))
+
+    def specific_internal_energy(self, rho, u):
+        return self.base.specific_internal_energy(rho, u)
+
+    def sound_speed(self, rho, u):
+        return self.base.sound_speed(rho, u)
+
+
+# the radiation schemes, and the EOS their wrapper blends
+# (gandalf_tpu/ops/eos.py:281-299; Hydrodynamics.cpp:81-90)
+RADIATION_SCHEMES = ("ionisation", "monoionisation", "treeray")
+_WRAPPED = ("energy_eqn", "constant_temp", "isothermal", "polytropic",
+            "barotropic", "barotropic2")
+
+
 def eos_factory(params, device="cpu", dtype=torch.float64) -> EOS:
-    """Build the EOS named by `gas_eos` without a radiation wrapper:
-    `energy_eqn` (and its alias `constant_temp`), `isothermal`,
-    `barotropic`, `polytropic` and `radws`, whose opacity table
-    (`radws_table`, the reference's text format) is read onto `device`
-    in `dtype`; when the file is missing, a warning, and the synthetic
-    ideal-gas, constant-opacity table at gamma_eos, mu_bar and
-    temp_ambient."""
+    """Build the EOS named by `gas_eos`: `energy_eqn` (and its alias
+    `constant_temp`), `isothermal`, `barotropic`, `polytropic` and
+    `radws`, whose opacity table (`radws_table`, the reference's text
+    format) is read onto `device` in `dtype`; when the file is missing,
+    a warning, and the synthetic ideal-gas, constant-opacity table at
+    gamma_eos, mu_bar and temp_ambient.  With a radiation scheme every
+    one but radws comes wrapped: IonisingRadiationEOS for ionisation and
+    treeray, MCRadiationEOS for monoionisation."""
     name = params.stringparams["gas_eos"]
-    if params.stringparams["radiation"] not in ("none", "null", ""):
-        raise NotImplementedError(
-            "radiation EOS wrappers are not ported yet (ROADMAP queue 1, "
-            "item 12)")
     fp = params.floatparams
     gamma, mu_bar = fp["gamma_eos"], fp["mu_bar"]
+    radiation = params.stringparams["radiation"]
+    if radiation in RADIATION_SCHEMES and name in _WRAPPED:
+        base = _base_eos(params, name, gamma, mu_bar, device, dtype)
+        if radiation == "monoionisation":
+            return MCRadiationEOS(gamma=gamma, mu_bar=mu_bar, base=base,
+                                  temp_ion=fp["temp_ion"],
+                                  mu_ion=fp["mu_ion"])
+        return IonisingRadiationEOS(gamma=gamma, mu_bar=mu_bar, base=base)
+    return _base_eos(params, name, gamma, mu_bar, device, dtype)
+
+
+def _base_eos(params, name, gamma, mu_bar, device, dtype) -> EOS:
+    fp = params.floatparams
     if name in ("energy_eqn", "constant_temp"):
         return Adiabatic(gamma=gamma, mu_bar=mu_bar)
     if name == "radws":

@@ -648,8 +648,11 @@ def hydro_pass_grid27(kern, visc, box: DomainBox, spec: Grid27Spec, eos,
     r_d, v_d, m_d, h_d = d(s.r), d(s.v), d(s.m), d(s.h)
     dens = density_grid27(kern, spec, h_fac, h_converge, r_d, m_d, h_d,
                           fill, hmax)
+    # the radiation wrappers blend with the ionisation fraction
+    # (gandalf_tpu/ops/sph_grid27.py:834-835)
+    eos_kw = {"ionfrac": d(s.ionfrac)} if eos.needs_ionfrac else {}
     u_d, pressure_d, sound_d = eos.thermal_update(
-        torch.clamp_min(dens.rho, 1e-30), d(s.u))
+        torch.clamp_min(dens.rho, 1e-30), d(s.u), **eos_kw)
     if hydro_forces:
         dense_fields = {
             "r": r_d, "v": v_d, "m": m_d, "h": dens.h, "rho": dens.rho,
@@ -724,8 +727,9 @@ def _hydro_pass_grid27_mirror(kern, visc, box: DomainBox, spec: Grid27Spec,
     h_new, rho_new = sane(dens.h, 1.0), sane(dens.rho, 1.0)
     invom_new, zeta_new = sane(dens.invomega, 1.0), sane(dens.zeta, 0.0)
     hfac_new = sane(dens.hfactor, 0.0)
+    eos_kw = {"ionfrac": s.ionfrac} if eos.needs_ionfrac else {}
     u_new, press_new, sound_new = eos.thermal_update(
-        torch.clamp_min(rho_new, 1e-30), s.u)
+        torch.clamp_min(rho_new, 1e-30), s.u, **eos_kw)
     u_new = torch.where(live, u_new, 1e-30)
     press_new = torch.where(live, press_new, 0.0)
     sound_new = torch.where(live, sound_new, 0.0)

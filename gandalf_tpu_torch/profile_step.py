@@ -18,6 +18,7 @@ steps of a slice on one GPU.
     python -m gandalf_tpu_torch.profile_step --sm2012 [--khi]
     python -m gandalf_tpu_torch.profile_step --radws [--mfv]
     python -m gandalf_tpu_torch.profile_step --radfb
+    python -m gandalf_tpu_torch.profile_step --radiation SCHEME
     python -m gandalf_tpu_torch.profile_step [--block] --kernel V
 
 Sets up the slice at 64^3 = 262,144 particles in float32 (hydro only,
@@ -72,6 +73,12 @@ thermodynamics (check.radws_params: K27 and K28, or K27 and K29 in
 MFV).  With --radfb: the hybrid Plummer sphere of 262,144 gas particles
 and 4 stars on radws with radiative feedback (check.radfb_params;
 K27, K28 and K30 beside the sink path's kernels), as the SPH box.
+With --radiation (ionisation, treeray or monoionisation): the Spitzer HII
+region (check.spitzer_params at 262,144 particles, the star at the
+origin, check.spitzer_table; monoionisation with
+check.SPITZER_MC_ACROSS) in float32, 2 warm-up steps, then a window of
+4 steps, each with its radiation update (K37, or K34 and K35, or K34
+and K36 four times).
 With --kernel V (quintic, gaussian, m4_tab, quintic_tab, gaussian_tab)
 the SPH box, or with --block the block sphere, runs that smoothing
 kernel (check.family_params; the gaussian with --self-gravity 0).
@@ -79,7 +86,7 @@ Prints one JSON line a
 window: the steps before it, each kernel's launches in it (a burst
 redone after an overflow replan counts again), the window's host time,
 the device time summed over kernels and copies, the device's idle share
-of the window, the device time of each of K1-K33 and of the torch glue
+of the window, the device time of each of K1-K37 and of the torch glue
 between them, and the device time per kernel name (largest first); with
 --block also the active rows per tick.  Refuses to run without CUDA.
 """
@@ -100,7 +107,7 @@ N_SIDE = 64
 STEPS = 8
 BLOCK_N = 262144
 BLOCK_WARM = 4
-# device kernel names of K1-K31 (csrc/); every other device event is glue
+# device kernel names of K1-K37 (csrc/); every other device event is glue
 FAMILIES = {
     "K1 grid27_bin": ("bin_count_kernel", "bin_scan_kernel",
                       "bin_scatter_kernel", "bin_rank_kernel"),
@@ -141,7 +148,15 @@ FAMILIES = {
     "K32 mfv_vsig_near": ("vsig_near_kernel",),
     "K33 mfv_vsig_far": ("vsig_agg_kernel", "vsig_far_kernel",
                          "vsig_far_reduce"),
+    "K34 cell_field": ("slot_map_kernel", "cell_sum_kernel"),
+    "K35 ray_march": ("ray_march_kernel",),
+    "K36 packet_march": ("packet_march_kernel", "packet_cast_kernel"),
+    "K37 stromgren_prefix": ("src_dist_kernel", "weights_kernel",
+                             "hist_kernel", "select_kernel",
+                             "any_reach_kernel"),
 }
+# the radiation window's steps (each with its update)
+RADIATION_STEPS = 4
 DUST_NHYDRO = 131072
 NBODY_N = 65536
 NBODY_TS6_N = 16384
@@ -181,7 +196,11 @@ def _profile_window(sim, args, before: int) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        if args.block or args.block_sinks or args.nbody:
+        if args.radiation:
+            for _ in range(RADIATION_STEPS):
+                sim.main_loop_step()
+            done = RADIATION_STEPS
+        elif args.block or args.block_sinks or args.nbody:
             for _ in range(STEPS):
                 sim.main_loop_step()
                 if args.block or args.block_sinks:
@@ -224,7 +243,8 @@ def _profile_window(sim, args, before: int) -> int:
             "mirror": args.layout if args.mirror else None,
             "dust": args.dust_case if args.dust else None,
             "sm2012": args.sm2012, "radws": args.radws,
-            "radfb": args.radfb, "kernel": sim.kern.variant,
+            "radfb": args.radfb, "radiation": args.radiation,
+            "kernel": sim.kern.variant,
             "ndim": sim.ndim,
             "sinks_active": (int(sim.state.sinks.active.sum())
                              if getattr(sim, "has_sinks", False) else 0),
@@ -305,6 +325,9 @@ def main(argv=None) -> int:
     ap.add_argument("--radfb", action="store_true",
                     help="the Plummer sphere with 4 stars on radws with "
                          "radiative feedback (radfb_cluster)")
+    ap.add_argument("--radiation", default=None,
+                    choices=("ionisation", "treeray", "monoionisation"),
+                    help="the Spitzer HII region under this scheme")
     ap.add_argument("--kernel", default="m4",
                     choices=("m4",) + tuple(VARIANTS),
                     help="the smoothing kernel of the SPH box or the "
@@ -323,7 +346,12 @@ def main(argv=None) -> int:
                         sm2012_params, sphere_block_params)
     from .sim.simulation import GradhSphSimulation, SimulationBase
 
-    if args.nbody:
+    if args.radiation:
+        from .check import spitzer_sim
+
+        sim = spitzer_sim(BLOCK_N, args.radiation, "cuda")
+        warm = 2
+    elif args.nbody:
         ts6 = args.nbody_scheme == "hermite6ts"
         params = nbody_params(NBODY_TS6_N if ts6 else NBODY_N,
                               nbody=args.nbody_scheme,

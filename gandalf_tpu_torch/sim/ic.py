@@ -13,7 +13,8 @@ EwaldIc.cpp (``jeans`` = ``ewaldsine``, ``ewaldsine2``, ``ewaldslab``,
 ``ewaldcylinder``), the Boss-Bodenheimer cloud (``bossbodenheimer`` =
 ``bb``), the hybrid gas-and-star Plummer sphere (``plummer``), and the
 gas-and-dust tests: the dusty box (``dustybox``) and the Evrard collapse
-(``evrard``, with a dust copy of its gas when dust_forces is set), with
+(``evrard``, with a dust copy of its gas when dust_forces is set), and
+the cold sphere of the Spitzer HII-region test (``spitzer``), with
 ``generate_ic``'s dispatch; and the N-body star sets (``plummer``,
 ``binary``, ``triple``, ``quadruple``) with ``generate_nbody_ic``'s.
 Host-side numpy in float64, as there; each hydro generator returns a
@@ -325,8 +326,13 @@ def add_lattice_sphere(n_target: int, radius: float, ndim: int = 3
                        ) -> np.ndarray:
     """Cubic-lattice points inside a sphere, tuned to ~n_target points
     (Ic::AddLatticeSphere, src/Ic/Ic.cpp)."""
-    # binary-search the lattice resolution whose sphere cut best matches
+    # search the lattice resolution whose sphere cut best matches.  Past
+    # the target the count only grows with the resolution (by ~n^(ndim-1)
+    # a step, far above the lattice's fluctuation), so two resolutions in
+    # a row beyond the best match's distance end the search where the JAX
+    # package's loop runs on to its last resolution with the same result
     best = None
+    beyond = 0
     lo, hi = 2, max(4, int(3.0 * n_target ** (1.0 / ndim)))
     for n_lat in range(lo, hi):
         r = add_cubic_lattice([n_lat] * ndim, [-radius] * ndim,
@@ -336,6 +342,10 @@ def add_lattice_sphere(n_target: int, radius: float, ndim: int = 3
         if best is None or abs(cnt - n_target) < abs(best[0] - n_target):
             best = (cnt, r[inside])
         if cnt >= n_target and best[0] == cnt:
+            break
+        beyond = beyond + 1 if cnt - n_target > abs(best[0] - n_target) \
+            else 0
+        if beyond == 2:
             break
     return best[1]
 
@@ -369,6 +379,23 @@ def sphere_ic(params, eos) -> Dict[str, np.ndarray]:
     h = h_fac * (m / rho0) ** (1.0 / ndim)
     u = np.full(N, press / (gammam1 * rho0))
     return {"r": r, "v": np.zeros((N, ndim)), "m": m, "h": h, "u": u}
+
+
+def spitzer_ic(params, eos) -> Dict[str, np.ndarray]:
+    """The cold uniform lattice sphere of the Spitzer HII-region
+    expansion test (src/Ic/SpitzerExpansionIc.cpp:57-130): u tiny, the
+    ionisation drives the dynamics."""
+    fp, ip = params.floatparams, params.intparams
+    if ip["ndim"] != 3:
+        raise ValueError("spitzer IC is 3D only")
+    mcloud, radius = fp["mcloud"], fp["radius"]
+    r = add_lattice_sphere(ip["Nhydro"], radius, 3)
+    N = len(r)
+    rho = mcloud / (4.0 / 3.0 * np.pi * radius ** 3)
+    m = np.full(N, mcloud / N)
+    h = fp["h_fac"] * (m / rho) ** (1.0 / 3.0)
+    return {"r": r, "v": np.zeros_like(r), "m": m, "h": h,
+            "u": np.full(N, 1e-20)}
 
 
 def evrard_ic(params, eos) -> Dict[str, np.ndarray]:
@@ -800,6 +827,7 @@ _IC_REGISTRY = {
     "plummer": plummer_hybrid_ic,
     "dustybox": dustybox_ic,
     "evrard": evrard_ic,
+    "spitzer": spitzer_ic,
 }
 
 _NBODY_IC_REGISTRY = {

@@ -72,6 +72,11 @@ class NbodySimulation(SimulationBase):
             raise _unsupported(f"sim {sp['sim']!r}", "items 9-10")
         if self.ndim not in (2, 3):
             raise _unsupported(f"N-body in {self.ndim}D", "item 11")
+        if sp["radiation"] not in ("none", "null", ""):
+            # the JAX package's N-body controller never reads `radiation`
+            raise _unsupported("radiation in NbodySimulation (the JAX "
+                               "package's controller ignores it: fault "
+                               "F26)", "item 12")
         self.scheme = sp["nbody"]
         if self.scheme not in SCHEMES:
             raise _unsupported(f"nbody scheme {self.scheme!r}", "item 11")

@@ -47,6 +47,12 @@ outside that slice raise NotImplementedError naming their ROADMAP item;
 dust with sinks or stars is refused (the JAX package's sink paths apply
 no drag: fault F14), and so are external potentials under the compacted
 block tick (which skips them there: fault F19).
+With ``radiation`` = ionisation, treeray or monoionisation and sinks or
+stars as sources, the ionisation field updates every ``nradstep`` steps
+before the step, in the global step and the dense block tick
+(``_radiation_update``: the multi-source Stromgren balance, K37; the
+ray-traced OnTheSpot balance, K34 and K35; or the monochromatic
+Monte-Carlo balance, K34 and K36), and a burst never crosses an update.
 
 ``SM2012SphSimulation`` is the counterpart of gandalf_tpu's: the same
 controller with the Saitoh & Makino (2012) grid pass of
@@ -71,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -84,11 +91,15 @@ from ..integrate.leapfrog import (IntegratorConfig, correct, predict,
 from ..kernels.smoothing import kernel_factory
 from ..ops.active_grid import active_hydro_pass, levelneib_grid27
 from ..ops.dust import DragLaw, drag_pass_grid
-from ..ops.eos import eos_factory
+from ..ops import mcrt, treeray
+from ..ops import sph_grid27 as g27
+from ..ops.eos import RADIATION_SCHEMES, eos_factory
 from ..ops.ewald import table_from_params
 from ..ops.forces import ArtificialViscosity, cullen_dehnen_dense
 from ..ops.gravity import (EXTERNAL_POTENTIALS, direct_softened,
                            external_potential)
+from ..ops.ionisation import (IonisationConfig, apply_ionisation,
+                              multi_source_ionisation)
 from ..ops.radiative_fb import (DiscHeatingConfig, SinkHeatingConfig,
                                 combined_ambient_temperature)
 from ..ops.radws import energy_find_equi, radws_energy_integration
@@ -97,6 +108,8 @@ from ..ops.sinks import (SinkConfig, accrete_to_sinks,
                          make_sinks, smooth_accretion_sums)
 from ..ops.sm2012 import sm2012_hydro_pass_grid
 from ..ops.sph_gravity import star_gas_forces
+from ..ops.stellar import (default_stellar_table, load_stellar_table,
+                           stellar_nlyc)
 from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
 from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
                         plan_tree_for_buckets, tree_gravity_active,
@@ -136,6 +149,8 @@ class SimulationBase:
     ``_run_bootstrap``."""
 
     use_block = False
+    # whether the controller runs the radiation schemes
+    RUNS_RADIATION = False
 
     def __init__(self, params, device="cuda", dtype=torch.float32):
         self.params = params
@@ -201,8 +216,12 @@ class SimulationBase:
         ip, sp = p.intparams, p.stringparams
         if self.ndim not in (1, 2, 3):
             raise ValueError(f"ndim must be 1, 2 or 3, not {self.ndim}")
-        if sp["radiation"] not in ("none", "null", ""):
-            raise _unsupported("radiation", "item 12")
+        if sp["radiation"] not in ("none", "null", "") \
+                and not self.RUNS_RADIATION:
+            # the JAX package's MFV controllers never read `radiation`
+            raise _unsupported(
+                f"radiation in {type(self).__name__} (the JAX package's "
+                "controller ignores it: fault F26)", "item 12")
         if sp["neib_search"] == "bruteforce":
             raise _unsupported("neib_search = bruteforce",
                                "'Not to port': brute-force paths")
@@ -557,6 +576,7 @@ class GradhSphSimulation(SimulationBase):
 
     # the `sim` parameter values this controller runs
     SIM_NAMES = ("sph", "gradhsph", "gradsph")
+    RUNS_RADIATION = True
 
     def __init__(self, params, device="cuda", dtype=torch.float32):
         super().__init__(params, device, dtype)
@@ -566,6 +586,10 @@ class GradhSphSimulation(SimulationBase):
         self.has_sinks = False
         self._mask_dead = False
         self.has_dust = False
+        # the radiation scheme's draws of packets (monoionisation): None
+        # takes them from a torch.Generator (_mc_draws); a caller may set
+        # a function (seed, ndot, n_packets, n_iter) -> draws
+        self.mc_draw_fn = None
         # rows of the active passes: in all, and per pass of the last tick
         # (the Saitoh-Makino pass and overflow retries included)
         self.active_rows = 0
@@ -628,6 +652,7 @@ class GradhSphSimulation(SimulationBase):
         if self.sink_cfg.create or self.sink_cfg.accrete:
             self._check_sink_options()
         self._radfb_parameters()
+        self._radiation_parameters()
         # gas-dust drag (gandalf_tpu/sim/simulation.py:1042-1050)
         self.dust_forces = sp["dust_forces"]
         self.has_dust = self.dust_forces not in ("none", "null", "")
@@ -637,6 +662,8 @@ class GradhSphSimulation(SimulationBase):
                 raise ValueError(f"unknown dust_forces {self.dust_forces!r}")
             if self.sink_cfg.create or self.sink_cfg.accrete:
                 raise self._dust_with_sinks()
+            if self.radiation != "none":
+                raise _unsupported("radiation with dust", "item 12")
             require_m4(self.kern, "gas-dust drag (K23, K24)")
             self.drag_law = DragLaw.from_params(p)
 
@@ -678,6 +705,38 @@ class GradhSphSimulation(SimulationBase):
             self.radfb_disc_cfg = DiscHeatingConfig(
                 temp_au=fp["temp_au"], temp_q=fp["temp_q"],
                 rsmooth=fp["r_smooth"], n_central=ncentral)
+
+    def _radiation_parameters(self):
+        """The radiation field (gandalf_tpu/sim/simulation.py:923-956):
+        updated every nradstep steps from the sinks and stars, their
+        N_LyC from the stellar table (stellar.dat in the working
+        directory, else the built-in one); the monochromatic Monte-Carlo
+        cross-section is the reference's 7.9e-18 cm^2 in code length
+        units (MonochromaticIonisationMonteCarlo.cpp:71)."""
+        p = self.params
+        ip, fp = p.intparams, p.floatparams
+        name = p.stringparams["radiation"]
+        self.radiation = "none" if name in ("none", "null", "") else name
+        self.nradstep = max(ip["nradstep"], 1)
+        self.ion_cfg = None
+        if self.radiation == "none":
+            return
+        if self.radiation not in RADIATION_SCHEMES:
+            raise NotImplementedError(
+                f"radiation scheme {self.radiation!r} not implemented "
+                f"(available: {', '.join(RADIATION_SCHEMES)}), as in the "
+                "JAX package")
+        self.ion_cfg = IonisationConfig(
+            temp_ion=fp["temp_ion"], temp_neutral=fp["temp0"],
+            mu_ion=fp["mu_ion"], mu_bar=fp["mu_bar"],
+            alphaB=fp["arecomb"], Ndotmin=fp["Ndotmin"])
+        self.stellar_table = load_stellar_table("stellar.dat") \
+            if os.path.exists("stellar.dat") else default_stellar_table()
+        if self.units.dimensionless:
+            self.mc_across = 7.9e-18
+        else:
+            r_cm = self.units.r.outscale * self.units.r.outSI * 100.0
+            self.mc_across = 7.9e-18 / (r_cm * r_cm)
 
     @staticmethod
     def _dust_with_sinks():
@@ -1139,8 +1198,10 @@ class GradhSphSimulation(SimulationBase):
         r, v = self.box.reflect(self.box.wrap(s.r), s.v)
         s = s.replace(r=r, v=v, r0=self.box.wrap(s.r0), t=t)
         if self.u_mode != "none":
+            eos_kw = ({"ionfrac": s.ionfrac} if self.eos.needs_ionfrac
+                      else {})
             u_n, p_n, c_n = self.eos.thermal_update(
-                torch.clamp_min(s.rho, 1e-30), s.u)
+                torch.clamp_min(s.rho, 1e-30), s.u, **eos_kw)
             alive = s.alive
             s = s.replace(u=torch.where(alive, u_n, s.u),
                           pressure=torch.where(alive, p_n, s.pressure),
@@ -1297,11 +1358,78 @@ class GradhSphSimulation(SimulationBase):
                     prev = self.state
         raise RuntimeError("neighbour overflow persists after 5 replans")
 
+    # -- radiation -------------------------------------------------------------
+    def _radiation_due(self) -> bool:
+        """Whether the radiation field updates before the next step: a
+        radiation scheme with sinks or stars, every nradstep steps."""
+        return (self.radiation != "none" and self.has_sinks
+                and self.Nsteps % self.nradstep == 0)
+
+    def _mc_draws(self, seed: int, ndot, n_packets: int, n_iter: int):
+        """The packets' sources and directions of each Monte-Carlo
+        iteration, from a torch.Generator on the state's device seeded
+        with `seed`."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return mcrt.mc_draws(gen, ndot, n_packets, self.ndim, n_iter)
+
+    def _radiation_field(self, s: SphState, ndot):
+        """(N,) ionised flags of the scheme from the sinks' N_LyC
+        (gandalf_tpu/sim/simulation.py:2072-2138): treeray's ray-traced
+        OnTheSpot balance (K34, K35), the monochromatic Monte-Carlo
+        balance (K34, K36) read back at each particle's cell, or the
+        multi-source Stromgren prefixes (K37) over every particle."""
+        sk, cfg = s.sinks, self.ion_cfg
+        if self.radiation == "ionisation":
+            return multi_source_ionisation(cfg, s.r, s.m, s.rho, sk.r, ndot,
+                                           sk.active)
+        spec = self.gridspec
+        b = g27.bin_particles(spec, s.r, discard=~s.alive)
+        rho_cell, nh2_cell = treeray.cell_field(spec, b, s.m, s.rho,
+                                                cfg.mu_bar)
+        if self.radiation == "treeray":
+            return treeray.treeray_ionisation(spec, nh2_cell, s.r, sk.r,
+                                              ndot, sk.active, cfg.alphaB)
+        p = self.params
+        n_pack = max(int(p.floatparams["Nphotonratio"]) * s.N, 4096)
+        seed = p.intparams["randseed"] + 7919 * self.Nsteps
+        n_iter = max(p.intparams["Nraditerations"], 4)
+        draws = (self.mc_draw_fn or self._mc_draws)(seed, ndot, n_pack,
+                                                    n_iter)
+        xHI = mcrt.monochromatic_ionisation_mc(
+            spec, rho_cell / cfg.mu_bar, sk.r, ndot, draws,
+            sigma=self.mc_across, alphaB=cfg.alphaB)
+        flat, inside = treeray.flat_cell_index(spec, s.r)
+        return inside & (xHI.reshape(-1)[flat] < 0.5) & s.alive
+
+    def _radiation_update(self):
+        """Update the ionisation field from the sinks and stars
+        (radiation->UpdateRadiationField, SphSimulation.cpp:671-679):
+        the scheme's flags, the ionised and neutral temperature floors,
+        the EOS refresh with the new ionfrac and the timestep clamped to
+        the hot gas's (gandalf_tpu/sim/simulation.py:2139-2153)."""
+        s = self.state
+        ndot = stellar_nlyc(self.stellar_table, s.sinks.m)
+        ion = self._radiation_field(s, ndot)
+        u_new, _ = apply_ionisation(self.ion_cfg, self.eos.gammam1, ion, s.u)
+        s = s.replace(u=u_new, u0=u_new, ionfrac=ion.to(s.u.dtype))
+        u2, p2, c2 = self.eos.thermal_update(
+            torch.clamp_min(s.rho, 1e-30), s.u, ionfrac=s.ionfrac)
+        s = s.replace(u=u2, u0=u2, pressure=p2, sound=c2)
+        dt_part = torch.where(s.alive,
+                              sph_timestep(self.integ, s, self.hydro_forces),
+                              1e30)
+        self.state = s.replace(dt=torch.minimum(s.dt, torch.min(dt_part)))
+
     # -- host loop -------------------------------------------------------------
     def main_loop_step(self):
         """One step, or one block tick with block timesteps (the ladder's
         tick is not clamped to tend, as in the JAX package): the dense
-        tick with sinks or dust, else the active-compacted one."""
+        tick with sinks or dust, else the active-compacted one.  Every
+        nradstep steps the radiation field updates first."""
+        if self._radiation_due():
+            with self.timing.block("RADIATION"):
+                self._radiation_update()
         if not self.use_block:
             super().main_loop_step()
             return
@@ -1313,6 +1441,18 @@ class GradhSphSimulation(SimulationBase):
                 self._block_tick()
         self.Nsteps += 1
         self.t = float(self.state.t)
+
+    def main_loop_steps(self, n: int) -> int:
+        """SimulationBase.main_loop_steps, with a burst that never crosses
+        a radiation update: a due update takes one step, and a burst ends
+        before the next one."""
+        if self.radiation != "none" and self.has_sinks:
+            k = self.Nsteps % self.nradstep
+            if k == 0:
+                self.main_loop_step()
+                return 1
+            n = min(n, self.nradstep - k)
+        return super().main_loop_steps(n)
 
 
 class SM2012SphSimulation(GradhSphSimulation):
@@ -1344,6 +1484,8 @@ class SM2012SphSimulation(GradhSphSimulation):
             raise _unsupported(
                 "dust in SM2012 (the JAX package runs gas and dust through "
                 "one untyped SM2012 pass: fault F18)", "item 9")
+        if self.radiation != "none":
+            raise _unsupported("radiation in SM2012", "item 12")
         require_m4(self.kern, "SM2012 SPH (K25, K26)")
 
     def _check_compacted_tick(self):

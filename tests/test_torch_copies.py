@@ -7,7 +7,9 @@ dusty box and the Evrard cloud with its dust), the
 isothermal, barotropic and polytropic EOS, the RadWS constant and
 synthetic opacity table, the bit-exact xorshift
 generator and the N-body ICs drawn through it, the N-body sub-system
-tree, and the C++ tree planner built from the port's own kdplan.cpp."""
+tree, the C++ tree planner built from the port's own kdplan.cpp, and the
+radiation's host copies (the Spitzer sphere, the HEALPix directions, the
+stellar table)."""
 
 import dataclasses
 
@@ -310,6 +312,61 @@ def test_riemann_copy_is_identical(t):
             assert np.array_equal(mine[k], theirs[k]), k
     assert tr.star_region(1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4) \
         == jr.star_region(1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4)
+
+
+def test_spitzer_ic_is_identical():
+    """spitzer_ic equals the JAX package's bit for bit."""
+    from gandalf_tpu_torch.check import spitzer_params
+
+    p = spitzer_params(800)
+    q = jparams.Parameters()
+    for table in ("intparams", "floatparams", "stringparams"):
+        getattr(q, table).update(getattr(p, table))
+    mine, theirs = _ics(p, q)
+    assert sorted(mine) == sorted(theirs)
+    for k in mine:
+        assert np.array_equal(mine[k], theirs[k]), k
+
+
+@pytest.mark.parametrize("n, ndim", [(300, 1), (4096, 1), (300, 2),
+                                     (20000, 2), (800, 3), (20000, 3)])
+def test_lattice_sphere_is_identical(n, ndim):
+    """add_lattice_sphere (which stops its search once the count has
+    passed the target) equals the JAX package's, which tries every
+    resolution."""
+    assert np.array_equal(ic.add_lattice_sphere(n, 1.0, ndim),
+                          jic.add_lattice_sphere(n, 1.0, ndim))
+
+
+@pytest.mark.parametrize("nside", [1, 2, 4, 8])
+def test_healpix_copy_is_identical(nside):
+    """ops/treeray.py's HEALPix directions (host numpy) equal the JAX
+    package's bit for bit."""
+    from gandalf_tpu.ops.treeray import healpix_directions as theirs
+    from gandalf_tpu_torch.ops.treeray import healpix_directions as mine
+
+    assert np.array_equal(mine(nside), theirs(nside))
+
+
+def test_stellar_table_copy_is_identical(tmp_path):
+    """The built-in stellar table (scaled to a mass unit) and a
+    stellar.dat file read by both packages."""
+    from gandalf_tpu.ops import stellar as jst
+    from gandalf_tpu_torch.ops import stellar as tst
+
+    path = tmp_path / "stellar.dat"
+    rows = np.column_stack([np.linspace(1.0, 90.0, 7), np.arange(7) * 0.5,
+                            np.linspace(40.0, 49.0, 7), np.full(7, 3e4),
+                            np.zeros(7), np.full(7, 1e3)])
+    path.write_text("7\n" + "header\n" * 4 + "\n".join(
+        " ".join(f"{x:.6g}" for x in row) for row in rows) + "\n")
+    for mine, theirs in ((tst.default_stellar_table(2.0),
+                          jst.default_stellar_table(2.0)),
+                         (tst.load_stellar_table(str(path), 0.5),
+                          jst.load_stellar_table(str(path), 0.5))):
+        for f in dataclasses.fields(theirs):
+            assert np.array_equal(getattr(mine, f.name),
+                                  getattr(theirs, f.name)), f.name
 
 
 def test_other_ics_raise():

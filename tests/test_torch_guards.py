@@ -3,8 +3,9 @@ package (an AST scan) and running it never loads JAX, whatever
 GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
 N-body and sink slices, block-stepped smooth accretion, the cd2010
 switch, a dusty box, an SM2012 tube, an external potential and the
-radws box and cluster with radiative feedback and a quintic box
-included); chip_smoke.py
+radws box and cluster with radiative feedback, a quintic box and a
+step of the Spitzer sphere under each radiation scheme included);
+chip_smoke.py
 refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
 tensors, and on a GPU each CUDA kernel agrees with its plain PyTorch
@@ -153,6 +154,12 @@ def test_port_never_imports_jax():
         "sim.SetupSimulation()\n"
         "sim.main_loop_step()\n"
         "assert sim.rad_fb and bool(torch.isfinite(sim.state.ueq).all())\n"
+        "from gandalf_tpu_torch.check import spitzer_sim\n"
+        "for scheme in ('ionisation', 'treeray', 'monoionisation'):\n"
+        "    sim = spitzer_sim(300, scheme, 'cpu', torch.float64,\n"
+        "                      Nphotonratio=1.0)\n"
+        "    sim.main_loop_step()\n"
+        "    assert bool((sim.state.ionfrac <= 1).all())\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -857,6 +864,58 @@ def test_radws_wrappers_refuse_cpu_tensors():
                  lambda: _ext.radws_implicit_heating(tab, x, x, x, x, x, x),
                  lambda: _ext.ambient_temperature(r, rs, q, q, act, act, 5.0,
                                                   None)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_radiation_kernels_match_plain_versions_on_gpu(dtype):
+    """K34-K37 against their plain versions on the card at the Spitzer
+    sphere of 739 particles (4,096 packets) and K37 on three overlapping
+    sources at 4,096 particles, with check.compare_radiation_kernels'
+    tolerances and flag bands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (compare_radiation_kernels,
+                                         radiation_kernel_inputs,
+                                         spitzer_sim, stromgren_inputs)
+
+    sim = spitzer_sim(700, "monoionisation", "cuda", dtype)
+    report = compare_radiation_kernels(
+        radiation_kernel_inputs(sim, n_packets=4096),
+        stromgren=stromgren_inputs(4096, "cuda", dtype))
+    bad = {k: r for k, r in report.items() if not r["ok"]}
+    assert not bad, bad
+
+
+def test_radiation_wrappers_refuse_cpu_tensors():
+    """K34-K37: CPU tensors raise and count no launch; the plain versions
+    run only through ops.treeray's, ops.mcrt's and ops.ionisation's
+    dispatch on CPU tensors."""
+    from types import SimpleNamespace
+
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
+
+    f64 = dict(dtype=torch.float64)
+    spec = Grid27Spec(3, (2, 2, 2), (0.0,) * 3, (1.0,) * 3, 8,
+                      (False,) * 3)
+    box = SimpleNamespace(ndim=3, lo=(0.0,) * 3, extents=(1.0,) * 3,
+                          ncells=(2, 2, 2), periodic=(False,) * 3)
+    n = 16
+    cells = torch.zeros((n,), dtype=torch.int32)
+    r, x = torch.rand((n, 3), **f64), torch.rand((n,), **f64)
+    field = torch.rand((8,), **f64)
+    before = dict(_ext.LAUNCHES)
+    for call in (lambda: _ext.cell_field(spec, cells, cells, x, x, 1.0, 1.0),
+                 lambda: _ext.ray_march(box, field, r, r[:, None, :],
+                                        x[:, None], 8),
+                 lambda: _ext.packet_march(box, field, r, r, 8, 0.1),
+                 lambda: _ext.stromgren_prefix(
+                     r, x, r[:2], x[:2], torch.ones(2, dtype=torch.bool),
+                     8)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert _ext.LAUNCHES == before

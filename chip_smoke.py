@@ -11,9 +11,10 @@ dusty Evrard collapse), Saitoh & Makino (2012) SPH and the external
 potentials, RadWS radiative cooling and radiative feedback, the
 quintic, gaussian and tabulated smoothing kernels, MFV's options (the
 exact Riemann solver, RK2, every slope limiter) and its 1D and 2D grid
-path, block-timestep MFV, and the radiation schemes (ionisation,
-treeray and Monte-Carlo photoionisation of the Spitzer HII region), and
-checks them, in phases, each printing one line:
+path, block-timestep MFV, the radiation schemes (ionisation, treeray
+and Monte-Carlo photoionisation of the Spitzer HII region) and block
+timesteps on the 1D and 2D grid path, and checks them, in phases, each
+printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
@@ -362,7 +363,31 @@ checks them, in phases, each printing one line:
    and 0.1 (treeray) of Rs = 0.35, the ionised volume's radius within
    15% of Rs under monoionisation (cross-section 3,000, an optically
    thick front, and 10 iterations), finite u and 0 <= ionfrac <= 1, with particle-steps/s
-   and one update's device ms.
+   and one update's device ms;
+81. active_kernels (ndim 1 and 2): K8 and K9 at NDIM 1 and 2 against
+   their plain versions on the card on the block Sod tube's state in
+   float64 and the KHI's (x4 per axis, Nlevels 3) in float64 and
+   float32, for a random eighth of the particles and for all of them;
+82. block_dims_parity: 8 compacted ticks each of the block Sod tube and
+   the small KHI (Nlevels 3) in float64, kernels on the card against the
+   plain path on the CPU, with equal listed rows, levels and grid plans;
+83. block_sod_tube: tests/test_block.py's tube (256 + 64, Nlevels 4) in
+   float64 to t = 0.25 (L1(vx) < 0.02, two levels, listed rows below 0.8
+   of N ticks), and Nlevels 3 against a global run to t = 0.2 (median
+   |drho|/rho < 5e-3, max < 0.08), then K8 and K9 (1D) against their
+   plain versions at the tube's end;
+84. block_khi_2d: the KHI at 425,984 particles with Nlevels 3 in float32,
+   4 warm-up and 32 timed compacted ticks: ticks/s, active
+   particle-updates/s, the level histogram, the listed-row fraction, K8
+   and K9 launches a tick, finite, rho > 0, no overflow, mass exact,
+   energy drift within 2e-3; then K8 and K9 (2D) against their plain
+   versions at the path's state;
+85. sedov_block_2d: the 2D Sedov blast (check.sedov_params) at 512^2 =
+   262,144 particles with Nlevels 5 in float32, 2 warm-up and 32 timed
+   ticks: the same figures and the energy drift, at least two levels,
+   listed rows below 0.8 of N ticks, finite, rho > 0, mass exact;
+86. dustybox_block: tests/test_dust.py:112-133's dusty box (1D, Nlevels
+   3, the dense dust tick) in float64 to t = 1, held to its gates.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -393,8 +418,9 @@ cell-alpha and K31 springel2009 from mfv_exact_box), K12's block mode in
 mfv_block_tube (float64), K22 in 2D from mfv_block_khi and in 1D from
 mfv_block_tube, K32 and K33 in 3D from mfv_block_sphere and in 2D from
 mfv_block_khi's conservative run, K37 from spitzer_ionisation, K35
-from spitzer_treeray, K34 and K36 from spitzer_mcrt, each counted over
-its path's timed window (the tube's over its whole block run)
+from spitzer_treeray, K34 and K36 from spitzer_mcrt, K8 and K9 in 2D
+from block_khi_2d and in 1D from block_sod_tube (float64), each counted
+over its path's timed window (the tubes' over their whole block runs)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
 for the work, check.bound) and library_ms null where no single PyTorch
@@ -673,6 +699,28 @@ RAD_PARITY_STEPS = 3
 RAD_KERNEL_N = 262144
 SPITZER_FRONT_TOL = {"ionisation": 0.08, "treeray": 0.1}
 SPITZER_MC_RADIUS_TOL = 0.15
+# block timesteps below 3D (phases 81-86): K8 and K9 at ndim 1 and 2 on
+# the block Sod tube and the KHI at x4 per axis (26,624 particles), the
+# parity runs' ticks, tests/test_block.py's tube gates (:131-155 to t =
+# 0.25, and :90-103's block against global run to t = 0.2), the KHI at
+# full width and the 2D Sedov blast at 512^2 (their warm-up and timed
+# ticks), and tests/test_dust.py:112-133's block dusty box to t = 1
+DIMS_ACTIVE_KHI_SCALE = 4
+BLOCK_DIMS_PARITY_TICKS = 8
+BLOCK_TUBE_T = 0.25
+BLOCK_TUBE_L1 = 0.02
+BLOCK_TUBE_FRACTION = 0.8
+BLOCK_GLOBAL_T = 0.2
+BLOCK_GLOBAL_MEDIAN = 5e-3
+BLOCK_GLOBAL_MAX = 0.08
+BLOCK_KHI_WARM = 4
+BLOCK_KHI_TICKS = 32
+SEDOV_N = 512
+SEDOV_NLEVELS = 5
+SEDOV_WARM = 2
+SEDOV_TICKS = 32
+SEDOV_FRACTION = 0.8
+DUSTYBOX_BLOCK_T = 1.0
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -835,6 +883,10 @@ for _d in ("", "_2d"):
                                      "gandalf_tpu/ops/mfv_grid27.py:485")
     SOURCES[f"mfv_vsig_far{_d}"] = ("gandalf_tpu_torch/csrc/mfv_vsig.cu",
                                     "gandalf_tpu/ops/mfv_grid27.py:566")
+# K8 and K9 below 3D: 2D from block_khi_2d, 1D from block_sod_tube
+for _d in ("_2d", "_1d"):
+    SOURCES[f"active_density{_d}"] = SOURCES["active_density"]
+    SOURCES[f"active_forces{_d}"] = SOURCES["active_forces"]
 # the quintic, gaussian and tabulated variants on their main paths: the
 # JAX functions' kernel evaluations they replace
 _FAMILY_SOURCES = {
@@ -4973,6 +5025,305 @@ def _spitzer_path(dev, card, scheme):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 81-86: block timesteps on the 1D and 2D grid path
+# ---------------------------------------------------------------------------
+
+def active_kernels_dims(dev) -> None:
+    """Phase 81: K8 and K9 at ndim 1 and 2 against their plain versions
+    (check.compare_active_kernels) on the block Sod tube's state in
+    float64 and on the KHI's (x4 per axis, Nlevels 3) in float64 and
+    float32, each for a random eighth of the particles and for all of
+    them; levelneib exactly equal."""
+    from gandalf_tpu_torch.check import (block_sod_params,
+                                         compare_active_kernels, khi_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    for name, make, dtypes in (
+            ("tube", lambda: block_sod_params(4), (torch.float64,)),
+            ("khi", lambda: khi_params(DIMS_ACTIVE_KHI_SCALE, nlevels=3),
+             (torch.float64, torch.float32))):
+        for dtype in dtypes:
+            sim = GradhSphSimulation(make(), device=dev, dtype=dtype)
+            sim.SetupSimulation()
+            N = sim.state.N
+            eighth = np.sort(np.random.default_rng(1).choice(
+                N, N // 8, replace=False))
+            for subset, idx in (("eighth", eighth), ("all", np.arange(N))):
+                rep = compare_active_kernels(
+                    sim, sim.state, torch.as_tensor(idx, dtype=torch.int32,
+                                                    device=dev))
+                phase("active_kernels", case=name, ndim=sim.ndim, N=N,
+                      dtype=str(dtype), subset=subset,
+                      k_cell=sim.gridspec.k_cell, report=rep)
+                require_ok("active_kernels", rep)
+    phase("active_kernels_dims_done", seconds=time.perf_counter() - t0)
+
+
+def block_dims_parity(dev) -> None:
+    """Phase 82: float64 on the card against the plain path on the CPU,
+    BLOCK_DIMS_PARITY_TICKS compacted ticks each of the block Sod tube
+    (Nlevels 4) and the small KHI (Nlevels 3): the same listed rows,
+    levels and grid plans every tick, fields within PARITY_TOL."""
+    from gandalf_tpu_torch.check import block_sod_params, khi_params
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    for name, make in (("tube", lambda: block_sod_params(4)),
+                       ("khi", lambda: khi_params(1, nlevels=3))):
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = GradhSphSimulation(make(), device=device,
+                                     dtype=torch.float64)
+            sim.SetupSimulation()
+            sims.append(sim)
+        same = True
+        rows = []
+        for _ in range(BLOCK_DIMS_PARITY_TICKS):
+            for sim in sims:
+                sim.main_loop_step()
+            same &= sims[0].last_tick_rows == sims[1].last_tick_rows
+            same &= bool(torch.equal(sims[0].state.level.cpu(),
+                                     sims[1].state.level))
+            same &= sims[0].gridspec == sims[1].gridspec
+            rows.append(list(sims[1].last_tick_rows))
+        torch.cuda.synchronize()
+        errs = parity_errors(sims, ("r", "v", "u", "h", "rho", "a"))
+        replans = [s._n_grid_overflows for s in sims]
+        phase("block_dims_parity", case=name, ndim=sims[1].ndim,
+              N=sims[1].state.N, ticks=BLOCK_DIMS_PARITY_TICKS,
+              rel_err=errs, same_rows_levels_and_plans=same,
+              rows=rows, replans=replans,
+              levels=torch.bincount(sims[1].state.level).tolist())
+        if max(errs.values()) > PARITY_TOL or not same \
+                or replans[0] != replans[1]:
+            raise RuntimeError(f"block_dims_parity ({name}): kernel path "
+                               f"disagrees with the plain path: {errs} "
+                               f"{same} {replans}")
+    phase("block_dims_parity_done", seconds=time.perf_counter() - t0)
+
+
+def _run_block(params, dev, t_target):
+    """A float64 run on the card to t_target: (sim, ticks, seconds)."""
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    sim = GradhSphSimulation(params, device=dev, dtype=torch.float64)
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = _run_to(sim, t_target)
+    torch.cuda.synchronize()
+    return sim, ticks, time.perf_counter() - t0
+
+
+def block_sod_tube(dev, card):
+    """Phase 83: tests/test_block.py's gates through the port on the card
+    in float64.  The block tube (check.block_sod_params(4): 256 + 64,
+    periodic, the compacted tick) to t = 0.25 (:131-155): L1(vx) < 0.02,
+    at least two levels occupied, and the listed rows of every active
+    pass over N ticks < 0.8 (the port lists no pads); its counts set to 0
+    just before it.  Then :90-103: Nlevels 3 against a global run to t =
+    0.2, median |drho|/rho < 5e-3 and max < 0.08.  K8 and K9 (1D)
+    against their plain versions at the tube's end.  Returns the tube's
+    launches and the reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (block_sod_params,
+                                         compare_active_kernels, sod_l1)
+
+    t_phase = time.perf_counter()
+    names = ("grid27_bin_1d", "active_density_1d", "active_forces_1d")
+    _ext.reset_launches()
+    sim, ticks, elapsed = _run_block(block_sod_params(4), dev, BLOCK_TUBE_T)
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    N = s.N
+    l1 = sod_l1(sim)
+    frac = sim.active_rows / (N * ticks)
+    levels = torch.bincount(s.level.cpu()).tolist()
+    runs = {nl: _run_block(block_sod_params(nl, tend=BLOCK_GLOBAL_T), dev,
+                           BLOCK_GLOBAL_T) for nl in (1, 3)}
+    rho_g = runs[1][0].state.rho.cpu().numpy()
+    rho_b = runs[3][0].state.rho.cpu().numpy()
+    rel = np.abs(rho_b - rho_g) / rho_g
+    checks = {
+        "l1_vx": l1 < BLOCK_TUBE_L1,
+        "two_levels": sum(1 for n in levels if n) >= 2,
+        "compacts": frac < BLOCK_TUBE_FRACTION,
+        "finite": bool(torch.isfinite(s.v).all()),
+        "launches": all(launches[k] >= ticks for k in names),
+        "block_vs_global": float(np.median(rel)) < BLOCK_GLOBAL_MEDIAN
+        and float(rel.max()) < BLOCK_GLOBAL_MAX,
+    }
+    active = torch.nonzero(s.nlast == sim._blocksched.n).flatten().to(
+        torch.int32)
+    rep = compare_active_kernels(sim, s, active, repeats=20)
+    phase("block_sod_tube", N=N, t=sim.t, ticks=ticks, timed_s=elapsed,
+          ticks_per_s=ticks / elapsed, L1_vx=l1, listed_row_fraction=frac,
+          levels=levels, launches=launches,
+          block_vs_global={"ticks": [runs[1][1], runs[3][1]],
+                           "median": float(np.median(rel)),
+                           "max": float(rel.max())},
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"block_sod_tube checks failed: {failed}")
+    keep = names[1:]
+    return {k: launches[k] for k in keep}, {k: rep[k] for k in keep}
+
+
+def _compacted_window(tag, sim, card, warm, timed, gates, t_setup,
+                      t_phase, all_rows=False):
+    """Warm-up ticks, then `timed` ticks with the counts set to 0 just
+    before them (t_setup: the setup's seconds; t_phase: the phase's
+    start); the rates, the level histogram, the listed-row fraction,
+    K8 and K9 (2D) launches a tick, the energy drift and `gates` (names:
+    finite, rho_positive, no_overflow, mass_exact, energy_drift with its
+    bound, two_levels, compacts with its bound), then K8 and K9 against
+    their plain versions at the path's end for the particles just active
+    (with `all_rows`, for every particle, as most of the path's passes
+    list them).  Returns the counts and the reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import compare_active_kernels
+
+    for _ in range(warm):
+        sim.main_loop_step()
+    s = sim.state
+    N = s.N
+    m0 = float(s.m.double().sum())
+    e0 = energy(s)
+    rows0, replans0 = sim.active_rows, sim._n_grid_overflows
+    first = []
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        sim.main_loop_step()
+        first.append(sim.last_tick_rows[0])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    names = ("grid27_bin_2d", "active_density_2d", "active_forces_2d")
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    rows = sim.active_rows - rows0
+    frac = rows / (N * timed)
+    drift = abs(energy(s) - e0) / abs(e0)
+    levels = torch.bincount(s.level.cpu()).tolist()
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow),
+        "mass_exact": float(s.m.double().sum()) == m0,
+        "launches": all(launches[k] >= timed for k in names[1:]),
+    }
+    if "energy_drift" in gates:
+        checks["energy_drift"] = drift <= gates["energy_drift"]
+    if "two_levels" in gates:
+        checks["two_levels"] = sum(1 for n in levels if n) >= 2
+    if "compacts" in gates:
+        checks["compacts"] = frac < gates["compacts"]
+    listed = (torch.ones_like(s.alive) if all_rows
+              else s.nlast == sim._blocksched.n)
+    rep = compare_active_kernels(
+        sim, s, torch.nonzero(listed).flatten().to(torch.int32), repeats=5)
+    phase(tag, N=N, ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, ticks=sim.Nsteps, timed_ticks=timed,
+          setup_s=t_setup, timed_s=elapsed, ticks_per_s=timed / elapsed,
+          active_updates_per_s=rows / elapsed, t_code=sim.t,
+          listed_rows=rows, listed_row_fraction=frac, first_pass_rows=first,
+          levels=levels, level_max=int(sim._blocksched.level_max),
+          launches=launches,
+          launches_per_tick={k: n / timed for k, n in launches.items()},
+          replans_in_window=sim._n_grid_overflows - replans0,
+          energy_drift=drift, checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+    return launches, rep
+
+
+def block_khi_2d(dev, card):
+    """Phase 84: the KHI at full width (check.khi_params(16), 425,984
+    particles) with Nlevels 3, level_diff_max 1, in float32 on the
+    compacted tick: BLOCK_KHI_WARM warm-up and BLOCK_KHI_TICKS timed
+    ticks; finite, rho > 0, no unresolved overflow, mass exact, energy
+    drift within BLOCK_ENERGY_DRIFT_TOL; K8 and K9 (2D) against their
+    plain versions for every particle, as most ticks list them.  Returns
+    the K8 and K9 (2D) counts and reports."""
+    from gandalf_tpu_torch.check import khi_params
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    sim = GradhSphSimulation(khi_params(KHI_SCALE, nlevels=3), device=dev,
+                             dtype=torch.float32)
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    launches, rep = _compacted_window(
+        "block_khi_2d", sim, card, BLOCK_KHI_WARM, BLOCK_KHI_TICKS,
+        {"energy_drift": BLOCK_ENERGY_DRIFT_TOL}, time.perf_counter() - t0,
+        t_phase, all_rows=True)
+    keep = ("active_density_2d", "active_forces_2d")
+    return {k: launches[k] for k in keep}, {k: rep[k] for k in keep}
+
+
+def sedov_block_2d(dev, card) -> None:
+    """Phase 85: the 2D Sedov blast (check.sedov_params at 512^2 =
+    262,144 particles, box [-1, 1]^2 periodic, kefrac 0.3, smooth_ic 1)
+    with Nlevels 5, level_diff_max 1, in float32: SEDOV_WARM warm-up and
+    SEDOV_TICKS timed ticks; at least two levels, listed rows over N
+    ticks below SEDOV_FRACTION, finite, rho > 0, mass exact; the energy
+    drift reported."""
+    from gandalf_tpu_torch.check import sedov_params
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    sim = GradhSphSimulation(sedov_params(SEDOV_N, SEDOV_NLEVELS),
+                             device=dev, dtype=torch.float32)
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    _compacted_window("sedov_block_2d", sim, card, SEDOV_WARM, SEDOV_TICKS,
+                      {"two_levels": True, "compacts": SEDOV_FRACTION},
+                      time.perf_counter() - t0, t_phase)
+
+
+def dustybox_block(dev, card) -> None:
+    """Phase 86: tests/test_dust.py:112-133 through the port on the card
+    (check.dustybox_block_params: the 1D two-fluid box, Nlevels 3,
+    level_diff_max 1, the dense dust tick) in float64 to t = 1: gas and
+    dust mean v_x within DUSTYBOX_GATE of the analytic exponential,
+    momentum 1 to 1e-12, E = 2 to rel 1e-5."""
+    from gandalf_tpu_torch.check import dustybox_block_params
+
+    t_phase = time.perf_counter()
+    sim, ticks, elapsed = _run_block(dustybox_block_params(),
+                                     dev, DUSTYBOX_BLOCK_T)
+    vg, vd, mom, e = _box_means(sim)
+    dv = math.exp(-sim.t)
+    errs = {"gas": abs(vg - (0.5 - 0.5 * dv)),
+            "dust": abs(vd - (0.5 + 0.5 * dv)),
+            "momentum": abs(mom - 1.0), "energy": abs(e - 2.0) / 2.0}
+    checks = {"use_block": sim.use_block and sim.has_dust,
+              "gas": errs["gas"] < DUSTYBOX_GATE,
+              "dust": errs["dust"] < DUSTYBOX_GATE,
+              "momentum": errs["momentum"] < 1e-12,
+              "energy": errs["energy"] < 1e-5}
+    phase("dustybox_block", N=sim.state.N, t=sim.t, ticks=ticks,
+          ticks_per_s=ticks / elapsed,
+          levels=torch.bincount(sim.state.level.cpu()).tolist(),
+          errors=errs, checks=checks, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"dustybox_block checks failed: {failed}")
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -5317,6 +5668,16 @@ def main() -> int:
         for k, n in _spitzer_path(dev, card, scheme).items():
             if k not in ("grid27_bin",):
                 launches[k] = n
+
+    # 81-86. block timesteps on the 1D and 2D grid path
+    active_kernels_dims(dev)
+    block_dims_parity(dev)
+    for path in (block_sod_tube, block_khi_2d):
+        b_launches, b_rep = path(dev, card)
+        launches.update(b_launches)
+        rep.update(b_rep)
+    sedov_block_2d(dev, card)
+    dustybox_block(dev, card)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,9 @@ K19, the mirror images, under ``grid27_mirror``.  K20's two wrappers
 neighbour-level pass, under ``levelneib`` (``_1d`` or ``_2d`` appended
 below 3D), K23 and K24, the gas-dust
 drag sums and energy deposit, under ``dust_drag_sums`` and
-``dust_drag_deposit`` in every ndim, and K25 and K26, the Saitoh &
+``dust_drag_deposit`` in every ndim, K8 and K9, the active-subset
+density and forces, under ``active_density`` and ``active_forces``
+(``_1d`` or ``_2d`` appended below 3D), and K25 and K26, the Saitoh &
 Makino (2012) h-rho iteration with its q sum and the pressure-energy
 forces, under ``sm2012_density`` and ``sm2012_forces`` (``_1d`` or
 ``_2d`` appended below 3D).  The RadWS kernels K27-K29, the opacity-table
@@ -103,7 +105,9 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "tree_near_mfv": 0, "tree_walk_ewald": 0, "tree_near_ewald": 0,
             "tree_walk_gadget2": 0, "tree_walk_eigenmac": 0,
             "tree_walk_fast": 0, "tree_near_fast": 0, "active_density": 0,
-            "active_forces": 0,
+            "active_forces": 0, "active_density_2d": 0,
+            "active_forces_2d": 0, "active_density_1d": 0,
+            "active_forces_1d": 0,
             "direct_nbody": 0, "direct_softened": 0, "direct_snap": 0,
             "star_gas_forces": 0, "sink_candidate": 0, "accretion_sums": 0,
             "smooth_accretion": 0, "cullen_dehnen": 0,
@@ -148,11 +152,9 @@ TREE_FAMILY_KERNELS = ("tree_near", "tree_near_list", "tree_near_ewald",
                        "tree_near_fast")
 ACTIVE_FAMILY_KERNELS = ("active_density", "active_forces")
 for _v in VARIANTS:
-    for _k in GRID_FAMILY_KERNELS:
+    for _k in GRID_FAMILY_KERNELS + ACTIVE_FAMILY_KERNELS:
         for _d in ("", "_2d", "_1d"):
             LAUNCHES[f"{_k}_{_v}{_d}"] = 0
-    for _k in ACTIVE_FAMILY_KERNELS:
-        LAUNCHES[f"{_k}_{_v}"] = 0
     if not _v.startswith("gaussian"):
         for _k in TREE_FAMILY_KERNELS:
             LAUNCHES[f"{_k}_{_v}"] = 0
@@ -181,12 +183,11 @@ _ARGTYPES = {
                   _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "tree_near": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                   _I, _D, _D, _I, _I, _P, _P, _P, _P, _P, _I, _P],
-    "active_density": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _D, _D, _D, _D, _I, _I, _D, _D, _D, _P, _P, _P,
-                       _P, _I, _P],
-    "active_forces": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _D, _D, _D, _D, _I, _I, _D, _I, _I, _I, _D,
-                      _D, _P, _P, _P, _P, _I, _P],
+    # K8 and K9: the grid arguments of _grid_args_nd (8 ints, 3 extents)
+    "active_density": [_P, _I] + [_P] * 5 + [_I] * 8 + [_D] * 4
+    + [_I, _I, _D, _D, _D] + [_P] * 4 + [_I, _P],
+    "active_forces": [_P, _I] + [_P] * 6 + [_I] * 8 + [_D] * 4
+    + [_I, _I, _D, _I, _I, _I, _D, _D] + [_P] * 4 + [_I, _P],
     # the grid arguments of _grid_args_nd: 8 ints and 3 extents
     "mfv_density": [_P] * 4 + [_I] * 8 + [_D] * 8 + [_I] + [_P] * 4
     + [_I, _P],
@@ -363,16 +364,13 @@ def _float_suffix(dtype) -> str:
 
 
 def _grid_args(spec):
-    """The 3D grid arguments of K8 and K9 (the active-subset kernels)."""
-    if spec.ndim != 3:
-        raise NotImplementedError(
-            "the active-subset kernels (K8, K9) take 3D grids only "
-            "(ROADMAP queue 1, item 3)")
+    """The grid arguments of K8 and K9 (the active-subset kernels), in
+    1-3 dims: _grid_args_nd's; mirror layers are refused."""
     if spec.mirror:
         raise NotImplementedError(
             "the active-subset kernels take no mirror layers (ROADMAP "
             "queue 1, item 8)")
-    return _grid_args_nd(spec)[1:]
+    return _grid_args_nd(spec)
 
 
 def _grid_args_nd(spec):
@@ -778,12 +776,12 @@ def _active_args(spec, idx, cell_of, ids_d, N):
 def active_density(spec, kern, h_fac, h_converge, hmax, idx, cell_of,
                    ids_d, r, m, h):
     """K8: the h-rho iteration of the particles idx (n,) int32 from their
-    own h over the 27 cells of K1's slot map ids_d (*ncells, K) int32
-    (-1 empty): (rho, invom, zeta) sums at the final h and the converged
-    flag, each (n,)."""
+    own h over the 3^ndim cells of K1's slot map ids_d (*ncells, K) int32
+    (-1 empty), r (N, ndim): (rho, invom, zeta) sums at the final h and
+    the converged flag, each (n,)."""
     N, dt, dev = r.shape[0], r.dtype, r.device
     n = _active_args(spec, idx, cell_of, ids_d, N)
-    _check(r, "r", dt, (N, 3))
+    _check(r, "r", dt, (N, spec.ndim))
     _check(m, "m", dt, (N,))
     _check(h, "h", dt, (N,))
     rho, invom, zeta = (torch.empty((n,), dtype=dt, device=dev)
@@ -794,25 +792,27 @@ def active_density(spec, kern, h_fac, h_converge, hmax, idx, cell_of,
                 _p(ids_d), _p(r), _p(m), _p(h), *_grid_args(spec),
                 *_family_args(kern), float(h_fac), float(h_converge),
                 float(hmax), _p(rho), _p(invom), _p(zeta), _p(done),
-                count=family_count("active_density", kern))
+                count=_grid_count("active_density", spec, kern))
     return rho, invom, zeta, done
 
 
 def active_forces(spec, kern, visc, idx, cell_of, ids_d, r, v, packed,
                   level, levelneib, hydro_forces):
-    """K9: pair forces of the particles idx (n,) int32 over the 27 cells
-    of ids_d: a (n, 3), dudt and div_v (n,) after the epilogue (zero
-    without hydro forces), and a copy of levelneib (N,) int32 raised by
-    the neighbour-level scatter in both directions.  `packed` (N, 9)
-    holds ops.sph_grid27.FORCE_SCALARS per particle."""
+    """K9: pair forces of the particles idx (n,) int32 over the 3^ndim
+    cells of ids_d, r and v (N, ndim): a (n, ndim), dudt and div_v (n,)
+    after the epilogue (zero without hydro forces), and a copy of
+    levelneib (N,) int32 raised by the neighbour-level scatter in both
+    directions.  `packed` (N, 9) holds ops.sph_grid27.FORCE_SCALARS per
+    particle."""
+    nd = spec.ndim
     N, dt, dev = r.shape[0], r.dtype, r.device
     n = _active_args(spec, idx, cell_of, ids_d, N)
-    _check(r, "r", dt, (N, 3))
-    _check(v, "v", dt, (N, 3))
+    _check(r, "r", dt, (N, nd))
+    _check(v, "v", dt, (N, nd))
     _check(packed, "packed", dt, (N, 9))
     _check(level, "level", torch.int32, (N,))
     _check(levelneib, "levelneib", torch.int32, (N,))
-    a = torch.empty((n, 3), dtype=dt, device=dev)
+    a = torch.empty((n, nd), dtype=dt, device=dev)
     dudt = torch.empty((n,), dtype=dt, device=dev)
     div_v = torch.empty((n,), dtype=dt, device=dev)
     lneib = levelneib.clone()
@@ -823,7 +823,7 @@ def active_forces(spec, kern, visc, idx, cell_of, ids_d, r, v, packed,
                 float(kern.kernrange), int(hydro_forces), int(visc.avisc),
                 int(visc.acond), float(visc.alpha_visc),
                 float(visc.beta_visc), _p(a), _p(dudt), _p(div_v),
-                _p(lneib), count=family_count("active_forces", kern))
+                _p(lneib), count=_grid_count("active_forces", spec, kern))
     return a, dudt, div_v, lneib
 
 

@@ -264,9 +264,10 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # and near pair the min-image and the correction: 35 operations of the
 # trilinear lookup and the sign, plus its 8 corner loads counted as one
 # each.  The pair work counts one sweep of the h iterations, the least
-# the data needs.  K2 and K3 in 2D and 1D drop the missing dims' share
-# of a pair: 4 operations a dim of the separation for K2, 9 of the
-# separation, dv, dvdr and the acceleration for K3; K1 5 a dim; K19
+# the data needs.  K2 and K3 (and K8 and K9) in 2D and 1D drop the
+# missing dims' share of a pair: 4 operations a dim of the separation
+# for K2 and K8, 9 of the separation, dv, dvdr and the acceleration for
+# K3 and K9; K1 5 a dim; K19
 # one per reflected component and three for the keep test of an image.
 # K20 counts per claimed (gas, sink) pair: its terms (distance, kernel,
 # potential, log and the radial-drift product, about 70) and its share
@@ -302,6 +303,8 @@ FLOPS_PER = {
     "mac_gadget2": 5, "mac_eigenmac": 35, "mac_ewald": 12,
     "tree_walk_fast": 100, "tree_near_fast": 25, "ewald_pair": 55,
     "active_density": 40, "active_forces": 80,
+    "active_density_2d": 36, "active_forces_2d": 71,
+    "active_density_1d": 32, "active_forces_1d": 62,
     "mfv_density": 40, "mfv_gradients": 120, "mfv_fluxes": 450,
     "direct_nbody": 46, "direct_softened": 66, "direct_snap": 74,
     "star_gas_forces": 46, "star_gas_mid": 20, "star_gas_near": 11,
@@ -336,8 +339,10 @@ for _v, (_dd, _df) in _FAMILY_EXTRA.items():
             FLOPS_PER[f"grid27_density{_sfx}"] + _dd)
         FLOPS_PER[f"grid27_forces_{_v}{_sfx}"] = (
             FLOPS_PER[f"grid27_forces{_sfx}"] + _df)
-    FLOPS_PER[f"active_density_{_v}"] = FLOPS_PER["active_density"] + _dd
-    FLOPS_PER[f"active_forces_{_v}"] = FLOPS_PER["active_forces"] + _df
+        FLOPS_PER[f"active_density_{_v}{_sfx}"] = (
+            FLOPS_PER[f"active_density{_sfx}"] + _dd)
+        FLOPS_PER[f"active_forces_{_v}{_sfx}"] = (
+            FLOPS_PER[f"active_forces{_sfx}"] + _df)
 
 
 def _nbytes(*ts) -> int:
@@ -665,6 +670,13 @@ def dustybox_params(n: int = 32, ndim: int = 1, mirror_dim: int = None,
     return p
 
 
+def dustybox_block_params() -> Parameters:
+    """tests/test_dust.py:112-133's dusty box under block timesteps: the
+    1D two-fluid box of dustybox_params (32 + 32 particles) with Nlevels
+    3 and level_diff_max 1 on the grid path (the dense dust tick)."""
+    return dustybox_params(32, 1, Nlevels=3, level_diff_max=1)
+
+
 def dust_params(n_hydro: int, dust_forces: str = "full_twofluid",
                 nlevels: int = 1, **over) -> Parameters:
     """The dusty_evrard configuration: GANDALF's Evrard collapse
@@ -724,20 +736,23 @@ def sod_params(n1: int = 512, n2: int = 128, tend: float = 0.5,
     return p
 
 
-def khi_params(scale: int = 16, tend: float = 1.0e30) -> Parameters:
+def khi_params(scale: int = 16, tend: float = 1.0e30,
+               nlevels: int = 1) -> Parameters:
     """The Kelvin-Helmholtz instability of the JAX package's 2D gate
     (tests/test_ic_2d.py:36-53, the reference's hydro_tests/khi.dat):
     box [-0.5, 0.5]^2 periodic, rho 1 and 2 at p 2.5 shearing at v_x =
     +-0.5, a seeded mode of amplitude 0.1 and wavelength 0.5, energy_eqn
     gamma 1.4, M4, mon97, courant 0.2, accel 0.3, KDK with a global dt.
     The lattices 32x16 and 48x24 are scaled by `scale` per axis (16:
-    512x256 and 768x384, 425,984 particles)."""
+    512x256 and 768x384, 425,984 particles).  With `nlevels` > 1, block
+    timesteps (level_diff_max 1) on the compacted tick."""
     p = Parameters()
     for k, v in {
             "run_id": "", "sim": "gradhsph", "ic": "khi", "ndim": 2,
             "dimensionless": 1, "gas_eos": "energy_eqn", "gamma_eos": 1.4,
             "kernel": "m4", "courant_mult": 0.2, "accel_mult": 0.3,
-            "Nlevels": 1, "neib_search": "kdtree", "rhofluid1": 1.0,
+            "Nlevels": nlevels, "level_diff_max": 1,
+            "neib_search": "kdtree", "rhofluid1": 1.0,
             "rhofluid2": 2.0, "press1": 2.5, "press2": 2.5, "amp": 0.1,
             "lambda": 0.5, "Nlattice1[0]": 32 * scale,
             "Nlattice1[1]": 16 * scale, "Nlattice2[0]": 48 * scale,
@@ -748,6 +763,46 @@ def khi_params(scale: int = 16, tend: float = 1.0e30) -> Parameters:
             "boundary_lhs[1]": "periodic", "boundary_rhs[1]": "periodic",
             "tend": tend, "tsnapfirst": 1.0e30, "dt_snap": 1.0e30}.items():
         p.set(k, v)
+    return p
+
+
+def block_sod_params(nlevels: int = 4, n1: int = 256, n2: int = 64,
+                     tend: float = 0.25) -> Parameters:
+    """The JAX package's block Sod tube (tests/test_block.py:21-44's
+    _adsod_params, with neib_search = kdtree as :136 sets it): sod_params
+    at n1 + n2 to `tend` with block timesteps, `nlevels` levels and
+    level_diff_max 1, on the compacted tick."""
+    p = sod_params(n1, n2, tend)
+    p.set("Nlevels", nlevels)
+    p.set("level_diff_max", 1)
+    return p
+
+
+def sedov_params(n_side: int, nlevels: int = 5) -> Parameters:
+    """A 2D Sedov blast (the sedov IC, src/Ic/SedovBlastwaveIc.cpp, as
+    tests/test_torch_copies.py sets it up): an n_side^2 lattice in the
+    periodic box [-1, 1]^2, rho 1, the energy injected through the M4
+    kernel in a central region of a few spacings (smooth_ic 1) with
+    kefrac 0.3 of it kinetic, energy_eqn gamma 1.4, M4, mon97, block
+    timesteps with `nlevels` levels and level_diff_max 1 on the grid path
+    (the compacted tick).  The hot centre takes the finest levels and
+    the cold lattice the coarsest."""
+    p = Parameters()
+    for k, v in {
+            "run_id": "", "sim": "gradhsph", "ic": "sedov", "ndim": 2,
+            "dimensionless": 1, "gas_eos": "energy_eqn", "gamma_eos": 1.4,
+            "kernel": "m4", "avisc": "mon97", "rhofluid1": 1.0,
+            "press1": 1.0, "kefrac": 0.3, "smooth_ic": 1,
+            "Nlevels": nlevels, "level_diff_max": 1,
+            "neib_search": "kdtree", "tend": 1.0e30, "tsnapfirst": 1.0e30,
+            "dt_snap": 1.0e30}.items():
+        p.set(k, v)
+    for k in range(2):
+        p.set(f"Nlattice1[{k}]", n_side)
+        p.set(f"boxmin[{k}]", -1.0)
+        p.set(f"boxmax[{k}]", 1.0)
+        p.set(f"boundary_lhs[{k}]", "periodic")
+        p.set(f"boundary_rhs[{k}]", "periodic")
     return p
 
 
@@ -1095,14 +1150,16 @@ def compare_family_kernels(variant: str, ndim: int, device, dtype,
     with the gaussian: fault F23), and K8, K9 and the group-list K6/K7 on
     the cold block sphere (about 2,000 particles) for every other
     particle.  Returns {kernel: report} as compare_kernels does, under
-    the kernels' family names."""
+    the kernels' family names.  In 1D and 2D also K8 and K9 for every
+    other particle of the tube's and the KHI's states (block timesteps,
+    Nlevels 3)."""
     from .sim.simulation import GradhSphSimulation
 
     ic = None
     if ndim == 1:
-        p = sod_params(128, 32)
+        p = block_sod_params(3, 128, 32)
     elif ndim == 2:
-        p = khi_params(1)
+        p = khi_params(1, nlevels=3)
     else:
         grav = 0 if variant.startswith("gaussian") else 1
         p = slice_params(16, self_gravity=grav)
@@ -1111,6 +1168,10 @@ def compare_family_kernels(variant: str, ndim: int, device, dtype,
     sim.SetupSimulation(ic)
     out = compare_kernels(sim, sim.state, repeats)
     if ndim < 3:
+        every_other = torch.arange(0, sim.state.N, 2, dtype=torch.int32,
+                                   device=sim.state.r.device)
+        out.update(compare_active_kernels(sim, sim.state, every_other,
+                                          repeats))
         return out
     if sim.self_gravity:
         out.update(compare_tree_kernels(sim, sim.state, repeats))
@@ -1238,12 +1299,11 @@ def _scaled(x, ref, fill):
 
 
 def kernel_name(name: str, spec, kern=None) -> str:
-    """The report and LAUNCHES key of grid kernel `name` (K1-K3) on
-    `spec`'s dims: the name, with the smoothing kernel's variant (K2, K3
-    with `kern` other than the direct M4: _ext.family_count) and _1d or
-    _2d appended below 3D."""
-    name = _ext.family_count(name, kern)
-    return name if spec.ndim == 3 else f"{name}_{spec.ndim}d"
+    """The report and LAUNCHES key of grid kernel `name` (K1-K3, K8, K9)
+    on `spec`'s dims: the name, with the smoothing kernel's variant (K2,
+    K3, K8, K9 with `kern` other than the direct M4: _ext.family_count)
+    and _1d or _2d appended below 3D."""
+    return _ext._grid_count(name, spec, kern)
 
 
 def compare_kernels(sim, state, repeats: int = 0, quiet: bool = False):
@@ -1934,9 +1994,10 @@ def periodic_gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
 def compare_active_kernels(sim, state, idx, repeats: int = 0):
     """Run K8, K9 and the group-list launches of K6 and K7 and their plain
     versions on the same inputs, from a block-slice state on a CUDA
-    device: K8 and K9 for the particles idx (n,) int32, K6 and K7 for the
-    buckets of idx (skipped without self-gravity).  K9 and K7 take the
-    plain K8's and K6's outputs.  Returns {kernel: report} as
+    device: K8 and K9 for the particles idx (n,) int32 in the state's
+    dims (reported under kernel_name's keys: active_density_2d, ...),
+    K6 and K7 for the buckets of idx (skipped without self-gravity).  K9
+    and K7 take the plain K8's and K6's outputs.  Returns {kernel: report} as
     compare_kernels does, with the tolerances of K2, K3, K6 and K7 and
     levelneib exactly equal.  Launch counts are restored afterwards.
     `idx` must not be empty."""
@@ -1945,8 +2006,9 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
     f64 = state.r.dtype == torch.float64
     il = idx.long()
     out = {}
-    k8, k9, k7l = (_ext.family_count(n, kern) for n in
-                   ("active_density", "active_forces", "tree_near_list"))
+    k8, k9 = (kernel_name(n, spec, kern) for n in
+              ("active_density", "active_forces"))
+    k7l = _ext.family_count("tree_near_list", kern)
 
     # K8 on the plain binning's slot map; the finish is shared torch code
     b = g27.bin_particles_plain(spec, state.r)
@@ -1958,7 +2020,7 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
     s_k = _ext.active_density(*kargs)
     s_p = ag.active_density_plain(*pargs)
     m_a = state.m[il]
-    dens = {tag: finish_h(3, sim.h_fac, m_a, *sums)
+    dens = {tag: finish_h(spec.ndim, sim.h_fac, m_a, *sums)
             for tag, sums in (("kernel", s_k), ("plain", s_p))}
     every = torch.ones_like(m_a, dtype=torch.bool)
     errs = {f: (_scaled if f == "zeta" else _rel)(
@@ -1966,7 +2028,7 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
         for f in ("h", "rho", "invomega", "zeta")}
     same_done = bool(torch.equal(s_k[3], s_p[3]))
     rep = {"n": int(il.numel()), "rel_err": errs,
-           "same_converged": same_done,
+           "same_converged": same_done, "dtype": str(state.r.dtype),
            "max_abs_err": float(torch.abs(dens["kernel"].rho
                                           - dens["plain"].rho).max())}
     if f64:
@@ -2002,7 +2064,7 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
     same_lneib = bool(torch.equal(f_k[3], f_p[3]))
     out[k9] = {
         "n": int(il.numel()), "scaled_err": errs,
-        "same_levelneib": same_lneib,
+        "same_levelneib": same_lneib, "dtype": str(state.r.dtype),
         "levelneib_raised": int((f_p[3] != s2.levelneib).sum()),
         "max_abs_err": float(torch.abs(f_k[0] - f_p[0]).max()),
         "ok": same_lneib and max(errs.values())

@@ -1,6 +1,6 @@
 // One SPH pair's share of the grad-h hydro force sums, shared by the
-// grid force kernel (K3, in 1, 2 or 3 dims) and the active-subset force
-// kernel (K9, 3D).
+// grid force kernel (K3) and the active-subset force kernel (K9), each
+// in 1, 2 or 3 dims.
 //
 // The packed per-particle scalars are ops/sph_grid27.py:FORCE_SCALARS.
 // A pair adds m_j paux / d * dr to the acceleration, its viscous and
@@ -84,17 +84,6 @@ __device__ __forceinline__ void pair_add_n(const Own<T>& o, const T* sj,
   const T w_pair = m_j * paux * inv_drmag;
 #pragma unroll
   for (int k = 0; k < NDIM; ++k) acc[k] += w_pair * dr[k];
-}
-
-// the 3D form (K9): sums ax, ay, az, dudt, divv
-template <typename T, class KF>
-__device__ __forceinline__ void pair_add(const Own<T>& o, const T* sj,
-                                         T dx, T dy, T dz, T dvx, T dvy,
-                                         T dvz, T drmag, const KF& kern,
-                                         const Dissipation& dis, T acc[5]) {
-  const T dr[3] = {dx, dy, dz};
-  const T dv[3] = {dvx, dvy, dvz};
-  pair_add_n<T, 3>(o, sj, dr, dv, drmag, kern, dis, acc);
 }
 
 }  // namespace sph

@@ -1,16 +1,16 @@
 """Active-subset hydro pass over the structured grid: the density (K8)
 and forces (K9) of a listed subset of particles, the pair work of a
 block-timestep tick; and the neighbour-level pass (K22) of the dense
-block tick (with sinks or dust, and of block MFV) in 1-3 dims.
+block tick (with sinks or dust, and of block MFV); each in 1-3 dims.
 
 Counterpart of ``gandalf_tpu/ops/active_grid.py``.  Every particle is
 binned (K1) into the grid's dense slot map, which holds each slot's
 particle id (-1 empty); the pair work is done only for the listed
-particles, each over the 27 cells around its own (wrapped indices, ±L
-shifts on periodic dims).  The JAX package gathers an (n_cap, 27K)
-candidate block per listed particle from ghost-layer copies
-(``gather_active_candidates``) and pads the list to a power of two with
-masked rows; the port walks the cells in place and does not pad.
+particles, each over the 3^ndim cells around its own (wrapped
+indices, ±L shifts on periodic dims).  The JAX package gathers an
+(n_cap, 3^ndim K) candidate block per listed particle from ghost-layer
+copies (``gather_active_candidates``) and pads the list to a power of two
+with masked rows; the port walks the cells in place and does not pad.
 
 Order inside the pass, as in the JAX package: K8's h, rho, invomega,
 zeta, hfactor and the EOS values of the listed rows are written back to
@@ -127,7 +127,7 @@ def active_density_plain(kern, spec, h_fac, h_converge, hmax, idx, cell_of,
     is exactly zero.  A row whose h passes the bound (a fixed-point step
     can) has its chunk redone on all its candidates."""
     il = idx.long()
-    step = _row_chunk(27 * spec.k_cell, r.device)
+    step = _row_chunk(3 ** spec.ndim * spec.k_cell, r.device)
     parts = []
     for c0 in range(0, il.numel(), step):
         sel = il[c0:c0 + step]
@@ -160,7 +160,7 @@ def active_forces(kern, visc, spec: g27.Grid27Spec, idx: Tensor,
                   cell_of: Tensor, ids_d: Tensor, r: Tensor, v: Tensor,
                   packed: Tensor, level: Tensor, levelneib: Tensor,
                   hydro_forces: bool):
-    """a (n, 3), dudt and div_v (n,) of the listed particles (zero
+    """a (n, ndim), dudt and div_v (n,) of the listed particles (zero
     without hydro forces) and levelneib (N,) raised by the neighbour
     levels in both directions.  `packed` (N, 9) holds
     ops.sph_grid27.FORCE_SCALARS per particle.  K9 on CUDA tensors."""
@@ -180,11 +180,11 @@ def active_forces_plain(kern, visc, spec, idx, cell_of, ids_d, r, v,
     col = {k: i for i, k in enumerate(g27.FORCE_SCALARS)}
     il = idx.long()
     dt, dev = r.dtype, r.device
-    a = torch.zeros((il.numel(), 3), dtype=dt, device=dev)
+    a = torch.zeros((il.numel(), spec.ndim), dtype=dt, device=dev)
     dudt = torch.zeros((il.numel(),), dtype=dt, device=dev)
     div_v = torch.zeros((il.numel(),), dtype=dt, device=dev)
     lneib = levelneib.clone()
-    step = _row_chunk(27 * spec.k_cell, dev)
+    step = _row_chunk(3 ** spec.ndim * spec.k_cell, dev)
     for c0 in range(0, il.numel(), step):
         sel = il[c0:c0 + step]
         cand, dr = gather_active_candidates(spec, cell_of, ids_d, r, sel)
@@ -193,8 +193,9 @@ def active_forces_plain(kern, visc, spec, idx, cell_of, ids_d, r, v,
         h_i = packed[sel, col["h"]]
         h_j = torch.where(mask, packed[cid, col["h"]], 1.0)
         # d^2 and the support radius in the kernel's rounding steps
-        d2 = (dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1]
-              + dr[..., 2] * dr[..., 2])
+        d2 = dr[..., 0] * dr[..., 0]
+        for k in range(1, spec.ndim):
+            d2 = d2 + dr[..., k] * dr[..., k]
         rad = kern.kernrange * torch.maximum(h_i[:, None], h_j)
         within = mask & (d2 <= rad * rad)
         zero = torch.zeros_like(cand)

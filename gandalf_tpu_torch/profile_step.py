@@ -2,7 +2,7 @@
 steps of a slice on one GPU.
 
     python -m gandalf_tpu_torch.profile_step [--self-gravity {0,1}]
-    python -m gandalf_tpu_torch.profile_step --block
+    python -m gandalf_tpu_torch.profile_step --block [--ndim {1,2,3}]
     python -m gandalf_tpu_torch.profile_step --mfv [--self-gravity {0,1}]
         [--ndim {1,2,3}] [--riemann {hllc,exact}] [--limiter L] [--rk2]
     python -m gandalf_tpu_torch.profile_step --mfv --block [--ndim {1,2,3}]
@@ -26,7 +26,10 @@ or self-gravitating as in bench.build_sim(64), the default), runs two
 warm-up steps, then profiles one burst of 8 steps (main_loop_steps)
 that holds no tree rebuild.  With --block: the block slice
 (cold_sphere_block) at about 262,144 particles in float32, 4 warm-up
-ticks, then a window of 8 ticks without a tree rebuild.  With --mfv:
+ticks, then a window of 8 ticks without a tree rebuild; --ndim 2 takes
+the KHI (check.khi_params, 425,984 particles) with Nlevels 3 in
+float32 and --ndim 1 the block Sod tube (check.block_sod_params(4), 256
++ 64, float64), both on the compacted tick without gravity.  With --mfv:
 the meshless finite-volume box (check.mfv_params, self-gravitating by
 default) at 64^3 in float32, as the SPH box; --ndim 2 takes the 2D box
 of tests/test_mfv_grid.py at x16 per axis (check.mfv_khi_params(512),
@@ -280,7 +283,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mfv", action="store_true",
                     help="the meshless finite-volume box (mfv_box)")
     ap.add_argument("--ndim", type=int, default=3, choices=(1, 2, 3),
-                    help="with --mfv: the Sod tube (1) or the 2D box (2)")
+                    help="with --mfv or --block: the Sod tube (1) or the "
+                         "2D box or KHI (2)")
     ap.add_argument("--riemann", default="hllc", choices=("hllc", "exact"),
                     help="with --mfv: the Riemann solver")
     ap.add_argument("--limiter", default="gizmo",
@@ -336,8 +340,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         sys.exit("profile_step: no CUDA device")
     from .check import (MIRROR_DIM0, MIRROR_MIXED, bb_block_params,
-                        bb_params, dust_params, dustybox_params,
-                        family_params, jeans_params,
+                        bb_params, block_sod_params, dust_params,
+                        dustybox_params, family_params, jeans_params,
                         jittered_box_ic, khi_params, mfv_block_sphere_params,
                         mfv_block_tube_params, mfv_khi_params,
                         mfv_params, mfv_sod_params, mirror_ic,
@@ -439,9 +443,15 @@ def main(argv=None) -> int:
             sim.SetupSimulation()
         warm = 2
     elif args.block:
+        if args.ndim == 3:
+            params = sphere_block_params(BLOCK_N)
+        elif args.ndim == 2:
+            params = khi_params(nlevels=3)
+        else:
+            params = block_sod_params(4, tend=1.0e30)
         sim = GradhSphSimulation(
-            family_params(args.kernel, sphere_block_params(BLOCK_N)),
-            device="cuda", dtype=torch.float32)
+            family_params(args.kernel, params), device="cuda",
+            dtype=torch.float64 if args.ndim == 1 else torch.float32)
         sim.SetupSimulation()
         warm = BLOCK_WARM
     else:

@@ -630,9 +630,6 @@ class GradhSphSimulation(SimulationBase):
         # hierarchical block timesteps on the grid path
         self.nlevels = max(ip["Nlevels"], 1)
         self.use_block = self.nlevels > 1
-        if self.use_block and self.ndim != 3:
-            raise _unsupported("block timesteps (Nlevels > 1) at ndim < 3 "
-                               "(K8 and K9 are 3D)", "item 3")
         if self.use_block and self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries with block timesteps "
                                "(the JAX package's all-pairs path)",

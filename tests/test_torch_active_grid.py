@@ -7,12 +7,16 @@ configuration at about 500 particles) and the 8^3 periodic box, each
 after the port's bootstrap, with positions nudged and levels scattered
 by a numpy seed so that h must iterate and levelneib must rise.  Each
 goes through both packages for a random quarter of the particles and
-for all of them, with hydro forces on and off.  Also records the JAX
+for all of them, with hydro forces on and off.  make_case and
+check_active_pass also build and check the 1D and 2D states
+(tests/test_torch_block_dims.py: the block Sod tube and the small
+KHI).  Also records the JAX
 package's tree accuracy on the block configuration's sphere at 4224
 particles, which chip_smoke.py's block accuracy gate refers to."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,13 +30,15 @@ from gandalf_tpu.ops.active_grid import active_hydro_pass as jax_pass
 from gandalf_tpu.ops.eos import Adiabatic as JaxAdiabatic
 from gandalf_tpu.state import DomainBox as JaxBox
 from gandalf_tpu.state import make_sph_state as jax_state
-from gandalf_tpu_torch.check import (jittered_box_ic, slice_params,
+from gandalf_tpu_torch.check import (block_sod_params, jittered_box_ic,
+                                     khi_params, slice_params,
                                      sphere_block_params)
 from gandalf_tpu_torch.convert import grid_spec_from_jax
 from gandalf_tpu_torch.ops.active_grid import active_hydro_pass
 from gandalf_tpu_torch.ops.sph_gravity import direct_sph_gravity
 from gandalf_tpu_torch.ops.tree import tree_gravity_active
 from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+from test_torch_block_sim import _unlisted_pads
 
 torch.set_num_threads(1)
 
@@ -42,28 +48,33 @@ FIELDS = ("h", "rho", "invomega", "zeta", "hfactor", "u", "pressure",
 
 
 def _sim(kind):
-    """The port's simulation after its (block) bootstrap, float64."""
+    """The port's simulation after its (block) bootstrap, float64: the
+    sphere, the 8^3 box, the block Sod tube (1D, 320 particles) or the
+    small KHI (2D, 1,664)."""
+    ic = None
     if kind == "sphere":
         p = sphere_block_params(500)
-        ic = None
-    else:
+    elif kind == "box":
         p = slice_params(8)
         p.set("Nlevels", 4)
         ic = jittered_box_ic(p, 8)
+    elif kind == "tube":
+        p = block_sod_params(4)
+    else:
+        p = khi_params(1, nlevels=3)
     sim = GradhSphSimulation(p, device="cpu", dtype=torch.float64)
     sim.SetupSimulation(ic)
     return sim
 
 
-@pytest.fixture(scope="module", params=["sphere", "box"])
-def case(request):
+def make_case(kind):
     """(port simulation, nudged port state, JAX state, JAX grid spec,
-    JAX kernel, viscosity, EOS)."""
-    sim = _sim(request.param)
+    JAX kernel, viscosity, EOS) of state `kind` (_sim)."""
+    sim = _sim(kind)
     s = sim.state
     rng = np.random.default_rng(7)
-    N = s.N
-    r = s.r + torch.tensor(0.05 * rng.standard_normal((N, 3))) * s.h[:, None]
+    N, nd = s.N, s.ndim
+    r = s.r + torch.tensor(0.05 * rng.standard_normal((N, nd))) * s.h[:, None]
     s = s.replace(r=sim.box.wrap(r), level=torch.tensor(
         rng.integers(0, 4, N).astype(np.int32)))
     s = s.replace(levelneib=s.level.clone())
@@ -80,9 +91,14 @@ def case(request):
     v = sim.visc
     jvisc = jforces.ArtificialViscosity(v.avisc, v.acond, v.alpha_visc,
                                         v.alpha_visc_min, v.beta_visc)
-    return dict(kind=request.param, sim=sim, s=s, js=js, jspec=jspec,
-                tspec=tspec, jkern=jax_kernel("m4", 3, 0), jvisc=jvisc,
+    return dict(kind=kind, sim=sim, s=s, js=js, jspec=jspec, tspec=tspec,
+                jkern=jax_kernel("m4", nd, 0), jvisc=jvisc,
                 jeos=JaxAdiabatic(gamma=sim.eos.gamma), rng=rng)
+
+
+@pytest.fixture(scope="module", params=["sphere", "box"])
+def case(request):
+    return make_case(request.param)
 
 
 def _subset(c, which):
@@ -93,16 +109,24 @@ def _subset(c, which):
     return np.sort(rng.choice(N, N // 4, replace=False)).astype(np.int32)
 
 
-@pytest.mark.parametrize("hydro", [True, False], ids=["hydro", "no_hydro"])
-@pytest.mark.parametrize("which", ["quarter", "all"])
-def test_active_hydro_pass_matches_jax(case, which, hydro):
-    c = case
+def check_active_pass(c, which, hydro):
+    """The active pass (plain K8, K9) of the particles `which` through
+    both packages on case c: every field within TOL of its largest value,
+    levelneib and the overflow flag equal, only the listed rows changed
+    and some neighbours' levels raised."""
     sim = c["sim"]
     idx = _subset(c, which)
-    js2, jovf = jax_pass(c["jkern"], c["jvisc"], c["jspec"], c["jeos"],
-                         sim.h_fac, sim.h_converge, c["js"],
-                         jnp.asarray(idx), jnp.ones(len(idx), bool),
-                         hydro_forces=hydro)
+    N = c["s"].N
+    # the JAX pass takes the list padded to N rows (one compiled program
+    # for both subsets), its pads outside the list (fault F7)
+    val = np.arange(N) < len(idx)
+    padded = _unlisted_pads(np.resize(idx, N), val, idx, N)
+    key = ("jax_pass", hydro)
+    if key not in c:
+        c[key] = jax.jit(lambda s, i, v: jax_pass(
+            c["jkern"], c["jvisc"], c["jspec"], c["jeos"], sim.h_fac,
+            sim.h_converge, s, i, v, hydro_forces=hydro))
+    js2, jovf = c[key](c["js"], jnp.asarray(padded), jnp.asarray(val))
     ts2, tovf = active_hydro_pass(sim.kern, sim.visc, c["tspec"], sim.eos,
                                   sim.h_fac, sim.h_converge, c["s"],
                                   torch.tensor(idx), hydro_forces=hydro)
@@ -119,6 +143,12 @@ def test_active_hydro_pass_matches_jax(case, which, hydro):
     np.testing.assert_array_equal(ts2.h.numpy()[others],
                                   c["s"].h.numpy()[others])
     assert np.any(lneib != c["s"].levelneib.numpy())
+
+
+@pytest.mark.parametrize("hydro", [True, False], ids=["hydro", "no_hydro"])
+@pytest.mark.parametrize("which", ["quarter", "all"])
+def test_active_hydro_pass_matches_jax(case, which, hydro):
+    check_active_pass(case, which, hydro)
 
 
 def test_tree_gravity_active_matches_jax():

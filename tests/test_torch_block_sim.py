@@ -54,6 +54,20 @@ def _unlisted_pads(idx, val, ids, n_total):
     return np.where(val, idx, spare[0]).astype(idx.dtype)
 
 
+def repoint_pads(jsim):
+    """Send every active pass of the JAX simulation jsim through
+    _unlisted_pads, and record the listed rows of each pass in
+    jsim.last_tick_rows (the port's simulations keep the same list)."""
+    run = jsim._run_f_active
+    jsim.last_tick_rows = []
+
+    def repointed(s, idx, val, ids):
+        jsim.last_tick_rows.append(len(ids))
+        return run(s, _unlisted_pads(idx, val, ids, s.m.shape[0]), val, ids)
+
+    jsim._run_f_active = repointed
+
+
 def _pair(**kw):
     """Both simulations after setup, from one staged IC; the JAX one
     counts its tree plans and records the rows of its active passes."""
@@ -61,21 +75,15 @@ def _pair(**kw):
     ic = {k: ic[k] for k in ("r", "v", "m", "h", "u")}
     jsim = JaxSim(_params(**kw))
     jsim.restart_data = {k: v.copy() for k, v in ic.items()}
-    plan, run = jsim._plan_tree_buckets, jsim._run_f_active
+    plan = jsim._plan_tree_buckets
     jsim.n_plans = 0
-    jsim.last_tick_rows = []
 
     def counted(*args, **kwargs):
         jsim.n_plans += 1
         return plan(*args, **kwargs)
 
-    def recorded(s, idx, val, ids):
-        jsim.last_tick_rows.append(len(ids))
-        return run(s, _unlisted_pads(idx, val, ids, len(ic["m"])), val,
-                   ids)
-
     jsim._plan_tree_buckets = counted
-    jsim._run_f_active = recorded
+    repoint_pads(jsim)
     jsim.SetupSimulation()
     tsim = GradhSphSimulation(_params(**kw), device="cpu",
                               dtype=torch.float64)

@@ -272,10 +272,10 @@ def _refused(params, item):
 
 @pytest.mark.parametrize("ndim", [1, 2])
 def test_refusals_below_3d_name_their_items(ndim):
-    """Block steps (item 3), self-gravity (item 3) and sinks (item 9)
-    stay 3D-only, and so does MFV's self-gravity (item 3)."""
-    for key, value, item in (("Nlevels", 3, "item 3"),
-                             ("self_gravity", 1, "item 3"),
+    """Self-gravity (item 3) and sinks (item 9) stay 3D-only, and so does
+    MFV's self-gravity (item 3); block steps run below 3D
+    (tests/test_torch_block_dims.py)."""
+    for key, value, item in (("self_gravity", 1, "item 3"),
                              ("create_sinks", 1, "item 9")):
         p = mirror_params(8, ndim, walls=())
         p.set(key, value)
@@ -302,13 +302,14 @@ def test_mirror_refusals_name_their_items():
 
 def test_kernels_refuse_z_slab_plans():
     """qz != 1 comes only from the distributed planner (item 13); the
-    active-subset and neighbour-level kernels stay 3D (item 3)."""
+    active-subset kernels (K8, K9) take 2D grids with the grid kernels'
+    arguments and refuse only mirror layers (item 8)."""
     spec = tg.Grid27Spec(ndim=2, ncells=(4, 4), lo=(0.0, 0.0),
                          extents=(1.0, 1.0), k_cell=8,
                          periodic=(True, True))
     with pytest.raises(NotImplementedError, match="item 13"):
         _ext._grid_args_nd(dataclasses.replace(spec, qz=2))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        _ext._grid_args(spec)
-    assert _ext._grid_args_nd(spec) == (2, 4, 4, 1, 8, 1, 1, 0, 1.0, 1.0,
-                                        0.0)
+    assert _ext._grid_args(spec) == _ext._grid_args_nd(spec) == (
+        2, 4, 4, 1, 8, 1, 1, 0, 1.0, 1.0, 0.0)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        _ext._grid_args(dataclasses.replace(spec, mirror=((1, 1), (0, 0))))

@@ -160,6 +160,12 @@ def test_port_never_imports_jax():
         "                      Nphotonratio=1.0)\n"
         "    sim.main_loop_step()\n"
         "    assert bool((sim.state.ionfrac <= 1).all())\n"
+        "from gandalf_tpu_torch.check import block_sod_params, sedov_params\n"
+        "for p in (block_sod_params(3, 64, 16), sedov_params(12, 3)):\n"
+        "    sim = GradhSphSimulation(p, device='cpu', dtype=torch.float64)\n"
+        "    sim.SetupSimulation()\n"
+        "    sim.main_loop_step()\n"
+        "    assert sim.use_block and sim.ndim < 3 and sim.active_rows > 0\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -169,6 +175,19 @@ def test_port_never_imports_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_chip_smoke_defines_each_name_once():
+    """chip_smoke.py's phases share one module: a second top-level
+    function or constant of the same name would silently replace the
+    first and break the phases that call it."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)]
+    dup = sorted({n for n in names if names.count(n) > 1})
+    assert not dup, dup
 
 
 def test_chip_smoke_refuses_without_gpu():
@@ -186,12 +205,14 @@ def test_chip_smoke_refuses_without_gpu():
 def test_kernels_match_plain_versions_on_gpu(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    from gandalf_tpu_torch.check import (compare_active_kernels,
+    from gandalf_tpu_torch.check import (block_sod_params,
+                                         compare_active_kernels,
                                          compare_kernels,
                                          compare_mfv_kernels,
                                          compare_tree_kernels,
-                                         jittered_box_ic, mfv_params,
-                                         slice_params, sphere_block_params)
+                                         jittered_box_ic, khi_params,
+                                         mfv_params, slice_params,
+                                         sphere_block_params)
     from gandalf_tpu_torch.sim.simulation import (GradhSphSimulation,
                                                   SimulationBase)
 
@@ -207,6 +228,13 @@ def test_kernels_match_plain_versions_on_gpu(dtype):
     sim.SetupSimulation()
     idx = torch.arange(0, sim.state.N, 3, dtype=torch.int32, device="cuda")
     report.update(compare_active_kernels(sim, sim.state, idx))
+    # K8 and K9 at ndim 1 and 2: the block Sod tube and the small KHI
+    for p in (block_sod_params(4), khi_params(1, nlevels=3)):
+        sim = GradhSphSimulation(p, device="cuda", dtype=dtype)
+        sim.SetupSimulation()
+        idx = torch.arange(0, sim.state.N, 3, dtype=torch.int32,
+                           device="cuda")
+        report.update(compare_active_kernels(sim, sim.state, idx))
     # K10-K12 and K7's MFV mode on the MFV box after two steps
     p = mfv_params(16, self_gravity=1)
     sim = SimulationBase.factory(p, "cuda", dtype)
@@ -537,7 +565,7 @@ def test_sm2012_kernels_match_plain_versions_on_gpu(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_family_kernels_match_plain_versions_on_gpu(dtype):
-    """K2, K3 (1-3 dims), K7, K8 and K9 (3D) with the quintic, gaussian,
+    """K2, K3, K8 and K9 (1-3 dims), K7 (3D) with the quintic, gaussian,
     tabulated M4 and tabulated quintic against their plain versions on
     the card (check.compare_family_kernels)."""
     if not torch.cuda.is_available():

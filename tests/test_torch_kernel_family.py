@@ -49,6 +49,7 @@ from gandalf_tpu_torch.sim.ic import generate_ic
 from gandalf_tpu_torch.sim.simulation import (GradhSphSimulation,
                                               SimulationBase)
 from gandalf_tpu_torch.state import DomainBox
+from test_torch_block_sim import repoint_pads
 
 torch.set_num_threads(1)
 
@@ -259,17 +260,8 @@ def test_block_tick_matches_jax():
     ic = {k: ic[k] for k in ("r", "v", "m", "h", "u")}
     jsim = JaxSim(_jax_params(params()))
     jsim.restart_data = {k: v.copy() for k, v in ic.items()}
-    run = jsim._run_f_active
-    n = len(ic["m"])
-
-    def unlisted_pads(s, idx, val, ids):
-        # the pads point outside the list, not at particle 0 (fault F7)
-        spare = np.setdiff1d(np.arange(n), ids)
-        if spare.size:
-            idx = np.where(val, idx, spare[0]).astype(idx.dtype)
-        return run(s, idx, val, ids)
-
-    jsim._run_f_active = unlisted_pads
+    # the pads point outside the list, not at particle 0 (fault F7)
+    repoint_pads(jsim)
     jsim.SetupSimulation()
     tsim = GradhSphSimulation(params(), device="cpu", dtype=torch.float64)
     tsim.SetupSimulation({k: v.copy() for k, v in ic.items()})

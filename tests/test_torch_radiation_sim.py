@@ -9,6 +9,9 @@ main_loop_steps under ionisation, treeray and monoionisation (at 739
 particles, the Monte-Carlo packets' draws made with jax.random as the
 JAX package makes them and handed to the port, and the cross-section
 raised so the front is optically thick), and 3 block ticks of ionisation with Nlevels = 2.
+Without sinks the block run takes the compacted tick, held to the JAX
+package's with its pad rows pointed outside the active lists (ROADMAP
+fault F7).
 ionfrac must be equal and u, r, v and dt agree to 1e-10 of each field's
 largest value after every step.  (The lattice sphere ties its shells of
 equal distance exactly; after a step the ionisation scheme ranks a shell
@@ -36,6 +39,7 @@ from gandalf_tpu_torch.convert import (mc_draws_from_numpy,
 from gandalf_tpu_torch.sim.ic import spitzer_ic
 from gandalf_tpu_torch.sim.simulation import (GradhSphSimulation,
                                               SimulationBase)
+from test_torch_block_sim import repoint_pads
 
 torch.set_num_threads(1)
 
@@ -163,6 +167,26 @@ def test_no_sinks_no_update():
         tsim.main_loop_step()
         _compare(jsim, tsim, ("no sinks", k))
     assert not tsim.state.ionfrac.any()
+
+
+def test_no_sinks_block_ticks_compacted():
+    """The block counterpart (Nlevels = 2, no star): both packages take
+    the compacted tick, whose active lists the JAX package pads with rows
+    pointing at particle 0 (ROADMAP fault F7, which F28 was); with its
+    pads pointed outside the list the levels, the listed rows and every
+    field agree over 3 ticks, and no update is made."""
+    jsim, tsim = _setup(spitzer_params(N_SPHERE, Nlevels=2), star=False)
+    repoint_pads(jsim)
+    assert tsim.use_block and not tsim.has_sinks
+    for k in range(3):
+        jsim.last_tick_rows = []
+        jsim.main_loop_step()
+        tsim.main_loop_step()
+        _compare(jsim, tsim, ("block, no sinks", k))
+        assert tsim.last_tick_rows == jsim.last_tick_rows
+        assert np.array_equal(tsim.state.level.numpy(),
+                              np.asarray(jsim.state.level))
+    assert tsim.active_rows > 0 and not tsim.state.ionfrac.any()
 
 
 def test_bursts_stop_at_updates():

@@ -123,12 +123,12 @@ def test_options_outside_the_slice_raise(key, value, request):
     fault F14), sinks with mirror walls, sinks in the MFV controller
     (which the JAX package's ignores: fault F16), self-gravity (which runs every walk
     option, the Ewald sum of this periodic box included) with octtree
-    buckets, and a 2D run (which the grid path now takes) with block
-    timesteps."""
+    buckets, and a 2D run (which the grid path now takes, with block
+    timesteps too) with self-gravity."""
     p = slice_params(8)
     case = request.node.callspec.id
     if key == "ndim":
-        p.set("Nlevels", 3)
+        p.set("self_gravity", 1)
     if key in ("sim", "dust_forces", "kernel") or case in (
             "locally_isothermal-sinks", "sinks-mirror_walls"):
         p.set("sink_particles", 1)

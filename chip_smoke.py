@@ -13,8 +13,11 @@ quintic, gaussian and tabulated smoothing kernels, MFV's options (the
 exact Riemann solver, RK2, every slope limiter) and its 1D and 2D grid
 path, block-timestep MFV, the radiation schemes (ionisation, treeray
 and Monte-Carlo photoionisation of the Spitzer HII region) and block
-timesteps on the 1D and 2D grid path, and checks them, in phases, each
-printing one line:
+timesteps on the 1D and 2D grid path, and self-gravity in 1D and 2D
+(the tree kernels K4-K7 at NDIM 1 and 2, the 2D self-gravitating disc
+under global and block steps, the 2D periodic box without the Ewald
+sum, MFV gravity in 2D), and checks them, in phases, each printing one
+line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
@@ -387,7 +390,37 @@ printing one line:
    ticks: the same figures and the energy drift, at least two levels,
    listed rows below 0.8 of N ticks, finite, rho > 0, mass exact;
 86. dustybox_block: tests/test_dust.py:112-133's dusty box (1D, Nlevels
-   3, the dense dust tick) in float64 to t = 1, held to its gates.
+   3, the dense dust tick) in float64 to t = 1, held to its gates;
+87. tree_kernels_dims: K4-K7 at NDIM 1 and 2 against their plain
+   versions on the card in float64 (K4 exact, K5 within 1e-12, K6 and
+   K7 within 1e-10; check.compare_tree_kernels_dims) on the disc and
+   the rod of check.disc_params at about 4,096 particles, in every walk
+   option (the geometric quadrupole walk and its list launches,
+   gadget2, eigenmac, the fast quadrupole, the quintic kernel, K7's MFV
+   zeta mode), with ms a launch, plain ms and the bound of each;
+88. gravity_disc_2d: the 2D self-gravitating disc (check.disc_params at
+   262,144 particles, the quadrupole tree, float32, global dt): 2
+   warm-up and 32 timed steps, particle-steps/s and device ms a step
+   by kernel, finite, rho > 0, every kernel each step, energy drift
+   within 1e-2, the tree at 2,048 sampled particles against the float64
+   all-pairs sum within twice the JAX package's reading; then K1-K7
+   (2D) against their plain versions at the path's state;
+89. gravity_block_disc_2d: the same disc under Nlevels 4 on the
+   compacted tick (the list K6/K7), 4 warm-up and 32 timed ticks:
+   ticks/s, active particle-updates/s, the levels, the block gates
+   (drift within 2e-3, the accuracy gate in the 3D block gate's ratio to
+   the JAX error); then K8, K9 and the list K6/K7 (2D) at its state;
+90. gravity_box_2d: the 2D periodic box at 256^2 with ewald = 0 (K4's
+   per-bucket unwrap along both axes), 16 steps, then K4-K7 (2D) at its
+   state;
+91. mfv_gravity_disc_2d: the 2D disc at about 65,536 particles through
+   MUSCL MFV with self-gravity, 16 steps, mass exact, K7's MFV mode
+   (2D) every step;
+92. gravity_dims_parity: float64 on the card against the plain path on
+   the CPU, 8 steps each of the 2D disc at about 2,000 particles under
+   a global dt and under Nlevels 4 and of the 1D rod at 4,096, with
+   equal tree plans, levels and listed rows; then K4-K7 (1D) against
+   their plain versions at the rod's state on the card.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -419,7 +452,10 @@ mfv_block_tube (float64), K22 in 2D from mfv_block_khi and in 1D from
 mfv_block_tube, K32 and K33 in 3D from mfv_block_sphere and in 2D from
 mfv_block_khi's conservative run, K37 from spitzer_ionisation, K35
 from spitzer_treeray, K34 and K36 from spitzer_mcrt, K8 and K9 in 2D
-from block_khi_2d and in 1D from block_sod_tube (float64), each counted
+from block_khi_2d and in 1D from block_sod_tube (float64), K4-K7 in 2D
+from gravity_disc_2d, the list K6 and K7 in 2D from
+gravity_block_disc_2d, K7's MFV mode in 2D from mfv_gravity_disc_2d and
+K4-K7 in 1D from gravity_dims_parity's rod on the card (float64), each counted
 over its path's timed window (the tubes' over their whole block runs)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -721,6 +757,41 @@ SEDOV_WARM = 2
 SEDOV_TICKS = 32
 SEDOV_FRACTION = 0.8
 DUSTYBOX_BLOCK_T = 1.0
+# self-gravity below 3D (phases 87-92): K4-K7 at ndim 1 and 2 on the disc
+# and the rod of check.disc_params at about 4,096 particles in each walk
+# option, the 2D disc at full width (262,144 particles: warm-up and
+# timed steps, and the block run's ticks), the 2D periodic box at 256^2
+# with ewald = 0, the MFV disc at about 65,536, and the float64 parity
+# runs: the 2D disc at about 2,000 under a global dt and Nlevels 4 and
+# the 1D rod at 4,096.
+TREE_DIMS_N = 4096
+DISC_N = 262144
+DISC_STEPS_WARM = 2
+DISC_STEPS_TIMED = 32
+DISC_BLOCK_TICKS_WARM = 4
+DISC_BLOCK_TICKS_TIMED = 32
+GBOX_SIDE = 256
+GBOX_STEPS = 16
+MFV_DISC_N = 65536
+MFV_DISC_STEPS = 16
+DIMS_GRAVITY_PARITY = (("disc_2d", 2, 2000, 1), ("disc_block_2d", 2, 2000, 4),
+                       ("rod_1d", 1, 4096, 1))
+DIMS_GRAVITY_PARITY_STEPS = 8
+# gates of the 2D disc, set before its first run on the card.  The JAX
+# package's tree (float64, the controller's plan, hydro forces off) reads
+# rms|da|/rms|a| = 4.03e-4 against its all-pairs sum at setup of the
+# 1,528-particle disc (tests/test_torch_tree_dims.py) and 7.31e-4 at
+# 65,601 (the slow-marked test there); the port's plain versions agree
+# with it to 1e-12 and read 5.37e-4 at 16,292, so the error grows with
+# N.  The global gate is twice the JAX value at 65,601; the block gate
+# stands to it as the 3D block gate (6e-4) stands to the JAX error on
+# the 3D sphere (3.9e-4), 1.54 times.  The energy gates are the 3D
+# paths': 1e-2 over the global window, 2e-3 over the block one.
+DISC_JAX_ACCURACY = 7.31e-4
+DISC_ACCURACY_TOL = 2.0 * DISC_JAX_ACCURACY
+DISC_BLOCK_ACCURACY_TOL = 1.54 * DISC_JAX_ACCURACY
+DISC_ENERGY_DRIFT_TOL = 1e-2
+DISC_BLOCK_ENERGY_DRIFT_TOL = 2e-3
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -733,17 +804,17 @@ SOURCES = {
                     "gandalf_tpu/ops/tree.py:1357"),
     "tree_build": ("gandalf_tpu_torch/csrc/tree_build.cu",
                    "gandalf_tpu/ops/tree.py:153"),
-    "tree_walk": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+    "tree_walk": ("gandalf_tpu_torch/csrc/tree_walk.cuh",
                   "gandalf_tpu/ops/tree.py:287"),
-    "tree_near": ("gandalf_tpu_torch/csrc/tree_near.cu",
+    "tree_near": ("gandalf_tpu_torch/csrc/tree_near.cuh",
                   "gandalf_tpu/ops/tree.py:635"),
     "active_density": ("gandalf_tpu_torch/csrc/active_density.cu",
                        "gandalf_tpu/ops/active_grid.py:107"),
     "active_forces": ("gandalf_tpu_torch/csrc/active_forces.cu",
                       "gandalf_tpu/ops/active_grid.py:140"),
-    "tree_walk_list": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+    "tree_walk_list": ("gandalf_tpu_torch/csrc/tree_walk.cuh",
                        "gandalf_tpu/ops/tree.py:1429"),
-    "tree_near_list": ("gandalf_tpu_torch/csrc/tree_near.cu",
+    "tree_near_list": ("gandalf_tpu_torch/csrc/tree_near.cuh",
                        "gandalf_tpu/ops/tree.py:1429"),
     "mfv_density": ("gandalf_tpu_torch/csrc/mfv_density.cu",
                     "gandalf_tpu/ops/mfv_grid27.py:70"),
@@ -751,7 +822,7 @@ SOURCES = {
                       "gandalf_tpu/ops/mfv_grid27.py:198"),
     "mfv_fluxes": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
                    "gandalf_tpu/ops/mfv_grid27.py:342"),
-    "tree_near_mfv": ("gandalf_tpu_torch/csrc/tree_near.cu",
+    "tree_near_mfv": ("gandalf_tpu_torch/csrc/tree_near.cuh",
                       "gandalf_tpu/ops/tree.py:770"),
     "mfv_fluxes_rk2": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
                        "gandalf_tpu/ops/mfv.py:793"),
@@ -793,17 +864,17 @@ SOURCES = {
                         "gandalf_tpu/ops/gravity.py:86"),
     "direct_snap": ("gandalf_tpu_torch/csrc/nbody_direct.cu",
                     "gandalf_tpu/ops/gravity.py:60"),
-    "tree_walk_ewald": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+    "tree_walk_ewald": ("gandalf_tpu_torch/csrc/tree_walk.cuh",
                         "gandalf_tpu/ops/tree.py:556"),
-    "tree_near_ewald": ("gandalf_tpu_torch/csrc/tree_near.cu",
+    "tree_near_ewald": ("gandalf_tpu_torch/csrc/tree_near.cuh",
                         "gandalf_tpu/ops/tree.py:687"),
-    "tree_walk_gadget2": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+    "tree_walk_gadget2": ("gandalf_tpu_torch/csrc/tree_walk.cuh",
                           "gandalf_tpu/ops/tree.py:457"),
-    "tree_walk_eigenmac": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+    "tree_walk_eigenmac": ("gandalf_tpu_torch/csrc/tree_walk.cuh",
                            "gandalf_tpu/ops/tree.py:463"),
-    "tree_walk_fast": ("gandalf_tpu_torch/csrc/tree_walk.cu",
+    "tree_walk_fast": ("gandalf_tpu_torch/csrc/tree_walk.cuh",
                        "gandalf_tpu/ops/tree.py:481"),
-    "tree_near_fast": ("gandalf_tpu_torch/csrc/tree_near.cu",
+    "tree_near_fast": ("gandalf_tpu_torch/csrc/tree_near.cuh",
                        "gandalf_tpu/ops/tree.py:848"),
     "star_gas_forces": ("gandalf_tpu_torch/csrc/star_gas.cu",
                         "gandalf_tpu/ops/sph_gravity.py:30"),
@@ -887,6 +958,14 @@ for _d in ("", "_2d"):
 for _d in ("_2d", "_1d"):
     SOURCES[f"active_density{_d}"] = SOURCES["active_density"]
     SOURCES[f"active_forces{_d}"] = SOURCES["active_forces"]
+# K4-K7 below 3D: 2D from gravity_disc_2d, the list K6 and K7 from
+# gravity_block_disc_2d, K7's MFV mode from mfv_gravity_disc_2d, 1D from
+# gravity_dims_parity's run of the rod on the card (float64)
+for _d in ("_2d", "_1d"):
+    for _k in ("tree_gather", "tree_build", "tree_walk", "tree_near"):
+        SOURCES[f"{_k}{_d}"] = SOURCES[_k]
+for _k in ("tree_walk_list", "tree_near_list", "tree_near_mfv"):
+    SOURCES[f"{_k}_2d"] = SOURCES[_k]
 # the quintic, gaussian and tabulated variants on their main paths: the
 # JAX functions' kernel evaluations they replace
 _FAMILY_SOURCES = {
@@ -894,13 +973,13 @@ _FAMILY_SOURCES = {
                        "gandalf_tpu/ops/sph_grid27.py:439"),
     "grid27_forces": ("gandalf_tpu_torch/csrc/grid27_forces.cu",
                       "gandalf_tpu/ops/sph_grid27.py:680"),
-    "tree_near": ("gandalf_tpu_torch/csrc/tree_near.cu",
+    "tree_near": ("gandalf_tpu_torch/csrc/tree_near.cuh",
                   "gandalf_tpu/ops/tree.py:768"),
     "active_density": ("gandalf_tpu_torch/csrc/active_density.cu",
                        "gandalf_tpu/ops/active_grid.py:118"),
     "active_forces": ("gandalf_tpu_torch/csrc/active_forces.cu",
                       "gandalf_tpu/ops/active_grid.py:179"),
-    "tree_near_list": ("gandalf_tpu_torch/csrc/tree_near.cu",
+    "tree_near_list": ("gandalf_tpu_torch/csrc/tree_near.cuh",
                        "gandalf_tpu/ops/tree.py:768"),
 }
 for _base, _variants in (
@@ -984,14 +1063,18 @@ _BLOCK_IC = {}
 
 def block_ic(params):
     """A copy of the cold sphere's IC for `params` (sphere_block_params
-    at its Nhydro; the IC does not depend on the smoothing kernel)."""
+    or check.disc_params at its Nhydro and ndim; the IC does not depend
+    on the smoothing kernel)."""
     from gandalf_tpu_torch.sim.ic import generate_ic
 
     n = params.intparams["Nhydro"]
-    if n not in _BLOCK_IC:
+    key = n if params.intparams["ndim"] == 3 \
+        else (n, params.intparams["ndim"])
+    if key not in _BLOCK_IC:
         t0 = time.perf_counter()
-        _BLOCK_IC[n] = (generate_ic(params, None), time.perf_counter() - t0)
-    return {k: v.copy() for k, v in _BLOCK_IC[n][0].items()}
+        _BLOCK_IC[key] = (generate_ic(params, None),
+                          time.perf_counter() - t0)
+    return {k: v.copy() for k, v in _BLOCK_IC[key][0].items()}
 
 
 def full_gravity_energy(sim) -> float:
@@ -4278,9 +4361,13 @@ def gresho_mfv(dev, card):
         raise RuntimeError(f"gresho_mfv checks failed: {failed}")
 
 
-def _mfv_energy_nd(s) -> float:
-    """sum Q_E of an MFV state without gravity, in float64."""
-    return float(torch.sum(s.Qcons0[:, s.ndim + 1].double()))
+def _mfv_energy_nd(s, gravity: bool = False) -> float:
+    """sum Q_E of an MFV state in float64 (with `gravity`, less sum m
+    gpot / 2)."""
+    e = float(torch.sum(s.Qcons0[:, s.ndim + 1].double()))
+    if gravity:
+        e -= 0.5 * float(torch.sum((s.m * s.gpot).double()))
+    return e
 
 
 def mfv_khi(dev, card):
@@ -5324,6 +5411,372 @@ def dustybox_block(dev, card) -> None:
         raise RuntimeError(f"dustybox_block checks failed: {failed}")
 
 
+def _with_bounds(rep):
+    """Each report of `rep` with its bound (check.bound) in its dtype."""
+    from gandalf_tpu_torch.check import bound
+
+    for r in rep.values():
+        if "work" in r:
+            dtype = {"torch.float64": torch.float64}.get(r.get("dtype"),
+                                                         torch.float32)
+            r["bound_ms"], r["bound_by"] = bound(r["work"], dtype)
+    return rep
+
+
+def tree_kernels_dims(dev) -> None:
+    """Phase 87: K4-K7 at NDIM 1 and 2 against their plain versions on
+    the card in float64 (K4 exact, K5 within 1e-12 of each level's scale,
+    K6 and K7 within 1e-10; check.compare_tree_kernels_dims): the disc
+    and the rod of check.disc_params at about TREE_DIMS_N particles, each
+    stepped twice, in every walk option (the geometric quadrupole walk
+    and its group-list launches, gadget2, eigenmac, the fast quadrupole,
+    the quintic kernel with its list launch, K7's MFV zeta mode), with
+    a forced overflow each; ms a launch, the plain version's ms and the
+    bound of each."""
+    from gandalf_tpu_torch.check import compare_tree_kernels_dims
+
+    t0 = time.perf_counter()
+    for ndim in (2, 1):
+        rep = _with_bounds(compare_tree_kernels_dims(
+            ndim, dev, torch.float64, TREE_DIMS_N, repeats=3))
+        phase("tree_kernels_dims", ndim=ndim, dtype="torch.float64",
+              report=rep)
+        require_ok("tree_kernels_dims", rep)
+    phase("tree_kernels_dims_done", seconds=time.perf_counter() - t0)
+
+
+def _gravity_2d_checks(s, launches, steps, acc=None, gate=None,
+                       drift=None, drift_gate=None):
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "no_overflow": not bool(s.neib_overflow)
+        and not (acc or {}).get("overflow", False),
+        "launches": all(n >= steps for n in launches.values()),
+    }
+    if acc is not None:
+        checks["accuracy"] = acc["rms_rel_err"] <= gate
+    if drift is not None:
+        checks["energy_drift"] = drift <= drift_gate
+    return checks
+
+
+def _raise_failed(tag, checks, rep):
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+
+
+def _ms_per_step(launches, rep, steps):
+    """Device ms a step of each kernel: its ms a launch (timed at the
+    path's state) times its launches a step."""
+    return {k: rep[k]["ms"] * n / steps for k, n in launches.items()
+            if k in rep and "ms" in rep[k]}
+
+
+GRAVITY_2D = ("grid27_bin_2d", "grid27_density_2d", "grid27_forces_2d",
+              "tree_gather_2d", "tree_build_2d", "tree_walk_2d",
+              "tree_near_2d")
+BLOCK_2D = ("grid27_bin_2d", "active_density_2d", "active_forces_2d",
+            "tree_gather_2d", "tree_build_2d", "tree_walk_list_2d",
+            "tree_near_list_2d")
+MFV_2D = ("grid27_bin_2d", "tree_gather_2d", "tree_build_2d",
+          "tree_walk_2d", "tree_near_mfv_2d", "mfv_density_2d",
+          "mfv_gradients_2d", "mfv_fluxes_2d")
+
+
+def gravity_disc_2d(dev, card):
+    """Phase 88: the 2D self-gravitating disc at full width
+    (check.disc_params(DISC_N, 2): 262,144 particles on a square-lattice
+    disc of radius 1 and mass 1, press1 1e-4, gamma 5/3, M4 grad-h,
+    energy_eqn, mon97, the quadrupole tree with the geometric MAC at
+    theta^2 0.1 over KD buckets of 32 rebuilt every 32 steps) in float32
+    under a global dt: setup, DISC_STEPS_WARM warm-up and
+    DISC_STEPS_TIMED timed steps with the counts set to 0 just before
+    them; particle-steps/s, each kernel's device ms a step, finite, rho
+    > 0, every kernel launched each step, no overflow, the energy drift
+    within DISC_ENERGY_DRIFT_TOL and the tree at 2,048 sampled particles
+    against the float64 all-pairs sum within DISC_ACCURACY_TOL (a
+    monopole walk's reading beside it); then K1-K7 (2D) against their
+    plain versions at the path's state.  Returns the counts and the
+    reports of K1-K7 (2D)."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_kernels,
+                                         compare_tree_kernels, disc_params,
+                                         gravity_accuracy)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    params = disc_params(DISC_N, 2)
+    sim = GradhSphSimulation(params, device=dev, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.SetupSimulation(block_ic(params))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, DISC_STEPS_WARM)
+    e0 = energy(sim.state, gravity=True)
+    plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
+    _ext.reset_launches()
+    elapsed = run_timed(sim, DISC_STEPS_TIMED)
+    launches = {k: _ext.LAUNCHES[k] for k in GRAVITY_2D}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = sim.state
+    N = s.N
+    drift = abs(energy(s, gravity=True) - e0) / abs(e0)
+    acc = gravity_accuracy(sim, n_sample=2048)
+    mono = gravity_accuracy(sim, n_sample=2048, spec=dataclasses.replace(
+        sim.treespec, quadrupole=False))
+    checks = _gravity_2d_checks(s, launches, DISC_STEPS_TIMED, acc,
+                                DISC_ACCURACY_TOL, drift,
+                                DISC_ENERGY_DRIFT_TOL)
+    rep = compare_kernels(sim, s, repeats=5)
+    rep.update(compare_tree_kernels(sim, s, repeats=5))
+    rep = _with_bounds(rep)
+    spec = sim.treespec
+    RATES["gravity_2d"] = N * DISC_STEPS_TIMED / elapsed
+    phase("gravity_disc_2d", N=N, steps=sim.Nsteps,
+          timed_steps=DISC_STEPS_TIMED, ic_s=_BLOCK_IC[(DISC_N, 2)][1],
+          setup_s=t_setup, timed_s=elapsed,
+          particle_steps_per_s=N * DISC_STEPS_TIMED / elapsed,
+          device_ms_per_step=_ms_per_step(launches, rep, DISC_STEPS_TIMED),
+          rebuilds_in_window=sim._n_tree_plans - plans0,
+          replans_in_window=sim._n_grid_overflows - replans0,
+          G_pad=spec.n_leaves, depth=spec.depth, near_cap=spec.near_cap,
+          support_cap=spec.support_cap, ncells=list(sim.gridspec.ncells),
+          k_cell=sim.gridspec.k_cell, launches=launches,
+          energy_drift=drift, energy_gate=DISC_ENERGY_DRIFT_TOL,
+          accuracy=acc, monopole_accuracy=mono,
+          accuracy_gate=DISC_ACCURACY_TOL, checks=checks, kernels=rep,
+          card=card, peak_mem_gb=peak_gb,
+          seconds=time.perf_counter() - t_phase)
+    _raise_failed("gravity_disc_2d", checks, rep)
+    keep = GRAVITY_2D[3:]
+    return {k: launches[k] for k in keep}, {k: rep[k] for k in keep}
+
+
+def gravity_block_disc_2d(dev, card):
+    """Phase 89: the same disc (its IC) under Nlevels 4, level_diff_max 1
+    in float32 on the compacted tick (K1, K8, K9 over the active rows,
+    K4 and K5 over all buckets, K6 and K7 over the active buckets' list):
+    DISC_BLOCK_TICKS_WARM warm-up and DISC_BLOCK_TICKS_TIMED timed ticks
+    with the counts set to 0 just before them; ticks/s, active
+    particle-updates/s, the levels, finite, rho > 0, no overflow, at
+    least two levels, K8, K9 and the list K6/K7 launched each tick, the
+    energy drift (gpot from a full tree pass at both ends) within
+    DISC_BLOCK_ENERGY_DRIFT_TOL and the tree at 2,048 sampled active
+    particles against the float64 all-pairs sum within
+    DISC_BLOCK_ACCURACY_TOL; then the list K6/K7 and K8, K9 (2D) against
+    their plain versions at the path's state.  Returns the counts and
+    reports of the list K6 and K7 (2D)."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_active_kernels,
+                                         disc_params, gravity_accuracy)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    params = disc_params(DISC_N, 2, nlevels=4)
+    sim = GradhSphSimulation(params, device=dev, dtype=torch.float32)
+    t0 = time.perf_counter()
+    sim.SetupSimulation(block_ic(params))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    N = sim.state.N
+    for _ in range(DISC_BLOCK_TICKS_WARM):
+        sim.main_loop_step()
+    e0 = full_gravity_energy(sim)
+    rows0, replans0 = sim.active_rows, sim._n_grid_overflows
+    first = []
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(DISC_BLOCK_TICKS_TIMED):
+        sim.main_loop_step()
+        first.append(sim.last_tick_rows[0])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: _ext.LAUNCHES[k] for k in BLOCK_2D}
+    s = sim.state
+    rows = sim.active_rows - rows0
+    drift = abs(full_gravity_energy(sim) - e0) / abs(e0)
+    active = torch.nonzero(s.nlast == sim._blocksched.n).flatten().to(
+        torch.int32)
+    acc = gravity_accuracy(sim, n_sample=2048, among=active)
+    levels = torch.bincount(s.level.cpu()).tolist()
+    per_tick = {k: launches[k] for k in BLOCK_2D
+                if k.startswith(("active", "tree_walk", "tree_near"))}
+    checks = _gravity_2d_checks(s, per_tick, DISC_BLOCK_TICKS_TIMED, acc,
+                                DISC_BLOCK_ACCURACY_TOL, drift,
+                                DISC_BLOCK_ENERGY_DRIFT_TOL)
+    checks["two_levels"] = sum(1 for n in levels if n) >= 2
+    rep = _with_bounds(compare_active_kernels(sim, s, active, repeats=5))
+    phase("gravity_block_disc_2d", N=N, ticks=sim.Nsteps,
+          timed_ticks=DISC_BLOCK_TICKS_TIMED, setup_s=t_setup,
+          timed_s=elapsed, ticks_per_s=DISC_BLOCK_TICKS_TIMED / elapsed,
+          active_updates_per_s=rows / elapsed, listed_rows=rows,
+          listed_row_fraction=rows / (N * DISC_BLOCK_TICKS_TIMED),
+          first_pass_rows=first, levels=levels,
+          level_max=int(sim._blocksched.level_max), launches=launches,
+          energy_drift=drift, energy_gate=DISC_BLOCK_ENERGY_DRIFT_TOL,
+          accuracy=acc, accuracy_gate=DISC_BLOCK_ACCURACY_TOL,
+          replans_in_window=sim._n_grid_overflows - replans0,
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    _raise_failed("gravity_block_disc_2d", checks, rep)
+    keep = ("tree_walk_list_2d", "tree_near_list_2d")
+    return {k: launches[k] for k in keep}, {k: rep[k] for k in keep}
+
+
+def gravity_box_2d(dev, card) -> None:
+    """Phase 90: the 2D periodic box (check.slice_params(GBOX_SIDE,
+    self_gravity=1, ndim=2): 65,536 particles, ewald = 0, the jittered
+    lattice) in float32, GBOX_STEPS steps: K4 unwraps each bucket along
+    both axes; finite, rho > 0, no overflow, K1-K7 (2D) every step, the
+    energy drift and the tree's accuracy reported; then K4-K7 (2D)
+    against their plain versions at the path's state."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_tree_kernels,
+                                         gravity_accuracy, jittered_box_ic,
+                                         slice_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    params = slice_params(GBOX_SIDE, self_gravity=1, ndim=2)
+    sim = GradhSphSimulation(params, device=dev, dtype=torch.float32)
+    sim.SetupSimulation(jittered_box_ic(params, GBOX_SIDE))
+    e0 = energy(sim.state, gravity=True)
+    _ext.reset_launches()
+    elapsed = run_timed(sim, GBOX_STEPS)
+    launches = {k: _ext.LAUNCHES[k] for k in GRAVITY_2D}
+    s = sim.state
+    drift = abs(energy(s, gravity=True) - e0) / abs(e0)
+    checks = _gravity_2d_checks(s, launches, GBOX_STEPS)
+    checks["ewald_off"] = not sim.use_ewald \
+        and tuple(sim.box.periodic_dims()) == (0, 1)
+    rep = _with_bounds(compare_tree_kernels(sim, s, repeats=3))
+    phase("gravity_box_2d", N=s.N, steps=sim.Nsteps, timed_s=elapsed,
+          particle_steps_per_s=s.N * GBOX_STEPS / elapsed,
+          launches=launches, energy_drift=drift,
+          accuracy=gravity_accuracy(sim, n_sample=2048),
+          G_pad=sim.treespec.n_leaves, near_cap=sim.treespec.near_cap,
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    _raise_failed("gravity_box_2d", checks, rep)
+
+
+def mfv_gravity_disc_2d(dev, card):
+    """Phase 91: the 2D disc (check.disc_params(MFV_DISC_N, 2, sim =
+    mfvmuscl): about 65,536 particles) through MUSCL MFV with
+    self-gravity (K7's MFV zeta mode) in float32, one step, then
+    MFV_DISC_STEPS steps with the counts set to 0 just before them (the
+    energy drift over them reported): finite, rho > 0, the
+    mass exact, no overflow, K1 (twice), K4-K7 and K10-K12 (2D) every
+    step; then K10-K12 and the MFV K7 (2D)
+    against their plain versions at the path's state.  Returns the
+    count and report of tree_near_mfv_2d."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import compare_mfv_kernels, disc_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t_phase = time.perf_counter()
+    params = disc_params(MFV_DISC_N, 2, sim="mfvmuscl")
+    sim = SimulationBase.factory(params, dev, torch.float32)
+    sim.SetupSimulation(block_ic(params))
+    m0 = sim.state.m.clone()
+    # one step first: the setup leaves gpot unset
+    run_timed(sim, 1)
+    e0 = _mfv_energy_nd(sim.state, gravity=True)
+    _ext.reset_launches()
+    elapsed = run_timed(sim, MFV_DISC_STEPS)
+    launches = {k: _ext.LAUNCHES[k] for k in MFV_2D}
+    s = sim.state
+    every = {k: n >= (2 if k == "grid27_bin_2d" else 1) * MFV_DISC_STEPS
+             for k, n in launches.items()}
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "Qcons0",
+                                "gpot")),
+        "rho_positive": bool((s.rho > 0).all()),
+        "mass_exact": bool(torch.equal(s.m, m0)),
+        "no_overflow": not bool(s.neib_overflow),
+        "launches": all(every.values()),
+    }
+    rep = _with_bounds(compare_mfv_kernels(sim, s, repeats=3))
+    phase("mfv_gravity_disc_2d", N=s.N, steps=sim.Nsteps, timed_s=elapsed,
+          particle_steps_per_s=s.N * MFV_DISC_STEPS / elapsed,
+          launches=launches,
+          energy_drift=abs(_mfv_energy_nd(s, gravity=True) - e0)
+          / abs(e0),
+          G_pad=sim.treespec.n_leaves, checks=checks, kernels=rep,
+          card=card, seconds=time.perf_counter() - t_phase)
+    _raise_failed("mfv_gravity_disc_2d", checks, rep)
+    k = "tree_near_mfv_2d"
+    return {k: launches[k]}, {k: rep[k]}
+
+
+def gravity_dims_parity(dev):
+    """Phase 92: float64 on the card against the plain path on the CPU,
+    DIMS_GRAVITY_PARITY_STEPS steps (ticks) each of the 2D disc at about
+    2,000 particles under a global dt and under Nlevels 4, and of the 1D
+    rod at 4,096: fields within PARITY_TOL, the same tree plans, levels
+    and (block) listed rows after every step.  The card's 1D run is the
+    1D tree's path: its counts are set to 0 just before it, and K4-K7
+    (1D) are held against their plain versions at its end.  Returns the
+    1D counts and reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import compare_tree_kernels, disc_params
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    names = ("tree_gather_1d", "tree_build_1d", "tree_walk_1d",
+             "tree_near_1d")
+    launches, rep = {}, {}
+    for tag, ndim, n, nlevels in DIMS_GRAVITY_PARITY:
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = GradhSphSimulation(disc_params(n, ndim, nlevels, 4),
+                                     device=device, dtype=torch.float64)
+            sim.SetupSimulation()
+            sims.append(sim)
+        same = True
+        if ndim == 1:
+            _ext.reset_launches()
+        for _ in range(DIMS_GRAVITY_PARITY_STEPS):
+            for sim in sims:
+                sim.last_tick_rows = []
+                sim.main_loop_step()
+            same &= sims[0].last_tick_rows == sims[1].last_tick_rows
+            same &= bool(torch.equal(sims[0].state.level.cpu(),
+                                     sims[1].state.level))
+            same &= sims[0].treespec == sims[1].treespec
+        torch.cuda.synchronize()
+        if ndim == 1:
+            launches = {k: _ext.LAUNCHES[k] for k in names}
+        errs = parity_errors(sims, ("r", "v", "u", "h", "rho", "gpot", "a"))
+        plans = [s._n_tree_plans for s in sims]
+        phase("gravity_dims_parity", case=tag, ndim=ndim, N=sims[1].state.N,
+              steps=DIMS_GRAVITY_PARITY_STEPS, rel_err=errs,
+              same_plans_levels_and_rows=same, tree_plans=plans,
+              levels=torch.bincount(sims[1].state.level).tolist())
+        if max(errs.values()) > PARITY_TOL or not same \
+                or plans[0] != plans[1]:
+            raise RuntimeError(f"gravity_dims_parity ({tag}): kernel path "
+                               f"disagrees with the plain path: {errs} "
+                               f"{same} {plans}")
+        if ndim == 1:
+            rep = _with_bounds(compare_tree_kernels(sims[0], sims[0].state,
+                                                    repeats=5))
+            checks = {"launches": all(launches[k] >= DIMS_GRAVITY_PARITY_STEPS
+                                      for k in names)}
+            phase("rod_1d_kernels", N=sims[0].state.N, launches=launches,
+                  checks=checks, kernels=rep)
+            _raise_failed("rod_1d_kernels", checks, rep)
+    phase("gravity_dims_parity_done", seconds=time.perf_counter() - t0)
+    return launches, {k: rep[k] for k in names}
+
+
 def kernel_line(launches, rep, alive_mode=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -5678,6 +6131,18 @@ def main() -> int:
         rep.update(b_rep)
     sedov_block_2d(dev, card)
     dustybox_block(dev, card)
+
+    # 87-92. self-gravity below 3D
+    tree_kernels_dims(dev)
+    for path in (gravity_disc_2d, gravity_block_disc_2d,
+                 mfv_gravity_disc_2d):
+        g_launches, g_rep = path(dev, card)
+        launches.update(g_launches)
+        rep.update(g_rep)
+    gravity_box_2d(dev, card)
+    g_launches, g_rep = gravity_dims_parity(dev)
+    launches.update(g_launches)
+    rep.update(g_rep)
 
     print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,10 @@ and K7 launched over a group list count under ``tree_walk_list`` and
 multipoles under ``tree_walk_fast`` and ``tree_near_fast``, else K6 with
 the gadget2 or eigenmac MAC under ``tree_walk_gadget2`` or
 ``tree_walk_eigenmac`` and K7 in its meshless finite-volume zeta mode
-under ``tree_near_mfv``, and otherwise under their own names.  The
+under ``tree_near_mfv``, and otherwise under their own names; K4-K7
+on tables of ``ndim`` < 3 count under these names with ``_1d`` or
+``_2d`` appended (after any smoothing-kernel variant), and take no
+Ewald sum.  The
 N-body kernels K13-K15 count under ``direct_nbody``, ``direct_softened``
 and ``direct_snap``, the sink kernels K16-K18 under ``star_gas_forces``,
 ``sink_candidate`` and ``accretion_sums`` (each wrapper launches two or
@@ -81,7 +84,9 @@ _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "grid27_mirror.cu",
-          "tree_gather.cu", "tree_build.cu", "tree_walk.cu", "tree_near.cu",
+          "tree_gather.cu", "tree_build.cu", "tree_walk.cu",
+          "tree_walk_2d.cu", "tree_walk_1d.cu", "tree_near.cu",
+          "tree_near_2d.cu", "tree_near_1d.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
           "mfv_gradients.cu", "mfv_limiter.cu", "mfv_fluxes_hllc_1d.cu",
           "mfv_fluxes_hllc_2d.cu", "mfv_fluxes_hllc_3d.cu",
@@ -158,6 +163,16 @@ for _v in VARIANTS:
     if not _v.startswith("gaussian"):
         for _k in TREE_FAMILY_KERNELS:
             LAUNCHES[f"{_k}_{_v}"] = 0
+            if _k != "tree_near_ewald":
+                for _d in ("_2d", "_1d"):
+                    LAUNCHES[f"{_k}_{_v}{_d}"] = 0
+# K4-K7 below 3D: every launch name but the Ewald sum's (3D only)
+for _k in ("tree_gather", "tree_build", "tree_walk", "tree_near",
+           "tree_walk_list", "tree_near_list", "tree_near_mfv",
+           "tree_walk_gadget2", "tree_walk_eigenmac", "tree_walk_fast",
+           "tree_near_fast"):
+    for _d in ("_2d", "_1d"):
+        LAUNCHES[f"{_k}{_d}"] = 0
 
 _lib = None
 
@@ -176,13 +191,17 @@ _ARGTYPES = {
                       _D, _D, _D, _D, _I, _I, _I, _I, _D, _D, _P, _P, _P,
                       _I, _I, _P],
     "grid27_mirror": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
-    "tree_gather": [_P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _I,
-                    _P],
-    "tree_build": [_P, _P, _I, _I, _P, _P, _I, _P],
-    "tree_walk": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _I, _I, _D, _P,
-                  _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "tree_near": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                  _I, _D, _D, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # K4-K7 per NDIM (csrc/tree_*.cu)
+    **{f"tree_gather_{_n}d": [_P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _D,
+                              _P, _P, _I, _P] for _n in (1, 2, 3)},
+    **{f"tree_build_{_n}d": [_P, _P, _I, _I, _P, _P, _I, _P]
+       for _n in (1, 2, 3)},
+    **{f"tree_walk_{_n}d": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _I, _I,
+                            _D, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]
+       for _n in (1, 2, 3)},
+    **{f"tree_near_{_n}d": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _D, _D, _I, _I, _P, _P, _P, _P, _P,
+                            _I, _P] for _n in (1, 2, 3)},
     # K8 and K9: the grid arguments of _grid_args_nd (8 ints, 3 extents)
     "active_density": [_P, _I] + [_P] * 5 + [_I] * 8 + [_D] * 4
     + [_I, _I, _D, _D, _D] + [_P] * 4 + [_I, _P],
@@ -562,7 +581,6 @@ def grid27_mirror(walls, r, v, alive=None):
 # ---------------------------------------------------------------------------
 
 _LEAF = 32
-_PCOLS, _CCOLS = 6, 16
 
 
 def _tree_shapes(spec):
@@ -573,41 +591,71 @@ def _tree_shapes(spec):
     return G, G * _LEAF, (2 << spec.depth) - 1
 
 
+def _tree_layout(ptab, ewald=None):
+    """ops.tree.layout of a slot table (S, ndim + 3), checked to be a
+    CUDA tensor first; an Ewald sum below 3D is refused."""
+    from .ops.tree import layout, require_3d_ewald
+
+    if not ptab.is_cuda:
+        raise ValueError(f"ptab: expected a CUDA tensor, got {ptab.device}")
+    if ptab.dim() != 2 or ptab.shape[1] - 3 not in (1, 2, 3):
+        raise ValueError(f"ptab: expected (S, ndim + 3) with ndim 1-3, got "
+                         f"{tuple(ptab.shape)}")
+    require_3d_ewald(ptab.shape[1] - 3, ewald)
+    return layout(ptab.shape[1] - 3)
+
+
+def tree_count(name: str, ndim: int) -> str:
+    """The LAUNCHES key of tree launch `name` in `ndim` dims (_1d or _2d
+    appended below 3D, after any smoothing-kernel variant)."""
+    return name if ndim == 3 else f"{name}_{ndim}d"
+
+
 def tree_gather(spec, gmap, r, m, h, zh, periodic_extent, alive=None):
-    """K4: slot table (G*32, 6) and alive (G*32,) bool from particle
-    fields (h, zh may be None) through gmap (G, 32) int32; with `alive`
-    (N,) bool a slot's flag is also its particle's."""
+    """K4: slot table (G*32, ndim + 3) and alive (G*32,) bool from
+    particle fields, r (N, ndim) with ndim 1-3 (h, zh may be None),
+    through gmap (G, 32) int32; with `alive` (N,) bool a slot's flag is
+    also its particle's."""
     G, S, _ = _tree_shapes(spec)
     N, dt, dev = r.shape[0], r.dtype, r.device
     _check(gmap, "gmap", torch.int32, (G, _LEAF))
-    _check(r, "r", dt, (N, 3))
+    nd = r.shape[1] if r.dim() == 2 else 0
+    if nd not in (1, 2, 3):
+        raise ValueError(f"r: expected (N, ndim) with ndim 1-3, got "
+                         f"{tuple(r.shape)}")
+    _check(r, "r", dt, (N, nd))
     _check(m, "m", dt, (N,))
     for name, x in (("h", h), ("zh", zh)):
         if x is not None:
             _check(x, name, dt, (N,))
     if alive is not None:
         _check(alive, "alive", torch.bool, (N,))
-    ext = [0.0, 0.0, 0.0] if periodic_extent is None \
-        else [float(e) for e in periodic_extent]
-    ptab = torch.empty((S, _PCOLS), dtype=dt, device=dev)
+    ext = [0.0] * 3
+    if periodic_extent is not None:
+        ext[:nd] = [float(e) for e in periodic_extent][:nd]
+    ptab = torch.empty((S, nd + 3), dtype=dt, device=dev)
     slot_alive = torch.empty((S,), dtype=torch.bool, device=dev)
-    _launch("tree_gather", dt, dev, _p(gmap), G, _p(r), _p(m),
+    _launch(f"tree_gather_{nd}d", dt, dev, _p(gmap), G, _p(r), _p(m),
             None if h is None else _p(h), None if zh is None else _p(zh),
             None if alive is None else _p(alive),
-            int(periodic_extent is not None), *ext, _p(ptab), _p(slot_alive))
+            int(periodic_extent is not None), *ext, _p(ptab), _p(slot_alive),
+            count=tree_count("tree_gather", nd))
     return ptab, slot_alive
 
 
 def tree_build(spec, ptab, alive):
-    """K5: the level-concatenated cell table (2^(D+1) - 1, 16)."""
+    """K5: the level-concatenated cell table (2^(D+1) - 1,
+    ops.tree.layout(ndim).ccols) of a slot table (S, ndim + 3)."""
     _, S, rows = _tree_shapes(spec)
+    lay = _tree_layout(ptab)
     dt, dev = ptab.dtype, ptab.device
-    _check(ptab, "ptab", dt, (S, _PCOLS))
+    _check(ptab, "ptab", dt, (S, lay.pcols))
     _check(alive, "alive", torch.bool, (S,))
-    ctab = torch.empty((rows, _CCOLS), dtype=dt, device=dev)
-    box = torch.empty((rows, 6), dtype=dt, device=dev)
-    _launch("tree_build", dt, dev, _p(ptab), _p(alive), spec.depth,
-            int(spec.quadrupole), _p(ctab), _p(box))
+    ctab = torch.empty((rows, lay.ccols), dtype=dt, device=dev)
+    box = torch.empty((rows, 2 * lay.ndim), dtype=dt, device=dev)
+    _launch(f"tree_build_{lay.ndim}d", dt, dev, _p(ptab), _p(alive),
+            spec.depth, int(spec.quadrupole), _p(ctab), _p(box),
+            count=tree_count("tree_build", lay.ndim))
     return ctab
 
 
@@ -623,7 +671,6 @@ def _group_list(spec, group_ids, dev):
 
 
 _MACS = {"geometric": 0, "gadget2": 1, "eigenmac": 2}
-_FAST_COLS = 13
 
 
 def _ewald_args(ewald, dt, dev):
@@ -636,11 +683,12 @@ def _ewald_args(ewald, dt, dev):
     return tab, table.meta(extent)
 
 
-def launch_names(spec, ewald=False, listed=False, mfv=False, kern=None):
+def launch_names(spec, ewald=False, listed=False, mfv=False, kern=None,
+                 ndim=3):
     """The LAUNCHES names (K6, K7) of a walk with TreeSpec `spec`, with
     or without the Ewald sum, over a group list or all groups, and (K7)
     in the SPH or the MFV zeta mode, with the smoothing kernel `kern`
-    (family_count)."""
+    (family_count), in `ndim` dims (tree_count)."""
     if listed:
         walk, near = "tree_walk_list", "tree_near_list"
     elif ewald:
@@ -651,22 +699,27 @@ def launch_names(spec, ewald=False, listed=False, mfv=False, kern=None):
         walk = ("tree_walk" if spec.mac == "geometric"
                 else f"tree_walk_{spec.mac}")
         near = "tree_near_mfv" if mfv else "tree_near"
-    return walk, family_count(near, kern)
+    return (tree_count(walk, ndim),
+            tree_count(family_count(near, kern), ndim))
 
 
 def tree_walk(spec, ctab, ptab, alive, group_ids=None, gfac=None,
               ewald=None):
-    """K6: far a (G*32, 3), far pot (G*32,), near list (G, Wn) int32 and
-    overflow () bool; with spec.fast the first two are the groups'
-    expansions (G, 13) (a0, pot0, Jacobian) and None.  `gfac` (G,) is
-    the per-group factor of the gadget2 or eigenmac MAC (required with
-    either); `ewald` an (EwaldTable, extent) pair for the periodic walk.
-    With `group_ids` (G_act,) int32 only the listed groups walk: their
-    rows are written, the others hold zeros (a, pot) and -1 (near)."""
+    """K6 on the tables of ndim 1-3 dims: far a (G*32, ndim), far pot
+    (G*32,), near list (G, Wn) int32 and overflow () bool; with
+    spec.fast the first two are the groups' expansions (G,
+    ops.tree.layout(ndim).fast_cols) (a0, pot0, Jacobian) and None.
+    `gfac` (G,) is the per-group factor of the gadget2 or eigenmac MAC
+    (required with either); `ewald` an (EwaldTable, extent) pair for the
+    periodic walk (3D only).  With `group_ids` (G_act,) int32 only the
+    listed groups walk: their rows are written, the others hold zeros
+    (a, pot) and -1 (near)."""
     G, S, rows = _tree_shapes(spec)
+    lay = _tree_layout(ptab, ewald)
+    nd = lay.ndim
     dt, dev = ptab.dtype, ptab.device
-    _check(ctab, "ctab", dt, (rows, _CCOLS))
-    _check(ptab, "ptab", dt, (S, _PCOLS))
+    _check(ctab, "ctab", dt, (rows, lay.ccols))
+    _check(ptab, "ptab", dt, (S, lay.pcols))
     _check(alive, "alive", torch.bool, (S,))
     mac = _MACS[spec.mac]
     if mac:
@@ -679,19 +732,20 @@ def tree_walk(spec, ctab, ptab, alive, group_ids=None, gfac=None,
     listed = group_ids is not None
     alloc = torch.zeros if listed else torch.empty
     if spec.fast:
-        a_far, pot_far = alloc((G, _FAST_COLS), dtype=dt, device=dev), None
+        a_far, pot_far = alloc((G, lay.fast_cols), dtype=dt,
+                               device=dev), None
     else:
-        a_far = alloc((S, 3), dtype=dt, device=dev)
+        a_far = alloc((S, nd), dtype=dt, device=dev)
         pot_far = alloc((S,), dtype=dt, device=dev)
     near = (torch.full((G, spec.near_cap), -1, dtype=torch.int32,
                        device=dev) if listed else
             torch.empty((G, spec.near_cap), dtype=torch.int32, device=dev))
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     tab, meta = _ewald_args(ewald, dt, dev)
-    count = launch_names(spec, tab is not None, listed)[0]
+    count = launch_names(spec, tab is not None, listed, ndim=nd)[0]
     if n_groups:
-        _launch("tree_walk", dt, dev, _p(ctab), _p(ptab), _p(alive), gptr,
-                n_groups, spec.depth, spec.near_cap, ctypes.addressof(caps_c),
+        _launch(f"tree_walk_{nd}d", dt, dev, _p(ctab), _p(ptab), _p(alive),
+                gptr, n_groups, spec.depth, spec.near_cap, ctypes.addressof(caps_c),
                 float(spec.theta_sqd), int(spec.quadrupole), int(spec.fast),
                 mac, float(spec.macerror), _p(gfac) if mac else None,
                 None if tab is None else _p(tab),
@@ -706,11 +760,12 @@ def tree_walk(spec, ctab, ptab, alive, group_ids=None, gfac=None,
 def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
               out_index, n_out, group_ids=None, zeta_scaling="sph",
               ewald=None):
-    """K7: a (n_out, 3), gpot (n_out,) at rows out_index[slot] of the live
-    slots (zero elsewhere), and the support overflow () bool.  `kern`
-    None sums Newtonian pairs only.  With spec.fast, `a_far` is K6's
-    (G, 13) expansions and `pot_far` None.  `ewald` an (EwaldTable,
-    extent) pair min-images each pair and adds the table's correction.
+    """K7 on the tables of ndim 1-3 dims: a (n_out, ndim), gpot (n_out,)
+    at rows out_index[slot] of the live slots (zero elsewhere), and the
+    support overflow () bool.  `kern` None sums Newtonian pairs only.
+    With spec.fast, `a_far` is K6's (G, ops.tree.layout(ndim).fast_cols)
+    expansions and `pot_far` None.  `ewald` an (EwaldTable, extent) pair
+    (3D only) min-images each pair and adds the table's correction.
     With `group_ids` only the listed groups' slots are written.
     `zeta_scaling` "mfv" takes the meshless finite-volume zeta term."""
     mfv = zeta_scaling == "mfv"
@@ -724,30 +779,32 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
             "wpot are zero): self-gravity with it is refused (ROADMAP "
             "queue 3, fault F23)")
     G, S, rows = _tree_shapes(spec)
+    lay = _tree_layout(ptab, ewald)
+    nd = lay.ndim
     dt, dev = ptab.dtype, ptab.device
-    _check(ctab, "ctab", dt, (rows, _CCOLS))
-    _check(ptab, "ptab", dt, (S, _PCOLS))
+    _check(ctab, "ctab", dt, (rows, lay.ccols))
+    _check(ptab, "ptab", dt, (S, lay.pcols))
     _check(alive, "alive", torch.bool, (S,))
     _check(near, "near", torch.int32, (G, spec.near_cap))
     if spec.fast:
-        _check(a_far, "a_far", dt, (G, _FAST_COLS))
+        _check(a_far, "a_far", dt, (G, lay.fast_cols))
         if pot_far is not None:
             raise ValueError("pot_far: the fast multipoles take None")
     else:
-        _check(a_far, "a_far", dt, (S, 3))
+        _check(a_far, "a_far", dt, (S, nd))
         _check(pot_far, "pot_far", dt, (S,))
     out_index = out_index.reshape(-1)
     _check(out_index, "out_index", torch.int32, (S,))
     gptr, n_groups = _group_list(spec, group_ids, dev)
-    a = torch.zeros((n_out, 3), dtype=dt, device=dev)
+    a = torch.zeros((n_out, nd), dtype=dt, device=dev)
     gpot = torch.zeros((n_out,), dtype=dt, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     smoothed = kern is not None
     tab, meta = _ewald_args(ewald, dt, dev)
     count = launch_names(spec, tab is not None, group_ids is not None,
-                         mfv, kern)[1]
+                         mfv, kern, nd)[1]
     if n_groups:
-        _launch("tree_near", dt, dev, _p(ctab), _p(ptab), _p(alive),
+        _launch(f"tree_near_{nd}d", dt, dev, _p(ctab), _p(ptab), _p(alive),
                 _p(near), None if spec.fast else _p(a_far),
                 None if spec.fast else _p(pot_far),
                 _p(a_far) if spec.fast else None, _p(out_index), gptr,

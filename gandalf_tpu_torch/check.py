@@ -319,6 +319,30 @@ FLOPS_PER = {
     "sm2012_forces_cand_dim": 4, "sm2012_forces_pair": 38,
     "sm2012_forces_pair_dim": 6, "sm2012_forces_approach": 22,
 }
+# K4-K7 below 3D: the same terms with fewer components (K4: 3 a dim for
+# the unwrap and the copy, 1; K5: the COM, box and quadrupole sums; K6's
+# MAC, 5 a dim, its quadrupole far field, whose Q.dr and dr.Q.dr shrink
+# with the square of ndim, and the fast expansion's Jacobian, ndim^2
+# terms; eigenmac's power, ~20, in every ndim; K7's separation and d^2
+# per pair, 2 a dim, beside the rsqrt and the sums)
+FLOPS_PER.update({
+    "tree_gather_2d": 7, "tree_gather_1d": 4,
+    "tree_build_slot_2d": 16, "tree_build_slot_1d": 7,
+    "tree_build_cell_2d": 32, "tree_build_cell_1d": 13,
+    "tree_walk_mac_2d": 10, "tree_walk_mac_1d": 5,
+    "tree_walk_far_2d": 36, "tree_walk_far_1d": 18,
+    "mac_gadget2_2d": 5, "mac_gadget2_1d": 5,
+    "mac_eigenmac_2d": 26, "mac_eigenmac_1d": 22,
+    "tree_walk_fast_2d": 55, "tree_walk_fast_1d": 25,
+    "tree_near_2d": 16, "tree_near_1d": 12,
+    "tree_near_fast_2d": 12, "tree_near_fast_1d": 5,
+})
+
+
+def tree_flops(name: str, ndim: int) -> int:
+    """FLOPS_PER of tree term `name` (tree_walk_far, mac_eigenmac, ...)
+    in `ndim` dims."""
+    return FLOPS_PER[_ext.tree_count(name, ndim)]
 
 
 # the operations a pair of the quintic, gaussian and tabulated kernels
@@ -400,21 +424,22 @@ def _slot_support_counts(spec, kern, ids_d, r, h, rows=None):
 
 
 def slice_params(n_side: int, tend: float = 1.0e30,
-                 self_gravity: int = 0) -> Parameters:
+                 self_gravity: int = 0, ndim: int = 3) -> Parameters:
     """3D periodic unit box, n_side^3 lattice, M4, energy_eqn (gamma 1.4),
     mon97 viscosity: bench.build_sim(n_side, self_gravity).  With
     self-gravity, the tree has no Ewald sum and its buckets are replanned
-    every 32 steps, as in the benchmark."""
+    every 32 steps, as in the benchmark.  `ndim` 1 or 2 makes the same
+    box in fewer dims (n_side^ndim particles)."""
     p = Parameters()
     updates = {
-        "run_id": "", "sim": "gradhsph", "ic": "box", "ndim": 3,
+        "run_id": "", "sim": "gradhsph", "ic": "box", "ndim": ndim,
         "dimensionless": 1, "gas_eos": "energy_eqn", "gamma_eos": 1.4,
         "rhofluid1": 1.0, "press1": 1.0, "tend": tend,
         "tsnapfirst": 1.0e30, "self_gravity": self_gravity,
     }
     if self_gravity:
         updates.update({"ewald": 0, "ntreebuildstep": 32})
-    for k in range(3):
+    for k in range(ndim):
         updates[f"boxmin[{k}]"] = 0.0
         updates[f"boxmax[{k}]"] = 1.0
         updates[f"boundary_lhs[{k}]"] = "periodic"
@@ -482,6 +507,25 @@ def sphere_block_params(n_target: int, tend: float = 1.0e30,
     }
     for k, v in updates.items():
         p.set(k, v)
+    return p
+
+
+def disc_params(n_target: int, ndim: int = 2, nlevels: int = 1,
+                ntreebuildstep: int = 32, sim: str = "gradhsph",
+                tend: float = 1.0e30) -> Parameters:
+    """cold_sphere_block's configuration (sphere_block_params) at `ndim`
+    1 or 2: a uniform disc (a rod in 1D) of mass 1 and radius 1 on a
+    square lattice of about `n_target` particles in an open box, M4,
+    energy_eqn with gamma 5/3 and press1 1e-4, mon97, the quadrupole
+    tree with the geometric MAC at theta^2 0.1 over KD buckets of 32,
+    rebuilt every `ntreebuildstep` steps, with a global timestep
+    (`nlevels` 1) or block timesteps (level_diff_max 1), through `sim`
+    (gradhsph, or mfvmuscl: MUSCL MFV)."""
+    p = sphere_block_params(n_target, tend=tend,
+                            ntreebuildstep=ntreebuildstep)
+    p.set("ndim", ndim)
+    p.set("Nlevels", nlevels)
+    p.set("sim", sim)
     return p
 
 
@@ -1568,11 +1612,8 @@ def gravity_inputs(sim, state):
     """The arguments of tree_gravity_grouped after gmap, as the
     simulation's gravity pass builds them: r, m, h, kern, zh and the
     periodic extent."""
-    pdims = sim.box.periodic_dims()
-    pext = ([sim.box.size[k] if k in pdims else 0.0 for k in range(3)]
-            if pdims else None)
     return (state.r, sim._gravity_mass(state), state.h, sim.kern,
-            state.zeta * state.hfactor, pext)
+            state.zeta * state.hfactor, sim._periodic_extent())
 
 
 def walk_options(sim, state, spec=None):
@@ -1601,19 +1642,20 @@ def _mac_kwargs(sim, state, spec) -> dict:
     return sim._mac_inputs(state, spec)
 
 
-def _tree_build_errors(spec, ctab, ref):
+def _tree_build_errors(spec, ctab, ref, ndim=3):
     """Per level and field, error relative to the level's scale of the
     field (K5 tolerance above); returns the largest.  Positions (com,
     centre) are compared on the scale of the particle set's extent, at
     least the root's half-width: the root of a sphere centred on the
     origin has a COM near 0, far below the rounding of its sum."""
     worst = 0.0
+    lay = tr.layout(ndim)
     fields = {"m": slice(tr.C_M, tr.C_M + 1),
-              "com": slice(tr.C_COM, tr.C_COM + 3),
-              "half": slice(tr.C_HALF, tr.C_HALF + 3),
-              "q": slice(tr.C_Q, tr.C_Q + 6),
-              "centre": slice(tr.C_CEN, tr.C_CEN + 3)}
-    extent = float(ref[0, tr.C_HALF:tr.C_HALF + 3].abs().max())
+              "com": slice(lay.c_com, lay.c_com + ndim),
+              "half": slice(lay.c_half, lay.c_half + ndim),
+              "q": slice(lay.c_q, lay.c_q + lay.nq),
+              "centre": slice(lay.c_cen, lay.c_cen + ndim)}
+    extent = float(ref[0, fields["half"]].abs().max())
     for ell in range(spec.depth + 1):
         x = tr.level_rows(spec, ctab, ell)
         y = tr.level_rows(spec, ref, ell)
@@ -1623,7 +1665,7 @@ def _tree_build_errors(spec, ctab, ref):
         for name, cols in fields.items():
             err = torch.abs(x[:, cols] - y[:, cols])[live].max()
             if name == "q":
-                half = y[:, tr.C_HALF:tr.C_HALF + 3]
+                half = y[:, fields["half"]]
                 scale = (y[:, tr.C_M] * (half * half).sum(-1))[live].max()
             else:
                 scale = torch.abs(y[:, cols])[live].max()
@@ -1671,9 +1713,12 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
     r, m, h, kern, zh, pext = (mfv_gravity_inputs if mfv
                                else gravity_inputs)(sim, state)
     gfac, ewald = walk_options(sim, state, spec)
+    nd = r.shape[1]
     wname, nname = _ext.launch_names(spec, ewald is not None, mfv=mfv,
-                                     kern=kern)
-    lname = _ext.family_count("tree_near_list", kern)
+                                     kern=kern, ndim=nd)
+    lname = _ext.tree_count(_ext.family_count("tree_near_list", kern), nd)
+    gname, bname, wlname = (_ext.tree_count(n, nd) for n in
+                            ("tree_gather", "tree_build", "tree_walk_list"))
     f64 = r.dtype == torch.float64
     G, L = spec.n_leaves, spec.leaf_size
     alive = sim.alive_mask(state)
@@ -1684,7 +1729,7 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
     pp, ap = tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh, pext,
                                         alive)
     same = bool(torch.equal(ak, ap)) and bool(torch.equal(pk, pp))
-    out["tree_gather"] = {
+    out[gname] = {
         "equal": same, "max_abs_err": float(torch.abs(pk - pp).max()),
         "alive_input": alive is not None,
         "dead": 0 if alive is None else int((~alive).sum()), "ok": same}
@@ -1692,8 +1737,8 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
     # K5 on the plain slot table
     ck = _ext.tree_build(spec, pp, ap)
     cp = tr.build_tree_plain(spec, pp, ap)
-    worst, same_empty = _tree_build_errors(spec, ck, cp)
-    out["tree_build"] = {
+    worst, same_empty = _tree_build_errors(spec, ck, cp, nd)
+    out[bname] = {
         "scaled_err": worst, "same_empty_cells": same_empty,
         "max_abs_err": float(torch.abs(ck - cp)[cp[:, tr.C_M] > 0].max()),
         "ok": same_empty and worst <= (TOL_F64_TREE_BUILD if f64
@@ -1705,6 +1750,7 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
     wstats = {}
     wp = tr.tree_walk_plain(spec, cp, pp, ap, stats=wstats, **wkw)
     out[wname] = _walk_report(spec, wk, wp, ap, f64)
+    out[wname]["ndim"] = nd
     out[wname]["mac"] = spec.mac
     out[wname]["fast"] = spec.fast
     out[wname]["ewald"] = ewald is not None
@@ -1728,21 +1774,21 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
             "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
             "ok": same_ovf and not bool(np_[2]) and max(errs.values()) <= tol}
 
-    out["tree_gather"]["work"] = _work(
+    out[gname]["work"] = _work(
         (gmap, r, m, h, zh, alive), (pk, ak),
-        FLOPS_PER["tree_gather"] * G * L)
-    out["tree_build"]["work"] = _work(
-        (pp, ap), (ck,), FLOPS_PER["tree_build_slot"] * G * L
-        + FLOPS_PER["tree_build_cell"] * ck.shape[0])
+        tree_flops("tree_gather", nd) * G * L)
+    out[bname]["work"] = _work(
+        (pp, ap), (ck,), tree_flops("tree_build_slot", nd) * G * L
+        + tree_flops("tree_build_cell", nd) * ck.shape[0])
     out[wname]["work"] = _work(
         (cp, pp, ap, gfac), [x for x in wk if x is not None],
-        _walk_flops(spec, ewald, wstats))
+        _walk_flops(spec, ewald, wstats, nd))
     if near:
         n_pairs = _near_pairs(spec, ap, wp[2])
-        near_flops = (FLOPS_PER["tree_near"]
+        near_flops = (tree_flops("tree_near", nd)
                       + (FLOPS_PER["ewald_pair"] if ewald else 0)) * n_pairs
         if spec.fast:
-            near_flops += FLOPS_PER["tree_near_fast"] * int(ap.sum())
+            near_flops += tree_flops("tree_near_fast", nd) * int(ap.sum())
         out[nname]["work"] = _work(
             [x for x in (cp, pp, ap, wp[2], wp[0], wp[1], gmap)
              if x is not None], nk[:2], near_flops)
@@ -1772,12 +1818,12 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
         f == [True, True] for f in flags.values())}
 
     timed = {
-        "tree_gather": (
+        gname: (
             lambda: _ext.tree_gather(spec, gmap, r, m, h, zh, pext, alive),
             lambda: tr.gather_to_buckets_plain(spec, gmap, r, m, h, zh,
                                                pext, alive)),
-        "tree_build": (lambda: _ext.tree_build(spec, pp, ap),
-                       lambda: tr.build_tree_plain(spec, pp, ap)),
+        bname: (lambda: _ext.tree_build(spec, pp, ap),
+                lambda: tr.build_tree_plain(spec, pp, ap)),
         wname: (lambda: _ext.tree_walk(spec, cp, pp, ap, **wkw),
                 lambda: tr.tree_walk_plain(spec, cp, pp, ap, **wkw)),
     }
@@ -1796,7 +1842,7 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
                                 gfac=lfac)
         rows = torch.zeros((G,), dtype=torch.bool, device=r.device)
         rows[group_ids.long()] = True
-        out["tree_walk_list"] = _walk_report(spec, lk, lp, ap, f64, rows)
+        out[wlname] = _walk_report(spec, lk, lp, ap, f64, rows)
         largs = (spec, kern, cp, pp, ap, lp[2], lp[0], lp[1], gmap, N,
                  group_ids)
         lnk = _ext.tree_near(*largs)
@@ -1809,14 +1855,15 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
             "max_abs_err": float(torch.abs(lnk[0] - lnp[0]).max()),
             "ok": (same_ovf and not bool(lnp[2]) and max(errs.values())
                    <= (TOL_F64 if f64 else TOL_F32_TREE_NEAR))}
-        out["tree_walk_list"]["work"] = _work(
+        out[wlname]["work"] = _work(
             (cp, pp, ap, group_ids), [x for x in lk if x is not None],
-            _walk_flops(spec, None, lstats))
+            _walk_flops(spec, None, lstats, nd))
         out[lname]["work"] = _work(
             [x for x in (cp, pp, ap, lp[2], lp[0], lp[1], gmap, group_ids)
              if x is not None], lnk[:2],
-            FLOPS_PER["tree_near"] * _near_pairs(spec, ap, lp[2], group_ids))
-        timed["tree_walk_list"] = (
+            tree_flops("tree_near", nd)
+            * _near_pairs(spec, ap, lp[2], group_ids))
+        timed[wlname] = (
             lambda: _ext.tree_walk(spec, cp, pp, ap, group_ids, lfac),
             lambda: tr.tree_walk_plain(spec, cp, pp, ap, group_ids,
                                        gfac=lfac))
@@ -1827,6 +1874,49 @@ def compare_tree_kernels(sim, state, repeats: int = 0, spec=None,
         _time_pairs(out, timed, repeats)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
+    return out
+
+
+# the walk options of compare_tree_kernels_dims: parameter overrides of
+# disc_params (the quintic through check.family_params, MFV's zeta mode
+# through sim = mfvmuscl)
+TREE_DIMS_OPTIONS = {
+    "quadrupole": {}, "gadget2": {"gravity_mac": "gadget2"},
+    "eigenmac": {"gravity_mac": "eigenmac"},
+    "fast_quadrupole": {"multipole": "fast_quadrupole"},
+    "quintic": {"kernel": "quintic"}, "mfv": {"sim": "mfvmuscl"},
+}
+
+
+def compare_tree_kernels_dims(ndim: int, device, dtype, n_target: int = 4096,
+                              repeats: int = 0, options=None):
+    """K4-K7 at `ndim` 1 or 2 against their plain versions: for each of
+    TREE_DIMS_OPTIONS (the geometric quadrupole walk, gadget2, eigenmac,
+    the fast quadrupole, the quintic kernel, the MFV zeta mode), the
+    disc (disc_params(n_target, ndim)) set up and stepped twice (so that
+    the accuracy MACs' inputs are set), then compare_tree_kernels with
+    the group-list launches (but in MFV's mode, which walks all groups).
+    Returns {kernel: report}; a name met again (K4 and K5 of every
+    option, the forced overflow) is keyed `name@option`."""
+    from .sim.simulation import SimulationBase
+
+    out = {}
+    for opt in options or TREE_DIMS_OPTIONS:
+        over = dict(TREE_DIMS_OPTIONS[opt])
+        p = disc_params(n_target, ndim, sim=over.pop("sim", "gradhsph"))
+        if over.get("kernel") == "quintic":
+            p = family_params(over.pop("kernel"), p)
+        for k, v in over.items():
+            p.set(k, v)
+        sim = SimulationBase.factory(p, device, dtype)
+        sim.SetupSimulation()
+        sim.main_loop_steps(2)
+        rep = compare_tree_kernels(sim, sim.state, repeats,
+                                   listed=opt != "mfv")
+        for k, r in rep.items():
+            r["option"] = opt
+            r["dtype"] = str(dtype)
+            out[k if k not in out else f"{k}@{opt}"] = r
     return out
 
 
@@ -1871,18 +1961,21 @@ def _walk_report(spec, wk, wp, alive, f64, rows=None):
                                 int(TOL_TREE_FLIP_FRACTION * G)))}
 
 
-def _walk_flops(spec, ewald, wstats) -> int:
-    """K6's operations from the plain walk's counts (FLOPS_PER)."""
-    per_test = FLOPS_PER["tree_walk_mac"]
+def _walk_flops(spec, ewald, wstats, ndim=3) -> int:
+    """K6's operations from the plain walk's counts (FLOPS_PER) in
+    `ndim` dims."""
+    per_test = tree_flops("tree_walk_mac", ndim)
     if spec.mac != "geometric":
-        per_test += FLOPS_PER[f"mac_{spec.mac}"]
+        per_test += tree_flops(f"mac_{spec.mac}", ndim)
     if ewald is not None:
         per_test += FLOPS_PER["mac_ewald"]
     extra = FLOPS_PER["ewald_pair"] if ewald is not None else 0
     if spec.fast:
-        far = (FLOPS_PER["tree_walk_fast"] + extra) * wstats["fast_terms"]
+        far = ((tree_flops("tree_walk_fast", ndim) + extra)
+               * wstats["fast_terms"])
     else:
-        far = (FLOPS_PER["tree_walk_far"] + extra) * wstats["far_terms"]
+        far = ((tree_flops("tree_walk_far", ndim) + extra)
+               * wstats["far_terms"])
     return per_test * wstats["mac_tests"] + far
 
 
@@ -1932,7 +2025,8 @@ def gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
     ptab, slot_alive = tr.gather_to_buckets(spec, gmap, r, m, h, zh, pext,
                                             alive)
     r_unw = r.double().clone()
-    r_unw[gmap.reshape(-1).long()[slot_alive]] = ptab[slot_alive, :3].double()
+    r_unw[gmap.reshape(-1).long()[slot_alive]] = \
+        ptab[slot_alive, :r.shape[1]].double()
     idx = np.random.default_rng(seed).choice(
         pool, size=min(n_sample, len(pool)), replace=False)
     t = torch.as_tensor(np.sort(idx), device=r.device)
@@ -2008,7 +2102,9 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
     out = {}
     k8, k9 = (kernel_name(n, spec, kern) for n in
               ("active_density", "active_forces"))
-    k7l = _ext.family_count("tree_near_list", kern)
+    nd = spec.ndim
+    k7l = _ext.tree_count(_ext.family_count("tree_near_list", kern), nd)
+    k6l = _ext.tree_count("tree_walk_list", nd)
 
     # K8 on the plain binning's slot map; the finish is shared torch code
     b = g27.bin_particles_plain(spec, state.r)
@@ -2113,7 +2209,7 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
                           and not bool(wk[1][unlisted].any()))
         same_ovf = bool(wk[3]) == bool(wp[3])
         tol = TOL_F64 if f64 else TOL_F32_TREE_FAR
-        out["tree_walk_list"] = {
+        out[k6l] = {
             "groups": int(gl.numel()), "of": G,
             "groups_with_other_near_list": n_differ,
             "same_overflow": same_ovf, "scaled_err": errs,
@@ -2146,15 +2242,15 @@ def compare_active_kernels(sim, state, idx, repeats: int = 0):
             "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
             "ok": (same_ovf and not bool(np_[2]) and zero_elsewhere
                    and max(errs.values(), default=0.0) <= tol)}
-        out["tree_walk_list"]["work"] = _work(
+        out[k6l]["work"] = _work(
             (cp, pp, ap, group_ids), wk,
-            FLOPS_PER["tree_walk_mac"] * wstats["mac_tests"]
-            + FLOPS_PER["tree_walk_far"] * wstats["far_terms"])
+            tree_flops("tree_walk_mac", nd) * wstats["mac_tests"]
+            + tree_flops("tree_walk_far", nd) * wstats["far_terms"])
         out[k7l]["work"] = _work(
             (cp, pp, ap, wp[2], wp[0], wp[1], gmap, group_ids), nk[:2],
-            FLOPS_PER["tree_near"] * _near_pairs(tspec, ap, wp[2],
-                                                 group_ids))
-        timed["tree_walk_list"] = (
+            tree_flops("tree_near", nd) * _near_pairs(tspec, ap, wp[2],
+                                                      group_ids))
+        timed[k6l] = (
             lambda: _ext.tree_walk(tspec, cp, pp, ap, group_ids),
             lambda: tr.tree_walk_plain(tspec, cp, pp, ap, group_ids))
         timed[k7l] = (lambda: _ext.tree_near(*nargs),
@@ -2374,15 +2470,17 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
         errs = {"a": _scaled_all(nk[0], np_[0], every),
                 "gpot": _scaled_all(nk[1], np_[1], every)}
         same_ovf = bool(nk[2]) == bool(np_[2])
-        out["tree_near_mfv"] = {
+        k7m = _ext.tree_count("tree_near_mfv", r.shape[1])
+        out[k7m] = {
             "scaled_err": errs, "same_overflow": same_ovf,
             "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
             "ok": same_ovf and not bool(np_[2]) and max(errs.values())
             <= (TOL_F64 if f64 else TOL_F32_TREE_NEAR)}
-        out["tree_near_mfv"]["work"] = _work(
+        out[k7m]["work"] = _work(
             nargs[2:9], nk[:2],
-            FLOPS_PER["tree_near"] * _near_pairs(tspec, ap, wp[2]))
-        timed["tree_near_mfv"] = (
+            tree_flops("tree_near", r.shape[1])
+            * _near_pairs(tspec, ap, wp[2]))
+        timed[k7m] = (
             lambda: _ext.tree_near(*nargs, zeta_scaling="mfv"),
             lambda: tr.tree_near_plain(*nargs, zeta_scaling="mfv"))
 
@@ -2617,7 +2715,7 @@ def mfv_gravity_accuracy(sim, n_sample: int = 2048, seed: int = 0,
         spec, gmap, r, m, h, kern, zh, pext, zeta_scaling="mfv")
     ptab, alive = tr.gather_to_buckets(spec, gmap, r, m, h, zh, pext)
     r_unw = r.double().clone()
-    r_unw[gmap.reshape(-1).long()[alive]] = ptab[alive, :3].double()
+    r_unw[gmap.reshape(-1).long()[alive]] = ptab[alive, :r.shape[1]].double()
     idx = np.random.default_rng(seed).choice(
         r.shape[0], size=min(n_sample, r.shape[0]), replace=False)
     t = torch.as_tensor(np.sort(idx), device=r.device)

@@ -91,9 +91,9 @@ def direct_sph_gravity(kern, r: Tensor, m: Tensor,
                        hfactor: Optional[Tensor] = None,
                        targets: Optional[Tensor] = None,
                        box=None, ewald_table=None):
-    """(a (T, 3), gpot (T,)) at `targets` (particle indices, default all)
-    from every particle.  Without `h` the pairs are Newtonian.  A pair
-    counts when it is not the target itself and d > 0.  With a `box`
+    """(a (T, ndim), gpot (T,)) at `targets` (particle indices, default
+    all) from every particle, r (N, ndim) in 1-3 dims.  Without `h` the
+    pairs are Newtonian.  A pair counts when it is not the target itself and d > 0.  With a `box`
     (a state.DomainBox) each separation is min-imaged along its periodic
     dims, and with an `ewald_table` (ops.ewald.EwaldTable) each pair
     adds m_j times the table's correction at it."""
@@ -110,10 +110,12 @@ def direct_sph_gravity(kern, r: Tensor, m: Tensor,
     a_out, p_out = [], []
     for t0 in range(0, targets.numel(), B):
         t = targets[t0:t0 + B]
-        dr = [r[None, :, k] - r[t, k][:, None] for k in range(3)]
+        dr = [r[None, :, k] - r[t, k][:, None] for k in range(r.shape[1])]
         if box is not None:
             dr = list(box.min_image(torch.stack(dr, -1)).unbind(-1))
-        d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
+        d2 = dr[0] * dr[0]
+        for x in dr[1:]:
+            d2 = d2 + x * x
         use = (src[None, :] != t[:, None]) & (d2 > 0.0)
         m_j = torch.where(use, m[None, :], 0.0)
         d = torch.sqrt(torch.where(use, d2, 1.0))

@@ -12,15 +12,23 @@ planners) is numpy; the planners call the port's copy of the C++ library
 built, since the numpy KD planner and the worst-case cap law are not
 ported.
 
-The device part works on two tables:
+The device part works on two tables, in ndim = 1, 2 or 3 dims (the
+columns of ``layout(ndim)``; ndim is read from the tables' widths, as
+the JAX package reads it from r's):
 
-- the slot table ``ptab`` (G*L, 6): x, y, z, m, h, zh of every bucket
-  slot, in bucket order, with positions unwrapped per bucket about its
-  first real slot (periodic dims), and ``alive`` (G*L,) bool.  An empty
-  slot has m = 0, h = 1, zh = 0, position 0 and alive False;
-- the cell table ``ctab`` (2^(D+1) - 1, 16): row (1 << l) - 1 + c is
-  cell c of level l, leaves at level D, columns ``CELL_COLS``.  An empty
-  cell has m = 0 and COM and box at the far sentinel.
+- the slot table ``ptab`` (G*L, ndim + 3): x[ndim], m, h, zh of every
+  bucket slot, in bucket order, with positions unwrapped per bucket
+  about its first real slot (periodic dims), and ``alive`` (G*L,) bool.
+  An empty slot has m = 0, h = 1, zh = 0, position 0 and alive False;
+- the cell table ``ctab`` (2^(D+1) - 1, 1 + 3 ndim + ndim (ndim + 1) /
+  2: 16, 10 or 5): row (1 << l) - 1 + c is cell c of level l, leaves at
+  level D, columns m, com[ndim], half[ndim], the quadrupole's upper
+  triangle in the JAX package's ``tri`` order and centre[ndim].  An
+  empty cell has m = 0 and COM and box at the far sentinel.
+
+Below 3D the quadrupole is the JAX package's 3 sum m dr dr^T - tr I,
+which is not traceless there; the Ewald sum is 3D only, as in the JAX
+package.
 
 Each kernel has a plain PyTorch version in this module and a CUDA C++
 kernel in ``csrc/``, launched through ``_ext``.  A CPU tensor takes the
@@ -41,7 +49,7 @@ float64; in float32 the port keeps the close pairs' digits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,15 +63,63 @@ Tensor = torch.Tensor
 # (gandalf_tpu build_tree's `far` and `big`)
 FAR = 1e15
 BIG = 1e30
-# columns of the cell table
-CELL_COLS = ("m", "comx", "comy", "comz", "halfx", "halfy", "halfz",
-             "q00", "q01", "q02", "q11", "q12", "q22",
-             "centrex", "centrey", "centrez")
-C_M, C_COM, C_HALF, C_Q, C_CEN = 0, 1, 4, 7, 13
-# upper-triangle order of the quadrupole columns
-_TRI = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
-# columns of the slot table
-P_R, P_M, P_H, P_ZH = 0, 3, 4, 5
+
+
+def tri(ndim: int) -> tuple:
+    """(i, j), i <= j, of the quadrupole's columns: the upper triangle
+    row by row (gandalf_tpu/ops/tree.py:342)."""
+    return tuple((i, j) for i in range(ndim) for j in range(i, ndim))
+
+
+# the 3D order
+_TRI = tri(3)
+
+
+class Layout(NamedTuple):
+    """Columns of the slot and cell tables and width of a group's fast
+    expansion in `ndim` dims (csrc/tree.cuh's Layout<NDIM>)."""
+
+    ndim: int
+    pcols: int      # slot table: x[ndim], m, h, zh
+    p_m: int
+    p_h: int
+    p_zh: int
+    ccols: int      # cell table: m, com, half, q (tri order), centre
+    c_com: int
+    c_half: int
+    c_q: int
+    c_cen: int
+    nq: int
+    fast_cols: int  # a0[ndim], pot0, Jacobian row by row
+    tri: tuple
+
+
+def layout(ndim: int) -> Layout:
+    if ndim not in (1, 2, 3):
+        raise ValueError(f"the tree takes 1-3 dims, not {ndim}")
+    nq = ndim * (ndim + 1) // 2
+    return Layout(ndim=ndim, pcols=ndim + 3, p_m=ndim, p_h=ndim + 1,
+                  p_zh=ndim + 2, ccols=1 + 3 * ndim + nq, c_com=1,
+                  c_half=1 + ndim, c_q=1 + 2 * ndim,
+                  c_cen=1 + 2 * ndim + nq, nq=nq,
+                  fast_cols=ndim + 1 + ndim * ndim, tri=tri(ndim))
+
+
+def table_ndim(ptab: Tensor) -> int:
+    """The dims of a slot table (G*L, ndim + 3)."""
+    return layout(ptab.shape[1] - 3).ndim
+
+
+C_M = 0
+EWALD_BELOW_3D = ("Ewald periodic self-gravity requires a 3D box "
+                  "(matches the reference, Ewald.cpp ndim == 3 guard)")
+
+
+def require_3d_ewald(ndim: int, ewald) -> None:
+    """Refuse an Ewald sum below 3D, as the JAX package does
+    (gandalf_tpu/sim/simulation.py:908-911)."""
+    if ewald is not None and ndim != 3:
+        raise NotImplementedError(EWALD_BELOW_3D)
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +275,12 @@ def walk_stats_levels_native(r: np.ndarray, gmap: np.ndarray,
 def gather_to_buckets(spec: TreeSpec, gmap: Tensor, r: Tensor, m: Tensor,
                       h: Optional[Tensor] = None, zh: Optional[Tensor] = None,
                       periodic_extent=None, alive: Optional[Tensor] = None):
-    """Slot table (G*L, 6) and alive (G*L,) from particle-order fields
-    through `gmap` (G, L) int32.  `periodic_extent` (per dim, 0 = open)
-    or None.  `alive` (N,) bool, or None for all alive: a dead particle
-    keeps its slot's row but its slot is not alive (alive_s = in_map &
-    alive[gmap], gandalf_tpu/ops/tree.py:1373).  K4 on CUDA tensors."""
+    """Slot table (G*L, ndim + 3) and alive (G*L,) from particle-order
+    fields, r (N, ndim), through `gmap` (G, L) int32.  `periodic_extent`
+    (per dim, 0 = open) or None.  `alive` (N,) bool, or None for all
+    alive: a dead particle keeps its slot's row but its slot is not
+    alive (alive_s = in_map & alive[gmap], gandalf_tpu/ops/tree.py:1373).
+    K4 on CUDA tensors."""
     if r.is_cuda:
         return _ext.tree_gather(spec, gmap, r, m, h, zh, periodic_extent,
                                 alive)
@@ -236,22 +293,23 @@ def gather_to_buckets_plain(spec, gmap, r, m, h=None, zh=None,
     """Plain version of K4: gandalf_tpu's gather plus unwrap_to_buckets,
     anchored on each bucket's first real slot."""
     G, L = spec.n_leaves, spec.leaf_size
+    nd = layout(r.shape[1]).ndim
     flat = gmap.reshape(-1).long()
     in_map = flat >= 0
     safe = torch.clamp_min(flat, 0)
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     r_s = torch.where(in_map[:, None], r[safe], zero)
     if periodic_extent is not None:
-        r_g = r_s.reshape(G, L, 3)
+        r_g = r_s.reshape(G, L, nd)
         first = torch.argmax(in_map.reshape(G, L).to(torch.uint8), dim=1)
         anchor = r_g[torch.arange(G, device=r.device), first]
         delta = r_g - anchor[:, None, :]
         cols = []
-        for k in range(3):
+        for k in range(nd):
             ext = float(periodic_extent[k])
             d = delta[..., k]
             cols.append(d - ext * torch.round(d / ext) if ext > 0 else d)
-        r_u = (anchor[:, None, :] + torch.stack(cols, -1)).reshape(-1, 3)
+        r_u = (anchor[:, None, :] + torch.stack(cols, -1)).reshape(-1, nd)
         r_s = torch.where(in_map[:, None], r_u, zero)
     one = torch.ones((), dtype=r.dtype, device=r.device)
     m_s = torch.where(in_map, m[safe], zero)
@@ -269,8 +327,8 @@ def gather_to_buckets_plain(spec, gmap, r, m, h=None, zh=None,
 # ---------------------------------------------------------------------------
 
 def build_tree(spec: TreeSpec, ptab: Tensor, alive: Tensor) -> Tensor:
-    """Level-concatenated cell table (2^(D+1) - 1, 16).  K5 on CUDA
-    tensors."""
+    """Level-concatenated cell table (2^(D+1) - 1, layout(ndim).ccols).
+    K5 on CUDA tensors."""
     if ptab.is_cuda:
         return _ext.tree_build(spec, ptab, alive)
     return build_tree_plain(spec, ptab, alive)
@@ -281,21 +339,30 @@ def _div_com(num: Tensor, den: Tensor) -> Tensor:
     return torch.where((den > 0.0)[..., None], num / safe[..., None], FAR)
 
 
-def _traceless(q: Tensor) -> Tensor:
-    tr = q[..., 0, 0] + q[..., 1, 1] + q[..., 2, 2]
-    eye = torch.eye(3, dtype=q.dtype, device=q.device)
-    return 3.0 * q - tr[..., None, None] * eye
+def _trace(q: Tensor) -> Tensor:
+    tr = q[..., 0, 0]
+    for k in range(1, q.shape[-1]):
+        tr = tr + q[..., k, k]
+    return tr
+
+
+def _quad_of(q: Tensor) -> Tensor:
+    """3 q - tr I (traceless in 3D only, as the JAX package's)."""
+    eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+    return 3.0 * q - _trace(q)[..., None, None] * eye
 
 
 def build_tree_plain(spec: TreeSpec, ptab: Tensor,
                      alive: Tensor) -> Tensor:
     """Plain version of K5: gandalf_tpu's build_tree (mass, COM, box over
     live slots and occupied children, far sentinel for empty cells,
-    traceless quadrupole with dead slots and empty children masked)."""
+    quadrupole 3 q - tr I with dead slots and empty children masked)."""
     G, L = spec.n_leaves, spec.leaf_size
+    lay = layout(table_ndim(ptab))
+    nd = lay.ndim
     al = alive.reshape(G, L)
-    r = ptab[:, P_R:P_R + 3].reshape(G, L, 3)
-    m = torch.where(al, ptab[:, P_M].reshape(G, L), 0.0)
+    r = ptab[:, :nd].reshape(G, L, nd)
+    m = torch.where(al, ptab[:, lay.p_m].reshape(G, L), 0.0)
     m_tot = m.sum(1)
     com = _div_com((m[..., None] * r).sum(1), m_tot)
     lo = torch.where(al[..., None], r, BIG).amin(1)
@@ -305,36 +372,35 @@ def build_tree_plain(spec: TreeSpec, ptab: Tensor,
     hi = torch.where(empty, FAR, hi)
     if spec.quadrupole:
         dr = torch.where(al[..., None], r - com[:, None, :], 0.0)
-        q = _traceless(torch.einsum("lp,lpi,lpj->lij", m, dr, dr))
+        q = _quad_of(torch.einsum("lp,lpi,lpj->lij", m, dr, dr))
     else:
-        q = torch.zeros((G, 3, 3), dtype=r.dtype, device=r.device)
+        q = torch.zeros((G, nd, nd), dtype=r.dtype, device=r.device)
     levels = [(m_tot, com, lo, hi, q)]
     for _ in range(spec.depth):
         m0, c0, lo0, hi0, q0 = levels[0]
         m2 = m0.reshape(-1, 2)
-        c2 = c0.reshape(-1, 2, 3)
+        c2 = c0.reshape(-1, 2, nd)
         mm = m2.sum(1)
         cc = _div_com((m2[..., None] * c2).sum(1), mm)
         occ = (m2 > 0.0)[..., None]
-        lo2 = torch.where(occ, lo0.reshape(-1, 2, 3), BIG).amin(1)
-        hi2 = torch.where(occ, hi0.reshape(-1, 2, 3), -BIG).amax(1)
+        lo2 = torch.where(occ, lo0.reshape(-1, 2, nd), BIG).amin(1)
+        hi2 = torch.where(occ, hi0.reshape(-1, 2, nd), -BIG).amax(1)
         par_empty = (mm <= 0.0)[:, None]
         lo2 = torch.where(par_empty, FAR, lo2)
         hi2 = torch.where(par_empty, FAR, hi2)
         if spec.quadrupole:
             d = torch.where(occ, c2 - cc[:, None, :], 0.0)
             dq = torch.einsum("lp,lpi,lpj->lij", m2, d, d)
-            tr = dq[:, 0, 0] + dq[:, 1, 1] + dq[:, 2, 2]
-            qq = (q0.reshape(-1, 2, 3, 3).sum(1) + 3.0 * dq
-                  - tr[:, None, None] * torch.eye(3, dtype=dq.dtype,
-                                                  device=dq.device))
+            qq = (q0.reshape(-1, 2, nd, nd).sum(1) + 3.0 * dq
+                  - _trace(dq)[:, None, None] * torch.eye(
+                      nd, dtype=dq.dtype, device=dq.device))
         else:
-            qq = torch.zeros((mm.shape[0], 3, 3), dtype=r.dtype,
+            qq = torch.zeros((mm.shape[0], nd, nd), dtype=r.dtype,
                              device=r.device)
         levels.insert(0, (mm, cc, lo2, hi2, qq))
     rows = []
     for mm, cc, lo_, hi_, qq in levels:
-        q6 = torch.stack([qq[:, i, j] for i, j in _TRI], -1)
+        q6 = torch.stack([qq[:, i, j] for i, j in lay.tri], -1)
         rows.append(torch.cat([mm[:, None], cc, 0.5 * (hi_ - lo_), q6,
                                0.5 * (lo_ + hi_)], -1))
     return torch.cat(rows, 0).contiguous()
@@ -384,14 +450,14 @@ def tree_walk(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor,
     box, the far field of accepted cells at every live slot (or, with
     spec.fast, its expansion about the group's box centre), the children
     of opened cells as the next frontier, the opened leaves as the near
-    list.  Returns far a (G*L, 3), far pot (G*L,), near list (G, Wn)
+    list.  Returns far a (G*L, ndim), far pot (G*L,), near list (G, Wn)
     int32 (-1 padded) and overflow (); with spec.fast the first two are
-    the groups' expansions (G, 13) (a0, pot0, the Jacobian row by row)
-    and None.  `gfac` (G,) is the accuracy MAC's per-group factor
-    (mac_factors; its default where None); `ewald` an (EwaldTable,
-    periodic extent) pair for the periodic walk.  With `group_ids`
-    (G_act,) int32 only the listed groups walk; the other groups' rows
-    are zero (near: -1).  K6 on CUDA tensors."""
+    the groups' expansions (G, layout(ndim).fast_cols) (a0, pot0, the
+    Jacobian row by row) and None.  `gfac` (G,) is the accuracy MAC's
+    per-group factor (mac_factors; its default where None); `ewald` an
+    (EwaldTable, periodic extent) pair for the periodic walk (3D only).
+    With `group_ids` (G_act,) int32 only the listed groups walk; the other
+    groups' rows are zero (near: -1).  K6 on CUDA tensors."""
     if spec.mac != "geometric" and gfac is None:
         gfac = mac_factors(spec, None, alive, dtype=ptab.dtype)
     if ptab.is_cuda:
@@ -433,9 +499,18 @@ def _groups_of(spec: TreeSpec, group_ids: Optional[Tensor], device):
     return group_ids.long()
 
 
+def _sum_sq(x: Tensor) -> Tensor:
+    """sum_k x_k^2 over the last axis, term by term in K6's order."""
+    s = x[..., 0] * x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = s + x[..., k] * x[..., k]
+    return s
+
+
 def _multipole(dr: Tensor, m: Tensor, q6: Optional[Tensor]):
-    """Field and potential of cells of mass m (and traceless quadrupole
-    q6) at dr = com - r (..., 3): gandalf_tpu's _mp_accel."""
+    """Field and potential of cells of mass m (and quadrupole q6, the
+    upper triangle) at dr = com - r (..., ndim): gandalf_tpu's
+    _mp_accel."""
     inv_r = _safe_invr((dr * dr).sum(-1))
     inv_r3 = inv_r * inv_r * inv_r
     a = (m * inv_r3)[..., None] * dr
@@ -461,6 +536,9 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
     and "fast_terms" (accepted cells, with spec.fast)."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
+    lay = layout(table_ndim(ptab))
+    nd, cq, nq = lay.ndim, lay.c_q, lay.nq
+    require_3d_ewald(nd, ewald)
     Wn, th2 = spec.near_cap, spec.theta_sqd
     table, period = _ewald_parts(ewald)
     leaves = level_rows(spec, ctab, D)
@@ -468,49 +546,46 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
     groups = _groups_of(spec, group_ids, dev)
     B = _chunk_groups(G, L * wmax, dev)
     if spec.fast:
-        far = torch.zeros((G, 13), dtype=dt, device=dev)
+        far = torch.zeros((G, lay.fast_cols), dtype=dt, device=dev)
     else:
-        a_far = torch.zeros((G, L, 3), dtype=dt, device=dev)
+        a_far = torch.zeros((G, L, nd), dtype=dt, device=dev)
         pot_far = torch.zeros((G, L), dtype=dt, device=dev)
     near = torch.full((G, Wn), -1, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    ptab_g = ptab.reshape(G, L, 6)
-    eye = torch.eye(3, dtype=dt, device=dev)
+    ptab_g = ptab.reshape(G, L, lay.pcols)
+    eye = torch.eye(nd, dtype=dt, device=dev)
     for c0 in range(0, groups.numel(), B):
         gsel = groups[c0:c0 + B]
         nb = gsel.numel()
         al = alive.reshape(G, L)[gsel]
         # a group without live slots walks nothing (as K6)
         glive = al.any(1)
-        rt = ptab_g[gsel, :, P_R:P_R + 3]
-        gc = leaves[gsel, C_CEN:C_CEN + 3]
-        gh = leaves[gsel, C_HALF:C_HALF + 3]
+        rt = ptab_g[gsel, :, :nd]
+        gc = leaves[gsel, lay.c_cen:lay.c_cen + nd]
+        gh = leaves[gsel, lay.c_half:lay.c_half + nd]
         gf = None if gfac is None else gfac[gsel]
-        a_acc = torch.zeros((nb, L, 3), dtype=dt, device=dev)
+        a_acc = torch.zeros((nb, L, nd), dtype=dt, device=dev)
         p_acc = torch.zeros((nb, L), dtype=dt, device=dev)
-        jac = torch.zeros((nb, 3, 3), dtype=dt, device=dev)
-        a0 = torch.zeros((nb, 3), dtype=dt, device=dev)
+        jac = torch.zeros((nb, nd, nd), dtype=dt, device=dev)
+        a0 = torch.zeros((nb, nd), dtype=dt, device=dev)
         pot0 = torch.zeros((nb,), dtype=dt, device=dev)
         front = torch.zeros((nb, 1), dtype=torch.int64, device=dev)
         ovf = torch.zeros((nb,), dtype=torch.bool, device=dev)
         for ell in range(D + 1):
             valid = (front >= 0) & glive[:, None]
             idx = torch.clamp_min(front, 0)
-            tab = level_rows(spec, ctab, ell)[idx]          # (nb, W, 16)
+            tab = level_rows(spec, ctab, ell)[idx]     # (nb, W, ccols)
             m_c = torch.where(valid, tab[..., C_M], 0.0)
-            com = tab[..., C_COM:C_COM + 3]
-            half = tab[..., C_HALF:C_HALF + 3]
+            com = tab[..., lay.c_com:lay.c_com + nd]
+            half = tab[..., lay.c_half:lay.c_half + nd]
             d = com - gc[:, None, :]
             if table is not None:
                 d = ew.min_image(d, period)
             gap = torch.clamp_min(torch.abs(d) - gh[:, None, :], 0.0)
             # sums written out in K6's order: both take the same MAC
             # decisions, bit for bit, in either precision
-            dsqd = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
-                    + gap[..., 2] * gap[..., 2])
-            rmax_sqd = (half[..., 0] * half[..., 0]
-                        + half[..., 1] * half[..., 1]
-                        + half[..., 2] * half[..., 2])
+            dsqd = _sum_sq(gap)
+            rmax_sqd = _sum_sq(half)
             live = valid & (m_c > 0.0)
             accept = live & (dsqd * th2 > rmax_sqd)
             if spec.mac == "gadget2":
@@ -518,11 +593,13 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
                          < rmax_sqd * m_c)
                 accept = accept & ~extra
             elif spec.mac == "eigenmac" and spec.quadrupole:
-                q = tab[..., C_Q:C_Q + 6]
-                diag = (q[..., 0] * q[..., 0] + q[..., 3] * q[..., 3]
-                        + q[..., 5] * q[..., 5])
-                offd = (q[..., 1] * q[..., 1] + q[..., 2] * q[..., 2]
-                        + q[..., 4] * q[..., 4])
+                q = tab[..., cq:cq + nq]
+                # the diagonal's and the off-diagonal's squares, each in
+                # the tri order (none off the diagonal in 1D)
+                on = [c for c, (i, j) in enumerate(lay.tri) if i == j]
+                off = [c for c, (i, j) in enumerate(lay.tri) if i != j]
+                diag = _sum_sq(q[..., on])
+                offd = _sum_sq(q[..., off]) if off else torch.zeros_like(diag)
                 trq2 = diag + 2.0 * offd
                 lam = 2.0 * torch.sqrt(torch.clamp_min(trq2, 0.0) / 6.0)
                 cellmac = (0.5 * lam / spec.macerror) ** (2.0 / 3.0)
@@ -541,7 +618,7 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
                 # the accepted cells about the group's box centre
                 dr = d[b, w]                                  # (n, 3)
                 m_a = m_c[b, w]
-                q6 = tab[b, w, C_Q:C_Q + 6] if spec.quadrupole else None
+                q6 = tab[b, w, cq:cq + nq] if spec.quadrupole else None
                 a_c, p_c = _multipole(dr, m_a, q6)
                 if table is not None:
                     e_a, e_p = ew.ewald_correction(table, dr)
@@ -560,11 +637,11 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
             elif b.numel():
                 # far field of the accepted cells at every slot of their
                 # group
-                dr = com[b, w][:, None, :] - rt[b]           # (n, L, 3)
+                dr = com[b, w][:, None, :] - rt[b]          # (n, L, nd)
                 if table is not None:
                     dr = ew.min_image(dr, period)
                 m_a = m_c[b, w][:, None]
-                q6 = (tab[b, w, C_Q:C_Q + 6][:, None] if spec.quadrupole
+                q6 = (tab[b, w, cq:cq + nq][:, None] if spec.quadrupole
                       else None)
                 a_c, p_c = _multipole(dr, m_a, q6)
                 if table is not None:
@@ -586,8 +663,8 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
                 near[gsel] = ids.to(torch.int32)
                 ovf |= count > Wn
         if spec.fast:
-            far[gsel] = torch.cat([a0, pot0[:, None], jac.reshape(nb, 9)],
-                                  -1)
+            far[gsel] = torch.cat([a0, pot0[:, None],
+                                   jac.reshape(nb, nd * nd)], -1)
         else:
             # every slot of a live group, dead ones too (K6)
             a_far[gsel] = a_acc
@@ -595,7 +672,7 @@ def tree_walk_plain(spec: TreeSpec, ctab: Tensor, ptab: Tensor,
         overflow |= ovf.any()
     if spec.fast:
         return far, None, near, overflow
-    return a_far.reshape(-1, 3), pot_far.reshape(-1), near, overflow
+    return a_far.reshape(-1, nd), pot_far.reshape(-1), near, overflow
 
 
 def _ewald_parts(ewald):
@@ -609,9 +686,10 @@ def _ewald_parts(ewald):
 
 def _quad_terms(q6: Tensor, dr: Tensor):
     """Q.dr and dr.Q.dr from upper-triangle components."""
-    q = {p: q6[..., i] for i, p in enumerate(_TRI)}
+    nd = dr.shape[-1]
+    q = {p: q6[..., i] for i, p in enumerate(tri(nd))}
     qdr = torch.stack([sum(q[(min(i, j), max(i, j))] * dr[..., j]
-                           for j in range(3)) for i in range(3)], -1)
+                           for j in range(nd)) for i in range(nd)], -1)
     return qdr, (qdr * dr).sum(-1)
 
 
@@ -625,7 +703,7 @@ def tree_near(spec: TreeSpec, kern, ctab: Tensor, ptab: Tensor,
               group_ids: Optional[Tensor] = None, zeta_scaling: str = "sph",
               ewald=None):
     """Near-field pair sums over each group's near leaves, plus the far
-    field, written to row out_index[slot] of (n_out, 3) and (n_out,)
+    field, written to row out_index[slot] of (n_out, ndim) and (n_out,)
     outputs for every slot with a row (out_index >= 0) in a group with
     a live slot, dead slots included; overflow () when some group's
     kernel-support leaves exceed min(support_cap, near_cap).  `kern`
@@ -634,11 +712,12 @@ def tree_near(spec: TreeSpec, kern, ctab: Tensor, ptab: Tensor,
     "sph" adds the grad-h zeta term to the softened force as m_j *
     (zh_i w1_i + zh_j w1_j) / 2, "mfv" as (1/m_i) (zh_i w1_i + zh_j
     w1_j) / 2, not scaled by m_j and zero where m_j <= 0
-    (MfvCommon.cpp:413-416).  With spec.fast `a_far` is K6's (G, 13)
-    expansions and `pot_far` None: the far field of a slot is a0 + J (r
-    - gc) and pot0 + a0 . (r - gc) about its group's box centre.  With
-    `ewald`, an (EwaldTable, periodic extent) pair, each pair is
-    min-imaged and adds the table's correction.  K7 on CUDA tensors."""
+    (MfvCommon.cpp:413-416).  With spec.fast `a_far` is K6's (G,
+    layout(ndim).fast_cols) expansions and `pot_far` None: the far field
+    of a slot is a0 + J (r - gc) and pot0 + a0 . (r - gc) about its
+    group's box centre.  With `ewald`, an (EwaldTable, periodic extent)
+    pair (3D only), each pair is min-imaged and adds the table's
+    correction.  K7 on CUDA tensors."""
     if zeta_scaling not in ("sph", "mfv"):
         raise ValueError(f"zeta_scaling must be 'sph' or 'mfv', not "
                          f"{zeta_scaling!r}")
@@ -663,6 +742,11 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
     Ewald sum also m_j times the table's correction."""
     G, L, D = spec.n_leaves, spec.leaf_size, spec.depth
     dt, dev = ptab.dtype, ptab.device
+    lay = layout(table_ndim(ptab))
+    nd, pm, ph, pzh = lay.ndim, lay.p_m, lay.p_h, lay.p_zh
+    cen, hlf = slice(lay.c_cen, lay.c_cen + nd), slice(lay.c_half,
+                                                        lay.c_half + nd)
+    require_3d_ewald(nd, ewald)
     table, period = _ewald_parts(ewald)
     Wn = near.shape[1]
     # targets: the slots with a row in groups with a live slot, dead ones
@@ -673,12 +757,12 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
     leaves = level_rows(spec, ctab, D)
     groups = _groups_of(spec, group_ids, dev)
     B = _chunk_groups(G, L * Wn * L, dev)
-    a_s = torch.zeros((G, L, 3), dtype=dt, device=dev)
+    a_s = torch.zeros((G, L, nd), dtype=dt, device=dev)
     p_s = torch.zeros((G, L), dtype=dt, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     Ws = min(spec.support_cap, Wn)
     slot_l = torch.arange(L, device=dev)
-    ptab_g = ptab.reshape(G, L, 6)
+    ptab_g = ptab.reshape(G, L, lay.pcols)
     for c0 in range(0, groups.numel(), B):
         gsel = groups[c0:c0 + B]
         nb = gsel.numel()
@@ -689,18 +773,20 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
         nvalid = nid >= 0
         col = (torch.clamp_min(nid, 0)[..., None] * L + slot_l).reshape(
             nb, Wn * L)
-        part = ptab[col]                                     # (nb, P, 6)
+        part = ptab[col]                                 # (nb, P, pcols)
         pal = alive[col] & nvalid.repeat_interleave(L, dim=1)
         rows = gsel[:, None] * L + slot_l
         # separations per component, (nb, L, P) each
-        dr = [part[:, None, :, k] - own[:, :, None, k] for k in range(3)]
+        dr = [part[:, None, :, k] - own[:, :, None, k] for k in range(nd)]
         if table is not None:
             dr = [x - period[k] * torch.round(x / period[k])
                   for k, x in enumerate(dr)]
-        d2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
+        d2 = dr[0] * dr[0]
+        for x in dr[1:]:
+            d2 = d2 + x * x
         use = (pal[:, None, :] & tg[..., None]
                & (col[:, None, :] != rows[..., None]) & (d2 > 0.0))
-        m_j = torch.where(use, part[:, None, :, P_M], 0.0)
+        m_j = torch.where(use, part[:, None, :, pm], 0.0)
         inv_d = torch.rsqrt(torch.where(use, d2, 1.0))
         coef = m_j * inv_d * inv_d * inv_d
         pot = m_j * inv_d
@@ -711,22 +797,21 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
             # its overflow, and a pair is softened only in such a leaf
             # (which decides only for a dead target, whose h = 1 is not
             # in the group's)
-            hg = torch.where(al, own[..., P_H], 0.0).amax(1)
-            hp = torch.where(pal & (part[..., P_M] > 0.0), part[..., P_H],
+            hg = torch.where(al, own[..., ph], 0.0).amax(1)
+            hp = torch.where(pal & (part[..., pm] > 0.0), part[..., ph],
                              0.0).reshape(nb, Wn, L).amax(2)
             cell = leaves[torch.clamp_min(nid, 0)]
             gcell = leaves[gsel]
-            dgc = cell[..., C_CEN:C_CEN + 3] - gcell[:, None, C_CEN:C_CEN + 3]
+            dgc = cell[..., cen] - gcell[:, None, cen]
             if table is not None:
                 dgc = ew.min_image(dgc, period)
             gap = torch.clamp_min(
-                torch.abs(dgc) - cell[..., C_HALF:C_HALF + 3]
-                - gcell[:, None, C_HALF:C_HALF + 3], 0.0)
+                torch.abs(dgc) - cell[..., hlf] - gcell[:, None, hlf], 0.0)
             sup = kern.kernrange * torch.maximum(hg[:, None], hp)
             in_sup = nvalid & ((gap * gap).sum(-1) < sup * sup)
             overflow |= (in_sup.sum(1) > Ws).any()
             # softened pairs, few of the block, evaluated as a list
-            h_i, h_j = own[..., P_H][..., None], part[:, None, :, P_H]
+            h_i, h_j = own[..., ph][..., None], part[:, None, :, ph]
             rad = kern.kernrange * torch.maximum(h_i, h_j)
             # a slack on d^2; the test on d below decides
             soft = (use & in_sup.repeat_interleave(L, dim=1)[:, None, :]
@@ -735,18 +820,18 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
             d = torch.sqrt(d2[b, i, p])
             soft_d = d < rad[b, i, p]
             b, i, p, d = b[soft_d], i[soft_d], p[soft_d], d[soft_d]
-            invh_i, invh_j = 1.0 / own[b, i, P_H], 1.0 / part[b, p, P_H]
+            invh_i, invh_j = 1.0 / own[b, i, ph], 1.0 / part[b, p, ph]
             s_i, s_j = d * invh_i, d * invh_j
             paux = 0.5 * (invh_i * invh_i * kern.wgrav(s_i)
                           + invh_j * invh_j * kern.wgrav(s_j))
-            zterm = 0.5 * (own[b, i, P_ZH] * kern.w1(s_i)
-                           + part[b, p, P_ZH] * kern.w1(s_j))
+            zterm = 0.5 * (own[b, i, pzh] * kern.w1(s_i)
+                           + part[b, p, pzh] * kern.w1(s_j))
             gaux = 0.5 * (invh_i * kern.wpot(s_i) + invh_j * kern.wpot(s_j))
             mj = m_j[b, i, p]
             if zeta_scaling == "sph":
                 coef[b, i, p] = mj * (paux + zterm) / d
             else:
-                invm_i = 1.0 / torch.clamp_min(own[b, i, P_M], 1e-30)
+                invm_i = 1.0 / torch.clamp_min(own[b, i, pm], 1e-30)
                 coef[b, i, p] = (mj * paux / d + torch.where(
                     mj > 0.0, invm_i * zterm, 0.0) / d)
             pot[b, i, p] = m_j[b, i, p] * gaux
@@ -760,22 +845,22 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
             mj = m_j[b, i, q]
             row = b * L + i
             a_s[gsel] += torch.zeros((nb * L, 3), dtype=dt, device=dev) \
-                .index_add_(0, row, mj[:, None] * e_a).reshape(nb, L, 3)
+                .index_add_(0, row, mj[:, None] * e_a).reshape(nb, L, nd)
             p_s[gsel] += torch.zeros((nb * L,), dtype=dt, device=dev) \
                 .index_add_(0, row, mj * e_p).reshape(nb, L)
     if spec.fast:
         # the groups' expansions about their box centres, at each slot
-        f = a_far.reshape(G, 13)
-        delta = ptab.reshape(G, L, 6)[..., P_R:P_R + 3] \
-            - leaves[:, None, C_CEN:C_CEN + 3]
-        jac = f[:, 4:].reshape(G, 3, 3)
-        a_far = (f[:, None, 0:3]
-                 + torch.einsum("gij,glj->gli", jac, delta)).reshape(-1, 3)
-        pot_far = (f[:, None, 3]
-                   + torch.einsum("gj,glj->gl", f[:, 0:3], delta)).reshape(-1)
-    a_s = a_s.reshape(-1, 3) + a_far
+        f = a_far.reshape(G, lay.fast_cols)
+        delta = ptab.reshape(G, L, lay.pcols)[..., :nd] \
+            - leaves[:, None, cen]
+        jac = f[:, nd + 1:].reshape(G, nd, nd)
+        a_far = (f[:, None, :nd]
+                 + torch.einsum("gij,glj->gli", jac, delta)).reshape(-1, nd)
+        pot_far = (f[:, None, nd]
+                   + torch.einsum("gj,glj->gl", f[:, :nd], delta)).reshape(-1)
+    a_s = a_s.reshape(-1, nd) + a_far
     p_s = p_s.reshape(-1) + pot_far
-    a = torch.zeros((n_out, 3), dtype=dt, device=dev)
+    a = torch.zeros((n_out, nd), dtype=dt, device=dev)
     gpot = torch.zeros((n_out,), dtype=dt, device=dev)
     written = target
     if group_ids is not None:
@@ -794,7 +879,7 @@ def tree_near_plain(spec: TreeSpec, kern, ctab, ptab, alive, near, a_far,
 
 def tree_gravity(spec: TreeSpec, ctab: Tensor, ptab: Tensor, alive: Tensor,
                  kern=None, gfac: Optional[Tensor] = None, ewald=None):
-    """K6 then K7 on a built tree: (a (G*L, 3), gpot (G*L,), overflow) in
+    """K6 then K7 on a built tree: (a (G*L, ndim), gpot (G*L,), overflow) in
     bucket order (zero in empty slots).  `kern` None is Newtonian;
     `gfac` and `ewald` as for tree_walk."""
     a_far, pot_far, near, ovf_walk = tree_walk(spec, ctab, ptab, alive,

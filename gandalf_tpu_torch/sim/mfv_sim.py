@@ -44,10 +44,11 @@ passes (K32, K33), then the commit of the particles ending their step
 (with radws, K29 over each one's own step), the ladder update and the
 gradients (K11, K31).  On overflow the state and the schedule rewind
 together and the tick is redone after a replan, at most 4 times.
-Mirror walls, sinks, external potentials, radiative feedback, the
-locally isothermal EOS, smoothing kernels other than M4, self-gravity
-below 3D and RK2 with block timesteps raise NotImplementedError naming
-their ROADMAP item or fault, or the JAX package's own refusal.
+Self-gravity runs in 1-3 dims.  Mirror walls, sinks, external
+potentials, radiative feedback, the locally isothermal EOS, smoothing
+kernels other than M4, the Ewald sum below 3D and RK2 with block
+timesteps raise NotImplementedError naming their ROADMAP item or fault,
+or the JAX package's own refusal.
 """
 
 from __future__ import annotations

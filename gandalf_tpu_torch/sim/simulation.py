@@ -26,12 +26,12 @@ alpha evolves per particle) and optional conductivity, the structured
 reflected images the grid holds in an image-cell layer beyond each
 wall; hydro only there), KDK leapfrog with a global timestep or with
 hierarchical block timesteps (``Nlevels > 1``), and optionally
-self-gravity from the KD-bucket Barnes-Hut tree (frontier walk;
-geometric, gadget2 or eigenmac MAC; monopole or quadrupole moments, at every particle or expanded about
-each bucket's centre; the Ewald sum of a periodic box, fully periodic,
-slab or cylinder), with its buckets replanned every ``ntreebuildstep``
-steps.  It also runs star and sink particles (``ops/sinks.py``), with a
-global timestep or block timesteps: stars from the IC, sink creation,
+self-gravity from the KD-bucket Barnes-Hut tree in 1-3 dims (frontier
+walk; geometric, gadget2 or eigenmac MAC; monopole or quadrupole
+moments, at every particle or expanded about each bucket's centre; the
+Ewald sum of a 3D periodic box, fully periodic, slab or cylinder), with
+its buckets replanned every ``ntreebuildstep`` steps.  It also runs star
+and sink particles (``ops/sinks.py``), with a global timestep or block timesteps: stars from the IC, sink creation,
 plain or smooth accretion (K18, K20), star-gas gravity (K16) and
 star-star gravity (K14), with the accreted gas dead (masked out of the
 grid and tree passes and frozen).  The sinks ride in the state
@@ -111,7 +111,7 @@ from ..ops.sph_gravity import star_gas_forces
 from ..ops.stellar import (default_stellar_table, load_stellar_table,
                            stellar_nlyc)
 from ..ops.sph_grid27 import hydro_pass_grid27, plan_grid27
-from ..ops.tree import (grow_tree_caps, plan_buckets_kd,
+from ..ops.tree import (EWALD_BELOW_3D, grow_tree_caps, plan_buckets_kd,
                         plan_tree_for_buckets, tree_gravity_active,
                         tree_gravity_grouped, walk_stats_levels_native)
 from ..state import (BOUNDARY_TYPE, DUST_TYPE, FLAG_DEAD, GAS_TYPE,
@@ -262,12 +262,12 @@ class SimulationBase:
 
     def _check_gravity_options(self):
         """The tree-gravity options the port runs: the frontier walk over
-        KD buckets (every MAC, multipole and Ewald option of the JAX
-        package)."""
+        KD buckets in 1-3 dims (every MAC, multipole and Ewald option of
+        the JAX package; the Ewald sum in 3D only, as there)."""
         p = self.params
-        if self.ndim != 3:
-            raise _unsupported("self-gravity at ndim < 3 (the tree kernels "
-                               "K4-K7 are 3D)", "item 3")
+        if self.ndim != 3 and self.box.periodic_dims() \
+                and p.intparams["ewald"]:
+            raise NotImplementedError(EWALD_BELOW_3D)
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries with self-gravity "
                                "(the JAX package's all-pairs path)",

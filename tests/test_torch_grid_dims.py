@@ -272,10 +272,13 @@ def _refused(params, item):
 
 @pytest.mark.parametrize("ndim", [1, 2])
 def test_refusals_below_3d_name_their_items(ndim):
-    """Self-gravity (item 3) and sinks (item 9) stay 3D-only, and so does
-    MFV's self-gravity (item 3); block steps run below 3D
+    """Self-gravity runs below 3D (tests/test_torch_gravity_dims_sim.py),
+    but not the Ewald sum of a periodic box (ewald = 1, the default),
+    which both controllers refuse with the JAX package's reason; sinks
+    (item 9) stay 3D-only; block steps run below 3D
     (tests/test_torch_block_dims.py)."""
-    for key, value, item in (("self_gravity", 1, "item 3"),
+    ewald = "Ewald periodic self-gravity requires a 3D box"
+    for key, value, item in (("self_gravity", 1, ewald),
                              ("create_sinks", 1, "item 9")):
         p = mirror_params(8, ndim, walls=())
         p.set(key, value)
@@ -283,7 +286,7 @@ def test_refusals_below_3d_name_their_items(ndim):
     p = mirror_params(8, ndim, walls=())
     p.set("sim", "meshlessfv")
     p.set("self_gravity", 1)
-    _refused(p, "item 3")
+    _refused(p, ewald)
 
 
 def test_mirror_refusals_name_their_items():

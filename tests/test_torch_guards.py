@@ -3,8 +3,9 @@ package (an AST scan) and running it never loads JAX, whatever
 GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
 N-body and sink slices, block-stepped smooth accretion, the cd2010
 switch, a dusty box, an SM2012 tube, an external potential and the
-radws box and cluster with radiative feedback, a quintic box and a
-step of the Spitzer sphere under each radiation scheme included);
+radws box and cluster with radiative feedback, a quintic box, a step
+of the Spitzer sphere under each radiation scheme and the 1D and 2D
+self-gravitating disc, MFV's too, included);
 chip_smoke.py
 refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
@@ -166,6 +167,13 @@ def test_port_never_imports_jax():
         "    sim.SetupSimulation()\n"
         "    sim.main_loop_step()\n"
         "    assert sim.use_block and sim.ndim < 3 and sim.active_rows > 0\n"
+        "from gandalf_tpu_torch.check import disc_params\n"
+        "for p in (disc_params(300, 2), disc_params(300, 2, nlevels=4),\n"
+        "          disc_params(300, 2, sim='mfvmuscl'), disc_params(64, 1)):\n"
+        "    sim = SimulationBase.factory(p, 'cpu', torch.float64)\n"
+        "    sim.SetupSimulation()\n"
+        "    sim.main_loop_step()\n"
+        "    assert sim.ndim < 3 and bool((sim.state.gpot > 0).all())\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -339,6 +347,56 @@ def test_tree_options_match_plain_versions_on_gpu(dtype):
     bad = {k: r.get("scaled_err", r) for k, r in report.items()
            if not r["ok"]}
     assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [2, 1])
+def test_tree_dims_kernels_match_plain_versions_on_gpu(ndim, dtype):
+    """K4-K7 at ndim 1 and 2 against their plain versions on the card in
+    every walk option of chip_smoke.py's tree_kernels_dims, on the disc
+    and the rod of check.disc_params at about 1,000 particles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import compare_tree_kernels_dims
+
+    report = compare_tree_kernels_dims(ndim, "cuda", dtype, n_target=1000)
+    bad = {k: r.get("scaled_err", r) for k, r in report.items()
+           if not r["ok"]}
+    assert not bad, bad
+
+
+def test_tree_dims_wrappers_refuse_cpu_tensors_and_the_ewald_sum():
+    """K4-K7 on 1D and 2D tables: CPU tensors raise and count no launch;
+    the Ewald sum below 3D raises with the JAX package's reason, in the
+    wrappers and in the plain versions' dispatch."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops import tree
+    from gandalf_tpu_torch.ops.tree import plan_tree
+
+    before = dict(_ext.LAUNCHES)
+    spec = plan_tree(64)
+    gmap = torch.arange(64, dtype=torch.int32).reshape(2, 32)
+    f64 = dict(dtype=torch.float64)
+    for nd in (1, 2):
+        lay = tree.layout(nd)
+        r = torch.rand((64, nd), **f64)
+        with pytest.raises(ValueError, match="CUDA"):
+            _ext.tree_gather(spec, gmap, r, r[:, 0], None, None, None)
+        ptab = torch.zeros((64, lay.pcols), **f64)
+        ctab = torch.zeros(((2 << spec.depth) - 1, lay.ccols), **f64)
+        alive = torch.ones((64,), dtype=torch.bool)
+        with pytest.raises(ValueError, match="CUDA"):
+            _ext.tree_build(spec, ptab, alive)
+        with pytest.raises(ValueError, match="CUDA"):
+            _ext.tree_walk(spec, ctab, ptab, alive)
+        with pytest.raises(NotImplementedError, match="requires a 3D box"):
+            tree.tree_walk(spec, ctab, ptab, alive,
+                           ewald=(None, [1.0] * nd))
+        with pytest.raises(NotImplementedError, match="requires a 3D box"):
+            tree.tree_near(spec, None, ctab, ptab, alive, None, None, None,
+                           None, 64, ewald=(None, [1.0] * nd))
+    assert _ext.LAUNCHES == before
 
 
 def test_tree_option_wrappers_check_their_inputs():
@@ -831,11 +889,16 @@ def test_controllers_default_to_the_card():
 
     from gandalf_tpu_torch.check import nbody_params
 
+    from gandalf_tpu_torch.check import disc_params
+
     sims = (SimulationBase.factory(mfv_params(8)),
             SimulationBase.factory(slice_params(8)),
             GradhSphSimulation(slice_params(8)),
-            SimulationBase.factory(nbody_params(8)))
-    assert [s.device.type for s in sims] == ["cuda"] * 4
+            SimulationBase.factory(nbody_params(8)),
+            SimulationBase.factory(disc_params(300, 2)),
+            SimulationBase.factory(disc_params(300, 2, sim="mfvmuscl")),
+            SimulationBase.factory(disc_params(64, 1)))
+    assert [s.device.type for s in sims] == ["cuda"] * 7
     if torch.cuda.is_available():
         return
     for s in sims:

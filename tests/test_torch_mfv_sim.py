@@ -245,7 +245,7 @@ def test_burst_overflow_replays_step_by_step():
 @pytest.mark.parametrize("settings,item", [
     ({"kernel": "quintic"}, "item 9"),
     ({"gas_eos": "locally_isothermal"}, "F20"),
-    ({"ndim": 1}, "item 3"),
+    ({"ndim": 1, "ewald": 1}, "requires a 3D box"),
     ({"sink_particles": 1}, "F16"),
     ({"sim": "mfvrk", "Nlevels": 3}, "RK2 block coupling"),
     ({"rad_fb": 1}, "F21"),
@@ -255,7 +255,8 @@ def test_burst_overflow_replays_step_by_step():
 def test_options_outside_the_slice_raise(settings, item):
     """What the MFV controllers still refuse, each naming its ROADMAP
     item or fault: a kernel other than M4 (item 9), the locally
-    isothermal EOS (F20), self-gravity below 3D (item 3), sinks (F16),
+    isothermal EOS (F20), the Ewald sum of a periodic box below 3D (the
+    JAX package's reason; self-gravity itself runs there), sinks (F16),
     RK2 with block timesteps (the JAX package refuses that too),
     radiative feedback (F21) and mirror walls."""
     p = mfv_params(N_SIDE, self_gravity=1)

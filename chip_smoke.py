@@ -13,11 +13,13 @@ quintic, gaussian and tabulated smoothing kernels, MFV's options (the
 exact Riemann solver, RK2, every slope limiter) and its 1D and 2D grid
 path, block-timestep MFV, the radiation schemes (ionisation, treeray
 and Monte-Carlo photoionisation of the Spitzer HII region) and block
-timesteps on the 1D and 2D grid path, and self-gravity in 1D and 2D
+timesteps on the 1D and 2D grid path, self-gravity in 1D and 2D
 (the tree kernels K4-K7 at NDIM 1 and 2, the 2D self-gravitating disc
 under global and block steps, the 2D periodic box without the Ewald
-sum, MFV gravity in 2D), and checks them, in phases, each printing one
-line:
+sum, MFV gravity in 2D) and sinks in 1D and 2D (K14, K16-K18 and K20
+at NDIM 1 and 2, the 2D disc forming and growing sinks under global and
+block steps, 2D binary accretion), and checks them, in phases, each
+printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
@@ -420,7 +422,34 @@ line:
    the CPU, 8 steps each of the 2D disc at about 2,000 particles under
    a global dt and under Nlevels 4 and of the 1D rod at 4,096, with
    equal tree plans, levels and listed rows; then K4-K7 (1D) against
-   their plain versions at the rod's state on the card.
+   their plain versions at the rod's state on the card;
+93. sink_kernels_dims: K14 (1D), K16, K17, K18 and K20 (both launches)
+   at NDIM 1 and 2 against their plain versions on the card on
+   check.sink_kernel_inputs at 4,096 gas with 16 and 64 slots, float64
+   and float32 (K17's row and index, K18's eaten mask and K20's claims
+   exactly; float64 sums within 1e-10), timed at 64 slots in float32;
+94. sink_disc_2d: gravity_disc_2d's disc (262,376 particles, float32)
+   with creation and plain accretion, rho_sink at 0.999 of the
+   bootstrap's largest rho (check.sink_disc_sim): 32 timed steps, at
+   least 8 sinks, alive fields finite, rho > 0, dead gas at rest and
+   massless, gas plus sink mass within 1e-6, the ledger within 1e-5,
+   no overflow, each sink kernel once a step, the tree within 1.46e-3;
+   then K4 (alive mode), K6, K7, K14, K16-K18 (2D) against their plain
+   versions at the path's state;
+95. sink_block_disc_2d: the same disc under Nlevels 4 with smooth
+   accretion, 4 warm-up and 32 timed dense ticks, the same gates (the
+   tree within 1.13e-3, K20 twice a tick), the levels and the spin
+   ledger's z range; then K20 (2D) against its plain version;
+96. binaryacc_2d: the binaryacc IC at 2 x 256 x 512 (262,144 gas, two
+   stars, periodic, no self-gravity) in float64, 32 steps: finite, the
+   ledger, mass conserved, both stars active and finite;
+97. sink_dims_parity: float64 on the card against the plain path on the
+   CPU, 8 steps each of the 2D disc (384) with creation and plain
+   accretion, the same with Nlevels 4 and smooth accretion, the 1D rod
+   (64) with smooth and with plain accretion, binaryacc at 2 x 16 x 32:
+   fields and sinks within 1e-9, equal sinks, eaten gas, levels and
+   plans every step; then K14, K16-K18 and K20 (1D) against their plain
+   versions at the rods' states on the card.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -454,8 +483,12 @@ mfv_block_khi's conservative run, K37 from spitzer_ionisation, K35
 from spitzer_treeray, K34 and K36 from spitzer_mcrt, K8 and K9 in 2D
 from block_khi_2d and in 1D from block_sod_tube (float64), K4-K7 in 2D
 from gravity_disc_2d, the list K6 and K7 in 2D from
-gravity_block_disc_2d, K7's MFV mode in 2D from mfv_gravity_disc_2d and
-K4-K7 in 1D from gravity_dims_parity's rod on the card (float64), each counted
+gravity_block_disc_2d, K7's MFV mode in 2D from mfv_gravity_disc_2d,
+K4-K7 in 1D from gravity_dims_parity's rod on the card (float64), K14,
+K16-K18 in 2D from sink_disc_2d (K4's entry there with its alive
+mode too), K20 in 2D from sink_block_disc_2d and K14, K16, K17, K20 in
+1D from sink_dims_parity's smooth rod and K18 in 1D from its plain rod
+(float64), each counted
 over its path's timed window (the tubes' over their whole block runs)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -792,6 +825,20 @@ DISC_ACCURACY_TOL = 2.0 * DISC_JAX_ACCURACY
 DISC_BLOCK_ACCURACY_TOL = 1.54 * DISC_JAX_ACCURACY
 DISC_ENERGY_DRIFT_TOL = 1e-2
 DISC_BLOCK_ENERGY_DRIFT_TOL = 2e-3
+# sinks below 3D (phases 93-97): the kernels at NDIM 1 and 2 on
+# check.sink_kernel_inputs; the 2D disc of gravity_disc_2d with sinks
+# under a global dt and under Nlevels 4 with smooth accretion (rho_sink
+# set from the bootstrap's rho, check.sink_disc_sim), at least
+# SINK_DISC_MIN_SINKS formed in the timed window; the binaryacc IC at
+# two lattices of 256 x 512; the parity runs (tag, case, steps)
+SINK_DIMS_SIZES = ((4096, 16), (4096, 64))
+SINK_DISC_STEPS = 32
+SINK_DISC_BLOCK_WARM = 4
+SINK_DISC_BLOCK_TICKS = 32
+SINK_DISC_MIN_SINKS = 8
+BINARYACC_SIDE = 256
+BINARYACC_STEPS = 32
+SINK_DIMS_PARITY_STEPS = 8
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -966,6 +1013,13 @@ for _d in ("_2d", "_1d"):
         SOURCES[f"{_k}{_d}"] = SOURCES[_k]
 for _k in ("tree_walk_list", "tree_near_list", "tree_near_mfv"):
     SOURCES[f"{_k}_2d"] = SOURCES[_k]
+# K14 and the sink kernels below 3D: 2D from sink_disc_2d (K20 from
+# sink_block_disc_2d), 1D from sink_dims_parity's rods on the card
+# (float64; K18 from the plain-accretion rod)
+for _d in ("_2d", "_1d"):
+    for _k in ("direct_softened", "star_gas_forces", "sink_candidate",
+               "accretion_sums", "smooth_accretion"):
+        SOURCES[f"{_k}{_d}"] = SOURCES[_k]
 # the quintic, gaussian and tabulated variants on their main paths: the
 # JAX functions' kernel evaluations they replace
 _FAMILY_SOURCES = {
@@ -1007,6 +1061,7 @@ EWALD = HYDRO + ("tree_gather", "tree_build", "tree_walk_ewald",
 # the kernels of a step of the sink path
 SINK = ("star_gas_forces", "sink_candidate", "accretion_sums",
         "direct_softened")
+SINK_2D = tuple(f"{k}_2d" for k in SINK)
 BB = GRAVITY + SINK
 # the kernels of a dense block tick of bb_block_collapse
 BB_BLOCK = GRAVITY + ("star_gas_forces", "sink_candidate",
@@ -5777,10 +5832,418 @@ def gravity_dims_parity(dev):
     return launches, {k: rep[k] for k in names}
 
 
-def kernel_line(launches, rep, alive_mode=None) -> dict:
+def sink_kernels_dims(dev) -> None:
+    """Phase 93: K14 (1D), K16, K17, K18 and K20 (both launches) at NDIM 1
+    and 2 against their plain versions on the card, on
+    check.sink_kernel_inputs (check.smooth_accretion_inputs for K20) at
+    4,096 gas with 16 and with 64 slots, in float64 and float32: K17's row
+    and index exactly, K18's eaten mask and K20's claims exactly, the
+    sums within 1e-10 of their largest value in float64 (check.py's
+    float32 tolerances); K14 on the slots' stars.  ms a launch, plain
+    ms and the bound of each at 64 slots in float32, K17's torch.argmax
+    beside it."""
+    from gandalf_tpu_torch.check import (compare_nbody_kernels,
+                                         compare_sink_kernels,
+                                         compare_td_sink_kernels,
+                                         sink_kernel_inputs,
+                                         smooth_accretion_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+
+    t0 = time.perf_counter()
+    for ndim in (2, 1):
+        kern = kernel_factory("m4", ndim)
+        for n, ns in SINK_DIMS_SIZES:
+            for dtype in (torch.float64, torch.float32):
+                timed = ns == SINK_DIMS_SIZES[-1][1] \
+                    and dtype == torch.float32
+                repeats = 5 if timed else 0
+                rep = compare_sink_kernels(
+                    kern, sink_kernel_inputs(n, ns, dev, dtype, ndim=ndim),
+                    repeats=repeats)
+                rep.update(compare_td_sink_kernels(
+                    kern, smooth_inputs=smooth_accretion_inputs(
+                        n, ns, dev, dtype, ndim=ndim), repeats=repeats))
+                if ndim == 1:
+                    st = sink_kernel_inputs(n, ns, dev, dtype,
+                                            ndim=1)["sinks"]
+                    rep.update(compare_nbody_kernels(
+                        st.r, st.v, st.m, st.h, kern, repeats=repeats,
+                        which=("direct_softened",)))
+                if timed:
+                    rep = _with_bounds(rep)
+                phase("sink_kernels_dims", ndim=ndim, N=n, Ns=ns,
+                      dtype=str(dtype), report=rep)
+                require_ok("sink_kernels_dims", rep)
+    phase("sink_kernels_dims_done", seconds=time.perf_counter() - t0)
+
+
+def _sink_checks(sim, mass0, mass1, rows, launches, per_step, acc, gate,
+                 sinks0, min_sinks):
+    """The sink paths' gates: alive fields finite, rho > 0, dead gas at
+    rest and massless, gas plus sink mass within BB_MASS_TOL, each call's
+    sink gain within BB_LEDGER_TOL of what the gas gave up, no unresolved
+    overflow, each sink kernel launched `per_step[k]` times a call of the
+    sink step, the tree's accuracy within `gate` (acc None: no tree), at
+    least `min_sinks` sinks formed (None: no creation)."""
+    from gandalf_tpu_torch.check import ledger_errors
+
+    s = sim.state
+    st, alive = s.sinks, s.alive
+    act = st.active
+    dead = ~alive
+    em, ep, m_dead = ledger_errors(rows)
+    calls = len(rows)
+    fields = ("r", "v", "a", "u", "h", "rho") + (
+        ("gpot",) if sim.self_gravity else ())
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)[alive]).all())
+                      for f in fields)
+        and all(bool(torch.isfinite(getattr(st, f)[act]).all())
+                for f in ("r", "v", "a", "m")),
+        "rho_positive": bool((s.rho[alive] > 0).all()),
+        "dead_at_rest": bool((s.m[dead] == 0).all())
+        and bool((s.v[dead] == 0).all()) and bool((s.a[dead] == 0).all()),
+        "mass_conserved": abs(mass1 - mass0) / mass0 <= BB_MASS_TOL,
+        "ledger": calls > 0 and max(em + ep) <= BB_LEDGER_TOL,
+        "no_overflow": not bool(s.neib_overflow)
+        and not (acc or {}).get("overflow", False),
+        "sink_kernels_each_step": all(launches[k] == n * calls
+                                      for k, n in per_step.items()),
+    }
+    if min_sinks is not None:
+        checks["sinks_formed"] = int(act.sum()) - sinks0 >= min_sinks
+    if acc is not None:
+        checks["accuracy"] = acc["rms_rel_err"] <= gate
+    return checks, {"calls": calls, "ledger_mass_err": max(em or [0.0]),
+                    "ledger_momentum_err": max(ep or [0.0]),
+                    "dead_mass_per_call": m_dead}
+
+
+def sink_disc_2d(dev, card):
+    """Phase 94: the 2D self-gravitating disc of gravity_disc_2d
+    (check.sink_disc_params(DISC_N): 262,376 particles, M4 grad-h,
+    energy_eqn, mon97, the quadrupole tree at theta^2 0.1 rebuilt every
+    32 steps, float32) with sink creation and plain accretion
+    (sink_radius 2, 16 slots), rho_sink from the bootstrap's rho
+    (check.sink_disc_sim): setup,
+    then SINK_DISC_STEPS timed steps with the counts set to 0 just before
+    them; particle-steps/s, sinks formed and their masses, rebuilds and
+    replans with their host seconds, launches; the gates of
+    _sink_checks (at least SINK_DISC_MIN_SINKS sinks, the tree within
+    DISC_ACCURACY_TOL); then K4 (alive mode), K6, K7, K14 and K16-K18
+    (2D) against their plain versions at the path's state.  Returns the
+    counts, the reports and K4's alive mode in 2D."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_nbody_kernels,
+                                         compare_sink_kernels,
+                                         compare_tree_kernels,
+                                         gravity_accuracy, sim_sink_inputs,
+                                         sink_disc_params, sink_disc_sim,
+                                         sink_ledger, total_mass)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = sink_disc_params(DISC_N, 2)
+    sim, t_setup, boot = sink_disc_sim(params, dev, torch.float32,
+                                       block_ic(params))
+    mass0 = total_mass(sim)
+    sinks0 = int(sim.state.sinks.active.sum())
+    rows = sink_ledger(sim)
+    plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
+    rebuild0 = sim.timing.totals.get("TREE_REBUILD", 0.0)
+    replan0 = sim.timing.totals.get("GRID_REPLAN", 0.0)
+    names = GRAVITY_2D + SINK_2D
+    _ext.reset_launches()
+    elapsed = run_timed(sim, SINK_DISC_STEPS)
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    replans = sim._n_grid_overflows - replans0
+    s = sim.state
+    st = s.sinks
+    acc = gravity_accuracy(sim, n_sample=2048)
+    checks, ledger = _sink_checks(
+        sim, mass0, total_mass(sim), rows, launches,
+        {k: 1 for k in SINK_2D}, acc, DISC_ACCURACY_TOL, sinks0,
+        SINK_DISC_MIN_SINKS)
+    del rows
+    checks["launches"] = all(launches[k] >= SINK_DISC_STEPS
+                             for k in GRAVITY_2D)
+    rep = compare_sink_kernels(sim.kern, sim_sink_inputs(sim), repeats=5)
+    rep.update(compare_tree_kernels(sim, s, repeats=5))
+    m_star = torch.where(st.active, st.m, 0.0)
+    rep.update(compare_nbody_kernels(st.r, st.v, m_star, st.h, sim.kern,
+                                     repeats=5, which=("direct_softened",)))
+    rep = _with_bounds(rep)
+    act = st.active
+    spec = sim.treespec
+    phase("sink_disc_2d", N=s.N, steps=sim.Nsteps,
+          timed_steps=SINK_DISC_STEPS, setup_s=t_setup, bootstrap=boot,
+          timed_s=elapsed,
+          particle_steps_per_s=s.N * SINK_DISC_STEPS / elapsed,
+          sinks_formed=int(act.sum()) - sinks0,
+          sink_masses=st.m[act].tolist(), dead=int((~s.alive).sum()),
+          rebuilds_in_window=sim._n_tree_plans - plans0 - replans,
+          rebuild_host_s=sim.timing.totals.get("TREE_REBUILD", 0.0)
+          - rebuild0, replans_in_window=replans,
+          replan_host_s=sim.timing.totals.get("GRID_REPLAN", 0.0) - replan0,
+          G_pad=spec.n_leaves, near_cap=spec.near_cap,
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          launches=launches, ledger=ledger, accuracy=acc,
+          accuracy_gate=DISC_ACCURACY_TOL, checks=checks, kernels=rep,
+          card=card, peak_mem_gb=peak_gb,
+          seconds=time.perf_counter() - t_phase)
+    _raise_failed("sink_disc_2d", checks, rep)
+    k4 = rep["tree_gather_2d"]
+    alive_mode = {"path": "sink_disc_2d",
+                  "launches": launches["tree_gather_2d"],
+                  "dead": k4["dead"], "max_abs_err": k4["max_abs_err"],
+                  "ms": k4["ms"], "plain_ms": k4["plain_ms"]}
+    return ({k: launches[k] for k in SINK_2D},
+            {k: rep[k] for k in SINK_2D}, alive_mode)
+
+
+def sink_block_disc_2d(dev, card):
+    """Phase 95: the same disc with Nlevels 4 (level_diff_max 1) and
+    smooth accretion, float32, on the dense tick (the coupled pass of
+    every particle each tick, K22, the sinks at dt_base): setup,
+    SINK_DISC_BLOCK_WARM warm-up ticks, then SINK_DISC_BLOCK_TICKS timed
+    ticks with the counts set to 0 just before them; ticks/s, the levels,
+    sinks formed, the spin ledger's z range, the gates of _sink_checks
+    (the tree within DISC_BLOCK_ACCURACY_TOL, K20 twice a tick); then K20
+    (2D) against its plain version at the path's state.  Returns its
+    count and report."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_td_sink_kernels,
+                                         gravity_accuracy, sim_smooth_inputs,
+                                         sink_disc_params, sink_disc_sim,
+                                         sink_ledger, total_mass)
+
+    t_phase = time.perf_counter()
+    params = sink_disc_params(DISC_N, 2, nlevels=4, smooth_accretion=1)
+    sim, t_setup, boot = sink_disc_sim(params, dev, torch.float32,
+                                       block_ic(params))
+    for _ in range(SINK_DISC_BLOCK_WARM):
+        sim.main_loop_step()
+    mass0 = total_mass(sim)
+    sinks0 = int(sim.state.sinks.active.sum())
+    rows = sink_ledger(sim)
+    names = GRAVITY_2D + ("star_gas_forces_2d", "sink_candidate_2d",
+                          "direct_softened_2d", "smooth_accretion_2d",
+                          "levelneib_2d")
+    replans0 = sim._n_grid_overflows
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(SINK_DISC_BLOCK_TICKS):
+        sim.main_loop_step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    st = s.sinks
+    acc = gravity_accuracy(sim, n_sample=2048)
+    checks, ledger = _sink_checks(
+        sim, mass0, total_mass(sim), rows, launches,
+        {"star_gas_forces_2d": 1, "sink_candidate_2d": 1,
+         "direct_softened_2d": 1, "smooth_accretion_2d": 2}, acc,
+        DISC_BLOCK_ACCURACY_TOL, sinks0, 1)
+    del rows
+    checks["launches"] = all(launches[k] >= SINK_DISC_BLOCK_TICKS
+                             for k in GRAVITY_2D + ("levelneib_2d",))
+    levels = torch.bincount(s.level.cpu()).tolist()
+    rep = _with_bounds(compare_td_sink_kernels(
+        sim.kern, smooth_inputs=sim_smooth_inputs(sim), repeats=5))
+    act = st.active
+    alive = s.alive
+    m = s.m[alive]
+    spin_z = st.angmom[act, 2]
+    phase("sink_block_disc_2d", N=s.N, ticks=sim.Nsteps,
+          timed_ticks=SINK_DISC_BLOCK_TICKS, setup_s=t_setup,
+          bootstrap=boot, timed_s=elapsed,
+          ticks_per_s=SINK_DISC_BLOCK_TICKS / elapsed,
+          alive_updates_per_s=int(alive.sum()) * SINK_DISC_BLOCK_TICKS
+          / elapsed, levels=levels,
+          level_max=int(sim._blocksched.level_max),
+          sinks_active=int(act.sum()), sinks_formed=int(act.sum()) - sinks0,
+          sink_masses=st.m[act].tolist(),
+          spin_z_range=[float(spin_z.min()), float(spin_z.max())]
+          if int(act.sum()) else None,
+          partial=int(((m > 0) & (m < 0.99 * m.max())).sum()),
+          dead=int((~alive).sum()),
+          replans_in_window=sim._n_grid_overflows - replans0,
+          launches=launches, ledger=ledger, accuracy=acc,
+          accuracy_gate=DISC_BLOCK_ACCURACY_TOL, checks=checks,
+          kernels=rep, card=card, seconds=time.perf_counter() - t_phase)
+    _raise_failed("sink_block_disc_2d", checks, rep)
+    k = "smooth_accretion_2d"
+    return {k: launches[k]}, {k: rep[k]}
+
+
+def binaryacc_2d(dev, card) -> None:
+    """Phase 96: the binaryacc IC at ndim 2 (check.binaryacc_params(
+    BINARYACC_SIDE): two lattices of 256 x 512 in [-1, 1]^2, periodic,
+    262,144 gas, 2 accreting stars, no self-gravity) in float64 (a star
+    of 0.4-0.6 takes ~5e-5 a step: float32 rounds its mass and momentum
+    at ~3e-8, ~5e-4 of the step's gain, so the ledger's 1e-5 needs
+    float64), BINARYACC_STEPS steps with the counts set to 0 just before
+    them:
+    particle-steps/s, the gas eaten and the stars' masses, alive fields
+    finite, rho > 0, the ledger, gas plus star mass conserved, both stars
+    active with finite r and v, K1-K3, K14, K16 and K18 (2D) every
+    step."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (binaryacc_params, sink_ledger,
+                                         total_mass)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t_phase = time.perf_counter()
+    sim = GradhSphSimulation(binaryacc_params(BINARYACC_SIDE), device=dev,
+                             dtype=torch.float64)
+    t0 = time.perf_counter()
+    sim.SetupSimulation()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    mass0 = total_mass(sim)
+    m_star0 = sim.state.sinks.m.tolist()
+    rows = sink_ledger(sim)
+    names = ("grid27_bin_2d", "grid27_density_2d", "grid27_forces_2d",
+             "star_gas_forces_2d", "accretion_sums_2d", "direct_softened_2d")
+    _ext.reset_launches()
+    elapsed = run_timed(sim, BINARYACC_STEPS)
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    st = s.sinks
+    checks, ledger = _sink_checks(
+        sim, mass0, total_mass(sim), rows, launches,
+        {"star_gas_forces_2d": 1, "accretion_sums_2d": 1,
+         "direct_softened_2d": 1}, None, None, 0, None)
+    del rows
+    checks["launches"] = all(n >= BINARYACC_STEPS for n in launches.values())
+    checks["stars_active_and_finite"] = bool(st.active.all()) \
+        and int(st.N) == 2 and bool(torch.isfinite(st.r).all()) \
+        and bool(torch.isfinite(st.v).all())
+    phase("binaryacc_2d", N=s.N, steps=sim.Nsteps, setup_s=t_setup,
+          timed_s=elapsed,
+          particle_steps_per_s=s.N * BINARYACC_STEPS / elapsed,
+          eaten=int((~s.alive).sum()), star_masses_before=m_star0,
+          star_masses=st.m.tolist(), t_code=sim.t, launches=launches,
+          ledger=ledger, checks=checks, card=card,
+          seconds=time.perf_counter() - t_phase)
+    _raise_failed("binaryacc_2d", checks, {})
+
+
+def sink_dims_parity(dev):
+    """Phase 97: float64 on the card against the plain path on the CPU,
+    SINK_DIMS_PARITY_STEPS steps (ticks) each of the 2D disc (384
+    particles) with creation and plain accretion, the same disc with
+    Nlevels 4 and smooth accretion, the 1D rod (64) with creation and
+    smooth accretion, then with plain accretion, and binaryacc at 2 x 16
+    x 32: every field within PARITY_TOL of its largest value, the
+    sinks' r, v, m and angmom too, equal sinks and eaten gas after every
+    step, equal levels and tree plans.  The card's 1D runs are the 1D
+    sink path: the counts are set to 0 just before each, and K14, K16,
+    K17, K20 (the smooth rod) and K18 (the plain rod) in 1D are held
+    against their plain versions at their ends.  Returns the 1D counts
+    and reports."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (binaryacc_params,
+                                         compare_nbody_kernels,
+                                         compare_sink_kernels,
+                                         compare_td_sink_kernels,
+                                         sim_sink_inputs, sim_smooth_inputs,
+                                         sink_disc_params)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    cases = (
+        ("disc_2d", lambda: sink_disc_params(400, 2, 0.3,
+                                             ntreebuildstep=4)),
+        ("disc_block_2d", lambda: sink_disc_params(
+            400, 2, 0.3, nlevels=4, smooth_accretion=1, ntreebuildstep=4)),
+        ("rod_1d", lambda: sink_disc_params(64, 1, 0.5, smooth_accretion=1,
+                                            ntreebuildstep=4)),
+        ("rod_1d_plain", lambda: sink_disc_params(64, 1, 0.5,
+                                                  ntreebuildstep=4)),
+        ("binaryacc_2d", lambda: binaryacc_params(16)),
+    )
+    launches, rep = {}, {}
+    for tag, make in cases:
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = GradhSphSimulation(make(), device=device,
+                                     dtype=torch.float64)
+            sim.SetupSimulation()
+            sims.append(sim)
+        one_d = sims[0].ndim == 1
+        if one_d:
+            _ext.reset_launches()
+        same = True
+        created = []
+        for _ in range(SINK_DIMS_PARITY_STEPS):
+            for sim in sims:
+                sim.main_loop_step()
+            a, b = (x.state for x in sims)
+            same &= bool(torch.equal(a.sinks.active.cpu(), b.sinks.active))
+            same &= bool(torch.equal(a.alive.cpu(), b.alive))
+            same &= bool(torch.equal(a.level.cpu(), b.level))
+            same &= sims[0].treespec == sims[1].treespec
+            created.append(int(b.sinks.active.sum()))
+        torch.cuda.synchronize()
+        if one_d:
+            names = [f"{k}_1d" for k in (
+                "star_gas_forces", "direct_softened", "sink_candidate",
+                "smooth_accretion" if tag == "rod_1d" else "accretion_sums")]
+            got = {k: _ext.LAUNCHES[k] for k in names}
+        errs = parity_errors(sims, ("r", "v", "u", "h", "rho", "m", "gpot",
+                                    "a"))
+        for f in ("r", "v", "m", "angmom"):
+            x = getattr(sims[0].state.sinks, f).cpu()
+            ref = getattr(sims[1].state.sinks, f)
+            err, scale = torch.abs(x - ref).max(), torch.abs(ref).max()
+            errs[f"sink_{f}"] = float(err / scale if scale > 0 else err)
+        plans = [x._n_tree_plans for x in sims]
+        phase("sink_dims_parity", case=tag, ndim=sims[1].ndim,
+              N=sims[1].state.N, steps=SINK_DIMS_PARITY_STEPS, rel_err=errs,
+              max_rel_err=max(errs.values()),
+              same_sinks_eaten_levels_plans=same,
+              active_slots_per_step=created,
+              dead=int((~sims[1].state.alive).sum()), tree_plans=plans)
+        if max(errs.values()) > PARITY_TOL or not same \
+                or plans[0] != plans[1]:
+            raise RuntimeError(f"sink_dims_parity ({tag}): kernel path "
+                               f"disagrees with the plain path: {errs} "
+                               f"{same} {plans}")
+        if one_d:
+            sim = sims[0]
+            r = compare_sink_kernels(sim.kern, sim_sink_inputs(sim),
+                                     repeats=5)
+            if tag == "rod_1d":
+                r.update(compare_td_sink_kernels(
+                    sim.kern, smooth_inputs=sim_smooth_inputs(sim),
+                    repeats=5))
+            st = sim.state.sinks
+            r.update(compare_nbody_kernels(
+                st.r, st.v, torch.where(st.active, st.m, 0.0), st.h,
+                sim.kern, repeats=5, which=("direct_softened",)))
+            r = _with_bounds(r)
+            checks = {"launches": all(n >= SINK_DIMS_PARITY_STEPS
+                                      for n in got.values())}
+            phase("sink_rod_1d_kernels", case=tag, N=sim.state.N,
+                  launches=got, checks=checks, kernels=r)
+            _raise_failed("sink_rod_1d_kernels", checks, r)
+            for k in names:
+                launches.setdefault(k, got[k])
+                rep.setdefault(k, r[k])
+    phase("sink_dims_parity_done", seconds=time.perf_counter() - t0)
+    return launches, rep
+
+
+def kernel_line(launches, rep, alive_modes=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
-    report without one comes from a float32 path)."""
+    report without one comes from a float32 path); `alive_modes` maps a
+    K4 entry (tree_gather, tree_gather_2d) to its alive mode's figures on
+    a sink path."""
     from gandalf_tpu_torch.check import bound
 
     kernels = []
@@ -5795,8 +6258,8 @@ def kernel_line(launches, rep, alive_mode=None) -> dict:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r.get("library_ms")})
-        if name == "tree_gather" and alive_mode is not None:
-            kernels[-1]["alive_mode"] = alive_mode
+        if name in (alive_modes or {}):
+            kernels[-1]["alive_mode"] = alive_modes[name]
     return {"kernels": kernels}
 
 
@@ -6144,7 +6607,21 @@ def main() -> int:
     launches.update(g_launches)
     rep.update(g_rep)
 
-    print(json.dumps(kernel_line(launches, rep, alive_mode)), flush=True)
+    # 93-97. sinks below 3D
+    sink_kernels_dims(dev)
+    s_launches, s_rep, alive_2d = sink_disc_2d(dev, card)
+    launches.update(s_launches)
+    rep.update(s_rep)
+    s_launches, s_rep = sink_block_disc_2d(dev, card)
+    launches.update(s_launches)
+    rep.update(s_rep)
+    binaryacc_2d(dev, card)
+    s_launches, s_rep = sink_dims_parity(dev)
+    launches.update(s_launches)
+    rep.update(s_rep)
+
+    alive_modes = {"tree_gather": alive_mode, "tree_gather_2d": alive_2d}
+    print(json.dumps(kernel_line(launches, rep, alive_modes)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,13 +23,15 @@ on tables of ``ndim`` < 3 count under these names with ``_1d`` or
 ``_2d`` appended (after any smoothing-kernel variant), and take no
 Ewald sum.  The
 N-body kernels K13-K15 count under ``direct_nbody``, ``direct_softened``
-and ``direct_snap``, the sink kernels K16-K18 under ``star_gas_forces``,
-``sink_candidate`` and ``accretion_sums`` (each wrapper launches two or
-three kernels, its stages, and counts one).  K1-K3 on a grid of
+and ``direct_snap`` (K14 on stars of ``ndim`` < 3, the star-star pull of
+a sink run below 3D, under ``direct_softened_2d`` or ``_1d``), the sink
+kernels K16-K18 under ``star_gas_forces``, ``sink_candidate`` and
+``accretion_sums`` (each wrapper launches two or three kernels, its
+stages, and counts one; ``_1d`` or ``_2d`` appended below 3D).  K1-K3 on a grid of
 ``ndim`` < 3 count under their names with ``_1d`` or ``_2d`` appended,
 K19, the mirror images, under ``grid27_mirror``.  K20's two wrappers
 (the smooth-accretion sums and the sink update) each count one under
-``smooth_accretion``; K21, the Cullen & Dehnen switch, counts under
+``smooth_accretion`` (``_1d`` or ``_2d`` appended below 3D); K21, the Cullen & Dehnen switch, counts under
 ``cullen_dehnen`` (``_1d`` or ``_2d`` appended below 3D), K22, the
 neighbour-level pass, under ``levelneib`` (``_1d`` or ``_2d`` appended
 below 3D), K23 and K24, the gas-dust
@@ -125,6 +127,11 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "radws_equilibrium": 0, "radws_implicit_heating": 0,
             "ambient_temperature": 0, "cell_field": 0, "ray_march": 0,
             "packet_march": 0, "stromgren_prefix": 0}
+# K14 and the sink kernels K16-K18, K20 below 3D
+for _k in ("direct_softened", "star_gas_forces", "sink_candidate",
+           "accretion_sums", "smooth_accretion"):
+    for _d in ("_2d", "_1d"):
+        LAUNCHES[f"{_k}{_d}"] = 0
 
 # the meshless finite-volume kernels in every dim, K12 in every mode
 _DIMS = ("", "_2d", "_1d")
@@ -223,18 +230,22 @@ _ARGTYPES = {
     "direct_nbody": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_softened": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "direct_snap": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
-    "star_gas_forces": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                        _P, _I, _P],
-    "sink_candidate": [_P, _P, _I, _D, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                       _P],
-    "accretion_sums": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _D, _P, _P, _P,
-                       _P, _P, _P, _I, _P],
-    "smooth_accretion_sums": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                              _P, _I, _D, _P, _D, _D, _D, _D, _D, _P, _P,
-                              _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "smooth_accretion_apply": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                               _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P, _P, _P, _I, _P],
+    # K16-K18 and K20 per NDIM (csrc/star_gas.cu, csrc/sinks.cu): the 3D
+    # names, and the same with _2d and _1d
+    **{f"star_gas_forces{_d}": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                                _P, _P, _P, _I, _P] for _d in _DIMS},
+    **{f"sink_candidate{_d}": [_P, _P, _I, _D, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _I, _P] for _d in _DIMS},
+    **{f"accretion_sums{_d}": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _D, _P,
+                               _P, _P, _P, _P, _P, _I, _P] for _d in _DIMS},
+    **{f"smooth_accretion_sums{_d}": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                                      _P, _P, _I, _D, _P, _D, _D, _D, _D, _D,
+                                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _P] for _d in _DIMS},
+    **{f"smooth_accretion_apply{_d}": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
+                                       _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                                       _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _P] for _d in _DIMS},
     "cullen_dehnen": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D,
                       _D, _D, _D, _D, _P, _P, _P, _I, _P],
     "levelneib": [_P] * 5 + [_I] * 8 + [_D] * 4 + [_I, _P],
@@ -324,8 +335,10 @@ def build() -> Path:
     failed = [u for u, p in zip(_UNITS, procs) if p.returncode != 0]
     if failed or link.returncode != 0:
         tmp.unlink(missing_ok=True)
+        # the failed units' own output (their errors), else the link's
+        why = "".join(lg for p, lg in zip(procs, logs) if p.returncode != 0)
         raise RuntimeError(f"nvcc failed ({failed or 'link'}):\n"
-                           + log[-6000:])
+                           + (why or link.stdout + link.stderr)[-6000:])
     os.replace(tmp, so)
     return so
 
@@ -1089,13 +1102,14 @@ def mfv_vsig_far(spec, ids_d, v, sound, lo, csize, reach):
 # Direct-summation N-body gravity, K13-K15 (ops/gravity.py)
 # ---------------------------------------------------------------------------
 
-def _stars(r, m, *vectors):
+def _stars(r, m, *vectors, ndims=(2, 3)):
     """(N, ndim) of a star set, checked: r and the (N, ndim) `vectors` in
-    r's dtype, m (N,); ndim 2 or 3."""
+    r's dtype, m (N,); ndim one of `ndims` (K13 and K15 take 2 or 3, K14
+    also 1)."""
     N, ndim = r.shape if r.dim() == 2 else (None, None)
-    if ndim not in (2, 3):
-        raise ValueError(f"r: expected shape (N, 2) or (N, 3), got "
-                         f"{tuple(r.shape)}")
+    if ndim not in ndims:
+        raise ValueError(f"r: expected shape (N, ndim) with ndim in "
+                         f"{ndims}, got {tuple(r.shape)}")
     _check(r, "r", r.dtype, (N, ndim))
     _check(m, "m", r.dtype, (N,))
     for name, x in vectors:
@@ -1117,18 +1131,19 @@ def direct_nbody(r, v, m, compute_jerk: bool = True):
 
 
 def direct_softened(r, v, m, h, compute_jerk: bool = False, *, kern=None):
-    """K14: mean-h M4-softened (a, adot, gpot); adot is the Newtonian
-    jerk, zero without `compute_jerk`.  `kern` (the caller's smoothing
-    kernel) must be the direct M4."""
+    """K14: mean-h M4-softened (a, adot, gpot) of stars in 1-3 dims; adot
+    is the Newtonian jerk, zero without `compute_jerk`.  `kern` (the
+    caller's smoothing kernel) must be the direct M4."""
     require_m4(kern, "K14 direct_softened")
-    N, ndim = _stars(r, m, ("v", v))
+    N, ndim = _stars(r, m, ("v", v), ndims=(1, 2, 3))
     _check(h, "h", r.dtype, (N,))
     a = torch.empty_like(r)
     adot = torch.empty_like(r) if compute_jerk else torch.zeros_like(r)
     gpot = torch.empty_like(m)
     _launch("direct_softened", r.dtype, r.device, _p(r), _p(v), _p(m), _p(h),
             N, ndim, int(compute_jerk), _p(a),
-            _p(adot) if compute_jerk else None, _p(gpot))
+            _p(adot) if compute_jerk else None, _p(gpot),
+            count=tree_count("direct_softened", ndim))
     return a, adot, gpot
 
 
@@ -1146,21 +1161,33 @@ def direct_snap(r, v, a, m):
 # ---------------------------------------------------------------------------
 
 _CHUNK = 256    # gas particles per partial slot sum (K16, K18, K20)
+_SMOOTH_TERMS = 6   # K20's terms a gas particle (csrc/sinks.cu:kTerms)
+
+
+def _gas_ndim(r, name: str) -> int:
+    """The ndim of gas positions r (N, ndim), 1-3, else a ValueError."""
+    nd = r.shape[1] if r.dim() == 2 else 0
+    if nd not in (1, 2, 3):
+        raise ValueError(f"{name}: expected (N, ndim) with ndim 1-3, got "
+                         f"{tuple(r.shape)}")
+    return nd
 
 
 def _gas_and_slots(r, rs, act):
-    """(N, Ns) of gas r (N, 3) and slot rs (Ns, 3) with act (Ns,) bool,
-    checked (3D, r's dtype and device)."""
+    """(N, Ns, ndim) of gas r (N, ndim) and slot rs (Ns, ndim) with act
+    (Ns,) bool, checked (ndim 1-3, r's dtype and device)."""
+    nd = _gas_ndim(r, "r_gas")
     N, Ns = r.shape[0], rs.shape[0]
-    _check(r, "r_gas", r.dtype, (N, 3))
-    _check(rs, "r_star", r.dtype, (Ns, 3))
+    _check(r, "r_gas", r.dtype, (N, nd))
+    _check(rs, "r_star", r.dtype, (Ns, nd))
     _check(act, "star_active", torch.bool, (Ns,))
     if rs.device != r.device:
         raise ValueError("r_star: expected r_gas's device")
-    return N, Ns
+    return N, Ns, nd
 
 
 def _partials(N, Ns, cols, dt, dev):
+    """The per-(gas chunk, slot) partial sums of `cols` values each."""
     chunks = -(-N // _CHUNK)
     if chunks > 65535:
         raise ValueError(f"{N} gas particles: the star-side grid takes at "
@@ -1170,71 +1197,75 @@ def _partials(N, Ns, cols, dt, dev):
 
 def star_gas_forces(r_gas, m_gas, h_gas, r_star, m_star, h_star, act, *,
                     kern=None):
-    """K16: (a_gas (N, 3), gpot_gas (N,), a_star (Ns, 3), gpot_star
-    (Ns,)) of the mean-h M4-softened star-gas pairs; `kern` must be the
-    direct M4."""
+    """K16: (a_gas (N, ndim), gpot_gas (N,), a_star (Ns, ndim), gpot_star
+    (Ns,)) of the mean-h M4-softened star-gas pairs in 1-3 dims; `kern`
+    must be the direct M4."""
     require_m4(kern, "K16 star_gas_forces")
-    N, Ns = _gas_and_slots(r_gas, r_star, act)
+    N, Ns, nd = _gas_and_slots(r_gas, r_star, act)
     dt, dev = r_gas.dtype, r_gas.device
     for name, x, n in (("m_gas", m_gas, N), ("h_gas", h_gas, N),
                        ("m_star", m_star, Ns), ("h_star", h_star, Ns)):
         _check(x, name, dt, (n,))
-    part = _partials(N, Ns, 4, dt, dev)
-    a_gas, a_star = (torch.empty((n, 3), dtype=dt, device=dev)
+    part = _partials(N, Ns, nd + 1, dt, dev)
+    a_gas, a_star = (torch.empty((n, nd), dtype=dt, device=dev)
                      for n in (N, Ns))
     gpot_gas, gpot_star = (torch.empty((n,), dtype=dt, device=dev)
                            for n in (N, Ns))
-    _launch("star_gas_forces", dt, dev, _p(r_gas), _p(m_gas), _p(h_gas), N,
-            _p(r_star), _p(m_star), _p(h_star), _p(act), Ns, _p(part),
-            _p(a_gas), _p(gpot_gas), _p(a_star), _p(gpot_star))
+    name = tree_count("star_gas_forces", nd)
+    _launch(name, dt, dev, _p(r_gas), _p(m_gas), _p(h_gas), N, _p(r_star),
+            _p(m_star), _p(h_star), _p(act), Ns, _p(part), _p(a_gas),
+            _p(gpot_gas), _p(a_star), _p(gpot_star))
     return a_gas, gpot_gas, a_star, gpot_star
 
 
 def sink_candidate(rho, alive, rho_sink, r, v, m, h):
-    """K17: the packed row [r, v, m, h, score] (9,) of the densest alive
-    particle with rho > rho_sink (score -inf and index 0 when none) and
-    its index, a 0-d int64 tensor."""
+    """K17: the packed row [r, v, m, h, score] (2 ndim + 3,) of the
+    densest alive particle with rho > rho_sink (score -inf and index 0
+    when none) and its index, a 0-d int64 tensor; r and v (N, ndim) with
+    ndim 1-3."""
     N, dt, dev = r.shape[0], r.dtype, r.device
     if N == 0:
         raise ValueError("sink_candidate: no gas particles")
-    _check(r, "r", dt, (N, 3))
-    _check(v, "v", dt, (N, 3))
+    nd = _gas_ndim(r, "r")
+    _check(r, "r", dt, (N, nd))
+    _check(v, "v", dt, (N, nd))
     _check(alive, "alive", torch.bool, (N,))
     for name, x in (("rho", rho), ("m", m), ("h", h)):
         _check(x, name, dt, (N,))
     nb = lib().sink_candidate_blocks(N)
     part_s = torch.empty((nb,), dtype=dt, device=dev)
     part_i = torch.empty((nb,), dtype=torch.int32, device=dev)
-    cand = torch.empty((9,), dtype=dt, device=dev)
+    cand = torch.empty((2 * nd + 3,), dtype=dt, device=dev)
     gi = torch.empty((), dtype=torch.int64, device=dev)
-    _launch("sink_candidate", dt, dev, _p(rho), _p(alive), N,
-            float(rho_sink), _p(r), _p(v), _p(m), _p(h), _p(part_s),
+    _launch(tree_count("sink_candidate", nd), dt, dev, _p(rho), _p(alive),
+            N, float(rho_sink), _p(r), _p(v), _p(m), _p(h), _p(part_s),
             _p(part_i), _p(cand), _p(gi))
     return cand, gi
 
 
 def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius, *,
                    kern=None):
-    """K18: per slot dm (Ns,), dmom and dmr (Ns, 3) of the gas each
+    """K18: per slot dm (Ns,), dmom and dmr (Ns, ndim) of the gas each
     active slot eats (the nearest one within sink_radius h_star), and the
-    eaten mask (N,) bool.  The sink path holds M4 only: `kern` must be
-    the direct M4."""
+    eaten mask (N,) bool; ndim 1-3.  The sink path holds M4 only: `kern`
+    must be the direct M4."""
     require_m4(kern, "K18 accretion_sums")
-    N, Ns = _gas_and_slots(r, r_star, act)
+    N, Ns, nd = _gas_and_slots(r, r_star, act)
     dt, dev = r.dtype, r.device
-    _check(v, "v", dt, (N, 3))
+    _check(v, "v", dt, (N, nd))
     _check(m, "m", dt, (N,))
     _check(alive, "alive", torch.bool, (N,))
     _check(h_star, "h_star", dt, (Ns,))
     slot_of = torch.empty((N,), dtype=torch.int32, device=dev)
-    part = _partials(N, Ns, 7, dt, dev)
+    part = _partials(N, Ns, 1 + 2 * nd, dt, dev)
     dm = torch.empty((Ns,), dtype=dt, device=dev)
-    dmom, dmr = (torch.empty((Ns, 3), dtype=dt, device=dev)
+    dmom, dmr = (torch.empty((Ns, nd), dtype=dt, device=dev)
                  for _ in range(2))
     eaten = torch.empty((N,), dtype=torch.bool, device=dev)
-    _launch("accretion_sums", dt, dev, _p(r), _p(v), _p(m), _p(alive), N,
-            _p(r_star), _p(h_star), _p(act), Ns, float(sink_radius),
-            _p(slot_of), _p(part), _p(dm), _p(dmom), _p(dmr), _p(eaten))
+    _launch(tree_count("accretion_sums", nd), dt, dev, _p(r), _p(v), _p(m),
+            _p(alive), N, _p(r_star), _p(h_star), _p(act), Ns,
+            float(sink_radius), _p(slot_of), _p(part), _p(dm), _p(dmom),
+            _p(dmr), _p(eaten))
     return dm, dmom, dmr, eaten
 
 
@@ -1242,79 +1273,82 @@ def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius, *,
 # Smooth accretion, K20 (ops/sinks.py)
 # ---------------------------------------------------------------------------
 
-_MOVE_COLS = 7   # K20's widest per-particle table: dm, dm r, dm v
-
-
 def smooth_accretion_sums(r, v, m, rho, sound, alive, r_star, v_star,
                           m_star, h_star, act, sink_radius, dt, kernnorm,
                           mmean, alpha_ss, frac, sdt, *, kern=None):
     """K20, first launch: dm (N,), the claimed slot of each gas particle
-    (N,) int32 (-1 for none), and menc, macc and taccrete (Ns,).  `dt`
-    is a 0-d tensor on the device, read there.  `kern` must be the
-    direct M4 (K20 weights with M4's W)."""
+    (N,) int32 (-1 for none), and menc, macc and taccrete (Ns,); r, v
+    (N, ndim) and the slots' r, v (Ns, ndim) with ndim 1-3, `kernnorm`
+    M4's normalisation in that ndim.  `dt` is a 0-d tensor on the device,
+    read there.  `kern` must be the direct M4 (K20 weights with M4's
+    W)."""
     require_m4(kern, "K20 smooth_accretion_sums")
-    N, Ns = _gas_and_slots(r, r_star, act)
+    N, Ns, nd = _gas_and_slots(r, r_star, act)
     dt_, dev = r.dtype, r.device
-    _check(v, "v", dt_, (N, 3))
-    _check(v_star, "v_star", dt_, (Ns, 3))
+    _check(v, "v", dt_, (N, nd))
+    _check(v_star, "v_star", dt_, (Ns, nd))
     _check(alive, "alive", torch.bool, (N,))
     for name, x, n in (("m", m, N), ("rho", rho, N), ("sound", sound, N),
                        ("m_star", m_star, Ns), ("h_star", h_star, Ns)):
         _check(x, name, dt_, (n,))
     _check(dt, "dt", dt_, ())
     slot_of = torch.empty((N,), dtype=torch.int32, device=dev)
-    vals = torch.empty((N, _MOVE_COLS), dtype=dt_, device=dev)
-    part = _partials(N, Ns, _MOVE_COLS, dt_, dev)
-    sums = torch.empty((Ns, _MOVE_COLS), dtype=dt_, device=dev)
+    vals = torch.empty((N, _SMOOTH_TERMS), dtype=dt_, device=dev)
+    part = _partials(N, Ns, _SMOOTH_TERMS, dt_, dev)
+    sums = torch.empty((Ns, _SMOOTH_TERMS), dtype=dt_, device=dev)
     slot_scr = torch.empty((Ns, 2), dtype=dt_, device=dev)
     dm = torch.empty((N,), dtype=dt_, device=dev)
     menc, macc, tacc = (torch.empty((Ns,), dtype=dt_, device=dev)
                         for _ in range(3))
-    _launch("smooth_accretion_sums", dt_, dev, _p(r), _p(v), _p(m), _p(rho),
-            _p(sound), _p(alive), N, _p(r_star), _p(v_star), _p(m_star),
-            _p(h_star), _p(act), Ns, float(sink_radius), _p(dt),
-            float(kernnorm), float(mmean), float(alpha_ss), float(frac),
-            float(sdt), _p(slot_of), _p(vals), _p(part), _p(sums),
-            _p(slot_scr), _p(dm), _p(menc), _p(macc), _p(tacc),
-            count="smooth_accretion")
+    _launch(tree_count("smooth_accretion_sums", nd), dt_, dev, _p(r), _p(v),
+            _p(m), _p(rho), _p(sound), _p(alive), N, _p(r_star),
+            _p(v_star), _p(m_star), _p(h_star), _p(act), Ns,
+            float(sink_radius), _p(dt), float(kernnorm), float(mmean),
+            float(alpha_ss), float(frac), float(sdt), _p(slot_of), _p(vals),
+            _p(part), _p(sums), _p(slot_scr), _p(dm), _p(menc), _p(macc),
+            _p(tacc), count=tree_count("smooth_accretion", nd))
     return dm, slot_of, menc, macc, tacc
 
 
 def smooth_accretion_apply(r, v, m, dm, slot_of, alive, r_star, v_star,
                            r0_star, v0_star, m_star, angmom, act, *,
                            kern=None):
-    """K20, second launch: the slots' new r, v, r0, v0 (Ns, 3), m (Ns,)
-    and angmom (Ns, 3), the gas's m - dm (N,) and its alive mask (N,)
-    with the emptied particles dead.  The sink path holds M4 only:
-    `kern` must be the direct M4."""
+    """K20, second launch: the slots' new r, v, r0, v0 (Ns, ndim), m
+    (Ns,) and angmom (Ns, 3, at every ndim), the gas's m - dm (N,) and
+    its alive mask (N,) with the emptied particles dead; ndim 1-3.  The
+    sink path holds M4 only: `kern` must be the direct M4."""
     require_m4(kern, "K20 smooth_accretion_apply")
-    N, Ns = _gas_and_slots(r, r_star, act)
+    N, Ns, nd = _gas_and_slots(r, r_star, act)
     dt_, dev = r.dtype, r.device
-    _check(v, "v", dt_, (N, 3))
+    _check(v, "v", dt_, (N, nd))
     for name, x in (("m", m), ("dm", dm)):
         _check(x, name, dt_, (N,))
     _check(slot_of, "claim", torch.int32, (N,))
     _check(alive, "alive", torch.bool, (N,))
     for name, x in (("v_star", v_star), ("r0_star", r0_star),
-                    ("v0_star", v0_star), ("angmom", angmom)):
-        _check(x, name, dt_, (Ns, 3))
+                    ("v0_star", v0_star)):
+        _check(x, name, dt_, (Ns, nd))
+    _check(angmom, "angmom", dt_, (Ns, 3))
     _check(m_star, "m_star", dt_, (Ns,))
-    vals = torch.empty((N, _MOVE_COLS), dtype=dt_, device=dev)
-    part = _partials(N, Ns, _MOVE_COLS, dt_, dev)
-    move = torch.empty((Ns, _MOVE_COLS), dtype=dt_, device=dev)
+    # the move table dm, dm r, dm v; its per-particle rows and partials
+    # also hold the spin's 3 columns
+    cols = 1 + 2 * nd
+    vals = torch.empty((N, cols), dtype=dt_, device=dev)
+    part = _partials(N, Ns, cols, dt_, dev)
+    move = torch.empty((Ns, cols), dtype=dt_, device=dev)
     spin = torch.empty((Ns, 3), dtype=dt_, device=dev)
-    com = torch.empty((Ns, 7), dtype=dt_, device=dev)
-    outs = [torch.empty((Ns, 3), dtype=dt_, device=dev) for _ in range(4)]
+    com = torch.empty((Ns, cols), dtype=dt_, device=dev)
+    outs = [torch.empty((Ns, nd), dtype=dt_, device=dev) for _ in range(4)]
     m_out = torch.empty((Ns,), dtype=dt_, device=dev)
     angmom_out = torch.empty((Ns, 3), dtype=dt_, device=dev)
     m_gas = torch.empty((N,), dtype=dt_, device=dev)
     alive_new = torch.empty((N,), dtype=torch.bool, device=dev)
-    _launch("smooth_accretion_apply", dt_, dev, _p(r), _p(v), _p(m), _p(dm),
-            _p(slot_of), _p(alive), N, _p(r_star), _p(v_star), _p(r0_star),
-            _p(v0_star), _p(m_star), _p(angmom), _p(act), Ns, _p(vals),
-            _p(part), _p(move), _p(spin), _p(com), *map(_p, outs),
-            _p(m_out), _p(angmom_out), _p(m_gas), _p(alive_new),
-            count="smooth_accretion")
+    _launch(tree_count("smooth_accretion_apply", nd), dt_, dev, _p(r),
+            _p(v), _p(m), _p(dm), _p(slot_of), _p(alive), N, _p(r_star),
+            _p(v_star), _p(r0_star), _p(v0_star), _p(m_star), _p(angmom),
+            _p(act), Ns, _p(vals), _p(part), _p(move), _p(spin), _p(com),
+            *map(_p, outs), _p(m_out), _p(angmom_out), _p(m_gas),
+            _p(alive_new), count=tree_count("smooth_accretion", nd))
     return (*outs, m_out, angmom_out, m_gas, alive_new)
 
 
@@ -1569,8 +1603,11 @@ def ambient_temperature(r, rs, q, tsink4, act, active, temp_inf, disc):
     """K30: (N,) T_amb of particles r (N, 3) from the slots rs (Ns, 3)
     with their factors q = 0.25 r_src^2 and T_sink^4 (Ns,), the sink
     sum's mask act and the disc's active (Ns,) bool; `disc` a
-    DiscHeatingConfig or None."""
-    N, Ns = _gas_and_slots(r, rs, act)
+    DiscHeatingConfig or None.  3D only (K30 is not ported below 3D:
+    ROADMAP queue 1, item 9)."""
+    N, Ns, nd = _gas_and_slots(r, rs, act)
+    if nd != 3:
+        raise ValueError(f"r: expected shape (N, 3), got {tuple(r.shape)}")
     dt, dev = r.dtype, r.device
     _check(q, "q", dt, (Ns,))
     _check(tsink4, "tsink4", dt, (Ns,))

@@ -34,7 +34,13 @@ star-formation configurations (the Boss-Bodenheimer cloud and the hybrid
 Plummer sphere with Nlevels > 1, smooth accretion and mm97 viscosity);
 ``compare_td_sink_kernels`` compares K20 (on ``smooth_accretion_inputs``
 or a simulation's state), K21 at the grid's ndim and K22 with their
-plain versions.
+plain versions.  Below 3D, ``sink_kernel_inputs`` and
+``smooth_accretion_inputs`` take an ``ndim`` and the comparisons key
+their reports by the launch names (``star_gas_forces_2d``, ...);
+``sink_disc_params`` is the 2D disc (1D rod) of ``disc_params`` with
+sinks, ``sink_disc_sim`` sets one up with rho_sink from its bootstrap,
+and ``binaryacc_params`` is binary accretion through a two-density
+stream (2D, 3D).
 ``sod_params``, ``khi_params`` and ``mirror_params`` are the 1D Sod
 tube, the 2D Kelvin-Helmholtz instability and the mirror-wall box of the
 JAX package's tests (``published_params`` reads GANDALF's examples as
@@ -67,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from pathlib import Path
 
 import numpy as np
@@ -339,6 +346,23 @@ FLOPS_PER.update({
 })
 
 
+# K14 and the sink kernels below 3D: per pair the separation (1 a dim),
+# d^2 (2 a dim) and each side's sum (K16: 3 a dim and side; K14: the
+# acceleration, 2 a dim, and the jerk, 7 a dim); K16's M4 branch extras
+# are the same in every ndim; K18's test 3 a dim (the difference, the
+# square and the sum); K20 15 a dim (the distance, dv, dv.dr, |dv|^2, the
+# move table) and the spin's cross product (9 in 3D, 3 in 2D, none in
+# 1D)
+FLOPS_PER.update({
+    "direct_softened_2d": 54, "direct_softened_1d": 42,
+    "star_gas_forces_2d": 37, "star_gas_forces_1d": 28,
+    "star_gas_mid_2d": 20, "star_gas_mid_1d": 20,
+    "star_gas_near_2d": 11, "star_gas_near_1d": 11,
+    "accretion_sums_2d": 12, "accretion_sums_1d": 9,
+    "smooth_accretion_2d": 89, "smooth_accretion_1d": 71,
+})
+
+
 def tree_flops(name: str, ndim: int) -> int:
     """FLOPS_PER of tree term `name` (tree_walk_far, mac_eigenmac, ...)
     in `ndim` dims."""
@@ -389,7 +413,8 @@ def bound(work, dtype):
 def _star_gas_work(r, h, rs, hs):
     """K16's operations: FLOPS_PER["star_gas_forces"] for every pair
     (the M4 branch s >= 2), plus "star_gas_mid" for each pair at
-    1 <= s < 2 and "star_gas_near" for each at s < 1, s = |dr| / hbar."""
+    1 <= s < 2 and "star_gas_near" for each at s < 1, s = |dr| / hbar
+    (the entries of r's ndim, tree_flops)."""
     n_mid = n_near = 0
     step = max(1, (1 << 24) // max(rs.shape[0], 1))
     for c0 in range(0, r.shape[0], step):
@@ -398,9 +423,10 @@ def _star_gas_work(r, h, rs, hs):
         s = d / (0.5 * (h[c0:c0 + step, None] + hs[None, :]))
         n_near += int((s < 1.0).sum())
         n_mid += int(((s >= 1.0) & (s < 2.0)).sum())
-    return (FLOPS_PER["star_gas_forces"] * r.shape[0] * rs.shape[0]
-            + FLOPS_PER["star_gas_mid"] * n_mid
-            + FLOPS_PER["star_gas_near"] * n_near)
+    nd = r.shape[1]
+    return (tree_flops("star_gas_forces", nd) * r.shape[0] * rs.shape[0]
+            + tree_flops("star_gas_mid", nd) * n_mid
+            + tree_flops("star_gas_near", nd) * n_near)
 
 
 def _support_counts(row, col, d2, h, kernrange):
@@ -560,6 +586,87 @@ def bb_block_params(n_target: int, rho_sink=2.0e-17) -> Parameters:
     p = bb_params(n_target, rho_sink=rho_sink)
     for k, v in {"Nlevels": 5, "smooth_accretion": 1,
                  "time_dependent_avisc": "mm97"}.items():
+        p.set(k, v)
+    return p
+
+
+def sink_disc_params(n_target: int, ndim: int = 2, rho_sink: float = 0.3,
+                     nlevels: int = 1, smooth_accretion: int = 0,
+                     ntreebuildstep: int = 32,
+                     tend: float = 1.0e30) -> Parameters:
+    """disc_params(n_target, ndim, nlevels, ntreebuildstep) with sinks:
+    sink_particles and create_sinks 1, sink_radius 2 (h), the default 16
+    creation slots, rho_sink in code units (the bootstrap's largest rho
+    is about 0.315 on the 384-particle disc and 0.501 on the 64-particle
+    rod), plain accretion or, with `smooth_accretion`, smooth."""
+    p = disc_params(n_target, ndim, nlevels, ntreebuildstep, tend=tend)
+    for k, v in {"sink_particles": 1, "create_sinks": 1,
+                 "sink_radius": 2.0, "rho_sink": rho_sink,
+                 "smooth_accretion": smooth_accretion}.items():
+        p.set(k, v)
+    return p
+
+
+# the sink discs' rho_sink on the card: this fraction of the bootstrap's
+# largest rho, which the lattice disc's interior shares within a few per
+# mille, so that a sink forms at each of the first steps
+SINK_DISC_RHO_FRACTION = 0.999
+
+
+def sink_disc_sim(params: Parameters, device, dtype, ic=None):
+    """A sink disc (sink_disc_params) set up with rho_sink out of reach,
+    then given rho_sink = SINK_DISC_RHO_FRACTION of the bootstrap's
+    largest rho (code units: the disc is dimensionless).  `ic` replaces
+    the generated IC.  Returns the simulation, the setup's seconds and
+    the bootstrap's rho figures (largest, mean, rho_sink, the particles
+    above it)."""
+    from .sim.simulation import GradhSphSimulation
+
+    params = params.copy()
+    params.set("rho_sink", 1.0e30)
+    sim = GradhSphSimulation(params, device=device, dtype=dtype)
+    t0 = time.perf_counter()
+    sim.SetupSimulation(ic)
+    if sim.state.r.is_cuda:
+        torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    rho = sim.state.rho.double()
+    rho_sink = SINK_DISC_RHO_FRACTION * float(rho.max())
+    sim.sink_cfg = dataclasses.replace(sim.sink_cfg, rho_sink=rho_sink)
+    return sim, t_setup, {"rho_max": float(rho.max()),
+                          "rho_mean": float(rho.mean()),
+                          "rho_sink": rho_sink,
+                          "fraction": SINK_DISC_RHO_FRACTION,
+                          "eligible": int((rho > rho_sink).sum())}
+
+
+def binaryacc_params(n_side: int = 16, ndim: int = 2,
+                     tend: float = 1.0e30) -> Parameters:
+    """The binaryacc IC of tests/test_ic_longtail.py:57-64 as a run: two
+    lattices of n_side x 2 n_side (x 2 n_side in 3D) in [-1, 1]^ndim
+    split at x = 0, rhofluid1 1 and rhofluid2 0.1, press1 1, periodic on
+    every axis, and Nstar 2 stars (m1 0.4, m2 0.6, abin 0.5, ebin 0,
+    vmachbin 1) at the centre that accrete (sink_particles 1,
+    create_sinks 0) without self-gravity; dimensionless, M4 grad-h,
+    energy_eqn, mon97, a global dt on the grid path."""
+    p = Parameters()
+    n = [n_side] + [2 * n_side] * (ndim - 1)
+    updates = {
+        "run_id": "", "sim": "gradhsph", "ic": "binaryacc", "ndim": ndim,
+        "Nstar": 2, "m1": 0.4, "m2": 0.6, "abin": 0.5, "ebin": 0.0,
+        "vmachbin": 1.0, "rhofluid1": 1.0, "rhofluid2": 0.1, "press1": 1.0,
+        "dimensionless": 1, "gas_eos": "energy_eqn", "kernel": "m4",
+        "self_gravity": 0, "sink_particles": 1, "create_sinks": 0,
+        "neib_search": "kdtree", "tend": tend, "tsnapfirst": 1.0e30,
+    }
+    for k in range(ndim):
+        updates[f"Nlattice1[{k}]"] = n[k]
+        updates[f"Nlattice2[{k}]"] = n[k]
+        updates[f"boxmin[{k}]"] = -1.0
+        updates[f"boxmax[{k}]"] = 1.0
+        updates[f"boundary_lhs[{k}]"] = "periodic"
+        updates[f"boundary_rhs[{k}]"] = "periodic"
+    for k, v in updates.items():
         p.set(k, v)
     return p
 
@@ -2759,7 +2866,8 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
                                  "direct_snap")):
     """Run K13 (with the jerk), K14 (with and without the jerk) and K15
     (from the plain K13's a) and their plain versions on the same CUDA
-    tensors; returns {kernel: report} as compare_kernels does, each
+    tensors (K14 also in 1D, keyed direct_softened_1d, and _2d in 2D);
+    returns {kernel: report} as compare_kernels does, each
     output's error relative to its largest |value|, against TOL_*_NBODY.
     A report also holds `work` and the `dtype`; with `repeats` > 0, `ms`
     and `plain_ms` of the calls the path makes (with the jerk).  `which`
@@ -2776,10 +2884,14 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
     def report(name, got, want, inputs, outputs):
         errs = {k: _scaled_all(x, y, every) for k, x, y in zip(
             ("a", "adot", "gpot"), got, want) if y is not None}
+        flops = FLOPS_PER[softened if name == "direct_softened" else name]
         return {"N": N, "ndim": r.shape[1], "scaled_err": errs,
                 "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
                 "dtype": str(r.dtype), "ok": max(errs.values()) <= tol,
-                "work": _work(inputs, outputs, FLOPS_PER[name] * pairs)}
+                "work": _work(inputs, outputs, flops * pairs)}
+
+    # K14 counts (and reports) under its ndim's name below 3D
+    softened = _ext.tree_count("direct_softened", r.shape[1])
 
     out, timed = {}, {}
     if "direct_nbody" in which or "direct_snap" in which:
@@ -2804,8 +2916,8 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
         rep["no_jerk_adot_zero"] = not bool(nj.adot.any())
         rep["ok"] = (rep["ok"] and rep["no_jerk_adot_zero"]
                      and max(rep["no_jerk_scaled_err"].values()) <= tol)
-        out["direct_softened"] = rep
-        timed["direct_softened"] = (
+        out[softened] = rep
+        timed[softened] = (
             lambda: gr.direct_softened(r, v, m, h, kern, True),
             lambda: gr.direct_softened_plain(r, v, m, h, kern, True))
     if "direct_snap" in which:
@@ -2828,21 +2940,23 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
 # ---------------------------------------------------------------------------
 
 def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
-                       seed: int = 0):
+                       seed: int = 0, ndim: int = 3):
     """Synthetic inputs of K16-K18 (a dict: cfg, r, v, m, h, rho, alive,
-    sinks) with their edge cases: gas in the unit cube with 5% dead; the
-    last eighth of the slots empty (r = 0, h = 1, m = 0), the others
-    stars of h 2^-8 scattered in the cube; gas 0 on star 0 and gas 5 on
-    the empty slots' position; gas 2 exactly at star 1's accretion radius
-    and gas 4 at equal distance from stars 2 and 3 (dyadic positions, so
-    both are exact in float32 too); the two densest alive particles (3
-    and 7) tied, with a denser dead one (1).  rho_sink is the median
-    density and sink_radius 2."""
+    sinks) in `ndim` dims with their edge cases: gas in the unit cube
+    (square, segment) with 5% dead; the last eighth of the slots empty
+    (r = 0, h = 1, m = 0), the others stars of h 2^-8 scattered in it;
+    gas 0 on star 0 and gas 5 on the empty slots' position; gas 2
+    exactly at star 1's accretion radius and gas 4 at equal distance
+    from stars 2 and 3 (dyadic positions, so both are exact in float32
+    too); the two densest alive particles (3 and 7) tied, with a denser
+    dead one (1).  rho_sink is the median density and sink_radius 2.
+    Below 3D the positions and velocities are the 3D draws' first ndim
+    components and h scales as n_gas^(-1 / ndim)."""
     rng = np.random.default_rng(seed)
     r = rng.random((n_gas, 3))
     v = rng.standard_normal((n_gas, 3))
     m = np.full(n_gas, 1.0 / n_gas)
-    h = 0.02 * (1.0 + rng.random(n_gas)) * (4096.0 / n_gas) ** (1.0 / 3.0)
+    h = 0.02 * (1.0 + rng.random(n_gas)) * (4096.0 / n_gas) ** (1.0 / ndim)
     rho = rng.lognormal(0.0, 0.5, n_gas)
     alive = rng.random(n_gas) > 0.05
     n_act = n_slots - n_slots // 8
@@ -2860,12 +2974,13 @@ def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
     rho[[3, 7]] = rho.max() * 1.5
     rho[1] = rho[3] * 2.0
     m = np.where(alive, m, 0.0)
-    sinks = sk_ops.make_sinks(sr, rng.standard_normal((n_act, 3)),
+    r, v, sr = r[:, :ndim], v[:, :ndim], sr[:, :ndim]
+    sinks = sk_ops.make_sinks(sr, rng.standard_normal((n_act, 3))[:, :ndim],
                               np.full(n_act, 1.0 / n_slots), sh,
                               n_extra=n_slots - n_act, device=device,
                               dtype=dtype)
     kw = dict(device=device, dtype=dtype)
-    out = {k: torch.as_tensor(x, **kw) for k, x in
+    out = {k: torch.as_tensor(np.ascontiguousarray(x), **kw) for k, x in
            (("r", r), ("v", v), ("m", m), ("h", h), ("rho", rho))}
     out["alive"] = torch.as_tensor(alive, device=device)
     out["sinks"] = sinks
@@ -2876,7 +2991,7 @@ def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
 
 
 def smooth_accretion_inputs(n_gas: int, n_slots: int, device, dtype,
-                            seed: int = 0):
+                            seed: int = 0, ndim: int = 3):
     """Synthetic inputs of K20: sink_kernel_inputs's gas and slots (its
     edge cases: dead gas, empty slots, gas 0 on star 0, gas 2 on star 1's
     accretion radius, gas 4 at equal distance from stars 2 and 3) with
@@ -2884,8 +2999,9 @@ def smooth_accretion_inputs(n_gas: int, n_slots: int, device, dtype,
     0 made light (1e-6) and wide (h 0.1) so that its orbit is slow and
     its gas goes whole (dt < smooth_accrete_dt t_orbit), and sound
     speeds in [0.5, 1.5); dt = 0.01 (a 0-d tensor), mmean = 1 / n_gas,
-    alpha_ss = 0.1, smooth_accrete_frac and smooth_accrete_dt 0.01."""
-    out = sink_kernel_inputs(n_gas, n_slots, device, dtype, seed)
+    alpha_ss = 0.1, smooth_accrete_frac and smooth_accrete_dt 0.01; in
+    `ndim` dims (sink_kernel_inputs')."""
+    out = sink_kernel_inputs(n_gas, n_slots, device, dtype, seed, ndim)
     st = out["sinks"]
     idx = torch.arange(st.N, device=st.h.device)
     h = torch.where(st.active & (idx >= 4), 0.04, st.h)
@@ -2946,7 +3062,10 @@ def _smooth_both(kern, inputs, plain: bool):
 
 
 def _compare_smooth(kern, inputs):
+    """K20's report and timed pair under its ndim's name
+    (smooth_accretion, _2d, _1d)."""
     f64 = inputs["r"].dtype == torch.float64
+    name = _ext.tree_count("smooth_accretion", inputs["r"].shape[1])
     dm, sums, new, m_gas, alive = _smooth_both(kern, inputs, False)
     dm_p, sums_p, new_p, m_gas_p, alive_p = _smooth_both(kern, inputs,
                                                          True)
@@ -2978,11 +3097,11 @@ def _compare_smooth(kern, inputs):
             (dm, sums["claim"], sums["menc"], sums["macc"],
              sums["taccrete"], new.r, new.v, new.r0, new.v0, new.m,
              new.angmom, m_gas, alive),
-            FLOPS_PER["smooth_accretion"] * n_claim)}
-    timed = {"smooth_accretion": (
+            FLOPS_PER[name] * n_claim)}
+    timed = {name: (
         lambda: _smooth_both(kern, inputs, False),
         lambda: _smooth_both(kern, inputs, True))}
-    return rep, timed
+    return name, rep, timed
 
 
 def _alive_slot_map(sim, state):
@@ -3073,7 +3192,8 @@ def _compare_levelneib(sim, state):
 def compare_td_sink_kernels(kern=None, smooth_inputs=None, sim=None,
                             state=None, repeats: int = 0):
     """Run K20 (on `smooth_inputs`, a dict from smooth_accretion_inputs
-    or sim_smooth_inputs), K21 (on the state of a simulation that runs
+    or sim_smooth_inputs, in their ndim: keyed smooth_accretion, _2d or
+    _1d), K21 (on the state of a simulation that runs
     it, time_dependent_avisc = cd2010, at its grid's ndim) and K22 (on a
     3D grid without mirror layers) and
     their plain versions on the same CUDA tensors; returns {kernel:
@@ -3088,7 +3208,7 @@ def compare_td_sink_kernels(kern=None, smooth_inputs=None, sim=None,
     saved = dict(_ext.LAUNCHES)
     out, timed = {}, {}
     if smooth_inputs is not None:
-        out["smooth_accretion"], t = _compare_smooth(kern, smooth_inputs)
+        name, out[name], t = _compare_smooth(kern, smooth_inputs)
         timed.update(t)
     if sim is not None:
         if sim.td_avisc_type == "cd2010":
@@ -3121,8 +3241,9 @@ def sim_smooth_inputs(sim):
 
 def compare_sink_kernels(kern, inputs, repeats: int = 0):
     """Run K16, K17 and K18 and their plain versions on the same CUDA
-    tensors (a dict from sink_kernel_inputs or sim_sink_inputs); returns
-    {kernel: report} as compare_kernels does.  K16's four outputs within
+    tensors (a dict from sink_kernel_inputs or sim_sink_inputs, in any
+    ndim); returns {kernel: report} as compare_kernels does, keyed by
+    the launch names (star_gas_forces, ..., with _2d or _1d below 3D).  K16's four outputs within
     1e-10 of each one's largest value in float64 (TOL_F32_STAR_GAS in
     float32); K17's index and row exactly, also with no particle eligible
     (index 0, score -inf); K18's eaten mask exactly and its sums within
@@ -3136,6 +3257,9 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
     rho, alive = inputs["rho"], inputs["alive"]
     f64 = r.dtype == torch.float64
     N, Ns = r.shape[0], st.N
+    nd = r.shape[1]
+    k16, k17, k18 = (_ext.tree_count(k, nd) for k in (
+        "star_gas_forces", "sink_candidate", "accretion_sums"))
     out = {}
 
     def scaled(x, ref):
@@ -3149,7 +3273,7 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
     want = sg.star_gas_forces_plain(kern, *sg_args)
     errs = {k: scaled(x, y) for k, x, y in zip(
         ("a_gas", "gpot_gas", "a_star", "gpot_star"), got, want)}
-    out["star_gas_forces"] = {
+    out[k16] = {
         "N": N, "Ns": Ns, "scaled_err": errs, "dtype": str(r.dtype),
         "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
         "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_STAR_GAS),
@@ -3165,7 +3289,7 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
     eligible = alive & (rho > cfg.rho_sink)
     top = torch.topk(torch.where(eligible, rho, -math.inf).double(),
                      min(2, N)).values
-    out["sink_candidate"] = {
+    out[k17] = {
         "N": N, "gi": int(gi), "score": float(cand[-1]),
         "top_two_margin": float((top[0] - top[-1]) / top[0])
         if bool(torch.isfinite(top).all()) else None,
@@ -3186,7 +3310,7 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
     # v and m are read for the eaten gas only
     n_eat = int(got[3].sum())
     eaten_bytes = n_eat * (v.shape[1] + 1) * v.element_size()
-    out["accretion_sums"] = {
+    out[k18] = {
         "N": N, "Ns": Ns, "eaten": n_eat, "scaled_err": errs,
         "same_eaten": same, "dtype": str(r.dtype),
         "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
@@ -3194,24 +3318,21 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
                                               else TOL_F32_ACCRETION),
         "work": {"bytes": _nbytes(r, alive, st.r, st.h, st.active, *got)
                  + eaten_bytes,
-                 "flops": FLOPS_PER["accretion_sums"] * N * Ns}}
+                 "flops": FLOPS_PER[k18] * N * Ns}}
 
     if repeats > 0:
         score = torch.where(eligible, rho, -math.inf)
         timed = {
-            "star_gas_forces": (
-                lambda: sg.star_gas_forces(kern, *sg_args),
-                lambda: sg.star_gas_forces_plain(kern, *sg_args)),
-            "sink_candidate": (
-                lambda: sk_ops.sink_candidate(*c_args),
-                lambda: sk_ops.sink_candidate_plain(*c_args)),
-            "accretion_sums": (
-                lambda: sk_ops.accretion_sums(*a_args),
-                lambda: sk_ops.accretion_sums_plain(*a_args)),
+            k16: (lambda: sg.star_gas_forces(kern, *sg_args),
+                  lambda: sg.star_gas_forces_plain(kern, *sg_args)),
+            k17: (lambda: sk_ops.sink_candidate(*c_args),
+                  lambda: sk_ops.sink_candidate_plain(*c_args)),
+            k18: (lambda: sk_ops.accretion_sums(*a_args),
+                  lambda: sk_ops.accretion_sums_plain(*a_args)),
         }
         _time_pairs(out, timed, repeats)
-        out["sink_candidate"]["library_ms"] = _time_ms(
-            lambda: torch.argmax(score), repeats)
+        out[k17]["library_ms"] = _time_ms(lambda: torch.argmax(score),
+                                          repeats)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
@@ -3431,10 +3552,10 @@ def sink_ledger(sim):
 
 
 def _ledger_row(sk0, sk1, m0, m1, v):
-    """(9,) float64: the sinks' gain in mass and momentum (4), the mass
-    and momentum the gas gave up (4: m_before - m_after over all gas,
-    whether it died or kept part of its mass, and that times v) and
-    its sum of (m_before - m_after) |v|."""
+    """(2 ndim + 3,) float64: the sinks' gain in mass and momentum (1 +
+    ndim), the mass and momentum the gas gave up (1 + ndim: m_before -
+    m_after over all gas, whether it died or kept part of its mass, and
+    that times v) and its sum of (m_before - m_after) |v|."""
     def totals(st):
         w = torch.where(st.active, st.m, 0.0).double()
         return torch.cat([w.sum()[None],
@@ -3455,12 +3576,14 @@ def ledger_errors(rows):
     if not rows:
         return [], [], []
     x = torch.stack([_ledger_row(*r) for r in rows]).cpu().numpy()
-    md, mv = x[:, 4], x[:, 8]
+    nd = (x.shape[1] - 3) // 2
+    md, mv = x[:, 1 + nd], x[:, -1]
+    p_sink, p_gas = x[:, 1:1 + nd], x[:, 2 + nd:2 + 2 * nd]
     em = np.where(md > 0, np.abs(x[:, 0] - md) / np.maximum(md, 1e-300),
                   np.abs(x[:, 0]))
-    ep = np.where(mv > 0, np.linalg.norm(x[:, 1:4] - x[:, 5:8], axis=1)
+    ep = np.where(mv > 0, np.linalg.norm(p_sink - p_gas, axis=1)
                   / np.maximum(mv, 1e-300),
-                  np.linalg.norm(x[:, 1:4], axis=1))
+                  np.linalg.norm(p_sink, axis=1))
     return em.tolist(), ep.tolist(), md.tolist()
 
 

@@ -1,5 +1,6 @@
 // K13 direct_nbody, K14 direct_softened, K15 direct_snap: direct-summation
-// gravity over all pairs of stars, in 2D or 3D.
+// gravity over all pairs of stars, in 2D or 3D (K14 also in 1D, for the
+// star-star pull of a 1D run with sinks).
 //
 // Replaces gandalf_tpu/ops/gravity.py:direct_nbody (:30), direct_softened
 // (:86) and direct_snap (:60), which build (N, N, ndim) pair arrays and
@@ -242,8 +243,10 @@ __global__ void __launch_bounds__(kTile) direct_snap_kernel(
 
 int blocks_for(int n) { return (n + kTile - 1) / kTile; }
 
-cudaError_t prepare(int device, int ndim) {
-  if (ndim != 2 && ndim != 3) return cudaErrorInvalidValue;
+// ndim 2 or 3; with `one_d` also 1
+cudaError_t prepare(int device, int ndim, bool one_d = false) {
+  if (ndim != 2 && ndim != 3 && !(one_d && ndim == 1))
+    return cudaErrorInvalidValue;
   return cudaSetDevice(device);
 }
 
@@ -276,7 +279,7 @@ template <typename T>
 int run_softened(const T* r, const T* v, const T* m, const T* h, int n,
                  int ndim, int jerk, T* a, T* adot, T* gpot, int device,
                  void* stream_ptr) {
-  cudaError_t err = prepare(device, ndim);
+  cudaError_t err = prepare(device, ndim, true);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n > 0) {
@@ -287,11 +290,17 @@ int run_softened(const T* r, const T* v, const T* m, const T* h, int n,
     else if (ndim == 3)
       direct_softened_kernel<T, 3, false><<<b, kTile, 0, stream>>>(
           r, v, m, h, n, a, adot, gpot);
-    else if (jerk)
+    else if (ndim == 2 && jerk)
       direct_softened_kernel<T, 2, true><<<b, kTile, 0, stream>>>(
           r, v, m, h, n, a, adot, gpot);
-    else
+    else if (ndim == 2)
       direct_softened_kernel<T, 2, false><<<b, kTile, 0, stream>>>(
+          r, v, m, h, n, a, adot, gpot);
+    else if (jerk)
+      direct_softened_kernel<T, 1, true><<<b, kTile, 0, stream>>>(
+          r, v, m, h, n, a, adot, gpot);
+    else
+      direct_softened_kernel<T, 1, false><<<b, kTile, 0, stream>>>(
           r, v, m, h, n, a, adot, gpot);
   }
   return static_cast<int>(cudaGetLastError());

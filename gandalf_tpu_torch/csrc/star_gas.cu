@@ -1,8 +1,10 @@
 // K16 star_gas_forces: mean-h M4-softened gravity between every gas
-// particle and every star (sink) slot, both ways.
+// particle and every star (sink) slot, both ways, in 1-3 dims (NDIM a
+// template parameter: M4's wgrav and wpot carry no ndim normalisation, so
+// only the separations change with NDIM).
 //
 // Replaces gandalf_tpu/ops/sph_gravity.py:star_gas_forces (:30), which
-// builds (N, Ns, 3) pair arrays and reduces them along each axis:
+// builds (N, Ns, ndim) pair arrays and reduces them along each axis:
 //   gas side   a_i = sum_s m_s act_s wg unit,  gpot_i = sum_s m_s act_s wp
 //   star side  a_s = -sum_i m_i wg unit,        gpot_s = sum_i m_i wp
 // with dr = r_s - r_i, hbar = (h_i + h_s)/2, s = |dr|/hbar,
@@ -10,24 +12,26 @@
 //
 // Bound on the card: arithmetic.  N x Ns pairs, each with a square root,
 // two divisions and the M4 kernel, evaluated once for each side; the
-// inputs are 5 values a particle or slot.  At the Boss-Bodenheimer path's
-// 262,144 gas particles and 16 slots the work is a few microseconds; at
-// an embedded cluster's 4,096 stars it is 1.1e9 pairs a side.
+// inputs are NDIM + 2 values a particle or slot.  At the Boss-Bodenheimer
+// path's 262,144 gas particles and 16 slots the work is a few
+// microseconds; at an embedded cluster's 4,096 stars it is 1.1e9 pairs a
+// side.
 //
 // Design: the gas side is K14's tiled loop, one thread per gas particle
 // with its sums in registers and the star slots staged in shared memory
 // kTile at a time.  The star side needs a sum over N for only Ns targets,
 // so it runs one warp per (32-slot tile, gas chunk of kChunk particles):
 // a lane owns one slot and sweeps the chunk, staged through shared memory
-// 32 gas particles at a time, and writes its four partial sums; a second
-// pass adds each slot's partials over the chunks in a fixed order, one
-// block a slot.  No
-// atomics, each target written once, sums in a fixed order; 16 slots at
-// 262,144 particles make 1,024 warps, about 8 an SM.  Each
-// pair follows the JAX formula term by term: a coincident pair (d^2 = 0)
-// takes |dr| = 1 and unit 0 before any division, as there (its potential
-// term stays), and an inactive slot counts on the gas side through act
-// only.  IEEE sqrt and division (no fast-math).
+// 32 gas particles at a time, and writes its NDIM + 1 partial sums; a
+// second pass adds each slot's partials over the chunks in a fixed order,
+// one block a slot.  No atomics, each target written once, sums in a
+// fixed order; 16 slots at 262,144 particles make 1,024 warps, about 8 an
+// SM.  Each pair follows the JAX formula term by term: a coincident pair
+// (d^2 = 0) takes |dr| = 1 and unit 0 before any division, as there (its
+// potential term stays), and an inactive slot counts on the gas side
+// through act only.  IEEE sqrt and division (no fast-math).  The 3D
+// instantiation keeps the arithmetic of the 3D-only kernel it replaced
+// (d^2 = dx^2 + dy^2 + dz^2 written out, the components in order).
 #include <cuda_runtime.h>
 
 #include "m4.cuh"
@@ -39,11 +43,18 @@ constexpr int kWarp = 32;    // star side: slots a block
 constexpr int kChunk = 256;  // star side: gas particles a block
 constexpr int kFinish = 128; // star side: threads a slot's final sum
 
+// |d|^2 of a separation, the components summed left to right
+template <typename T, int NDIM>
+__device__ __forceinline__ T norm2(const T d[NDIM]) {
+  if constexpr (NDIM == 3) return d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  else if constexpr (NDIM == 2) return d[0] * d[0] + d[1] * d[1];
+  else return d[0] * d[0];
+}
+
 // wg, wp and 1/|dr| (0 for a coincident pair) of one star-gas pair
 template <typename T>
-__device__ __forceinline__ void pair_terms(T dx, T dy, T dz, T hg, T hs,
-                                           T& wg, T& wp, T& inv) {
-  const T d2 = dx * dx + dy * dy + dz * dz;
+__device__ __forceinline__ void pair_terms(T d2, T hg, T hs, T& wg, T& wp,
+                                           T& inv) {
   const bool zero = d2 == T(0);
   const T drmag = zero ? T(1) : sqrt(d2);
   inv = zero ? T(0) : T(1) / drmag;
@@ -53,27 +64,29 @@ __device__ __forceinline__ void pair_terms(T dx, T dy, T dz, T hg, T hs,
   wp = m4_wpot<T>(s) * invh;
 }
 
-template <typename T>
+template <typename T, int NDIM>
 __global__ void __launch_bounds__(kTile) star_gas_gas_side(
     const T* __restrict__ rg, const T* __restrict__ hg, int n,
     const T* __restrict__ rs, const T* __restrict__ ms,
     const T* __restrict__ hs, const unsigned char* __restrict__ act, int ns,
     T* __restrict__ a_gas, T* __restrict__ gpot_gas) {
-  __shared__ T sx[kTile], sy[kTile], sz[kTile], sm[kTile], sh[kTile],
-      sa[kTile];
+  __shared__ T sr[NDIM][kTile];
+  __shared__ T sm[kTile], sh[kTile], sa[kTile];
   const int i = blockIdx.x * kTile + threadIdx.x;
   const bool live = i < n;
-  const T xi = live ? rg[3LL * i] : T(0);
-  const T yi = live ? rg[3LL * i + 1] : T(0);
-  const T zi = live ? rg[3LL * i + 2] : T(0);
+  T ri[NDIM], acc[NDIM];
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k) {
+    ri[k] = live ? rg[static_cast<long long>(NDIM) * i + k] : T(0);
+    acc[k] = T(0);
+  }
   const T hi = live ? hg[i] : T(1);
-  T ax = T(0), ay = T(0), az = T(0), pot = T(0);
+  T pot = T(0);
   for (int j0 = 0; j0 < ns; j0 += kTile) {
     const int j = j0 + threadIdx.x;
     if (j < ns) {
-      sx[threadIdx.x] = rs[3 * j];
-      sy[threadIdx.x] = rs[3 * j + 1];
-      sz[threadIdx.x] = rs[3 * j + 2];
+#pragma unroll
+      for (int k = 0; k < NDIM; ++k) sr[k][threadIdx.x] = rs[NDIM * j + k];
       sm[threadIdx.x] = ms[j];
       sh[threadIdx.x] = hs[j];
       sa[threadIdx.x] = act[j] ? T(1) : T(0);
@@ -82,48 +95,52 @@ __global__ void __launch_bounds__(kTile) star_gas_gas_side(
     const int nt = min(kTile, ns - j0);
     if (live) {
       for (int t = 0; t < nt; ++t) {
-        const T dx = sx[t] - xi, dy = sy[t] - yi, dz = sz[t] - zi;
+        T d[NDIM];
+#pragma unroll
+        for (int k = 0; k < NDIM; ++k) d[k] = sr[k][t] - ri[k];
         T wg, wp, inv;
-        pair_terms(dx, dy, dz, hi, sh[t], wg, wp, inv);
+        pair_terms(norm2<T, NDIM>(d), hi, sh[t], wg, wp, inv);
         const T w = sm[t] * wg * sa[t];
-        ax += w * (dx * inv);
-        ay += w * (dy * inv);
-        az += w * (dz * inv);
+#pragma unroll
+        for (int k = 0; k < NDIM; ++k) acc[k] += w * (d[k] * inv);
         pot += sm[t] * wp * sa[t];
       }
     }
     __syncthreads();
   }
   if (!live) return;
-  a_gas[3LL * i] = ax;
-  a_gas[3LL * i + 1] = ay;
-  a_gas[3LL * i + 2] = az;
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k)
+    a_gas[static_cast<long long>(NDIM) * i + k] = acc[k];
   gpot_gas[i] = pot;
 }
 
 // partial star-side sums of slot tile blockIdx.x over gas chunk
-// blockIdx.y: part[(chunk * ns + slot) * 4 + (ax, ay, az, pot)]
-template <typename T>
+// blockIdx.y: part[(chunk * ns + slot) * (NDIM + 1) + (a (NDIM), pot)]
+template <typename T, int NDIM>
 __global__ void __launch_bounds__(kWarp) star_gas_star_side(
     const T* __restrict__ rg, const T* __restrict__ mg,
     const T* __restrict__ hg, int n, const T* __restrict__ rs,
     const T* __restrict__ hs, int ns, T* __restrict__ part) {
-  __shared__ T gx[kWarp], gy[kWarp], gz[kWarp], gm[kWarp], gh[kWarp];
+  __shared__ T gr[NDIM][kWarp];
+  __shared__ T gm[kWarp], gh[kWarp];
   const int j = blockIdx.x * kWarp + threadIdx.x;
   const bool live = j < ns;
-  const T xs = live ? rs[3 * j] : T(0);
-  const T ys = live ? rs[3 * j + 1] : T(0);
-  const T zs = live ? rs[3 * j + 2] : T(0);
+  T rj[NDIM], acc[NDIM];
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k) {
+    rj[k] = live ? rs[NDIM * j + k] : T(0);
+    acc[k] = T(0);
+  }
   const T hj = live ? hs[j] : T(1);
-  T ax = T(0), ay = T(0), az = T(0), pot = T(0);
+  T pot = T(0);
   const long long c0 = static_cast<long long>(blockIdx.y) * kChunk;
   const long long c1 = min(static_cast<long long>(n), c0 + kChunk);
   for (long long g0 = c0; g0 < c1; g0 += kWarp) {
     const long long g = g0 + threadIdx.x;
     if (g < c1) {
-      gx[threadIdx.x] = rg[3 * g];
-      gy[threadIdx.x] = rg[3 * g + 1];
-      gz[threadIdx.x] = rg[3 * g + 2];
+#pragma unroll
+      for (int k = 0; k < NDIM; ++k) gr[k][threadIdx.x] = rg[NDIM * g + k];
       gm[threadIdx.x] = mg[g];
       gh[threadIdx.x] = hg[g];
     }
@@ -132,55 +149,60 @@ __global__ void __launch_bounds__(kWarp) star_gas_star_side(
                                         c1 - g0));
     if (live) {
       for (int t = 0; t < nt; ++t) {
-        const T dx = xs - gx[t], dy = ys - gy[t], dz = zs - gz[t];
+        T d[NDIM];
+#pragma unroll
+        for (int k = 0; k < NDIM; ++k) d[k] = rj[k] - gr[k][t];
         T wg, wp, inv;
-        pair_terms(dx, dy, dz, gh[t], hj, wg, wp, inv);
+        pair_terms(norm2<T, NDIM>(d), gh[t], hj, wg, wp, inv);
         const T w = gm[t] * wg;
-        ax += w * (dx * inv);
-        ay += w * (dy * inv);
-        az += w * (dz * inv);
+#pragma unroll
+        for (int k = 0; k < NDIM; ++k) acc[k] += w * (d[k] * inv);
         pot += gm[t] * wp;
       }
     }
     __syncwarp();
   }
   if (!live) return;
-  T* out = part + (static_cast<long long>(blockIdx.y) * ns + j) * 4;
-  out[0] = ax;
-  out[1] = ay;
-  out[2] = az;
-  out[3] = pot;
+  T* out = part + (static_cast<long long>(blockIdx.y) * ns + j) * (NDIM + 1);
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k) out[k] = acc[k];
+  out[NDIM] = pot;
 }
 
 // each slot's sums over the chunks: block j, thread t adds chunks t,
 // t + kFinish, ... in order, then a tree over the threads (a fixed order)
-template <typename T>
+template <typename T, int NDIM>
 __global__ void __launch_bounds__(kFinish) star_gas_star_finish(
     const T* __restrict__ part, int ns, int n_chunks, T* __restrict__ a_star,
     T* __restrict__ gpot_star) {
-  __shared__ T red[4][kFinish];
+  constexpr int C = NDIM + 1;
+  __shared__ T red[C][kFinish];
   const int j = blockIdx.x;
-  T acc[4] = {T(0), T(0), T(0), T(0)};
+  T acc[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) acc[k] = T(0);
   for (int c = threadIdx.x; c < n_chunks; c += kFinish) {
-    const T* p = part + (static_cast<long long>(c) * ns + j) * 4;
-    for (int k = 0; k < 4; ++k) acc[k] += p[k];
+    const T* p = part + (static_cast<long long>(c) * ns + j) * C;
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[k] += p[k];
   }
-  for (int k = 0; k < 4; ++k) red[k][threadIdx.x] = acc[k];
+#pragma unroll
+  for (int k = 0; k < C; ++k) red[k][threadIdx.x] = acc[k];
   __syncthreads();
   for (int o = kFinish / 2; o > 0; o >>= 1) {
     if (threadIdx.x < o)
-      for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int k = 0; k < C; ++k)
         red[k][threadIdx.x] += red[k][threadIdx.x + o];
     __syncthreads();
   }
   if (threadIdx.x != 0) return;
-  a_star[3 * j] = -red[0][0];
-  a_star[3 * j + 1] = -red[1][0];
-  a_star[3 * j + 2] = -red[2][0];
-  gpot_star[j] = red[3][0];
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k) a_star[NDIM * j + k] = -red[k][0];
+  gpot_star[j] = red[NDIM][0];
 }
 
-template <typename T>
+template <typename T, int NDIM>
 int run_star_gas(const T* rg, const T* mg, const T* hg, int n, const T* rs,
                  const T* ms, const T* hs, const unsigned char* act, int ns,
                  T* part, T* a_gas, T* gpot_gas, T* a_star, T* gpot_star,
@@ -189,16 +211,17 @@ int run_star_gas(const T* rg, const T* mg, const T* hg, int n, const T* rs,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n > 0)
-    star_gas_gas_side<T><<<(n + kTile - 1) / kTile, kTile, 0, stream>>>(
-        rg, hg, n, rs, ms, hs, act, ns, a_gas, gpot_gas);
+    star_gas_gas_side<T, NDIM><<<(n + kTile - 1) / kTile, kTile, 0,
+                                 stream>>>(rg, hg, n, rs, ms, hs, act, ns,
+                                           a_gas, gpot_gas);
   if (ns > 0) {
     const int n_chunks = (n + kChunk - 1) / kChunk;
     if (n_chunks > 0) {
       const dim3 grid((ns + kWarp - 1) / kWarp, n_chunks);
-      star_gas_star_side<T><<<grid, kWarp, 0, stream>>>(rg, mg, hg, n, rs,
-                                                         hs, ns, part);
+      star_gas_star_side<T, NDIM><<<grid, kWarp, 0, stream>>>(
+          rg, mg, hg, n, rs, hs, ns, part);
     }
-    star_gas_star_finish<T><<<ns, kFinish, 0, stream>>>(
+    star_gas_star_finish<T, NDIM><<<ns, kFinish, 0, stream>>>(
         part, ns, n_chunks, a_star, gpot_star);
   }
   return static_cast<int>(cudaGetLastError());
@@ -208,17 +231,23 @@ int run_star_gas(const T* rg, const T* mg, const T* hg, int n, const T* rs,
 
 extern "C" {
 
-#define STAR_GAS_ENTRY(SFX, T)                                              \
-  int star_gas_forces_##SFX(const T* rg, const T* mg, const T* hg, int n,   \
-                            const T* rs, const T* ms, const T* hs,          \
-                            const unsigned char* act, int ns, T* part,      \
-                            T* a_gas, T* gpot_gas, T* a_star,               \
-                            T* gpot_star, int device, void* stream) {       \
-    return run_star_gas<T>(rg, mg, hg, n, rs, ms, hs, act, ns, part, a_gas, \
-                           gpot_gas, a_star, gpot_star, device, stream);    \
+// star_gas_forces_{f32,f64} (3D), star_gas_forces_2d_*, star_gas_forces_1d_*
+#define STAR_GAS_ENTRY(NAME, ND, SFX, T)                                    \
+  int NAME##_##SFX(const T* rg, const T* mg, const T* hg, int n,            \
+                   const T* rs, const T* ms, const T* hs,                   \
+                   const unsigned char* act, int ns, T* part, T* a_gas,     \
+                   T* gpot_gas, T* a_star, T* gpot_star, int device,        \
+                   void* stream) {                                          \
+    return run_star_gas<T, ND>(rg, mg, hg, n, rs, ms, hs, act, ns, part,    \
+                               a_gas, gpot_gas, a_star, gpot_star, device,  \
+                               stream);                                     \
   }
 
-STAR_GAS_ENTRY(f32, float)
-STAR_GAS_ENTRY(f64, double)
+STAR_GAS_ENTRY(star_gas_forces, 3, f32, float)
+STAR_GAS_ENTRY(star_gas_forces, 3, f64, double)
+STAR_GAS_ENTRY(star_gas_forces_2d, 2, f32, float)
+STAR_GAS_ENTRY(star_gas_forces_2d, 2, f64, double)
+STAR_GAS_ENTRY(star_gas_forces_1d, 1, f32, float)
+STAR_GAS_ENTRY(star_gas_forces_1d, 1, f64, double)
 
 }  // extern "C"

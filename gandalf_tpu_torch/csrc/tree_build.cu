@@ -18,7 +18,10 @@
 // Design: one warp per leaf, lane = slot, reduces with butterfly
 // shuffles (a fixed order, so the result is deterministic).  Dead slots
 // are masked out before the outer product; an empty leaf gets m = 0 and
-// COM and box at the far sentinel; the COM is divided only where m > 0.
+// COM and box at the far sentinel; the COM is divided only where m > 0,
+// then held inside the cell's box (fault F30: the JAX package's does not
+// clamp, and one live particle's COM can round an ulp off its zero-width
+// box, which the walk then takes as a far cell).
 // Then one launch per level, one thread per cell: the two children
 // merge, only occupied children (m > 0) enter the box (their lo and hi
 // are kept exactly in a scratch table beside the cell table), an empty
@@ -101,6 +104,9 @@ __global__ void tree_leaf_kernel(const T* __restrict__ ptab,
     lo[k] = warp_min(live ? x[k] : T(kBig));
     hi[k] = warp_max(live ? x[k] : T(-kBig));
     if (!(m_tot > T(0))) lo[k] = hi[k] = T(kFar);
+    // the COM held inside the box (fault F30): one live particle's
+    // sum(m x) / m can round an ulp off x, outside its zero-width box
+    com[k] = min(max(com[k], lo[k]), hi[k]);
   }
   T q[Lay::kNQ];
 #pragma unroll
@@ -152,6 +158,7 @@ __global__ void tree_merge_kernel(T* __restrict__ ctab, T* __restrict__ box,
     }
     lo[k] = mm > T(0) ? l : T(kFar);
     hi[k] = mm > T(0) ? h : T(kFar);
+    com[k] = min(max(com[k], lo[k]), hi[k]);  // inside the box (F30)
   }
   T q[Lay::kNQ];
 #pragma unroll

@@ -18,7 +18,9 @@ particle dies only when nothing of it is left.
 ``sink_candidate`` (K17), ``accretion_sums`` (K18) and
 ``smooth_accretion_sums`` and ``apply_smooth_accretion`` (K20, two
 launches) launch the kernels of ``csrc/sinks.cu`` on CUDA tensors and
-run their plain PyTorch versions ``*_plain`` on CPU tensors;
+run their plain PyTorch versions ``*_plain`` on CPU tensors, in 1-3
+dims: positions and velocities (N, ndim) and (Ns, ndim), the spin
+ledger (Ns, 3) at every ndim, as the JAX package's SinkState holds it;
 ``apply_sink_creation`` and ``apply_accretion`` are elementwise torch on
 both, so a step reads nothing back to the host.  The plain versions
 chunk the (N, Ns) pair arrays of the JAX form over gas rows; a gas
@@ -175,10 +177,11 @@ def create_sinks(cfg: SinkConfig, sinks: SinkState, r, v, m, h, rho,
 def accretion_sums(cfg: SinkConfig, sinks: SinkState, r: Tensor, v: Tensor,
                    m: Tensor, alive: Tensor, kern=None):
     """Per-slot accretion sums (dm (Ns,), dmom and dmr (Ns, ndim)) and
-    the eaten mask (N,): each alive gas particle within sink_radius h_s
-    of an active sink goes to the nearest such sink (the first slot of
-    equal distances).  K18 on CUDA tensors, which take the run's
-    smoothing kernel `kern` only if it is the direct M4."""
+    the eaten mask (N,) of gas r, v (N, ndim): each alive gas particle
+    within sink_radius h_s of an active sink goes to the nearest such
+    sink (the first slot of equal distances).  K18 on CUDA tensors,
+    which take the run's smoothing kernel `kern` only if it is the
+    direct M4."""
     if r.is_cuda:
         return _ext.accretion_sums(r.contiguous(), v.contiguous(),
                                    m.contiguous(), alive.contiguous(),
@@ -192,8 +195,9 @@ def accretion_sums(cfg: SinkConfig, sinks: SinkState, r: Tensor, v: Tensor,
 def accretion_sums_plain(cfg: SinkConfig, sinks: SinkState, r, v, m,
                          alive):
     """Plain version of K18: the JAX formula over chunks of gas rows,
-    with dist = sqrt((dx^2 + dy^2) + dz^2) written out, so that the
-    masks do not depend on a reduction's order."""
+    with dist = sqrt((dx^2 + dy^2) + dz^2) written out (its first ndim
+    terms below 3D), so that the masks do not depend on a reduction's
+    order."""
     N, ndim = r.shape
     Ns = sinks.N
     racc = cfg.sink_radius * sinks.h
@@ -255,7 +259,8 @@ def smooth_claims(cfg: SinkConfig, sinks: SinkState, r: Tensor,
     """Each alive gas particle's claim under smooth accretion: its nearest
     active slot within sink_radius h_s (the first of equal distances),
     -1 for none, and the distance to it (1 where none), dist =
-    sqrt((dx^2 + dy^2) + dz^2) + 1e-30 as the JAX form takes it."""
+    sqrt((dx^2 + dy^2) + dz^2) + 1e-30 as the JAX form takes it (its
+    first ndim terms below 3D)."""
     N, ndim = r.shape
     racc = cfg.sink_radius * sinks.h
     step = max(1, _CHUNK_PAIRS // max(sinks.N, 1))
@@ -289,8 +294,8 @@ def smooth_accretion_sums(cfg: SinkConfig, sinks: SinkState, r: Tensor,
     per-slot sums: a dict with "claim" (N,) int32, the slot each
     particle belongs to (-1 for none), "menc", "macc" and "taccrete" (Ns,)
     and "dmdt" = macc / dt.  `dt` is a 0-d tensor on the gas's device (a
-    block tick's dt_base).  K20's first launch on CUDA tensors (the M4
-    kernel of csrc/m4.cuh)."""
+    block tick's dt_base).  W is `kern`'s, normalised in its ndim.  K20's
+    first launch on CUDA tensors (the M4 kernel of csrc/m4.cuh)."""
     if r.is_cuda:
         dm, claim, menc, macc, tacc = _ext.smooth_accretion_sums(
             r.contiguous(), v.contiguous(), m.contiguous(),
@@ -401,16 +406,31 @@ def apply_smooth_accretion(sinks: SinkState, r: Tensor, v: Tensor,
 
 
 def _cross(a: Tensor, b: Tensor) -> Tensor:
-    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+    """The spin a x b (..., 3) of separations and velocities (..., ndim)
+    as the JAX package's apply_smooth_accretion takes it
+    (gandalf_tpu/ops/sinks.py:288-292): the cross product in 3D, (0, 0,
+    a0 b1 - a1 b0) in 2D; in 1D its a[..., 1] is out of bounds and JAX
+    clamps a static index to the last one, so z = a0 b0 - a0 b0, exactly
+    0: the ledger stays zero."""
+    nd = a.shape[-1]
+    if nd == 3:
+        return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
+                           -1)
+    z = torch.zeros_like(a[..., 0])
+    if nd == 2:
+        return torch.stack([z, z, a[..., 0] * b[..., 1]
+                            - a[..., 1] * b[..., 0]], -1)
+    return torch.stack([z, z, z], -1)
 
 
 def apply_smooth_accretion_plain(sinks: SinkState, r, v, m, dm, claim,
                                  alive):
     """Plain version of K20's second launch: the JAX formula
-    (gandalf_tpu/ops/sinks.py:271-310) in 3D on each particle's one
-    claim, with r - r_new and v - v_new taken directly."""
+    (gandalf_tpu/ops/sinks.py:271-310) in 1-3 dims on each particle's one
+    claim, with r - r_new and v - v_new taken directly; the spin by
+    _cross."""
     hit = claim >= 0
     j = torch.clamp_min(claim, 0).long()
     w = torch.where(hit, dm, torch.zeros_like(dm))

@@ -3,7 +3,8 @@ oracle of the tree.
 
 ``star_gas_forces`` is the counterpart of
 ``gandalf_tpu/ops/sph_gravity.py:star_gas_forces``: the mean-h softened
-pull between every gas particle and every star or sink slot, both ways.
+pull between every gas particle and every star or sink slot, both ways,
+in 1-3 dims.
 It launches K16 (``csrc/star_gas.cu``) on CUDA tensors and runs its plain
 version ``star_gas_forces_plain`` on CPU tensors.
 
@@ -37,8 +38,10 @@ def star_gas_forces(kern, r_gas: Tensor, m_gas: Tensor, h_gas: Tensor,
                     star_active: Tensor):
     """Symmetric star-gas kernel-softened gravity with mean-h softening
     (the reference's GradhSph::ComputeStarGravForces, GradhSph.cpp:699).
-    Returns (a_gas (N, 3), gpot_gas (N,), a_star (Ns, 3), gpot_star
-    (Ns,)): an inactive slot pulls no gas (and its own rows are
+    Returns (a_gas (N, ndim), gpot_gas (N,), a_star (Ns, ndim), gpot_star
+    (Ns,)) for r_gas (N, ndim) and r_star (Ns, ndim), ndim 1-3 (M4's
+    wgrav and wpot carry no ndim normalisation): an inactive slot pulls
+    no gas (and its own rows are
     meaningless); the star side sums every gas particle with its mass.
     K16 on CUDA tensors (the M4 kernel of csrc/m4.cuh)."""
     if r_gas.is_cuda:
@@ -52,8 +55,9 @@ def star_gas_forces(kern, r_gas: Tensor, m_gas: Tensor, h_gas: Tensor,
 
 def star_gas_forces_plain(kern, r_gas, m_gas, h_gas, r_star, m_star,
                           h_star, star_active):
-    """Plain version of K16: the JAX formula over chunks of gas rows.  A
-    coincident pair (d^2 = 0) takes |dr| = 1 and unit 0, as there."""
+    """Plain version of K16: the JAX formula over chunks of gas rows, in
+    1-3 dims.  A coincident pair (d^2 = 0) takes |dr| = 1 and unit 0, as
+    there."""
     N = r_gas.shape[0]
     Ns = r_star.shape[0]
     act = torch.where(star_active, 1.0, 0.0).to(r_gas.dtype)

@@ -352,11 +352,22 @@ def _quad_of(q: Tensor) -> Tensor:
     return 3.0 * q - _trace(q)[..., None, None] * eye
 
 
+def _clamp_com(com: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """The COM held inside its cell's box (fault F30): sum(m r) / sum(m)
+    of a cell with one live particle can round an ulp off that
+    particle, outside its zero-width box, and the walk would then take
+    the group's own leaf as a far cell at ~1e-17 (gandalf_tpu's
+    build_tree does not clamp).  Inside the box the clamp changes
+    nothing."""
+    return torch.minimum(torch.maximum(com, lo), hi)
+
+
 def build_tree_plain(spec: TreeSpec, ptab: Tensor,
                      alive: Tensor) -> Tensor:
     """Plain version of K5: gandalf_tpu's build_tree (mass, COM, box over
     live slots and occupied children, far sentinel for empty cells,
-    quadrupole 3 q - tr I with dead slots and empty children masked)."""
+    quadrupole 3 q - tr I with dead slots and empty children masked),
+    each COM clamped into its box (_clamp_com, fault F30)."""
     G, L = spec.n_leaves, spec.leaf_size
     lay = layout(table_ndim(ptab))
     nd = lay.ndim
@@ -370,6 +381,7 @@ def build_tree_plain(spec: TreeSpec, ptab: Tensor,
     empty = (m_tot <= 0.0)[:, None]
     lo = torch.where(empty, FAR, lo)
     hi = torch.where(empty, FAR, hi)
+    com = _clamp_com(com, lo, hi)
     if spec.quadrupole:
         dr = torch.where(al[..., None], r - com[:, None, :], 0.0)
         q = _quad_of(torch.einsum("lp,lpi,lpj->lij", m, dr, dr))
@@ -388,6 +400,7 @@ def build_tree_plain(spec: TreeSpec, ptab: Tensor,
         par_empty = (mm <= 0.0)[:, None]
         lo2 = torch.where(par_empty, FAR, lo2)
         hi2 = torch.where(par_empty, FAR, hi2)
+        cc = _clamp_com(cc, lo2, hi2)
         if spec.quadrupole:
             d = torch.where(occ, c2 - cc[:, None, :], 0.0)
             dq = torch.einsum("lp,lpi,lpj->lij", m2, d, d)

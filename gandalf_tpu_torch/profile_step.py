@@ -9,10 +9,10 @@ steps of a slice on one GPU.
         [--timestep-limiter {none,simple,conservative}]
     python -m gandalf_tpu_torch.profile_step --nbody [--nbody-scheme S]
     python -m gandalf_tpu_torch.profile_step --ewald
-    python -m gandalf_tpu_torch.profile_step --sinks
+    python -m gandalf_tpu_torch.profile_step --sinks [--ndim {1,2,3}]
     python -m gandalf_tpu_torch.profile_step --khi
     python -m gandalf_tpu_torch.profile_step --mirror [--layout L]
-    python -m gandalf_tpu_torch.profile_step --block-sinks
+    python -m gandalf_tpu_torch.profile_step --block-sinks [--ndim {1,2,3}]
     python -m gandalf_tpu_torch.profile_step --cd2010
     python -m gandalf_tpu_torch.profile_step --dust [--dust-case C]
     python -m gandalf_tpu_torch.profile_step --sm2012 [--khi]
@@ -54,17 +54,23 @@ the Boss-Bodenheimer collapse with sinks (check.bb_params at about
 262,144 particles, rho_sink 2e-17 g cm^-3) in float32, 9 warm-up steps
 (one tree rebuild, 9 sinks formed), then the burst of 7 steps up to the
 next rebuild, and again the burst of steps 26-32 (16 sinks, their dead
-gas piled up at them), as a second line.  With --khi: the 2D
-Kelvin-Helmholtz instability (check.khi_params, 425,984 particles) in
-float32, as the SPH box.  With --mirror: the mirror-wall box
+gas piled up at them), as a second line; --ndim 2 takes the 2D disc
+with sinks (check.sink_disc_params(262144, 2): 262,376 particles,
+rho_sink from the bootstrap, check.sink_disc_sim) in float32 and --ndim
+1 the rod at 4,096 in float64, 9 warm-up steps and the same windows.
+With --khi: the 2D Kelvin-Helmholtz instability (check.khi_params,
+425,984 particles) in float32, as the SPH box.  With --mirror: the
+mirror-wall box
 (check.mirror_params at 64^3 with jittered_state's IC; --layout dim0,
 walls on dim 0, or mixed, the mirror/wall and open/mirror pairs on dims
 1 and 2) in float32, as the SPH box.  With --block-sinks: the
 block-stepped Boss-Bodenheimer collapse (check.bb_block_params at about
 262,144 particles: Nlevels 5, smooth accretion, mm97) in float32, 4
-warm-up ticks, then a window of 8 dense ticks.  With --cd2010: the KHI
-with time_dependent_avisc = cd2010 (K21 once a step), as --khi.  With
---dust: the dusty Evrard collapse (check.dust_params at Nhydro 131,072,
+warm-up ticks, then a window of 8 dense ticks; --ndim 2 and 1 take the
+disc and the rod of --sinks with Nlevels 4 and smooth accretion.  With
+--cd2010: the KHI with time_dependent_avisc = cd2010 (K21 once a
+step), as --khi.  With --dust: the dusty Evrard collapse
+(check.dust_params at Nhydro 131,072,
 about 262,144 gas and dust particles, two-fluid Epstein drag, tree
 gravity) in float32, as the SPH box; --dust-case box takes the 3D dusty
 box at 64^3 gas + 64^3 dust (check.dustybox_params) instead.  With
@@ -164,6 +170,7 @@ DUST_NHYDRO = 131072
 NBODY_N = 65536
 NBODY_TS6_N = 16384
 SINK_N = 262144
+SINK_ROD_N = 4096
 # the sink path's two windows: after 9 steps (one tree rebuild, 9 sinks)
 # and after 25, the burst up to step 32 that ends bb_sink_collapse's
 SINK_WARM = 9
@@ -284,7 +291,8 @@ def main(argv=None) -> int:
                     help="the meshless finite-volume box (mfv_box)")
     ap.add_argument("--ndim", type=int, default=3, choices=(1, 2, 3),
                     help="with --mfv or --block: the Sod tube (1) or the "
-                         "2D box or KHI (2)")
+                         "2D box or KHI (2); with --sinks or --block-sinks: "
+                         "the rod (1) or the disc (2)")
     ap.add_argument("--riemann", default="hllc", choices=("hllc", "exact"),
                     help="with --mfv: the Riemann solver")
     ap.add_argument("--limiter", default="gizmo",
@@ -346,8 +354,9 @@ def main(argv=None) -> int:
                         mfv_block_tube_params, mfv_khi_params,
                         mfv_params, mfv_sod_params, mirror_ic,
                         mirror_params, nbody_params, plummer_stars_params,
-                        radfb_params, radws_params, slice_params,
-                        sm2012_params, sphere_block_params)
+                        radfb_params, radws_params, sink_disc_params,
+                        sink_disc_sim, slice_params, sm2012_params,
+                        sphere_block_params)
     from .sim.simulation import GradhSphSimulation, SimulationBase
 
     if args.radiation:
@@ -369,6 +378,14 @@ def main(argv=None) -> int:
             dtype=torch.float32)
         sim.SetupSimulation()
         warm = 2
+    elif (args.sinks or args.block_sinks) and args.ndim < 3:
+        params = sink_disc_params(
+            SINK_N if args.ndim == 2 else SINK_ROD_N, args.ndim,
+            nlevels=4 if args.block_sinks else 1,
+            smooth_accretion=int(args.block_sinks))
+        sim, _, _ = sink_disc_sim(params, "cuda", torch.float32
+                                  if args.ndim == 2 else torch.float64)
+        warm = BLOCK_WARM if args.block_sinks else SINK_WARM
     elif args.sinks:
         sim = GradhSphSimulation(bb_params(SINK_N, rho_sink=2.0e-17),
                                  device="cuda", dtype=torch.float32)

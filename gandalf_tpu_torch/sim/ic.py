@@ -14,12 +14,15 @@ EwaldIc.cpp (``jeans`` = ``ewaldsine``, ``ewaldsine2``, ``ewaldslab``,
 ``bb``), the hybrid gas-and-star Plummer sphere (``plummer``), and the
 gas-and-dust tests: the dusty box (``dustybox``) and the Evrard collapse
 (``evrard``, with a dust copy of its gas when dust_forces is set), and
-the cold sphere of the Spitzer HII-region test (``spitzer``), with
-``generate_ic``'s dispatch; and the N-body star sets (``plummer``,
-``binary``, ``triple``, ``quadruple``) with ``generate_nbody_ic``'s.
+the cold sphere of the Spitzer HII-region test (``spitzer``), and
+binary accretion through a two-density stream (``binaryacc``, 2D and
+3D, with its stars), with ``generate_ic``'s dispatch; and the N-body
+star sets (``plummer``, ``binary``, ``triple``, ``quadruple``) with
+``generate_nbody_ic``'s.
 Host-side numpy in float64, as there; each hydro generator returns a
-dict with keys r, v, m, h, u (the hybrid Plummer also ``star``: r, v, m,
-h of its stars; the dusty ones also ``ptype``), each N-body one r, v,
+dict with keys r, v, m, h, u (the hybrid Plummer and ``binaryacc`` also
+``star``: r, v, m, h of their stars; the dusty ones also ``ptype``),
+each N-body one r, v,
 m, h.  Any other ``ic``, and the
 Lloyd regularisation, raise NotImplementedError.
 """
@@ -807,6 +810,86 @@ def quadruple_ic(params) -> Dict[str, np.ndarray]:
     }
 
 
+def binaryacc_ic(params, eos) -> Dict[str, np.ndarray]:
+    """Binary (or single-star) accretion through a two-density gas stream
+    (ic = binaryacc; gandalf_tpu/sim/ic.py:binaryacc_ic,
+    src/Ic/BinaryAccretionIc.cpp:54-280), in 2D or 3D as there: two
+    lattice boxes of gas with rhofluid1 and rhofluid2 split along x, and
+    1-2 stars at the box centre moving at Mach vmachbin through the gas
+    (a binary of m1 and m2 at separation abin (1 + ebin) in the x-y
+    plane, or one star of m1 + m2), their h the mean gas spacing times
+    h_fac."""
+    fp, ip = params.floatparams, params.intparams
+    ndim = ip["ndim"]
+    if ndim not in (2, 3):
+        raise ValueError("binaryacc IC is 2D/3D only")
+    Nstar = ip["Nstar"]
+    m1s, m2s = fp["m1"], fp["m2"]
+    abin, ebin = fp["abin"], fp["ebin"]
+    vmachbin = fp["vmachbin"]
+    rho1, rho2 = fp["rhofluid1"], fp["rhofluid2"]
+    press1 = fp["press1"]
+    gammam1 = fp["gamma_eos"] - 1.0
+    lo = np.array([fp[f"boxmin[{k}]"] for k in range(ndim)])
+    hi = np.array([fp[f"boxmax[{k}]"] for k in range(ndim)])
+    n1 = [ip[f"Nlattice1[{k}]"] for k in range(ndim)]
+    n2 = [ip[f"Nlattice2[{k}]"] for k in range(ndim)]
+
+    Nbox2 = int(np.prod(n2))
+    mid = lo[0] + 0.5 * (hi[0] - lo[0])
+    if Nbox2 > 0:
+        hi1 = hi.copy()
+        hi1[0] = mid
+        lo2 = lo.copy()
+        lo2[0] = mid
+        r1 = add_cubic_lattice(n1, lo, hi1)
+        r2 = add_cubic_lattice(n2, lo2, hi)
+        v1 = np.prod(hi1 - lo)
+        v2 = np.prod(hi - lo2)
+        m = np.concatenate([np.full(len(r1), rho1 * v1 / len(r1)),
+                            np.full(len(r2), rho2 * v2 / len(r2))])
+        rho = np.concatenate([np.full(len(r1), rho1),
+                              np.full(len(r2), rho2)])
+        r = np.concatenate([r1, r2])
+    else:
+        r = add_cubic_lattice(n1, lo, hi)
+        m = np.full(len(r), rho1 * np.prod(hi - lo) / len(r))
+        rho = np.full(len(r), rho1)
+    N = len(r)
+    u0 = press1 / (gammam1 * rho1)
+    sound = np.sqrt(fp["gamma_eos"] * press1 / rho1)
+    v = np.zeros((N, ndim))
+
+    # the binary (or star) at the domain centre, moving at Mach vmachbin
+    centre = 0.5 * (lo + hi)
+    vbin = vmachbin * sound
+    hsink = fp["h_fac"] * (m.mean() / rho1) ** (1.0 / ndim)
+    if Nstar >= 2:
+        # a = abin, e = ebin, in the x-y plane
+        mtot = m1s + m2s
+        rsep = abin * (1.0 + ebin)
+        vorb = np.sqrt(mtot * (2.0 / rsep - 1.0 / abin))
+        f1, f2 = m2s / mtot, m1s / mtot
+        sr = np.zeros((2, ndim))
+        sv = np.zeros((2, ndim))
+        sr[0, 0] = centre[0] + f1 * rsep
+        sr[1, 0] = centre[0] - f2 * rsep
+        sr[:, 1:] += centre[1:]
+        sv[0, 1] = f1 * vorb
+        sv[1, 1] = -f2 * vorb
+        sv[:, 0] += vbin
+        sm = np.array([m1s, m2s])
+    else:
+        sr = centre[None, :].copy()
+        sv = np.zeros((1, ndim))
+        sv[0, 0] = vbin
+        sm = np.array([m1s + m2s])
+    star = {"r": sr, "v": sv, "m": sm, "h": np.full(len(sm), hsink)}
+    return {"r": r, "v": v, "m": m,
+            "h": fp["h_fac"] * (m / rho) ** (1.0 / ndim),
+            "u": np.full(N, u0), "star": star}
+
+
 _IC_REGISTRY = {
     "shocktube": shocktube_ic,
     "cdiscontinuity": cdiscontinuity_ic,
@@ -828,6 +911,7 @@ _IC_REGISTRY = {
     "dustybox": dustybox_ic,
     "evrard": evrard_ic,
     "spitzer": spitzer_ic,
+    "binaryacc": binaryacc_ic,
 }
 
 _NBODY_IC_REGISTRY = {

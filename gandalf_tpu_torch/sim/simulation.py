@@ -31,7 +31,8 @@ walk; geometric, gadget2 or eigenmac MAC; monopole or quadrupole
 moments, at every particle or expanded about each bucket's centre; the
 Ewald sum of a 3D periodic box, fully periodic, slab or cylinder), with
 its buckets replanned every ``ntreebuildstep`` steps.  It also runs star
-and sink particles (``ops/sinks.py``), with a global timestep or block timesteps: stars from the IC, sink creation,
+and sink particles (``ops/sinks.py``) in 1-3 dims, with a global
+timestep or block timesteps: stars from the IC, sink creation,
 plain or smooth accretion (K18, K20), star-gas gravity (K16) and
 star-star gravity (K14), with the accreted gas dead (masked out of the
 grid and tree passes and frozen).  The sinks ride in the state
@@ -646,10 +647,10 @@ class GradhSphSimulation(SimulationBase):
             create=bool(ip["create_sinks"]),
             accrete=bool(ip["sink_particles"]))
         self.smooth_accretion = bool(ip["smooth_accretion"])
-        if self.sink_cfg.create or self.sink_cfg.accrete:
-            self._check_sink_options()
         self._radfb_parameters()
         self._radiation_parameters()
+        if self.sink_cfg.create or self.sink_cfg.accrete:
+            self._check_sink_options()
         # gas-dust drag (gandalf_tpu/sim/simulation.py:1042-1050)
         self.dust_forces = sp["dust_forces"]
         self.has_dust = self.dust_forces not in ("none", "null", "")
@@ -745,13 +746,23 @@ class GradhSphSimulation(SimulationBase):
                             "item 9")
 
     def _check_sink_options(self):
-        """The sink options the port runs: 3D, no mirror walls, M4."""
+        """The options the port runs with sink or star slots, whether the
+        slots come from the parameters (create_sinks, sink_particles) or
+        from the IC's stars: 1-3 dims, no mirror walls, M4; below 3D no
+        radiation (K34-K37 are 3D) and no radiative feedback (K30 is
+        3D), whose sources are the slots."""
         require_m4(self.kern, "sinks or stars (K14, K16-K18, K20)")
-        if self.ndim != 3:
-            raise _unsupported("sinks at ndim < 3", "item 9")
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries with sinks (the JAX "
                                "package's all-pairs path)", "item 8")
+        if self.ndim < 3 and self.radiation != "none":
+            raise _unsupported(
+                f"radiation at ndim {self.ndim} (K34-K37 and their "
+                "wrappers are 3D)", "item 12")
+        if self.ndim < 3 and self.rad_fb:
+            raise _unsupported(
+                f"radiative feedback at ndim {self.ndim} (K30, the ambient "
+                "temperature of the sinks' luminosity, is 3D)", "item 9")
 
     # -- setup -----------------------------------------------------------------
     def SetupSimulation(self, ic: Optional[Dict[str, np.ndarray]] = None):
@@ -774,8 +785,9 @@ class GradhSphSimulation(SimulationBase):
             if self.has_dust and "star" in ic:
                 raise self._dust_with_sinks()
             if "star" in ic:
-                require_m4(self.kern,
-                                  "sinks or stars (K14, K16-K18, K20)")
+                # the IC's stars are slots too: the same checks as the
+                # sink parameters, before anything is allocated
+                self._check_sink_options()
             # smooth accretion's floor (gandalf_tpu/sim/simulation.py:1339)
             self.mmean = float(np.asarray(ic["m"]).mean())
             self.state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"],

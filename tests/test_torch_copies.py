@@ -3,7 +3,8 @@ originals: the Parameters default table, the unit system, the IC
 generators the port's configurations use (box, lattice and random
 sphere; the xorshift generator's sphere sampler is not ported and
 raises; the Boss-Bodenheimer cloud and the hybrid Plummer sphere; the
-dusty box and the Evrard cloud with its dust), the
+binaryacc stream with its stars in 2D and 3D; the dusty box and the
+Evrard cloud with its dust), the
 isothermal, barotropic and polytropic EOS, the RadWS constant and
 synthetic opacity table, the bit-exact xorshift
 generator and the N-body ICs drawn through it, the N-body sub-system
@@ -23,8 +24,8 @@ from gandalf_tpu.ops import tree as jtree
 from gandalf_tpu.sim import ic as jic
 from gandalf_tpu.utils import rng as jrng
 from gandalf_tpu_torch import native, params, units
-from gandalf_tpu_torch.check import (mfv_params, nbody_params,
-                                     sphere_block_params)
+from gandalf_tpu_torch.check import (binaryacc_params, mfv_params,
+                                     nbody_params, sphere_block_params)
 from gandalf_tpu_torch.ops import systemtree as tsys
 from gandalf_tpu_torch.ops import tree as ttree
 from gandalf_tpu_torch.sim import ic
@@ -154,6 +155,27 @@ def test_sink_ics_are_identical(case):
         getattr(q, table).update(getattr(p, table))
     mine, theirs = _ics(p, q)
     assert sorted(mine) == sorted(theirs)
+    for k in mine:
+        if k == "star":
+            assert sorted(mine[k]) == sorted(theirs[k])
+            for f in mine[k]:
+                assert np.array_equal(mine[k][f], theirs[k][f]), f
+        else:
+            assert np.array_equal(mine[k], theirs[k]), k
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_binaryacc_ic_is_identical(ndim):
+    """binaryacc_ic (two lattices split along x, a binary of 0.4 and 0.6
+    moving at Mach 1, tests/test_ic_longtail.py:57-64's values) equals
+    the JAX package's bit for bit, its stars included."""
+    p = binaryacc_params(8, ndim=ndim)
+    q = jparams.Parameters()
+    for table in ("intparams", "floatparams", "stringparams"):
+        getattr(q, table).update(getattr(p, table))
+    mine, theirs = _ics(p, q)
+    assert sorted(mine) == sorted(theirs)
+    assert mine["r"].shape == (2 * 8 * 16 ** (ndim - 1), ndim)
     for k in mine:
         if k == "star":
             assert sorted(mine[k]) == sorted(theirs[k])

@@ -17,8 +17,8 @@ MfvMusclSimulation.
 After every step both agree on every field to 1e-9 of its largest
 value, on the tree plans and, under block steps, on the levels, nlast
 and the rows each active pass lists.  Also: a periodic box below 3D with
-ewald = 1 raises in both packages, with the JAX package's reason, and
-sinks below 3D stay refused (ROADMAP queue 1, item 9)."""
+ewald = 1 raises in both packages, with the JAX package's reason.  Sinks
+below 3D: tests/test_torch_sink_dims_sim.py."""
 
 import numpy as np
 import pytest
@@ -180,11 +180,3 @@ def test_ewald_below_3d_refused_like_jax(ndim, sim):
     with pytest.raises(NotImplementedError, match=match):
         SimulationBase.factory(p, "cpu", torch.float64).process_parameters()
 
-
-@pytest.mark.parametrize("ndim", [1, 2])
-def test_sinks_below_3d_stay_refused(ndim):
-    """Sinks with self-gravity below 3D name ROADMAP queue 1, item 9."""
-    p = disc_params(ndim=ndim)
-    p.set("create_sinks", 1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SimulationBase.factory(p, "cpu", torch.float64).process_parameters()

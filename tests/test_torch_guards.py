@@ -4,8 +4,8 @@ GANDALF_PRECISION says (the self-gravitating, block-timestep, MFV,
 N-body and sink slices, block-stepped smooth accretion, the cd2010
 switch, a dusty box, an SM2012 tube, an external potential and the
 radws box and cluster with radiative feedback, a quintic box, a step
-of the Spitzer sphere under each radiation scheme and the 1D and 2D
-self-gravitating disc, MFV's too, included);
+of the Spitzer sphere under each radiation scheme, the 1D and 2D
+self-gravitating disc, MFV's too, and the 1D and 2D sink runs included);
 chip_smoke.py
 refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
@@ -174,6 +174,15 @@ def test_port_never_imports_jax():
         "    sim.SetupSimulation()\n"
         "    sim.main_loop_step()\n"
         "    assert sim.ndim < 3 and bool((sim.state.gpot > 0).all())\n"
+        "from gandalf_tpu_torch.check import (binaryacc_params,\n"
+        "                                     sink_disc_params)\n"
+        "for p in (sink_disc_params(300, 2, 0.3, nlevels=4,\n"
+        "                           smooth_accretion=1),\n"
+        "          sink_disc_params(64, 1, 0.5), binaryacc_params(8)):\n"
+        "    sim = SimulationBase.factory(p, 'cpu', torch.float64)\n"
+        "    sim.SetupSimulation()\n"
+        "    sim.main_loop_step()\n"
+        "    assert sim.ndim < 3 and bool(sim.state.sinks.active.any())\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -478,6 +487,45 @@ def test_sink_kernels_match_plain_versions_on_gpu(dtype):
     assert rep["tree_gather"]["alive_input"]
     report.update({f"bb_{k}": r for k, r in rep.items()})
     torch.cuda.synchronize()
+    bad = {k: r.get("scaled_err", r) for k, r in report.items()
+           if not r["ok"]}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sink_kernels_below_3d_match_plain_versions_on_gpu(dtype):
+    """K14 (1D), K16, K17, K18 and K20 (both launches) at NDIM 1 and 2
+    against their plain versions on the card, on
+    check.sink_kernel_inputs and check.smooth_accretion_inputs at 2,000
+    gas particles with 16 and 64 slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (compare_nbody_kernels,
+                                         compare_sink_kernels,
+                                         compare_td_sink_kernels,
+                                         sink_kernel_inputs,
+                                         smooth_accretion_inputs)
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+
+    report = {}
+    for ndim in (1, 2):
+        kern = kernel_factory("m4", ndim)
+        for ns in (16, 64):
+            inp = sink_kernel_inputs(2000, ns, "cuda", dtype, ndim=ndim)
+            rep = compare_sink_kernels(kern, inp)
+            rep.update(compare_td_sink_kernels(
+                kern, smooth_inputs=smooth_accretion_inputs(
+                    2000, ns, "cuda", dtype, ndim=ndim)))
+            if ndim == 1:
+                st = inp["sinks"]
+                rep.update(compare_nbody_kernels(
+                    st.r, st.v, st.m, st.h, kern,
+                    which=("direct_softened",)))
+            report.update({f"{k}_{ns}": r for k, r in rep.items()})
+    torch.cuda.synchronize()
+    assert {"star_gas_forces_2d_16", "smooth_accretion_1d_64",
+            "direct_softened_1d_16"} <= set(report)
     bad = {k: r.get("scaled_err", r) for k, r in report.items()
            if not r["ok"]}
     assert not bad, bad

@@ -18,7 +18,10 @@ timesteps on the 1D and 2D grid path, self-gravity in 1D and 2D
 under global and block steps, the 2D periodic box without the Ewald
 sum, MFV gravity in 2D) and sinks in 1D and 2D (K14, K16-K18 and K20
 at NDIM 1 and 2, the 2D disc forming and growing sinks under global and
-block steps, 2D binary accretion), and checks them, in phases, each
+block steps, 2D binary accretion), radiation and radiative feedback in
+1D and 2D (K30 and K34-K37 at NDIM 1 and 2, the 2D HII region under each
+scheme, the 2D sink disc with radiative feedback) and the command line
+with its snapshots and restarts, and checks them, in phases, each
 printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
@@ -449,7 +452,29 @@ printing one line:
    (64) with smooth and with plain accretion, binaryacc at 2 x 16 x 32:
    fields and sinks within 1e-9, equal sinks, eaten gas, levels and
    plans every step; then K14, K16-K18 and K20 (1D) against their plain
-   versions at the rods' states on the card.
+   versions at the rods' states on the card;
+98. radiation_kernels_dims: K30 and K34-K37 at NDIM 2 and 1 against
+   their plain versions on the card, float64 within 1e-12 with K37's
+   flags equal (the HII disc of 4,096 and the rod of 1,024 particles, K30
+   at 64 slots), then float32 at the disc of 262,144 and the rod of
+   65,536 particles, timed beside the bounds;
+99-101. hii_region_2d_ionisation, _treeray, _mcrt: the 2D HII region
+   (check.hii_ic, 262,376 particles, float32), 4 steps each with its
+   update: the front within 0.08 (0.1 treeray) of Rs, the Monte-Carlo
+   area radius within 20%, finite u, 0 <= ionfrac <= 1, the 2D kernels
+   every step, particle-steps/s and one update's device ms;
+102. radfb_disc_2d: the 2D sink disc (262,376) on radws with radiative
+   feedback, 16 steps: T_amb finite and >= T_inf, K30 (2D) every step
+   and against its plain version;
+103. radiation_dims_parity: float64 on the card against the CPU path,
+   each scheme on the HII disc and rod, SM2012 with ionisation, radiative
+   feedback on the 2D sink disc and the 1D rod with a star: equal ionfrac,
+   fields within 1e-9; the 1D radiation kernels counted there;
+104. cli_restart: python -m gandalf_tpu_torch in a subprocess on a 2D
+   radiating parameter file (16,384 particles, two stars as sources):
+   to tend, stopped by Nstepsmax, restarted with -r at the stopped t
+   (rel 1e-10) to tend with finite fields, the end against the
+   uninterrupted run's.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -488,7 +513,10 @@ K4-K7 in 1D from gravity_dims_parity's rod on the card (float64), K14,
 K16-K18 in 2D from sink_disc_2d (K4's entry there with its alive
 mode too), K20 in 2D from sink_block_disc_2d and K14, K16, K17, K20 in
 1D from sink_dims_parity's smooth rod and K18 in 1D from its plain rod
-(float64), each counted
+(float64), K37, K34 and K35, K34 and K36 in 2D from the hii_region_2d
+phases, K30 in 2D from radfb_disc_2d and K30, K34-K37 in 1D from
+radiation_dims_parity's rods on the card (float64; times from
+radiation_kernels_dims' float32 runs), each counted
 over its path's timed window (the tubes' over their whole block runs)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -839,6 +867,32 @@ SINK_DISC_MIN_SINKS = 8
 BINARYACC_SIDE = 256
 BINARYACC_STEPS = 32
 SINK_DIMS_PARITY_STEPS = 8
+# radiation and radiative feedback below 3D, phases 98-104
+RAD_DIMS_SIZES = {2: 262144, 1: 65536}
+RAD_DIMS_SLOTS = 64
+HII_2D_N = 262144
+HII_2D_STEPS = 4
+# the 2D fronts' bands: ionisation and treeray as the Spitzer sphere's
+# (check.SPITZER_FRONT_TOL); the Monte-Carlo ionised radius within 20% of
+# Rs: the JAX package's own 2D run on the CPU (16,053 particles, 45 x 45
+# cells, cross-section 400, the same optical depth a cell as 1,600 at
+# 262,144, 10 iterations) reads 0.3990, 14% beyond Rs, closing in from
+# outside as the grid refines (22% at 3,969, 33% at 1,020)
+HII_2D_FRONT_TOL = {"ionisation": 0.08, "treeray": 0.1}
+HII_2D_MC_RADIUS_TOL = 0.2
+RADFB_DISC_STEPS = 16
+# radfb_disc_2d's thermodynamics: the disc starts near its radiative
+# equilibrium, at the radws table's floor (T = 1: press1 0.32, u 1.5 at
+# rho 0.318), under a disc profile of temp_au 1 (u ends at ~1.53 in 16
+# steps); with radws_params' hot box's press1 (u ~ 314) and temp_au 250
+# the expanding disc outran four grid replans within one step of a full
+# run (NVIDIA H100 80GB HBM3, 700 W)
+RADFB_DISC_PRESS = 0.32
+RADFB_DISC_TEMP_AU = 1.0
+RAD_DIMS_PARITY_STEPS = 3
+CLI_SIDE = 64
+CLI_TEND = 0.05
+CLI_STOP_STEPS = 12
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -986,6 +1040,12 @@ SOURCES = {
     "stromgren_prefix": ("gandalf_tpu_torch/csrc/radiation.cu",
                          "gandalf_tpu/ops/ionisation.py:67"),
 }
+# K30 and K34-K37 below 3D: 2D from the hii_region_2d phases and
+# radfb_disc_2d, 1D from radiation_dims_parity's rods on the card
+for _d in ("_2d", "_1d"):
+    for _k in ("ambient_temperature", "cell_field", "ray_march",
+               "packet_march", "stromgren_prefix"):
+        SOURCES[f"{_k}{_d}"] = SOURCES[_k]
 # block-timestep MFV: K12's block mode (3D from mfv_block_sphere, 2D from
 # mfv_block_khi, 1D from mfv_block_tube), K22 below 3D (2D from the KHI,
 # 1D from the tube), K32 and K33 (3D from the sphere, 2D from the KHI's
@@ -4992,7 +5052,7 @@ def radiation_kernels(dev):
     and 256 steps) and K37 on three overlapping sources at 262,144
     particles; then the same in float64 at the parity runs' sizes (739
     particles, 4,096 packets).  Fields to 1e-5 (1e-12 in float64) of
-    their largest value, K36 against its plain version in float64; K37's
+    their largest value, K36 against its plain version with float64 sums; K37's
     flags only inside the rounding band and in at most 1e-3 of the
     particles, the counts printed.  Timed in float32 beside the bounds
     (K34's library time: index_add_).  Returns the float32 reports."""
@@ -5023,15 +5083,16 @@ def radiation_kernels(dev):
     return rep
 
 
-def _host_draws(device):
-    """Monte-Carlo draws made on the host from a CPU torch.Generator and
-    moved to `device`, so both devices march the same packets."""
+def _host_draws(device, ndim=3):
+    """Monte-Carlo draws in `ndim` dims made on the host from a CPU
+    torch.Generator and moved to `device`, so both devices march the same
+    packets."""
     from gandalf_tpu_torch.ops.mcrt import mc_draws
 
     def draw(seed, ndot, n_packets, n_iter):
         gen = torch.Generator().manual_seed(seed)
         return [(src.to(device), dirs.to(device)) for src, dirs in
-                mc_draws(gen, ndot.cpu(), n_packets, 3, n_iter)]
+                mc_draws(gen, ndot.cpu(), n_packets, ndim, n_iter)]
 
     return draw
 
@@ -6238,6 +6299,399 @@ def sink_dims_parity(dev):
     return launches, rep
 
 
+# ---------------------------------------------------------------------------
+# 98-104: radiation and radiative feedback below 3D, the command line
+# ---------------------------------------------------------------------------
+
+def radiation_kernels_dims(dev):
+    """Phase 98: K30 and K34-K37 at NDIM 2 and 1 against their plain
+    versions on the card (check.compare_radiation_kernels_dims): in
+    float64 at the HII disc of 4,096 and the rod of 1,024 particles
+    (4,096 packets, K37 also on three sources, K30 at 64 slots) within
+    1e-12 with K37's flags equal; then in float32 at full width, the disc
+    at 262,144 and the rod at 65,536 particles (K36 with the first
+    Monte-Carlo iteration's 8 N packets, K30 at 262,144 and 65,536
+    particles and 64 slots), timed beside the bounds (K34's library time:
+    index_add_).  Returns the float32 reports keyed by launch name."""
+    from gandalf_tpu_torch.check import compare_radiation_kernels_dims
+
+    t0 = time.perf_counter()
+    out = {}
+    for ndim in (2, 1):
+        rep = compare_radiation_kernels_dims(ndim, dev, torch.float64,
+                                             n_slots=RAD_DIMS_SLOTS)
+        phase("radiation_kernels_dims", ndim=ndim, dtype="torch.float64",
+              report=rep)
+        require_ok("radiation_kernels_dims", rep)
+        flips = {k: r["flips"] for k, r in rep.items() if "flips" in r}
+        if any(flips.values()):
+            raise RuntimeError(f"radiation_kernels_dims: K37's flags differ "
+                               f"in float64: {flips}")
+        n = RAD_DIMS_SIZES[ndim]
+        rep = _with_bounds(compare_radiation_kernels_dims(
+            ndim, dev, torch.float32, n=n, n_packets=None, repeats=5,
+            n_slots=RAD_DIMS_SLOTS))
+        phase("radiation_kernels_dims", ndim=ndim, N=n,
+              dtype="torch.float32", report=rep)
+        require_ok("radiation_kernels_dims", rep)
+        out.update(rep)
+    phase("radiation_kernels_dims_done", seconds=time.perf_counter() - t0)
+    return out
+
+
+def hii_region_2d(dev, card, scheme):
+    """Phases 99-101: the HII region in 2D (check.hii_ic's lattice disc
+    of 262,144 particles, one star at the origin, the flat stellar table
+    at the scheme's check.spitzer_ndot for Rs = 0.35) in float32 under
+    `scheme`: setup, then HII_2D_STEPS steps, each with its radiation
+    update (the counts set to 0 just before them); the first update's
+    front (the 97th percentile of the ionised particles' distance) within
+    HII_2D_FRONT_TOL of Rs, for monoionisation (cross-section
+    check.SPITZER_MC_ACROSS_ND[2], 10 iterations) the radius of the
+    ionised particles' area within HII_2D_MC_RADIUS_TOL of Rs; finite u, 0
+    <= ionfrac <= 1, the scheme's 2D kernels every step; the rate and one
+    update's device time (CUDA events).  Returns the scheme's 2D
+    launches."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (SPITZER_RS, front_radius,
+                                         ionised_radius, spitzer_sim)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sim = spitzer_sim(HII_2D_N, scheme, dev, ndim=2)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    names = tuple(f"{k}_2d" for k in RADIATION[scheme]
+                  if k != "grid27_bin")
+    _ext.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.main_loop_step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    front = front_radius(sim)
+    r_ion = ionised_radius(sim)
+    for _ in range(HII_2D_STEPS - 1):
+        sim.main_loop_step()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s = sim.state
+    saved = s
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim._radiation_update()
+    stop.record()
+    torch.cuda.synchronize()
+    update_ms = start.elapsed_time(stop)
+    sim.state = saved
+    alive = s.alive
+    if scheme == "monoionisation":
+        gate = abs(r_ion / SPITZER_RS - 1.0) <= HII_2D_MC_RADIUS_TOL
+    else:
+        gate = abs(front - SPITZER_RS) < HII_2D_FRONT_TOL[scheme]
+    checks = {
+        "front": gate,
+        "finite_u": bool(torch.isfinite(s.u[alive]).all()),
+        "ionfrac_in_0_1": bool(((s.ionfrac >= 0) & (s.ionfrac <= 1)).all()),
+        "some_neutral": bool((s.ionfrac[alive] < 0.5).any()),
+        "launches": all(n >= HII_2D_STEPS for n in launches.values()),
+    }
+    tag = {"ionisation": "hii_region_2d_ionisation",
+           "treeray": "hii_region_2d_treeray",
+           "monoionisation": "hii_region_2d_mcrt"}[scheme]
+    phase(tag, N=s.N, steps=HII_2D_STEPS, setup_s=t_setup,
+          first_step_s=first_s, timed_s=elapsed,
+          particle_steps_per_s=s.N * HII_2D_STEPS / elapsed,
+          update_device_ms=update_ms, Rs=SPITZER_RS, front_radius=front,
+          ionised_area_radius=r_ion, ionised=int((s.ionfrac > 0.5).sum()),
+          mc_across=getattr(sim, "mc_across", None),
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          t_code=sim.t, dt_code=float(s.dt), launches=launches,
+          checks=checks, card=card, seconds=time.perf_counter() - t_phase)
+    _raise_failed(tag, checks, {})
+    return launches
+
+
+def radfb_disc_2d(dev, card):
+    """Phase 102: sink_disc_2d's disc (check.sink_disc_params(DISC_N, 2):
+    262,376 particles, self-gravity, sink creation with rho_sink at
+    0.999 of the bootstrap's largest rho) on the radws relaxation with
+    radiative feedback (check.radfb_params: sink, ambient and disc heating
+    about the first slot, temp_ambient 1, source radii 0.01; press1
+    RADFB_DISC_PRESS, temp_au RADFB_DISC_TEMP_AU), float32:
+    setup, RADFB_DISC_STEPS timed steps (the counts set to 0 just before
+    them; K30 in 2D every step), then T_amb of every particle at the end
+    finite and >= T_inf, the alive fields finite, and K30 (2D) against
+    its plain version at the path's state.  Returns K30's 2D launches and
+    report."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_ambient_kernels,
+                                         radfb_params, radws_params,
+                                         sink_disc_params, sink_disc_sim)
+    from gandalf_tpu_torch.ops.radiative_fb import \
+        combined_ambient_temperature
+
+    t_phase = time.perf_counter()
+    params = radfb_params(radws_params(sink_disc_params(DISC_N, 2),
+                                       press1=RADFB_DISC_PRESS))
+    params.set("temp_au", RADFB_DISC_TEMP_AU)
+    sim, t_setup, boot = sink_disc_sim(params, dev, torch.float32)
+    names = ("ambient_temperature_2d", "radws_eos", "radws_equilibrium")
+    _ext.reset_launches()
+    elapsed = run_timed(sim, RADFB_DISC_STEPS)
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    s, sk = sim.state, sim.state.sinks
+    alive = s.alive
+    act = sk.active if sim.radfb_sink_on else torch.zeros_like(sk.active)
+    rad = sk.h * sim.sink_cfg.sink_radius
+    t_amb = combined_ambient_temperature(
+        sim.radfb_sink_cfg, sim.radfb_disc_cfg, s.r, sk.r, sk.m, sk.mdot,
+        rad, act)
+    _ext.reset_launches()
+    _ext.LAUNCHES.update(launches)
+    t_inf = sim.radfb_sink_cfg.temp_inf
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)[alive]).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "ueq",
+                                "dt_therm")),
+        "t_amb_finite": bool(torch.isfinite(t_amb).all()),
+        "t_amb_at_least_t_inf": bool((t_amb >= t_inf).all()),
+        "sinks_formed": bool(sk.active.any()),
+        "launches": launches["ambient_temperature_2d"] >= RADFB_DISC_STEPS,
+    }
+    inputs = {"r": s.r, "rs": sk.r, "m": sk.m, "mdot": sk.mdot,
+              "rad": rad, "active": sk.active, "cfg": sim.radfb_sink_cfg}
+    rep = compare_ambient_kernels(inputs, repeats=5, cases=(
+        ("path", int(sim.radfb_sink_on), sim.radfb_disc_cfg),))
+    rep = _with_bounds({"ambient_temperature_2d":
+                        rep["ambient_temperature_path"]})
+    phase("radfb_disc_2d", N=s.N, alive=int(alive.sum()),
+          sinks=int(sk.active.sum()), steps=sim.Nsteps,
+          timed_steps=RADFB_DISC_STEPS, setup_s=t_setup, bootstrap=boot,
+          timed_s=elapsed,
+          particle_steps_per_s=s.N * RADFB_DISC_STEPS / elapsed,
+          t_inf=t_inf, t_amb_min=float(t_amb.min()),
+          t_amb_max=float(t_amb.max()),
+          t_amb_median=float(t_amb.median()), launches=launches,
+          checks=checks, kernels=rep, card=card,
+          seconds=time.perf_counter() - t_phase)
+    _raise_failed("radfb_disc_2d", checks, rep)
+    return ({"ambient_temperature_2d": launches["ambient_temperature_2d"]},
+            rep)
+
+
+def radiation_dims_parity(dev):
+    """Phase 103: float64 on the card against the plain path on the CPU,
+    at tests/test_torch_radiation_dims_sim.py's sizes,
+    RAD_DIMS_PARITY_STEPS steps each (radiative feedback 4): the HII disc
+    (300 particles; 700 for monoionisation, cross-section 50, the draws
+    made on the host) under each scheme, the rod (250) under each scheme,
+    SM2012 with ionisation on the disc, radiative feedback on the 2D sink
+    disc (400) and on the 1D rod with a star (check.radfb_rod: 64).
+    ionfrac equal and r, v, u,
+    dt within PARITY_TOL of each field's largest value after every step
+    (the feedback runs: every field, sinks, eaten gas).  The card's 1D
+    runs are the 1D radiation path: the counts are set to 0 just before
+    each, and K30 and K34-K37 (1D) are read at their ends.  Returns the 1D
+    counts."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (radfb_params, radfb_rod,
+                                         radws_params, sink_disc_params,
+                                         spitzer_sim)
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    cases = [(f"{scheme}_{nd}d", scheme, nd)
+             for nd in (2, 1)
+             for scheme in ("ionisation", "treeray", "monoionisation")]
+    cases.append(("sm2012_ionisation_2d", "ionisation", 2))
+    launches, results = {}, {}
+    for tag, scheme, nd in cases:
+        n = {2: 700 if scheme == "monoionisation" else 300, 1: 250}[nd]
+        over = {"sim": "sm2012sph"} if tag.startswith("sm2012") else {}
+        if scheme == "monoionisation":
+            over.update(Nphotonratio=1.0, Nraditerations=2)
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = spitzer_sim(n, scheme, device, torch.float64, ndim=nd,
+                              **over)
+            if scheme == "monoionisation":
+                sim.mc_across = RAD_PARITY_MC_ACROSS
+                sim.mc_draw_fn = _host_draws(device, nd)
+            sims.append(sim)
+        if nd == 1:
+            _ext.reset_launches()
+        same_ion = True
+        errs = {}
+        for _ in range(RAD_DIMS_PARITY_STEPS):
+            for sim in sims:
+                sim.main_loop_step()
+            a, b = (x.state for x in sims)
+            same_ion &= bool(torch.equal(a.ionfrac.cpu(), b.ionfrac))
+            for f, e in parity_errors(sims, ("r", "v", "u")).items():
+                errs[f] = max(errs.get(f, 0.0), e)
+            errs["dt"] = max(errs.get("dt", 0.0), abs(float(a.dt)
+                                                      - float(b.dt))
+                             / abs(float(b.dt)))
+        torch.cuda.synchronize()
+        if nd == 1:
+            for k in RADIATION[scheme]:
+                if k != "grid27_bin":
+                    launches[f"{k}_1d"] = _ext.LAUNCHES[f"{k}_1d"]
+        results[tag] = {"rel_err": errs, "same_ionfrac": same_ion,
+                        "ionised": int((sims[1].state.ionfrac > 0.5).sum()),
+                        "N": sims[1].state.N}
+        if not same_ion or max(errs.values()) > PARITY_TOL:
+            phase("radiation_dims_parity", cases=results)
+            raise RuntimeError(f"radiation_dims_parity {tag}: the card "
+                               f"parts from the plain path: {results[tag]}")
+    for tag, nd in (("radfb_sink_disc_2d", 2), ("radfb_star_rod_1d", 1)):
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            if nd == 2:
+                params, ic = radfb_params(radws_params(sink_disc_params(
+                    400, 2, 0.3, ntreebuildstep=4))), None
+            else:
+                params, ic = radfb_rod(64)
+            sim = GradhSphSimulation(params, device=device,
+                                     dtype=torch.float64)
+            sim.SetupSimulation(ic)
+            sims.append(sim)
+        if nd == 1:
+            _ext.reset_launches()
+        same = True
+        for _ in range(4):
+            for sim in sims:
+                sim.main_loop_step()
+            a, b = (x.state for x in sims)
+            same &= bool(torch.equal(a.sinks.active.cpu(), b.sinks.active))
+            same &= bool(torch.equal(a.alive.cpu(), b.alive))
+        torch.cuda.synchronize()
+        if nd == 1:
+            launches["ambient_temperature_1d"] = \
+                _ext.LAUNCHES["ambient_temperature_1d"]
+        errs = parity_errors(sims, ("r", "v", "u", "ueq", "h", "rho"))
+        results[tag] = {"rel_err": errs, "same_sinks_and_alive": same,
+                        "sinks": int(sims[1].state.sinks.active.sum()),
+                        "N": sims[1].state.N}
+        if not same or max(errs.values()) > PARITY_TOL:
+            phase("radiation_dims_parity", cases=results)
+            raise RuntimeError(f"radiation_dims_parity {tag}: the card "
+                               f"parts from the plain path: {results[tag]}")
+    checks = {"launches_1d": all(n >= RAD_DIMS_PARITY_STEPS
+                                 for n in launches.values())
+              and len(launches) == 5}
+    phase("radiation_dims_parity", steps=RAD_DIMS_PARITY_STEPS,
+          cases=results, launches_1d=launches, checks=checks,
+          seconds=time.perf_counter() - t0)
+    _raise_failed("radiation_dims_parity", checks, {})
+    return launches
+
+
+def _snapshot_diffs(a, b):
+    """Differences of snapshot `a` from `b`, each relative to b's largest
+    value: with the same gas particles (the files drop accreted ones, so
+    an accretion that differs leaves them unmatched) every field's
+    largest difference; always the stars' r, v and m and the gas's sums
+    of m, m u and m v."""
+    def rel(x, y):
+        return float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300))
+
+    out = {"n_gas": [int(a["m"].shape[0]), int(b["m"].shape[0])]}
+    if a["m"].shape == b["m"].shape:
+        out.update({k: rel(a[k], b[k]) for k in ("r", "v", "rho", "u", "h")})
+    out.update({f"star_{k}": rel(a["star"][k], b["star"][k])
+                for k in ("r", "v", "m")})
+    for name, f in (("mass", lambda d: d["m"].sum()),
+                    ("thermal", lambda d: (d["m"] * d["u"]).sum()),
+                    ("momentum", lambda d: (d["m"][:, None] * d["v"]).sum(0))):
+        out[f"gas_{name}"] = rel(np.atleast_1d(f(a)), np.atleast_1d(f(b)))
+    return out
+
+
+def cli_restart(dev, card) -> None:
+    """Phase 104: the command line.  In a temporary directory, write
+    check.cli_params(CLI_SIDE) as a parameter file (binaryacc's 2D
+    stream of 2 x 64 x 128 = 16,384 particles with its two stars as the
+    ionisation scheme's sources, a flat stellar.dat beside it, SEREN
+    unformatted snapshots every tend / 4 to CLI_TEND: the column format's
+    reader reads no stars back, and the stars are the run's sources) and
+    run `python -m gandalf_tpu_torch` on it in a subprocess on the card
+    to tend; run it again stopped by Nstepsmax = CLI_STOP_STEPS, then
+    restart that with -r.  The restart must start at the stopped run's t
+    (the t of the snapshot its run_id.restart names, rel 1e-10) and
+    reach tend with finite fields; the differences between the restart's
+    final snapshot and the uninterrupted run's are printed
+    (_snapshot_diffs)."""
+    import os
+    import re
+    import tempfile
+
+    from gandalf_tpu_torch.check import (cli_params, write_cli_stellar_table,
+                                         write_param_file)
+    from gandalf_tpu_torch.sim.io import read_seren_unform
+
+    t_phase = time.perf_counter()
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=repo, GANDALF_WRITE_SNAPSHOTS="1")
+
+    def run(workdir, *args):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "gandalf_tpu_torch", *args, "run.dat"],
+            cwd=workdir, env=env, capture_output=True, text=True,
+            timeout=600)
+        if out.returncode != 0:
+            raise RuntimeError(f"cli_restart: {args} exited "
+                               f"{out.returncode}: {out.stderr[-3000:]}")
+        return out.stdout, time.perf_counter() - t0
+
+    def pointed(workdir):
+        with open(os.path.join(workdir, "HII2D.restart")) as f:
+            f.readline()
+            return os.path.join(workdir, f.readline().strip())
+
+    with tempfile.TemporaryDirectory() as base:
+        dirs = {k: os.path.join(base, k) for k in ("full", "stop")}
+        for k, d in dirs.items():
+            os.makedirs(d)
+            write_param_file(cli_params(
+                CLI_SIDE, tend=CLI_TEND,
+                nstepsmax=CLI_STOP_STEPS if k == "stop" else 100000),
+                os.path.join(d, "run.dat"))
+            write_cli_stellar_table(os.path.join(d, "stellar.dat"))
+        _, full_s = run(dirs["full"])
+        _, stop_s = run(dirs["stop"])
+        t_stop, stopped = read_seren_unform(pointed(dirs["stop"]))
+        write_param_file(cli_params(CLI_SIDE, tend=CLI_TEND),
+                         os.path.join(dirs["stop"], "run.dat"))
+        out, restart_s = run(dirs["stop"], "-r")
+        m = re.search(r"Restarting from t = (\S+)", out)
+        t_restart = float(m.group(1)) if m else math.nan
+        t_end, final = read_seren_unform(pointed(dirs["stop"]))
+        t_full, ref = read_seren_unform(pointed(dirs["full"]))
+        diffs = _snapshot_diffs(final, ref)
+        files = sorted(os.listdir(dirs["stop"]))
+    checks = {
+        "restart_at_stopped_t": abs(t_restart - t_stop)
+        <= 1e-10 * abs(t_stop),
+        "stopped_before_tend": t_stop < CLI_TEND,
+        "reached_tend": abs(t_end - CLI_TEND) <= 1e-6 * CLI_TEND,
+        "finite": all(bool(np.isfinite(final[k]).all())
+                      for k in ("r", "v", "rho", "u", "h")),
+        "stars_kept": final["nstar"] == stopped["nstar"] == 2,
+    }
+    phase("cli_restart", N=int(ref["m"].shape[0]), tend=CLI_TEND,
+          stop_steps=CLI_STOP_STEPS, t_stop=t_stop, t_restart=t_restart,
+          t_end=t_end, t_full=t_full, full_s=full_s, stop_s=stop_s,
+          restart_s=restart_s, max_rel_diff_to_uninterrupted=diffs,
+          files=files, checks=checks, card=card,
+          seconds=time.perf_counter() - t_phase)
+    _raise_failed("cli_restart", checks, {})
+
+
 def kernel_line(launches, rep, alive_modes=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -6619,6 +7073,16 @@ def main() -> int:
     s_launches, s_rep = sink_dims_parity(dev)
     launches.update(s_launches)
     rep.update(s_rep)
+
+    # 98-104. radiation and radiative feedback below 3D, the command line
+    rep.update(radiation_kernels_dims(dev))
+    for scheme in ("ionisation", "treeray", "monoionisation"):
+        launches.update(hii_region_2d(dev, card, scheme))
+    r_launches, r_rep = radfb_disc_2d(dev, card)
+    launches.update(r_launches)
+    rep.update(r_rep)
+    launches.update(radiation_dims_parity(dev))
+    cli_restart(dev, card)
 
     alive_modes = {"tree_gather": alive_mode, "tree_gather_2d": alive_2d}
     print(json.dumps(kernel_line(launches, rep, alive_modes)), flush=True)

@@ -45,7 +45,7 @@ forces, under ``sm2012_density`` and ``sm2012_forces`` (``_1d`` or
 EOS, the equilibrium finder and the implicit heating rate, count under
 ``radws_eos``, ``radws_equilibrium`` and ``radws_implicit_heating``, and
 K30, the radiative-feedback ambient temperature, under
-``ambient_temperature``.  K2, K3, K7, K8 and K9 take the quintic,
+``ambient_temperature`` (``_1d`` or ``_2d`` appended below 3D).  K2, K3, K7, K8 and K9 take the quintic,
 gaussian (not K7) and tabulated smoothing kernels as well as M4
 (``csrc/kernel_family.cuh``, a template parameter); with any kernel but
 the direct M4 they count under their names with the kernel's variant
@@ -61,9 +61,9 @@ launches its three stages and counts one); each with ``_1d`` or ``_2d``
 appended below 3D.  The radiation kernels K34-K37, the per-cell fields,
 the ray march, the packet march and the Stromgren prefix select, count
 under ``cell_field``, ``ray_march``, ``packet_march`` and
-``stromgren_prefix`` (K34's wrapper launches its two stages and K37's its
-distances, weights and radix passes of every round, and each counts
-one).
+``stromgren_prefix`` (``_1d`` or ``_2d`` appended below 3D; K34's wrapper
+launches its two stages and K37's its distances, weights and radix
+passes of every round, and each counts one).
 """
 
 from __future__ import annotations
@@ -127,9 +127,11 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "radws_equilibrium": 0, "radws_implicit_heating": 0,
             "ambient_temperature": 0, "cell_field": 0, "ray_march": 0,
             "packet_march": 0, "stromgren_prefix": 0}
-# K14 and the sink kernels K16-K18, K20 below 3D
+# K14, the sink kernels K16-K18, K20 and the radiation kernels K30,
+# K34-K37 below 3D
 for _k in ("direct_softened", "star_gas_forces", "sink_candidate",
-           "accretion_sums", "smooth_accretion"):
+           "accretion_sums", "smooth_accretion", "ambient_temperature",
+           "cell_field", "ray_march", "packet_march", "stromgren_prefix"):
     for _d in ("_2d", "_1d"):
         LAUNCHES[f"{_k}{_d}"] = 0
 
@@ -264,8 +266,8 @@ _ARGTYPES = {
                                    _I, _P],
     "radws_implicit_heating": _TABLE + [_P, _P, _P, _P, _P, _I, _P, _I, _L,
                                         _P, _P, _I, _P],
-    "ambient_temperature": [_P, _I, _P, _P, _P, _P, _I, _D, _I, _P, _D, _D,
-                            _D, _P, _I, _P],
+    "ambient_temperature": [_P, _I, _I, _P, _P, _P, _P, _I, _D, _I, _P, _D,
+                            _D, _D, _P, _I, _P],
     "cell_field": [_P, _P, _I, _I, _I, _P, _P, _P, _D, _D, _P, _P, _I, _P],
     # the radiation grid's arguments (_radiation_grid): nd, 3 cells, 3 lo,
     # 3 extents, 3 periodic flags
@@ -274,8 +276,8 @@ _ARGTYPES = {
     "packet_march": [_I] * 4 + [_D] * 6 + [_I] * 3 + [_P, _P, _P, _I, _I,
                                                        _D, _P, _P, _P, _P,
                                                        _I, _P],
-    "stromgren_prefix": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                         _P, _P, _P, _I, _P],
+    "stromgren_prefix": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                         _P, _P, _P, _P, _I, _P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -1600,14 +1602,12 @@ def radws_implicit_heating(table, rho, u, dudt, gpot, dt_step, temp_amb,
 
 
 def ambient_temperature(r, rs, q, tsink4, act, active, temp_inf, disc):
-    """K30: (N,) T_amb of particles r (N, 3) from the slots rs (Ns, 3)
-    with their factors q = 0.25 r_src^2 and T_sink^4 (Ns,), the sink
-    sum's mask act and the disc's active (Ns,) bool; `disc` a
-    DiscHeatingConfig or None.  3D only (K30 is not ported below 3D:
-    ROADMAP queue 1, item 9)."""
+    """K30: (N,) T_amb of particles r (N, ndim) from the slots rs (Ns,
+    ndim), ndim 1-3, with their factors q = 0.25 r_src^2 and T_sink^4
+    (Ns,), the sink sum's mask act and the disc's active (Ns,) bool;
+    `disc` a DiscHeatingConfig or None (its midplane the first min(2,
+    ndim) coordinates)."""
     N, Ns, nd = _gas_and_slots(r, rs, act)
-    if nd != 3:
-        raise ValueError(f"r: expected shape (N, 3), got {tuple(r.shape)}")
     dt, dev = r.dtype, r.device
     _check(q, "q", dt, (Ns,))
     _check(tsink4, "tsink4", dt, (Ns,))
@@ -1618,9 +1618,10 @@ def ambient_temperature(r, rs, q, tsink4, act, active, temp_inf, disc):
         tau4, rs2 = disc.temp_au ** 4, disc.rsmooth ** 2
         expo = -2.0 * disc.temp_q
     out = torch.empty((N,), dtype=dt, device=dev)
-    _launch("ambient_temperature", dt, dev, _p(r), N, _p(rs), _p(q),
+    _launch("ambient_temperature", dt, dev, _p(r), N, nd, _p(rs), _p(q),
             _p(tsink4), _p(act), Ns, float(temp_inf) ** 4, nc, _p(active),
-            float(tau4), float(rs2), float(expo), _p(out))
+            float(tau4), float(rs2), float(expo), _p(out),
+            count=tree_count("ambient_temperature", nd))
     return out
 
 
@@ -1652,7 +1653,7 @@ def cell_field(spec, cell_of, slot_of, m, rho, mu_bar, vol):
                     for _ in range(2))
     _launch("cell_field", dt, dev, _p(cell_of), _p(slot_of), N, C, K,
             _p(ids), _p(m), _p(rho), float(mu_bar), float(vol), _p(rho_c),
-            _p(nh2_c))
+            _p(nh2_c), count=tree_count("cell_field", spec.ndim))
     return rho_c, nh2_c
 
 
@@ -1670,7 +1671,8 @@ def ray_march(spec, field, r0, dirs, lengths, n_steps):
     _check(dirs, "dirs", dt, (S, nd) if shared else (N, S, nd))
     out = torch.empty((N, S), dtype=dt, device=dev)
     _launch("ray_march", dt, dev, *_radiation_grid(spec), _p(field), _p(r0),
-            _p(dirs), int(shared), _p(lengths), N, S, int(n_steps), _p(out))
+            _p(dirs), int(shared), _p(lengths), N, S, int(n_steps), _p(out),
+            count=tree_count("ray_march", spec.ndim))
     return out
 
 
@@ -1690,7 +1692,8 @@ def packet_march(spec, opacity, r0, dirs, n_steps, ds):
     escaped = torch.empty((), dtype=dt, device=dev)
     _launch("packet_march", dt, dev, *_radiation_grid(spec), _p(opacity),
             _p(r0), _p(dirs), n, int(n_steps), float(ds), _p(acc), _p(path),
-            _p(absorbed), _p(escaped))
+            _p(absorbed), _p(escaped),
+            count=tree_count("packet_march", spec.ndim))
     return path, absorbed, escaped
 
 
@@ -1701,14 +1704,15 @@ STROMGREN_MAX_BLOCKS = 1024
 
 def stromgren_prefix(r, rec, r_src, ndot, on, n_iter):
     """K37: (N,) bool, reached by some source after the independent
-    Stromgren prefixes and `n_iter` flux-weighted rounds, from r (N, 3),
-    the recombination rates rec (N,), the sources r_src (S, 3), ndot (S,)
-    and on (S,) bool."""
+    Stromgren prefixes and `n_iter` flux-weighted rounds, from r (N,
+    ndim), ndim 1-3, the recombination rates rec (N,), the sources r_src
+    (S, ndim), ndot (S,) and on (S,) bool."""
     N, dt, dev = r.shape[0], r.dtype, r.device
     S = r_src.shape[0]
-    _check(r, "r", dt, (N, 3))
+    nd = _gas_ndim(r, "r")
+    _check(r, "r", dt, (N, nd))
     _check(rec, "rec", dt, (N,))
-    _check(r_src, "r_src", dt, (S, 3))
+    _check(r_src, "r_src", dt, (S, nd))
     _check(ndot, "ndot", dt, (S,))
     _check(on, "on", torch.bool, (S,))
     n_blocks = max(1, min(-(-N // STROMGREN_CHUNK), STROMGREN_MAX_BLOCKS))
@@ -1719,7 +1723,8 @@ def stromgren_prefix(r, rec, r_src, ndot, on, n_iter):
     # five 8-byte words a source (csrc/radiation.cu:SrcState)
     state = torch.zeros((S, 5), dtype=torch.int64, device=dev)
     out = torch.empty((N,), dtype=torch.bool, device=dev)
-    _launch("stromgren_prefix", dt, dev, _p(r), _p(rec), N, _p(r_src),
+    _launch("stromgren_prefix", dt, dev, _p(r), _p(rec), N, nd, _p(r_src),
             _p(ndot), _p(on), S, int(n_iter), nlo, chunk, n_blocks, _p(d),
-            _p(wrec), _p(partial), _p(state), _p(out))
+            _p(wrec), _p(partial), _p(state), _p(out),
+            count=tree_count("stromgren_prefix", nd))
     return out

@@ -607,6 +607,26 @@ def sink_disc_params(n_target: int, ndim: int = 2, rho_sink: float = 0.3,
     return p
 
 
+def radfb_rod(n_target: int = 64):
+    """Radiative feedback in 1D: (params, IC) of the sink rod
+    (sink_disc_params(n_target, 1) with rho_sink 0.52, above the
+    bootstrap's largest rho 0.501, so no sink forms) on the radws
+    relaxation with sink and ambient heating and no disc term, and a
+    stellar-class star of 0.25 at rest at the origin in the IC (the
+    generated rod and its star), which accretes from the rod.  With
+    sinks forming, or with disc heating, the radws rod heats past what
+    its grid holds in both packages (a neighbour overflow that persists
+    through the replans)."""
+    from .sim.ic import generate_ic
+
+    params = radfb_params(radws_params(sink_disc_params(
+        n_target, 1, 0.52, ntreebuildstep=4)), disc_heating=0)
+    ic = generate_ic(params, None)
+    ic["star"] = {"r": np.zeros((1, 1)), "v": np.zeros((1, 1)),
+                  "m": np.asarray([0.25]), "h": np.asarray([0.05])}
+    return params, ic
+
+
 # the sink discs' rho_sink on the card: this fraction of the bootstrap's
 # largest rho, which the lattice disc's interior shares within a few per
 # mille, so that a sink forms at each of the first steps
@@ -671,6 +691,55 @@ def binaryacc_params(n_side: int = 16, ndim: int = 2,
     return p
 
 
+def cli_params(n_side: int = 8, tend: float = 0.1,
+               nstepsmax: int = 100000) -> Parameters:
+    """A 2D radiating run for the command line: binaryacc_params(n_side)
+    (two lattices of n_side x 2 n_side, two accreting stars crossing the
+    stream) with the ionisation scheme from the stars every step (alphaB
+    = mu_bar = mu_ion = 1, temp_ion 0.05), run id HII2D, snapshots every
+    tend / 4 from t = 0 in SEREN unformatted (the SEREN files carry the
+    stars, the run's sources, back on a restart; the column reader reads
+    the gas only), the diagnostics every 8 steps and a restart snapshot
+    every 16, to tend or `nstepsmax` steps.  write_param_file writes it as
+    a .dat file; the stars' N_LyC comes from write_cli_stellar_table's
+    stellar.dat beside it."""
+    p = binaryacc_params(n_side, 2, tend=tend)
+    for k, v in {"run_id": "HII2D", "radiation": "ionisation", "nradstep": 1,
+                 "arecomb": 1.0, "mu_bar": 1.0, "mu_ion": 1.0,
+                 "temp_ion": 0.05, "Ndotmin": 0.0, "tsnapfirst": 0.0,
+                 "dt_snap": tend / 4.0, "out_file_form": "su",
+                 "ndiagstep": 8, "nrestartstep": 16,
+                 "Nstepsmax": nstepsmax}.items():
+        p.set(k, v)
+    return p
+
+
+# the N_LyC of each binaryacc star in the command-line run: the 2D
+# Stromgren disc of radius 0.2 in the stream's dense half (rho 1),
+# pi Rs^2 rho^2 (spitzer_ndot's 2D law)
+CLI_NDOT = math.pi * 0.2 ** 2
+
+
+def write_param_file(params: Parameters, path) -> None:
+    """`params` as a parameter file of `key = value` lines that
+    Parameters.read_file (either package's) reads back."""
+    with open(path, "w") as f:
+        for table in (params.intparams, params.floatparams,
+                      params.stringparams):
+            for k in sorted(table):
+                f.write(f"{k} = {table[k]}\n")
+
+
+def write_cli_stellar_table(path) -> None:
+    """A stellar.dat (row count, four header lines, then mass, log L,
+    log N_LyC, T_eff, Mdot, v_wind) whose every mass gives CLI_NDOT."""
+    logn = math.log10(CLI_NDOT)
+    with open(path, "w") as f:
+        f.write("2\n# flat table\n# mass logL logNLyC Teff Mdot vwind\n#\n#\n")
+        for m in (0.0, 1.0e3):
+            f.write(f"{m} 0.0 {logn!r} 40000.0 0.0 0.0\n")
+
+
 def plummer_block_params(n_gas: int = 512, n_star: int = 16,
                          nlevels: int = 3) -> Parameters:
     """The hybrid Plummer sphere of tests/test_sinks.py:27-32 on the grid
@@ -719,8 +788,9 @@ SPITZER_RHO0 = 3.0 / (4.0 * math.pi)
 
 def spitzer_params(n_hydro: int, radiation: str = "ionisation",
                    **over) -> Parameters:
-    """tests/test_spitzer.py:21-29's configuration at n_hydro particles:
-    the cold lattice sphere (ic = spitzer, mcloud = radius = 1),
+    """tests/test_spitzer.py:21-29's configuration at n_hydro particles
+    (`ndim` among the overrides for the disc and the rod, whose IC is
+    hii_ic): the cold lattice sphere (ic = spitzer, mcloud = radius = 1),
     isothermal at temp0 1e-6 with temp_ion 0.05 and mu_ion = mu_bar = 1,
     no self-gravity, the grid path, the radiation field every step from
     the star (sink_particles 1, create_sinks 0), alphaB = 1, a global
@@ -740,20 +810,50 @@ def spitzer_params(n_hydro: int, radiation: str = "ionisation",
     return p
 
 
+# the HII region's cloud density at each ndim: mass 1 over the unit
+# ball's volume (a sphere, a disc, a rod of length 2)
+SPITZER_RHO0_ND = {3: SPITZER_RHO0, 2: 1.0 / math.pi, 1: 0.5}
+
+
 def spitzer_ndot(radiation: str = "ionisation",
-                 rs: float = SPITZER_RS) -> float:
-    """The source's Ndot (alphaB = mu_bar = 1): 4 pi/3 rho0^2 Rs^3, whose
-    Stromgren sphere has radius Rs (tests/test_spitzer.py:74); for
-    treeray 4 pi rho0^2 Rs^3, whose OnTheSpot front, flux = alphaB n_H^2
-    d, lies at Rs (tests/test_treeray.py:140)."""
-    k = 4.0 * math.pi if radiation == "treeray" else 4.0 * math.pi / 3.0
-    return k * SPITZER_RHO0 ** 2 * rs ** 3
+                 rs: float = SPITZER_RS, ndim: int = 3) -> float:
+    """The source's Ndot (alphaB = mu_bar = 1) that puts the front of the
+    scheme's own law at Rs in `ndim` dims, rho0 SPITZER_RHO0_ND[ndim].
+    ionisation and monoionisation balance Ndot against the recombination
+    sum alphaB n_H^2 (m / rho) over the ionised ball, m / rho a volume, an
+    area or a length: 4 pi/3 rho0^2 Rs^3 (tests/test_spitzer.py:74), pi
+    rho0^2 Rs^2 in 2D and 2 rho0^2 Rs in 1D.  treeray's OnTheSpot law,
+    Ndot / (4 pi d^2) >= alphaB n_H^2 d, is 3D at every ndim in the JAX
+    package (fault F31), so its front lies at Rs for 4 pi rho0^2 Rs^3
+    whatever ndim is (tests/test_treeray.py:140)."""
+    rho2 = SPITZER_RHO0_ND[ndim] ** 2
+    if radiation == "treeray":
+        return 4.0 * math.pi * rho2 * rs ** 3
+    return {3: 4.0 * math.pi / 3.0 * rs ** 3, 2: math.pi * rs ** 2,
+            1: 2.0 * rs}[ndim] * rho2
 
 
-def spitzer_star():
+def spitzer_star(ndim: int = 3):
     """The IC's star: mass 1e-6 at rest at the origin, h 1e-3."""
-    return {"r": np.zeros((1, 3)), "v": np.zeros((1, 3)),
+    return {"r": np.zeros((1, ndim)), "v": np.zeros((1, ndim)),
             "m": np.asarray([1e-6]), "h": np.asarray([1e-3])}
+
+
+def hii_ic(n_target: int, ndim: int):
+    """The HII region below 3D as an IC dict (the JAX package's spitzer
+    IC is 3D only, gandalf_tpu/sim/ic.py:1203-1204): the lattice disc
+    (a rod in 1D) of about n_target points of add_lattice_sphere(n, 1,
+    ndim), mass 1, rho0 SPITZER_RHO0_ND[ndim], h = 1.2 (m / rho0)^(1 /
+    ndim) (h_fac's default), at rest, u 1e-20, with spitzer_star at the origin, as
+    spitzer_ic and the Spitzer runs build the 3D sphere."""
+    from .sim.ic import add_lattice_sphere
+
+    r = add_lattice_sphere(n_target, 1.0, ndim)
+    n = len(r)
+    m = np.full(n, 1.0 / n)
+    h = 1.2 * (m / SPITZER_RHO0_ND[ndim]) ** (1.0 / ndim)
+    return {"r": r, "v": np.zeros_like(r), "m": m, "h": h,
+            "u": np.full(n, 1e-20), "star": spitzer_star(ndim)}
 
 
 def spitzer_table(ndot: float):
@@ -3910,6 +4010,10 @@ FLOPS_PER.update({
     "radws_bisect_step": 4, "radws_eos_tail": 6, "radws_find_tail": 12,
     "radws_implicit_tail": 8, "ambient_pair": 13, "ambient_skip": 1,
     "ambient_disc": 28, "ambient_particle": 22,
+    # below 3D a pair's separation and d^2 lose 3 a dim; the disc term's
+    # midplane has min(2, ndim) components
+    "ambient_pair_2d": 10, "ambient_pair_1d": 7,
+    "ambient_disc_2d": 28, "ambient_disc_1d": 25,
 })
 
 
@@ -4166,10 +4270,10 @@ def compare_radws_kernels(inputs, repeats: int = 0, dense_shape=None,
 
 
 def ambient_kernel_inputs(n: int, n_slots: int, device, dtype,
-                          seed: int = 13):
-    """Synthetic inputs of K30 (a dict: r (N, 3), the slots' r, m, mdot,
-    rad (sink radius) and active, and the SinkHeatingConfig): particles
-    in the unit cube; slot masses cycling through the three classes
+                          seed: int = 13, ndim: int = 3):
+    """Synthetic inputs of K30 (a dict: r (N, ndim), the slots' r, m,
+    mdot, rad (sink radius) and active, and the SinkHeatingConfig):
+    particles in the unit cube (square, segment); slot masses cycling through the three classes
     (planet 5 M_J, brown dwarf 40 M_J, star 0.25 msun, M_J = 9.546e-4
     msun) with mdot log-uniform, the last eighth of the slots inactive
     and empty; particle 0 on active slot 1's position (d = 0, the 1e-30
@@ -4177,9 +4281,9 @@ def ambient_kernel_inputs(n: int, n_slots: int, device, dtype,
     from .ops.radiative_fb import SinkHeatingConfig
 
     rng = np.random.default_rng(seed)
-    r = rng.random((n, 3))
+    r = rng.random((n, ndim))
     n_act = n_slots - n_slots // 8
-    rs = rng.random((n_slots, 3))
+    rs = rng.random((n_slots, ndim))
     mj = 9.546e-4
     m = np.array([5.0 * mj, 40.0 * mj, 0.25])[np.arange(n_slots) % 3]
     mdot = 10.0 ** rng.uniform(-4.0, 0.0, n_slots)
@@ -4240,9 +4344,10 @@ def compare_ambient_kernels(inputs, repeats: int = 0, cases=AMBIENT_CASES):
         err = float(_rel_errs(got, want).max())
         n_sum = int(act.sum())
         n_disc = 0 if disc is None else int(active[:disc.n_central].sum())
-        flops = N * (n_sum * FLOPS_PER["ambient_pair"]
+        nd = r.shape[1]
+        flops = N * (n_sum * tree_flops("ambient_pair", nd)
                      + (Ns - n_sum) * FLOPS_PER["ambient_skip"]
-                     + n_disc * FLOPS_PER["ambient_disc"]
+                     + n_disc * tree_flops("ambient_disc", nd)
                      + FLOPS_PER["ambient_particle"])
         out[f"ambient_temperature_{name}"] = {
             "N": N, "Ns": Ns, "slots_in_sum": n_sum, "disc_slots": n_disc,
@@ -4320,11 +4425,20 @@ FLOPS_PER.update({
     "cell_field": 8, "cell_field_cell": 2, "ray_march_sample": 25,
     "ray_march_ray": 2, "packet_step": 55, "stromgren_dist": 9,
     "stromgren_weight": 6, "stromgren_pass": 4,
+    # below 3D: K35's sample loses 5 a dim (the position and the cell
+    # index), K36's step 9 a dim (the midpoint, the cell and the next
+    # position), K37's distance 3 a dim (the difference, square and sum)
+    "ray_march_sample_2d": 20, "ray_march_sample_1d": 15,
+    "packet_step_2d": 46, "packet_step_1d": 37,
+    "stromgren_dist_2d": 6, "stromgren_dist_1d": 3,
 })
 # K34's and K35's sums run in another order than the plain versions'
-# torch.sum (relative rounding ~ K eps); K36 sums in float64 against the
-# float32 plain version's atomics, so it is held against the plain version
-# in float64 on the same inputs (scaled by the field's largest value)
+# torch.sum (relative rounding ~ K eps); K36 moves its packets in its
+# type and sums in float64, so it is held against the plain version in
+# its type with float64 sums (acc_dtype; scaled by the field's largest
+# value): in float32 against float64 positions the packets of the 2D disc
+# and the 1D rod, crossing hundreds of narrow cells, part at cell faces
+# (1.9e-5 and 6.1e-4 of the largest sum on an NVIDIA H100)
 TOL_F32_RADIATION = 1e-5
 TOL_F64_RADIATION = 1e-12
 # K37's flags may differ only where the plain version's cumulative sum at
@@ -4338,6 +4452,10 @@ STROMGREN_ROUNDS = 8
 # length units): about 50 optical depths a cell of the 262,144-particle
 # grid in the neutral gas, so the front is optically thick
 SPITZER_MC_ACROSS = 3000.0
+# per ndim: the 2D disc at 262,144 particles takes 1,600, the optical
+# depth a cell of the JAX package's 2D run at 16,053 particles and 400
+# (the cells 4x narrower)
+SPITZER_MC_ACROSS_ND = {3: SPITZER_MC_ACROSS, 2: 1600.0, 1: SPITZER_MC_ACROSS}
 # its Monte-Carlo iterations (Nraditerations), as tests/test_mcrt.py:105
 # runs them: from xHI = 1e-3 the under-relaxed balance closes in on the
 # front from outside, ~35% beyond Rs after the default 4, ~9% after 10
@@ -4346,26 +4464,29 @@ _SPITZER_IC = {}
 
 
 def spitzer_sim(n_hydro: int, radiation: str, device="cuda",
-                dtype=torch.float32, **over):
-    """The Spitzer HII region through GradhSphSimulation, set up: the
-    lattice sphere (cached per n_hydro) with spitzer_star, the flat
-    spitzer_table at the scheme's spitzer_ndot and, for monoionisation,
-    SPITZER_MC_ACROSS and SPITZER_MC_ITERATIONS unless `over` sets
-    Nraditerations."""
+                dtype=torch.float32, ndim: int = 3, **over):
+    """The Spitzer HII region through GradhSphSimulation (or the
+    controller of `sim` among the overrides), set up: the lattice sphere
+    (cached per n_hydro) with spitzer_star, or below 3D hii_ic's disc or
+    rod, the flat spitzer_table at the scheme's spitzer_ndot and, for
+    monoionisation, SPITZER_MC_ACROSS_ND and SPITZER_MC_ITERATIONS unless
+    `over` sets Nraditerations."""
     from .sim.ic import spitzer_ic
-    from .sim.simulation import GradhSphSimulation
+    from .sim.simulation import SimulationBase
 
     if radiation == "monoionisation":
         over.setdefault("Nraditerations", SPITZER_MC_ITERATIONS)
-    params = spitzer_params(n_hydro, radiation, **over)
-    if n_hydro not in _SPITZER_IC:
-        _SPITZER_IC[n_hydro] = spitzer_ic(params, None)
-    ic = dict(_SPITZER_IC[n_hydro], star=spitzer_star())
-    sim = GradhSphSimulation(params, device=device, dtype=dtype)
+    params = spitzer_params(n_hydro, radiation, ndim=ndim, **over)
+    key = (n_hydro, ndim)
+    if key not in _SPITZER_IC:
+        _SPITZER_IC[key] = spitzer_ic(params, None) if ndim == 3 \
+            else hii_ic(n_hydro, ndim)
+    ic = dict(_SPITZER_IC[key], star=spitzer_star(ndim))
+    sim = SimulationBase.factory(params, device, dtype)
     sim.SetupSimulation(ic)
-    sim.stellar_table = spitzer_table(spitzer_ndot(radiation))
+    sim.stellar_table = spitzer_table(spitzer_ndot(radiation, ndim=ndim))
     if radiation == "monoionisation":
-        sim.mc_across = SPITZER_MC_ACROSS
+        sim.mc_across = SPITZER_MC_ACROSS_ND[ndim]
     return sim
 
 
@@ -4381,12 +4502,15 @@ def front_radius(sim) -> float:
 
 
 def ionised_radius(sim) -> float:
-    """The radius of a sphere of the ionised particles' volume, sum m /
-    rho over them."""
+    """The radius of a ball of the ionised particles' volume, sum m /
+    rho over them (an area in 2D, a length in 1D)."""
     s = sim.state
     ion = (s.ionfrac > 0.5) & s.alive
     vol = float(torch.sum((s.m / s.rho)[ion].double()))
-    return (3.0 * vol / (4.0 * math.pi)) ** (1.0 / 3.0)
+    nd = s.r.shape[1]
+    if nd == 3:
+        return (3.0 * vol / (4.0 * math.pi)) ** (1.0 / 3.0)
+    return math.sqrt(vol / math.pi) if nd == 2 else 0.5 * vol
 
 
 def radiation_kernel_inputs(sim, n_packets: int = None, seed: int = 1):
@@ -4426,21 +4550,24 @@ def radiation_kernel_inputs(sim, n_packets: int = None, seed: int = 1):
         "on": sk.active & (ndot > cfg.Ndotmin)}
 
 
-def stromgren_inputs(n: int, device, dtype, seed: int = 4):
-    """K37's synthetic case: n particles uniform in [-1.5, 1.5]^3 with
+def stromgren_inputs(n: int, device, dtype, seed: int = 4,
+                     ndim: int = 3):
+    """K37's synthetic case: n particles uniform in [-1.5, 1.5]^ndim with
     rho in [0.8, 1.2] and three overlapping sources (one at twice the
-    others' Ndot), each reaching about 0.5 alone."""
+    others' Ndot), each reaching about 0.5 alone (spitzer_ndot's law of
+    the ndim)."""
     rng = np.random.default_rng(seed)
-    r = rng.uniform(-1.5, 1.5, (n, 3))
+    r = rng.uniform(-1.5, 1.5, (n, ndim))
     rho = rng.uniform(0.8, 1.2, n)
-    m = np.full(n, 27.0 / n)
-    ndot = 4.0 * math.pi / 3.0 * 0.5 ** 3 * np.array([1.0, 1.0, 2.0])
+    m = np.full(n, 3.0 ** ndim / n)
+    ndot = spitzer_ndot("ionisation", 0.5, ndim) / SPITZER_RHO0_ND[ndim] ** 2 \
+        * np.array([1.0, 1.0, 2.0])
     kw = dict(device=device, dtype=dtype)
     rho_t = torch.tensor(rho, **kw)
+    src = np.array([[-0.3, 0.0, 0.0], [0.3, 0.0, 0.0], [0.0, 0.45, 0.2]])
     return {"r": torch.tensor(r, **kw),
             "rec": torch.tensor(m, **kw) * rho_t,   # alphaB = mu_bar = 1
-            "r_src": torch.tensor([[-0.3, 0.0, 0.0], [0.3, 0.0, 0.0],
-                                   [0.0, 0.45, 0.2]], **kw),
+            "r_src": torch.tensor(src[:, :ndim], **kw),
             "ndot": torch.tensor(ndot, **kw),
             "on": torch.ones(3, dtype=torch.bool, device=device)}
 
@@ -4480,7 +4607,8 @@ def compare_stromgren(inp):
     outside = int((diff & ~band).sum())
     # radix passes: a byte of d's bits each, then of the index's
     n_pass = r.element_size() + max(1, -(-max(N - 1, 1).bit_length() // 8))
-    flops = S * N * (FLOPS_PER["stromgren_dist"] + (STROMGREN_ROUNDS + 1) * (
+    flops = S * N * (tree_flops("stromgren_dist", r.shape[1])
+                     + (STROMGREN_ROUNDS + 1) * (
         FLOPS_PER["stromgren_weight"] + n_pass * FLOPS_PER["stromgren_pass"]))
     rep = {"N": N, "S": S, "dtype": str(r.dtype), "flips": flips,
            "flips_outside_band": outside, "in_band": int(band.sum()),
@@ -4495,7 +4623,7 @@ def compare_radiation_kernels(inp, repeats: int = 0, stromgren=None):
     """K34-K37 against their plain versions on the same CUDA tensors (a
     dict from radiation_kernel_inputs; `stromgren` a second K37 case from
     stromgren_inputs): per kernel the largest error relative to the
-    field's largest value (K36's against its plain version in float64),
+    field's largest value (K36 against its plain version with float64 sums),
     the treeray flags the K35 integrals flip, K37's flag report, `ok`,
     `work` and, with `repeats`, ms and plain_ms; K34's library_ms is
     index_add_ of the same terms over K1's cell ids.  Launch counts are
@@ -4510,6 +4638,7 @@ def compare_radiation_kernels(inp, repeats: int = 0, stromgren=None):
     f32 = m.dtype == torch.float32
     tol = TOL_F32_RADIATION if f32 else TOL_F64_RADIATION
     C, N = spec.total_cells, m.shape[0]
+    nd = spec.ndim
     vol = trr.cell_volume(spec)
     out, timed = {}, {}
 
@@ -4556,7 +4685,7 @@ def compare_radiation_kernels(inp, repeats: int = 0, stromgren=None):
         "treeray_flips": flips,
         "ok": err <= tol and flips <= TOL_FLAG_FRACTION * N,
         "work": _work((fflat, r, dirs, ln), (got,),
-                      rays * (ns * FLOPS_PER["ray_march_sample"]
+                      rays * (ns * tree_flops("ray_march_sample", nd)
                               + FLOPS_PER["ray_march_ray"]))}
     timed["ray_march"] = (
         lambda: _ext.ray_march(spec, fflat, r, dirs, ln, ns),
@@ -4568,8 +4697,8 @@ def compare_radiation_kernels(inp, repeats: int = 0, stromgren=None):
     ds = 0.5 * min(spec.extents[k] / spec.ncells[k]
                    for k in range(spec.ndim))
     got = _ext.packet_march(spec, opflat, r0, pd, nst, ds)
-    want = mc.propagate_packets_plain(spec, op.double(), r0.double(),
-                                      pd.double(), nst, ds)
+    want = mc.propagate_packets_plain(spec, op, r0, pd, nst, ds,
+                                      acc_dtype=torch.float64)
     errs = [_scaled_err(g.double().reshape(-1), w.reshape(-1))
             for g, w in zip(got, want)]
     steps = _packet_steps(spec, r0, pd, nst, ds)
@@ -4583,7 +4712,8 @@ def compare_radiation_kernels(inp, repeats: int = 0, stromgren=None):
                     "escaped": errs[2]},
         "escaped_fraction": float(got[2]) / r0.shape[0],
         "ok": max(errs) <= tol,
-        "work": _work((opflat, r0, pd), got, steps * FLOPS_PER["packet_step"])}
+        "work": _work((opflat, r0, pd), got,
+                      steps * tree_flops("packet_step", nd))}
     timed["packet_march"] = (
         lambda: _ext.packet_march(spec, opflat, r0, pd, nst, ds),
         lambda: mc.propagate_packets_plain(spec, op, r0, pd, nst, ds))
@@ -4609,6 +4739,44 @@ def compare_radiation_kernels(inp, repeats: int = 0, stromgren=None):
         rep.setdefault("library_ms", None)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
+    return out
+
+
+# the HII region of compare_radiation_kernels_dims at each ndim
+RAD_DIMS_N = {2: 4096, 1: 1024}
+
+
+def compare_radiation_kernels_dims(ndim: int, device, dtype, n: int = None,
+                                   n_packets: int = 4096, repeats: int = 0,
+                                   n_slots: int = 64):
+    """K30 and K34-K37 at ndim 1 or 2 against their plain versions on the
+    same CUDA tensors: compare_radiation_kernels at the HII region of
+    about `n` particles (RAD_DIMS_N) through spitzer_sim's
+    monoionisation set-up (hii_ic's disc or rod), `n_packets` packets
+    and K37's three synthetic sources at `n` particles (stromgren_inputs
+    in ndim), and compare_ambient_kernels on ambient_kernel_inputs at `n`
+    particles and `n_slots` slots in ndim.  The reports are keyed by the
+    kernels' launch names (cell_field_2d, ..., ambient_temperature_2d for
+    the sink sum alone, ambient_temperature_disc_1_2d, ...)."""
+    n = n or RAD_DIMS_N[ndim]
+    sfx = f"_{ndim}d"
+    sim = spitzer_sim(n, "monoionisation", device, dtype, ndim=ndim)
+    rep = compare_radiation_kernels(
+        radiation_kernel_inputs(sim, n_packets=n_packets), repeats=repeats,
+        stromgren=stromgren_inputs(n, device, dtype, ndim=ndim))
+    out = {}
+    for k, r in rep.items():
+        if k == "stromgren_prefix_3src":
+            out[f"stromgren_prefix{sfx}_3src"] = r
+        else:
+            out[k + sfx] = r
+    amb = compare_ambient_kernels(
+        ambient_kernel_inputs(n, n_slots, device, dtype, ndim=ndim),
+        repeats=repeats)
+    for k, r in amb.items():
+        name = "ambient_temperature" if k == "ambient_temperature_sinks" \
+            else k
+        out[name + sfx] = r
     return out
 
 

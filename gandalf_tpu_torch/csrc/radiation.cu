@@ -1,5 +1,8 @@
 // K34 cell_field, K35 ray_march, K36 packet_march and K37
-// stromgren_prefix: the radiation schemes' hot loops.
+// stromgren_prefix: the radiation schemes' hot loops, in 1-3 dims (K34
+// works on flat cells; K35, K36 and K37's distance kernel are templates
+// on NDIM: with the grid's dims a run-time loop bound K35 and K36 ran
+// slower in 3D and 2D, python -m gandalf_tpu_torch.time_radiation_nd).
 //
 // K34 replaces gandalf_tpu/ops/treeray.py:cell_field (:104): per cell
 //   rho_c = sum_slots w_p rho_p / V_cell,
@@ -66,8 +69,9 @@
 // prefix until it passes Ndot.  Where rounding leaves no bin past Ndot
 // (the sums run in another order than the sequential cumulative sum),
 // every key of the prefix is ionised.  d is sqrt((dx^2 + dy^2) + dz^2)
-// without fused multiply-adds, so the lattice's shells of equal d tie
-// as in the JAX function.
+// (dx^2 + dy^2 in 2D, dx^2 in 1D: the distance kernel is a template on
+// NDIM, the rest reads only d) without fused multiply-adds, so the
+// lattice's shells of equal d tie as in the JAX function.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,17 +110,17 @@ __device__ __forceinline__ unsigned long long key_bits(double d) {
 // extent and the periodic flags, padded to three dims
 template <typename T>
 struct Grid {
-  int nd;
   int n[3];
   T lo[3], inv[3], ext[3];
   int periodic[3];
 };
 
-// the flat cell of position x (nd values), or -1 outside an open dim
-template <typename T>
+// the flat cell of position x (NDIM values), or -1 outside an open dim
+template <typename T, int NDIM>
 __device__ __forceinline__ long long cell_of(const Grid<T>& g, const T* x) {
   long long flat = 0;
-  for (int k = 0; k < g.nd; ++k) {
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k) {
     T v = x[k];
     if (g.periodic[k]) {
       // lo + mod(v - lo, ext), the remainder with the extent's sign
@@ -171,7 +175,7 @@ __global__ void cell_sum_kernel(const int* __restrict__ ids, int n_cells,
 
 // --- K35 ------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int NDIM>
 __global__ void ray_march_kernel(Grid<T> g, const T* __restrict__ field,
                                  const T* __restrict__ r0,
                                  const T* __restrict__ dirs,
@@ -182,7 +186,7 @@ __global__ void ray_march_kernel(Grid<T> g, const T* __restrict__ field,
                       + threadIdx.x;
   if (q >= static_cast<long long>(n) * s) return;
   const long long i = q / s;
-  const int nd = g.nd;
+  constexpr int nd = NDIM;
   const T* dir = dirs + (dirs_shared ? (q % s) * nd : q * nd);
   T x0[3], dv[3];
   for (int k = 0; k < nd; ++k) {
@@ -197,7 +201,7 @@ __global__ void ray_march_kernel(Grid<T> g, const T* __restrict__ field,
     const T lt = mul_rn(L, t);
     T x[3];
     for (int d = 0; d < nd; ++d) x[d] = add_rn(x0[d], mul_rn(lt, dv[d]));
-    const long long c = cell_of(g, x);
+    const long long c = cell_of<T, NDIM>(g, x);
     if (c >= 0) acc = add_rn(acc, field[c]);
   }
   out[q] = mul_rn(acc, L) / fn;
@@ -214,7 +218,7 @@ __device__ __forceinline__ void flush(double* path, double* absorbed,
   }
 }
 
-template <typename T>
+template <typename T, int NDIM>
 __global__ void packet_march_kernel(Grid<T> g, const T* __restrict__ op,
                                     const T* __restrict__ r0,
                                     const T* __restrict__ dirs, int n,
@@ -225,7 +229,7 @@ __global__ void packet_march_kernel(Grid<T> g, const T* __restrict__ op,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   T esc = T(0);
   if (i < n) {
-    const int nd = g.nd;
+    constexpr int nd = NDIM;
     T pos[3], dv[3];
     for (int k = 0; k < nd; ++k) {
       pos[k] = r0[static_cast<long long>(i) * nd + k];
@@ -238,7 +242,7 @@ __global__ void packet_march_kernel(Grid<T> g, const T* __restrict__ op,
       T mid[3];
       for (int k = 0; k < nd; ++k)
         mid[k] = add_rn(pos[k], mul_rn(half_ds, dv[k]));
-      const long long c = cell_of(g, mid);
+      const long long c = cell_of<T, NDIM>(g, mid);
       if (c < 0) break;  // w goes to the escaped sum
       if (c != cur) {
         flush(path, absorbed, cur, pacc, aacc);
@@ -304,19 +308,24 @@ __device__ __forceinline__ bool reached(const SrcState& st,
   return st.incl != 0;
 }
 
-template <typename T>
+template <typename T, int NDIM>
 __global__ void src_dist_kernel(const T* __restrict__ r, int n,
                                 const T* __restrict__ rs, int ns,
                                 T* __restrict__ d) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const T x = r[3LL * p], y = r[3LL * p + 1], z = r[3LL * p + 2];
+  T x[NDIM];
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k) x[k] = r[static_cast<long long>(NDIM) * p + k];
   for (int s = 0; s < ns; ++s) {
-    const T dx = sub_rn(x, rs[3 * s]);
-    const T dy = sub_rn(y, rs[3 * s + 1]);
-    const T dz = sub_rn(z, rs[3 * s + 2]);
-    const T d2 = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)),
-                        mul_rn(dz, dz));
+    // the squares summed in axis order
+    const T d0 = sub_rn(x[0], rs[NDIM * s]);
+    T d2 = mul_rn(d0, d0);
+#pragma unroll
+    for (int k = 1; k < NDIM; ++k) {
+      const T dk = sub_rn(x[k], rs[NDIM * s + k]);
+      d2 = add_rn(d2, mul_rn(dk, dk));
+    }
     d[static_cast<long long>(s) * n + p] = sqrt(d2);
   }
 }
@@ -481,7 +490,6 @@ template <typename T>
 Grid<T> make_grid(int nd, const int* n, const double* lo, const double* ext,
                   const int* periodic) {
   Grid<T> g;
-  g.nd = nd;
   for (int k = 0; k < 3; ++k) {
     g.n[k] = n[k];
     g.lo[k] = static_cast<T>(lo[k]);
@@ -494,6 +502,57 @@ Grid<T> make_grid(int nd, const int* n, const double* lo, const double* ext,
 
 int blocks_for(long long n) {
   return static_cast<int>((n + kBlock - 1) / kBlock);
+}
+
+// K35 and K36 with NDIM the grid's dims (1-3)
+template <typename T, int NDIM>
+void ray_march_launch(const Grid<T>& g, const T* field, const T* r0,
+                      const T* dirs, int dirs_shared, const T* len, int n,
+                      int s, int n_steps, T* out, cudaStream_t st) {
+  ray_march_kernel<T, NDIM><<<blocks_for(static_cast<long long>(n) * s),
+                              kBlock, 0, st>>>(g, field, r0, dirs,
+                                               dirs_shared, len, n, s,
+                                               n_steps, out);
+}
+
+template <typename T, int NDIM>
+void packet_march_launch(const Grid<T>& g, const T* op, const T* r0,
+                         const T* dirs, int n, int n_steps, T ds,
+                         T half_ds, double* acc, int cells,
+                         cudaStream_t st) {
+  packet_march_kernel<T, NDIM><<<blocks_for(n), kBlock, 0, st>>>(
+      g, op, r0, dirs, n, n_steps, ds, half_ds, acc, acc + cells,
+      acc + 2 * cells);
+}
+
+template <typename T>
+void ray_march_nd(int nd, const Grid<T>& g, const T* field, const T* r0,
+                  const T* dirs, int dirs_shared, const T* len, int n, int s,
+                  int n_steps, T* out, cudaStream_t st) {
+  if (nd == 3)
+    ray_march_launch<T, 3>(g, field, r0, dirs, dirs_shared, len, n, s,
+                           n_steps, out, st);
+  else if (nd == 2)
+    ray_march_launch<T, 2>(g, field, r0, dirs, dirs_shared, len, n, s,
+                           n_steps, out, st);
+  else
+    ray_march_launch<T, 1>(g, field, r0, dirs, dirs_shared, len, n, s,
+                           n_steps, out, st);
+}
+
+template <typename T>
+void packet_march_nd(int nd, const Grid<T>& g, const T* op, const T* r0,
+                     const T* dirs, int n, int n_steps, T ds, T half_ds,
+                     double* acc, int cells, cudaStream_t st) {
+  if (nd == 3)
+    packet_march_launch<T, 3>(g, op, r0, dirs, n, n_steps, ds, half_ds, acc,
+                              cells, st);
+  else if (nd == 2)
+    packet_march_launch<T, 2>(g, op, r0, dirs, n, n_steps, ds, half_ds, acc,
+                              cells, st);
+  else
+    packet_march_launch<T, 1>(g, op, r0, dirs, n, n_steps, ds, half_ds, acc,
+                              cells, st);
 }
 
 }  // namespace
@@ -528,14 +587,14 @@ extern "C" {
                       int device, void* stream) {                            \
     cudaError_t err = cudaSetDevice(device);                                 \
     if (err != cudaSuccess) return static_cast<int>(err);                    \
+    if (nd < 1 || nd > 3) return static_cast<int>(cudaErrorInvalidValue);    \
     const int nc[3] = {n0, n1, n2}, per[3] = {p0, p1, p2};                   \
     const double lo[3] = {lo0, lo1, lo2}, ext[3] = {e0, e1, e2};             \
     const long long rays = static_cast<long long>(n) * s;                    \
     if (rays > 0)                                                            \
-      ray_march_kernel<T><<<blocks_for(rays), kBlock, 0,                     \
-                            static_cast<cudaStream_t>(stream)>>>(            \
-          make_grid<T>(nd, nc, lo, ext, per), field, r0, dirs, dirs_shared,  \
-          len, n, s, n_steps, out);                                          \
+      ray_march_nd<T>(nd, make_grid<T>(nd, nc, lo, ext, per), field, r0,     \
+                      dirs, dirs_shared, len, n, s, n_steps, out,            \
+                      static_cast<cudaStream_t>(stream));                    \
     return static_cast<int>(cudaGetLastError());                             \
   }                                                                          \
   int packet_march_##SFX(int nd, int n0, int n1, int n2, double lo0,         \
@@ -546,23 +605,24 @@ extern "C" {
                          T* escaped, int device, void* stream) {             \
     cudaError_t err = cudaSetDevice(device);                                 \
     if (err != cudaSuccess) return static_cast<int>(err);                    \
+    if (nd < 1 || nd > 3) return static_cast<int>(cudaErrorInvalidValue);    \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                     \
     const int nc[3] = {n0, n1, n2}, per[3] = {p0, p1, p2};                   \
     const double lo[3] = {lo0, lo1, lo2}, ext[3] = {e0, e1, e2};             \
     const int cells = n0 * n1 * n2;                                          \
     if (n > 0)                                                               \
-      packet_march_kernel<T><<<blocks_for(n), kBlock, 0, st>>>(              \
-          make_grid<T>(nd, nc, lo, ext, per), op, r0, dirs, n, n_steps,      \
-          static_cast<T>(ds), static_cast<T>(0.5 * ds), acc, acc + cells,    \
-          acc + 2 * cells);                                                  \
+      packet_march_nd<T>(nd, make_grid<T>(nd, nc, lo, ext, per), op, r0,     \
+                         dirs, n, n_steps, static_cast<T>(ds),               \
+                         static_cast<T>(0.5 * ds), acc, cells, st);          \
     err = cudaGetLastError();                                                \
     if (err != cudaSuccess) return static_cast<int>(err);                    \
     packet_cast_kernel<T><<<blocks_for(cells > 0 ? cells : 1), kBlock, 0,    \
                             st>>>(acc, cells, path, absorbed, escaped);      \
     return static_cast<int>(cudaGetLastError());                             \
   }                                                                          \
-  int stromgren_prefix_##SFX(const T* r, const T* rec, int n, const T* rs,   \
-                             const T* ndot, const unsigned char* on, int ns, \
+  int stromgren_prefix_##SFX(const T* r, const T* rec, int n, int nd,       \
+                             const T* rs, const T* ndot,                     \
+                             const unsigned char* on, int ns,                \
                              int n_iter, int nlo, int chunk, int n_blocks,   \
                              T* d, T* wrec, T* partial, void* state,         \
                              unsigned char* out, int device, void* stream) { \
@@ -571,8 +631,14 @@ extern "C" {
     cudaStream_t st = static_cast<cudaStream_t>(stream);                     \
     SrcState* ss = static_cast<SrcState*>(state);                            \
     const int nhi = static_cast<int>(sizeof(T));                             \
+    if (nd < 1 || nd > 3) return static_cast<int>(cudaErrorInvalidValue);    \
     if (n <= 0 || ns <= 0) return 0;                                         \
-    src_dist_kernel<T><<<blocks_for(n), kBlock, 0, st>>>(r, n, rs, ns, d);   \
+    if (nd == 3)                                                             \
+      src_dist_kernel<T, 3><<<blocks_for(n), kBlock, 0, st>>>(r, n, rs, ns, d); \
+    else if (nd == 2)                                                        \
+      src_dist_kernel<T, 2><<<blocks_for(n), kBlock, 0, st>>>(r, n, rs, ns, d); \
+    else                                                                     \
+      src_dist_kernel<T, 1><<<blocks_for(n), kBlock, 0, st>>>(r, n, rs, ns, d); \
     for (int round = 0; round <= n_iter; ++round) {                          \
       weights_kernel<T><<<blocks_for(n), kBlock, 0, st>>>(                   \
           d, rec, n, ns, ndot, ss, round == 0, wrec);                        \

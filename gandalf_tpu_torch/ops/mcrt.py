@@ -96,18 +96,20 @@ def propagate_packets(spec, opacity_cell: Tensor, r0: Tensor, dirs: Tensor,
 
 
 def propagate_packets_plain(spec, opacity_cell: Tensor, r0: Tensor,
-                            dirs: Tensor, n_steps: int, ds: float):
+                            dirs: Tensor, n_steps: int, ds: float,
+                            acc_dtype=None):
     """Plain version of K36 at step ds: the JAX scan's body step by
     step, each step's scatter-adds into its own row of zeroed per-cell
-    sums, the rows summed after."""
+    sums, the rows summed after.  The sums are in `acc_dtype` (r0's type
+    by default; K36 accumulates in float64 whatever its type)."""
     n_cells = opacity_cell.numel()
     op_flat = opacity_cell.reshape(-1)
     index = cell_indexer(spec, r0.dtype, r0.device)
     pos, w = r0, torch.ones((r0.shape[0],), dtype=r0.dtype,
                             device=r0.device)
     # per step: path sums, absorbed sums and the escaped weight
-    sums = torch.zeros((n_steps, 2 * n_cells + 1), dtype=w.dtype,
-                       device=w.device)
+    sums = torch.zeros((n_steps, 2 * n_cells + 1),
+                       dtype=acc_dtype or w.dtype, device=w.device)
     half = 0.5 * ds
     for k in range(n_steps):
         flat, inside = index(pos + half * dirs)
@@ -117,16 +119,17 @@ def propagate_packets_plain(spec, opacity_cell: Tensor, r0: Tensor,
         wpath = torch.where(tau > 1e-12,
                             absorb / torch.clamp_min(op, 1e-300), w * ds)
         row = sums[k]
-        row.index_add_(0, flat, torch.where(inside, wpath, 0.0))
-        row.index_add_(0, flat + n_cells, torch.where(inside, absorb, 0.0))
-        row[-1] = torch.sum(torch.where(inside, 0.0, w))
+        row.index_add_(0, flat, torch.where(inside, wpath, 0.0).to(row.dtype))
+        row.index_add_(0, flat + n_cells,
+                       torch.where(inside, absorb, 0.0).to(row.dtype))
+        row[-1] = torch.sum(torch.where(inside, 0.0, w).to(row.dtype))
         w = torch.where(inside, w - absorb, 0.0)
         pos = pos + ds * dirs
     total = torch.sum(sums, 0)
     shape = tuple(spec.ncells)
     return (total[:n_cells].reshape(shape),
             total[n_cells:2 * n_cells].reshape(shape),
-            total[-1] + torch.sum(w))
+            total[-1] + torch.sum(w.to(total.dtype)))
 
 
 def mc_radiation_field(spec, opacity_cell: Tensor, r_src: Tensor,

@@ -15,8 +15,8 @@ dwarf, star).  ``sink_luminosity`` is an O(N_sink) torch pass;
 ``combined_ambient_temperature`` launches K30 (``csrc/radiative_fb.cu``)
 over every particle and sink slot on CUDA tensors and runs its plain
 version ``combined_ambient_temperature_plain`` (the JAX arithmetic over
-chunks of particles) on CPU tensors.  ``ambient_temperature`` (the sink
-term alone) is the combined temperature without a disc, and
+chunks of particles) on CPU tensors, in 1-3 dims.  ``ambient_temperature``
+(the sink term alone) is the combined temperature without a disc, and
 ``disc_ambient_t4`` is plain torch, as in the JAX package.
 """
 
@@ -113,9 +113,12 @@ def ambient_temperature(cfg: SinkHeatingConfig, r: Tensor, r_sink: Tensor,
 def disc_ambient_t4(cfg: DiscHeatingConfig, r: Tensor, r_sink: Tensor,
                     active: Tensor) -> Tensor:
     """(N,) T^4 of the disc profile about the first n_central sinks
-    (DiscHeating::AmbientTemp)."""
+    (DiscHeating::AmbientTemp), over the midplane's min(2, ndim)
+    components (the JAX function's r[:, :2] takes the one there is in
+    1D)."""
     nc = cfg.n_central
-    t4 = cfg.temp_au ** 4 * (_d2(r, r_sink[:nc], 2)
+    mid = min(2, r.shape[1])
+    t4 = cfg.temp_au ** 4 * (_d2(r, r_sink[:nc], mid)
                              + cfg.rsmooth ** 2) ** (-2.0 * cfg.temp_q)
     return torch.sum(torch.where(active[None, :nc], t4, 0.0), dim=1)
 

@@ -203,8 +203,12 @@ def march_plain(spec, field: Tensor, r0: Tensor, dirs: Tensor,
     N, D = lengths.shape
     if dirs.dim() == 2:
         dirs = dirs.expand(N, D, dirs.shape[-1])
-    ts = (torch.arange(n_steps, device=r0.device).to(r0.dtype) + 0.5) \
-        / n_steps
+    # t_k formed on the host: on CUDA tensors torch divides by a Python
+    # scalar as a product with its reciprocal, an ulp off the true
+    # quotient that the JAX function and K35 take, and a sample on a cell
+    # face would then fall into the next cell
+    ts = ((torch.arange(n_steps, dtype=r0.dtype) + 0.5) / n_steps).to(
+        r0.device)
     flat_field = field.reshape(-1)
     out = torch.empty((N, D), dtype=r0.dtype, device=r0.device)
     chunk = max(1, _CHUNK_SAMPLES // max(D * n_steps, 1))

@@ -160,8 +160,14 @@ class MfvMusclSimulation(SimulationBase):
             if self.self_gravity:
                 self._plan_tree_buckets(_host(self.state.r))
             self._bootstrap_with_replans()
-        self.t = float(self.state.t)
-        self.setup_complete = True
+        self._init_output_cadence()
+
+    def _state_to_host(self) -> Dict[str, np.ndarray]:
+        """A snapshot's arrays (gandalf_tpu/sim/mfv_sim.py:644-648)."""
+        s = self.state
+        return {k: _host(getattr(s, k))
+                for k in ("r", "v", "a", "m", "h", "rho", "u",
+                          "pressure", "sound")}
 
     def _run_bootstrap(self):
         if self.use_block:

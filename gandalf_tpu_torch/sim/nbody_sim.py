@@ -225,6 +225,19 @@ class NbodySimulation(SimulationBase):
         self.main_loop_step()
         return 1
 
+    def _state_to_host(self) -> Dict[str, np.ndarray]:
+        """A snapshot's arrays (gandalf_tpu/sim/nbody_sim.py:363-372): the
+        stars with any sub-system expanded, and rho and u zero so that
+        hydro analysis reads them."""
+        s = self.state
+        out = {k: _host(getattr(s, k))
+               for k in ("r", "v", "a", "m", "h", "gpot")}
+        if self._sys_rel:
+            out["r"], out["v"] = self._absolute_state()
+        out["rho"] = np.zeros(s.N)
+        out["u"] = np.zeros(s.N)
+        return out
+
     # -- sub-systems (SystemParticle internal integration) -------------------
     def _absolute_state(self):
         """Absolute star positions and velocities (each collapsed

@@ -53,7 +53,9 @@ stars as sources, the ionisation field updates every ``nradstep`` steps
 before the step, in the global step and the dense block tick
 (``_radiation_update``: the multi-source Stromgren balance, K37; the
 ray-traced OnTheSpot balance, K34 and K35; or the monochromatic
-Monte-Carlo balance, K34 and K36), and a burst never crosses an update.
+Monte-Carlo balance, K34 and K36), in 1-3 dims and in SM2012 too, and a
+burst never crosses an update.  A dusty run (which has no slots: F14)
+with a radiation scheme makes no update, as in the JAX package.
 
 ``SM2012SphSimulation`` is the counterpart of gandalf_tpu's: the same
 controller with the Saitoh & Makino (2012) grid pass of
@@ -77,9 +79,12 @@ over each particle's own step.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import math
 import os
-from typing import Dict, Optional
+import tempfile
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -119,7 +124,9 @@ from ..state import (BOUNDARY_TYPE, DUST_TYPE, FLAG_DEAD, GAS_TYPE,
                      ICM_TYPE, DomainBox, SphState, make_sph_state)
 from ..units import (L_SUN, M_JUP, M_SUN, R_SUN, SimUnits,
                      inscale_parameters)
+from ..utils.diagnostics import Diagnostics
 from ..utils.timing import CodeTiming
+from . import io as sim_io
 from .ic import generate_ic
 
 # queued steps per burst: each queued step keeps its input state alive
@@ -139,6 +146,41 @@ def _host(x) -> np.ndarray:
 def _unsupported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1, {item})")
+
+
+class Snapshot:
+    """In-memory snapshot of host arrays with lazy spill and reload
+    (gandalf_tpu/sim/simulation.py:Snapshot; SphSnapshot and SimBuffer's
+    memory management): beyond the cache budget a snapshot's arrays go
+    to an .npz file and come back on access."""
+
+    def __init__(self, t: float, data: Dict[str, np.ndarray]):
+        self.t = float(t)
+        self._data = data
+        self._spill_path = None
+
+    @property
+    def data(self) -> Dict[str, np.ndarray]:
+        if self._data is None:
+            loaded = np.load(self._spill_path, allow_pickle=True)
+            self._data = {k: loaded[k] for k in loaded.files}
+        return self._data
+
+    @property
+    def loaded(self) -> bool:
+        return self._data is not None
+
+    def unload(self, cache_dir: str, tag: str) -> None:
+        """Spill the arrays to disk and free the in-memory copy; a
+        snapshot with nested payloads (the stars' dict) stays."""
+        if self._data is None or any(not isinstance(v, np.ndarray)
+                                     for v in self._data.values()):
+            return
+        if self._spill_path is None:
+            os.makedirs(cache_dir, exist_ok=True)
+            self._spill_path = os.path.join(cache_dir, tag + ".npz")
+            np.savez(self._spill_path, **self._data)
+        self._data = None
 
 
 class SimulationBase:
@@ -169,8 +211,14 @@ class SimulationBase:
         self._n_tree_plans = 0
         self._step_fn = None
         self._leaf_of = None
-        # the next snapshot time; no snapshot is written
+        # the output cadence (set at setup by _init_output_cadence), the
+        # snapshots taken, the diagnostics and any restart data staged
+        # for setup (load_restart_snapshot)
         self.tsnapnext = math.inf
+        self.Noutsnap = 0
+        self.snapshots: List[Snapshot] = []
+        self.diag0 = None
+        self.restart_data = None
 
     @staticmethod
     def factory(params, device="cuda", dtype=None):
@@ -201,6 +249,54 @@ class SimulationBase:
 
             return MfvRungeKuttaSimulation(params, device, dtype)
         raise _unsupported(f"sim {sim!r}", "items 9-10")
+
+    def load_restart_snapshot(self) -> float:
+        """Read run_id.restart, then the snapshot it names, into the data
+        SetupSimulation starts from (SimulationBase::RestartSnapshot,
+        Simulation.cpp:609-631); the snapshot numbering continues past
+        the run's files.  Returns the snapshot's time."""
+        run_id = self.params.stringparams["run_id"]
+        with open(f"{run_id}.restart") as f:
+            form = f.readline().strip()
+            fname = f.readline().strip()
+        if form == "su":
+            t, data = sim_io.read_seren_unform(fname)
+        elif form == "sf":
+            t, data = sim_io.read_seren_form(fname)
+        else:
+            t, data = sim_io.read_column_snapshot(fname)
+        data["t"] = t
+        self.restart_data = data
+        existing = glob.glob(f"{run_id}.{form}.[0-9]*")
+        if existing:
+            self.Noutsnap = max(int(fn.rsplit(".", 1)[1])
+                                for fn in existing) + 1
+        return t
+
+    def _staged_ic(self):
+        """The IC staged by load_restart_snapshot, in code units (files
+        are in output units), with v, u and h filled in where the file
+        has none (gandalf_tpu/sim/simulation.py:1277-1300); None when
+        nothing is staged."""
+        if self.restart_data is None:
+            return None
+        ic = dict(self.restart_data)
+        if not self.units.dimensionless:
+            for k, q in (("r", "r"), ("v", "v"), ("m", "m"), ("h", "r"),
+                         ("rho", "rho"), ("u", "u")):
+                if k in ic:
+                    ic[k] = np.asarray(ic[k]) / self.units.output_scale(q)
+            if "t" in ic:
+                ic["t"] = float(ic["t"]) / self.units.output_scale("t")
+        n = len(ic["m"])
+        ic.setdefault("v", np.zeros((n, self.ndim)))
+        ic.setdefault("u", np.zeros(n))
+        if "h" not in ic or np.all(np.asarray(ic["h"]) == 0):
+            rho0 = np.asarray(ic.get("rho", np.ones(n)))
+            rho0 = np.where(rho0 > 0, rho0, 1.0)
+            ic["h"] = self.params.floatparams["h_fac"] \
+                * (np.asarray(ic["m"]) / rho0) ** (1.0 / self.ndim)
+        return ic
 
     def _require_device(self):
         """Refuse a CUDA device when there is none, rather than leave the
@@ -508,7 +604,8 @@ class SimulationBase:
         by step, so main_loop_step replans at the offending step.  A
         burst starts with the tree cadence's replan and ends at the next
         one.  Every step stops at tend (the device clamp); the host bound
-        near tend only limits the steps wasted there.  Block ticks run one
+        near tend and the next snapshot time only limits the steps wasted
+        there and lands the output where the JAX package's does.  Block ticks run one
         at a time.  Returns the steps done."""
         if self.use_block:
             self.main_loop_step()
@@ -518,12 +615,15 @@ class SimulationBase:
             ntb = max(self.params.intparams["ntreebuildstep"], 1)
             n = min(n, ntb - self.Nsteps % ntb)
         n = min(n, BURST_CAP)
-        tend = self.params.floatparams["tend"]
-        if tend < 1e20:
-            # stay clear of tend by a 2x dt margin (dt may grow)
+        # a snapshot time already passed (no output() since) bounds nothing
+        t_snap = self.tsnapnext if self.tsnapnext > self.t else math.inf
+        t_stop = min(self.params.floatparams["tend"], t_snap)
+        if t_stop < 1e20:
+            # stay clear of tend and the next snapshot by a 2x dt margin
+            # (dt may grow)
             dt0 = float(self.state.dt)
             if dt0 > 0.0 and math.isfinite(dt0):
-                n = min(n, int(max((tend - self.t) / dt0 * 0.5, 0.0)))
+                n = min(n, int(max((t_stop - self.t) / dt0 * 0.5, 0.0)))
         if n <= 1:
             self.main_loop_step()
             return 1
@@ -544,31 +644,164 @@ class SimulationBase:
         return n
 
     def _init_output_cadence(self):
-        """The first snapshot time, advanced past t (gandalf_tpu's
-        _init_output_cadence without the snapshot)."""
+        """The first snapshot when the run starts at or past tsnapfirst
+        (a restart), and the next output time past t."""
+        self.t = float(self.state.t)
         self.tsnapnext = self.params.floatparams["tsnapfirst"]
-        while self.tsnapnext <= self.t:
-            self.tsnapnext += self.params.floatparams["dt_snap"]
+        dt_snap = self.params.floatparams["dt_snap"]
+        self.setup_complete = True
+        if self.t >= self.tsnapnext:
+            self._take_snapshot()
+            while self.tsnapnext <= self.t:
+                self.tsnapnext += dt_snap
 
-    def output(self, final: bool = False):
-        """Advance the snapshot time once t has reached it, as
-        gandalf_tpu's output does; no snapshot is written."""
-        if self.t >= self.tsnapnext or final:
-            self.tsnapnext += self.params.floatparams["dt_snap"]
+    def output(self, final: bool = False) -> bool:
+        """The diagnostics tick, then a snapshot once t has reached the
+        next output time (or at the end): kept in memory and, with a
+        run_id and GANDALF_WRITE_SNAPSHOTS=1, written to
+        run_id.<form>.NNNNN (SimulationBase::Output,
+        Simulation.cpp:502-600).  Returns whether it took one."""
+        self._diagnostics_tick()
+        if not (self.t >= self.tsnapnext or final):
+            return False
+        self._take_snapshot()
+        self.tsnapnext += self.params.floatparams["dt_snap"]
+        if self.params.stringparams["run_id"] \
+                and os.environ.get("GANDALF_WRITE_SNAPSHOTS", "0") == "1":
+            self._write_snapshot_file()
+        self.Noutsnap += 1
+        return True
 
     def Run(self, Nadvance: int = -1):
-        """Advance until tend or Nstepsmax (or Nadvance more steps),
-        advancing the snapshot time after each burst; no snapshot
-        output."""
+        """Advance until tend or Nstepsmax (or Nadvance more steps), with
+        the output after each burst, a restart snapshot every
+        nrestartstep steps (with a run_id) and a stop at 95% of
+        tmax_wallclock that leaves one behind (SimulationBase::Run,
+        Simulation.cpp:382-431); a burst never crosses a diagnostics or
+        restart step."""
         if not self.setup_complete:
             self.SetupSimulation()
-        tend = self.params.floatparams["tend"]
-        nmax = (self.params.intparams["Nstepsmax"] if Nadvance < 0
+        p = self.params
+        # tend in the state's float type: in float32 the last step lands
+        # on float32(tend), which may lie below tend, and t < tend would
+        # then hold for ever
+        tend = float(torch.tensor(p.floatparams["tend"], dtype=self.dtype))
+        tmax_wall = p.floatparams["tmax_wallclock"]
+        nrestart = max(p.intparams["nrestartstep"], 1)
+        ndiag = max(p.intparams["ndiagstep"], 1)
+        nmax = (p.intparams["Nstepsmax"] if Nadvance < 0
                 else self.Nsteps + Nadvance)
+        run_id = p.stringparams["run_id"]
+        t_wall0 = time.time()
         while self.t < tend and self.Nsteps < nmax:
-            self.main_loop_steps(nmax - self.Nsteps)
+            n = min(nmax - self.Nsteps, ndiag - self.Nsteps % ndiag)
+            if run_id:
+                n = min(n, nrestart - self.Nsteps % nrestart)
+            self.main_loop_steps(n)
             self.output()
+            if run_id and self.Nsteps % nrestart == 0:
+                self._write_restart_snapshot()
+            if time.time() - t_wall0 > 0.95 * tmax_wall:
+                print(f"Reached 95% of tmax_wallclock={tmax_wall}s; "
+                      "writing restart snapshot and stopping")
+                if run_id:
+                    self._write_restart_snapshot()
+                return
         self.output(final=True)
+
+    def _write_restart_snapshot(self):
+        """A snapshot file and the run_id.restart pointer to it."""
+        self._take_snapshot()
+        self._write_snapshot_file()
+        self.Noutsnap += 1
+
+    def _write_snapshot_file(self):
+        """Write the state to run_id.<form>.NNNNN in out_file_form (su,
+        sf, sl or column), in output units and without accreted
+        particles, and point run_id.restart at it."""
+        p = self.params
+        form = p.stringparams["out_file_form"]
+        run_id = p.stringparams["run_id"]
+        form_tag = {"su": "su", "seren_unform": "su", "sf": "sf",
+                    "seren_form": "sf", "sl": "sl",
+                    "seren_lite": "sl"}.get(form, "column")
+        fname = f"{run_id}.{form_tag}.{self.Noutsnap:05d}"
+        data = self._state_to_host()
+        star = data.pop("star", None)
+        alive = data.pop("alive", None)
+        t_out = self.t
+        units = getattr(self, "units", None)
+        if units is not None and not units.dimensionless:
+            qmap = {"r": "r", "v": "v", "a": "a", "m": "m", "h": "r",
+                    "rho": "rho", "u": "u", "dudt": "dudt",
+                    "pressure": "press", "sound": "v"}
+            for k, q in qmap.items():
+                if k in data:
+                    data[k] = data[k] * units.output_scale(q)
+            if star is not None:
+                for k, q in (("r", "r"), ("v", "v"), ("m", "m"),
+                             ("h", "r")):
+                    star[k] = star[k] * units.output_scale(q)
+            t_out = self.t * units.output_scale("t")
+        if alive is not None and not alive.all():
+            data = {k: v[alive] for k, v in data.items()}
+        h_fac = p.floatparams["h_fac"]
+        if form_tag == "su":
+            sim_io.write_seren_unform(fname, t_out, data, h_fac=h_fac,
+                                      nsteps=self.Nsteps,
+                                      noutsnap=self.Noutsnap, star=star)
+        elif form_tag == "sf":
+            sim_io.write_seren_form(fname, t_out, data, h_fac=h_fac,
+                                    nsteps=self.Nsteps,
+                                    noutsnap=self.Noutsnap, star=star)
+        elif form_tag == "sl":
+            sim_io.write_seren_lite(fname, t_out, data,
+                                    noutsnap=self.Noutsnap)
+        else:
+            sim_io.write_column_snapshot(fname, t_out, data)
+        with open(f"{run_id}.restart", "w") as f:
+            f.write(f"{form_tag}\n{fname}\n")
+
+    def _diagnostics_tick(self):
+        """Energy and momentum accounting every ndiagstep steps
+        (Simulation.cpp:1652-1659), appended to run_id.diag when
+        snapshots are written."""
+        ndiag = max(self.params.intparams["ndiagstep"], 1)
+        if self.Nsteps % ndiag != 0 or self.state is None:
+            return
+        s = self.state
+        u = _host(s.u) if hasattr(s, "u") else None
+        gpot = _host(s.gpot) if getattr(self, "self_gravity", False) \
+            else None
+        d = Diagnostics.compute(_host(s.r), _host(s.v), _host(s.m), u, gpot)
+        if self.diag0 is None:
+            self.diag0 = d
+        run_id = self.params.stringparams["run_id"]
+        if run_id and os.environ.get("GANDALF_WRITE_SNAPSHOTS", "0") == "1":
+            with open(f"{run_id}.diag", "a") as f:
+                f.write(d.line(self.t, self.diag0) + "\n")
+
+    def _state_to_host(self) -> Dict[str, np.ndarray]:
+        """The state's arrays of a snapshot, on the host."""
+        raise NotImplementedError
+
+    def _take_snapshot(self):
+        self.snapshots.append(Snapshot(self.t, self._state_to_host()))
+        self._enforce_snapshot_cache()
+
+    def _enforce_snapshot_cache(self):
+        """Keep at most GANDALF_SNAPSHOT_CACHE snapshots in memory; the
+        older ones spill to a directory under the temporary directory
+        and reload on access."""
+        cap = int(os.environ.get("GANDALF_SNAPSHOT_CACHE", "64"))
+        if sum(sn.loaded for sn in self.snapshots) <= cap:
+            return
+        run_id = self.params.stringparams["run_id"] or "sim"
+        cache = os.path.join(tempfile.gettempdir(),
+                             f"gandalf_snapcache_{run_id}_{id(self)}")
+        for i, snap in enumerate(self.snapshots[:-cap]):
+            if snap.loaded:
+                snap.unload(cache, f"snap{i:05d}")
 
 
 class GradhSphSimulation(SimulationBase):
@@ -660,8 +893,6 @@ class GradhSphSimulation(SimulationBase):
                 raise ValueError(f"unknown dust_forces {self.dust_forces!r}")
             if self.sink_cfg.create or self.sink_cfg.accrete:
                 raise self._dust_with_sinks()
-            if self.radiation != "none":
-                raise _unsupported("radiation with dust", "item 12")
             require_m4(self.kern, "gas-dust drag (K23, K24)")
             self.drag_law = DragLaw.from_params(p)
 
@@ -748,31 +979,25 @@ class GradhSphSimulation(SimulationBase):
     def _check_sink_options(self):
         """The options the port runs with sink or star slots, whether the
         slots come from the parameters (create_sinks, sink_particles) or
-        from the IC's stars: 1-3 dims, no mirror walls, M4; below 3D no
-        radiation (K34-K37 are 3D) and no radiative feedback (K30 is
-        3D), whose sources are the slots."""
+        from the IC's stars: 1-3 dims (radiation and radiative feedback,
+        whose sources are the slots, too), no mirror walls, M4."""
         require_m4(self.kern, "sinks or stars (K14, K16-K18, K20)")
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries with sinks (the JAX "
                                "package's all-pairs path)", "item 8")
-        if self.ndim < 3 and self.radiation != "none":
-            raise _unsupported(
-                f"radiation at ndim {self.ndim} (K34-K37 and their "
-                "wrappers are 3D)", "item 12")
-        if self.ndim < 3 and self.rad_fb:
-            raise _unsupported(
-                f"radiative feedback at ndim {self.ndim} (K30, the ambient "
-                "temperature of the sinks' luminosity, is 3D)", "item 9")
 
     # -- setup -----------------------------------------------------------------
     def SetupSimulation(self, ic: Optional[Dict[str, np.ndarray]] = None):
         """Initial conditions, grid plan and bootstrap force pass.
 
         `ic` (keys r, v, m, h, u; optional t) replaces the generated IC,
-        as arrays staged with ImportArray do in the JAX package."""
+        as arrays staged with ImportArray do in the JAX package; without
+        one, a snapshot staged by load_restart_snapshot does."""
         self._require_device()
         with self.timing.block("SETUP"):
             self.process_parameters()
+            if ic is None:
+                ic = self._staged_ic()
             if ic is None:
                 with self.timing.block("GENERATE_IC"):
                     ic = generate_ic(self.params, self.eos)
@@ -821,8 +1046,7 @@ class GradhSphSimulation(SimulationBase):
             if self.self_gravity:
                 self._plan_tree_buckets(_host(self.state.r))
             self._bootstrap_with_replans()
-        self.t = float(self.state.t)
-        self.setup_complete = True
+        self._init_output_cadence()
 
     def _check_compacted_tick(self):
         """Options that the compacted block tick (the block tick without
@@ -1367,6 +1591,20 @@ class GradhSphSimulation(SimulationBase):
                     prev = self.state
         raise RuntimeError("neighbour overflow persists after 5 replans")
 
+    def _state_to_host(self) -> Dict[str, np.ndarray]:
+        """A snapshot's arrays (gandalf_tpu/sim/simulation.py:2264-2274):
+        with slots also the alive mask and the active slots' stars."""
+        s = self.state
+        out = {k: _host(getattr(s, k))
+               for k in ("r", "v", "a", "m", "h", "rho", "u", "dudt",
+                         "pressure", "sound", "div_v", "gpot")}
+        if self.has_sinks:
+            out["alive"] = _host(s.alive)
+            act = _host(s.sinks.active)
+            out["star"] = {k: _host(getattr(s.sinks, k))[act]
+                           for k in ("r", "v", "a", "m", "h")}
+        return out
+
     # -- radiation -------------------------------------------------------------
     def _radiation_due(self) -> bool:
         """Whether the radiation field updates before the next step: a
@@ -1475,7 +1713,9 @@ class SM2012SphSimulation(GradhSphSimulation):
     only.  Refused where the JAX package runs something other than the
     SM2012 grid pass: mirror walls (its all-pairs path, item 8), dust
     (one untyped pass over gas and dust: fault F18) and block timesteps
-    without sinks (its compacted tick runs grad-h SPH: fault F17)."""
+    without sinks (its compacted tick runs grad-h SPH: fault F17).  The
+    radiation schemes update the field as in the grad-h controller (the
+    JAX SM2012 controller inherits the same hook)."""
 
     SIM_NAMES = ("sm2012sph",)
 
@@ -1493,8 +1733,6 @@ class SM2012SphSimulation(GradhSphSimulation):
             raise _unsupported(
                 "dust in SM2012 (the JAX package runs gas and dust through "
                 "one untyped SM2012 pass: fault F18)", "item 9")
-        if self.radiation != "none":
-            raise _unsupported("radiation in SM2012", "item 12")
         require_m4(self.kern, "SM2012 SPH (K25, K26)")
 
     def _check_compacted_tick(self):

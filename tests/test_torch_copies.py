@@ -10,9 +10,11 @@ synthetic opacity table, the bit-exact xorshift
 generator and the N-body ICs drawn through it, the N-body sub-system
 tree, the C++ tree planner built from the port's own kdplan.cpp, and the
 radiation's host copies (the Spitzer sphere, the HEALPix directions, the
-stellar table)."""
+stellar table), and the snapshot I/O and diagnostics modules."""
 
+import ast
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -389,6 +391,20 @@ def test_stellar_table_copy_is_identical(tmp_path):
         for f in dataclasses.fields(theirs):
             assert np.array_equal(getattr(mine, f.name),
                                   getattr(theirs, f.name)), f.name
+
+
+@pytest.mark.parametrize("path", ["sim/io.py", "utils/diagnostics.py"])
+def test_io_and_diagnostics_copies_are_identical(path):
+    """The snapshot I/O and the diagnostics are host numpy: the port's
+    files hold the JAX package's code statement for statement, their
+    module docstrings aside (tests/test_torch_io.py runs them)."""
+    root = Path(__file__).resolve().parents[1]
+
+    def body(pkg):
+        tree = ast.parse((root / pkg / path).read_text())
+        return [ast.dump(node) for node in tree.body[1:]]
+
+    assert body("gandalf_tpu_torch") == body("gandalf_tpu")
 
 
 def test_other_ics_raise():

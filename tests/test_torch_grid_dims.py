@@ -275,8 +275,9 @@ def test_refusals_below_3d_name_their_items(ndim):
     """Self-gravity runs below 3D (tests/test_torch_gravity_dims_sim.py),
     but not the Ewald sum of a periodic box (ewald = 1, the default),
     which both controllers refuse with the JAX package's reason; sinks
-    run below 3D (tests/test_torch_sink_dims_sim.py), but not with
-    radiation (item 12: K34-K37 are 3D); block steps run below 3D
+    run below 3D (tests/test_torch_sink_dims_sim.py), with radiation
+    too, but not with a kernel other than M4 (item 9: K14, K16-K18 and
+    K20 hold M4 only); block steps run below 3D
     (tests/test_torch_block_dims.py)."""
     ewald = "Ewald periodic self-gravity requires a 3D box"
     p = mirror_params(8, ndim, walls=())
@@ -285,8 +286,8 @@ def test_refusals_below_3d_name_their_items(ndim):
     p = mirror_params(8, ndim, walls=())
     p.set("create_sinks", 1)
     SimulationBase.factory(p, "cpu", torch.float64).process_parameters()
-    p.set("radiation", "ionisation")
-    _refused(p, "item 12")
+    p.set("kernel", "quintic")
+    _refused(p, "item 9")
     p = mirror_params(8, ndim, walls=())
     p.set("sim", "meshlessfv")
     p.set("self_gravity", 1)

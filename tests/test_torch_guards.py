@@ -5,7 +5,8 @@ N-body and sink slices, block-stepped smooth accretion, the cd2010
 switch, a dusty box, an SM2012 tube, an external potential and the
 radws box and cluster with radiative feedback, a quintic box, a step
 of the Spitzer sphere under each radiation scheme, the 1D and 2D
-self-gravitating disc, MFV's too, and the 1D and 2D sink runs included);
+self-gravitating disc, MFV's too, the 1D and 2D sink runs, a step of the
+2D HII region and a run of the command line included);
 chip_smoke.py
 refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
@@ -183,6 +184,22 @@ def test_port_never_imports_jax():
         "    sim.SetupSimulation()\n"
         "    sim.main_loop_step()\n"
         "    assert sim.ndim < 3 and bool(sim.state.sinks.active.any())\n"
+        "sim = spitzer_sim(300, 'ionisation', 'cpu', torch.float64, ndim=2)\n"
+        "sim.main_loop_step()\n"
+        "assert sim.ndim == 2 and bool((sim.state.ionfrac > 0.5).any())\n"
+        "import os, tempfile\n"
+        "from gandalf_tpu_torch.__main__ import main\n"
+        "from gandalf_tpu_torch.check import (cli_params,\n"
+        "                                     write_cli_stellar_table,\n"
+        "                                     write_param_file)\n"
+        "here = os.getcwd()\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    os.chdir(d)\n"
+        "    write_param_file(cli_params(tend=0.02), 'run.dat')\n"
+        "    write_cli_stellar_table('stellar.dat')\n"
+        "    assert main(['run.dat'], device='cpu') == 0\n"
+        "    assert os.path.exists('HII2D.restart')\n"
+        "    os.chdir(here)\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -1025,6 +1042,23 @@ def test_radiation_kernels_match_plain_versions_on_gpu(dtype):
     report = compare_radiation_kernels(
         radiation_kernel_inputs(sim, n_packets=4096),
         stromgren=stromgren_inputs(4096, "cuda", dtype))
+    bad = {k: r for k, r in report.items() if not r["ok"]}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [2, 1])
+def test_radiation_kernels_below_3d_match_plain_versions_on_gpu(ndim, dtype):
+    """K30 and K34-K37 at NDIM 1 and 2 against their plain versions on
+    the card (check.compare_radiation_kernels_dims at 1,024 particles,
+    4,096 packets, 16 slots) with check.py's tolerances and flag bands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import compare_radiation_kernels_dims
+
+    report = compare_radiation_kernels_dims(ndim, "cuda", dtype, n=1024,
+                                            n_slots=16)
     bad = {k: r for k, r in report.items() if not r["ok"]}
     assert not bad, bad
 

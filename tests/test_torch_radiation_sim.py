@@ -17,8 +17,8 @@ largest value after every step.  (The lattice sphere ties its shells of
 equal distance exactly; after a step the ionisation scheme ranks a shell
 by each package's rounding noise, so the flags inside the front's shell
 may part from the second update on: the block run updates once.)  A run
-without sinks makes no update in either package; MFV and N-body refuse radiation (fault F26), SM2012 and
-dust with radiation are refused (ROADMAP item 12).
+without sinks makes no update in either package; MFV and N-body refuse radiation (fault F26); SM2012 and
+dust with radiation set up (their runs: tests/test_torch_radiation_dims_sim.py).
 """
 
 import numpy as np
@@ -217,13 +217,22 @@ def test_radiation_refused_f26(sim):
 
 @pytest.mark.parametrize("what", ["sm2012sph", "dust"])
 def test_radiation_refusals(what):
-    """SM2012 and dust with radiation are refused, naming item 12."""
+    """SM2012 and dust with radiation were refused, naming item 12; both
+    now set up.  SM2012 takes the update as the grad-h controller does
+    (the JAX SM2012 controller inherits the hook); a dusty run has no
+    slots (F14) and so makes no update, as in the JAX package (both held
+    to the JAX package in tests/test_torch_radiation_dims_sim.py)."""
     p = spitzer_params(64, radiation="treeray")
     if what == "dust":
         p.set("dust_forces", "test_particle")
+        p.set("drag_law", "fixed")
         p.set("sink_particles", 0)
     else:
         p.set("sim", what)
     controller = SimulationBase.factory(p, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        controller.SetupSimulation()
+    controller.process_parameters()
+    assert controller.radiation == "treeray"
+    assert type(controller).__name__ == (
+        "SM2012SphSimulation" if what == "sm2012sph"
+        else "GradhSphSimulation")
+    assert controller.has_dust == (what == "dust")

@@ -124,13 +124,13 @@ def test_options_outside_the_slice_raise(key, value, request):
     (which the JAX package's ignores: fault F16), self-gravity (which runs every walk
     option, the Ewald sum of this periodic box included) with octtree
     buckets, and a 2D run (which the grid path now takes, with block
-    timesteps, self-gravity and sinks too) with sinks and radiation
-    (K34-K37 are 3D)."""
+    timesteps, self-gravity, sinks and radiation too) with sinks and
+    supernova feedback (item 9)."""
     p = slice_params(8)
     case = request.node.callspec.id
     if key == "ndim":
         p.set("sink_particles", 1)
-        p.set("radiation", "ionisation")
+        p.set("supernova_feedback", "single")
     if key in ("sim", "dust_forces", "kernel") or case in (
             "locally_isothermal-sinks", "sinks-mirror_walls"):
         p.set("sink_particles", 1)

@@ -23,10 +23,12 @@ tests/test_torch_sinks_dims.py), which both discs meet within 8 steps.
 The port clamps each COM into its cell's box; the JAX runs here clamp
 theirs the same way (clamp_jax_com), as repoint_pads steers round F7.
 
-Also the refusals: a star-carrying IC reaches the same checks as the
-sink parameters; radiation (item 12: K34-K37 are 3D) and radiative
-feedback (item 9: K30 is 3D) with slots below 3D; binaryacc in 1D,
-refused by both packages' generators.
+Also the checks: a star-carrying IC reaches the same checks as the sink
+parameters (a smoothing kernel other than M4 with slots is refused
+either way, naming item 9); radiation and radiative feedback with slots
+below 3D set up (refused until K30 and K34-K37 took NDIM 1 and 2; their
+runs are held to the JAX package in tests/test_torch_radiation_dims_sim.py);
+binaryacc in 1D, refused by both packages' generators.
 """
 
 import jax.numpy as jnp
@@ -212,43 +214,44 @@ def _stars_only(ndim=2):
 def test_slots_from_either_route_are_checked(route):
     """The repair: _check_sink_options runs wherever the run has slots,
     from the sink parameters (in process_parameters) or from the IC's
-    stars (in SetupSimulation, before anything is allocated): radiation
-    below 3D is refused either way, by name; without slots it is not."""
+    stars (in SetupSimulation, before anything is allocated): the quintic
+    kernel with slots (K14, K16-K18 and K20 hold M4 only) is refused
+    either way, by name; without slots it is not."""
     if route == "parameters":
         p = sink_disc_params(100, 2)
     else:
         p = _stars_only()
-    p.set("radiation", "ionisation")
+    p.set("kernel", "quintic")
     sim = SimulationBase.factory(p, "cpu", torch.float64)
     if route == "parameters":
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 9"):
             sim.process_parameters()
         return
     sim.process_parameters()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         sim.SetupSimulation()
     assert sim.state is None
 
 
 @pytest.mark.parametrize("ndim", [1, 2])
 def test_radiation_with_slots_below_3d_is_refused(ndim):
-    """K34-K37 and their wrappers are 3D: radiation with sink slots at
-    ndim 1 or 2 names ROADMAP queue 1, item 12."""
+    """Radiation with sink slots at ndim 1 or 2 was refused while
+    K34-K37's wrappers were 3D; it now passes the sink checks under each
+    scheme (the runs: tests/test_torch_radiation_dims_sim.py)."""
     for scheme in ("ionisation", "treeray", "monoionisation"):
         p = sink_disc_params(64, ndim)
         p.set("radiation", scheme)
         sim = SimulationBase.factory(p, "cpu", torch.float64)
-        with pytest.raises(NotImplementedError,
-                           match=f"radiation at ndim {ndim}.*item 12"):
-            sim.process_parameters()
+        sim.process_parameters()
+        assert sim.radiation == scheme and sim.ndim == ndim
 
 
 @pytest.mark.parametrize("ndim", [1, 2])
 def test_radiative_feedback_with_slots_below_3d_is_refused(ndim):
-    """K30 is 3D: radiative feedback (rad_fb with the radws relaxation)
-    with sink slots at ndim 1 or 2 names ROADMAP queue 1, item 9."""
+    """Radiative feedback (rad_fb with the radws relaxation) with sink
+    slots at ndim 1 or 2 was refused while K30 was 3D; it now sets up,
+    with disc heating about the first slot."""
     p = radfb_params(radws_params(sink_disc_params(64, ndim)))
     sim = SimulationBase.factory(p, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError,
-                       match=f"radiative feedback at ndim {ndim}.*item 9"):
-        sim.process_parameters()
+    sim.process_parameters()
+    assert sim.rad_fb and sim.radfb_disc_cfg.n_central == 1

@@ -475,6 +475,22 @@ printing one line:
    to tend, stopped by Nstepsmax, restarted with -r at the stopped t
    (rel 1e-10) to tend with finite fields, the end against the
    uninterrupted run's.
+105. mfv_family_kernels: K10, K11 (with extrema), K31, K12 (HLLC,
+    exact, RK2, the cell alphas, zeroslope and its block mode), K7's MFV
+    mode (3D, not the gaussian) and the block pass's K22, K32, K33 with
+    the quintic, the gaussian and the tabulated M4, quintic and gaussian
+    at ndim 1-3 against their plain versions, float64 and float32
+    (check.compare_mfv_family_kernels);
+106. mfv_family_parity: float64 on the card against the CPU path with
+    equal plans: mfv_box at 8^3 with each variant (the tree but with the
+    gaussian), a 2D Nlevels 3 box with the tabulated M4 (equal levels),
+    the 1D mfvrk exact tube with the quintic;
+107. mfv_quintic_box: mfv_box at 64^3 (262,144, float32) with the
+    quintic and the tree: K7's MFV mode and K10-K12 with the quintic
+    every step, mfv_main_path's gates;
+108. mfv_family_block: mfv_block_sphere's run with the tabulated quintic
+    (its energy gate F24's, as quintic_block's) and mfv_khi's first run
+    (524,288) with the gaussian.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -516,7 +532,10 @@ mode too), K20 in 2D from sink_block_disc_2d and K14, K16, K17, K20 in
 (float64), K37, K34 and K35, K34 and K36 in 2D from the hii_region_2d
 phases, K30 in 2D from radfb_disc_2d and K30, K34-K37 in 1D from
 radiation_dims_parity's rods on the card (float64; times from
-radiation_kernels_dims' float32 runs), each counted
+radiation_kernels_dims' float32 runs), K7's MFV mode and K10-K12 with
+the quintic from mfv_quintic_box, with the tabulated quintic (K12's
+block mode) from mfv_family_block's sphere and in 2D with the gaussian
+from its KHI, each counted
 over its path's timed window (the tubes' over their whole block runs)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -727,6 +746,10 @@ RADWS_MFV_T_TOL = 0.12
 RADWS_BLOCK_WARM = 2
 RADWS_BLOCK_TICKS = 32
 RADFB_N = 262144
+# the radiative-feedback cluster's timed steps: each takes about 1 s on
+# the host, and 16 (32 until phases 105-108 came) leave the script room
+# under its time limit
+RADFB_STEPS_TIMED = 16
 RADWS_PARITY_N = 8
 # the quintic, gaussian and tabulated kernels (phases 56-62): the
 # variants of the grid path's K2, K3, K7-K9 beside the direct M4, the
@@ -893,6 +916,21 @@ RAD_DIMS_PARITY_STEPS = 3
 CLI_SIDE = 64
 CLI_TEND = 0.05
 CLI_STOP_STEPS = 12
+# the smoothing-kernel family in MFV (phases 105-108): every variant but
+# the direct M4 (kernels.smoothing.VARIANTS), K12 in its modes of
+# check.MFV_FAMILY_FLUX_MODES and its block mode; the variants of the
+# full-width block sphere and 2D KHI
+MFV_FAMILY_VARIANTS = FAMILY_VARIANTS + ("gaussian_tab",)
+MFV_FAMILY_SPHERE_VARIANT = "quintic_tab"
+MFV_FAMILY_KHI_VARIANT = "gaussian"
+# the quintic sphere's energy gate: F24's wrong quintic wzeta (copied
+# for parity) spoils the grad-h gravity correction, as it does in SPH's
+# quintic_block.  On an H100 the block MFV sphere (258,135 particles,
+# float32, 32 ticks) drifted 8.20e-3 with the tabulated quintic (M4's
+# 1.92e-5); the direct quintic drifts as much, the tabulated M4 as
+# little as M4: the quintic, not the table, takes the sphere past
+# MFV_BLOCK_SPHERE_ENERGY_TOL.  The gate is QUINTIC_BLOCK_ENERGY_DRIFT_TOL.
+MFV_FAMILY_SPHERE_ENERGY_TOL = QUINTIC_BLOCK_ENERGY_DRIFT_TOL
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -1106,6 +1144,30 @@ for _base, _variants in (
         ("tree_near_list", ("quintic",))):
     for _v in _variants:
         SOURCES[f"{_base}_{_v}"] = _FAMILY_SOURCES[_base]
+# the MFV kernels with the smoothing-kernel family on their main paths:
+# the quintic from mfv_quintic_box, the tabulated quintic from
+# mfv_family_block's sphere (K12's block mode), the gaussian from its
+# 2D KHI; the JAX functions' kernel evaluations they replace
+_MFV_FAMILY_SOURCES = {
+    "mfv_density": ("gandalf_tpu_torch/csrc/mfv_density.cu",
+                    "gandalf_tpu/ops/mfv_grid27.py:124"),
+    "mfv_gradients": ("gandalf_tpu_torch/csrc/mfv_gradients.cu",
+                      "gandalf_tpu/ops/mfv.py:207"),
+    "mfv_fluxes": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
+                   "gandalf_tpu/ops/mfv.py:709"),
+    "mfv_fluxes_block": ("gandalf_tpu_torch/csrc/mfv_fluxes.cuh",
+                         "gandalf_tpu/ops/mfv.py:709"),
+    "tree_near_mfv": ("gandalf_tpu_torch/csrc/tree_near.cuh",
+                      "gandalf_tpu/ops/tree.py:768"),
+}
+for _base, _keys in (
+        ("mfv_density", ("quintic", "quintic_tab", "gaussian_2d")),
+        ("mfv_gradients", ("quintic", "quintic_tab", "gaussian_2d")),
+        ("mfv_fluxes", ("quintic", "gaussian_2d")),
+        ("mfv_fluxes_block", ("quintic_tab",)),
+        ("tree_near_mfv", ("quintic", "quintic_tab"))):
+    for _v in _keys:
+        SOURCES[f"{_base}_{_v}"] = _MFV_FAMILY_SOURCES[_base]
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
 # the kernels of a block tick with self-gravity
@@ -3733,9 +3795,10 @@ def radfb_cluster(dev, card):
     ambient_heating = disc_heating = 1, temp_ambient 1, source radii
     0.01); mplummer 2 and starfrac 0.5 give each star about 0.25, a
     stellar-class source, and slot 0 is the central one.  Setup (the
-    host IC's seconds), 2 warm-up and 32 timed steps (K1-K7, K14, K16,
-    K18, K27, K28 and K30 every step; no K17: the stars come from the IC,
-    create_sinks = 0), gas plus star mass within BB_MASS_TOL, finiteness
+    host IC's seconds), 2 warm-up and RADFB_STEPS_TIMED timed steps
+    (K1-K7, K14, K16, K18, K27, K28 and K30 every step; no K17: the stars
+    come from the IC, create_sinks = 0), gas plus star mass within
+    BB_MASS_TOL, finiteness
     over the alive gas, and T_amb >= temp_ambient for every particle at
     the end; then K30 against its plain version at the path's state (the
     run's own case, 4 slots).  Returns K30's launches and report."""
@@ -3759,7 +3822,7 @@ def radfb_cluster(dev, card):
     m0 = total_mass(sim)
     steps0 = sim.Nsteps
     _ext.reset_launches()
-    elapsed = run_timed(sim, GRAVITY_STEPS_TIMED)
+    elapsed = run_timed(sim, RADFB_STEPS_TIMED)
     done = sim.Nsteps - steps0
     names = GRAVITY + ("direct_softened", "star_gas_forces",
                        "accretion_sums") + RADWS_SPH + ("ambient_temperature",)
@@ -4364,8 +4427,8 @@ def _mfv_path_counts(sim, names):
     from gandalf_tpu_torch.check import kernel_name
     from gandalf_tpu_torch.ops.mfv_grid27 import flux_count
 
-    keys = [kernel_name(k, sim.gridspec) for k in names]
-    keys.append(flux_count(sim.gridspec, sim.mfv_cfg))
+    keys = [kernel_name(k, sim.gridspec, sim.kern) for k in names]
+    keys.append(flux_count(sim.gridspec, sim.mfv_cfg, kern=sim.kern))
     return {k: _ext.LAUNCHES[k] for k in keys}
 
 
@@ -4490,69 +4553,77 @@ def mfv_khi(dev, card):
     axis (check.mfv_khi_params(512): 524,288 particles) in float32:
     setup, 2 warm-up steps, 32 timed steps with HLLC and the Gizmo
     limiter; then the same from a new setup with the exact solver and
-    tvdscalar, 16 timed steps.  Each: the rate, the counts (set to 0
-    before the timed steps), K1 twice and K10-K12 (and K31) every step,
-    mass exact, energy drift within 2e-3, min rho < 1.3 and max rho >
-    1.6, finite fields; the kernels against their plain versions and
-    under both thread mappings at the run's end."""
+    tvdscalar, 16 timed steps (_mfv_khi_run)."""
+    launches, rep = {}, {}
+    for steps, over in zip(MFV_KHI_STEPS, ({}, {
+            "riemann_solver": "exact", "slope_limiter": "tvdscalar"})):
+        counts, r = _mfv_khi_run(dev, card, steps, **over)
+        _first_counts(launches, rep, counts, r)
+    return launches, rep
+
+
+def _mfv_khi_run(dev, card, steps, tag="mfv_khi", **over):
+    """One run of mfv_khi's box with `over` set: the rate, the counts
+    (set to 0 before the timed steps), K1 twice and K10-K12 (and K31)
+    every step, mass exact, energy drift within 2e-3, min rho < 1.3 and
+    max rho > 1.6, finite fields; the kernels against their plain
+    versions (K12 also under RK2) and under both thread mappings at the
+    run's end.  Prints the phase line `tag`; returns the counts and the
+    kernel reports."""
     from gandalf_tpu_torch import _ext
     from gandalf_tpu_torch.check import (compare_mfv_kernels,
                                          mfv_khi_params, mfv_mapping_times)
     from gandalf_tpu_torch.sim.simulation import SimulationBase
 
-    launches, rep = {}, {}
-    for steps, over in zip(MFV_KHI_STEPS, ({}, {
-            "riemann_solver": "exact", "slope_limiter": "tvdscalar"})):
-        t_phase = time.perf_counter()
-        sim = SimulationBase.factory(mfv_khi_params(MFV_KHI_N, **over), dev,
-                                     torch.float32)
-        sim.SetupSimulation()
-        m0 = sim.state.m.clone()
-        run_timed(sim, STEPS_WARM)
-        e0 = _mfv_energy_nd(sim.state)
-        steps0 = sim.Nsteps
-        _ext.reset_launches()
-        elapsed = run_timed(sim, steps)
-        done = sim.Nsteps - steps0
-        sweep = ("mfv_limiter_tvdscalar",) if over else ()
-        counts = _mfv_path_counts(sim, ("mfv_density", "mfv_gradients")
-                                  + sweep)
-        bins = _ext.LAUNCHES["grid27_bin_2d"]
-        s = sim.state
-        drift = abs(_mfv_energy_nd(s) - e0) / abs(e0)
-        checks = {
-            "finite": all(bool(torch.isfinite(getattr(s, f)).all())
-                          for f in ("r", "v", "u", "h", "rho", "Qcons0",
-                                    "grad")),
-            "mass_exact": bool(torch.equal(s.m, m0)),
-            "no_overflow": not bool(s.neib_overflow),
-            "launches": all(n >= done for n in counts.values())
-            and bins >= 2 * done,
-            "energy_drift": drift <= MFV_KHI_ENERGY_TOL,
-            "rho_min": float(s.rho.min()) < 1.3,
-            "rho_max": float(s.rho.max()) > 1.6,
-        }
-        # K12 also under RK2 at this state, for its time at the 2D box
-        r = compare_mfv_kernels(sim, s, repeats=5, flux_cfgs=[
-            sim.mfv_cfg, dataclasses.replace(sim.mfv_cfg,
-                                             time_scheme="rk2")])
-        mapping = mfv_mapping_times(sim, s)
-        tag = "exact_tvdscalar" if over else "hllc_gizmo"
-        RATES[f"mfv_khi_{tag}"] = s.N * done / elapsed
-        phase("mfv_khi", mode=tag, N=s.N, steps=sim.Nsteps,
-              timed_steps=done, timed_s=elapsed,
-              particle_steps_per_s=s.N * done / elapsed,
-              ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
-              launches=counts, energy_drift=drift,
-              rho_range=[float(s.rho.min()), float(s.rho.max())],
-              checks=checks, kernels=r, slot_mappings=mapping, card=card,
-              seconds=time.perf_counter() - t_phase)
-        failed = [k for k, ok in checks.items() if not ok]
-        failed += [k for k, x in r.items() if not x["ok"]]
-        if failed:
-            raise RuntimeError(f"mfv_khi ({tag}) checks failed: {failed}")
-        _first_counts(launches, rep, counts, r)
-    return launches, rep
+    t_phase = time.perf_counter()
+    sim = SimulationBase.factory(mfv_khi_params(MFV_KHI_N, **over), dev,
+                                 torch.float32)
+    sim.SetupSimulation()
+    m0 = sim.state.m.clone()
+    run_timed(sim, STEPS_WARM)
+    e0 = _mfv_energy_nd(sim.state)
+    steps0 = sim.Nsteps
+    _ext.reset_launches()
+    elapsed = run_timed(sim, steps)
+    done = sim.Nsteps - steps0
+    lim = sim.mfv_cfg.slope_limiter
+    sweep = (f"mfv_limiter_{lim}",) if lim in _ext.MFV_SWEEP else ()
+    counts = _mfv_path_counts(sim, ("mfv_density", "mfv_gradients")
+                              + sweep)
+    bins = _ext.LAUNCHES["grid27_bin_2d"]
+    s = sim.state
+    drift = abs(_mfv_energy_nd(s) - e0) / abs(e0)
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("r", "v", "u", "h", "rho", "Qcons0",
+                                "grad")),
+        "mass_exact": bool(torch.equal(s.m, m0)),
+        "no_overflow": not bool(s.neib_overflow),
+        "launches": all(n >= done for n in counts.values())
+        and bins >= 2 * done,
+        "energy_drift": drift <= MFV_KHI_ENERGY_TOL,
+        "rho_min": float(s.rho.min()) < 1.3,
+        "rho_max": float(s.rho.max()) > 1.6,
+    }
+    # K12 also under RK2 at this state, for its time at the 2D box
+    r = compare_mfv_kernels(sim, s, repeats=5, flux_cfgs=[
+        sim.mfv_cfg, dataclasses.replace(sim.mfv_cfg, time_scheme="rk2")])
+    mapping = mfv_mapping_times(sim, s)
+    mode = ("exact_" if sim.mfv_cfg.riemann == "exact" else "hllc_") + lim
+    RATES[f"{tag}_{mode}"] = s.N * done / elapsed
+    phase(tag, mode=mode, kernel=sim.kern.variant, N=s.N, steps=sim.Nsteps,
+          timed_steps=done, timed_s=elapsed,
+          particle_steps_per_s=s.N * done / elapsed,
+          ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
+          launches=counts, energy_drift=drift,
+          rho_range=[float(s.rho.min()), float(s.rho.max())],
+          checks=checks, kernels=r, slot_mappings=mapping, card=card,
+          seconds=time.perf_counter() - t_phase)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, x in r.items() if not x["ok"]]
+    if failed:
+        raise RuntimeError(f"{tag} ({mode}) checks failed: {failed}")
+    return counts, r
 
 
 def _mfv_box_variant(dev, card, tag, **over):
@@ -4606,7 +4677,8 @@ def _mfv_box_variant(dev, card, tag, **over):
     phase(tag, N=s.N, steps=sim.Nsteps, timed_steps=done, timed_s=elapsed,
           particle_steps_per_s=s.N * done / elapsed,
           mfv_main_path_particle_steps_per_s=RATES.get("mfv"),
-          k_cell=sim.gridspec.k_cell, launches=counts, energy_drift=drift,
+          kernel=sim.kern.variant, k_cell=sim.gridspec.k_cell,
+          launches=counts, energy_drift=drift,
           energy_gate=MFV_ENERGY_DRIFT_TOL, accuracy=acc, checks=checks,
           kernels=r, card=card, seconds=time.perf_counter() - t_phase)
     failed = [k for k, ok in checks.items() if not ok]
@@ -4947,8 +5019,10 @@ def mfv_block_khi(dev, card):
     return launches, rep
 
 
-def mfv_block_sphere(dev, card):
-    """Phase 75: the cold sphere of cold_sphere_block
+def mfv_block_sphere(dev, card, variant=None, tag="mfv_block_sphere",
+                     energy_gate=MFV_BLOCK_SPHERE_ENERGY_TOL):
+    """Phase 75 (and, with the smoothing kernel `variant`, the sphere of
+    phase 108 under `tag`): the cold sphere of cold_sphere_block
     (check.mfv_block_sphere_params(262144): 258,135 particles, Nlevels
     4, the quadrupole tree, the conservative limiter) through block MFV
     in float32, block_main_path's IC: setup, 4 warm-up ticks, 32 timed
@@ -4958,12 +5032,12 @@ def mfv_block_sphere(dev, card):
     overflow, the mass exact, the tree's accuracy against the all-pairs
     mfv_smoothed_gravity, with block_main_path's bound for this sphere,
     and the drift of the predicted energy sum m (u + v^2/2) - sum m gpot
-    / 2 over the window within MFV_BLOCK_SPHERE_ENERGY_TOL); the
-    conservative bound against the oracle; the block kernels and K10-K12
-    against their plain versions at the run's end."""
+    / 2 over the window within `energy_gate`); the conservative bound
+    against the oracle; the block kernels and K10-K12 against their
+    plain versions at the run's end."""
     from gandalf_tpu_torch import _ext
     from gandalf_tpu_torch.check import (compare_mfv_block_kernels,
-                                         compare_mfv_kernels,
+                                         compare_mfv_kernels, family_params,
                                          mfv_block_sphere_params,
                                          mfv_gravity_accuracy)
     from gandalf_tpu_torch.ops.mfv_grid27 import flux_count
@@ -4971,6 +5045,8 @@ def mfv_block_sphere(dev, card):
 
     t_phase = time.perf_counter()
     params = mfv_block_sphere_params(BLOCK_N)
+    if variant is not None:
+        family_params(variant, params)
     sim = SimulationBase.factory(params, dev, torch.float32)
     t0 = time.perf_counter()
     sim.SetupSimulation(block_ic(params))
@@ -4984,10 +5060,12 @@ def mfv_block_sphere(dev, card):
     t_sim0 = sim.t
     elapsed, ended = _block_window(sim, MFV_BLOCK_SPHERE_TICKS)
     ticks = MFV_BLOCK_SPHERE_TICKS
-    names = ["grid27_bin", "tree_gather", "tree_build", "tree_walk",
-             "tree_near_mfv", "mfv_density", "mfv_gradients", "levelneib",
-             "mfv_vsig_near", "mfv_vsig_far",
-             flux_count(sim.gridspec, sim.mfv_cfg, block=True)]
+    kern = sim.kern
+    fam = [_ext.family_count(k, kern)
+           for k in ("tree_near_mfv", "mfv_density", "mfv_gradients")]
+    k12 = flux_count(sim.gridspec, sim.mfv_cfg, block=True, kern=kern)
+    names = ["grid27_bin", "tree_gather", "tree_build", "tree_walk", *fam,
+             "levelneib", "mfv_vsig_near", "mfv_vsig_far", k12]
     counts = {k: _ext.LAUNCHES[k] for k in names}
     s = sim.state
     drift = abs(_predicted_energy(s) - e0) / abs(e0)
@@ -5003,15 +5081,22 @@ def mfv_block_sphere(dev, card):
         "launches": all(n >= ticks for n in counts.values())
         and counts["grid27_bin"] >= 2 * ticks,
         "accuracy": acc["rms_rel_err"] <= BLOCK_ACCURACY_TOL,
-        "energy_drift": drift <= MFV_BLOCK_SPHERE_ENERGY_TOL,
+        "energy_drift": drift <= energy_gate,
         "bound_above_oracle": oracle["above_oracle"],
         "run_dtype_bound_above_oracle": oracle["run_dtype_above_oracle"],
         "bound_median_ratio": oracle["median_ratio"] < 10.0,
     }
-    rep = compare_mfv_block_kernels(sim, repeats=5)
-    rep.update(compare_mfv_kernels(sim, s, repeats=5))
+    if variant is None:
+        rep = compare_mfv_block_kernels(sim, repeats=5)
+        rep.update(compare_mfv_kernels(sim, s, repeats=5))
+    else:
+        # K22, K32 and K33 take no W: timed in the M4 run only; K12 in its
+        # block mode only
+        rep = compare_mfv_block_kernels(sim, repeats=5, timed_names=[k12])
+        rep.update(compare_mfv_kernels(sim, s, repeats=5, flux_cfgs=[]))
     spec = sim.treespec
-    phase("mfv_block_sphere", N=s.N, ticks=sim.Nsteps, timed_ticks=ticks,
+    phase(tag, kernel=kern.variant, N=s.N, ticks=sim.Nsteps,
+          timed_ticks=ticks,
           setup_s=t_setup, timed_s=elapsed, ticks_per_s=ticks / elapsed,
           particle_updates_per_s=s.N * ticks / elapsed,
           steps_ended_per_s=ended / elapsed,
@@ -5023,16 +5108,18 @@ def mfv_block_sphere(dev, card):
           replans_in_window=sim._n_grid_overflows - replans0,
           G_pad=spec.n_leaves, ncells=list(sim.gridspec.ncells),
           k_cell=sim.gridspec.k_cell, launches=counts, energy_drift=drift,
-          energy_gate=MFV_BLOCK_SPHERE_ENERGY_TOL, accuracy=acc,
+          energy_gate=energy_gate, accuracy=acc,
           accuracy_gate=BLOCK_ACCURACY_TOL, bound_vs_oracle=oracle,
           checks=checks, kernels=rep, card=card,
           seconds=time.perf_counter() - t_phase)
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
-        raise RuntimeError(f"mfv_block_sphere checks failed: {failed}")
-    keep = ("mfv_vsig_near", "mfv_vsig_far",
-            flux_count(sim.gridspec, sim.mfv_cfg, block=True))
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+    # with a variant: its K7, K10-K12 entries (K22, K32, K33 take no W and
+    # stand in the kernel line from the M4 run)
+    keep = [k12] + (fam if variant is not None
+                    else ["mfv_vsig_near", "mfv_vsig_far"])
     return {k: counts[k] for k in keep}, {k: rep[k] for k in keep}
 
 
@@ -6692,6 +6779,123 @@ def cli_restart(dev, card) -> None:
     _raise_failed("cli_restart", checks, {})
 
 
+def mfv_family_kernels(dev) -> None:
+    """Phase 105: K10, K11 (with extrema), K31 (tvdscalar and
+    springel2009), K12 in check.MFV_FAMILY_FLUX_MODES (HLLC, exact, RK2,
+    the cell alphas, zeroslope) and its block mode, K7's MFV mode (3D,
+    not the gaussian: F23) and the block pass's K22, K32, K33 with each
+    of MFV_FAMILY_VARIANTS at ndim 1-3 against their plain versions on
+    the card (check.compare_mfv_family_kernels), in float64 (within
+    check.TOL_F64) and float32; the tabulated kernels' reports count the
+    pairs near a table point."""
+    from gandalf_tpu_torch.check import compare_mfv_family_kernels
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for variant in MFV_FAMILY_VARIANTS:
+        for ndim in (1, 2, 3):
+            for dtype in (torch.float64, torch.float32):
+                t1 = time.perf_counter()
+                rep = compare_mfv_family_kernels(variant, ndim, dev, dtype)
+                torch.cuda.synchronize()
+                for r in rep.values():
+                    r.pop("work", None)
+                phase("mfv_family_kernels", variant=variant, ndim=ndim,
+                      dtype=str(dtype), report=rep,
+                      seconds=time.perf_counter() - t1)
+                require_ok("mfv_family_kernels", rep)
+                n_cases += 1
+    phase("mfv_family_kernels_done", cases=n_cases,
+          seconds=time.perf_counter() - t0)
+
+
+def mfv_family_parity(dev) -> None:
+    """Phase 106: float64 on the card against the plain path on the CPU,
+    with equal grid and tree plans: FAMILY_PARITY_STEPS steps of
+    mfv_box at FAMILY_PARITY_N^3 (jittered) with each of
+    MFV_FAMILY_VARIANTS (the tree but with the gaussian), then
+    FAMILY_BLOCK_TICKS ticks of the 2D box (16^2 + 16^2, jittered,
+    Nlevels 3) with the tabulated M4 (levels equal) and
+    FAMILY_PARITY_STEPS steps of the Sod tube (128 + 32) under mfvrk
+    with the exact solver and the quintic; every field within
+    PARITY_TOL."""
+    from gandalf_tpu_torch.check import (family_params, jittered_box_ic,
+                                         jittered_lattice_ic,
+                                         mfv_khi_params, mfv_params,
+                                         mfv_sod_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+    runs = []
+    for v in MFV_FAMILY_VARIANTS:
+        p = family_params(v, mfv_params(
+            FAMILY_PARITY_N, self_gravity=int(not v.startswith("gaussian"))))
+        runs.append((f"box_{v}", p, jittered_box_ic(p, FAMILY_PARITY_N),
+                     FAMILY_PARITY_STEPS))
+    khi = family_params("m4_tab", mfv_khi_params(16, Nlevels=3))
+    runs.append(("khi_block_m4_tab", khi, jittered_lattice_ic(khi),
+                 FAMILY_BLOCK_TICKS))
+    runs.append(("tube_mfvrk_exact_quintic", family_params(
+        "quintic", mfv_sod_params(128, 32, sim="mfvrk",
+                                  riemann_solver="exact")), None,
+        FAMILY_PARITY_STEPS))
+    for tag, params, ic, steps in runs:
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = SimulationBase.factory(params.copy(), device,
+                                         torch.float64)
+            sim.SetupSimulation(None if ic is None else dict(ic))
+            for _ in range(steps):
+                sim.main_loop_step()
+            sims.append(sim)
+        torch.cuda.synchronize()
+        fields = ("r", "v", "u", "m", "h", "rho", "Qcons0") + (
+            ("a", "gpot") if sims[1].self_gravity else ())
+        errs = parity_errors(sims, fields)
+        same = {"grid": sims[0].gridspec == sims[1].gridspec,
+                "tree": sims[0].treespec == sims[1].treespec,
+                "plans": ((sims[0]._n_tree_plans, sims[0]._n_grid_overflows)
+                          == (sims[1]._n_tree_plans,
+                              sims[1]._n_grid_overflows))}
+        if sims[1].use_block:
+            same["levels"] = bool(torch.equal(sims[0].state.level.cpu(),
+                                              sims[1].state.level))
+        phase("mfv_family_parity", run=tag, N=sims[1].state.N,
+              steps=sims[1].Nsteps, kernel=sims[1].kern.variant,
+              rel_err=errs, same=same)
+        if max(errs.values()) > PARITY_TOL or not all(same.values()):
+            raise RuntimeError(f"mfv_family_parity {tag}: kernel path "
+                               f"disagrees with the plain path: {errs} "
+                               f"{same}")
+    phase("mfv_family_parity_done", seconds=time.perf_counter() - t0)
+
+
+def mfv_quintic_box(dev, card):
+    """Phase 107: mfv_box at 64^3 (262,144 particles, float32, the
+    quadrupole tree) with the quintic: K1, K4-K6, K7's MFV mode and
+    K10-K12 with the quintic every step, _mfv_box_variant's run and
+    gates (the energy drift within MFV_ENERGY_DRIFT_TOL, as
+    mfv_main_path)."""
+    return _mfv_box_variant(dev, card, "mfv_quintic_box", kernel="quintic")
+
+
+def mfv_family_block(dev, card):
+    """Phase 108: mfv_block_sphere's run (258,135 particles, 32 ticks)
+    with MFV_FAMILY_SPHERE_VARIANT (K12's block mode, K7's MFV mode, K10
+    and K11 with the tabulated quintic; K22, K32, K33; the energy within
+    MFV_FAMILY_SPHERE_ENERGY_TOL, fault F24), then mfv_khi's
+    first run (524,288 particles, HLLC, the Gizmo limiter, a global dt,
+    no gravity) with MFV_FAMILY_KHI_VARIANT, its energy within
+    MFV_KHI_ENERGY_TOL."""
+    launches, rep = mfv_block_sphere(
+        dev, card, MFV_FAMILY_SPHERE_VARIANT, "mfv_family_sphere",
+        energy_gate=MFV_FAMILY_SPHERE_ENERGY_TOL)
+    counts, r = _mfv_khi_run(dev, card, MFV_KHI_STEPS[0], "mfv_family_khi",
+                             kernel=MFV_FAMILY_KHI_VARIANT)
+    _first_counts(launches, rep, counts, r)
+    return launches, rep
+
+
 def kernel_line(launches, rep, alive_modes=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -6746,9 +6950,12 @@ def main() -> int:
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "ptxas.txt").write_text(_ext.ptxas_report())
+    # the sources that finished last: all start together, so their wall
+    # times are the build's critical path on this machine's cores
+    slowest = sorted(_ext.build_times().items(), key=lambda kv: -kv[1])[:8]
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
           library=so.name, kernels="K1-K37", sources=list(_ext._UNITS),
-          ptxas=str(out / "ptxas.txt"))
+          slowest=slowest, ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
     for n_side in (16, 32):
@@ -7083,6 +7290,14 @@ def main() -> int:
     rep.update(r_rep)
     launches.update(radiation_dims_parity(dev))
     cli_restart(dev, card)
+
+    # 105-108. the quintic, gaussian and tabulated kernels in MFV
+    mfv_family_kernels(dev)
+    mfv_family_parity(dev)
+    for path in (mfv_quintic_box, mfv_family_block):
+        f_launches, f_rep = path(dev, card)
+        launches.update(f_launches)
+        rep.update(f_rep)
 
     alive_modes = {"tree_gather": alive_mode, "tree_gather_2d": alive_2d}
     print(json.dumps(kernel_line(launches, rep, alive_modes)), flush=True)

@@ -45,13 +45,14 @@ forces, under ``sm2012_density`` and ``sm2012_forces`` (``_1d`` or
 EOS, the equilibrium finder and the implicit heating rate, count under
 ``radws_eos``, ``radws_equilibrium`` and ``radws_implicit_heating``, and
 K30, the radiative-feedback ambient temperature, under
-``ambient_temperature`` (``_1d`` or ``_2d`` appended below 3D).  K2, K3, K7, K8 and K9 take the quintic,
-gaussian (not K7) and tabulated smoothing kernels as well as M4
-(``csrc/kernel_family.cuh``, a template parameter); with any kernel but
-the direct M4 they count under their names with the kernel's variant
-appended before any ``_1d`` or ``_2d`` (``grid27_density_quintic_tab``,
-``tree_near_list_quintic``).  Every other wrapper whose kernel
-evaluates W refuses those kernels (``require_m4``).  The meshless
+``ambient_temperature`` (``_1d`` or ``_2d`` appended below 3D).  K2, K3,
+K7, K8, K9, K10-K12 and K31 take the quintic, gaussian (not K7) and
+tabulated smoothing kernels as well as M4 (``csrc/kernel_family.cuh``, a
+template parameter); with any kernel but the direct M4 they count under
+their names with the kernel's variant appended before any ``_1d`` or
+``_2d`` (``grid27_density_quintic_tab``, ``tree_near_list_quintic``,
+``mfv_fluxes_exact_cell_gaussian_2d``).  Every other wrapper whose
+kernel evaluates W refuses those kernels (``require_m4``).  The meshless
 finite-volume kernels count under ``mfv_density``, ``mfv_gradients``,
 ``mfv_limiter_<limiter>`` and K12 under ``mfv_fluxes`` with its modes
 appended (``mfv_fluxes_exact_cell_static``; block timesteps
@@ -70,10 +71,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import math
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import NamedTuple
 
@@ -90,10 +93,11 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           "tree_walk_2d.cu", "tree_walk_1d.cu", "tree_near.cu",
           "tree_near_2d.cu", "tree_near_1d.cu",
           "active_density.cu", "active_forces.cu", "mfv_density.cu",
-          "mfv_gradients.cu", "mfv_limiter.cu", "mfv_fluxes_hllc_1d.cu",
-          "mfv_fluxes_hllc_2d.cu", "mfv_fluxes_hllc_3d.cu",
-          "mfv_fluxes_exact_1d.cu", "mfv_fluxes_exact_2d.cu",
-          "mfv_fluxes_exact_3d.cu", "nbody_direct.cu",
+          "mfv_gradients.cu", "mfv_limiter.cu",
+          # K12 per Riemann solver, ndim and kernel family
+          *(f"mfv_fluxes_{_s}_{_n}d_{_f}.cu" for _s in ("hllc", "exact")
+            for _n in (1, 2, 3) for _f in ("m4", "quintic", "gaussian")),
+          "nbody_direct.cu",
           "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
           "grid27_levelneib.cu", "dust_drag.cu", "sm2012.cu", "radws.cu",
           "radiative_fb.cu", "mfv_vsig.cu", "radiation.cu")
@@ -135,35 +139,38 @@ for _k in ("direct_softened", "star_gas_forces", "sink_candidate",
     for _d in ("_2d", "_1d"):
         LAUNCHES[f"{_k}{_d}"] = 0
 
-# the meshless finite-volume kernels in every dim, K12 in every mode
+# the meshless finite-volume kernels in every dim, K10-K12 and K31 with
+# every smoothing kernel (the variant appended before the dim, as
+# family_count and _grid_count form it), K12 in every mode
 _DIMS = ("", "_2d", "_1d")
 # K31's limiters (csrc/mfv_limiter.cu)
 MFV_SWEEP = {"tvdscalar": 0, "springel2009": 1}
 for _d in _DIMS:
-    LAUNCHES[f"mfv_density{_d}"] = 0
-    LAUNCHES[f"mfv_gradients{_d}"] = 0
     LAUNCHES[f"mfv_vsig_near{_d}"] = 0
     LAUNCHES[f"mfv_vsig_far{_d}"] = 0
-    for _lim in MFV_SWEEP:
-        LAUNCHES[f"mfv_limiter_{_lim}{_d}"] = 0
-    for _r in ("", "_exact"):
-        # block timesteps run under MUSCL only
-        for _t in ("", "_rk2", "_block"):
-            for _c in ("", "_cell", "_zeroslope"):
-                for _st in ("", "_static"):
-                    LAUNCHES[f"mfv_fluxes{_r}{_t}{_c}{_st}{_d}"] = 0
+    for _v in ("",) + tuple(f"_{_x}" for _x in VARIANTS):
+        LAUNCHES[f"mfv_density{_v}{_d}"] = 0
+        LAUNCHES[f"mfv_gradients{_v}{_d}"] = 0
+        for _lim in MFV_SWEEP:
+            LAUNCHES[f"mfv_limiter_{_lim}{_v}{_d}"] = 0
+        for _r in ("", "_exact"):
+            # block timesteps run under MUSCL only
+            for _t in ("", "_rk2", "_block"):
+                for _c in ("", "_cell", "_zeroslope"):
+                    for _st in ("", "_static"):
+                        LAUNCHES[f"mfv_fluxes{_r}{_t}{_c}{_st}{_v}{_d}"] = 0
 
 # the smoothing-kernel families of csrc/kernel_family.cuh, and the
 # kernels that take any of them, direct or tabulated (K2, K3 and K8, K9;
-# K7 in each mode but MFV's, without the gaussian: fault F23).  Launches
-# with a kernel other than the direct M4 count under the kernel's name
-# with the kernel's variant appended (grid27_density_quintic_tab_2d).
-# Every other kernel that evaluates W holds M4 only, and its wrapper
-# refuses the rest (require_m4).
+# K10-K12 and K31 above; K7 in each mode, without the gaussian: fault
+# F23).  Launches with a kernel other than the direct M4 count under the
+# kernel's name with the kernel's variant appended
+# (grid27_density_quintic_tab_2d).  Every other kernel that evaluates W
+# holds M4 only, and its wrapper refuses the rest (require_m4).
 FAMILIES = {"m4": 0, "quintic": 1, "gaussian": 2}
 GRID_FAMILY_KERNELS = ("grid27_density", "grid27_forces")
 TREE_FAMILY_KERNELS = ("tree_near", "tree_near_list", "tree_near_ewald",
-                       "tree_near_fast")
+                       "tree_near_fast", "tree_near_mfv")
 ACTIVE_FAMILY_KERNELS = ("active_density", "active_forces")
 for _v in VARIANTS:
     for _k in GRID_FAMILY_KERNELS + ACTIVE_FAMILY_KERNELS:
@@ -217,15 +224,20 @@ _ARGTYPES = {
     "active_forces": [_P, _I] + [_P] * 6 + [_I] * 8 + [_D] * 4
     + [_I, _I, _D, _I, _I, _I, _D, _D] + [_P] * 4 + [_I, _P],
     # the grid arguments of _grid_args_nd: 8 ints and 3 extents
-    "mfv_density": [_P] * 4 + [_I] * 8 + [_D] * 8 + [_I] + [_P] * 4
-    + [_I, _P],
-    "mfv_gradients": [_P] * 3 + [_I] * 8 + [_D] * 5 + [_I] + [_P] * 7
+    # K10 and K11: the grid arguments, then norm, family and table
+    # resolution (_family_args)
+    "mfv_density": [_P] * 4 + [_I] * 8 + [_D] * 4 + [_I, _I] + [_D] * 4
+    + [_I] + [_P] * 4 + [_I, _P],
+    "mfv_gradients": [_P] * 3 + [_I] * 8 + [_D] * 4 + [_I] * 3 + [_P] * 7
     + [_I, _P],
     "mfv_limiter": [_P] * 6 + [_I] * 8 + [_D] * 4 + [_I] * 2 + [_P]
     + [_I, _P],
-    # K12 per Riemann solver and NDIM: the grid arguments without ndim
-    **{f"mfv_fluxes_{_s}_{_n}d": [_P] * 4 + [_I] * 7 + [_D] * 5 + [_I] * 6
-       + [_P] * 4 + [_I, _P] for _s in ("hllc", "exact") for _n in (1, 2, 3)},
+    # K12 per Riemann solver, NDIM and kernel family: the grid arguments
+    # without ndim, norm and table resolution
+    **{f"mfv_fluxes_{_s}_{_n}d_{_f}": [_P] * 4 + [_I] * 7 + [_D] * 4
+       + [_I, _D] + [_I] * 6 + [_P] * 4 + [_I, _P]
+       for _s in ("hllc", "exact") for _n in (1, 2, 3)
+       for _f in ("m4", "quintic", "gaussian")},
     "mfv_vsig_near": [_P] * 5 + [_I] * 8 + [_D] * 3 + [_P, _I, _P],
     "mfv_vsig_far": [_P] * 3 + [_I] * 8 + [_D] * 12 + [_I] + [_P] * 4
     + [_I, _P],
@@ -314,7 +326,9 @@ def build() -> Path:
     """Compile csrc/ into the shared library unless it is current: one
     nvcc per source, all started together, then one link.  The
     compiler's output (register and spill counts) goes to a .log beside
-    the library.  Returns the library's path."""
+    the library, and each source's wall time from the common start to
+    its compiler's exit to a .times.json (build_times).  Returns the
+    library's path."""
     so = library_path()
     if so.exists():
         return so
@@ -322,17 +336,29 @@ def build() -> Path:
     tag = f"{so.stem}.{os.getpid()}"
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     objs = [_BUILD / f"{tag}.{Path(u).stem}.o" for u in _UNITS]
-    procs = [subprocess.Popen(
-        [_nvcc(), *compile_flags, "-c", "-o", str(o), str(_CSRC / u)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for u, o in zip(_UNITS, objs)]
-    logs = [p.communicate()[0] for p in procs]
+    outs = [o.with_suffix(".out") for o in objs]
+    t0 = time.perf_counter()
+    procs = []
+    for u, o, out in zip(_UNITS, objs, outs):
+        with open(out, "w") as f:
+            procs.append(subprocess.Popen(
+                [_nvcc(), *compile_flags, "-c", "-o", str(o),
+                 str(_CSRC / u)], stdout=f, stderr=subprocess.STDOUT))
+    times = {}
+    while len(times) < len(procs):
+        for u, p in zip(_UNITS, procs):
+            if u not in times and p.poll() is not None:
+                times[u] = time.perf_counter() - t0
+        time.sleep(0.05)
+    logs = [out.read_text() for out in outs]
     tmp = so.with_name(f"{tag}.tmp")
     link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                            *map(str, objs)], capture_output=True, text=True)
+    times["link"] = time.perf_counter() - t0
     log = "".join(logs) + link.stdout + link.stderr
     so.with_suffix(".log").write_text(log)
-    for o in objs:
+    so.with_suffix(".times.json").write_text(json.dumps(times))
+    for o in objs + outs:
         o.unlink(missing_ok=True)
     failed = [u for u, p in zip(_UNITS, procs) if p.returncode != 0]
     if failed or link.returncode != 0:
@@ -343,6 +369,14 @@ def build() -> Path:
                            + (why or link.stdout + link.stderr)[-6000:])
     os.replace(tmp, so)
     return so
+
+
+def build_times() -> dict:
+    """{source: seconds from the build's start to its compiler's exit,
+    "link": to the link's end} of the current library's build ({} if it
+    was built elsewhere)."""
+    f = library_path().with_suffix(".times.json")
+    return json.loads(f.read_text()) if f.exists() else {}
 
 
 def build_log() -> str:
@@ -786,8 +820,6 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
     mfv = zeta_scaling == "mfv"
     if mfv and group_ids is not None:
         raise NotImplementedError("the MFV zeta mode walks all groups")
-    if mfv:
-        require_m4(kern, "K7's MFV zeta mode")
     if kern is not None and kern.name == "gaussian":
         raise NotImplementedError(
             "the gaussian kernel has no softened gravity (its wgrav and "
@@ -929,13 +961,14 @@ class FluxModes(NamedTuple):
     block: int = 0
 
 
-def mfv_flux_count(spec, modes: FluxModes) -> str:
-    """The LAUNCHES key of K12 in `modes` on `spec`'s dims."""
+def mfv_flux_count(spec, modes: FluxModes, kern=None) -> str:
+    """The LAUNCHES key of K12 in `modes` on `spec`'s dims with the
+    smoothing kernel `kern` (its variant after the modes)."""
     name = ("mfv_fluxes" + ("", "_exact")[modes.exact]
             + ("", "_rk2")[modes.rk2] + ("", "_block")[modes.block]
             + ("", "_cell", "_zeroslope")[modes.limiter]
             + ("", "_static")[modes.static])
-    return _grid_count(name, spec)
+    return _grid_count(name, spec, kern)
 
 
 def mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, h,
@@ -944,7 +977,6 @@ def mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, h,
     zeta) sums at each particle's final h and its converged flag, each
     (N,) in particle order.  A particle without a slot keeps zeros and
     counts as not converged."""
-    require_m4(kern, "K10 mfv_density")
     N = _slot_map_args(spec, ids_d, r)
     dt, dev = r.dtype, r.device
     _check(m, "m", dt, (N,))
@@ -953,10 +985,10 @@ def mfv_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, h,
                           for _ in range(3))
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
     _launch("mfv_density", dt, dev, _p(ids_d), _p(r), _p(m), _p(h),
-            *_grid_args_nd(spec), float(kern.kernnorm), float(h_fac),
+            *_grid_args_nd(spec), *_family_args(kern), float(h_fac),
             float(h_fac ** spec.ndim), float(h_converge), float(hmax),
             SLOT_MAPPINGS[mapping], _p(ndens), _p(invom), _p(zeta), _p(done),
-            count=_grid_count("mfv_density", spec))
+            count=_grid_count("mfv_density", spec, kern))
     return ndens, invom, zeta, done
 
 
@@ -967,7 +999,6 @@ def mfv_gradients(spec, kern, ids_d, r, packed, extrema=False,
     + 2; with `extrema` also K31's inputs dWmax and dWmin (N, nvar).
     `packed` (N, ndim + 5) holds h, ndens, W and sound (the columns of
     ops.mfv_grid27.gradients)."""
-    require_m4(kern, "K11 mfv_gradients")
     N = _slot_map_args(spec, ids_d, r)
     nd = spec.ndim
     nvar = nd + 2
@@ -982,11 +1013,10 @@ def mfv_gradients(spec, kern, ids_d, r, packed, extrema=False,
     ext = ([torch.zeros((N, nvar), **kw) for _ in range(2)] if extrema
            else [None, None])
     _launch("mfv_gradients", dt, dev, _p(ids_d), _p(r), _p(packed),
-            *_grid_args_nd(spec), float(kern.kernnorm),
-            float(kern.kernrange), SLOT_MAPPINGS[mapping], _p(B), _p(grad),
-            _p(alpha), _p(vsig), _p(bad),
-            *[None if x is None else _p(x) for x in ext],
-            count=_grid_count("mfv_gradients", spec))
+            *_grid_args_nd(spec), *_family_args(kern),
+            SLOT_MAPPINGS[mapping], _p(B), _p(grad), _p(alpha), _p(vsig),
+            _p(bad), *[None if x is None else _p(x) for x in ext],
+            count=_grid_count("mfv_gradients", spec, kern))
     out = (B, grad, alpha, vsig, bad)
     return out + tuple(ext) if extrema else out
 
@@ -997,7 +1027,6 @@ def mfv_limiter(spec, kern, limiter, ids_d, r, packed, grad, dWmax, dWmin,
     (tvdscalar or springel2009), the running min from 1 over the pairs
     within kernrange h_i, from K11's gradients `grad` (N, nvar, ndim) and
     signed extrema dWmax, dWmin (N, nvar).  `packed` as K11's."""
-    require_m4(kern, "K31 mfv_limiter")
     if limiter not in MFV_SWEEP:
         raise ValueError(f"K31 takes tvdscalar or springel2009, not "
                          f"{limiter!r}")
@@ -1014,7 +1043,7 @@ def mfv_limiter(spec, kern, limiter, ids_d, r, packed, grad, dWmax, dWmin,
             _p(dWmax), _p(dWmin), *_grid_args_nd(spec),
             float(kern.kernrange), MFV_SWEEP[limiter],
             SLOT_MAPPINGS[mapping], _p(alpha),
-            count=_grid_count(f"mfv_limiter_{limiter}", spec))
+            count=_grid_count(f"mfv_limiter_{limiter}", spec, kern))
     return alpha
 
 
@@ -1025,7 +1054,6 @@ def mfv_fluxes(spec, kern, modes: FluxModes, dt_t, ids_d, r, packed,
     in block mode also the committed dQ (N, nvar) and rdmdt (N, ndim).
     `packed` (N, 15 / 26 / 41, two more in block mode) holds
     ops.mfv_grid27.flux_cols."""
-    require_m4(kern, "K12 mfv_fluxes")
     if modes.block and modes.rk2:
         raise ValueError("K12's block mode runs under MUSCL only")
     N = _slot_map_args(spec, ids_d, r)
@@ -1039,12 +1067,13 @@ def mfv_fluxes(spec, kern, modes: FluxModes, dt_t, ids_d, r, packed,
            for w in (nvar, nd) * (2 if modes.block else 1)]
     solver = ("hllc", "exact")[modes.exact]
     ptrs = [_p(x) for x in out] + [None] * (4 - len(out))
-    _launch(f"mfv_fluxes_{solver}_{nd}d", dt, dev, _p(ids_d), _p(r),
-            _p(packed), _p(dt_t), *_grid_args_nd(spec)[1:],
-            float(kern.kernnorm), float(modes.gamma), int(modes.zmf),
-            int(modes.limiter), int(modes.rk2), int(modes.static),
-            int(modes.block), SLOT_MAPPINGS[mapping], *ptrs,
-            count=mfv_flux_count(spec, modes))
+    norm, _, res = _family_args(kern)
+    _launch(f"mfv_fluxes_{solver}_{nd}d_{kern.name}", dt, dev, _p(ids_d),
+            _p(r), _p(packed), _p(dt_t), *_grid_args_nd(spec)[1:], norm,
+            res, float(modes.gamma), int(modes.zmf), int(modes.limiter),
+            int(modes.rk2), int(modes.static), int(modes.block),
+            SLOT_MAPPINGS[mapping], *ptrs,
+            count=mfv_flux_count(spec, modes, kern))
     return tuple(out)
 
 

@@ -1436,6 +1436,68 @@ def compare_family_kernels(variant: str, ndim: int, device, dtype,
     return out
 
 
+# K12's modes of compare_mfv_family_kernels at a global dt: (riemann,
+# slope_limiter, time_scheme, static_particles): HLLC and the exact
+# solver under the Gizmo clamp, RK2, the cell alphas (tvdscalar), and
+# zeroslope with the exact solver under RK2 with static particles; the
+# block mode runs through compare_mfv_block_kernels
+MFV_FAMILY_FLUX_MODES = (("hllc", "gizmo", "muscl", False),
+                         ("exact", "gizmo", "muscl", False),
+                         ("hllc", "gizmo", "rk2", False),
+                         ("hllc", "tvdscalar", "muscl", False),
+                         ("exact", "zeroslope", "rk2", True))
+
+
+def mfv_family_cases(variant: str, ndim: int):
+    """(params, IC or None) of compare_mfv_family_kernels' run at `ndim`
+    with the smoothing kernel `variant`: the MFV Sod tube (128 + 32) in
+    1D, the 2D box of tests/test_mfv_grid.py (16^2 + 16^2, jittered) and
+    mfv_box at 12^3 (jittered; the tree but with the gaussian, F23)."""
+    if ndim == 1:
+        p, ic = mfv_sod_params(128, 32), None
+    elif ndim == 2:
+        p = mfv_khi_params(16)
+        ic = jittered_lattice_ic(p)
+    else:
+        p = mfv_params(12, self_gravity=int(not variant.startswith(
+            "gaussian")))
+        ic = jittered_box_ic(p, 12)
+    return family_params(variant, p), ic
+
+
+def compare_mfv_family_kernels(variant: str, ndim: int, device, dtype,
+                               repeats: int = 0):
+    """K10, K11 with extrema, K31 (tvdscalar and springel2009), K12 in
+    MFV_FAMILY_FLUX_MODES and (with the tree) K7's MFV mode with the
+    smoothing kernel `variant` against their plain versions
+    (compare_mfv_kernels), after setup and 2 steps of mfv_family_cases'
+    run at `ndim`; then K12's block mode, K22, K32 and K33
+    (compare_mfv_block_kernels) after setup and 2 ticks of the same run
+    with Nlevels 3 under the conservative limiter.  Returns {kernel:
+    report} under the kernels' family names."""
+    from .ops.mfv import MfvConfig
+    from .sim.simulation import SimulationBase
+
+    params, ic = mfv_family_cases(variant, ndim)
+    sim = SimulationBase.factory(params.copy(), device, dtype)
+    sim.SetupSimulation(None if ic is None else dict(ic))
+    sim.main_loop_steps(2)
+    gamma = sim.mfv_cfg.gamma
+    cfgs = [MfvConfig(gamma=gamma, riemann=rs, slope_limiter=lim,
+                      time_scheme=ts, static_particles=st)
+            for rs, lim, ts, st in MFV_FAMILY_FLUX_MODES]
+    out = compare_mfv_kernels(sim, sim.state, repeats, flux_cfgs=cfgs,
+                              sweeps=["tvdscalar", "springel2009"])
+    params.set("Nlevels", 3)
+    params.set("time_step_limiter", "conservative")
+    sim = SimulationBase.factory(params, device, dtype)
+    sim.SetupSimulation(None if ic is None else dict(ic))
+    for _ in range(2):
+        sim.main_loop_step()
+    out.update(compare_mfv_block_kernels(sim, repeats=repeats))
+    return out
+
+
 def _near_grid(x, step, dtype) -> int:
     """Elements of x within 4 ulps (of `dtype`) of a multiple of step:
     those whose table index a rounding difference can move."""
@@ -1510,10 +1572,11 @@ def jittered_box_ic(params: Parameters, n_side: int, seed: int = 42):
     return {k: ic[k] for k in ("r", "v", "m", "h", "u")}
 
 
-def _time_ms(fn, repeats: int) -> float:
-    """Mean milliseconds of fn() over `repeats` calls after one warm-up,
-    from CUDA events."""
-    fn()
+def _time_ms(fn, repeats: int, warm: bool = True) -> float:
+    """Mean milliseconds of fn() over `repeats` calls, after one warm-up
+    call with `warm`, from CUDA events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -1527,12 +1590,15 @@ def _time_ms(fn, repeats: int) -> float:
 
 def _time_pairs(out, timed, repeats):
     """Kernel and plain times of each entry of `timed`, in the order
-    plain, kernel, kernel, plain: each side's mean of two turns."""
+    plain, kernel, kernel, plain: each side's mean of two turns.  The
+    plain version runs once a turn with no warm-up call: the comparison
+    before the timing has run it on the same inputs, and at full size
+    one call can take seconds."""
     for name, (kfn, pfn) in timed.items():
-        p1 = _time_ms(pfn, 1)
+        p1 = _time_ms(pfn, 1, warm=False)
         k1 = _time_ms(kfn, repeats)
         k2 = _time_ms(kfn, repeats)
-        p2 = _time_ms(pfn, 1)
+        p2 = _time_ms(pfn, 1, warm=False)
         out[name]["ms"] = 0.5 * (k1 + k2)
         out[name]["plain_ms"] = 0.5 * (p1 + p2)
 
@@ -2484,7 +2550,10 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     on a CUDA device at the grid's ndim; returns {kernel: report} as
     compare_kernels does, keyed by their LAUNCHES names (mfv_density,
     mfv_gradients, mfv_limiter_<limiter>, ops.mfv_grid27.flux_count's
-    name of each K12 mode, tree_near_mfv; _1d or _2d below 3D).  K12
+    name of each K12 mode, tree_near_mfv; the smoothing kernel's variant
+    appended but for the direct M4, and _1d or _2d below 3D).  With a
+    tabulated kernel the reports of K10, K11 and K12 also count the
+    pairs in support and those near a table point (_mfv_table_report).  K12
     runs in the modes of `flux_cfgs` (MfvConfigs; the simulation's by
     default) and K31 for the limiters `sweeps` (the simulation's, if it
     sweeps), both on the plain K11's outputs.  Launch counts are restored
@@ -2503,7 +2572,7 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     if sweeps is None:
         sweeps = ([cfg0.slope_limiter]
                   if cfg0.slope_limiter in mfv_ops.SWEEP_LIMITERS else [])
-    name = lambda k: kernel_name(k, spec)  # noqa: E731
+    name = lambda k: kernel_name(k, spec, kern)  # noqa: E731
     out, timed = {}, {}
 
     # K10 on the plain binning's slot map; the finish is shared torch code
@@ -2604,6 +2673,11 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
         FLOPS_PER[k10] * (n_i + N))
     out[k11]["work"] = _work(
         (ids_d, state.r, gpk), g_out, FLOPS_PER[k11] * n_i)
+    if kern.table_res:
+        out[k10]["table"] = _mfv_table_report(
+            kern, spec, ids_d, state.r, dens["plain"].h, w1=False)
+        out[k11]["table"] = _mfv_table_report(kern, spec, ids_d, state.r,
+                                              state.h)
     timed[k10] = (lambda: _ext.mfv_density(spec, kern, *dargs),
                   lambda: mg.density_sums_plain(kern, spec, *dargs))
     timed[k11] = (lambda: _ext.mfv_gradients(spec, kern, ids_d, state.r,
@@ -2631,7 +2705,8 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
         key = name(f"mfv_limiter_{lim}")
         rep["work"] = _work((ids_d, state.r, gpk, g_p.grad, ext_p.dWmax,
                              ext_p.dWmin), (a_k,),
-                            FLOPS_PER[name("mfv_limiter")] * n_i)
+                            FLOPS_PER[kernel_name("mfv_limiter", spec)]
+                            * n_i)
         out[key] = rep
         timed[key] = (
             lambda la=largs: _ext.mfv_limiter(spec, kern, *la),
@@ -2651,13 +2726,16 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
                 "rdmdt_dot": _scaled_all(f_k[1], f_p.rdmdt_dot,
                                          every[:, None]
                                          .expand_as(f_p.rdmdt_dot))}
-        key = mg.flux_count(spec, cfg)
+        key = mg.flux_count(spec, cfg, kern=kern)
         out[key] = {
             "scaled_err": errs,
             "max_abs_err": float(torch.abs(f_k[0] - f_p.dQdt).max()),
             "ok": max(errs.values()) <= (tol or TOL_F32_MFV_FLUXES),
             "work": _work((ids_d, state.r, fpk, dt_t), f_k,
-                          mfv_flux_flops(nd, cfg) * n_ij)}
+                          mfv_flux_flops(nd, cfg, kern=kern) * n_ij)}
+        if kern.table_res:
+            out[key]["table"] = _mfv_table_report(
+                kern, spec, ids_d, state.r, state.h, both=True)
         timed[key] = (
             lambda c=cfg: mg.fluxes_kernel(kern, c, spec, dt_t, ids_d,
                                            state.r, fpk),
@@ -2677,7 +2755,8 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
         errs = {"a": _scaled_all(nk[0], np_[0], every),
                 "gpot": _scaled_all(nk[1], np_[1], every)}
         same_ovf = bool(nk[2]) == bool(np_[2])
-        k7m = _ext.tree_count("tree_near_mfv", r.shape[1])
+        k7m = _ext.tree_count(_ext.family_count("tree_near_mfv", kern),
+                              r.shape[1])
         out[k7m] = {
             "scaled_err": errs, "same_overflow": same_ovf,
             "max_abs_err": float(torch.abs(nk[0] - np_[0]).max()),
@@ -2700,6 +2779,26 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     return out
 
 
+def _mfv_table_report(kern, spec, ids_d, r, h, w1=True, both=False):
+    """The pairs of the slot map inside a tabulated kernel's support and
+    those near a table point (an upper bound on the pairs whose index the
+    kernel and its plain version can disagree on), as _table_report
+    counts them: on the s^2 grid (W, w0_s2) and with `w1` on the s grid
+    (W'), at h_i (K10 without `w1`, K11) or, with `both`, at h_i and h_j
+    (K12)."""
+    rng, res = kern.kernrange, kern.table_res
+    cut2 = (rng * float(h.max())) ** 2 * (1.0 + 1e-6)
+    row, col, _, d2 = mg.slot_pairs(spec, ids_d, r, cut2, True)
+    hs = [h[row], h[col]] if both else [h[row]]
+    ssq = torch.cat([d2 / (x * x) for x in hs])
+    sup = ssq < rng * rng
+    near = _near_grid(ssq[sup], rng * rng / res, r.dtype)
+    if w1:
+        s = torch.cat([torch.sqrt(d2) / x for x in hs])
+        near += _near_grid(s[s < rng], rng / res, r.dtype)
+    return {"pairs": int(sup.sum()), "near_grid": near}
+
+
 def _far_pairs(spec, occ):
     """K33's work on this grid's data: (target, occupied source) pairs,
     and those of them outside the target's stencil."""
@@ -2718,7 +2817,8 @@ def _far_pairs(spec, occ):
     return C * n_occ, C * n_occ - near
 
 
-def compare_mfv_block_kernels(sim, state=None, sched=None, repeats: int = 0):
+def compare_mfv_block_kernels(sim, state=None, sched=None, repeats: int = 0,
+                              timed_names=None):
     """Run K12 in its block mode, K22, K32 and K33 and their plain
     versions on the same inputs, from a block MFV simulation's state and
     schedule (its own by default) on a CUDA device at the grid's ndim;
@@ -2727,7 +2827,8 @@ def compare_mfv_block_kernels(sim, state=None, sched=None, repeats: int = 0):
     mfv_vsig_near, mfv_vsig_far; _1d or _2d below 3D).  float64 within
     TOL_F64 (K22 exact); float32: K12 within TOL_F32_MFV_FLUXES, K32 and
     K33 within TOL_F32_MFV_VSIG of their largest values, K22 exact.
-    Launch counts are restored afterwards."""
+    With `repeats`, the entries of `timed_names` (all by default) are
+    timed.  Launch counts are restored afterwards."""
     saved = dict(_ext.LAUNCHES)
     state = sim.state if state is None else state
     sched = sim._blocksched if sched is None else sched
@@ -2758,14 +2859,14 @@ def compare_mfv_block_kernels(sim, state=None, sched=None, repeats: int = 0):
     errs = {f: _scaled_all(getattr(f_k, f), getattr(f_p, f),
                            every[:, None].expand_as(getattr(f_p, f)))
             for f in ("dQdt", "rdmdt_dot", "dQ", "rdmdt")}
-    key = mg.flux_count(spec, cfg, block=True)
+    key = mg.flux_count(spec, cfg, block=True, kern=kern)
     out[key] = {
         "scaled_err": errs, "starting": int(start.sum()),
         "max_abs_err": float(torch.abs(f_k.dQ - f_p.dQ).max()),
         "ok": max(errs.values()) <= (TOL_F64 if f64
                                      else TOL_F32_MFV_FLUXES),
         "work": _work((ids_d, state.r, packed, dt_t), f_k,
-                      mfv_flux_flops(nd, cfg, block=True) * n_ij)}
+                      mfv_flux_flops(nd, cfg, block=True, kern=kern) * n_ij)}
     timed[key] = (
         lambda: mg.fluxes_kernel(kern, cfg, spec, dt_t, ids_d, state.r,
                                  packed, block=True),
@@ -2838,7 +2939,8 @@ def compare_mfv_block_kernels(sim, state=None, sched=None, repeats: int = 0):
     for r in out.values():
         r["dtype"] = str(state.r.dtype)
     if repeats > 0:
-        _time_pairs(out, timed, repeats)
+        _time_pairs(out, {k: timed[k] for k in (timed_names or timed)},
+                    repeats)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
@@ -2897,8 +2999,8 @@ def mfv_mapping_times(sim, state, repeats: int = 5):
         f1 = _time_ms(lambda: fn("flat"), repeats)
         f2 = _time_ms(lambda: fn("flat"), repeats)
         c2 = _time_ms(lambda: fn("cell"), repeats)
-        label = mg.flux_count(spec, cfg) if key == "mfv_fluxes" \
-            else kernel_name(key, spec)
+        label = mg.flux_count(spec, cfg, kern=kern) \
+            if key == "mfv_fluxes" else kernel_name(key, spec, kern)
         out[label] = {"cell_ms": 0.5 * (c1 + c2), "flat_ms": 0.5 * (f1 + f2),
                       "same_bits": same}
     torch.cuda.synchronize()
@@ -3972,9 +4074,28 @@ FLOPS_PER.update({
 })
 
 
-def mfv_flux_flops(ndim: int, cfg, block: bool = False) -> int:
+# the operations a pair of the quintic, gaussian and tabulated kernels
+# adds to M4's in the meshless finite-volume kernels, counted from the
+# code as _FAMILY_EXTRA's: K10 evaluates the three density polynomials
+# (_FAMILY_EXTRA's density extra); K11 one W in its s^2 form and one W'
+# (quintic +10 and +7; gaussian an exp each, counted 20, and a few
+# products, +19 each; a table +5 for the s^2 index and its root, +4 for
+# the s index); K12 both sides' W and W', twice K11's.  K31 evaluates no
+# kernel and K7's MFV pairs count as M4's (_FAMILY_EXTRA's notes).
+_MFV_FAMILY_EXTRA = {"quintic": 17, "gaussian": 38, "m4_tab": 9,
+                     "quintic_tab": 26, "gaussian_tab": 47}
+for _v, _dw in _MFV_FAMILY_EXTRA.items():
+    for _sfx in ("", "_2d", "_1d"):
+        FLOPS_PER[f"mfv_density_{_v}{_sfx}"] = (
+            FLOPS_PER[f"mfv_density{_sfx}"] + _FAMILY_EXTRA[_v][0])
+        FLOPS_PER[f"mfv_gradients_{_v}{_sfx}"] = (
+            FLOPS_PER[f"mfv_gradients{_sfx}"] + _dw)
+
+
+def mfv_flux_flops(ndim: int, cfg, block: bool = False, kern=None) -> int:
     """K12's operations per pair within kernrange max(h_i, h_j) in `cfg`'s
-    modes, in block mode with `block` (FLOPS_PER's notes)."""
+    modes, in block mode with `block`, with the smoothing kernel `kern`
+    (FLOPS_PER's notes; _MFV_FAMILY_EXTRA's)."""
     nvar = ndim + 2
     base = FLOPS_PER["mfv_fluxes" + ("" if ndim == 3 else f"_{ndim}d")]
     solve = FLOPS_PER["mfv_exact_solve" if cfg.riemann == "exact"
@@ -3989,6 +4110,8 @@ def mfv_flux_flops(ndim: int, cfg, block: bool = False) -> int:
         ops -= 2 * nvar * (2 * ndim) + 2 * nvar * (2 * ndim)
     if block:
         ops += FLOPS_PER["mfv_block_pair"] + 2 * nvar + ndim
+    if kern is not None and kern.variant != "m4":
+        ops += 2 * _MFV_FAMILY_EXTRA[kern.variant]
     return ops
 
 

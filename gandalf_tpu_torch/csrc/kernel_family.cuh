@@ -1,5 +1,6 @@
 // The SPH kernel family for the grad-h grid and tree kernels (K2, K3, K7,
-// K8, K9): M4, the quintic spline and the gaussian, each evaluated
+// K8, K9) and the meshless finite-volume kernels (K10-K12, K7's MFV
+// mode): M4, the quintic spline and the gaussian, each evaluated
 // directly or quantised to the reference's table, chosen at compile time.
 //
 // The polynomials are those of gandalf_tpu_torch/kernels/smoothing.py
@@ -17,7 +18,10 @@
 // steps) and gives
 //   s functions   w0, w1, womega, wzeta, wgrav, wpot (as smoothing.py);
 //   s^2 functions w0_s2, womega_s2, wzeta_s2 through density(): the
-//                 three density terms at ssqd, false where all vanish.
+//                 three density terms at ssqd, false where all vanish;
+//                 w0_s2 alone for the meshless finite-volume kernels;
+//   support tests in_support(s) and in_support_s2(ssqd): whether the s
+//                 and s^2 functions can be non-zero there.
 // With TAB a function of s takes the base polynomial at floor(s / step)
 // step (step = kernrange / res) inside the support, and the s^2 functions
 // at sqrt(floor(ssqd / step2) step2) (step2 = kernrange^2 / res) where
@@ -332,6 +336,22 @@ struct Kernel {
       return s < range() ? P::wpot(*this, q(s))
                          : T(1) / (s > T(1e-30) ? s : T(1e-30));
     return P::wpot(*this, s);
+  }
+
+  // W at s^2 = ssqd (JAX's w0_s2)
+  __device__ __forceinline__ T w0_s2(T ssqd) const {
+    if (TAB) return ssqd < range2() ? P::w0(*this, q2(ssqd)) : T(0);
+    return P::w0(*this, sqrt(ssqd));
+  }
+  // whether the functions of s (w1) or of s^2 (w0_s2, density) can be
+  // non-zero at a pair: s < kernrange, and for a table s^2 < kernrange^2
+  // (sqrt(ssqd) < kernrange otherwise, the test the direct forms make)
+  __device__ __forceinline__ bool in_support(T s) const {
+    return s < range();
+  }
+  __device__ __forceinline__ bool in_support_s2(T ssqd) const {
+    if (TAB) return ssqd < range2();
+    return sqrt(ssqd) < range();
   }
 
   // the density sums' terms at s^2 = ssqd (w0_s2, womega_s2, wzeta_s2);

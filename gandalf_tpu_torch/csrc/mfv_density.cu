@@ -25,10 +25,19 @@
 // are the sums at the final h and the converged flag, in particle
 // order; the finish (h from the number density, rho, the Omega and zeta
 // corrections, hfactor, overflow) is elementwise torch.
+//
+// The smoothing kernel (M4, quintic or gaussian, direct or tabulated:
+// kernel_family.cuh) is a template parameter, as in K2: a pair counts
+// where the family's density terms do not all vanish (s < kernrange, or
+// for a tabulated kernel s^2 < kernrange^2, JAX's w0_s2 cut), and any
+// kernel but the direct M4 sums d^2 in the plain version's rounded steps
+// (kExactD2), so that s^2 and a table index come from the same d^2.  At
+// kernrange 3 a 3D particle meets (3/2)^3 = 3.4 times M4's neighbours
+// at the same h_fac.
 #include <cuda_runtime.h>
 
 #include "grid27.cuh"
-#include "m4.cuh"
+#include "kernel_family.cuh"
 
 namespace {
 
@@ -37,15 +46,16 @@ constexpr int kIterMax = 150;
 
 template <typename T>
 struct DensityArgs {
-  T norm, h_fac, h_fac_nd, h_converge, h_lo, h_hi;
+  T h_fac, h_fac_nd, h_converge, h_lo, h_hi;
 };
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __device__ __forceinline__ void density_slot(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ m, const T* __restrict__ h, const Grid3& g, int c,
-    int i, const DensityArgs<T>& a, T* __restrict__ ndens_out,
-    T* __restrict__ invom_out, T* __restrict__ zeta_out,
+    int i, const KF& kern, const DensityArgs<T>& a,
+    T* __restrict__ ndens_out, T* __restrict__ invom_out,
+    T* __restrict__ zeta_out,
     unsigned char* __restrict__ done_out) {
   const int K = g.K;
   const int p = ids[static_cast<long long>(c) * K + i];
@@ -55,7 +65,6 @@ __device__ __forceinline__ void density_slot(
   T xi[NDIM];
 #pragma unroll
   for (int k = 0; k < NDIM; ++k) xi[k] = r[NDIM * p + k];
-  const T nd = T(NDIM);
   const T invndim = T(1.0 / NDIM);
   T hh = min(max(h[p], a.h_lo), a.h_hi);
   T lo = T(0), hi = a.h_hi;
@@ -77,13 +86,17 @@ __device__ __forceinline__ void density_slot(
 #pragma unroll
         for (int k = 0; k < NDIM; ++k) {
           const T dk = (r[NDIM * q + k] + sh[k]) - xi[k];
-          d2 += dk * dk;
+          if (KF::kExactD2)
+            d2 = kf::add(d2, kf::mul(dk, dk));
+          else
+            d2 += dk * dk;
         }
-        const T s = sqrt(d2 * invhsqd);
-        if (s >= T(2)) continue;  // every M4 term is zero there
-        s_nd += m4_w0<T>(s, a.norm);
-        s_om += m4_womega<T>(s, a.norm, nd);
-        s_zeta += m[q] * m4_wzeta<T>(s);
+        T w0, wom, wz;
+        // every term is zero beyond the support
+        if (!kern.density(d2 * invhsqd, &w0, &wom, &wz)) continue;
+        s_nd += w0;
+        s_om += wom;
+        s_zeta += m[q] * wz;
       }
     }
     T hfac = invh;
@@ -114,11 +127,11 @@ __device__ __forceinline__ void density_slot(
   done_out[p] = conv ? 1 : 0;
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __global__ void __launch_bounds__(256) mfv_density_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ m, const T* __restrict__ h, Grid3 g, int n_cells,
-    bool flat, DensityArgs<T> a, T* __restrict__ ndens_out,
+    bool flat, KF kern, DensityArgs<T> a, T* __restrict__ ndens_out,
     T* __restrict__ invom_out, T* __restrict__ zeta_out,
     unsigned char* __restrict__ done_out) {
   if (flat) {
@@ -126,35 +139,36 @@ __global__ void __launch_bounds__(256) mfv_density_kernel(
                         + threadIdx.x;
     if (t >= static_cast<long long>(n_cells) * g.K) return;
     density_slot<T, NDIM>(ids, r, m, h, g, static_cast<int>(t / g.K),
-                          static_cast<int>(t % g.K), a, ndens_out,
+                          static_cast<int>(t % g.K), kern, a, ndens_out,
                           invom_out, zeta_out, done_out);
     return;
   }
   for (int i = threadIdx.x; i < g.K; i += blockDim.x)
-    density_slot<T, NDIM>(ids, r, m, h, g, blockIdx.x, i, a, ndens_out,
+    density_slot<T, NDIM>(ids, r, m, h, g, blockIdx.x, i, kern, a, ndens_out,
                           invom_out, zeta_out, done_out);
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 void launch(const int* ids, const T* r, const T* m, const T* h,
-            const Grid3& g, int n_cells, bool flat, const DensityArgs<T>& a,
-            T* ndens, T* invom, T* zeta, unsigned char* done,
-            cudaStream_t stream) {
+            const Grid3& g, int n_cells, bool flat, const KF& kern,
+            const DensityArgs<T>& a, T* ndens, T* invom, T* zeta,
+            unsigned char* done, cudaStream_t stream) {
   const long long slots = static_cast<long long>(n_cells) * g.K;
   const int blocks = flat ? static_cast<int>((slots + kFlatThreads - 1)
                                              / kFlatThreads)
                           : n_cells;
   const int threads = flat ? kFlatThreads : slot_threads(g.K);
-  mfv_density_kernel<T, NDIM><<<blocks, threads, 0, stream>>>(
-      ids, r, m, h, g, n_cells, flat, a, ndens, invom, zeta, done);
+  mfv_density_kernel<T, NDIM, KF><<<blocks, threads, 0, stream>>>(
+      ids, r, m, h, g, n_cells, flat, kern, a, ndens, invom, zeta, done);
 }
 
 template <typename T>
 int run_density(const int* ids, const T* r, const T* m, const T* h,
                 int ndim, int n0, int n1, int n2, int k_cell, int per0,
                 int per1, int per2, double L0, double L1, double L2,
-                double norm, double h_fac, double h_fac_nd,
-                double h_converge, double hmax, int mapping, T* ndens,
+                double norm, int family, int res, double h_fac,
+                double h_fac_nd, double h_converge, double hmax,
+                int mapping, T* ndens,
                 T* invom, T* zeta, unsigned char* done, int device,
                 void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
@@ -166,18 +180,22 @@ int run_density(const int* ids, const T* r, const T* m, const T* h,
   const bool flat = slot_mapping_flat(mapping, ndim, k_cell);
   // constants as the JAX code forms them (h_fac ** ndim in Python): in
   // double, then cast
-  const DensityArgs<T> a = {T(norm), T(h_fac), T(h_fac_nd), T(h_converge),
+  const DensityArgs<T> a = {T(h_fac), T(h_fac_nd), T(h_converge),
                             T(1e-6 * hmax), T(hmax)};
   if (n_cells > 0 && k_cell > 0) {
-    if (ndim == 1)
-      launch<T, 1>(ids, r, m, h, g, n_cells, flat, a, ndens, invom, zeta,
-                   done, stream);
-    else if (ndim == 2)
-      launch<T, 2>(ids, r, m, h, g, n_cells, flat, a, ndens, invom, zeta,
-                   done, stream);
-    else
-      launch<T, 3>(ids, r, m, h, g, n_cells, flat, a, ndens, invom, zeta,
-                   done, stream);
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, ndim, [&](const auto& kern) {
+          if (ndim == 1)
+            launch<T, 1>(ids, r, m, h, g, n_cells, flat, kern, a, ndens,
+                         invom, zeta, done, stream);
+          else if (ndim == 2)
+            launch<T, 2>(ids, r, m, h, g, n_cells, flat, kern, a, ndens,
+                         invom, zeta, done, stream);
+          else
+            launch<T, 3>(ids, r, m, h, g, n_cells, flat, kern, a, ndens,
+                         invom, zeta, done, stream);
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -190,13 +208,14 @@ extern "C" {
   int NAME(const int* ids, const T* r, const T* m, const T* h, int ndim,    \
            int n0, int n1, int n2, int k_cell, int per0, int per1,          \
            int per2, double L0, double L1, double L2, double norm,          \
-           double h_fac, double h_fac_nd, double h_converge, double hmax,   \
-           int mapping, T* ndens, T* invom, T* zeta, unsigned char* done,   \
-           int device, void* stream) {                                      \
+           int family, int res, double h_fac, double h_fac_nd,              \
+           double h_converge, double hmax, int mapping, T* ndens,           \
+           T* invom, T* zeta, unsigned char* done, int device,              \
+           void* stream) {                                                  \
     return run_density<T>(ids, r, m, h, ndim, n0, n1, n2, k_cell, per0,     \
-                          per1, per2, L0, L1, L2, norm, h_fac, h_fac_nd,    \
-                          h_converge, hmax, mapping, ndens, invom, zeta,    \
-                          done, device, stream);                            \
+                          per1, per2, L0, L1, L2, norm, family, res,        \
+                          h_fac, h_fac_nd, h_converge, hmax, mapping,       \
+                          ndens, invom, zeta, done, device, stream);        \
   }
 
 MFV_DENSITY_ENTRY(mfv_density_f32, float)

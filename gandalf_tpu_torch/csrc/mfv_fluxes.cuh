@@ -1,9 +1,10 @@
 // K12 mfv_fluxes: the Godunov face fluxes of the meshless finite-volume
 // scheme over the 3^NDIM-cell stencil, in 1, 2 or 3 dims, in every mode
-// of the JAX flux pass.  Each of mfv_fluxes_{hllc,exact}_{1,2,3}d.cu
-// instantiates it for one Riemann solver (HLLC, or the exact one of
-// riemann_exact.cuh) and one NDIM, so that nvcc builds the six in
-// parallel.
+// of the JAX flux pass, with every smoothing kernel.  Each of
+// mfv_fluxes_{hllc,exact}_{1,2,3}d_{m4,quintic,gaussian}.cu instantiates
+// it for one Riemann solver (HLLC, or the exact one of
+// riemann_exact.cuh), one NDIM and one kernel family, direct and
+// tabulated, so that nvcc builds the eighteen in parallel.
 //
 // Replaces gandalf_tpu/ops/mfv_grid27.py:fluxes_mfv_grid27 (:342-478,
 // global timestep and block mode) with gandalf_tpu/ops/mfv.py:
@@ -42,6 +43,14 @@
 // particle order.  No shared-memory staging of neighbour rows yet: that
 // is later work (see the register and spill counts in PERF.md).
 //
+// The smoothing kernel (kernel_family.cuh) is a template parameter, as
+// the limiter class is: W comes through the s^2 form (w0_s2 at d^2 /
+// h^2) and W' through the s form (w1 at |dr| / h), each side at its own
+// h, as ops/mfv.py's flux terms take them; a pair is skipped where all
+// four vanish.  Any kernel but the direct M4 sums d^2 in the plain
+// version's rounded steps (kExactD2), so that a table index comes from
+// the plain version's d^2.
+//
 // Block-timestep mode (MUSCL only; ops/mfv.py:761-783, :815-819) is a
 // template parameter, so that the global-dt kernels keep their code and
 // registers (a runtime mode branch slowed K6/K7, PERF.md): the table
@@ -55,7 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "grid27.cuh"
-#include "m4.cuh"
+#include "kernel_family.cuh"
 #include "mfv.cuh"
 #include "riemann_exact.cuh"
 
@@ -65,7 +74,7 @@ enum Riemann { kHllc = 0, kExact = 1 };
 
 template <typename T>
 struct FluxArgs {
-  T norm, gamma, gm1;
+  T gamma, gm1;
   mfv::ExactConsts<T> ec;
   bool zmf, rk2, stat;
 };
@@ -115,11 +124,11 @@ __device__ __forceinline__ void limited_gradient(const T* row,
     }
 }
 
-template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK>
+template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK, class KF>
 __device__ __forceinline__ void flux_slot(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ pk, const Grid3& g, int c, int i, T dt,
-    const FluxArgs<T>& a, T* __restrict__ dQdt_out,
+    const KF& kern, const FluxArgs<T>& a, T* __restrict__ dQdt_out,
     T* __restrict__ rdmdt_out, T* __restrict__ dQ_out,
     T* __restrict__ rdm_out) {
   using C = Cols<NDIM, BLOCK>;
@@ -179,25 +188,29 @@ __device__ __forceinline__ void flux_slot(
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) {
         dr[k] = (r[NDIM * q + k] + sh[k]) - xi[k];
-        d2 += dr[k] * dr[k];
+        if (KF::kExactD2)
+          d2 = kf::add(d2, kf::mul(dr[k], dr[k]));
+        else
+          d2 += dr[k] * dr[k];
       }
       if (!(d2 > T(0))) continue;
       const T* pq = pk + C::kCount * static_cast<long long>(q);
       const T invh_j = T(1) / pq[C::kH];
       const T drmag = sqrt(d2);
-      const T s0_i = sqrt(d2 * (invh_i * invh_i)), s1_i = drmag * invh_i;
-      const T s0_j = sqrt(d2 * (invh_j * invh_j)), s1_j = drmag * invh_j;
-      if (s0_i >= T(2) && s1_i >= T(2) && s0_j >= T(2) && s1_j >= T(2))
+      const T ssq_i = d2 * (invh_i * invh_i), s1_i = drmag * invh_i;
+      const T ssq_j = d2 * (invh_j * invh_j), s1_j = drmag * invh_j;
+      if (!kern.in_support_s2(ssq_i) && !kern.in_support(s1_i)
+          && !kern.in_support_s2(ssq_j) && !kern.in_support(s1_j))
         continue;  // beyond both supports the face area is zero
       const T vol_j = T(1) / max(pq[C::kNdens], T(1e-300));
       T hn_j = invh_j;
 #pragma unroll
       for (int k = 1; k < NDIM; ++k) hn_j *= invh_j;
       // psi-tilde face vectors (ComputeGodunovFlux:110-137)
-      const T w0_i = hn_i * m4_w0<T>(s0_i, a.norm);
-      const T w0_j = hn_j * m4_w0<T>(s0_j, a.norm);
-      const T w1_i = hn_i * invh_i * m4_w1<T>(s1_i, a.norm);
-      const T w1_j = hn_j * invh_j * m4_w1<T>(s1_j, a.norm);
+      const T w0_i = hn_i * kern.w0_s2(ssq_i);
+      const T w0_j = hn_j * kern.w0_s2(ssq_j);
+      const T w1_i = hn_i * invh_i * kern.w1(s1_i);
+      const T w1_j = hn_j * invh_j * kern.w1(s1_j);
       const bool bad_j = pq[C::kBad] > T(0.5);
       T A[NDIM];
 #pragma unroll
@@ -297,11 +310,11 @@ __device__ __forceinline__ void flux_slot(
   }
 }
 
-template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK>
+template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK, class KF>
 __global__ void __launch_bounds__(128) mfv_fluxes_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ pk, const T* __restrict__ dt_ptr, Grid3 g,
-    int n_cells, bool flat, FluxArgs<T> a, T* __restrict__ dQdt_out,
+    int n_cells, bool flat, KF kern, FluxArgs<T> a, T* __restrict__ dQdt_out,
     T* __restrict__ rdmdt_out, T* __restrict__ dQ_out,
     T* __restrict__ rdm_out) {
   const T dt = *dt_ptr;
@@ -311,19 +324,20 @@ __global__ void __launch_bounds__(128) mfv_fluxes_kernel(
     if (t >= static_cast<long long>(n_cells) * g.K) return;
     flux_slot<T, NDIM, RIEMANN, LIM, BLOCK>(
         ids, r, pk, g, static_cast<int>(t / g.K), static_cast<int>(t % g.K),
-        dt, a, dQdt_out, rdmdt_out, dQ_out, rdm_out);
+        dt, kern, a, dQdt_out, rdmdt_out, dQ_out, rdm_out);
     return;
   }
   for (int i = threadIdx.x; i < g.K; i += blockDim.x)
     flux_slot<T, NDIM, RIEMANN, LIM, BLOCK>(ids, r, pk, g, blockIdx.x, i, dt,
-                                            a, dQdt_out, rdmdt_out, dQ_out,
-                                            rdm_out);
+                                            kern, a, dQdt_out, rdmdt_out,
+                                            dQ_out, rdm_out);
 }
 
-template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK>
+template <typename T, int NDIM, int RIEMANN, int LIM, bool BLOCK, class KF>
 void launch(const int* ids, const T* r, const T* pk, const T* dt,
-            const Grid3& g, int n_cells, bool flat, const FluxArgs<T>& a,
-            T* dQdt, T* rdmdt, T* dQ, T* rdm, cudaStream_t stream) {
+            const Grid3& g, int n_cells, bool flat, const KF& kern,
+            const FluxArgs<T>& a, T* dQdt, T* rdmdt, T* dQ, T* rdm,
+            cudaStream_t stream) {
   constexpr int kThreads = 128;
   const long long slots = static_cast<long long>(n_cells) * g.K;
   const int blocks = flat ? static_cast<int>((slots + kThreads - 1)
@@ -332,37 +346,53 @@ void launch(const int* ids, const T* r, const T* pk, const T* dt,
   const int threads = flat ? kThreads
                            : (slot_threads(g.K) < kThreads
                                   ? slot_threads(g.K) : kThreads);
-  mfv_fluxes_kernel<T, NDIM, RIEMANN, LIM, BLOCK>
-      <<<blocks, threads, 0, stream>>>(ids, r, pk, dt, g, n_cells, flat, a,
-                                       dQdt, rdmdt, dQ, rdm);
+  mfv_fluxes_kernel<T, NDIM, RIEMANN, LIM, BLOCK, KF>
+      <<<blocks, threads, 0, stream>>>(ids, r, pk, dt, g, n_cells, flat,
+                                       kern, a, dQdt, rdmdt, dQ, rdm);
 }
 
-template <typename T, int NDIM, int RIEMANN, bool BLOCK>
+template <typename T, int NDIM, int RIEMANN, bool BLOCK, class KF>
 void launch_limiter(int limiter, const int* ids, const T* r, const T* pk,
                     const T* dt, const Grid3& g, int n_cells, bool flat,
-                    const FluxArgs<T>& a, T* dQdt, T* rdmdt, T* dQ, T* rdm,
-                    cudaStream_t stream) {
+                    const KF& kern, const FluxArgs<T>& a, T* dQdt, T* rdmdt,
+                    T* dQ, T* rdm, cudaStream_t stream) {
   if (limiter == mfv::kGizmo)
     launch<T, NDIM, RIEMANN, mfv::kGizmo, BLOCK>(ids, r, pk, dt, g, n_cells,
-                                                 flat, a, dQdt, rdmdt, dQ,
-                                                 rdm, stream);
+                                                 flat, kern, a, dQdt, rdmdt,
+                                                 dQ, rdm, stream);
   else if (limiter == mfv::kCell)
     launch<T, NDIM, RIEMANN, mfv::kCell, BLOCK>(ids, r, pk, dt, g, n_cells,
-                                                flat, a, dQdt, rdmdt, dQ, rdm,
-                                                stream);
+                                                flat, kern, a, dQdt, rdmdt,
+                                                dQ, rdm, stream);
   else
     launch<T, NDIM, RIEMANN, mfv::kZeroSlope, BLOCK>(ids, r, pk, dt, g,
-                                                     n_cells, flat, a, dQdt,
-                                                     rdmdt, dQ, rdm, stream);
+                                                     n_cells, flat, kern, a,
+                                                     dQdt, rdmdt, dQ, rdm,
+                                                     stream);
 }
 
-template <typename T, int RIEMANN, int NDIM>
+template <typename T, int NDIM, int RIEMANN, class KF>
+void launch_mode(int block, int limiter, const int* ids, const T* r,
+                 const T* pk, const T* dt, const Grid3& g, int n_cells,
+                 bool flat, const KF& kern, const FluxArgs<T>& a, T* dQdt,
+                 T* rdmdt, T* dQ, T* rdm, cudaStream_t stream) {
+  if (block)
+    launch_limiter<T, NDIM, RIEMANN, true>(limiter, ids, r, pk, dt, g,
+                                           n_cells, flat, kern, a, dQdt,
+                                           rdmdt, dQ, rdm, stream);
+  else
+    launch_limiter<T, NDIM, RIEMANN, false>(limiter, ids, r, pk, dt, g,
+                                            n_cells, flat, kern, a, dQdt,
+                                            rdmdt, nullptr, nullptr, stream);
+}
+
+template <typename T, int RIEMANN, int NDIM, int FAM>
 int run_fluxes(const int* ids, const T* r, const T* pk, const T* dt,
                int n0, int n1, int n2, int k_cell, int per0, int per1,
                int per2, double L0, double L1, double L2, double norm,
-               double gamma, int zmf, int limiter, int rk2, int stat,
-               int block, int mapping, T* dQdt, T* rdmdt, T* dQ, T* rdm,
-               int device, void* stream_ptr) {
+               int res, double gamma, int zmf, int limiter, int rk2,
+               int stat, int block, int mapping, T* dQdt, T* rdmdt, T* dQ,
+               T* rdm, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (limiter < 0 || limiter > 2 || (block && (rk2 || !dQ || !rdm)))
@@ -371,35 +401,47 @@ int run_fluxes(const int* ids, const T* r, const T* pk, const T* dt,
   Grid3 g = {{n0, n1, n2}, {per0, per1, per2}, {L0, L1, L2}, k_cell};
   const int n_cells = n0 * n1 * n2;
   const bool flat = slot_mapping_flat(mapping, NDIM, k_cell);
-  const FluxArgs<T> a = {T(norm), T(gamma), T(gamma - 1.0),
+  const FluxArgs<T> a = {T(gamma), T(gamma - 1.0),
                          mfv::exact_consts<T>(gamma), zmf != 0, rk2 != 0,
                          stat != 0};
   if (n_cells > 0 && k_cell > 0) {
-    if (block)
-      launch_limiter<T, NDIM, RIEMANN, true>(limiter, ids, r, pk, dt, g,
-                                             n_cells, flat, a, dQdt, rdmdt,
-                                             dQ, rdm, stream);
+    // the family's kernel, direct (res 0) or tabulated
+    if (res > 0)
+      launch_mode<T, NDIM, RIEMANN>(
+          block, limiter, ids, r, pk, dt, g, n_cells, flat,
+          kf::make_kernel<kf::Kernel<T, FAM, true>>(norm, NDIM, res), a,
+          dQdt, rdmdt, dQ, rdm, stream);
     else
-      launch_limiter<T, NDIM, RIEMANN, false>(limiter, ids, r, pk, dt, g,
-                                              n_cells, flat, a, dQdt, rdmdt,
-                                              nullptr, nullptr, stream);
+      launch_mode<T, NDIM, RIEMANN>(
+          block, limiter, ids, r, pk, dt, g, n_cells, flat,
+          kf::make_kernel<kf::Kernel<T, FAM, false>>(norm, NDIM, 0), a,
+          dQdt, rdmdt, dQ, rdm, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mfv_k12
 
-// the C entry points of one Riemann solver and one NDIM, float32 and
-// float64: mfv_fluxes_<solver>_<NDIM>d_f32 and _f64
-#define MFV_FLUXES_ENTRY(NAME, T, RIEMANN, NDIM)                            \
+// the C entry points of one Riemann solver, one NDIM and one kernel
+// family (direct or tabulated by `res`), float32 and float64:
+// mfv_fluxes_<solver>_<NDIM>d_<family>_f32 and _f64
+#define MFV_FLUXES_ENTRY(NAME, T, RIEMANN, NDIM, FAM)                       \
   extern "C" int NAME(const int* ids, const T* r, const T* pk, const T* dt, \
                       int n0, int n1, int n2, int k_cell, int per0,         \
                       int per1, int per2, double L0, double L1, double L2,  \
-                      double norm, double gamma, int zmf, int limiter,      \
-                      int rk2, int stat, int block, int mapping, T* dQdt,   \
-                      T* rdmdt, T* dQ, T* rdm, int device, void* stream) {  \
-    return mfv_k12::run_fluxes<T, RIEMANN, NDIM>(                           \
+                      double norm, int res, double gamma, int zmf,          \
+                      int limiter, int rk2, int stat, int block,            \
+                      int mapping, T* dQdt, T* rdmdt, T* dQ, T* rdm,        \
+                      int device, void* stream) {                           \
+    return mfv_k12::run_fluxes<T, RIEMANN, NDIM, FAM>(                      \
         ids, r, pk, dt, n0, n1, n2, k_cell, per0, per1, per2, L0, L1, L2,   \
-        norm, gamma, zmf, limiter, rk2, stat, block, mapping, dQdt, rdmdt,  \
-        dQ, rdm, device, stream);                                           \
+        norm, res, gamma, zmf, limiter, rk2, stat, block, mapping, dQdt,    \
+        rdmdt, dQ, rdm, device, stream);                                    \
   }
+
+// one Riemann solver, NDIM and family in float32 and float64
+#define MFV_FLUXES_FAMILY(SOLVER, RIEMANN, NDIM, FAMNAME, FAM)              \
+  MFV_FLUXES_ENTRY(mfv_fluxes_##SOLVER##_##NDIM##d_##FAMNAME##_f32, float,  \
+                   RIEMANN, NDIM, FAM)                                      \
+  MFV_FLUXES_ENTRY(mfv_fluxes_##SOLVER##_##NDIM##d_##FAMNAME##_f64, double, \
+                   RIEMANN, NDIM, FAM)

@@ -29,19 +29,31 @@
 // it also writes the signed extrema max(Wmax, W) - W and min(Wmin, W) - W
 // that the per-neighbour limiter sweep (K31) reads.  Outputs are in
 // particle order.  No shared-memory staging yet: that is later work.
+//
+// The smoothing kernel (kernel_family.cuh) is a template parameter: W
+// comes through the s^2 form (w0_s2 at d^2 / h_i^2, as ops/mfv.py's
+// gradient terms take it) and W' through the s form (w1 at |dr| / h_i),
+// so a tabulated kernel quantises each on its own grid; a pair is
+// skipped only where both forms vanish and it lies beyond kernrange h_i.
+// Any kernel but the direct M4 sums d^2 in the plain version's rounded
+// steps (kExactD2).
 #include <cuda_runtime.h>
 
 #include "grid27.cuh"
-#include "m4.cuh"
+#include "kernel_family.cuh"
 #include "mfv.cuh"
 
 namespace {
 
-template <typename T, int NDIM>
+// the floor of the edge distance drmax, in units of h: gradient_finalize's
+// own 2 h whatever the kernel (not the kernel's range)
+constexpr double kDrmaxFloor = 2.0;
+
+template <typename T, int NDIM, class KF>
 __device__ __forceinline__ void gradient_slot(
     const int* __restrict__ ids, const T* __restrict__ r,
-    const T* __restrict__ pk, const Grid3& g, int c, int i, T norm,
-    T kernrange, T* __restrict__ B_out, T* __restrict__ grad_out,
+    const T* __restrict__ pk, const Grid3& g, int c, int i, const KF& kern,
+    T* __restrict__ B_out, T* __restrict__ grad_out,
     T* __restrict__ alpha_out, T* __restrict__ vsig_out,
     unsigned char* __restrict__ bad_out, T* __restrict__ dWmax_out,
     T* __restrict__ dWmin_out) {
@@ -67,7 +79,7 @@ __device__ __forceinline__ void gradient_slot(
   const T wnorm = invh_nd / max(own[kNdens], T(1e-300));
   const T w1norm = invh_nd * invh / max(own[kNdens], T(1e-300));
   const T sound = own[kSound];
-  const T rad2 = (kernrange * h) * (kernrange * h);
+  const T rad2 = (KF::range() * h) * (KF::range() * h);
   T Wi[kNvar];
 #pragma unroll
   for (int v = 0; v < kNvar; ++v) Wi[v] = own[kW + v];
@@ -96,18 +108,22 @@ __device__ __forceinline__ void gradient_slot(
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) {
         dr[k] = (r[NDIM * q + k] + sh[k]) - xi[k];
-        d2 += dr[k] * dr[k];
+        if (KF::kExactD2)
+          d2 = kf::add(d2, kf::mul(dr[k], dr[k]));
+        else
+          d2 += dr[k] * dr[k];
       }
       if (!(d2 > T(0))) continue;
       const T drmag = sqrt(d2);
-      if (d2 > rad2 && drmag * invh >= T(2) && sqrt(d2 * invhsqd) >= T(2))
+      const T ssqd = d2 * invhsqd, s1 = drmag * invh;
+      if (d2 > rad2 && !kern.in_support(s1) && !kern.in_support_s2(ssqd))
         continue;  // W, W' and the kernel-range statistics are all 0
       const T* pq = pk + kCols * static_cast<long long>(q);
       T dW[kNvar];
 #pragma unroll
       for (int v = 0; v < kNvar; ++v) dW[v] = pq[kW + v] - Wi[v];
-      const T w = wnorm * m4_w0<T>(sqrt(d2 * invhsqd), norm);
-      const T w1 = w1norm * m4_w1<T>(drmag * invh, norm);
+      const T w = wnorm * kern.w0_s2(ssqd);
+      const T w1 = w1norm * kern.w1(s1);
       T unit[NDIM];
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) unit[k] = dr[k] / drmag;
@@ -158,7 +174,7 @@ __device__ __forceinline__ void gradient_slot(
       for (int b = 1; b < NDIM; ++b) s += B[NDIM * a + b] * gt[NDIM * v + b];
       grad[NDIM * v + a] = bad ? gs[NDIM * v + a] : s;
     }
-  const T drmax = max(sqrt(drmax2), T(2) * h) * T(0.51);
+  const T drmax = max(sqrt(drmax2), T(kDrmaxFloor) * h) * T(0.51);
   T* alpha = alpha_out + kNvar * static_cast<long long>(p);
 #pragma unroll
   for (int v = 0; v < kNvar; ++v) {
@@ -189,11 +205,11 @@ __device__ __forceinline__ void gradient_slot(
   bad_out[p] = bad ? 1 : 0;
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __global__ void __launch_bounds__(256) mfv_gradients_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
-    const T* __restrict__ pk, Grid3 g, int n_cells, bool flat, T norm,
-    T kernrange, T* __restrict__ B, T* __restrict__ grad,
+    const T* __restrict__ pk, Grid3 g, int n_cells, bool flat, KF kern,
+    T* __restrict__ B, T* __restrict__ grad,
     T* __restrict__ alpha, T* __restrict__ vsig,
     unsigned char* __restrict__ bad, T* __restrict__ dWmax,
     T* __restrict__ dWmin) {
@@ -202,18 +218,18 @@ __global__ void __launch_bounds__(256) mfv_gradients_kernel(
                         + threadIdx.x;
     if (t >= static_cast<long long>(n_cells) * g.K) return;
     gradient_slot<T, NDIM>(ids, r, pk, g, static_cast<int>(t / g.K),
-                           static_cast<int>(t % g.K), norm, kernrange, B,
-                           grad, alpha, vsig, bad, dWmax, dWmin);
+                           static_cast<int>(t % g.K), kern, B, grad, alpha,
+                           vsig, bad, dWmax, dWmin);
     return;
   }
   for (int i = threadIdx.x; i < g.K; i += blockDim.x)
-    gradient_slot<T, NDIM>(ids, r, pk, g, blockIdx.x, i, norm, kernrange, B,
-                           grad, alpha, vsig, bad, dWmax, dWmin);
+    gradient_slot<T, NDIM>(ids, r, pk, g, blockIdx.x, i, kern, B, grad,
+                           alpha, vsig, bad, dWmax, dWmin);
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 void launch(const int* ids, const T* r, const T* pk, const Grid3& g,
-            int n_cells, bool flat, T norm, T kernrange, T* B, T* grad,
+            int n_cells, bool flat, const KF& kern, T* B, T* grad,
             T* alpha, T* vsig, unsigned char* bad, T* dWmax, T* dWmin,
             cudaStream_t stream) {
   const long long slots = static_cast<long long>(n_cells) * g.K;
@@ -221,16 +237,16 @@ void launch(const int* ids, const T* r, const T* pk, const Grid3& g,
                                              / kFlatThreads)
                           : n_cells;
   const int threads = flat ? kFlatThreads : slot_threads(g.K);
-  mfv_gradients_kernel<T, NDIM><<<blocks, threads, 0, stream>>>(
-      ids, r, pk, g, n_cells, flat, norm, kernrange, B, grad, alpha, vsig,
-      bad, dWmax, dWmin);
+  mfv_gradients_kernel<T, NDIM, KF><<<blocks, threads, 0, stream>>>(
+      ids, r, pk, g, n_cells, flat, kern, B, grad, alpha, vsig, bad, dWmax,
+      dWmin);
 }
 
 template <typename T>
 int run_gradients(const int* ids, const T* r, const T* pk, int ndim, int n0,
                   int n1, int n2, int k_cell, int per0, int per1, int per2,
-                  double L0, double L1, double L2, double norm,
-                  double kernrange, int mapping, T* B, T* grad, T* alpha,
+                  double L0, double L1, double L2, double norm, int family,
+                  int res, int mapping, T* B, T* grad, T* alpha,
                   T* vsig, unsigned char* bad, T* dWmax, T* dWmin,
                   int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
@@ -241,15 +257,19 @@ int run_gradients(const int* ids, const T* r, const T* pk, int ndim, int n0,
   const int n_cells = n0 * n1 * n2;
   const bool flat = slot_mapping_flat(mapping, ndim, k_cell);
   if (n_cells > 0 && k_cell > 0) {
-    if (ndim == 1)
-      launch<T, 1>(ids, r, pk, g, n_cells, flat, T(norm), T(kernrange), B,
-                   grad, alpha, vsig, bad, dWmax, dWmin, stream);
-    else if (ndim == 2)
-      launch<T, 2>(ids, r, pk, g, n_cells, flat, T(norm), T(kernrange), B,
-                   grad, alpha, vsig, bad, dWmax, dWmin, stream);
-    else
-      launch<T, 3>(ids, r, pk, g, n_cells, flat, T(norm), T(kernrange), B,
-                   grad, alpha, vsig, bad, dWmax, dWmin, stream);
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, ndim, [&](const auto& kern) {
+          if (ndim == 1)
+            launch<T, 1>(ids, r, pk, g, n_cells, flat, kern, B, grad, alpha,
+                         vsig, bad, dWmax, dWmin, stream);
+          else if (ndim == 2)
+            launch<T, 2>(ids, r, pk, g, n_cells, flat, kern, B, grad, alpha,
+                         vsig, bad, dWmax, dWmin, stream);
+          else
+            launch<T, 3>(ids, r, pk, g, n_cells, flat, kern, B, grad, alpha,
+                         vsig, bad, dWmax, dWmin, stream);
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -261,12 +281,12 @@ extern "C" {
 #define MFV_GRADIENTS_ENTRY(NAME, T)                                        \
   int NAME(const int* ids, const T* r, const T* pk, int ndim, int n0,       \
            int n1, int n2, int k_cell, int per0, int per1, int per2,        \
-           double L0, double L1, double L2, double norm, double kernrange,  \
-           int mapping, T* B, T* grad, T* alpha, T* vsig,                   \
+           double L0, double L1, double L2, double norm, int family,        \
+           int res, int mapping, T* B, T* grad, T* alpha, T* vsig,          \
            unsigned char* bad, T* dWmax, T* dWmin, int device,              \
            void* stream) {                                                  \
     return run_gradients<T>(ids, r, pk, ndim, n0, n1, n2, k_cell, per0,     \
-                            per1, per2, L0, L1, L2, norm, kernrange,        \
+                            per1, per2, L0, L1, L2, norm, family, res,      \
                             mapping, B, grad, alpha, vsig, bad, dWmax,      \
                             dWmin, device, stream);                         \
   }

@@ -12,6 +12,14 @@
 // exactly kNewtonSteps steps with no convergence test, as the JAX
 // lax.scan of length 10.  A vacuum (2/(gamma-1)(cl + cr) <= ur - ul)
 // gives p* = 0 and a zero flux.
+//
+// The one-dimensional problem (the star region and the sample at x/t =
+// 0, with their eleven pow calls) is one __noinline__ function of the
+// scalar states, in registers: a source of K12 instantiates 24 kernels
+// with up to three solves each, and inlining the solver into every one
+// made the exact sources the longest part of the build.  Its arithmetic
+// is the same; only the call is new (python -m
+// gandalf_tpu_torch.time_mfv_exact times both forms).
 #pragma once
 
 #include "mfv.cuh"
@@ -157,6 +165,26 @@ __device__ __forceinline__ void sample_zero(T pstar, T ustar, T dl, T ul,
   *p = pp;
 }
 
+// p*, and (rho, u, p) at x/t = 0 of the one-dimensional problem (p* =
+// 0: a vacuum, the sample unset)
+template <typename T>
+struct Sample1d {
+  T pstar, d, u, p;
+};
+
+template <typename T>
+__device__ __noinline__ Sample1d<T> solve_1d(T rl, T vll, T pl, T cl, T rr,
+                                              T vlr, T pr, T cr,
+                                              const ExactConsts<T> c) {
+  Sample1d<T> out;
+  T ustar;
+  star_region<T>(rl, vll, pl, cl, rr, vlr, pr, cr, c, &out.pstar, &ustar);
+  if (!(out.pstar > T(0))) return out;
+  sample_zero<T>(out.pstar, ustar, rl, vll, pl, cl, rr, vlr, pr, cr, c,
+                 &out.d, &out.u, &out.p);
+  return out;
+}
+
 // The exact Godunov flux along n (ExactRiemannSolver::ComputeFluxes),
 // with hllc's interface: face-frame primitives in, the lab-frame flux
 // along n out; the transverse velocity from the upwind side
@@ -174,16 +202,13 @@ __device__ __forceinline__ void exact(const T Wl[Dims<NDIM>::kNvar],
   const T vlr = dot<T, NDIM>(Wr, n);
   const T cl = sqrt(c.gamma * pl / rl);
   const T cr = sqrt(c.gamma * pr / rr);
-  T pstar, ustar;
-  star_region<T>(rl, vll, pl, cl, rr, vlr, pr, cr, c, &pstar, &ustar);
-  if (!(pstar > T(0))) {  // vacuum
+  const Sample1d<T> s = solve_1d<T>(rl, vll, pl, cl, rr, vlr, pr, cr, c);
+  if (!(s.pstar > T(0))) {  // vacuum
 #pragma unroll
     for (int v = 0; v < kNvar; ++v) flux[v] = T(0);
     return;
   }
-  T d0, u0, p0;
-  sample_zero<T>(pstar, ustar, rl, vll, pl, cl, rr, vlr, pr, cr, c, &d0,
-                 &u0, &p0);
+  const T d0 = s.d, u0 = s.u, p0 = s.p;
   const bool up_left = u0 > T(0);
   const T* Wup = up_left ? Wl : Wr;
   const T vup = up_left ? vll : vlr;

@@ -34,6 +34,18 @@ Tensor = torch.Tensor
 # gradients
 # ---------------------------------------------------------------------------
 
+def _dist2(dr: Tensor) -> Tensor:
+    """|dr|^2 over the last axis, summed in axis order with one rounding
+    a term, as the CUDA kernels sum it: torch.sum on the card pairs the
+    terms otherwise for some pairs, and in float32 that moves a pair at
+    the edge of kernrange h or at a tabulated kernel's grid point to the
+    other side."""
+    d2 = dr[..., 0] * dr[..., 0]
+    for k in range(1, dr.shape[-1]):
+        d2 = d2 + dr[..., k] * dr[..., k]
+    return d2
+
+
 def _invert_small(E: Tensor, ndim: int) -> Tensor:
     """Closed-form inverse of (..., ndim, ndim) matrices for ndim 1/2/3."""
     if ndim == 1:
@@ -108,7 +120,7 @@ def gradient_terms(kern: SmoothingKernel, ndim: int, h: Tensor,
     nvar, nd), and vsig, W_j and d^2 where the pair counts for the
     kernel-range statistics (-inf / +inf-like fills elsewhere, as
     gradient_accumulate masks them)."""
-    drsqd = torch.sum(dr * dr, dim=-1)
+    drsqd = _dist2(dr)
     valid = drsqd > 0.0
     if mask is not None:
         valid = valid & mask
@@ -210,7 +222,7 @@ def limiter_alpha_accumulate(limiter: str, kern: SmoothingKernel, ndim: int,
     clips its ratio to [0, 1]; springel2009's is bounded only by the
     running min from alpha.  The 1e-300 of the live test is 0 in
     float32."""
-    drsqd = torch.sum(dr * dr, dim=-1)
+    drsqd = _dist2(dr)
     valid = drsqd > 0.0
     if mask is not None:
         valid = valid & mask
@@ -614,7 +626,7 @@ def compute_godunov_fluxes(kern: SmoothingKernel, cfg: MfvConfig, ndim: int,
             raise ValueError("block mode takes the MUSCL time scheme")
         dt = dt_pair[..., None]
     irho = ndim
-    drsqd = torch.sum(dr * dr, dim=-1)
+    drsqd = _dist2(dr)
     valid = drsqd > 0.0
     if mask is not None:
         valid = valid & mask

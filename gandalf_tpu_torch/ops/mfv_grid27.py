@@ -343,9 +343,10 @@ def flux_modes(cfg: mfv_ops.MfvConfig, block: bool = False
 
 
 def flux_count(spec: g27.Grid27Spec, cfg: mfv_ops.MfvConfig,
-               block: bool = False) -> str:
-    """The LAUNCHES key of K12 under `cfg` on `spec`'s dims."""
-    return _ext.mfv_flux_count(spec, flux_modes(cfg, block))
+               block: bool = False, kern: SmoothingKernel = None) -> str:
+    """The LAUNCHES key of K12 under `cfg` on `spec`'s dims with the
+    smoothing kernel `kern` (None: M4's key)."""
+    return _ext.mfv_flux_count(spec, flux_modes(cfg, block), kern)
 
 
 def fluxes_kernel(kern: SmoothingKernel, cfg: mfv_ops.MfvConfig,

@@ -2,14 +2,15 @@
 
 Counterpart of ``gandalf_tpu/sim/mfv_sim.py:MfvMusclSimulation`` and
 ``MfvRungeKuttaSimulation`` on the structured grid in 1, 2 or 3 dims,
-with a global timestep or (MUSCL only) block timesteps: the M4 kernel,
-any EOS of the port but the locally isothermal family, the HLLC or exact
-Riemann solver with or without zero mass flux, every slope limiter
-(gizmo, scalar, null,
-zeroslope, tvdscalar, springel2009 and the aliases tess2011 and
-balsara2004), moving or static particles, and in 3D optionally
-self-gravity from the KD-bucket Barnes-Hut tree with the MFV zeta
-scaling (and, in a periodic box, the Ewald sum).  One global step is
+with a global timestep or (MUSCL only) block timesteps: the M4, quintic
+or gaussian kernel, each direct or tabulated (the gaussian without
+self-gravity, fault F23), any EOS of the port but the locally isothermal
+family, the HLLC or exact Riemann solver with or without zero mass flux,
+every slope limiter (gizmo, scalar, null, zeroslope, tvdscalar,
+springel2009 and the aliases tess2011 and balsara2004), moving or static
+particles, and in 3D optionally self-gravity from the KD-bucket
+Barnes-Hut tree with the MFV zeta scaling (and, in a periodic box, the
+Ewald sum).  One global step is
 
   1. Godunov fluxes from the previous step's gradients and positions
      (K1 at the old r, K12: the MUSCL half step, or under RK2 the mean
@@ -45,9 +46,9 @@ passes (K32, K33), then the commit of the particles ending their step
 gradients (K11, K31).  On overflow the state and the schedule rewind
 together and the tick is redone after a replan, at most 4 times.
 Self-gravity runs in 1-3 dims.  Mirror walls, sinks, external
-potentials, radiative feedback, the locally isothermal EOS, smoothing
-kernels other than M4, the Ewald sum below 3D and RK2 with block
-timesteps raise NotImplementedError naming their ROADMAP item or fault,
+potentials, radiative feedback, the locally isothermal EOS, the
+gaussian kernel with self-gravity, the Ewald sum below 3D and RK2 with
+block timesteps raise NotImplementedError naming their ROADMAP item or fault,
 or the JAX package's own refusal.
 """
 
@@ -59,7 +60,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .._ext import require_m4
 from ..integrate.block import BlockConfig
 from ..integrate.mfv_block import (advance_mfv, check_timesteps_mfv,
                                    end_timestep_mfv, init_schedule_mfv)
@@ -120,8 +120,9 @@ class MfvMusclSimulation(SimulationBase):
             raise _unsupported("radiative feedback in MFV (the JAX "
                                "package's MFV controller ignores rad_fb: "
                                "fault F21)", "item 9")
+        # every smoothing kernel runs; _common_parameters refuses the
+        # gaussian with self-gravity (fault F23)
         self._common_parameters()
-        require_m4(self.kern, "MFV (K7's MFV mode, K10-K12, K31)")
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries in MFV",
                                "items 8 and 10")

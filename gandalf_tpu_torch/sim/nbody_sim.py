@@ -22,9 +22,10 @@ the host, as in the JAX package.
 
 A step runs eagerly on the state's device.  The host clamps each step's
 dt to tend and to the next snapshot time from one read of (t, dt) per
-step, taken right after the previous step.  The snapshot times advance
-as the JAX package's ``output`` advances them (through ``Run``), though
-no snapshot is taken (output is ROADMAP queue 1, item 14).  Unlike the hydro
+step, taken right after the previous step.  Snapshots are taken as the
+JAX package's ``output`` takes them (through ``Run``): the stars, with
+any sub-system expanded and rho and u zero (``_state_to_host``), in
+memory or, with a run_id and ``GANDALF_WRITE_SNAPSHOTS=1``, in files.  Unlike the hydro
 controllers, this one does not burst: the clamp needs the previous
 step's dt, as in the JAX package.
 """

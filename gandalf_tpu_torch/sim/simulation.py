@@ -254,7 +254,8 @@ class SimulationBase:
         """Read run_id.restart, then the snapshot it names, into the data
         SetupSimulation starts from (SimulationBase::RestartSnapshot,
         Simulation.cpp:609-631); the snapshot numbering continues past
-        the run's files.  Returns the snapshot's time."""
+        the run's files.  Returns the snapshot's time.  A column snapshot
+        with stars is refused (fault F33: its reader drops them)."""
         run_id = self.params.stringparams["run_id"]
         with open(f"{run_id}.restart") as f:
             form = f.readline().strip()
@@ -265,6 +266,15 @@ class SimulationBase:
             t, data = sim_io.read_seren_form(fname)
         else:
             t, data = sim_io.read_column_snapshot(fname)
+            if data["nstar"] > 0:
+                # the column reader (the JAX package's, copied) reads the
+                # gas rows only: the run would restart without its stars
+                raise NotImplementedError(
+                    f"a restart from the column snapshot {fname} with "
+                    f"{data['nstar']} star(s): the column reader reads "
+                    "the gas rows only, so the run would restart without "
+                    "its stars (ROADMAP queue 3, fault F33); restart from "
+                    "a SEREN snapshot (out_file_form su or sf)")
         data["t"] = t
         self.restart_data = data
         existing = glob.glob(f"{run_id}.{form}.[0-9]*")

@@ -1092,3 +1092,25 @@ def test_radiation_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert _ext.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("variant", ["quintic", "gaussian", "m4_tab",
+                                     "quintic_tab", "gaussian_tab"])
+def test_mfv_family_kernels_match_plain_versions_on_gpu(variant, ndim,
+                                                        dtype):
+    """K10, K11, K31, K12 (its global modes and its block mode), K7's MFV
+    mode (3D, not the gaussian) and the block pass's K22, K32, K33 with
+    each variant against their plain versions on the card
+    (check.compare_mfv_family_kernels, chip_smoke.py's
+    mfv_family_kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import compare_mfv_family_kernels
+
+    report = compare_mfv_family_kernels(variant, ndim, "cuda", dtype)
+    bad = {k: r.get("scaled_err", r) for k, r in report.items()
+           if not r["ok"]}
+    assert not bad, bad

@@ -13,7 +13,12 @@ command line against gandalf_tpu's, on the CPU in float64.
   line writes for the same parameter file, with snapshots within 1e-9; a
   run stopped by Nstepsmax and restarted with -r agrees with the JAX
   package's stop and restart to 1e-9, starting at the stopped run's t;
-- the command line refuses to run without CUDA unless asked for the CPU.
+- the command line refuses to run without CUDA unless asked for the CPU;
+- ROADMAP fault F32: in float32 the JAX package's Run spins on at
+  float32(tend) < tend until Nstepsmax, where the port stops;
+- ROADMAP fault F33: the JAX package's column reader drops a snapshot's
+  stars, so its restart starts without them; the port refuses such a
+  restart.
 
 Every file goes under the test's tmp_path.
 """
@@ -300,3 +305,94 @@ def test_cli_refuses_without_cuda(tmp_path, monkeypatch):
         torch_main(["run.dat"])
     assert sorted(p.name for p in tmp_path.iterdir()) == ["run.dat"]
     assert torch_main([]) == 1
+
+
+def test_float32_run_stops_at_tend_f32():
+    """ROADMAP fault F32: the Sod tube of tests/test_adsod.py at 64 + 16
+    particles in float32 (neib_search kdtree), tend 0.02, Nstepsmax 400.
+    float32(0.02) = 0.0199999996 < 0.02: the JAX package's Run compares
+    t with the Python float tend, so once t reaches float32(tend) (step
+    4) every later step adds nothing and it runs on to Nstepsmax.  The
+    port compares in the state's type and stops at float32(tend) after
+    the same 4 steps; the two t agree."""
+    import jax
+
+    from gandalf_tpu.params import Parameters as JaxParameters
+    from gandalf_tpu.sim.simulation import SimulationBase as JaxSim
+    from gandalf_tpu_torch.check import sod_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    p = sod_params(64, 16, tend=0.02)
+    for k, v in (("Nstepsmax", 400), ("neib_search", "kdtree"),
+                 ("run_id", ""), ("tsnapfirst", 1.0e30),
+                 ("dt_snap", 1.0e30)):
+        p.set(k, v)
+    jp = JaxParameters()
+    for table in ("intparams", "floatparams", "stringparams"):
+        getattr(jp, table).update(getattr(p, table))
+    with jax.enable_x64(False):
+        jsim = JaxSim.factory(jp)
+        jsim.Run()
+        assert np.asarray(jsim.state.r).dtype == np.float32
+    tsim = SimulationBase.factory(p, "cpu", torch.float32)
+    tsim.Run()
+    tend32 = float(np.float32(0.02))
+    assert tend32 < 0.02
+    assert jsim.Nsteps == 400
+    assert tsim.Nsteps == 4
+    assert float(jsim.t) == tsim.t == tend32
+
+
+def _column_restart(tmp_path, mod):
+    """A column snapshot of 60 gas particles and 3 stars in 2D (the
+    writer of `mod`) and the run_id.restart pointer to it, under
+    tmp_path."""
+    fname = str(tmp_path / "RUN.column.00003")
+    mod.write_column_snapshot(fname, 0.5, _hydro(ndim=2), nstar=3,
+                              star=_stars(2))
+    (tmp_path / "RUN.restart").write_text(f"column\n{fname}\n")
+    return fname
+
+
+def test_column_restart_drops_stars_in_jax_f33(tmp_path, monkeypatch):
+    """ROADMAP fault F33 on the JAX package: its column reader reads the
+    header's star count but only the gas rows, so its restart loader
+    stages 60 gas particles and no star for setup."""
+    from gandalf_tpu.params import Parameters as JaxParameters
+    from gandalf_tpu.sim.simulation import SimulationBase as JaxSim
+    from gandalf_tpu_torch.check import cli_params
+
+    monkeypatch.chdir(tmp_path)
+    _column_restart(tmp_path, jio)
+    p = cli_params()
+    p.set("run_id", "RUN")
+    q = JaxParameters()
+    for table in ("intparams", "floatparams", "stringparams"):
+        getattr(q, table).update(getattr(p, table))
+    jsim = JaxSim.factory(q)
+    jsim.load_restart_snapshot()
+    data = jsim.restart_data
+    assert data["nstar"] == 3
+    assert len(data["m"]) == 60 and "star" not in data
+    assert data["t"] == 0.5
+
+
+def test_column_restart_with_stars_refused_f33(tmp_path, monkeypatch):
+    """The port's restart loader refuses a column snapshot whose header
+    counts stars (F33), naming the fault; without stars it loads."""
+    from gandalf_tpu_torch.check import cli_params
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    monkeypatch.chdir(tmp_path)
+    _column_restart(tmp_path, tio)
+    p = cli_params()
+    p.set("run_id", "RUN")
+    sim = SimulationBase.factory(p, "cpu", torch.float64)
+    with pytest.raises(NotImplementedError, match="F33"):
+        sim.load_restart_snapshot()
+    assert sim.restart_data is None
+    fname = str(tmp_path / "RUN.column.00004")
+    tio.write_column_snapshot(fname, 0.75, _hydro(ndim=2))
+    (tmp_path / "RUN.restart").write_text(f"column\n{fname}\n")
+    assert sim.load_restart_snapshot() == 0.75
+    assert len(sim.restart_data["m"]) == 60

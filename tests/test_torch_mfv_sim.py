@@ -243,7 +243,7 @@ def test_burst_overflow_replays_step_by_step():
 
 
 @pytest.mark.parametrize("settings,item", [
-    ({"kernel": "quintic"}, "item 9"),
+    ({"kernel": "quintic"}, None),
     ({"gas_eos": "locally_isothermal"}, "F20"),
     ({"ndim": 1, "ewald": 1}, "requires a 3D box"),
     ({"sink_particles": 1}, "F16"),
@@ -254,13 +254,20 @@ def test_burst_overflow_replays_step_by_step():
          "mfvrk_Nlevels", "rad_fb", "mirror"])
 def test_options_outside_the_slice_raise(settings, item):
     """What the MFV controllers still refuse, each naming its ROADMAP
-    item or fault: a kernel other than M4 (item 9), the locally
-    isothermal EOS (F20), the Ewald sum of a periodic box below 3D (the
-    JAX package's reason; self-gravity itself runs there), sinks (F16),
-    RK2 with block timesteps (the JAX package refuses that too),
-    radiative feedback (F21) and mirror walls."""
+    item or fault: the locally isothermal EOS (F20), the Ewald sum of a
+    periodic box below 3D (the JAX package's reason; self-gravity itself
+    runs there), sinks (F16), RK2 with block timesteps (the JAX package
+    refuses that too), radiative feedback (F21) and mirror walls.  A
+    kernel other than M4 (item None) is no longer refused: the box with
+    the quintic and tree gravity sets up."""
     p = mfv_params(N_SIDE, self_gravity=1)
     for key, value in settings.items():
         p.set(key, value)
+    sim = SimulationBase.factory(p, "cpu", torch.float64)
+    if item is None:
+        sim.SetupSimulation()
+        assert sim.kern.variant == settings["kernel"]
+        assert torch.isfinite(sim.state.a).all()
+        return
     with pytest.raises(NotImplementedError, match=item):
-        SimulationBase.factory(p, "cpu", torch.float64).process_parameters()
+        sim.process_parameters()

@@ -101,15 +101,6 @@ def _m4_only_wrappers():
     from gandalf_tpu_torch import _ext
 
     return {
-        "mfv_density": lambda k: _ext.mfv_density(None, k, 1.2, 0.01, 1.0,
-                                                  None, None, None, None),
-        "mfv_gradients": lambda k: _ext.mfv_gradients(None, k, None, None,
-                                                      None),
-        "mfv_fluxes": lambda k: _ext.mfv_fluxes(None, k, None, None, None,
-                                                None, None),
-        "tree_near_mfv": lambda k: _ext.tree_near(
-            None, k, None, None, None, None, None, None, None, 0,
-            zeta_scaling="mfv"),
         "direct_softened": lambda k: _ext.direct_softened(
             None, None, None, None, True, kern=k),
         "star_gas_forces": lambda k: _ext.star_gas_forces(
@@ -133,18 +124,58 @@ def _m4_only_wrappers():
     }
 
 
+def _mfv_plain_outputs(name, tab):
+    """The plain K10, K11, K12 (and, but with the gaussian, K7's MFV
+    mode) with the kernel (name, tab) on the 6^3 MFV box's state after
+    setup (check.mfv_params, jittered): every output tensor."""
+    from gandalf_tpu_torch.check import jittered_box_ic, mfv_params
+    from gandalf_tpu_torch.ops import mfv_grid27 as mg
+    from gandalf_tpu_torch.ops import sph_grid27 as g27
+    from gandalf_tpu_torch.ops import tree as tt
+    from gandalf_tpu_torch.ops.active_grid import dense_ids
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    grav = int(name != "gaussian")
+    p = mfv_params(6, self_gravity=grav)
+    p.set("kernel", name)
+    p.set("tabulated_kernel", tab)
+    sim = SimulationBase.factory(p, "cpu", torch.float64)
+    sim.SetupSimulation(jittered_box_ic(p, 6))
+    s, spec, kern = sim.state, sim.gridspec, sim.kern
+    ids_d = dense_ids(spec, g27.bin_particles(spec, s.r))
+    hmax = g27.hmax_of(spec, kern.kernrange)
+    out = list(mg.density_sums(kern, spec, sim.h_fac, sim.h_converge, hmax,
+                               ids_d, s.r, s.m, s.h))
+    gpk = torch.cat([s.h[:, None], s.ndens[:, None], s.Wprim,
+                     s.sound[:, None]], -1)
+    g = mg.gradients(kern, spec, ids_d, s.r, gpk)
+    out += list(g)
+    fpk = mg.pack_flux_fields(s.h, s.ndens, s.Wprim, s.sound, s.a0, g.B,
+                              g.grad, g.alpha_slope, g.bad)
+    out += list(mg.fluxes(kern, sim.mfv_cfg, spec, s.dt, ids_d, s.r, fpk))
+    if grav:
+        out += list(tt.tree_gravity_grouped(
+            sim.treespec, s.bucket_map, s.r, s.m, s.h, kern,
+            s.zeta * s.hfactor, sim._periodic_extent(), zeta_scaling="mfv"))
+    return [x for x in out if x is not None]
+
+
 @pytest.mark.parametrize("name,tab", [("quintic", 0), ("gaussian", 0),
                                       ("m4", 1)])
 def test_unported_kernels_raise(name, tab):
     """The kernel factory builds the quintic, the gaussian and the
-    tabulated M4, which the grad-h grid and tree kernels run; every
-    kernel that evaluates W with M4 only (MFV, N-body, sinks, cd2010,
-    dust, SM2012) refuses them, naming ROADMAP queue 1, item 9, and K7
-    refuses the gaussian (no softened gravity, fault F23)."""
+    tabulated M4, which the grad-h grid and tree kernels and the
+    meshless finite-volume kernels (K10-K12, K7's MFV mode) run: their
+    plain versions return finite results.  Every kernel that evaluates W
+    with M4 only (N-body, sinks, cd2010, dust, SM2012) refuses them,
+    naming ROADMAP queue 1, item 9, and K7 refuses the gaussian (no
+    softened gravity, fault F23)."""
     from gandalf_tpu_torch import _ext
 
     kern = kernel_factory(name, 3, tab)
     assert kern.variant == (f"{name}_tab" if tab else name)
+    for x in _mfv_plain_outputs(name, tab):
+        assert bool(torch.isfinite(x.double()).all())
     for wrapper, call in _m4_only_wrappers().items():
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1, item 9"):

@@ -20,9 +20,10 @@ sum, MFV gravity in 2D) and sinks in 1D and 2D (K14, K16-K18 and K20
 at NDIM 1 and 2, the 2D disc forming and growing sinks under global and
 block steps, 2D binary accretion), radiation and radiative feedback in
 1D and 2D (K30 and K34-K37 at NDIM 1 and 2, the 2D HII region under each
-scheme, the 2D sink disc with radiative feedback) and the command line
-with its snapshots and restarts, and checks them, in phases, each
-printing one line:
+scheme, the 2D sink disc with radiative feedback), the command line
+with its snapshots and restarts, the smoothing-kernel family in MFV and
+in cd2010 viscosity, the gas-dust drag and SM2012 (K21, K23-K26), and
+checks them, in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
@@ -490,7 +491,29 @@ printing one line:
     every step, mfv_main_path's gates;
 108. mfv_family_block: mfv_block_sphere's run with the tabulated quintic
     (its energy gate F24's, as quintic_block's) and mfv_khi's first run
-    (524,288) with the gaussian.
+    (524,288) with the gaussian, K31 (tvdscalar) with the gaussian timed
+    at its state;
+109. grid_family_kernels: K21, K23 (each drag law two-fluid, and
+    test-particle), K24, K25 and K26 with the quintic, the gaussian and
+    the tabulated M4, quintic and gaussian at ndim 1-3 against their plain
+    versions on the card (check.compare_grid_family_kernels: K21 at a
+    cd2010 run's state, the others on synthetic inputs), float64 within
+    1e-12 and float32 within check.py's tolerances, the tabulated
+    kernels' pairs near a table point counted;
+110. grid_family_parity: float64 on the card against the CPU path with
+    equal plans: 3 steps of sod_td_avisc's cd2010 tube with the quintic,
+    the 1D dusty box with the gaussian and with the tabulated quintic
+    under a global dt and under Nlevels 3 (equal levels), the SM2012 tube
+    with the tabulated M4 and 3 steps of the SM2012 8^3 box with
+    self-gravity and the quintic;
+111. family_khi_2d: khi_main_path's KHI (425,984 particles, float32)
+    through SM2012 with the quintic and through grad-h cd2010 with the
+    gaussian, 2 warm-up and 16 timed steps each, khi_sm2012's and
+    khi_cd2010's gates, each family key launched every step and no M4
+    key, the rates beside the M4 runs';
+112. dusty_evrard_tab: dusty_evrard (check.dust_params(131072)) with the
+    tabulated M4, 8 timed steps, dusty_evrard's gates, K23 and K24 under
+    their _m4_tab keys every step.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -535,7 +558,9 @@ radiation_dims_parity's rods on the card (float64; times from
 radiation_kernels_dims' float32 runs), K7's MFV mode and K10-K12 with
 the quintic from mfv_quintic_box, with the tabulated quintic (K12's
 block mode) from mfv_family_block's sphere and in 2D with the gaussian
-from its KHI, each counted
+from its KHI, K25 and K26 in 2D with the quintic and K21 in 2D with the
+gaussian from family_khi_2d, K23 and K24 with the tabulated M4 from
+dusty_evrard_tab, each counted
 over its path's timed window (the tubes' over their whole block runs)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -931,6 +956,20 @@ MFV_FAMILY_KHI_VARIANT = "gaussian"
 # little as M4: the quintic, not the table, takes the sphere past
 # MFV_BLOCK_SPHERE_ENERGY_TOL.  The gate is QUINTIC_BLOCK_ENERGY_DRIFT_TOL.
 MFV_FAMILY_SPHERE_ENERGY_TOL = QUINTIC_BLOCK_ENERGY_DRIFT_TOL
+# 109-112. the kernel family in cd2010, dust and SM2012 (K21, K23-K26):
+# every variant against the plain versions, the parity runs' steps (and
+# dense block ticks), the variants of the full-width KHI runs (16 timed
+# steps each, half of khi_sm2012's and khi_cd2010's 32) and of the
+# dusty Evrard run (8 timed steps)
+GRID_FAMILY_VARIANTS = MFV_FAMILY_VARIANTS
+GRID_FAMILY_PARITY_STEPS = 3
+GRID_FAMILY_DUSTYBOX_VARIANTS = ("gaussian", "quintic_tab")
+GRID_FAMILY_DUSTYBOX_STEPS = 5
+FAMILY_KHI_SM2012_VARIANT = "quintic"
+FAMILY_KHI_CD2010_VARIANT = "gaussian"
+FAMILY_KHI_STEPS = 16
+DUSTY_EVRARD_TAB_VARIANT = "m4_tab"
+DUSTY_EVRARD_TAB_STEPS = 8
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -1045,9 +1084,9 @@ SOURCES = {
                          "gandalf_tpu/ops/forces.py:267"),
     "levelneib": ("gandalf_tpu_torch/csrc/grid27_levelneib.cu",
                   "gandalf_tpu/sim/simulation.py:1682"),
-    "dust_drag_sums": ("gandalf_tpu_torch/csrc/dust_drag.cu",
+    "dust_drag_sums": ("gandalf_tpu_torch/csrc/dust_drag.cuh",
                        "gandalf_tpu/ops/dust.py:177"),
-    "dust_drag_deposit": ("gandalf_tpu_torch/csrc/dust_drag.cu",
+    "dust_drag_deposit": ("gandalf_tpu_torch/csrc/dust_drag.cuh",
                           "gandalf_tpu/ops/dust.py:255"),
     "sm2012_density": ("gandalf_tpu_torch/csrc/sm2012.cu",
                        "gandalf_tpu/ops/sm2012.py:198"),
@@ -1168,6 +1207,25 @@ for _base, _keys in (
         ("tree_near_mfv", ("quintic", "quintic_tab"))):
     for _v in _keys:
         SOURCES[f"{_base}_{_v}"] = _MFV_FAMILY_SOURCES[_base]
+# K21, K23-K26 with the family on their main paths: K25 and K26 with the
+# quintic from family_khi_2d's SM2012 run, K21 with the gaussian from its
+# cd2010 run, K23 and K24 with the tabulated M4 from dusty_evrard_tab;
+# the JAX functions' kernel evaluations they replace
+SOURCES.update({
+    f"sm2012_density_{FAMILY_KHI_SM2012_VARIANT}_2d": (
+        "gandalf_tpu_torch/csrc/sm2012.cu", "gandalf_tpu/ops/sm2012.py:208"),
+    f"sm2012_forces_{FAMILY_KHI_SM2012_VARIANT}_2d": (
+        "gandalf_tpu_torch/csrc/sm2012.cu", "gandalf_tpu/ops/sm2012.py:143"),
+    f"cullen_dehnen_{FAMILY_KHI_CD2010_VARIANT}_2d": (
+        "gandalf_tpu_torch/csrc/cullen_dehnen.cu",
+        "gandalf_tpu/ops/forces.py:322"),
+    f"dust_drag_sums_{DUSTY_EVRARD_TAB_VARIANT}": (
+        "gandalf_tpu_torch/csrc/dust_drag.cuh",
+        "gandalf_tpu/ops/dust.py:209"),
+    f"dust_drag_deposit_{DUSTY_EVRARD_TAB_VARIANT}": (
+        "gandalf_tpu_torch/csrc/dust_drag.cuh",
+        "gandalf_tpu/ops/dust.py:255"),
+})
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
 # the kernels of a block tick with self-gravity
@@ -1193,6 +1251,11 @@ BB_BLOCK = GRAVITY + ("star_gas_forces", "sink_candidate",
 DUST = GRAVITY + ("dust_drag_sums", "dust_drag_deposit")
 # the SM2012 kernels of a step (K25 and K26, after K1)
 SM2012 = ("sm2012_density", "sm2012_forces")
+# the kernels of these paths that take the smoothing-kernel family and
+# count under its variant's name (_ext.family_count)
+FAMILY_KERNELS = ("grid27_density", "grid27_forces", "tree_near",
+                  "cullen_dehnen", "dust_drag_sums", "dust_drag_deposit",
+                  "sm2012_density", "sm2012_forces")
 # the radws kernels of an SPH step or tick (the table EOS, the
 # equilibrium finder)
 RADWS_SPH = ("radws_eos", "radws_equilibrium")
@@ -2828,19 +2891,25 @@ def bb_block_collapse(dev, card):
     return {k: launches[k] for k in names}, {k: rep[k] for k in names}
 
 
-def khi_cd2010(dev, card):
+def khi_cd2010(dev, card, variant=None, steps=KHI_CD_STEPS_TIMED,
+               tag="khi_cd2010"):
     """Phase 38: khi_main_path's KHI with cd2010 in float32, 2 warm-up
     and 32 timed steps (the counts set to 0 just before them): the rate
     beside khi_main_path's, K21 (2D) once a step, median alpha below
     0.15, finiteness, energy drift and momentum; then K21 against its
-    plain version at the path's state.  Returns its launches and
-    report."""
+    plain version at the path's state.  With the smoothing kernel
+    `variant` (phase 111) K2, K3 and K21 launch under its names and no
+    M4 name.  Returns its launches and report."""
     from gandalf_tpu_torch import _ext
-    from gandalf_tpu_torch.check import compare_td_sink_kernels, khi_params
+    from gandalf_tpu_torch.check import (compare_td_sink_kernels,
+                                         family_params, kernel_name,
+                                         khi_params)
     from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
     t_phase = time.perf_counter()
     params = khi_params(KHI_SCALE)
+    if variant is not None:
+        params = family_params(variant, params)
     params.set("time_dependent_avisc", "cd2010")
     sim = GradhSphSimulation(params, device=dev, dtype=torch.float32)
     sim.SetupSimulation()
@@ -2849,9 +2918,15 @@ def khi_cd2010(dev, card):
     p0, _ = momentum(sim.state)
     replans0 = sim._n_grid_overflows
     _ext.reset_launches()
-    elapsed = run_timed(sim, KHI_CD_STEPS_TIMED)
-    names = [f"{k}_2d" for k in HYDRO] + ["cullen_dehnen_2d"]
+    elapsed = run_timed(sim, steps)
+    spec, kern = sim.gridspec, sim.kern
+    k21 = kernel_name("cullen_dehnen", spec, kern)
+    names = ["grid27_bin_2d"] + [kernel_name(k, spec, kern)
+                                 for k in HYDRO[1:]] + [k21]
     launches = {k: _ext.LAUNCHES[k] for k in names}
+    m4_names = [kernel_name(k, spec) for k in HYDRO[1:]]
+    m4_launches = {k: _ext.LAUNCHES[k] for k in m4_names
+                   + ["cullen_dehnen_2d"] if k not in launches}
     s = sim.state
     N = s.N
     drift = abs(energy(s) - e0) / abs(e0)
@@ -2864,18 +2939,21 @@ def khi_cd2010(dev, card):
                                 "alpha")),
         "no_overflow": not bool(s.neib_overflow),
         # a burst redone after an overflow replan launches again
-        "k21_once_a_step": launches["cullen_dehnen_2d"]
-        == KHI_CD_STEPS_TIMED if replans == 0
-        else launches["cullen_dehnen_2d"] > KHI_CD_STEPS_TIMED,
+        "k21_once_a_step": launches[k21] == steps if replans == 0
+        else launches[k21] > steps,
+        "launches": all(n >= steps for n in launches.values()),
+        "no_m4_launch": not any(m4_launches.values()),
         "alpha_median": float(alpha.median()) < TD_ALPHA_MEDIAN,
         "energy_drift": drift < ENERGY_DRIFT_TOL,
     }
     rep = compare_td_sink_kernels(sim=sim, state=s, repeats=5)
-    rate = N * KHI_CD_STEPS_TIMED / elapsed
-    phase("khi_cd2010", N=N, steps=sim.Nsteps,
-          timed_steps=KHI_CD_STEPS_TIMED, timed_s=elapsed,
-          particle_steps_per_s=rate,
+    rate = N * steps / elapsed
+    RATES[tag] = rate
+    phase(tag, kernel=kern.variant, N=N, steps=sim.Nsteps,
+          timed_steps=steps, timed_s=elapsed, particle_steps_per_s=rate,
           khi_main_path_particle_steps_per_s=RATES.get("khi_main_path"),
+          khi_cd2010_particle_steps_per_s=RATES.get("khi_cd2010"),
+          ncells=list(spec.ncells), k_cell=spec.k_cell,
           replans_in_window=replans, launches=launches,
           alpha_median=float(alpha.median()),
           alpha_range=[float(alpha.min()), float(alpha.max())],
@@ -2887,9 +2965,8 @@ def khi_cd2010(dev, card):
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
-        raise RuntimeError(f"khi_cd2010 checks failed: {failed}")
-    return ({"cullen_dehnen_2d": launches["cullen_dehnen_2d"]},
-            {"cullen_dehnen_2d": rep["cullen_dehnen_2d"]})
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+    return {k21: launches[k21]}, {k21: rep[k21]}
 
 
 def sod_td_avisc(dev, card):
@@ -3191,22 +3268,28 @@ def dustybox_path(dev, card):
     return rep
 
 
-def dusty_evrard(dev, card):
+def dusty_evrard(dev, card, variant=None, steps=DUST_STEPS_TIMED,
+                 tag="dusty_evrard"):
     """Phase 43, the slice at full width: check.dust_params at Nhydro
     131,072 (about 262,144 gas and dust particles) in float32, setup, 2
     warm-up steps, 32 timed steps (the counts set to 0 just before
     them), the checks and the tree's accuracy with the dust's masses,
     then K23 and K24 against their plain versions at the path's state.
-    Returns their launches and reports."""
+    With the smoothing kernel `variant` (phase 112) K2, K3, K7, K23 and
+    K24 launch under its names and no M4 name.  Returns K23's and K24's
+    launches and reports."""
     from gandalf_tpu_torch import _ext
     from gandalf_tpu_torch.check import (bound, compare_dust_kernels,
                                          dust_energy, dust_kernel_dt,
-                                         dust_params, gravity_accuracy)
+                                         dust_params, family_params,
+                                         gravity_accuracy)
     from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
     t_phase = time.perf_counter()
-    sim = GradhSphSimulation(dust_params(DUST_NHYDRO), device=dev,
-                             dtype=torch.float32)
+    params = dust_params(DUST_NHYDRO)
+    if variant is not None:
+        params = family_params(variant, params)
+    sim = GradhSphSimulation(params, device=dev, dtype=torch.float32)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim.SetupSimulation()
@@ -3221,8 +3304,11 @@ def dusty_evrard(dev, card):
     replans0 = sim._n_grid_overflows
     t_sim0 = sim.t
     _ext.reset_launches()
-    elapsed = run_timed(sim, DUST_STEPS_TIMED)
-    launches = {k: _ext.LAUNCHES[k] for k in DUST}
+    elapsed = run_timed(sim, steps)
+    names = [_ext.family_count(k, sim.kern) if k in FAMILY_KERNELS else k
+             for k in DUST]
+    launches = {k: _ext.LAUNCHES[k] for k in names}
+    m4_launches = {k: _ext.LAUNCHES[k] for k in DUST if k not in names}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     s = sim.state
     drift = abs(dust_energy(sim) - e0) / abs(e0)
@@ -3236,7 +3322,8 @@ def dusty_evrard(dev, card):
         "gas_mass_exact": float(s.m[~dust].double().sum()) == m_gas0,
         "dust_mass_exact": float(s.m[dust].double().sum()) == m_dust0,
         "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
-        "launches": all(launches[k] >= DUST_STEPS_TIMED for k in DUST),
+        "launches": all(n >= steps for n in launches.values()),
+        "no_m4_launch": not any(m4_launches.values()),
         "energy_drift": drift <= DUST_ENERGY_DRIFT_TOL,
     }
     rep = compare_dust_kernels(sim.kern, sim.drag_law, False, s, sim.box,
@@ -3244,9 +3331,11 @@ def dusty_evrard(dev, card):
     for r in rep.values():
         r["bound_ms"], r["bound_by"] = bound(r["work"], torch.float32)
     spec = sim.treespec
-    phase("dusty_evrard", N=N, n_dust=int(dust.sum()), steps=sim.Nsteps,
-          timed_steps=DUST_STEPS_TIMED, setup_s=t_setup, timed_s=elapsed,
-          particle_steps_per_s=N * DUST_STEPS_TIMED / elapsed,
+    RATES[tag] = N * steps / elapsed
+    phase(tag, kernel=sim.kern.variant, N=N, n_dust=int(dust.sum()),
+          steps=sim.Nsteps, timed_steps=steps, setup_s=t_setup,
+          timed_s=elapsed, particle_steps_per_s=N * steps / elapsed,
+          dusty_evrard_particle_steps_per_s=RATES.get("dusty_evrard"),
           sim_time=[t_sim0, sim.t], k_cell=sim.gridspec.k_cell,
           ncells=list(sim.gridspec.ncells),
           grid_replans_in_window=sim._n_grid_overflows - replans0,
@@ -3260,8 +3349,9 @@ def dusty_evrard(dev, card):
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
-        raise RuntimeError(f"dusty_evrard checks failed: {failed}")
-    names = ("dust_drag_sums", "dust_drag_deposit")
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+    names = [_ext.family_count(k, sim.kern)
+             for k in ("dust_drag_sums", "dust_drag_deposit")]
     return {k: launches[k] for k in names}, {k: rep[k] for k in names}
 
 
@@ -3318,20 +3408,26 @@ def _sm2012_report(sim, state, repeats):
     return rep
 
 
-def khi_sm2012(dev, card):
+def khi_sm2012(dev, card, variant=None, steps=KHI_STEPS_TIMED,
+               tag="khi_sm2012"):
     """Phase 45, the slice at full width: khi_main_path's KHI
     (check.khi_params(KHI_SCALE), 425,984 particles, float32) through
     SM2012SphSimulation: setup, 2 warm-up steps, 32 timed steps with the
     counts set to 0 just before them, khi_main_path's gates, and K25 and
-    K26 (2D) against their plain versions at the path's state.  Returns
-    the launches and the kernel reports."""
+    K26 (2D) against their plain versions at the path's state.  With the
+    smoothing kernel `variant` (phase 111) K25 and K26 launch under its
+    names and no M4 name.  Returns the launches and the kernel
+    reports."""
     from gandalf_tpu_torch import _ext
-    from gandalf_tpu_torch.check import kernel_name, khi_params, sm2012_params
+    from gandalf_tpu_torch.check import (family_params, kernel_name,
+                                         khi_params, sm2012_params)
     from gandalf_tpu_torch.sim.simulation import SimulationBase
 
     t_phase = time.perf_counter()
-    sim = SimulationBase.factory(sm2012_params(khi_params(KHI_SCALE)), dev,
-                                 torch.float32)
+    params = khi_params(KHI_SCALE)
+    if variant is not None:
+        params = family_params(variant, params)
+    sim = SimulationBase.factory(sm2012_params(params), dev, torch.float32)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim.SetupSimulation()
@@ -3342,11 +3438,15 @@ def khi_sm2012(dev, card):
     p0, _ = momentum(sim.state)
     replans0 = sim._n_grid_overflows
     _ext.reset_launches()
-    elapsed = run_timed(sim, KHI_STEPS_TIMED)
-    names = [kernel_name(k, sim.gridspec) for k in SM2012]
+    elapsed = run_timed(sim, steps)
+    names = [kernel_name(k, sim.gridspec, sim.kern) for k in SM2012]
     launches = {k: _ext.LAUNCHES[k] for k in ["grid27_bin_2d"] + names}
-    grad_h = {k: _ext.LAUNCHES[kernel_name(k, sim.gridspec)]
-              for k in HYDRO[1:]}
+    # neither grad-h kernel, nor K25 and K26 under another kernel's name
+    grad_h = {n: _ext.LAUNCHES[n] for n in (
+        kernel_name(k, sim.gridspec, kern) for k in HYDRO[1:]
+        for kern in (None, sim.kern))}
+    grad_h.update({k: _ext.LAUNCHES[k] for k in (
+        kernel_name(k, sim.gridspec) for k in SM2012) if k not in names})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     s = sim.state
     N = s.N
@@ -3359,18 +3459,21 @@ def khi_sm2012(dev, card):
                       for f in ("r", "v", "a", "u", "h", "rho", "dudt")),
         "rho_positive": bool((s.rho > 0).all()),
         "no_overflow": not bool(s.neib_overflow),
-        "launches": all(n >= KHI_STEPS_TIMED for n in launches.values()),
+        "launches": all(n >= steps for n in launches.values()),
         "no_grad_h_kernels": not any(grad_h.values()),
         "energy_drift": drift < ENERGY_DRIFT_TOL,
         "contrast": float(rho.min()) < 1.3 and float(rho.max()) > 1.6,
     }
     rep = _sm2012_report(sim, s, 5)
-    rate = N * KHI_STEPS_TIMED / elapsed
-    phase("khi_sm2012", N=N, ncells=list(sim.gridspec.ncells),
+    rate = N * steps / elapsed
+    RATES[tag] = rate
+    phase(tag, kernel=sim.kern.variant, N=N,
+          ncells=list(sim.gridspec.ncells),
           k_cell=sim.gridspec.k_cell, steps=sim.Nsteps,
-          timed_steps=KHI_STEPS_TIMED, setup_s=t_setup, timed_s=elapsed,
+          timed_steps=steps, setup_s=t_setup, timed_s=elapsed,
           particle_steps_per_s=rate,
           khi_main_path_particle_steps_per_s=RATES.get("khi_main_path"),
+          khi_sm2012_particle_steps_per_s=RATES.get("khi_sm2012"),
           t_code=sim.t, dt_code=float(s.dt),
           replans_in_window=sim._n_grid_overflows - replans0,
           launches=launches, grad_h_launches=grad_h, energy_drift=drift,
@@ -3380,7 +3483,7 @@ def khi_sm2012(dev, card):
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
-        raise RuntimeError(f"khi_sm2012 checks failed: {failed}")
+        raise RuntimeError(f"{tag} checks failed: {failed}")
     return {k: launches[k] for k in names}, rep
 
 
@@ -4562,16 +4665,17 @@ def mfv_khi(dev, card):
     return launches, rep
 
 
-def _mfv_khi_run(dev, card, steps, tag="mfv_khi", **over):
+def _mfv_khi_run(dev, card, steps, tag="mfv_khi", sweeps=(), **over):
     """One run of mfv_khi's box with `over` set: the rate, the counts
     (set to 0 before the timed steps), K1 twice and K10-K12 (and K31)
     every step, mass exact, energy drift within 2e-3, min rho < 1.3 and
     max rho > 1.6, finite fields; the kernels against their plain
-    versions (K12 also under RK2) and under both thread mappings at the
+    versions (K12 also under RK2; K31 also with the limiters `sweeps`,
+    which the run does not sweep) and under both thread mappings at the
     run's end.  Prints the phase line `tag`; returns the counts and the
     kernel reports."""
     from gandalf_tpu_torch import _ext
-    from gandalf_tpu_torch.check import (compare_mfv_kernels,
+    from gandalf_tpu_torch.check import (bound, compare_mfv_kernels,
                                          mfv_khi_params, mfv_mapping_times)
     from gandalf_tpu_torch.sim.simulation import SimulationBase
 
@@ -4608,6 +4712,13 @@ def _mfv_khi_run(dev, card, steps, tag="mfv_khi", **over):
     # K12 also under RK2 at this state, for its time at the 2D box
     r = compare_mfv_kernels(sim, s, repeats=5, flux_cfgs=[
         sim.mfv_cfg, dataclasses.replace(sim.mfv_cfg, time_scheme="rk2")])
+    if sweeps:
+        for k, x in compare_mfv_kernels(sim, s, repeats=5, flux_cfgs=[],
+                                        sweeps=list(sweeps)).items():
+            if k.startswith("mfv_limiter"):
+                x["bound_ms"], x["bound_by"] = bound(x["work"],
+                                                     torch.float32)
+                r[k] = x
     mapping = mfv_mapping_times(sim, s)
     mode = ("exact_" if sim.mfv_cfg.riemann == "exact" else "hllc_") + lim
     RATES[f"{tag}_{mode}"] = s.N * done / elapsed
@@ -6886,14 +6997,141 @@ def mfv_family_block(dev, card):
     MFV_FAMILY_SPHERE_ENERGY_TOL, fault F24), then mfv_khi's
     first run (524,288 particles, HLLC, the Gizmo limiter, a global dt,
     no gravity) with MFV_FAMILY_KHI_VARIANT, its energy within
-    MFV_KHI_ENERGY_TOL."""
+    MFV_KHI_ENERGY_TOL, and K31 (tvdscalar) with that variant timed at
+    its state."""
     launches, rep = mfv_block_sphere(
         dev, card, MFV_FAMILY_SPHERE_VARIANT, "mfv_family_sphere",
         energy_gate=MFV_FAMILY_SPHERE_ENERGY_TOL)
     counts, r = _mfv_khi_run(dev, card, MFV_KHI_STEPS[0], "mfv_family_khi",
+                             sweeps=("tvdscalar",),
                              kernel=MFV_FAMILY_KHI_VARIANT)
     _first_counts(launches, rep, counts, r)
     return launches, rep
+
+
+# ---------------------------------------------------------------------------
+# 109-112. the kernel family in cd2010, dust and SM2012 (K21, K23-K26)
+# ---------------------------------------------------------------------------
+
+def grid_family_kernels(dev) -> None:
+    """Phase 109: K21, K23 (each drag law two-fluid, and test-particle),
+    K24, K25 and K26 with each of GRID_FAMILY_VARIANTS at ndim 1-3
+    against their plain versions on the card
+    (check.compare_grid_family_kernels: K21 at a cd2010 run's state, K23
+    to K26 on synthetic inputs), float64 within check.TOL_F64_FAMILY
+    (1e-12) and float32 within the kernels' own tolerances; the
+    tabulated kernels' reports count the pairs near a table point."""
+    from gandalf_tpu_torch.check import compare_grid_family_kernels
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for variant in GRID_FAMILY_VARIANTS:
+        for ndim in (1, 2, 3):
+            for dtype in (torch.float64, torch.float32):
+                t1 = time.perf_counter()
+                rep = compare_grid_family_kernels(variant, ndim, dev, dtype)
+                for r in rep.values():
+                    r.pop("work", None)
+                phase("grid_family_kernels", variant=variant, ndim=ndim,
+                      dtype=str(dtype), report=rep,
+                      seconds=time.perf_counter() - t1)
+                require_ok("grid_family_kernels", rep)
+                n_cases += 1
+    phase("grid_family_kernels_done", cases=n_cases,
+          seconds=time.perf_counter() - t0)
+
+
+def grid_family_parity(dev) -> None:
+    """Phase 110: float64 on the card against the plain path on the CPU,
+    with equal grid and tree plans: GRID_FAMILY_PARITY_STEPS steps of
+    sod_td_avisc's cd2010 Sod tube with the quintic, the 1D dusty box
+    (dustybox_params(32, 1)) with each of GRID_FAMILY_DUSTYBOX_VARIANTS
+    under a global dt and under Nlevels 3 (the dense dust tick, equal
+    levels), GRID_FAMILY_DUSTYBOX_STEPS steps or ticks each, the SM2012
+    Sod tube (256 + 64) with the tabulated M4 and the SM2012 8^3 box
+    with self-gravity and the quintic (tree rebuilt every 2 steps); every
+    field within PARITY_TOL."""
+    from gandalf_tpu_torch.check import (dustybox_params, family_params,
+                                         jittered_box_ic, slice_params,
+                                         sm2012_params, sod_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+    n1, n2, tend = TD_SOD
+    cd = family_params("quintic", sod_params(n1, n2, tend=tend))
+    cd.set("time_dependent_avisc", "cd2010")
+    runs = [("sod_cd2010_quintic", cd, None, GRID_FAMILY_PARITY_STEPS)]
+    for v in GRID_FAMILY_DUSTYBOX_VARIANTS:
+        runs.append((f"dustybox_{v}", family_params(
+            v, dustybox_params(32, 1)), None, GRID_FAMILY_DUSTYBOX_STEPS))
+        runs.append((f"dustybox_block_{v}", family_params(
+            v, dustybox_params(32, 1, Nlevels=3, level_diff_max=1)), None,
+            GRID_FAMILY_DUSTYBOX_STEPS))
+    runs.append(("sm2012_tube_m4_tab", family_params(
+        "m4_tab", sm2012_params(sod_params(256, 64))), None,
+        GRID_FAMILY_PARITY_STEPS))
+    box = family_params("quintic", sm2012_params(slice_params(
+        FAMILY_PARITY_N, self_gravity=1)))
+    box.set("ntreebuildstep", 2)
+    runs.append(("sm2012_box_quintic", box,
+                 jittered_box_ic(box, FAMILY_PARITY_N),
+                 GRID_FAMILY_PARITY_STEPS))
+    for tag, params, ic, steps in runs:
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = SimulationBase.factory(params.copy(), device,
+                                         torch.float64)
+            sim.SetupSimulation(None if ic is None else dict(ic))
+            for _ in range(steps):
+                sim.main_loop_step()
+            sims.append(sim)
+        torch.cuda.synchronize()
+        fields = ("r", "v", "u", "h", "rho") + (
+            ("alpha",) if sims[1].td_avisc_type == "cd2010" else ()) + (
+            ("gpot",) if sims[1].self_gravity else ())
+        errs = parity_errors(sims, fields)
+        same = {"grid": sims[0].gridspec == sims[1].gridspec,
+                "tree": sims[0].treespec == sims[1].treespec,
+                "plans": ((sims[0]._n_tree_plans, sims[0]._n_grid_overflows)
+                          == (sims[1]._n_tree_plans,
+                              sims[1]._n_grid_overflows))}
+        if sims[1].use_block:
+            same["levels"] = bool(torch.equal(sims[0].state.level.cpu(),
+                                              sims[1].state.level))
+        phase("grid_family_parity", run=tag, N=sims[1].state.N,
+              steps=sims[1].Nsteps, kernel=sims[1].kern.variant,
+              rel_err=errs, same=same)
+        if max(errs.values()) > PARITY_TOL or not all(same.values()):
+            raise RuntimeError(f"grid_family_parity {tag}: kernel path "
+                               f"disagrees with the plain path: {errs} "
+                               f"{same}")
+    phase("grid_family_parity_done", seconds=time.perf_counter() - t0)
+
+
+def family_khi_2d(dev, card):
+    """Phase 111: khi_main_path's KHI (425,984 particles, float32) at full
+    width through SM2012 with FAMILY_KHI_SM2012_VARIANT (khi_sm2012's run
+    and gates) and through grad-h cd2010 with FAMILY_KHI_CD2010_VARIANT
+    (khi_cd2010's), each 2 warm-up and FAMILY_KHI_STEPS timed steps, each
+    family key launched every step and no M4 key; the rates beside the
+    M4 runs'.  Returns the launches and reports of K25, K26 and K21 with
+    their variants."""
+    launches, rep = khi_sm2012(dev, card, FAMILY_KHI_SM2012_VARIANT,
+                               FAMILY_KHI_STEPS, "family_khi_sm2012")
+    c_launches, c_rep = khi_cd2010(dev, card, FAMILY_KHI_CD2010_VARIANT,
+                                   FAMILY_KHI_STEPS, "family_khi_cd2010")
+    launches.update(c_launches)
+    rep.update(c_rep)
+    return launches, rep
+
+
+def dusty_evrard_tab(dev, card):
+    """Phase 112: dusty_evrard (check.dust_params(131072), the full width)
+    with DUSTY_EVRARD_TAB_VARIANT, DUSTY_EVRARD_TAB_STEPS timed steps and
+    dusty_evrard's gates; K23 and K24 launch under the variant's names
+    every step.  Returns their launches and reports."""
+    return dusty_evrard(dev, card, DUSTY_EVRARD_TAB_VARIANT,
+                        DUSTY_EVRARD_TAB_STEPS, "dusty_evrard_tab")
 
 
 def kernel_line(launches, rep, alive_modes=None) -> dict:
@@ -7295,6 +7533,14 @@ def main() -> int:
     mfv_family_kernels(dev)
     mfv_family_parity(dev)
     for path in (mfv_quintic_box, mfv_family_block):
+        f_launches, f_rep = path(dev, card)
+        launches.update(f_launches)
+        rep.update(f_rep)
+
+    # 109-112. the kernel family in cd2010, dust and SM2012
+    grid_family_kernels(dev)
+    grid_family_parity(dev)
+    for path in (family_khi_2d, dusty_evrard_tab):
         f_launches, f_rep = path(dev, card)
         launches.update(f_launches)
         rep.update(f_rep)

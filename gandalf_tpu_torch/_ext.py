@@ -46,13 +46,16 @@ EOS, the equilibrium finder and the implicit heating rate, count under
 ``radws_eos``, ``radws_equilibrium`` and ``radws_implicit_heating``, and
 K30, the radiative-feedback ambient temperature, under
 ``ambient_temperature`` (``_1d`` or ``_2d`` appended below 3D).  K2, K3,
-K7, K8, K9, K10-K12 and K31 take the quintic, gaussian (not K7) and
-tabulated smoothing kernels as well as M4 (``csrc/kernel_family.cuh``, a
-template parameter); with any kernel but the direct M4 they count under
-their names with the kernel's variant appended before any ``_1d`` or
-``_2d`` (``grid27_density_quintic_tab``, ``tree_near_list_quintic``,
-``mfv_fluxes_exact_cell_gaussian_2d``).  Every other wrapper whose
-kernel evaluates W refuses those kernels (``require_m4``).  The meshless
+K7, K8, K9, K10-K12, K21, K23-K26 and K31 take the quintic, gaussian
+(not K7) and tabulated smoothing kernels as well as M4
+(``csrc/kernel_family.cuh``, a template parameter; K12, K23 and K24
+build one source per family); with any kernel but the direct M4 they
+count under their names with the kernel's variant appended before any
+``_1d`` or ``_2d`` (``grid27_density_quintic_tab``,
+``tree_near_list_quintic``, ``mfv_fluxes_exact_cell_gaussian_2d``,
+``cullen_dehnen_gaussian_2d``, ``dust_drag_sums_m4_tab``).  The other
+wrappers whose kernel evaluates W (K14, K16, K18, K20) refuse those
+kernels (``require_m4``).  The meshless
 finite-volume kernels count under ``mfv_density``, ``mfv_gradients``,
 ``mfv_limiter_<limiter>`` and K12 under ``mfv_fluxes`` with its modes
 appended (``mfv_fluxes_exact_cell_static``; block timesteps
@@ -99,8 +102,11 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
             for _n in (1, 2, 3) for _f in ("m4", "quintic", "gaussian")),
           "nbody_direct.cu",
           "star_gas.cu", "sinks.cu", "cullen_dehnen.cu",
-          "grid27_levelneib.cu", "dust_drag.cu", "sm2012.cu", "radws.cu",
-          "radiative_fb.cu", "mfv_vsig.cu", "radiation.cu")
+          "grid27_levelneib.cu",
+          # K23 and K24 per kernel family
+          *(f"dust_drag_{_f}.cu" for _f in ("m4", "quintic", "gaussian")),
+          "sm2012.cu", "radws.cu", "radiative_fb.cu", "mfv_vsig.cu",
+          "radiation.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -162,13 +168,16 @@ for _d in _DIMS:
 
 # the smoothing-kernel families of csrc/kernel_family.cuh, and the
 # kernels that take any of them, direct or tabulated (K2, K3 and K8, K9;
-# K10-K12 and K31 above; K7 in each mode, without the gaussian: fault
-# F23).  Launches with a kernel other than the direct M4 count under the
-# kernel's name with the kernel's variant appended
-# (grid27_density_quintic_tab_2d).  Every other kernel that evaluates W
-# holds M4 only, and its wrapper refuses the rest (require_m4).
+# K21, K25, K26; K23, K24 in every ndim; K10-K12 and K31 above; K7 in
+# each mode, without the gaussian: fault F23).  Launches with a kernel
+# other than the direct M4 count under the kernel's name with the
+# kernel's variant appended (grid27_density_quintic_tab_2d).  Every
+# other kernel that evaluates W (K14, K16, K18, K20) holds M4 only, and
+# its wrapper refuses the rest (require_m4).
 FAMILIES = {"m4": 0, "quintic": 1, "gaussian": 2}
-GRID_FAMILY_KERNELS = ("grid27_density", "grid27_forces")
+GRID_FAMILY_KERNELS = ("grid27_density", "grid27_forces", "cullen_dehnen",
+                       "sm2012_density", "sm2012_forces")
+DUST_FAMILY_KERNELS = ("dust_drag_sums", "dust_drag_deposit")
 TREE_FAMILY_KERNELS = ("tree_near", "tree_near_list", "tree_near_ewald",
                        "tree_near_fast", "tree_near_mfv")
 ACTIVE_FAMILY_KERNELS = ("active_density", "active_forces")
@@ -176,6 +185,8 @@ for _v in VARIANTS:
     for _k in GRID_FAMILY_KERNELS + ACTIVE_FAMILY_KERNELS:
         for _d in ("", "_2d", "_1d"):
             LAUNCHES[f"{_k}_{_v}{_d}"] = 0
+    for _k in DUST_FAMILY_KERNELS:
+        LAUNCHES[f"{_k}_{_v}"] = 0
     if not _v.startswith("gaussian"):
         for _k in TREE_FAMILY_KERNELS:
             LAUNCHES[f"{_k}_{_v}"] = 0
@@ -260,19 +271,22 @@ _ARGTYPES = {
                                        _P, _P, _P, _P, _P, _I, _P, _P, _P,
                                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _I, _P] for _d in _DIMS},
-    "cullen_dehnen": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D,
-                      _D, _D, _D, _D, _P, _P, _P, _I, _P],
+    # K21, K25 and K26: the grid arguments, then norm, family and table
+    # resolution (_family_args)
+    "cullen_dehnen": [_P] * 3 + [_I] * 8 + [_D] * 4 + [_I, _I, _D, _D]
+    + [_P] * 3 + [_I, _P],
     "levelneib": [_P] * 5 + [_I] * 8 + [_D] * 4 + [_I, _P],
-    "dust_drag_sums": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _D, _D, _D, _D, _D, _I, _D, _D, _I, _P, _P,
-                       _P, _P, _I, _P],
-    "dust_drag_deposit": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _D, _D, _D, _D, _D, _P, _I, _P],
-    "sm2012_density": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _D, _D, _D, _D, _D, _D, _D, _P, _P, _P, _P, _P, _I,
-                       _P],
-    "sm2012_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
-                      _D, _D, _D, _D, _I, _D, _D, _P, _P, _P, _I, _P],
+    # K23 and K24 per kernel family (csrc/dust_drag_<family>.cu): the
+    # grid arguments, norm, normdrag and table resolution
+    **{f"dust_drag_sums_{_f}": [_P, _I] + [_P] * 5 + [_I] * 8 + [_D] * 5
+       + [_I, _I, _D, _D, _I] + [_P] * 4 + [_I, _P] for _f in FAMILIES},
+    **{f"dust_drag_deposit_{_f}": [_P, _I] + [_P] * 5 + [_I] * 8
+       + [_D] * 5 + [_I, _P, _I, _P] for _f in FAMILIES},
+    "sm2012_density": [_P] * 5 + [_I] * 8 + [_D] * 4 + [_I, _I] + [_D] * 3
+    + [_P] * 5 + [_I, _P],
+    "sm2012_forces": [_P] * 4 + [_I] * 8 + [_D] * 4 + [_I, _I, _D, _I, _D,
+                                                        _D] + [_P] * 3
+    + [_I, _P],
     "radws_eos": _TABLE + [_P, _P, _L, _P, _P, _P, _I, _P],
     "radws_equilibrium": _TABLE + [_P, _P, _P, _P, _P, _I, _L, _P, _P, _P,
                                    _I, _P],
@@ -1392,8 +1406,8 @@ def cullen_dehnen(spec, kern, visc, ids_d, r, packed):
     """K21 over K1's slot map ids_d (*ncells, K) int32 at the grid's
     ndim: alpha_new, dalphadt (N,) and bad (N,) bool of every particle
     with a slot (the others are left zero).  `packed` (N, 2 ndim + 5)
-    holds ops.forces.CD_COLS."""
-    require_m4(kern, "K21 cullen_dehnen")
+    holds ops.forces.CD_COLS.  `kern` is any smoothing kernel of
+    csrc/kernel_family.cuh."""
     N, nd = r.shape
     dt, dev = r.dtype, r.device
     if nd != spec.ndim:
@@ -1405,9 +1419,10 @@ def cullen_dehnen(spec, kern, visc, ids_d, r, packed):
     dal = torch.zeros((N,), dtype=dt, device=dev)
     bad = torch.zeros((N,), dtype=torch.bool, device=dev)
     _launch("cullen_dehnen", dt, dev, _p(ids_d), _p(r), _p(packed),
-            *_grid_args_nd(spec), float(kern.kernnorm),
+            *_grid_args_nd(spec), *_family_args(kern),
             float(visc.alpha_visc), float(visc.alpha_visc_min), _p(alpha),
-            _p(dal), _p(bad), count=_grid_count("cullen_dehnen", spec))
+            _p(dal), _p(bad),
+            count=_grid_count("cullen_dehnen", spec, kern))
     return alpha, dal, bad
 
 
@@ -1455,8 +1470,9 @@ def dust_drag_sums(spec, kern, law, test_particle, ids_d, n_targets, r, vec,
     and images r (M, ndim) (vec (M, 3 ndim): v, a, a0; sc (M, 4):
     ops.dust.DRAG_SCALARS; ptype (M,) int32): a_drag (n, ndim), norm,
     sound and div_v (n,) of the targets, ids below n = n_targets, each
-    target's step dt (n,); zero for a target without a slot."""
-    require_m4(kern, "K23 dust_drag_sums")
+    target's step dt (n,); zero for a target without a slot.  `kern` is
+    any smoothing kernel of csrc/kernel_family.cuh (its family's
+    source)."""
     M, nd = _dust_checks(spec, ids_d, n_targets, r, sc, ptype)
     dt_, dev = r.dtype, r.device
     _check(vec, "vec", dt_, (M, 3 * nd))
@@ -1468,11 +1484,12 @@ def dust_drag_sums(spec, kern, law, test_particle, ids_d, n_targets, r, vec,
     a = torch.zeros((n_targets, nd), dtype=dt_, device=dev)
     norm, sound, div_v = (torch.zeros((n_targets,), dtype=dt_, device=dev)
                           for _ in range(3))
-    _launch("dust_drag_sums", dt_, dev, _p(ids_d), n_targets, _p(r),
-            _p(vec), _p(sc), _p(ptype), _p(dt), *_grid_args_nd(spec),
-            float(kern.kernnorm), float(kern.kernnormdrag), law.code, coeff,
+    knorm, _, res = _family_args(kern)
+    _launch(f"dust_drag_sums_{kern.name}", dt_, dev, _p(ids_d), n_targets,
+            _p(r), _p(vec), _p(sc), _p(ptype), _p(dt), *_grid_args_nd(spec),
+            knorm, float(kern.kernnormdrag), res, law.code, coeff,
             inv_coeff, int(bool(test_particle)), _p(a), _p(norm), _p(sound),
-            _p(div_v))
+            _p(div_v), count=family_count("dust_drag_sums", kern))
     return a, norm, sound, div_v
 
 
@@ -1482,15 +1499,16 @@ def dust_drag_deposit(spec, kern, ids_d, n_targets, r, sc, ptype, payload,
     gas targets, -dEk_i - sum_j wraw(|r_ij|, h_i) P_j / rho_i over their
     dust candidates (payload P (M,), dek (n,)); zero for dust and for a
     target without a slot."""
-    require_m4(kern, "K24 dust_drag_deposit")
     M, nd = _dust_checks(spec, ids_d, n_targets, r, sc, ptype)
     dt_, dev = r.dtype, r.device
     _check(payload, "payload", dt_, (M,))
     _check(dek, "dek", dt_, (n_targets,))
     out = torch.zeros((n_targets,), dtype=dt_, device=dev)
-    _launch("dust_drag_deposit", dt_, dev, _p(ids_d), n_targets, _p(r),
-            _p(sc), _p(ptype), _p(payload), _p(dek), *_grid_args_nd(spec),
-            float(kern.kernnorm), float(kern.kernnormdrag), _p(out))
+    knorm, _, res = _family_args(kern)
+    _launch(f"dust_drag_deposit_{kern.name}", dt_, dev, _p(ids_d),
+            n_targets, _p(r), _p(sc), _p(ptype), _p(payload), _p(dek),
+            *_grid_args_nd(spec), knorm, float(kern.kernnormdrag), res,
+            _p(out), count=family_count("dust_drag_deposit", kern))
     return out
 
 
@@ -1512,8 +1530,8 @@ def sm2012_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, u, h):
     """K25 over K1's slot map ids_d (*ncells, K) int32 (-1 empty): h, rho,
     q, hfactor (N,) and the converged flag (N,) bool of every particle
     with a slot; a particle without one keeps its h and takes rho = q =
-    hfactor = 0, converged."""
-    require_m4(kern, "K25 sm2012_density")
+    hfactor = 0, converged.  `kern` is any smoothing kernel of
+    csrc/kernel_family.cuh."""
     N, _ = _slot_map_nd(spec, ids_d, r)
     dt, dev = r.dtype, r.device
     for name, x in (("m", m), ("u", u), ("h", h)):
@@ -1523,9 +1541,10 @@ def sm2012_density(spec, kern, h_fac, h_converge, hmax, ids_d, r, m, u, h):
                     for _ in range(3))
     done = torch.ones((N,), dtype=torch.bool, device=dev)
     _launch("sm2012_density", dt, dev, _p(ids_d), _p(r), _p(m), _p(u),
-            _p(h), *_grid_args_nd(spec), float(kern.kernnorm), float(h_fac),
+            _p(h), *_grid_args_nd(spec), *_family_args(kern), float(h_fac),
             float(h_converge), float(hmax), _p(h_out), _p(rho), _p(q),
-            _p(hfac), _p(done), count=_grid_count("sm2012_density", spec))
+            _p(hfac), _p(done),
+            count=_grid_count("sm2012_density", spec, kern))
     return h_out, rho, q, hfac, done
 
 
@@ -1533,7 +1552,6 @@ def sm2012_forces(spec, kern, visc, gamma, ids_d, r, v, packed):
     """K26 over K1's slot map ids_d: a (N, ndim), du/dt and div v (N,) of
     every particle with a slot (zero for the others).  `packed` (N, 8)
     holds ops.sm2012.SM_SCALARS per particle."""
-    require_m4(kern, "K26 sm2012_forces")
     N, nd = _slot_map_nd(spec, ids_d, r)
     dt, dev = r.dtype, r.device
     _check(v, "v", dt, (N, nd))
@@ -1542,10 +1560,10 @@ def sm2012_forces(spec, kern, visc, gamma, ids_d, r, v, packed):
     dudt = torch.zeros((N,), dtype=dt, device=dev)
     div_v = torch.zeros((N,), dtype=dt, device=dev)
     _launch("sm2012_forces", dt, dev, _p(ids_d), _p(r), _p(v), _p(packed),
-            *_grid_args_nd(spec), float(kern.kernnorm), float(gamma),
+            *_grid_args_nd(spec), *_family_args(kern), float(gamma),
             int(visc.avisc), float(visc.alpha_visc), float(visc.beta_visc),
             _p(a), _p(dudt), _p(div_v),
-            count=_grid_count("sm2012_forces", spec))
+            count=_grid_count("sm2012_forces", spec, kern))
     return a, dudt, div_v
 
 

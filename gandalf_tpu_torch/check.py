@@ -66,6 +66,13 @@ compares K27-K29 with their plain versions on ``radws_kernel_inputs``
 ``radws_sim_inputs`` (a simulation's state), counting the elements
 whose table indices differ, and ``compare_ambient_kernels`` compares
 K30 on ``ambient_kernel_inputs`` or a simulation's particles and slots.
+``family_params`` sets a configuration's smoothing kernel (a variant of
+``kernels.smoothing.VARIANTS``); ``compare_family_kernels``,
+``compare_mfv_family_kernels`` and ``compare_grid_family_kernels`` hold
+the kernels that take the family (K2, K3, K7-K9; K10-K12, K31, K7's MFV
+mode; K21, K23-K26 on ``cd_family_sim`` and the synthetic inputs,
+float64 within ``TOL_F64_FAMILY``) against their plain versions, the
+tabulated kernels' reports counting the pairs near a table point.
 ``chip_smoke.py`` and the CUDA tests use them.
 """
 
@@ -391,6 +398,29 @@ for _v, (_dd, _df) in _FAMILY_EXTRA.items():
             FLOPS_PER[f"active_density{_sfx}"] + _dd)
         FLOPS_PER[f"active_forces_{_v}{_sfx}"] = (
             FLOPS_PER[f"active_forces{_sfx}"] + _df)
+
+# K21, K23-K26 with the family: the extra operations of one W in its s^2
+# form and one W or W' in its s form over M4's (as _MFV_FAMILY_EXTRA
+# counts them: quintic +10 for W, +7 for W'; gaussian an exp, counted
+# 20, and a few products, +19; a table +5 for the s^2 index and its
+# root, +4 for the s index).  K21 takes one W' a pair within kernrange
+# h_i, K26 two (both sides), K25 one W in its s^2 form a pair in each of
+# its two sweeps, K23 and K24 one wdrag (W in its s form) a pair inside
+# the drag kernel's support.
+_GRID_FAMILY_EXTRA = {"quintic": (10, 10, 7), "gaussian": (19, 19, 19),
+                      "m4_tab": (5, 4, 4), "quintic_tab": (15, 14, 11),
+                      "gaussian_tab": (24, 23, 23)}
+for _v, (_w2, _w, _dw) in _GRID_FAMILY_EXTRA.items():
+    for _sfx in ("", "_2d", "_1d"):
+        FLOPS_PER[f"cullen_dehnen_{_v}{_sfx}"] = (
+            FLOPS_PER[f"cullen_dehnen{_sfx}"] + _dw)
+    FLOPS_PER[f"sm2012_density_pair_{_v}"] = (
+        FLOPS_PER["sm2012_density_pair"] + 2 * _w2)
+    FLOPS_PER[f"sm2012_forces_pair_{_v}"] = (
+        FLOPS_PER["sm2012_forces_pair"] + 2 * _dw)
+    FLOPS_PER[f"dust_drag_pair_{_v}"] = FLOPS_PER["dust_drag_pair"] + _w
+    FLOPS_PER[f"dust_drag_deposit_pair_{_v}"] = (
+        FLOPS_PER["dust_drag_deposit_pair"] + _w)
 
 
 def _nbytes(*ts) -> int:
@@ -1616,10 +1646,11 @@ def _scaled(x, ref, fill):
 
 
 def kernel_name(name: str, spec, kern=None) -> str:
-    """The report and LAUNCHES key of grid kernel `name` (K1-K3, K8, K9)
-    on `spec`'s dims: the name, with the smoothing kernel's variant (K2,
-    K3, K8, K9 with `kern` other than the direct M4: _ext.family_count)
-    and _1d or _2d appended below 3D."""
+    """The report and LAUNCHES key of grid kernel `name` (K1-K3, K8, K9,
+    K21, K25, K26) on `spec`'s dims: the name, with the smoothing
+    kernel's variant (K2, K3, K8, K9, K21, K25, K26 with `kern` other
+    than the direct M4: _ext.family_count) and _1d or _2d appended below
+    3D."""
     return _ext._grid_count(name, spec, kern)
 
 
@@ -2553,7 +2584,7 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     name of each K12 mode, tree_near_mfv; the smoothing kernel's variant
     appended but for the direct M4, and _1d or _2d below 3D).  With a
     tabulated kernel the reports of K10, K11 and K12 also count the
-    pairs in support and those near a table point (_mfv_table_report).  K12
+    pairs in support and those near a table point (_slot_table_report).  K12
     runs in the modes of `flux_cfgs` (MfvConfigs; the simulation's by
     default) and K31 for the limiters `sweeps` (the simulation's, if it
     sweeps), both on the plain K11's outputs.  Launch counts are restored
@@ -2674,9 +2705,9 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     out[k11]["work"] = _work(
         (ids_d, state.r, gpk), g_out, FLOPS_PER[k11] * n_i)
     if kern.table_res:
-        out[k10]["table"] = _mfv_table_report(
+        out[k10]["table"] = _slot_table_report(
             kern, spec, ids_d, state.r, dens["plain"].h, w1=False)
-        out[k11]["table"] = _mfv_table_report(kern, spec, ids_d, state.r,
+        out[k11]["table"] = _slot_table_report(kern, spec, ids_d, state.r,
                                               state.h)
     timed[k10] = (lambda: _ext.mfv_density(spec, kern, *dargs),
                   lambda: mg.density_sums_plain(kern, spec, *dargs))
@@ -2734,7 +2765,7 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
             "work": _work((ids_d, state.r, fpk, dt_t), f_k,
                           mfv_flux_flops(nd, cfg, kern=kern) * n_ij)}
         if kern.table_res:
-            out[key]["table"] = _mfv_table_report(
+            out[key]["table"] = _slot_table_report(
                 kern, spec, ids_d, state.r, state.h, both=True)
         timed[key] = (
             lambda c=cfg: mg.fluxes_kernel(kern, c, spec, dt_t, ids_d,
@@ -2779,20 +2810,23 @@ def compare_mfv_kernels(sim, state, repeats: int = 0, flux_cfgs=None,
     return out
 
 
-def _mfv_table_report(kern, spec, ids_d, r, h, w1=True, both=False):
+def _slot_table_report(kern, spec, ids_d, r, h, w0=True, w1=True,
+                       both=False):
     """The pairs of the slot map inside a tabulated kernel's support and
-    those near a table point (an upper bound on the pairs whose index the
-    kernel and its plain version can disagree on), as _table_report
-    counts them: on the s^2 grid (W, w0_s2) and with `w1` on the s grid
-    (W'), at h_i (K10 without `w1`, K11) or, with `both`, at h_i and h_j
-    (K12)."""
+    those near a table point (_near_grid, as _table_report counts them:
+    an upper bound on the pairs whose index the kernel and its plain
+    version can disagree on): with `w0` on the s^2 grid (W, w0_s2), with
+    `w1` on the s grid (W', wdrag), at h_i or with `both` at h_i and h_j,
+    over the slotted particles' h."""
     rng, res = kern.kernrange, kern.table_res
-    cut2 = (rng * float(h.max())) ** 2 * (1.0 + 1e-6)
-    row, col, _, d2 = mg.slot_pairs(spec, ids_d, r, cut2, True)
+    ids = ids_d.reshape(-1).long()
+    h_big = float(h[ids[ids >= 0]].max())
+    row, col, _, d2 = mg.slot_pairs(spec, ids_d, r,
+                                    (rng * h_big) ** 2 * (1.0 + 1e-6), True)
     hs = [h[row], h[col]] if both else [h[row]]
     ssq = torch.cat([d2 / (x * x) for x in hs])
     sup = ssq < rng * rng
-    near = _near_grid(ssq[sup], rng * rng / res, r.dtype)
+    near = _near_grid(ssq[sup], rng * rng / res, r.dtype) if w0 else 0
     if w1:
         s = torch.cat([torch.sqrt(d2) / x for x in hs])
         near += _near_grid(s[s < rng], rng / res, r.dtype)
@@ -3354,13 +3388,17 @@ def _compare_cd(sim, state):
             and flips <= TOL_F32_CD_FRACTION * n
     n_i, _ = _slot_pairs_within(spec, kern, ids_d, state.r,
                                 torch.clamp_min(state.h, 1e-30))
-    name = kernel_name("cullen_dehnen", spec)
+    name = kernel_name("cullen_dehnen", spec, kern)
+    table = ({"table": _slot_table_report(kern, spec, ids_d, state.r,
+                                          torch.clamp_min(state.h, 1e-30),
+                                          w0=False)}
+             if kern.table_res else {})
     rep = {"N": state.N, "ndim": spec.ndim, "k_cell": spec.k_cell,
            "ncells": list(spec.ncells), "bad": int(want[2][rows].sum()),
            "bad_flips": flips, "scaled_err": errs,
            "dtype": str(state.r.dtype),
            "max_abs_err": float(torch.abs(got[0] - want[0])[rows].max()),
-           "ok": ok,
+           "ok": ok, **table,
            "work": _work((ids_d, state.r, packed), got,
                          FLOPS_PER[name] * n_i)}
     timed = {name: (
@@ -3573,10 +3611,11 @@ def dust_kernel_fields(n: int, ndim: int, seed: int = 3, walls=None):
 
 
 def dust_kernel_inputs(n: int, ndim: int, device, dtype, seed: int = 3,
-                       walls=None):
+                       walls=None, kernrange: float = 2.0):
     """dust_kernel_fields as a state on `device` in `dtype`, in the
-    periodic unit box or, with `walls`, in mirror_params' box.  Returns
-    (state, box, grid plan, dt)."""
+    periodic unit box or, with `walls`, in mirror_params' box, planned for
+    a kernel of range `kernrange`.  Returns (state, box, grid plan,
+    dt)."""
     from .state import PERIODIC, make_sph_state
 
     f = dust_kernel_fields(n, ndim, seed, walls)
@@ -3591,7 +3630,8 @@ def dust_kernel_inputs(n: int, ndim: int, device, dtype, seed: int = 3,
     I = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)
     s = s.replace(rho=T(f["rho"]), sound=T(f["sound"]), a=T(f["a"]),
                   a0=T(f["a0"]), ptype=I(f["ptype"]), flags=I(f["flags"]))
-    spec = g27.plan_grid27(box, f["r"], float(f["h"].max()) * 1.1, 2.0)
+    spec = g27.plan_grid27(box, f["r"], float(f["h"].max()) * 1.1,
+                           kernrange)
     return s, box, spec, T(f["dt"])
 
 
@@ -3599,7 +3639,9 @@ def _dust_work(spec, kern, di, n_targets):
     """(K23's, K24's) operations on DragInputs di from this data: K23's
     cross-type candidates and pairs inside the drag kernel's support,
     K24's dust candidates of gas targets and their pairs inside the
-    support (the gas side's h), counted over chunks of targets."""
+    support (the gas side's h), counted over chunks of targets; with a
+    tabulated kernel also the pairs near a point of its s grid
+    (_near_grid)."""
     from .ops import dust as du
     from .state import DUST_TYPE, GAS_TYPE
 
@@ -3608,7 +3650,7 @@ def _dust_work(spec, kern, di, n_targets):
     table = g27._neighbour_table(spec, di.r.device)
     starts, step = du._chunks(spec, p_all.numel(), di.r.device)
     h, pt = di.sc[:, 1], di.ptype
-    n_cross = n_in = n_dep = n_dep_in = 0
+    n_cross = n_in = n_dep = n_dep_in = n_near = 0
     for c0 in starts:
         p, cell = p_all[c0:c0 + step], cell_all[c0:c0 + step]
         row, q, dr = du._candidate_pairs(spec, table, di.ids_d, di.r, p,
@@ -3620,6 +3662,10 @@ def _dust_work(spec, kern, di, n_targets):
                  | ((pt[pi] == DUST_TYPE) & (pt[q] == GAS_TYPE))) & (d2 > 0)
         h_gas = torch.where(gas_i, h[pi], h[q])
         inside = cross & (d2 < (kern.kernrange * h_gas) ** 2)
+        if kern.table_res:
+            s_in = (torch.sqrt(d2) / h_gas)[inside]
+            n_near += _near_grid(s_in, kern.kernrange / kern.table_res,
+                                 d2.dtype)
         n_cross += int(cross.sum())
         n_in += int(inside.sum())
         dep = gas_i & (pt[q] == DUST_TYPE) & (d2 > 0)
@@ -3627,14 +3673,17 @@ def _dust_work(spec, kern, di, n_targets):
         n_dep_in += int((dep & inside).sum())
     ops_sums = (n_cross * (FLOPS_PER["dust_drag_cross"]
                            + FLOPS_PER["dust_drag_cross_dim"] * nd)
-                + n_in * (FLOPS_PER["dust_drag_pair"]
+                + n_in * (FLOPS_PER[_ext.family_count("dust_drag_pair",
+                                                      kern)]
                           + FLOPS_PER["dust_drag_pair_dim"] * nd))
     ops_dep = (n_dep * (FLOPS_PER["dust_drag_deposit_cand"] + 3 * nd)
-               + n_dep_in * FLOPS_PER["dust_drag_deposit_pair"])
-    return ops_sums, ops_dep, {"cross_candidates": n_cross,
-                               "pairs_in_support": n_in,
-                               "deposit_candidates": n_dep,
-                               "deposit_pairs": n_dep_in}
+               + n_dep_in * FLOPS_PER[_ext.family_count(
+                   "dust_drag_deposit_pair", kern)])
+    counts = {"cross_candidates": n_cross, "pairs_in_support": n_in,
+              "deposit_candidates": n_dep, "deposit_pairs": n_dep_in}
+    if kern.table_res:
+        counts["table"] = {"pairs": n_in, "near_grid": n_near}
+    return ops_sums, ops_dep, counts
 
 
 def compare_dust_kernels(kern, law, test_particle, state, box, spec, dt,
@@ -3642,7 +3691,8 @@ def compare_dust_kernels(kern, law, test_particle, state, box, spec, dt,
     """Run K23 and K24 and their plain versions on the same CUDA tensors
     (the inputs drag_pass_grid gives them for `state`, with its mirror
     images when the plan has mirror layers); returns {kernel: report}
-    as compare_kernels does.  Each output of K23 over the alive
+    as compare_kernels does, keyed by the kernels' family names
+    (dust_drag_sums_m4_tab).  Each output of K23 over the alive
     particles, and K24's du/dt (fed the payload and dEk of the plain
     K23, so that both see the same inputs), within 1e-10 of its largest
     |value| in float64 (TOL_F32_DRAG in float32).  K24 runs when the law
@@ -3667,7 +3717,9 @@ def compare_dust_kernels(kern, law, test_particle, state, box, spec, dt,
     errs = {k: _scaled_all(x, y, rows) for k, x, y in zip(names, got, want)}
     ops_sums, ops_dep, counts = _dust_work(spec, kern, di, N)
     dt_live = di.dt[rows]
-    out = {"dust_drag_sums": {
+    k23, k24 = (_ext.family_count(k, kern) for k in ("dust_drag_sums",
+                                                      "dust_drag_deposit"))
+    out = {k23: {
         "N": N, "ndim": spec.ndim, "k_cell": spec.k_cell,
         "ncells": list(spec.ncells), "law": law.law,
         "test_particle": bool(test_particle), "mirror": bool(spec.mirror),
@@ -3677,8 +3729,8 @@ def compare_dust_kernels(kern, law, test_particle, state, box, spec, dt,
         "dt_range": [float(dt_live.min()), float(dt_live.max())],
         "work": _work((di.ids_d, di.r, di.vec, di.sc, di.ptype, di.dt), got,
                       ops_sums)}}
-    timed = {"dust_drag_sums": (lambda: _ext.dust_drag_sums(*args),
-                                lambda: du.drag_sums_plain(*plain_args))}
+    timed = {k23: (lambda: _ext.dust_drag_sums(*args),
+                   lambda: du.drag_sums_plain(*plain_args))}
     if law.use_energy_term and not test_particle:
         dek, payload = du.drag_energy(state, di.dt, want[0], want[1])
         payload = payload.repeat(di.n_rep)
@@ -3689,7 +3741,7 @@ def compare_dust_kernels(kern, law, test_particle, state, box, spec, dt,
         got_d = _ext.dust_drag_deposit(*d_args)
         want_d = du.drag_deposit_plain(*dp_args)
         err = _scaled_all(got_d, want_d, rows)
-        out["dust_drag_deposit"] = {
+        out[k24] = {
             "N": N, "ndim": spec.ndim, "k_cell": spec.k_cell,
             "law": law.law, "mirror": bool(spec.mirror),
             "scaled_err": {"dudt": err}, "dtype": str(state.r.dtype),
@@ -3697,7 +3749,7 @@ def compare_dust_kernels(kern, law, test_particle, state, box, spec, dt,
             "ok": err <= tol,
             "work": _work((di.ids_d, di.r, di.sc[:, 1:3], di.ptype, payload,
                            dek), (got_d,), ops_dep)}
-        timed["dust_drag_deposit"] = (
+        timed[k24] = (
             lambda: _ext.dust_drag_deposit(*d_args),
             lambda: du.drag_deposit_plain(*dp_args))
     if repeats > 0:
@@ -3831,7 +3883,7 @@ def contact_params(sim: str = "sm2012sph", tend: float = 0.5) -> Parameters:
 
 
 def sm2012_kernel_inputs(n_side: int, ndim: int, device, dtype,
-                         seed: int = 5):
+                         seed: int = 5, kernrange: float = 2.0):
     """A synthetic state for K25 and K26 in the periodic unit box of
     `ndim` dims: an n_side^ndim lattice jittered by 0.3 spacings N(0, 1)
     (0.1 in 1D) with a coincident pair (particles 0 and 1; in 2 and 3
@@ -3842,10 +3894,11 @@ def sm2012_kernel_inputs(n_side: int, ndim: int, device, dtype,
     with 5% of the particles dead (FLAG_DEAD, zero mass), u uniform in
     [0.5, 1.5] and twice that where x_0 < 0.5 (a jump like the KHI's
     interface), alpha in [0.1, 1], h within [0.7, 1.4] of 1.2 times the
-    spacing, so that the iteration moves it.  The plan is for 1.3 times
-    the largest h, as the controllers plan it, and its K is the fullest
-    cell's occupancy, so that some cell is full and its sweep meets no
-    empty slot.  Returns (state, grid plan)."""
+    spacing, so that the iteration moves it (times 2 / kernrange for a
+    kernel of range `kernrange`: the same support).  The plan is for 1.3
+    times the largest h and `kernrange`, as the controllers plan it, and
+    its K is the fullest cell's occupancy, so that some cell is full and
+    its sweep meets no empty slot.  Returns (state, grid plan)."""
     from .state import FLAG_DEAD, PERIODIC, make_sph_state
 
     rng = np.random.default_rng(seed)
@@ -3858,7 +3911,7 @@ def sm2012_kernel_inputs(n_side: int, ndim: int, device, dtype,
     if ndim > 1:
         r[1] = r[0]
     u = rng.uniform(0.5, 1.5, n) * np.where(r[:, 0] < 0.5, 2.0, 1.0)
-    h = 1.2 * dx * rng.uniform(0.7, 1.4, n)
+    h = 1.2 * dx * rng.uniform(0.7, 1.4, n) * (2.0 / kernrange)
     dead = rng.random(n) < 0.05
     dead[:2] = False
     m = np.where(dead, 0.0, 1.0 / n)
@@ -3871,7 +3924,7 @@ def sm2012_kernel_inputs(n_side: int, ndim: int, device, dtype,
                               dtype=torch.int32, device=device))
     box = DomainBox(ndim, (0.0,) * ndim, (1.0,) * ndim, (PERIODIC,) * ndim,
                     (PERIODIC,) * ndim)
-    spec = g27.plan_grid27(box, r[~dead], 1.3 * float(h.max()), 2.0)
+    spec = g27.plan_grid27(box, r[~dead], 1.3 * float(h.max()), kernrange)
     b = g27.bin_particles_plain(spec, torch.as_tensor(r[~dead]))
     k_full = int(torch.bincount(b.cell_of.long()).max())
     return s, dataclasses.replace(spec, k_cell=k_full)
@@ -3898,10 +3951,11 @@ def _sm2012_work(spec, kern, ids_d, r, v, h):
     f = FLOPS_PER
     ops25 = (2 * n_cand * (f["sm2012_density_cand"]
                            + f["sm2012_density_cand_dim"] * nd)
-             + (n_i + ids.numel()) * f["sm2012_density_pair"])
+             + (n_i + ids.numel())
+             * f[_ext.family_count("sm2012_density_pair", kern)])
     ops26 = (n_cand * (f["sm2012_forces_cand"]
                        + f["sm2012_forces_cand_dim"] * nd)
-             + n_ij * (f["sm2012_forces_pair"]
+             + n_ij * (f[_ext.family_count("sm2012_forces_pair", kern)]
                        + f["sm2012_forces_pair_dim"] * nd)
              + n_app * f["sm2012_forces_approach"])
     return ops25, ops26, {"candidates": n_cand,
@@ -3927,8 +3981,8 @@ def compare_sm2012_kernels(kern, visc, gamma, h_fac, h_converge, spec,
 
     saved = dict(_ext.LAUNCHES)
     f64 = state.r.dtype == torch.float64
-    k25, k26 = (kernel_name(n, spec) for n in ("sm2012_density",
-                                                "sm2012_forces"))
+    k25, k26 = (kernel_name(n, spec, kern) for n in ("sm2012_density",
+                                                      "sm2012_forces"))
     s, alive = state, state.alive
     ids_d = ag.dense_ids(spec, g27.bin_particles(spec, s.r,
                                                  discard=~alive))
@@ -3984,6 +4038,12 @@ def compare_sm2012_kernels(kern, visc, gamma, h_fac, h_converge, spec,
     ops25, ops26, counts = _sm2012_work(spec, kern, ids_d, s.r, s.v,
                                         live(h, 1.0))
     rep.update(counts)
+    if kern.table_res:
+        rep["table"] = _slot_table_report(kern, spec, ids_d, s.r,
+                                          live(h, 1.0), w1=False)
+        out[k26]["table"] = _slot_table_report(kern, spec, ids_d, s.r,
+                                               live(h, 1.0), w0=False,
+                                               both=True)
     rep["work"] = _work((ids_d, s.r, s.m, s.u, s.h), got, ops25)
     out[k26]["work"] = _work((ids_d, s.r, s.v, packed), got_f, ops26)
     if repeats > 0:
@@ -3994,6 +4054,125 @@ def compare_sm2012_kernels(kern, visc, gamma, h_fac, h_converge, spec,
                   lambda: sm.sm2012_forces_plain(*fp_args))}, repeats)
     for r in out.values():
         r["library_ms"] = None
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K21, K23-K26 with the quintic, gaussian and tabulated kernels
+# ---------------------------------------------------------------------------
+
+# float64 gate of compare_grid_family_kernels: the kernel and its plain
+# version evaluate the same formulas in the same rounded steps (d^2
+# unfused, the table index from the same s or s^2), so only the order of
+# the sums differs (and K21's 3 x 3 inverse, the adjugate against LU);
+# a pair that took another table point would move its output by ~1e-3.
+TOL_F64_FAMILY = 1e-12
+# the drag laws of compare_grid_family_kernels (two-fluid, each law, and
+# test-particle with the first) and its synthetic sizes
+GRID_FAMILY_DRAG = (("fixed", 2.0, False), ("density", 1.0, False),
+                    ("epstein", 1.5, False), ("lp12", 3.0, False),
+                    ("fixed", 2.0, True))
+GRID_FAMILY_DUST_N = 4096
+GRID_FAMILY_SM_SIDES = {1: 4096, 2: 64, 3: 16}
+# K25 in float32 starts from the h that a plain pass converged to (in
+# float64 from sm2012_kernel_inputs' scattered h, which exercises the
+# whole iteration).  A tabulated W jumps at its table points, so an
+# iteration from far off takes pairs across them in an order of float32
+# sums that differs between the card and torch, and the two stop (at
+# h_converge 1e-2) a fixed-point step apart for ~0.1% of the particles,
+# moving their rho by up to ~1.4e-3: on an NVIDIA H100 80GB HBM3 (700 W)
+# the tabulated quintic in 3D left 0.13% of them beyond
+# TOL_F32_DENSITY_TYPICAL, and two plain passes over the same inputs in
+# two slot orders part for 0.05-0.08% on the CPU.  From a converged h,
+# as every run's step starts, the iteration takes a step or two.
+
+
+def cd_family_sim(variant: str, ndim: int, device, dtype):
+    """A cd2010 simulation with the smoothing kernel `variant` after setup
+    at `ndim`: the Sod tube (128 + 32) in 1D, the small KHI
+    (khi_params(1)) in 2D, the jittered 16^3 box in 3D."""
+    from .sim.simulation import GradhSphSimulation
+
+    ic = None
+    if ndim == 1:
+        p = sod_params(128, 32)
+    elif ndim == 2:
+        p = khi_params(1)
+    else:
+        p = slice_params(16)
+        ic = jittered_box_ic(p, 16)
+    p = family_params(variant, p)
+    p.set("time_dependent_avisc", "cd2010")
+    sim = GradhSphSimulation(p, device, dtype)
+    sim.SetupSimulation(ic)
+    return sim
+
+
+def _family_f64_gate(report, tol=TOL_F64_FAMILY):
+    """Each float64 report ok only within `tol` (its scaled or relative
+    errors)."""
+    for r in report.values():
+        errs = {**r.get("scaled_err", {}), **r.get("rel_err", {})}
+        errs.pop("fraction_beyond_tol", None)
+        r["ok"] = bool(r["ok"]) and max(errs.values()) <= tol
+        r["gate"] = tol
+
+
+def compare_grid_family_kernels(variant: str, ndim: int, device, dtype,
+                                repeats: int = 0):
+    """K21, K23 and K24, K25 and K26 with the smoothing kernel `variant`
+    against their plain versions at `ndim`: K21 at cd_family_sim's state,
+    K23 and K24 on dust_kernel_inputs at GRID_FAMILY_DUST_N particles for
+    each case of GRID_FAMILY_DRAG, K25 and K26 on sm2012_kernel_inputs
+    (GRID_FAMILY_SM_SIDES, per-particle alpha, h_fac 2.4 / kernrange; in
+    float32 from a converged h), each planned for the variant's
+    kernrange.  float64 within
+    TOL_F64_FAMILY; float32 within the kernels' own tolerances.  The
+    tabulated kernels' reports count the pairs near a table point.
+    Returns {kernel: report} under the kernels' family names (the drag
+    cases' with [law] or [law,tp] appended)."""
+    from .kernels.smoothing import kernel_factory
+    from .ops.dust import DragLaw
+    from .ops.forces import ArtificialViscosity
+
+    name, tab = VARIANTS[variant]
+    kern = kernel_factory(name, ndim, tab)
+    saved = dict(_ext.LAUNCHES)
+    out = {}
+    sim = cd_family_sim(variant, ndim, device, dtype)
+    k21, rep, timed = _compare_cd(sim, sim.state)
+    out[k21] = rep
+    if repeats > 0:
+        _time_pairs(out, timed, repeats)
+    rep["library_ms"] = None
+    s, box, spec, dt = dust_kernel_inputs(GRID_FAMILY_DUST_N, ndim, device,
+                                          dtype, kernrange=kern.kernrange)
+    for law, coeff, tp in GRID_FAMILY_DRAG:
+        tag = f"[{law},tp]" if tp else f"[{law}]"
+        rep = compare_dust_kernels(kern, DragLaw(law, coeff, True), tp, s,
+                                   box, spec, dt, repeats)
+        out.update({k + tag: r for k, r in rep.items()})
+    s, spec = sm2012_kernel_inputs(GRID_FAMILY_SM_SIDES[ndim], ndim, device,
+                                   dtype, kernrange=kern.kernrange)
+    h_fac = 2.4 / kern.kernrange
+    if dtype != torch.float64:
+        # float32 from the h a plain pass converged to, as a run's step
+        # starts from the last step's (the note at GRID_FAMILY_SM_SIDES)
+        from .ops.sm2012 import sm2012_density_plain
+
+        ids_d = ag.dense_ids(spec, g27.bin_particles(spec, s.r,
+                                                     discard=~s.alive))
+        h0 = sm2012_density_plain(kern, spec, h_fac, 0.01,
+                                  g27.hmax_of(spec, kern.kernrange), ids_d,
+                                  s.r, s.m, s.u, s.h)[0]
+        s = s.replace(h=torch.where(s.alive, h0, s.h))
+    out.update(compare_sm2012_kernels(
+        kern, ArtificialViscosity(avisc=fo.AVISC_MON97MM97), 1.4, h_fac,
+        0.01, spec, s, repeats))
+    if dtype == torch.float64:
+        _family_f64_gate(out)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out

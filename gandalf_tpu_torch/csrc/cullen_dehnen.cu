@@ -23,17 +23,21 @@
 //
 // Design: one thread per slot of K1's slot map (particle id per slot, -1
 // empty; the dead are binned out), mapped as K2 and K3 are (one block a
-// cell in 3D with K >= 32, else flat over (cell, slot)), NDIM a template
-// parameter.  A thread keeps its 3 NDIM^2 sums in registers and skips its
-// own slot (identity) and coincident partners (d^2 = 0); a partner
-// beyond the kernel's support adds exactly zero and is skipped.  The
-// finale runs inline: the closed-form inverse of csrc/mfv.cuh's kind
-// (adjugate over the determinant), guarded as above.  Outputs are in
-// particle order, each written once.  No shared-memory staging yet.
+// cell in 3D with K >= 32, else flat over (cell, slot)), NDIM and the
+// smoothing kernel (M4, quintic or gaussian, direct or tabulated:
+// kernel_family.cuh) template parameters.  A thread keeps its 3 NDIM^2
+// sums in registers and skips its own slot (identity) and coincident
+// partners (d^2 = 0); a partner beyond the kernel's support (kernrange
+// h_i) adds exactly zero and is skipped.  Any kernel but the direct M4
+// sums d^2 in the plain version's rounded steps (kExactD2), so that s,
+// and a table index, are the plain version's.  The finale runs inline:
+// the closed-form inverse of csrc/mfv.cuh's kind (adjugate over the
+// determinant), guarded as above.  Outputs are in particle order, each
+// written once.  No shared-memory staging yet.
 #include <cuda_runtime.h>
 
 #include "grid27.cuh"
-#include "m4.cuh"
+#include "kernel_family.cuh"
 
 namespace {
 
@@ -73,10 +77,10 @@ __device__ __forceinline__ void inverse_n(const T* a, T det, T* b) {
   }
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __device__ __forceinline__ void cd_slot(
     const int* __restrict__ ids, const T* __restrict__ r,
-    const T* __restrict__ pk, const Grid3& g, int c, int i, T norm,
+    const T* __restrict__ pk, const Grid3& g, int c, int i, const KF& kern,
     T alpha_visc, T alpha_min, T* __restrict__ alpha_out,
     T* __restrict__ dal_out, unsigned char* __restrict__ bad_out) {
   constexpr int kCols = 2 * NDIM + 5;
@@ -114,13 +118,16 @@ __device__ __forceinline__ void cd_slot(
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) {
         dr[k] = (r[NDIM * static_cast<long long>(q) + k] + sh[k]) - xi[k];
-        d2 += dr[k] * dr[k];
+        if (KF::kExactD2)
+          d2 = kf::add(d2, kf::mul(dr[k], dr[k]));
+        else
+          d2 += dr[k] * dr[k];
       }
       if (!(d2 > T(0))) continue;
       const T s = sqrt(d2) * invh;
-      if (!(s < T(2))) continue;  // W' = 0 from the support's edge on
+      if (!kern.in_support(s)) continue;  // W' = 0 from the edge on
       const T* pq = pk + kCols * static_cast<long long>(q);
-      const T w = pq[2 * NDIM + kM] * wfac * m4_w1<T>(s, norm);
+      const T w = pq[2 * NDIM + kM] * wfac * kern.w1(s);
       T dv[NDIM], da[NDIM];
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) {
@@ -204,10 +211,10 @@ __device__ __forceinline__ void cd_slot(
   bad_out[p] = bad ? 1 : 0;
 }
 
-template <typename T, int NDIM, bool kFlat>
+template <typename T, int NDIM, bool kFlat, class KF>
 __global__ void __launch_bounds__(256) cullen_dehnen_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
-    const T* __restrict__ pk, Grid3 g, int n_cells, T norm, T alpha_visc,
+    const T* __restrict__ pk, Grid3 g, int n_cells, KF kern, T alpha_visc,
     T alpha_min, T* __restrict__ alpha_out, T* __restrict__ dal_out,
     unsigned char* __restrict__ bad_out) {
   if (kFlat) {
@@ -215,30 +222,32 @@ __global__ void __launch_bounds__(256) cullen_dehnen_kernel(
                         + threadIdx.x;
     if (t >= static_cast<long long>(n_cells) * g.K) return;
     cd_slot<T, NDIM>(ids, r, pk, g, static_cast<int>(t / g.K),
-                     static_cast<int>(t % g.K), norm, alpha_visc, alpha_min,
+                     static_cast<int>(t % g.K), kern, alpha_visc, alpha_min,
                      alpha_out, dal_out, bad_out);
     return;
   }
   for (int i = threadIdx.x; i < g.K; i += blockDim.x)
-    cd_slot<T, NDIM>(ids, r, pk, g, blockIdx.x, i, norm, alpha_visc,
+    cd_slot<T, NDIM>(ids, r, pk, g, blockIdx.x, i, kern, alpha_visc,
                      alpha_min, alpha_out, dal_out, bad_out);
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 void launch_cd(const int* ids, const T* r, const T* pk, const Grid3& g,
-               int n_cells, T norm, T alpha_visc, T alpha_min, T* alpha,
-               T* dal, unsigned char* bad, bool flat, cudaStream_t stream) {
+               int n_cells, const KF& kern, T alpha_visc, T alpha_min,
+               T* alpha, T* dal, unsigned char* bad, bool flat,
+               cudaStream_t stream) {
   if (flat) {
     const long long slots = static_cast<long long>(n_cells) * g.K;
     const int blocks =
         static_cast<int>((slots + kFlatThreads - 1) / kFlatThreads);
-    cullen_dehnen_kernel<T, NDIM, true><<<blocks, kFlatThreads, 0, stream>>>(
-        ids, r, pk, g, n_cells, norm, alpha_visc, alpha_min, alpha, dal,
+    cullen_dehnen_kernel<T, NDIM, true, KF><<<blocks, kFlatThreads, 0,
+                                              stream>>>(
+        ids, r, pk, g, n_cells, kern, alpha_visc, alpha_min, alpha, dal,
         bad);
   } else {
-    cullen_dehnen_kernel<T, NDIM, false><<<n_cells, slot_threads(g.K), 0,
-                                           stream>>>(
-        ids, r, pk, g, n_cells, norm, alpha_visc, alpha_min, alpha, dal,
+    cullen_dehnen_kernel<T, NDIM, false, KF><<<n_cells, slot_threads(g.K),
+                                               0, stream>>>(
+        ids, r, pk, g, n_cells, kern, alpha_visc, alpha_min, alpha, dal,
         bad);
   }
 }
@@ -246,9 +255,9 @@ void launch_cd(const int* ids, const T* r, const T* pk, const Grid3& g,
 template <typename T>
 int run_cd(const int* ids, const T* r, const T* pk, int ndim, int n0,
            int n1, int n2, int k_cell, int per0, int per1, int per2,
-           double L0, double L1, double L2, double norm, double alpha_visc,
-           double alpha_min, T* alpha, T* dal, unsigned char* bad,
-           int device, void* stream_ptr) {
+           double L0, double L1, double L2, double norm, int family,
+           int res, double alpha_visc, double alpha_min, T* alpha, T* dal,
+           unsigned char* bad, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ndim < 1 || ndim > 3) return static_cast<int>(cudaErrorInvalidValue);
@@ -257,15 +266,20 @@ int run_cd(const int* ids, const T* r, const T* pk, int ndim, int n0,
   const int n_cells = n0 * n1 * n2;
   const bool flat = slot_mapping_flat(0, ndim, k_cell);
   if (n_cells > 0 && k_cell > 0) {
-    if (ndim == 1)
-      launch_cd<T, 1>(ids, r, pk, g, n_cells, T(norm), T(alpha_visc),
-                      T(alpha_min), alpha, dal, bad, flat, stream);
-    else if (ndim == 2)
-      launch_cd<T, 2>(ids, r, pk, g, n_cells, T(norm), T(alpha_visc),
-                      T(alpha_min), alpha, dal, bad, flat, stream);
-    else
-      launch_cd<T, 3>(ids, r, pk, g, n_cells, T(norm), T(alpha_visc),
-                      T(alpha_min), alpha, dal, bad, flat, stream);
+    const T av = T(alpha_visc), amin = T(alpha_min);
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, ndim, [&](const auto& kern) {
+          if (ndim == 1)
+            launch_cd<T, 1>(ids, r, pk, g, n_cells, kern, av, amin, alpha,
+                            dal, bad, flat, stream);
+          else if (ndim == 2)
+            launch_cd<T, 2>(ids, r, pk, g, n_cells, kern, av, amin, alpha,
+                            dal, bad, flat, stream);
+          else
+            launch_cd<T, 3>(ids, r, pk, g, n_cells, kern, av, amin, alpha,
+                            dal, bad, flat, stream);
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -277,12 +291,12 @@ extern "C" {
 #define CULLEN_DEHNEN_ENTRY(NAME, T)                                        \
   int NAME(const int* ids, const T* r, const T* pk, int ndim, int n0,       \
            int n1, int n2, int k_cell, int per0, int per1, int per2,        \
-           double L0, double L1, double L2, double norm, double alpha_visc,  \
-           double alpha_min, T* alpha, T* dal, unsigned char* bad,          \
-           int device, void* stream) {                                      \
+           double L0, double L1, double L2, double norm, int family,        \
+           int res, double alpha_visc, double alpha_min, T* alpha, T* dal,  \
+           unsigned char* bad, int device, void* stream) {                  \
     return run_cd<T>(ids, r, pk, ndim, n0, n1, n2, k_cell, per0, per1,      \
-                     per2, L0, L1, L2, norm, alpha_visc, alpha_min, alpha,  \
-                     dal, bad, device, stream);                             \
+                     per2, L0, L1, L2, norm, family, res, alpha_visc,       \
+                     alpha_min, alpha, dal, bad, device, stream);           \
   }
 
 CULLEN_DEHNEN_ENTRY(cullen_dehnen_f32, float)

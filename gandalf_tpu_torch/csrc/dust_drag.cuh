@@ -27,20 +27,31 @@
 // and two divisions; check.FLOPS_PER).
 //
 // Design: one thread per slot of K1's slot map (particle id per slot, -1
-// empty; the dead are binned out), flat over (cell, slot) as K22, NDIM
-// and the drag law template parameters.  The slot map may hold mirror
-// images (ids from n_targets on, from K19): those slots are neighbours
-// only.  A thread keeps its sums in registers and writes each output
-// once, so no atomics.  The separation, dv - dt/2 da0 and da are formed
-// directly, in the plain version's order, with no dot-product expansion.
-// Outputs are in particle order; a target without a slot keeps the
-// wrapper's zeros.  No shared-memory staging yet.
+// empty; the dead are binned out), flat over (cell, slot) as K22, NDIM,
+// the drag law and the smoothing kernel (M4, quintic or gaussian, direct
+// or tabulated: kernel_family.cuh) template parameters.  The drag kernel
+// is the family's wdrag, normdrag s^2 W(s), at s = |dr| / h_gas, a table
+// quantising s on the s grid; any kernel but the direct M4 sums d^2 in
+// the plain version's rounded steps (kExactD2), so that s, and a table
+// index, are the plain version's.  Each family builds from a source of
+// its own (dust_drag_{m4,quintic,gaussian}.cu, the direct and tabulated
+// kernels in each), so that the build compiles them in parallel.  The
+// slot map may hold mirror images (ids from n_targets on, from K19):
+// those slots are neighbours only.  A thread keeps its sums in registers
+// and writes each output once, so no atomics.  The separation, dv - dt/2
+// da0 and da are formed directly, in the plain version's order, with no
+// dot-product expansion.  Outputs are in particle order; a target without
+// a slot keeps the wrapper's zeros.  No shared-memory staging yet.
+#pragma once
+
 #include <cuda_runtime.h>
 
-#include "grid27.cuh"
-#include "m4.cuh"
+#include <type_traits>
 
-namespace {
+#include "grid27.cuh"
+#include "kernel_family.cuh"
+
+namespace dust_k23 {
 
 constexpr int kThreads = 128;
 constexpr int kGas = 0, kDust = 3;  // state.py's GAS_TYPE and DUST_TYPE
@@ -70,16 +81,16 @@ struct DragArgs {
   Grid3 g;
   int n_cells;
   int n_targets;
-  double norm, normdrag, coeff, inv_coeff;
+  double coeff, inv_coeff;
   int test_particle;
 };
 
-template <typename T, int NDIM, int LAW>
+template <typename T, int NDIM, int LAW, class KF>
 __device__ __forceinline__ void sums_slot(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ vec, const T* __restrict__ sc,
     const int* __restrict__ pt, const T* __restrict__ dt,
-    const DragArgs& A, long long t, T* __restrict__ a_out,
+    const DragArgs& A, const KF& kern, long long t, T* __restrict__ a_out,
     T* __restrict__ norm_out, T* __restrict__ sound_out,
     T* __restrict__ divv_out) {
   const Grid3& g = A.g;
@@ -88,7 +99,6 @@ __device__ __forceinline__ void sums_slot(
   if (p < 0 || p >= A.n_targets) return;
   const int pti = pt[p];
   const bool gas_i = pti == kGas, dust_i = pti == kDust;
-  const T norm = T(A.norm), normdrag = T(A.normdrag);
   const T coeff = T(A.coeff), inv_coeff = T(A.inv_coeff);
   int cc[3];
   cell_coords(g, static_cast<int>(t / K), cc);
@@ -128,7 +138,10 @@ __device__ __forceinline__ void sums_slot(
           // r_i - r_j = -(r_j + shift - r_i), exactly
           drij[k] = -((r[NDIM * static_cast<long long>(q) + k] + sh[k])
                       - xi[k]);
-          d2 += drij[k] * drij[k];
+          if (KF::kExactD2)
+            d2 = kf::add(d2, kf::mul(drij[k], drij[k]));
+          else
+            d2 += drij[k] * drij[k];
         }
         if (!(d2 > T(0))) continue;
         const T* sq = sc + kCols * static_cast<long long>(q);
@@ -136,8 +149,7 @@ __device__ __forceinline__ void sums_slot(
         const T drmag = sqrt(d2);
         const T h_gas = max(gas_i ? h_i : sq[kH], T(1e-30));
         const T invh = T(1) / h_gas;
-        const T wraw = ipow<T, NDIM>(invh)
-                       * m4_wdrag<T>(drmag * invh, norm, normdrag);
+        const T wraw = ipow<T, NDIM>(invh) * kern.wdrag(drmag * invh);
         const T rho_j = sq[kRho];
         const T wkern = wraw * sq[kM] / max(rho_j, T(1e-30));
         T dvdr = T(0), dadr = T(0), dv2 = T(0);
@@ -185,26 +197,26 @@ __device__ __forceinline__ void sums_slot(
   divv_out[p] = dvmax / max(h_i, T(1e-30));
 }
 
-template <typename T, int NDIM, int LAW>
+template <typename T, int NDIM, int LAW, class KF>
 __global__ void __launch_bounds__(kThreads) dust_sums_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ vec, const T* __restrict__ sc,
     const int* __restrict__ pt, const T* __restrict__ dt, DragArgs A,
-    T* __restrict__ a_out, T* __restrict__ norm_out,
+    KF kern, T* __restrict__ a_out, T* __restrict__ norm_out,
     T* __restrict__ sound_out, T* __restrict__ divv_out) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   if (t >= static_cast<long long>(A.n_cells) * A.g.K) return;
-  sums_slot<T, NDIM, LAW>(ids, r, vec, sc, pt, dt, A, t, a_out, norm_out,
-                          sound_out, divv_out);
+  sums_slot<T, NDIM, LAW>(ids, r, vec, sc, pt, dt, A, kern, t, a_out,
+                          norm_out, sound_out, divv_out);
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __global__ void __launch_bounds__(kThreads) dust_deposit_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ sc, const int* __restrict__ pt,
     const T* __restrict__ payload, const T* __restrict__ dek, DragArgs A,
-    T* __restrict__ out) {
+    KF kern, T* __restrict__ out) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   const Grid3& g = A.g;
@@ -212,7 +224,6 @@ __global__ void __launch_bounds__(kThreads) dust_deposit_kernel(
   if (t >= static_cast<long long>(A.n_cells) * K) return;
   const int p = ids[t];
   if (p < 0 || p >= A.n_targets || pt[p] != kGas) return;
-  const T norm = T(A.norm), normdrag = T(A.normdrag);
   int cc[3];
   cell_coords(g, static_cast<int>(t / K), cc);
   T xi[NDIM];
@@ -235,12 +246,15 @@ __global__ void __launch_bounds__(kThreads) dust_deposit_kernel(
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) {
         const T dx = (r[NDIM * static_cast<long long>(q) + k] + sh[k]) - xi[k];
-        d2 += dx * dx;
+        if (KF::kExactD2)
+          d2 = kf::add(d2, kf::mul(dx, dx));
+        else
+          d2 += dx * dx;
       }
       if (!(d2 > T(0))) continue;
       const T s = sqrt(d2) * invh;
-      if (!(s < T(2))) continue;  // wdrag = 0 from the support's edge on
-      dep += hfac * m4_wdrag<T>(s, norm, normdrag) * payload[q];
+      if (!kern.in_support(s)) continue;  // wdrag = 0 from the edge on
+      dep += hfac * kern.wdrag(s) * payload[q];
     }
   }
   out[p] = -dek[p] - dep / max(si[kRho], T(1e-30));
@@ -250,14 +264,15 @@ inline int blocks_for(long long slots) {
   return static_cast<int>((slots + kThreads - 1) / kThreads);
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 void launch_sums(int law, const int* ids, const T* r, const T* vec,
                  const T* sc, const int* pt, const T* dt, const DragArgs& A,
-                 T* a, T* nrm, T* snd, T* divv, cudaStream_t stream) {
+                 const KF& kern, T* a, T* nrm, T* snd, T* divv,
+                 cudaStream_t stream) {
   const int blocks = blocks_for(static_cast<long long>(A.n_cells) * A.g.K);
 #define DUST_SUMS(LAW)                                                      \
-  dust_sums_kernel<T, NDIM, LAW><<<blocks, kThreads, 0, stream>>>(               \
-      ids, r, vec, sc, pt, dt, A, a, nrm, snd, divv)
+  dust_sums_kernel<T, NDIM, LAW, KF><<<blocks, kThreads, 0, stream>>>(      \
+      ids, r, vec, sc, pt, dt, A, kern, a, nrm, snd, divv)
   switch (law) {
     case kFixed: DUST_SUMS(kFixed); break;
     case kDensity: DUST_SUMS(kDensity); break;
@@ -267,111 +282,125 @@ void launch_sums(int law, const int* ids, const T* r, const T* vec,
 #undef DUST_SUMS
 }
 
-DragArgs make_args(int ndim, int n0, int n1, int n2, int k_cell, int per0,
-                   int per1, int per2, double L0, double L1, double L2,
-                   int n_targets, double norm, double normdrag,
-                   double coeff, double inv_coeff, int test_particle) {
+inline DragArgs make_args(int n0, int n1, int n2, int k_cell, int per0,
+                          int per1, int per2, double L0, double L1,
+                          double L2, int n_targets, double coeff,
+                          double inv_coeff, int test_particle) {
   DragArgs A;
   A.g = {{n0, n1, n2}, {per0, per1, per2}, {L0, L1, L2}, k_cell};
   A.n_cells = n0 * n1 * n2;
   A.n_targets = n_targets;
-  A.norm = norm;
-  A.normdrag = normdrag;
   A.coeff = coeff;
   A.inv_coeff = inv_coeff;
   A.test_particle = test_particle;
-  (void)ndim;
   return A;
 }
 
-template <typename T>
+template <typename T, int FAM>
 int run_sums(const int* ids, int n_targets, const T* r, const T* vec,
              const T* sc, const int* pt, const T* dt, int ndim, int n0,
              int n1, int n2, int k_cell, int per0, int per1, int per2,
              double L0, double L1, double L2, double norm, double normdrag,
-             int law, double coeff, double inv_coeff, int test_particle,
-             T* a, T* nrm, T* snd, T* divv, int device, void* stream_ptr) {
+             int res, int law, double coeff, double inv_coeff,
+             int test_particle, T* a, T* nrm, T* snd, T* divv, int device,
+             void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ndim < 1 || ndim > 3 || law < 0 || law > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const DragArgs A = make_args(ndim, n0, n1, n2, k_cell, per0, per1, per2,
-                               L0, L1, L2, n_targets, norm, normdrag, coeff,
-                               inv_coeff, test_particle);
+  const DragArgs A = make_args(n0, n1, n2, k_cell, per0, per1, per2, L0,
+                               L1, L2, n_targets, coeff, inv_coeff,
+                               test_particle);
   if (A.n_cells > 0 && k_cell > 0) {
-    if (ndim == 1)
-      launch_sums<T, 1>(law, ids, r, vec, sc, pt, dt, A, a, nrm, snd, divv,
-                        stream);
-    else if (ndim == 2)
-      launch_sums<T, 2>(law, ids, r, vec, sc, pt, dt, A, a, nrm, snd, divv,
-                        stream);
-    else
-      launch_sums<T, 3>(law, ids, r, vec, sc, pt, dt, A, a, nrm, snd, divv,
-                        stream);
+    kf::with_family<T, FAM>(
+        res, norm, ndim,
+        [&](const auto& kern) {
+          if (ndim == 1)
+            launch_sums<T, 1>(law, ids, r, vec, sc, pt, dt, A, kern, a, nrm,
+                              snd, divv, stream);
+          else if (ndim == 2)
+            launch_sums<T, 2>(law, ids, r, vec, sc, pt, dt, A, kern, a, nrm,
+                              snd, divv, stream);
+          else
+            launch_sums<T, 3>(law, ids, r, vec, sc, pt, dt, A, kern, a, nrm,
+                              snd, divv, stream);
+        },
+        normdrag);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int FAM>
 int run_deposit(const int* ids, int n_targets, const T* r, const T* sc,
                 const int* pt, const T* payload, const T* dek, int ndim,
                 int n0, int n1, int n2, int k_cell, int per0, int per1,
                 int per2, double L0, double L1, double L2, double norm,
-                double normdrag, T* out, int device, void* stream_ptr) {
+                double normdrag, int res, T* out, int device,
+                void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ndim < 1 || ndim > 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const DragArgs A = make_args(ndim, n0, n1, n2, k_cell, per0, per1, per2,
-                               L0, L1, L2, n_targets, norm, normdrag, 0.0,
-                               0.0, 0);
+  const DragArgs A = make_args(n0, n1, n2, k_cell, per0, per1, per2, L0,
+                               L1, L2, n_targets, 0.0, 0.0, 0);
   if (A.n_cells > 0 && k_cell > 0) {
     const int blocks = blocks_for(static_cast<long long>(A.n_cells) * k_cell);
-    if (ndim == 1)
-      dust_deposit_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(
-          ids, r, sc, pt, payload, dek, A, out);
-    else if (ndim == 2)
-      dust_deposit_kernel<T, 2><<<blocks, kThreads, 0, stream>>>(
-          ids, r, sc, pt, payload, dek, A, out);
-    else
-      dust_deposit_kernel<T, 3><<<blocks, kThreads, 0, stream>>>(
-          ids, r, sc, pt, payload, dek, A, out);
+    kf::with_family<T, FAM>(
+        res, norm, ndim,
+        [&](const auto& kern) {
+          using KF = std::decay_t<decltype(kern)>;
+          if (ndim == 1)
+            dust_deposit_kernel<T, 1, KF><<<blocks, kThreads, 0, stream>>>(
+                ids, r, sc, pt, payload, dek, A, kern, out);
+          else if (ndim == 2)
+            dust_deposit_kernel<T, 2, KF><<<blocks, kThreads, 0, stream>>>(
+                ids, r, sc, pt, payload, dek, A, kern, out);
+          else
+            dust_deposit_kernel<T, 3, KF><<<blocks, kThreads, 0, stream>>>(
+                ids, r, sc, pt, payload, dek, A, kern, out);
+        },
+        normdrag);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+}  // namespace dust_k23
 
-extern "C" {
-
-#define DUST_SUMS_ENTRY(NAME, T)                                            \
-  int NAME(const int* ids, int n_targets, const T* r, const T* vec,         \
-           const T* sc, const int* pt, const T* dt, int ndim, int n0,       \
-           int n1, int n2, int k_cell, int per0, int per1, int per2,        \
-           double L0, double L1, double L2, double norm, double normdrag,   \
-           int law, double coeff, double inv_coeff, int test_particle,      \
-           T* a, T* nrm, T* snd, T* divv, int device, void* stream) {       \
-    return run_sums<T>(ids, n_targets, r, vec, sc, pt, dt, ndim, n0, n1,    \
-                       n2, k_cell, per0, per1, per2, L0, L1, L2, norm,      \
-                       normdrag, law, coeff, inv_coeff, test_particle, a,   \
-                       nrm, snd, divv, device, stream);                     \
+// the C entry points of one kernel family (direct or tabulated by `res`),
+// float32 and float64: dust_drag_sums_<family>_f32 and _f64,
+// dust_drag_deposit_<family>_f32 and _f64
+#define DUST_SUMS_ENTRY(NAME, T, FAM)                                       \
+  extern "C" int NAME(const int* ids, int n_targets, const T* r,            \
+                      const T* vec, const T* sc, const int* pt,             \
+                      const T* dt, int ndim, int n0, int n1, int n2,        \
+                      int k_cell, int per0, int per1, int per2, double L0,  \
+                      double L1, double L2, double norm, double normdrag,   \
+                      int res, int law, double coeff, double inv_coeff,     \
+                      int test_particle, T* a, T* nrm, T* snd, T* divv,     \
+                      int device, void* stream) {                           \
+    return dust_k23::run_sums<T, FAM>(                                      \
+        ids, n_targets, r, vec, sc, pt, dt, ndim, n0, n1, n2, k_cell, per0, \
+        per1, per2, L0, L1, L2, norm, normdrag, res, law, coeff, inv_coeff, \
+        test_particle, a, nrm, snd, divv, device, stream);                  \
   }
 
-#define DUST_DEPOSIT_ENTRY(NAME, T)                                         \
-  int NAME(const int* ids, int n_targets, const T* r, const T* sc,          \
-           const int* pt, const T* payload, const T* dek, int ndim, int n0, \
-           int n1, int n2, int k_cell, int per0, int per1, int per2,        \
-           double L0, double L1, double L2, double norm, double normdrag,   \
-           T* out, int device, void* stream) {                              \
-    return run_deposit<T>(ids, n_targets, r, sc, pt, payload, dek, ndim,    \
-                          n0, n1, n2, k_cell, per0, per1, per2, L0, L1, L2, \
-                          norm, normdrag, out, device, stream);             \
+#define DUST_DEPOSIT_ENTRY(NAME, T, FAM)                                    \
+  extern "C" int NAME(const int* ids, int n_targets, const T* r,            \
+                      const T* sc, const int* pt, const T* payload,         \
+                      const T* dek, int ndim, int n0, int n1, int n2,       \
+                      int k_cell, int per0, int per1, int per2, double L0,  \
+                      double L1, double L2, double norm, double normdrag,   \
+                      int res, T* out, int device, void* stream) {          \
+    return dust_k23::run_deposit<T, FAM>(                                   \
+        ids, n_targets, r, sc, pt, payload, dek, ndim, n0, n1, n2, k_cell,  \
+        per0, per1, per2, L0, L1, L2, norm, normdrag, res, out, device,     \
+        stream);                                                            \
   }
 
-DUST_SUMS_ENTRY(dust_drag_sums_f32, float)
-DUST_SUMS_ENTRY(dust_drag_sums_f64, double)
-DUST_DEPOSIT_ENTRY(dust_drag_deposit_f32, float)
-DUST_DEPOSIT_ENTRY(dust_drag_deposit_f64, double)
-
-}  // extern "C"
+// K23 and K24 with one family in float32 and float64
+#define DUST_DRAG_FAMILY(FAMNAME, FAM)                                      \
+  DUST_SUMS_ENTRY(dust_drag_sums_##FAMNAME##_f32, float, FAM)               \
+  DUST_SUMS_ENTRY(dust_drag_sums_##FAMNAME##_f64, double, FAM)              \
+  DUST_DEPOSIT_ENTRY(dust_drag_deposit_##FAMNAME##_f32, float, FAM)         \
+  DUST_DEPOSIT_ENTRY(dust_drag_deposit_##FAMNAME##_f64, double, FAM)

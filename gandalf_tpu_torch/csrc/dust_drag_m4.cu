@@ -1,0 +1,5 @@
+// K23 dust_drag_sums and K24 dust_drag_deposit with the M4 kernel,
+// direct and tabulated; dust_drag.cuh holds the kernels and their notes.
+#include "dust_drag.cuh"
+
+DUST_DRAG_FAMILY(m4, kf::kM4)

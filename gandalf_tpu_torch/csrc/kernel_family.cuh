@@ -1,7 +1,9 @@
 // The SPH kernel family for the grad-h grid and tree kernels (K2, K3, K7,
-// K8, K9) and the meshless finite-volume kernels (K10-K12, K7's MFV
-// mode): M4, the quintic spline and the gaussian, each evaluated
-// directly or quantised to the reference's table, chosen at compile time.
+// K8, K9), the meshless finite-volume kernels (K10-K12, K7's MFV mode),
+// the Cullen & Dehnen switch (K21), the gas-dust drag (K23, K24) and
+// Saitoh & Makino SPH (K25, K26): M4, the quintic spline and the
+// gaussian, each evaluated directly or quantised to the reference's
+// table, chosen at compile time.
 //
 // The polynomials are those of gandalf_tpu_torch/kernels/smoothing.py
 // (and gandalf_tpu's), written term by term in the same form, with each
@@ -16,7 +18,8 @@
 //
 // Kernel<T, FAM, TAB> holds the runtime constants (norm, ndim, the table
 // steps) and gives
-//   s functions   w0, w1, womega, wzeta, wgrav, wpot (as smoothing.py);
+//   s functions   w0, w1, womega, wzeta, wgrav, wpot, wdrag (as
+//                 smoothing.py; wdrag = normdrag s^2 w0(s));
 //   s^2 functions w0_s2, womega_s2, wzeta_s2 through density(): the
 //                 three density terms at ssqd, false where all vanish;
 //                 w0_s2 alone for the meshless finite-volume kernels;
@@ -305,7 +308,9 @@ struct Kernel {
   // some three digits near s = 2, so an ulp of s would show at ~2e-5 of
   // W' in float32.  M4 keeps its fused sums, as in earlier versions.
   static constexpr bool kExactD2 = TAB || FAM != kM4;
-  T norm, nd, m2norm, step, step2;
+  // normdrag: the drag kernel's normalisation (kernnormdrag), set for
+  // K23 and K24 only
+  T norm, nd, m2norm, step, step2, normdrag;
 
   __host__ __device__ static constexpr T range() { return T(P::kRange); }
   __host__ __device__ static constexpr T range2() {
@@ -322,6 +327,18 @@ struct Kernel {
   __device__ __forceinline__ T w1(T s) const {
     if (TAB) return s < range() ? P::w1(*this, q(s)) : T(0);
     return P::w1(*this, s);
+  }
+  // the gas-dust drag kernel normdrag s^2 W(s); a table quantises s on
+  // the s grid (TabulatedKernel.wdrag), zero from kernrange on
+  __device__ __forceinline__ T wdrag(T s) const {
+    if (TAB) return s < range() ? drag(q(s)) : T(0);
+    return drag(s);
+  }
+  // the base form: the direct M4's is m4.cuh's m4_wdrag, the others are
+  // ((normdrag s) s) W(s) in rounded steps, as Python evaluates it
+  __device__ __forceinline__ T drag(T s) const {
+    if (FAM == kM4) return m4_wdrag<T>(s, norm, normdrag);
+    return mul(mul(mul(normdrag, s), s), P::w0(*this, s));
   }
   __device__ __forceinline__ T wgrav(T s) const {
     if (TAB) {
@@ -374,10 +391,11 @@ struct Kernel {
 };
 
 // the kernel object of a family on the host: the norm and ndim of the
-// smoothing kernel and, with a table of `res` entries, its steps (in
-// double, then cast, as torch and JAX take a Python float)
+// smoothing kernel, the drag kernel's norm and, with a table of `res`
+// entries, its steps (in double, then cast, as torch and JAX take a
+// Python float)
 template <class K>
-K make_kernel(double norm, int ndim, int res) {
+K make_kernel(double norm, int ndim, int res, double normdrag = 0.0) {
   using T = decltype(K::norm);
   const double range = K::P::kRange;
   K k;
@@ -386,7 +404,20 @@ K make_kernel(double norm, int ndim, int res) {
   k.m2norm = T(-2.0 * norm);
   k.step = T(res > 0 ? range / res : 1.0);
   k.step2 = T(res > 0 ? range * range / res : 1.0);
+  k.normdrag = T(normdrag);
   return k;
+}
+
+// calls f(kernel) with the Kernel<T, FAM, TAB> of family FAM, tabulated
+// where res > 0 (a source built for one family: K23, K24)
+template <typename T, int FAM, typename F>
+bool with_family(int res, double norm, int ndim, F&& f,
+                 double normdrag = 0.0) {
+  if (res > 0)
+    f(make_kernel<Kernel<T, FAM, true>>(norm, ndim, res, normdrag));
+  else
+    f(make_kernel<Kernel<T, FAM, false>>(norm, ndim, res, normdrag));
+  return true;
 }
 
 // calls f(kernel) with the Kernel<T, FAM, TAB> of the runtime family and
@@ -394,29 +425,12 @@ K make_kernel(double norm, int ndim, int res) {
 // family.  The gaussian is left out with kGravity (no softened gravity).
 template <typename T, bool kGravity = false, typename F>
 bool with_kernel(int family, int res, double norm, int ndim, F&& f) {
-  const bool tab = res > 0;
-  if (family == kM4) {
-    if (tab)
-      f(make_kernel<Kernel<T, kM4, true>>(norm, ndim, res));
-    else
-      f(make_kernel<Kernel<T, kM4, false>>(norm, ndim, res));
-    return true;
-  }
-  if (family == kQuintic) {
-    if (tab)
-      f(make_kernel<Kernel<T, kQuintic, true>>(norm, ndim, res));
-    else
-      f(make_kernel<Kernel<T, kQuintic, false>>(norm, ndim, res));
-    return true;
-  }
+  if (family == kM4) return with_family<T, kM4>(res, norm, ndim, f);
+  if (family == kQuintic)
+    return with_family<T, kQuintic>(res, norm, ndim, f);
   if constexpr (!kGravity) {
-    if (family == kGaussian) {
-      if (tab)
-        f(make_kernel<Kernel<T, kGaussian, true>>(norm, ndim, res));
-      else
-        f(make_kernel<Kernel<T, kGaussian, false>>(norm, ndim, res));
-      return true;
-    }
+    if (family == kGaussian)
+      return with_family<T, kGaussian>(res, norm, ndim, f);
   }
   return false;
 }

@@ -30,16 +30,24 @@
 // The operations the data needs are counted in check.FLOPS_PER.
 //
 // Design: one thread per slot of K1's slot map (particle id per slot, -1
-// empty; the dead are binned out), flat over (cell, slot) as K23, NDIM a
-// template parameter, positions shifted by the box length on periodic
-// dims (no ghost copies).  A thread keeps its sums in registers and
-// writes each output once, in particle order, so no atomics; a particle
-// without a slot keeps the wrapper's values.  No shared-memory staging
-// yet: that is later work.
+// empty; the dead are binned out), flat over (cell, slot) as K23, NDIM and
+// the smoothing kernel (M4, quintic or gaussian, direct or tabulated:
+// kernel_family.cuh) template parameters, positions shifted by the box
+// length on periodic dims (no ghost copies).  K25 takes W in its s^2 form
+// at d^2 / h^2 (w0_s2, as compute_h and the q sum do), K26 W' in its s
+// form on both sides, |dr| / h_i with the product by 1/h_i and |dr| / h_j
+// with a division, as sm2012_forces_view rounds them; any kernel but the
+// direct M4 sums d^2 in the plain version's rounded steps (kExactD2), so
+// that a table index is the plain version's.  A thread keeps its sums in
+// registers and writes each output once, in particle order, so no
+// atomics; a particle without a slot keeps the wrapper's values.  No
+// shared-memory staging yet: that is later work.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "grid27.cuh"
-#include "m4.cuh"
+#include "kernel_family.cuh"
 
 namespace {
 
@@ -71,14 +79,14 @@ GridArgs make_grid(int n0, int n1, int n2, int k_cell, int per0, int per1,
 }
 
 // sum over the filled candidates of slot t's cell stencil of
-// m_j [u_j] W(sqrt(d^2 invhsqd)) (times u_j when `with_u`)
-template <typename T, int NDIM, bool kWithU>
+// m_j [u_j] W at s^2 = d^2 invhsqd (times u_j when `with_u`)
+template <typename T, int NDIM, bool kWithU, class KF>
 __device__ __forceinline__ T w0_sum(const int* __restrict__ ids,
                                     const T* __restrict__ r,
                                     const T* __restrict__ m,
                                     const T* __restrict__ u, const Grid3& g,
                                     const int cc[3], const T xi[NDIM],
-                                    T invhsqd, T norm) {
+                                    T invhsqd, const KF& kern) {
   const int K = g.K;
   T sum = T(0);
   for (int d = 0; d < Stencil<NDIM>::kSize; ++d) {
@@ -94,22 +102,25 @@ __device__ __forceinline__ T w0_sum(const int* __restrict__ ids,
       for (int k = 0; k < NDIM; ++k) {
         const T dk = (r[NDIM * static_cast<long long>(q) + k] + sh[k])
                      - xi[k];
-        d2 += dk * dk;
+        if (KF::kExactD2)
+          d2 = kf::add(d2, kf::mul(dk, dk));
+        else
+          d2 += dk * dk;
       }
-      const T s = sqrt(d2 * invhsqd);
-      if (s >= T(2)) continue;  // W is zero there
-      const T w = m4_w0<T>(s, norm);
+      const T ssqd = d2 * invhsqd;
+      if (!kern.in_support_s2(ssqd)) continue;  // W is zero there
+      const T w = kern.w0_s2(ssqd);
       sum += kWithU ? (m[q] * u[q]) * w : m[q] * w;
     }
   }
   return sum;
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __global__ void __launch_bounds__(kThreads) sm2012_density_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ m, const T* __restrict__ u,
-    const T* __restrict__ h, GridArgs A, T norm, T h_fac, T h_converge,
+    const T* __restrict__ h, GridArgs A, KF kern, T h_fac, T h_converge,
     T hmax, T* __restrict__ h_out, T* __restrict__ rho_out,
     T* __restrict__ q_out, T* __restrict__ hfac_out,
     unsigned char* __restrict__ done_out) {
@@ -134,7 +145,7 @@ __global__ void __launch_bounds__(kThreads) sm2012_density_kernel(
     const T invh = T(1) / hh;
     rho = ipow<T, NDIM>(invh)
           * w0_sum<T, NDIM, false>(ids, r, m, u, g, cc, xi, invh * invh,
-                                   norm);
+                                   kern);
     const T h_target = h_fac * pow(m_i / max(rho, T(1e-300)), invndim);
     conv = rho > T(0) && hh > T(0)
            && fabs(hh - h_target) / hh < h_converge;
@@ -155,21 +166,21 @@ __global__ void __launch_bounds__(kThreads) sm2012_density_kernel(
   h_out[p] = h_fin;
   rho_out[p] = rho;
   q_out[p] = hfac * w0_sum<T, NDIM, true>(ids, r, m, u, g, cc, xi,
-                                          invh * invh, norm);
+                                          invh * invh, kern);
   hfac_out[p] = hfac * invh;
   done_out[p] = conv ? 1 : 0;
 }
 
 struct ForceArgs {
-  double norm, gamma, alpha_visc, beta_visc;
+  double gamma, alpha_visc, beta_visc;
   int avisc;
 };
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __global__ void __launch_bounds__(kThreads) sm2012_forces_kernel(
     const int* __restrict__ ids, const T* __restrict__ r,
     const T* __restrict__ v, const T* __restrict__ pk, GridArgs A,
-    ForceArgs F, T* __restrict__ a_out, T* __restrict__ dudt_out,
+    KF kern, ForceArgs F, T* __restrict__ a_out, T* __restrict__ dudt_out,
     T* __restrict__ divv_out) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
@@ -180,7 +191,6 @@ __global__ void __launch_bounds__(kThreads) sm2012_forces_kernel(
   if (p < 0) return;
   int cc[3];
   cell_coords(g, static_cast<int>(t / K), cc);
-  const T norm = T(F.norm);
   const T c_half = T(0.5 * (F.gamma - 1.0));
   const T alpha_visc = T(F.alpha_visc), beta = T(F.beta_visc);
   const T beta_alpha = T(F.beta_visc * F.alpha_visc);
@@ -213,15 +223,19 @@ __global__ void __launch_bounds__(kThreads) sm2012_forces_kernel(
 #pragma unroll
       for (int k = 0; k < NDIM; ++k) {
         dr[k] = (r[NDIM * static_cast<long long>(q) + k] + sh[k]) - xi[k];
-        d2 += dr[k] * dr[k];
+        if (KF::kExactD2)
+          d2 = kf::add(d2, kf::mul(dr[k], dr[k]));
+        else
+          d2 += dr[k] * dr[k];
       }
       if (!(d2 > T(0))) continue;  // itself, or coincident
       const T* nb = pk + kCols * static_cast<long long>(q);
       const T drmag = sqrt(d2);
       const T s_i = drmag * invh_i, s_j = drmag / nb[kH];
-      if (s_i >= T(2) && s_j >= T(2)) continue;  // both W' are zero
-      const T wki = hfac_i * m4_w1<T>(s_i, norm);
-      const T wkj = nb[kHfac] * m4_w1<T>(s_j, norm);
+      // both W' are zero
+      if (!kern.in_support(s_i) && !kern.in_support(s_j)) continue;
+      const T wki = hfac_i * kern.w1(s_i);
+      const T wkj = nb[kHfac] * kern.w1(s_j);
       const T wsum = wki + wkj;
       T unit[NDIM];
       T dvdr = T(0);
@@ -268,9 +282,10 @@ template <typename T>
 int run_density(const int* ids, const T* r, const T* m, const T* u,
                 const T* h, int ndim, int n0, int n1, int n2, int k_cell,
                 int per0, int per1, int per2, double L0, double L1,
-                double L2, double norm, double h_fac, double h_converge,
-                double hmax, T* h_out, T* rho, T* q, T* hfac,
-                unsigned char* done, int device, void* stream_ptr) {
+                double L2, double norm, int family, int res, double h_fac,
+                double h_converge, double hmax, T* h_out, T* rho, T* q,
+                T* hfac, unsigned char* done, int device,
+                void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ndim < 1 || ndim > 3) return static_cast<int>(cudaErrorInvalidValue);
@@ -279,17 +294,22 @@ int run_density(const int* ids, const T* r, const T* m, const T* u,
                                L1, L2);
   if (A.n_cells > 0 && k_cell > 0) {
     const int blocks = blocks_for(A);
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, ndim, [&](const auto& kern) {
+          using KF = std::decay_t<decltype(kern)>;
 #define SM_DENSITY(ND)                                                       \
-  sm2012_density_kernel<T, ND><<<blocks, kThreads, 0, stream>>>(             \
-      ids, r, m, u, h, A, T(norm), T(h_fac), T(h_converge), T(hmax), h_out, \
+  sm2012_density_kernel<T, ND, KF><<<blocks, kThreads, 0, stream>>>(         \
+      ids, r, m, u, h, A, kern, T(h_fac), T(h_converge), T(hmax), h_out,    \
       rho, q, hfac, done)
-    if (ndim == 1)
-      SM_DENSITY(1);
-    else if (ndim == 2)
-      SM_DENSITY(2);
-    else
-      SM_DENSITY(3);
+          if (ndim == 1)
+            SM_DENSITY(1);
+          else if (ndim == 2)
+            SM_DENSITY(2);
+          else
+            SM_DENSITY(3);
 #undef SM_DENSITY
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -298,28 +318,33 @@ template <typename T>
 int run_forces(const int* ids, const T* r, const T* v, const T* pk,
                int ndim, int n0, int n1, int n2, int k_cell, int per0,
                int per1, int per2, double L0, double L1, double L2,
-               double norm, double gamma, int avisc, double alpha_visc,
-               double beta_visc, T* a, T* dudt, T* divv, int device,
-               void* stream_ptr) {
+               double norm, int family, int res, double gamma, int avisc,
+               double alpha_visc, double beta_visc, T* a, T* dudt, T* divv,
+               int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ndim < 1 || ndim > 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const GridArgs A = make_grid(n0, n1, n2, k_cell, per0, per1, per2, L0,
                                L1, L2);
-  const ForceArgs F = {norm, gamma, alpha_visc, beta_visc, avisc};
+  const ForceArgs F = {gamma, alpha_visc, beta_visc, avisc};
   if (A.n_cells > 0 && k_cell > 0) {
     const int blocks = blocks_for(A);
+    const bool known = kf::with_kernel<T>(
+        family, res, norm, ndim, [&](const auto& kern) {
+          using KF = std::decay_t<decltype(kern)>;
 #define SM_FORCES(ND)                                                 \
-  sm2012_forces_kernel<T, ND><<<blocks, kThreads, 0, stream>>>(       \
-      ids, r, v, pk, A, F, a, dudt, divv)
-    if (ndim == 1)
-      SM_FORCES(1);
-    else if (ndim == 2)
-      SM_FORCES(2);
-    else
-      SM_FORCES(3);
+  sm2012_forces_kernel<T, ND, KF><<<blocks, kThreads, 0, stream>>>(   \
+      ids, r, v, pk, A, kern, F, a, dudt, divv)
+          if (ndim == 1)
+            SM_FORCES(1);
+          else if (ndim == 2)
+            SM_FORCES(2);
+          else
+            SM_FORCES(3);
 #undef SM_FORCES
+        });
+    if (!known) return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -332,24 +357,26 @@ extern "C" {
   int NAME(const int* ids, const T* r, const T* m, const T* u, const T* h,  \
            int ndim, int n0, int n1, int n2, int k_cell, int per0,          \
            int per1, int per2, double L0, double L1, double L2,             \
-           double norm, double h_fac, double h_converge, double hmax,       \
-           T* h_out, T* rho, T* q, T* hfac, unsigned char* done,            \
-           int device, void* stream) {                                      \
+           double norm, int family, int res, double h_fac,                  \
+           double h_converge, double hmax, T* h_out, T* rho, T* q, T* hfac, \
+           unsigned char* done, int device, void* stream) {                 \
     return run_density<T>(ids, r, m, u, h, ndim, n0, n1, n2, k_cell, per0,  \
-                          per1, per2, L0, L1, L2, norm, h_fac, h_converge,  \
-                          hmax, h_out, rho, q, hfac, done, device, stream); \
+                          per1, per2, L0, L1, L2, norm, family, res, h_fac, \
+                          h_converge, hmax, h_out, rho, q, hfac, done,      \
+                          device, stream);                                  \
   }
 
 #define SM2012_FORCES_ENTRY(NAME, T)                                        \
   int NAME(const int* ids, const T* r, const T* v, const T* pk, int ndim,   \
            int n0, int n1, int n2, int k_cell, int per0, int per1,          \
            int per2, double L0, double L1, double L2, double norm,          \
-           double gamma, int avisc, double alpha_visc, double beta_visc,    \
-           T* a, T* dudt, T* divv, int device, void* stream) {              \
+           int family, int res, double gamma, int avisc, double alpha_visc, \
+           double beta_visc, T* a, T* dudt, T* divv, int device,            \
+           void* stream) {                                                  \
     return run_forces<T>(ids, r, v, pk, ndim, n0, n1, n2, k_cell, per0,     \
-                         per1, per2, L0, L1, L2, norm, gamma, avisc,        \
-                         alpha_visc, beta_visc, a, dudt, divv, device,      \
-                         stream);                                           \
+                         per1, per2, L0, L1, L2, norm, family, res, gamma,  \
+                         avisc, alpha_visc, beta_visc, a, dudt, divv,       \
+                         device, stream);                                   \
   }
 
 SM2012_DENSITY_ENTRY(sm2012_density_f32, float)

@@ -33,8 +33,11 @@ weight is the same seen from either side).  Every output is written
 once.
 
 Each kernel has a plain PyTorch version here (the JAX package's
-per-row view, over chunks of target rows) and a CUDA C++ kernel in
-``csrc/dust_drag.cu``, launched through ``_ext``.  A CPU tensor takes the
+per-row view, over chunks of target rows, with d^2 summed in the CUDA
+kernels' order) and a CUDA C++ kernel in ``csrc/dust_drag.cuh`` (one
+source per smoothing-kernel family, ``csrc/dust_drag_<family>.cu``),
+launched through ``_ext``.  Both take any kernel of the family (M4, the
+quintic, the gaussian, direct or tabulated).  A CPU tensor takes the
 plain version; a CUDA tensor takes the kernel, or the wrapper raises.
 """
 
@@ -49,6 +52,7 @@ from .. import _ext
 from ..state import DUST_TYPE, GAS_TYPE
 from . import sph_grid27 as g27
 from .active_grid import dense_ids
+from .mfv import _dist2
 
 Tensor = torch.Tensor
 
@@ -139,9 +143,21 @@ def _chunks(spec: g27.Grid27Spec, n: int, device):
     return range(0, n, step), step
 
 
+def _invh(h_gas: Tensor) -> Tensor:
+    return 1.0 / torch.clamp_min(h_gas, 1e-30)
+
+
 def _wraw(kern, nd: int, h_gas: Tensor, drmag: Tensor) -> Tensor:
-    invh = 1.0 / torch.clamp_min(h_gas, 1e-30)
+    """invh^ndim wdrag(|dr| invh) with the gas side's h (any kernel of
+    the family; a table quantises s = |dr| invh on its s grid)."""
+    invh = _invh(h_gas)
     return (invh ** nd) * kern.wdrag(drmag * invh)
+
+
+def _in_support(kern, h_gas: Tensor, drmag: Tensor) -> Tensor:
+    """Whether wdrag can be non-zero at the pair: s = |dr| invh, formed
+    as _wraw forms it, below kernrange."""
+    return drmag * _invh(h_gas) < kern.kernrange
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +205,7 @@ def drag_sums_plain(kern, law: DragLaw, spec: g27.Grid27Spec, ids_d,
         gas_i = ptype[pi] == GAS_TYPE
         dust_i = ptype[pi] == DUST_TYPE
         drij = -dr                                      # r_i - r_j
-        drsqd = torch.sum(drij * drij, dim=-1)
+        drsqd = _dist2(drij)
         pair = ((gas_i & (ptype[cid] == DUST_TYPE))
                 | (dust_i & (ptype[cid] == GAS_TYPE))) & (drsqd > 0.0)
         row, pi, cid, drij, drsqd = (x[pair] for x in
@@ -212,7 +228,7 @@ def drag_sums_plain(kern, law: DragLaw, spec: g27.Grid27Spec, ids_d,
         divv_out[p] = pmax(dvmag) / torch.clamp_min(h[p], 1e-30)
         # beyond the drag kernel's support a pair adds exactly zero: the
         # rest runs on the pairs inside it
-        inside = drmag / torch.clamp_min(h_gas, 1e-30) < kern.kernrange
+        inside = _in_support(kern, h_gas, drmag)
         row, pi, cid, drij, drmag, h_gas, gsound, dv, gas_i, dt_i = (
             x[inside] for x in (row, pi, cid, drij, drmag, h_gas, gsound,
                                 dv, gas_i, dt_i))
@@ -285,12 +301,12 @@ def drag_deposit_plain(kern, spec: g27.Grid27Spec, ids_d, n_targets, r,
     for c0 in starts:
         p, cell = p_all[c0:c0 + step], cell_all[c0:c0 + step]
         row, cid, dr = _candidate_pairs(spec, table, ids_d, r, p, cell)
-        drsqd = torch.sum(dr * dr, dim=-1)
+        drsqd = _dist2(dr)
         drmag = torch.sqrt(torch.where(drsqd > 0, drsqd, 1.0))
         h_i = h[p[row]]
         # beyond the drag kernel's support a pair adds exactly zero
         keep = ((ptype[cid] == DUST_TYPE) & (drsqd > 0.0)
-                & (drmag / torch.clamp_min(h_i, 1e-30) < kern.kernrange))
+                & _in_support(kern, h_i, drmag))
         row, cid, drmag, h_i = (x[keep] for x in (row, cid, drmag, h_i))
         dep = torch.zeros((p.numel(),), dtype=r.dtype, device=dev
                           ).index_add_(0, row, _wraw(kern, nd, h_i, drmag)

@@ -17,7 +17,9 @@ sums rr, dvw and daw over the 3^ndim-cell stencil of the alive
 particles (K1 with the dead binned out, no mirror images), then the
 shared finale ``_cd2010_finalize``.  It launches K21
 (``csrc/cullen_dehnen.cu``) on CUDA tensors and runs its plain version
-``cullen_dehnen_sums_plain`` on CPU tensors.  ``cullen_dehnen_alpha``,
+``cullen_dehnen_sums_plain`` on CPU tensors; both take any smoothing
+kernel of the family (M4, the quintic, the gaussian, direct or
+tabulated) and cut the sums at its kernrange.  ``cullen_dehnen_alpha``,
 the JAX package's all-pairs form, is kept as a torch oracle for the
 tests only (ROADMAP's "Not to port" rule for brute-force paths).
 """
@@ -240,7 +242,9 @@ def cullen_dehnen_sums_plain(kern, visc: ArtificialViscosity, spec, ids_d,
     """Plain version of K21: the JAX sums over a list of the slot map's
     pairs within kernrange times the largest h (beyond, W' = 0 and a
     pair adds exactly zero), with the particle itself and coincident
-    partners dropped, then _cd2010_terms."""
+    partners dropped, then _cd2010_terms.  The pair list sums d^2 in the
+    CUDA kernel's order, so that s = |dr| / h_i, and a table index, are
+    the kernel's."""
     from . import mfv_grid27 as mg
 
     N, nd = r.shape

@@ -26,9 +26,12 @@ K25 and K26 over the 3^ndim cells around each slot, as K21-K23 do; the
 JAX package gathers an (N, 3^ndim K) candidate block instead
 (``gather_active_candidates``).  Each kernel has a plain PyTorch version
 here (the JAX package's candidate gather and view formulas, over chunks
-of rows) and a CUDA C++ kernel in ``csrc/sm2012.cu``, launched through
-``_ext``.  A CPU tensor takes the plain version; a CUDA tensor takes the
-kernel, or the wrapper raises.
+of rows, with d^2 summed in the CUDA kernels' order) and a CUDA C++
+kernel in ``csrc/sm2012.cu``, launched through ``_ext``; both take any
+smoothing kernel of the family (M4, the quintic, the gaussian, direct
+or tabulated: W in its s^2 form for the h-rho iteration and q, W' in
+its s form for the forces).  A CPU tensor takes the plain version; a
+CUDA tensor takes the kernel, or the wrapper raises.
 
 ``sm2012_density_pairs`` and ``sm2012_forces_pairs`` are the JAX
 package's all-pairs forms, kept as torch oracles for the tests only
@@ -48,6 +51,7 @@ from .active_grid import _compact_columns, _row_chunk, dense_ids
 from .active_grid import gather_active_candidates
 from .density import compute_h, iterate_h
 from .forces import AVISC_MON97MM97, AVISC_NONE
+from .mfv import _dist2
 
 Tensor = torch.Tensor
 
@@ -123,8 +127,9 @@ def sm2012_forces_view(kern, visc, gamma: float, v: Tensor, u: Tensor,
     r_j - r_i (n, c, ndim), nb holds v (n, c, ndim) and m, u, h, rho, q,
     hfactor, sound, alpha (n, c) (gandalf_tpu's sm2012_forces_view).  A
     pair counts where `mask` holds and d^2 > 0, which drops each row's
-    own column and coincident particles."""
-    drsqd = torch.sum(dr * dr, dim=-1)
+    own column and coincident particles.  d^2 is summed in the CUDA
+    kernels' order (_dist2)."""
+    drsqd = _dist2(dr)
     valid = drsqd > 0.0
     if mask is not None:
         valid = valid & mask
@@ -227,7 +232,7 @@ def sm2012_density_plain(kern, spec, h_fac, h_converge, hmax, ids_d, r, m,
         cid = torch.clamp_min(cand, 0)
         m_j = torch.where(mask, m[cid], 0.0)
         u_j = torch.where(mask, u[cid], 0.0)
-        d2 = torch.sum(dr * dr, dim=-1)
+        d2 = _dist2(dr)
         h_bound = max(float(h[sel].max()), hmax)
         near = mask & (d2 <= (kern.kernrange * h_bound) ** 2
                        * (1.0 + 1e-6))
@@ -285,7 +290,7 @@ def sm2012_forces_plain(kern, visc, gamma, spec, ids_d, r, v, packed):
         cid = torch.clamp_min(cand, 0)
         h_i = packed[sel, col["h"]]
         h_j = torch.where(mask, packed[cid, col["h"]], 1.0)
-        d2 = torch.sum(dr * dr, dim=-1)
+        d2 = _dist2(dr)
         rad = kern.kernrange * torch.maximum(h_i[:, None], h_j)
         within = mask & (d2 <= rad * rad * (1.0 + 1e-6))
         mask, cid, dr = _compact_columns(within, cid, dr)

@@ -12,9 +12,9 @@ controller is in ``sim/mfv_sim.py``, the N-body one in ``sim/nbody_sim.py``.
 ``GradhSphSimulation`` is the counterpart of gandalf_tpu's
 ``GradhSphSimulation`` for one configuration: grad-h SPH with the M4,
 quintic or gaussian kernel, direct or tabulated (the quintic, gaussian
-and tabulated kernels through K2, K3, K7-K9 only, so not with sinks,
-stars, dust, cd2010 or SM2012; the gaussian not with self-gravity:
-fault F23), the adiabatic, isothermal, barotropic, polytropic or radws EOS
+and tabulated kernels through K2, K3, K7-K9, K21 and K23-K26, so not
+with sinks or stars, whose K14, K16, K18 and K20 hold M4 only; the
+gaussian not with self-gravity: fault F23), the adiabatic, isothermal, barotropic, polytropic or radws EOS
 (the opacity table's gamma, K27; with energy_integration = radws u
 relaxes each step toward the radiative equilibrium that K28 finds at
 the previous step's end, instead of integrating du/dt, and with rad_fb
@@ -850,8 +850,6 @@ class GradhSphSimulation(SimulationBase):
         self._common_parameters()
         self.visc = ArtificialViscosity.from_params(p)
         self.td_avisc_type = sp["time_dependent_avisc"]
-        if self.td_avisc_type == "cd2010":
-            require_m4(self.kern, "cd2010 viscosity (K21)")
         # external analytic potentials (gandalf_tpu/sim/simulation.py:
         # 957-965)
         self.extpot = sp["external_potential"]
@@ -903,7 +901,6 @@ class GradhSphSimulation(SimulationBase):
                 raise ValueError(f"unknown dust_forces {self.dust_forces!r}")
             if self.sink_cfg.create or self.sink_cfg.accrete:
                 raise self._dust_with_sinks()
-            require_m4(self.kern, "gas-dust drag (K23, K24)")
             self.drag_law = DragLaw.from_params(p)
 
     def _radfb_parameters(self):
@@ -1743,7 +1740,6 @@ class SM2012SphSimulation(GradhSphSimulation):
             raise _unsupported(
                 "dust in SM2012 (the JAX package runs gas and dust through "
                 "one untyped SM2012 pass: fault F18)", "item 9")
-        require_m4(self.kern, "SM2012 SPH (K25, K26)")
 
     def _check_compacted_tick(self):
         """The JAX package's compacted block tick calls the grad-h

@@ -789,6 +789,56 @@ def test_dust_wrappers_refuse_cpu_tensors():
     assert _ext.LAUNCHES == before
 
 
+@pytest.mark.parametrize("variant", ["quintic", "gaussian", "m4_tab",
+                                     "quintic_tab", "gaussian_tab"])
+@pytest.mark.parametrize("ndim", [1, 3])
+def test_grid_family_wrappers_refuse_cpu_tensors(variant, ndim):
+    """K21, K23, K24, K25 and K26 with every variant of the kernel family
+    (the arguments their kernels take: norm, family, table resolution and
+    for K23, K24 normdrag): CPU tensors raise and count no launch, under
+    the M4 name or the variant's; no wrapper refuses the kernel."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.kernels.smoothing import VARIANTS, kernel_factory
+    from gandalf_tpu_torch.ops.dust import DragLaw
+    from gandalf_tpu_torch.ops.forces import ArtificialViscosity
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
+
+    kern = kernel_factory(VARIANTS[variant][0], ndim, VARIANTS[variant][1])
+    assert _ext._family_args(kern)[1:] == (
+        _ext.FAMILIES[kern.name], kern.table_res)
+    f64 = dict(dtype=torch.float64)
+    n = 32
+    spec = Grid27Spec(ndim, (2,) * ndim, (0.0,) * ndim, (1.0,) * ndim, 8,
+                      (True,) * ndim)
+    ids = torch.full((2,) * ndim + (8,), -1, dtype=torch.int32)
+    r, v = torch.rand((n, ndim), **f64), torch.rand((n, ndim), **f64)
+    m = torch.rand((n,), **f64)
+    visc = ArtificialViscosity()
+    pt = torch.zeros((n,), dtype=torch.int32)
+    before = dict(_ext.LAUNCHES)
+    for call in (
+            lambda: _ext.cullen_dehnen(spec, kern, visc, ids, r,
+                                       torch.rand((n, 2 * ndim + 5), **f64)),
+            lambda: _ext.dust_drag_sums(spec, kern, DragLaw(), False, ids, n,
+                                        r, torch.rand((n, 3 * ndim), **f64),
+                                        torch.rand((n, 4), **f64), pt, m),
+            lambda: _ext.dust_drag_deposit(spec, kern, ids, n, r,
+                                           torch.rand((n, 4), **f64), pt, m,
+                                           m),
+            lambda: _ext.sm2012_density(spec, kern, 1.2, 0.01, 1.0, ids, r,
+                                        m, m, m),
+            lambda: _ext.sm2012_forces(spec, kern, visc, 1.4, ids, r, v,
+                                       torch.rand((n, 8), **f64))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before
+    for name in ("cullen_dehnen", "sm2012_density", "sm2012_forces"):
+        assert _ext._grid_count(name, spec, kern) in _ext.LAUNCHES
+    for name in ("dust_drag_sums", "dust_drag_deposit"):
+        assert _ext.family_count(name, kern) == f"{name}_{variant}"
+        assert f"{name}_{kern.name}" in _ext._ARGTYPES
+
+
 def test_sink_wrappers_refuse_cpu_tensors():
     """K16-K18 and K4 with its alive input: CPU tensors raise and count
     no launch; the plain versions run only through ops.sph_gravity's,
@@ -1111,6 +1161,27 @@ def test_mfv_family_kernels_match_plain_versions_on_gpu(variant, ndim,
     from gandalf_tpu_torch.check import compare_mfv_family_kernels
 
     report = compare_mfv_family_kernels(variant, ndim, "cuda", dtype)
+    bad = {k: r.get("scaled_err", r) for k, r in report.items()
+           if not r["ok"]}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("variant", ["quintic", "gaussian", "m4_tab",
+                                     "quintic_tab", "gaussian_tab"])
+def test_grid_family_kernels_match_plain_versions_on_gpu(variant, ndim,
+                                                         dtype):
+    """K21, K23 (every law, two-fluid and test-particle), K24, K25 and
+    K26 with each variant against their plain versions on the card,
+    float64 within check.TOL_F64_FAMILY (check.compare_grid_family_kernels,
+    chip_smoke.py's grid_family_kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import compare_grid_family_kernels
+
+    report = compare_grid_family_kernels(variant, ndim, "cuda", dtype)
     bad = {k: r.get("scaled_err", r) for k, r in report.items()
            if not r["ok"]}
     assert not bad, bad

@@ -352,18 +352,26 @@ REFUSED = {"mfv": _mfv, "nbody": lambda: nbody_params(16),
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_non_m4_kernels_refused_where_kernels_hold_m4(case, variant):
     """A kernel other than the direct M4 where the port's kernels hold
-    M4 only: refused before setup, naming ROADMAP queue 1, item 9.  The
-    meshless finite-volume kernels take the whole family: there the
+    M4 only (N-body, sinks and stars: K14, K16, K18, K20): refused before
+    setup, naming ROADMAP queue 1, item 9.  The meshless finite-volume
+    kernels, the Cullen & Dehnen switch (K21), the gas-dust drag (K23,
+    K24) and SM2012 (K25, K26) take the whole family: there the
     controller sets up and steps with the variant."""
     p = family_params(variant, REFUSED[case]())
-    if case != "mfv":
+    if case in ("nbody", "sinks"):
         _refused(p, "item 9")
         return
     sim = SimulationBase.factory(p, "cpu", torch.float64)
     sim.SetupSimulation()
     sim.main_loop_step()
     assert sim.kern.variant == variant
-    assert torch.isfinite(sim.state.Qcons0).all()
+    if case == "mfv":
+        assert torch.isfinite(sim.state.Qcons0).all()
+    else:
+        s = sim.state
+        for f in ("r", "v", "u", "h", "rho", "alpha"):
+            assert torch.isfinite(getattr(s, f)).all(), f
+        assert sim.Nsteps == 1
 
 
 def test_stars_in_the_ic_refused_with_quintic():

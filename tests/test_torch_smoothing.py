@@ -111,16 +111,6 @@ def _m4_only_wrappers():
             *[None] * 13, 1.0, 1.0, 0.01, 0.01, 0.01, kern=k),
         "smooth_accretion_apply": lambda k: _ext.smooth_accretion_apply(
             *[None] * 13, kern=k),
-        "cullen_dehnen": lambda k: _ext.cullen_dehnen(None, k, None, None,
-                                                      None, None),
-        "dust_drag_sums": lambda k: _ext.dust_drag_sums(
-            None, k, None, False, None, 0, None, None, None, None, None),
-        "dust_drag_deposit": lambda k: _ext.dust_drag_deposit(
-            None, k, None, 0, None, None, None, None, None),
-        "sm2012_density": lambda k: _ext.sm2012_density(
-            None, k, 1.2, 0.01, 1.0, None, None, None, None, None),
-        "sm2012_forces": lambda k: _ext.sm2012_forces(
-            None, k, None, 1.4, None, None, None, None),
     }
 
 
@@ -164,10 +154,11 @@ def _mfv_plain_outputs(name, tab):
                                       ("m4", 1)])
 def test_unported_kernels_raise(name, tab):
     """The kernel factory builds the quintic, the gaussian and the
-    tabulated M4, which the grad-h grid and tree kernels and the
-    meshless finite-volume kernels (K10-K12, K7's MFV mode) run: their
-    plain versions return finite results.  Every kernel that evaluates W
-    with M4 only (N-body, sinks, cd2010, dust, SM2012) refuses them,
+    tabulated M4, which the grad-h grid and tree kernels, the meshless
+    finite-volume kernels (K10-K12, K7's MFV mode), cd2010 (K21), the
+    drag (K23, K24) and SM2012 (K25, K26) run: the MFV plain versions
+    return finite results.  Every kernel that evaluates W with M4 only
+    (N-body and the sink kernels K14, K16, K18, K20) refuses them,
     naming ROADMAP queue 1, item 9, and K7 refuses the gaussian (no
     softened gravity, fault F23)."""
     from gandalf_tpu_torch import _ext

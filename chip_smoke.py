@@ -22,8 +22,9 @@ block steps, 2D binary accretion), radiation and radiative feedback in
 1D and 2D (K30 and K34-K37 at NDIM 1 and 2, the 2D HII region under each
 scheme, the 2D sink disc with radiative feedback), the command line
 with its snapshots and restarts, the smoothing-kernel family in MFV and
-in cd2010 viscosity, the gas-dust drag and SM2012 (K21, K23-K26), and
-checks them, in phases, each printing one line:
+in cd2010 viscosity, the gas-dust drag and SM2012 (K21, K23-K26) and
+in sinks, stars and softened N-body (K14, K16, K20), and checks them,
+in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
@@ -95,7 +96,7 @@ checks them, in phases, each printing one line:
 20. tree_option_kernels: K6 with the gadget2 and eigenmac MACs and K6 and
    K7 with the fast monopole and quadrupole the same way on the
    self-gravitating box, each also over a group list;
-21. ewald_parity: 5 float64 steps at 16^3 of the Jeans box, the slab,
+21. ewald_parity: 3 float64 steps at 16^3 of the Jeans box, the slab,
    the cylinder and the MFV box with the Ewald sum, kernels on the card
    against the plain path on the CPU, with equal tree plans;
 22. ewald_main_path: ewald_jeans_box (check.jeans_params) at 64^3 in
@@ -170,10 +171,10 @@ checks them, in phases, each printing one line:
    timed at the 64^3 box; K22 on the boxes at 16^3 and 32^3 (random
    levels, 5% dead) and on cold_sphere_block;
 36. block_sink_parity: float64 on the card against the plain path on the
-   CPU: 12 ticks of the hybrid Plummer sphere of sink_parity (512 gas,
+   CPU: 6 ticks of the hybrid Plummer sphere of sink_parity (512 gas,
    16 stars) with Nlevels 3, level_diff_max 1, smooth accretion and mm97
    (equal levels, nlast, alive gas, sink masses and tree plans on every
-   tick), and 6 global steps of sink_parity's Boss-Bodenheimer cloud
+   tick), and 4 global steps of sink_parity's Boss-Bodenheimer cloud
    with cd2010 and smooth accretion;
 37. bb_block_collapse: check.bb_block_params at about 262,144 particles
    in float32 (Nlevels 5, level_diff_max 2, smooth accretion, mm97,
@@ -199,9 +200,9 @@ checks them, in phases, each printing one line:
    of tests/test_grid_mirror.py and the 1D mirror column, each at 4,096
    and at 32,768 particles; timed at 32,768 in 3D in float32;
 41. dust_parity: float64 on the card against the plain path on the CPU,
-   with equal grid and tree plans: 10 steps of the 1D dusty box periodic
-   and between mirror walls, 5 steps of the 1,824-particle dusty Evrard
-   cloud with tree gravity, two-fluid then test-particle, and 12 dense
+   with equal grid and tree plans: 5 steps of the 1D dusty box periodic
+   and between mirror walls, 3 steps of the 1,824-particle dusty Evrard
+   cloud with tree gravity, two-fluid then test-particle, and 6 dense
    block ticks of it with Nlevels 3 and equal levels on every tick;
 42. dustybox_path: the 1D dusty box of tests/test_dust.py in float64 on
    the grid path, two-fluid to t = 1 (:58-66's gates) and test-particle
@@ -262,7 +263,7 @@ checks them, in phases, each printing one line:
    K9, the group-list K6/K7, K27, K28), 32 timed ticks, the same gates;
 53. radfb_cluster: the hybrid Plummer sphere of 262,144 gas particles and
    4 stars on radws with radiative feedback (sink, ambient and disc
-   heating), 32 timed steps with K1-K7, K14, K16, K18, K27, K28 and K30
+   heating), 8 timed steps with K1-K7, K14, K16, K18, K27, K28 and K30
    every step, the mass, T_amb >= temp_ambient; then K30 against its
    plain version at the path's state;
 54. radws_mfv_box: mfv_box at 64^3 on radws, 32 timed steps with K1,
@@ -281,7 +282,7 @@ checks them, in phases, each printing one line:
    tabulated kernels' pairs near a table point counted;
 57. family_parity: float64 on the card against the plain path on the
    CPU with equal grid and tree plans: 3 steps of the 8^3 box with each
-   variant (tree gravity but with the gaussian) and 6 ticks of the block
+   variant (tree gravity but with the gaussian) and 3 ticks of the block
    sphere (1,000) with the quintic, with equal levels;
 58. quintic_gravity_box: gravity_main_path's box at 64^3 in float32
    with the quintic: 2 + 2 warm-up steps around the replan, 32 timed
@@ -513,7 +514,33 @@ checks them, in phases, each printing one line:
     key, the rates beside the M4 runs';
 112. dusty_evrard_tab: dusty_evrard (check.dust_params(131072)) with the
     tabulated M4, 8 timed steps, dusty_evrard's gates, K23 and K24 under
-    their _m4_tab keys every step.
+    their _m4_tab keys every step;
+113. sink_family_kernels: K14 (with and without the jerk), K16 and K20
+    with the tabulated M4, the quintic and the tabulated quintic at ndim
+    1-3 against their plain versions on the card
+    (check.compare_sink_family_kernels: 4,096 gas with 16 and with 64
+    slots, pairs either side of kernrange and of table points, K14 on
+    the gas as stars and on a Plummer cluster), float64 within 1e-12 and
+    float32 within check.py's tolerances; K16 and K20 timed at the
+    embedded cluster (262,144 gas, 4,096 slots, float32) and K14 at
+    65,536 Plummer stars (float64) with each variant; the gaussian,
+    direct and tabulated, refused by the three wrappers (fault F23);
+114. sink_family_parity: float64 on the card against the CPU path: the
+    random Boss-Bodenheimer cloud (1,000, 6 steps) with the tabulated
+    M4, the hybrid Plummer sphere (512 + 16 stars) with the tabulated
+    quintic, the 2D sink disc (384, Nlevels 3, smooth accretion, 8
+    ticks) with the quintic and softened hermite4 plummer_cluster
+    (1,024 stars, 10 steps) with the tabulated M4: equal sinks, eaten
+    gas, plans and levels, every field within 1e-9;
+115. bb_sink_collapse_tab: bb_sink_collapse at full width (258,135 live
+    particles, float32, 32 timed steps) with the tabulated M4: its gates
+    and no launch under an M4 key of K2, K3, K7, K14 or K16;
+116. sink_block_disc_2d_quintic: sink_block_disc_2d at full width with
+    the quintic: its gates, no M4 launch, and the energy drift of the gas
+    and the slots within 2e-2 (fault F24, as quintic_block's); K14, K16
+    and K20 at 2D with the quintic compared at its state;
+117. plummer_cluster_tab: nbody_main_path (65,536 stars, float64,
+    hermite4, softened) with the tabulated M4, its energy gate.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -560,7 +587,10 @@ the quintic from mfv_quintic_box, with the tabulated quintic (K12's
 block mode) from mfv_family_block's sphere and in 2D with the gaussian
 from its KHI, K25 and K26 in 2D with the quintic and K21 in 2D with the
 gaussian from family_khi_2d, K23 and K24 with the tabulated M4 from
-dusty_evrard_tab, each counted
+dusty_evrard_tab, K16 with the tabulated M4 from bb_sink_collapse_tab
+and K14 with it from plummer_cluster_tab (their times from
+sink_family_kernels' rows at those shapes), K14, K16 and K20 in 2D with
+the quintic from sink_block_disc_2d_quintic, each counted
 over its path's timed window (the tubes' over their whole block runs)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -648,6 +678,9 @@ NBODY_TS6_STEPS_TIMED = 8
 # the periodic self-gravity slice: ewald_jeans_box (check.jeans_params)
 EWALD_SIZES = (16, 32)
 EWALD_PARITY_N = 16
+# 3 steps, a rebuild after the second (PARITY_STEPS, 5, until PR 24: the
+# CPU path's Ewald walk took the phase to 116 s on a slow host)
+EWALD_PARITY_STEPS = 3
 EWALD_STEPS_TIMED = 32
 # the gate of the periodic tree's rms|da|/rms|a| against the periodic
 # direct sum (min-imaged, kernel-softened, each pair's Ewald correction
@@ -708,8 +741,9 @@ MIRROR_STEPS_TIMED = 16
 TD_SMOOTH_SIZES = ((4096, 16), (4096, 64))
 TD_CLUSTER = (262144, 4096)
 TD_BOX_SIDES = (16, 32)
-BLOCK_SINK_PARITY_TICKS = 12
-BB_CD_PARITY_STEPS = 6
+# 12 and 6 until PR 24 (as DUST_PARITY_*)
+BLOCK_SINK_PARITY_TICKS = 6
+BB_CD_PARITY_STEPS = 4
 BB_BLOCK_TICKS_WARM = 4
 BB_BLOCK_TICKS_TIMED = 32
 KHI_CD_STEPS_WARM = 2
@@ -725,10 +759,12 @@ TD_SOD_L1 = 0.02
 DUST_KERNEL_SIZES = (4096, 32768)
 DUST_LAWS = (("fixed", 2.0), ("density", 1.0), ("epstein", 1.5),
              ("lp12", 3.0))
-DUST_PARITY_BOX_STEPS = 10
+# the parity runs' depth: 10, 5 and 12 until PR 24 (the CPU path's
+# seconds on a slow host took the script past its time limit)
+DUST_PARITY_BOX_STEPS = 5
 DUST_PARITY_EVRARD = 1000
-DUST_PARITY_STEPS = 5
-DUST_PARITY_TICKS = 12
+DUST_PARITY_STEPS = 3
+DUST_PARITY_TICKS = 6
 # tests/test_dust.py:58-66 (two-fluid, t = 1: each species' mean v_x
 # within 2e-3 of the analytic relaxation, momentum within 1e-12, energy
 # within 1e-5) and :135-143 (test particles, t = 0.8: gas within 1e-3 of
@@ -772,9 +808,9 @@ RADWS_BLOCK_WARM = 2
 RADWS_BLOCK_TICKS = 32
 RADFB_N = 262144
 # the radiative-feedback cluster's timed steps: each takes about 1 s on
-# the host, and 16 (32 until phases 105-108 came) leave the script room
-# under its time limit
-RADFB_STEPS_TIMED = 16
+# the host, and 8 (32 until phases 105-108 came, 16 until phases
+# 113-117) leave the script room under its time limit
+RADFB_STEPS_TIMED = 8
 RADWS_PARITY_N = 8
 # the quintic, gaussian and tabulated kernels (phases 56-62): the
 # variants of the grid path's K2, K3, K7-K9 beside the direct M4, the
@@ -784,7 +820,7 @@ RADWS_PARITY_N = 8
 FAMILY_VARIANTS = ("quintic", "gaussian", "m4_tab", "quintic_tab")
 FAMILY_PARITY_N = 8
 FAMILY_PARITY_STEPS = 3
-FAMILY_BLOCK_TICKS = 6
+FAMILY_BLOCK_TICKS = 3
 TAB_QUINTIC_STEPS = 8
 SOUNDWAVE_L1_GATE = 1e-4
 QUINTIC_BLOCK_WARM = 4
@@ -970,6 +1006,24 @@ FAMILY_KHI_CD2010_VARIANT = "gaussian"
 FAMILY_KHI_STEPS = 16
 DUSTY_EVRARD_TAB_VARIANT = "m4_tab"
 DUSTY_EVRARD_TAB_STEPS = 8
+# 113-117. the kernel family in sinks, stars and softened N-body (K14,
+# K16, K20): every variant with softened gravity against the plain
+# versions (check.SINK_FAMILY_VARIANTS at check.SINK_FAMILY_SIZES), the
+# timed rows' sizes (K16 and K20 at the embedded cluster, K14 at
+# plummer_cluster's stars), the parity runs (as sink_parity's and
+# nbody_parity's, and the 2D disc of 384 with Nlevels 3 and smooth
+# accretion, its dense ticks) and the variants of the full-width runs
+SINK_FAMILY_TIMED_STARS = NBODY_N
+SINK_FAMILY_PARITY_DISC = 384
+SINK_FAMILY_PARITY_TICKS = 8
+BB_TAB_VARIANT = "m4_tab"
+SINK_DISC_QUINTIC_VARIANT = "quintic"
+PLUMMER_TAB_VARIANT = "m4_tab"
+# the quintic sink disc's energy gate (sink_block_disc_2d has none: its
+# energy is recorded beside it).  F24's wrong quintic wzeta (copied for
+# parity) spoils the grad-h gravity correction, as in quintic_block: the
+# gate is QUINTIC_BLOCK_ENERGY_DRIFT_TOL.
+SINK_DISC_QUINTIC_ENERGY_TOL = QUINTIC_BLOCK_ENERGY_DRIFT_TOL
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -1226,6 +1280,27 @@ SOURCES.update({
         "gandalf_tpu_torch/csrc/dust_drag.cuh",
         "gandalf_tpu/ops/dust.py:255"),
 })
+# K14, K16 and K20 with the family on their main paths: K16 with the
+# tabulated M4 from bb_sink_collapse_tab, K14 with it from
+# plummer_cluster_tab, K14, K16 and K20 (2D) with the quintic from
+# sink_block_disc_2d_quintic; the JAX functions' kernel evaluations they
+# replace
+SOURCES.update({
+    f"star_gas_forces_{BB_TAB_VARIANT}": (
+        "gandalf_tpu_torch/csrc/star_gas.cu",
+        "gandalf_tpu/ops/sph_gravity.py:53"),
+    f"direct_softened_{PLUMMER_TAB_VARIANT}": (
+        "gandalf_tpu_torch/csrc/nbody_direct.cu",
+        "gandalf_tpu/ops/gravity.py:103"),
+    f"direct_softened_{SINK_DISC_QUINTIC_VARIANT}_2d": (
+        "gandalf_tpu_torch/csrc/nbody_direct.cu",
+        "gandalf_tpu/ops/gravity.py:103"),
+    f"star_gas_forces_{SINK_DISC_QUINTIC_VARIANT}_2d": (
+        "gandalf_tpu_torch/csrc/star_gas.cu",
+        "gandalf_tpu/ops/sph_gravity.py:53"),
+    f"smooth_accretion_{SINK_DISC_QUINTIC_VARIANT}_2d": (
+        "gandalf_tpu_torch/csrc/sinks.cu", "gandalf_tpu/ops/sinks.py:216"),
+})
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
 # the kernels of a block tick with self-gravity
@@ -1256,6 +1331,7 @@ SM2012 = ("sm2012_density", "sm2012_forces")
 FAMILY_KERNELS = ("grid27_density", "grid27_forces", "tree_near",
                   "cullen_dehnen", "dust_drag_sums", "dust_drag_deposit",
                   "sm2012_density", "sm2012_forces")
+SINK_FAMILY = ("direct_softened", "star_gas_forces", "smooth_accretion")
 # the radws kernels of an SPH step or tick (the table EOS, the
 # equilibrium finder)
 RADWS_SPH = ("radws_eos", "radws_equilibrium")
@@ -1266,10 +1342,14 @@ RADIATION = {"ionisation": ("stromgren_prefix",),
              "monoionisation": ("grid27_bin", "cell_field", "packet_march")}
 # rates of earlier phases that later ones print beside their own
 RATES = {}
+# the script's start, for each phase line's elapsed_s
+T0 = time.perf_counter()
 
 
 def phase(tag: str, **fields) -> None:
-    print(json.dumps({"phase": tag, **fields}), flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(json.dumps({"phase": tag, "elapsed_s": time.perf_counter() - T0,
+                      **fields}), flush=True)
 
 
 def card_line() -> str:
@@ -1714,33 +1794,44 @@ def run_nbody_path(sim, warm, timed, names):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def nbody_main_path(dev, card):
+def nbody_main_path(dev, card, variant=None, tag="nbody_main_path"):
     """plummer_cluster at 65,536 stars in float64, then K14 against its
-    plain version at the path's shapes.  Returns the path's launch
+    plain version at the path's state.  With `variant` the stars are
+    softened with that smoothing kernel: K14 launches (and is compared)
+    under its family name, never under M4's.  Returns the path's launch
     counts and the kernel reports."""
     from gandalf_tpu_torch.check import compare_nbody_kernels
+    from gandalf_tpu_torch.kernels.smoothing import VARIANTS
 
-    sim = make_nbody_sim(NBODY_N, dev)
-    out = run_nbody_path(sim, NBODY_STEPS_WARM, NBODY_STEPS_TIMED, NBODY)
+    t_phase = time.perf_counter()
+    over = {}
+    if variant is not None:
+        name, tab = VARIANTS[variant]
+        over = {"kernel": name, "tabulated_kernel": tab}
+    sim = make_nbody_sim(NBODY_N, dev, **over)
+    k14 = "direct_softened" if variant is None \
+        else f"direct_softened_{variant}"
+    names = tuple(dict.fromkeys(NBODY + (k14,)))
+    out = run_nbody_path(sim, NBODY_STEPS_WARM, NBODY_STEPS_TIMED, names)
     launches = out["launches"]
+    want = {k: 0 for k in names}
+    want[k14] = NBODY_STEPS_TIMED
     checks = {
         "finite": out["finite"],
-        "launches": launches == {"direct_nbody": 0,
-                                 "direct_softened": NBODY_STEPS_TIMED,
-                                 "direct_snap": 0},
+        "launches": launches == want,
         "energy_drift": out["energy_drift"] <= NBODY_ENERGY_DRIFT_TOL,
     }
     s = sim.state
     rep = compare_nbody_kernels(s.r, s.v, s.m, s.h, sim.kern, repeats=3,
                                 which=("direct_softened",))
-    phase("nbody_main_path", **out, energy_gate=NBODY_ENERGY_DRIFT_TOL,
-          checks=checks, kernels=rep, card=card)
+    phase(tag, **out, kernel=sim.kern.variant,
+          energy_gate=NBODY_ENERGY_DRIFT_TOL, checks=checks, kernels=rep,
+          card=card, seconds=time.perf_counter() - t_phase)
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
-        raise RuntimeError(f"nbody main path checks failed: {failed}")
-    return ({"direct_softened": launches["direct_softened"]},
-            {"direct_softened": rep["direct_softened"]})
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+    return {k14: launches[k14]}, rep
 
 
 def nbody_ts6_path(dev, card):
@@ -1843,9 +1934,10 @@ def tree_option_kernels(dev) -> None:
 
 
 def ewald_parity(dev) -> None:
-    """5 float64 steps at 16^3 with the Ewald sum, kernels on the card
-    against the plain path on the CPU, with a tree rebuild every 2
-    steps: the same fields within PARITY_TOL and the same plans."""
+    """EWALD_PARITY_STEPS float64 steps at 16^3 with the Ewald sum,
+    kernels on the card against the plain path on the CPU, with a tree
+    rebuild every 2 steps: the same fields within PARITY_TOL and the same
+    plans."""
     for kind in ("jeans", "slab", "cylinder", "mfv"):
         sims = []
         for device in (dev, torch.device("cpu")):
@@ -1853,7 +1945,7 @@ def ewald_parity(dev) -> None:
                                      torch.float64,
                                      ntreebuildstep=GRAVITY_NTB_PARITY)
             sim.SetupSimulation(ic)
-            for _ in range(PARITY_STEPS):
+            for _ in range(EWALD_PARITY_STEPS):
                 sim.main_loop_step()
             sims.append(sim)
         torch.cuda.synchronize()
@@ -1862,7 +1954,7 @@ def ewald_parity(dev) -> None:
         errs = parity_errors(sims, fields)
         counts = [(s._n_tree_plans, s._n_grid_overflows) for s in sims]
         phase("ewald_parity", kind=kind, n_side=EWALD_PARITY_N,
-              steps=PARITY_STEPS,
+              steps=EWALD_PARITY_STEPS,
               rel_err=errs, tree_plans_and_replans=counts)
         if max(errs.values()) > PARITY_TOL or counts[0] != counts[1]:
             raise RuntimeError(f"ewald_parity: kernel path disagrees with "
@@ -2112,21 +2204,45 @@ def sink_parity(dev) -> None:
                                f"the plain path: {tag} {errs} {counts}")
 
 
-def bb_sink_collapse(dev, card):
+def _family_names(names, kern):
+    """`names` with the kernels that take the smoothing-kernel family
+    (FAMILY_KERNELS, K14, K16, K20) under `kern`'s family names, each
+    beside its dims suffix (grid27_density_2d: grid27_density_quintic_2d),
+    as _ext.family_count and tree_count form them."""
+    from gandalf_tpu_torch import _ext
+
+    out = []
+    for k in names:
+        base, dims = (k[:-3], k[-3:]) if k.endswith(("_2d", "_1d")) \
+            else (k, "")
+        if base in FAMILY_KERNELS + SINK_FAMILY:
+            base = _ext.family_count(base, kern)
+        out.append(base + dims)
+    return tuple(out)
+
+
+def bb_sink_collapse(dev, card, variant=None, tag="bb_sink_collapse"):
     """bb_sink_collapse at full size: setup, the timed window straight
     after the bootstrap, then the checks and the kernels against their
-    plain versions at the path's state.  Returns the path's launch
-    counts, the kernel reports and K4's alive mode."""
+    plain versions at the path's state.  With `variant` the run takes
+    that smoothing kernel: K2, K3, K7, K14 and K16 launch under their
+    family names and never under M4's (no_m4_launch), and the same
+    comparisons hold K4-K7 and K16-K18 at the path's state.  Returns the
+    path's launch counts, the kernel reports and K4's alive mode (with
+    `variant`, K16's count and report and no alive mode)."""
     from gandalf_tpu_torch import _ext
     from gandalf_tpu_torch.check import (bb_params, compare_sink_kernels,
-                                         compare_tree_kernels,
+                                         compare_tree_kernels, family_params,
                                          gravity_accuracy, ledger_errors,
                                          sim_sink_inputs, sink_ledger,
                                          total_mass)
     from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
-    sim = GradhSphSimulation(bb_params(BB_N, rho_sink=BB_RHO_SINK),
-                             device=dev, dtype=torch.float32)
+    t_phase = time.perf_counter()
+    params = bb_params(BB_N, rho_sink=BB_RHO_SINK)
+    if variant is not None:
+        family_params(variant, params)
+    sim = GradhSphSimulation(params, device=dev, dtype=torch.float32)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim.SetupSimulation()
@@ -2143,17 +2259,20 @@ def bb_sink_collapse(dev, card):
             "rho_code_in_g_cm3": sim.units.rho.outscale}
     mass0 = total_mass(sim)
     sinks0 = int(s.sinks.active.sum())
-    margin = compare_sink_kernels(sim.kern, sim_sink_inputs(sim))[
+    margin = compare_sink_kernels(sim.kern, sim_sink_inputs(sim),
+                                  which=("sink_candidate",))[
         "sink_candidate"]["top_two_margin"]
     rows = sink_ledger(sim)
     plans0, replans0 = sim._n_tree_plans, sim._n_grid_overflows
     rebuild0 = sim.timing.totals.get("TREE_REBUILD", 0.0)
     replan0 = sim.timing.totals.get("GRID_REPLAN", 0.0)
     steps0 = sim.Nsteps
+    bb, sink = _family_names(BB, sim.kern), _family_names(SINK, sim.kern)
     _ext.reset_launches()
     elapsed = run_timed(sim, BB_STEPS_TIMED)
     done = sim.Nsteps - steps0
-    launches = {k: _ext.LAUNCHES[k] for k in BB}
+    launches = {k: _ext.LAUNCHES[k] for k in bb}
+    m4_launches = {k: _ext.LAUNCHES[k] for k in BB if k not in bb}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     replans = sim._n_grid_overflows - replans0
     s = sim.state
@@ -2181,13 +2300,15 @@ def bb_sink_collapse(dev, card):
         "no_overflow": not bool(s.neib_overflow) and not acc["overflow"],
         "launches": all(n >= done for n in launches.values()),
         "sink_kernels_once_a_step": all(launches[k] == steps_run
-                                        for k in SINK),
+                                        for k in sink),
         "accuracy": acc["rms_rel_err"] <= BB_ACCURACY_TOL,
     }
     rep = compare_sink_kernels(sim.kern, sim_sink_inputs(sim), repeats=5)
     rep.update(compare_tree_kernels(sim, s, repeats=5))
+    if variant is not None:
+        checks["no_m4_launch"] = not any(m4_launches.values())
     spec = sim.treespec
-    phase("bb_sink_collapse", steps=sim.Nsteps, timed_steps=done,
+    phase(tag, kernel=sim.kern.variant, steps=sim.Nsteps, timed_steps=done,
           steps_run=steps_run, setup_s=t_setup, bootstrap=boot,
           timed_s=elapsed,
           particle_steps_per_s=s.N * done / elapsed,
@@ -2206,11 +2327,15 @@ def bb_sink_collapse(dev, card):
           ledger_mass_err=max(em), ledger_momentum_err=max(ep),
           dead_mass_per_step=m_dead, accuracy=acc,
           accuracy_gate=BB_ACCURACY_TOL, checks=checks, kernels=rep,
-          card=card, peak_mem_gb=peak_gb)
+          card=card, peak_mem_gb=peak_gb,
+          seconds=time.perf_counter() - t_phase)
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
     if failed:
-        raise RuntimeError(f"bb_sink_collapse checks failed: {failed}")
+        raise RuntimeError(f"{tag} checks failed: {failed}")
+    if variant is not None:
+        k16 = sink[0]
+        return {k16: launches[k16]}, {k16: rep[k16]}, None
     k4 = rep["tree_gather"]
     alive_mode = {"path": "bb_sink_collapse",
                   "launches": launches["tree_gather"],
@@ -3121,11 +3246,12 @@ def _sim_pair(make, steps, tick_check=None):
 
 def dust_parity(dev) -> None:
     """Phase 41: float64, kernels on the card against the plain path on
-    the CPU, with equal grid and tree plans: 10 steps of the 1D dusty box
-    periodic and between mirror walls, 5 steps of the 1,824-particle
-    dusty Evrard (Nhydro 1000) with tree gravity, two-fluid and then
-    test-particle, and 12 ticks of the same cloud with Nlevels 3 with
-    equal levels on every tick."""
+    the CPU, with equal grid and tree plans: DUST_PARITY_BOX_STEPS steps
+    of the 1D dusty box periodic and between mirror walls,
+    DUST_PARITY_STEPS steps of the 1,824-particle dusty Evrard (Nhydro
+    1000) with tree gravity, two-fluid and then test-particle, and
+    DUST_PARITY_TICKS ticks of the same cloud with Nlevels 3 with equal
+    levels on every tick."""
     from gandalf_tpu_torch.check import dust_params, dustybox_params
     from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
 
@@ -6261,34 +6387,79 @@ def sink_disc_2d(dev, card):
             {k: rep[k] for k in SINK_2D}, alive_mode)
 
 
-def sink_block_disc_2d(dev, card):
+def sink_system_energy(sim) -> float:
+    """E of the gas and the sink slots: the gas's kinetic and thermal
+    energy and its self-gravity from one full tree pass
+    (full_gravity_energy), the active slots' kinetic energy, the star-gas
+    potential (K16) and the star-star potential (K14), outside any timed
+    window (their launches are not the path's)."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.ops.gravity import direct_softened
+    from gandalf_tpu_torch.ops.sph_gravity import star_gas_forces
+
+    saved = dict(_ext.LAUNCHES)
+    e = full_gravity_energy(sim)
+    s = sim.state
+    st = s.sinks
+    act = st.active
+    m_gas = torch.where(s.alive, s.m, 0.0)
+    m_star = torch.where(act, st.m, 0.0)
+    _, gpot_gas, _, _ = star_gas_forces(sim.kern, s.r, m_gas, s.h, st.r,
+                                        m_star, st.h, act)
+    gpot_ss = direct_softened(st.r[act], st.v[act], st.m[act], st.h[act],
+                              sim.kern).gpot
+    _ext.LAUNCHES.update(saved)
+    v2 = torch.sum(st.v[act] * st.v[act], dim=-1)
+    return (e + float(torch.sum((0.5 * st.m[act] * v2).double()))
+            - float(torch.sum((m_gas * gpot_gas).double()))
+            - 0.5 * float(torch.sum((st.m[act] * gpot_ss).double())))
+
+
+def sink_block_disc_2d(dev, card, variant=None, tag="sink_block_disc_2d"):
     """Phase 95: the same disc with Nlevels 4 (level_diff_max 1) and
     smooth accretion, float32, on the dense tick (the coupled pass of
     every particle each tick, K22, the sinks at dt_base): setup,
     SINK_DISC_BLOCK_WARM warm-up ticks, then SINK_DISC_BLOCK_TICKS timed
     ticks with the counts set to 0 just before them; ticks/s, the levels,
-    sinks formed, the spin ledger's z range, the gates of _sink_checks
-    (the tree within DISC_BLOCK_ACCURACY_TOL, K20 twice a tick); then K20
-    (2D) against its plain version at the path's state.  Returns its
-    count and report."""
+    sinks formed, the spin ledger's z range, the energy of the gas and
+    the slots over the window (sink_system_energy), the gates of
+    _sink_checks (the tree within DISC_BLOCK_ACCURACY_TOL, K20 twice a
+    tick); then K20 (2D) against its plain version at the path's state.
+    With `variant` the run takes that smoothing kernel: K2, K3, K7, K14,
+    K16 and K20 launch under their family names and never under M4's
+    (no_m4_launch), the energy drift is held to
+    SINK_DISC_QUINTIC_ENERGY_TOL, and K14 and K16 (2D) are compared
+    too.  Returns the sink family's counts and reports."""
     from gandalf_tpu_torch import _ext
-    from gandalf_tpu_torch.check import (compare_td_sink_kernels,
-                                         gravity_accuracy, sim_smooth_inputs,
+    from gandalf_tpu_torch.check import (compare_nbody_kernels,
+                                         compare_sink_kernels,
+                                         compare_td_sink_kernels,
+                                         family_params, gravity_accuracy,
+                                         sim_sink_inputs, sim_smooth_inputs,
                                          sink_disc_params, sink_disc_sim,
                                          sink_ledger, total_mass)
 
     t_phase = time.perf_counter()
     params = sink_disc_params(DISC_N, 2, nlevels=4, smooth_accretion=1)
+    if variant is not None:
+        family_params(variant, params)
     sim, t_setup, boot = sink_disc_sim(params, dev, torch.float32,
                                        block_ic(params))
     for _ in range(SINK_DISC_BLOCK_WARM):
         sim.main_loop_step()
     mass0 = total_mass(sim)
     sinks0 = int(sim.state.sinks.active.sum())
+    e0 = sink_system_energy(sim)
     rows = sink_ledger(sim)
-    names = GRAVITY_2D + ("star_gas_forces_2d", "sink_candidate_2d",
-                          "direct_softened_2d", "smooth_accretion_2d",
-                          "levelneib_2d")
+    m4_names = GRAVITY_2D + ("star_gas_forces_2d", "sink_candidate_2d",
+                             "direct_softened_2d", "smooth_accretion_2d",
+                             "levelneib_2d")
+    # K20's sink update reads no kernel: it counts under its M4 name
+    names = tuple(dict.fromkeys(_family_names(m4_names, sim.kern)
+                                + ("smooth_accretion_2d",)))
+    k14, k16, k20 = _family_names(("direct_softened_2d",
+                                   "star_gas_forces_2d",
+                                   "smooth_accretion_2d"), sim.kern)
     replans0 = sim._n_grid_overflows
     torch.cuda.synchronize()
     _ext.reset_launches()
@@ -6298,25 +6469,39 @@ def sink_block_disc_2d(dev, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {k: _ext.LAUNCHES[k] for k in names}
+    m4_launches = {k: _ext.LAUNCHES[k] for k in m4_names if k not in names}
     s = sim.state
     st = s.sinks
+    drift = abs(sink_system_energy(sim) - e0) / abs(e0)
     acc = gravity_accuracy(sim, n_sample=2048)
+    per_call = {k16: 1, "sink_candidate_2d": 1, k14: 1, k20: 1}
+    per_call["smooth_accretion_2d"] = 1 + (k20 == "smooth_accretion_2d")
     checks, ledger = _sink_checks(
-        sim, mass0, total_mass(sim), rows, launches,
-        {"star_gas_forces_2d": 1, "sink_candidate_2d": 1,
-         "direct_softened_2d": 1, "smooth_accretion_2d": 2}, acc,
+        sim, mass0, total_mass(sim), rows, launches, per_call, acc,
         DISC_BLOCK_ACCURACY_TOL, sinks0, 1)
     del rows
-    checks["launches"] = all(launches[k] >= SINK_DISC_BLOCK_TICKS
-                             for k in GRAVITY_2D + ("levelneib_2d",))
+    checks["launches"] = all(
+        launches[k] >= SINK_DISC_BLOCK_TICKS
+        for k in _family_names(GRAVITY_2D, sim.kern) + ("levelneib_2d",))
+    rep = compare_td_sink_kernels(
+        sim.kern, smooth_inputs=sim_smooth_inputs(sim), repeats=5)
+    if variant is not None:
+        checks["no_m4_launch"] = not any(m4_launches.values())
+        checks["energy_drift"] = drift <= SINK_DISC_QUINTIC_ENERGY_TOL
+        rep.update(compare_sink_kernels(sim.kern, sim_sink_inputs(sim),
+                                        repeats=5,
+                                        which=("star_gas_forces",)))
+        m_star = torch.where(st.active, st.m, 0.0)
+        rep.update(compare_nbody_kernels(st.r, st.v, m_star, st.h, sim.kern,
+                                         repeats=5,
+                                         which=("direct_softened",)))
+    rep = _with_bounds(rep)
     levels = torch.bincount(s.level.cpu()).tolist()
-    rep = _with_bounds(compare_td_sink_kernels(
-        sim.kern, smooth_inputs=sim_smooth_inputs(sim), repeats=5))
     act = st.active
     alive = s.alive
     m = s.m[alive]
     spin_z = st.angmom[act, 2]
-    phase("sink_block_disc_2d", N=s.N, ticks=sim.Nsteps,
+    phase(tag, kernel=sim.kern.variant, N=s.N, ticks=sim.Nsteps,
           timed_ticks=SINK_DISC_BLOCK_TICKS, setup_s=t_setup,
           bootstrap=boot, timed_s=elapsed,
           ticks_per_s=SINK_DISC_BLOCK_TICKS / elapsed,
@@ -6330,12 +6515,14 @@ def sink_block_disc_2d(dev, card):
           partial=int(((m > 0) & (m < 0.99 * m.max())).sum()),
           dead=int((~alive).sum()),
           replans_in_window=sim._n_grid_overflows - replans0,
-          launches=launches, ledger=ledger, accuracy=acc,
+          launches=launches, ledger=ledger, energy_drift=drift,
+          energy_gate=None if variant is None
+          else SINK_DISC_QUINTIC_ENERGY_TOL, accuracy=acc,
           accuracy_gate=DISC_BLOCK_ACCURACY_TOL, checks=checks,
           kernels=rep, card=card, seconds=time.perf_counter() - t_phase)
-    _raise_failed("sink_block_disc_2d", checks, rep)
-    k = "smooth_accretion_2d"
-    return {k: launches[k]}, {k: rep[k]}
+    _raise_failed(tag, checks, rep)
+    keep = (k20,) if variant is None else (k14, k16, k20)
+    return {k: launches[k] for k in keep}, {k: rep[k] for k in keep}
 
 
 def binaryacc_2d(dev, card) -> None:
@@ -7134,6 +7321,220 @@ def dusty_evrard_tab(dev, card):
                         DUSTY_EVRARD_TAB_STEPS, "dusty_evrard_tab")
 
 
+# ---------------------------------------------------------------------------
+# 113-117. the kernel family in sinks, stars and softened N-body (K14,
+# K16, K20)
+# ---------------------------------------------------------------------------
+
+def sink_family_kernels(dev) -> None:
+    """Phase 113: K14 (with and without the jerk), K16 and K20 with each
+    of check.SINK_FAMILY_VARIANTS at ndim 1-3 against their plain
+    versions on the card (check.compare_sink_family_kernels, at each of
+    check.SINK_FAMILY_SIZES, float64 within check.TOL_F64_FAMILY (1e-12)
+    and float32 within the kernels' own tolerances; the tables' reports
+    count the pairs near a table point); then one timed row per kernel
+    and variant: K16 and K20 at the embedded cluster (SINK_CLUSTER,
+    float32), K14 at SINK_FAMILY_TIMED_STARS Plummer stars in float64
+    (its plain version's time from the one call its comparison makes);
+    and the gaussian, direct and tabulated, refused by the three wrappers
+    on CUDA tensors, naming fault F23, with no launch counted.  The
+    timed rows carry their bounds; the kernels line takes each family
+    entry from the comparison at its own path's state instead."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (SINK_FAMILY_SIZES,
+                                         SINK_FAMILY_VARIANTS,
+                                         compare_nbody_kernels,
+                                         compare_sink_family_kernels,
+                                         nbody_kernel_inputs,
+                                         smooth_accretion_inputs, smooth_args)
+    from gandalf_tpu_torch.kernels.smoothing import VARIANTS, kernel_factory
+    from gandalf_tpu_torch.ops import gravity, sinks, sph_gravity
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for variant in SINK_FAMILY_VARIANTS:
+        for ndim in (1, 2, 3):
+            for dtype in (torch.float64, torch.float32):
+                for n, ns in SINK_FAMILY_SIZES:
+                    t1 = time.perf_counter()
+                    rep = compare_sink_family_kernels(variant, ndim, dev,
+                                                      dtype, n, ns)
+                    for r in rep.values():
+                        r.pop("work", None)
+                    phase("sink_family_kernels", variant=variant, ndim=ndim,
+                          dtype=str(dtype), N=n, Ns=ns, report=rep,
+                          seconds=time.perf_counter() - t1)
+                    require_ok("sink_family_kernels", rep)
+                    n_cases += 1
+    n, ns = SINK_CLUSTER
+    (r, v, m, h), _ = nbody_kernel_inputs(SINK_FAMILY_TIMED_STARS, dev,
+                                          torch.float64)
+    for variant in SINK_FAMILY_VARIANTS:
+        t1 = time.perf_counter()
+        rep = compare_sink_family_kernels(
+            variant, 3, dev, torch.float32, n, ns, repeats=5,
+            which=("star_gas_forces", "smooth_accretion"))
+        name, tab = VARIANTS[variant]
+        rep.update(compare_nbody_kernels(
+            r, v, m, h, kernel_factory(name, 3, tab), repeats=3,
+            which=("direct_softened",)))
+        rep = _with_bounds(rep)
+        for x in rep.values():
+            x["library_ms"] = None
+        phase("sink_family_kernels", variant=variant, ndim=3,
+              timed={"star_gas_forces": [n, ns], "smooth_accretion": [n, ns],
+                     "direct_softened": SINK_FAMILY_TIMED_STARS},
+              report=rep, seconds=time.perf_counter() - t1)
+        require_ok("sink_family_kernels", rep)
+    # the gaussian: refused on CUDA tensors before any launch
+    before = dict(_ext.LAUNCHES)
+    inp = smooth_accretion_inputs(4096, 16, dev, torch.float32)
+    refused = {}
+    for tab in (0, 1):
+        kern = kernel_factory("gaussian", 3, tab)
+        st = inp["sinks"]
+        calls = {
+            "direct_softened": lambda: gravity.direct_softened(
+                st.r, st.v, st.m, st.h, kern, True),
+            "star_gas_forces": lambda: sph_gravity.star_gas_forces(
+                kern, inp["r"], inp["m"], inp["h"], st.r, st.m, st.h,
+                st.active),
+            "smooth_accretion": lambda: sinks.smooth_accretion_sums(
+                *smooth_args(kern, inp))}
+        for k, call in calls.items():
+            try:
+                call()
+                refused[f"{k}_{kern.variant}"] = False
+            except NotImplementedError as e:
+                refused[f"{k}_{kern.variant}"] = "fault F23" in str(e)
+    torch.cuda.synchronize()
+    no_launch = _ext.LAUNCHES == before
+    phase("sink_family_kernels_done", cases=n_cases,
+          gaussian_refused=refused, no_launch=no_launch,
+          seconds=time.perf_counter() - t0)
+    if not (all(refused.values()) and no_launch):
+        raise RuntimeError(f"sink_family_kernels: the gaussian was not "
+                           f"refused: {refused}, no launch {no_launch}")
+
+
+def sink_family_parity(dev) -> None:
+    """Phase 114: float64 on the card against the plain path on the CPU
+    with the family: sink_parity's random Boss-Bodenheimer cloud
+    (SINK_PARITY_BB_N, SINK_PARITY_BB_STEPS steps) with the tabulated M4,
+    its hybrid Plummer sphere (SINK_PARITY_PLUMMER) with the tabulated
+    quintic, the 2D sink disc (SINK_FAMILY_PARITY_DISC particles, Nlevels
+    3, smooth accretion, SINK_FAMILY_PARITY_TICKS dense ticks) with the
+    quintic, and nbody_parity's softened hermite4 plummer_cluster
+    (NBODY_PARITY_N stars, NBODY_PARITY_STEPS steps) with the tabulated
+    M4: equal sinks created at equal steps, equal eaten gas, equal tree
+    plans and replans (and levels), every field within PARITY_TOL."""
+    from gandalf_tpu_torch.check import (bb_params, family_params,
+                                         plummer_stars_params,
+                                         sink_disc_params)
+    from gandalf_tpu_torch.sim.simulation import SimulationBase
+
+    t0 = time.perf_counter()
+
+    def bb(device):
+        p = family_params("m4_tab", bb_params(SINK_PARITY_BB_N,
+                                              rho_sink=BB_RHO_SINK))
+        p.set("particle_distribution", "random")
+        p.set("rand_algorithm", "default")
+        return SimulationBase.factory(p, device, torch.float64)
+
+    def plummer(device):
+        n_gas, n_star = SINK_PARITY_PLUMMER
+        p = family_params("quintic_tab", plummer_stars_params(n_gas,
+                                                              n_star))
+        p.set("sink_particles", 1)
+        return SimulationBase.factory(p, device, torch.float64)
+
+    def disc(device):
+        p = family_params("quintic", sink_disc_params(
+            SINK_FAMILY_PARITY_DISC, 2, nlevels=3, smooth_accretion=1,
+            ntreebuildstep=4, tend=1.0))
+        return SimulationBase.factory(p, device, torch.float64)
+
+    for tag, make, steps in (
+            ("bb_random_m4_tab", bb, SINK_PARITY_BB_STEPS),
+            ("hybrid_plummer_quintic_tab", plummer,
+             SINK_PARITY_PLUMMER_STEPS),
+            ("sink_disc_block_quintic", disc, SINK_FAMILY_PARITY_TICKS)):
+        runs = [_sink_run(make, d, steps) for d in (dev, torch.device("cpu"))]
+        sims = [r[0] for r in runs]
+        torch.cuda.synchronize()
+        errs = parity_errors(sims, ("r", "v", "u", "h", "rho", "gpot"))
+        for f in ("r", "v", "m", "mdot"):
+            x = getattr(sims[0].state.sinks, f).cpu()
+            ref = getattr(sims[1].state.sinks, f)
+            errs[f"sink_{f}"] = float(torch.abs(x - ref).max()
+                                      / torch.abs(ref).max().clamp_min(1e-300))
+        same = {"sinks_and_eaten_each_step": all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(runs[0][1], runs[1][1])),
+            "plans": ((sims[0]._n_tree_plans, sims[0]._n_grid_overflows)
+                      == (sims[1]._n_tree_plans, sims[1]._n_grid_overflows)),
+            "grid": sims[0].gridspec == sims[1].gridspec}
+        if sims[1].use_block:
+            same["levels"] = bool(torch.equal(sims[0].state.level.cpu(),
+                                              sims[1].state.level))
+        phase("sink_family_parity", run=tag, kernel=sims[1].kern.variant,
+              N=sims[1].state.N, steps=steps, rel_err=errs, same=same,
+              active_slots_per_step=[int(t[0].sum()) for t in runs[1][1]],
+              dead=int((~sims[1].state.alive).sum()))
+        if max(errs.values()) > PARITY_TOL or not all(same.values()):
+            raise RuntimeError(f"sink_family_parity: kernel path disagrees "
+                               f"with the plain path: {tag} {errs} {same}")
+    sims = []
+    for device in (dev, torch.device("cpu")):
+        sim = make_nbody_sim(NBODY_PARITY_N, device, tabulated_kernel=1)
+        sim.SetupSimulation()
+        for _ in range(NBODY_PARITY_STEPS):
+            sim.main_loop_step()
+        sims.append(sim)
+    torch.cuda.synchronize()
+    errs = parity_errors(sims, ("r", "v", "a", "adot", "a2dot", "gpot"))
+    errs["dt"] = abs(sims[0]._dt_host - sims[1]._dt_host) / sims[1]._dt_host
+    phase("sink_family_parity", run="plummer_cluster_m4_tab",
+          kernel=sims[1].kern.variant, N=NBODY_PARITY_N,
+          steps=NBODY_PARITY_STEPS, rel_err=errs)
+    if max(errs.values()) > PARITY_TOL:
+        raise RuntimeError(f"sink_family_parity: kernel path disagrees "
+                           f"with the plain path: plummer_cluster {errs}")
+    phase("sink_family_parity_done", seconds=time.perf_counter() - t0)
+
+
+def bb_sink_collapse_tab(dev, card):
+    """Phase 115: bb_sink_collapse at full width (BB_N, float32,
+    BB_STEPS_TIMED timed steps) with BB_TAB_VARIANT, that phase's gates
+    (its comparisons of K4-K7 and K16-K18 at the path's state among them)
+    and no_m4_launch: K1-K7, K14, K16, K17 and K18 under the tabulated M4.
+    Returns K16's family count and its report at the path's state."""
+    launches, rep, _ = bb_sink_collapse(dev, card, BB_TAB_VARIANT,
+                                        "bb_sink_collapse_tab")
+    return launches, rep
+
+
+def sink_block_disc_2d_quintic(dev, card):
+    """Phase 116: sink_block_disc_2d at full width (262,376 particles, 2D,
+    Nlevels 4, smooth accretion, dense ticks, float32) with
+    SINK_DISC_QUINTIC_VARIANT: that phase's gates, no_m4_launch and the
+    energy drift within SINK_DISC_QUINTIC_ENERGY_TOL (F24); K14, K16 and
+    K20 (both launches) at 2D with the quintic.  Returns their counts and
+    reports at the path's state."""
+    return sink_block_disc_2d(dev, card, SINK_DISC_QUINTIC_VARIANT,
+                              "sink_block_disc_2d_quintic")
+
+
+def plummer_cluster_tab(dev, card):
+    """Phase 117: nbody_main_path (65,536 stars, float64, hermite4,
+    softened) with PLUMMER_TAB_VARIANT, its drift within
+    NBODY_ENERGY_DRIFT_TOL and K14 against its plain version at the
+    path's state.  Returns K14's family count and report."""
+    return nbody_main_path(dev, card, PLUMMER_TAB_VARIANT,
+                           "plummer_cluster_tab")
+
+
 def kernel_line(launches, rep, alive_modes=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -7541,6 +7942,15 @@ def main() -> int:
     grid_family_kernels(dev)
     grid_family_parity(dev)
     for path in (family_khi_2d, dusty_evrard_tab):
+        f_launches, f_rep = path(dev, card)
+        launches.update(f_launches)
+        rep.update(f_rep)
+
+    # 113-117. the kernel family in sinks, stars and softened N-body
+    sink_family_kernels(dev)
+    sink_family_parity(dev)
+    for path in (bb_sink_collapse_tab, plummer_cluster_tab,
+                 sink_block_disc_2d_quintic):
         f_launches, f_rep = path(dev, card)
         launches.update(f_launches)
         rep.update(f_rep)

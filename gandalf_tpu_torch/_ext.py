@@ -53,9 +53,12 @@ build one source per family); with any kernel but the direct M4 they
 count under their names with the kernel's variant appended before any
 ``_1d`` or ``_2d`` (``grid27_density_quintic_tab``,
 ``tree_near_list_quintic``, ``mfv_fluxes_exact_cell_gaussian_2d``,
-``cullen_dehnen_gaussian_2d``, ``dust_drag_sums_m4_tab``).  The other
-wrappers whose kernel evaluates W (K14, K16, K18, K20) refuse those
-kernels (``require_m4``).  The meshless
+``cullen_dehnen_gaussian_2d``, ``dust_drag_sums_m4_tab``).  K14, K16
+and K20's first launch take M4 and the quintic, direct or tabulated
+(``direct_softened_quintic_2d``, ``star_gas_forces_m4_tab``,
+``smooth_accretion_quintic_tab_1d``); their softened gravity refuses the
+gaussian (``refuse_gaussian_gravity``, fault F23).  K18 and K20's second
+launch read no kernel and count under their M4 names.  The meshless
 finite-volume kernels count under ``mfv_density``, ``mfv_gradients``,
 ``mfv_limiter_<limiter>`` and K12 under ``mfv_fluxes`` with its modes
 appended (``mfv_fluxes_exact_cell_static``; block timesteps
@@ -169,17 +172,19 @@ for _d in _DIMS:
 # the smoothing-kernel families of csrc/kernel_family.cuh, and the
 # kernels that take any of them, direct or tabulated (K2, K3 and K8, K9;
 # K21, K25, K26; K23, K24 in every ndim; K10-K12 and K31 above; K7 in
-# each mode, without the gaussian: fault F23).  Launches with a kernel
-# other than the direct M4 count under the kernel's name with the
-# kernel's variant appended (grid27_density_quintic_tab_2d).  Every
-# other kernel that evaluates W (K14, K16, K18, K20) holds M4 only, and
-# its wrapper refuses the rest (require_m4).
+# each mode, K14, K16 and K20's first launch in every ndim, without the
+# gaussian: fault F23).  Launches with a kernel other than the direct M4
+# count under the kernel's name with the kernel's variant appended
+# (grid27_density_quintic_tab_2d).  K18 and K20's second launch read no
+# kernel.
 FAMILIES = {"m4": 0, "quintic": 1, "gaussian": 2}
 GRID_FAMILY_KERNELS = ("grid27_density", "grid27_forces", "cullen_dehnen",
                        "sm2012_density", "sm2012_forces")
 DUST_FAMILY_KERNELS = ("dust_drag_sums", "dust_drag_deposit")
 TREE_FAMILY_KERNELS = ("tree_near", "tree_near_list", "tree_near_ewald",
                        "tree_near_fast", "tree_near_mfv")
+SINK_FAMILY_KERNELS = ("direct_softened", "star_gas_forces",
+                       "smooth_accretion")
 ACTIVE_FAMILY_KERNELS = ("active_density", "active_forces")
 for _v in VARIANTS:
     for _k in GRID_FAMILY_KERNELS + ACTIVE_FAMILY_KERNELS:
@@ -188,6 +193,9 @@ for _v in VARIANTS:
     for _k in DUST_FAMILY_KERNELS:
         LAUNCHES[f"{_k}_{_v}"] = 0
     if not _v.startswith("gaussian"):
+        for _k in SINK_FAMILY_KERNELS:
+            for _d in ("", "_2d", "_1d"):
+                LAUNCHES[f"{_k}_{_v}{_d}"] = 0
         for _k in TREE_FAMILY_KERNELS:
             LAUNCHES[f"{_k}_{_v}"] = 0
             if _k != "tree_near_ewald":
@@ -253,20 +261,24 @@ _ARGTYPES = {
     "mfv_vsig_far": [_P] * 3 + [_I] * 8 + [_D] * 12 + [_I] + [_P] * 4
     + [_I, _P],
     "direct_nbody": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
-    "direct_softened": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    # K14: n, ndim, jerk, then norm, family and table resolution
+    "direct_softened": [_P, _P, _P, _P, _I, _I, _I, _D, _I, _I, _P, _P, _P,
+                        _I, _P],
     "direct_snap": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # K16-K18 and K20 per NDIM (csrc/star_gas.cu, csrc/sinks.cu): the 3D
-    # names, and the same with _2d and _1d
-    **{f"star_gas_forces{_d}": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
-                                _P, _P, _P, _I, _P] for _d in _DIMS},
+    # names, and the same with _2d and _1d; K16 and K20's sums take norm,
+    # family and table resolution
+    **{f"star_gas_forces{_d}": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _D, _I,
+                                _I, _P, _P, _P, _P, _P, _I, _P]
+       for _d in _DIMS},
     **{f"sink_candidate{_d}": [_P, _P, _I, _D, _P, _P, _P, _P, _P, _P, _P,
                                _P, _I, _P] for _d in _DIMS},
     **{f"accretion_sums{_d}": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _D, _P,
                                _P, _P, _P, _P, _P, _I, _P] for _d in _DIMS},
     **{f"smooth_accretion_sums{_d}": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                                      _P, _P, _I, _D, _P, _D, _D, _D, _D, _D,
-                                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                      _P] for _d in _DIMS},
+                                      _P, _P, _I, _D, _P, _D, _I, _I, _D, _D,
+                                      _D, _D, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _I, _P] for _d in _DIMS},
     **{f"smooth_accretion_apply{_d}": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
                                        _P, _P, _P, _P, _P, _I, _P, _P, _P,
                                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -491,14 +503,23 @@ def _family_args(kern):
     return float(kern.kernnorm), FAMILIES[kern.name], int(kern.table_res)
 
 
-def require_m4(kern, what: str) -> None:
-    """Refuse a smoothing kernel other than the direct M4 (None: no
-    kernel) for `what`, whose kernels hold M4 only (csrc/m4.cuh)."""
-    variant = getattr(kern, "variant", "m4")
-    if variant != "m4":
+def refuse_gaussian_gravity(kern, what: str) -> None:
+    """Refuse the gaussian kernel, direct or tabulated, for `what`, a use
+    of its softened gravity: the JAX package's gaussian wgrav and wpot
+    are zero (ROADMAP queue 3, fault F23).  None (no kernel) passes."""
+    if kern is not None and kern.name == "gaussian":
         raise NotImplementedError(
-            f"{what} holds the M4 kernel only: the {variant} kernel is "
-            "not ported there yet (ROADMAP queue 1, item 9)")
+            "the gaussian kernel has no softened gravity (its wgrav and "
+            f"wpot are zero): {what} with it is refused (ROADMAP queue 3, "
+            "fault F23)")
+
+
+def _softened_args(kern, what: str):
+    """(norm, family, table resolution) of the softening kernel `kern`
+    of K14, K16 or K20 (None: the direct M4, whose wgrav and wpot take no
+    norm), the gaussian refused first (refuse_gaussian_gravity)."""
+    refuse_gaussian_gravity(kern, what)
+    return (0.0, FAMILIES["m4"], 0) if kern is None else _family_args(kern)
 
 
 def _launch(name: str, dtype, device: torch.device, *args,
@@ -834,11 +855,7 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
     mfv = zeta_scaling == "mfv"
     if mfv and group_ids is not None:
         raise NotImplementedError("the MFV zeta mode walks all groups")
-    if kern is not None and kern.name == "gaussian":
-        raise NotImplementedError(
-            "the gaussian kernel has no softened gravity (its wgrav and "
-            "wpot are zero): self-gravity with it is refused (ROADMAP "
-            "queue 3, fault F23)")
+    refuse_gaussian_gravity(kern, "self-gravity")
     G, S, rows = _tree_shapes(spec)
     lay = _tree_layout(ptab, ewald)
     nd = lay.ndim
@@ -1176,19 +1193,21 @@ def direct_nbody(r, v, m, compute_jerk: bool = True):
 
 
 def direct_softened(r, v, m, h, compute_jerk: bool = False, *, kern=None):
-    """K14: mean-h M4-softened (a, adot, gpot) of stars in 1-3 dims; adot
-    is the Newtonian jerk, zero without `compute_jerk`.  `kern` (the
-    caller's smoothing kernel) must be the direct M4."""
-    require_m4(kern, "K14 direct_softened")
+    """K14: mean-h kernel-softened (a, adot, gpot) of stars in 1-3 dims;
+    adot is the Newtonian jerk, zero without `compute_jerk`.  `kern` (the
+    caller's smoothing kernel; None: the direct M4) is M4 or the quintic,
+    direct or tabulated; the gaussian is refused before any input is read
+    (fault F23)."""
+    fam = _softened_args(kern, "softened star-star gravity (K14)")
     N, ndim = _stars(r, m, ("v", v), ndims=(1, 2, 3))
     _check(h, "h", r.dtype, (N,))
     a = torch.empty_like(r)
     adot = torch.empty_like(r) if compute_jerk else torch.zeros_like(r)
     gpot = torch.empty_like(m)
     _launch("direct_softened", r.dtype, r.device, _p(r), _p(v), _p(m), _p(h),
-            N, ndim, int(compute_jerk), _p(a),
+            N, ndim, int(compute_jerk), *fam, _p(a),
             _p(adot) if compute_jerk else None, _p(gpot),
-            count=tree_count("direct_softened", ndim))
+            count=tree_count(family_count("direct_softened", kern), ndim))
     return a, adot, gpot
 
 
@@ -1243,9 +1262,10 @@ def _partials(N, Ns, cols, dt, dev):
 def star_gas_forces(r_gas, m_gas, h_gas, r_star, m_star, h_star, act, *,
                     kern=None):
     """K16: (a_gas (N, ndim), gpot_gas (N,), a_star (Ns, ndim), gpot_star
-    (Ns,)) of the mean-h M4-softened star-gas pairs in 1-3 dims; `kern`
-    must be the direct M4."""
-    require_m4(kern, "K16 star_gas_forces")
+    (Ns,)) of the mean-h kernel-softened star-gas pairs in 1-3 dims;
+    `kern` (None: the direct M4) as K14 takes it, the gaussian refused
+    before any input is read (fault F23)."""
+    fam = _softened_args(kern, "star-gas gravity (K16)")
     N, Ns, nd = _gas_and_slots(r_gas, r_star, act)
     dt, dev = r_gas.dtype, r_gas.device
     for name, x, n in (("m_gas", m_gas, N), ("h_gas", h_gas, N),
@@ -1256,10 +1276,11 @@ def star_gas_forces(r_gas, m_gas, h_gas, r_star, m_star, h_star, act, *,
                      for n in (N, Ns))
     gpot_gas, gpot_star = (torch.empty((n,), dtype=dt, device=dev)
                            for n in (N, Ns))
-    name = tree_count("star_gas_forces", nd)
-    _launch(name, dt, dev, _p(r_gas), _p(m_gas), _p(h_gas), N, _p(r_star),
-            _p(m_star), _p(h_star), _p(act), Ns, _p(part), _p(a_gas),
-            _p(gpot_gas), _p(a_star), _p(gpot_star))
+    _launch(tree_count("star_gas_forces", nd), dt, dev, _p(r_gas),
+            _p(m_gas), _p(h_gas), N, _p(r_star), _p(m_star), _p(h_star),
+            _p(act), Ns, *fam, _p(part), _p(a_gas), _p(gpot_gas),
+            _p(a_star), _p(gpot_star),
+            count=tree_count(family_count("star_gas_forces", kern), nd))
     return a_gas, gpot_gas, a_star, gpot_star
 
 
@@ -1288,13 +1309,10 @@ def sink_candidate(rho, alive, rho_sink, r, v, m, h):
     return cand, gi
 
 
-def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius, *,
-                   kern=None):
+def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius):
     """K18: per slot dm (Ns,), dmom and dmr (Ns, ndim) of the gas each
     active slot eats (the nearest one within sink_radius h_star), and the
-    eaten mask (N,) bool; ndim 1-3.  The sink path holds M4 only: `kern`
-    must be the direct M4."""
-    require_m4(kern, "K18 accretion_sums")
+    eaten mask (N,) bool; ndim 1-3.  It reads no smoothing kernel."""
     N, Ns, nd = _gas_and_slots(r, r_star, act)
     dt, dev = r.dtype, r.device
     _check(v, "v", dt, (N, nd))
@@ -1319,15 +1337,16 @@ def accretion_sums(r, v, m, alive, r_star, h_star, act, sink_radius, *,
 # ---------------------------------------------------------------------------
 
 def smooth_accretion_sums(r, v, m, rho, sound, alive, r_star, v_star,
-                          m_star, h_star, act, sink_radius, dt, kernnorm,
-                          mmean, alpha_ss, frac, sdt, *, kern=None):
+                          m_star, h_star, act, sink_radius, dt, mmean,
+                          alpha_ss, frac, sdt, *, kern):
     """K20, first launch: dm (N,), the claimed slot of each gas particle
     (N,) int32 (-1 for none), and menc, macc and taccrete (Ns,); r, v
-    (N, ndim) and the slots' r, v (Ns, ndim) with ndim 1-3, `kernnorm`
-    M4's normalisation in that ndim.  `dt` is a 0-d tensor on the device,
-    read there.  `kern` must be the direct M4 (K20 weights with M4's
-    W)."""
-    require_m4(kern, "K20 smooth_accretion_sums")
+    (N, ndim) and the slots' r, v (Ns, ndim) with ndim 1-3.  `dt` is a
+    0-d tensor on the device, read there.  `kern`, the run's smoothing
+    kernel in that ndim (its norm, W and wpot), is M4 or the quintic,
+    direct or tabulated; the gaussian is refused before any input is read
+    (fault F23)."""
+    fam = _softened_args(kern, "smooth accretion's potential term (K20)")
     N, Ns, nd = _gas_and_slots(r, r_star, act)
     dt_, dev = r.dtype, r.device
     _check(v, "v", dt_, (N, nd))
@@ -1348,21 +1367,20 @@ def smooth_accretion_sums(r, v, m, rho, sound, alive, r_star, v_star,
     _launch(tree_count("smooth_accretion_sums", nd), dt_, dev, _p(r), _p(v),
             _p(m), _p(rho), _p(sound), _p(alive), N, _p(r_star),
             _p(v_star), _p(m_star), _p(h_star), _p(act), Ns,
-            float(sink_radius), _p(dt), float(kernnorm), float(mmean),
+            float(sink_radius), _p(dt), *fam, float(mmean),
             float(alpha_ss), float(frac), float(sdt), _p(slot_of), _p(vals),
             _p(part), _p(sums), _p(slot_scr), _p(dm), _p(menc), _p(macc),
-            _p(tacc), count=tree_count("smooth_accretion", nd))
+            _p(tacc),
+            count=tree_count(family_count("smooth_accretion", kern), nd))
     return dm, slot_of, menc, macc, tacc
 
 
 def smooth_accretion_apply(r, v, m, dm, slot_of, alive, r_star, v_star,
-                           r0_star, v0_star, m_star, angmom, act, *,
-                           kern=None):
+                           r0_star, v0_star, m_star, angmom, act):
     """K20, second launch: the slots' new r, v, r0, v0 (Ns, ndim), m
     (Ns,) and angmom (Ns, 3, at every ndim), the gas's m - dm (N,) and
-    its alive mask (N,) with the emptied particles dead; ndim 1-3.  The
-    sink path holds M4 only: `kern` must be the direct M4."""
-    require_m4(kern, "K20 smooth_accretion_apply")
+    its alive mask (N,) with the emptied particles dead; ndim 1-3.  It
+    reads no smoothing kernel."""
     N, Ns, nd = _gas_and_slots(r, r_star, act)
     dt_, dev = r.dtype, r.device
     _check(v, "v", dt_, (N, nd))

@@ -68,9 +68,11 @@ whose table indices differ, and ``compare_ambient_kernels`` compares
 K30 on ``ambient_kernel_inputs`` or a simulation's particles and slots.
 ``family_params`` sets a configuration's smoothing kernel (a variant of
 ``kernels.smoothing.VARIANTS``); ``compare_family_kernels``,
-``compare_mfv_family_kernels`` and ``compare_grid_family_kernels`` hold
-the kernels that take the family (K2, K3, K7-K9; K10-K12, K31, K7's MFV
-mode; K21, K23-K26 on ``cd_family_sim`` and the synthetic inputs,
+``compare_mfv_family_kernels``, ``compare_grid_family_kernels`` and
+``compare_sink_family_kernels`` hold the kernels that take the family
+(K2, K3, K7-K9; K10-K12, K31, K7's MFV mode; K21, K23-K26 on
+``cd_family_sim`` and the synthetic inputs; K14, K16, K20 on the sink
+and N-body inputs with pairs either side of kernrange and table points;
 float64 within ``TOL_F64_FAMILY``) against their plain versions, the
 tabulated kernels' reports counting the pairs near a table point.
 ``chip_smoke.py`` and the CUDA tests use them.
@@ -423,6 +425,26 @@ for _v, (_w2, _w, _dw) in _GRID_FAMILY_EXTRA.items():
         FLOPS_PER["dust_drag_deposit_pair"] + _w)
 
 
+# K14, K16 and K20 with the quintic and the tabulated kernels.  Per pair
+# they do their M4 entry's work (K14 and K16 per pair, the far form
+# 1/s^2 and 1/s beyond the support, which every kernel shares; K20 per
+# claimed pair), and per pair inside the kernel's support (s < kernrange)
+# what wgrav and wpot add there: the quintic's powers to s^7 and its
+# seven- and eight-term polynomials (~40), M4's middle branch (20), a
+# table's index for each (a division, a floor and a product: +4 each).
+# K20 adds per claimed pair one W in its s^2 form and one wpot over M4's
+# (as _GRID_FAMILY_EXTRA counts W: quintic +10 and a table +5 for the s^2
+# index and its root; wpot quintic +17 and a table +4).
+_SOFTENED_EXTRA = {"quintic": 40, "m4_tab": 28, "quintic_tab": 48}
+_SMOOTH_EXTRA = {"quintic": 27, "m4_tab": 9, "quintic_tab": 36}
+for _v in _SOFTENED_EXTRA:
+    for _sfx in ("", "_2d", "_1d"):
+        for _k in ("direct_softened", "star_gas_forces"):
+            FLOPS_PER[f"{_k}_{_v}{_sfx}"] = FLOPS_PER[f"{_k}{_sfx}"]
+        FLOPS_PER[f"smooth_accretion_{_v}{_sfx}"] = (
+            FLOPS_PER[f"smooth_accretion{_sfx}"] + _SMOOTH_EXTRA[_v])
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -440,23 +462,38 @@ def bound(work, dtype):
                                      else "operations")
 
 
-def _star_gas_work(r, h, rs, hs):
-    """K16's operations: FLOPS_PER["star_gas_forces"] for every pair
-    (the M4 branch s >= 2), plus "star_gas_mid" for each pair at
-    1 <= s < 2 and "star_gas_near" for each at s < 1, s = |dr| / hbar
-    (the entries of r's ndim, tree_flops)."""
-    n_mid = n_near = 0
+def _s_counts(r, h, rs, hs, edges, exact: bool = True):
+    """The pairs (r_i, rs_j) at s = |dr| / hbar, hbar = (h_i + hs_j) / 2,
+    below each of `edges` (a count each); without `exact` the distances
+    come from the matrix-product form (fast, a few ulps off: a count of
+    operations for a bound)."""
+    counts = [0] * len(edges)
     step = max(1, (1 << 24) // max(rs.shape[0], 1))
+    mode = "donot_use_mm_for_euclid_dist" if exact \
+        else "use_mm_for_euclid_dist"
     for c0 in range(0, r.shape[0], step):
-        d = torch.cdist(r[c0:c0 + step], rs,
-                        compute_mode="donot_use_mm_for_euclid_dist")
+        d = torch.cdist(r[c0:c0 + step], rs, compute_mode=mode)
         s = d / (0.5 * (h[c0:c0 + step, None] + hs[None, :]))
-        n_near += int((s < 1.0).sum())
-        n_mid += int(((s >= 1.0) & (s < 2.0)).sum())
+        for i, e in enumerate(edges):
+            counts[i] += int((s < e).sum())
+    return counts
+
+
+def _star_gas_work(r, h, rs, hs, kern=None):
+    """K16's operations: FLOPS_PER["star_gas_forces"] for every pair
+    (the far branch), plus with M4 "star_gas_mid" for each pair at
+    1 <= s < 2 and "star_gas_near" for each at s < 1, s = |dr| / hbar
+    (the entries of r's ndim, tree_flops); with another kernel `kern`
+    its _SOFTENED_EXTRA for each pair inside its support."""
     nd = r.shape[1]
-    return (tree_flops("star_gas_forces", nd) * r.shape[0] * rs.shape[0]
-            + tree_flops("star_gas_mid", nd) * n_mid
-            + tree_flops("star_gas_near", nd) * n_near)
+    name = _ext.tree_count(_ext.family_count("star_gas_forces", kern), nd)
+    base = FLOPS_PER[name] * r.shape[0] * rs.shape[0]
+    if kern is None or kern.variant == "m4":
+        n_near, n_in = _s_counts(r, h, rs, hs, (1.0, 2.0))
+        return (base + tree_flops("star_gas_mid", nd) * (n_in - n_near)
+                + tree_flops("star_gas_near", nd) * n_near)
+    n_sup, = _s_counts(r, h, rs, hs, (kern.kernrange,), exact=False)
+    return base + _SOFTENED_EXTRA[kern.variant] * n_sup
 
 
 def _support_counts(row, col, d2, h, kernrange):
@@ -1619,18 +1656,19 @@ def _time_ms(fn, repeats: int, warm: bool = True) -> float:
 
 
 def _time_pairs(out, timed, repeats):
-    """Kernel and plain times of each entry of `timed`, in the order
-    plain, kernel, kernel, plain: each side's mean of two turns.  The
-    plain version runs once a turn with no warm-up call: the comparison
-    before the timing has run it on the same inputs, and at full size
-    one call can take seconds."""
+    """Kernel and plain times of each entry of `timed`: the kernel's mean
+    of two turns of `repeats` calls, then one plain call with no warm-up
+    (the comparison before the timing has run it on the same inputs, and
+    at full size one call can take seconds: a second turn cost
+    chip_smoke.py about a minute).  A plain entry of None keeps the
+    plain_ms that the report already holds, that of the comparison's own
+    plain call."""
     for name, (kfn, pfn) in timed.items():
-        p1 = _time_ms(pfn, 1, warm=False)
         k1 = _time_ms(kfn, repeats)
         k2 = _time_ms(kfn, repeats)
-        p2 = _time_ms(pfn, 1, warm=False)
         out[name]["ms"] = 0.5 * (k1 + k2)
-        out[name]["plain_ms"] = 0.5 * (p1 + p2)
+        if pfn is not None:
+            out[name]["plain_ms"] = _time_ms(pfn, 1, warm=False)
 
 
 def _rel(x, ref, fill):
@@ -3101,13 +3139,16 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
                           which=("direct_nbody", "direct_softened",
                                  "direct_snap")):
     """Run K13 (with the jerk), K14 (with and without the jerk) and K15
-    (from the plain K13's a) and their plain versions on the same CUDA
-    tensors (K14 also in 1D, keyed direct_softened_1d, and _2d in 2D);
-    returns {kernel: report} as compare_kernels does, each
-    output's error relative to its largest |value|, against TOL_*_NBODY.
-    A report also holds `work` and the `dtype`; with `repeats` > 0, `ms`
-    and `plain_ms` of the calls the path makes (with the jerk).  `which`
-    picks the kernels.  Launch counts are restored afterwards."""
+    (from the plain K13's a) and their plain versions
+    on the same CUDA tensors (K14 with the softening kernel `kern`: keyed
+    direct_softened with its variant appended for any kernel but the
+    direct M4, and _1d or _2d below 3D); returns {kernel: report} as
+    compare_kernels does, each output's error relative to its largest
+    |value|, against TOL_*_NBODY.  A report also holds `work` and the
+    `dtype`; with `repeats` > 0, `ms` and `plain_ms` of the calls the
+    path makes (with the jerk); K14's plain_ms is that of the one plain
+    call its comparison makes (at 65,536 stars a call takes seconds).
+    `which` picks the kernels.  Launch counts are restored afterwards."""
     from .ops import gravity as gr
 
     saved = dict(_ext.LAUNCHES)
@@ -3120,14 +3161,22 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
     def report(name, got, want, inputs, outputs):
         errs = {k: _scaled_all(x, y, every) for k, x, y in zip(
             ("a", "adot", "gpot"), got, want) if y is not None}
-        flops = FLOPS_PER[softened if name == "direct_softened" else name]
+        flops = FLOPS_PER[name] * pairs
+        if name == softened and kern.variant != "m4":
+            # the pairs inside the kernel's support, each star with
+            # itself taken out
+            flops += _SOFTENED_EXTRA[kern.variant] * (
+                _s_counts(r, h, r, h, (kern.kernrange,), exact=False)[0]
+                - N)
         return {"N": N, "ndim": r.shape[1], "scaled_err": errs,
                 "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
                 "dtype": str(r.dtype), "ok": max(errs.values()) <= tol,
-                "work": _work(inputs, outputs, flops * pairs)}
+                "work": _work(inputs, outputs, flops)}
 
-    # K14 counts (and reports) under its ndim's name below 3D
-    softened = _ext.tree_count("direct_softened", r.shape[1])
+    # K14 counts (and reports) under its kernel's variant and its ndim's
+    # name below 3D
+    softened = _ext.tree_count(_ext.family_count("direct_softened", kern),
+                               r.shape[1])
 
     out, timed = {}, {}
     if "direct_nbody" in which or "direct_snap" in which:
@@ -3141,21 +3190,26 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
                                                                True))
     if "direct_softened" in which:
         got = gr.direct_softened(r, v, m, h, kern, True)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
         want = gr.direct_softened_plain(r, v, m, h, kern, True)
-        rep = report("direct_softened", got, want, (r, v, m, h), got)
-        # without the jerk: a and gpot as with it, adot exactly zero
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t_plain
+        rep = report(softened, got, want, (r, v, m, h), got)
+        # without the jerk: a and gpot as with it (the plain version forms
+        # them the same way with or without), adot exactly zero
         nj = gr.direct_softened(r, v, m, h, kern, False)
-        wnj = gr.direct_softened_plain(r, v, m, h, kern, False)
         rep["no_jerk_scaled_err"] = {
-            "a": _scaled_all(nj.a, wnj.a, every),
-            "gpot": _scaled_all(nj.gpot, wnj.gpot, every)}
+            "a": _scaled_all(nj.a, want.a, every),
+            "gpot": _scaled_all(nj.gpot, want.gpot, every)}
         rep["no_jerk_adot_zero"] = not bool(nj.adot.any())
         rep["ok"] = (rep["ok"] and rep["no_jerk_adot_zero"]
                      and max(rep["no_jerk_scaled_err"].values()) <= tol)
         out[softened] = rep
+        if repeats > 0:
+            rep["plain_ms"] = 1e3 * t_plain
         timed[softened] = (
-            lambda: gr.direct_softened(r, v, m, h, kern, True),
-            lambda: gr.direct_softened_plain(r, v, m, h, kern, True))
+            lambda: gr.direct_softened(r, v, m, h, kern, True), None)
     if "direct_snap" in which:
         a = plain.a
         got = gr.direct_snap(r, v, a, m)
@@ -3176,7 +3230,7 @@ def compare_nbody_kernels(r, v, m, h, kern, repeats: int = 0,
 # ---------------------------------------------------------------------------
 
 def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
-                       seed: int = 0, ndim: int = 3):
+                       seed: int = 0, ndim: int = 3, kern=None):
     """Synthetic inputs of K16-K18 (a dict: cfg, r, v, m, h, rho, alive,
     sinks) in `ndim` dims with their edge cases: gas in the unit cube
     (square, segment) with 5% dead; the last eighth of the slots empty
@@ -3187,7 +3241,12 @@ def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
     too); the two densest alive particles (3 and 7) tied, with a denser
     dead one (1).  rho_sink is the median density and sink_radius 2.
     Below 3D the positions and velocities are the 3D draws' first ndim
-    components and h scales as n_gas^(-1 / ndim)."""
+    components and h scales as n_gas^(-1 / ndim).  With a smoothing kernel
+    `kern` the gas's h scales by 2 / kernrange (the support's radius stays
+    M4's) and gas 8-13 lie 1e-5 (relative) either side of s = kernrange
+    and of two of its table's points, s = kernrange / 10 and 7 kernrange
+    / 10 (points 100 and 700 at res 1000), from star 4, s = |dr| / hbar
+    (_straddle)."""
     rng = np.random.default_rng(seed)
     r = rng.random((n_gas, 3))
     v = rng.standard_normal((n_gas, 3))
@@ -3209,8 +3268,13 @@ def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
     alive[1] = False
     rho[[3, 7]] = rho.max() * 1.5
     rho[1] = rho[3] * 2.0
+    r, v, sr = r[:, :ndim].copy(), v[:, :ndim], sr[:, :ndim]
+    if kern is not None:
+        h = h * (2.0 / kern.kernrange)
+        hbar = 0.5 * (h[8:14] + sh[4])
+        _straddle(r, alive, range(8, 14), sr[4], hbar * np.repeat(
+            [kern.kernrange, 0.1 * kern.kernrange, 0.7 * kern.kernrange], 2))
     m = np.where(alive, m, 0.0)
-    r, v, sr = r[:, :ndim], v[:, :ndim], sr[:, :ndim]
     sinks = sk_ops.make_sinks(sr, rng.standard_normal((n_act, 3))[:, :ndim],
                               np.full(n_act, 1.0 / n_slots), sh,
                               n_extra=n_slots - n_act, device=device,
@@ -3226,8 +3290,20 @@ def sink_kernel_inputs(n_gas: int, n_slots: int, device, dtype,
     return out
 
 
+def _straddle(r, alive, rows, centre, radii, rel: float = 1e-5) -> None:
+    """Move the gas `rows` (alive from now) to `centre` plus radius (1 -
+    rel) and (1 + rel) times `radii` in turn, along the first axis: pairs
+    on either side of a kernel's branch or table point (1e-5 relative is
+    some 170 float32 ulps: no rounding carries one across)."""
+    for i, k in enumerate(rows):
+        r[k] = centre
+        r[k, 0] = centre[0] + radii[i] * (1.0 - rel if i % 2 == 0
+                                          else 1.0 + rel)
+        alive[k] = True
+
+
 def smooth_accretion_inputs(n_gas: int, n_slots: int, device, dtype,
-                            seed: int = 0, ndim: int = 3):
+                            seed: int = 0, ndim: int = 3, kern=None):
     """Synthetic inputs of K20: sink_kernel_inputs's gas and slots (its
     edge cases: dead gas, empty slots, gas 0 on star 0, gas 2 on star 1's
     accretion radius, gas 4 at equal distance from stars 2 and 3) with
@@ -3236,13 +3312,28 @@ def smooth_accretion_inputs(n_gas: int, n_slots: int, device, dtype,
     its gas goes whole (dt < smooth_accrete_dt t_orbit), and sound
     speeds in [0.5, 1.5); dt = 0.01 (a 0-d tensor), mmean = 1 / n_gas,
     alpha_ss = 0.1, smooth_accrete_frac and smooth_accrete_dt 0.01; in
-    `ndim` dims (sink_kernel_inputs')."""
-    out = sink_kernel_inputs(n_gas, n_slots, device, dtype, seed, ndim)
+    `ndim` dims (sink_kernel_inputs').  With a smoothing kernel `kern`,
+    sink_kernel_inputs' gas for it, and gas 14-19 either side of K20's
+    claim edge (s = dist / h = 2) and of the s^2 table points at a
+    quarter and at 0.4 of kernrange^2 (250 and 400 at res 1000), from
+    star 4 (_straddle)."""
+    out = sink_kernel_inputs(n_gas, n_slots, device, dtype, seed, ndim,
+                             kern)
     st = out["sinks"]
     idx = torch.arange(st.N, device=st.h.device)
     h = torch.where(st.active & (idx >= 4), 0.04, st.h)
     h = torch.where(idx == 0, 0.1, h)
     out["sinks"] = st.replace(h=h, m=torch.where(idx == 0, 1e-6, st.m))
+    if kern is not None:
+        r = out["r"].cpu().numpy().copy()
+        alive = out["alive"].cpu().numpy().copy()
+        rows = range(14, 20)
+        _straddle(r, alive, rows, st.r[4].cpu().numpy(), float(h[4])
+                  * np.repeat([2.0, 0.5 * kern.kernrange,
+                               math.sqrt(0.4) * kern.kernrange], 2))
+        out["r"] = torch.as_tensor(r, device=device, dtype=dtype)
+        out["alive"] = torch.as_tensor(alive, device=device)
+        out["m"][list(rows)] = 1.0 / n_gas
     rng = np.random.default_rng(seed + 1)
     out["sound"] = torch.as_tensor(0.5 + rng.random(n_gas), device=device,
                                    dtype=dtype)
@@ -3301,7 +3392,8 @@ def _compare_smooth(kern, inputs):
     """K20's report and timed pair under its ndim's name
     (smooth_accretion, _2d, _1d)."""
     f64 = inputs["r"].dtype == torch.float64
-    name = _ext.tree_count("smooth_accretion", inputs["r"].shape[1])
+    name = _ext.tree_count(_ext.family_count("smooth_accretion", kern),
+                           inputs["r"].shape[1])
     dm, sums, new, m_gas, alive = _smooth_both(kern, inputs, False)
     dm_p, sums_p, new_p, m_gas_p, alive_p = _smooth_both(kern, inputs,
                                                          True)
@@ -3479,11 +3571,15 @@ def sim_smooth_inputs(sim):
     return out
 
 
-def compare_sink_kernels(kern, inputs, repeats: int = 0):
-    """Run K16, K17 and K18 and their plain versions on the same CUDA
-    tensors (a dict from sink_kernel_inputs or sim_sink_inputs, in any
-    ndim); returns {kernel: report} as compare_kernels does, keyed by
-    the launch names (star_gas_forces, ..., with _2d or _1d below 3D).  K16's four outputs within
+def compare_sink_kernels(kern, inputs, repeats: int = 0,
+                         which=("star_gas_forces", "sink_candidate",
+                                "accretion_sums")):
+    """Run K16, K17 and K18 (those named in `which`) and their plain
+    versions on the same CUDA tensors (a dict from sink_kernel_inputs or
+    sim_sink_inputs, in any ndim); returns {kernel: report} as
+    compare_kernels does, keyed by the launch names (star_gas_forces, ...,
+    K16's with the variant of `kern` appended for any kernel but the
+    direct M4, each with _2d or _1d below 3D).  K16's four outputs within
     1e-10 of each one's largest value in float64 (TOL_F32_STAR_GAS in
     float32); K17's index and row exactly, also with no particle eligible
     (index 0, score -inf); K18's eaten mask exactly and its sums within
@@ -3499,80 +3595,86 @@ def compare_sink_kernels(kern, inputs, repeats: int = 0):
     N, Ns = r.shape[0], st.N
     nd = r.shape[1]
     k16, k17, k18 = (_ext.tree_count(k, nd) for k in (
-        "star_gas_forces", "sink_candidate", "accretion_sums"))
-    out = {}
+        _ext.family_count("star_gas_forces", kern), "sink_candidate",
+        "accretion_sums"))
+    out, timed = {}, {}
 
     def scaled(x, ref):
         return _scaled_all(x, ref, torch.ones(x.shape[0], dtype=torch.bool,
                                               device=x.device))
 
-    m_live = torch.where(alive, m, 0.0)
-    m_star = torch.where(st.active, st.m, 0.0)
-    sg_args = (r, m_live, h, st.r, m_star, st.h, st.active)
-    got = sg.star_gas_forces(kern, *sg_args)
-    want = sg.star_gas_forces_plain(kern, *sg_args)
-    errs = {k: scaled(x, y) for k, x, y in zip(
-        ("a_gas", "gpot_gas", "a_star", "gpot_star"), got, want)}
-    out[k16] = {
-        "N": N, "Ns": Ns, "scaled_err": errs, "dtype": str(r.dtype),
-        "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
-        "ok": max(errs.values()) <= (TOL_F64 if f64 else TOL_F32_STAR_GAS),
-        "work": _work(sg_args, got, _star_gas_work(r, h, st.r, st.h))}
+    if "star_gas_forces" in which:
+        m_live = torch.where(alive, m, 0.0)
+        m_star = torch.where(st.active, st.m, 0.0)
+        sg_args = (r, m_live, h, st.r, m_star, st.h, st.active)
+        got = sg.star_gas_forces(kern, *sg_args)
+        want = sg.star_gas_forces_plain(kern, *sg_args)
+        errs = {k: scaled(x, y) for k, x, y in zip(
+            ("a_gas", "gpot_gas", "a_star", "gpot_star"), got, want)}
+        out[k16] = {
+            "N": N, "Ns": Ns, "scaled_err": errs, "dtype": str(r.dtype),
+            "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
+            "ok": max(errs.values()) <= (TOL_F64 if f64
+                                         else TOL_F32_STAR_GAS),
+            "work": _work(sg_args, got,
+                          _star_gas_work(r, h, st.r, st.h, kern))}
+        timed[k16] = (lambda: sg.star_gas_forces(kern, *sg_args),
+                      lambda: sg.star_gas_forces_plain(kern, *sg_args))
 
-    c_args = (cfg, r, v, m, h, rho, alive)
-    cand, gi = sk_ops.sink_candidate(*c_args)
-    cand_p, gi_p = sk_ops.sink_candidate_plain(*c_args)
-    none = dataclasses.replace(cfg, rho_sink=float("inf"))
-    cand_n, gi_n = sk_ops.sink_candidate(none, *c_args[1:])
-    same = int(gi) == int(gi_p) and bool(torch.equal(cand, cand_p))
-    empty = int(gi_n) == 0 and float(cand_n[-1]) == float("-inf")
-    eligible = alive & (rho > cfg.rho_sink)
-    top = torch.topk(torch.where(eligible, rho, -math.inf).double(),
-                     min(2, N)).values
-    out[k17] = {
-        "N": N, "gi": int(gi), "score": float(cand[-1]),
-        "top_two_margin": float((top[0] - top[-1]) / top[0])
-        if bool(torch.isfinite(top).all()) else None,
-        "same_index_and_row": same, "none_eligible_gives_0_and_-inf": empty,
-        "dtype": str(r.dtype),
-        "max_abs_err": float(torch.abs(cand - cand_p).max())
-        if bool(torch.isfinite(cand[-1])) else 0.0,
-        "ok": same and empty,
-        "work": _work((rho, alive, cand[:-1]), (cand, gi),
-                      FLOPS_PER["sink_candidate"] * N)}
+    if "sink_candidate" in which:
+        c_args = (cfg, r, v, m, h, rho, alive)
+        cand, gi = sk_ops.sink_candidate(*c_args)
+        cand_p, gi_p = sk_ops.sink_candidate_plain(*c_args)
+        none = dataclasses.replace(cfg, rho_sink=float("inf"))
+        cand_n, gi_n = sk_ops.sink_candidate(none, *c_args[1:])
+        same = int(gi) == int(gi_p) and bool(torch.equal(cand, cand_p))
+        empty = int(gi_n) == 0 and float(cand_n[-1]) == float("-inf")
+        eligible = alive & (rho > cfg.rho_sink)
+        top = torch.topk(torch.where(eligible, rho, -math.inf).double(),
+                         min(2, N)).values
+        out[k17] = {
+            "N": N, "gi": int(gi), "score": float(cand[-1]),
+            "top_two_margin": float((top[0] - top[-1]) / top[0])
+            if bool(torch.isfinite(top).all()) else None,
+            "same_index_and_row": same,
+            "none_eligible_gives_0_and_-inf": empty,
+            "dtype": str(r.dtype),
+            "max_abs_err": float(torch.abs(cand - cand_p).max())
+            if bool(torch.isfinite(cand[-1])) else 0.0,
+            "ok": same and empty,
+            "work": _work((rho, alive, cand[:-1]), (cand, gi),
+                          FLOPS_PER["sink_candidate"] * N)}
+        timed[k17] = (lambda: sk_ops.sink_candidate(*c_args),
+                      lambda: sk_ops.sink_candidate_plain(*c_args))
 
-    a_args = (cfg, st, r, v, m, alive)
-    got = sk_ops.accretion_sums(*a_args)
-    want = sk_ops.accretion_sums_plain(*a_args)
-    errs = {k: scaled(x, y) for k, x, y in zip(("dm", "dmom", "dmr"),
-                                               got[:3], want[:3])}
-    same = bool(torch.equal(got[3], want[3]))
-    # v and m are read for the eaten gas only
-    n_eat = int(got[3].sum())
-    eaten_bytes = n_eat * (v.shape[1] + 1) * v.element_size()
-    out[k18] = {
-        "N": N, "Ns": Ns, "eaten": n_eat, "scaled_err": errs,
-        "same_eaten": same, "dtype": str(r.dtype),
-        "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
-        "ok": same and max(errs.values()) <= (TOL_F64 if f64
-                                              else TOL_F32_ACCRETION),
-        "work": {"bytes": _nbytes(r, alive, st.r, st.h, st.active, *got)
-                 + eaten_bytes,
-                 "flops": FLOPS_PER[k18] * N * Ns}}
+    if "accretion_sums" in which:
+        a_args = (cfg, st, r, v, m, alive)
+        got = sk_ops.accretion_sums(*a_args)
+        want = sk_ops.accretion_sums_plain(*a_args)
+        errs = {k: scaled(x, y) for k, x, y in zip(("dm", "dmom", "dmr"),
+                                                   got[:3], want[:3])}
+        same = bool(torch.equal(got[3], want[3]))
+        # v and m are read for the eaten gas only
+        n_eat = int(got[3].sum())
+        eaten_bytes = n_eat * (v.shape[1] + 1) * v.element_size()
+        out[k18] = {
+            "N": N, "Ns": Ns, "eaten": n_eat, "scaled_err": errs,
+            "same_eaten": same, "dtype": str(r.dtype),
+            "max_abs_err": float(torch.abs(got[0] - want[0]).max()),
+            "ok": same and max(errs.values()) <= (TOL_F64 if f64
+                                                  else TOL_F32_ACCRETION),
+            "work": {"bytes": _nbytes(r, alive, st.r, st.h, st.active,
+                                      *got) + eaten_bytes,
+                     "flops": FLOPS_PER[k18] * N * Ns}}
+        timed[k18] = (lambda: sk_ops.accretion_sums(*a_args),
+                      lambda: sk_ops.accretion_sums_plain(*a_args))
 
     if repeats > 0:
-        score = torch.where(eligible, rho, -math.inf)
-        timed = {
-            k16: (lambda: sg.star_gas_forces(kern, *sg_args),
-                  lambda: sg.star_gas_forces_plain(kern, *sg_args)),
-            k17: (lambda: sk_ops.sink_candidate(*c_args),
-                  lambda: sk_ops.sink_candidate_plain(*c_args)),
-            k18: (lambda: sk_ops.accretion_sums(*a_args),
-                  lambda: sk_ops.accretion_sums_plain(*a_args)),
-        }
         _time_pairs(out, timed, repeats)
-        out[k17]["library_ms"] = _time_ms(lambda: torch.argmax(score),
-                                          repeats)
+        if k17 in out:
+            score = torch.where(eligible, rho, -math.inf)
+            out[k17]["library_ms"] = _time_ms(lambda: torch.argmax(score),
+                                              repeats)
     torch.cuda.synchronize()
     _ext.LAUNCHES.update(saved)
     return out
@@ -3974,7 +4076,7 @@ def compare_sm2012_kernels(kern, visc, gamma, h_fac, h_converge, spec,
     hfactor each within 1e-10 relative with the same converged flags, and
     a, du/dt and div v within 1e-10 of their largest value; float32:
     TOL_F32_DENSITY_* and TOL_F32_SM2012_FORCES.  With `repeats`, both
-    kernels are timed plain, kernel, kernel, plain; library_ms is null
+    kernels are timed as _time_pairs times them; library_ms is null
     (no one PyTorch call computes either).  Launch counts are restored
     afterwards."""
     from .ops import sm2012 as sm
@@ -4171,6 +4273,123 @@ def compare_grid_family_kernels(variant: str, ndim: int, device, dtype,
     out.update(compare_sm2012_kernels(
         kern, ArtificialViscosity(avisc=fo.AVISC_MON97MM97), 1.4, h_fac,
         0.01, spec, s, repeats))
+    if dtype == torch.float64:
+        _family_f64_gate(out)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K14, K16 and K20 with the quintic and the tabulated kernels
+# ---------------------------------------------------------------------------
+
+# the variants that K14, K16 and K20 take beside the direct M4 (the
+# gaussian has no softened gravity: fault F23), and the synthetic sizes
+# (gas particles, slots) of compare_sink_family_kernels
+SINK_FAMILY_VARIANTS = ("m4_tab", "quintic", "quintic_tab")
+SINK_FAMILY_SIZES = ((4096, 16), (4096, 64))
+
+
+def _s_table_report(kern, r, h, rs, hs, distinct: bool = False):
+    """The pairs (r_i, rs_j) inside a tabulated kernel's support, s =
+    |dr| / hbar < kernrange, and those near a point of its s grid
+    (_near_grid: an upper bound on the pairs whose table index the kernel
+    and its plain version can disagree on); with `distinct` only pairs at
+    s > 0 (K14 skips a star's own and coincident pairs)."""
+    rng, res = kern.kernrange, kern.table_res
+    pairs = near = 0
+    step = max(1, (1 << 24) // max(rs.shape[0], 1))
+    for c0 in range(0, r.shape[0], step):
+        d = torch.cdist(r[c0:c0 + step].double(), rs.double(),
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        s = d / (0.5 * (h[c0:c0 + step, None] + hs[None, :]).double())
+        sup = (s < rng) & (s > 0) if distinct else s < rng
+        pairs += int(sup.sum())
+        near += _near_grid(s[sup], rng / res, r.dtype)
+    return {"pairs": pairs, "near_grid": near}
+
+
+def _smooth_table_report(kern, inputs):
+    """K20's claimed pairs of `inputs` (smooth_accretion_inputs) and
+    those near a point of the table's s^2 grid (W) and of its s grid
+    (wpot), at s = dist / h_s."""
+    st = inputs["sinks"]
+    claim, dist = sk_ops.smooth_claims(inputs["cfg"], st, inputs["r"],
+                                       inputs["alive"])
+    hit = claim >= 0
+    s = (dist / st.h[claim.long().clamp_min(0)])[hit].double()
+    rng, res = kern.kernrange, kern.table_res
+    return {"pairs": int(hit.sum()),
+            "near_grid_s2": _near_grid(s * s, rng * rng / res,
+                                       inputs["r"].dtype),
+            "near_grid_s": _near_grid(s, rng / res, inputs["r"].dtype)}
+
+
+def compare_sink_family_kernels(variant: str, ndim: int, device, dtype,
+                                n_gas: int = 4096, n_slots: int = 16,
+                                repeats: int = 0,
+                                which=("direct_softened", "star_gas_forces",
+                                       "smooth_accretion")):
+    """K14 (with and without the jerk), K16 and K20 (its first launch,
+    and the sink update, which reads no kernel) with the smoothing kernel
+    `variant` (one of SINK_FAMILY_VARIANTS) against their plain versions
+    at `ndim`, those named in `which`: K16 on sink_kernel_inputs(n_gas,
+    n_slots) with the gas's h scaled to the kernel's range and gas either
+    side of kernrange and of two table points; K20 on
+    smooth_accretion_inputs, its claims either side of the claim's edge
+    and of two s^2 table points; K14 on that gas as stars and, at ndim 2
+    and 3, on nbody_kernel_inputs' Plummer cluster of n_gas stars (its
+    first ndim components, its coincident pair; keyed with [plummer]).
+    float64 within TOL_F64_FAMILY; float32 within the kernels' own
+    tolerances.  The tabulated kernels' reports count the pairs near a
+    table point (not with `repeats` > 0, when each report holds `ms` and
+    `plain_ms` instead).  Returns {kernel: report} under the kernels'
+    family names; launch counts are restored afterwards."""
+    from .kernels.smoothing import kernel_factory
+
+    name, tab = VARIANTS[variant]
+    kern = kernel_factory(name, ndim, tab)
+    saved = dict(_ext.LAUNCHES)
+    out = {}
+    inputs = sink_kernel_inputs(n_gas, n_slots, device, dtype, ndim=ndim,
+                                kern=kern)
+    st = inputs["sinks"]
+    if "star_gas_forces" in which:
+        rep = compare_sink_kernels(kern, inputs, repeats,
+                                   which=("star_gas_forces",))
+        if tab and not repeats:
+            for r in rep.values():
+                r["table"] = _s_table_report(kern, inputs["r"], inputs["h"],
+                                             st.r, st.h)
+        out.update(rep)
+    if "smooth_accretion" in which:
+        smooth = smooth_accretion_inputs(n_gas, n_slots, device, dtype,
+                                         ndim=ndim, kern=kern)
+        rep = compare_td_sink_kernels(kern, smooth_inputs=smooth,
+                                      repeats=repeats)
+        if tab and not repeats:
+            for r in rep.values():
+                r["table"] = _smooth_table_report(kern, smooth)
+        out.update(rep)
+    if "direct_softened" in which:
+        stars = [(inputs["r"], inputs["v"],
+                  torch.where(inputs["alive"], inputs["m"], 0.0),
+                  inputs["h"], "")]
+        if ndim > 1:
+            (r, v, m, h), _ = nbody_kernel_inputs(n_gas, device, dtype)
+            stars.append((r[:, :ndim].contiguous(),
+                          v[:, :ndim].contiguous(), m, h, "[plummer]"))
+        for r, v, m, h, tag in stars:
+            rep = compare_nbody_kernels(r, v, m, h, kern, repeats,
+                                        which=("direct_softened",))
+            for k, x in rep.items():
+                if tab and not repeats:
+                    x["table"] = _s_table_report(kern, r, h, r, h,
+                                                 distinct=True)
+                out[k + tag] = x
+    for r in out.values():
+        r["library_ms"] = None
     if dtype == torch.float64:
         _family_f64_gate(out)
     torch.cuda.synchronize()

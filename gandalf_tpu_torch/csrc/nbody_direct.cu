@@ -8,9 +8,9 @@
 //
 // Bound on the card: arithmetic.  Each pass reads O(N) values and does
 // O(N^2) pair work: at 65,536 stars, 4.3e9 pairs, each with a square root
-// and one (K13, K15) to four (K14: 1/|dr|, 1/hbar and the M4 kernel's 1/s
-// and 1/s^2 beyond the support) divisions, which in float64 are
-// multi-instruction sequences on the FP64 units.
+// and one (K13, K15) to four (K14: 1/|dr|, 1/hbar and the softening
+// kernel's 1/s and 1/s^2 beyond the support) divisions, which in float64
+// are multi-instruction sequences on the FP64 units.
 //
 // Design: the classic tiled all-pairs loop.  One thread per target star
 // keeps its position (velocity, softening length, acceleration) and its
@@ -21,15 +21,20 @@
 // identity (j == i) and coincident distinct pairs by d^2 == 0, with no
 // distance floor (collapsed sub-system members share one position).  The
 // arithmetic follows the JAX formulas term by term: K13 forms 1/sqrt(d^2),
-// K15 1/d^2 and then its square root, K14 the M4 kernel of m4.cuh at
-// s = |dr|/hbar with the Newtonian jerk (fault F9, kept for parity).  No
-// intrinsics in either precision: sqrt and division are IEEE (the library
-// is built without --use_fast_math), so float32 uses no rsqrtf or
-// __fdividef either.  Split-j for small N, warp shuffles and
-// mixed-precision sums are later work.
+// K15 1/d^2 and then its square root, K14 the softening kernel's wgrav and
+// wpot at s = |dr|/hbar with the Newtonian jerk (fault F9, kept for
+// parity).  K14's kernel is kernel_family.cuh's Kernel<T, FAM, TAB> (M4
+// or the quintic, direct or tabulated; the gaussian has no softened
+// gravity, fault F23, and is not instantiated); any kernel but the direct
+// M4 sums d^2 in the plain version's rounded steps (kExactD2), so that s,
+// and a table index, are the plain version's.  No intrinsics in either
+// precision: sqrt and division are IEEE (the library is built without
+// --use_fast_math), so float32 uses no rsqrtf or __fdividef either.
+// Split-j for small N, warp shuffles and mixed-precision sums are later
+// work.
 #include <cuda_runtime.h>
 
-#include "m4.cuh"
+#include "kernel_family.cuh"
 
 namespace {
 
@@ -100,11 +105,11 @@ __global__ void __launch_bounds__(kTile) direct_nbody_kernel(
   gpot_out[i] = pot;
 }
 
-// K14: mean-h M4-softened a and gpot, and (JERK) the Newtonian adot.
-template <typename T, int ND, bool JERK>
+// K14: mean-h kernel-softened a and gpot, and (JERK) the Newtonian adot.
+template <typename T, int ND, bool JERK, class KF>
 __global__ void __launch_bounds__(kTile) direct_softened_kernel(
     const T* __restrict__ r, const T* __restrict__ v,
-    const T* __restrict__ m, const T* __restrict__ h, int n,
+    const T* __restrict__ m, const T* __restrict__ h, int n, const KF kern,
     T* __restrict__ a_out, T* __restrict__ adot_out,
     T* __restrict__ gpot_out) {
   __shared__ T sr[ND][kTile];
@@ -140,16 +145,19 @@ __global__ void __launch_bounds__(kTile) direct_softened_kernel(
         T drsqd = T(0);
         for (int k = 0; k < ND; ++k) {
           dr[k] = sr[k][t] - ri[k];
-          drsqd += dr[k] * dr[k];
+          if (KF::kExactD2)
+            drsqd = kf::add(drsqd, kf::mul(dr[k], dr[k]));
+          else
+            drsqd += dr[k] * dr[k];
         }
         if (drsqd == T(0)) continue;
         const T drmag = sqrt(drsqd);
         const T inv_drmag = T(1) / drmag;
         const T invh = T(1) / (T(0.5) * (hi + sh[t]));
         const T s = drmag * invh;
-        const T w = sm[t] * (m4_wgrav<T>(s) * invh * invh);
+        const T w = sm[t] * (kern.wgrav(s) * invh * invh);
         for (int k = 0; k < ND; ++k) acc[k] += w * (dr[k] * inv_drmag);
-        pot += sm[t] * m4_wpot<T>(s) * invh;
+        pot += sm[t] * kern.wpot(s) * invh;
         if (JERK) {
           T dv[ND];
           T drdv = T(0);
@@ -275,34 +283,47 @@ int run_nbody(const T* r, const T* v, const T* m, int n, int ndim,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, class KF>
+void launch_softened(const T* r, const T* v, const T* m, const T* h, int n,
+                     int ndim, int jerk, const KF& kern, T* a, T* adot,
+                     T* gpot, cudaStream_t stream) {
+  const int b = blocks_for(n);
+  if (ndim == 3 && jerk)
+    direct_softened_kernel<T, 3, true, KF><<<b, kTile, 0, stream>>>(
+        r, v, m, h, n, kern, a, adot, gpot);
+  else if (ndim == 3)
+    direct_softened_kernel<T, 3, false, KF><<<b, kTile, 0, stream>>>(
+        r, v, m, h, n, kern, a, adot, gpot);
+  else if (ndim == 2 && jerk)
+    direct_softened_kernel<T, 2, true, KF><<<b, kTile, 0, stream>>>(
+        r, v, m, h, n, kern, a, adot, gpot);
+  else if (ndim == 2)
+    direct_softened_kernel<T, 2, false, KF><<<b, kTile, 0, stream>>>(
+        r, v, m, h, n, kern, a, adot, gpot);
+  else if (jerk)
+    direct_softened_kernel<T, 1, true, KF><<<b, kTile, 0, stream>>>(
+        r, v, m, h, n, kern, a, adot, gpot);
+  else
+    direct_softened_kernel<T, 1, false, KF><<<b, kTile, 0, stream>>>(
+        r, v, m, h, n, kern, a, adot, gpot);
+}
+
+// the softening kernel: `family` (kf::Family, not the gaussian) with its
+// norm, tabulated at `res` points (0: direct)
 template <typename T>
 int run_softened(const T* r, const T* v, const T* m, const T* h, int n,
-                 int ndim, int jerk, T* a, T* adot, T* gpot, int device,
-                 void* stream_ptr) {
+                 int ndim, int jerk, double norm, int family, int res,
+                 T* a, T* adot, T* gpot, int device, void* stream_ptr) {
   cudaError_t err = prepare(device, ndim, true);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n > 0) {
-    const int b = blocks_for(n);
-    if (ndim == 3 && jerk)
-      direct_softened_kernel<T, 3, true><<<b, kTile, 0, stream>>>(
-          r, v, m, h, n, a, adot, gpot);
-    else if (ndim == 3)
-      direct_softened_kernel<T, 3, false><<<b, kTile, 0, stream>>>(
-          r, v, m, h, n, a, adot, gpot);
-    else if (ndim == 2 && jerk)
-      direct_softened_kernel<T, 2, true><<<b, kTile, 0, stream>>>(
-          r, v, m, h, n, a, adot, gpot);
-    else if (ndim == 2)
-      direct_softened_kernel<T, 2, false><<<b, kTile, 0, stream>>>(
-          r, v, m, h, n, a, adot, gpot);
-    else if (jerk)
-      direct_softened_kernel<T, 1, true><<<b, kTile, 0, stream>>>(
-          r, v, m, h, n, a, adot, gpot);
-    else
-      direct_softened_kernel<T, 1, false><<<b, kTile, 0, stream>>>(
-          r, v, m, h, n, a, adot, gpot);
-  }
+  const bool known = kf::with_kernel<T, true>(
+      family, res, norm, ndim, [&](const auto& kern) {
+        if (n > 0)
+          launch_softened<T>(r, v, m, h, n, ndim, jerk, kern, a, adot, gpot,
+                             stream);
+      });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -334,10 +355,11 @@ extern "C" {
                         stream);                                             \
   }                                                                          \
   int direct_softened_##SFX(const T* r, const T* v, const T* m, const T* h, \
-                            int n, int ndim, int jerk, T* a, T* adot,        \
-                            T* gpot, int device, void* stream) {             \
-    return run_softened<T>(r, v, m, h, n, ndim, jerk, a, adot, gpot,        \
-                           device, stream);                                  \
+                            int n, int ndim, int jerk, double norm,          \
+                            int family, int res, T* a, T* adot, T* gpot,     \
+                            int device, void* stream) {                      \
+    return run_softened<T>(r, v, m, h, n, ndim, jerk, norm, family, res, a, \
+                           adot, gpot, device, stream);                      \
   }                                                                          \
   int direct_snap_##SFX(const T* r, const T* v, const T* a, const T* m,     \
                         int n, int ndim, T* snap, int device,                \

@@ -50,9 +50,15 @@
 // second launch moves each sink to the centre of mass of itself and what
 // it took and adds to its spin ledger the angular momentum of the old
 // centre of mass and of each taken parcel about the new one, with r -
-// r_new and v - v_new taken directly.  W is M4's w0(s) norm / h^NDIM
-// (norm 2/3, 10/(7 pi), 1/pi in 1D, 2D, 3D, from the host); the
-// radial-drift term keeps the JAX form's 4 pi d^2 at every ndim.
+// r_new and v - v_new taken directly.  W is the smoothing kernel's
+// w0_s2(s^2) / h^NDIM at s = dist / h_s, and the potential term its
+// wpot(s): kernel_family.cuh's Kernel<T, FAM, TAB> (M4 or the quintic,
+// direct or tabulated, with its norm in NDIM from the host; the gaussian
+// has no softened gravity, fault F23, and is not instantiated), so a
+// table quantises s^2 on its s^2 grid as JAX's w0_s2 does.  Any kernel
+// but the direct M4 forms s^2 as one rounded product.  The claim, and
+// K18 and the second launch, read no kernel.  The radial-drift term keeps
+// the JAX form's 4 pi d^2 at every ndim.
 //
 // Bound on the card: the N x Ns distance tests of the claim (one pass,
 // as K18's), then reads of each particle's 4 NDIM values and a few slot
@@ -70,8 +76,9 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
 
-#include "m4.cuh"
+#include "kernel_family.cuh"
 #include "tree.cuh"
 
 namespace {
@@ -384,14 +391,14 @@ constexpr double kPi = 3.14159265358979323846;
 // K20 launch 1, stage 1: each gas particle's slot (-1 for none) and its
 // terms: m, m W/rho, m dv_t^2 W/rho, m wpot(s)/h_s, m log(sqrt(d)/c^2)
 // (floored at 1e-30 inside the log) and |4 pi d^2 m dvdr W|
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __global__ void __launch_bounds__(kTile) smooth_terms(
     const T* __restrict__ r, const T* __restrict__ v,
     const T* __restrict__ m, const T* __restrict__ rho,
     const T* __restrict__ sound, const unsigned char* __restrict__ alive,
     int n, const T* __restrict__ rs, const T* __restrict__ vs,
     const T* __restrict__ hs, const unsigned char* __restrict__ act, int ns,
-    T sink_radius, T norm, int* __restrict__ slot_of,
+    T sink_radius, const KF kern, int* __restrict__ slot_of,
     T* __restrict__ vals) {
   __shared__ T sp[NDIM][kTile];
   __shared__ T sr[kTile];
@@ -448,7 +455,8 @@ __global__ void __launch_bounds__(kTile) smooth_terms(
   T ihn = ih;
 #pragma unroll
   for (int k = 1; k < NDIM; ++k) ihn *= ih;
-  const T w0 = m4_w0<T>(sqrt(s * s), norm) * ihn;
+  const T ssqd = KF::kExactD2 ? kf::mul(s, s) : s * s;
+  const T w0 = kern.w0_s2(ssqd) * ihn;
   const T w_rho = w0 / max(rho[i], T(1e-30));
   T dvdr = T(0), dv2 = T(0);
 #pragma unroll
@@ -460,7 +468,7 @@ __global__ void __launch_bounds__(kTile) smooth_terms(
   out[0] = mi;
   out[1] = mi * w_rho;
   out[2] = mi * (dv2 - dvdr * dvdr) * w_rho;
-  out[3] = mi * ih * m4_wpot<T>(s);
+  out[3] = mi * ih * kern.wpot(s);
   out[4] = mi * log(max(sqrt(dist) / (c * c), T(1e-30)));
   out[5] = fabs(T(4 * kPi) * dist * dist * mi * dvdr * w0);
 }
@@ -706,18 +714,24 @@ int run_smooth_sums(const T* r, const T* v, const T* m, const T* rho,
                     const T* sound, const unsigned char* alive, int n,
                     const T* rs, const T* vs, const T* ms, const T* hs,
                     const unsigned char* act, int ns, double sink_radius,
-                    const T* dt, double norm, double mmean, double alpha_ss,
-                    double frac, double sdt, int* slot_of, T* vals, T* part,
+                    const T* dt, double norm, int family, int res,
+                    double mmean, double alpha_ss, double frac, double sdt,
+                    int* slot_of, T* vals, T* part,
                     T* sums, T* slot_scr, T* dm, T* menc, T* macc, T* tacc,
                     int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int nb = (n + kTile - 1) / kTile;
-  if (n > 0)
-    smooth_terms<T, NDIM><<<nb, kTile, 0, stream>>>(
-        r, v, m, rho, sound, alive, n, rs, vs, hs, act, ns, T(sink_radius),
-        T(norm), slot_of, vals);
+  const bool known = kf::with_kernel<T, true>(
+      family, res, norm, NDIM, [&](const auto& kern) {
+        using KF = std::decay_t<decltype(kern)>;
+        if (n > 0)
+          smooth_terms<T, NDIM, KF><<<nb, kTile, 0, stream>>>(
+              r, v, m, rho, sound, alive, n, rs, vs, hs, act, ns,
+              T(sink_radius), kern, slot_of, vals);
+      });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   if (ns > 0) {
     slot_sums<T, kTerms>(slot_of, vals, n, ns, part, sums, stream);
     smooth_slots<T><<<(ns + kSlotThreads - 1) / kSlotThreads, kSlotThreads,
@@ -792,15 +806,15 @@ int sink_candidate_blocks(int n) { return candidate_blocks(n); }
       const T* r, const T* v, const T* m, const T* rho, const T* sound,     \
       const unsigned char* alive, int n, const T* rs, const T* vs,          \
       const T* ms, const T* hs, const unsigned char* act, int ns,           \
-      double sink_radius, const T* dt, double norm, double mmean,           \
-      double alpha_ss, double frac, double sdt, int* slot_of, T* vals,      \
-      T* part, T* sums, T* slot_scr, T* dm, T* menc, T* macc, T* tacc,      \
-      int device, void* stream) {                                           \
+      double sink_radius, const T* dt, double norm, int family, int res,    \
+      double mmean, double alpha_ss, double frac, double sdt, int* slot_of, \
+      T* vals, T* part, T* sums, T* slot_scr, T* dm, T* menc, T* macc,      \
+      T* tacc, int device, void* stream) {                                  \
     return run_smooth_sums<T, ND>(r, v, m, rho, sound, alive, n, rs, vs,    \
                                   ms, hs, act, ns, sink_radius, dt, norm,   \
-                                  mmean, alpha_ss, frac, sdt, slot_of,      \
-                                  vals, part, sums, slot_scr, dm, menc,     \
-                                  macc, tacc, device, stream);              \
+                                  family, res, mmean, alpha_ss, frac, sdt,  \
+                                  slot_of, vals, part, sums, slot_scr, dm,  \
+                                  menc, macc, tacc, device, stream);        \
   }                                                                         \
   int smooth_accretion_apply##DSFX##_##SFX(                                 \
       const T* r, const T* v, const T* m, const T* dm, const int* slot_of,  \

@@ -1,7 +1,10 @@
-// K16 star_gas_forces: mean-h M4-softened gravity between every gas
+// K16 star_gas_forces: mean-h kernel-softened gravity between every gas
 // particle and every star (sink) slot, both ways, in 1-3 dims (NDIM a
-// template parameter: M4's wgrav and wpot carry no ndim normalisation, so
-// only the separations change with NDIM).
+// template parameter: the softened wgrav and wpot carry no ndim
+// normalisation, so only the separations change with NDIM).  The kernel
+// is kernel_family.cuh's Kernel<T, FAM, TAB>, a template parameter: M4 or
+// the quintic, direct or tabulated (the gaussian has no softened gravity,
+// fault F23, and is not instantiated).
 //
 // Replaces gandalf_tpu/ops/sph_gravity.py:star_gas_forces (:30), which
 // builds (N, Ns, ndim) pair arrays and reduces them along each axis:
@@ -11,7 +14,7 @@
 // wg = wgrav(s)/hbar^2, wp = wpot(s)/hbar and unit = dr/|dr|.
 //
 // Bound on the card: arithmetic.  N x Ns pairs, each with a square root,
-// two divisions and the M4 kernel, evaluated once for each side; the
+// two divisions and the softening kernel, evaluated once for each side; the
 // inputs are NDIM + 2 values a particle or slot.  At the Boss-Bodenheimer
 // path's 262,144 gas particles and 16 slots the work is a few
 // microseconds; at an embedded cluster's 4,096 stars it is 1.1e9 pairs a
@@ -31,10 +34,12 @@
 // potential term stays), and an inactive slot counts on the gas side
 // through act only.  IEEE sqrt and division (no fast-math).  The 3D
 // instantiation keeps the arithmetic of the 3D-only kernel it replaced
-// (d^2 = dx^2 + dy^2 + dz^2 written out, the components in order).
+// (d^2 = dx^2 + dy^2 + dz^2 written out, the components in order); any
+// kernel but the direct M4 sums d^2 in the plain version's rounded steps
+// (kExactD2), so that s, and a table index, are the plain version's.
 #include <cuda_runtime.h>
 
-#include "m4.cuh"
+#include "kernel_family.cuh"
 
 namespace {
 
@@ -43,33 +48,43 @@ constexpr int kWarp = 32;    // star side: slots a block
 constexpr int kChunk = 256;  // star side: gas particles a block
 constexpr int kFinish = 128; // star side: threads a slot's final sum
 
-// |d|^2 of a separation, the components summed left to right
-template <typename T, int NDIM>
+// |d|^2 of a separation, the components summed left to right (with
+// kExactD2 each product and sum rounded on its own)
+template <typename T, int NDIM, class KF>
 __device__ __forceinline__ T norm2(const T d[NDIM]) {
-  if constexpr (NDIM == 3) return d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-  else if constexpr (NDIM == 2) return d[0] * d[0] + d[1] * d[1];
-  else return d[0] * d[0];
+  if constexpr (KF::kExactD2) {
+    T d2 = kf::mul(d[0], d[0]);
+#pragma unroll
+    for (int k = 1; k < NDIM; ++k) d2 = kf::add(d2, kf::mul(d[k], d[k]));
+    return d2;
+  } else if constexpr (NDIM == 3) {
+    return d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  } else if constexpr (NDIM == 2) {
+    return d[0] * d[0] + d[1] * d[1];
+  } else {
+    return d[0] * d[0];
+  }
 }
 
 // wg, wp and 1/|dr| (0 for a coincident pair) of one star-gas pair
-template <typename T>
-__device__ __forceinline__ void pair_terms(T d2, T hg, T hs, T& wg, T& wp,
-                                           T& inv) {
+template <typename T, class KF>
+__device__ __forceinline__ void pair_terms(const KF& kern, T d2, T hg, T hs,
+                                           T& wg, T& wp, T& inv) {
   const bool zero = d2 == T(0);
   const T drmag = zero ? T(1) : sqrt(d2);
   inv = zero ? T(0) : T(1) / drmag;
   const T invh = T(1) / (T(0.5) * (hg + hs));
   const T s = drmag * invh;
-  wg = m4_wgrav<T>(s) * invh * invh;
-  wp = m4_wpot<T>(s) * invh;
+  wg = kern.wgrav(s) * invh * invh;
+  wp = kern.wpot(s) * invh;
 }
 
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __global__ void __launch_bounds__(kTile) star_gas_gas_side(
     const T* __restrict__ rg, const T* __restrict__ hg, int n,
     const T* __restrict__ rs, const T* __restrict__ ms,
     const T* __restrict__ hs, const unsigned char* __restrict__ act, int ns,
-    T* __restrict__ a_gas, T* __restrict__ gpot_gas) {
+    const KF kern, T* __restrict__ a_gas, T* __restrict__ gpot_gas) {
   __shared__ T sr[NDIM][kTile];
   __shared__ T sm[kTile], sh[kTile], sa[kTile];
   const int i = blockIdx.x * kTile + threadIdx.x;
@@ -99,7 +114,7 @@ __global__ void __launch_bounds__(kTile) star_gas_gas_side(
 #pragma unroll
         for (int k = 0; k < NDIM; ++k) d[k] = sr[k][t] - ri[k];
         T wg, wp, inv;
-        pair_terms(norm2<T, NDIM>(d), hi, sh[t], wg, wp, inv);
+        pair_terms(kern, norm2<T, NDIM, KF>(d), hi, sh[t], wg, wp, inv);
         const T w = sm[t] * wg * sa[t];
 #pragma unroll
         for (int k = 0; k < NDIM; ++k) acc[k] += w * (d[k] * inv);
@@ -117,11 +132,12 @@ __global__ void __launch_bounds__(kTile) star_gas_gas_side(
 
 // partial star-side sums of slot tile blockIdx.x over gas chunk
 // blockIdx.y: part[(chunk * ns + slot) * (NDIM + 1) + (a (NDIM), pot)]
-template <typename T, int NDIM>
+template <typename T, int NDIM, class KF>
 __global__ void __launch_bounds__(kWarp) star_gas_star_side(
     const T* __restrict__ rg, const T* __restrict__ mg,
     const T* __restrict__ hg, int n, const T* __restrict__ rs,
-    const T* __restrict__ hs, int ns, T* __restrict__ part) {
+    const T* __restrict__ hs, int ns, const KF kern,
+    T* __restrict__ part) {
   __shared__ T gr[NDIM][kWarp];
   __shared__ T gm[kWarp], gh[kWarp];
   const int j = blockIdx.x * kWarp + threadIdx.x;
@@ -153,7 +169,7 @@ __global__ void __launch_bounds__(kWarp) star_gas_star_side(
 #pragma unroll
         for (int k = 0; k < NDIM; ++k) d[k] = rj[k] - gr[k][t];
         T wg, wp, inv;
-        pair_terms(norm2<T, NDIM>(d), gh[t], hj, wg, wp, inv);
+        pair_terms(kern, norm2<T, NDIM, KF>(d), gh[t], hj, wg, wp, inv);
         const T w = gm[t] * wg;
 #pragma unroll
         for (int k = 0; k < NDIM; ++k) acc[k] += w * (d[k] * inv);
@@ -202,28 +218,46 @@ __global__ void __launch_bounds__(kFinish) star_gas_star_finish(
   gpot_star[j] = red[NDIM][0];
 }
 
-template <typename T, int NDIM>
-int run_star_gas(const T* rg, const T* mg, const T* hg, int n, const T* rs,
-                 const T* ms, const T* hs, const unsigned char* act, int ns,
-                 T* part, T* a_gas, T* gpot_gas, T* a_star, T* gpot_star,
-                 int device, void* stream_ptr) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+template <typename T, int NDIM, class KF>
+void launch_star_gas(const T* rg, const T* mg, const T* hg, int n,
+                     const T* rs, const T* ms, const T* hs,
+                     const unsigned char* act, int ns, const KF& kern,
+                     T* part, T* a_gas, T* gpot_gas, T* a_star,
+                     T* gpot_star, cudaStream_t stream) {
   if (n > 0)
-    star_gas_gas_side<T, NDIM><<<(n + kTile - 1) / kTile, kTile, 0,
-                                 stream>>>(rg, hg, n, rs, ms, hs, act, ns,
-                                           a_gas, gpot_gas);
+    star_gas_gas_side<T, NDIM, KF><<<(n + kTile - 1) / kTile, kTile, 0,
+                                     stream>>>(rg, hg, n, rs, ms, hs, act,
+                                               ns, kern, a_gas, gpot_gas);
   if (ns > 0) {
     const int n_chunks = (n + kChunk - 1) / kChunk;
     if (n_chunks > 0) {
       const dim3 grid((ns + kWarp - 1) / kWarp, n_chunks);
-      star_gas_star_side<T, NDIM><<<grid, kWarp, 0, stream>>>(
-          rg, mg, hg, n, rs, hs, ns, part);
+      star_gas_star_side<T, NDIM, KF><<<grid, kWarp, 0, stream>>>(
+          rg, mg, hg, n, rs, hs, ns, kern, part);
     }
     star_gas_star_finish<T, NDIM><<<ns, kFinish, 0, stream>>>(
         part, ns, n_chunks, a_star, gpot_star);
   }
+}
+
+// the softening kernel: `family` (kf::Family, not the gaussian) with its
+// norm, tabulated at `res` points (0: direct)
+template <typename T, int NDIM>
+int run_star_gas(const T* rg, const T* mg, const T* hg, int n, const T* rs,
+                 const T* ms, const T* hs, const unsigned char* act, int ns,
+                 double norm, int family, int res, T* part, T* a_gas,
+                 T* gpot_gas, T* a_star, T* gpot_star, int device,
+                 void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool known = kf::with_kernel<T, true>(
+      family, res, norm, NDIM, [&](const auto& kern) {
+        launch_star_gas<T, NDIM>(rg, mg, hg, n, rs, ms, hs, act, ns, kern,
+                                 part, a_gas, gpot_gas, a_star, gpot_star,
+                                 stream);
+      });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -235,12 +269,12 @@ extern "C" {
 #define STAR_GAS_ENTRY(NAME, ND, SFX, T)                                    \
   int NAME##_##SFX(const T* rg, const T* mg, const T* hg, int n,            \
                    const T* rs, const T* ms, const T* hs,                   \
-                   const unsigned char* act, int ns, T* part, T* a_gas,     \
-                   T* gpot_gas, T* a_star, T* gpot_star, int device,        \
-                   void* stream) {                                          \
-    return run_star_gas<T, ND>(rg, mg, hg, n, rs, ms, hs, act, ns, part,    \
-                               a_gas, gpot_gas, a_star, gpot_star, device,  \
-                               stream);                                     \
+                   const unsigned char* act, int ns, double norm,           \
+                   int family, int res, T* part, T* a_gas, T* gpot_gas,     \
+                   T* a_star, T* gpot_star, int device, void* stream) {     \
+    return run_star_gas<T, ND>(rg, mg, hg, n, rs, ms, hs, act, ns, norm,    \
+                               family, res, part, a_gas, gpot_gas, a_star,  \
+                               gpot_star, device, stream);                  \
   }
 
 STAR_GAS_ENTRY(star_gas_forces, 3, f32, float)

@@ -6,8 +6,10 @@ all pairs of stars (G = 1, the reference's Nbody::CalculateDirectGravForces,
 src/Nbody/Nbody.cpp:233-280):
 
 - ``direct_nbody`` (K13): unsoftened acceleration, jerk and potential;
-- ``direct_softened`` (K14): the mean-h M4-softened acceleration and
-  potential, with the jerk optional and Newtonian (ROADMAP fault F9);
+- ``direct_softened`` (K14): the mean-h kernel-softened acceleration
+  and potential (M4 or the quintic, direct or tabulated; not the
+  gaussian, fault F23), with the jerk optional and Newtonian (ROADMAP
+  fault F9);
 - ``direct_snap`` (K15): the snap from the current accelerations, the
   second force pass of Hermite6TS.
 
@@ -18,7 +20,10 @@ do the JAX package's arithmetic with the same masks (self pairs by
 identity, coincident pairs by d^2 = 0, no distance floor: collapsed
 sub-system members share one position), over chunks of target rows so
 that the (rows, N, ndim) temporaries stay near 2^22 pairs: the JAX form
-builds (N, N, ndim) arrays.
+builds (N, N, ndim) arrays.  d^2 is summed in axis order with one
+rounding a term (``ops.mfv._dist2``), as K14 sums it for every kernel
+but the direct M4: on the card torch.sum pairs the terms otherwise, which
+would move a float32 pair across a table point.
 
 ``external_potential`` is elementwise torch.
 """
@@ -30,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _ext
+from .mfv import _dist2
 
 Tensor = torch.Tensor
 
@@ -53,7 +59,7 @@ def _pair_geometry(r: Tensor, c0: int, c1: int):
     """dr[i, j] = r_j - r_i for the target rows c0:c1, |dr|^2 and the
     mask of self and coincident pairs."""
     dr = r[None, :, :] - r[c0:c1, None, :]
-    drsqd = torch.sum(dr * dr, dim=-1)
+    drsqd = _dist2(dr)
     rows = torch.arange(c0, c1, device=r.device)
     cols = torch.arange(r.shape[0], device=r.device)
     eye = (rows[:, None] == cols[None, :]) | (drsqd == 0.0)
@@ -161,8 +167,8 @@ def direct_nbody(r: Tensor, v: Tensor, m: Tensor,
 
 def direct_softened(r: Tensor, v: Tensor, m: Tensor, h: Tensor, kern,
                     compute_jerk: bool = False) -> GravityResult:
-    """K14 on CUDA tensors (the M4 kernel of csrc/m4.cuh), the plain
-    version on CPU tensors."""
+    """K14 on CUDA tensors (the softening kernel `kern`, M4 or the
+    quintic, direct or tabulated), the plain version on CPU tensors."""
     if r.is_cuda:
         return GravityResult(*_ext.direct_softened(
             r.contiguous(), v.contiguous(), m.contiguous(), h.contiguous(),

@@ -175,20 +175,19 @@ def create_sinks(cfg: SinkConfig, sinks: SinkState, r, v, m, h, rho,
 # ---------------------------------------------------------------------------
 
 def accretion_sums(cfg: SinkConfig, sinks: SinkState, r: Tensor, v: Tensor,
-                   m: Tensor, alive: Tensor, kern=None):
+                   m: Tensor, alive: Tensor):
     """Per-slot accretion sums (dm (Ns,), dmom and dmr (Ns, ndim)) and
     the eaten mask (N,) of gas r, v (N, ndim): each alive gas particle
     within sink_radius h_s of an active sink goes to the nearest such
-    sink (the first slot of equal distances).  K18 on CUDA tensors,
-    which take the run's smoothing kernel `kern` only if it is the
-    direct M4."""
+    sink (the first slot of equal distances).  No smoothing kernel enters.
+    K18 on CUDA tensors."""
     if r.is_cuda:
         return _ext.accretion_sums(r.contiguous(), v.contiguous(),
                                    m.contiguous(), alive.contiguous(),
                                    sinks.r.contiguous(),
                                    sinks.h.contiguous(),
                                    sinks.active.contiguous(),
-                                   cfg.sink_radius, kern=kern)
+                                   cfg.sink_radius)
     return accretion_sums_plain(cfg, sinks, r, v, m, alive)
 
 
@@ -242,11 +241,10 @@ def apply_accretion(sinks: SinkState, dm: Tensor, dmom: Tensor,
         m=torch.where(upd, m_new, sinks.m))
 
 
-def accrete_to_sinks(cfg: SinkConfig, sinks: SinkState, r, v, m, alive,
-                     kern=None):
+def accrete_to_sinks(cfg: SinkConfig, sinks: SinkState, r, v, m, alive):
     """Accrete the gas within each sink's accretion radius (sink_radius
     h_s).  Returns the sinks and the gas alive mask without the eaten."""
-    dm, dmom, dmr, eaten = accretion_sums(cfg, sinks, r, v, m, alive, kern)
+    dm, dmom, dmr, eaten = accretion_sums(cfg, sinks, r, v, m, alive)
     return apply_accretion(sinks, dm, dmom, dmr), alive & ~eaten
 
 
@@ -294,8 +292,10 @@ def smooth_accretion_sums(cfg: SinkConfig, sinks: SinkState, r: Tensor,
     per-slot sums: a dict with "claim" (N,) int32, the slot each
     particle belongs to (-1 for none), "menc", "macc" and "taccrete" (Ns,)
     and "dmdt" = macc / dt.  `dt` is a 0-d tensor on the gas's device (a
-    block tick's dt_base).  W is `kern`'s, normalised in its ndim.  K20's
-    first launch on CUDA tensors (the M4 kernel of csrc/m4.cuh)."""
+    block tick's dt_base).  W and the potential term's wpot are `kern`'s
+    (normalised in its ndim).  K20's first launch on CUDA tensors, which
+    take M4 and the quintic, direct or tabulated (the gaussian is refused:
+    fault F23)."""
     if r.is_cuda:
         dm, claim, menc, macc, tacc = _ext.smooth_accretion_sums(
             r.contiguous(), v.contiguous(), m.contiguous(),
@@ -303,8 +303,8 @@ def smooth_accretion_sums(cfg: SinkConfig, sinks: SinkState, r: Tensor,
             sinks.r.contiguous(), sinks.v.contiguous(),
             sinks.m.contiguous(), sinks.h.contiguous(),
             sinks.active.contiguous(), cfg.sink_radius, dt.contiguous(),
-            kern.kernnorm, mmean, alpha_ss, smooth_accrete_frac,
-            smooth_accrete_dt, kern=kern)
+            mmean, alpha_ss, smooth_accrete_frac, smooth_accrete_dt,
+            kern=kern)
         return dm, {"claim": claim, "menc": menc, "macc": macc,
                     "taccrete": tacc,
                     "dmdt": macc / torch.clamp_min(dt, 1e-30)}
@@ -384,21 +384,20 @@ def smooth_accretion_sums_plain(cfg: SinkConfig, sinks: SinkState, r, v, m,
 
 def apply_smooth_accretion(sinks: SinkState, r: Tensor, v: Tensor,
                            m: Tensor, dm: Tensor, claim: Tensor,
-                           alive: Tensor, kern=None):
+                           alive: Tensor):
     """The sink update of smooth accretion: each slot gains the mass and
     momentum taken from its claimed gas (claim (N,) int32, -1 for none)
     and moves to the new centre of mass; its spin ledger adds the old
     centre of mass's and each taken parcel's angular momentum about the
-    new one.  Returns (sinks, m - dm, alive & (m - dm > 0)).  K20's
-    second launch on CUDA tensors, which take the run's smoothing kernel
-    `kern` only if it is the direct M4."""
+    new one.  Returns (sinks, m - dm, alive & (m - dm > 0)).  No
+    smoothing kernel enters.  K20's second launch on CUDA tensors."""
     if r.is_cuda:
         out = _ext.smooth_accretion_apply(
             r.contiguous(), v.contiguous(), m.contiguous(), dm.contiguous(),
             claim.contiguous(), alive.contiguous(), sinks.r.contiguous(),
             sinks.v.contiguous(), sinks.r0.contiguous(),
             sinks.v0.contiguous(), sinks.m.contiguous(),
-            sinks.angmom.contiguous(), sinks.active.contiguous(), kern=kern)
+            sinks.angmom.contiguous(), sinks.active.contiguous())
         rs, vs, r0, v0, ms, angmom, m_gas, alive_new = out
         return (sinks.replace(r=rs, v=vs, r0=r0, v0=v0, m=ms,
                               angmom=angmom), m_gas, alive_new)

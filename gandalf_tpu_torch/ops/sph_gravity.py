@@ -26,6 +26,7 @@ import torch
 
 from .. import _ext
 from .ewald import ewald_correction
+from .mfv import _dist2
 
 Tensor = torch.Tensor
 
@@ -39,11 +40,12 @@ def star_gas_forces(kern, r_gas: Tensor, m_gas: Tensor, h_gas: Tensor,
     """Symmetric star-gas kernel-softened gravity with mean-h softening
     (the reference's GradhSph::ComputeStarGravForces, GradhSph.cpp:699).
     Returns (a_gas (N, ndim), gpot_gas (N,), a_star (Ns, ndim), gpot_star
-    (Ns,)) for r_gas (N, ndim) and r_star (Ns, ndim), ndim 1-3 (M4's
-    wgrav and wpot carry no ndim normalisation): an inactive slot pulls
-    no gas (and its own rows are
-    meaningless); the star side sums every gas particle with its mass.
-    K16 on CUDA tensors (the M4 kernel of csrc/m4.cuh)."""
+    (Ns,)) for r_gas (N, ndim) and r_star (Ns, ndim), ndim 1-3 (the
+    softened wgrav and wpot carry no ndim normalisation): an inactive
+    slot pulls no gas (and its own rows are meaningless); the star side
+    sums every gas particle with its mass.  K16 on CUDA tensors, with
+    `kern` M4 or the quintic, direct or tabulated (the gaussian is
+    refused: fault F23)."""
     if r_gas.is_cuda:
         return _ext.star_gas_forces(
             r_gas.contiguous(), m_gas.contiguous(), h_gas.contiguous(),
@@ -57,7 +59,7 @@ def star_gas_forces_plain(kern, r_gas, m_gas, h_gas, r_star, m_star,
                           h_star, star_active):
     """Plain version of K16: the JAX formula over chunks of gas rows, in
     1-3 dims.  A coincident pair (d^2 = 0) takes |dr| = 1 and unit 0, as
-    there."""
+    there; d^2 is summed in K16's order (_dist2)."""
     N = r_gas.shape[0]
     Ns = r_star.shape[0]
     act = torch.where(star_active, 1.0, 0.0).to(r_gas.dtype)
@@ -68,7 +70,7 @@ def star_gas_forces_plain(kern, r_gas, m_gas, h_gas, r_star, m_star,
     for c0 in range(0, N, step):
         c1 = min(N, c0 + step)
         dr = r_star[None, :, :] - r_gas[c0:c1, None, :]
-        drsqd = torch.sum(dr * dr, dim=-1)
+        drsqd = _dist2(dr)
         zero = drsqd == 0.0
         drmag = torch.sqrt(torch.where(zero, 1.0, drsqd))
         inv_drmag = torch.where(zero, 0.0, 1.0 / drmag)

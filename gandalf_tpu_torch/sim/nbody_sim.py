@@ -12,9 +12,10 @@ in 2D or 3D, under one of the schemes
 - ``lfkdk``, ``lfdkd``: velocity-Verlet leapfrog, one force pass a step.
 
 Gravity is unsoftened (K13) or, with ``nbody_softening = 1`` (the
-default), softened with the mean-h M4 kernel (K14); the external
-potentials ``plummer`` and ``vertical`` add their acceleration, jerk and
-potential.  With ``sub_systems = 1`` bound few-body systems are found on
+default), softened with the mean-h smoothing kernel (K14: M4 or the
+quintic, direct or tabulated; the gaussian is refused, fault F23); the
+external potentials ``plummer`` and ``vertical`` add their acceleration,
+jerk and potential.  With ``sub_systems = 1`` bound few-body systems are found on
 the host every ``nsystembuildstep`` steps (``ops/systemtree.py``), their
 members collapsed onto the centre of mass for the global integration (the
 kernels mask coincident pairs) and their internal motion integrated on
@@ -38,7 +39,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .._ext import require_m4
+from .._ext import refuse_gaussian_gravity
 from ..integrate import hermite
 from ..integrate.hermite import HermiteConfig
 from ..kernels.smoothing import kernel_factory
@@ -86,7 +87,9 @@ class NbodySimulation(SimulationBase):
         self.kern = (kernel_factory(sp["kernel"], self.ndim,
                                     ip["tabulated_kernel"])
                      if self.softening else None)
-        require_m4(self.kern, "softened N-body gravity (K14)")
+        # M4 or the quintic, direct or tabulated: the JAX package's
+        # gaussian wgrav and wpot are zero (fault F23)
+        refuse_gaussian_gravity(self.kern, "softened N-body gravity (K14)")
         self.extpot = sp["external_potential"]
         if self.extpot not in EXTERNAL_POTENTIALS:
             raise ValueError(

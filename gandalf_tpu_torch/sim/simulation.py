@@ -12,10 +12,11 @@ controller is in ``sim/mfv_sim.py``, the N-body one in ``sim/nbody_sim.py``.
 ``GradhSphSimulation`` is the counterpart of gandalf_tpu's
 ``GradhSphSimulation`` for one configuration: grad-h SPH with the M4,
 quintic or gaussian kernel, direct or tabulated (the quintic, gaussian
-and tabulated kernels through K2, K3, K7-K9, K21 and K23-K26, so not
-with sinks or stars, whose K14, K16, K18 and K20 hold M4 only; the
-gaussian not with self-gravity: fault F23), the adiabatic, isothermal, barotropic, polytropic or radws EOS
-(the opacity table's gamma, K27; with energy_integration = radws u
+and tabulated kernels through K2, K3, K7-K9, K14, K16, K20, K21 and
+K23-K26; the gaussian not with self-gravity, sinks or stars, whose
+softened gravity it zeroes: fault F23), the adiabatic, isothermal,
+barotropic, polytropic or radws EOS (the opacity table's gamma, K27;
+with energy_integration = radws u
 relaxes each step toward the radiative equilibrium that K28 finds at
 the previous step's end, instead of integrating du/dt, and with rad_fb
 the equilibrium takes K30's per-particle ambient temperature from the
@@ -89,7 +90,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .._ext import require_m4
+from .._ext import refuse_gaussian_gravity
 from ..integrate.block import (BlockConfig, advance, check_timesteps,
                                end_timestep, init_schedule)
 from ..integrate.leapfrog import (IntegratorConfig, correct, predict,
@@ -987,8 +988,12 @@ class GradhSphSimulation(SimulationBase):
         """The options the port runs with sink or star slots, whether the
         slots come from the parameters (create_sinks, sink_particles) or
         from the IC's stars: 1-3 dims (radiation and radiative feedback,
-        whose sources are the slots, too), no mirror walls, M4."""
-        require_m4(self.kern, "sinks or stars (K14, K16-K18, K20)")
+        whose sources are the slots, too), no mirror walls, any smoothing
+        kernel but the gaussian, direct or tabulated: the JAX package's
+        gaussian wgrav and wpot are zero, so its _sink_coupled_pass would
+        give stars and gas no pull on each other and smooth accretion a
+        zero potential energy (fault F23)."""
+        refuse_gaussian_gravity(self.kern, "sinks or stars (K14, K16, K20)")
         if self.box.mirror_walls():
             raise _unsupported("mirror/wall boundaries with sinks (the JAX "
                                "package's all-pairs path)", "item 8")
@@ -1244,11 +1249,10 @@ class GradhSphSimulation(SimulationBase):
                     smooth_accrete_frac=fp["smooth_accrete_frac"],
                     smooth_accrete_dt=fp["smooth_accrete_dt"])
                 sk, m_new, alive = apply_smooth_accretion(
-                    sk, s.r, s.v, s.m, dm, sums["claim"], alive, self.kern)
+                    sk, s.r, s.v, s.m, dm, sums["claim"], alive)
                 s = s.replace(m=m_new)
             else:
-                sk, alive = accrete_to_sinks(cfg, sk, s.r, s.v, s.m, alive,
-                                             self.kern)
+                sk, alive = accrete_to_sinks(cfg, sk, s.r, s.v, s.m, alive)
             sk = sk.replace(mdot=(sk.m - m_before)
                             / torch.clamp_min(dt, 1e-30))
         return self._kill_eaten(s.replace(sinks=sk), alive)

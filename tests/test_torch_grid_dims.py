@@ -276,8 +276,9 @@ def test_refusals_below_3d_name_their_items(ndim):
     but not the Ewald sum of a periodic box (ewald = 1, the default),
     which both controllers refuse with the JAX package's reason; sinks
     run below 3D (tests/test_torch_sink_dims_sim.py), with radiation
-    too, but not with a kernel other than M4 (item 9: K14, K16-K18 and
-    K20 hold M4 only); block steps run below 3D
+    too, and with the quintic, but not with the gaussian, whose softened
+    gravity (K14, K16, K20) is zero in the JAX package (fault F23); block
+    steps run below 3D
     (tests/test_torch_block_dims.py)."""
     ewald = "Ewald periodic self-gravity requires a 3D box"
     p = mirror_params(8, ndim, walls=())
@@ -287,7 +288,9 @@ def test_refusals_below_3d_name_their_items(ndim):
     p.set("create_sinks", 1)
     SimulationBase.factory(p, "cpu", torch.float64).process_parameters()
     p.set("kernel", "quintic")
-    _refused(p, "item 9")
+    SimulationBase.factory(p, "cpu", torch.float64).process_parameters()
+    p.set("kernel", "gaussian")
+    _refused(p, "sinks or stars.*F23")
     p = mirror_params(8, ndim, walls=())
     p.set("sim", "meshlessfv")
     p.set("self_gravity", 1)

@@ -600,6 +600,7 @@ def test_td_sink_wrappers_refuse_cpu_tensors():
     run only through ops.sinks', ops.forces' and ops.active_grid's
     dispatch on CPU tensors."""
     from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
     from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec
 
     f64 = dict(dtype=torch.float64)
@@ -616,9 +617,11 @@ def test_td_sink_wrappers_refuse_cpu_tensors():
     kern = type("K", (), {"kernnorm": 1.0, "kernrange": 2.0})()
     visc = type("V", (), {"alpha_visc": 1.0, "alpha_visc_min": 0.1})()
     before = dict(_ext.LAUNCHES)
+    m4 = kernel_factory("m4", 3)
     for call in (lambda: _ext.smooth_accretion_sums(
                      r, v, m, m, m, alive, rs, rs, ms, ms, act, 2.0,
-                     torch.tensor(0.1, **f64), 1.0, 0.1, 0.01, 0.01, 0.01),
+                     torch.tensor(0.1, **f64), 0.1, 0.01, 0.01, 0.01,
+                     kern=m4),
                  lambda: _ext.smooth_accretion_apply(
                      r, v, m, m, claim, alive, rs, rs, rs, rs, ms, rs, act),
                  lambda: _ext.cullen_dehnen(spec, kern, visc, ids, r,
@@ -1161,6 +1164,60 @@ def test_mfv_family_kernels_match_plain_versions_on_gpu(variant, ndim,
     from gandalf_tpu_torch.check import compare_mfv_family_kernels
 
     report = compare_mfv_family_kernels(variant, ndim, "cuda", dtype)
+    bad = {k: r.get("scaled_err", r) for k, r in report.items()
+           if not r["ok"]}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("variant", ["quintic", "m4_tab", "quintic_tab"])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_sink_family_wrappers_refuse_cpu_tensors(variant, ndim):
+    """K14, K16 and K20's sums with every variant that has softened
+    gravity (the kernels take norm, family and table resolution): CPU
+    tensors raise and count no launch; no wrapper refuses the kernel."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.kernels.smoothing import VARIANTS, kernel_factory
+
+    kern = kernel_factory(VARIANTS[variant][0], ndim, VARIANTS[variant][1])
+    f64 = dict(dtype=torch.float64)
+    r, v = torch.rand((32, ndim), **f64), torch.rand((32, ndim), **f64)
+    m = torch.rand((32,), **f64)
+    rs, ms = torch.rand((4, ndim), **f64), torch.rand((4,), **f64)
+    alive = torch.ones((32,), dtype=torch.bool)
+    act = torch.ones((4,), dtype=torch.bool)
+    before = dict(_ext.LAUNCHES)
+    for call in (
+            lambda: _ext.direct_softened(r, v, m, m, True, kern=kern),
+            lambda: _ext.star_gas_forces(r, m, m, rs, ms, ms, act,
+                                         kern=kern),
+            lambda: _ext.smooth_accretion_sums(
+                r, v, m, m, m, alive, rs, rs, ms, ms, act, 2.0,
+                torch.tensor(0.1, **f64), 0.1, 0.01, 0.01, 0.01,
+                kern=kern)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert _ext.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("variant", ["m4_tab", "quintic", "quintic_tab"])
+def test_sink_family_kernels_match_plain_versions_on_gpu(variant, ndim,
+                                                         dtype):
+    """K14 (with and without the jerk), K16 and K20 with each variant
+    that has softened gravity against their plain versions on the card,
+    float64 within check.TOL_F64_FAMILY, each under its family launch
+    name (check.compare_sink_family_kernels, chip_smoke.py's
+    sink_family_kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import compare_sink_family_kernels
+
+    report = compare_sink_family_kernels(variant, ndim, "cuda", dtype)
+    sfx = "" if ndim == 3 else f"_{ndim}d"
+    for k in ("direct_softened", "star_gas_forces", "smooth_accretion"):
+        assert f"{k}_{variant}{sfx}" in report, k
     bad = {k: r.get("scaled_err", r) for k, r in report.items()
            if not r["ok"]}
     assert not bad, bad

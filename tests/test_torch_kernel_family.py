@@ -348,18 +348,19 @@ REFUSED = {"mfv": _mfv, "nbody": lambda: nbody_params(16),
            "cd2010": _cd2010}
 
 
-@pytest.mark.parametrize("variant", ["quintic", "m4_tab"])
+@pytest.mark.parametrize("variant", ["quintic", "m4_tab", "gaussian"])
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_non_m4_kernels_refused_where_kernels_hold_m4(case, variant):
-    """A kernel other than the direct M4 where the port's kernels hold
-    M4 only (N-body, sinks and stars: K14, K16, K18, K20): refused before
-    setup, naming ROADMAP queue 1, item 9.  The meshless finite-volume
-    kernels, the Cullen & Dehnen switch (K21), the gas-dust drag (K23,
-    K24) and SM2012 (K25, K26) take the whole family: there the
-    controller sets up and steps with the variant."""
+    """A kernel other than the direct M4 in every controller that once
+    held M4 only: N-body (K14), sinks and stars (K14, K16, K20), the
+    meshless finite-volume kernels, the Cullen & Dehnen switch (K21), the
+    gas-dust drag (K23, K24) and SM2012 (K25, K26) take the whole family:
+    the controller sets up and steps with the variant.  The gaussian's
+    softened gravity is zero in the JAX package, so N-body softening and
+    sinks refuse it before setup, naming fault F23."""
     p = family_params(variant, REFUSED[case]())
-    if case in ("nbody", "sinks"):
-        _refused(p, "item 9")
+    if variant == "gaussian" and case in ("nbody", "sinks"):
+        _refused(p, "F23")
         return
     sim = SimulationBase.factory(p, "cpu", torch.float64)
     sim.SetupSimulation()
@@ -367,6 +368,11 @@ def test_non_m4_kernels_refused_where_kernels_hold_m4(case, variant):
     assert sim.kern.variant == variant
     if case == "mfv":
         assert torch.isfinite(sim.state.Qcons0).all()
+    elif case == "nbody":
+        s = sim.state
+        for f in ("r", "v", "a", "adot", "gpot"):
+            assert torch.isfinite(getattr(s, f)).all(), f
+        assert sim.Nsteps == 1
     else:
         s = sim.state
         for f in ("r", "v", "u", "h", "rho", "alpha"):
@@ -374,17 +380,32 @@ def test_non_m4_kernels_refused_where_kernels_hold_m4(case, variant):
         assert sim.Nsteps == 1
 
 
-def test_stars_in_the_ic_refused_with_quintic():
+@pytest.mark.parametrize("variant", ["quintic", "gaussian"])
+def test_stars_in_the_ic_refused_with_quintic(variant):
     """Stars handed in with the IC (the hybrid Plummer route) take the
-    sink kernels: refused at setup, before any pass."""
+    sink kernels: with the quintic the run sets up and steps (at 256 gas
+    particles: fewer leave the quintic's h pinned at a clamp); the
+    gaussian, whose softened gravity is zero (fault F23), is refused at
+    setup, before any pass."""
     from gandalf_tpu_torch.check import plummer_stars_params
-    p = family_params("quintic", plummer_stars_params(64, 2))
+    p = family_params(variant, plummer_stars_params(256, 2))
     p.set("sink_particles", 0)
     p.set("create_sinks", 0)
     ic = generate_ic(p, None)
     assert "star" in ic
-    sim = _refused(p, "item 9", ic)
-    assert sim.state is None
+    if variant == "gaussian":
+        sim = _refused(p, "F23", ic)
+        assert sim.state is None
+        return
+    sim = SimulationBase.factory(p, "cpu", torch.float64)
+    sim.SetupSimulation(ic)
+    sim.main_loop_step()
+    assert sim.kern.variant == "quintic"
+    s = sim.state
+    assert int(s.sinks.active.sum()) == 2
+    for f in ("r", "v", "u", "h", "rho"):
+        assert torch.isfinite(getattr(s, f)).all(), f
+    assert torch.isfinite(s.sinks.a[s.sinks.active]).all()
 
 
 def test_jax_gaussian_tree_loses_support_gravity_f23():

@@ -188,7 +188,7 @@ def test_refused_options():
     ROADMAP item."""
     for over, item in (({"nbody": "hermite6"}, "item 11"),
                        ({"ndim": 1}, "item 11"),
-                       ({"kernel": "quintic"}, "item 9"),
+                       ({"kernel": "gaussian"}, "F23"),
                        ({"ic": "file"}, "item 9")):
         sim = SimulationBase.factory(nbody_params(16, **over), "cpu")
         with pytest.raises(NotImplementedError, match=item):

@@ -24,8 +24,8 @@ The port clamps each COM into its cell's box; the JAX runs here clamp
 theirs the same way (clamp_jax_com), as repoint_pads steers round F7.
 
 Also the checks: a star-carrying IC reaches the same checks as the sink
-parameters (a smoothing kernel other than M4 with slots is refused
-either way, naming item 9); radiation and radiative feedback with slots
+parameters (the gaussian with slots is refused either way, naming fault
+F23); radiation and radiative feedback with slots
 below 3D set up (refused until K30 and K34-K37 took NDIM 1 and 2; their
 runs are held to the JAX package in tests/test_torch_radiation_dims_sim.py);
 binaryacc in 1D, refused by both packages' generators.
@@ -214,21 +214,25 @@ def _stars_only(ndim=2):
 def test_slots_from_either_route_are_checked(route):
     """The repair: _check_sink_options runs wherever the run has slots,
     from the sink parameters (in process_parameters) or from the IC's
-    stars (in SetupSimulation, before anything is allocated): the quintic
-    kernel with slots (K14, K16-K18 and K20 hold M4 only) is refused
-    either way, by name; without slots it is not."""
+    stars (in SetupSimulation, before anything is allocated): the
+    gaussian kernel with slots (its softened gravity in K14, K16 and K20
+    is zero in the JAX package, fault F23; self-gravity off, so that only
+    the sink check can refuse it) is refused either way, by name; without
+    slots it is not."""
     if route == "parameters":
         p = sink_disc_params(100, 2)
     else:
         p = _stars_only()
-    p.set("kernel", "quintic")
+    p.set("self_gravity", 0)
+    p.set("kernel", "gaussian")
     sim = SimulationBase.factory(p, "cpu", torch.float64)
     if route == "parameters":
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError,
+                           match="sinks or stars.*F23"):
             sim.process_parameters()
         return
     sim.process_parameters()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="sinks or stars.*F23"):
         sim.SetupSimulation()
     assert sim.state is None
 

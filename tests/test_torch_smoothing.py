@@ -95,22 +95,23 @@ def test_m4_reference_values():
     assert w0(2.5) == 0.0
 
 
-def _m4_only_wrappers():
-    """Each wrapper of a kernel that evaluates W with M4 only, called with
-    kernel `k` and no inputs (the refusal comes before any is read)."""
+def _softened_wrappers(inputs):
+    """Each wrapper of a kernel that evaluates the softened gravity
+    kernels (K14, K16, K20's sums), called with kernel `k` on `inputs`
+    (None: no inputs; the gaussian's refusal comes before any is
+    read)."""
     from gandalf_tpu_torch import _ext
 
+    r, v, m, rs, ms, act, alive = (None,) * 7 if inputs is None else inputs
+    dt = None if inputs is None else m[0]
     return {
         "direct_softened": lambda k: _ext.direct_softened(
-            None, None, None, None, True, kern=k),
+            r, v, m, m, True, kern=k),
         "star_gas_forces": lambda k: _ext.star_gas_forces(
-            None, None, None, None, None, None, None, kern=k),
-        "accretion_sums": lambda k: _ext.accretion_sums(
-            None, None, None, None, None, None, None, 2.0, kern=k),
+            r, m, m, rs, ms, ms, act, kern=k),
         "smooth_accretion_sums": lambda k: _ext.smooth_accretion_sums(
-            *[None] * 13, 1.0, 1.0, 0.01, 0.01, 0.01, kern=k),
-        "smooth_accretion_apply": lambda k: _ext.smooth_accretion_apply(
-            *[None] * 13, kern=k),
+            r, v, m, m, m, alive, rs, rs, ms, ms, act, 2.0, dt, 1.0, 0.01,
+            0.01, 0.01, kern=k),
     }
 
 
@@ -156,21 +157,39 @@ def test_unported_kernels_raise(name, tab):
     """The kernel factory builds the quintic, the gaussian and the
     tabulated M4, which the grad-h grid and tree kernels, the meshless
     finite-volume kernels (K10-K12, K7's MFV mode), cd2010 (K21), the
-    drag (K23, K24) and SM2012 (K25, K26) run: the MFV plain versions
-    return finite results.  Every kernel that evaluates W with M4 only
-    (N-body and the sink kernels K14, K16, K18, K20) refuses them,
-    naming ROADMAP queue 1, item 9, and K7 refuses the gaussian (no
-    softened gravity, fault F23)."""
+    drag (K23, K24), SM2012 (K25, K26), N-body softening and the sink
+    kernels run: the MFV plain versions return finite results.  The
+    wrappers of the softened gravity (K7, K14, K16, K20's sums) refuse
+    the gaussian before reading any input (its wgrav and wpot are zero,
+    fault F23) and take the quintic and the tables to their input checks
+    (CPU tensors raise there); K18 and K20's update take no kernel."""
+    import inspect
+
     from gandalf_tpu_torch import _ext
 
     kern = kernel_factory(name, 3, tab)
     assert kern.variant == (f"{name}_tab" if tab else name)
     for x in _mfv_plain_outputs(name, tab):
         assert bool(torch.isfinite(x.double()).all())
-    for wrapper, call in _m4_only_wrappers().items():
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 9"):
-            call(kern)
+    f64 = dict(dtype=torch.float64)
+    cpu = (torch.rand((16, 3), **f64), torch.rand((16, 3), **f64),
+           torch.rand((16,), **f64), torch.rand((4, 3), **f64),
+           torch.rand((4,), **f64), torch.ones((4,), dtype=torch.bool),
+           torch.ones((16,), dtype=torch.bool))
+    before = dict(_ext.LAUNCHES)
+    softened = _softened_wrappers(None)
+    on_cpu = _softened_wrappers(cpu)
+    for wrapper, call in softened.items():
+        if name == "gaussian":
+            with pytest.raises(NotImplementedError, match="F23"):
+                call(kern)
+        else:
+            with pytest.raises(ValueError, match="CUDA"):
+                on_cpu[wrapper](kern)
+    assert _ext.LAUNCHES == before
+    # K18 and K20's sink update read no kernel
+    for fn in (_ext.accretion_sums, _ext.smooth_accretion_apply):
+        assert "kern" not in inspect.signature(fn).parameters
     if name == "gaussian":
         with pytest.raises(NotImplementedError, match="F23"):
             _ext.tree_near(None, kern, None, None, None, None, None, None,

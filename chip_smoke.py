@@ -23,12 +23,14 @@ block steps, 2D binary accretion), radiation and radiative feedback in
 scheme, the 2D sink disc with radiative feedback), the command line
 with its snapshots and restarts, the smoothing-kernel family in MFV and
 in cd2010 viscosity, the gas-dust drag and SM2012 (K21, K23-K26) and
-in sinks, stars and softened N-body (K14, K16, K20), and checks them,
-in phases, each printing one line:
+in sinks, stars and softened N-body (K14, K16, K20), and the
+distributed controller (Nmpi = 4 shards on the one card: K1 with
+zrow_max, K2 and K3 on ghosted slabs, ring-LET gravity with K38), and
+checks them, in phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi); refuses to run
    without CUDA;
-2. build: compiles the CUDA kernels K1-K37 from csrc/ (one nvcc per
+2. build: compiles the CUDA kernels K1-K38 from csrc/ (one nvcc per
    source, in parallel) and the C++ tree planner, prints the times and
    writes ptxas's report of each kernel's registers and spills to
    chiprun_out/ptxas.txt under the working directory;
@@ -541,6 +543,24 @@ in phases, each printing one line:
     and K20 at 2D with the quintic compared at its state;
 117. plummer_cluster_tab: nbody_main_path (65,536 stars, float64,
     hermite4, softened) with the tabulated M4, its energy gate.
+118. dist_kernels: the distributed controller's kernels against their
+    plain versions on the card, float64, at the 16^3 box's 4-shard state
+    (all shards on one card): K1 with zrow_max (exact), K2 and K3 on the
+    ghosted slabs (qz 1, and qz 2 from a plan for twice the largest h)
+    and K38 (the ring radius set to 1, so that one shard is far);
+119. dist_parity: 3 float64 steps of the 16^3 box over 4 shards on the
+    card against the same shards on the CPU, hydro and LET gravity, the
+    decomposition rebuilt after step 2; and hydro over 1 shard against 4
+    on the card at the JAX package's gates;
+120. dist_main_path: the self-gravitating 64^3 box (262,144 particles,
+    float32) over Nmpi = 4 shards on one card: setup, 2 warm-up steps,
+    32 timed steps with one rebuild cadence (a host replan), the rate
+    beside the single-device gravity path's, the energy drift, gpot
+    against the float64 direct sum at 2,048 particles (the JAX package's
+    distributed gates, the single-device figure beside it), the launches
+    of K1 with zrow_max, K2 and K3 on slabs and K38 per step, the bytes
+    the halos and the other collectives hand between shards per step,
+    and each of the four kernels' times beside its plain version's.
 
 The line before the last is {"kernels": [...]}: K1-K7 with launch
 counts from the self-gravitating main path (K4 also with its alive mode
@@ -590,7 +610,8 @@ gaussian from family_khi_2d, K23 and K24 with the tabulated M4 from
 dusty_evrard_tab, K16 with the tabulated M4 from bb_sink_collapse_tab
 and K14 with it from plummer_cluster_tab (their times from
 sink_family_kernels' rows at those shapes), K14, K16 and K20 in 2D with
-the quintic from sink_block_disc_2d_quintic, each counted
+the quintic from sink_block_disc_2d_quintic, K1 with zrow_max, K2 and
+K3 on slabs and K38 from dist_main_path, each counted
 over its path's timed window (the tubes' over their whole block runs)
 (the counts are set to 0 just before it); each
 with its bound in its path's dtype (the least time the card could take
@@ -1024,6 +1045,24 @@ PLUMMER_TAB_VARIANT = "m4_tab"
 # parity) spoils the grad-h gravity correction, as in quintic_block: the
 # gate is QUINTIC_BLOCK_ENERGY_DRIFT_TOL.
 SINK_DISC_QUINTIC_ENERGY_TOL = QUINTIC_BLOCK_ENERGY_DRIFT_TOL
+# 118-120. the distributed controller: Nmpi = 4 shards on the one card;
+# the kernel comparisons and the parity runs at 16^3 (float64), the
+# parity's 3 steps with the decomposition rebuilt every 2; the main
+# path at 64^3 in float32, 32 timed steps after 2 warm-up steps with the
+# rebuild cadence at step 24 (one host replan in the window); its gpot
+# gates are the JAX package's distributed ones against the direct sum
+# (tests/test_dist.py:126-131) and its energy gate the single-device
+# gravity path's
+DIST_S = 4
+DIST_KERNEL_N = 16
+DIST_PARITY_N = 16
+DIST_PARITY_STEPS = 3
+DIST_PARITY_NTB = 2
+DIST_STEPS_TIMED = 32
+DIST_NTB = 24
+DIST_GPOT_MEDIAN_TOL = 2e-3
+DIST_GPOT_P99_TOL = 3e-2
+DIST_ENERGY_DRIFT_TOL = GRAVITY_ENERGY_DRIFT_TOL
 
 SOURCES = {
     "grid27_bin": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
@@ -1301,6 +1340,18 @@ SOURCES.update({
     f"smooth_accretion_{SINK_DISC_QUINTIC_VARIANT}_2d": (
         "gandalf_tpu_torch/csrc/sinks.cu", "gandalf_tpu/ops/sinks.py:216"),
 })
+# the distributed controller's kernels: K1 with zrow_max, K2 and K3 on a
+# ghosted slab (the single-device kernels with a row window), and K38
+SOURCES.update({
+    "grid27_bin_slab": ("gandalf_tpu_torch/csrc/grid27_bin.cu",
+                        "gandalf_tpu/ops/sph_grid27.py:193"),
+    "grid27_density_slab": ("gandalf_tpu_torch/csrc/grid27_density.cu",
+                            "gandalf_tpu/ops/sph_grid27.py:359"),
+    "grid27_forces_slab": ("gandalf_tpu_torch/csrc/grid27_forces.cu",
+                           "gandalf_tpu/ops/sph_grid27.py:528"),
+    "let_far_walk": ("gandalf_tpu_torch/csrc/let_far.cu",
+                     "gandalf_tpu/parallel/let.py:330"),
+})
 HYDRO = ("grid27_bin", "grid27_density", "grid27_forces")
 GRAVITY = HYDRO + ("tree_gather", "tree_build", "tree_walk", "tree_near")
 # the kernels of a block tick with self-gravity
@@ -1326,6 +1377,12 @@ BB_BLOCK = GRAVITY + ("star_gas_forces", "sink_candidate",
 DUST = GRAVITY + ("dust_drag_sums", "dust_drag_deposit")
 # the SM2012 kernels of a step (K25 and K26, after K1)
 SM2012 = ("sm2012_density", "sm2012_forces")
+# the kernels of a step of the distributed gravity path: K1-K3 on the
+# shards' slabs, K4-K7 over the ring (K6 and K7 over the local groups'
+# list) and K38
+DIST = ("grid27_bin_slab", "grid27_density_slab", "grid27_forces_slab",
+        "tree_gather", "tree_build", "tree_walk_list", "tree_near_list",
+        "let_far_walk")
 # the kernels of these paths that take the smoothing-kernel family and
 # count under its variant's name (_ext.family_count)
 FAMILY_KERNELS = ("grid27_density", "grid27_forces", "tree_near",
@@ -1428,9 +1485,10 @@ def parity_errors(sims, fields):
     """Largest error of each field, relative to its largest value, of the
     first simulation against the second."""
     errs = {}
+    states = [s.gathered_state() for s in sims]
     for f in fields:
-        x = getattr(sims[0].state, f).cpu()
-        ref = getattr(sims[1].state, f)
+        x = getattr(states[0], f).cpu()
+        ref = getattr(states[1], f)
         err, scale = torch.abs(x - ref).max(), torch.abs(ref).max()
         # a field that is 0 everywhere is held absolutely
         errs[f] = float(err / scale if scale > 0 else err)
@@ -7535,6 +7593,165 @@ def plummer_cluster_tab(dev, card):
                            "plummer_cluster_tab")
 
 
+def dist_kernels(dev) -> None:
+    """K1 with zrow_max, K2 and K3 on ghosted slabs (qz 1, and qz 2 from
+    a thin-slab plan) and K38 (ring radius 1) against their plain
+    versions at the 16^3 box's 4-shard state in float64 (check.
+    compare_dist_kernels: K1 exact, the others within TOL_F64)."""
+    from gandalf_tpu_torch.check import (compare_dist_kernels, dist_sim,
+                                         thin_slab_plan)
+
+    t0 = time.perf_counter()
+    sim = dist_sim(DIST_KERNEL_N, DIST_S, dev, torch.float64)
+    thin = thin_slab_plan(sim)
+    rep = compare_dist_kernels(sim, ring_radius=1)
+    rep.update(compare_dist_kernels(sim, plan=thin,
+                                    tag=f"_qz{thin.global_spec.qz}"))
+    torch.cuda.synchronize()
+    phase("dist_kernels", N=sim._n_orig, shards=DIST_S,
+          qz=[sim.distplan.global_spec.qz, thin.global_spec.qz],
+          dtype="torch.float64", report=rep,
+          seconds=time.perf_counter() - t0)
+    require_ok("dist_kernels", rep)
+    if thin.global_spec.qz < 2 or "let_far_walk" not in rep:
+        raise RuntimeError("dist_kernels: the thin-slab plan or the far "
+                           "walk is missing")
+
+
+def dist_parity(dev) -> None:
+    """3 float64 steps of the 16^3 box over 4 shards on the card against
+    the same shards on the CPU, hydro and LET gravity, the decomposition
+    rebuilt after step 2 (equal plans: the same migrations and replans),
+    within PARITY_TOL; and the hydro run against one shard on the card at
+    the JAX package's gates (rtol 2e-11, atol 1e-12)."""
+    from gandalf_tpu_torch.check import dist_box_params, dist_ic, dist_sim
+    from gandalf_tpu_torch.sim.simulation import GradhSphSimulation
+
+    t0 = time.perf_counter()
+    runs = {}
+    for grav, fields in ((0, ("r", "v", "u", "h", "rho")),
+                         (1, ("r", "v", "u", "h", "rho", "gpot"))):
+        sims = []
+        for device in (dev, torch.device("cpu")):
+            sim = dist_sim(DIST_PARITY_N, DIST_S, device, torch.float64,
+                           self_gravity=grav,
+                           ntreebuildstep=DIST_PARITY_NTB)
+            for _ in range(DIST_PARITY_STEPS):
+                sim.main_loop_step()
+            sims.append(sim)
+        torch.cuda.synchronize()
+        errs = parity_errors(sims, fields)
+        counts = [(x.n_migrations, x.n_replans, x._n_grid_overflows)
+                  for x in sims]
+        runs["gravity" if grav else "hydro"] = {
+            "rel_err": errs, "migrations_replans_overflows": counts}
+        if max(errs.values()) > PARITY_TOL or counts[0] != counts[1]:
+            raise RuntimeError(f"dist_parity: the card's shards disagree "
+                               f"with the CPU's: {errs} {counts}")
+        if not grav:
+            four = sims[0]
+    p = dist_box_params(DIST_PARITY_N, 1)
+    one = GradhSphSimulation(p, dev, torch.float64)
+    one.SetupSimulation(dist_ic(p))
+    for _ in range(DIST_PARITY_STEPS):
+        one.main_loop_step()
+    torch.cuda.synchronize()
+    s1, s4 = one._state_to_host(), four._state_to_host()
+    o1 = np.lexsort((s1["r"][:, 2], s1["r"][:, 1], s1["r"][:, 0]))
+    o4 = np.lexsort((s4["r"][:, 2], s4["r"][:, 1], s4["r"][:, 0]))
+    one_vs_four = {}
+    for k in ("r", "v", "rho", "u", "h"):
+        a, b = s4[k][o4], s1[k][o1]
+        one_vs_four[k] = float(np.max(np.abs(a - b)
+                                      / (1e-12 + 2e-11 * np.abs(b))))
+    phase("dist_parity", N=four._n_orig, shards=DIST_S,
+          steps=DIST_PARITY_STEPS, ntreebuildstep=DIST_PARITY_NTB,
+          runs=runs, one_vs_four_gate_ratio=one_vs_four,
+          seconds=time.perf_counter() - t0)
+    if max(one_vs_four.values()) > 1.0:
+        raise RuntimeError(f"dist_parity: 4 shards part from one beyond "
+                           f"rtol 2e-11, atol 1e-12: {one_vs_four}")
+
+
+def dist_main_path(dev, card):
+    """The self-gravitating 64^3 box over DIST_S shards on the card in
+    float32: setup, STEPS_WARM warm-up steps, DIST_STEPS_TIMED timed
+    steps with one rebuild cadence, with the rate beside the
+    single-device gravity path's, energy and direct-sum gpot gates, the
+    launches per step, the bytes handed between shards per step, and the
+    four kernels' times beside their plain versions' at the path's
+    shapes.  Returns (launches, report)."""
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.check import (compare_dist_kernels, dist_sim,
+                                         gpot_errors)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = dist_sim(N_MAIN, DIST_S, dev, torch.float32, self_gravity=1,
+                   ntreebuildstep=DIST_NTB)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run_timed(sim, STEPS_WARM)
+    e0 = energy(sim.gathered_state(), gravity=True)
+    mig0, rep0, ovf0 = (sim.n_migrations, sim.n_replans,
+                        sim._n_grid_overflows)
+    sim.group.moved.clear()
+    _ext.reset_launches()
+    elapsed = run_timed(sim, DIST_STEPS_TIMED)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: _ext.LAUNCHES[k] for k in DIST}
+    moved = {k: v / DIST_STEPS_TIMED for k, v in sim.group.moved.items()}
+    s = sim.gathered_state()
+    N = sim._n_orig
+    live = s.alive
+    drift = abs(energy(s, gravity=True) - e0) / abs(e0)
+    gerr = gpot_errors(sim)
+    lp = sim.letplan
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(s, f)[live]).all())
+                      for f in ("r", "v", "a", "u", "h", "rho", "dudt",
+                                "gpot")),
+        "rho_positive": bool((s.rho[live] > 0).all()),
+        "no_overflow": not sim._overflowed(),
+        "far_shards": lp is not None
+        and 2 * lp.ring_radius + 1 < DIST_S,
+        "launches": all(n >= DIST_S * DIST_STEPS_TIMED
+                        for n in launches.values()),
+        "one_cadence": sim.n_replans - rep0 >= 1,
+        "gpot_median": gerr["median"] < DIST_GPOT_MEDIAN_TOL,
+        "gpot_p99": gerr["p99"] < DIST_GPOT_P99_TOL,
+        "energy_drift": drift <= DIST_ENERGY_DRIFT_TOL,
+    }
+    rep = compare_dist_kernels(sim, repeats=5)
+    rate = N * DIST_STEPS_TIMED / elapsed
+    RATES["dist_gravity"] = rate
+    phase("dist_main_path", N=N, shards=DIST_S, cap=sim.distplan.cap,
+          ncells=list(sim.gridspec.ncells), qz=sim.gridspec.qz,
+          k_cell=sim.gridspec.k_cell, balanced=sim.distplan.balanced,
+          ring_radius=lp.ring_radius if lp else None,
+          g_loc=lp.g_loc if lp else None,
+          remote_frontier=lp.remote_frontier if lp else None,
+          steps=sim.Nsteps, timed_steps=DIST_STEPS_TIMED, setup_s=t_setup,
+          timed_s=elapsed, particle_steps_per_s=rate,
+          single_device_particle_steps_per_s=RATES.get("gravity"),
+          launches=launches,
+          launches_per_step={k: n / DIST_STEPS_TIMED
+                             for k, n in launches.items()},
+          halo_bytes_per_step=moved.get("halo", 0.0),
+          moved_bytes_per_step=moved,
+          migrations=sim.n_migrations - mig0, replans=sim.n_replans - rep0,
+          overflow_replans=sim._n_grid_overflows - ovf0,
+          energy_drift=drift, gpot_err=gerr,
+          gpot_err_single_device=RATES.get("gpot_err"),
+          gpot_gates=[DIST_GPOT_MEDIAN_TOL, DIST_GPOT_P99_TOL],
+          checks=checks, kernels=rep, card=card, peak_mem_gb=peak_gb)
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, r in rep.items() if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"dist_main_path checks failed: {failed}")
+    return launches, rep
+
+
 def kernel_line(launches, rep, alive_modes=None) -> dict:
     """The {"kernels": [...]} object: every kernel's source, launches on
     its main path, error, times and bound in the dtype of the report (a
@@ -7568,7 +7785,8 @@ def main() -> int:
     from gandalf_tpu_torch.check import (compare_active_kernels,
                                          compare_kernels,
                                          compare_tree_kernels,
-                                         gravity_accuracy, mapping_times)
+                                         gpot_errors, gravity_accuracy,
+                                         mapping_times)
     from gandalf_tpu_torch.ops.tree import native_planner
 
     dev = torch.device("cuda", 0)
@@ -7593,7 +7811,7 @@ def main() -> int:
     # times are the build's critical path on this machine's cores
     slowest = sorted(_ext.build_times().items(), key=lambda kv: -kv[1])[:8]
     phase("build", seconds=build_s, planner_seconds=time.perf_counter() - t0,
-          library=so.name, kernels="K1-K37", sources=list(_ext._UNITS),
+          library=so.name, kernels="K1-K38", sources=list(_ext._UNITS),
           slowest=slowest, ptxas=str(out / "ptxas.txt"))
 
     # 3-4. kernels against their plain versions at small sizes
@@ -7747,6 +7965,8 @@ def main() -> int:
     rep = compare_kernels(sim, s, repeats=5)
     rep.update(compare_tree_kernels(sim, s, repeats=5))
     RATES["gravity"] = N * GRAVITY_STEPS_TIMED / elapsed
+    # the direct-sum gpot error, beside which dist_main_path prints its own
+    RATES["gpot_err"] = gpot_errors(sim)
     phase("gravity_main_path", N=N, steps=sim.Nsteps,
           timed_steps=GRAVITY_STEPS_TIMED, setup_s=t_setup,
           timed_s=elapsed,
@@ -7759,6 +7979,7 @@ def main() -> int:
           ncells=list(sim.gridspec.ncells), k_cell=sim.gridspec.k_cell,
           launches=launches, energy_drift=drift, accuracy=acc,
           monopole_accuracy=mono, accuracy_gate=ACCURACY_TOL,
+          gpot_err=RATES["gpot_err"],
           checks=checks, kernels=rep, card=card, peak_mem_gb=peak_gb)
     failed = [k for k, ok in checks.items() if not ok]
     failed += [k for k, r in rep.items() if not r["ok"]]
@@ -7954,6 +8175,13 @@ def main() -> int:
         f_launches, f_rep = path(dev, card)
         launches.update(f_launches)
         rep.update(f_rep)
+
+    # 118-120. the distributed controller over 4 shards on the card
+    dist_kernels(dev)
+    dist_parity(dev)
+    d_launches, d_rep = dist_main_path(dev, card)
+    launches.update({k: d_launches[k] for k in d_rep})
+    rep.update(d_rep)
 
     alive_modes = {"tree_gather": alive_mode, "tree_gather_2d": alive_2d}
     print(json.dumps(kernel_line(launches, rep, alive_modes)), flush=True)

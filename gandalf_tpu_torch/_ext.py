@@ -109,7 +109,7 @@ _UNITS = ("grid27_bin.cu", "grid27_density.cu", "grid27_forces.cu",
           # K23 and K24 per kernel family
           *(f"dust_drag_{_f}.cu" for _f in ("m4", "quintic", "gaussian")),
           "sm2012.cu", "radws.cu", "radiative_fb.cu", "mfv_vsig.cu",
-          "radiation.cu")
+          "radiation.cu", "let_far.cu")
 # no --use_fast_math: the float64 parity checks need IEEE sqrt and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -139,7 +139,10 @@ LAUNCHES = {"grid27_bin": 0, "grid27_density": 0, "grid27_forces": 0,
             "sm2012_forces_2d": 0, "sm2012_forces_1d": 0, "radws_eos": 0,
             "radws_equilibrium": 0, "radws_implicit_heating": 0,
             "ambient_temperature": 0, "cell_field": 0, "ray_march": 0,
-            "packet_march": 0, "stromgren_prefix": 0}
+            "packet_march": 0, "stromgren_prefix": 0,
+            "grid27_bin_slab": 0, "grid27_bin_slab_2d": 0,
+            "grid27_bin_slab_1d": 0, "let_far_walk": 0,
+            "let_far_walk_2d": 0, "let_far_walk_1d": 0}
 # K14, the sink kernels K16-K18, K20 and the radiation kernels K30,
 # K34-K37 below 3D
 for _k in ("direct_softened", "star_gas_forces", "sink_candidate",
@@ -179,7 +182,12 @@ for _d in _DIMS:
 # kernel.
 FAMILIES = {"m4": 0, "quintic": 1, "gaussian": 2}
 GRID_FAMILY_KERNELS = ("grid27_density", "grid27_forces", "cullen_dehnen",
-                       "sm2012_density", "sm2012_forces")
+                       "sm2012_density", "sm2012_forces",
+                       "grid27_density_slab", "grid27_forces_slab")
+# K2 and K3 on a ghosted slab (a row window) in every ndim, M4
+for _k in ("grid27_density_slab", "grid27_forces_slab"):
+    for _d in ("", "_2d", "_1d"):
+        LAUNCHES[f"{_k}{_d}"] = 0
 DUST_FAMILY_KERNELS = ("dust_drag_sums", "dust_drag_deposit")
 TREE_FAMILY_KERNELS = ("tree_near", "tree_near_list", "tree_near_ewald",
                        "tree_near_fast", "tree_near_mfv")
@@ -217,14 +225,21 @@ _L = ctypes.c_longlong
 # 4 rad_const and temp_min
 _TABLE = [_P] * 7 + [_I, _I, _D, _D, _D]
 _ARGTYPES = {
+    # K1 takes zrow_max after k_cell; K2 and K3 qz and the row window
+    # (first row, row count) before the mapping
     "grid27_bin": [_P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _I,
-                   _P, _P, _P, _P, _P, _P, _P, _I, _P],
+                   _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "grid27_density": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _D, _D, _D, _D, _I, _I, _D, _D, _D, _P, _P, _P, _P,
-                       _I, _I, _P],
+                       _I, _I, _I, _I, _I, _P],
     "grid27_forces": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _D, _D, _D, _D, _I, _I, _I, _I, _D, _D, _P, _P, _P,
-                      _I, _I, _P],
+                      _I, _I, _I, _I, _I, _P],
+    # K38: pub, n_far, n_cells, ccols, depth, quad, leaf centre, leaf
+    # half, targets, live targets, G, L, Wr, theta^2, a, pot, flag
+    **{f"let_far_walk_{_n}d": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                               _I, _I, _D, _P, _P, _P, _I, _P]
+       for _n in (1, 2, 3)},
     "grid27_mirror": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     # K4-K7 per NDIM (csrc/tree_*.cu)
     **{f"tree_gather_{_n}d": [_P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _D,
@@ -467,15 +482,16 @@ def _grid_args(spec):
     return _grid_args_nd(spec)
 
 
-def _grid_args_nd(spec):
+def _grid_args_nd(spec, any_qz: bool = False):
     """ndim, then the grid's cells, K, periodic flags and extents padded
     to three dims (n = 1, open, extent 0 in the dims beyond ndim): the
-    arguments of K1-K3.  z-slab plans (qz > 1) are refused: only the
-    distributed planner makes them (ROADMAP queue 1, item 13)."""
-    if spec.qz != 1:
+    arguments of the grid kernels.  Only K2 and K3 (`any_qz`) take the
+    distributed planner's z-slab stencil (qz > 1); the others refuse it
+    (ROADMAP queue 1, item 13)."""
+    if spec.qz != 1 and not any_qz:
         raise NotImplementedError(
-            "the grid kernels take qz = 1; z-slab plans come with the "
-            "distributed planner (ROADMAP queue 1, item 13)")
+            "this grid kernel takes qz = 1; z-slab plans reach K1-K3 only "
+            "(ROADMAP queue 1, item 13)")
     pad = 3 - spec.ndim
     return (spec.ndim, *spec.ncells, *(1,) * pad, spec.k_cell,
             *[int(p) for p in spec.periodic], *(0,) * pad,
@@ -537,11 +553,13 @@ def _p(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def grid27_bin(spec, r: torch.Tensor, discard: torch.Tensor = None):
+def grid27_bin(spec, r: torch.Tensor, discard: torch.Tensor = None,
+               zrow_max: int = None):
     """K1 on r (N, ndim): (cell_of, slot_of) int32 (N,) and overflow ().
     With `discard` (N,) bool a discarded particle goes to the virtual
     cell C = spec.total_cells with slot 0, takes no slot and raises no
-    overflow."""
+    overflow.  `zrow_max` clamps the dim-0 cell index to at most it (a
+    shard's slab; counted as grid27_bin_slab)."""
     N, nd = r.shape[0], spec.ndim
     _check(r, "r", r.dtype, (N, nd))
     if discard is not None:
@@ -561,8 +579,11 @@ def grid27_bin(spec, r: torch.Tensor, discard: torch.Tensor = None):
             None if discard is None else _p(discard), N, nd, *spec.ncells,
             *(1,) * pad, *[float(x) for x in spec.lo], *(0.0,) * pad,
             *[float(x) for x in spec.extents], *(1.0,) * pad, spec.k_cell,
+            spec.ncells[0] - 1 if zrow_max is None else int(zrow_max),
             _p(count), _p(offset), _p(rank_tmp), _p(members), _p(cell_of),
-            _p(slot_of), _p(overflow), count=_grid_count("grid27_bin", spec))
+            _p(slot_of), _p(overflow),
+            count=_grid_count("grid27_bin" if zrow_max is None
+                              else "grid27_bin_slab", spec))
     return cell_of, slot_of, overflow
 
 
@@ -572,13 +593,33 @@ def grid27_bin(spec, r: torch.Tensor, discard: torch.Tensor = None):
 SLOT_MAPPINGS = {"auto": 0, "cell": 1, "flat": 2}
 
 
+def _row_window(spec, rows_win):
+    """(qz, first row, row count) of K2's and K3's launch: the whole grid,
+    or the dim-0 rows [lo, hi) of a ghosted slab."""
+    lo, hi = (0, spec.ncells[0]) if rows_win is None else rows_win
+    if not 0 <= lo <= hi <= spec.ncells[0]:
+        raise ValueError(f"row window {rows_win} outside the grid's "
+                         f"{spec.ncells[0]} rows")
+    return spec.qz, int(lo), int(hi - lo)
+
+
+def _windowed(shape, dt, dev, rows_win, fill_value):
+    """An output of K2 or K3: empty for the whole grid; with a row window
+    `fill_value` outside it, where the kernel writes nothing."""
+    if rows_win is None:
+        return torch.empty(shape, dtype=dt, device=dev)
+    return torch.full(shape, fill_value, dtype=dt, device=dev)
+
+
 def grid27_density(spec, kern, h_fac, h_converge, hmax, r_d, m_d, h_d,
-                   fill, target=None, mapping="auto"):
+                   fill, target=None, mapping="auto", rows_win=None):
     """K2 on dense (*ncells, K[, ndim]) tensors: (rho, invom, zeta) sums
     at each slot's final h and its converged flag.  With `target`
     (*ncells, K) bool only the filled target slots iterate; the others
-    are neighbours only and come back zero and converged.  `mapping`
-    is a key of SLOT_MAPPINGS."""
+    are neighbours only and come back zero and converged.  With
+    `rows_win` (lo, hi) only the dim-0 rows [lo, hi) are targets (a
+    ghosted slab, counted as grid27_density_slab); the rows outside come
+    back zero and converged.  `mapping` is a key of SLOT_MAPPINGS."""
     shape = tuple(spec.ncells) + (spec.k_cell,)
     dt = r_d.dtype
     _check(r_d, "r_d", dt, shape + (spec.ndim,))
@@ -587,38 +628,44 @@ def grid27_density(spec, kern, h_fac, h_converge, hmax, r_d, m_d, h_d,
     _check(fill, "fill", torch.bool, shape)
     if target is not None:
         _check(target, "target", torch.bool, shape)
-    rho, invom, zeta = (torch.empty(shape, dtype=dt, device=r_d.device)
+    dev = r_d.device
+    rho, invom, zeta = (_windowed(shape, dt, dev, rows_win, 0.0)
                         for _ in range(3))
-    done = torch.empty(shape, dtype=torch.bool, device=r_d.device)
-    _launch("grid27_density", dt, r_d.device, _p(r_d), _p(m_d), _p(h_d),
+    done = _windowed(shape, torch.bool, dev, rows_win, True)
+    name = "grid27_density" if rows_win is None else "grid27_density_slab"
+    _launch("grid27_density", dt, dev, _p(r_d), _p(m_d), _p(h_d),
             _p(fill), None if target is None else _p(target),
-            *_grid_args_nd(spec), *_family_args(kern), float(h_fac),
+            *_grid_args_nd(spec, True), *_family_args(kern), float(h_fac),
             float(h_converge), float(hmax), _p(rho), _p(invom), _p(zeta),
-            _p(done), SLOT_MAPPINGS[mapping],
-            count=_grid_count("grid27_density", spec, kern))
+            _p(done), *_row_window(spec, rows_win), SLOT_MAPPINGS[mapping],
+            count=_grid_count(name, spec, kern))
     return rho, invom, zeta, done
 
 
 def grid27_forces(spec, kern, visc, r_d, v_d, packed, fill,
-                  mapping="auto"):
+                  mapping="auto", rows_win=None):
     """K3 on dense tensors: pair sums a (*ncells, K, ndim), dudt and the
     unnormalised div_v (*ncells, K).  `packed` (*ncells, K, 9) holds
-    ops.sph_grid27.FORCE_SCALARS; `mapping` is a key of SLOT_MAPPINGS."""
+    ops.sph_grid27.FORCE_SCALARS; `mapping` is a key of SLOT_MAPPINGS.
+    With `rows_win` (lo, hi) only the dim-0 rows [lo, hi) are targets
+    (counted as grid27_forces_slab); the others come back zero."""
     shape = tuple(spec.ncells) + (spec.k_cell,)
     dt, nd = r_d.dtype, spec.ndim
     _check(r_d, "r_d", dt, shape + (nd,))
     _check(v_d, "v_d", dt, shape + (nd,))
     _check(packed, "packed", dt, shape + (9,))
     _check(fill, "fill", torch.bool, shape)
-    a = torch.empty(shape + (nd,), dtype=dt, device=r_d.device)
-    dudt = torch.empty(shape, dtype=dt, device=r_d.device)
-    div_v = torch.empty(shape, dtype=dt, device=r_d.device)
-    _launch("grid27_forces", dt, r_d.device, _p(r_d), _p(v_d), _p(packed),
-            _p(fill), *_grid_args_nd(spec), *_family_args(kern),
+    dev = r_d.device
+    a = _windowed(shape + (nd,), dt, dev, rows_win, 0.0)
+    dudt = _windowed(shape, dt, dev, rows_win, 0.0)
+    div_v = _windowed(shape, dt, dev, rows_win, 0.0)
+    name = "grid27_forces" if rows_win is None else "grid27_forces_slab"
+    _launch("grid27_forces", dt, dev, _p(r_d), _p(v_d), _p(packed),
+            _p(fill), *_grid_args_nd(spec, True), *_family_args(kern),
             int(visc.avisc), int(visc.acond), float(visc.alpha_visc),
             float(visc.beta_visc), _p(a), _p(dudt), _p(div_v),
-            SLOT_MAPPINGS[mapping],
-            count=_grid_count("grid27_forces", spec, kern))
+            *_row_window(spec, rows_win), SLOT_MAPPINGS[mapping],
+            count=_grid_count(name, spec, kern))
     return a, dudt, div_v
 
 
@@ -894,6 +941,40 @@ def tree_near(spec, kern, ctab, ptab, alive, near, a_far, pot_far,
                 None if meta is None else meta.ctypes.data, _p(a), _p(gpot),
                 _p(overflow), count=count)
     return a, gpot, overflow
+
+
+def let_far_walk(tabs, leaf_cen, leaf_half, rt, alive, leaf_size, wr,
+                 theta_sqd, quadrupole):
+    """K38: the far field of the far shards' cell tables tabs (n_far,
+    2^(D+1) - 1, ops.tree.layout(ndim).ccols) at the targets rt (G*32,
+    ndim), live where alive (G*32,) bool, of G local groups with boxes
+    leaf_cen, leaf_half (G, ndim): a (G*32, ndim), pot (G*32,) and the
+    per-group flag (G,) bool."""
+    from .ops.tree import layout
+
+    if leaf_size != _LEAF:
+        raise NotImplementedError(f"the far walk takes buckets of {_LEAF} "
+                                  f"slots, not {leaf_size}")
+    G, nd = leaf_cen.shape
+    lay = layout(nd)
+    n_far, rows = tabs.shape[0], tabs.shape[1]
+    depth = int(round(math.log2(rows + 1))) - 1
+    dt, dev = rt.dtype, rt.device
+    _check(tabs, "tabs", dt, (n_far, rows, lay.ccols))
+    _check(leaf_cen, "leaf_cen", dt, (G, nd))
+    _check(leaf_half, "leaf_half", dt, (G, nd))
+    _check(rt, "rt", dt, (G * _LEAF, nd))
+    _check(alive, "alive", torch.bool, (G * _LEAF,))
+    a = torch.zeros((G * _LEAF, nd), dtype=dt, device=dev)
+    pot = torch.zeros((G * _LEAF,), dtype=dt, device=dev)
+    flag = torch.zeros((G,), dtype=torch.bool, device=dev)
+    if n_far and G:
+        _launch(f"let_far_walk_{nd}d", dt, dev, _p(tabs), n_far, rows,
+                lay.ccols, depth, int(quadrupole), _p(leaf_cen),
+                _p(leaf_half), _p(rt), _p(alive), G, _LEAF, int(wr), float(theta_sqd),
+                _p(a), _p(pot), _p(flag),
+                count=tree_count("let_far_walk", nd))
+    return a, pot, flag
 
 
 # ---------------------------------------------------------------------------

@@ -75,6 +75,13 @@ K30 on ``ambient_kernel_inputs`` or a simulation's particles and slots.
 and N-body inputs with pairs either side of kernrange and table points;
 float64 within ``TOL_F64_FAMILY``) against their plain versions, the
 tabulated kernels' reports counting the pairs near a table point.
+``dist_box_params`` and ``dist_ic`` are the distributed controller's box
+(``tests/test_dist.py``'s, optionally stretched along z and clustered),
+``dist_sim`` sets one up over shards of one device, ``thin_slab_plan``
+gives its particles a qz > 1 decomposition, ``compare_dist_kernels``
+holds K1 with ``zrow_max``, K2/K3 on ghosted slabs and K38 against their
+plain versions, and ``gpot_errors`` holds any controller's gpot against
+the float64 direct sum.
 ``chip_smoke.py`` and the CUDA tests use them.
 """
 
@@ -541,6 +548,47 @@ def slice_params(n_side: int, tend: float = 1.0e30,
     for k, v in updates.items():
         p.set(k, v)
     return p
+
+
+def dist_box_params(n_side: int, nmpi: int, self_gravity: int = 0,
+                    z_len: int = 1, **over) -> Parameters:
+    """slice_params's box for the distributed controller: Nmpi shards,
+    the tree (with self-gravity) and the decomposition replanned every
+    ntreebuildstep steps (tests/test_dist.py:box_params).  `z_len` > 1
+    stretches dim 0 (the slab axis) to z_len at the same spacing, so
+    that a small box has several grid rows a shard."""
+    p = slice_params(n_side, self_gravity=self_gravity)
+    p.set("Nmpi", nmpi)
+    p.set("neib_search", "kdtree")
+    p.set("boxmax[0]", float(z_len))
+    p.set("Nlattice1[0]", n_side * z_len)
+    for k, v in over.items():
+        p.set(k, v)
+    return p
+
+
+def dist_ic(params: Parameters, cluster: float = 0.0, seed: int = 11):
+    """The lattice IC with positions jittered by 0.2 spacing N(0,1) and
+    velocities 0.05 N(0,1) (numpy generator `seed`), wrapped into the
+    periodic box.  With `cluster` = A > 0, z maps to z - A Lz sin(2 pi
+    (z - Lz / 8) / Lz) / (2 pi): density from 1 / (1 + A) to 1 / (1 -
+    A), peaked in the first quarter, so that a 4-shard uniform split is
+    imbalanced (1.6x at A = 0.5) and balance = "auto" re-splits it."""
+    ic = generate_ic(params, None)
+    fp, ip = params.floatparams, params.intparams
+    nd = ic["r"].shape[1]
+    lo = np.array([fp[f"boxmin[{k}]"] for k in range(nd)])
+    size = np.array([fp[f"boxmax[{k}]"] for k in range(nd)]) - lo
+    spacing = size / np.array([ip[f"Nlattice1[{k}]"] for k in range(nd)])
+    rng = np.random.default_rng(seed)
+    r = ic["r"] + 0.2 * spacing * rng.standard_normal(ic["r"].shape)
+    if cluster:
+        z, Lz = r[:, 0] - lo[0], size[0]
+        r[:, 0] = lo[0] + z - cluster * Lz * np.sin(
+            2.0 * np.pi * (z - Lz / 8.0) / Lz) / (2.0 * np.pi)
+    ic["r"] = lo + np.mod(r - lo, size)
+    ic["v"] = 0.05 * rng.standard_normal(ic["v"].shape)
+    return {k: ic[k] for k in ("r", "v", "m", "h", "u")}
 
 
 def mfv_params(n_side: int, self_gravity: int = 1,
@@ -5308,3 +5356,277 @@ def _scaled_err(x, ref) -> float:
         return 0.0
     err = float(torch.abs(x - ref)[ok].max())
     return err / max(float(torch.abs(ref)[ok].max()), 1e-300)
+
+
+# ---------------------------------------------------------------------------
+# The distributed controller (parallel/): K1 with zrow_max, K2 and K3 on
+# ghosted slabs, K38
+# ---------------------------------------------------------------------------
+
+# K1 with the slab's clamp, K2 and K3 on a ghosted slab: the
+# single-device kernels' operations per particle and pair; K38 per
+# occupied cell tested (the MAC, as K6's) and per accepted cell and
+# target (K6's far field)
+FLOPS_PER.update({
+    "grid27_bin_slab": 15, "grid27_density_slab": 40,
+    "grid27_forces_slab": 80, "let_far_walk_mac": 15,
+    "let_far_walk_far": 60,
+})
+# the distributed path's kernels (their LAUNCHES keys in 3D with M4)
+DIST_KERNELS = ("grid27_bin_slab", "grid27_density_slab",
+                "grid27_forces_slab", "let_far_walk")
+
+
+def dist_sim(n_side: int, nmpi: int, device, dtype, self_gravity: int = 1,
+             ntreebuildstep: int = 32, seed: int = 11):
+    """The distributed controller on the jittered box (dist_box_params,
+    dist_ic), all shards on `device`, set up."""
+    from .sim.dist_sim import DistributedGradhSphSimulation
+
+    p = dist_box_params(n_side, nmpi, self_gravity,
+                        ntreebuildstep=ntreebuildstep)
+    sim = DistributedGradhSphSimulation(p, device, dtype,
+                                        shard_devices=[device] * nmpi)
+    sim.SetupSimulation(dist_ic(p, seed=seed))
+    return sim
+
+
+def thin_slab_plan(sim, h_factor: float = 2.0):
+    """A decomposition of `sim`'s particles on a grid planned for
+    h_factor times their largest h, so that the slabs are thinner than
+    the support (qz > 1)."""
+    from .parallel import dist
+
+    r = torch.cat([s.r for s in sim.shards])[
+        torch.cat([s.alive for s in sim.shards])].cpu().numpy()
+    h = max(float(s.h[s.alive].max()) for s in sim.shards)
+    spec = g27.plan_grid27(sim.box, r, h * 1.3 * h_factor,
+                           sim.kern.kernrange, z_multiple=sim.n_shards)
+    return dist.plan_decomposition(spec, r, sim.n_shards)
+
+
+def _slab_pass_inputs(sim, plan, shards):
+    """Per shard: its binning (K1's and the plain version's), and the
+    ghosted slab's dense positions, masses, h and fill (K2's inputs),
+    from the plain binning."""
+    from .parallel import dist
+
+    group = sim.group
+    alives = [s.alive for s in shards]
+    bins = []
+    for k, s in enumerate(shards):
+        loc, r_loc, b_k = dist.shard_local_binning(plan, sim.box, s,
+                                                   alives[k], k)
+        b_p = g27.bin_particles_plain(loc, r_loc, ~alives[k],
+                                      int(plan.row_len[k]) - 1)
+        bins.append((loc, r_loc, b_k, b_p))
+
+    def dense(k, x):
+        return g27.to_dense(bins[k][0], bins[k][3], x)
+
+    fills = [g27.dense_fill_mask(b[0], b[3]) & dense(k, alives[k])
+             for k, b in enumerate(bins)]
+    ghost = dist.plan_ghost_fn(group, plan)
+    return bins, dense, fills, ghost
+
+
+def compare_dist_kernels(sim, repeats: int = 0, plan=None,
+                         ring_radius: int = None, tag: str = ""):
+    """K1 with zrow_max, K2 and K3 on ghosted slabs and K38 of a
+    distributed controller's state on a CUDA device against their plain
+    versions on the same inputs, over every shard; reports keyed by
+    DIST_KERNELS with `tag` appended.  `plan` replaces the controller's
+    decomposition (thin_slab_plan); `ring_radius` its LET plan's ring
+    radius (1 at S = 4 makes one shard far).  With `repeats` > 0 each
+    kernel and its plain version are timed on shard 0's inputs.  Launch
+    counts are restored afterwards."""
+    from .parallel import dist, halo, let
+
+    saved = dict(_ext.LAUNCHES)
+    plan = plan or sim.distplan
+    shards = sim.shards
+    if plan is not sim.distplan:
+        host = dist.unshard_state(sim.distplan, shards, sim._n_orig)
+        shards = dist.shard_state(sim.group, plan, host)
+    kern, visc = sim.kern, sim.visc
+    f64 = shards[0].r.dtype == torch.float64
+    qz = plan.global_spec.qz
+    names = {k: k + tag for k in DIST_KERNELS}
+    out = {}
+    bins, dense, fills, ghost = _slab_pass_inputs(sim, plan, shards)
+    S = len(shards)
+
+    # K1: cell ids everywhere, slots of the live particles
+    mism = 0
+    flags = []
+    for (loc, r_loc, b_k, b_p), s in zip(bins, shards):
+        mism += int((b_k.cell_of != b_p.cell_of).sum())
+        mism += int((b_k.slot_of != b_p.slot_of)[s.alive].sum())
+        flags.append((bool(b_k.overflow), bool(b_p.overflow)))
+    out[names["grid27_bin_slab"]] = {
+        "mismatches": mism, "overflow": flags, "max_abs_err": float(mism),
+        "ok": mism == 0 and all(a == b for a, b in flags)}
+
+    # K2 on the ghosted slabs; the finish is shared torch code
+    hmax = g27.hmax_of(plan.global_spec, kern.kernrange)
+    locs = [b[0] for b in bins]
+    sls = halo.slabs(locs, qz, plan.row_len)
+    r_ds = [dense(k, b[1]) for k, b in enumerate(bins)]
+    m_ds = [dense(k, s.m) for k, s in enumerate(shards)]
+    d_in = halo.density_inputs(ghost, qz, r_ds, m_ds,
+                               [dense(k, s.h) for k, s in enumerate(shards)],
+                               fills)
+    k2_args = [((kern, sl.spec, sim.h_fac, sim.h_converge, hmax)
+                + tuple(x[k] for x in d_in), sl.win)
+               for k, sl in enumerate(sls)]
+    sums = {"kernel": [_ext.grid27_density(a[1], kern, *a[2:], rows_win=w)
+                       for a, w in k2_args],
+            "plain": [g27.density_sums_plain(*a, rows_win=w)
+                      for a, w in k2_args]}
+    dens = {t: [g27.density_finish(locs[k], sim.h_fac, hmax, m_ds[k],
+                                   fills[k], *(x[sls[k].own] for x in sm))
+                for k, sm in enumerate(sums[t])]
+            for t in ("kernel", "plain")}
+    cat = lambda xs: torch.cat([x.reshape(-1) for x in xs])  # noqa: E731
+    flat_dens = {t: g27.Grid27Density(*[cat([getattr(d, f) for d in ds])
+                                        for f in ("h", "rho", "invomega",
+                                                  "zeta", "hfactor")],
+                                      overflow=None)
+                 for t, ds in dens.items()}
+    fill_all = cat(fills)
+    done = [cat([sm[3][sl.own] for sm, sl in zip(sums[t], sls)])
+            for t in ("kernel", "plain")]
+    out[names["grid27_density_slab"]] = _density_report(
+        flat_dens, (None,) * 3 + (done[0],), (None,) * 3 + (done[1],),
+        fill_all, f64)
+
+    # K3 on the plain density's outputs
+    fields = []
+    for k, (dp, s) in enumerate(zip(dens["plain"], shards)):
+        u_d, p_d, c_d = sim.eos.thermal_update(
+            torch.clamp_min(dp.rho, 1e-30), dense(k, s.u))
+        fields.append({"r": r_ds[k], "v": dense(k, s.v), "m": m_ds[k], "h": dp.h,
+                       "rho": dp.rho, "u": u_d, "pressure": p_d,
+                       "sound": c_d, "invomega": dp.invomega,
+                       "hfactor": dp.hfactor, "alpha": dense(k, s.alpha)})
+    f_in = halo.force_inputs(ghost, fields, fills)
+    k3_args = [((kern, visc, sl.spec) + tuple(x[k] for x in f_in), sl.win)
+               for k, sl in enumerate(sls)]
+    f_k = [[x[sl.own] for x in _ext.grid27_forces(a[2], kern, visc, *a[3:],
+                                                   rows_win=w)]
+           for (a, w), sl in zip(k3_args, sls)]
+    f_p = [[x[sl.own] for x in g27.force_sums_plain(*a, w)]
+           for (a, w), sl in zip(k3_args, sls)]
+    both = [[torch.cat([x[i] for x in fs]) for i in range(3)]
+            for fs in (f_k, f_p)]
+    out[names["grid27_forces_slab"]] = _forces_report(
+        both[0], both[1], torch.cat(fills), f64)
+
+    # the work of shard 0's launches (the timed ones): its support pairs
+    rg0, fg0, pg0 = f_in[0][0], f_in[3][0], f_in[2][0]
+    hg = pg0[..., g27.FORCE_SCALARS.index("h")].reshape(-1)
+    cut2 = (kern.kernrange * float(hg[fg0.reshape(-1)].max())) ** 2
+    row, col, _, d2 = g27._pair_list(sls[0].spec, rg0, fg0, cut2, True,
+                                     sls[0].win)
+    n_i, n_ij = _support_counts(row, col, d2, hg, kern.kernrange)
+    out[names["grid27_bin_slab"]]["work"] = _work(
+        (shards[0].r,), (bins[0][2].cell_of, bins[0][2].slot_of),
+        FLOPS_PER["grid27_bin_slab"] * shards[0].N)
+    out[names["grid27_density_slab"]]["work"] = _work(
+        k2_args[0][0][5:], sums["kernel"][0],
+        FLOPS_PER["grid27_density_slab"] * (n_i + int(fills[0].sum())))
+    out[names["grid27_forces_slab"]]["work"] = _work(
+        k3_args[0][0][3:], f_k[0], FLOPS_PER["grid27_forces_slab"] * n_ij)
+
+    # K38 at the controller's LET plan (its ring radius replaced; not
+    # with a replaced decomposition, whose slots its bucket map does not
+    # name)
+    lp = sim.letplan if plan is sim.distplan else None
+    far = None
+    if lp is not None:
+        if ring_radius is not None:
+            lp = dataclasses.replace(lp, ring_radius=ring_radius)
+        G = lp.g_loc
+        gm = torch.as_tensor(lp.gmap, device=shards[0].r.device)
+        far = let.far_walk_inputs(
+            sim.group, lp, [gm[k * G:(k + 1) * G] for k in range(S)],
+            [s.r for s in shards], [sim._gravity_mass(s) for s in shards],
+            [s.h for s in shards], [s.zeta * s.hfactor for s in shards],
+            [s.alive for s in shards], sim._periodic_extent())
+    if far is not None:
+        wk, wp, stats = [], [], []
+        wargs = (32, lp.remote_frontier, lp.spec_comb.theta_sqd,
+                 lp.spec_comb.quadrupole)
+        for inp in far:
+            wk.append(_ext.let_far_walk(*inp, *wargs))
+            stats.append({})
+            wp.append(let.let_far_walk_plain(*inp, *wargs, stats=stats[-1]))
+        a_k, a_p = (torch.cat([w[0] for w in ws]) for ws in (wk, wp))
+        p_k, p_p = (torch.cat([w[1] for w in ws]) for ws in (wk, wp))
+        same_flags = all(torch.equal(x[2], y[2]) for x, y in zip(wk, wp))
+        errs = {"a": _scaled_err(a_k, a_p), "pot": _scaled_err(p_k, p_p)}
+        out[names["let_far_walk"]] = {
+            "scaled_err": errs, "same_flags": same_flags,
+            "flagged_groups": int(sum(int(w[2].sum()) for w in wp)),
+            "far_tables": int(far[0][0].shape[0]), "stats": stats[0],
+            "max_abs_err": float(torch.abs(a_k - a_p).max()),
+            "ok": same_flags and max(errs.values()) <= (
+                TOL_F64 if f64 else TOL_F32_TREE_FAR),
+            "work": _work(far[0], wk[0],
+                          FLOPS_PER["let_far_walk_mac"]
+                          * stats[0]["mac_tests"]
+                          + FLOPS_PER["let_far_walk_far"]
+                          * stats[0]["far_terms"])}
+
+    if repeats > 0:
+        (a2, w2), (a3, w3) = k2_args[0], k3_args[0]
+        b0 = bins[0]
+        timed = {
+            names["grid27_bin_slab"]: (
+                lambda: g27.bin_particles(b0[0], b0[1], ~shards[0].alive,
+                                          int(plan.row_len[0]) - 1),
+                lambda: g27.bin_particles_plain(b0[0], b0[1],
+                                                ~shards[0].alive,
+                                                int(plan.row_len[0]) - 1)),
+            names["grid27_density_slab"]: (
+                lambda: _ext.grid27_density(a2[1], kern, *a2[2:],
+                                            rows_win=w2),
+                lambda: g27.density_sums_plain(*a2, rows_win=w2)),
+            names["grid27_forces_slab"]: (
+                lambda: _ext.grid27_forces(a3[2], kern, visc, *a3[3:],
+                                           rows_win=w3),
+                lambda: g27.force_sums_plain(*a3, w3)),
+        }
+        if far is not None:
+            timed[names["let_far_walk"]] = (
+                lambda: _ext.let_far_walk(*far[0], *wargs),
+                lambda: let.let_far_walk_plain(*far[0], *wargs))
+        _time_pairs(out, timed, repeats)
+    for rep in out.values():
+        rep.setdefault("library_ms", None)
+        rep["dtype"] = str(shards[0].r.dtype)
+    torch.cuda.synchronize()
+    _ext.LAUNCHES.update(saved)
+    return out
+
+
+def gpot_errors(sim, n_sample: int = 2048, seed: int = 0) -> dict:
+    """|gpot - gpot_direct| / |gpot_direct| at `n_sample` live particles
+    (numpy generator `seed`), the direct sum in float64 over every live
+    particle on the state's device (the isolated box at the wrapped
+    positions, tests/test_dist.py:107-131): its median and 99th
+    percentile.  Works for the single-device controller and the
+    distributed one (its shards' concatenation)."""
+    s = sim.gathered_state()
+    live = torch.nonzero(s.alive).flatten()
+    rng = np.random.default_rng(seed)
+    pick = torch.as_tensor(np.sort(rng.choice(
+        live.numel(), min(n_sample, live.numel()), replace=False)),
+        device=live.device)
+    d = lambda x: x[live].double()  # noqa: E731
+    _, gp = direct_sph_gravity(sim.kern, d(s.r), d(s.m), d(s.h),
+                               d(s.zeta), d(s.hfactor), targets=pick)
+    err = (torch.abs(s.gpot[live[pick]].double() - gp)
+           / torch.abs(gp)).cpu().numpy()
+    return {"median": float(np.median(err)),
+            "p99": float(np.percentile(err, 99)), "n_sample": len(err)}

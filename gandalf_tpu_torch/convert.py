@@ -18,6 +18,9 @@ the port's (tensors on a device in a dtype, Python float scalars),
 ``mc_draws_from_numpy`` the Monte-Carlo packets' draws (source index,
 direction) of each iteration, made with jax.random and read out as
 numpy, into what ``ops/mcrt.py`` takes;
+``dist_plan_from_jax`` and ``let_plan_from_jax`` copy the distributed
+controller's decomposition and ring-LET plans (their grid and tree specs
+through the copies above), so that both packages run on one plan;
 ``schedule_from_jax``
 copies a JAX ``BlockSchedule`` and ``schedule_to_jax`` gives a port
 schedule's fields as numpy arrays in the JAX package's types (for
@@ -40,6 +43,8 @@ from .ops.sinks import SinkState
 from .ops.sph_grid27 import Grid27Spec
 from .ops.stellar import StellarTable
 from .ops.tree import TreeSpec
+from .parallel.dist import DistPlan
+from .parallel.let import LetPlan
 from .state import MfvState, NbodyState, SphState
 
 _OPTIONAL = ("bucket_map", "walk_mp", "walk_near", "walk_plan_r",
@@ -165,6 +170,29 @@ def tree_spec_from_jax(spec) -> TreeSpec:
     """Field-for-field copy of gandalf_tpu's frozen TreeSpec."""
     return TreeSpec(**{f.name: getattr(spec, f.name)
                        for f in dataclasses.fields(TreeSpec)})
+
+
+def dist_plan_from_jax(plan) -> DistPlan:
+    """The port's DistPlan from gandalf_tpu's (arrays copied, the specs
+    through grid_spec_from_jax)."""
+    return DistPlan(n_shards=int(plan.n_shards), cap=int(plan.cap),
+                    perm=np.array(plan.perm, dtype=np.int64),
+                    local_spec=grid_spec_from_jax(plan.local_spec),
+                    global_spec=grid_spec_from_jax(plan.global_spec),
+                    row_start=np.array(plan.row_start, dtype=np.int64),
+                    row_len=np.array(plan.row_len, dtype=np.int64),
+                    balanced=bool(plan.balanced))
+
+
+def let_plan_from_jax(plan) -> LetPlan:
+    """The port's LetPlan from gandalf_tpu's (the combined walk's
+    TreeSpec through tree_spec_from_jax)."""
+    return LetPlan(n_shards=int(plan.n_shards),
+                   ring_radius=int(plan.ring_radius),
+                   spec_comb=tree_spec_from_jax(plan.spec_comb),
+                   g_loc=int(plan.g_loc), pub_depth=int(plan.pub_depth),
+                   remote_frontier=int(plan.remote_frontier),
+                   gmap=np.array(plan.gmap, dtype=np.int32))
 
 
 def ewald_table_from_jax(table) -> EwaldTable:

@@ -9,6 +9,13 @@
 // dim an out-of-range neighbour is skipped.  A dim with fewer than 3
 // cells visits the same cell under several images, exactly as the
 // ghosted slices of the JAX package do.
+//
+// K2 and K3 also take the distributed plan's z-slab stencil: qz cells
+// each side along dim 0 (neighbour_cell_q, 2 qz + 1 rows), and a shard's
+// ghosted slab, whose dim 0 is open because its halo rows already hold
+// the ring neighbours' cells shifted across a periodic seam.  A launch
+// covers a run-time window of dim-0 rows (the shard's own), not a
+// template branch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,6 +25,8 @@ struct Grid3 {
   int periodic[3];
   double L[3];
   int K;
+  // dim-0 stencil half-width, read by neighbour_cell_q only
+  int qz = 1;
 };
 
 // 3^NDIM neighbour cells; the cell itself is the centre one
@@ -52,6 +61,57 @@ __device__ __forceinline__ bool neighbour_cell(const Grid3& g,
     dd[1] = d % 3 - 1;
   } else {
     dd[0] = d - 1;
+  }
+  int x[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    x[k] = cc[k] + dd[k];
+    sh[k] = T(0);
+    if (k >= NDIM) continue;
+    if (x[k] < 0) {
+      if (!g.periodic[k]) return false;
+      x[k] += g.n[k];
+      sh[k] = T(-g.L[k]);
+    } else if (x[k] >= g.n[k]) {
+      if (!g.periodic[k]) return false;
+      x[k] -= g.n[k];
+      sh[k] = T(g.L[k]);
+    }
+  }
+  *nc = (x[0] * g.n[1] + x[1]) * g.n[2] + x[2];
+  return true;
+}
+
+// the cells of a dim-0 row in NDIM dims' stencil: 3^(NDIM-1)
+template <int NDIM>
+__host__ __device__ constexpr int stencil_inner() {
+  return NDIM == 1 ? 1 : NDIM == 2 ? 3 : 9;
+}
+
+// (2 qz + 1) 3^(NDIM-1) neighbour cells of neighbour_cell_q; the cell
+// itself is the centre one, (size - 1) / 2
+template <int NDIM>
+__device__ __forceinline__ int stencil_size(const Grid3& g) {
+  return (2 * g.qz + 1) * stencil_inner<NDIM>();
+}
+
+// neighbour_cell over the z-slab stencil: digit 0 of d runs over the
+// 2 qz + 1 offsets -qz..qz of dim 0, the others over -1..1 as in
+// gandalf_tpu/ops/sph_grid27.py:_shifts(ndim, qz); with qz = 1 it is
+// neighbour_cell.  A periodic dim wraps once (qz <= n[0] there).
+template <typename T, int NDIM = 3>
+__device__ __forceinline__ bool neighbour_cell_q(const Grid3& g,
+                                                 const int cc[3], int d,
+                                                 int* nc, T sh[3]) {
+  constexpr int inner = stencil_inner<NDIM>();
+  int dd[3] = {0, 0, 0};
+  dd[0] = d / inner - g.qz;
+  const int rest = d % inner;
+  if (NDIM == 3) {
+    dd[1] = rest / 3 - 1;
+    dd[2] = rest % 3 - 1;
+  } else if (NDIM == 2) {
+    dd[1] = rest - 1;
   }
   int x[3];
 #pragma unroll

@@ -1,5 +1,8 @@
 // K1 grid27_bin: cell id and stable slot rank of every particle, in 1, 2
-// or 3 dims, with an optional discard mask.
+// or 3 dims, with an optional discard mask and a clamp of the dim-0 cell
+// index (zrow_max: a shard's last real row of the distributed slab
+// layout, gandalf_tpu/ops/sph_grid27.py:193-194, whose pad rows double
+// as the halo's receive window and stay empty).
 //
 // Replaces gandalf_tpu/ops/sph_grid27.py:bin_particles (:193-231), which
 // ranks particles within their cell by a stable argsort plus a segmented
@@ -33,7 +36,7 @@ namespace {
 template <typename T>
 __global__ void bin_count_kernel(const T* __restrict__ r, int n_part,
                                  int ndim, Grid3 g, T lo0, T lo1, T lo2,
-                                 T e0, T e1, T e2,
+                                 T e0, T e1, T e2, int zrow_max,
                                  const unsigned char* __restrict__ discard,
                                  int* __restrict__ count,
                                  int* __restrict__ rank_tmp,
@@ -54,8 +57,9 @@ __global__ void bin_count_kernel(const T* __restrict__ r, int n_part,
     // float first keeps the int conversion defined for far particles)
     T f = floor((r[static_cast<long long>(ndim) * i + k] - lo[k]) / ext[k]
                 * T(g.n[k]));
+    const int top = k == 0 ? min(zrow_max, g.n[0] - 1) : g.n[k] - 1;
     f = f < T(0) ? T(0) : f;
-    f = f > T(g.n[k] - 1) ? T(g.n[k] - 1) : f;
+    f = f > T(top) ? T(top) : f;
     cid = cid * g.n[k] + static_cast<int>(f);
   }
   cell_of[i] = cid;
@@ -126,9 +130,9 @@ __global__ void bin_rank_kernel(const int* __restrict__ offset,
 template <typename T>
 int run_bin(const T* r, const unsigned char* discard, int n_part, int ndim,
             int n0, int n1, int n2, double lo0, double lo1, double lo2,
-            double e0, double e1, double e2, int k_cell, int* count,
-            int* offset, int* rank_tmp, int* members, int* cell_of,
-            int* slot_of, unsigned char* overflow, int device,
+            double e0, double e1, double e2, int k_cell, int zrow_max,
+            int* count, int* offset, int* rank_tmp, int* members,
+            int* cell_of, int* slot_of, unsigned char* overflow, int device,
             void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -143,7 +147,7 @@ int run_bin(const T* r, const unsigned char* discard, int n_part, int ndim,
   if (n_part > 0)
     bin_count_kernel<T><<<blocks, threads, 0, stream>>>(
         r, n_part, ndim, g, T(lo0), T(lo1), T(lo2), T(e0), T(e1), T(e2),
-        discard, count, rank_tmp, cell_of, slot_of);
+        zrow_max, discard, count, rank_tmp, cell_of, slot_of);
   bin_scan_kernel<<<1, kScanThreads, 0, stream>>>(count, n_cells, k_cell,
                                                   offset, overflow);
   if (n_part > 0)
@@ -165,13 +169,14 @@ const char* grid27_error_string(int code) {
 #define GRID27_BIN_ENTRY(NAME, T)                                           \
   int NAME(const T* r, const unsigned char* discard, int n_part, int ndim,  \
            int n0, int n1, int n2, double lo0, double lo1, double lo2,      \
-           double e0, double e1, double e2, int k_cell, int* count,         \
-           int* offset, int* rank_tmp, int* members, int* cell_of,          \
-           int* slot_of, unsigned char* overflow, int device,               \
+           double e0, double e1, double e2, int k_cell, int zrow_max,       \
+           int* count, int* offset, int* rank_tmp, int* members,            \
+           int* cell_of, int* slot_of, unsigned char* overflow, int device, \
            void* stream) {                                                  \
     return run_bin<T>(r, discard, n_part, ndim, n0, n1, n2, lo0, lo1, lo2,  \
-                      e0, e1, e2, k_cell, count, offset, rank_tmp, members, \
-                      cell_of, slot_of, overflow, device, stream);          \
+                      e0, e1, e2, k_cell, zrow_max, count, offset,          \
+                      rank_tmp, members, cell_of, slot_of, overflow,        \
+                      device, stream);                                      \
   }
 
 GRID27_BIN_ENTRY(grid27_bin_f32, float)

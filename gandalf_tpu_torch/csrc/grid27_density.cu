@@ -36,6 +36,15 @@
 // so that s^2, and a table index, come from the same d^2.  At kernrange
 // 3 (quintic, gaussian) and the same h_fac a 3D particle meets (3/2)^3 =
 // 3.4 times M4's candidates and neighbours.
+//
+// The distributed pass (gandalf_tpu/parallel/halo.py:
+// hydro_pass_grid27_sharded, parallel/dist.py:dist_hydro_pass) runs the
+// same kernel on a shard's ghosted slab: the stencil is qz rows deep
+// along dim 0 (neighbour_cell_q, a template instance of its own for
+// qz > 1; qz = 1 is the single-device stencil)
+// and the launch covers the cells of a run-time window of dim-0 rows
+// [row0, row0 + nrows), the shard's own; the halo rows are neighbours
+// only and their outputs are not written.
 #include <cuda_runtime.h>
 
 #include "grid27.cuh"
@@ -46,7 +55,7 @@ namespace {
 constexpr int kIterFixedPoint = 30;
 constexpr int kIterMax = 150;
 
-template <typename T, int NDIM, class KF>
+template <typename T, int NDIM, bool kDeep, class KF>
 __device__ __forceinline__ void density_slot(
     const T* __restrict__ r, const T* __restrict__ m,
     const T* __restrict__ h, const unsigned char* __restrict__ fill,
@@ -79,10 +88,15 @@ __device__ __forceinline__ void density_slot(
     const T invh = T(1) / hh;
     const T invhsqd = invh * invh;
     T s_rho = T(0), s_om = T(0), s_zeta = T(0);
-    for (int d = 0; d < Stencil<NDIM>::kSize; ++d) {
+    // qz = 1 keeps the compile-time 3^NDIM stencil: a run-time bound
+    // slowed M4 at the 64^3 box by 5% on an H100 (time_grid27)
+    const int n_sh = kDeep ? stencil_size<NDIM>(g) : Stencil<NDIM>::kSize;
+    for (int d = 0; d < n_sh; ++d) {
       int nc;
       T sh[3];
-      if (!neighbour_cell<T, NDIM>(g, cc, d, &nc, sh)) continue;
+      if (kDeep ? !neighbour_cell_q<T, NDIM>(g, cc, d, &nc, sh)
+                : !neighbour_cell<T, NDIM>(g, cc, d, &nc, sh))
+        continue;
       const long long q0 = static_cast<long long>(nc) * K;
       for (int j = 0; j < K; ++j) {
         const long long q = q0 + j;
@@ -130,45 +144,47 @@ __device__ __forceinline__ void density_slot(
   done_out[p] = conv ? 1 : 0;
 }
 
-template <typename T, int NDIM, bool kFlat, class KF>
+template <typename T, int NDIM, bool kFlat, bool kDeep, class KF>
 __global__ void __launch_bounds__(256) grid27_density_kernel(
     const T* __restrict__ r, const T* __restrict__ m,
     const T* __restrict__ h, const unsigned char* __restrict__ fill,
-    const unsigned char* __restrict__ target, Grid3 g, int n_cells, KF kern,
-    T h_fac, T h_converge, T h_lo, T h_hi, T* __restrict__ rho_out,
+    const unsigned char* __restrict__ target, Grid3 g, int c0, int n_cells,
+    KF kern, T h_fac, T h_converge, T h_lo, T h_hi, T* __restrict__ rho_out,
     T* __restrict__ invom_out, T* __restrict__ zeta_out,
     unsigned char* __restrict__ done_out) {
+  // cells [c0, c0 + n_cells): the row window's
   if (kFlat) {
     const long long t = static_cast<long long>(blockIdx.x) * blockDim.x
                         + threadIdx.x;
     if (t >= static_cast<long long>(n_cells) * g.K) return;
-    density_slot<T, NDIM>(r, m, h, fill, target, g,
-                          static_cast<int>(t / g.K),
+    density_slot<T, NDIM, kDeep>(r, m, h, fill, target, g,
+                          c0 + static_cast<int>(t / g.K),
                           static_cast<int>(t % g.K), kern, h_fac,
                           h_converge, h_lo, h_hi, rho_out, invom_out,
                           zeta_out, done_out);
     return;
   }
   for (int i = threadIdx.x; i < g.K; i += blockDim.x)
-    density_slot<T, NDIM>(r, m, h, fill, target, g, blockIdx.x, i, kern,
-                          h_fac, h_converge, h_lo, h_hi, rho_out, invom_out,
-                          zeta_out, done_out);
+    density_slot<T, NDIM, kDeep>(r, m, h, fill, target, g, c0 + blockIdx.x,
+                                 i,
+                          kern, h_fac, h_converge, h_lo, h_hi, rho_out,
+                          invom_out, zeta_out, done_out);
 }
 
-template <typename T, int NDIM, bool kFlat, class KF>
+template <typename T, int NDIM, bool kFlat, bool kDeep, class KF>
 void launch_density(const T* r, const T* m, const T* h,
                     const unsigned char* fill, const unsigned char* target,
-                    const Grid3& g, int n_cells, const KF& kern, T h_fac,
-                    T h_converge, T h_lo, T h_hi, T* rho, T* invom, T* zeta,
-                    unsigned char* done, cudaStream_t stream) {
+                    const Grid3& g, int c0, int n_cells, const KF& kern,
+                    T h_fac, T h_converge, T h_lo, T h_hi, T* rho, T* invom,
+                    T* zeta, unsigned char* done, cudaStream_t stream) {
   const long long slots = static_cast<long long>(n_cells) * g.K;
   const int blocks = kFlat ? static_cast<int>((slots + kFlatThreads - 1)
                                               / kFlatThreads)
                            : n_cells;
   const int threads = kFlat ? kFlatThreads : slot_threads(g.K);
-  grid27_density_kernel<T, NDIM, kFlat, KF><<<blocks, threads, 0,
-                                               stream>>>(
-      r, m, h, fill, target, g, n_cells, kern, h_fac, h_converge, h_lo,
+  grid27_density_kernel<T, NDIM, kFlat, kDeep, KF><<<blocks, threads, 0,
+                                                      stream>>>(
+      r, m, h, fill, target, g, c0, n_cells, kern, h_fac, h_converge, h_lo,
       h_hi, rho, invom, zeta, done);
 }
 
@@ -176,18 +192,33 @@ template <typename T, int NDIM, class KF>
 void launch_density_ndim(const T* r, const T* m, const T* h,
                          const unsigned char* fill,
                          const unsigned char* target, const Grid3& g,
-                         int n_cells, const KF& kern, T h_fac, T h_converge,
+                         int c0, int n_cells, const KF& kern, T h_fac,
+                         T h_converge,
                          T h_lo, T h_hi, T* rho, T* invom, T* zeta,
                          unsigned char* done, bool flat,
                          cudaStream_t stream) {
-  if (flat)
-    launch_density<T, NDIM, true>(r, m, h, fill, target, g, n_cells, kern,
-                                  h_fac, h_converge, h_lo, h_hi, rho, invom,
-                                  zeta, done, stream);
+  // the stencil deeper than one row a side only for a thin slab (qz > 1)
+  const bool deep = g.qz > 1;
+  if (flat && deep)
+    launch_density<T, NDIM, true, true>(r, m, h, fill, target, g, c0,
+                                        n_cells, kern, h_fac, h_converge,
+                                        h_lo, h_hi, rho, invom, zeta, done,
+                                        stream);
+  else if (flat)
+    launch_density<T, NDIM, true, false>(r, m, h, fill, target, g, c0,
+                                         n_cells, kern, h_fac, h_converge,
+                                         h_lo, h_hi, rho, invom, zeta, done,
+                                         stream);
+  else if (deep)
+    launch_density<T, NDIM, false, true>(r, m, h, fill, target, g, c0,
+                                         n_cells, kern, h_fac, h_converge,
+                                         h_lo, h_hi, rho, invom, zeta, done,
+                                         stream);
   else
-    launch_density<T, NDIM, false>(r, m, h, fill, target, g, n_cells, kern,
-                                   h_fac, h_converge, h_lo, h_hi, rho,
-                                   invom, zeta, done, stream);
+    launch_density<T, NDIM, false, false>(r, m, h, fill, target, g, c0,
+                                          n_cells, kern, h_fac, h_converge,
+                                          h_lo, h_hi, rho, invom, zeta,
+                                          done, stream);
 }
 
 template <typename T>
@@ -197,14 +228,17 @@ int run_density(const T* r, const T* m, const T* h,
                 int per1, int per2, double L0, double L1, double L2,
                 double norm, int family, int res, double h_fac,
                 double h_converge, double hmax, T* rho, T* invom, T* zeta,
-                unsigned char* done, int mapping, int device,
-                void* stream_ptr) {
+                unsigned char* done, int qz, int row0, int nrows,
+                int mapping, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ndim < 1 || ndim > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (ndim < 1 || ndim > 3 || qz < 1 || row0 < 0 || nrows < 0
+      || row0 + nrows > n0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Grid3 g = {{n0, n1, n2}, {per0, per1, per2}, {L0, L1, L2}, k_cell};
-  const int n_cells = n0 * n1 * n2;
+  Grid3 g = {{n0, n1, n2}, {per0, per1, per2}, {L0, L1, L2}, k_cell, qz};
+  const int c0 = row0 * n1 * n2;
+  const int n_cells = nrows * n1 * n2;
   const bool flat = slot_mapping_flat(mapping, ndim, k_cell);
   if (n_cells > 0 && k_cell > 0) {
     // bounds as the JAX code forms them: in double, then cast
@@ -212,17 +246,20 @@ int run_density(const T* r, const T* m, const T* h,
     const bool known = kf::with_kernel<T>(
         family, res, norm, ndim, [&](const auto& kern) {
           if (ndim == 1)
-            launch_density_ndim<T, 1>(r, m, h, fill, target, g, n_cells,
+            launch_density_ndim<T, 1>(r, m, h, fill, target, g, c0,
+                                      n_cells,
                                       kern, args[0], args[1], args[2],
                                       args[3], rho, invom, zeta, done, flat,
                                       stream);
           else if (ndim == 2)
-            launch_density_ndim<T, 2>(r, m, h, fill, target, g, n_cells,
+            launch_density_ndim<T, 2>(r, m, h, fill, target, g, c0,
+                                      n_cells,
                                       kern, args[0], args[1], args[2],
                                       args[3], rho, invom, zeta, done, flat,
                                       stream);
           else
-            launch_density_ndim<T, 3>(r, m, h, fill, target, g, n_cells,
+            launch_density_ndim<T, 3>(r, m, h, fill, target, g, c0,
+                                      n_cells,
                                       kern, args[0], args[1], args[2],
                                       args[3], rho, invom, zeta, done, flat,
                                       stream);
@@ -242,11 +279,12 @@ extern "C" {
            int k_cell, int per0, int per1, int per2, double L0, double L1,  \
            double L2, double norm, int family, int res, double h_fac,       \
            double h_converge, double hmax, T* rho, T* invom, T* zeta,       \
-           unsigned char* done, int mapping, int device, void* stream) {    \
+           unsigned char* done, int qz, int row0, int nrows, int mapping,   \
+           int device, void* stream) {                                      \
     return run_density<T>(r, m, h, fill, target, ndim, n0, n1, n2, k_cell,  \
                           per0, per1, per2, L0, L1, L2, norm, family, res,  \
                           h_fac, h_converge, hmax, rho, invom, zeta, done,  \
-                          mapping, device, stream);                         \
+                          qz, row0, nrows, mapping, device, stream);        \
   }
 
 GRID27_DENSITY_ENTRY(grid27_density_f32, float)

@@ -2,8 +2,8 @@
 binning (K1), grad-h density (K2), SPH pair forces (K3) and the mirror
 images of mirror and wall boundaries (K19).
 
-Counterpart of ``gandalf_tpu/ops/sph_grid27.py`` without the z-slab
-(``qz > 1``) plan.  Particles are binned to a uniform grid whose cells
+Counterpart of ``gandalf_tpu/ops/sph_grid27.py``.  Particles are binned
+to a uniform grid whose cells
 are at least one kernel support wide, and scattered into dense per-cell
 storage shaped (*ncells, K[, ndim]); every particle's neighbours then lie
 in the 3^ndim cells around its own.  A mirror or wall side adds one
@@ -17,6 +17,14 @@ Each kernel has a plain PyTorch version here and a CUDA C++ kernel in
 version; a CUDA tensor takes the kernel, or the wrapper raises.  Neither
 uses ghost-layer copies: both wrap neighbour cell indices and shift
 positions by the box length along periodic dims.
+
+The distributed plan (``plan_grid27(..., z_multiple)``) may make z cells
+thinner than the kernel support; the stencil then spans 2 qz + 1 cells
+along dim 0.  A shard's slab is handed to K2 and K3 as a ghosted slab
+(``slab_spec``): its qz halo rows on each side of dim 0 come from the
+ring neighbours, already shifted by the box length at a periodic seam,
+so dim 0 is open there, and only the rows of a run-time window (the
+shard's own) are targets.
 """
 
 from __future__ import annotations
@@ -49,9 +57,10 @@ FORCE_SCALARS = ("m", "h", "rho", "u", "pressure", "sound", "invomega",
 class Grid27Spec:
     """Static grid geometry (same fields as gandalf_tpu's Grid27Spec).
 
-    The port plans only ``qz == 1``; the field stays so a JAX plan copies
-    across unchanged.  With mirror walls, ncells, lo and extents include
-    the image-cell layers beyond the walls."""
+    qz > 1 (dim-0 cells thinner than the support, the stencil 2 qz + 1
+    cells wide there) arises only from the distributed plan.  With mirror
+    walls, ncells, lo and extents include the image-cell layers beyond
+    the walls."""
 
     ndim: int
     ncells: Tuple[int, ...]        # dim 0 slowest in the flat cell id
@@ -76,11 +85,16 @@ def hmax_of(spec: Grid27Spec, kernrange: float) -> float:
 
 
 def plan_grid27(box: DomainBox, r: np.ndarray, h_max: float,
-                kernrange: float, k_slack: float = 1.35) -> Grid27Spec:
+                kernrange: float, k_slack: float = 1.35,
+                z_multiple: int = 1) -> Grid27Spec:
     """Host-side grid plan: cells at least one support (kernrange*h_max)
     wide, K = ceil(max occupancy * k_slack) + 1 slots per cell.  A mirror
     or wall side anchors the grid at the wall and adds one image-cell
-    layer beyond it; the occupancy counts the images that land there."""
+    layer beyond it; the occupancy counts the images that land there.
+    `z_multiple` (the shard count) rounds the dim-0 row count down to a
+    multiple of it; where the support is wider than a slab, dim 0 gets
+    z_multiple rows and the stencil qz > 1 rows each side
+    (gandalf_tpu/ops/sph_grid27.py:127-145)."""
     r = np.asarray(r)
     ndim = r.shape[1]
     support = float(kernrange * h_max)
@@ -102,12 +116,29 @@ def plan_grid27(box: DomainBox, r: np.ndarray, h_max: float,
             periodic.append(False)
     ncells = [max(int(np.floor((hi[k] - lo[k]) / support)), 1)
               for k in range(ndim)]
+    e0 = int(mlo[0]) + int(mhi[0])       # image layers to add on dim 0
+    qz = 1
+    if z_multiple > 1:
+        if ncells[0] + e0 >= z_multiple:
+            ncells[0] = max(((ncells[0] + e0) // z_multiple) * z_multiple
+                            - e0, 1)
+        elif e0:
+            raise ValueError(
+                "mirror walls on the slab axis need >= 1 interior row "
+                "per shard (distribution too clustered)")
+        else:
+            ncells[0] = z_multiple
+            qz = max(int(np.ceil(support / ((hi[0] - lo[0])
+                                            / z_multiple))), 1)
     # one image-cell layer beyond each wall; the occupancy counts the
     # images of the particles within a cell of the wall
     r_occ = [r]
     for k in range(ndim):
         if not (mlo[k] or mhi[k]):
             continue
+        if k == 0 and qz > 1:
+            raise ValueError("mirror walls on a sub-support slab axis "
+                             "(qz > 1) are not supported")
         cell_k = (hi[k] - lo[k]) / ncells[k]
         for side, on in ((0, mlo[k]), (1, mhi[k])):
             if not on:
@@ -134,7 +165,21 @@ def plan_grid27(box: DomainBox, r: np.ndarray, h_max: float,
     k_cell = int(np.ceil(counts.max() * k_slack)) + 1
     return Grid27Spec(ndim=ndim, ncells=ncells, lo=tuple(lo),
                       extents=extents, k_cell=k_cell,
-                      periodic=tuple(periodic), mirror=tuple(walls))
+                      periodic=tuple(periodic), qz=qz, mirror=tuple(walls))
+
+
+def slab_spec(spec: Grid27Spec, qz: int) -> Grid27Spec:
+    """The ghosted slab of a shard's local grid `spec`: qz halo rows
+    added on each side of dim 0, which is open (the halo rows hold the
+    ring neighbours' cells, shifted across a periodic seam), and a
+    stencil qz rows deep there.  K2 and K3 take it with a row window."""
+    cell0 = spec.extents[0] / spec.ncells[0]
+    n0 = spec.ncells[0] + 2 * qz
+    return dataclasses.replace(
+        spec, ncells=(n0,) + tuple(spec.ncells[1:]),
+        lo=(spec.lo[0] - qz * cell0,) + tuple(spec.lo[1:]),
+        extents=(n0 * cell0,) + tuple(spec.extents[1:]),
+        periodic=(False,) + tuple(spec.periodic[1:]), qz=qz)
 
 
 # ---------------------------------------------------------------------------
@@ -147,19 +192,22 @@ class GridBinning(NamedTuple):
     overflow: Tensor    # () bool: some cell holds more than K particles
 
 
-def bin_particles(spec: Grid27Spec, r: Tensor,
-                  discard: Tensor = None) -> GridBinning:
+def bin_particles(spec: Grid27Spec, r: Tensor, discard: Tensor = None,
+                  zrow_max: int = None) -> GridBinning:
     """Cell id and stable slot rank (original particle order within a
     cell) per particle.  `discard` (N,) bool routes particles to the
     virtual cell C = total_cells, where they take no slot and raise no
-    overflow.  K1 on a CUDA tensor."""
+    overflow.  `zrow_max` clamps the dim-0 cell index to at most it (a
+    shard's last real row: its pad rows stay empty).  K1 on a CUDA
+    tensor."""
     if r.is_cuda:
-        return GridBinning(*_ext.grid27_bin(spec, r, discard))
-    return bin_particles_plain(spec, r, discard)
+        return GridBinning(*_ext.grid27_bin(spec, r, discard, zrow_max))
+    return bin_particles_plain(spec, r, discard, zrow_max)
 
 
 def bin_particles_plain(spec: Grid27Spec, r: Tensor,
-                        discard: Tensor = None) -> GridBinning:
+                        discard: Tensor = None,
+                        zrow_max: int = None) -> GridBinning:
     """Plain version of K1: stable sort by cell id, rank within runs.
     The discarded are ranked among themselves, as in the JAX package
     (K1 gives them slot 0; nothing reads either)."""
@@ -172,7 +220,10 @@ def bin_particles_plain(spec: Grid27Spec, r: Tensor,
         ext = torch.tensor(spec.extents[k], dtype=r.dtype, device=r.device)
         ck = torch.floor((r[:, k] - spec.lo[k]) / ext
                          * spec.ncells[k]).to(torch.int32)
-        cid = cid * spec.ncells[k] + torch.clamp(ck, 0, spec.ncells[k] - 1)
+        top = spec.ncells[k] - 1
+        if k == 0 and zrow_max is not None:
+            top = min(int(zrow_max), top)
+        cid = cid * spec.ncells[k] + torch.clamp(ck, 0, top)
     if discard is not None:
         cid = torch.where(discard, spec.total_cells, cid)
     order = torch.sort(cid, stable=True).indices
@@ -278,18 +329,19 @@ def grid_mirror_extend_plain(walls, r: Tensor, v: Tensor,
 # Neighbour tables for the plain versions
 # ---------------------------------------------------------------------------
 
-def _shifts(ndim: int):
-    """The 3^ndim cell offsets in the kernels' order (dim 0 slowest);
-    the centre one, (0, ..., 0), is the cell itself."""
-    return tuple(itertools.product((-1, 0, 1), repeat=ndim))
+def _shifts(ndim: int, qz: int = 1):
+    """The (2 qz + 1) 3^(ndim-1) cell offsets in the kernels' order (dim
+    0 slowest); the centre one, (0, ..., 0), is the cell itself."""
+    return tuple(itertools.product(range(-qz, qz + 1),
+                                   *([(-1, 0, 1)] * (ndim - 1))))
 
 
 def _neighbour_table(spec: Grid27Spec, device):
     """(C, S) neighbour cell ids, (C, S, ndim) coordinate shifts (±L
     where a periodic dim wraps) and (C, S) in-range mask (open dims),
-    S = 3^ndim."""
+    S = len(_shifts(ndim, qz))."""
     n, nd = spec.ncells, spec.ndim
-    shifts = _shifts(nd)
+    shifts = _shifts(nd, spec.qz)
     coords = np.stack(np.meshgrid(*[np.arange(nk) for nk in n],
                                   indexing="ij"), -1).reshape(-1, nd)
     C, S = coords.shape[0], len(shifts)
@@ -317,17 +369,18 @@ def _neighbour_table(spec: Grid27Spec, device):
 
 
 def _pair_list(spec: Grid27Spec, r_d: Tensor, fill: Tensor, cut2: float,
-               exclude_self: bool):
-    """Candidate pairs (i, j) over the 3^ndim-cell stencil with both
-    slots filled and |r_j - r_i|^2 <= cut2, as flat slot indices row (i)
-    and col (j), separations r_j - r_i (P, ndim) and d^2 (P,), ordered by
+               exclude_self: bool, rows_win=None):
+    """Candidate pairs (i, j) over the cell stencil with both slots
+    filled and |r_j - r_i|^2 <= cut2, as flat slot indices row (i) and
+    col (j), separations r_j - r_i (P, ndim) and d^2 (P,), ordered by
     row, then by stencil position.  With `exclude_self`, a slot's pair
     with itself (same slot, centre shift) and coincident pairs are
-    dropped.  Built over chunks of the filled slots that bound the
+    dropped.  `rows_win` (lo, hi) keeps the rows i in dim-0 cell rows
+    [lo, hi) only.  Built over chunks of the filled slots that bound the
     (slots, S K) candidate block: 2^25 candidates on a GPU (a few hundred
     MB), 2^21 on a CPU."""
     K, C, nd = spec.k_cell, spec.total_cells, spec.ndim
-    S = 3 ** nd
+    S = len(_shifts(nd, spec.qz))
     dev = r_d.device
     r_s = r_d.reshape(C * K, nd)
     r_f = r_d.reshape(C, K, nd)
@@ -335,6 +388,10 @@ def _pair_list(spec: Grid27Spec, r_d: Tensor, fill: Tensor, cut2: float,
     fill_f = fill.reshape(C, K)
     nb, off, ok = _neighbour_table(spec, dev)
     slots = torch.nonzero(fill_s).flatten()
+    if rows_win is not None:
+        per_row = K * (C // spec.ncells[0])
+        slots = slots[(slots >= rows_win[0] * per_row)
+                      & (slots < rows_win[1] * per_row)]
     budget = 1 << 25 if dev.type == "cuda" else 1 << 21
     step = max(1, budget // (S * K))
     jj_all = torch.arange(S * K, device=dev)
@@ -383,23 +440,33 @@ class Grid27Density(NamedTuple):
 
 def density_sums(kern: SmoothingKernel, spec: Grid27Spec, h_fac: float,
                  h_converge: float, hmax: float, r_d: Tensor, m_d: Tensor,
-                 h_d: Tensor, fill: Tensor, target: Tensor = None):
+                 h_d: Tensor, fill: Tensor, target: Tensor = None,
+                 rows_win=None):
     """The h-rho iteration of every filled slot (of the filled `target`
-    slots, (*ncells, K) bool, where given: the others are neighbours only
+    slots, (*ncells, K) bool, where given, and of the dim-0 rows
+    [lo, hi) of `rows_win`, where given: the others are neighbours only
     and come back with zero sums, converged): (rho, invom, zeta) sums at
     its final h and its converged flag, each (*ncells, K).  K2 on CUDA
-    tensors."""
+    tensors (counted as grid27_density_slab with a row window)."""
     if r_d.is_cuda:
         return _ext.grid27_density(spec, kern, h_fac, h_converge, hmax,
-                                   r_d, m_d, h_d, fill, target)
+                                   r_d, m_d, h_d, fill, target,
+                                   rows_win=rows_win)
     return density_sums_plain(kern, spec, h_fac, h_converge, hmax,
-                              r_d, m_d, h_d, fill, target)
+                              r_d, m_d, h_d, fill, target, rows_win)
+
+
+def _row_mask(spec: Grid27Spec, rows_win, device) -> Tensor:
+    """(C*K,) bool: the slots in dim-0 cell rows [lo, hi)."""
+    per_row = spec.k_cell * (spec.total_cells // spec.ncells[0])
+    idx = torch.arange(spec.total_cells * spec.k_cell, device=device)
+    return (idx >= rows_win[0] * per_row) & (idx < rows_win[1] * per_row)
 
 
 def density_sums_plain(kern: SmoothingKernel, spec: Grid27Spec,
                        h_fac: float, h_converge: float, hmax: float,
                        r_d: Tensor, m_d: Tensor, h_d: Tensor, fill: Tensor,
-                       target: Tensor = None):
+                       target: Tensor = None, rows_win=None):
     """Plain version of K2: the lockstep iteration of gandalf_tpu's
     density_grid27 (30 fixed-point steps, bisection up to step 150; a
     converged slot keeps its h) over a list of the pairs within
@@ -408,7 +475,7 @@ def density_sums_plain(kern: SmoothingKernel, spec: Grid27Spec,
     # pairs beyond the cut have s > kernrange at every h <= hmax: their
     # terms are exactly zero (the margin covers rounding of s)
     cut2 = (kern.kernrange * hmax) ** 2 * (1.0 + 1e-6)
-    row, col, _, d2 = _pair_list(spec, r_d, fill, cut2, False)
+    row, col, _, d2 = _pair_list(spec, r_d, fill, cut2, False, rows_win)
     fill_f = fill.reshape(-1)
     m_j = m_d.reshape(-1)[col]
     m_t = torch.clamp_min(m_d.reshape(-1), 1e-30)
@@ -432,6 +499,8 @@ def density_sums_plain(kern: SmoothingKernel, spec: Grid27Spec,
     lo = torch.zeros_like(h)
     hi = torch.full_like(h, hmax)
     iterate = fill_f if target is None else fill_f & target.reshape(-1)
+    if rows_win is not None:
+        iterate = iterate & _row_mask(spec, rows_win, r_d.device)
     done = ~iterate
     rho = invom = zeta = torch.zeros_like(h)
     it = 0
@@ -447,7 +516,7 @@ def density_sums_plain(kern: SmoothingKernel, spec: Grid27Spec,
         h = torch.where(conv | done, h, torch.clamp(h_new, 1e-6 * hmax, hmax))
         done = done | conv
         it += 1
-    if target is not None:
+    if target is not None or rows_win is not None:
         zero = torch.zeros_like(h)
         rho, invom, zeta = (torch.where(iterate, x, zero)
                             for x in (rho, invom, zeta))
@@ -509,19 +578,23 @@ def density_finish(spec: Grid27Spec, h_fac: float, hmax: float,
 
 def force_sums(kern: SmoothingKernel, visc: ArtificialViscosity,
                spec: Grid27Spec, r_d: Tensor, v_d: Tensor, packed: Tensor,
-               fill: Tensor):
+               fill: Tensor, rows_win=None):
     """Pair sums of every slot: acceleration (*ncells, K, ndim), and du/dt
     and the unnormalised -sum m_j dvdr W'_i (*ncells, K), before the
-    epilogue.  `packed` holds FORCE_SCALARS on its last axis.  K3 on
-    CUDA tensors."""
+    epilogue.  `packed` holds FORCE_SCALARS on its last axis.  With
+    `rows_win` (lo, hi) only the slots of dim-0 rows [lo, hi) are
+    targets; the others come back zero.  K3 on CUDA tensors (counted as
+    grid27_forces_slab with a row window)."""
     if r_d.is_cuda:
-        return _ext.grid27_forces(spec, kern, visc, r_d, v_d, packed, fill)
-    return force_sums_plain(kern, visc, spec, r_d, v_d, packed, fill)
+        return _ext.grid27_forces(spec, kern, visc, r_d, v_d, packed, fill,
+                                  rows_win=rows_win)
+    return force_sums_plain(kern, visc, spec, r_d, v_d, packed, fill,
+                            rows_win)
 
 
 def force_sums_plain(kern: SmoothingKernel, visc: ArtificialViscosity,
                      spec: Grid27Spec, r_d: Tensor, v_d: Tensor,
-                     packed: Tensor, fill: Tensor):
+                     packed: Tensor, fill: Tensor, rows_win=None):
     """Plain version of K3: gandalf_tpu's _force_shifts over a list of the
     pairs within kernrange times the largest h, with the separations and
     (v_j - v_i).(r_j - r_i) computed directly.  A pair counts when j is a
@@ -535,7 +608,7 @@ def force_sums_plain(kern: SmoothingKernel, visc: ArtificialViscosity,
     # every term of the pair is exactly zero
     h_big = float(torch.max(torch.where(fill_f, pk[:, col_of["h"]], 0.0)))
     cut2 = (kern.kernrange * h_big) ** 2 * (1.0 + 1e-6)
-    row, col, dx, d2 = _pair_list(spec, r_d, fill, cut2, True)
+    row, col, dx, d2 = _pair_list(spec, r_d, fill, cut2, True, rows_win)
     v_f = v_d.reshape(C * K, nd)
 
     def own(key):
@@ -600,6 +673,13 @@ def forces_grid27(kern: SmoothingKernel, visc: ArtificialViscosity,
     packed = torch.stack([dense[k] for k in FORCE_SCALARS], dim=-1)
     a, dudt, div_v = force_sums(kern, visc, spec, dense["r"], dense["v"],
                                 packed, fill)
+    return forces_finish(visc, dense, a, dudt, div_v)
+
+
+def forces_finish(visc: ArtificialViscosity, dense: Dict[str, Tensor],
+                  a: Tensor, dudt: Tensor, div_v: Tensor):
+    """The per-slot epilogue of K3's pair sums (div_v normalised, the
+    -P div_v term, MM97's dalpha/dt): dense (a, dudt, div_v, dalphadt)."""
     invh_i = 1.0 / torch.clamp_min(dense["h"], 1e-30)
     invrho_i = 1.0 / torch.clamp_min(dense["rho"], 1e-300)
     div_v = div_v * invrho_i
@@ -630,9 +710,6 @@ def hydro_pass_grid27(kern, visc, box: DomainBox, spec: Grid27Spec, eos,
     they still take their slots (K1 bins every particle), count in no
     sum, and their own fields come back as h = rho = invomega = 1,
     u = 1e-30 and zeros."""
-    if spec.qz != 1:
-        raise NotImplementedError(
-            "z-slab plans are not ported yet (ROADMAP queue 1, item 13)")
     if spec.mirror:
         return _hydro_pass_grid27_mirror(kern, visc, box, spec, eos, h_fac,
                                          h_converge, hydro_forces, s, alive)

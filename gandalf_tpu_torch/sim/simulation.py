@@ -222,10 +222,13 @@ class SimulationBase:
         self.restart_data = None
 
     @staticmethod
-    def factory(params, device="cuda", dtype=None):
+    def factory(params, device="cuda", dtype=None, shard_devices=None):
         """The controller for the `sim` parameter
         (SimulationBase::SimulationFactory).  `dtype` defaults to float32
-        for the hydro controllers and float64 for N-body."""
+        for the hydro controllers and float64 for N-body.  With Nmpi > 1
+        grad-h SPH runs over Nmpi z-slab shards on `shard_devices`
+        (default: one per visible CUDA device; ["cpu"] * Nmpi on the
+        CPU); the other schemes over shards are refused."""
         sim = params.stringparams["sim"]
         if sim == "nbody":
             # Nmpi > 1: the reference replicates the star set on every
@@ -234,9 +237,14 @@ class SimulationBase:
             from .nbody_sim import NbodySimulation
 
             return NbodySimulation(params, device, dtype or torch.float64)
-        if params.intparams["Nmpi"] > 1:
-            raise _unsupported("Nmpi > 1", "item 13")
         dtype = dtype or torch.float32
+        if params.intparams["Nmpi"] > 1:
+            if sim in GradhSphSimulation.SIM_NAMES:
+                from .dist_sim import DistributedGradhSphSimulation
+
+                return DistributedGradhSphSimulation(params, device, dtype,
+                                                     shard_devices)
+            raise _unsupported(f"Nmpi > 1 with sim {sim!r}", "item 13")
         if sim in ("sph", "gradhsph", "gradsph"):
             return GradhSphSimulation(params, device, dtype)
         if sim == "sm2012sph":
@@ -657,7 +665,7 @@ class SimulationBase:
     def _init_output_cadence(self):
         """The first snapshot when the run starts at or past tsnapfirst
         (a restart), and the next output time past t."""
-        self.t = float(self.state.t)
+        self.t = float(self.gathered_state().t)
         self.tsnapnext = self.params.floatparams["tsnapfirst"]
         dt_snap = self.params.floatparams["dt_snap"]
         self.setup_complete = True
@@ -773,14 +781,22 @@ class SimulationBase:
         with open(f"{run_id}.restart", "w") as f:
             f.write(f"{form_tag}\n{fname}\n")
 
+    def gathered_state(self):
+        """The whole particle state as one SphState (None before the
+        setup): the state itself here; the distributed controller
+        concatenates its shards."""
+        return self.state
+
     def _diagnostics_tick(self):
         """Energy and momentum accounting every ndiagstep steps
         (Simulation.cpp:1652-1659), appended to run_id.diag when
         snapshots are written."""
         ndiag = max(self.params.intparams["ndiagstep"], 1)
-        if self.Nsteps % ndiag != 0 or self.state is None:
+        if self.Nsteps % ndiag != 0:
             return
-        s = self.state
+        s = self.gathered_state()
+        if s is None:
+            return
         u = _host(s.u) if hasattr(s, "u") else None
         gpot = _host(s.gpot) if getattr(self, "self_gravity", False) \
             else None

@@ -6,7 +6,8 @@ switch, a dusty box, an SM2012 tube, an external potential and the
 radws box and cluster with radiative feedback, a quintic box, a step
 of the Spitzer sphere under each radiation scheme, the 1D and 2D
 self-gravitating disc, MFV's too, the 1D and 2D sink runs, a step of the
-2D HII region and a run of the command line included);
+2D HII region, a run of the command line and a step of the distributed
+controller over two CPU shards included);
 chip_smoke.py
 refuses to run without
 a GPU, a missing C++ tree planner raises, a kernel wrapper refuses CPU
@@ -200,6 +201,11 @@ def test_port_never_imports_jax():
         "    assert main(['run.dat'], device='cpu') == 0\n"
         "    assert os.path.exists('HII2D.restart')\n"
         "    os.chdir(here)\n"
+        "from gandalf_tpu_torch.check import dist_sim\n"
+        "sim = dist_sim(8, 2, 'cpu', torch.float64, ntreebuildstep=1)\n"
+        "sim.main_loop_step()\n"
+        "assert sim.n_replans == 0\n"
+        "assert bool((sim.gathered_state().gpot > 0).any())\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'gandalf_tpu')))\n")
     # GANDALF_PRECISION makes the JAX package import JAX: set, it must
@@ -1242,3 +1248,68 @@ def test_grid_family_kernels_match_plain_versions_on_gpu(variant, ndim,
     bad = {k: r.get("scaled_err", r) for k, r in report.items()
            if not r["ok"]}
     assert not bad, bad
+
+
+def test_dist_wrappers_refuse_cpu_tensors():
+    """K1 with zrow_max, K2 and K3 with a row window and K38: CPU tensors
+    raise and count no launch; the other grid kernels still refuse a
+    z-slab (qz > 1) plan."""
+    import dataclasses
+
+    from gandalf_tpu_torch import _ext
+    from gandalf_tpu_torch.kernels.smoothing import kernel_factory
+    from gandalf_tpu_torch.ops.forces import ArtificialViscosity
+    from gandalf_tpu_torch.ops.sph_grid27 import Grid27Spec, slab_spec
+
+    f64 = dict(dtype=torch.float64)
+    spec = Grid27Spec(3, (4, 2, 2), (0.0,) * 3, (1.0,) * 3, 4, (True,) * 3)
+    slab = slab_spec(dataclasses.replace(spec, ncells=(1, 2, 2)), 2)
+    assert slab.ncells == (5, 2, 2) and slab.qz == 2
+    assert slab.periodic == (False, True, True)
+    kern = kernel_factory("m4", 3)
+    shape = slab.ncells + (4,)
+    r_d = torch.rand(shape + (3,), **f64)
+    m_d = torch.rand(shape, **f64)
+    fill = torch.ones(shape, dtype=torch.bool)
+    tabs = torch.rand((1, 7, 16), **f64)
+    box = torch.rand((2, 3), **f64)
+    before = dict(_ext.LAUNCHES)
+    for call in (
+            lambda: _ext.grid27_bin(spec, torch.rand((8, 3), **f64),
+                                    zrow_max=1),
+            lambda: _ext.grid27_density(slab, kern, 1.2, 0.01, 0.5, r_d,
+                                        m_d, m_d, fill, rows_win=(2, 3)),
+            lambda: _ext.grid27_forces(slab, kern, ArtificialViscosity(),
+                                       r_d, r_d, torch.rand(shape + (9,),
+                                                            **f64),
+                                       fill, rows_win=(2, 3)),
+            lambda: _ext.let_far_walk(tabs, box, box,
+                                      torch.rand((64, 3), **f64),
+                                      torch.ones(64, dtype=torch.bool), 32,
+                                      8, 0.1, True)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    assert _ext.LAUNCHES == before
+    with pytest.raises(NotImplementedError, match="item 13"):
+        _ext._grid_args_nd(slab)
+    assert _ext._grid_args_nd(slab, True)[:4] == (3, 5, 2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dist_kernels_match_plain_versions_on_gpu(dtype):
+    """K1 with zrow_max, K2 and K3 on ghosted slabs (qz 1 and qz 2) and
+    K38 (ring radius 1, one far shard) against their plain versions on
+    the 12^3 box over 4 shards on one card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gandalf_tpu_torch.check import (compare_dist_kernels, dist_sim,
+                                         thin_slab_plan)
+
+    sim = dist_sim(12, 4, "cuda", dtype)
+    thin = thin_slab_plan(sim)
+    report = compare_dist_kernels(sim, ring_radius=1)
+    report.update(compare_dist_kernels(sim, plan=thin, tag="_thin"))
+    torch.cuda.synchronize()
+    assert "let_far_walk" in report and thin.global_spec.qz > 1
+    assert all(r["ok"] for r in report.values()), report
